@@ -1,0 +1,212 @@
+"""Serving benchmark and served-path check for the PyTorch port.
+
+Counterpart of ``flash_attention_metal_tpu/harness/serving.py`` in its dense
+mode: continuous-batching decode throughput of ``DecodeEngine`` on a FlashLM
+model, timed on the host clock between device fences.  ``host_context``
+records the card's name and power limit, since a card set below its
+maximum power runs slower under load.
+
+``teacher_forced_errors`` is the check that the served path is right: the
+logits of prefill and cached decode steps against a plain fp32 forward over
+the same tokens.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import time
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..models.transformer import ModelConfig, Params, forward, init_params
+from ..runtime.decode import decode_step, prefill_slot
+from ..runtime.engine import DecodeEngine, Request, _pad_to
+from ..runtime.kv_cache import init_cache
+
+# Largest relative L2 error ||served - reference|| / ||reference|| allowed
+# for one step's [V] logits by ``teacher_forced_errors`` with bf16
+# weights, activations and cache against the fp32 plain forward.  bf16
+# rounding of activations through the layers costs one to two percent, at
+# short and at long prompts; a kernel that reads one cache position too
+# few or too many, or RoPE in the half-split pairing, costs more than this
+# at short lengths (tests/test_torch_serving.py injects each fault).
+LOGITS_REL_L2_TOL = 5e-2
+
+# The widest FlashLM the repo records (the model of train_bench.json), as
+# ``build_engine`` keywords.
+FLASHLM_D2048 = dict(
+    vocab=32768, d_model=2048, n_layers=8, n_heads=16, n_kv_heads=8, d_ff=4096
+)
+
+
+def nvidia_smi_line() -> str:
+    """``name, power.limit`` of the first card, as nvidia-smi prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def host_context(device: torch.device) -> Dict[str, object]:
+    """What the recorded numbers ran on."""
+    ctx: Dict[str, object] = {"device": str(device), "host_cpus": os.cpu_count()}
+    if torch.device(device).type == "cuda":
+        ctx["gpu"] = torch.cuda.get_device_name(device)
+        ctx["nvidia_smi"] = nvidia_smi_line()
+    return ctx
+
+
+def _fence(device: torch.device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def build_engine(
+    *,
+    max_batch: int = 8,
+    max_len: int = 2048,
+    n_layers: int = 4,
+    d_model: int = 512,
+    n_heads: int = 8,
+    n_kv_heads: int = 4,
+    d_ff: int = 2048,
+    vocab: int = 32768,
+    dtype: torch.dtype = torch.bfloat16,
+    seed: int = 0,
+    device="cuda",
+    **engine_kwargs,
+) -> tuple:
+    """A ``DecodeEngine`` over a FlashLM with seeded random weights."""
+    cfg = ModelConfig(
+        vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=max_len,
+        dtype=dtype,
+    )
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen)
+    eng = DecodeEngine(
+        params, cfg, max_batch=max_batch, max_len=max_len, seed=seed, **engine_kwargs
+    )
+    return eng, cfg
+
+
+def make_requests(
+    n: int, vocab: int, prompt_lens: Sequence[int], max_new: int, seed: int
+) -> List[Request]:
+    """``n`` requests with prompt lengths drawn from ``[lo, hi]``; odd uids
+    sample at temperature 0.8 with top-k 50, even uids are greedy (the mix
+    of ``examples/generate.py``)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = prompt_lens
+    return [
+        Request(
+            uid=uid,
+            prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist(),
+            max_new_tokens=max_new,
+            temperature=0.8 if uid % 2 else 0.0,
+            top_k=50 if uid % 2 else 0,
+        )
+        for uid in range(n)
+    ]
+
+
+def run_serving_bench(
+    eng: DecodeEngine, requests: List[Request], log=print
+) -> Dict[str, object]:
+    """Serve ``requests`` to completion and time it end to end.
+
+    The timed region starts and ends with a device fence and includes
+    every admission (prefill) and decode step.  Run a warm-up request
+    through the engine first so one-time set-up stays outside it.
+    """
+    for req in requests:
+        eng.submit(req)
+    _fence(eng.device)
+    steps0 = eng.steps
+    t0 = time.perf_counter()
+    while eng.pending():
+        eng.step()
+    _fence(eng.device)
+    elapsed = time.perf_counter() - t0
+    steps = eng.steps - steps0
+    tokens = sum(len(r.generated) for r in requests)
+    cfg = eng.cfg
+    result = {
+        "mode": "dense",
+        "host": host_context(eng.device),
+        "model": {
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": str(cfg.dtype),
+        },
+        "max_batch": len(eng.slots),
+        "n_requests": len(requests),
+        "decode_steps": steps,
+        "elapsed_s": elapsed,
+        "total_generated_tokens": tokens,
+        "tokens_per_s": tokens / elapsed,
+        "ms_per_step": elapsed / max(steps, 1) * 1e3,
+    }
+    log(
+        f"serving[dense]: {tokens} tokens in {elapsed:.3f}s over {steps} "
+        f"steps -> {result['tokens_per_s']:.1f} tok/s, "
+        f"{result['ms_per_step']:.3f} ms/step (batch {len(eng.slots)})"
+    )
+    return result
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want) / torch.linalg.vector_norm(want))
+
+
+def teacher_forced_errors(
+    params: Params,
+    cfg: ModelConfig,
+    prompts: List[List[int]],
+    n_decode: int,
+    max_len: int,
+    seed: int = 0,
+) -> List[float]:
+    """Relative L2 errors of served logits against a plain fp32 forward.
+
+    Each prompt is prefilled into its own slot of a fresh cache; then
+    ``n_decode`` teacher-forced ``decode_step``s feed seeded tokens to all
+    slots at once.  The reference runs the same tokens through ``forward``
+    in fp32 with the oracle attention and no cache.  Returns one error per
+    slot per step (the prefill's last-token logits first).  Logits, not
+    tokens, are compared: with random weights the top logit flips on
+    rounding.
+    """
+    device = params["embed"].device
+    rng = np.random.default_rng(seed)
+    cont = rng.integers(1, cfg.vocab_size, (len(prompts), n_decode))
+    cache = init_cache(
+        cfg.n_layers, len(prompts), cfg.n_kv_heads, max_len, cfg.head_dim,
+        dtype=cfg.dtype, device=device,
+    )
+    served: List[List[torch.Tensor]] = []
+    for slot, prompt in enumerate(prompts):
+        tokens = torch.from_numpy(_pad_to(list(prompt), 128)).to(device)
+        logits, cache = prefill_slot(params, cfg, cache, tokens, len(prompt), slot)
+        served.append([logits])
+    active = torch.ones((len(prompts),), dtype=torch.bool, device=device)
+    for t in range(n_decode):
+        toks = torch.from_numpy(cont[:, t].astype(np.int32)).to(device)
+        logits, cache = decode_step(params, cfg, cache, toks, active)
+        for slot in range(len(prompts)):
+            served[slot].append(logits[slot])
+
+    ref_cfg = dataclasses.replace(cfg, dtype=torch.float32, attn_impl="reference")
+    errors = []
+    for slot, prompt in enumerate(prompts):
+        seq = torch.tensor([list(prompt) + cont[slot].tolist()], device=device)
+        ref = forward(params, seq, ref_cfg)[0]
+        for i, got in enumerate(served[slot]):
+            errors.append(_rel_l2(got, ref[len(prompt) - 1 + i]))
+    return errors

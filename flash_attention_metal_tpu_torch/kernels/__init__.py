@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels, their wrappers and their plain versions."""
+
+from .flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_plain"]

@@ -1,0 +1,185 @@
+"""FlashLM: the GQA decoder-only transformer served by the port.
+
+Counterpart of ``flash_attention_metal_tpu/models/transformer.py``:
+RMSNorm, SwiGLU, interleaved-pair RoPE and GQA attention through the
+port's flash-attention op.  Parameters are a plain dict with the JAX
+package's keys and ``[in, out]`` layout, so the two are compared leaf by
+leaf (``models/from_jax.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import flash_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int = 32768
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 2
+    head_dim: int = 64
+    d_ff: int = 1408  # ~8/3 * d_model rounded to 128
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    dtype: torch.dtype = torch.bfloat16
+    # "auto": the flash-attention kernel; "reference": the fp32 oracle
+    # (the JAX package's attn_impl="xla").
+    attn_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.d_ff % 128 or self.d_model % 128:
+            raise ValueError("d_model and d_ff must be multiples of 128")
+        if self.attn_impl not in ("auto", "reference"):
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+
+
+Params = Dict[str, Any]
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
+    """Random FlashLM weights on ``generator``'s device.
+
+    The JAX package keeps fp32 masters and casts them to ``cfg.dtype`` at
+    every use.  Serving never updates them, so this keeps one copy already
+    in ``cfg.dtype``: the values the matmuls see are identical.  The norm
+    gains stay fp32, as the JAX RMSNorm multiplies by them in fp32.
+    """
+    dev = generator.device
+    d, h, hk, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return (x * std).to(cfg.dtype)
+
+    def dense(fan_in, shape):
+        return normal(shape, fan_in**-0.5)
+
+    def ones():
+        return torch.ones((d,), dtype=torch.float32, device=dev)
+
+    layers = [
+        {
+            "attn_norm": ones(),
+            "wq": dense(d, (d, h * hd)),
+            "wk": dense(d, (d, hk * hd)),
+            "wv": dense(d, (d, hk * hd)),
+            "wo": dense(h * hd, (h * hd, d)),
+            "mlp_norm": ones(),
+            "w_gate": dense(d, (d, f)),
+            "w_up": dense(d, (d, f)),
+            "w_down": dense(f, (f, d)),
+        }
+        for _ in range(cfg.n_layers)
+    ]
+    return {
+        "embed": normal((cfg.vocab_size, d), 0.02),
+        "layers": layers,
+        "final_norm": ones(),
+        "lm_head": dense(d, (d, cfg.vocab_size)),
+    }
+
+
+def weight(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """A dense weight in compute dtype (no copy when it is stored so)."""
+    return w.to(dt)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding over ``[B, H, N, D]`` with positions ``[B, N]``.
+
+    Pairs are interleaved channels ``(2j, 2j+1)``, as in the JAX package,
+    not the half-split pairing ``(j, j + D/2)`` of Hugging Face's Llama.
+    """
+    hd = x.shape[-1]
+    freqs = theta ** (
+        -torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd
+    )
+    angles = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
+    b, n, _ = x.shape
+    return x.reshape(b, n, n_heads, head_dim).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = x.shape
+    return x.transpose(1, 2).reshape(b, n, h * d)
+
+
+def qkv_projections(layer: Params, x: torch.Tensor, cfg: ModelConfig, positions):
+    """Pre-norm Q/K/V projections with RoPE on Q and K: ``[B, H, N, D]``."""
+    dt = cfg.dtype
+    h = rms_norm(x, layer["attn_norm"])
+    q = _split_heads(h @ weight(layer["wq"], dt), cfg.n_heads, cfg.head_dim)
+    k = _split_heads(h @ weight(layer["wk"], dt), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(h @ weight(layer["wv"], dt), cfg.n_kv_heads, cfg.head_dim)
+    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+
+
+def attention_block(
+    layer: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+) -> torch.Tensor:
+    """Causal self-attention over ``x`` with a residual connection."""
+    q, k, v = qkv_projections(layer, x, cfg, positions)
+    o = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    return x + _merge_heads(o) @ weight(layer["wo"], cfg.dtype)
+
+
+def mlp_block(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.dtype
+    h = rms_norm(x, layer["mlp_norm"])
+    gate = F.silu(h @ weight(layer["w_gate"], dt))
+    up = h @ weight(layer["w_up"], dt)
+    return x + (gate * up) @ weight(layer["w_down"], dt)
+
+
+def forward_hidden(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Transformer stack up to the final norm: ``[B, N, d]`` hidden."""
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device).expand(
+            tokens.shape
+        )
+    x = params["embed"][tokens.long()].to(cfg.dtype)
+    for layer in params["layers"]:
+        x = attention_block(layer, x, cfg, positions)
+        x = mlp_block(layer, x, cfg)
+    return rms_norm(x, params["final_norm"])
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``[B, N]`` tokens -> ``[B, N, V]`` fp32 logits (no cache)."""
+    x = forward_hidden(params, tokens, cfg, positions=positions)
+    return (x @ weight(params["lm_head"], cfg.dtype)).float()

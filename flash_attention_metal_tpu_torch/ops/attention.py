@@ -1,0 +1,137 @@
+"""Public attention API of the PyTorch port (forward only).
+
+Counterpart of ``flash_attention_metal_tpu/ops/attention.py``.  Inputs and
+outputs keep the JAX package's ``[B, H, N, D]`` layout.  Serving needs no
+gradient, and the backward kernels are a later slice of the port, so an
+input that requires grad is refused rather than differentiated through the
+plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from ..config import default_scale
+from ..kernels.flash_fwd import flash_attention_fwd, reject_unported
+from ..reference.oracle import attention_reference, attention_reference_with_lse
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: Union[None, int, torch.Tensor] = None,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    save_lse: bool = False,
+    impl: str = "auto",
+    **features,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Flash attention over ``[B, H, N, D]`` inputs.
+
+    Args:
+      q: ``[batch, q_heads, n_q, head_dim]``.
+      k, v: ``[batch, kv_heads, n_kv, head_dim]``; ``kv_heads`` divides
+        ``q_heads`` (GQA/MQA).
+      q_offset: int or ``[B]`` int tensor: with ``causal``, row ``r`` of
+        batch ``b`` sees columns ``c <= r + q_offset[b]``.  Defaults to
+        ``n_kv - n_q`` (end-aligned diagonals).
+      save_lse: also return the per-row logsumexp ``[B, H, N_q]`` (fp32).
+      impl: ``"auto"`` runs the forward kernel (its plain version for CPU
+        tensors); ``"reference"`` runs the fp32 oracle, the counterpart of
+        the JAX package's ``impl="xla"``.
+      features: the JAX op's window/sinks/segment_ids/kv_positions/softcap/
+        alibi/dropout arguments; each raises NotImplementedError if set.
+
+    Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.
+    """
+    if q.ndim != 4:
+        raise ValueError(f"expected [B, H, N, D] inputs, got {tuple(q.shape)}")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward-only in the PyTorch port: the "
+            "backward kernels and the autograd.Function are a later slice "
+            "(see ROADMAP.md, Queue A item 3)"
+        )
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"q heads ({q.shape[1]}) must be a multiple of kv heads ({k.shape[1]})"
+        )
+    if sm_scale is None:
+        sm_scale = default_scale(q.shape[-1])
+    if q_offset is None:
+        q_offset = k.shape[2] - q.shape[2]
+    if impl == "reference":
+        reject_unported(features)
+        ref = attention_reference_with_lse if save_lse else attention_reference
+        return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+    if impl != "auto":
+        raise ValueError(f"unknown impl {impl!r}")
+    # The kernel's wrapper refuses the unported features.
+    return flash_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), q_offset,
+        sm_scale=sm_scale, causal=causal, save_lse=save_lse, **features,
+    )
+
+
+def fold_gqa_rows(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """``[B, Hq, T, D] -> [B, Hkv, T*group, D]`` with row ``t*group + g``.
+
+    Row-major grouping matches the kernel's ``h // group`` GQA convention
+    (q-head ``kv*group + g``) and its ``pos_div`` masking (position
+    ``row // group``)."""
+    b, hq, t, d = q.shape
+    group = hq // kv_heads
+    return (
+        q.reshape(b, kv_heads, group, t, d)
+        .transpose(2, 3)
+        .reshape(b, kv_heads, t * group, d)
+    )
+
+
+def unfold_gqa_rows(x: torch.Tensor, q_heads: int, t: int) -> torch.Tensor:
+    """Inverse of ``fold_gqa_rows`` on outputs (any trailing dims)."""
+    b, hkv = x.shape[:2]
+    group = q_heads // hkv
+    tail = tuple(x.shape[3:])
+    return (
+        x.reshape(b, hkv, t, group, *tail)
+        .transpose(2, 3)
+        .reshape(b, q_heads, t, *tail)
+    )
+
+
+def gqa_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    save_lse: bool = False,
+    **features,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Head-folded GQA/MQA decode attention (forward only, serving path).
+
+    ``q``: ``[B, H_q, T, D]`` new-token queries at positions
+    ``q_offset[b] + t``; ``k, v``: ``[B, H_kv, N, D]`` cache.  Each KV
+    head's ``group`` query heads fold into adjacent rows of one tile
+    (kernel ``pos_div`` masking), so the cache streams once per KV head
+    instead of once per q-head.  Returns ``o`` shaped like ``q`` (and
+    ``lse [B, H_q, T]``).
+    """
+    b, hq, t, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads ({hq}) not a multiple of kv heads ({hkv})")
+    group = hq // hkv
+    out = flash_attention_fwd(
+        fold_gqa_rows(q, hkv).contiguous(), k, v, q_offset, causal=True,
+        sm_scale=sm_scale, save_lse=save_lse, pos_div=group, **features,
+    )
+    if save_lse:
+        return unfold_gqa_rows(out[0], hq, t), unfold_gqa_rows(out[1], hq, t)
+    return unfold_gqa_rows(out, hq, t)
