@@ -4,13 +4,15 @@ Shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``, and runnable on
 its own on a CUDA card:
 
     python -m flash_attention_metal_tpu_torch.harness.onchip sweep
-    python -m flash_attention_metal_tpu_torch.harness.onchip profile
+    python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train]
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
-offset (prefill).  ``profile`` traces steady decode steps and a prefill of
-the served FlashLM with ``torch.profiler`` and splits their wall time into
-device-busy time, by kernel, and idle time.  Every line it prints carries
-the card's name and power limit.
+offset (prefill).  ``profile`` (``serving``, the default) traces steady
+decode steps and a prefill of the served FlashLM with ``torch.profiler``
+and splits their wall time into device-busy time, by kernel, and idle time;
+``profile train`` does the same for ``Trainer.step`` at the
+``train_bench.json`` width.  Every line it prints carries the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import default_scale
+from ..kernels.flash_bwd import flash_attention_bwd, flash_attention_bwd_plain
 from ..kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
 from ..runtime import decode as decode_mod
 from . import serving
@@ -44,6 +47,19 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 PEAKED_Q_SCALE = 8.0
 PREFILL_Q, PREFILL_KV = (1, 16, 512, 64), (1, 8, 2048, 64)
 DECODE_Q, DECODE_KV = (8, 8, 2, 64), (8, 8, 2048, 64)
+# The training step's attention (train_bench.json: batch 4, seq 2048,
+# 16 q-heads over 8 KV heads), and its fp32 case at N = 512.
+TRAIN_Q, TRAIN_KV = (4, 16, 2048, 64), (4, 8, 2048, 64)
+TRAIN_FP32_Q, TRAIN_FP32_KV = (4, 16, 512, 64), (4, 8, 512, 64)
+# Backward kernels against their fp32 plain version: max-abs error over
+# max-abs of the plain gradient, per gradient.  Gradients grow with N and
+# with the fixture's peakedness (dK is O(10) on the peaked one), so an
+# absolute bound would be either loose on the ladder or tight on the peaked
+# fixture.  bf16: P and dS enter the products rounded to bf16 and the
+# gradients are stored in bf16 (2^-9 each, relative), so 1e-2 is the
+# ladder's half-precision rung on this scale.  fp32 reads ~1e-7 (IEEE FMA,
+# other summation order); TF32 products would read ~1e-3 and fail 1e-5.
+BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
 def ladder_inputs(shape_q, shape_kv, dtype, gen, q_scale: float = 1.0):
@@ -88,6 +104,51 @@ def path_cases(gen: torch.Generator) -> Dict[str, tuple]:
         name: (q, k, v, off.to("cuda", torch.int32), pos_div)
         for name, (q, k, v, off, pos_div) in cases.items()
     }
+
+
+def train_cases(gen: torch.Generator) -> Dict[str, tuple]:
+    """``{name: (q, k, v, do, q_offset)}`` at the training step's shapes:
+    causal self-attention (offset 0), bf16 on the ladder and the peaked
+    fixture, and fp32 at N = 512.  ``do`` is uniform(-1, 1) too."""
+    cases = {}
+    for name, shape_q, shape_kv, dtype, q_scale in (
+        ("train_bf16", TRAIN_Q, TRAIN_KV, torch.bfloat16, 1.0),
+        ("train_bf16_peaked", TRAIN_Q, TRAIN_KV, torch.bfloat16, PEAKED_Q_SCALE),
+        ("train_fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, torch.float32, 1.0),
+    ):
+        q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen, q_scale)
+        do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+        off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
+        cases[name] = (q, k, v, do, off)
+    return cases
+
+
+def bwd_inputs(case: tuple) -> tuple:
+    """``(q, k, v, o, do, lse, q_offset)``: a ``train_cases`` entry with the
+    forward kernel's ``o`` and ``lse``, which the backward takes as given."""
+    q, k, v, do, off = case
+    o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+    return q, k, v, o, do, lse, off
+
+
+def bwd_kernel_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
+    """``{"dq", "dk", "dv"}: (max-abs error, normalised error)`` of the
+    backward kernels against the fp32 plain version on the same inputs; the
+    normalised error (``BWD_TOL``'s measure) divides by the plain
+    gradient's max-abs."""
+    q, k, v, o, do, lse, off = inputs
+    scale = default_scale(q.shape[-1])
+    got = flash_attention_bwd(q, k, v, o, do, lse, off, sm_scale=scale, causal=True)
+    want = flash_attention_bwd_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, off,
+        sm_scale=scale, causal=True,
+    )
+    torch.cuda.synchronize()
+    errors = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        errors[name] = (err, err / w.abs().max().item())
+    return errors
 
 
 def kernel_error(case: tuple) -> Tuple[float, float]:
@@ -245,9 +306,36 @@ def profile_serving(eng, stamp: str, iters: int = 20, log=print) -> None:
             log(f"[profile]   {ms * 1e3:9.1f} us in {n:4.0f} ops  {name[:100]}")
 
 
+def profile_train(stamp: str, iters: int = 3, log=print) -> Dict[str, float]:
+    """Where a full-width ``Trainer.step`` (L8 d2048, batch 4, seq 2048)
+    spends its wall time: device busy and idle, the top device ops, and the
+    backward kernels' share of the step."""
+    from ..models.trainer import Trainer, make_optimizer
+    from .train_bench import fixed_batch, flashlm_config
+
+    cfg = flashlm_config()
+    trainer = Trainer(cfg, optimizer=make_optimizer(warmup_steps=2), seed=SEED, device="cuda")
+    tokens = fixed_batch(cfg, 4, 2048, SEED + 1)
+    step = lambda: trainer.step(tokens)  # noqa: E731
+    wall = wall_ms(step, iters)
+    busy, kernels = _device_breakdown(step, iters)
+    launches = sum(n for _, n in kernels.values())
+    bwd_ms = sum(ms for name, (ms, _) in kernels.items() if "flash_bwd" in name)
+    fwd_ms = sum(ms for name, (ms, _) in kernels.items() if "flash_fwd" in name)
+    log(f"[profile] train step, L{cfg.n_layers} d{cfg.d_model} b4 s2048: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms, idle {1 - busy / wall:.1%}, {launches:.0f} device ops "
+        f"per step ({stamp})")
+    log(f"[profile]   backward kernels {bwd_ms:.3f} ms = {bwd_ms / wall:.1%} of the step; "
+        f"forward kernel {fwd_ms:.3f} ms = {fwd_ms / wall:.1%}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[profile]   {ms * 1e3:9.1f} us in {n:4.0f} ops  {name[:100]}")
+    return {"wall_ms": wall, "busy_ms": busy, "bwd_ms": bwd_ms, "fwd_ms": fwd_ms}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("sweep", "profile"))
+    parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -255,6 +343,9 @@ def main(argv=None) -> int:
     stamp = serving.nvidia_smi_line()
     if args.what == "sweep":
         sweep(stamp)
+        return 0
+    if args.target == "train":
+        profile_train(stamp)
         return 0
     eng, _ = serving.build_engine(
         **serving.FLASHLM_D2048, max_batch=8, max_len=2048, seed=SEED, device="cuda"

@@ -23,13 +23,17 @@ def params_from_jax(
     tree: Mapping[str, Any],
     cfg: ModelConfig,
     device: Optional[torch.device] = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """The port's parameters from a JAX FlashLM pytree of numpy arrays.
 
-    Matrices and the embedding become ``cfg.dtype`` (the JAX model casts its
-    fp32 masters to that dtype at every use); norm gains stay fp32.
-    Weight-only int8 and MoE layers are not ported and raise.
+    Matrices and the embedding become ``dtype``, by default ``cfg.dtype``
+    (for serving: the JAX model casts its fp32 masters to that dtype at
+    every use); training passes ``torch.float32`` to keep fp32 masters.
+    Norm gains stay fp32.  Weight-only int8 and MoE layers are not ported
+    and raise.
     """
+    store = cfg.dtype if dtype is None else dtype
 
     def tensor(a, dtype):
         if isinstance(a, Mapping):
@@ -44,14 +48,14 @@ def params_from_jax(
     for layer in tree["layers"]:
         if "w_router" in layer:
             raise NotImplementedError("MoE layers are not ported (see ROADMAP.md)")
-        out = {name: tensor(layer[name], cfg.dtype) for name in _MATRICES}
+        out = {name: tensor(layer[name], store) for name in _MATRICES}
         out.update({name: tensor(layer[name], torch.float32) for name in _NORMS})
         layers.append(out)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, cfg has {cfg.n_layers}")
     return {
-        "embed": tensor(tree["embed"], cfg.dtype),
+        "embed": tensor(tree["embed"], store),
         "layers": layers,
         "final_norm": tensor(tree["final_norm"], torch.float32),
-        "lm_head": tensor(tree["lm_head"], cfg.dtype),
+        "lm_head": tensor(tree["lm_head"], store),
     }

@@ -1,19 +1,21 @@
-"""FlashLM: the GQA decoder-only transformer served by the port.
+"""FlashLM: the GQA decoder-only transformer the port serves and trains.
 
 Counterpart of ``flash_attention_metal_tpu/models/transformer.py``:
 RMSNorm, SwiGLU, interleaved-pair RoPE and GQA attention through the
-port's flash-attention op.  Parameters are a plain dict with the JAX
-package's keys and ``[in, out]`` layout, so the two are compared leaf by
-leaf (``models/from_jax.py``).
+port's flash-attention op, a per-block activation checkpoint (remat) for
+training, the next-token loss and a plain SGD step.  Parameters are a plain
+dict with the JAX package's keys and ``[in, out]`` layout, so the two are
+compared leaf by leaf (``models/from_jax.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import flash_attention
 
@@ -33,6 +35,13 @@ class ModelConfig:
     # "auto": the flash-attention kernel; "reference": the fp32 oracle
     # (the JAX package's attn_impl="xla").
     attn_impl: str = "auto"
+    # The JAX config's attention features, not ported yet: each raises
+    # NotImplementedError unless left at its "off" value.
+    attn_window: Optional[int] = None
+    attn_sinks: int = 0
+    attn_softcap: Optional[float] = None
+    attn_alibi: bool = False
+    attn_dropout: float = 0.0
 
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
@@ -41,25 +50,42 @@ class ModelConfig:
             raise ValueError("d_model and d_ff must be multiples of 128")
         if self.attn_impl not in ("auto", "reference"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        asked = [
+            name for name in (
+                "attn_window", "attn_sinks", "attn_softcap", "attn_alibi", "attn_dropout"
+            ) if getattr(self, name)
+        ]
+        if asked:
+            raise NotImplementedError(
+                f"{asked} not ported to the PyTorch package yet "
+                "(see ROADMAP.md, Queue A item 5)"
+            )
 
 
 Params = Dict[str, Any]
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
+def init_params(
+    cfg: ModelConfig,
+    generator: torch.Generator,
+    master_dtype: Optional[torch.dtype] = None,
+) -> Params:
     """Random FlashLM weights on ``generator``'s device.
 
     The JAX package keeps fp32 masters and casts them to ``cfg.dtype`` at
-    every use.  Serving never updates them, so this keeps one copy already
-    in ``cfg.dtype``: the values the matmuls see are identical.  The norm
-    gains stay fp32, as the JAX RMSNorm multiplies by them in fp32.
+    every use.  Training does the same (``master_dtype=torch.float32``).
+    Serving never updates the weights, so by default (``master_dtype``
+    None) the matrices are stored already in ``cfg.dtype``: the values the
+    matmuls see are identical.  The norm gains stay fp32, as the JAX RMSNorm
+    multiplies by them in fp32.
     """
     dev = generator.device
+    store = cfg.dtype if master_dtype is None else master_dtype
     d, h, hk, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
 
     def normal(shape, std):
         x = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
-        return (x * std).to(cfg.dtype)
+        return (x * std).to(store)
 
     def dense(fan_in, shape):
         return normal(shape, fan_in**-0.5)
@@ -160,16 +186,30 @@ def forward_hidden(
     cfg: ModelConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    remat: bool = True,
 ) -> torch.Tensor:
-    """Transformer stack up to the final norm: ``[B, N, d]`` hidden."""
+    """Transformer stack up to the final norm: ``[B, N, d]`` hidden.
+
+    With ``remat`` and grad enabled each block runs under an activation
+    checkpoint (the JAX ``jax.checkpoint``): its activations are recomputed
+    in the backward, so the attention forward runs twice per layer.
+    """
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(
             tokens.shape
         )
-    x = params["embed"][tokens.long()].to(cfg.dtype)
+    # F.embedding, not indexing: its backward sums each row's gradient in a
+    # fixed order, so a training step is deterministic.
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+
+    def block(x, layer):
+        return mlp_block(layer, attention_block(layer, x, cfg, positions), cfg)
+
     for layer in params["layers"]:
-        x = attention_block(layer, x, cfg, positions)
-        x = mlp_block(layer, x, cfg)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(block, x, layer, use_reentrant=False)
+        else:
+            x = block(x, layer)
     return rms_norm(x, params["final_norm"])
 
 
@@ -179,7 +219,58 @@ def forward(
     cfg: ModelConfig,
     *,
     positions: Optional[torch.Tensor] = None,
+    remat: bool = True,
 ) -> torch.Tensor:
     """``[B, N]`` tokens -> ``[B, N, V]`` fp32 logits (no cache)."""
-    x = forward_hidden(params, tokens, cfg, positions=positions)
+    x = forward_hidden(params, tokens, cfg, positions=positions, remat=remat)
     return (x @ weight(params["lm_head"], cfg.dtype)).float()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross entropy over ``[B, N]`` tokens, on fp32 logits."""
+    logits = forward(params, tokens, cfg)[:, :-1]
+    targets = tokens[:, 1:].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+
+
+def param_leaves(params: Params) -> list:
+    """The parameter tensors in a fixed order (dict keys sorted, as JAX
+    flattens a pytree)."""
+    if isinstance(params, dict):
+        return [leaf for key in sorted(params) for leaf in param_leaves(params[key])]
+    if isinstance(params, (list, tuple)):
+        return [leaf for item in params for leaf in param_leaves(item)]
+    return [params]
+
+
+def map_params(fn, params: Params, *rest: Params) -> Params:
+    """``params`` with every tensor ``t`` replaced by ``fn(t, *others)``,
+    visited in ``param_leaves`` order."""
+    if isinstance(params, dict):
+        return {
+            k: map_params(fn, params[k], *(r[k] for r in rest)) for k in sorted(params)
+        }
+    if isinstance(params, (list, tuple)):
+        return type(params)(map_params(fn, *items) for items in zip(params, *rest))
+    return fn(params, *rest)
+
+
+def value_and_grad(loss, params: Params, *args) -> Tuple[torch.Tensor, Params]:
+    """``(loss(params, *args), d loss / d params)``; grads shaped like params."""
+    live = map_params(lambda p: p.detach().requires_grad_(True), params)
+    value = loss(live, *args)
+    grads = torch.autograd.grad(value, param_leaves(live))
+    it = iter(grads)
+    return value.detach(), map_params(lambda _: next(it), live)
+
+
+def sgd_train_step(
+    params: Params, tokens: torch.Tensor, cfg: ModelConfig, lr: float = 1e-3
+) -> Tuple[Params, torch.Tensor]:
+    """One SGD step: ``(params - lr * grads, loss)`` (the trainer wraps
+    AdamW around the same gradient)."""
+    loss, grads = value_and_grad(loss_fn, params, tokens, cfg)
+    with torch.no_grad():
+        params = map_params(lambda p, g: p - lr * g, params, grads)
+    return params, loss

@@ -1,10 +1,10 @@
-"""Public attention API of the PyTorch port (forward only).
+"""Public attention API of the PyTorch port: differentiable flash attention.
 
 Counterpart of ``flash_attention_metal_tpu/ops/attention.py``.  Inputs and
-outputs keep the JAX package's ``[B, H, N, D]`` layout.  Serving needs no
-gradient, and the backward kernels are a later slice of the port, so an
-input that requires grad is refused rather than differentiated through the
-plain version.
+outputs keep the JAX package's ``[B, H, N, D]`` layout.  The JAX op is a
+``custom_vjp`` over the forward and backward kernels; here that is a
+``torch.autograd.Function`` whose forward runs the forward kernel with the
+row logsumexp and whose backward runs the dK/dV and dQ kernels.
 """
 
 from __future__ import annotations
@@ -14,8 +14,41 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import default_scale
-from ..kernels.flash_fwd import flash_attention_fwd, reject_unported
+from ..kernels.flash_bwd import flash_attention_bwd
+from ..kernels.flash_fwd import _offsets, flash_attention_fwd, reject_unported
 from ..reference.oracle import attention_reference, attention_reference_with_lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the JAX ``_flash_core``: the forward always saves the
+    lse (as the JAX forward rule does), and with ``save_lse`` both outputs
+    are differentiable (the lse cotangent folds into the backward's delta).
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, off, sm_scale, causal, save_lse):
+        o, lse = flash_attention_fwd(
+            q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True
+        )
+        ctx.save_for_backward(q, k, v, off, o, lse)
+        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.set_materialize_grads(False)
+        if save_lse:
+            return o, lse
+        return o
+
+    @staticmethod
+    def backward(ctx, do, dlse=None):
+        q, k, v, off, o, lse = ctx.saved_tensors
+        # Cotangents arrive strided (the heads merge is a transpose): the
+        # kernels take contiguous rows, so copy once here.
+        do = torch.zeros_like(o) if do is None else do.contiguous()
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, do, lse, off,
+            None if dlse is None else dlse.contiguous(),
+            sm_scale=ctx.sm_scale, causal=ctx.causal,
+        )
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -30,7 +63,7 @@ def flash_attention(
     impl: str = "auto",
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Flash attention over ``[B, H, N, D]`` inputs.
+    """Differentiable flash attention over ``[B, H, N, D]`` inputs.
 
     Args:
       q: ``[batch, q_heads, n_q, head_dim]``.
@@ -40,40 +73,39 @@ def flash_attention(
         batch ``b`` sees columns ``c <= r + q_offset[b]``.  Defaults to
         ``n_kv - n_q`` (end-aligned diagonals).
       save_lse: also return the per-row logsumexp ``[B, H, N_q]`` (fp32).
-      impl: ``"auto"`` runs the forward kernel (its plain version for CPU
-        tensors); ``"reference"`` runs the fp32 oracle, the counterpart of
-        the JAX package's ``impl="xla"``.
+        Both outputs are differentiable.
+      impl: ``"auto"`` runs the kernels (their plain versions for CPU
+        tensors); ``"reference"`` runs the fp32 oracle, differentiated by
+        torch autograd: the counterpart of the JAX package's ``impl="xla"``.
       features: the JAX op's window/sinks/segment_ids/kv_positions/softcap/
         alibi/dropout arguments; each raises NotImplementedError if set.
 
-    Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.
+    Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.  When
+    grad is enabled and an input requires it, the backward runs the dK/dV
+    and dQ kernels.
     """
     if q.ndim != 4:
         raise ValueError(f"expected [B, H, N, D] inputs, got {tuple(q.shape)}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention is forward-only in the PyTorch port: the "
-            "backward kernels and the autograd.Function are a later slice "
-            "(see ROADMAP.md, Queue A item 3)"
-        )
     if q.shape[1] % k.shape[1]:
         raise ValueError(
             f"q heads ({q.shape[1]}) must be a multiple of kv heads ({k.shape[1]})"
         )
+    reject_unported(features)
     if sm_scale is None:
         sm_scale = default_scale(q.shape[-1])
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
     if impl == "reference":
-        reject_unported(features)
         ref = attention_reference_with_lse if save_lse else attention_reference
         return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
-    # The kernel's wrapper refuses the unported features.
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        off = _offsets(q_offset, q.shape[0], 0, q.device)
+        return _FlashAttention.apply(q, k, v, off, sm_scale, causal, save_lse)
     return flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), q_offset,
-        sm_scale=sm_scale, causal=causal, save_lse=save_lse, **features,
+        q, k, v, q_offset, sm_scale=sm_scale, causal=causal, save_lse=save_lse
     )
 
 

@@ -1,8 +1,8 @@
 """Golden-reference attention (plain PyTorch, fp32).
 
 Counterpart of ``flash_attention_metal_tpu/reference/oracle.py`` for the
-subset the serving path uses: causal masking with a scalar or per-batch
-``q_offset``, and GQA.  The whole score matrix is materialised and the
+subset the serving and training paths use: causal masking with a scalar or
+per-batch ``q_offset``, and GQA, forward and closed-form backward.  The whole score matrix is materialised and the
 softmax taken in two passes, so the code is obviously right; every kernel
 of the port is held against it.
 """
@@ -83,3 +83,43 @@ def attention_reference(
     return attention_reference_with_lse(
         q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset
     )[0]
+
+
+def attention_reference_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    q_offset: Union[None, int, torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Closed-form ``(dQ, dK, dV)`` of ``attention_reference``, in fp32.
+
+    dV = P^T dO; dP = dO V^T; dS = P * (dP - rowsum(dP * P)) * scale;
+    dQ = dS K; dK = dS^T Q, with P the oracle's softmax (no saved lse) and
+    dK/dV summed over each KV head's group.  Gradients come back in the
+    inputs' dtypes.
+    """
+    if sm_scale is None:
+        sm_scale = default_scale(q.shape[-1])
+    b, h_q, _, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
+    group = h_q // h_kv
+    s = _scores(q, k, causal, sm_scale, q_offset)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isneginf(m), torch.zeros_like(m), m))
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    dof = do.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * sm_scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dk = dk.reshape(b, h_kv, group, n_kv, d).sum(dim=2)
+    dv = dv.reshape(b, h_kv, group, n_kv, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

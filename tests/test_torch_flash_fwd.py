@@ -183,9 +183,16 @@ def test_unported_features_raise(feature):
 
 
 def test_requires_grad_raises():
+    """An input that requires grad was refused while the port was
+    forward-only; now it is differentiated (tests/test_torch_flash_bwd.py
+    checks the gradients), and only an unported feature still raises."""
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        flash_attention(q, q.detach(), q.detach(), causal=True)
+    o = flash_attention(q, q.detach(), q.detach(), causal=True)
+    assert o.requires_grad and o.grad_fn is not None
+    (g,) = torch.autograd.grad(o.sum(), q)
+    assert g.shape == q.shape
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, q.detach(), q.detach(), causal=True, softcap=30.0)
 
 
 def test_block_sizes_rule():
