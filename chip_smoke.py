@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``flash_attention_metal_tpu_torch/csrc``
-and drives both main paths at the widest FlashLM width the repo records
+(one ``nvcc`` per source, in parallel) and drives its three paths: serving
+and training at the widest FlashLM width the repo records
 (``train_bench.json``: d_model 2048, 8 layers, 16/8 heads, d_ff 4096,
-vocab 32768) with seeded random weights:
+vocab 32768) with seeded random weights, and the kernel ladder:
 
 * serving: the forward kernel against its plain version at the serving
   shapes, 16 requests through ``DecodeEngine``, served logits against a
@@ -14,11 +15,20 @@ vocab 32768) with seeded random weights:
 * training: the dK/dV and dQ kernels against their plain versions at the
   training shape, each parameter's gradient at depth 2 against the fp32
   oracle attention, 6 ``Trainer`` steps at batch 4, seq 2048 with the
-  kernels' launch counts, step time, tokens/s and MFU.
+  kernels' launch counts, step time, tokens/s and MFU;
+* the kernel ladder: the naive, lean and triangular forward kernels and
+  the triangular backward against their plain versions at the benchmark's
+  and the verification ladder's shapes, the port's verification ladder at
+  n = 1024 (every ported rung must pass) and a short benchmark (N = 128,
+  1024, 4096 and the high-occupancy phase), with each kernel's launches
+  over these two runs.  The full sweep is its own command:
+  ``python -m flash_attention_metal_tpu_torch.bench``.
 
-Each phase prints one line; any failure exits non-zero before the result
-lines.  The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+Each phase prints its lines; any failure exits non-zero before the result
+lines.  The last three lines are the card (``nvidia-smi``'s name and power
+limit), the kernels' JSON record (each kernel's errors, launches, device
+time, plain version's time, roofline bound and the library call's time)
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ GRAD_REL_L2_TOL = 5e-2
 # position too few or too many moves these logits most) and a long pair
 # (multi-tile prefill with padded rows, decode past 64 columns).
 CHECK_PROMPTS = (5, 11, 300, 900)
+# The benchmark's sweep, cut to three points here (the full sweep is its
+# own command), and the verification ladder's length.
+SHORT_SWEEP, LADDER_N = (128, 1024, 4096), 1024
 
 
 def check(cond: bool, what: str) -> None:
@@ -63,15 +76,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    from flash_attention_metal_tpu_torch import bench as bench_mod
     from flash_attention_metal_tpu_torch.harness import onchip, serving, train_bench
+    from flash_attention_metal_tpu_torch.harness.verify import run_ladder
     from flash_attention_metal_tpu_torch.kernels import _build
     from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
     from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
         flash_attention_fwd,
         flash_attention_fwd_plain,
+        flash_fwd_general,
+        flash_fwd_lean,
+        flash_fwd_lean_plain,
+    )
+    from flash_attention_metal_tpu_torch.kernels.naive import (
+        naive_attention,
+        naive_attention_plain,
     )
     from flash_attention_metal_tpu_torch.models import transformer as tf
     from flash_attention_metal_tpu_torch.runtime import engine as engine_mod
+    from flash_attention_metal_tpu_torch.utils import roofline
 
     # 1. Device.  The references run in true fp32, never TF32.
     smi = serving.nvidia_smi_line()
@@ -111,16 +135,16 @@ def main() -> int:
     prefill_slot = engine_mod.prefill_slot
 
     def counted_prefill(*args, **kwargs):
-        before = flash_attention_fwd.launches
+        before = flash_fwd_general.launches
         out = prefill_slot(*args, **kwargs)
-        prefill_launches[0] += flash_attention_fwd.launches - before
+        prefill_launches[0] += flash_fwd_general.launches - before
         return out
 
     engine_mod.prefill_slot = counted_prefill
     requests = serving.make_requests(N_REQUESTS, cfg.vocab_size, PROMPT_LENS, MAX_NEW, SEED)
-    flash_attention_fwd.launches = 0
+    flash_fwd_general.launches = 0
     bench = serving.run_serving_bench(eng, requests, log=lambda s: None)
-    launches = flash_attention_fwd.launches
+    launches = flash_fwd_general.launches
     engine_mod.prefill_slot = prefill_slot
     decode_launches = launches - prefill_launches[0]
     check(all(r.done and len(r.generated) == MAX_NEW for r in requests),
@@ -211,10 +235,10 @@ def main() -> int:
     del gparams, grads_k, grads_r
 
     # 9. Train: Trainer.step at the full width, counts over these steps only.
-    flash_attention_fwd.launches = fb.flash_bwd_dkv.launches = fb.flash_bwd_dq.launches = 0
+    flash_fwd_general.launches = fb.flash_bwd_dkv.launches = fb.flash_bwd_dq.launches = 0
     train = train_bench.run_train_bench(steps=TRAIN_STEPS, log=lambda s: None)
     train_launches = {
-        "fwd": flash_attention_fwd.launches,
+        "fwd": flash_fwd_general.launches,
         "dkv": fb.flash_bwd_dkv.launches,
         "dq": fb.flash_bwd_dq.launches,
     }
@@ -254,7 +278,167 @@ def main() -> int:
         print(f"[time] kernel {name} at the training shape q {tuple(q.shape)} kv "
               f"{tuple(k.shape)}: device {ms:.4f} ms, plain {plain_ms:.4f} ms {stamp}")
 
+    # 11. The kernel ladder's kernels against their plain versions at the
+    # benchmark's and the verification ladder's shapes: bf16 on the ladder,
+    # peaked and spike fixtures, fp32 (tolerances as for the serving kernel).
+    del train_cases
+    torch.cuda.empty_cache()
+    ladder_errors = {}
+    for name, (kernel, qkv, kw) in onchip.ladder_fwd_cases(gen).items():
+        err, lse_err = onchip.ladder_fwd_error(kernel, qkv, kw)
+        tol = onchip.TOL[qkv[0].dtype]
+        ladder_errors[name] = (kernel, qkv[0].dtype, err)
+        check(err <= tol and lse_err <= tol,
+              f"{name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+        print(f"[ladder-kernel] {name} ({kernel}) q {tuple(qkv[0].shape)} kv {tuple(qkv[1].shape)} "
+              f"{kw}: max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+    tri_bwd_errors = {}
+    for name, inputs in onchip.tri_bwd_cases(gen).items():
+        errs = onchip.tri_bwd_errors(inputs)
+        tol = onchip.BWD_TOL[inputs[0].dtype]
+        tri_bwd_errors[name] = errs
+        worst_rel = max(rel for _, rel in errs.values())
+        check(worst_rel <= tol, f"{name}: backward normalised error {worst_rel:.3e} > {tol}")
+        print(f"[ladder-kernel] {name} (flash_tri_bwd) q {tuple(inputs[0].shape)} kv "
+              f"{tuple(inputs[1].shape)} offset {inputs[6]}: "
+              + ", ".join(f"{g} max_abs {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items())
+              + f" (tol rel {tol})")
+    torch.cuda.empty_cache()
+
+    # 12. The slice's path: the verification ladder, then a short benchmark,
+    # with every kernel's launches counted over the two.
+    for fn in bench_mod.KERNELS.values():
+        fn.launches = 0
+    rungs = run_ladder(LADDER_N, device="cuda", log=lambda line: print(f"[ladder] {line}"))
+    failed = [r.name for r in rungs if not r.passed]
+    check(not failed, f"every ported ladder rung passes; failed: {failed}")
+    spec = roofline.detect_chip()
+    detail = bench_mod.run_bench(SHORT_SWEEP, spec=spec, log=lambda m: print(f"[bench] {m} {stamp}"))
+    slice_launches = bench_mod.kernel_launches()
+    occ = detail["high_occupancy"]
+    check(occ["bwd_spot_verify_pass"],
+          f"bench backward spot check {occ['bwd_spot_verify_max_diff']:.3e} < {bench_mod.SPOT_CHECK_TOL}")
+    unlaunched = [name for name, n in slice_launches.items() if n == 0]
+    check(not unlaunched, f"every kernel launched on the ladder and bench path; not: {unlaunched}")
+    print(f"[bench] short sweep {SHORT_SWEEP}: geomean speedup vs naive non-causal "
+          f"{detail['geomean_speedup']:.3f}x, causal {detail['geomean_speedup_causal']:.3f}x; "
+          f"{len(rungs)} ladder rungs passed; launches over the ladder and bench "
+          f"{slice_launches} {stamp}")
+
+    # 13. Each kernel's time at one shape of its path, beside its plain
+    # version's, the library call's and the roofline bound (bytes: each
+    # input read once, each output written once; operations: the visible
+    # score pairs, 4 flops per pair and head dim per forward matmul pair).
+    def times(kernel_fn, plain_fn, library, flops, nbytes, bits, shape):
+        ms_bound = roofline.roofline_time(flops, nbytes, spec, bits) * 1e3
+        return {
+            "ms": onchip.device_ms(kernel_fn),
+            "plain_ms": onchip.device_ms(plain_fn, iters=5),
+            "library_ms": library[0],
+            "library_backend": library[1],
+            "bound_ms": ms_bound,
+            "bound_by": roofline.bound_by(flops, nbytes, spec, bits),
+            "shape": shape,
+        }
+
+    def nb(*tensors):
+        return float(sum(t.numel() * t.element_size() for t in tensors))
+
+    scale = 0.125
+    rec = {}
+    gen.manual_seed(SEED + 3)
+    shp = onchip.SWEEP_1024
+    qn, kn, vn = onchip.ladder_inputs(shp, shp, torch.float32, gen)
+    qh, kh, vh = (x.bfloat16() for x in (qn, kn, vn))
+    pairs_full = shp[0] * shp[1] * shp[2] * shp[2]
+    rec["naive"] = times(
+        lambda: naive_attention(qn, kn, vn),
+        lambda: naive_attention_plain(qn, kn, vn, sm_scale=scale, causal=False),
+        onchip.sdpa_ms(qn, kn, vn), 4 * 64 * pairs_full, 2 * nb(qn, kn), 32,
+        f"sweep N=1024 B=8 H=1 fp32 non-causal")
+    rec["flash_lean"] = times(
+        lambda: flash_fwd_lean(qh, kh, vh),
+        lambda: flash_fwd_lean_plain(qh, kh, vh, 0, sm_scale=scale, causal=False),
+        onchip.sdpa_ms(qh, kh, vh), 4 * 64 * pairs_full, 2 * nb(qh, kh), 16,
+        f"sweep N=1024 B=8 H=1 bf16 non-causal")
+    shp = onchip.SWEEP_128
+    qs, ks, vs = onchip.ladder_inputs(shp, shp, torch.bfloat16, gen)
+    lean_128 = times(
+        lambda: flash_fwd_lean(qs, ks, vs),
+        lambda: flash_fwd_lean_plain(qs, ks, vs, 0, sm_scale=scale, causal=False),
+        onchip.sdpa_ms(qs, ks, vs), 4 * 64 * shp[0] * shp[2] * shp[2], 2 * nb(qs, ks), 16,
+        f"sweep N=128 B=512 H=1 bf16 non-causal")
+    del qn, kn, vn, qh, kh, vh, qs, ks, vs
+
+    b_, h_, n_, d_ = onchip.HIGH_OCC
+    qo, ko, vo = onchip.ladder_inputs(onchip.HIGH_OCC, onchip.HIGH_OCC, torch.bfloat16, gen)
+    doo = qo * 0.01
+    oo, lseo = ft.flash_attention_tri(qo, ko, vo, save_lse=True)
+    tri_pairs = b_ * h_ * roofline.visible_pairs(n_, n_, 0)
+    rec["flash_tri"] = times(
+        lambda: ft.flash_attention_tri(qo, ko, vo, save_lse=True),
+        lambda: ft.flash_attention_tri_plain(qo, ko, vo, 0, sm_scale=scale, save_lse=True),
+        onchip.sdpa_ms(qo, ko, vo, causal=True), 4 * d_ * tri_pairs,
+        2 * nb(qo, ko) + nb(lseo), 16, "high occupancy B16 H8 N2048 bf16 causal, lse")
+    rec["flash_tri_bwd"] = times(
+        lambda: ft.flash_attention_bwd_tri(qo, ko, vo, oo, doo, lseo),
+        lambda: ft.flash_attention_bwd_tri_plain(qo, ko, vo, oo, doo, lseo, 0, sm_scale=scale),
+        onchip.sdpa_ms(qo, ko, vo, causal=True, backward_of=doo), 10 * d_ * tri_pairs,
+        5 * nb(qo) + nb(lseo) + nb(qo) + 4 * qo.numel() * 2, 16,
+        "high occupancy B16 H8 N2048 bf16 causal")
+    del qo, ko, vo, doo, oo, lseo
+    torch.cuda.empty_cache()
+
+    # The serving kernel at the prefill case (its library call needs an
+    # explicit mask: the diagonal sits at offset 512, not top-left), the
+    # split pair at the training shape (the library's backward computes dQ,
+    # dK and dV together: the yardstick of both).
+    qp, kp, vp, offp, _ = cases["prefill_bf16_off512"]
+    n_qp, n_kvp = qp.shape[2], kp.shape[2]
+    mask = (torch.arange(n_kvp, device="cuda")[None, :]
+            <= torch.arange(n_qp, device="cuda")[:, None] + 512)
+    fwd_pairs = qp.shape[1] * roofline.visible_pairs(n_qp, n_kvp, 512)
+    rec["flash_fwd"] = {
+        "ms": timings["prefill_bf16_off512"][0],
+        "plain_ms": timings["prefill_bf16_off512"][1],
+    }
+    lib = onchip.sdpa_ms(qp, kp, vp, mask=mask)
+    flops, nbytes = 4 * 64 * fwd_pairs, 2 * nb(qp, kp)
+    rec["flash_fwd"].update(
+        library_ms=lib[0], library_backend=lib[1],
+        bound_ms=roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+        bound_by=roofline.bound_by(flops, nbytes, spec, 16),
+        shape="prefill q [1,16,512,64] kv [1,8,2048,64] offset 512 bf16")
+    train_pairs = q.shape[0] * q.shape[1] * roofline.visible_pairs(q.shape[2], k.shape[2], 0)
+    lib = onchip.sdpa_ms(q, k, v, causal=True, backward_of=do)
+    rows = nb(lse, delta)
+    for name, flops, nbytes in (
+        ("flash_bwd_dkv", 8 * 64 * train_pairs, nb(q, do, k, v, k, v) + rows),
+        ("flash_bwd_dq", 6 * 64 * train_pairs, nb(q, do, k, v, q) + rows),
+    ):
+        rec[name] = {
+            "ms": train_times[name][0],
+            "plain_ms": train_times[name][1],
+            "library_ms": lib[0],
+            "library_backend": lib[1] + " backward (dQ, dK, dV together)",
+            "bound_ms": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+            "bound_by": roofline.bound_by(flops, nbytes, spec, 16),
+            "shape": "training q [4,16,2048,64] kv [4,8,2048,64] bf16 causal",
+        }
+    for name, r in list(rec.items()) + [("flash_lean (N=128)", lean_128)]:
+        print(f"[time] kernel {name} at {r['shape']}: device {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
+              f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) {stamp}")
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
+    bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
+
+    def ladder_err(kernel, dtype):
+        return max(e for k_, d_, e in ladder_errors.values() if k_ == kernel and d_ == dtype)
+
+    def times_of(name):
+        return {key: rec[name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend", "shape")}
 
     def bwd_record(name, line, grads):
         return {
@@ -263,13 +447,32 @@ def main() -> int:
             "source": "flash_attention_metal_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"flash_attention_metal_tpu/kernels/flash_bwd.py:{line}",
             "launches": train_launches["dkv" if name.endswith("dkv") else "dq"],
+            "launches_ladder_bench": slice_launches[name],
             "max_abs_err": max(e[g][0] for e in bf16_bwd for g in grads),
             "max_rel_err": max(e[g][1] for e in bf16_bwd for g in grads),
             "max_rel_err_fp32": max(bwd_errors["train_fp32_n512"][g][1] for g in grads),
-            "ms": train_times[name][0],
-            "plain_ms": train_times[name][1],
+            **times_of(name),
         }
 
+    def ladder_record(name, source, line, kernel):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"flash_attention_metal_tpu_torch/csrc/{source}",
+            "replaces": line,
+            "launches": slice_launches[name],
+            "max_abs_err": ladder_err(kernel, torch.bfloat16 if kernel != "naive" else torch.float32),
+            **times_of(name),
+        }
+
+    lean_rec = ladder_record("flash_lean", "flash_lean.cu",
+                             "flash_attention_metal_tpu/kernels/flash_fwd.py:429", "flash_lean")
+    lean_rec.update({"max_abs_err_fp32": ladder_err("flash_lean", torch.float32),
+                     **{f"{key}_n128": lean_128[key] for key in (
+                         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
+    tri_rec = ladder_record("flash_tri", "flash_tri.cu",
+                            "flash_attention_metal_tpu/kernels/flash_tri.py:50", "flash_tri")
+    tri_rec["max_abs_err_fp32"] = ladder_err("flash_tri", torch.float32)
     record = {
         "kernels": [{
             "name": "flash_fwd",
@@ -279,18 +482,33 @@ def main() -> int:
             "launches": launches + train_launches["fwd"],
             "max_abs_err": max(errors[n] for n in errors if "bf16" in n),
             "max_abs_err_fp32": errors["prefill_fp32_off512"],
-            "ms": timings["prefill_bf16_off512"][0],
-            "plain_ms": timings["prefill_bf16_off512"][1],
+            **times_of("flash_fwd"),
             "decode_ms": timings["decode_bf16"][0],
             "decode_plain_ms": timings["decode_bf16"][1],
             "launches_prefill": prefill_launches[0],
             "launches_decode": decode_launches,
             "launches_train": train_launches["fwd"],
+            "launches_ladder_bench": slice_launches["flash_fwd"],
             "train_ms": train_times["flash_fwd"][0],
             "train_plain_ms": train_times["flash_fwd"][1],
         },
             bwd_record("flash_bwd_dkv", 79, ("dk", "dv")),
             bwd_record("flash_bwd_dq", 268, ("dq",)),
+            ladder_record("naive", "naive.cu", "flash_attention_metal_tpu/kernels/naive.py:31",
+                          "naive"),
+            lean_rec,
+            tri_rec,
+            {
+                "name": "flash_tri_bwd",
+                "route": "cuda",
+                "source": "flash_attention_metal_tpu_torch/csrc/flash_tri.cu",
+                "replaces": "flash_attention_metal_tpu/kernels/flash_tri.py:431",
+                "launches": slice_launches["flash_tri_bwd"],
+                "max_abs_err": max(e[g][0] for e in bf16_tri_bwd for g in e),
+                "max_rel_err": max(e[g][1] for e in bf16_tri_bwd for g in e),
+                "max_rel_err_fp32": max(r for _, r in tri_bwd_errors["tri_bwd_fp32_n1024"].values()),
+                **times_of("flash_tri_bwd"),
+            },
         ],
         "serving": {
             "tokens_per_s": bench["tokens_per_s"],
@@ -307,8 +525,19 @@ def main() -> int:
             "losses": losses,
             "grad_rel_l2_max": rels[worst_i],
         },
+        "bench_short": {
+            "sweep": SHORT_SWEEP,
+            "geomean_speedup": detail["geomean_speedup"],
+            "geomean_speedup_causal": detail["geomean_speedup_causal"],
+            "points": [{"n": p["n"], "causal": c, "speedup": p["speedup"],
+                        "flash_tflops": p["flash_tflops"]}
+                       for c, key in ((False, "sweep"), (True, "sweep_causal"))
+                       for p in detail[key]],
+            "high_occupancy": occ,
+        },
         "card": smi,
     }
+    print(smi)
     print(json.dumps(record))
     print(json.dumps({
         "ok": True,

@@ -1,4 +1,4 @@
-"""Kernel checks, device timing, the kernel sweep and the decode profile.
+"""Kernel checks, the kernel sweep and the decode profile.
 
 Shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``, and runnable on
 its own on a CUDA card:
@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
@@ -27,8 +26,21 @@ import torch
 
 from ..config import default_scale
 from ..kernels.flash_bwd import flash_attention_bwd, flash_attention_bwd_plain
-from ..kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+from ..kernels.flash_fwd import (
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+    flash_fwd_lean,
+    flash_fwd_lean_plain,
+)
+from ..kernels.flash_tri import (
+    flash_attention_bwd_tri,
+    flash_attention_bwd_tri_plain,
+    flash_attention_tri,
+    flash_attention_tri_plain,
+)
+from ..kernels.naive import naive_attention, naive_attention_plain
 from ..runtime import decode as decode_mod
+from ..utils.timing import device_ms, wall_ms
 from . import serving
 
 SEED = 0
@@ -151,17 +163,15 @@ def bwd_kernel_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
     return errors
 
 
-def kernel_error(case: tuple) -> Tuple[float, float]:
-    """Max-abs errors of the kernel's ``o`` and ``lse`` against the fp32
-    plain version on one ``path_cases`` entry.  The lse error is inf when
-    the two disagree on which rows see no column (``lse = -inf``)."""
-    q, k, v, off, pos_div = case
-    kw = dict(causal=True, pos_div=pos_div, save_lse=True)
-    o, lse = flash_attention_fwd(q, k, v, off, **kw)
-    o_ref, lse_ref = flash_attention_fwd_plain(
-        q.float(), k.float(), v.float(), off, sm_scale=default_scale(q.shape[-1]), **kw
-    )
+def _fwd_errors(got, want) -> Tuple[float, float]:
+    """Max-abs errors of ``o`` and of the lse (0 without one) against the
+    plain version's.  The lse error is inf when the two disagree on which
+    rows see no column (``lse = -inf``).  A NaN anywhere reads as NaN, which
+    fails every ``<=`` check."""
     torch.cuda.synchronize()
+    if not isinstance(got, tuple):
+        return (got.float() - want).abs().max().item(), 0.0
+    (o, lse), (o_ref, lse_ref) = got, want
     err = (o.float() - o_ref).abs().max().item()
     finite = torch.isfinite(lse_ref)
     if not torch.equal(finite, torch.isfinite(lse)):
@@ -169,42 +179,191 @@ def kernel_error(case: tuple) -> Tuple[float, float]:
     return err, (lse[finite] - lse_ref[finite]).abs().max().item()
 
 
-def device_ms(fn: Callable[[], object], iters: int = 20) -> float:
-    """Median device time of ``fn`` on CUDA events.
+def kernel_error(case: tuple) -> Tuple[float, float]:
+    """Max-abs errors of the general kernel's ``o`` and ``lse`` against the
+    fp32 plain version on one ``path_cases`` entry (see ``_fwd_errors``)."""
+    q, k, v, off, pos_div = case
+    kw = dict(causal=True, pos_div=pos_div, save_lse=True)
+    got = flash_attention_fwd(q, k, v, off, **kw)
+    want = flash_attention_fwd_plain(
+        q.float(), k.float(), v.float(), off, sm_scale=default_scale(q.shape[-1]), **kw
+    )
+    return _fwd_errors(got, want)
 
-    Before each call the L2 is flushed (serving finds the KV cache cold:
-    8 layers of it exceed the 50 MB L2) and a large matmul keeps the card
-    busy while the host queues ``fn``, so the events bracket device work
-    only, not the host's time to launch it.  The median, not the mean: a
-    call whose host was descheduled for longer than the matmul still
-    carries the wait.
+
+# ---------------------------------------------------------------------------
+# The kernel ladder's kernels (naive, lean, triangular) at the benchmark's
+# and the verification ladder's shapes.
+# ---------------------------------------------------------------------------
+
+# Shapes the benchmark gives the kernels: a sweep point (B * N^2 = 2^23),
+# the sweep's shortest point, the high-occupancy phase, the ladder's rungs.
+SWEEP_1024 = (8, 1, 1024, 64)
+SWEEP_128 = (512, 1, 128, 64)
+HIGH_OCC = (16, 8, 2048, 64)
+LADDER = (1, 2, 1024, 64)
+# The spike fixture: every query row has a large first component and key
+# column SPIKE_COL a larger one, so each row that sees that column scores
+# it ~100 (natural log units) above the rest: ~144 in the kernels' log2
+# units, past the range of exp2 in fp32.  A kernel that takes a row's max
+# over only part of the row, or forgets to rescale when the max jumps in a
+# later KV tile, overflows or keeps stale sums there; on the ladder's flat
+# fixture both are invisible (softmax is shift-invariant in exact
+# arithmetic).
+SPIKE_COL = 700
+
+
+def spike_inputs(shape_q, shape_kv, dtype, gen):
+    """The ladder fixture with q[..., 0] = 8 and k[..., SPIKE_COL, 0] = 100
+    (both exact in bf16)."""
+    q, k, v = ladder_inputs(shape_q, shape_kv, torch.float32, gen)
+    q[..., 0] = 8.0
+    k[..., SPIKE_COL, 0] = 100.0
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def _scale(q: torch.Tensor) -> float:
+    return default_scale(q.shape[-1])
+
+
+def _static(q_offset, q, k) -> int:
+    return k.shape[2] - q.shape[2] if q_offset is None else q_offset
+
+
+# Each forward kernel of the ladder: its wrapper, and its plain version
+# called with the wrapper's keywords.
+LADDER_FWD_KERNELS = {
+    "naive": (
+        naive_attention,
+        lambda q, k, v, causal=False: naive_attention_plain(
+            q, k, v, sm_scale=_scale(q), causal=causal),
+    ),
+    "flash_lean": (
+        flash_fwd_lean,
+        lambda q, k, v, q_offset=None, causal=False, save_lse=False: flash_fwd_lean_plain(
+            q, k, v, _static(q_offset, q, k), sm_scale=_scale(q), causal=causal,
+            save_lse=save_lse),
+    ),
+    "flash_tri": (
+        flash_attention_tri,
+        lambda q, k, v, q_offset=None, save_lse=False: flash_attention_tri_plain(
+            q, k, v, _static(q_offset, q, k), sm_scale=_scale(q), save_lse=save_lse),
+    ),
+}
+
+
+def ladder_fwd_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, dict]]:
+    """``{name: (kernel, (q, k, v), keywords)}`` for the naive, lean and
+    triangular forward kernels at the benchmark's and the ladder's shapes,
+    on the ladder fixture, the peaked one (q x 8) and the spike one.  Every
+    bf16 shape the bench gives a kernel also runs peaked: on the flat
+    fixture the outputs are ~0.02 at N = 1024, so 1e-2 alone has little
+    teeth there."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    u = lambda shape, dtype, scale=1.0: ladder_inputs(shape, shape, dtype, gen, scale)  # noqa: E731
+    return {
+        "naive_fp32_n1024": ("naive", u(SWEEP_1024, f32), {}),
+        "naive_fp32_n1024_causal": ("naive", u(SWEEP_1024, f32), dict(causal=True)),
+        "naive_fp32_n128": ("naive", u(SWEEP_128, f32), {}),
+        "lean_bf16_n1024": ("flash_lean", u(SWEEP_1024, bf16), dict(save_lse=True)),
+        "lean_bf16_n128": ("flash_lean", u(SWEEP_128, bf16), dict(save_lse=True)),
+        "lean_bf16_n128_peaked": (
+            "flash_lean", u(SWEEP_128, bf16, PEAKED_Q_SCALE), dict(save_lse=True)),
+        "lean_fp32_n1024": ("flash_lean", u(LADDER, f32), dict(save_lse=True)),
+        "lean_bf16_causal_off100": (
+            "flash_lean", ladder_inputs((2, 4, 900, 64), (2, 2, 1000, 64), bf16, gen),
+            dict(causal=True, q_offset=100, save_lse=True)),
+        "lean_bf16_n1024_peaked": (
+            "flash_lean", u(SWEEP_1024, bf16, PEAKED_Q_SCALE), dict(save_lse=True)),
+        "lean_bf16_n1024_spike": (
+            "flash_lean", spike_inputs(SWEEP_1024, SWEEP_1024, bf16, gen), dict(save_lse=True)),
+        "tri_bf16_b16h8n2048": ("flash_tri", u(HIGH_OCC, bf16), dict(save_lse=True)),
+        "tri_bf16_b16h8n2048_peaked": (
+            "flash_tri", u(HIGH_OCC, bf16, PEAKED_Q_SCALE), dict(save_lse=True)),
+        "tri_fp32_n1024": ("flash_tri", u(LADDER, f32), dict(save_lse=True)),
+        "tri_bf16_gqa_off300": (
+            "flash_tri", ladder_inputs((2, 8, 1000, 64), (2, 4, 1300, 64), bf16, gen),
+            dict(q_offset=300, save_lse=True)),
+        "tri_bf16_n2048_peaked": (
+            "flash_tri", u((2, 8, 2048, 64), bf16, PEAKED_Q_SCALE), dict(save_lse=True)),
+        "tri_bf16_n2048_spike": (
+            "flash_tri", spike_inputs((2, 8, 2048, 64), (2, 8, 2048, 64), bf16, gen),
+            dict(save_lse=True)),
+    }
+
+
+def ladder_fwd_error(kernel: str, qkv: tuple, kw: dict) -> Tuple[float, float]:
+    """Errors of one ladder forward kernel against its plain version on the
+    same inputs in fp32 (see ``_fwd_errors``)."""
+    wrapper, plain = LADDER_FWD_KERNELS[kernel]
+    q, k, v = qkv
+    return _fwd_errors(wrapper(q, k, v, **kw), plain(q.float(), k.float(), v.float(), **kw))
+
+
+def tri_bwd_cases(gen: torch.Generator) -> Dict[str, tuple]:
+    """``{name: (q, k, v, o, do, lse, q_offset)}`` for the triangular
+    backward: the high-occupancy shape, a peaked and a ragged one with an
+    offset (bf16), and the ladder's fp32 shape.  ``o`` and ``lse`` come from
+    the triangular forward kernel."""
+    cases = {}
+    for name, shape_q, shape_kv, dtype, q_scale, off in (
+        ("tri_bwd_bf16_b16h8n2048", HIGH_OCC, HIGH_OCC, torch.bfloat16, 1.0, 0),
+        ("tri_bwd_bf16_n2048_peaked", (2, 8, 2048, 64), (2, 8, 2048, 64), torch.bfloat16,
+         PEAKED_Q_SCALE, 0),
+        ("tri_bwd_bf16_off300", (2, 4, 1000, 64), (2, 4, 1300, 64), torch.bfloat16, 1.0, 300),
+        ("tri_bwd_fp32_n1024", LADDER, LADDER, torch.float32, 1.0, 0),
+    ):
+        q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen, q_scale)
+        do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+        o, lse = flash_attention_tri(q, k, v, q_offset=off, save_lse=True)
+        cases[name] = (q, k, v, o, do, lse, off)
+    return cases
+
+
+def tri_bwd_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
+    """``{"dq", "dk", "dv"}: (max-abs error, normalised error)`` of the
+    triangular backward against its fp32 plain version (``BWD_TOL``'s
+    measure, as ``bwd_kernel_errors``)."""
+    q, k, v, o, do, lse, off = inputs
+    got = flash_attention_bwd_tri(q, k, v, o, do, lse, q_offset=off)
+    want = flash_attention_bwd_tri_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, off, sm_scale=_scale(q)
+    )
+    torch.cuda.synchronize()
+    errors = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        errors[name] = (err, err / w.abs().max().item())
+    return errors
+
+
+def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None) -> Tuple[float, str]:
+    """The library yardstick: ``F.scaled_dot_product_attention`` on the
+    same inputs, its device ms and the backend it was pinned to.
+
+    bf16 without a mask runs the flash backend, fp32 or an explicit mask
+    (needed where the diagonal is not top-left aligned) the memory-efficient
+    one.  GQA K/V are repeated to q's heads before the timed call.  With
+    ``backward_of=do`` the time is SDPA's backward from
+    ``torch.autograd.grad`` with that cotangent (dQ, dK and dV together).
+    The port never calls SDPA; it is timed here only.
     """
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    busy = torch.zeros((8192, 8192), dtype=torch.bfloat16, device="cuda")
-    fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.mm(busy, busy)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
-
-def wall_ms(fn: Callable[[], object], iters: int = 20) -> float:
-    """Mean host-clock time of back-to-back calls of ``fn``, fenced."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / iters * 1e3
+    group = q.shape[1] // k.shape[1]
+    k, v = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    fast = q.dtype == torch.bfloat16 and mask is None
+    backend = SDPBackend.FLASH_ATTENTION if fast else SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        if backward_of is None:
+            ms = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal))
+        else:
+            q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal)
+            ms = device_ms(lambda: torch.autograd.grad(o, (q, k, v), backward_of, retain_graph=True))
+    return ms, backend.name
 
 
 def steady_decode(eng, lengths: torch.Tensor) -> Callable[[], None]:

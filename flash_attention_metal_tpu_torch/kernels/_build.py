@@ -64,25 +64,42 @@ def build() -> Path:
     return compile_library(_sources(), out)
 
 
-def compile_library(sources, out: Path) -> Path:
-    """Compile ``sources`` with ``NVCC_FLAGS`` into the library ``out``."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # Compile to a private name, then rename: a concurrent process never
-    # loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run(procs) -> None:
+    """Wait for every ``(cmd, Popen)``; raise with the output of a failure."""
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{stdout}{stderr}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def compile_library(sources, out: Path) -> Path:
+    """Compile ``sources`` with ``NVCC_FLAGS`` into the library ``out``.
+
+    Each source compiles to an object in its own ``nvcc`` process, all
+    started together; one more links them.
+    """
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        objects, procs = [], []
+        for i, src in enumerate(sources):
+            obj = os.path.join(work, f"{i}_{Path(src).stem}.o")
+            cmd = [nvcc, *compile_flags, "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            objects.append(obj)
+        _run(procs)
+        # Link to a private name, then rename: a concurrent process never
+        # loads a half-written library.
+        tmp = os.path.join(work, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *objects]
+        _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 

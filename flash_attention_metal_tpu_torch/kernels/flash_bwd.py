@@ -1,17 +1,26 @@
-"""Backward flash attention: the CUDA kernels' wrappers and their plain version.
+"""Backward flash attention: the split pair's wrappers, their plain version
+and the backward router.
 
 Counterpart of ``flash_attention_metal_tpu/kernels/flash_bwd.py``.  The JAX
-wrapper routes between a split pair, a fused variant and the triangular
-kernel; the training step (traced offsets, GQA group 2, no tuned entry)
-reaches the split pair, ``_dkv_kernel`` and ``_dq_kernel``.
-``csrc/flash_bwd.cu`` computes their contract with native GQA (no repeated
-K/V, dK/dV summed over the group in fp32) and a per-batch device
-``q_offset``.  The ``delta = rowsum(dO * O) - dlse`` precompute stays a
-torch op, as it is plain jnp in the JAX package.
+package has three backward variants.  ``flash_attention_bwd`` runs the
+split pair, ``_dkv_kernel`` and ``_dq_kernel``, which the training step
+reaches (traced offsets, GQA group 2): ``csrc/flash_bwd.cu`` computes their
+contract with native GQA (no repeated K/V, dK/dV summed over the group in
+fp32) and a per-batch device ``q_offset``.  The ``delta = rowsum(dO * O) -
+dlse`` precompute stays a torch op, as it is plain jnp in the JAX package.
 
-Route: tensors on the CPU go to ``flash_attention_bwd_plain`` (the two
-kernels' plain versions); CUDA tensors launch the two kernels or raise.
-Nothing falls back.
+``flash_attention_bwd_auto`` routes as the JAX dispatcher does without a
+tuned entry (``flash_bwd.py:404-517``): plain causal calls with equal head
+counts, a static offset (None or an int), ``pos_div == 1`` and no fp16 go
+to the fused triangular kernel (``flash_tri.flash_attention_bwd_tri``);
+everything else to the split pair.  The JAX dispatcher also asks
+``tri_bwd_heuristic`` (N a multiple of 512, N <= 4096, an unroll budget):
+v5e tile measurements and Mosaic compile limits, not carried.  The fused
+variant (``_fused_bwd_kernel``) is reached in JAX only through an autotune
+entry and is not ported yet.
+
+Route: tensors on the CPU go to the plain versions; CUDA tensors launch the
+kernels or raise.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from .flash_fwd import (
     _DTYPE_CODES,
     _check_cuda_inputs,
     _offsets,
+    is_static_offset,
     reject_unported,
 )
 
@@ -234,3 +244,47 @@ def flash_attention_bwd(
     dq = flash_bwd_dq(q, k, v, do, lse, delta, off, **kw)
     return dq, dk, dv
 
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1) -> str:
+    """The kernel(s) ``flash_attention_bwd_auto`` runs: ``"tri"`` or
+    ``"split"`` (the JAX dispatcher's ``tri_ok`` without its Mosaic limits)."""
+    tri_ok = (
+        causal
+        and k.shape[1] == q.shape[1]
+        and q.dtype != torch.float16
+        and is_static_offset(q_offset)
+        and pos_div == 1
+    )
+    return "tri" if tri_ok else "split"
+
+
+def flash_attention_bwd_auto(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    q_offset: Union[None, int, torch.Tensor] = None,
+    dlse: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: Optional[float] = None,
+    causal: bool = False,
+    pos_div: int = 1,
+    **features,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``, routed to the triangular kernel or the split pair
+    (module docstring).  Arguments as ``flash_attention_bwd``.  The
+    triangular route returns ``dk`` and ``dv`` in fp32, the split pair in
+    ``k``'s dtype, as in JAX."""
+    reject_unported(features)
+    if bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div) == "tri":
+        from .flash_tri import flash_attention_bwd_tri
+
+        return flash_attention_bwd_tri(
+            q, k, v, o, do, lse, dlse, sm_scale=sm_scale, q_offset=q_offset
+        )
+    return flash_attention_bwd(
+        q, k, v, o, do, lse, q_offset, dlse, sm_scale=sm_scale, causal=causal,
+        pos_div=pos_div,
+    )

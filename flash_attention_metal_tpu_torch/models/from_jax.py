@@ -22,12 +22,14 @@ _NORMS = ("attn_norm", "mlp_norm")
 def params_from_jax(
     tree: Mapping[str, Any],
     cfg: ModelConfig,
-    device: Optional[torch.device] = None,
+    device="cuda",
     dtype: Optional[torch.dtype] = None,
 ) -> Params:
     """The port's parameters from a JAX FlashLM pytree of numpy arrays.
 
-    Matrices and the embedding become ``dtype``, by default ``cfg.dtype``
+    The tensors go to ``device``, the card by default (CPU runs pass
+    ``device="cpu"``).  Matrices and the embedding become ``dtype``, by
+    default ``cfg.dtype``
     (for serving: the JAX model casts its fp32 masters to that dtype at
     every use); training passes ``torch.float32`` to keep fp32 masters.
     Norm gains stay fp32.  Weight-only int8 and MoE layers are not ported

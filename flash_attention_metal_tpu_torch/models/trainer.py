@@ -151,7 +151,7 @@ class Trainer:
         grad_accum: int = 1,
         loss: Optional[Callable] = None,
         ema_decay: float = 0.0,
-        device="cpu",
+        device="cuda",
     ):
         """``grad_accum > 1`` splits each ``step()`` batch into that many
         microbatches and sums their gradients: one optimizer step per call
@@ -164,7 +164,8 @@ class Trainer:
         parameters (``ema = d*ema + (1-d)*p``, ``d_t = min(d, (1+t)/(10+t))``)
         in ``self.ema_params``.
 
-        The fp32 master parameters are drawn from ``seed`` on ``device``.
+        The fp32 master parameters are drawn from ``seed`` on ``device``
+        (the card by default; CPU runs pass ``device="cpu"``).
         """
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
@@ -262,9 +263,10 @@ class Trainer:
 
 
 def synthetic_batches(
-    cfg: ModelConfig, batch: int, seq: int, seed: int = 0, device="cpu"
+    cfg: ModelConfig, batch: int, seq: int, seed: int = 0, device="cuda"
 ) -> Iterator[torch.Tensor]:
-    """Deterministic synthetic token stream (for tests and benchmarks)."""
+    """Deterministic synthetic token stream (for tests and benchmarks), on
+    ``device`` (the card by default)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     while True:

@@ -4,7 +4,9 @@ Counterpart of ``flash_attention_metal_tpu/ops/attention.py``.  Inputs and
 outputs keep the JAX package's ``[B, H, N, D]`` layout.  The JAX op is a
 ``custom_vjp`` over the forward and backward kernels; here that is a
 ``torch.autograd.Function`` whose forward runs the forward kernel with the
-row logsumexp and whose backward runs the dK/dV and dQ kernels.
+row logsumexp and whose backward runs the dK/dV and dQ kernels.  Offsets
+reach the kernels as int32 ``[B]`` tensors, so the routers take the general
+forward kernel and the split backward pair, as in JAX.
 """
 
 from __future__ import annotations
@@ -101,11 +103,14 @@ def flash_attention(
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # The offset is always an int32 [B] tensor here, as the JAX op makes it
+    # an array (ops/attention.py:392-394): the forward router then takes the
+    # general kernel, and the backward the split pair, on every call.
+    off = _offsets(q_offset, q.shape[0], 0, q.device)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        off = _offsets(q_offset, q.shape[0], 0, q.device)
         return _FlashAttention.apply(q, k, v, off, sm_scale, causal, save_lse)
     return flash_attention_fwd(
-        q, k, v, q_offset, sm_scale=sm_scale, causal=causal, save_lse=save_lse
+        q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse
     )
 
 

@@ -123,3 +123,22 @@ def attention_reference_bwd(
     dk = dk.reshape(b, h_kv, group, n_kv, d).sum(dim=2)
     dv = dv.reshape(b, h_kv, group, n_kv, d).sum(dim=2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def make_qkv(
+    generator: torch.Generator,
+    shape: Tuple[int, ...],
+    dtype: torch.dtype = torch.float32,
+    minval: float = -1.0,
+    maxval: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Uniform(minval, maxval) ``q, k, v`` of ``shape`` on the generator's
+    device: the verification ladder's fixture.  Drawn in fp32, then cast to
+    ``dtype``.  ``torch.Generator`` and ``jax.random`` give different
+    numbers from one seed: tests hand both packages numpy inputs instead."""
+
+    def draw():
+        x = torch.rand(shape, generator=generator, device=generator.device)
+        return (x * (maxval - minval) + minval).to(dtype)
+
+    return draw(), draw(), draw()

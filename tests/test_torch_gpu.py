@@ -13,10 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from flash_attention_metal_tpu_torch import bench, flash_attention
 from flash_attention_metal_tpu_torch.harness import onchip, serving
 from flash_attention_metal_tpu_torch.kernels import _build
 from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
+from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+from flash_attention_metal_tpu_torch.kernels import naive as nv
+from flash_attention_metal_tpu_torch.kernels.flash_mxu import flash_attention_mxu
 from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
@@ -68,9 +72,9 @@ def test_kernel_matches_plain(cuda, dtype, case):
     v = _uniform(rng, (case["b"], case["hkv"], case["n_kv"], 64), cuda, dtype)
     off = torch.tensor(case["off"], dtype=torch.int32, device=cuda)
     kw = dict(causal=case["causal"], pos_div=case["pos_div"], save_lse=True)
-    before = flash_attention_fwd.launches
+    before = ff.flash_fwd_general.launches
     o, lse = flash_attention_fwd(q, k, v, off, **kw)
-    assert flash_attention_fwd.launches == before + 1
+    assert ff.flash_fwd_general.launches == before + 1
     o_p, lse_p = flash_attention_fwd_plain(
         q.float(), k.float(), v.float(), off, sm_scale=0.125, **kw
     )
@@ -125,13 +129,13 @@ def test_planted_kernel_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
-        flash_attention_fwd(q, q, q, causal=True)
+        ff.flash_fwd_general(q, q, q, causal=True)
     q = torch.zeros((1, 2, 8, 128), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_attention_fwd(q, q, q, causal=True)
+        ff.flash_fwd_general(q, q, q, causal=True)
     q = torch.zeros((1, 2, 64, 8), device=cuda).transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
-        flash_attention_fwd(q, q, q, causal=True)
+        ff.flash_fwd_general(q, q, q, causal=True)
 
 
 @pytest.mark.gpu
@@ -306,10 +310,228 @@ def test_training_on_cuda_matches_cpu_and_counts_launches(cuda):
     tokens = torch.randint(0, 256, (2, 192), generator=gen)
     loss_cpu, g_cpu = tf.value_and_grad(tf.loss_fn, params, tokens, cfg)
     params_cuda = tf.map_params(lambda p: p.to(cuda), params)
-    counts = (flash_attention_fwd.launches, fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
+    counts = (ff.flash_fwd_general.launches, fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
     loss_gpu, g_gpu = tf.value_and_grad(tf.loss_fn, params_cuda, tokens.to(cuda), cfg)
-    after = (flash_attention_fwd.launches, fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
+    after = (ff.flash_fwd_general.launches, fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
     assert tuple(a - b for a, b in zip(after, counts)) == (4, 2, 2)
     assert abs(float(loss_gpu) - float(loss_cpu)) < 1e-4
     for a, b in zip(tf.param_leaves(g_gpu), tf.param_leaves(g_cpu)):
         assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The kernel ladder's kernels: naive (csrc/naive.cu), lean
+# (csrc/flash_lean.cu), triangular forward and backward (csrc/flash_tri.cu).
+# ---------------------------------------------------------------------------
+
+# (kernel, q shape, kv shape, the wrapper's keywords): ragged lengths (not
+# multiples of the 64 tile), GQA 2, static offsets 0, > 0 and < 0 (rows and
+# whole tiles that see nothing).
+LADDER_FWD_CASES = {
+    "naive_causal": ("naive", (2, 2, 300, 64), (2, 2, 300, 64), dict(causal=True)),
+    "naive_ragged": ("naive", (2, 2, 130, 64), (2, 2, 257, 64), dict()),
+    "naive_causal_kv_longer": ("naive", (1, 2, 64, 64), (1, 2, 100, 64), dict(causal=True)),
+    "lean_gqa": ("flash_lean", (2, 4, 130, 64), (2, 2, 300, 64), dict(save_lse=True)),
+    "lean_causal_off170": ("flash_lean", (2, 4, 130, 64), (2, 2, 300, 64),
+                           dict(causal=True, q_offset=170, save_lse=True)),
+    "lean_longest_row": ("flash_lean", (1, 2, 64, 64), (1, 2, 1024, 64), dict(save_lse=True)),
+    "lean_masked_rows": ("flash_lean", (1, 2, 128, 64), (1, 2, 128, 64),
+                         dict(causal=True, q_offset=-70, save_lse=True)),
+    "tri_gqa_off170": ("flash_tri", (2, 4, 130, 64), (2, 2, 300, 64),
+                       dict(q_offset=170, save_lse=True)),
+    "tri_square": ("flash_tri", (1, 2, 256, 64), (1, 2, 256, 64), dict(save_lse=True)),
+    "tri_masked_rows": ("flash_tri", (1, 2, 200, 64), (1, 2, 128, 64),
+                        dict(q_offset=-70, save_lse=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_scale", [1.0, onchip.PEAKED_Q_SCALE], ids=["ladder", "peaked"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(LADDER_FWD_CASES))
+def test_ladder_kernel_matches_plain(cuda, case, dtype, q_scale):
+    kernel, shape_q, shape_kv, kw = LADDER_FWD_CASES[case]
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, shape_q, cuda, dtype, q_scale)
+    k = _uniform(rng, shape_kv, cuda, dtype)
+    v = _uniform(rng, shape_kv, cuda, dtype)
+    wrapper = onchip.LADDER_FWD_KERNELS[kernel][0]
+    before = wrapper.launches
+    err, lse_err = onchip.ladder_fwd_error(kernel, (q, k, v), kw)
+    assert wrapper.launches == before + 1
+    assert err <= TOL[dtype] and lse_err <= TOL[dtype], (err, lse_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "case",
+    [
+        # ragged, offset 170, with an lse cotangent
+        dict(shape_q=(2, 4, 130, 64), shape_kv=(2, 4, 300, 64), off=170, dlse=True),
+        dict(shape_q=(1, 2, 256, 64), shape_kv=(1, 2, 256, 64), off=0, dlse=False),
+        # rows and a whole tile that see nothing: zero gradients, no NaN
+        dict(shape_q=(1, 2, 200, 64), shape_kv=(1, 2, 128, 64), off=-70, dlse=False),
+        dict(shape_q=(2, 4, 256, 64), shape_kv=(2, 4, 256, 64), off=0, dlse=True,
+             q_scale=onchip.PEAKED_Q_SCALE),
+    ],
+    ids=["ragged_off170_dlse", "square", "masked_rows", "peaked"],
+)
+def test_tri_bwd_matches_plain(cuda, dtype, case):
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, case["shape_q"], cuda, dtype, case.get("q_scale", 1.0))
+    k = _uniform(rng, case["shape_kv"], cuda, dtype)
+    v = _uniform(rng, case["shape_kv"], cuda, dtype)
+    do = _uniform(rng, q.shape, cuda, dtype)
+    dlse = _uniform(rng, q.shape[:3], cuda, torch.float32) if case["dlse"] else None
+    off = case["off"]
+    o, lse = ft.flash_attention_tri(q, k, v, q_offset=off, save_lse=True)
+    before = ft.flash_attention_bwd_tri.launches
+    got = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, dlse, q_offset=off)
+    assert ft.flash_attention_bwd_tri.launches == before + 1
+    want = ft.flash_attention_bwd_tri_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, off, dlse, sm_scale=0.125
+    )
+    torch.cuda.synchronize()
+    # dQ in q's dtype; dK and dV fp32, as the Pallas kernel returns them
+    # (the split pair returns k's dtype).
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    errors = _bwd_errors(got, want)
+    assert max(errors.values()) <= BWD_TOL[dtype], errors
+    if off == -70:
+        assert torch.all(got[0][:, :, :70] == 0)
+
+
+@pytest.mark.gpu
+def test_tri_bwd_is_deterministic(cuda):
+    """Each dK/dV tile has one owner block, each dQ slot one writer, and the
+    slots are summed in a fixed order: two runs give identical bits."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    q, k, v, o, do, lse, off = onchip.tri_bwd_cases(gen)["tri_bwd_bf16_n2048_peaked"]
+    first = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, q_offset=off)
+    second = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, q_offset=off)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _ladder_fault_errors(kernel, gen):
+    """The worst error over chip_smoke.py's cases of one ladder kernel at
+    reduced batch, with the check's tolerance."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    if kernel == "flash_tri_bwd":
+        cases = onchip.tri_bwd_cases(gen)
+        names = ("tri_bwd_bf16_n2048_peaked", "tri_bwd_bf16_off300")
+        return float(np.max([rel for n in names
+                             for _, rel in onchip.tri_bwd_errors(cases[n]).values()])), BWD_TOL[bf16]
+    shp = onchip.SWEEP_1024
+    cases = {
+        "naive": [(f32, onchip.ladder_inputs(shp, shp, f32, gen), dict(causal=True))],
+        "flash_lean": [(bf16, onchip.ladder_inputs(shp, shp, bf16, gen), dict(save_lse=True)),
+                       (bf16, onchip.spike_inputs(shp, shp, bf16, gen), dict(save_lse=True))],
+        "flash_tri": [(bf16, onchip.ladder_inputs((2, 8, 2048, 64), (2, 8, 2048, 64), bf16, gen),
+                       dict(save_lse=True))],
+    }[kernel]
+    tol = TOL[cases[0][0]]
+    # np.max, not max(): a NaN error must not hide behind a finite one.
+    return float(np.max([onchip.ladder_fwd_error(kernel, qkv, kw) for _, qkv, kw in cases])), tol
+
+
+# Faults planted in a copy of a ladder kernel's source: (file, module, its
+# bind function, kernel, text, replacement).
+PLANTED_LADDER_FAULTS = {
+    # causal test c < r in place of c <= r: the diagonal is masked
+    "naive_diagonal_masked": ("naive.cu", nv, nv.bind, "naive", "c <= limit", "c < limit"),
+    # the row max over the first 64 columns only
+    "lean_max_first_tile": ("flash_lean.cu", ff, ff.bind_lean, "flash_lean",
+                            "c < n_visible; c += kSub) row_max",
+                            "c < min(n_visible, kBlockN); c += kSub) row_max"),
+    # the diagonal tile treated as interior: no mask compare on it
+    "tri_diagonal_unmasked": ("flash_tri.cu", ft, ft.bind, "flash_tri",
+                              "kv_start + kBlockN - 1 <= first_limit",
+                              "kv_start <= first_limit"),
+    # dS = P * dP: delta dropped
+    "tri_bwd_delta_dropped": ("flash_tri.cu", ft, ft.bind, "flash_tri_bwd",
+                              "(sm.dp[r * kLdS + c] - delta)", "sm.dp[r * kLdS + c]"),
+    # each Q tile's last dQ slot left out of the sum
+    "tri_bwd_last_slot_dropped": ("flash_tri.cu", ft, ft.bind, "flash_tri_bwd",
+                                  "jj < n_slots; ++jj)", "jj < n_slots - 1; ++jj)"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_LADDER_FAULTS))
+def test_planted_ladder_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's check of each ladder kernel passes the kernel as
+    built and fails a copy with a planted fault (errors printed with ``-s``;
+    NaN counts as a failure)."""
+    source, module, bind, kernel, old, new = PLANTED_LADDER_FAULTS[fault]
+    text = (_build.CSRC / source).read_text()
+    assert text.count(old) == 1
+    planted = tmp_path / source
+    planted.write_text(text.replace(old, new))
+    lib = bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    clean, tol = _ladder_fault_errors(kernel, gen)
+    monkeypatch.setattr(module, "_lib", lambda: lib)
+    gen.manual_seed(onchip.SEED)
+    faulty, _ = _ladder_fault_errors(kernel, gen)
+    print(f"\n{fault}: worst error built {clean:.3e} -> planted {faulty:.3e} (tol {tol})")
+    assert clean <= tol
+    assert not faulty <= tol
+
+
+@pytest.mark.gpu
+def test_bench_routes_launch_their_kernels(cuda):
+    """The benchmark's calls reach the kernels the JAX router names: lean at
+    non-causal N <= 1024, the general kernel at N >= 2048, the triangular
+    kernel for causal, its backward in the high-occupancy phase; and the op
+    (tensor offsets) the general kernel and the split pair."""
+    rng = np.random.default_rng(0)
+
+    def qkv(b, h, n):
+        return [_uniform(rng, (b, h, n, 64), cuda, torch.bfloat16) for _ in range(3)]
+
+    def launched(fn):
+        before = {name: w.launches for name, w in bench.KERNELS.items()}
+        fn()
+        return {name: w.launches - before[name] for name, w in bench.KERNELS.items()
+                if w.launches != before[name]}
+
+    q, k, v = qkv(8, 1, 1024)
+    assert launched(lambda: flash_attention_mxu(q, k, v)) == {"flash_lean": 1}
+    assert launched(lambda: flash_attention_mxu(q, k, v, causal=True)) == {"flash_tri": 1}
+    q2, k2, v2 = qkv(2, 1, 2048)
+    assert launched(lambda: flash_attention_mxu(q2, k2, v2)) == {"flash_fwd": 1}
+    assert launched(lambda: flash_attention_mxu(q2, k2, v2, causal=True)) == {"flash_tri": 1}
+    q3, k3, v3 = qkv(2, 4, 512)
+    o, lse = ff.flash_attention_fwd(q3, k3, v3, causal=True, save_lse=True)
+    assert launched(lambda: fb.flash_attention_bwd_auto(q3, k3, v3, o, q3, lse, causal=True)) == {
+        "flash_tri_bwd": 1}
+    assert launched(lambda: nv.naive_attention(q.float(), k.float(), v.float())) == {"naive": 1}
+    assert launched(lambda: flash_attention(q3, k3, v3, causal=True)) == {"flash_fwd": 1}
+    q4 = q3.clone().requires_grad_(True)
+    assert launched(lambda: flash_attention(q4, k3, v3, causal=True).sum().backward()) == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+
+
+@pytest.mark.gpu
+def test_ladder_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 64), device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="static"):
+        ft.flash_attention_tri(q, q, q, q_offset=torch.zeros(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="equal head counts"):
+        ft.flash_attention_bwd_tri(q, q[:, :1], q[:, :1], q, q, lse)
+    with pytest.raises(ValueError, match="n_kv"):
+        ff.flash_fwd_lean(q, torch.zeros((1, 2, 1088, 64), device=cuda),
+                          torch.zeros((1, 2, 1088, 64), device=cuda))
+    with pytest.raises(ValueError, match="8192"):
+        big = torch.zeros((1, 1, 8256, 64), device=cuda)
+        nv.naive_attention(big, big, big)
+    with pytest.raises(TypeError):
+        nv.naive_attention(q.half(), q.half(), q.half())
+

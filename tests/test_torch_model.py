@@ -46,7 +46,7 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def params(jax_params):
-    return params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), CFG)
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), CFG, device="cpu")
 
 
 def test_params_from_jax_layout(params, jax_params):
@@ -112,4 +112,4 @@ def test_model_config_and_loader_reject_bad_input(jax_params):
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
     tree["layers"][0]["wq"] = {"qw": tree["layers"][0]["wq"], "scale": 1.0}
     with pytest.raises(NotImplementedError, match="int8"):
-        params_from_jax(tree, CFG)
+        params_from_jax(tree, CFG, device="cpu")

@@ -49,7 +49,7 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def params(jax_params):
-    return params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), CFG)
+    return params_from_jax(jax.tree_util.tree_map(np.asarray, jax_params), CFG, device="cpu")
 
 
 def _close(got: torch.Tensor, want, tol=TOL) -> None:

@@ -74,7 +74,8 @@ def jax_params():
 
 def _port_params(jax_params):
     return params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jax_params), CFG, dtype=torch.float32
+        jax.tree_util.tree_map(np.asarray, jax_params), CFG, dtype=torch.float32,
+        device="cpu",
     )
 
 
@@ -112,9 +113,10 @@ def test_trainer_steps_match_jax(grad_accum):
         JAX_CFG, optimizer=jax_trainer.make_optimizer(**opt_kw), seed=0, grad_accum=grad_accum
     )
     start = params_from_jax(
-        jax.tree_util.tree_map(np.asarray, jt.state.params), CFG, dtype=torch.float32
+        jax.tree_util.tree_map(np.asarray, jt.state.params), CFG, dtype=torch.float32,
+        device="cpu",
     )
-    pt = Trainer(CFG, optimizer=make_optimizer(**opt_kw), grad_accum=grad_accum)
+    pt = Trainer(CFG, optimizer=make_optimizer(**opt_kw), grad_accum=grad_accum, device="cpu")
     pt.state.params, pt.state.opt_state = start, pt.opt.init(start)
     for step in range(3):
         tokens = _tokens(10 + step, batch=4)
@@ -191,13 +193,15 @@ def test_resume_is_bit_exact(tmp_path):
     checkpoint then repeats the next 2 steps bit for bit, EMA included."""
     opt_kw = dict(peak_lr=1e-2, warmup_steps=1, total_steps=10)
     batches = [torch.from_numpy(_tokens(20 + i, batch=4)) for i in range(4)]
-    a = Trainer(CFG, optimizer=make_optimizer(**opt_kw), seed=0, ema_decay=0.9, grad_accum=2)
+    a = Trainer(CFG, optimizer=make_optimizer(**opt_kw), seed=0, ema_decay=0.9, grad_accum=2,
+                device="cpu")
     for tokens in batches[:2]:
         a.step(tokens)
     path = str(tmp_path / "ckpt" / "state.pt")
     a.save(path)
     losses_a = [a.step(tokens) for tokens in batches[2:]]
-    b = Trainer(CFG, optimizer=make_optimizer(**opt_kw), seed=7, ema_decay=0.9, grad_accum=2)
+    b = Trainer(CFG, optimizer=make_optimizer(**opt_kw), seed=7, ema_decay=0.9, grad_accum=2,
+                device="cpu")
     b.load(path)
     assert b.state.step == 2
     losses_b = [b.step(tokens) for tokens in batches[2:]]
@@ -208,16 +212,16 @@ def test_resume_is_bit_exact(tmp_path):
         assert torch.equal(x, y)
     assert torch.equal(a.state.generator.get_state(), b.state.generator.get_state())
     with pytest.raises(ValueError, match="EMA"):
-        Trainer(CFG).load(path)
+        Trainer(CFG, device="cpu").load(path)
 
 
 def test_train_loop_logs_and_checkpoints(tmp_path):
     from flash_attention_metal_tpu_torch.models import synthetic_batches
 
-    t = Trainer(CFG, optimizer=make_optimizer(warmup_steps=1, total_steps=10))
+    t = Trainer(CFG, optimizer=make_optimizer(warmup_steps=1, total_steps=10), device="cpu")
     lines = []
     path = str(tmp_path / "run.pt")
-    out = t.train(synthetic_batches(CFG, 2, 64), steps=2, checkpoint_path=path,
+    out = t.train(synthetic_batches(CFG, 2, 64, device="cpu"), steps=2, checkpoint_path=path,
                   checkpoint_every=2, log_every=1, log=lines.append)
     assert out["final_step"] == 2 and len(out["losses"]) == 2
     assert lines[0].startswith("step 1: loss")
@@ -250,4 +254,4 @@ def test_unported_training_features_and_cards_raise():
     with pytest.raises(RuntimeError, match="CUDA"):
         train_bench.run_train_bench(n_layers=1)
     with pytest.raises(ValueError, match="grad_accum"):
-        Trainer(CFG, grad_accum=0)
+        Trainer(CFG, grad_accum=0, device="cpu")
