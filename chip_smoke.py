@@ -12,6 +12,14 @@ vocab 32768) with seeded random weights, and the kernel ladder:
 * serving: the forward kernel against its plain version at the serving
   shapes, 16 requests through ``DecodeEngine``, served logits against a
   plain fp32 forward, kernel/prefill/decode times;
+* the 8-bit and paged KV caches: the quant, paged and paged-quant kernels
+  (``csrc/flash_fwd.cu``) against their plain versions at the serving
+  shapes (int8 and e4m3, bf16 pools, fp32 q at one shape; shuffled page
+  tables), then 16 requests through one engine per mode (``kv_quant``
+  int8 and fp8, ``paged``, ``paged`` with ``prefix_share`` on prompts
+  sharing their first half, ``paged`` int8), each with its kernel launched
+  in prefill and decode and the dense kernel never, and its served logits
+  within the mode's bound;
 * training: the dK/dV and dQ kernels against their plain versions at the
   training shape, each parameter's gradient at depth 2 against the fp32
   oracle attention, 6 ``Trainer`` steps at batch 4, seq 2048 with the
@@ -56,6 +64,13 @@ CHECK_PROMPTS = (5, 11, 300, 900)
 # The benchmark's sweep, cut to three points here (the full sweep is its
 # own command), and the verification ladder's length.
 SHORT_SWEEP, LADDER_N = (128, 1024, 4096), 1024
+# The 8-bit and paged KV caches: the serving modes, one engine each, in
+# order; the prefix-shared mode's traffic (1024-token prompts whose first
+# half is common, the JAX serving bench's shared_prefix = prompt_len // 2)
+# and its served-logits prompts (the common 512 tokens and tails).
+KV_MODES = ("int8", "fp8", "paged", "paged_prefix_shared", "paged_int8")
+PREFIX_PROMPT, PREFIX_SHARED = 1024, 512
+PREFIX_CHECK_PROMPTS = (600, 700, 1000, 1024)
 
 
 def check(cond: bool, what: str) -> None:
@@ -70,6 +85,175 @@ def leaf_names(tree, prefix="") -> list:
     if isinstance(tree, (list, tuple)):
         return [n for i, item in enumerate(tree) for n in leaf_names(item, f"{prefix}{i}.")]
     return [prefix[:-1]]
+
+
+def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
+    """The 8-bit and paged KV caches' path: the quant, paged and paged-quant
+    kernels of ``csrc/flash_fwd.cu`` against their plain versions at the
+    serving path's shapes; 16 requests through one engine per mode of
+    ``KV_MODES`` with each mode's kernel launched in prefill and decode and
+    the dense kernel never; each mode's served logits against the plain
+    fp32 forward; the kernels' times and bounds.  Returns the three kernel
+    records and each mode's serving numbers."""
+    from flash_attention_metal_tpu_torch.harness import onchip, serving
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import flash_fwd_general
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    # Kernels against their plain versions on the same 8-bit or paged data.
+    cases = onchip.kv_cases(gen)
+    errors = {}
+    for name, (kernel, args, pos_div) in cases.items():
+        err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
+        tol = onchip.TOL[args[0].dtype]
+        errors[name] = (kernel, args[0].dtype, err)
+        check(err <= tol and lse_err <= tol,
+              f"{name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+        print(f"[kv-kernel] {name} ({kernel}) q {tuple(args[0].shape)} pos_div {pos_div}: "
+              f"max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+
+    counters = {"flash_quant": qt.flash_attention_quant, "flash_paged": pg.flash_attention_paged,
+                "flash_paged_quant": pg.flash_attention_paged_quant}
+    mode_kernel = {"int8": "flash_quant", "fp8": "flash_quant", "paged": "flash_paged",
+                   "paged_prefix_shared": "flash_paged", "paged_int8": "flash_paged_quant"}
+    launches = dict.fromkeys(counters, 0)
+    serving_out = {}
+    vocab = serving.FLASHLM_D2048["vocab"]
+    prng = np.random.default_rng(SEED + 1)
+    check_prompts = [prng.integers(1, vocab, n).tolist() for n in CHECK_PROMPTS]
+    common = prng.integers(1, vocab, PREFIX_SHARED).tolist()
+    prefix_prompts = [common + prng.integers(1, vocab, n - PREFIX_SHARED).tolist()
+                      for n in PREFIX_CHECK_PROMPTS]
+    for mode in KV_MODES:
+        options, tol = serving.SERVING_MODES[mode]
+        eng, cfg = serving.build_engine(
+            **serving.FLASHLM_D2048, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+            device="cuda", **options,
+        )
+        eng.submit(serving.Request(uid=-1, prompt=list(range(1, 101)), max_new_tokens=4))
+        eng.run()
+        counter = counters[mode_kernel[mode]]
+        in_prefill = [0]
+        prefill = eng.prefill_request
+
+        def counted_prefill(*args):
+            before = counter.launches
+            out = prefill(*args)
+            in_prefill[0] += counter.launches - before
+            return out
+
+        eng.prefill_request = counted_prefill
+        if mode == "paged_prefix_shared":
+            requests = serving.make_requests(N_REQUESTS, cfg.vocab_size, (PREFIX_PROMPT,) * 2,
+                                             MAX_NEW, SEED, shared_prefix=PREFIX_SHARED)
+        else:
+            requests = serving.make_requests(N_REQUESTS, cfg.vocab_size, PROMPT_LENS, MAX_NEW, SEED)
+        for fn in (*counters.values(), flash_fwd_general):
+            fn.launches = 0
+        bench = serving.run_serving_bench(eng, requests, mode=mode, log=lambda s: None)
+        total = counter.launches
+        dense = flash_fwd_general.launches
+        in_decode = total - in_prefill[0]
+        adopted = bench["pages_adopted"]
+        launches[mode_kernel[mode]] += total
+        check(all(r.done and len(r.generated) == MAX_NEW for r in requests),
+              f"{mode}: every request finishes with max_new tokens")
+        check(all(0 <= t < cfg.vocab_size for r in requests for t in r.generated),
+              f"{mode}: tokens in vocabulary")
+        check(all(np.isfinite(lp) and lp <= 0 for r in requests for lp in r.logprobs),
+              f"{mode}: log-probabilities finite and <= 0")
+        check(in_prefill[0] > 0 and in_decode > 0 and dense == 0,
+              f"{mode}: {mode_kernel[mode]} launched in prefill ({in_prefill[0]}) and decode "
+              f"({in_decode}), the dense kernel never ({dense})")
+        if mode == "paged_prefix_shared":
+            check(adopted > 0, f"{mode}: shared pages adopted ({adopted})")
+        prompts = prefix_prompts if mode == "paged_prefix_shared" else check_prompts
+        rel = serving.teacher_forced_errors(eng.params, cfg, prompts, 16, MAX_LEN, seed=SEED,
+                                            mode=mode)
+        worst = float(np.max(rel))
+        check(worst <= tol, f"{mode}: served logits rel L2 {worst:.3e} > {tol}")
+        serving_out[mode] = {
+            "tokens_per_s": bench["tokens_per_s"], "ms_per_step": bench["ms_per_step"],
+            "decode_steps": bench["decode_steps"], "kernel": mode_kernel[mode],
+            "launches_prefill": in_prefill[0], "launches_decode": in_decode,
+            "pages_adopted": adopted, "served_logits_rel_l2_max": worst,
+            "served_logits_tol": tol,
+        }
+        print(f"[kv-serve] {mode}: {N_REQUESTS} requests x {MAX_NEW} tokens, prompts "
+              f"{min(len(r.prompt) for r in requests)}-{max(len(r.prompt) for r in requests)}: "
+              f"{bench['tokens_per_s']:.1f} tok/s, {bench['ms_per_step']:.3f} ms/step over "
+              f"{bench['decode_steps']} steps; {mode_kernel[mode]} launches prefill "
+              f"{in_prefill[0]} decode {in_decode}, dense kernel {dense}, pages adopted "
+              f"{adopted}; served logits rel L2 max {worst:.3e} (tol {tol}) {stamp}")
+        del eng, requests
+        torch.cuda.empty_cache()
+
+    # Times at the decode case (most of the path's launches) and the prefill
+    # case, each beside its plain version and its roofline bound.  No PyTorch
+    # call attends over an 8-bit or paged cache; SDPA on a dense bf16 cache
+    # of the same shape (a different function) is timed beside them.
+    def timed(case):
+        kernel, args, pos_div = cases[case]
+        wrapper, plain = onchip.KV_KERNELS[kernel]
+        flops, nbytes = onchip.kv_work(kernel, args, pos_div)
+        bits = 32 if args[0].dtype == torch.float32 else 16
+        return {
+            "ms": onchip.device_ms(lambda: wrapper(*args, pos_div)),
+            "plain_ms": onchip.device_ms(lambda: plain(*args, pos_div), iters=5),
+            "bound_ms": roofline.roofline_time(flops, nbytes, spec, bits) * 1e3,
+            "bound_by": roofline.bound_by(flops, nbytes, spec, bits),
+        }
+
+    lengths = torch.from_numpy(onchip.decode_lengths()).to("cuda")
+    qd, kd, vd = onchip.ladder_inputs((8, 16, 1, 64), onchip.DECODE_KV, torch.bfloat16, gen)
+    cols = torch.arange(onchip.DECODE_KV[2], device="cuda")
+    sdpa_decode = onchip.sdpa_ms(qd, kd, vd, mask=(cols <= lengths[:, None])[:, None, None, :])
+    qp, kp, vp = onchip.ladder_inputs(onchip.PREFILL_Q, onchip.PREFILL_KV, torch.bfloat16, gen)
+    n_qp, n_kvp = onchip.PREFILL_Q[2], onchip.PREFILL_KV[2]
+    sdpa_prefill = onchip.sdpa_ms(qp, kp, vp, mask=(
+        torch.arange(n_kvp, device="cuda")[None, :] <= torch.arange(n_qp, device="cuda")[:, None] + 512))
+    del qd, kd, vd, qp, kp, vp
+    records = []
+    for kernel, tag, line in (
+        ("flash_quant", "quant_{}", "quant.py:119"),
+        ("flash_paged", "paged", "paged.py:70"),
+        ("flash_paged_quant", "paged_quant_{}", "paged.py:224"),
+    ):
+        main = tag.format("int8")
+        rec = {
+            "name": kernel,
+            "route": "cuda",
+            "source": "flash_attention_metal_tpu_torch/csrc/flash_fwd.cu",
+            "replaces": f"flash_attention_metal_tpu/kernels/{line}",
+            "launches": launches[kernel],
+            "max_abs_err": max(e for k_, d_, e in errors.values()
+                               if k_ == kernel and d_ == torch.bfloat16),
+            "max_abs_err_fp32": max(e for k_, d_, e in errors.values()
+                                    if k_ == kernel and d_ == torch.float32),
+            **timed(f"{main}_decode_bf16"),
+            "library_ms": None,
+            "library_note": "no PyTorch call attends over an 8-bit or paged cache",
+            "sdpa_dense_bf16_ms": sdpa_decode[0],
+            "sdpa_dense_bf16_backend": sdpa_decode[1] + " (dense bf16 cache, another function)",
+            "shape": "decode q [8,8,2,64] pos_div 2 over [8,8,2048,64] at onchip.decode_lengths()"
+                     + ("" if kernel == "flash_paged" else ", int8"),
+        }
+        rec.update({f"prefill_{key}": val
+                    for key, val in timed(f"{main}_prefill_bf16").items()})
+        rec["prefill_sdpa_dense_bf16_ms"] = sdpa_prefill[0]
+        if kernel != "flash_paged":
+            rec["ms_e4m3"] = timed(f"{tag.format('e4m3')}_decode_bf16")["ms"]
+        records.append(rec)
+        print(f"[time] kernel {kernel} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"SDPA on a dense bf16 cache {rec['sdpa_dense_bf16_ms']:.4f} ms; prefill q "
+              f"[1,16,512,64] offset 512: device {rec['prefill_ms']:.4f} ms, plain "
+              f"{rec['prefill_plain_ms']:.4f} ms, bound {rec['prefill_bound_ms']:.4f} ms "
+              f"({rec['prefill_bound_by']}), SDPA dense {sdpa_prefill[0]:.4f} ms {stamp}")
+    del cases
+    torch.cuda.empty_cache()
+    return {"records": records, "serving": serving_out}
 
 
 def main() -> int:
@@ -198,10 +382,13 @@ def main() -> int:
           f"{MAX_BATCH * 1e3 / step_ms:.1f} tok/s; {cfg.n_layers} x the decode kernel's "
           f"device time is {attn_share:.1%} of it {stamp}")
 
-    # 7. Backward kernels against their plain versions at the training
-    # shape (bf16 ladder and peaked fixtures, fp32 at N = 512).
+    # 6b. The 8-bit and paged KV caches: their three kernels, five engines.
     del eng
     torch.cuda.empty_cache()
+    kv = kv_cache_phase(gen, stamp, roofline.detect_chip())
+
+    # 7. Backward kernels against their plain versions at the training
+    # shape (bf16 ladder and peaked fixtures, fp32 at N = 512).
     train_cases = onchip.train_cases(gen)
     bwd_errors = {}
     for name, case in train_cases.items():
@@ -509,6 +696,7 @@ def main() -> int:
                 "max_rel_err_fp32": max(r for _, r in tri_bwd_errors["tri_bwd_fp32_n1024"].values()),
                 **times_of("flash_tri_bwd"),
             },
+            *kv["records"],
         ],
         "serving": {
             "tokens_per_s": bench["tokens_per_s"],
@@ -517,6 +705,7 @@ def main() -> int:
             "prefill_ms_512": prefill_ms,
             "served_logits_rel_l2_max": worst,
         },
+        "serving_kv_caches": kv["serving"],
         "training": {
             "step_ms": train["step_ms"],
             "tokens_per_s": train["tokens_per_s"],

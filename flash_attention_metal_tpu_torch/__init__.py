@@ -2,8 +2,9 @@
 
 Counterpart of ``flash_attention_metal_tpu`` (the JAX package, which stays
 the reference).  Module names mirror the JAX package.  Every kernel is
-hand-written CUDA C++ under ``csrc/``: the general forward
-(``flash_fwd.cu``, serving and the op), the split backward pair
+hand-written CUDA C++ under ``csrc/``: the general forward over a dense,
+8-bit, paged or paged 8-bit KV cache (``flash_fwd.cu``, one template:
+serving, the op and the training forward), the split backward pair
 (``flash_bwd.cu``, training), and the kernel ladder the benchmark and the
 verification ladder run: naive (``naive.cu``), the single-block forward
 (``flash_lean.cu``) and the triangular causal forward and fused backward
@@ -16,6 +17,8 @@ from .kernels.flash_mxu import flash_attention_mxu
 from .kernels.flash_tri import flash_attention_bwd_tri, flash_attention_tri
 from .kernels.flash_v2 import flash_attention_v2
 from .kernels.naive import naive_attention
+from .kernels.paged import flash_attention_paged, flash_attention_paged_quant
+from .kernels.quant import flash_attention_quant, quantize_kv
 from .models.trainer import Trainer, make_optimizer
 from .models.transformer import ModelConfig, init_params, loss_fn
 from .ops.attention import flash_attention
@@ -31,12 +34,16 @@ __all__ = [
     "flash_attention_bwd_auto",
     "flash_attention_bwd_tri",
     "flash_attention_mxu",
+    "flash_attention_paged",
+    "flash_attention_paged_quant",
+    "flash_attention_quant",
     "flash_attention_tri",
     "flash_attention_v2",
     "init_params",
     "loss_fn",
     "make_optimizer",
     "naive_attention",
+    "quantize_kv",
     "run_ladder",
 ]
 

@@ -1,40 +1,73 @@
-// Forward flash attention for Hopper (sm_90a), bf16 and fp32.
+// Forward flash attention for Hopper (sm_90a) over a dense, 8-bit or paged
+// KV cache: one device template over the KV element type (bf16 / fp32,
+// int8, e4m3, e5m2) and the addressing (dense or paged).
 //
-// Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel, the
-// Pallas kernel that both phases of the serving path end in: chunked prefill
-// (native GQA, pos_div = 1) and GQA-folded decode (pos_div = group).
+// Replaces four Pallas kernels of flash_attention_metal_tpu/kernels/, each
+// with its own entry point:
+//   * flash_fwd.py::_fwd_kernel (fam_flash_fwd): a dense bf16 / fp32 cache
+//     [B, H_kv, N, 64], the kernel of dense serving (chunked prefill, and
+//     GQA-folded decode with pos_div = group) and of the training forward;
+//   * quant.py::_quant_fwd_kernel (fam_flash_quant): a dense
+//     [B, H_kv, N, 64] int8 / e4m3 / e5m2 cache with per-token fp32 scales
+//     [B, H_kv, N];
+//   * paged.py::flash_attention_paged (fam_flash_paged): a bf16 / fp32 page
+//     pool [P, H_kv, page, 64] read through an int32 page table
+//     [B, max_pages];
+//   * paged.py::flash_attention_paged_quant (fam_flash_paged_quant): an
+//     8-bit page pool with per-token scales [P, H_kv, page].
 //
-// Contract, for every batch b, q-head h and query row r:
-//   o[b,h,r,:] = softmax_c(s) . V,  s = sm_scale * q[b,h,r] . k[b,h/group,c]
-// over the visible columns c < n_kv and, when causal,
-// c <= r / pos_div + q_offset[b], with q_offset an int32 [B] array on the
-// device.  A row with no visible column gives o = 0 and lse = -inf.  The
-// optional lse is the natural-log logsumexp per row, fp32 [B, H, N_q].
-// Softmax statistics and both products accumulate in fp32; fp32 inputs use
-// plain IEEE FMA (never TF32).
+// Contract, for batch b, q-head h, query row r (KV head h / group):
+//   s[c] = sm_scale * s_k[c] * (q[b,h,r] . k[c])      (s_k = 1 unscaled)
+//   o[b,h,r] = sum_c softmax_c(s) * s_v[c] * v[c]      (s_v = 1 unscaled)
+// over the logical columns c < n_kv that are visible: with causal,
+// c <= r / pos_div + q_offset[b] (the paged kernels are always causal and
+// q_offset is each slot's length).  Dense: k[c] is row c of (b, h_kv).
+// Paged: row c % page of physical page table[b, c / page], the page id
+// clamped to [0, P - 1] as the Pallas index map clamps it (paged.py:64-65);
+// masks are in logical positions, so physical placement never enters the
+// scores.  A row with no visible column gives o = 0 and lse = -inf (the
+// optional lse, natural log, fp32 [B, H, N_q], of the dense entry points).
 //
-// What bounds it on the H100.  Decode (n_q = group rows per KV head) reads
-// each visible K and V row once and does 4 * group flops per byte: it is
-// bound by KV bytes from HBM (3.35 TB/s).  Prefill at n_q >= 512 does
-// ~n_q / 2 flops per KV byte and is bound by the tensor-core rate.
+// Arithmetic, as the Pallas kernels': 8-bit K/V tiles are widened to q's
+// type in shared memory (exact: int8 and fp8 values fit bf16's 8-bit
+// significand); the K scale multiplies each fp32 score column together
+// with sm_scale * log2(e); the V scale is folded into P, which is rounded
+// to q's type before the PV product (quant.py:265-270), so bf16 results
+// keep parity with the Pallas kernel.  Unscaled caches skip both scales at
+// compile time.  Softmax statistics and both products accumulate in fp32;
+// fp32 inputs use IEEE FMA, never TF32.
 //
-// What this first design does about it.
-//   * One thread block per (64-row q tile, q-head, batch); its KV loop stops
-//     at the last column visible to the tile's last row, so decode reads
-//     length[b] rows, not max_len, and causal prefill skips the upper
-//     triangle (the counterpart of the Pallas whole-block skip and DMA clamp).
-//   * GQA reads KV head h / group directly: nothing is repeated in memory.
-//     Folded decode packs a KV head's group q-heads into the rows of one
-//     tile, so the cache streams once per KV head.
+// What bounds it on the H100.  Decode reads each visible K and V row once:
+// 64 bytes of an 8-bit row plus 4 bytes of scale, or 128 bytes of a bf16
+// row, for 4 * group flops per row and head: bound by HBM bytes
+// (3.35 TB/s).  Prefill at n_q >= 512 does ~n_q / 2 flops per KV byte:
+// bound by the tensor cores.
+//
+// What this design does about it.
+//   * One block per (64-row q tile, q-head, batch); the KV loop stops at the
+//     last column visible to the tile's last row, so decode reads length[b]
+//     rows of the cache, causal prefill skips the upper triangle, and table
+//     entries past a slot's diagonal (the unallocated zeros) are never
+//     dereferenced.
+//   * Each step's K/V tiles are fetched into registers while the step
+//     before computes, then stored to shared memory; an 8-bit tile is read
+//     16 bytes per thread and widened on that store: HBM traffic is half
+//     of a bf16 cache's.
+//   * Paged addressing is per 64-row KV tile: a page holds whole tiles, so
+//     one table lookup serves a tile and its rows are contiguous.
+//   * Native GQA (KV head h / group): nothing is repeated in memory.  Folded
+//     decode packs a KV head's group q-heads into the rows of one tile, so
+//     the cache streams once per KV head.
 //   * bf16 QK^T and PV run on the tensor cores through WMMA 16x16x16
 //     fragments with fp32 accumulators; warps whose 16 rows are all past n_q
 //     (most of a folded-decode tile) skip their products.
-//   * Exact online softmax in exp2, with sm_scale * log2(e) applied to the
-//     fp32 scores.
-// Not yet done (later PRs): wgmma, TMA and a multi-stage copy pipeline for
-// prefill; split-KV so that decode fills all 132 SMs (B * H_kv blocks today).
+// Not done yet: wgmma, TMA and a multi-stage pipeline; split-KV
+// so that decode fills the 132 SMs; fp8 tensor-core products on the 8-bit
+// tiles themselves.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -59,6 +92,7 @@ constexpr int kLdT = kHeadDim + 8;
 constexpr int kLdP = kBlockN + 8;
 constexpr int kLdS = kBlockN + 4;
 static_assert(kHeadDim <= kLdS, "the score buffer also holds the PV tile");
+static_assert(kThreads == 2 * kBlockN, "half the threads load each scale row");
 // Finite mask value (config.DEFAULT_MASK_VALUE): exp2(mask - mask) is never
 // NaN, and visibility is tested explicitly, so masked entries add nothing.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
@@ -66,14 +100,25 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
-template <typename T>
-struct Smem {
-  T q[kBlockM * kLdT];
-  T k[kBlockN * kLdT];
-  T v[kBlockN * kLdT];
-  T p[kBlockM * kLdP];      // probabilities, in the input type for PV
-  float s[kBlockM * kLdS];  // scores, then the PV product of the step
-};
+// Tags of the two 8-bit float formats (their bytes are loaded as uint8_t).
+struct E4M3 {};
+struct E5M2 {};
+
+// The exact float value of one stored 8-bit element.
+template <typename KV>
+__device__ __forceinline__ float widen(uint8_t x);
+template <>
+__device__ __forceinline__ float widen<int8_t>(uint8_t x) {
+  return static_cast<float>(static_cast<int8_t>(x));
+}
+template <>
+__device__ __forceinline__ float widen<E4M3>(uint8_t x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
+}
+template <>
+__device__ __forceinline__ float widen<E5M2>(uint8_t x) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E5M2)));
+}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -83,6 +128,32 @@ template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
+
+template <typename T>
+struct Smem {
+  T q[kBlockM * kLdT];
+  T k[kBlockN * kLdT];
+  T v[kBlockN * kLdT];
+  T p[kBlockM * kLdP];      // probabilities times s_v, in q's type for PV
+  float s[kBlockM * kLdS];  // scores, then the PV product of the step
+  float sk[kBlockN];        // the step's K and V scales (8-bit caches)
+  float sv[kBlockN];
+};
+
+// Where the KV cache lives.  Dense: k, v [B, H_kv, n_kv, 64] and scales
+// [B, H_kv, n_kv].  Paged: k, v [n_pages, H_kv, page, 64], scales
+// [n_pages, H_kv, page], table [B, max_pages], n_kv = max_pages * page.
+struct KvArgs {
+  const void* k;
+  const void* v;
+  const float* k_scale;  // null for a bf16 / fp32 cache
+  const float* v_scale;
+  const int* table;      // null for a dense cache
+  int n_kv;
+  int page;
+  int max_pages;
+  int n_pages;
+};
 
 // Copy `kRows` rows of head_dim elements (row pitch kHeadDim in global
 // memory) into shared memory with pitch kLdT; rows >= rows_valid are zero.
@@ -100,6 +171,109 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) 
     *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
   }
 }
+
+// Two floats as the bits of two packed bf16 (a in the low half).
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(a)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(b)) << 16);
+}
+
+// Widen one 16-byte chunk of 8-bit elements to T and store it to shared
+// memory 16 bytes at a time (the values never leave registers on the way).
+template <typename T, typename KV>
+__device__ __forceinline__ void widen_store(T* dst, uint4 raw) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+  float f[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) f[j] = widen<KV>((words[j / 4] >> (8 * (j % 4))) & 0xffu);
+  uint4* out = reinterpret_cast<uint4*>(dst);
+  if constexpr (std::is_same<T, bf16>::value) {
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      out[w] = make_uint4(pack_bf16x2(f[8 * w], f[8 * w + 1]), pack_bf16x2(f[8 * w + 2], f[8 * w + 3]),
+                          pack_bf16x2(f[8 * w + 4], f[8 * w + 5]),
+                          pack_bf16x2(f[8 * w + 6], f[8 * w + 7]));
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      out[w] = make_uint4(__float_as_uint(f[4 * w]), __float_as_uint(f[4 * w + 1]),
+                          __float_as_uint(f[4 * w + 2]), __float_as_uint(f[4 * w + 3]));
+    }
+  }
+}
+
+// Row index (in head_dim rows of the K/V storage) of the KV tile that
+// starts at logical column kv_start; the tile's rows are contiguous.
+template <bool kPaged>
+__device__ __forceinline__ size_t tile_row0(const KvArgs& kv, int b, int h_kv, int n_kv_heads,
+                                            int kv_start) {
+  if constexpr (kPaged) {
+    const int logical = min(kv_start / kv.page, kv.max_pages - 1);
+    const int phys = min(max(kv.table[(size_t)b * kv.max_pages + logical], 0), kv.n_pages - 1);
+    return ((size_t)phys * n_kv_heads + h_kv) * kv.page + kv_start % kv.page;
+  } else {
+    return ((size_t)b * n_kv_heads + h_kv) * kv.n_kv + kv_start;
+  }
+}
+
+// One KV step's K and V tiles (and an 8-bit cache's scales) held in
+// registers.  The kernel fetches a step's tiles while the step before it
+// computes, so each step's global loads overlap the products instead of
+// stalling them.  Each thread holds kChunks 16-byte chunks of each tile;
+// rows >= rows_valid are zero.
+template <typename T, typename KV>
+struct KvRegs {
+  static constexpr bool kScaled = !std::is_same<KV, T>::value;
+  using Stored = typename std::conditional<kScaled, uint8_t, T>::type;
+  static constexpr int kVecElems = 16 / (int)sizeof(Stored);
+  static constexpr int kVecPerRow = kHeadDim / kVecElems;
+  static constexpr int kChunks = kBlockN * kVecPerRow / kThreads;
+  static_assert(kChunks * kThreads == kBlockN * kVecPerRow, "whole chunks per thread");
+  uint4 k[kChunks];
+  uint4 v[kChunks];
+  // Thread t < kBlockN: the K scale of row t; else the V scale of row t - kBlockN.
+  float scale;
+
+  __device__ __forceinline__ void fetch(const KvArgs& kv, size_t row0, int rows_valid) {
+    const Stored* kb = static_cast<const Stored*>(kv.k) + row0 * kHeadDim;
+    const Stored* vb = static_cast<const Stored*>(kv.v) + row0 * kHeadDim;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kVecPerRow;
+      const int c = (idx % kVecPerRow) * kVecElems;
+      k[i] = v[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows_valid) {
+        k[i] = *reinterpret_cast<const uint4*>(kb + (size_t)r * kHeadDim + c);
+        v[i] = *reinterpret_cast<const uint4*>(vb + (size_t)r * kHeadDim + c);
+      }
+    }
+    if constexpr (kScaled) {
+      const int c = threadIdx.x % kBlockN;
+      const float* scales = threadIdx.x < kBlockN ? kv.k_scale : kv.v_scale;
+      scale = c < rows_valid ? scales[row0 + c] : 0.0f;
+    }
+  }
+
+  // Write the tiles to shared memory, widening 8-bit ones to T.
+  __device__ __forceinline__ void stash(Smem<T>& sm) const {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kVecPerRow;
+      const int c = (idx % kVecPerRow) * kVecElems;
+      if constexpr (kScaled) {
+        widen_store<T, KV>(sm.k + r * kLdT + c, k[i]);
+        widen_store<T, KV>(sm.v + r * kLdT + c, v[i]);
+      } else {
+        *reinterpret_cast<uint4*>(sm.k + r * kLdT + c) = k[i];
+        *reinterpret_cast<uint4*>(sm.v + r * kLdT + c) = v[i];
+      }
+    }
+    if constexpr (kScaled) (threadIdx.x < kBlockN ? sm.sk : sm.sv)[threadIdx.x % kBlockN] = scale;
+  }
+};
 
 // s[16 warp rows][kBlockN] = Q K^T on the tensor cores.
 __device__ __forceinline__ void qk_bf16(Smem<bf16>& sm, int warp) {
@@ -181,13 +355,15 @@ __device__ __forceinline__ void pv_f32(Smem<float>& sm, int r, int half) {
   for (int j = 0; j < kOCols; ++j) sm.s[r * kLdS + half * kOCols + j] = acc[j];
 }
 
-template <typename T>
+// T: q's type (bf16 or fp32).  KV: the cache's element type, T itself for a
+// bf16 / fp32 cache, int8_t / E4M3 / E5M2 for an 8-bit one (with scales).
+template <typename T, typename KV, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const int* __restrict__ q_offset,
-                     T* __restrict__ o, float* __restrict__ lse, int n_heads,
-                     int n_kv_heads, int n_q, int n_kv, float scale_log2,
-                     int causal, int pos_div) {
+    flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
+                    const int* __restrict__ q_offset, T* __restrict__ o,
+                    float* __restrict__ lse, int n_heads, int n_kv_heads,
+                    int n_q, float scale_log2, int causal, int pos_div) {
+  constexpr bool kScaled = !std::is_same<KV, T>::value;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
 
@@ -200,7 +376,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.z;
   const int h_kv = h / (n_heads / n_kv_heads);
   const size_t q_rows = ((size_t)b * n_heads + h) * n_q;  // row index base
-  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
+  const int n_kv = kv.n_kv;
 
   const int rows_valid = min(kBlockM, n_q - q_start);
   const bool warp_active = warp * 16 < rows_valid;
@@ -211,11 +387,15 @@ __global__ void __launch_bounds__(kThreads)
   if (r < rows_valid) {
     col_limit = causal ? min(n_kv - 1, row / pos_div + off) : n_kv - 1;
   }
-  // Last column any row of the tile may see: the KV loop stops there.
+  // Last column any row of the tile may see: the KV loop stops there, so
+  // no page past the tile's diagonal is ever read.
   int tile_limit = n_kv - 1;
   if (causal) tile_limit = min(tile_limit, (q_start + rows_valid - 1) / pos_div + off);
   const int n_steps = tile_limit < 0 ? 0 : tile_limit / kBlockN + 1;
 
+  // The first KV step's tiles are in flight while q is loaded.
+  KvRegs<T, KV> regs;
+  if (n_steps > 0) regs.fetch(kv, tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, 0), min(kBlockN, n_kv));
   load_tile<T, kBlockM>(sm.q, q + (q_rows + q_start) * kHeadDim, rows_valid);
 
   float o_acc[kOCols];
@@ -226,10 +406,13 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int step = 0; step < n_steps; ++step) {
     const int kv_start = step * kBlockN;
-    const int cols_valid = min(kBlockN, n_kv - kv_start);
-    load_tile<T, kBlockN>(sm.k, k + (kv_rows + kv_start) * kHeadDim, cols_valid);
-    load_tile<T, kBlockN>(sm.v, v + (kv_rows + kv_start) * kHeadDim, cols_valid);
+    regs.stash(sm);
     __syncthreads();
+    // The next step's tiles are in flight while this step computes.
+    if (step + 1 < n_steps) {
+      const int next = kv_start + kBlockN;
+      regs.fetch(kv, tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, next), min(kBlockN, n_kv - next));
+    }
 
     if constexpr (std::is_same<T, bf16>::value) {
       if (warp_active) qk_bf16(sm, warp);
@@ -242,12 +425,15 @@ __global__ void __launch_bounds__(kThreads)
     // share a row are lanes 2i and 2i+1 of one warp.
     float s_reg[kSCols];
     float step_max = kMaskValue;
-    const int col0 = kv_start + half * kSCols;
+    const int c0 = half * kSCols;
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
-      const float x = col0 + j <= col_limit
-                          ? sm.s[r * kLdS + half * kSCols + j] * scale_log2
-                          : kMaskValue;
+      const int c = c0 + j;
+      float x = kMaskValue;
+      if (kv_start + c <= col_limit) {
+        const float k_scale = kScaled ? sm.sk[c] : 1.0f;
+        x = sm.s[r * kLdS + c] * (k_scale * scale_log2);
+      }
       s_reg[j] = x;
       step_max = fmaxf(step_max, x);
     }
@@ -257,9 +443,12 @@ __global__ void __launch_bounds__(kThreads)
     float row_sum = 0.0f;
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
-      const float p = col0 + j <= col_limit ? exp2f(s_reg[j] - m_new) : 0.0f;
+      const int c = c0 + j;
+      const float p = kv_start + c <= col_limit ? exp2f(s_reg[j] - m_new) : 0.0f;
       row_sum += p;
-      sm.p[r * kLdP + half * kSCols + j] = from_float<T>(p);
+      // The V scale folds into P (quant.py:265-270).
+      const float v_scale = kScaled ? sm.sv[c] : 1.0f;
+      sm.p[r * kLdP + c] = from_float<T>(p * v_scale);
     }
     row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
     l_i = l_i * alpha + row_sum;
@@ -277,8 +466,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kOCols; ++j) {
       o_acc[j] = o_acc[j] * alpha + sm.s[r * kLdS + half * kOCols + j];
     }
-    // The next step's loads write k/v only; its first write to s comes
-    // after the barrier that follows them.
+    // The next step's stash writes k, v, sk and sv only; its first write
+    // to s comes after the barrier that follows it.
   }
 
   if (r < rows_valid) {
@@ -292,11 +481,10 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* q_offset, void* o, void* lse, int batch,
-                   int n_heads, int n_kv_heads, int n_q, int n_kv,
-                   float sm_scale, int causal, int pos_div,
+template <typename T, typename KV, bool kPaged>
+cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
+                   void* o, void* lse, int batch, int n_heads, int n_kv_heads,
+                   int n_q, float sm_scale, int causal, int pos_div,
                    cudaStream_t stream) {
   const int smem = (int)sizeof(Smem<T>);
   // The dynamic shared-memory limit is raised once per kernel and device.
@@ -306,44 +494,149 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(q_offset),
+  flash_fwd_kernel<T, KV, kPaged><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
-      n_kv, sm_scale * kLog2e, causal, pos_div);
+      sm_scale * kLog2e, causal, pos_div);
   return cudaGetLastError();
+}
+
+// The 8-bit caches: dtype 0 = bf16 q, 1 = fp32 q; kv_dtype 1 = int8,
+// 2 = float8_e4m3fn, 3 = float8_e5m2.
+template <bool kPaged>
+cudaError_t launch_8bit(int dtype, int kv_dtype, const void* q, const KvArgs& kv,
+                        const void* q_offset, void* o, void* lse, int batch,
+                        int n_heads, int n_kv_heads, int n_q, float sm_scale,
+                        int causal, int pos_div, cudaStream_t s) {
+#define FAM_LAUNCH(T, KV)                                                        \
+  return launch<T, KV, kPaged>(q, kv, q_offset, o, lse, batch, n_heads,         \
+                               n_kv_heads, n_q, sm_scale, causal, pos_div, s)
+  if (dtype == 0 && kv_dtype == 1) FAM_LAUNCH(bf16, int8_t);
+  if (dtype == 0 && kv_dtype == 2) FAM_LAUNCH(bf16, E4M3);
+  if (dtype == 0 && kv_dtype == 3) FAM_LAUNCH(bf16, E5M2);
+  if (dtype == 1 && kv_dtype == 1) FAM_LAUNCH(float, int8_t);
+  if (dtype == 1 && kv_dtype == 2) FAM_LAUNCH(float, E4M3);
+  if (dtype == 1 && kv_dtype == 3) FAM_LAUNCH(float, E5M2);
+#undef FAM_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
+bool bad_shape(int batch, int n_heads, int n_kv_heads, int n_q, int head_dim,
+               int pos_div) {
+  return head_dim != kHeadDim || pos_div < 1 || n_kv_heads < 1 ||
+         n_heads % n_kv_heads != 0 || batch < 1 || n_q < 1;
+}
+
+bool bad_pages(int n_pages, int page_size, int max_pages) {
+  return n_pages < 1 || max_pages < 1 || page_size < kBlockN || page_size % kBlockN != 0;
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes (kernels/flash_fwd.py).  Pointers are
-// device pointers of contiguous [B, H, N, 64] tensors; q_offset is int32
-// [B] (read only when causal); lse may be null.  dtype: 0 = bf16, 1 = fp32.
-// Returns the launch's cudaError_t (0 on success).
+// C entry points, bound with ctypes (kernels/flash_fwd.py, kernels/quant.py,
+// kernels/paged.py).  Pointers are device pointers of contiguous tensors;
+// q and o are [B, H, N_q, 64]; dtype is q's: 0 = bf16, 1 = fp32.  Each
+// returns the launch's cudaError_t (0 on success).
+
+// Dense cache in q's type: k, v [B, H_kv, N, 64]; q_offset int32 [B] (read
+// only when causal); lse fp32 [B, H, N_q] or null.
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
                              int n_kv, int head_dim, float sm_scale,
                              int causal, int pos_div, int dtype, void* stream) {
-  if (head_dim != kHeadDim || pos_div < 1 || n_kv_heads < 1 ||
-      n_heads % n_kv_heads != 0 ||
-      batch < 1 || n_q < 1 || n_kv < 1) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) || n_kv < 1) {
     return (int)cudaErrorInvalidValue;
   }
+  const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch<bf16>(q, k, v, q_offset, o, lse, batch, n_heads,
-                             n_kv_heads, n_q, n_kv, sm_scale, causal, pos_div, s);
+    return (int)launch<bf16, bf16, false>(q, kv, q_offset, o, lse, batch, n_heads,
+                                          n_kv_heads, n_q, sm_scale, causal, pos_div, s);
   }
   if (dtype == 1) {
-    return (int)launch<float>(q, k, v, q_offset, o, lse, batch, n_heads,
-                              n_kv_heads, n_q, n_kv, sm_scale, causal, pos_div, s);
+    return (int)launch<float, float, false>(q, kv, q_offset, o, lse, batch, n_heads,
+                                            n_kv_heads, n_q, sm_scale, causal, pos_div, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Dense 8-bit cache: k_q, v_q [B, H_kv, N, 64] int8 / fp8; k_scale, v_scale
+// fp32 [B, H_kv, N]; q_offset int32 [B] (read only when causal); lse fp32
+// [B, H, N_q] or null.
+extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
+                               const void* k_scale, const void* v_scale,
+                               const void* q_offset, void* o, void* lse,
+                               int batch, int n_heads, int n_kv_heads, int n_q,
+                               int n_kv, int head_dim, float sm_scale,
+                               int causal, int pos_div, int dtype,
+                               int kv_dtype, void* stream) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) || n_kv < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
+                  static_cast<const float*>(v_scale), nullptr, n_kv, 0, 0, 0};
+  return (int)launch_8bit<false>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
+                                 n_heads, n_kv_heads, n_q, sm_scale, causal,
+                                 pos_div, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 / fp32 page pool: pool_k, pool_v [n_pages, H_kv, page_size, 64] in
+// q's type; table int32 [B, max_pages]; lengths int32 [B] (the causal
+// offset).  page_size is a multiple of 64.
+extern "C" int fam_flash_paged(const void* q, const void* pool_k,
+                               const void* pool_v, const void* table,
+                               const void* lengths, void* o, int batch,
+                               int n_heads, int n_kv_heads, int n_q,
+                               int n_pages, int page_size, int max_pages,
+                               int head_dim, float sm_scale, int pos_div,
+                               int dtype, void* stream) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) ||
+      bad_pages(n_pages, page_size, max_pages)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const KvArgs kv{pool_k, pool_v, nullptr, nullptr, static_cast<const int*>(table),
+                  max_pages * page_size, page_size, max_pages, n_pages};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return (int)launch<bf16, bf16, true>(q, kv, lengths, o, nullptr, batch, n_heads,
+                                         n_kv_heads, n_q, sm_scale, 1, pos_div, s);
+  }
+  if (dtype == 1) {
+    return (int)launch<float, float, true>(q, kv, lengths, o, nullptr, batch, n_heads,
+                                           n_kv_heads, n_q, sm_scale, 1, pos_div, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// 8-bit page pool: pool_k_q, pool_v_q [n_pages, H_kv, page_size, 64] int8 /
+// fp8; pool_k_scale, pool_v_scale fp32 [n_pages, H_kv, page_size]; table
+// and lengths as fam_flash_paged.
+extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
+                                     const void* pool_v_q,
+                                     const void* pool_k_scale,
+                                     const void* pool_v_scale,
+                                     const void* table, const void* lengths,
+                                     void* o, int batch, int n_heads,
+                                     int n_kv_heads, int n_q, int n_pages,
+                                     int page_size, int max_pages, int head_dim,
+                                     float sm_scale, int pos_div, int dtype,
+                                     int kv_dtype, void* stream) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) ||
+      bad_pages(n_pages, page_size, max_pages)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const KvArgs kv{pool_k_q, pool_v_q, static_cast<const float*>(pool_k_scale),
+                  static_cast<const float*>(pool_v_scale),
+                  static_cast<const int*>(table), max_pages * page_size,
+                  page_size, max_pages, n_pages};
+  return (int)launch_8bit<true>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
+                                n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div,
+                                static_cast<cudaStream_t>(stream));
 }

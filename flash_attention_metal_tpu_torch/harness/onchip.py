@@ -4,12 +4,13 @@ Shared by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``, and runnable on
 its own on a CUDA card:
 
     python -m flash_attention_metal_tpu_torch.harness.onchip sweep
-    python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train]
+    python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train] [--mode M]
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
 decode steps and a prefill of the served FlashLM with ``torch.profiler``
-and splits their wall time into device-busy time, by kernel, and idle time;
+and splits their wall time into device-busy time, by kernel, and idle time
+(``--mode``: the KV cache, a ``serving.SERVING_MODES`` name, dense by default);
 ``profile train`` does the same for ``Trainer.step`` at the
 ``train_bench.json`` width.  Every line it prints carries the card's name
 and power limit.
@@ -39,7 +40,15 @@ from ..kernels.flash_tri import (
     flash_attention_tri_plain,
 )
 from ..kernels.naive import naive_attention, naive_attention_plain
+from ..kernels.paged import (
+    flash_attention_paged,
+    flash_attention_paged_plain,
+    flash_attention_paged_quant,
+)
+from ..kernels.quant import flash_attention_quant, flash_attention_quant_plain, quantize_kv
 from ..runtime import decode as decode_mod
+from ..runtime.kv_cache import as_bytes
+from ..utils.roofline import kv_cache_bytes, visible_pairs
 from ..utils.timing import device_ms, wall_ms
 from . import serving
 
@@ -337,6 +346,147 @@ def tri_bwd_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
     return errors
 
 
+# ---------------------------------------------------------------------------
+# The 8-bit and paged caches' kernels (csrc/flash_fwd.cu) at the serving
+# path's shapes.
+# ---------------------------------------------------------------------------
+
+# Page size of the serving engine's paged caches (DecodeEngine's default).
+PAGE = 128
+# The 8-bit formats the checks run (fp8 is e4m3 in DecodeEngine).
+KV_8BIT = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+
+
+def paged_layout(batch: int, n_kv: int, lengths: torch.Tensor, n_q: int, pos_div: int, gen):
+    """``(perm, table, n_pages)`` for ``batch`` slots of ``n_kv`` tokens
+    over a pool of ``n_pages = 1 + batch * n_kv / PAGE`` pages: ``perm
+    [batch, n_kv / PAGE]`` places every logical page at a shuffled physical
+    page (never page 0, as the allocator never grants it), and ``table`` is
+    ``perm`` with the entries past each slot's last visible page set to 0,
+    as unallocated entries are.  With an identity table, a kernel that read
+    logical page j as physical page j would pass."""
+    max_pages = n_kv // PAGE
+    n_pages = 1 + batch * max_pages
+    perm = (1 + torch.randperm(n_pages - 1, generator=gen, device="cuda")).reshape(batch, max_pages)
+    live = ((n_q - 1) // pos_div + lengths.long()) // PAGE + 1
+    table = torch.where(torch.arange(max_pages, device="cuda")[None, :] < live[:, None], perm, 0)
+    return perm.to(torch.int32), table.to(torch.int32), n_pages
+
+
+def to_pages(x: torch.Tensor, perm: torch.Tensor, n_pages: int) -> torch.Tensor:
+    """Lay ``x [B, H_kv, N, ...]`` into a pool ``[n_pages, H_kv, PAGE, ...]``
+    so that logical page ``j`` of slot ``b`` is physical page ``perm[b, j]``.
+    Page 0, where the zeroed table entries past the diagonal point, holds
+    NaN (the 0x7F byte: NaN in e4m3 and e5m2; int8 has none, but its scale
+    page is NaN): a kernel that reads a page past a slot's diagonal turns
+    its output NaN, which fails every check."""
+    b, h, n = x.shape[:3]
+    rest = x.shape[3:]
+    pool = torch.empty((n_pages, h, PAGE, *rest), dtype=x.dtype, device=x.device)
+    if x.element_size() == 1:
+        pool.view(torch.uint8)[0] = 0x7F
+    else:
+        pool[0] = float("nan")
+    pages = x.reshape(b, h, n // PAGE, PAGE, *rest).transpose(1, 2).reshape(-1, h, PAGE, *rest)
+    as_bytes(pool)[perm.long().reshape(-1)] = as_bytes(pages)
+    return pool
+
+
+def kv_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
+    """``{name: (kernel, args, pos_div)}`` for ``KV_KERNELS`` at the serving
+    path's shapes: folded decode (``DECODE_Q`` over ``DECODE_KV`` at
+    ``decode_lengths()``) and a 512-row prefill chunk at offset 512; the
+    ladder, peaked (q x 8) and spike fixtures; int8 and e4m3 for the 8-bit
+    kernels, bf16 pools for the paged one, and fp32 q on the prefill shape.
+    Every page table is shuffled, with page 0 (NaN) past each slot's
+    diagonal (``paged_layout``, ``to_pages``)."""
+    lengths = torch.from_numpy(decode_lengths()).to("cuda")
+    shapes = {
+        "decode": (DECODE_Q, DECODE_KV, lengths, 2),
+        "prefill": (PREFILL_Q, PREFILL_KV, torch.tensor([512], dtype=torch.int32, device="cuda"), 1),
+    }
+    fixtures = {
+        "": lambda sq, skv, dt: ladder_inputs(sq, skv, dt, gen),
+        "_peaked": lambda sq, skv, dt: ladder_inputs(sq, skv, dt, gen, PEAKED_Q_SCALE),
+        "_spike": lambda sq, skv, dt: spike_inputs(sq, skv, dt, gen),
+    }
+    runs = [(shape, fix, torch.bfloat16) for shape in shapes for fix in fixtures]
+    runs.append(("prefill", "", torch.float32))
+    cases = {}
+    for shape, fix, dtype in runs:
+        shape_q, shape_kv, off, pos_div = shapes[shape]
+        q, k, v = fixtures[fix](shape_q, shape_kv, dtype)
+        perm, table, n_pages = paged_layout(shape_kv[0], shape_kv[2], off, shape_q[2], pos_div, gen)
+        tag = f"{shape}_{'fp32' if dtype == torch.float32 else 'bf16'}{fix}"
+        formats = {"int8": KV_8BIT["int8"]} if dtype == torch.float32 else KV_8BIT
+        for fmt, qdt in formats.items():
+            qkv = quantize_kv(k, v, qdt)
+            cases[f"quant_{fmt}_{tag}"] = ("flash_quant", (q, qkv, off), pos_div)
+            pools = [to_pages(x, perm, n_pages)
+                     for x in (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)]
+            cases[f"paged_quant_{fmt}_{tag}"] = (
+                "flash_paged_quant", (q, *pools, table, off), pos_div)
+        pools = [to_pages(x, perm, n_pages) for x in (k, v)]
+        cases[f"paged_{tag}"] = ("flash_paged", (q, *pools, table, off), pos_div)
+    return cases
+
+
+# Each kernel of csrc/flash_fwd.cu: its wrapper and its plain version, both
+# called with a ``kv_cases`` entry's args and pos_div (the quant kernel
+# with its lse).
+KV_KERNELS = {
+    "flash_quant": (
+        lambda q, qkv, off, pos_div: flash_attention_quant(
+            q, qkv, off, causal=True, pos_div=pos_div, save_lse=True),
+        lambda q, qkv, off, pos_div: flash_attention_quant_plain(
+            q.float(), qkv, off, sm_scale=_scale(q), causal=True, pos_div=pos_div,
+            save_lse=True),
+    ),
+    "flash_paged": (
+        lambda q, pk, pv, table, lengths, pos_div: flash_attention_paged(
+            q, pk, pv, table, lengths, pos_div=pos_div),
+        lambda q, pk, pv, table, lengths, pos_div: flash_attention_paged_plain(
+            q.float(), pk.float(), pv.float(), table, lengths, sm_scale=_scale(q),
+            pos_div=pos_div),
+    ),
+    "flash_paged_quant": (
+        lambda q, pk, pv, pks, pvs, table, lengths, pos_div: flash_attention_paged_quant(
+            q, pk, pv, pks, pvs, table, lengths, pos_div=pos_div),
+        lambda q, pk, pv, pks, pvs, table, lengths, pos_div: flash_attention_paged_plain(
+            q.float(), pk, pv, table, lengths, sm_scale=_scale(q), pos_div=pos_div,
+            pool_k_scale=pks, pool_v_scale=pvs),
+    ),
+}
+
+
+def kv_kernel_error(kernel: str, args: tuple, pos_div: int) -> Tuple[float, float]:
+    """Errors of one ``csrc/flash_fwd.cu`` kernel against its plain version
+    on the same 8-bit or paged data, in fp32 (see ``_fwd_errors``)."""
+    wrapper, plain = KV_KERNELS[kernel]
+    return _fwd_errors(wrapper(*args, pos_div), plain(*args, pos_div))
+
+
+def kv_work(kernel: str, args: tuple, pos_div: int) -> Tuple[float, float]:
+    """``(flops, bytes)`` one ``KV_KERNELS`` call must do on this data: 4 *
+    D flops per visible (row, column) pair; each slot's K and V rows up to
+    its last visible column read once (``kv_cache_bytes``: 1 byte per
+    element and a 4-byte scale per row of an 8-bit cache), q read and o
+    (and the quant kernel's lse) written once."""
+    q, offsets = args[0], args[-1].tolist()
+    heads, n_q, head_dim = q.shape[1:]
+    if kernel == "flash_quant":
+        kv_heads, n_kv, item = args[1].k_q.shape[1], args[1].seq_len, 1
+    else:
+        kv_heads, n_kv, item = args[1].shape[1], args[-2].shape[1] * PAGE, args[1].element_size()
+    pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div) for off in offsets)
+    rows = kv_heads * sum(min(n_kv, (n_q - 1) // pos_div + off + 1) for off in offsets)
+    nbytes = kv_cache_bytes(rows, head_dim, item, scaled=kernel != "flash_paged")
+    nbytes += 2 * q.numel() * q.element_size()
+    if kernel == "flash_quant":
+        nbytes += 4 * q.numel() // head_dim
+    return 4.0 * head_dim * pairs, nbytes
+
+
 def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None) -> Tuple[float, str]:
     """The library yardstick: ``F.scaled_dot_product_attention`` on the
     same inputs, its device ms and the backend it was pinned to.
@@ -367,8 +517,12 @@ def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None) -> Tu
 
 
 def steady_decode(eng, lengths: torch.Tensor) -> Callable[[], None]:
-    """One ``decode_and_sample`` step with every slot busy at ``lengths``."""
+    """One ``decode_and_sample`` step with every slot busy at ``lengths``
+    (a paged engine's slots are granted their pages first)."""
     active = torch.ones(len(eng.slots), dtype=torch.bool, device=eng.device)
+    if eng._allocator is not None:
+        for slot, n in enumerate(lengths.tolist()):
+            eng.cache = eng._allocator.grow(eng.cache, slot, n + 1)
 
     def step():
         eng.cache.lengths.copy_(lengths)
@@ -383,8 +537,11 @@ def steady_decode(eng, lengths: torch.Tensor) -> Callable[[], None]:
 
 def prefill_request(eng, n: int) -> Callable[[], None]:
     """Prefill of an ``n``-token prompt (``n`` a multiple of 128) into
-    slot 0, which is then freed again."""
+    slot 0, which is then freed again (a paged engine's slot keeps the
+    pages it is granted here)."""
     tokens = torch.arange(1, n + 1, dtype=torch.int32, device=eng.device)
+    if eng._allocator is not None:
+        eng.cache = eng._allocator.grow(eng.cache, 0, n)
 
     def prefill():
         decode_mod.prefill_slot(eng.params, eng.cfg, eng.cache, tokens, n, 0)
@@ -495,6 +652,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("sweep", "profile"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
+    parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
+                        help="the KV cache the serving profile decodes from")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -507,9 +666,10 @@ def main(argv=None) -> int:
         profile_train(stamp)
         return 0
     eng, _ = serving.build_engine(
-        **serving.FLASHLM_D2048, max_batch=8, max_len=2048, seed=SEED, device="cuda"
+        **serving.FLASHLM_D2048, max_batch=8, max_len=2048, seed=SEED, device="cuda",
+        **serving.SERVING_MODES[args.mode][0],
     )
-    profile_serving(eng, stamp)
+    profile_serving(eng, f"{args.mode} cache; {stamp}")
     return 0
 
 

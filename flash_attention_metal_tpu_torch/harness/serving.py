@@ -1,14 +1,15 @@
 """Serving benchmark and served-path check for the PyTorch port.
 
-Counterpart of ``flash_attention_metal_tpu/harness/serving.py`` in its dense
-mode: continuous-batching decode throughput of ``DecodeEngine`` on a FlashLM
-model, timed on the host clock between device fences.  ``host_context``
-records the card's name and power limit, since a card set below its
-maximum power runs slower under load.
+Counterpart of ``flash_attention_metal_tpu/harness/serving.py``:
+continuous-batching decode throughput of ``DecodeEngine`` on a FlashLM
+model in each serving mode (``SERVING_MODES``: the dense, 8-bit and paged
+caches, and prefix sharing), timed on the host clock between device
+fences.  ``host_context`` records the card's name and power limit, since a
+card set below its maximum power runs slower under load.
 
 ``teacher_forced_errors`` is the check that the served path is right: the
-logits of prefill and cached decode steps against a plain fp32 forward over
-the same tokens.
+logits of prefill and cached decode steps, through an engine of a given
+serving mode, against a plain fp32 forward over the same tokens.
 """
 
 from __future__ import annotations
@@ -23,9 +24,8 @@ import numpy as np
 import torch
 
 from ..models.transformer import ModelConfig, Params, forward, init_params
-from ..runtime.decode import decode_step, prefill_slot
-from ..runtime.engine import DecodeEngine, Request, _pad_to
-from ..runtime.kv_cache import init_cache
+from ..runtime.decode import decode_step
+from ..runtime.engine import DecodeEngine, Request
 
 # Largest relative L2 error ||served - reference|| / ||reference|| allowed
 # for one step's [V] logits by ``teacher_forced_errors`` with bf16
@@ -33,8 +33,32 @@ from ..runtime.kv_cache import init_cache
 # rounding of activations through the layers costs one to two percent, at
 # short and at long prompts; a kernel that reads one cache position too
 # few or too many, or RoPE in the half-split pairing, costs more than this
-# at short lengths (tests/test_torch_serving.py injects each fault).
+# at short lengths (tests/test_torch_serving.py injects each fault).  The
+# paged bf16 cache holds the same values, so it keeps this bound.
 LOGITS_REL_L2_TOL = 5e-2
+# The 8-bit caches add their quantization error to the bf16 one.  int8:
+# each K/V element is off by at most half a step, absmax / 254, a fraction
+# of the bf16 activation error, so int8 keeps 5e-2 (it reads 2.1-2.7%
+# against bf16's 1.3-1.7% on CPU models of 2-8 layers, d 128-512).  e4m3
+# keeps 3 mantissa bits: each element is off by up to 2^-4 of itself
+# (~3.6% RMS), and the same CPU models read 6.5-8.8%; the JAX tests allow
+# 8e-2 for e4m3 against 3e-2 for int8 on one attention call
+# (tests/test_quant.py).  Its bound is 1.5e-1, which the injected faults
+# (a cache position too few or too many reads 0.85-0.92) still exceed
+# (tests/test_torch_paged.py).
+LOGITS_REL_L2_TOL_INT8 = 5e-2
+LOGITS_REL_L2_TOL_FP8 = 1.5e-1
+
+# Each serving mode: the engine's cache options, and the bound on its
+# served logits (the prefix-shared mode serves from the paged cache).
+SERVING_MODES = {
+    "dense": (dict(), LOGITS_REL_L2_TOL),
+    "int8": (dict(kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
+    "fp8": (dict(kv_quant="fp8"), LOGITS_REL_L2_TOL_FP8),
+    "paged": (dict(paged=True), LOGITS_REL_L2_TOL),
+    "paged_prefix_shared": (dict(paged=True, prefix_share=True), LOGITS_REL_L2_TOL),
+    "paged_int8": (dict(paged=True, kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
+}
 
 # The widest FlashLM the repo records (the model of train_bench.json), as
 # ``build_engine`` keywords.
@@ -97,48 +121,61 @@ def build_engine(
 
 
 def make_requests(
-    n: int, vocab: int, prompt_lens: Sequence[int], max_new: int, seed: int
+    n: int,
+    vocab: int,
+    prompt_lens: Sequence[int],
+    max_new: int,
+    seed: int,
+    shared_prefix: int = 0,
 ) -> List[Request]:
     """``n`` requests with prompt lengths drawn from ``[lo, hi]``; odd uids
     sample at temperature 0.8 with top-k 50, even uids are greedy (the mix
-    of ``examples/generate.py``)."""
+    of ``examples/generate.py``).  The first ``shared_prefix`` prompt
+    tokens are common to all requests (the JAX bench's prefix-sharing
+    traffic); ``lo`` must be at least ``shared_prefix``."""
     rng = np.random.default_rng(seed)
     lo, hi = prompt_lens
-    return [
-        Request(
+    if lo < shared_prefix:
+        raise ValueError(f"prompts of {lo} tokens cannot hold a {shared_prefix}-token prefix")
+    common = rng.integers(1, vocab, shared_prefix).tolist()
+    reqs = []
+    for uid in range(n):
+        n_tail = int(rng.integers(lo, hi + 1)) - shared_prefix
+        reqs.append(Request(
             uid=uid,
-            prompt=rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist(),
+            prompt=common + rng.integers(1, vocab, n_tail).tolist(),
             max_new_tokens=max_new,
             temperature=0.8 if uid % 2 else 0.0,
             top_k=50 if uid % 2 else 0,
-        )
-        for uid in range(n)
-    ]
+        ))
+    return reqs
 
 
 def run_serving_bench(
-    eng: DecodeEngine, requests: List[Request], log=print
+    eng: DecodeEngine, requests: List[Request], mode: str = "dense", log=print
 ) -> Dict[str, object]:
     """Serve ``requests`` to completion and time it end to end.
 
-    The timed region starts and ends with a device fence and includes
-    every admission (prefill) and decode step.  Run a warm-up request
-    through the engine first so one-time set-up stays outside it.
+    ``mode`` is the ``SERVING_MODES`` name ``eng`` was built with; it
+    labels the result.  The timed region starts and ends with a device
+    fence and includes every admission (prefill) and decode step.  Run a
+    warm-up request through the engine first so one-time set-up stays
+    outside it.
     """
     for req in requests:
         eng.submit(req)
     _fence(eng.device)
-    steps0 = eng.steps
+    steps0, stats0 = eng.steps, eng.stats()
     t0 = time.perf_counter()
     while eng.pending():
         eng.step()
     _fence(eng.device)
     elapsed = time.perf_counter() - t0
-    steps = eng.steps - steps0
+    steps, stats = eng.steps - steps0, eng.stats()
     tokens = sum(len(r.generated) for r in requests)
     cfg = eng.cfg
     result = {
-        "mode": "dense",
+        "mode": mode,
         "host": host_context(eng.device),
         "model": {
             "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -152,9 +189,11 @@ def run_serving_bench(
         "total_generated_tokens": tokens,
         "tokens_per_s": tokens / elapsed,
         "ms_per_step": elapsed / max(steps, 1) * 1e3,
+        "pages_reserved": int(stats["pages_reserved"] - stats0["pages_reserved"]),
+        "pages_adopted": int(stats["pages_adopted"] - stats0["pages_adopted"]),
     }
     log(
-        f"serving[dense]: {tokens} tokens in {elapsed:.3f}s over {steps} "
+        f"serving[{mode}]: {tokens} tokens in {elapsed:.3f}s over {steps} "
         f"steps -> {result['tokens_per_s']:.1f} tok/s, "
         f"{result['ms_per_step']:.3f} ms/step (batch {len(eng.slots)})"
     )
@@ -172,33 +211,43 @@ def teacher_forced_errors(
     n_decode: int,
     max_len: int,
     seed: int = 0,
+    mode: str = "dense",
 ) -> List[float]:
     """Relative L2 errors of served logits against a plain fp32 forward.
 
-    Each prompt is prefilled into its own slot of a fresh cache; then
-    ``n_decode`` teacher-forced ``decode_step``s feed seeded tokens to all
-    slots at once.  The reference runs the same tokens through ``forward``
-    in fp32 with the oracle attention and no cache.  Returns one error per
-    slot per step (the prefill's last-token logits first).  Logits, not
-    tokens, are compared: with random weights the top logit flips on
-    rounding.
+    A fresh ``DecodeEngine`` of ``mode`` (a ``SERVING_MODES`` name) with
+    one slot per prompt prefills each prompt into its slot through the
+    engine's own admission (``prefill_request``: page reservation and, with
+    prefix sharing, adoption of the pages a prompt shares with an earlier
+    one, whose tail alone is prefilled; at least one page must be adopted).
+    Then ``n_decode`` teacher-forced ``decode_step``s feed seeded tokens to
+    all slots at once, each after the engine's page growth
+    (``grow_for_decode``).  The reference runs the same tokens through
+    ``forward`` in fp32 with the oracle attention and no cache.  Returns
+    one error per slot per step (the prefill's last-token logits first).
+    Logits, not tokens, are compared: with random weights the top logit
+    flips on rounding.
     """
     device = params["embed"].device
     rng = np.random.default_rng(seed)
     cont = rng.integers(1, cfg.vocab_size, (len(prompts), n_decode))
-    cache = init_cache(
-        cfg.n_layers, len(prompts), cfg.n_kv_heads, max_len, cfg.head_dim,
-        dtype=cfg.dtype, device=device,
+    eng = DecodeEngine(
+        params, cfg, max_batch=len(prompts), max_len=max_len, **SERVING_MODES[mode][0]
     )
     served: List[List[torch.Tensor]] = []
     for slot, prompt in enumerate(prompts):
-        tokens = torch.from_numpy(_pad_to(list(prompt), 128)).to(device)
-        logits, cache = prefill_slot(params, cfg, cache, tokens, len(prompt), slot)
+        req = Request(uid=slot, prompt=list(prompt), max_new_tokens=n_decode)
+        logits = eng.prefill_request(slot, req)
+        if logits is None:
+            raise MemoryError(f"the page pool cannot take prompt {slot}")
         served.append([logits])
+    if SERVING_MODES[mode][0].get("prefix_share") and not eng.stats()["pages_adopted"]:
+        raise ValueError("no prompt shares a full page with an earlier one")
     active = torch.ones((len(prompts),), dtype=torch.bool, device=device)
     for t in range(n_decode):
+        eng.grow_for_decode(range(len(prompts)))
         toks = torch.from_numpy(cont[:, t].astype(np.int32)).to(device)
-        logits, cache = decode_step(params, cfg, cache, toks, active)
+        logits, eng.cache = decode_step(params, cfg, eng.cache, toks, active)
         for slot in range(len(prompts)):
             served[slot].append(logits[slot])
 

@@ -86,14 +86,23 @@ def flash_attention_fwd_plain(
     causal: bool,
     pos_div: int = 1,
     save_lse: bool = False,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``)."""
+    """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``).
+
+    ``k_scale``, ``v_scale``: fp32 ``[B, H_kv, N_kv]`` per-token scales of
+    an 8-bit ``k``, ``v`` (``kernels/quant.py``): the K scale multiplies
+    each score column, the V scale each column of P.
+    """
     b, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     group = h // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
+    if k_scale is not None:
+        s = s * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
     visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=q.device)
     if causal:
         row = torch.arange(n_q, device=q.device) // pos_div
@@ -105,7 +114,8 @@ def flash_attention_fwd_plain(
     p = torch.exp(s - m) * visible
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    o = (torch.matmul(p, vf) / l_safe).to(q.dtype)
+    pv = p if v_scale is None else p * v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
+    o = (torch.matmul(pv, vf) / l_safe).to(q.dtype)
     if not save_lse:
         return o
     lse = torch.where(l == 0.0, float("-inf"), m + torch.log(l_safe))[..., 0]

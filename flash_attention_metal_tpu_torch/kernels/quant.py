@@ -1,0 +1,253 @@
+"""Attention against an 8-bit (int8 / fp8) KV cache: quantization, the CUDA
+kernel's wrapper and its plain version.
+
+Counterpart of ``flash_attention_metal_tpu/kernels/quant.py``.  The scheme
+is the JAX package's: symmetric per-token absmax,
+
+* ``k_q[t] = round(k[t] / s_k[t])`` (int8, half to even, clipped) or the
+  plain cast (fp8), with ``s_k[t] = max(absmax(k[t]), 1e-12) / QMAX``;
+* the K scale multiplies each score column, ``S[:, t] = (q . k_q[t]) *
+  s_k[t] * sm_scale``, and the V scale folds into P, ``O += (P * s_v)[:, t]
+  v_q[t]``.
+
+The scales are kept ``[B, H_kv, N]``: the JAX package's ``[B, H, N / 128,
+128]`` is a reshape for the TPU's 128 lanes, which the CUDA kernel
+(``csrc/flash_fwd.cu``, ``fam_flash_quant``) does not need.  On the H100 the
+fp8 formats are native: the TPU note that they run ~10x slower than int8
+is a v5e fact, not this card's.
+
+The wrapper takes the plain version for a tensor on the CPU and launches
+the kernel, or raises, for a CUDA tensor.  The JAX kernel's
+``kv_positions``, window/sinks, softcap and ALiBi raise
+``NotImplementedError`` (ROADMAP.md, Queue A item 5).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional, Tuple, Union
+
+import torch
+
+from ..config import default_scale
+from . import _build
+from .flash_fwd import (
+    _DTYPE_CODES,
+    HEAD_DIM,
+    _new_outputs,
+    _offsets,
+    flash_attention_fwd_plain,
+    reject_unported,
+)
+
+# Largest magnitude of each 8-bit format: the per-token scale maps a token's
+# absmax onto it.
+_QMAX = {
+    torch.int8: 127.0,
+    torch.float8_e4m3fn: 448.0,
+    torch.float8_e5m2: 57344.0,
+}
+# The kernel's code for each 8-bit element type.
+KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+
+
+@dataclasses.dataclass
+class QuantizedKV:
+    """An 8-bit KV pair with per-token scales."""
+
+    k_q: torch.Tensor  # [B, H_kv, N, D] int8 / fp8
+    v_q: torch.Tensor
+    k_scale: torch.Tensor  # [B, H_kv, N] fp32
+    v_scale: torch.Tensor
+
+    @property
+    def seq_len(self) -> int:
+        return self.k_q.shape[2]
+
+
+def quantize_tokens(x: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token absmax over the last dim: ``(x_q, scale)`` with
+    ``scale`` fp32 of ``x``'s shape without its last dim.
+
+    The JAX package's arithmetic in fp32, as its jitted serving steps run
+    it: XLA turns ``absmax / QMAX`` into ``absmax * (1 / QMAX)``, which is
+    one ulp off the quotient for about half the tokens, so the scale is
+    taken that way here.  ``round`` is half to even and the fp8 casts round
+    to nearest even in both packages (an element at the absmax may land a
+    hair above QMAX; both round it to QMAX).
+    """
+    qmax = _QMAX[dtype]
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) * (1.0 / qmax)
+    xs = xf / scale
+    if dtype == torch.int8:
+        xq = xs.round().clamp(-qmax, qmax).to(dtype)
+    else:
+        xq = xs.to(dtype)
+    return xq, scale[..., 0]
+
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor, dtype: torch.dtype = torch.int8) -> QuantizedKV:
+    """Symmetric per-token absmax quantization of a ``[B, H, N, D]`` pair."""
+    k_q, k_scale = quantize_tokens(k, dtype)
+    v_q, v_scale = quantize_tokens(v, dtype)
+    return QuantizedKV(k_q, v_q, k_scale, v_scale)
+
+
+def dequantize_kv(qkv: QuantizedKV, dtype: torch.dtype = torch.bfloat16):
+    """``(k, v)`` back in ``dtype`` (for testing)."""
+
+    def dq(xq, scale):
+        return (xq.float() * scale[..., None]).to(dtype)
+
+    return dq(qkv.k_q, qkv.k_scale), dq(qkv.v_q, qkv.v_scale)
+
+
+def flash_attention_quant_plain(
+    q: torch.Tensor,
+    qkv: QuantizedKV,
+    q_offset: torch.Tensor,
+    *,
+    sm_scale: float,
+    causal: bool,
+    pos_div: int = 1,
+    save_lse: bool = False,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``)."""
+    return flash_attention_fwd_plain(
+        q, qkv.k_q, qkv.v_q, q_offset, sm_scale=sm_scale, causal=causal,
+        pos_div=pos_div, save_lse=save_lse, k_scale=qkv.k_scale, v_scale=qkv.v_scale,
+    )
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of ``csrc/flash_fwd.cu``'s 8-bit and paged
+    entry points on a loaded library."""
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fam_flash_quant.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_q, v_q, k/v scale, q_offset, o, lse
+        i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
+        f32, i32, i32, i32, i32,  # sm_scale, causal, pos_div, dtype, kv dtype
+        ptr,  # stream
+    ]
+    lib.fam_flash_paged.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # q, pool k/v, table, lengths, o
+        i32, i32, i32, i32,  # batch, heads, kv heads, n_q
+        i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
+        f32, i32, i32,  # sm_scale, pos_div, dtype
+        ptr,  # stream
+    ]
+    lib.fam_flash_paged_quant.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, pool k/v, k/v scale, table, lengths, o
+        i32, i32, i32, i32,  # batch, heads, kv heads, n_q
+        i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
+        f32, i32, i32, i32,  # sm_scale, pos_div, dtype, kv dtype
+        ptr,  # stream
+    ]
+    for fn in (lib.fam_flash_quant, lib.fam_flash_paged, lib.fam_flash_paged_quant):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    return bind(_build.load())
+
+
+def check_cuda_tensors(q: torch.Tensor, rows: dict, others: dict) -> None:
+    """What the kernels of ``csrc/flash_fwd.cu`` take: bf16 or fp32 ``q`` of
+    head dim 64; every tensor on q's device and contiguous; q and the K/V
+    storage (``rows``, read 16 bytes at a time) 16-byte aligned."""
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA kernel takes bf16 or fp32 q, got {q.dtype}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the CUDA kernel is compiled for head_dim {HEAD_DIM}, got {q.shape[-1]}")
+    rows = {"q": q, **rows}
+    for name, t in (*rows.items(), *others.items()):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name in rows and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_scales(kq: torch.Tensor, vq: torch.Tensor, ks: torch.Tensor, vs: torch.Tensor) -> None:
+    """8-bit K/V of one type with fp32 scales of their shape without D."""
+    if kq.dtype not in KV_CODES or vq.dtype != kq.dtype:
+        raise TypeError(f"8-bit K/V of one type expected, got {kq.dtype}, {vq.dtype}")
+    if vq.shape != kq.shape or ks.shape != kq.shape[:-1] or vs.shape != kq.shape[:-1]:
+        raise ValueError(
+            f"K/V {tuple(kq.shape)}, {tuple(vq.shape)} with scales "
+            f"{tuple(ks.shape)}, {tuple(vs.shape)}: scales are K/V's shape without D"
+        )
+    if ks.dtype != torch.float32 or vs.dtype != torch.float32:
+        raise TypeError("scales must be fp32")
+
+
+def flash_attention_quant(
+    q: torch.Tensor,
+    qkv: QuantizedKV,
+    q_offset: Union[None, int, torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: Optional[float] = None,
+    causal: bool = False,
+    save_lse: bool = False,
+    pos_div: int = 1,
+    **features,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Flash attention of ``q [B, H, N_q, D]`` (bf16/fp32) against an 8-bit
+    cache (``csrc/flash_fwd.cu``, ``fam_flash_quant``).
+
+    Native GQA (q-head ``h`` reads KV head ``h // group``).  With
+    ``causal``, row ``r`` of batch ``b`` sees columns ``c <= r // pos_div +
+    q_offset[b]``; ``q_offset`` is an int or a ``[B]`` tensor and defaults
+    to ``n_kv - n_q // pos_div``; ``pos_div > 1`` (the GQA decode fold)
+    needs ``causal``.  Returns ``o`` in q's dtype, or ``(o, lse)`` with lse
+    fp32 ``[B, H, N_q]``; rows with nothing visible give 0 and -inf.
+    """
+    reject_unported(dict(features, kv_positions=kv_positions))
+    check_scales(qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
+    if q.ndim != 4 or qkv.k_q.ndim != 4 or qkv.k_q.shape[0] != q.shape[0] \
+            or qkv.k_q.shape[3] != q.shape[3] or q.shape[1] % qkv.k_q.shape[1]:
+        raise ValueError(f"8-bit K/V {tuple(qkv.k_q.shape)} does not fit q {tuple(q.shape)}")
+    batch, heads, n_q, head_dim = q.shape
+    if pos_div < 1 or (pos_div > 1 and not causal):
+        raise NotImplementedError("pos_div > 1 requires causal=True")
+    n_kv = qkv.seq_len
+    if sm_scale is None:
+        sm_scale = default_scale(head_dim)
+    off = _offsets(q_offset, batch, n_kv - n_q // pos_div, q.device)
+    if off.shape != (batch,):
+        raise ValueError(f"q_offset must be an int or a [{batch}] tensor")
+
+    if q.device.type == "cpu":
+        return flash_attention_quant_plain(
+            q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div, save_lse=save_lse
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    check_cuda_tensors(
+        q, dict(k_q=qkv.k_q, v_q=qkv.v_q),
+        dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale, q_offset=off),
+    )
+    o, lse = _new_outputs(q, save_lse)
+    err = _lib().fam_flash_quant(
+        q.data_ptr(), qkv.k_q.data_ptr(), qkv.v_q.data_ptr(), qkv.k_scale.data_ptr(),
+        qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        batch, heads, qkv.k_q.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
+        pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"flash_quant kernel launch failed: cudaError_t {err}")
+    flash_attention_quant.launches += 1
+    return (o, lse) if save_lse else o
+
+
+# Launches of the CUDA kernel since import (the CPU route does not count).
+flash_attention_quant.launches = 0

@@ -1,10 +1,10 @@
-"""Prefill and single-step decode against the dense KV cache, and sampling.
+"""Prefill and single-step decode against the KV caches, and sampling.
 
-Counterpart of the dense path of ``flash_attention_metal_tpu/runtime/
-decode.py``.  A decode step with per-slot valid lengths is causal flash
-attention with ``q_offset[b] = length[b]``, so stale cache rows past each
-slot's write head are masked like future tokens: the same kernel serves
-prefill and decode.
+Counterpart of ``flash_attention_metal_tpu/runtime/decode.py`` on its
+dense, 8-bit, paged and paged 8-bit caches.  A decode step with per-slot
+valid lengths is causal flash attention with ``q_offset[b] = length[b]``,
+so stale cache rows past each slot's write head are masked like future
+tokens: one kernel per cache kind serves prefill and decode.
 
 Sampling draws from a ``torch.Generator`` on the logits' device.  Its
 numbers differ from ``jax.random``'s, so the two packages agree on greedy
@@ -13,7 +13,8 @@ tokens, filters and log-probabilities, not on sampled tokens.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -26,8 +27,40 @@ from ..models.transformer import (
     rms_norm,
     weight,
 )
-from ..ops.attention import flash_attention, gqa_decode_attention
-from .kv_cache import KVCache, append_tokens, bump_lengths
+from ..kernels.paged import flash_attention_paged, flash_attention_paged_quant
+from ..kernels.quant import QuantizedKV, flash_attention_quant
+from ..ops.attention import (
+    flash_attention,
+    fold_gqa_rows,
+    gqa_decode_attention,
+    unfold_gqa_rows,
+)
+from .kv_cache import (
+    KVCache,
+    QuantKVCache,
+    append_tokens,
+    append_tokens_quant,
+    bump_lengths,
+)
+from .paged_kv import (
+    PagedKVCache,
+    PagedQuantKVCache,
+    append_tokens_paged,
+    append_tokens_paged_quant,
+)
+
+
+def _attend(
+    fn: Callable[[torch.Tensor, int], torch.Tensor], q: torch.Tensor, n_kv_heads: int, fold: bool
+) -> torch.Tensor:
+    """``fn(q, pos_div)``, with the GQA decode fold around it when ``fold``:
+    the group q-heads sharing a KV head become rows of one tile
+    (``pos_div = group``), so the cache is read once per KV head."""
+    if not fold:
+        return fn(q, 1)
+    heads, t = q.shape[1], q.shape[2]
+    o = fn(fold_gqa_rows(q, n_kv_heads).contiguous(), heads // n_kv_heads)
+    return unfold_gqa_rows(o, heads, t)
 
 
 def _attn_with_cache(
@@ -47,20 +80,37 @@ def _attn_with_cache(
     group = cfg.n_heads // cfg.n_kv_heads
     fold = group > 1 and t_new * group <= 128
     # The causal offset is the OLD length: new row r sits at length + r.
-    cache = append_tokens(cache, layer_idx, k, v)
-    if fold and cfg.attn_impl != "reference":
-        o = gqa_decode_attention(
-            q, cache.k[layer_idx], cache.v[layer_idx], cache.lengths
-        )
+    i = layer_idx
+    if isinstance(cache, PagedKVCache):
+        # Appends scatter through the page table; the kernel reads through
+        # it.  The engine's allocator granted the pages of length + t_new.
+        cache = append_tokens_paged(cache, i, k, v)
+        o = _attend(lambda qq, pos_div: flash_attention_paged(
+            qq, cache.pool_k[i], cache.pool_v[i], cache.page_table, cache.lengths,
+            pos_div=pos_div), q.contiguous(), cfg.n_kv_heads, fold)
+    elif isinstance(cache, PagedQuantKVCache):
+        cache = append_tokens_paged_quant(cache, i, k, v)
+        o = _attend(lambda qq, pos_div: flash_attention_paged_quant(
+            qq, cache.pool_k_q[i], cache.pool_v_q[i], cache.pool_k_scale[i],
+            cache.pool_v_scale[i], cache.page_table, cache.lengths, pos_div=pos_div),
+            q.contiguous(), cfg.n_kv_heads, fold)
+    elif isinstance(cache, QuantKVCache):
+        # Tokens are quantized at append; the kernel reads 8-bit KV and
+        # per-token scales.
+        cache = append_tokens_quant(cache, i, k, v)
+        qkv = QuantizedKV(cache.k_q[i], cache.v_q[i], cache.k_scale[i], cache.v_scale[i])
+        o = _attend(lambda qq, pos_div: flash_attention_quant(
+            qq, qkv, cache.lengths, causal=True, pos_div=pos_div),
+            q.contiguous(), cfg.n_kv_heads, fold)
     else:
-        o = flash_attention(
-            q,
-            cache.k[layer_idx],
-            cache.v[layer_idx],
-            q_offset=cache.lengths,
-            causal=True,
-            impl=cfg.attn_impl,
-        )
+        cache = append_tokens(cache, i, k, v)
+        if fold and cfg.attn_impl != "reference":
+            o = gqa_decode_attention(q, cache.k[i], cache.v[i], cache.lengths)
+        else:
+            o = flash_attention(
+                q, cache.k[i], cache.v[i], q_offset=cache.lengths, causal=True,
+                impl=cfg.attn_impl,
+            )
     return x + _merge_heads(o) @ weight(layer["wo"], cfg.dtype), cache
 
 
@@ -112,18 +162,30 @@ def prefill_chunk(
     n_chunk = tokens.shape[0]
     positions = (start_len + torch.arange(n_chunk, device=tokens.device))[None, :]
     x = params["embed"][tokens[None, :].long()].to(cfg.dtype)
-    # A one-slot view of the cache: appends write through to the cache.
-    slot_cache = KVCache(
-        k=cache.k[:, slot : slot + 1],
-        v=cache.v[:, slot : slot + 1],
-        lengths=torch.full((1,), start_len, dtype=torch.int32, device=tokens.device),
-    )
+    slot_cache = _slot_view(cache, slot, start_len)
     for i, layer in enumerate(params["layers"]):
         x, slot_cache = _attn_with_cache(layer, x, cfg, slot_cache, i, positions)
         x = mlp_block(layer, x, cfg)
     cache.lengths[slot] = min(prompt_len, start_len + n_chunk)
     last_idx = min(max(prompt_len - start_len - 1, 0), n_chunk - 1)
     return _logits(params, x[:, last_idx : last_idx + 1], cfg)[0, 0], cache
+
+
+def _slot_view(cache, slot: int, start_len: int):
+    """A one-slot view of ``cache`` whose appends write through to it, with
+    length ``start_len``.  A paged cache's pools pass whole (prefill writes
+    only the slot's own pages) with the slot's table row."""
+    lengths = torch.full((1,), start_len, dtype=torch.int32, device=cache.lengths.device)
+    if isinstance(cache, (PagedKVCache, PagedQuantKVCache)):
+        return dataclasses.replace(
+            cache, page_table=cache.page_table[slot : slot + 1], lengths=lengths
+        )
+    # Dense caches: every field but lengths is [n_layers, B, ...].
+    views = {
+        f.name: getattr(cache, f.name)[:, slot : slot + 1]
+        for f in dataclasses.fields(cache) if f.name != "lengths"
+    }
+    return dataclasses.replace(cache, lengths=lengths, **views)
 
 
 def prefill_slot(

@@ -1,26 +1,38 @@
 """Continuous-batching decode engine on one device.
 
-Counterpart of ``flash_attention_metal_tpu/runtime/engine.py`` on its dense
-single-device path: a fixed pool of batch slots, a FIFO admission queue,
-per-step retirement, and bookkeeping that runs ``harvest_lag`` steps
+Counterpart of ``flash_attention_metal_tpu/runtime/engine.py`` on one
+device, over a dense, 8-bit (``kv_quant``) or paged (``paged``, with
+``prefix_share``) KV cache: a fixed pool of batch slots, a FIFO admission
+queue, per-step retirement, and bookkeeping that runs ``harvest_lag`` steps
 behind the device through non-blocking device-to-host copies, so the host
 never waits for a step it has just queued.  Admission and retirement only
 change per-slot state; the shapes the device sees never change.
+
+The paged cache's pages are granted and released by a host allocator
+(``runtime/paged_kv.py``), with admission control by worst-case page
+reservation.  Its bookkeeping reads the host's own count of each slot's
+tokens (``_host_len``), never the device's lengths, which would wait for
+the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..models.transformer import ModelConfig, Params
-from .decode import admit_update, decode_and_sample, prefill_slot
-from .kv_cache import init_cache, reset_slot
+from .decode import admit_update, decode_and_sample, prefill_chunk, prefill_slot
+from .kv_cache import init_cache, init_quant_cache, reset_slot
+from .paged_kv import PageAllocator, init_paged_cache, init_paged_quant_cache
+
+# The 8-bit formats of ``kv_quant``: "fp8" is e4m3, as in the JAX engine.
+KV_QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 
 @dataclasses.dataclass
@@ -51,6 +63,21 @@ def _pad_to(x: List[int], multiple: int) -> np.ndarray:
     n = len(x)
     pad = (-n) % multiple
     return np.asarray(x + [0] * pad, np.int32)
+
+
+def _prefix_chain_keys(prompt: List[int], page_size: int) -> List[str]:
+    """Chained content keys of each full prompt page.
+
+    Key ``i`` digests every token up to the end of page ``i``, not only the
+    page's own: a page's KV depends on its whole prefix, so equal keys mean
+    the same KV from the same prefill.
+    """
+    h = hashlib.sha256()
+    keys = []
+    for i in range(len(prompt) // page_size):
+        h.update(np.asarray(prompt[i * page_size : (i + 1) * page_size], np.int64).tobytes())
+        keys.append(h.hexdigest())
+    return keys
 
 
 def _fetch_async(*tensors: torch.Tensor):
@@ -99,14 +126,30 @@ class DecodeEngine:
         kv_quant: Optional[str] = None,
         rolling: bool = False,
         paged: bool = False,
+        page_size: int = 128,
+        n_pages: Optional[int] = None,
+        prefix_share: bool = False,
         mesh=None,
     ):
+        # The JAX engine's checks of the paged options come first.
+        if paged and rolling:
+            raise ValueError(
+                "paged=True does not compose with rolling (a wrapped position "
+                "map has no stable page ownership)"
+            )
+        if paged and mesh is not None:
+            raise ValueError(
+                "paged=True is single-device (a shared physical pool has no "
+                "batch dim to shard)"
+            )
+        if prefix_share and not paged:
+            raise ValueError("prefix_share=True requires paged=True")
+        if kv_quant is not None and kv_quant not in KV_QUANT_DTYPES:
+            raise ValueError(f"kv_quant={kv_quant!r} must be one of {sorted(KV_QUANT_DTYPES)}")
         unported = {
             "multi_step > 1": multi_step > 1,
             "draft (speculative serving)": draft is not None,
-            "kv_quant": kv_quant is not None,
             "rolling": rolling,
-            "paged": paged,
             "mesh": mesh is not None,
         }
         asked = [name for name, on in unported.items() if on]
@@ -125,10 +168,36 @@ class DecodeEngine:
         # Tokens a retired slot may still decode before its retirement
         # lands (harvest runs harvest_lag steps behind the device).
         self._zombie_margin = harvest_lag + 1
-        self.cache = init_cache(
-            cfg.n_layers, max_batch, cfg.n_kv_heads, max_len, cfg.head_dim,
-            dtype=cfg.dtype, device=self.device,
-        )
+        shape = (cfg.n_layers, max_batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        qdt = KV_QUANT_DTYPES.get(kv_quant)
+        self.kv_quant = kv_quant
+        self._paged = paged
+        self._allocator: Optional[PageAllocator] = None
+        # Tokens each slot will hold once the queued steps land: the host's
+        # count, read by the page bookkeeping instead of the device lengths.
+        self._host_len = [0] * max_batch
+        if paged:
+            if n_pages is None:
+                # No oversubscription (the dense cache's capacity) plus the
+                # reserved page 0.
+                n_pages = max_batch * (max_len // page_size) + 1
+            init = init_paged_quant_cache if qdt else init_paged_cache
+            self.cache = init(
+                *shape, n_pages=n_pages, page_size=page_size, dtype=qdt or cfg.dtype,
+                device=self.device,
+            )
+            self._allocator = PageAllocator(n_pages, max_batch)
+        elif qdt:
+            self.cache = init_quant_cache(*shape, dtype=qdt, device=self.device)
+        else:
+            self.cache = init_cache(*shape, dtype=cfg.dtype, device=self.device)
+        self._prefix_share = prefix_share
+        # Retained prefix registry: chain key -> physical page, LRU order.
+        # Each entry pins its page so shared prefixes outlive their slots;
+        # entries are evicted when admission needs the pages.
+        self._prefix_registry: "OrderedDict[str, int]" = OrderedDict()
+        self._pages_reserved = 0
+        self._pages_adopted = 0
         self.slots: List[Optional[Request]] = [None] * max_batch
 
         # Device-resident per-slot state: the decode chain never
@@ -176,16 +245,106 @@ class DecodeEngine:
         )
 
     # ------------------------------------------------------------------
+    def _reserve_pages(self, slot: int, req: Request, n_padded: int):
+        """Admission control of the paged cache, and the pages of ``req``'s
+        prompt: reserve its worst-case page footprint (the padded prompt,
+        or prompt + generation + the zombie steps' margin), evicting
+        registered prefixes (LRU) before refusing; adopt the registered
+        pages of its prompt's prefix; grow the slot to the padded prompt.
+
+        Returns the prompt's chain keys ([] without prefix sharing) and the
+        tokens of the adopted pages, or None when the pool cannot take the
+        request yet.
+        """
+        alloc, ps = self._allocator, self.cache.page_size
+        worst = max(n_padded, len(req.prompt) + req.max_new_tokens + self._zombie_margin + 1)
+        need = -(-min(worst, self.max_len) // ps)
+        while not alloc.can_reserve(need) and self._prefix_registry:
+            _, phys = self._prefix_registry.popitem(last=False)
+            alloc.unpin(phys)
+        if not alloc.can_reserve(need):
+            return None
+        alloc.reserve(slot, need)
+        self._pages_reserved += need
+        keys: List[str] = []
+        shared = 0
+        if self._prefix_share:
+            keys = _prefix_chain_keys(req.prompt, ps)
+            # Adopt strictly below the prompt's last token, so the tail
+            # prefill always runs (it gives the first token's logits) and
+            # decode never writes a shared page.
+            for key in keys[: (len(req.prompt) - 1) // ps]:
+                phys = self._prefix_registry.get(key)
+                if phys is None:
+                    break
+                self.cache = alloc.adopt(self.cache, slot, phys)
+                self._prefix_registry.move_to_end(key)
+                shared += ps
+            self._pages_adopted += shared // ps
+        self.cache = alloc.grow(self.cache, slot, n_padded)
+        self._host_len[slot] = len(req.prompt)
+        return keys, shared
+
+    def prefill_request(self, slot: int, req: Request) -> Optional[torch.Tensor]:
+        """Prefill ``req``'s prompt into the free ``slot`` and return the
+        logits of its last token, or None when the page pool cannot take
+        the request yet.
+
+        The paged cache first reserves the request's pages and adopts the
+        registered pages of its prefix (``_reserve_pages``); adopted pages
+        are not prefilled again, and the prompt's full pages are registered
+        for later requests.  The slot's sampling state is ``_admit``'s.
+        """
+        padded = _pad_to(req.prompt, 128)
+        keys, shared = [], 0
+        if self._paged:
+            reserved = self._reserve_pages(slot, req, len(padded))
+            if reserved is None:
+                return None
+            keys, shared = reserved
+        tokens = torch.from_numpy(padded).to(self.device)
+        if shared:
+            # The adopted pages already hold the prefix's KV: prefill only
+            # the tail.
+            logits, self.cache = prefill_chunk(
+                self.params, self.cfg, self.cache, tokens[shared:], shared,
+                len(req.prompt), slot,
+            )
+        else:
+            logits, self.cache = prefill_slot(
+                self.params, self.cfg, self.cache, tokens, len(req.prompt), slot
+            )
+        if self._prefix_share:
+            # Register the prompt's full pages (adopted ones already are).
+            owned = self._allocator._owned[slot]
+            for i, key in enumerate(keys[: len(req.prompt) // self.cache.page_size]):
+                if key not in self._prefix_registry:
+                    self._allocator.pin(owned[i])
+                    self._prefix_registry[key] = owned[i]
+        return logits
+
+    def grow_for_decode(self, slots) -> None:
+        """Grant each of ``slots`` the page of the token its next decode
+        step appends (paged cache), from the host's count of its tokens."""
+        if not self._paged:
+            return
+        for slot in slots:
+            self.cache = self._allocator.grow(
+                self.cache, slot, min(self._host_len[slot] + 1, self.max_len)
+            )
+            self._host_len[slot] += 1
+
     def _admit(self) -> None:
         """Prefill queued requests into free slots."""
         for slot, occupant in enumerate(self.slots):
             if occupant is not None or not self.queue:
                 continue
             req = self.queue.popleft()
-            tokens = torch.from_numpy(_pad_to(req.prompt, 128)).to(self.device)
-            logits, self.cache = prefill_slot(
-                self.params, self.cfg, self.cache, tokens, len(req.prompt), slot
-            )
+            logits = self.prefill_request(slot, req)
+            if logits is None:
+                # The pool is full: wait for retirements.
+                self.queue.appendleft(req)
+                break
             tok, logp = admit_update(
                 logits, self.generator, slot, req.temperature, req.top_k,
                 req.top_p, req.min_p, req.presence_penalty,
@@ -223,7 +382,13 @@ class DecodeEngine:
             req.done = True
             self.slots[req.slot] = None
             self._occupancy_dirty = True
-            self.cache = reset_slot(self.cache, req.slot)
+            if self._paged:
+                # The zeroed table row sends the zombie steps' writes to
+                # page 0, so the freed pages are safe to grant at once.
+                self.cache = self._allocator.release(self.cache, req.slot)
+                self._host_len[req.slot] = 0
+            else:
+                self.cache = reset_slot(self.cache, req.slot)
             self.finished[req.uid] = req
 
     # ------------------------------------------------------------------
@@ -268,6 +433,7 @@ class DecodeEngine:
                     [r is not None for r in self.slots], dtype=torch.bool
                 ).to(self.device)
                 self._occupancy_dirty = False
+            self.grow_for_decode(s for s, r in enumerate(self.slots) if r is not None)
             toks, lps, self.cache, self.pen_counts = decode_and_sample(
                 self.params, self.cfg, self.cache, self.next_token,
                 self._active_dev, self.generator, self.temps, self.top_ks,
@@ -297,7 +463,10 @@ class DecodeEngine:
 
         ``tokens``: emitted so far (finished + in flight);
         ``tokens_per_s``: tokens / cumulative step() seconds;
-        ``ms_per_step``: mean step cadence.
+        ``ms_per_step``: mean step cadence;
+        ``pages_reserved``, ``pages_adopted``: pages of the paged cache
+        reserved at admission (each request's worst case) and adopted from
+        the prefix registry, summed over admissions (0 without paging).
         """
         steps = max(self.steps, 1)
         secs = max(self._step_seconds, 1e-9)
@@ -307,6 +476,8 @@ class DecodeEngine:
             "tokens": float(self._tokens_emitted),
             "tokens_per_s": self._tokens_emitted / secs,
             "ms_per_step": 1e3 * self._step_seconds / steps,
+            "pages_reserved": float(self._pages_reserved),
+            "pages_adopted": float(self._pages_adopted),
         }
 
     def run(self) -> Dict[int, List[int]]:

@@ -7,6 +7,7 @@ from .roofline import (
     attention_bytes,
     attention_flops,
     detect_chip,
+    kv_cache_bytes,
     roofline_fraction,
     roofline_time,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "attention_bytes",
     "attention_flops",
     "detect_chip",
+    "kv_cache_bytes",
     "restore_pytree",
     "roofline_fraction",
     "roofline_time",

@@ -89,6 +89,13 @@ def attention_bytes(
     return float(batch * heads * (2 * n_q + 2 * n_kv) * head_dim * itemsize)
 
 
+def kv_cache_bytes(rows: int, head_dim: int, itemsize: int, scaled: bool = False) -> float:
+    """Least HBM traffic of reading ``rows`` K rows and as many V rows of a
+    KV cache (``rows`` summed over slots and KV heads): ``itemsize`` bytes
+    per element, plus one fp32 scale per row of an 8-bit cache."""
+    return float(2 * rows * (head_dim * itemsize + (4 if scaled else 0)))
+
+
 def roofline_time(
     flops: float,
     bytes_moved: float,

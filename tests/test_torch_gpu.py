@@ -20,6 +20,8 @@ from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
 from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
 from flash_attention_metal_tpu_torch.kernels import naive as nv
+from flash_attention_metal_tpu_torch.kernels import paged as pg
+from flash_attention_metal_tpu_torch.kernels import quant as qt
 from flash_attention_metal_tpu_torch.kernels.flash_mxu import flash_attention_mxu
 from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
     flash_attention_fwd,
@@ -535,3 +537,204 @@ def test_ladder_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         nv.naive_attention(q.half(), q.half(), q.half())
 
+
+
+# ---------------------------------------------------------------------------
+# The 8-bit and paged caches' kernels (csrc/flash_fwd.cu): quant, paged and
+# paged-quant.
+# ---------------------------------------------------------------------------
+
+KV_FORMATS = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2}
+# (q shape, KV [B, H_kv, N], offsets, pos_div): ragged rows (not a multiple
+# of the 64-row tile) with GQA 2; the folded decode of group 4 with slots at
+# both ends of the cache.
+KV_SHAPES = {
+    "ragged_gqa2": ((3, 4, 130, 64), (3, 2, 384), [0, 100, 254], 1),
+    "decode_fold4": ((3, 2, 4, 64), (3, 2, 256), [0, 255, 97], 4),
+}
+
+
+def _kv_args(kernel, fmt, shape, dtype, q_scale, gen):
+    """A kernel's arguments (``onchip.KV_KERNELS`` order) at ``KV_SHAPES``
+    entry ``shape``: 8-bit K/V of ``fmt`` for the quant kernels, pools in
+    q's dtype for the paged one, a shuffled table with page 0 (NaN) past
+    each slot's diagonal."""
+    shape_q, (b, hkv, n_kv), offsets, pos_div = KV_SHAPES[shape]
+    q, k, v = onchip.ladder_inputs(shape_q, (b, hkv, n_kv, 64), dtype, gen, q_scale)
+    off = torch.tensor(offsets, dtype=torch.int32, device="cuda")
+    if kernel == "flash_quant":
+        return (q, qt.quantize_kv(k, v, KV_FORMATS[fmt]), off), pos_div
+    perm, table, n_pages = onchip.paged_layout(b, n_kv, off, shape_q[2], pos_div, gen)
+    if kernel == "flash_paged":
+        kv_ = (k, v)
+    else:
+        qkv = qt.quantize_kv(k, v, KV_FORMATS[fmt])
+        kv_ = (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
+    return (q, *(onchip.to_pages(x, perm, n_pages) for x in kv_), table, off), pos_div
+
+
+KV_KERNEL_RUNS = [("flash_quant", fmt) for fmt in KV_FORMATS] + [("flash_paged", None)] + [
+    ("flash_paged_quant", fmt) for fmt in ("int8", "e4m3")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_scale", [1.0, onchip.PEAKED_Q_SCALE], ids=["ladder", "peaked"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", sorted(KV_SHAPES))
+@pytest.mark.parametrize("kernel,fmt", KV_KERNEL_RUNS)
+def test_kv_kernel_matches_plain(cuda, kernel, fmt, shape, dtype, q_scale):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    args, pos_div = _kv_args(kernel, fmt, shape, dtype, q_scale, gen)
+    wrapper = onchip.KV_KERNELS[kernel][0]
+    counter = {"flash_quant": qt.flash_attention_quant, "flash_paged": pg.flash_attention_paged,
+               "flash_paged_quant": pg.flash_attention_paged_quant}[kernel]
+    before = counter.launches
+    out = wrapper(*args, pos_div)
+    assert counter.launches == before + 1
+    o = out[0] if isinstance(out, tuple) else out
+    assert o.dtype == dtype and o.shape == args[0].shape
+    err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
+    assert err <= TOL[dtype] and lse_err <= TOL[dtype], (err, lse_err)
+
+
+@pytest.mark.gpu
+def test_quant_kernel_masked_rows_and_non_causal(cuda):
+    """Rows that see nothing give o = 0 and lse = -inf; non-causal calls
+    see every column (the default offset)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q, k, v = onchip.ladder_inputs((1, 2, 128, 64), (1, 1, 128, 64), torch.bfloat16, gen)
+    qkv = qt.quantize_kv(k, v, torch.int8)
+    off = torch.tensor([-70], dtype=torch.int32, device="cuda")
+    err, lse_err = onchip.kv_kernel_error("flash_quant", (q, qkv, off), 1)
+    assert err <= TOL[torch.bfloat16] and lse_err <= TOL[torch.bfloat16]
+    o, lse = qt.flash_attention_quant(q, qkv, off, causal=True, save_lse=True)
+    assert torch.all(o[:, :, :70] == 0) and torch.all(torch.isneginf(lse[:, :, :70]))
+    o = qt.flash_attention_quant(q, qkv)
+    want = qt.flash_attention_quant_plain(q.float(), qkv, torch.zeros(1, dtype=torch.int32,
+                                          device="cuda"), sm_scale=0.125, causal=False)
+    assert float((o.float() - want).abs().max()) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+def test_kv_kernels_are_deterministic(cuda):
+    """One owner block per output tile and a fixed KV order: two runs of
+    each kernel at chip_smoke.py's shapes give identical bits."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    for name, (kernel, args, pos_div) in onchip.kv_cases(gen).items():
+        wrapper = onchip.KV_KERNELS[kernel][0]
+        first, second = wrapper(*args, pos_div), wrapper(*args, pos_div)
+        for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (first, second))):
+            assert torch.equal(a, b), name
+
+
+# Faults planted in a copy of csrc/flash_fwd.cu: (kernels whose check must
+# fail, text, replacement).
+PLANTED_KV_FAULTS = {
+    # every column of a KV step takes the step's first V scale: s_v
+    # applied to the step's sum instead of to each column of P
+    "v_scale_on_the_sum": (("flash_quant", "flash_paged_quant"),
+                           "const float v_scale = kScaled ? sm.sv[c] : 1.0f;",
+                           "const float v_scale = kScaled ? sm.sv[0] : 1.0f;"),
+    # the K scale dropped on one column of each KV tile
+    "k_scale_dropped_on_one_column": (("flash_quant", "flash_paged_quant"),
+                                      "const float k_scale = kScaled ? sm.sk[c] : 1.0f;",
+                                      "const float k_scale = kScaled && c != 5 ? sm.sk[c] : 1.0f;"),
+    # logical page j read as physical page j
+    "identity_page_table": (("flash_paged", "flash_paged_quant"),
+                            "const int phys = min(max(kv.table[(size_t)b * kv.max_pages + logical], "
+                            "0), kv.n_pages - 1);",
+                            "const int phys = min(logical, kv.n_pages - 1);"),
+    # the KV loop reads one page past each row block's diagonal
+    "page_past_the_diagonal": (("flash_paged", "flash_paged_quant"),
+                               "tile_limit / kBlockN + 1;",
+                               "tile_limit / kBlockN + 1 + (kPaged ? kv.page / kBlockN : 0);"),
+}
+
+
+def _kv_check(kernel, gen):
+    """The worst error of chip_smoke.py's checks of one kernel (NaN if any
+    case reads NaN)."""
+    gen.manual_seed(onchip.SEED)
+    cases = [c for c in onchip.kv_cases(gen).values() if c[0] == kernel]
+    return float(np.max([onchip.kv_kernel_error(*c) for c in cases]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_KV_FAULTS))
+def test_planted_kv_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's check of the 8-bit and paged kernels passes them as
+    built and fails a copy with a planted fault (errors printed with
+    ``-s``; NaN counts as a failure)."""
+    kernels, old, new = PLANTED_KV_FAULTS[fault]
+    text = (_build.CSRC / "flash_fwd.cu").read_text()
+    assert text.count(old) == 1
+    planted = tmp_path / "flash_fwd.cu"
+    planted.write_text(text.replace(old, new))
+    lib = qt.bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    gen = torch.Generator(device="cuda")
+    clean = {k: _kv_check(k, gen) for k in kernels}
+    monkeypatch.setattr(qt, "_lib", lambda: lib)
+    monkeypatch.setattr(pg, "_lib", lambda: lib)
+    faulty = {k: _kv_check(k, gen) for k in kernels}
+    tol = TOL[torch.bfloat16]
+    print(f"\n{fault}: worst error built -> planted: " + ", ".join(
+        f"{k} {clean[k]:.3e} -> {faulty[k]:.3e}" for k in kernels) + f" (tol {tol})")
+    for k in kernels:
+        assert clean[k] <= tol
+        assert not faulty[k] <= tol, k
+
+
+@pytest.mark.gpu
+def test_kv_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda)
+    k = torch.zeros((1, 2, 128, 64), device=cuda)
+    qkv = qt.quantize_kv(k, k)
+    with pytest.raises(TypeError):
+        qt.flash_attention_quant(q.half(), qkv, causal=True)
+    with pytest.raises(ValueError, match="head_dim"):
+        qt.flash_attention_quant(torch.zeros((1, 2, 8, 128), device=cuda),
+                                 qt.quantize_kv(torch.zeros((1, 2, 128, 128), device=cuda),
+                                                torch.zeros((1, 2, 128, 128), device=cuda)))
+    pool = torch.zeros((3, 2, 128, 64), device=cuda)
+    table = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    lengths = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="on cpu"):
+        pg.flash_attention_paged(q, pool, pool, table.cpu(), lengths)
+    with pytest.raises(TypeError, match="dtype"):
+        pg.flash_attention_paged(q, pool.bfloat16(), pool.bfloat16(), table, lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(serving.SERVING_MODES))
+def test_engine_modes_cuda_match_cpu(cuda, mode):
+    """Greedy fp32 serving in each KV-cache mode: the card (the mode's
+    kernel) and the CPU (its plain version) emit the same tokens, with
+    log-probabilities equal to fp32 rounding.  Three requests share a
+    150-token prefix on two slots, so slots are reused and, with
+    prefix_share, pages adopted."""
+    _, cfg = serving.build_engine(
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256, vocab=256,
+        max_batch=2, max_len=512, dtype=torch.float32, device="cpu",
+    )
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = tf.init_params(cfg, gen)
+    prefix = [7 + (i * 5) % 200 for i in range(150)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = serving.DecodeEngine(tf.map_params(lambda p: p.to(dev), params), cfg, max_batch=2,
+                                   max_len=512, **serving.SERVING_MODES[mode][0])
+        reqs = [serving.Request(uid=u, prompt=prefix + [u + 1], max_new_tokens=6) for u in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        out[dev] = reqs
+    # As tests/test_torch_paged.py's LOGP_TOL: an 8-bit cache may round a
+    # key a step apart on the two devices.
+    atol = 5e-4 if mode.endswith(("int8", "fp8")) else 1e-4
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.generated == b.generated
+        np.testing.assert_allclose(a.logprobs, b.logprobs, atol=atol, rtol=0)

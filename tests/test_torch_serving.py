@@ -222,9 +222,22 @@ def test_engine_matches_jax_greedy(params, jax_params):
 
 
 def test_engine_rejects_unported_options(params):
-    for kw in (dict(paged=True), dict(rolling=True), dict(kv_quant="int8"),
-               dict(multi_step=4), dict(draft=(params, CFG)), dict(mesh=object())):
+    for kw in (dict(rolling=True), dict(multi_step=4), dict(draft=(params, CFG)),
+               dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, **kw)
+    # The 8-bit and paged caches are ported: each option constructs.
+    for kw, cache in ((dict(kv_quant="int8"), "QuantKVCache"),
+                      (dict(kv_quant="fp8"), "QuantKVCache"),
+                      (dict(paged=True), "PagedKVCache"),
+                      (dict(paged=True, prefix_share=True), "PagedKVCache"),
+                      (dict(paged=True, kv_quant="int8"), "PagedQuantKVCache")):
+        eng = eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, **kw)
+        assert type(eng.cache).__name__ == cache
+    # The JAX engine's checks of the paged options.
+    for kw in (dict(prefix_share=True), dict(paged=True, rolling=True),
+               dict(paged=True, mesh=object()), dict(kv_quant="int4")):
+        with pytest.raises(ValueError):
             eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, **kw)
 
 
