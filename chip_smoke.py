@@ -30,7 +30,18 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   n = 1024 (every ported rung must pass) and a short benchmark (N = 128,
   1024, 4096 and the high-occupancy phase), with each kernel's launches
   over these two runs.  The full sweep is its own command:
-  ``python -m flash_attention_metal_tpu_torch.bench``.
+  ``python -m flash_attention_metal_tpu_torch.bench``;
+* the tuned backward: the fused backward kernel against its plain version
+  at the training and high-occupancy shapes, the autotuner's race of the
+  split pair, the fused and the triangular kernel at both, then the
+  depth-2 gradient check and 2 ``Trainer`` steps under a saved decision
+  naming the fused kernel (launched there, the split pair never);
+* the reference benchmark's CSV sweep: both V1 kernels (streaming and
+  folded) against their plain version in fp32, and ``run_sweep`` at N =
+  128 and 1024, each point launching its V1 kernel.
+
+Every phase but the tuned one runs with the backward router's cache
+pointed at an empty temporary directory (the untuned rule).
 
 Each phase prints its lines; any failure exits non-zero before the result
 lines.  The last three lines are the card (``nvidia-smi``'s name and power
@@ -43,7 +54,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -253,7 +266,231 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
               f"({rec['prefill_bound_by']}), SDPA dense {sdpa_prefill[0]:.4f} ms {stamp}")
     del cases
     torch.cuda.empty_cache()
-    return {"records": records, "serving": serving_out}
+    return {"records": records, "serving": serving_out, "sdpa_decode": sdpa_decode}
+
+
+def grad_check(gen: torch.Generator) -> dict:
+    """Every parameter's gradient at full width, depth 2, batch 1, seq
+    2048, with the kernels' attention against the fp32 oracle attention
+    (bf16 compute both ways); fails above ``GRAD_REL_L2_TOL``."""
+    from flash_attention_metal_tpu_torch.harness import train_bench
+    from flash_attention_metal_tpu_torch.models import transformer as tf
+
+    gcfg = train_bench.flashlm_config(n_layers=GRAD_CHECK_LAYERS)
+    gen.manual_seed(SEED)
+    gparams = tf.init_params(gcfg, gen, master_dtype=torch.float32)
+    gtokens = train_bench.fixed_batch(gcfg, 1, 2048, SEED + 2)
+    loss_k, grads_k = tf.value_and_grad(tf.loss_fn, gparams, gtokens, gcfg)
+    loss_r, grads_r = tf.value_and_grad(
+        tf.loss_fn, gparams, gtokens, dataclasses.replace(gcfg, attn_impl="reference"))
+    names = leaf_names(gparams)
+    rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+            for a, b in zip(tf.param_leaves(grads_k), tf.param_leaves(grads_r))]
+    worst_i = int(np.argmax(rels))
+    check(all(np.isfinite(rels)) and rels[worst_i] <= GRAD_REL_L2_TOL,
+          f"gradient {names[worst_i]} rel L2 {rels[worst_i]:.3e} > {GRAD_REL_L2_TOL}")
+    return {"loss": float(loss_k), "loss_ref": float(loss_r), "n": len(rels),
+            "worst": rels[worst_i], "worst_name": names[worst_i],
+            "median": float(np.median(rels))}
+
+
+def grad_line(g: dict) -> str:
+    return (f"L{GRAD_CHECK_LAYERS} d2048 b1 s2048: loss {g['loss']:.5f} vs {g['loss_ref']:.5f}; "
+            f"{g['n']} gradients, rel L2 max {g['worst']:.3e} ({g['worst_name']}), median "
+            f"{g['median']:.3e} (tol {GRAD_REL_L2_TOL})")
+
+
+def timed_record(kernel_fn, plain_fn, library, flops, nbytes, bits, shape, spec) -> dict:
+    """A kernel's device ms beside its plain version's, the library call's
+    (``(ms, backend)``) and its roofline bound at one shape of its path."""
+    from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    return {
+        "ms": onchip.device_ms(kernel_fn),
+        "plain_ms": onchip.device_ms(plain_fn, iters=5),
+        "library_ms": library[0],
+        "library_backend": library[1],
+        "bound_ms": roofline.roofline_time(flops, nbytes, spec, bits) * 1e3,
+        "bound_by": roofline.bound_by(flops, nbytes, spec, bits),
+        "shape": shape,
+    }
+
+
+def v1_phase(gen: torch.Generator, stamp: str, spec, kernels: dict) -> list:
+    """FlashAttention V1 (``csrc/flash_v1.cu``) and the reference benchmark's
+    sweep: both kernels against their plain version in fp32 (ladder, peaked
+    and spike fixtures; ``onchip.v1_cases``); ``run_sweep`` at N = 128 (the
+    folded kernel) and 1024 (the streaming one), one point at a time with
+    every count reset before it and read after it; each kernel's times.
+    Returns the two kernel records."""
+    from flash_attention_metal_tpu_torch.harness import benchmark, onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_v1 as fv
+
+    tol = onchip.TOL[torch.float32]
+    errors = {}
+    for name, (kernel, qkv, causal) in onchip.v1_cases(gen).items():
+        err = onchip.v1_error(qkv, causal)
+        errors[name] = (kernel, err)
+        check(err <= tol, f"{name}: max abs err {err:.3e} > {tol}")
+        print(f"[v1-kernel] {name} ({kernel}) q {tuple(qkv[0].shape)} causal {causal}: "
+              f"max_abs_err {err:.3e} (tol {tol})")
+
+    print(f"[sweep] {benchmark.CSV_HEADER}")
+    sweep_launches = dict.fromkeys(kernels, 0)
+    for n, ran, idle in ((128, "flash_v1_folded", "flash_v1"), (1024, "flash_v1", "flash_v1_folded")):
+        for fn in kernels.values():
+            fn.launches = 0
+        (row,) = benchmark.run_sweep((n,), iters=5, repeats=2,
+                                     log=lambda line: print(f"[sweep] {line}"))
+        counts = {name: fn.launches for name, fn in kernels.items()}
+        check(counts[ran] > 0 and counts[idle] == 0,
+              f"sweep N={n}: {ran} launched ({counts[ran]}), {idle} not ({counts[idle]})")
+        check(all(x is not None and np.isfinite(x) and x > 0 for x in (
+            row.naive_ms, row.v1_ms, row.v2_ms, row.mxu_ms, row.mxu_causal_ms,
+            row.speedup_v1, row.speedup_v2, row.speedup_mxu)),
+            f"sweep N={n}: every time and speedup measured: {row.csv()}")
+        print(f"[sweep] N={n} B={row.b}: launches {counts} {stamp}")
+        for name in kernels:
+            sweep_launches[name] += counts[name]
+
+    records = []
+    for name, shape, line in (("flash_v1", onchip.SWEEP_1024, 40),
+                              ("flash_v1_folded", onchip.SWEEP_128, 136)):
+        q, k, v = onchip.ladder_inputs(shape, shape, torch.float32, gen)
+        check(onchip.v1_kernel(shape) == name, f"{name} takes the sweep's shape {shape}")
+        b, h, n, d = shape
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "flash_attention_metal_tpu_torch/csrc/flash_v1.cu",
+            "replaces": f"flash_attention_metal_tpu/kernels/flash_v1.py:{line}",
+            "launches": sweep_launches[name],
+            "max_abs_err": max(e for k_, e in errors.values() if k_ == name),
+            **timed_record(
+                lambda: fv.flash_attention_v1(q, k, v),
+                lambda: fv.flash_attention_v1_plain(q, k, v, sm_scale=0.125, causal=False),
+                onchip.sdpa_ms(q, k, v), 4.0 * d * b * h * n * n, 4.0 * q.numel() * 4, 32,
+                f"sweep N={n} B={b} H=1 fp32 non-causal", spec),
+        }
+        records.append(rec)
+        print(f"[time] kernel {name} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+              f"({rec['library_backend']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+              f"launches over the sweep {rec['launches']} {stamp}")
+        del q, k, v
+    torch.cuda.empty_cache()
+    return records
+
+
+def fused_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
+    """The tuned backward: the fused kernel (``csrc/flash_bwd.cu``,
+    ``fam_flash_bwd_fused``) against its plain version at the training
+    shape (bf16 ladder and peaked fixtures, fp32 at N = 512) and at high
+    occupancy; ``autotune_bwd`` racing split, fused and tri at both shapes
+    into a cache under ``tmp``; then a cache naming "fused" for the
+    training shapes, under which the depth-2 gradient check and 2
+    full-width ``Trainer`` steps run with the fused kernel launched and the
+    split pair never.  Returns the kernel record and the tuned run's
+    numbers."""
+    from flash_attention_metal_tpu_torch.harness import autotune, onchip, train_bench
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    errors = {}
+    cases = onchip.train_cases(gen)
+    inputs = {name: onchip.bwd_inputs(case) for name, case in cases.items()}
+    del cases
+    inputs["high_occupancy_bf16"] = onchip.high_occupancy_bwd_inputs(gen)
+    for name, args in inputs.items():
+        errs = onchip.bwd_kernel_errors(args, fused=True)
+        tol = onchip.BWD_TOL[args[0].dtype]
+        errors[name] = errs
+        worst_rel = max(rel for _, rel in errs.values())
+        check(worst_rel <= tol, f"fused {name}: backward normalised error {worst_rel:.3e} > {tol}")
+        print(f"[fused-kernel] {name} q {tuple(args[0].shape)} kv {tuple(args[1].shape)}: "
+              + ", ".join(f"{g} max_abs {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items())
+              + f" (tol rel {tol})")
+    del inputs["high_occupancy_bf16"], inputs["train_bf16_peaked"], inputs["train_fp32_n512"]
+    torch.cuda.empty_cache()
+
+    # The autotuner's race at the high-occupancy and the training shape.
+    race_path = os.path.join(tmp, "race.json")
+    raced = {}
+    for shape in autotune.TRAIN_SHAPES:
+        impl, blocks = autotune.autotune_bwd(
+            shape, cache_path=race_path, iters=5, log=lambda s: print(f"[autotune] {s} {stamp}"))
+        raced[str(shape)] = {"impl": impl, "blocks": blocks}
+        print(f"[autotune] {shape} bf16 causal: {impl} {blocks} wins {stamp}")
+
+    # The training run under a cache naming "fused" for its two attention
+    # shapes (the gradient check's batch 1, the Trainer's batch 4).
+    tuned = os.path.join(tmp, "fused.json")
+    b_, h_, n_, d_ = onchip.TRAIN_Q
+    h_kv = onchip.TRAIN_KV[1]
+    for batch in (1, b_):
+        autotune.record_bwd((batch, h_, h_kv, n_, d_), "fused", {}, cache_path=tuned)
+    default_cache = autotune.DEFAULT_CACHE
+    autotune.DEFAULT_CACHE = tuned
+    autotune.reset_memo()
+    counters = {"fused": fb.flash_bwd_fused, "dkv": fb.flash_bwd_dkv, "dq": fb.flash_bwd_dq}
+    for fn in counters.values():
+        fn.launches = 0
+    g = grad_check(gen)
+    train = train_bench.run_train_bench(steps=2, log=lambda s: None)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    autotune.DEFAULT_CACHE = default_cache
+    autotune.reset_memo()
+    layers = train["model"]["n_layers"]
+    want = {"fused": GRAD_CHECK_LAYERS + 2 * layers, "dkv": 0, "dq": 0}
+    check(all(np.isfinite(train["losses"])), f"tuned training losses finite: {train['losses']}")
+    check(launches == want, f"tuned backward launches {launches} == {want}")
+    print(f"[grad-check] fused backward: {grad_line(g)}")
+    print(f"[train-fused] 2 Trainer steps, L{layers} d2048 b4 s2048 under a cache naming "
+          f"\"fused\": losses " + ", ".join(f"{x:.4f}" for x in train["losses"])
+          + f"; launches fused {launches['fused']}, dK/dV {launches['dkv']}, dQ {launches['dq']} "
+          f"(grad check and steps); step {train['step_ms']:.2f} ms {stamp}")
+
+    # Device time and the dQ workspace at the training shape, as the op
+    # calls the kernel there (its int offset 0 bounds the workspace).
+    q, k, v, o, do, lse, off = inputs["train_bf16"]
+    batch, heads, n_q, head_dim = q.shape
+    flops, nbytes = roofline.fused_bwd_work(batch, heads, k.shape[1], n_q, k.shape[2], head_dim,
+                                            2, causal=True)
+    ws_alloc, ws_written = onchip.fused_workspace_bytes(inputs["train_bf16"], 0)
+    check(ws_alloc == ws_written > 0,
+          f"fused dQ workspace: {ws_alloc} bytes allocated, {ws_written} written: the packed "
+          "layout holds exactly the visible pairs")
+    kw = dict(sm_scale=0.125, causal=True)
+    rec = {
+        "name": "flash_bwd_fused",
+        "route": "cuda",
+        "source": "flash_attention_metal_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "flash_attention_metal_tpu/kernels/flash_bwd.py:520",
+        "launches": launches["fused"],
+        "max_abs_err": max(e[gr][0] for n, e in errors.items() if "bf16" in n for gr in e),
+        "max_rel_err": max(e[gr][1] for n, e in errors.items() if "bf16" in n for gr in e),
+        "max_rel_err_fp32": max(r for _, r in errors["train_fp32_n512"].values()),
+        **timed_record(
+            lambda: fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, q_offset_max=0,
+                                                 **kw),
+            lambda: fb.flash_attention_bwd_fused_plain(q, k, v, o, do, lse, off, **kw),
+            onchip.sdpa_ms(q, k, v, causal=True, backward_of=do), flops, nbytes, 16,
+            "training q [4,16,2048,64] kv [4,8,2048,64] bf16 causal", spec),
+        "workspace_bytes_allocated": ws_alloc,
+        "workspace_bytes_written": ws_written,
+        "race": raced,
+    }
+    rec["library_backend"] += " backward (dQ, dK, dV together)"
+    print(f"[time] kernel flash_bwd_fused at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+          f"({rec['library_backend']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+          f"dQ workspace {ws_alloc} bytes allocated, {ws_written} bytes of slots written "
+          f"(allocator peak; NaN-filled slots overwritten) {stamp}")
+    del inputs, q, k, v, o, do, lse
+    torch.cuda.empty_cache()
+    return {"record": rec, "grad_rel_l2_max": g["worst"], "losses": train["losses"],
+            "step_ms": train["step_ms"]}
 
 
 def main() -> int:
@@ -261,8 +498,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     from flash_attention_metal_tpu_torch import bench as bench_mod
-    from flash_attention_metal_tpu_torch.harness import onchip, serving, train_bench
-    from flash_attention_metal_tpu_torch.harness.verify import run_ladder
+    from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving, train_bench
+    from flash_attention_metal_tpu_torch.harness.verify import RUNGS_2_8_9_12_18, run_ladder
     from flash_attention_metal_tpu_torch.kernels import _build
     from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
     from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
@@ -277,7 +514,6 @@ def main() -> int:
         naive_attention,
         naive_attention_plain,
     )
-    from flash_attention_metal_tpu_torch.models import transformer as tf
     from flash_attention_metal_tpu_torch.runtime import engine as engine_mod
     from flash_attention_metal_tpu_torch.utils import roofline
 
@@ -293,6 +529,15 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
+    spec = roofline.detect_chip()
+    # The backward router reads the autotuner's saved decisions from
+    # autotune.DEFAULT_CACHE when that file exists.  Point it at an empty
+    # scratch directory, so every phase but the tuned one runs the untuned
+    # rule whatever the working directory holds.
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    autotune.DEFAULT_CACHE = os.path.join(tmp, "autotune_cache_torch.json")
+    autotune.reset_memo()
 
     # 3. Kernel against its plain version at the path's shapes.
     gen = torch.Generator(device="cuda")
@@ -385,7 +630,7 @@ def main() -> int:
     # 6b. The 8-bit and paged KV caches: their three kernels, five engines.
     del eng
     torch.cuda.empty_cache()
-    kv = kv_cache_phase(gen, stamp, roofline.detect_chip())
+    kv = kv_cache_phase(gen, stamp, spec)
 
     # 7. Backward kernels against their plain versions at the training
     # shape (bf16 ladder and peaked fixtures, fp32 at N = 512).
@@ -403,23 +648,8 @@ def main() -> int:
 
     # 8. Gradients at full width, depth 2, batch 1: kernel attention
     # against the fp32 oracle attention, every parameter.
-    gcfg = train_bench.flashlm_config(n_layers=GRAD_CHECK_LAYERS)
-    gen.manual_seed(SEED)
-    gparams = tf.init_params(gcfg, gen, master_dtype=torch.float32)
-    gtokens = train_bench.fixed_batch(gcfg, 1, 2048, SEED + 2)
-    loss_k, grads_k = tf.value_and_grad(tf.loss_fn, gparams, gtokens, gcfg)
-    loss_r, grads_r = tf.value_and_grad(
-        tf.loss_fn, gparams, gtokens, dataclasses.replace(gcfg, attn_impl="reference"))
-    names = leaf_names(gparams)
-    rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-            for a, b in zip(tf.param_leaves(grads_k), tf.param_leaves(grads_r))]
-    worst_i = int(np.argmax(rels))
-    check(all(np.isfinite(rels)) and rels[worst_i] <= GRAD_REL_L2_TOL,
-          f"gradient {names[worst_i]} rel L2 {rels[worst_i]:.3e} > {GRAD_REL_L2_TOL}")
-    print(f"[grad-check] L{GRAD_CHECK_LAYERS} d2048 b1 s2048: loss {float(loss_k):.5f} vs "
-          f"{float(loss_r):.5f}; {len(rels)} gradients, rel L2 max {rels[worst_i]:.3e} "
-          f"({names[worst_i]}), median {float(np.median(rels)):.3e} (tol {GRAD_REL_L2_TOL})")
-    del gparams, grads_k, grads_r
+    grads = grad_check(gen)
+    print(f"[grad-check] {grad_line(grads)}")
 
     # 9. Train: Trainer.step at the full width, counts over these steps only.
     flash_fwd_general.launches = fb.flash_bwd_dkv.launches = fb.flash_bwd_dq.launches = 0
@@ -464,6 +694,27 @@ def main() -> int:
     for name, (ms, plain_ms) in train_times.items():
         print(f"[time] kernel {name} at the training shape q {tuple(q.shape)} kv "
               f"{tuple(k.shape)}: device {ms:.4f} ms, plain {plain_ms:.4f} ms {stamp}")
+    # The forward kernel's bound and library call at its decode and
+    # training shapes (row 1's prefill figures come in step 13).
+    fwd_extra = {}
+    for tag, (qx, kx, offx, pos_div, save_lse), lib in (
+        ("decode", (*cases["decode_bf16"][0:2], cases["decode_bf16"][3], 2, False),
+         kv["sdpa_decode"]),
+        ("train", (q, k, off, 1, True), onchip.sdpa_ms(q, k, v, causal=True)),
+    ):
+        flops, nbytes = onchip.fwd_work(qx, kx, offx, pos_div, save_lse)
+        fwd_extra.update({
+            f"{tag}_bound_ms": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+            f"{tag}_bound_by": roofline.bound_by(flops, nbytes, spec, 16),
+            f"{tag}_library_ms": lib[0],
+            f"{tag}_library_backend": lib[1],
+        })
+        print(f"[time] kernel flash_fwd, {tag}: bound {fwd_extra[f'{tag}_bound_ms']:.4f} ms "
+              f"({fwd_extra[f'{tag}_bound_by']}), library {lib[0]:.4f} ms ({lib[1]}) {stamp}")
+
+    # 10b. The tuned backward: the fused kernel, the autotuner's race, and
+    # training under a decision naming the fused kernel.
+    fused = fused_phase(gen, stamp, spec, tmp)
 
     # 11. The kernel ladder's kernels against their plain versions at the
     # benchmark's and the verification ladder's shapes: bf16 on the ladder,
@@ -499,13 +750,17 @@ def main() -> int:
     rungs = run_ladder(LADDER_N, device="cuda", log=lambda line: print(f"[ladder] {line}"))
     failed = [r.name for r in rungs if not r.passed]
     check(not failed, f"every ported ladder rung passes; failed: {failed}")
-    spec = roofline.detect_chip()
+    missing = sorted(set(RUNGS_2_8_9_12_18) - {r.name for r in rungs})
+    check(not missing, f"rungs 2, 8, 9, 12 and 18 run; missing: {missing}")
     detail = bench_mod.run_bench(SHORT_SWEEP, spec=spec, log=lambda m: print(f"[bench] {m} {stamp}"))
     slice_launches = bench_mod.kernel_launches()
     occ = detail["high_occupancy"]
     check(occ["bwd_spot_verify_pass"],
           f"bench backward spot check {occ['bwd_spot_verify_max_diff']:.3e} < {bench_mod.SPOT_CHECK_TOL}")
-    unlaunched = [name for name, n in slice_launches.items() if n == 0]
+    # The folded V1 kernel runs on the sweep (step 14), the fused backward
+    # under a tuned decision (step 10b): both have their own counted runs.
+    unlaunched = [name for name, n in slice_launches.items()
+                  if n == 0 and name not in ("flash_v1_folded", "flash_bwd_fused")]
     check(not unlaunched, f"every kernel launched on the ladder and bench path; not: {unlaunched}")
     print(f"[bench] short sweep {SHORT_SWEEP}: geomean speedup vs naive non-causal "
           f"{detail['geomean_speedup']:.3f}x, causal {detail['geomean_speedup_causal']:.3f}x; "
@@ -516,18 +771,6 @@ def main() -> int:
     # version's, the library call's and the roofline bound (bytes: each
     # input read once, each output written once; operations: the visible
     # score pairs, 4 flops per pair and head dim per forward matmul pair).
-    def times(kernel_fn, plain_fn, library, flops, nbytes, bits, shape):
-        ms_bound = roofline.roofline_time(flops, nbytes, spec, bits) * 1e3
-        return {
-            "ms": onchip.device_ms(kernel_fn),
-            "plain_ms": onchip.device_ms(plain_fn, iters=5),
-            "library_ms": library[0],
-            "library_backend": library[1],
-            "bound_ms": ms_bound,
-            "bound_by": roofline.bound_by(flops, nbytes, spec, bits),
-            "shape": shape,
-        }
-
     def nb(*tensors):
         return float(sum(t.numel() * t.element_size() for t in tensors))
 
@@ -538,23 +781,23 @@ def main() -> int:
     qn, kn, vn = onchip.ladder_inputs(shp, shp, torch.float32, gen)
     qh, kh, vh = (x.bfloat16() for x in (qn, kn, vn))
     pairs_full = shp[0] * shp[1] * shp[2] * shp[2]
-    rec["naive"] = times(
+    rec["naive"] = timed_record(
         lambda: naive_attention(qn, kn, vn),
         lambda: naive_attention_plain(qn, kn, vn, sm_scale=scale, causal=False),
         onchip.sdpa_ms(qn, kn, vn), 4 * 64 * pairs_full, 2 * nb(qn, kn), 32,
-        f"sweep N=1024 B=8 H=1 fp32 non-causal")
-    rec["flash_lean"] = times(
+        "sweep N=1024 B=8 H=1 fp32 non-causal", spec)
+    rec["flash_lean"] = timed_record(
         lambda: flash_fwd_lean(qh, kh, vh),
         lambda: flash_fwd_lean_plain(qh, kh, vh, 0, sm_scale=scale, causal=False),
         onchip.sdpa_ms(qh, kh, vh), 4 * 64 * pairs_full, 2 * nb(qh, kh), 16,
-        f"sweep N=1024 B=8 H=1 bf16 non-causal")
+        "sweep N=1024 B=8 H=1 bf16 non-causal", spec)
     shp = onchip.SWEEP_128
     qs, ks, vs = onchip.ladder_inputs(shp, shp, torch.bfloat16, gen)
-    lean_128 = times(
+    lean_128 = timed_record(
         lambda: flash_fwd_lean(qs, ks, vs),
         lambda: flash_fwd_lean_plain(qs, ks, vs, 0, sm_scale=scale, causal=False),
         onchip.sdpa_ms(qs, ks, vs), 4 * 64 * shp[0] * shp[2] * shp[2], 2 * nb(qs, ks), 16,
-        f"sweep N=128 B=512 H=1 bf16 non-causal")
+        "sweep N=128 B=512 H=1 bf16 non-causal", spec)
     del qn, kn, vn, qh, kh, vh, qs, ks, vs
 
     b_, h_, n_, d_ = onchip.HIGH_OCC
@@ -562,17 +805,17 @@ def main() -> int:
     doo = qo * 0.01
     oo, lseo = ft.flash_attention_tri(qo, ko, vo, save_lse=True)
     tri_pairs = b_ * h_ * roofline.visible_pairs(n_, n_, 0)
-    rec["flash_tri"] = times(
+    rec["flash_tri"] = timed_record(
         lambda: ft.flash_attention_tri(qo, ko, vo, save_lse=True),
         lambda: ft.flash_attention_tri_plain(qo, ko, vo, 0, sm_scale=scale, save_lse=True),
         onchip.sdpa_ms(qo, ko, vo, causal=True), 4 * d_ * tri_pairs,
-        2 * nb(qo, ko) + nb(lseo), 16, "high occupancy B16 H8 N2048 bf16 causal, lse")
-    rec["flash_tri_bwd"] = times(
+        2 * nb(qo, ko) + nb(lseo), 16, "high occupancy B16 H8 N2048 bf16 causal, lse", spec)
+    rec["flash_tri_bwd"] = timed_record(
         lambda: ft.flash_attention_bwd_tri(qo, ko, vo, oo, doo, lseo),
         lambda: ft.flash_attention_bwd_tri_plain(qo, ko, vo, oo, doo, lseo, 0, sm_scale=scale),
         onchip.sdpa_ms(qo, ko, vo, causal=True, backward_of=doo), 10 * d_ * tri_pairs,
         5 * nb(qo) + nb(lseo) + nb(qo) + 4 * qo.numel() * 2, 16,
-        "high occupancy B16 H8 N2048 bf16 causal")
+        "high occupancy B16 H8 N2048 bf16 causal", spec)
     del qo, ko, vo, doo, oo, lseo
     torch.cuda.empty_cache()
 
@@ -616,6 +859,9 @@ def main() -> int:
         print(f"[time] kernel {name} at {r['shape']}: device {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms "
               f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']}) {stamp}")
+
+    # 14. The reference benchmark's sweep and its V1 kernels.
+    v1_records = v1_phase(gen, stamp, spec, bench_mod.KERNELS)
 
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
@@ -678,6 +924,7 @@ def main() -> int:
             "launches_ladder_bench": slice_launches["flash_fwd"],
             "train_ms": train_times["flash_fwd"][0],
             "train_plain_ms": train_times["flash_fwd"][1],
+            **fwd_extra,
         },
             bwd_record("flash_bwd_dkv", 79, ("dk", "dv")),
             bwd_record("flash_bwd_dq", 268, ("dq",)),
@@ -697,6 +944,8 @@ def main() -> int:
                 **times_of("flash_tri_bwd"),
             },
             *kv["records"],
+            fused["record"],
+            *v1_records,
         ],
         "serving": {
             "tokens_per_s": bench["tokens_per_s"],
@@ -712,7 +961,12 @@ def main() -> int:
             "model_tflops": train["model_tflops"],
             "mfu": train["mfu"],
             "losses": losses,
-            "grad_rel_l2_max": rels[worst_i],
+            "grad_rel_l2_max": grads["worst"],
+        },
+        "training_fused_backward": {
+            "step_ms": fused["step_ms"],
+            "losses": fused["losses"],
+            "grad_rel_l2_max": fused["grad_rel_l2_max"],
         },
         "bench_short": {
             "sweep": SHORT_SWEEP,
@@ -726,6 +980,7 @@ def main() -> int:
         },
         "card": smi,
     }
+    tmp_dir.cleanup()
     print(smi)
     print(json.dumps(record))
     print(json.dumps({

@@ -46,7 +46,7 @@ import torch
 
 from .harness.benchmark import amortizing_batch
 from .harness.serving import nvidia_smi_line
-from .kernels import flash_bwd, flash_fwd, flash_tri, naive
+from .kernels import flash_bwd, flash_fwd, flash_tri, flash_v1, naive
 from .kernels.flash_bwd import flash_attention_bwd_auto
 from .kernels.flash_fwd import flash_attention_fwd
 from .kernels.flash_mxu import flash_attention_mxu
@@ -84,6 +84,9 @@ KERNELS: Dict[str, Callable] = {
     "flash_tri_bwd": flash_tri.flash_attention_bwd_tri,
     "flash_bwd_dkv": flash_bwd.flash_bwd_dkv,
     "flash_bwd_dq": flash_bwd.flash_bwd_dq,
+    "flash_bwd_fused": flash_bwd.flash_bwd_fused,
+    "flash_v1": flash_v1.flash_v1_stream,
+    "flash_v1_folded": flash_v1.flash_v1_folded,
 }
 
 

@@ -1,8 +1,11 @@
-// Backward flash attention for Hopper (sm_90a), bf16 and fp32: dK/dV and dQ.
+// Backward flash attention for Hopper (sm_90a), bf16 and fp32: dK/dV and dQ
+// (the split pair), and the fused 5-matmul backward.
 //
 // Replaces the FA-2 split pair of flash_attention_metal_tpu/kernels/
 // flash_bwd.py: _dkv_kernel (dK, dV over KV tiles) and _dq_kernel (dQ over
-// Q tiles), which the training step reaches through flash_attention_bwd.
+// Q tiles), which the training step reaches through flash_attention_bwd; and
+// _fused_bwd_kernel (flash_attention_bwd_fused), which the backward router
+// takes where the autotuner's saved decision names it.
 //
 // Contract, for every batch b, q-head h (KV head h / group), query row r and
 // key column c, with row r seeing c when c < n_kv and, when causal,
@@ -29,6 +32,19 @@
 //
 // Deterministic: each output tile has exactly one owner block and its sums
 // run in a fixed order.  No atomics.
+//
+// The fused backward is the dK/dV kernel with a fifth product per (Q tile,
+// KV tile) pair: the pair's dQ contribution dS K, written to its own fp32
+// workspace slot in the packed layout of dq_slots.cuh (the triangular
+// backward's): one slot per pair visible at off_bound, a host-known bound on
+// the offsets (the op's int offset; n_kv - 1, every pair, when the host
+// knows none).  Each batch's slots follow its own offset, read no higher
+// than the bound.  The shared reduce kernel then sums each Q tile's slots
+// in KV-tile order and scales: the dQ kernel's recompute of S, P and dP is
+// gone, at the cost of the workspace's traffic.  The JAX kernel keeps the
+// partial count at 1-2 with 1024-2048-row KV tiles held in VMEM (its dqp,
+// [B, H, n_kv / block_kv, N, D]); a thread block here holds a 64-row tile's
+// dK/dV (a 2048-row tile's is 1 MB of fp32).
 //
 // What bounds it on the H100.  At the training shape (q [4,16,2048,64],
 // kv [4,8,2048,64], causal) the two kernels do ~120 GFLOP together, so the
@@ -58,6 +74,8 @@
 
 #include <type_traits>
 
+#include "dq_slots.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -69,6 +87,11 @@ constexpr int kThreads = 2 * kBlockM;  // two threads per tile row, 4 warps
 constexpr int kHalf = 32;              // columns per thread of a 64-wide row
 static_assert(kBlockM == kBlockN && kBlockN == kHeadDim,
               "a thread's row and half map onto every tile alike");
+static_assert(kBlockM == dq_slots::kTile, "a dQ slot is one tile pair");
+using dq_slots::batch_offset;
+using dq_slots::first_slot;
+using dq_slots::last_visible;
+using dq_slots::visible_kv_tiles;
 // Shared-memory row pitches: padded to spread banks, multiples of 16 bytes
 // (vector copies) and of 32 bytes per 16 rows (WMMA pointers).
 constexpr int kLdT = kHeadDim + 8;
@@ -287,25 +310,22 @@ __device__ __forceinline__ void scores_and_dp(Smem<T>& sm, int warp, int r,
   }
 }
 
-// Last column row `row` sees (-1: none).
-__device__ __forceinline__ int last_visible(int row, int n_q, int n_kv,
-                                            int causal, int off) {
-  if (row >= n_q) return -1;
-  return causal ? min(n_kv - 1, row + off) : n_kv - 1;
-}
-
 // One block per (KV tile, KV head, batch): dK and dV of the tile, summed
-// over the group's q-heads and their visible Q tiles.
-template <typename T>
+// over the group's q-heads and their visible Q tiles.  kFused: also each
+// visible pair's dQ contribution (unscaled) into its slot of dq_ws, which
+// holds n_pairs slots per q-head (dq_slots.cuh).  q_offset: per-batch
+// offsets read no higher than off_bound; null: off_bound for every batch.
+template <typename T, bool kFused>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         const int* __restrict__ q_offset, T* __restrict__ dk,
-                         T* __restrict__ dv, int n_heads, int n_kv_heads,
-                         int n_q, int n_kv, float sm_scale, float scale_log2,
-                         int causal) {
+                         const int* __restrict__ q_offset, int off_bound,
+                         T* __restrict__ dk, T* __restrict__ dv,
+                         float* __restrict__ dq_ws, int n_pairs, int n_heads,
+                         int n_kv_heads, int n_q, int n_kv, float sm_scale,
+                         float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
@@ -320,10 +340,10 @@ __global__ void __launch_bounds__(kThreads)
   const int group = n_heads / n_kv_heads;
   const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
   const int cols_valid = min(kBlockN, n_kv - kv_start);
-  const int off = causal ? q_offset[b] : 0;
+  const int off = batch_offset(q_offset, b, off_bound);
   // Rows r >= kv_start - off see the tile's first column; earlier Q tiles
   // see none of it and are skipped.
-  const int q_first = causal ? max(0, kv_start - off) / kBlockM : 0;
+  const int q_first = max(0, kv_start - off) / kBlockM;
   const int n_q_tiles = (n_q + kBlockM - 1) / kBlockM;
 
   load_tile<T>(sm.k, k + (kv_rows + kv_start) * kHeadDim, cols_valid);
@@ -343,7 +363,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   for (int g = 0; g < group; ++g) {
-    const size_t q_rows = ((size_t)b * n_heads + h_kv * group + g) * n_q;
+    const size_t bh = (size_t)b * n_heads + h_kv * group + g;
+    const size_t q_rows = bh * n_q;
+    int slot = kFused ? first_slot(q_first, n_q, n_kv, off) : 0;  // Q tile qt's first
     for (int qt = q_first; qt < n_q_tiles; ++qt) {
       const int q_start = qt * kBlockM;
       const int rows_valid = min(kBlockM, n_q - q_start);
@@ -355,8 +377,8 @@ __global__ void __launch_bounds__(kThreads)
       scores_and_dp(sm, warp, r, half);
       __syncthreads();
 
-      softmax_grad(sm, r, half, kv_start,
-                   last_visible(q_start + r, n_q, n_kv, causal, off), scale_log2);
+      softmax_grad(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off),
+                   scale_log2);
       __syncthreads();
 
       if constexpr (kBf16) {
@@ -366,6 +388,32 @@ __global__ void __launch_bounds__(kThreads)
         mma_atb_f32(dv_reg, sm.p, sm.dout, r, half);
         mma_atb_f32(dk_reg, sm.ds, sm.q, r, half);
       }
+      // Row kv_start - off can fall past a ragged last Q tile's valid rows:
+      // that tile sees nothing of this KV tile and has no slot for it.
+      const int n_cols = kFused ? visible_kv_tiles(qt, n_q, n_kv, off) : 0;
+      if (kFused && (int)blockIdx.x < n_cols) {
+        // The pair's slot: 64 x 64 fp32, whole tiles.
+        float* ws = dq_ws + (bh * n_pairs + slot + blockIdx.x) * dq_slots::kTileElems;
+        if constexpr (kBf16) {
+          Acc dq_acc[kHeadDim / 16];
+#pragma unroll
+          for (int n = 0; n < kHeadDim / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.0f);
+          mma_ab_bf16(dq_acc, sm.ds, sm.k, warp);
+#pragma unroll
+          for (int n = 0; n < kHeadDim / 16; ++n) {
+            wmma::store_matrix_sync(ws + warp * 16 * kHeadDim + n * 16, dq_acc[n],
+                                    kHeadDim, wmma::mem_row_major);
+          }
+        } else {
+          float dq_reg[kHalf];
+#pragma unroll
+          for (int j = 0; j < kHalf; ++j) dq_reg[j] = 0.0f;
+          mma_ab_f32(dq_reg, sm.ds, sm.k, r, half);
+#pragma unroll
+          for (int j = 0; j < kHalf; ++j) ws[r * kHeadDim + half * kHalf + j] = dq_reg[j];
+        }
+      }
+      slot += n_cols;
       // The next tile's loads overwrite q, dout, lse2 and delta.
       __syncthreads();
     }
@@ -400,9 +448,9 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
-                        const int* __restrict__ q_offset, T* __restrict__ dq,
-                        int n_heads, int n_kv_heads, int n_q, int n_kv,
-                        float sm_scale, float scale_log2, int causal) {
+                        const int* __restrict__ q_offset, int off_bound,
+                        T* __restrict__ dq, int n_heads, int n_kv_heads, int n_q,
+                        int n_kv, float sm_scale, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
@@ -418,12 +466,10 @@ __global__ void __launch_bounds__(kThreads)
   const size_t q_rows = ((size_t)b * n_heads + h) * n_q;
   const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
   const int rows_valid = min(kBlockM, n_q - q_start);
-  const int off = causal ? q_offset[b] : 0;
-  const int col_limit = last_visible(q_start + r, n_q, n_kv, causal, off);
-  // Last column any row of the tile sees: the KV walk stops there.
-  int tile_limit = n_kv - 1;
-  if (causal) tile_limit = min(tile_limit, q_start + rows_valid - 1 + off);
-  const int n_steps = tile_limit < 0 ? 0 : tile_limit / kBlockN + 1;
+  const int off = batch_offset(q_offset, b, off_bound);
+  const int col_limit = last_visible(q_start + r, n_q, n_kv, off);
+  // The KV walk stops at the last tile any row of the tile sees.
+  const int n_steps = visible_kv_tiles(blockIdx.x, n_q, n_kv, off);
 
   load_tile<T>(sm.q, q + (q_rows + q_start) * kHeadDim, rows_valid);
   load_tile<T>(sm.dout, dout + (q_rows + q_start) * kHeadDim, rows_valid);
@@ -495,23 +541,43 @@ struct Args {
   int batch, n_heads, n_kv_heads, n_q, n_kv, causal;
   float sm_scale;
   cudaStream_t stream;
+  // The kernels' offsets: q_offset read no higher than off_bound when
+  // causal, else n_kv - 1 (every column) with no read.  The split pair's
+  // bound is n_kv - 1, which sees what any higher offset sees.
+  const int* offsets() const {
+    return causal ? static_cast<const int*>(q_offset) : nullptr;
+  }
+  int bound(int off_bound) const { return causal ? off_bound : n_kv - 1; }
 };
 
-template <typename T>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+// The dK/dV kernel; kFused adds the dQ slots of dq_ws (n_pairs per q-head).
+template <typename T, bool kFused>
+cudaError_t launch_dkv(const Args& a, int off_bound, void* dk, void* dv, void* dq_ws,
+                       int n_pairs) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(Smem<T>);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, kFused>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_kv + kBlockN - 1) / kBlockN, a.n_kv_heads, a.batch);
-  flash_bwd_dkv_kernel<T><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dkv_kernel<T, kFused><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.q_offset), static_cast<T*>(dk),
-      static_cast<T*>(dv), a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale,
-      a.sm_scale * kLog2e, a.causal);
+      a.offsets(), a.bound(off_bound), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<float*>(dq_ws), n_pairs, a.n_heads, a.n_kv_heads, a.n_q, a.n_kv,
+      a.sm_scale, a.sm_scale * kLog2e);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fused(const Args& a, int off_bound, void* dk, void* dv, void* dq,
+                         void* dq_ws, int n_pairs) {
+  cudaError_t err = launch_dkv<T, true>(a, off_bound, dk, dv, dq_ws, n_pairs);
+  if (err != cudaSuccess) return err;
+  return dq_slots::launch_reduce<T>(static_cast<const float*>(dq_ws), a.offsets(),
+                                    a.bound(off_bound), static_cast<T*>(dq), a.batch,
+                                    a.n_heads, a.n_q, a.n_kv, n_pairs, a.sm_scale,
+                                    a.stream);
 }
 
 template <typename T>
@@ -525,8 +591,8 @@ cudaError_t launch_dq(const Args& a, void* dq) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<const int*>(a.q_offset), static_cast<T*>(dq), a.n_heads,
-      a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.sm_scale * kLog2e, a.causal);
+      a.offsets(), a.bound(a.n_kv - 1), static_cast<T*>(dq), a.n_heads,
+      a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -555,8 +621,8 @@ extern "C" int fam_flash_bwd_dkv(const void* q, const void* k, const void* v,
   }
   const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
                n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_dkv<bf16>(a, dk, dv);
-  if (dtype == 1) return (int)launch_dkv<float>(a, dk, dv);
+  if (dtype == 0) return (int)launch_dkv<bf16, false>(a, n_kv - 1, dk, dv, nullptr, 0);
+  if (dtype == 1) return (int)launch_dkv<float, false>(a, n_kv - 1, dk, dv, nullptr, 0);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -574,5 +640,35 @@ extern "C" int fam_flash_bwd_dq(const void* q, const void* k, const void* v,
                n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return (int)launch_dq<bf16>(a, dq);
   if (dtype == 1) return (int)launch_dq<float>(a, dq);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Slots of one head's packed dQ workspace (dq_slots.cuh) when row r sees
+// columns c <= r + off: the fused backward's n_pairs at its off_bound
+// (n_kv - 1 when not causal), the triangular backward's at its offset.
+extern "C" int fam_bwd_dq_pairs(int n_q, int n_kv, int off) {
+  return dq_slots::visible_pairs(n_q, n_kv, off);
+}
+
+// The fused backward: dk, dv as above, dq [B, H, N_q, 64]; dq_ws fp32
+// [B * H * n_pairs, 64, 64] with n_pairs = fam_bwd_dq_pairs(n_q, n_kv,
+// off_bound) (causal) or fam_bwd_dq_pairs(n_q, n_kv, n_kv - 1).  When
+// causal, each q_offset entry is read no higher than off_bound.
+extern "C" int fam_flash_bwd_fused(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse,
+                                   const void* delta, const void* q_offset,
+                                   void* dk, void* dv, void* dq, void* dq_ws,
+                                   int n_pairs, int off_bound, int batch, int n_heads,
+                                   int n_kv_heads, int n_q, int n_kv, int head_dim,
+                                   float sm_scale, int causal, int dtype,
+                                   void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim) ||
+      n_pairs != dq_slots::visible_pairs(n_q, n_kv, causal ? off_bound : n_kv - 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
+               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_fused<bf16>(a, off_bound, dk, dv, dq, dq_ws, n_pairs);
+  if (dtype == 1) return (int)launch_fused<float>(a, off_bound, dk, dv, dq, dq_ws, n_pairs);
   return (int)cudaErrorInvalidValue;
 }

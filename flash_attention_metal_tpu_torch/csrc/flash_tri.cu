@@ -40,8 +40,9 @@
 //   * The backward is one block per (batch x head, 64-column KV tile), KV
 //     tile 0 (the most Q tiles) first.  It keeps dK and dV of its tile in
 //     fp32 fragments (bf16) or registers (fp32) over every visible Q tile,
-//     and writes each pair's dQ contribution to its own fp32 workspace slot.
-//     A second small kernel sums each Q tile's slots in a fixed order and
+//     and writes each pair's dQ contribution to its own fp32 workspace slot
+//     (dq_slots.cuh, shared with the fused backward of flash_bwd.cu).  A
+//     second small kernel sums each Q tile's slots in a fixed order and
 //     scales.  Every output has one owner and a fixed summation order: the
 //     backward is deterministic with no atomics.  The workspace is 16 KB
 //     per visible pair (1.1 GB at B16 H8 N2048): ~0.66 ms of HBM traffic
@@ -59,6 +60,8 @@
 
 #include <type_traits>
 
+#include "dq_slots.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -71,7 +74,10 @@ constexpr int kThreads = 2 * kBlockM;  // two threads per tile row, 4 warps
 constexpr int kHalf = 32;              // columns per thread of a 64-wide row
 static_assert(kBlockM == kBlockN && kBlockN == kHeadDim,
               "a thread's row and half map onto every tile alike");
-constexpr int kTileElems = kBlockM * kHeadDim;  // one dQ workspace slot
+static_assert(kBlockM == dq_slots::kTile, "a dQ slot is one tile pair");
+using dq_slots::kTileElems;
+using dq_slots::last_visible;
+using dq_slots::visible_kv_tiles;
 // Shared-memory row pitches: padded to spread banks, multiples of 16 bytes
 // (vector copies) and of 32 bytes per 16 rows (WMMA pointers).
 constexpr int kLdT = kHeadDim + 8;
@@ -86,7 +92,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 // exp2(s - kLseSentinel * log2 e) underflows to exactly 0.
 constexpr float kLseSentinel = 1e30f;
 constexpr int kMaxDevices = 64;
-constexpr int kReduceThreads = 256;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -95,30 +100,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
-}
-
-// Last column row `row` sees (-1: none, also for padding rows).
-__host__ __device__ __forceinline__ int last_visible(int row, int n_q, int n_kv,
-                                                     int off) {
-  if (row >= n_q) return -1;
-  return row + off < n_kv - 1 ? row + off : n_kv - 1;
-}
-
-// KV tiles that Q tile i sees: tiles 0 .. visible_kv_tiles - 1.
-__host__ __device__ __forceinline__ int visible_kv_tiles(int i, int n_q, int n_kv,
-                                                         int off) {
-  const int last_row = (i + 1) * kBlockM < n_q ? (i + 1) * kBlockM - 1 : n_q - 1;
-  const int limit = last_visible(last_row, n_q, n_kv, off);
-  return limit < 0 ? 0 : limit / kBlockN + 1;
-}
-
-// Visible (Q tile, KV tile) pairs of one head: the backward's dQ slots.
-int visible_pairs(int n_q, int n_kv, int off) {
-  int pairs = 0;
-  for (int i = 0; i < (n_q + kBlockM - 1) / kBlockM; ++i) {
-    pairs += visible_kv_tiles(i, n_q, n_kv, off);
-  }
-  return pairs;
 }
 
 // Copy `rows_valid` rows of head_dim elements (row pitch kHeadDim in global
@@ -453,7 +434,7 @@ __device__ __forceinline__ void softmax_grad(BwdSmem<T>& sm, int r, int half,
 
 // One block per (batch x head, KV tile j), KV tile 0 first: dK and dV of the
 // tile over its visible Q tiles, and each pair's dQ contribution (unscaled)
-// into workspace slot (bh, first slot of Q tile i + j).
+// into workspace slot (bh, first_slot(i) + j) (dq_slots.cuh).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_tri_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -577,28 +558,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (batch x head, Q tile i): dQ of the tile, the sum of its
-// workspace slots in KV-tile order, scaled.  A tile that sees nothing gets 0.
-template <typename T>
-__global__ void __launch_bounds__(kReduceThreads)
-    flash_tri_dq_reduce_kernel(const float* __restrict__ dq_ws, T* __restrict__ dq,
-                               int n_q, int n_kv, int off, int n_pairs,
-                               float sm_scale) {
-  const size_t bh = blockIdx.x;
-  const int i = blockIdx.y;
-  int slot = 0;
-  for (int ii = 0; ii < i; ++ii) slot += visible_kv_tiles(ii, n_q, n_kv, off);
-  const int n_slots = visible_kv_tiles(i, n_q, n_kv, off);
-  const float* base = dq_ws + (bh * n_pairs + slot) * kTileElems;
-  const int rows_valid = min(kBlockM, n_q - i * kBlockM);
-  T* dst = dq + (bh * n_q + (size_t)i * kBlockM) * kHeadDim;
-  for (int e = threadIdx.x; e < rows_valid * kHeadDim; e += kReduceThreads) {
-    float acc = 0.0f;
-    for (int jj = 0; jj < n_slots; ++jj) acc += base[(size_t)jj * kTileElems + e];
-    dst[e] = from_float<T>(acc * sm_scale);
-  }
-}
-
 // Raise a kernel's dynamic shared-memory limit once per device.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int smem, bool (&done)[kMaxDevices]) {
@@ -652,11 +611,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       sm_scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 reduce_grid(bh, (n_q + kBlockM - 1) / kBlockM);
-  flash_tri_dq_reduce_kernel<T><<<reduce_grid, kReduceThreads, 0, stream>>>(
-      static_cast<const float*>(dq_ws), static_cast<T*>(dq), n_q, n_kv, off,
-      n_pairs, sm_scale);
-  return cudaGetLastError();
+  return dq_slots::launch_reduce<T>(static_cast<const float*>(dq_ws), nullptr, off,
+                                    static_cast<T*>(dq), batch, n_heads, n_q, n_kv,
+                                    n_pairs, sm_scale, stream);
 }
 
 bool valid(int batch, int n_heads, int n_q, int n_kv, int head_dim) {
@@ -694,15 +651,10 @@ extern "C" int fam_flash_tri_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The backward's dQ workspace holds B * H * pairs slots of 64 x 64 fp32.
-extern "C" int fam_flash_tri_bwd_pairs(int n_q, int n_kv, int q_offset) {
-  return visible_pairs(n_q, n_kv, q_offset);
-}
-
 // Backward (equal head counts): q, dout, dq [B, H, N_q, 64]; k, v [B, H,
 // N_kv, 64]; lse, delta fp32 [B, H, N_q]; dk, dv fp32 [B, H, N_kv, 64];
 // dq_ws fp32 [B * H * n_pairs, 64, 64] with n_pairs from
-// fam_flash_tri_bwd_pairs.
+// fam_bwd_dq_pairs(n_q, n_kv, q_offset) (flash_bwd.cu).
 extern "C" int fam_flash_tri_bwd(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dq, void* dk, void* dv,
@@ -711,7 +663,7 @@ extern "C" int fam_flash_tri_bwd(const void* q, const void* k, const void* v,
                                  int q_offset, int n_pairs, int dtype,
                                  void* stream) {
   if (!valid(batch, n_heads, n_q, n_kv, head_dim) ||
-      n_pairs != visible_pairs(n_q, n_kv, q_offset)) {
+      n_pairs != dq_slots::visible_pairs(n_q, n_kv, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

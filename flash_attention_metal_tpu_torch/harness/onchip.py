@@ -26,7 +26,15 @@ import numpy as np
 import torch
 
 from ..config import default_scale
-from ..kernels.flash_bwd import flash_attention_bwd, flash_attention_bwd_plain
+from ..kernels.flash_bwd import (
+    bwd_delta,
+    dq_workspace_shape,
+    flash_attention_bwd,
+    flash_attention_bwd_fused,
+    flash_attention_bwd_fused_plain,
+    flash_attention_bwd_plain,
+    flash_bwd_fused,
+)
 from ..kernels.flash_fwd import (
     flash_attention_fwd,
     flash_attention_fwd_plain,
@@ -39,6 +47,7 @@ from ..kernels.flash_tri import (
     flash_attention_tri,
     flash_attention_tri_plain,
 )
+from ..kernels.flash_v1 import flash_attention_v1, flash_attention_v1_plain, v1_route
 from ..kernels.naive import naive_attention, naive_attention_plain
 from ..kernels.paged import (
     flash_attention_paged,
@@ -152,15 +161,28 @@ def bwd_inputs(case: tuple) -> tuple:
     return q, k, v, o, do, lse, off
 
 
-def bwd_kernel_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
+def high_occupancy_bwd_inputs(gen: torch.Generator) -> tuple:
+    """``bwd_inputs`` at the benchmark's high-occupancy shape (bf16, equal
+    heads, causal), which the autotuner also races."""
+    q, k, v = ladder_inputs(HIGH_OCC, HIGH_OCC, torch.bfloat16, gen)
+    do = ladder_inputs(HIGH_OCC, HIGH_OCC, torch.bfloat16, gen)[0]
+    return bwd_inputs((q, k, v, do, torch.zeros((HIGH_OCC[0],), dtype=torch.int32, device="cuda")))
+
+
+def bwd_kernel_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[float, float]]:
     """``{"dq", "dk", "dv"}: (max-abs error, normalised error)`` of the
-    backward kernels against the fp32 plain version on the same inputs; the
-    normalised error (``BWD_TOL``'s measure) divides by the plain
-    gradient's max-abs."""
+    backward kernels (the split pair, or with ``fused`` the fused kernel)
+    against their fp32 plain version on the same inputs; the normalised
+    error (``BWD_TOL``'s measure) divides by the plain gradient's max-abs.
+    The fused kernel gets the largest offset as its bound, as the op gives
+    it its int offset, so its dQ workspace is packed as on the main path."""
     q, k, v, o, do, lse, off = inputs
     scale = default_scale(q.shape[-1])
-    got = flash_attention_bwd(q, k, v, o, do, lse, off, sm_scale=scale, causal=True)
-    want = flash_attention_bwd_plain(
+    kernel, plain = ((flash_attention_bwd_fused, flash_attention_bwd_fused_plain) if fused
+                     else (flash_attention_bwd, flash_attention_bwd_plain))
+    bound = {"q_offset_max": int(off.max())} if fused else {}
+    got = kernel(q, k, v, o, do, lse, off, sm_scale=scale, causal=True, **bound)
+    want = plain(
         q.float(), k.float(), v.float(), o.float(), do.float(), lse, off,
         sm_scale=scale, causal=True,
     )
@@ -170,6 +192,29 @@ def bwd_kernel_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
         err = (g.float() - w).abs().max().item()
         errors[name] = (err, err / w.abs().max().item())
     return errors
+
+
+def fused_workspace_bytes(inputs: tuple, off_bound: int) -> Tuple[int, int]:
+    """``(allocated, written)`` bytes of the fused kernel's dQ workspace in
+    one call on ``bwd_inputs`` at ``off_bound`` (causal): the allocator's
+    peak over a call less its three outputs, and the slots of a NaN-filled
+    workspace that a second call overwrote."""
+    q, k, v, o, do, lse, off = inputs
+    delta = bwd_delta(o, do, None)
+    kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True, off_bound=off_bound)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    outputs = flash_bwd_fused(q, k, v, do, lse, delta, off, **kw)
+    torch.cuda.synchronize()
+    out_bytes = sum(t.numel() * t.element_size() for t in outputs)
+    allocated = torch.cuda.max_memory_allocated() - base - out_bytes
+    del outputs
+    ws = torch.full(dq_workspace_shape(q.shape[0], q.shape[1], q.shape[2], k.shape[2], off_bound),
+                    float("nan"), device=q.device)
+    flash_bwd_fused(q, k, v, do, lse, delta, off, workspace=ws, **kw)
+    written = int((~torch.isnan(ws).all(dim=-1).all(dim=-1)).sum())
+    return allocated, written * ws[0].numel() * ws.element_size()
 
 
 def _fwd_errors(got, want) -> Tuple[float, float]:
@@ -222,12 +267,12 @@ LADDER = (1, 2, 1024, 64)
 SPIKE_COL = 700
 
 
-def spike_inputs(shape_q, shape_kv, dtype, gen):
-    """The ladder fixture with q[..., 0] = 8 and k[..., SPIKE_COL, 0] = 100
+def spike_inputs(shape_q, shape_kv, dtype, gen, col: int = SPIKE_COL):
+    """The ladder fixture with q[..., 0] = 8 and k[..., col, 0] = 100
     (both exact in bf16)."""
     q, k, v = ladder_inputs(shape_q, shape_kv, torch.float32, gen)
     q[..., 0] = 8.0
-    k[..., SPIKE_COL, 0] = 100.0
+    k[..., col, 0] = 100.0
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -344,6 +389,54 @@ def tri_bwd_errors(inputs: tuple) -> Dict[str, Tuple[float, float]]:
         err = (g.float() - w).abs().max().item()
         errors[name] = (err, err / w.abs().max().item())
     return errors
+
+
+# ---------------------------------------------------------------------------
+# FlashAttention V1 (csrc/flash_v1.cu): the streaming and the folded kernel
+# at the reference sweep's and the verification ladder's shapes.
+# ---------------------------------------------------------------------------
+
+# The folded kernel's rows hold at most 512 columns, so its spike column
+# lies inside them, past the first 64-column chunk: a row max taken over
+# one chunk misses it.
+SPIKE_COL_SHORT = 100
+
+
+def v1_kernel(shape) -> str:
+    """The V1 kernel ``flash_attention_v1`` takes for ``[B, H, N, D]``
+    self-attention: ``"flash_v1_folded"`` or ``"flash_v1"`` (streaming)."""
+    return "flash_v1_folded" if v1_route(shape[0], shape[2], shape[2])[0] == "folded" else "flash_v1"
+
+
+def v1_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, bool]]:
+    """``{name: (kernel, (q, k, v), causal)}`` in fp32, as the sweep's
+    FlashV1 column and ladder rung 2 run it: the sweep's N = 128 point (the
+    folded kernel, 8 batch elements per block) and N = 1024 point (the
+    streaming one) on the ladder, peaked (q x 8) and spike fixtures and
+    causal, and the ladder's shape (streaming) non-causal and causal."""
+    f32 = torch.float32
+    cases = {}
+    for tag, shape, col in (("n128", SWEEP_128, SPIKE_COL_SHORT), ("n1024", SWEEP_1024, SPIKE_COL)):
+        kernel = v1_kernel(shape)
+        cases[f"v1_fp32_{tag}"] = (kernel, ladder_inputs(shape, shape, f32, gen), False)
+        cases[f"v1_fp32_{tag}_peaked"] = (
+            kernel, ladder_inputs(shape, shape, f32, gen, PEAKED_Q_SCALE), False)
+        cases[f"v1_fp32_{tag}_spike"] = (kernel, spike_inputs(shape, shape, f32, gen, col), False)
+        cases[f"v1_fp32_{tag}_causal"] = (kernel, ladder_inputs(shape, shape, f32, gen), True)
+    for causal in (False, True):
+        cases[f"v1_fp32_ladder{'_causal' if causal else ''}"] = (
+            v1_kernel(LADDER), ladder_inputs(LADDER, LADDER, f32, gen), causal)
+    return cases
+
+
+def v1_error(qkv: tuple, causal: bool) -> float:
+    """Max-abs error of ``flash_attention_v1`` (the kernel its route takes)
+    against the fp32 plain version on the same inputs (NaN if either is)."""
+    q, k, v = qkv
+    got = flash_attention_v1(q, k, v, causal=causal)
+    want = flash_attention_v1_plain(q.float(), k.float(), v.float(), sm_scale=_scale(q),
+                                    causal=causal)
+    return _fwd_errors(got, want)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -464,6 +557,23 @@ def kv_kernel_error(kernel: str, args: tuple, pos_div: int) -> Tuple[float, floa
     on the same 8-bit or paged data, in fp32 (see ``_fwd_errors``)."""
     wrapper, plain = KV_KERNELS[kernel]
     return _fwd_errors(wrapper(*args, pos_div), plain(*args, pos_div))
+
+
+def fwd_work(q: torch.Tensor, k: torch.Tensor, offsets, pos_div: int = 1,
+             save_lse: bool = False) -> Tuple[float, float]:
+    """``(flops, bytes)`` one causal call of the dense forward kernel must
+    do: 4 * D flops per visible (row, column) pair; each slot's K and V rows
+    up to its last visible column read once, q read and o (and the lse)
+    written once."""
+    heads, n_q, head_dim = q.shape[1:]
+    kv_heads, n_kv = k.shape[1], k.shape[2]
+    offsets = [int(x) for x in offsets]
+    pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div) for off in offsets)
+    rows = kv_heads * sum(min(n_kv, max(0, (n_q - 1) // pos_div + off + 1)) for off in offsets)
+    nbytes = kv_cache_bytes(rows, head_dim, k.element_size()) + 2 * q.numel() * q.element_size()
+    if save_lse:
+        nbytes += 4 * q.numel() // head_dim
+    return 4.0 * head_dim * pairs, nbytes
 
 
 def kv_work(kernel: str, args: tuple, pos_div: int) -> Tuple[float, float]:

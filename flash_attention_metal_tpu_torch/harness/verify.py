@@ -6,10 +6,11 @@ there: fp32 kernels anchor to the golden oracle, upper rungs difference
 against the verified naive rung, causal and backward rungs get their own
 fixtures.  One ``[PASS]``/``[FAIL]`` line per rung, in the same format.
 
-The rungs whose kernels are ported run (1, 3, 4, 5, 5-causal, 6, 7, 7b,
-7c); the others print a ``[SKIP]`` line naming what they wait for and are
-never counted as passes.  ``device="cpu"`` runs every kernel's plain
-version (the tests do); the default runs the CUDA kernels.
+The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 12
+prefill and decode chunk, 18); the others print a ``[SKIP]`` line naming
+the ``ROADMAP.md`` item they wait for and are never counted as passes.
+``device="cpu"`` runs every kernel's plain version (the tests do); the
+default runs the CUDA kernels.
 
     python -m flash_attention_metal_tpu_torch.harness.verify [--n 1024] [--device cuda]
 """
@@ -28,10 +29,15 @@ from ..kernels import (
     flash_attention_bwd_tri,
     flash_attention_fwd,
     flash_attention_mxu,
+    flash_attention_paged,
+    flash_attention_quant,
     flash_attention_tri,
+    flash_attention_v1,
     flash_attention_v2,
     naive_attention,
+    quantize_kv,
 )
+from ..ops.attention import flash_attention
 from ..reference import attention_reference, attention_reference_bwd, make_qkv
 
 # The reference tolerance ladder (SURVEY.md, H4).
@@ -39,32 +45,45 @@ TOL_FP32 = 1e-3  # main.mm:239,253,292
 TOL_V3 = 5e-3  # main.mm:375
 TOL_HALF = 1e-2  # main.mm:452,591
 TOL_BWD = 1e-1  # main.mm:1191
+TOL_QUANT_INT8 = 3e-2  # int8 KV rung: 7 effective mantissa bits
+TOL_QUANT_FP8 = 5e-2  # fp8(e4m3) KV rung: 3 mantissa bits -> ~2x int8 error
+# Page size of the paged rung (the JAX rung's): the port's paged kernel
+# needs pages of whole 64-row tiles, which 128-row pages are.
+PAGED_RUNG_PAGE = 128
 
-# Rungs of the JAX ladder that wait for a kernel or a feature of the port.
-SKIPPED_RUNG_2 = (
-    "flash_v1 vs naive (fp32)", "kernels/flash_v1.py not ported (ROADMAP Queue B 1)",
+# The V1, 8-bit KV, MQA, paged-KV and GQA-backward rungs (2, 8, 9, 12 and
+# 18), by their JAX names.
+RUNGS_2_8_9_12_18 = (
+    "flash_v1 vs naive (fp32)",
+    "flash_quant int8-KV causal vs causal oracle",
+    "flash_quant fp8-KV causal vs causal oracle",
+    "flash MQA (native head-fold) vs oracle",
+    "flash paged-KV prefill vs causal oracle",
+    "flash paged-KV decode chunk vs causal oracle",
+    "GQA-fold backward dQ vs oracle",
+    "GQA-fold backward dK,dV (group-summed in-kernel) vs oracle",
 )
-SKIPPED_UPPER_RUNGS = (
-    ("flash_quant int8-KV causal vs causal oracle", "not ported (ROADMAP Queue B 3)"),
-    ("flash_quant fp8-KV causal vs causal oracle", "not ported (ROADMAP Queue B 3)"),
-    ("flash MQA (native head-fold) vs oracle",
-     "not in this slice's ladder (ROADMAP Queue A item 2)"),
-    ("flash sliding-window vs oracle", "not ported (ROADMAP Queue A item 5)"),
-    ("flash block-sparse mask vs oracle", "not ported (ROADMAP Queue B 5)"),
-    ("flash paged-KV prefill vs causal oracle", "not ported (ROADMAP Queue B 4)"),
-    ("flash paged-KV decode chunk vs causal oracle", "not ported (ROADMAP Queue B 4)"),
-    ("flash softcap causal vs oracle", "not ported (ROADMAP Queue A item 5)"),
-    ("flash ALiBi causal vs oracle", "not ported (ROADMAP Queue A item 5)"),
-    ("flash_quant int8-KV softcap+ALiBi vs oracle", "not ported (ROADMAP Queue B 3)"),
-    ("flash paged-KV softcap+ALiBi vs oracle", "not ported (ROADMAP Queue B 4)"),
-    ("softcap backward (dQ,dK,dV) vs oracle", "not ported (ROADMAP Queue A item 5)"),
-    ("ALiBi backward (dQ,dK,dV) vs oracle", "not ported (ROADMAP Queue A item 5)"),
-    ("ALiBi backward d_slopes vs oracle (relative)", "not ported (ROADMAP Queue A item 5)"),
-    ("GQA-fold backward dQ vs oracle", "not in this slice's ladder (ROADMAP Queue A item 2)"),
-    ("GQA-fold backward dK,dV (group-summed in-kernel) vs oracle",
-     "not in this slice's ladder (ROADMAP Queue A item 2)"),
-    ("flash dropout (p=0.2) causal vs oracle", "not ported (ROADMAP Queue A item 5)"),
-    ("flash dropout backward (dQ,dK,dV) vs oracle", "not ported (ROADMAP Queue A item 5)"),
+
+# Rungs of the JAX ladder that wait for a feature or a kernel of the port,
+# by the ROADMAP.md item that holds it.
+_FEATURES = "not ported (ROADMAP.md Queue A item 5: op features)"
+SKIPPED_SLIDING_WINDOW = ("flash sliding-window vs oracle", _FEATURES)
+SKIPPED_BLOCK_SPARSE = (
+    "flash block-sparse mask vs oracle",
+    "not ported (ROADMAP.md Queue B item 3: block-sparse, the next slice)",
+)
+SKIPPED_TRANSFORM_RUNGS = (
+    ("flash softcap causal vs oracle", _FEATURES),
+    ("flash ALiBi causal vs oracle", _FEATURES),
+    ("flash_quant int8-KV softcap+ALiBi vs oracle", _FEATURES),
+    ("flash paged-KV softcap+ALiBi vs oracle", _FEATURES),
+    ("softcap backward (dQ,dK,dV) vs oracle", _FEATURES),
+    ("ALiBi backward (dQ,dK,dV) vs oracle", _FEATURES),
+    ("ALiBi backward d_slopes vs oracle (relative)", _FEATURES),
+)
+SKIPPED_DROPOUT_RUNGS = (
+    ("flash dropout (p=0.2) causal vs oracle", _FEATURES),
+    ("flash dropout backward (dQ,dK,dV) vs oracle", _FEATURES),
 )
 
 
@@ -123,8 +142,8 @@ def run_ladder(
     nv = naive_attention(q, k, v)
     rung("naive vs oracle (fp32)", nv, oracle, TOL_FP32)
 
-    # Rung 2: the V1 kernel waits for the next slice.
-    log(_skip(*SKIPPED_RUNG_2))
+    # Rung 2: V1 vs naive, differential (main.mm:245-256).
+    rung("flash_v1 vs naive (fp32)", flash_attention_v1(q, k, v), nv, TOL_FP32)
 
     # Rung 3: V2 (fp32) vs naive (main.mm:277-295): the lean kernel.
     rung("flash_v2 vs naive (fp32)", flash_attention_v2(q, k, v), nv, TOL_FP32)
@@ -181,8 +200,73 @@ def run_ladder(
     rung("tri pvt backward dQ vs oracle (bf16)", dqp, dq_rh, TOL_BWD)
     rung("tri pvt backward dK,dV vs oracle (bf16)", torch.stack([dkp, dvp]), dkv_r, TOL_BWD)
 
-    # Rungs 8 and up: not ported yet.
-    for name, why in SKIPPED_UPPER_RUNGS:
+    # Rung 8: the 8-bit KV forward against the causal oracle.
+    for qdtype, qname, qtol in (
+        (torch.int8, "int8", TOL_QUANT_INT8),
+        (torch.float8_e4m3fn, "fp8", TOL_QUANT_FP8),
+    ):
+        oq = flash_attention_quant(qh, quantize_kv(kh, vh, dtype=qdtype), causal=True)
+        rung(f"flash_quant {qname}-KV causal vs causal oracle", oq, oracle_c, qtol)
+
+    # Rung 9: MQA (one KV head under every q-head) through the op.
+    kg, vg = kh[:, :1], vh[:, :1]
+    og = flash_attention(qh, kg, vg, causal=True)
+    oracle_g = attention_reference(
+        q, kg.float().expand(k.shape), vg.float().expand(v.shape), causal=True)
+    rung("flash MQA (native head-fold) vs oracle", og, oracle_g, TOL_HALF)
+
+    # Rungs 10 and 11: sliding window and block-sparse masks, not ported.
+    log(_skip(*SKIPPED_SLIDING_WINDOW))
+    log(_skip(*SKIPPED_BLOCK_SPARSE))
+
+    # Rung 12: paged KV through a shuffled page table (page 0 unused):
+    # masking is in logical positions, so the output must match the causal
+    # oracle wherever the pages lie.  A full prefill and a decode chunk
+    # (the last 128 rows at offset n - 128).
+    ps = PAGED_RUNG_PAGE
+    pages_per = n // ps
+    gen.manual_seed(11)
+    perm = (torch.randperm(batch * pages_per, generator=gen, device=device) + 1).reshape(
+        batch, pages_per)
+    pools = []
+    for x in (kh, vh):
+        pool = torch.zeros((1 + batch * pages_per, heads, ps, head_dim), dtype=x.dtype,
+                           device=device)
+        pool[perm.reshape(-1)] = x.reshape(batch, heads, pages_per, ps, head_dim).transpose(
+            1, 2).reshape(-1, heads, ps, head_dim)
+        pools.append(pool)
+    table = perm.to(torch.int32)
+    op_full = flash_attention_paged(
+        qh, *pools, table, torch.zeros((batch,), dtype=torch.int32, device=device))
+    rung("flash paged-KV prefill vs causal oracle", op_full, oracle_c, TOL_HALF)
+    op_dec = flash_attention_paged(
+        qh[:, :, n - ps:].contiguous(), *pools, table,
+        torch.full((batch,), n - ps, dtype=torch.int32, device=device))
+    rung("flash paged-KV decode chunk vs causal oracle", op_dec, oracle_c[:, :, n - ps:],
+         TOL_HALF)
+
+    # Rungs 13-17: softcap and ALiBi, forward and backward, not ported.
+    for name, why in SKIPPED_TRANSFORM_RUNGS:
+        log(_skip(name, why))
+
+    # Rung 18: the GQA backward (one KV head) through the op's autograd,
+    # against the broadcast oracle's gradient.  The JAX rung runs the
+    # row-fold backward (q-heads folded into rows, pos_div); the port's
+    # backward kernels take GQA natively and sum the group's dK/dV in fp32,
+    # so the same rung exercises another mechanism.
+    kg2, vg2 = k[:, :1], v[:, :1]
+    leaves = [t.clone().requires_grad_(True) for t in (q, kg2, vg2)]
+    g_gq = torch.autograd.grad((flash_attention(*leaves, causal=True) * do).sum(), leaves)
+    leaves = [t.clone().requires_grad_(True) for t in (q, kg2, vg2)]
+    o_ref = attention_reference(leaves[0], leaves[1].expand(q.shape), leaves[2].expand(q.shape),
+                                causal=True)
+    g_gq_r = torch.autograd.grad((o_ref * do).sum(), leaves)
+    rung("GQA-fold backward dQ vs oracle", g_gq[0], g_gq_r[0], TOL_FP32)
+    rung("GQA-fold backward dK,dV (group-summed in-kernel) vs oracle",
+         torch.stack(g_gq[1:]), torch.stack(g_gq_r[1:]), TOL_FP32)
+
+    # Rungs 24-25: in-kernel dropout, not ported.
+    for name, why in SKIPPED_DROPOUT_RUNGS:
         log(_skip(name, why))
     return results
 

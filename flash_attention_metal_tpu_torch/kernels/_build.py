@@ -3,8 +3,8 @@
 The library has a plain C interface and is loaded with ``ctypes``, so the
 build needs ``nvcc`` alone (no PyTorch headers: seconds, not minutes).  It
 is built at first use into ``_build/`` inside the package, under a name
-keyed by a hash of the sources and flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is.
+keyed by a hash of the sources, their headers (``csrc/*.cuh``) and flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfam_kernels_{h.hexdigest()[:16]}.so"
@@ -79,7 +79,8 @@ def compile_library(sources, out: Path) -> Path:
     """Compile ``sources`` with ``NVCC_FLAGS`` into the library ``out``.
 
     Each source compiles to an object in its own ``nvcc`` process, all
-    started together; one more links them.
+    started together; one more links them.  Headers are found beside the
+    source first, then in ``csrc/``.
     """
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -88,7 +89,7 @@ def compile_library(sources, out: Path) -> Path:
         objects, procs = [], []
         for i, src in enumerate(sources):
             obj = os.path.join(work, f"{i}_{Path(src).stem}.o")
-            cmd = [nvcc, *compile_flags, "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *compile_flags, "-I", str(CSRC), "-c", "-o", obj, str(src)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
             objects.append(obj)

@@ -30,7 +30,7 @@ import torch
 
 from ..config import default_scale
 from . import _build
-from .flash_bwd import _plain_p_ds, bwd_delta
+from .flash_bwd import _plain_p_ds, bwd_delta, dq_workspace_shape
 from .flash_fwd import (
     _DTYPE_CODES,
     _check_cuda_inputs,
@@ -98,8 +98,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr,  # stream
     ]
     lib.fam_flash_tri_fwd.restype = ctypes.c_int
-    lib.fam_flash_tri_bwd_pairs.argtypes = [i32, i32, i32]  # n_q, n_kv, q_offset
-    lib.fam_flash_tri_bwd_pairs.restype = ctypes.c_int
     lib.fam_flash_tri_bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dout, lse, delta
         ptr, ptr, ptr, ptr,  # dq, dk, dv, dq workspace
@@ -218,14 +216,14 @@ def flash_attention_bwd_tri(
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be a contiguous fp32 tensor on q's device")
     delta = bwd_delta(o, do, dlse)
-    lib = _lib()
-    pairs = lib.fam_flash_tri_bwd_pairs(n_q, n_kv, off)
     dq = torch.empty_like(q)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
     # One fp32 64 x 64 dQ slot per visible (q tile, KV tile) pair and head.
-    ws = torch.empty((batch * heads * pairs, 64, 64), dtype=torch.float32, device=q.device)
-    err = lib.fam_flash_tri_bwd(
+    ws = torch.empty(dq_workspace_shape(batch, heads, n_q, n_kv, off), dtype=torch.float32,
+                     device=q.device)
+    pairs = ws.shape[0] // (batch * heads)
+    err = _lib().fam_flash_tri_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
         batch, heads, n_q, n_kv, head_dim, sm_scale, off, pairs,

@@ -4,9 +4,10 @@ Counterpart of ``flash_attention_metal_tpu/ops/attention.py``.  Inputs and
 outputs keep the JAX package's ``[B, H, N, D]`` layout.  The JAX op is a
 ``custom_vjp`` over the forward and backward kernels; here that is a
 ``torch.autograd.Function`` whose forward runs the forward kernel with the
-row logsumexp and whose backward runs the dK/dV and dQ kernels.  Offsets
-reach the kernels as int32 ``[B]`` tensors, so the routers take the general
-forward kernel and the split backward pair, as in JAX.
+row logsumexp and whose backward runs the backward router.  Offsets reach
+the kernels as int32 ``[B]`` tensors, so the routers take the general
+forward kernel and, unless the autotuner's saved decision for the shape
+names the fused kernel, the split backward pair, as in JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import default_scale
-from ..kernels.flash_bwd import flash_attention_bwd
+from ..kernels.flash_bwd import flash_attention_bwd_auto
 from ..kernels.flash_fwd import _offsets, flash_attention_fwd, reject_unported
 from ..reference.oracle import attention_reference, attention_reference_with_lse
 
@@ -28,12 +29,12 @@ class _FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, off, sm_scale, causal, save_lse):
+    def forward(ctx, q, k, v, off, off_max, sm_scale, causal, save_lse):
         o, lse = flash_attention_fwd(
             q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True
         )
         ctx.save_for_backward(q, k, v, off, o, lse)
-        ctx.sm_scale, ctx.causal = sm_scale, causal
+        ctx.off_max, ctx.sm_scale, ctx.causal = off_max, sm_scale, causal
         ctx.set_materialize_grads(False)
         if save_lse:
             return o, lse
@@ -45,12 +46,12 @@ class _FlashAttention(torch.autograd.Function):
         # Cotangents arrive strided (the heads merge is a transpose): the
         # kernels take contiguous rows, so copy once here.
         do = torch.zeros_like(o) if do is None else do.contiguous()
-        dq, dk, dv = flash_attention_bwd(
+        dq, dk, dv = flash_attention_bwd_auto(
             q, k, v, o, do, lse, off,
             None if dlse is None else dlse.contiguous(),
-            sm_scale=ctx.sm_scale, causal=ctx.causal,
+            sm_scale=ctx.sm_scale, causal=ctx.causal, q_offset_max=ctx.off_max,
         )
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -83,8 +84,9 @@ def flash_attention(
         alibi/dropout arguments; each raises NotImplementedError if set.
 
     Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.  When
-    grad is enabled and an input requires it, the backward runs the dK/dV
-    and dQ kernels.
+    grad is enabled and an input requires it, the backward runs the
+    backward router: the dK/dV and dQ kernels, or the fused kernel where the
+    autotuner's saved decision names it.
     """
     if q.ndim != 4:
         raise ValueError(f"expected [B, H, N, D] inputs, got {tuple(q.shape)}")
@@ -105,10 +107,12 @@ def flash_attention(
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     # The offset is always an int32 [B] tensor here, as the JAX op makes it
     # an array (ops/attention.py:392-394): the forward router then takes the
-    # general kernel, and the backward the split pair, on every call.
+    # general kernel, and the backward the split pair, on every call.  An
+    # int offset still bounds the fused backward's dQ workspace.
     off = _offsets(q_offset, q.shape[0], 0, q.device)
+    off_max = None if torch.is_tensor(q_offset) else int(q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, off, sm_scale, causal, save_lse)
+        return _FlashAttention.apply(q, k, v, off, off_max, sm_scale, causal, save_lse)
     return flash_attention_fwd(
         q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse
     )

@@ -96,6 +96,30 @@ def kv_cache_bytes(rows: int, head_dim: int, itemsize: int, scaled: bool = False
     return float(2 * rows * (head_dim * itemsize + (4 if scaled else 0)))
 
 
+def fused_bwd_work(
+    batch: int,
+    heads: int,
+    kv_heads: int,
+    n_q: int,
+    n_kv: int,
+    head_dim: int,
+    itemsize: int,
+    *,
+    causal: bool,
+    q_offset: int = 0,
+) -> tuple:
+    """``(flops, bytes)`` the fused backward must do: five products per
+    visible (row, column) pair (S, dP, dV, dK and dQ: ``10 * D`` flops),
+    and q, o, dO, k, v and the fp32 lse read once, dq, dk, dv written once
+    (``itemsize`` bytes per element).  Its dQ workspace is the design's
+    cost, not the function's, and is left out."""
+    pairs = visible_pairs(n_q, n_kv, q_offset) if causal else n_q * n_kv
+    q_elems = batch * heads * n_q * head_dim
+    kv_elems = batch * kv_heads * n_kv * head_dim
+    nbytes = (4 * q_elems + 4 * kv_elems) * itemsize + 4 * batch * heads * n_q
+    return 10.0 * head_dim * batch * heads * pairs, float(nbytes)
+
+
 def roofline_time(
     flops: float,
     bytes_moved: float,

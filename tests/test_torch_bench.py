@@ -34,14 +34,52 @@ from flash_attention_metal_tpu_torch.utils.timing import measure_kernel_pair
 def test_run_ladder_on_cpu_passes_every_ported_rung():
     lines = []
     results = verify.run_ladder(n=256, device="cpu", log=lines.append)
-    assert len(results) == 16 and all(r.passed for r in results), [r.line() for r in results]
-    assert [r.name for r in results][:2] == ["naive vs oracle (fp32)", "flash_v2 vs naive (fp32)"]
-    # Rung 2 and the unported upper rungs print SKIP and are never results.
-    assert lines[1] == "[SKIP] flash_v1 vs naive (fp32): kernels/flash_v1.py not ported " \
-                       "(ROADMAP Queue B 1)"
+    assert len(results) == 24 and all(r.passed for r in results), [r.line() for r in results]
+    assert [r.name for r in results][:3] == [
+        "naive vs oracle (fp32)", "flash_v1 vs naive (fp32)", "flash_v2 vs naive (fp32)"]
+    # The unported rungs print SKIP, name their ROADMAP.md item and are
+    # never results.
     skips = [line for line in lines if line.startswith("[SKIP]")]
-    assert len(skips) == 1 + len(verify.SKIPPED_UPPER_RUNGS)
+    assert len(skips) == 2 + len(verify.SKIPPED_TRANSFORM_RUNGS) + len(verify.SKIPPED_DROPOUT_RUNGS)
+    assert all("ROADMAP.md Queue" in line for line in skips)
     assert all(line.startswith("[PASS]") for line in lines if line not in skips)
+
+
+def _jax_rung_names() -> list:
+    """A regular expression per ``rung(...)`` call of the JAX ladder: its
+    name, with each f-string field matching any text."""
+    import ast
+    import re
+
+    from flash_attention_metal_tpu.harness import verify as jax_verify
+
+    patterns = []
+    for node in ast.walk(ast.parse(inspect.getsource(jax_verify))):
+        if not (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "rung"):
+            continue
+        name = node.args[0]
+        parts = name.values if isinstance(name, ast.JoinedStr) else [name]
+        patterns.append("".join(re.escape(p.value) if isinstance(p, ast.Constant) else ".+"
+                                for p in parts))
+    return patterns
+
+
+def test_ladder_rungs_2_8_9_12_18_run_under_their_jax_names():
+    """On the CPU at n = 256 the V1, 8-bit KV (int8, fp8), MQA, paged-KV
+    (prefill, decode chunk) and GQA-backward rungs run and pass, each named
+    as a rung of the JAX ladder; so is every other rung the port runs."""
+    import re
+
+    lines = []
+    results = verify.run_ladder(n=256, device="cpu", log=lines.append)
+    by_name = {r.name: r for r in results}
+    assert all(by_name[name].passed for name in verify.RUNGS_2_8_9_12_18)
+    assert not any(name in line for line in lines if line.startswith("[SKIP]")
+                   for name in verify.RUNGS_2_8_9_12_18)
+    patterns = _jax_rung_names()
+    assert len(patterns) > 30
+    for name in by_name:
+        assert any(re.fullmatch(p, name) for p in patterns), name
 
 
 def test_rung_line_format_matches_jax():
@@ -55,7 +93,7 @@ def test_rung_line_format_matches_jax():
 
 def test_verify_main_runs_the_cpu_ladder_and_refuses_a_missing_card(capsys):
     assert verify.main(["--n", "128", "--device", "cpu"]) == 0
-    assert "ALL PASS (16/16)" in capsys.readouterr().out
+    assert "ALL PASS (24/24)" in capsys.readouterr().out
     assert verify.main([]) == 1  # the default device is the card
 
 

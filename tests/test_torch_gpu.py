@@ -8,17 +8,20 @@ not installed:
 """
 
 import ctypes
+import json
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
 from flash_attention_metal_tpu_torch import bench, flash_attention
-from flash_attention_metal_tpu_torch.harness import onchip, serving
+from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving
 from flash_attention_metal_tpu_torch.kernels import _build
 from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
 from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+from flash_attention_metal_tpu_torch.kernels import flash_v1 as fv
 from flash_attention_metal_tpu_torch.kernels import naive as nv
 from flash_attention_metal_tpu_torch.kernels import paged as pg
 from flash_attention_metal_tpu_torch.kernels import quant as qt
@@ -46,6 +49,18 @@ def cuda():
 def _uniform(rng, shape, device, dtype, scale=1.0):
     x = rng.uniform(-1, 1, shape).astype(np.float32) * scale
     return torch.from_numpy(x).to(device, dtype)
+
+
+def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ctypes.CDLL:
+    """``csrc/<unit>`` built alone with one fault planted in ``csrc/<source>``
+    (the unit itself or a header it includes): a copy beside the unit's
+    copy shadows the original."""
+    text = (_build.CSRC / source).read_text()
+    assert text.count(old) == 1
+    (tmp_path / source).write_text(text.replace(old, new))
+    if unit != source:
+        shutil.copy(_build.CSRC / unit, tmp_path / unit)
+    return ctypes.CDLL(str(_build.compile_library([tmp_path / unit], tmp_path / "planted.so")))
 
 
 @pytest.mark.gpu
@@ -441,8 +456,9 @@ def _ladder_fault_errors(kernel, gen):
     return float(np.max([onchip.ladder_fwd_error(kernel, qkv, kw) for _, qkv, kw in cases])), tol
 
 
-# Faults planted in a copy of a ladder kernel's source: (file, module, its
-# bind function, kernel, text, replacement).
+# Faults planted in a copy of a ladder kernel's source: (file, or (file,
+# header it includes), module, its bind function, kernel, text,
+# replacement).
 PLANTED_LADDER_FAULTS = {
     # causal test c < r in place of c <= r: the diagonal is masked
     "naive_diagonal_masked": ("naive.cu", nv, nv.bind, "naive", "c <= limit", "c < limit"),
@@ -457,9 +473,9 @@ PLANTED_LADDER_FAULTS = {
     # dS = P * dP: delta dropped
     "tri_bwd_delta_dropped": ("flash_tri.cu", ft, ft.bind, "flash_tri_bwd",
                               "(sm.dp[r * kLdS + c] - delta)", "sm.dp[r * kLdS + c]"),
-    # each Q tile's last dQ slot left out of the sum
-    "tri_bwd_last_slot_dropped": ("flash_tri.cu", ft, ft.bind, "flash_tri_bwd",
-                                  "jj < n_slots; ++jj)", "jj < n_slots - 1; ++jj)"),
+    # each Q tile's last dQ slot left out of the sum (the shared reduce)
+    "tri_bwd_last_slot_dropped": (("flash_tri.cu", "dq_slots.cuh"), ft, ft.bind, "flash_tri_bwd",
+                                  "j < n_slots; ++j)", "j < n_slots - 1; ++j)"),
 }
 
 
@@ -470,11 +486,8 @@ def test_planted_ladder_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault
     built and fails a copy with a planted fault (errors printed with ``-s``;
     NaN counts as a failure)."""
     source, module, bind, kernel, old, new = PLANTED_LADDER_FAULTS[fault]
-    text = (_build.CSRC / source).read_text()
-    assert text.count(old) == 1
-    planted = tmp_path / source
-    planted.write_text(text.replace(old, new))
-    lib = bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    unit, source = (source, source) if isinstance(source, str) else source
+    lib = bind(_planted_library(tmp_path, unit, source, old, new))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     clean, tol = _ladder_fault_errors(kernel, gen)
@@ -738,3 +751,294 @@ def test_engine_modes_cuda_match_cpu(cuda, mode):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.generated == b.generated
         np.testing.assert_allclose(a.logprobs, b.logprobs, atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# FlashAttention V1 (csrc/flash_v1.cu: streaming and folded), the fused
+# backward (csrc/flash_bwd.cu, fam_flash_bwd_fused) and the autotuner that
+# routes the backward to it.
+# ---------------------------------------------------------------------------
+
+# (q shape, causal, (block_q, block_k) or None): the route each takes is
+# the JAX function's (fv.v1_route).  Folded: one KV tile per row, fold 8, 2
+# and 4 (ragged: 200 columns, not a multiple of the 64-column chunk).
+# Streaming: two 512-column logical blocks, a ragged row of 200 at batch 1
+# (fold 1), and 1000 rows in 200-row logical blocks.
+V1_CASES = {
+    "folded_n128": ((16, 2, 128, 64), False, None),
+    "folded_n512_causal": ((4, 2, 512, 64), True, None),
+    "folded_ragged_causal": ((4, 1, 200, 64), True, None),
+    "stream_n1024": ((2, 2, 1024, 64), False, None),
+    "stream_n1024_causal": ((1, 2, 1024, 64), True, None),
+    "stream_ragged_n200": ((1, 2, 200, 64), True, None),
+    "stream_n1000_blocks200": ((1, 2, 1000, 64), True, (200, 200)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_scale", [1.0, onchip.PEAKED_Q_SCALE], ids=["ladder", "peaked"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(V1_CASES))
+def test_v1_kernels_match_plain(cuda, case, dtype, q_scale):
+    shape, causal, blocks = V1_CASES[case]
+    block_q, block_k = blocks or (None, None)
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, shape, cuda, dtype, q_scale)
+    k = _uniform(rng, shape, cuda, dtype)
+    v = _uniform(rng, shape, cuda, dtype)
+    route = fv.v1_route(shape[0], shape[2], shape[2], block_q, block_k)[0]
+    assert route == ("folded" if case.startswith("folded") else "stream")
+    kernel = fv.flash_v1_folded if route == "folded" else fv.flash_v1_stream
+    other = fv.flash_v1_stream if route == "folded" else fv.flash_v1_folded
+    before = (kernel.launches, other.launches)
+    o = fv.flash_attention_v1(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
+    assert (kernel.launches, other.launches) == (before[0] + 1, before[1])
+    want = fv.flash_attention_v1_plain(q.float(), k.float(), v.float(), sm_scale=0.125,
+                                       causal=causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    assert float((o.float() - want).abs().max()) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_v1_checks_pass_the_kernels(cuda):
+    """chip_smoke.py's V1 checks: every case within 1e-5 (fp32), the spike
+    fixture included."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    for name, (_, qkv, causal) in onchip.v1_cases(gen).items():
+        err = onchip.v1_error(qkv, causal)
+        assert err <= TOL[torch.float32], (name, err)
+
+
+# Faults planted in a copy of csrc/flash_v1.cu: (kernel, the check that
+# must fail, text, replacement).
+PLANTED_V1_FAULTS = {
+    # the accumulator and the running sum kept unrescaled when the running
+    # max rises between KV tiles
+    "stream_no_rescale": ("flash_v1", "v1_fp32_n1024_peaked",
+                          "const float alpha = m_next == -INFINITY ? 1.0f : exp2f(m_i - m_next);",
+                          "const float alpha = 1.0f;"),
+    # the folded kernel's row max taken over the first 64-column chunk only
+    "folded_partial_row_max": ("flash_v1_folded", "v1_fp32_n128_spike",
+                               "for (int ch = 0; ch < n_chunks; ++ch) {  // row max",
+                               "for (int ch = 0; ch < 1; ++ch) {  // row max"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_V1_FAULTS))
+def test_planted_v1_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's checks of one V1 kernel pass it as built and fail a
+    copy with a planted fault on the fixture that shows it (errors printed
+    with ``-s``; NaN counts as a failure)."""
+    kernel, shows, old, new = PLANTED_V1_FAULTS[fault]
+    text = (_build.CSRC / "flash_v1.cu").read_text()
+    assert text.count(old) == 1
+    planted = tmp_path / "flash_v1.cu"
+    planted.write_text(text.replace(old, new))
+    lib = fv.bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = {n: c for n, c in onchip.v1_cases(gen).items() if c[0] == kernel}
+    clean = {n: onchip.v1_error(qkv, causal) for n, (_, qkv, causal) in cases.items()}
+    monkeypatch.setattr(fv, "_lib", lambda: lib)
+    faulty = {n: onchip.v1_error(qkv, causal) for n, (_, qkv, causal) in cases.items()}
+    tol = TOL[torch.float32]
+    print(f"\n{fault}: max-abs error built -> planted (tol {tol}):\n" + "\n".join(
+        f"  {n}: {clean[n]:.3e} -> {faulty[n]:.3e}" for n in cases))
+    assert all(e <= tol for e in clean.values()), clean
+    assert not faulty[shows] <= tol
+
+
+@pytest.mark.gpu
+def test_v1_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 1, 128, 64), device=cuda)
+    with pytest.raises(ValueError, match="n_q == n_kv"):
+        fv.flash_attention_v1(q[:, :, :64], q, q, causal=True)
+    with pytest.raises(TypeError):
+        fv.flash_attention_v1(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="divisible"):
+        big = torch.zeros((1, 1, 1000, 64), device=cuda)
+        fv.flash_attention_v1(big, big, big)
+    with pytest.raises(ValueError, match="n_kv <= 512"):
+        long = torch.zeros((2, 1, 1024, 64), device=cuda)
+        fv.flash_v1_folded(long, long, long, 2, sm_scale=0.125, causal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "case",
+    [
+        # ragged n_q and n_kv, GQA 2, per-batch offsets, an lse cotangent
+        dict(b=2, hq=4, hkv=2, n_q=130, n_kv=300, off=[0, 170], causal=True),
+        dict(b=2, hq=4, hkv=2, n_q=130, n_kv=300, off=[0, 0], causal=False),
+        # GQA 4 (the dK/dV block walks four q-heads, each with its slots)
+        dict(b=1, hq=8, hkv=2, n_q=256, n_kv=256, off=[0], causal=True),
+        # rows and a whole Q tile that see nothing: zero gradients, no NaN
+        dict(b=1, hq=2, hkv=1, n_q=128, n_kv=128, off=[-70], causal=True),
+        # peaked softmax over several tiles
+        dict(b=2, hq=4, hkv=2, n_q=256, n_kv=256, off=[0, 0], causal=True,
+             q_scale=onchip.PEAKED_Q_SCALE),
+    ],
+    ids=["ragged_gqa2", "non_causal", "gqa4", "masked_rows", "peaked"],
+)
+def test_fused_bwd_matches_plain(cuda, dtype, case):
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, (case["b"], case["hq"], case["n_q"], 64), cuda, dtype,
+                 case.get("q_scale", 1.0))
+    k = _uniform(rng, (case["b"], case["hkv"], case["n_kv"], 64), cuda, dtype)
+    v = _uniform(rng, (case["b"], case["hkv"], case["n_kv"], 64), cuda, dtype)
+    do = _uniform(rng, q.shape, cuda, dtype)
+    dlse = _uniform(rng, q.shape[:3], cuda, torch.float32)
+    off = torch.tensor(case["off"], dtype=torch.int32, device=cuda)
+    causal = case["causal"]
+    o, lse = flash_attention_fwd(q, k, v, off, causal=causal, save_lse=True)
+    counters = (fb.flash_bwd_fused, fb.flash_bwd_dkv, fb.flash_bwd_dq)
+    before = [c.launches for c in counters]
+    got = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, dlse, sm_scale=0.125,
+                                       causal=causal)
+    assert [c.launches for c in counters] == [before[0] + 1, before[1], before[2]]
+    want = fb.flash_attention_bwd_fused_plain(
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, off, dlse,
+        sm_scale=0.125, causal=causal,
+    )
+    torch.cuda.synchronize()
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape and bool(torch.isfinite(g).all())
+    errors = _bwd_errors(got, want)
+    assert max(errors.values()) <= BWD_TOL[dtype], errors
+    if case["off"] == [-70]:
+        assert torch.all(got[0][:, :, :70] == 0)
+
+
+@pytest.mark.gpu
+def test_fused_bwd_is_deterministic(cuda):
+    """Each dK/dV tile has one owner block, each dQ slot one writer, and the
+    slots are summed in KV-tile order: two runs give identical bits."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    q, k, v, o, do, lse, off = onchip.bwd_inputs(onchip.train_cases(gen)["train_bf16_peaked"])
+    first = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True)
+    second = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+# Faults planted in a copy of csrc/flash_bwd.cu, or of the dQ slot header
+# it includes, that only the fused path runs: (file, text, replacement).
+PLANTED_FUSED_FAULTS = {
+    # each Q tile's last visible dQ partial (the diagonal's) left out
+    "dq_partial_dropped": ("dq_slots.cuh", "for (int j = 0; j < n_slots; ++j)",
+                           "for (int j = 0; j < n_slots - 1; ++j)"),
+    # dK stored without sm_scale on the fused path
+    "dk_unscaled": ("flash_bwd.cu", "dk[at + j] = from_float<T>(dk_reg[j] * sm_scale);",
+                    "dk[at + j] = from_float<T>(kFused ? dk_reg[j] : dk_reg[j] * sm_scale);"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_FUSED_FAULTS))
+def test_planted_fused_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's fused-backward check at the training shape passes the
+    kernel as built and fails a copy with a planted fault (errors printed
+    with ``-s``)."""
+    source, old, new = PLANTED_FUSED_FAULTS[fault]
+    lib = fb.bind(_planted_library(tmp_path, "flash_bwd.cu", source, old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.train_cases(gen)
+    names = ("train_bf16", "train_bf16_peaked")
+    inputs = {n: onchip.bwd_inputs(cases[n]) for n in names}
+    clean = {n: onchip.bwd_kernel_errors(inputs[n], fused=True) for n in names}
+    monkeypatch.setattr(fb, "_lib", lambda: lib)
+    faulty = {n: onchip.bwd_kernel_errors(inputs[n], fused=True) for n in names}
+    print(f"\n{fault}, (dq, dk, dv) normalised max-abs error, built -> planted:\n" + "\n".join(
+        f"  {n}: " + ", ".join(f"{g} {clean[n][g][1]:.3e} -> {faulty[n][g][1]:.3e}" for g in clean[n])
+        for n in names))
+    tol = BWD_TOL[torch.bfloat16]
+    for name in names:
+        assert max(rel for _, rel in clean[name].values()) <= tol
+        assert max(rel for _, rel in faulty[name].values()) > tol
+
+
+@pytest.mark.gpu
+def test_fused_bwd_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 2, 64, 64), device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError, match="block_sizes"):
+        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, block_sizes=fb.BlockSizes())
+    with pytest.raises(NotImplementedError):
+        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, window=16)
+    with pytest.raises(TypeError):
+        fb.flash_attention_bwd_fused(q.half(), q.half(), q.half(), q.half(), q.half(), lse,
+                                     causal=True)
+
+
+@pytest.mark.gpu
+def test_fused_workspace_holds_the_visible_pairs(cuda):
+    """The packed dQ workspace (csrc/dq_slots.cuh): the library's slot
+    counts at the training shape (528 of 32 x 32 pairs per q-head, causal,
+    offset 0), and on the card every slot allocated at a bound that every
+    batch meets is written; a batch below the bound leaves some unwritten."""
+    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 0) == (4 * 16 * 528, 64, 64)
+    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 2047) == (4 * 16 * 1024, 64, 64)
+    assert fb.dq_workspace_shape(1, 2, 128, 128, -70) == (2, 64, 64)  # the first tile sees none
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, (2, 4, 200, 64), cuda, torch.bfloat16)
+    k, v = (_uniform(rng, (2, 2, 300, 64), cuda, torch.bfloat16) for _ in range(2))
+    for offs, bound in (([100, 100], 100), ([0, 100], 100), ([-70, -70], -70)):
+        off = torch.tensor(offs, dtype=torch.int32, device=cuda)
+        inputs = onchip.bwd_inputs((q, k, v, q, off))
+        allocated, written = onchip.fused_workspace_bytes(inputs, bound)
+        slot = 64 * 64 * 4
+        assert allocated == 2 * 4 * fb.dq_workspace_shape(1, 1, 200, 300, bound)[0] * slot
+        if offs[0] == offs[1]:
+            assert written == allocated, (offs, allocated, written)
+        else:
+            per_head = [fb.dq_workspace_shape(1, 1, 200, 300, x)[0] for x in offs]
+            assert written == 4 * sum(per_head) * slot < allocated
+
+
+@pytest.fixture
+def tuned_cache(tmp_path, monkeypatch):
+    """The autotuner's cache in a temporary file, which the router reads."""
+    path = tmp_path / "autotune_cache_torch.json"
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", str(path))
+    autotune.reset_memo()
+    yield path
+    autotune.reset_memo()
+
+
+@pytest.mark.gpu
+def test_autotune_bwd_on_the_card_sets_the_route(cuda, tuned_cache):
+    """``autotune_bwd`` races the split pair and the fused kernel (GQA: no
+    triangular candidate) on the card and stores the winner under the
+    card's name; the router then launches the winner's kernels only, and a
+    cache naming "fused" sends the op's backward to the fused kernel."""
+    shape = (2, 4, 2, 512, 64)
+    impl, _ = autotune.autotune_bwd(shape, iters=3, log=lambda s: None)
+    entries = json.loads(tuned_cache.read_text())
+    (key,) = entries
+    assert key.startswith(autotune.device_name("cuda") + "/bwd/b2h4kv_heads2q512kv512d64/")
+    assert set(entries[key]["raced_us"]) == {"split", "fused"}
+    autotune.reset_memo()
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, (2, 4, 512, 64), cuda, torch.bfloat16)
+    k, v = (_uniform(rng, (2, 2, 512, 64), cuda, torch.bfloat16) for _ in range(2))
+    off = torch.zeros(2, dtype=torch.int32, device=cuda)
+    o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+    counters = {"split": fb.flash_bwd_dkv, "fused": fb.flash_bwd_fused}
+    before = {name: c.launches for name, c in counters.items()}
+    fb.flash_attention_bwd_auto(q, k, v, o, q, lse, off, causal=True)
+    assert {name: c.launches - before[name] for name, c in counters.items()} == {
+        name: int(name == impl) for name in counters}
+    entries[key] = {"impl": "fused", "blocks": {}}
+    tuned_cache.write_text(json.dumps(entries))
+    autotune.reset_memo()
+    leaf = q.clone().requires_grad_(True)
+    before = {name: c.launches for name, c in counters.items()}
+    flash_attention(leaf, k, v, causal=True).float().sum().backward()
+    assert {name: c.launches - before[name] for name, c in counters.items()} == {
+        "split": 0, "fused": 1}
