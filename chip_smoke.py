@@ -77,6 +77,8 @@ CHECK_PROMPTS = (5, 11, 300, 900)
 # The benchmark's sweep, cut to three points here (the full sweep is its
 # own command), and the verification ladder's length.
 SHORT_SWEEP, LADDER_N = (128, 1024, 4096), 1024
+# Ladder rung 11's name at LADDER_N (JAX's, with its mask's block density).
+RUNG_11 = "flash block-sparse mask (density 0.44) vs oracle"
 # The 8-bit and paged KV caches: the serving modes, one engine each, in
 # order; the prefix-shared mode's traffic (1024-token prompts whose first
 # half is common, the JAX serving bench's shared_prefix = prompt_len // 2)
@@ -493,6 +495,185 @@ def fused_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
             "step_ms": train["step_ms"]}
 
 
+def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) -> list:
+    """Block-sparse attention (``csrc/flash_mask.cu``) under ladder rung
+    11's mask at the training shape: each of the three kernels against its
+    plain version (bf16 on the ladder, peaked and spike fixtures, fp32 at
+    N = 512, bf16 at head dim 128); then the main path, one
+    ``torch.autograd.grad`` through ``block_sparse_attention`` with every
+    count set to 0 before it, against the plain gradient; each kernel's
+    times, bound and SDPA's (boolean mask, efficient backend).  Returns the
+    three kernel records; ``ladder_launches``: the rung-11 run's counts."""
+    from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
+    from flash_attention_metal_tpu_torch.kernels.flash_bwd import bwd_delta
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    cases = onchip.sparse_cases(gen)
+    bm = cases["sparse_bf16"][4]
+    visible = bm.visible_pairs()
+    tables = bm.tables("cuda")
+    print(f"[sparse] rung 11's mask at n {onchip.SPARSE_N}, {onchip.SPARSE_BLOCK}-row blocks: "
+          f"block density {bm.density:.4f}, element density {visible / onchip.SPARSE_N ** 2:.4f}; "
+          f"{tables.q_list.shape[0]} visited 64-tile pairs, {tables.bit_tiles.shape[0]} partial; "
+          f"tables {tables.nbytes} bytes")
+    errors = {}
+    for name, case in cases.items():
+        errs = onchip.sparse_kernel_errors(case)
+        dtype = case[0].dtype
+        fwd_tol, bwd_tol = onchip.TOL[dtype], onchip.BWD_TOL[dtype]
+        errors[name] = errs
+        (o_err, lse_err), worst_rel = errs["o"], max(errs[g][1] for g in ("dq", "dk", "dv"))
+        check(o_err <= fwd_tol and lse_err <= fwd_tol,
+              f"{name}: sparse forward max abs err {o_err:.3e}, lse {lse_err:.3e} > {fwd_tol}")
+        check(worst_rel <= bwd_tol, f"{name}: sparse backward normalised error {worst_rel:.3e} > "
+                                    f"{bwd_tol}")
+        print(f"[sparse-kernel] {name} q {tuple(case[0].shape)} kv {tuple(case[1].shape)}: o "
+              f"max_abs {o_err:.3e} lse {lse_err:.3e} (tol {fwd_tol}); "
+              + ", ".join(f"{g} max_abs {errs[g][0]:.3e} rel {errs[g][1]:.3e}"
+                          for g in ("dq", "dk", "dv")) + f" (tol rel {bwd_tol})")
+
+    # The main path: the op's forward and backward, counts over it alone.
+    q, k, v, do, _ = cases["sparse_bf16"]
+    counters = {"flash_sparse_fwd": fm.flash_sparse_fwd, "flash_sparse_dkv": fm.flash_sparse_dkv,
+                "flash_sparse_dq": fm.flash_sparse_dq}
+    for fn in counters.values():
+        fn.launches = 0
+    grad_errors = onchip.sparse_op_grad_errors(cases["sparse_bf16"])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    worst = max(grad_errors.values())
+    check(all(n == 1 for n in launches.values()),
+          f"block_sparse_attention's forward and backward launch each kernel once: {launches}")
+    check(worst <= onchip.BWD_TOL[torch.bfloat16],
+          f"block_sparse_attention gradient normalised error {worst:.3e} > "
+          f"{onchip.BWD_TOL[torch.bfloat16]}")
+    print(f"[sparse-op] torch.autograd.grad through block_sparse_attention, q {tuple(q.shape)} kv "
+          f"{tuple(k.shape)} bf16: " + ", ".join(f"{g} rel {e:.3e}" for g, e in grad_errors.items())
+          + f" (tol rel {onchip.BWD_TOL[torch.bfloat16]}); launches {launches}")
+    del cases
+    torch.cuda.empty_cache()
+
+    # Times at the training shape, each beside its plain version, its
+    # bound and SDPA with the same boolean mask (forward; forward and
+    # backward for the backward kernels).
+    scale = 0.125
+    batch, heads, n, d = q.shape
+    o, lse = fm.flash_sparse_fwd(q, k, v, bm, sm_scale=scale, save_lse=True)
+    delta = bwd_delta(o, do, None)
+    dense = bm.dense("cuda")
+    sdpa_fwd = onchip.sdpa_ms(q, k, v, mask=dense)
+    sdpa_bwd = onchip.sdpa_ms(q, k, v, mask=dense, backward_of=do, with_forward=True)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    timed = {
+        "flash_sparse_fwd": (
+            lambda: fm.flash_sparse_fwd(q, k, v, bm, sm_scale=scale, save_lse=True),
+            lambda: fm.flash_sparse_fwd_plain(qf, kf, vf, bm, sm_scale=scale, save_lse=True),
+            "fwd", sdpa_fwd, 127),
+        "flash_sparse_dkv": (
+            lambda: fm.flash_sparse_dkv(q, k, v, do, lse, delta, bm, sm_scale=scale),
+            lambda: fm.flash_sparse_dkv_plain(qf, kf, vf, dof, lse, delta, bm, sm_scale=scale),
+            "dkv", sdpa_bwd, 318),
+        "flash_sparse_dq": (
+            lambda: fm.flash_sparse_dq(q, k, v, do, lse, delta, bm, sm_scale=scale),
+            lambda: fm.flash_sparse_dq_plain(qf, kf, vf, dof, lse, delta, bm, sm_scale=scale),
+            "dq", sdpa_bwd, 372),
+    }
+    records = []
+    for name, (kernel_fn, plain_fn, work, library, line) in timed.items():
+        flops, nbytes = roofline.block_sparse_work(batch, heads, k.shape[1], n, n, d, 2, visible,
+                                                   work)
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "flash_attention_metal_tpu_torch/csrc/flash_mask.cu",
+            "replaces": f"flash_attention_metal_tpu/kernels/flash_mask.py:{line}",
+            "launches": launches[name],
+            "launches_ladder": ladder_launches[name],
+            "max_abs_err": max(e[key][0] for c, e in errors.items() if "bf16" in c
+                               for key in (("o",) if work == "fwd" else
+                                           ("dk", "dv") if work == "dkv" else ("dq",))),
+            **timed_record(kernel_fn, plain_fn, library, flops, nbytes, 16,
+                           "training q [4,16,2048,64] kv [4,8,2048,64] bf16, rung 11's mask", spec),
+        }
+        if work == "fwd":
+            rec["max_abs_err_fp32"] = errors["sparse_fp32_n512"]["o"][0]
+            rec["lse_err_max"] = max(e["o"][1] for e in errors.values())
+        else:
+            grads = ("dk", "dv") if work == "dkv" else ("dq",)
+            rec["max_rel_err"] = max(e[g][1] for c, e in errors.items() if "bf16" in c for g in grads)
+            rec["max_rel_err_fp32"] = max(errors["sparse_fp32_n512"][g][1] for g in grads)
+            rec["library_backend"] += " forward and backward (dQ, dK, dV together)"
+            rec["op_grad_rel_err"] = max(grad_errors[g] for g in grads)
+        records.append(rec)
+        print(f"[time] kernel {name} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+              f"({rec['library_backend']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
+              f"launches {rec['launches']} {stamp}")
+    del q, k, v, do, o, lse, delta, dense, qf, kf, vf, dof
+    torch.cuda.empty_cache()
+    return records
+
+
+def d128_times(gen: torch.Generator, stamp: str, spec) -> dict:
+    """The forward router's three kernels at head dim 128, each at one shape
+    of its path: device ms, plain ms and bound, and the same kernel's device
+    ms at head dim 64 on the same shape, in the same run
+    (``{kernel: {...}}``)."""
+    from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
+    from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    off = torch.tensor([512], dtype=torch.int32, device="cuda")
+    shapes = {
+        "flash_fwd": (onchip.PREFILL_D128_Q, onchip.PREFILL_D128_KV,
+                      "prefill q [1,16,512,{d}] kv [1,8,2048,{d}] offset 512 bf16"),
+        "flash_lean": (onchip.SWEEP_1024_D128, onchip.SWEEP_1024_D128,
+                       "sweep N=1024 B=8 H=1 D={d} bf16 non-causal"),
+        "flash_tri": (onchip.TRI_D128, onchip.TRI_D128, "q [2,8,2048,{d}] bf16 causal, lse"),
+    }
+
+    def calls(name, q, k, v):
+        """(kernel, plain, (flops, bytes)) of one kernel on these inputs."""
+        d = q.shape[-1]
+        scale = d ** -0.5
+        if name == "flash_fwd":
+            return (lambda: ff.flash_fwd_general(q, k, v, off, causal=True),
+                    lambda: ff.flash_attention_fwd_plain(q, k, v, off, sm_scale=scale, causal=True),
+                    onchip.fwd_work(q, k, [512]))
+        if name == "flash_lean":
+            b, h, n, _ = q.shape
+            return (lambda: ff.flash_fwd_lean(q, k, v),
+                    lambda: ff.flash_fwd_lean_plain(q, k, v, 0, sm_scale=scale, causal=False),
+                    (4.0 * d * b * h * n * n, 4.0 * q.numel() * 2))
+        b, h, n, _ = q.shape
+        return (lambda: ft.flash_attention_tri(q, k, v, save_lse=True),
+                lambda: ft.flash_attention_tri_plain(q, k, v, 0, sm_scale=scale, save_lse=True),
+                (4.0 * d * b * h * roofline.visible_pairs(n, n, 0),
+                 4.0 * q.numel() * 2 + 4 * q.numel() // d))
+
+    out = {}
+    for name, (shape_q, shape_kv, shape) in shapes.items():
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        kernel_fn, plain_fn, (flops, nbytes) = calls(name, q, k, v)
+        q64, k64, v64 = (x[..., :64].contiguous() for x in (q, k, v))
+        out[name] = {
+            "ms": onchip.device_ms(kernel_fn),
+            "plain_ms": onchip.device_ms(plain_fn, iters=5),
+            "bound_ms": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+            "bound_by": roofline.bound_by(flops, nbytes, spec, 16),
+            "shape": shape.format(d=128),
+            "ms_at_d64": onchip.device_ms(calls(name, q64, k64, v64)[0]),
+        }
+        r = out[name]
+        print(f"[time] kernel {name} at head dim 128, {r['shape']}: device {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the same "
+              f"shape at head dim 64 {r['ms_at_d64']:.4f} ms {stamp}")
+        del q, k, v, q64, k64, v64
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -500,6 +681,7 @@ def main() -> int:
     from flash_attention_metal_tpu_torch import bench as bench_mod
     from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving, train_bench
     from flash_attention_metal_tpu_torch.harness.verify import RUNGS_2_8_9_12_18, run_ladder
+    from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
     from flash_attention_metal_tpu_torch.kernels import _build
     from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
     from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
@@ -745,13 +927,18 @@ def main() -> int:
 
     # 12. The slice's path: the verification ladder, then a short benchmark,
     # with every kernel's launches counted over the two.
-    for fn in bench_mod.KERNELS.values():
+    sparse_kernels = {"flash_sparse_fwd": fm.flash_sparse_fwd,
+                      "flash_sparse_dkv": fm.flash_sparse_dkv, "flash_sparse_dq": fm.flash_sparse_dq}
+    for fn in (*bench_mod.KERNELS.values(), *sparse_kernels.values()):
         fn.launches = 0
     rungs = run_ladder(LADDER_N, device="cuda", log=lambda line: print(f"[ladder] {line}"))
+    ladder_sparse = {name: fn.launches for name, fn in sparse_kernels.items()}
     failed = [r.name for r in rungs if not r.passed]
     check(not failed, f"every ported ladder rung passes; failed: {failed}")
-    missing = sorted(set(RUNGS_2_8_9_12_18) - {r.name for r in rungs})
-    check(not missing, f"rungs 2, 8, 9, 12 and 18 run; missing: {missing}")
+    missing = sorted(set(RUNGS_2_8_9_12_18 + (RUNG_11,)) - {r.name for r in rungs})
+    check(not missing, f"rungs 2, 8, 9, 11, 12 and 18 run; missing: {missing}")
+    check(ladder_sparse["flash_sparse_fwd"] > 0,
+          f"rung 11 launches the block-sparse forward kernel: {ladder_sparse}")
     detail = bench_mod.run_bench(SHORT_SWEEP, spec=spec, log=lambda m: print(f"[bench] {m} {stamp}"))
     slice_launches = bench_mod.kernel_launches()
     occ = detail["high_occupancy"]
@@ -863,6 +1050,11 @@ def main() -> int:
     # 14. The reference benchmark's sweep and its V1 kernels.
     v1_records = v1_phase(gen, stamp, spec, bench_mod.KERNELS)
 
+    # 15. Block-sparse attention: its three kernels, the op's forward and
+    # backward, and the forward router's kernels at head dim 128.
+    sparse_records = sparse_phase(gen, stamp, spec, ladder_sparse)
+    d128 = d128_times(gen, stamp, spec)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -898,6 +1090,12 @@ def main() -> int:
             **times_of(name),
         }
 
+    def with_d128(rec, name):
+        rec.update({f"{key}_d128": d128[name][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                                "bound_by", "shape")})
+        rec["ms_d64_same_shape"] = d128[name]["ms_at_d64"]
+        return rec
+
     lean_rec = ladder_record("flash_lean", "flash_lean.cu",
                              "flash_attention_metal_tpu/kernels/flash_fwd.py:429", "flash_lean")
     lean_rec.update({"max_abs_err_fp32": ladder_err("flash_lean", torch.float32),
@@ -907,7 +1105,7 @@ def main() -> int:
                             "flash_attention_metal_tpu/kernels/flash_tri.py:50", "flash_tri")
     tri_rec["max_abs_err_fp32"] = ladder_err("flash_tri", torch.float32)
     record = {
-        "kernels": [{
+        "kernels": [with_d128({
             "name": "flash_fwd",
             "route": "cuda",
             "source": "flash_attention_metal_tpu_torch/csrc/flash_fwd.cu",
@@ -925,13 +1123,14 @@ def main() -> int:
             "train_ms": train_times["flash_fwd"][0],
             "train_plain_ms": train_times["flash_fwd"][1],
             **fwd_extra,
-        },
+            "max_abs_err_d128": errors["prefill_bf16_d128_off512"],
+        }, "flash_fwd"),
             bwd_record("flash_bwd_dkv", 79, ("dk", "dv")),
             bwd_record("flash_bwd_dq", 268, ("dq",)),
             ladder_record("naive", "naive.cu", "flash_attention_metal_tpu/kernels/naive.py:31",
                           "naive"),
-            lean_rec,
-            tri_rec,
+            with_d128(lean_rec, "flash_lean"),
+            with_d128(tri_rec, "flash_tri"),
             {
                 "name": "flash_tri_bwd",
                 "route": "cuda",
@@ -946,6 +1145,7 @@ def main() -> int:
             *kv["records"],
             fused["record"],
             *v1_records,
+            *sparse_records,
         ],
         "serving": {
             "tokens_per_s": bench["tokens_per_s"],
@@ -981,6 +1181,7 @@ def main() -> int:
         "card": smi,
     }
     tmp_dir.cleanup()
+    check(len(record["kernels"]) == 16, f"16 kernels recorded: {len(record['kernels'])}")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({

@@ -5,8 +5,9 @@
 // Replaces four Pallas kernels of flash_attention_metal_tpu/kernels/, each
 // with its own entry point:
 //   * flash_fwd.py::_fwd_kernel (fam_flash_fwd): a dense bf16 / fp32 cache
-//     [B, H_kv, N, 64], the kernel of dense serving (chunked prefill, and
-//     GQA-folded decode with pos_div = group) and of the training forward;
+//     [B, H_kv, N, D], D = 64 or 128, the kernel of dense serving (chunked
+//     prefill, and GQA-folded decode with pos_div = group) and of the
+//     training forward; the three below take D = 64;
 //   * quant.py::_quant_fwd_kernel (fam_flash_quant): a dense
 //     [B, H_kv, N, 64] int8 / e4m3 / e5m2 cache with per-token fp32 scales
 //     [B, H_kv, N];
@@ -82,17 +83,21 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlockM = 64;   // query rows per block (16 per warp)
 constexpr int kBlockN = 64;   // key columns per KV step
-constexpr int kHeadDim = 64;
 constexpr int kThreads = 2 * kBlockM;  // two threads per query row
 constexpr int kSCols = kBlockN / 2;    // score columns per thread
-constexpr int kOCols = kHeadDim / 2;   // output columns per thread
-// Shared-memory row pitches: padded to spread banks, and kept multiples of
-// 16 bytes (vector copies) and of 32 bytes per 16 rows (WMMA pointers).
-constexpr int kLdT = kHeadDim + 8;
 constexpr int kLdP = kBlockN + 8;
-constexpr int kLdS = kBlockN + 4;
-static_assert(kHeadDim <= kLdS, "the score buffer also holds the PV tile");
 static_assert(kThreads == 2 * kBlockN, "half the threads load each scale row");
+// What depends on the head dim D (the dense entry takes 64 and 128, the
+// 8-bit and paged entries 64).  Shared-memory row pitches: padded to spread
+// banks, and kept multiples of 16 bytes (vector copies) and of 32 bytes per
+// 16 rows (WMMA pointers).
+template <int D>
+struct Dims {
+  static constexpr int kOCols = D / 2;  // output columns per thread
+  static constexpr int kLdT = D + 8;
+  // The score buffer also holds the step's PV tile, [64][D].
+  static constexpr int kLdS = (D > kBlockN ? D : kBlockN) + 4;
+};
 // Finite mask value (config.DEFAULT_MASK_VALUE): exp2(mask - mask) is never
 // NaN, and visibility is tested explicitly, so masked entries add nothing.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
@@ -129,19 +134,19 @@ __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-template <typename T>
+template <typename T, int D>
 struct Smem {
-  T q[kBlockM * kLdT];
-  T k[kBlockN * kLdT];
-  T v[kBlockN * kLdT];
-  T p[kBlockM * kLdP];      // probabilities times s_v, in q's type for PV
-  float s[kBlockM * kLdS];  // scores, then the PV product of the step
-  float sk[kBlockN];        // the step's K and V scales (8-bit caches)
+  T q[kBlockM * Dims<D>::kLdT];
+  T k[kBlockN * Dims<D>::kLdT];
+  T v[kBlockN * Dims<D>::kLdT];
+  T p[kBlockM * kLdP];               // probabilities times s_v, in q's type for PV
+  float s[kBlockM * Dims<D>::kLdS];  // scores, then the PV product of the step
+  float sk[kBlockN];                 // the step's K and V scales (8-bit caches)
   float sv[kBlockN];
 };
 
-// Where the KV cache lives.  Dense: k, v [B, H_kv, n_kv, 64] and scales
-// [B, H_kv, n_kv].  Paged: k, v [n_pages, H_kv, page, 64], scales
+// Where the KV cache lives.  Dense: k, v [B, H_kv, n_kv, D] and scales
+// [B, H_kv, n_kv].  Paged: k, v [n_pages, H_kv, page, D], scales
 // [n_pages, H_kv, page], table [B, max_pages], n_kv = max_pages * page.
 struct KvArgs {
   const void* k;
@@ -155,20 +160,20 @@ struct KvArgs {
   int n_pages;
 };
 
-// Copy `kRows` rows of head_dim elements (row pitch kHeadDim in global
-// memory) into shared memory with pitch kLdT; rows >= rows_valid are zero.
-template <typename T, int kRows>
+// Copy `kRows` rows of D elements (row pitch D in global memory) into
+// shared memory with pitch kLdT; rows >= rows_valid are zero.
+template <typename T, int kRows, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = kHeadDim / kVec;
+  constexpr int kVecPerRow = D / kVec;
   for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * kHeadDim + c);
+      val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
     }
-    *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * Dims<D>::kLdT + c) = val;
   }
 }
 
@@ -222,12 +227,13 @@ __device__ __forceinline__ size_t tile_row0(const KvArgs& kv, int b, int h_kv, i
 // computes, so each step's global loads overlap the products instead of
 // stalling them.  Each thread holds kChunks 16-byte chunks of each tile;
 // rows >= rows_valid are zero.
-template <typename T, typename KV>
+template <typename T, typename KV, int D>
 struct KvRegs {
   static constexpr bool kScaled = !std::is_same<KV, T>::value;
   using Stored = typename std::conditional<kScaled, uint8_t, T>::type;
   static constexpr int kVecElems = 16 / (int)sizeof(Stored);
-  static constexpr int kVecPerRow = kHeadDim / kVecElems;
+  static constexpr int kVecPerRow = D / kVecElems;
+  static constexpr int kLdT = Dims<D>::kLdT;
   static constexpr int kChunks = kBlockN * kVecPerRow / kThreads;
   static_assert(kChunks * kThreads == kBlockN * kVecPerRow, "whole chunks per thread");
   uint4 k[kChunks];
@@ -236,8 +242,8 @@ struct KvRegs {
   float scale;
 
   __device__ __forceinline__ void fetch(const KvArgs& kv, size_t row0, int rows_valid) {
-    const Stored* kb = static_cast<const Stored*>(kv.k) + row0 * kHeadDim;
-    const Stored* vb = static_cast<const Stored*>(kv.v) + row0 * kHeadDim;
+    const Stored* kb = static_cast<const Stored*>(kv.k) + row0 * D;
+    const Stored* vb = static_cast<const Stored*>(kv.v) + row0 * D;
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int idx = threadIdx.x + i * kThreads;
@@ -245,8 +251,8 @@ struct KvRegs {
       const int c = (idx % kVecPerRow) * kVecElems;
       k[i] = v[i] = make_uint4(0u, 0u, 0u, 0u);
       if (r < rows_valid) {
-        k[i] = *reinterpret_cast<const uint4*>(kb + (size_t)r * kHeadDim + c);
-        v[i] = *reinterpret_cast<const uint4*>(vb + (size_t)r * kHeadDim + c);
+        k[i] = *reinterpret_cast<const uint4*>(kb + (size_t)r * D + c);
+        v[i] = *reinterpret_cast<const uint4*>(vb + (size_t)r * D + c);
       }
     }
     if constexpr (kScaled) {
@@ -257,7 +263,7 @@ struct KvRegs {
   }
 
   // Write the tiles to shared memory, widening 8-bit ones to T.
-  __device__ __forceinline__ void stash(Smem<T>& sm) const {
+  __device__ __forceinline__ void stash(Smem<T, D>& sm) const {
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int idx = threadIdx.x + i * kThreads;
@@ -276,13 +282,15 @@ struct KvRegs {
 };
 
 // s[16 warp rows][kBlockN] = Q K^T on the tensor cores.
-__device__ __forceinline__ void qk_bf16(Smem<bf16>& sm, int warp) {
+template <int D>
+__device__ __forceinline__ void qk_bf16(Smem<bf16, D>& sm, int warp) {
   using namespace nvcuda;
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS;
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kBlockN / 16];
 #pragma unroll
   for (int n = 0; n < kBlockN / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim; kk += 16) {
+  for (int kk = 0; kk < D; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
     wmma::load_matrix_sync(a, sm.q + warp * 16 * kLdT + kk, kLdT);
 #pragma unroll
@@ -300,36 +308,40 @@ __device__ __forceinline__ void qk_bf16(Smem<bf16>& sm, int warp) {
   }
 }
 
-// s[16 warp rows][kHeadDim] = P V on the tensor cores.
-__device__ __forceinline__ void pv_bf16(Smem<bf16>& sm, int warp) {
+// s[16 warp rows][D] = P V on the tensor cores.
+template <int D>
+__device__ __forceinline__ void pv_bf16(Smem<bf16, D>& sm, int warp) {
   using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kHeadDim / 16];
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
 #pragma unroll
-  for (int n = 0; n < kHeadDim / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
 #pragma unroll
   for (int kk = 0; kk < kBlockN; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
     wmma::load_matrix_sync(a, sm.p + warp * 16 * kLdP + kk, kLdP);
 #pragma unroll
-    for (int n = 0; n < kHeadDim / 16; ++n) {
+    for (int n = 0; n < D / 16; ++n) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
       wmma::load_matrix_sync(b, sm.v + kk * kLdT + n * 16, kLdT);
       wmma::mma_sync(acc[n], a, b, acc[n]);
     }
   }
 #pragma unroll
-  for (int n = 0; n < kHeadDim / 16; ++n) {
+  for (int n = 0; n < D / 16; ++n) {
     wmma::store_matrix_sync(sm.s + warp * 16 * kLdS + n * 16, acc[n], kLdS,
                             wmma::mem_row_major);
   }
 }
 
 // fp32 products in IEEE FMA: each thread computes its own row's half.
-__device__ __forceinline__ void qk_f32(Smem<float>& sm, int r, int half) {
+template <int D>
+__device__ __forceinline__ void qk_f32(Smem<float, D>& sm, int r, int half) {
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS;
   float acc[kSCols];
 #pragma unroll
   for (int j = 0; j < kSCols; ++j) acc[j] = 0.0f;
-  for (int d = 0; d < kHeadDim; ++d) {
+  for (int d = 0; d < D; ++d) {
     const float qv = sm.q[r * kLdT + d];
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
@@ -340,7 +352,9 @@ __device__ __forceinline__ void qk_f32(Smem<float>& sm, int r, int half) {
   for (int j = 0; j < kSCols; ++j) sm.s[r * kLdS + half * kSCols + j] = acc[j];
 }
 
-__device__ __forceinline__ void pv_f32(Smem<float>& sm, int r, int half) {
+template <int D>
+__device__ __forceinline__ void pv_f32(Smem<float, D>& sm, int r, int half) {
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS, kOCols = Dims<D>::kOCols;
   float acc[kOCols];
 #pragma unroll
   for (int j = 0; j < kOCols; ++j) acc[j] = 0.0f;
@@ -357,15 +371,17 @@ __device__ __forceinline__ void pv_f32(Smem<float>& sm, int r, int half) {
 
 // T: q's type (bf16 or fp32).  KV: the cache's element type, T itself for a
 // bf16 / fp32 cache, int8_t / E4M3 / E5M2 for an 8-bit one (with scales).
-template <typename T, typename KV, bool kPaged>
+// D: the head dim.
+template <typename T, typename KV, bool kPaged, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
                     float* __restrict__ lse, int n_heads, int n_kv_heads,
                     int n_q, float scale_log2, int causal, int pos_div) {
   constexpr bool kScaled = !std::is_same<KV, T>::value;
+  constexpr int kLdS = Dims<D>::kLdS, kOCols = Dims<D>::kOCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<T>& sm = *reinterpret_cast<Smem<T>*>(smem_raw);
+  Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -394,9 +410,9 @@ __global__ void __launch_bounds__(kThreads)
   const int n_steps = tile_limit < 0 ? 0 : tile_limit / kBlockN + 1;
 
   // The first KV step's tiles are in flight while q is loaded.
-  KvRegs<T, KV> regs;
+  KvRegs<T, KV, D> regs;
   if (n_steps > 0) regs.fetch(kv, tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, 0), min(kBlockN, n_kv));
-  load_tile<T, kBlockM>(sm.q, q + (q_rows + q_start) * kHeadDim, rows_valid);
+  load_tile<T, kBlockM, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
 
   float o_acc[kOCols];
 #pragma unroll
@@ -472,7 +488,7 @@ __global__ void __launch_bounds__(kThreads)
 
   if (r < rows_valid) {
     const float inv_l = l_i > 0.0f ? 1.0f / l_i : 0.0f;
-    T* dst = o + (q_rows + row) * kHeadDim + half * kOCols;
+    T* dst = o + (q_rows + row) * D + half * kOCols;
 #pragma unroll
     for (int j = 0; j < kOCols; ++j) dst[j] = from_float<T>(o_acc[j] * inv_l);
     if (lse != nullptr && half == 0) {
@@ -481,12 +497,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename KV, bool kPaged>
+template <typename T, typename KV, bool kPaged, int D = 64>
 cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                    void* o, void* lse, int batch, int n_heads, int n_kv_heads,
                    int n_q, float sm_scale, int causal, int pos_div,
                    cudaStream_t stream) {
-  const int smem = (int)sizeof(Smem<T>);
+  const int smem = (int)sizeof(Smem<T, D>);
   // The dynamic shared-memory limit is raised once per kernel and device.
   static bool smem_set[kMaxDevices] = {};
   int dev = 0;
@@ -494,13 +510,13 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T, KV, kPaged><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, KV, kPaged, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
       sm_scale * kLog2e, causal, pos_div);
@@ -527,10 +543,8 @@ cudaError_t launch_8bit(int dtype, int kv_dtype, const void* q, const KvArgs& kv
   return cudaErrorInvalidValue;
 }
 
-bool bad_shape(int batch, int n_heads, int n_kv_heads, int n_q, int head_dim,
-               int pos_div) {
-  return head_dim != kHeadDim || pos_div < 1 || n_kv_heads < 1 ||
-         n_heads % n_kv_heads != 0 || batch < 1 || n_q < 1;
+bool bad_shape(int batch, int n_heads, int n_kv_heads, int n_q, int pos_div) {
+  return pos_div < 1 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 || batch < 1 || n_q < 1;
 }
 
 bool bad_pages(int n_pages, int page_size, int max_pages) {
@@ -541,29 +555,29 @@ bool bad_pages(int n_pages, int page_size, int max_pages) {
 
 // C entry points, bound with ctypes (kernels/flash_fwd.py, kernels/quant.py,
 // kernels/paged.py).  Pointers are device pointers of contiguous tensors;
-// q and o are [B, H, N_q, 64]; dtype is q's: 0 = bf16, 1 = fp32.  Each
+// q and o are [B, H, N_q, D]; dtype is q's: 0 = bf16, 1 = fp32.  Each
 // returns the launch's cudaError_t (0 on success).
 
-// Dense cache in q's type: k, v [B, H_kv, N, 64]; q_offset int32 [B] (read
-// only when causal); lse fp32 [B, H, N_q] or null.
+// Dense cache in q's type: k, v [B, H_kv, N, D], D = head_dim 64 or 128;
+// q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null.
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
                              int n_kv, int head_dim, float sm_scale,
                              int causal, int pos_div, int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) || n_kv < 1) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || n_kv < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch<bf16, bf16, false>(q, kv, q_offset, o, lse, batch, n_heads,
-                                          n_kv_heads, n_q, sm_scale, causal, pos_div, s);
-  }
-  if (dtype == 1) {
-    return (int)launch<float, float, false>(q, kv, q_offset, o, lse, batch, n_heads,
-                                            n_kv_heads, n_q, sm_scale, causal, pos_div, s);
-  }
+#define FAM_LAUNCH(T, D)                                                                 \
+  return (int)launch<T, T, false, D>(q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, \
+                                     n_q, sm_scale, causal, pos_div, s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -577,7 +591,7 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                int n_kv, int head_dim, float sm_scale,
                                int causal, int pos_div, int dtype,
                                int kv_dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) || n_kv < 1) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || head_dim != 64 || n_kv < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
@@ -597,7 +611,7 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
                                int n_pages, int page_size, int max_pages,
                                int head_dim, float sm_scale, int pos_div,
                                int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) ||
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || head_dim != 64 ||
       bad_pages(n_pages, page_size, max_pages)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -628,7 +642,7 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
                                      int page_size, int max_pages, int head_dim,
                                      float sm_scale, int pos_div, int dtype,
                                      int kv_dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, head_dim, pos_div) ||
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || head_dim != 64 ||
       bad_pages(n_pages, page_size, max_pages)) {
     return (int)cudaErrorInvalidValue;
   }

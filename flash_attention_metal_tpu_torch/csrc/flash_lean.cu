@@ -1,5 +1,5 @@
 // Single-KV-extent ("lean") forward attention for Hopper (sm_90a), bf16
-// and fp32.
+// and fp32, head dim 64 or 128.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel_lean,
 // the forward the router takes when the whole KV row fits one block
@@ -46,12 +46,18 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlockM = 16;   // query rows per block
 constexpr int kBlockN = 64;   // K/V rows per tile
-constexpr int kHeadDim = 64;
 constexpr int kThreads = 128;            // 4 warps
+constexpr int kWarps = kThreads / 32;
 constexpr int kSub = kThreads / kBlockM;  // threads per row outside the MMAs
 constexpr int kMaxKv = 1024;
-constexpr int kLdT = kHeadDim + 8;  // Q/K/V tile pitch (elements)
-constexpr int kLdO = kHeadDim + 4;  // fp32 output tile pitch
+// D, the head dim (64 or 128): Q/K/V tile pitch and fp32 output tile pitch
+// (elements).
+template <int D>
+struct Dims {
+  static constexpr int kLdT = D + 8;
+  static constexpr int kLdO = D + 4;
+  static constexpr int kOutFrags = D / 16 / kWarps;  // output fragments per warp
+};
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
@@ -59,18 +65,21 @@ constexpr int kMaxDevices = 64;
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~(size_t)127; }
 
 // Shared-memory layout for a score row of n_kv_pad (a multiple of 64)
-// columns.  bf16 keeps P in its own tile for the tensor cores; fp32 writes
-// P over the scores.  The bf16 output tile reuses the score tile.
+// columns and head dim d.  bf16 keeps P in its own tile for the tensor
+// cores; fp32 writes P over the scores.  The bf16 output tile reuses the
+// score tile, which is sized to hold it ([16][d + 4]) at short rows.
 struct Layout {
   int ld_s, ld_p;
   size_t q, kv, s, p, stats, total;
-  __host__ __device__ Layout(int n_kv_pad, int elem, bool separate_p) {
+  __host__ __device__ Layout(int n_kv_pad, int d, int elem, bool separate_p) {
     ld_s = n_kv_pad + 4;
     ld_p = n_kv_pad + 8;
+    const int ld_t = d + 8;
+    const int s_cols = ld_s > d + 4 ? ld_s : d + 4;
     q = 0;
-    kv = align128(q + (size_t)kBlockM * kLdT * elem);
-    s = align128(kv + (size_t)kBlockN * kLdT * elem);
-    p = align128(s + (size_t)kBlockM * ld_s * sizeof(float));
+    kv = align128(q + (size_t)kBlockM * ld_t * elem);
+    s = align128(kv + (size_t)kBlockN * ld_t * elem);
+    p = align128(s + (size_t)kBlockM * s_cols * sizeof(float));
     stats = align128(p + (separate_p ? (size_t)kBlockM * ld_p * elem : 0));
     total = stats + 2 * kBlockM * sizeof(float);
   }
@@ -85,24 +94,25 @@ __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Copy `kRows` rows of head_dim elements (row pitch kHeadDim in global
-// memory) into shared memory with pitch kLdT; rows >= rows_valid are zero.
-template <typename T, int kRows>
+// Copy `kRows` rows of D elements (row pitch D in global memory) into
+// shared memory with pitch kLdT; rows >= rows_valid are zero.
+template <typename T, int kRows, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = kHeadDim / kVec;
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int kLdT = Dims<D>::kLdT;
   for (int i = threadIdx.x; i < kRows * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * kHeadDim + c);
+      val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
     }
     *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_lean_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
@@ -111,9 +121,10 @@ __global__ void __launch_bounds__(kThreads)
                       int q_offset) {
   using namespace nvcuda;
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int kLdT = Dims<D>::kLdT, kLdO = Dims<D>::kLdO, kOutFrags = Dims<D>::kOutFrags;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int n_tiles = (n_kv + kBlockN - 1) / kBlockN;
-  const Layout lay(n_tiles * kBlockN, (int)sizeof(T), kBf16);
+  const Layout lay(n_tiles * kBlockN, D, (int)sizeof(T), kBf16);
   T* sq = reinterpret_cast<T*>(smem_raw + lay.q);
   T* skv = reinterpret_cast<T*>(smem_raw + lay.kv);
   float* ss = reinterpret_cast<float*>(smem_raw + lay.s);
@@ -137,19 +148,19 @@ __global__ void __launch_bounds__(kThreads)
   int n_visible = 0;
   if (r < rows_valid) n_visible = causal ? max(0, min(n_kv, row + q_offset + 1)) : n_kv;
 
-  load_tile<T, kBlockM>(sq, q + (q_rows + q_start) * kHeadDim, rows_valid);
+  load_tile<T, kBlockM, D>(sq, q + (q_rows + q_start) * D, rows_valid);
 
   // Pass 1: the score tile S = Q K^T, [16, n_kv], one K tile at a time.
   for (int t = 0; t < n_tiles; ++t) {
     const int c0 = t * kBlockN;
-    load_tile<T, kBlockN>(skv, k + (kv_rows + c0) * kHeadDim, min(kBlockN, n_kv - c0));
+    load_tile<T, kBlockN, D>(skv, k + (kv_rows + c0) * D, min(kBlockN, n_kv - c0));
     __syncthreads();
     if constexpr (kBf16) {
       // Warp w: the 16 x 16 block of columns c0 + 16w.
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.0f);
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim; kk += 16) {
+      for (int kk = 0; kk < D; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
         wmma::load_matrix_sync(fa, sq + kk, kLdT);
@@ -163,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
       float acc[kBlockN / kSub];
 #pragma unroll
       for (int j = 0; j < kBlockN / kSub; ++j) acc[j] = 0.0f;
-      for (int d = 0; d < kHeadDim; ++d) {
+      for (int d = 0; d < D; ++d) {
         const float qv = sq[r * kLdT + d];
 #pragma unroll
         for (int j = 0; j < kBlockN / kSub; ++j) {
@@ -209,34 +220,38 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // Pass 2: O = P V over 64-row V tiles.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_frag;
-  float o_reg[kHeadDim / kSub];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> o_frag[kOutFrags];
+  float o_reg[D / kSub];
   if constexpr (kBf16) {
-    wmma::fill_fragment(o_frag, 0.0f);
+#pragma unroll
+    for (int f = 0; f < kOutFrags; ++f) wmma::fill_fragment(o_frag[f], 0.0f);
   } else {
 #pragma unroll
-    for (int j = 0; j < kHeadDim / kSub; ++j) o_reg[j] = 0.0f;
+    for (int j = 0; j < D / kSub; ++j) o_reg[j] = 0.0f;
   }
   for (int t = 0; t < n_tiles; ++t) {
     const int c0 = t * kBlockN;
-    load_tile<T, kBlockN>(skv, v + (kv_rows + c0) * kHeadDim, min(kBlockN, n_kv - c0));
+    load_tile<T, kBlockN, D>(skv, v + (kv_rows + c0) * D, min(kBlockN, n_kv - c0));
     __syncthreads();
     if constexpr (kBf16) {
-      // Warp w: output columns 16w .. 16w + 15.
+      // Warp w: output columns 16 (w + 4 f) .. 16 (w + 4 f) + 15.
 #pragma unroll
       for (int kk = 0; kk < kBlockN; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
         wmma::load_matrix_sync(fa, sp + c0 + kk, lay.ld_p);
-        wmma::load_matrix_sync(fb, skv + kk * kLdT + warp * 16, kLdT);
-        wmma::mma_sync(o_frag, fa, fb, o_frag);
+#pragma unroll
+        for (int f = 0; f < kOutFrags; ++f) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+          wmma::load_matrix_sync(fb, skv + kk * kLdT + (warp + kWarps * f) * 16, kLdT);
+          wmma::mma_sync(o_frag[f], fa, fb, o_frag[f]);
+        }
       }
     } else {
       // Thread (r, sub): output columns sub, sub + 8, ...
       for (int c = 0; c < kBlockN; ++c) {
         const float p = ss[r * lay.ld_s + c0 + c];
 #pragma unroll
-        for (int j = 0; j < kHeadDim / kSub; ++j) {
+        for (int j = 0; j < D / kSub; ++j) {
           o_reg[j] = fmaf(p, skv[c * kLdT + sub + kSub * j], o_reg[j]);
         }
       }
@@ -245,25 +260,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if constexpr (kBf16) {
-    // The score tile is free now: stage the fp32 output through it.
-    wmma::store_matrix_sync(ss + warp * 16, o_frag, kLdO, wmma::mem_row_major);
+    // The score tile is free now: stage the fp32 output through it (the
+    // layout sizes it for [16][kLdO]).
+#pragma unroll
+    for (int f = 0; f < kOutFrags; ++f) {
+      wmma::store_matrix_sync(ss + (warp + kWarps * f) * 16, o_frag[f], kLdO, wmma::mem_row_major);
+    }
     __syncthreads();
 #pragma unroll
-    for (int j = 0; j < kHeadDim / kSub; ++j) o_reg[j] = ss[r * kLdO + sub + kSub * j];
+    for (int j = 0; j < D / kSub; ++j) o_reg[j] = ss[r * kLdO + sub + kSub * j];
   }
   if (r < rows_valid) {
     const float l = row_l[r];
     const float inv_l = l > 0.0f ? 1.0f / l : 0.0f;
-    T* dst = o + (q_rows + row) * kHeadDim;
+    T* dst = o + (q_rows + row) * D;
 #pragma unroll
-    for (int j = 0; j < kHeadDim / kSub; ++j) dst[sub + kSub * j] = from_float<T>(o_reg[j] * inv_l);
+    for (int j = 0; j < D / kSub; ++j) dst[sub + kSub * j] = from_float<T>(o_reg[j] * inv_l);
     if (lse != nullptr && sub == 0) {
       lse[q_rows + row] = l > 0.0f ? (row_m[r] + log2f(l)) * kLn2 : -INFINITY;
     }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                    int n_kv, float sm_scale, int causal, int q_offset,
@@ -277,16 +296,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_lean_kernel<T>,
+    err = cudaFuncSetAttribute(flash_lean_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Layout(kMaxKv, sizeof(T), kBf16).total);
+                               (int)Layout(kMaxKv, D, sizeof(T), kBf16).total);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const int n_kv_pad = (n_kv + kBlockN - 1) / kBlockN * kBlockN;
-  const size_t smem = Layout(n_kv_pad, sizeof(T), kBf16).total;
+  const size_t smem = Layout(n_kv_pad, D, sizeof(T), kBf16).total;
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_lean_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_lean_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       n_heads, n_kv_heads, n_q, n_kv, sm_scale * kLog2e, causal, q_offset);
@@ -296,8 +315,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry point, bound with ctypes (kernels/flash_fwd.py).  Pointers are
-// device pointers of contiguous tensors: q, o [B, H, N_q, 64]; k, v
-// [B, H_kv, N_kv, 64] with N_kv <= 1024; lse fp32 [B, H, N_q] or null.
+// device pointers of contiguous tensors: q, o [B, H, N_q, D]; k, v
+// [B, H_kv, N_kv, D] with N_kv <= 1024 and D = head_dim, 64 or 128; lse
+// fp32 [B, H, N_q] or null.
 // q_offset is read only when causal.  dtype: 0 = bf16, 1 = fp32.  Returns
 // the launch's cudaError_t (0 on success).
 extern "C" int fam_flash_lean(const void* q, const void* k, const void* v,
@@ -305,18 +325,18 @@ extern "C" int fam_flash_lean(const void* q, const void* k, const void* v,
                               int n_kv_heads, int n_q, int n_kv, int head_dim,
                               float sm_scale, int causal, int q_offset,
                               int dtype, void* stream) {
-  if (head_dim != kHeadDim || n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
-      batch < 1 || n_q < 1 || n_kv < 1 || n_kv > kMaxKv) {
+  if (n_kv_heads < 1 || n_heads % n_kv_heads != 0 || batch < 1 || n_q < 1 || n_kv < 1 ||
+      n_kv > kMaxKv) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch<bf16>(q, k, v, o, lse, batch, n_heads, n_kv_heads, n_q,
-                             n_kv, sm_scale, causal, q_offset, s);
-  }
-  if (dtype == 1) {
-    return (int)launch<float>(q, k, v, o, lse, batch, n_heads, n_kv_heads, n_q,
-                              n_kv, sm_scale, causal, q_offset, s);
-  }
+#define FAM_LAUNCH(T, D)                                                                     \
+  return (int)launch<T, D>(q, k, v, o, lse, batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale, \
+                           causal, q_offset, s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,765 @@
+// Block-sparse attention for Hopper (sm_90a), bf16 and fp32, head dim 64 or
+// 128: the forward, and the backward's dK/dV and dQ kernels.
+//
+// Replaces three Pallas kernels of
+// flash_attention_metal_tpu/kernels/flash_mask.py, each with its own entry:
+//   * _fwd_sparse_kernel (fam_flash_sparse_fwd): online softmax over each Q
+//     block's KV skip list, the mask applied elementwise on visited blocks;
+//   * _dkv_sparse_kernel (fam_flash_sparse_dkv): dK and dV per KV block over
+//     its transposed Q list;
+//   * _dq_sparse_kernel (fam_flash_sparse_dq): dQ per Q block over its KV
+//     list.
+//
+// The mask.  A Pallas kernel traces the mask predicate into its body; a CUDA
+// kernel cannot call it.  kernels/flash_mask.py::compile_tables evaluates it
+// once on the host at this file's 64 x 64 tile and hands the kernels:
+//   q_ptr [n_q_tiles + 1], q_list [nnz] of (KV tile, bits): Q tile i's
+//     visited pairs are entries q_ptr[i] .. q_ptr[i + 1] - 1, in KV order;
+//   kv_ptr [n_kv_tiles + 1], kv_list [nnz] of (Q tile, bits): the same pairs
+//     per KV tile, in Q order;
+//   bits -1 for a full pair, else the index of a 64 x 64 bit tile
+//     (bit_tiles [n_partial][64 rows][2 words]: bit c % 32 of word c / 32 of
+//     row r is element (r, c) of the pair, 1 = visible).  Elements past n_q
+//     or n_kv are 0, so ragged edge tiles are never full.
+// What the kernels read of the mask scales with the visited pairs: 16 bytes
+// a pair and 512 per partial one, no [N, N] mask.
+//
+// Contract, for batch b, q-head h (KV head h / group), row r, column c
+// visible when the mask says so:
+//   forward  o[r] = softmax_c(sm_scale q[r] . k[c]) V over the visible c;
+//            lse[r] (optional, natural log, fp32 [B, H, N_q]); a row that
+//            sees nothing gives o = 0 and lse = -inf.
+//   backward P[r,c] = exp(sm_scale q[r] . k[c] - lse[r]) on visible pairs,
+//            0 elsewhere (lse = -inf takes a 1e30 sentinel: P = 0);
+//            dS = P (dO V^T - delta), delta = rowsum(dO o O) (the wrapper's
+//            torch op); dV = sum over the group of P^T dO, dK = sm_scale
+//            sum over the group of dS^T Q (fp32 sums, one store, in k's
+//            type), dQ = sm_scale dS K.  The Pallas backward takes equal
+//            heads (its op repeats K/V and sums the group after in the
+//            input type); GQA is native here, as in flash_bwd.cu.
+// Softmax statistics and products accumulate in fp32; P and dS enter the
+// bf16 products rounded to bf16; fp32 inputs use IEEE FMA, never TF32.
+//
+// What bounds it on the H100.  Per visited pair a head does 4 * D flops per
+// visible element in the forward, 8 * D in dK/dV and 6 * D in dQ, against
+// its Q, K and V tiles read once: at the sparse training shape (B4 H16/8
+// N2048 D64, 34% of elements visible) the forward's 23.6 GFLOP against
+// 51 MB put it on the tensor cores' side of the roofline, as dense
+// attention (roofline.block_sparse_work).
+//
+// What the design does about it.
+//   * One block per (Q tile, head, batch) walks that tile's list only: empty
+//     pairs cost neither bytes nor products (the Pallas grid's elided DMA).
+//   * A thread's half row is one 32-bit word of the pair's bit tile, read
+//     from device memory once per pair: no shared memory for the mask, and a
+//     full pair reads nothing.
+//   * dK/dV: one block per (KV tile, KV head, batch) walks the group's
+//     q-heads and the tile's transposed list, accumulating in fp32 WMMA
+//     fragments (bf16) or registers (fp32), one store: deterministic, no
+//     atomics.  dQ: one block per (Q tile, head, batch) walks the KV list
+//     again, so every output has one owner.
+//   * bf16 products on the tensor cores through WMMA 16x16x16; fp32 P and dS
+//     are written over the scores they come from (the fp32 tiles at D = 128
+//     would not fit 227 KB otherwise).
+// Not yet done: wgmma, TMA and a copy pipeline; a split-Q dK/dV walk for
+// KV tiles with long lists.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace nvcuda;
+
+constexpr int kTile = 64;              // rows of a Q tile and of a KV tile
+constexpr int kThreads = 2 * kTile;    // two threads per tile row, 4 warps
+constexpr int kHalf = kTile / 2;       // score columns per thread
+constexpr int kBitWords = kTile / 32;  // words per row of a bit tile
+static_assert(kBitWords == 2, "a thread's half row is one word of its bit-tile row");
+// Finite mask value (config.DEFAULT_MASK_VALUE): exp2(mask - mask) is never
+// NaN, and visibility is tested explicitly, so masked entries add nothing.
+constexpr float kMaskValue = -0.7f * FLT_MAX;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kLseSentinel = 1e30f;
+constexpr int kMaxDevices = 64;
+
+// Pitches for input type T and head dim D.  Padded to spread banks, and
+// multiples of 16 bytes (vector copies) and of 32 bytes per 16 rows (WMMA).
+template <typename T, int D>
+struct Cfg {
+  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr int kLdT = D + 8;                        // Q, K, V, dO tiles
+  static constexpr int kLdS = (D > kTile ? D : kTile) + 4;  // fp32 scores, staged outputs
+  // P and dS: their own tile in bf16, the scores' in fp32 (written over them).
+  static constexpr int kLdX = kBf16 ? kTile + 8 : kLdS;
+  static constexpr int kOut = D / 2;  // output columns per thread
+};
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_float<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Copy `rows_valid` rows of D elements (row pitch D in global memory) into
+// a [64][kLdT] shared tile; the other rows are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int kLdT = Cfg<T, D>::kLdT;
+  for (int i = threadIdx.x; i < kTile * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * kVec;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
+    *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
+  }
+}
+
+// This thread's word of a visited pair's bit tile: bit j is column
+// half * 32 + j of tile row r.  A full pair (bits < 0) sees every column.
+__device__ __forceinline__ uint32_t visible_word(const uint32_t* __restrict__ bit_tiles,
+                                                 int bits, int r, int half) {
+  return bits < 0 ? 0xffffffffu : bit_tiles[((size_t)bits * kTile + r) * kBitWords + half];
+}
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+
+// out[warp's 16 rows][64] = A B^T over D on the tensor cores: A and B are
+// [64][kLdT] tiles (Q K^T, dO V^T).
+template <int D>
+__device__ __forceinline__ void mm_abt_bf16(const bf16* a, const bf16* b, float* out, int warp) {
+  constexpr int kLdT = Cfg<bf16, D>::kLdT, kLdS = Cfg<bf16, D>::kLdS;
+  Acc acc[kTile / 16];
+#pragma unroll
+  for (int n = 0; n < kTile / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    FragA fa;
+    wmma::load_matrix_sync(fa, a + warp * 16 * kLdT + kk, kLdT);
+#pragma unroll
+    for (int n = 0; n < kTile / 16; ++n) {
+      // B^T as a column-major operand: element (d, c) sits at b[c][d].
+      FragBT fb;
+      wmma::load_matrix_sync(fb, b + n * 16 * kLdT + kk, kLdT);
+      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kTile / 16; ++n) {
+    wmma::store_matrix_sync(out + warp * 16 * kLdS + n * 16, acc[n], kLdS, wmma::mem_row_major);
+  }
+}
+
+// acc += X[warp's 16 rows][64] . Y: X is [64][kLdX] (P, dS), Y [64][kLdT]
+// (V, K).  O += P V and dQ += dS K.
+template <int D>
+__device__ __forceinline__ void mma_ab_bf16(Acc (&acc)[D / 16], const bf16* x, const bf16* y,
+                                            int warp) {
+  constexpr int kLdT = Cfg<bf16, D>::kLdT, kLdX = Cfg<bf16, D>::kLdX;
+#pragma unroll
+  for (int kk = 0; kk < kTile; kk += 16) {
+    FragA fa;
+    wmma::load_matrix_sync(fa, x + warp * 16 * kLdX + kk, kLdX);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      FragB fb;
+      wmma::load_matrix_sync(fb, y + kk * kLdT + n * 16, kLdT);
+      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    }
+  }
+}
+
+// acc += X^T[warp's 16 columns of X][64] . Y: X is [64 q][kLdX] (P, dS), Y
+// [64 q][kLdT] (dO, Q).  dV += P^T dO and dK += dS^T Q.
+template <int D>
+__device__ __forceinline__ void mma_atb_bf16(Acc (&acc)[D / 16], const bf16* x, const bf16* y,
+                                             int warp) {
+  constexpr int kLdT = Cfg<bf16, D>::kLdT, kLdX = Cfg<bf16, D>::kLdX;
+#pragma unroll
+  for (int kk = 0; kk < kTile; kk += 16) {
+    // X^T as a column-major operand: element (c, r) sits at x[r][c].
+    FragAT fa;
+    wmma::load_matrix_sync(fa, x + kk * kLdX + warp * 16, kLdX);
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      FragB fb;
+      wmma::load_matrix_sync(fb, y + kk * kLdT + n * 16, kLdT);
+      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    }
+  }
+}
+
+// The warp's 16 rows of a [64][D] accumulator into a [64][kLdS] fp32 tile.
+template <int D>
+__device__ __forceinline__ void store_acc(float* out, Acc (&acc)[D / 16], int warp) {
+  constexpr int kLdS = Cfg<bf16, D>::kLdS;
+#pragma unroll
+  for (int n = 0; n < D / 16; ++n) {
+    wmma::store_matrix_sync(out + warp * 16 * kLdS + n * 16, acc[n], kLdS, wmma::mem_row_major);
+  }
+}
+
+// fp32 products in IEEE FMA; thread (r, half) owns half of tile row r.
+// out[r][half's 32 columns] = A[r][:] . B[those columns][:] over D.
+template <int D>
+__device__ __forceinline__ void mm_abt_f32(const float* a, const float* b, float* out, int r,
+                                           int half) {
+  constexpr int kLdT = Cfg<float, D>::kLdT, kLdS = Cfg<float, D>::kLdS;
+  float acc[kHalf];
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    const float av = a[r * kLdT + d];
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) acc[j] = fmaf(av, b[(half * kHalf + j) * kLdT + d], acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) out[r * kLdS + half * kHalf + j] = acc[j];
+}
+
+// acc[j] += sum_c X[r][c] Y[c][half * D/2 + j]   (P V, dS K)
+template <int D>
+__device__ __forceinline__ void mma_ab_f32(float (&acc)[D / 2], const float* x, const float* y,
+                                           int r, int half) {
+  constexpr int kLdT = Cfg<float, D>::kLdT, kLdX = Cfg<float, D>::kLdX;
+  for (int c = 0; c < kTile; ++c) {
+    const float xv = x[r * kLdX + c];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = fmaf(xv, y[c * kLdT + half * (D / 2) + j], acc[j]);
+  }
+}
+
+// acc[j] += sum_i X[i][c] Y[i][half * D/2 + j]   (P^T dO, dS^T Q; c: this
+// thread's KV row)
+template <int D>
+__device__ __forceinline__ void mma_atb_f32(float (&acc)[D / 2], const float* x, const float* y,
+                                            int c, int half) {
+  constexpr int kLdT = Cfg<float, D>::kLdT, kLdX = Cfg<float, D>::kLdX;
+  for (int i = 0; i < kTile; ++i) {
+    const float xv = x[i * kLdX + c];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) acc[j] = fmaf(xv, y[i * kLdT + half * (D / 2) + j], acc[j]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward.
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct FwdSmem {
+  using C = Cfg<T, D>;
+  T q[kTile * C::kLdT];
+  T k[kTile * C::kLdT];
+  T v[kTile * C::kLdT];
+  float s[kTile * C::kLdS];             // scores (P over them in fp32), then P V (bf16)
+  T p[C::kBf16 ? kTile * C::kLdX : 1];  // P for the tensor cores (bf16)
+};
+
+// One block per (Q tile, q-head, batch) over the tile's KV list.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                      const int* __restrict__ q_ptr, const int2* __restrict__ q_list,
+                      const uint32_t* __restrict__ bit_tiles, int n_heads, int n_kv_heads,
+                      int n_q, int n_kv, float scale_log2) {
+  using C = Cfg<T, D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  FwdSmem<T, D>& sm = *reinterpret_cast<FwdSmem<T, D>*>(smem_raw);
+  T* p = C::kBf16 ? sm.p : reinterpret_cast<T*>(sm.s);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int r = tid >> 1;    // this thread's row of the tile
+  const int half = tid & 1;  // which half of the row's columns it owns
+  const int q_start = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int h_kv = h / (n_heads / n_kv_heads);
+  const size_t q_rows = ((size_t)b * n_heads + h) * n_q;
+  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
+  const int rows_valid = min(kTile, n_q - q_start);
+  const int first = q_ptr[blockIdx.x];
+  const int last = q_ptr[blockIdx.x + 1];
+
+  load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+
+  float o_acc[C::kOut];
+#pragma unroll
+  for (int j = 0; j < C::kOut; ++j) o_acc[j] = 0.0f;
+  float m_i = -INFINITY;  // running max, log2 units
+  float l_i = 0.0f;       // running sum of exp2(s - m_i)
+
+  for (int e = first; e < last; ++e) {  // the Q tile's KV list
+    const int2 entry = q_list[e];
+    const int kv_start = entry.x * kTile;
+    const int cols_valid = min(kTile, n_kv - kv_start);
+    load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+    const uint32_t word = visible_word(bit_tiles, entry.y, r, half);
+    __syncthreads();
+
+    if constexpr (C::kBf16) {
+      mm_abt_bf16<D>(sm.q, sm.k, sm.s, warp);
+    } else {
+      mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
+    }
+    __syncthreads();
+
+    // Online softmax over this thread's half row; the pair of threads that
+    // share a row are lanes 2i and 2i+1 of one warp.
+    float s_reg[kHalf];
+    float step_max = kMaskValue;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const float x = (word >> j) & 1u ? sm.s[r * C::kLdS + half * kHalf + j] * scale_log2
+                                       : kMaskValue;
+      s_reg[j] = x;
+      step_max = fmaxf(step_max, x);
+    }
+    step_max = fmaxf(step_max, __shfl_xor_sync(0xffffffffu, step_max, 1));
+    const float m_new = fmaxf(m_i, step_max);
+    const float alpha = exp2f(m_i - m_new);  // 0 on the first pair
+    float row_sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kHalf; ++j) {
+      const float pj = (word >> j) & 1u ? exp2f(s_reg[j] - m_new) : 0.0f;
+      row_sum += pj;
+      p[r * C::kLdX + half * kHalf + j] = from_float<T>(pj);
+    }
+    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
+    l_i = l_i * alpha + row_sum;
+    m_i = m_new;
+    __syncthreads();
+
+    if constexpr (C::kBf16) {
+      Acc acc[D / 16];
+#pragma unroll
+      for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+      mma_ab_bf16<D>(acc, sm.p, sm.v, warp);
+      store_acc<D>(sm.s, acc, warp);
+#pragma unroll
+      for (int j = 0; j < C::kOut; ++j) o_acc[j] *= alpha;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < C::kOut; ++j) o_acc[j] += sm.s[r * C::kLdS + half * C::kOut + j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < C::kOut; ++j) o_acc[j] *= alpha;
+      mma_ab_f32<D>(o_acc, p, sm.v, r, half);
+    }
+    // The next pair's loads overwrite k and v; its first write to s comes
+    // after the barrier that follows them.
+    __syncthreads();
+  }
+
+  if (r < rows_valid) {
+    const float inv_l = l_i > 0.0f ? 1.0f / l_i : 0.0f;
+    T* dst = o + (q_rows + q_start + r) * D + half * C::kOut;
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) dst[j] = from_float<T>(o_acc[j] * inv_l);
+    if (lse != nullptr && half == 0) {
+      lse[q_rows + q_start + r] = l_i > 0.0f ? (m_i + log2f(l_i)) * kLn2 : -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward.
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+struct BwdSmem {
+  using C = Cfg<T, D>;
+  T q[kTile * C::kLdT];
+  T k[kTile * C::kLdT];
+  T v[kTile * C::kLdT];
+  T dout[kTile * C::kLdT];
+  float s[kTile * C::kLdS];   // scores (P over them in fp32); dK or dQ staged (bf16)
+  float dp[kTile * C::kLdS];  // dO V^T (dS over it in fp32); dV staged (bf16)
+  float lse2[kTile];          // row lse in log2 units, sentinel-guarded
+  float delta[kTile];
+  T p[C::kBf16 ? kTile * C::kLdX : 1];   // P for the tensor cores (bf16)
+  T ds[C::kBf16 ? kTile * C::kLdX : 1];  // dS for the tensor cores (bf16)
+};
+
+// The Q tile's lse (log2 units) and delta; padding rows get the sentinel.
+template <typename T, int D>
+__device__ __forceinline__ void load_rows(BwdSmem<T, D>& sm, const float* lse,
+                                          const float* delta, int rows_valid) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) {
+    float l = kLseSentinel, d = 0.0f;
+    if (i < rows_valid) {
+      const float x = lse[i];
+      l = x == -INFINITY ? kLseSentinel : x;
+      d = delta[i];
+    }
+    sm.lse2[i] = l * kLog2e;
+    sm.delta[i] = d;
+  }
+}
+
+// P and dS of one visited pair for this thread's half row, from the scores
+// in s and dO V^T in dp; invisible elements get 0.
+template <typename T, int D>
+__device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, T* p, T* ds, int r, int half,
+                                             uint32_t word, float scale_log2) {
+  using C = Cfg<T, D>;
+  const float lse2 = sm.lse2[r];
+  const float delta = sm.delta[r];
+#pragma unroll
+  for (int j = 0; j < kHalf; ++j) {
+    const int c = half * kHalf + j;
+    const float pj = (word >> j) & 1u ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;
+    const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
+    p[r * C::kLdX + c] = from_float<T>(pj);
+    ds[r * C::kLdX + c] = from_float<T>(dsj);
+  }
+}
+
+// S = Q K^T into s and dP = dO V^T into dp.
+template <typename T, int D>
+__device__ __forceinline__ void scores(BwdSmem<T, D>& sm, int warp, int r, int half) {
+  if constexpr (Cfg<T, D>::kBf16) {
+    mm_abt_bf16<D>(sm.q, sm.k, sm.s, warp);
+    mm_abt_bf16<D>(sm.dout, sm.v, sm.dp, warp);
+  } else {
+    mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
+    mm_abt_f32<D>(sm.dout, sm.v, sm.dp, r, half);
+  }
+}
+
+// One block per (KV tile j, KV head, batch): dK and dV of the tile over the
+// group's q-heads and the tile's transposed list.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ kv_ptr,
+                      const int2* __restrict__ kv_list, const uint32_t* __restrict__ bit_tiles,
+                      int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
+                      float scale_log2) {
+  using C = Cfg<T, D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BwdSmem<T, D>& sm = *reinterpret_cast<BwdSmem<T, D>*>(smem_raw);
+  T* p = C::kBf16 ? sm.p : reinterpret_cast<T*>(sm.s);
+  T* ds = C::kBf16 ? sm.ds : reinterpret_cast<T*>(sm.dp);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int r = tid >> 1;    // tile row: a Q row in the walk, a KV row at the store
+  const int half = tid & 1;  // which half of the row's columns it owns
+  const int kv_start = blockIdx.x * kTile;
+  const int h_kv = blockIdx.y;
+  const int b = blockIdx.z;
+  const int group = n_heads / n_kv_heads;
+  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
+  const int cols_valid = min(kTile, n_kv - kv_start);
+  const int first = kv_ptr[blockIdx.x];
+  const int last = kv_ptr[blockIdx.x + 1];
+
+  load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+  load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+
+  Acc dk_acc[D / 16], dv_acc[D / 16];
+  float dk_reg[C::kOut], dv_reg[C::kOut];
+  if constexpr (C::kBf16) {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      wmma::fill_fragment(dk_acc[n], 0.0f);
+      wmma::fill_fragment(dv_acc[n], 0.0f);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) dk_reg[j] = dv_reg[j] = 0.0f;
+  }
+
+  for (int g = 0; g < group; ++g) {
+    const size_t q_rows = ((size_t)b * n_heads + h_kv * group + g) * n_q;
+    for (int e = first; e < last; ++e) {  // the transposed Q list
+      const int2 entry = kv_list[e];
+      const int q_start = entry.x * kTile;
+      const int rows_valid = min(kTile, n_q - q_start);
+      load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+      load_tile<T, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
+      load_rows(sm, lse + q_rows + q_start, delta + q_rows + q_start, rows_valid);
+      const uint32_t word = visible_word(bit_tiles, entry.y, r, half);
+      __syncthreads();
+
+      scores(sm, warp, r, half);
+      __syncthreads();
+
+      softmax_grad(sm, p, ds, r, half, word, scale_log2);
+      __syncthreads();
+
+      if constexpr (C::kBf16) {
+        mma_atb_bf16<D>(dv_acc, p, sm.dout, warp);
+        mma_atb_bf16<D>(dk_acc, ds, sm.q, warp);
+      } else {
+        mma_atb_f32<D>(dv_reg, p, sm.dout, r, half);
+        mma_atb_f32<D>(dk_reg, ds, sm.q, r, half);
+      }
+      // The next pair's loads overwrite q, dout, lse2 and delta.
+      __syncthreads();
+    }
+  }
+
+  if constexpr (C::kBf16) {
+    // Warp w holds KV rows 16w..16w+15; thread (r, half) stores row r.
+    store_acc<D>(sm.s, dk_acc, warp);
+    store_acc<D>(sm.dp, dv_acc, warp);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) {
+      dk_reg[j] = sm.s[r * C::kLdS + half * C::kOut + j];
+      dv_reg[j] = sm.dp[r * C::kLdS + half * C::kOut + j];
+    }
+  }
+  if (r < cols_valid) {
+    const size_t at = (kv_rows + kv_start + r) * D + half * C::kOut;
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) {
+      dk[at + j] = from_float<T>(dk_reg[j] * sm_scale);
+      dv[at + j] = from_float<T>(dv_reg[j]);
+    }
+  }
+}
+
+// One block per (Q tile i, q-head, batch): dQ of the tile over its KV list.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dq, const int* __restrict__ q_ptr,
+                     const int2* __restrict__ q_list, const uint32_t* __restrict__ bit_tiles,
+                     int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
+                     float scale_log2) {
+  using C = Cfg<T, D>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  BwdSmem<T, D>& sm = *reinterpret_cast<BwdSmem<T, D>*>(smem_raw);
+  T* p = C::kBf16 ? sm.p : reinterpret_cast<T*>(sm.s);
+  T* ds = C::kBf16 ? sm.ds : reinterpret_cast<T*>(sm.dp);
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int r = tid >> 1;
+  const int half = tid & 1;
+  const int q_start = blockIdx.x * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int h_kv = h / (n_heads / n_kv_heads);
+  const size_t q_rows = ((size_t)b * n_heads + h) * n_q;
+  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
+  const int rows_valid = min(kTile, n_q - q_start);
+  const int first = q_ptr[blockIdx.x];
+  const int last = q_ptr[blockIdx.x + 1];
+
+  load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+  load_tile<T, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
+  load_rows(sm, lse + q_rows + q_start, delta + q_rows + q_start, rows_valid);
+
+  Acc dq_acc[D / 16];
+  float dq_reg[C::kOut];
+  if constexpr (C::kBf16) {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.0f);
+  } else {
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) dq_reg[j] = 0.0f;
+  }
+
+  for (int e = first; e < last; ++e) {  // the KV list again
+    const int2 entry = q_list[e];
+    const int kv_start = entry.x * kTile;
+    const int cols_valid = min(kTile, n_kv - kv_start);
+    load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+    const uint32_t word = visible_word(bit_tiles, entry.y, r, half);
+    __syncthreads();
+
+    scores(sm, warp, r, half);
+    __syncthreads();
+
+    softmax_grad(sm, p, ds, r, half, word, scale_log2);
+    __syncthreads();
+
+    if constexpr (C::kBf16) {
+      mma_ab_bf16<D>(dq_acc, ds, sm.k, warp);
+    } else {
+      mma_ab_f32<D>(dq_reg, ds, sm.k, r, half);
+    }
+    // The next pair's loads overwrite k and v.
+    __syncthreads();
+  }
+
+  if constexpr (C::kBf16) {
+    store_acc<D>(sm.s, dq_acc, warp);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) dq_reg[j] = sm.s[r * C::kLdS + half * C::kOut + j];
+  }
+  if (r < rows_valid) {
+    T* dst = dq + (q_rows + q_start + r) * D + half * C::kOut;
+#pragma unroll
+    for (int j = 0; j < C::kOut; ++j) dst[j] = from_float<T>(dq_reg[j] * sm_scale);
+  }
+}
+
+// Raise a kernel's dynamic shared-memory limit once per device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+// The shapes every entry takes: the arguments the launchers share.
+struct Shape {
+  int batch, n_heads, n_kv_heads, n_q, n_kv;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                       const void* q_ptr, const void* q_list, const void* bits,
+                       const Shape& s) {
+  static bool done[kMaxDevices] = {};
+  const int smem = (int)sizeof(FwdSmem<T, D>);
+  cudaError_t err = allow_smem(sparse_fwd_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.n_q + kTile - 1) / kTile, s.n_heads, s.batch);
+  sparse_fwd_kernel<T, D><<<grid, kThreads, smem, s.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), static_cast<const int*>(q_ptr),
+      static_cast<const int2*>(q_list), static_cast<const uint32_t*>(bits), s.n_heads,
+      s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv,
+                       const void* kv_ptr, const void* kv_list, const void* bits,
+                       const Shape& s) {
+  static bool done[kMaxDevices] = {};
+  const int smem = (int)sizeof(BwdSmem<T, D>);
+  cudaError_t err = allow_smem(sparse_dkv_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.n_kv + kTile - 1) / kTile, s.n_kv_heads, s.batch);
+  sparse_dkv_kernel<T, D><<<grid, kThreads, smem, s.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const int*>(kv_ptr), static_cast<const int2*>(kv_list),
+      static_cast<const uint32_t*>(bits), s.n_heads, s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale,
+      s.sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, const void* q_ptr,
+                      const void* q_list, const void* bits, const Shape& s) {
+  static bool done[kMaxDevices] = {};
+  const int smem = (int)sizeof(BwdSmem<T, D>);
+  cudaError_t err = allow_smem(sparse_dq_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s.n_q + kTile - 1) / kTile, s.n_heads, s.batch);
+  sparse_dq_kernel<T, D><<<grid, kThreads, smem, s.stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<const int*>(q_ptr),
+      static_cast<const int2*>(q_list), static_cast<const uint32_t*>(bits), s.n_heads,
+      s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale, s.sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
+bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_dim, int dtype) {
+  return (head_dim == 64 || head_dim == 128) && (dtype == 0 || dtype == 1) && batch >= 1 &&
+         batch <= 65535 && n_kv_heads >= 1 && n_heads % n_kv_heads == 0 && n_heads <= 65535 &&
+         n_q >= 1 && n_kv >= 1;
+}
+
+}  // namespace
+
+// Dispatch on (dtype, head_dim): dtype 0 = bf16, 1 = fp32; head_dim 64 or 128.
+#define FAM_SPARSE_DISPATCH(LAUNCH, ...)                                                   \
+  if (dtype == 0 && head_dim == 64) return (int)LAUNCH<bf16, 64>(__VA_ARGS__);             \
+  if (dtype == 0 && head_dim == 128) return (int)LAUNCH<bf16, 128>(__VA_ARGS__);           \
+  if (dtype == 1 && head_dim == 64) return (int)LAUNCH<float, 64>(__VA_ARGS__);            \
+  return (int)LAUNCH<float, 128>(__VA_ARGS__)
+
+// C entry points, bound with ctypes (kernels/flash_mask.py).  Pointers are
+// device pointers of contiguous tensors: q, dout, o, dq [B, H, N_q, D]; k, v,
+// dk, dv [B, H_kv, N_kv, D]; lse, delta fp32 [B, H, N_q] (the forward's lse
+// may be null); the mask's tables as compile_tables makes them (int32; each
+// list entry two ints; bit tiles [n_partial, 64, 2] words).  Each returns
+// the launch's cudaError_t (0 on success).
+extern "C" int fam_flash_sparse_fwd(const void* q, const void* k, const void* v, void* o,
+                                    void* lse, const void* q_ptr, const void* q_list,
+                                    const void* bits, int batch, int n_heads, int n_kv_heads,
+                                    int n_q, int n_kv, int head_dim, float sm_scale, int dtype,
+                                    void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Shape s{batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                static_cast<cudaStream_t>(stream)};
+  FAM_SPARSE_DISPATCH(launch_fwd, q, k, v, o, lse, q_ptr, q_list, bits, s);
+}
+
+extern "C" int fam_flash_sparse_dkv(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dk, void* dv, const void* kv_ptr, const void* kv_list,
+                                    const void* bits, int batch, int n_heads, int n_kv_heads,
+                                    int n_q, int n_kv, int head_dim, float sm_scale, int dtype,
+                                    void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Shape s{batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                static_cast<cudaStream_t>(stream)};
+  FAM_SPARSE_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, kv_ptr, kv_list, bits, s);
+}
+
+extern "C" int fam_flash_sparse_dq(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   void* dq, const void* q_ptr, const void* q_list,
+                                   const void* bits, int batch, int n_heads, int n_kv_heads,
+                                   int n_q, int n_kv, int head_dim, float sm_scale, int dtype,
+                                   void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Shape s{batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                static_cast<cudaStream_t>(stream)};
+  FAM_SPARSE_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, q_ptr, q_list, bits, s);
+}

@@ -1,5 +1,6 @@
 // Triangular causal attention for Hopper (sm_90a), bf16 and fp32: the
-// forward and the fused backward, both with a static causal offset.
+// forward (head dim 64 or 128) and the fused backward (head dim 64), both
+// with a static causal offset.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_tri.py::_tri_kernel
 // (forward) and ::_tri_bwd_kernel (backward), the JAX routers' default for
@@ -79,10 +80,18 @@ using dq_slots::kTileElems;
 using dq_slots::last_visible;
 using dq_slots::visible_kv_tiles;
 // Shared-memory row pitches: padded to spread banks, multiples of 16 bytes
-// (vector copies) and of 32 bytes per 16 rows (WMMA pointers).
-constexpr int kLdT = kHeadDim + 8;
+// (vector copies) and of 32 bytes per 16 rows (WMMA pointers).  The forward
+// also takes head dim D = 128: pitches at head dim D, the score buffer
+// holding the step's [64][D] PV tile.  The backward is built for kHeadDim.
+template <int D>
+struct Dims {
+  static constexpr int kLdT = D + 8;
+  static constexpr int kLdS = (D > kBlockN ? D : kBlockN) + 4;
+  static constexpr int kOut = D / 2;  // output columns per thread
+};
+constexpr int kLdT = Dims<kHeadDim>::kLdT;
 constexpr int kLdP = kBlockN + 8;
-constexpr int kLdS = kBlockN + 4;
+constexpr int kLdS = Dims<kHeadDim>::kLdS;
 // Finite mask value (config.DEFAULT_MASK_VALUE): exp2(mask - mask) is never
 // NaN, and visibility is tested explicitly, so masked entries add nothing.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
@@ -102,18 +111,19 @@ __device__ __forceinline__ bf16 from_float<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Copy `rows_valid` rows of head_dim elements (row pitch kHeadDim in global
-// memory) into a [64][kLdT] shared tile; the other rows are zero.
-template <typename T>
+// Copy `rows_valid` rows of D elements (row pitch D in global memory) into
+// a [64][Dims<D>::kLdT] shared tile; the other rows are zero.
+template <typename T, int D = kHeadDim>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = kHeadDim / kVec;
+  constexpr int kVecPerRow = D / kVec;
+  constexpr int kLdT = Dims<D>::kLdT;
   for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)r * kHeadDim + c);
+      val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
     }
     *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
   }
@@ -121,15 +131,17 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) 
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// out[warp's 16 rows][64] = A[rows][:] . B[:][:]^T on the tensor cores;
-// A and B are [64][kLdT] tiles (Q K^T, dO V^T).
+// out[warp's 16 rows][64] = A[rows][:] . B[:][:]^T over D on the tensor
+// cores; A and B are [64][kLdT] tiles (Q K^T, dO V^T).
+template <int D = kHeadDim>
 __device__ __forceinline__ void mm_abt_bf16(const bf16* a, const bf16* b,
                                             float* out, int warp) {
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS;
   Acc acc[kBlockN / 16];
 #pragma unroll
   for (int n = 0; n < kBlockN / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim; kk += 16) {
+  for (int kk = 0; kk < D; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
     wmma::load_matrix_sync(fa, a + warp * 16 * kLdT + kk, kLdT);
 #pragma unroll
@@ -147,25 +159,27 @@ __device__ __forceinline__ void mm_abt_bf16(const bf16* a, const bf16* b,
   }
 }
 
-// s[16 warp rows][kHeadDim] = P V on the tensor cores (the forward).
+// s[16 warp rows][D] = P V on the tensor cores (the forward).
+template <int D>
 __device__ __forceinline__ void pv_bf16(const bf16* p, const bf16* v, float* out,
                                         int warp) {
-  Acc acc[kHeadDim / 16];
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS;
+  Acc acc[D / 16];
 #pragma unroll
-  for (int n = 0; n < kHeadDim / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
 #pragma unroll
   for (int kk = 0; kk < kBlockN; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
     wmma::load_matrix_sync(fa, p + warp * 16 * kLdP + kk, kLdP);
 #pragma unroll
-    for (int n = 0; n < kHeadDim / 16; ++n) {
+    for (int n = 0; n < D / 16; ++n) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
       wmma::load_matrix_sync(fb, v + kk * kLdT + n * 16, kLdT);
       wmma::mma_sync(acc[n], fa, fb, acc[n]);
     }
   }
 #pragma unroll
-  for (int n = 0; n < kHeadDim / 16; ++n) {
+  for (int n = 0; n < D / 16; ++n) {
     wmma::store_matrix_sync(out + warp * 16 * kLdS + n * 16, acc[n], kLdS,
                             wmma::mem_row_major);
   }
@@ -209,13 +223,15 @@ __device__ __forceinline__ void mma_ab_bf16(Acc (&acc)[kHeadDim / 16],
 }
 
 // fp32 products in IEEE FMA; thread (r, half) owns half of row r.
-// out[r][half cols] = A[r][:] . B[half cols][:]
+// out[r][half cols] = A[r][:] . B[half cols][:] over D
+template <int D = kHeadDim>
 __device__ __forceinline__ void mm_abt_f32(const float* a, const float* b,
                                            float* out, int r, int half) {
+  constexpr int kLdT = Dims<D>::kLdT, kLdS = Dims<D>::kLdS;
   float acc[kHalf];
 #pragma unroll
   for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
-  for (int d = 0; d < kHeadDim; ++d) {
+  for (int d = 0; d < D; ++d) {
     const float av = a[r * kLdT + d];
 #pragma unroll
     for (int j = 0; j < kHalf; ++j) {
@@ -226,15 +242,17 @@ __device__ __forceinline__ void mm_abt_f32(const float* a, const float* b,
   for (int j = 0; j < kHalf; ++j) out[r * kLdS + half * kHalf + j] = acc[j];
 }
 
-// acc[j] += sum_c X[r][c] Y[c][half cols]  (P V in the forward, dS K)
-__device__ __forceinline__ void mma_ab_f32(float (&acc)[kHalf], const float* x,
+// acc[j] += sum_c X[r][c] Y[c][half's D / 2 cols]  (P V in the forward, dS K)
+template <int D = kHeadDim>
+__device__ __forceinline__ void mma_ab_f32(float (&acc)[D / 2], const float* x,
                                            int ldx, const float* y, int r,
                                            int half) {
+  constexpr int kLdT = Dims<D>::kLdT;
   for (int c = 0; c < kBlockN; ++c) {
     const float xv = x[r * ldx + c];
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      acc[j] = fmaf(xv, y[c * kLdT + half * kHalf + j], acc[j]);
+    for (int j = 0; j < D / 2; ++j) {
+      acc[j] = fmaf(xv, y[c * kLdT + half * (D / 2) + j], acc[j]);
     }
   }
 }
@@ -255,25 +273,26 @@ __device__ __forceinline__ void mma_atb_f32(float (&acc)[kHalf], const float* x,
 // Forward.
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, int D>
 struct FwdSmem {
-  T q[kBlockM * kLdT];
-  T k[kBlockN * kLdT];
-  T v[kBlockN * kLdT];
-  T p[kBlockM * kLdP];      // probabilities, in the input type for PV
-  float s[kBlockM * kLdS];  // scores, then the PV product of the step
+  T q[kBlockM * Dims<D>::kLdT];
+  T k[kBlockN * Dims<D>::kLdT];
+  T v[kBlockN * Dims<D>::kLdT];
+  T p[kBlockM * kLdP];               // probabilities, in the input type for PV
+  float s[kBlockM * Dims<D>::kLdS];  // scores, then the PV product of the step
 };
 
-// One block per (batch x q-head, q tile), heaviest tile first.
-template <typename T>
+// One block per (batch x q-head, q tile), heaviest tile first; head dim D.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_tri_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, T* __restrict__ o,
                          float* __restrict__ lse, int n_heads, int n_kv_heads,
                          int n_q, int n_kv, float scale_log2, int off) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  FwdSmem<T>& sm = *reinterpret_cast<FwdSmem<T>*>(smem_raw);
+  FwdSmem<T, D>& sm = *reinterpret_cast<FwdSmem<T, D>*>(smem_raw);
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr int kLdS = Dims<D>::kLdS, kOut = Dims<D>::kOut;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -298,25 +317,25 @@ __global__ void __launch_bounds__(kThreads)
   const int tile_limit = last_visible(q_start + rows_valid - 1, n_q, n_kv, off);
   const int n_steps = tile_limit < 0 ? 0 : tile_limit / kBlockN + 1;
 
-  load_tile<T>(sm.q, q + (q_rows + q_start) * kHeadDim, rows_valid);
+  load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
 
-  float o_acc[kHalf];
+  float o_acc[kOut];
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) o_acc[j] = 0.0f;
+  for (int j = 0; j < kOut; ++j) o_acc[j] = 0.0f;
   float m_i = -INFINITY;  // running max, log2 units
   float l_i = 0.0f;       // running sum of exp2(s - m_i)
 
   for (int step = 0; step < n_steps; ++step) {
     const int kv_start = step * kBlockN;
     const int cols_valid = min(kBlockN, n_kv - kv_start);
-    load_tile<T>(sm.k, k + (kv_rows + kv_start) * kHeadDim, cols_valid);
-    load_tile<T>(sm.v, v + (kv_rows + kv_start) * kHeadDim, cols_valid);
+    load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
     __syncthreads();
 
     if constexpr (kBf16) {
-      if (warp_active) mm_abt_bf16(sm.q, sm.k, sm.s, warp);
+      if (warp_active) mm_abt_bf16<D>(sm.q, sm.k, sm.s, warp);
     } else {
-      mm_abt_f32(sm.q, sm.k, sm.s, r, half);
+      mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
     }
     __syncthreads();
 
@@ -351,16 +370,16 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     if constexpr (kBf16) {
-      if (warp_active) pv_bf16(sm.p, sm.v, sm.s, warp);
+      if (warp_active) pv_bf16<D>(sm.p, sm.v, sm.s, warp);
 #pragma unroll
-      for (int j = 0; j < kHalf; ++j) o_acc[j] *= alpha;
+      for (int j = 0; j < kOut; ++j) o_acc[j] *= alpha;
       __syncthreads();
 #pragma unroll
-      for (int j = 0; j < kHalf; ++j) o_acc[j] += sm.s[r * kLdS + half * kHalf + j];
+      for (int j = 0; j < kOut; ++j) o_acc[j] += sm.s[r * kLdS + half * kOut + j];
     } else {
 #pragma unroll
-      for (int j = 0; j < kHalf; ++j) o_acc[j] *= alpha;
-      mma_ab_f32(o_acc, sm.p, kLdP, sm.v, r, half);
+      for (int j = 0; j < kOut; ++j) o_acc[j] *= alpha;
+      mma_ab_f32<D>(o_acc, sm.p, kLdP, sm.v, r, half);
     }
     // The next step's loads write k/v only; its first write to s and p
     // comes after the barrier that follows them.
@@ -369,9 +388,9 @@ __global__ void __launch_bounds__(kThreads)
 
   if (r < rows_valid) {
     const float inv_l = l_i > 0.0f ? 1.0f / l_i : 0.0f;
-    T* dst = o + (q_rows + row) * kHeadDim + half * kHalf;
+    T* dst = o + (q_rows + row) * D + half * kOut;
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) dst[j] = from_float<T>(o_acc[j] * inv_l);
+    for (int j = 0; j < kOut; ++j) dst[j] = from_float<T>(o_acc[j] * inv_l);
     if (lse != nullptr && half == 0) {
       lse[q_rows + row] = l_i > 0.0f ? (m_i + log2f(l_i)) * kLn2 : -INFINITY;
     }
@@ -574,16 +593,16 @@ cudaError_t allow_smem(Kernel kernel, int smem, bool (&done)[kMaxDevices]) {
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                        int n_kv, float sm_scale, int off, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(FwdSmem<T>);
-  cudaError_t err = allow_smem(flash_tri_fwd_kernel<T>, smem, done);
+  const int smem = (int)sizeof(FwdSmem<T, D>);
+  cudaError_t err = allow_smem(flash_tri_fwd_kernel<T, D>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * n_heads, (n_q + kBlockM - 1) / kBlockM);
-  flash_tri_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_tri_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       n_heads, n_kv_heads, n_q, n_kv, sm_scale * kLog2e, off);
@@ -616,9 +635,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                                     n_pairs, sm_scale, stream);
 }
 
-bool valid(int batch, int n_heads, int n_q, int n_kv, int head_dim) {
-  return head_dim == kHeadDim && batch >= 1 && n_heads >= 1 && n_q >= 1 &&
-         n_kv >= 1 && n_q <= 65535 * kBlockM && n_kv <= 65535 * kBlockN;
+bool valid(int batch, int n_heads, int n_q, int n_kv) {
+  return batch >= 1 && n_heads >= 1 && n_q >= 1 && n_kv >= 1 && n_q <= 65535 * kBlockM &&
+         n_kv <= 65535 * kBlockN;
 }
 
 }  // namespace
@@ -628,26 +647,25 @@ bool valid(int batch, int n_heads, int n_q, int n_kv, int head_dim) {
 // offset (row r sees c <= r + q_offset); dtype: 0 = bf16, 1 = fp32.  Each
 // launcher returns its launches' cudaError_t (0 on success).
 //
-// Forward: q, o [B, H, N_q, 64]; k, v [B, H_kv, N_kv, 64]; lse fp32
-// [B, H, N_q] or null.
+// Forward: q, o [B, H, N_q, D]; k, v [B, H_kv, N_kv, D], D = head_dim, 64
+// or 128; lse fp32 [B, H, N_q] or null.
 extern "C" int fam_flash_tri_fwd(const void* q, const void* k, const void* v,
                                  void* o, void* lse, int batch, int n_heads,
                                  int n_kv_heads, int n_q, int n_kv,
                                  int head_dim, float sm_scale, int q_offset,
                                  int dtype, void* stream) {
-  if (!valid(batch, n_heads, n_q, n_kv, head_dim) || n_kv_heads < 1 ||
-      n_heads % n_kv_heads != 0) {
+  if (!valid(batch, n_heads, n_q, n_kv) || n_kv_heads < 1 || n_heads % n_kv_heads != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch_fwd<bf16>(q, k, v, o, lse, batch, n_heads, n_kv_heads, n_q,
-                                 n_kv, sm_scale, q_offset, s);
-  }
-  if (dtype == 1) {
-    return (int)launch_fwd<float>(q, k, v, o, lse, batch, n_heads, n_kv_heads,
-                                  n_q, n_kv, sm_scale, q_offset, s);
-  }
+#define FAM_LAUNCH(T, D)                                                                  \
+  return (int)launch_fwd<T, D>(q, k, v, o, lse, batch, n_heads, n_kv_heads, n_q, n_kv, \
+                               sm_scale, q_offset, s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -662,7 +680,7 @@ extern "C" int fam_flash_tri_bwd(const void* q, const void* k, const void* v,
                                  int n_kv, int head_dim, float sm_scale,
                                  int q_offset, int n_pairs, int dtype,
                                  void* stream) {
-  if (!valid(batch, n_heads, n_q, n_kv, head_dim) ||
+  if (!valid(batch, n_heads, n_q, n_kv) || head_dim != kHeadDim ||
       n_pairs != dq_slots::visible_pairs(n_q, n_kv, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -14,7 +14,7 @@ pair and the fused kernel (the tiles of both are fixed), and the
 triangular kernel where it applies (causal, equal heads, not fp16).  The
 router reads the decisions from ``DEFAULT_CACHE``, the one name of that
 file.  The forward tuner, ``validate``, ``audit`` and ``lookup_fwd_impl``
-are not ported (ROADMAP.md, Queue A item 9).
+are not ported (ROADMAP.md, Queue A item 5).
 
     python -m flash_attention_metal_tpu_torch.harness.autotune --phase train [--cache PATH] [--force]
 """

@@ -76,6 +76,8 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # outputs by O(0.1) (tests/test_torch_gpu.py plants it).
 PEAKED_Q_SCALE = 8.0
 PREFILL_Q, PREFILL_KV = (1, 16, 512, 64), (1, 8, 2048, 64)
+# The same prefill chunk at head dim 128 (the forward kernels take 64 and 128).
+PREFILL_D128_Q, PREFILL_D128_KV = (1, 16, 512, 128), (1, 8, 2048, 128)
 DECODE_Q, DECODE_KV = (8, 8, 2, 64), (8, 8, 2048, 64)
 # The training step's attention (train_bench.json: batch 4, seq 2048,
 # 16 q-heads over 8 KV heads), and its fp32 case at N = 512.
@@ -114,7 +116,8 @@ def path_cases(gen: torch.Generator) -> Dict[str, tuple]:
     Prefill: a 512-row chunk of 16 q-heads over 8 KV heads and a
     2048-column cache, at offsets 0 and 512.  Folded decode: 8 slots,
     2 rows per KV head (``pos_div`` 2), at ``decode_lengths()``.  bf16 on
-    the ladder fixture, then one fp32 case, then bf16 on the peaked one.
+    the ladder fixture, then one fp32 case, then bf16 on the peaked one,
+    then the prefill chunk at head dim 128.
     """
     bf16 = torch.bfloat16
     lengths = torch.from_numpy(decode_lengths())
@@ -130,6 +133,8 @@ def path_cases(gen: torch.Generator) -> Dict[str, tuple]:
         torch.tensor([512]), 1)
     cases["decode_bf16_peaked"] = (
         *ladder_inputs(DECODE_Q, DECODE_KV, bf16, gen, PEAKED_Q_SCALE), lengths, 2)
+    cases["prefill_bf16_d128_off512"] = (
+        *ladder_inputs(PREFILL_D128_Q, PREFILL_D128_KV, bf16, gen), torch.tensor([512]), 1)
     return {
         name: (q, k, v, off.to("cuda", torch.int32), pos_div)
         for name, (q, k, v, off, pos_div) in cases.items()
@@ -256,6 +261,9 @@ SWEEP_1024 = (8, 1, 1024, 64)
 SWEEP_128 = (512, 1, 128, 64)
 HIGH_OCC = (16, 8, 2048, 64)
 LADDER = (1, 2, 1024, 64)
+# Head dim 128 at the lean kernel's sweep point and a triangular shape.
+SWEEP_1024_D128 = (8, 1, 1024, 128)
+TRI_D128 = (2, 8, 2048, 128)
 # The spike fixture: every query row has a large first component and key
 # column SPIKE_COL a larger one, so each row that sees that column scores
 # it ~100 (natural log units) above the rest: ~144 in the kernels' log2
@@ -343,6 +351,9 @@ def ladder_fwd_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, dict]]
         "tri_bf16_n2048_spike": (
             "flash_tri", spike_inputs((2, 8, 2048, 64), (2, 8, 2048, 64), bf16, gen),
             dict(save_lse=True)),
+        # head dim 128
+        "lean_bf16_n1024_d128": ("flash_lean", u(SWEEP_1024_D128, bf16), dict(save_lse=True)),
+        "tri_bf16_n2048_d128": ("flash_tri", u(TRI_D128, bf16), dict(save_lse=True)),
     }
 
 
@@ -597,7 +608,103 @@ def kv_work(kernel: str, args: tuple, pos_div: int) -> Tuple[float, float]:
     return 4.0 * head_dim * pairs, nbytes
 
 
-def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None) -> Tuple[float, str]:
+# ---------------------------------------------------------------------------
+# Block-sparse attention (csrc/flash_mask.cu): the forward, dK/dV and dQ
+# kernels under ladder rung 11's mask at the training shape.
+# ---------------------------------------------------------------------------
+
+# Rung 11's mask at the training length, in 128-row blocks (JAX's blocks).
+SPARSE_N, SPARSE_BLOCK = 2048, 128
+SPARSE_D128_Q, SPARSE_D128_KV = (1, 8, 2048, 128), (1, 4, 2048, 128)
+
+
+def sparse_mask(n: int = SPARSE_N):
+    """Ladder rung 11's ``BlockMask`` at length ``n``."""
+    from ..kernels.flash_mask import BlockMask
+    from .verify import block_sparse_rung_mask
+
+    return BlockMask(block_sparse_rung_mask(n), n, n, SPARSE_BLOCK, SPARSE_BLOCK)
+
+
+def sparse_cases(gen: torch.Generator) -> Dict[str, tuple]:
+    """``{name: (q, k, v, do, mask)}`` under ``sparse_mask``: the training
+    shape (``TRAIN_Q`` over ``TRAIN_KV``, bf16) on the ladder, peaked and
+    spike fixtures; fp32 at N = 512; bf16 at head dim 128."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    masks = {n: sparse_mask(n) for n in (SPARSE_N, TRAIN_FP32_Q[2])}
+    runs = {
+        "sparse_bf16": (TRAIN_Q, TRAIN_KV, bf16, "ladder"),
+        "sparse_bf16_peaked": (TRAIN_Q, TRAIN_KV, bf16, "peaked"),
+        "sparse_bf16_spike": (TRAIN_Q, TRAIN_KV, bf16, "spike"),
+        "sparse_fp32_n512": (TRAIN_FP32_Q, TRAIN_FP32_KV, f32, "ladder"),
+        "sparse_bf16_d128": (SPARSE_D128_Q, SPARSE_D128_KV, bf16, "ladder"),
+    }
+    cases = {}
+    for name, (shape_q, shape_kv, dtype, fixture) in runs.items():
+        if fixture == "spike":
+            q, k, v = spike_inputs(shape_q, shape_kv, dtype, gen)
+        else:
+            scale = PEAKED_Q_SCALE if fixture == "peaked" else 1.0
+            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen, scale)
+        do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+        cases[name] = (q, k, v, do, masks[shape_q[2]])
+    return cases
+
+
+def sparse_plain(q, k, v, do, mask):
+    """The plain versions of the three kernels in fp32 on the same inputs:
+    ``(o, lse, dq, dk, dv)`` (the backward from the plain ``o`` and lse)."""
+    from ..kernels import flash_mask as fm
+
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    scale = _scale(q)
+    o, lse = fm.flash_sparse_fwd_plain(qf, kf, vf, mask, sm_scale=scale, save_lse=True)
+    delta = bwd_delta(o, dof, None)
+    dk, dv = fm.flash_sparse_dkv_plain(qf, kf, vf, dof, lse, delta, mask, sm_scale=scale)
+    dq = fm.flash_sparse_dq_plain(qf, kf, vf, dof, lse, delta, mask, sm_scale=scale)
+    return o, lse, dq, dk, dv
+
+
+def sparse_kernel_errors(case: tuple) -> Dict[str, Tuple[float, float]]:
+    """Each block-sparse kernel against its plain version on one
+    ``sparse_cases`` entry: ``{"o": (max-abs, lse max-abs)}`` for the
+    forward (``_fwd_errors``: NaN or disagreeing dead rows fail), and
+    ``{"dq", "dk", "dv"}: (max-abs, normalised)`` for the backward kernels,
+    fed the same fp32 o, lse and delta as their plain versions."""
+    from ..kernels import flash_mask as fm
+
+    q, k, v, do, mask = case
+    scale = _scale(q)
+    o_p, lse_p, *grads_p = sparse_plain(q, k, v, do, mask)
+    errors = {"o": _fwd_errors(fm.flash_sparse_fwd(q, k, v, mask, sm_scale=scale, save_lse=True),
+                               (o_p, lse_p))}
+    delta = bwd_delta(o_p, do.float(), None)
+    dk, dv = fm.flash_sparse_dkv(q, k, v, do, lse_p, delta, mask, sm_scale=scale)
+    dq = fm.flash_sparse_dq(q, k, v, do, lse_p, delta, mask, sm_scale=scale)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p):
+        err = (g.float() - w).abs().max().item()
+        errors[name] = (err, err / w.abs().max().item())
+    return errors
+
+
+def sparse_op_grad_errors(case: tuple) -> Dict[str, float]:
+    """``torch.autograd.grad`` through ``block_sparse_attention`` (the
+    forward kernel, then both backward kernels) against the plain versions'
+    gradient: max-abs error over the plain gradient's max-abs, per input."""
+    from ..kernels.flash_mask import block_sparse_attention
+
+    q, k, v, do, mask = case
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(block_sparse_attention(*leaves, mask), leaves, do)
+    want = sparse_plain(q, k, v, do, mask)[2:]
+    torch.cuda.synchronize()
+    return {name: ((g.float() - w).abs().max() / w.abs().max()).item()
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None,
+            with_forward: bool = False) -> Tuple[float, str]:
     """The library yardstick: ``F.scaled_dot_product_attention`` on the
     same inputs, its device ms and the backend it was pinned to.
 
@@ -605,8 +712,9 @@ def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None) -> Tu
     (needed where the diagonal is not top-left aligned) the memory-efficient
     one.  GQA K/V are repeated to q's heads before the timed call.  With
     ``backward_of=do`` the time is SDPA's backward from
-    ``torch.autograd.grad`` with that cotangent (dQ, dK and dV together).
-    The port never calls SDPA; it is timed here only.
+    ``torch.autograd.grad`` with that cotangent (dQ, dK and dV together),
+    and with ``with_forward`` the forward and that backward.  The port
+    never calls SDPA; it is timed here only.
     """
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -619,6 +727,10 @@ def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None) -> Tu
         if backward_of is None:
             ms = device_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, is_causal=causal))
+        elif with_forward:
+            q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+            ms = device_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal), (q, k, v), backward_of))
         else:
             q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
             o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal)

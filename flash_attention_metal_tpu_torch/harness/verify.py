@@ -6,7 +6,7 @@ there: fp32 kernels anchor to the golden oracle, upper rungs difference
 against the verified naive rung, causal and backward rungs get their own
 fixtures.  One ``[PASS]``/``[FAIL]`` line per rung, in the same format.
 
-The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 12
+The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 11, 12
 prefill and decode chunk, 18); the others print a ``[SKIP]`` line naming
 the ``ROADMAP.md`` item they wait for and are never counted as passes.
 ``device="cpu"`` runs every kernel's plain version (the tests do); the
@@ -25,6 +25,8 @@ from typing import Callable, List
 import torch
 
 from ..kernels import (
+    BlockMask,
+    block_sparse_attention,
     flash_attention_bwd,
     flash_attention_bwd_tri,
     flash_attention_fwd,
@@ -66,12 +68,8 @@ RUNGS_2_8_9_12_18 = (
 
 # Rungs of the JAX ladder that wait for a feature or a kernel of the port,
 # by the ROADMAP.md item that holds it.
-_FEATURES = "not ported (ROADMAP.md Queue A item 5: op features)"
+_FEATURES = "not ported (ROADMAP.md Queue A item 2: op features)"
 SKIPPED_SLIDING_WINDOW = ("flash sliding-window vs oracle", _FEATURES)
-SKIPPED_BLOCK_SPARSE = (
-    "flash block-sparse mask vs oracle",
-    "not ported (ROADMAP.md Queue B item 3: block-sparse, the next slice)",
-)
 SKIPPED_TRANSFORM_RUNGS = (
     ("flash softcap causal vs oracle", _FEATURES),
     ("flash ALiBi causal vs oracle", _FEATURES),
@@ -109,6 +107,26 @@ class RungResult:
 
 def _diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def block_sparse_rung_mask(n: int):
+    """Rung 11's predicate at length ``n`` (JAX ``verify.py:226-227``):
+    causal, and a band of ``n / 4`` or the columns ``c % (3n/8) < n/8``."""
+    def mask_fn(r, c):
+        return (c <= r) & (((r - c) < n // 4) | ((c % (3 * n // 8)) < n // 8))
+
+    return mask_fn
+
+
+def masked_oracle(q, k, v, visible: torch.Tensor) -> torch.Tensor:
+    """fp32 attention under an elementwise ``[n_q, n_kv]`` mask (True =
+    visible); a row that sees nothing gives 0 (the JAX rung's oracle)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    s = s.masked_fill(~visible, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m))
+    l = p.sum(dim=-1, keepdim=True)
+    return torch.matmul(p / torch.where(l == 0, 1.0, l), v.float())
 
 
 def _skip(name: str, why: str) -> str:
@@ -215,9 +233,15 @@ def run_ladder(
         q, kg.float().expand(k.shape), vg.float().expand(v.shape), causal=True)
     rung("flash MQA (native head-fold) vs oracle", og, oracle_g, TOL_HALF)
 
-    # Rungs 10 and 11: sliding window and block-sparse masks, not ported.
+    # Rung 10: sliding window, not ported.
     log(_skip(*SKIPPED_SLIDING_WINDOW))
-    log(_skip(*SKIPPED_BLOCK_SPARSE))
+
+    # Rung 11: an arbitrary block-sparse mask (JAX's: a causal band of n/4
+    # plus strided columns, 128-row blocks) against a masked fp32 oracle.
+    bm = BlockMask(block_sparse_rung_mask(n), n, n, 128, 128)
+    osp = block_sparse_attention(qh, kh, vh, bm)
+    rung(f"flash block-sparse mask (density {bm.density:.2f}) vs oracle", osp,
+         masked_oracle(q, k, v, bm.dense(device)), TOL_HALF)
 
     # Rung 12: paged KV through a shuffled page table (page 0 unused):
     # masking is in logical positions, so the output must match the causal

@@ -41,6 +41,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import BlockSizes, default_scale
+from ..utils.roofline import dq_slot_count
 from . import _build
 from .flash_fwd import (
     _DTYPE_CODES,
@@ -303,6 +304,15 @@ def _check_cuda(q, k, v, do, lse, off) -> None:
         raise ValueError("lse must be a contiguous fp32 tensor on q's device")
 
 
+def _in_fp32(backward, q, k, v, o, do, lse, q_offset, dlse, **kw):
+    """fp16 inputs, as JAX runs them (``flash_bwd.py:887-915``): the
+    backward in fp32 on casts of q, k, v, o and dO, the gradients rounded
+    back to fp16.  The CUDA kernels take bf16 and fp32 only."""
+    grads = backward(q.float(), k.float(), v.float(), o.float(), do.float(), lse, q_offset,
+                     dlse, **kw)
+    return tuple(g.half() for g in grads)
+
+
 def flash_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -330,9 +340,12 @@ def flash_attention_bwd(
     if pos_div != 1:
         raise NotImplementedError(
             "pos_div (the GQA row-fold backward) is not ported: GQA is native "
-            "in the port's kernels (see ROADMAP.md, Queue A item 3)"
+            "in the port's kernels (see ROADMAP.md, Queue A item 5)"
         )
     reject_unported(features)
+    if q.dtype == torch.float16:
+        return _in_fp32(flash_attention_bwd, q, k, v, o, do, lse, q_offset, dlse,
+                        sm_scale=sm_scale, causal=causal)
     sm_scale, off = _checked(q, k, v, o, do, lse, q_offset, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
@@ -365,11 +378,24 @@ def flash_attention_bwd_fused(
     results as ``flash_attention_bwd`` (``dk``, ``dv`` in ``k``'s dtype, as
     the JAX kernel's).  The kernel's tiles are fixed (``DQ_TILE``).
     ``q_offset_max``: with a tensor ``q_offset``, an int no entry exceeds;
-    the dQ workspace then holds only the pairs visible at it, and each
-    entry is read no higher than it.  Without it the workspace holds every
-    pair.  The JAX wrapper's window/sinks/segment arguments raise
-    NotImplementedError if set."""
+    the dQ workspace then holds only the pairs visible at it.  An offset
+    known on the host (None, an int or a CPU tensor) above it raises.  The
+    entries of a CUDA tensor are not read on the host: the caller keeps to
+    the contract, and an entry above ``q_offset_max`` is read as
+    ``q_offset_max`` (a narrower mask).  Without it the workspace holds
+    every pair.  fp16 inputs run in fp32 and return fp16 gradients, as
+    ``flash_attention_bwd``'s.  The JAX wrapper's window/sinks/segment
+    arguments raise NotImplementedError if set."""
     reject_unported(features)
+    if q.dtype == torch.float16:
+        return _in_fp32(flash_attention_bwd_fused, q, k, v, o, do, lse, q_offset, dlse,
+                        sm_scale=sm_scale, causal=causal, q_offset_max=q_offset_max)
+    host_max = host_offset_max(q_offset, q.shape[2], k.shape[2])
+    if causal and q_offset_max is not None and host_max is not None and host_max > q_offset_max:
+        raise ValueError(
+            f"q_offset reaches {host_max}, above q_offset_max={q_offset_max}: the fused "
+            "backward would compute a narrower mask's gradients"
+        )
     sm_scale, off = _checked(q, k, v, o, do, lse, q_offset, sm_scale)
     bound = fused_offset_bound(q_offset, q_offset_max, q.shape[2], k.shape[2], causal)
     if q.device.type == "cpu":
@@ -381,10 +407,51 @@ def flash_attention_bwd_fused(
                            sm_scale=sm_scale, causal=causal, off_bound=bound)
 
 
+def host_offset_max(q_offset, n_q: int, n_kv: int) -> Optional[int]:
+    """The largest offset when the host knows it without a device sync:
+    None (``n_kv - n_q``), an int, or the max of a CPU tensor; None for a
+    CUDA tensor."""
+    if is_static_offset(q_offset):
+        return n_kv - n_q if q_offset is None else int(q_offset)
+    if q_offset.device.type == "cpu":
+        return int(q_offset.max())
+    return None
+
+
+# The share of the card's free memory a fused backward's dQ workspace may
+# take before the router declines a saved "fused" decision.
+FUSED_WORKSPACE_SHARE = 0.5
+
+
+def _free_device_bytes(device: torch.device) -> Optional[int]:
+    """Free bytes on a CUDA device; None elsewhere (the CPU route has no
+    workspace)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[0]
+
+
+def fused_workspace_fits(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool,
+                         q_offset_max: Optional[int] = None) -> bool:
+    """Whether the fused kernel's dQ workspace for this call (one 16 KiB
+    slot per visible tile pair and q-head, ``roofline.dq_slot_count``)
+    stays within ``FUSED_WORKSPACE_SHARE`` of the device's free bytes."""
+    free = _free_device_bytes(q.device)
+    if free is None:
+        return True
+    n_q, n_kv = q.shape[2], k.shape[2]
+    bound = fused_offset_bound(q_offset, q_offset_max, n_q, n_kv, causal)
+    slots = q.shape[0] * q.shape[1] * dq_slot_count(n_q, n_kv, bound)
+    return slots * DQ_TILE * DQ_TILE * 4 <= FUSED_WORKSPACE_SHARE * free
+
+
 def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1,
-              block_sizes: Optional[BlockSizes] = None) -> str:
+              block_sizes: Optional[BlockSizes] = None,
+              q_offset_max: Optional[int] = None) -> str:
     """The kernel(s) ``flash_attention_bwd_auto`` runs: ``"tri"``,
-    ``"fused"`` or ``"split"`` (module docstring)."""
+    ``"fused"`` or ``"split"`` (module docstring).  A saved ``"fused"``
+    decision is declined, for the untuned rule, when its dQ workspace would
+    not fit (``fused_workspace_fits``)."""
     tri_ok = (
         causal
         and k.shape[1] == q.shape[1]
@@ -401,8 +468,9 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_d
     if hit is not None:
         impl = hit[0]
         if impl == "fused":
-            return "fused"
-        if impl == "split" or not tri_ok:
+            if fused_workspace_fits(q, k, q_offset, causal=causal, q_offset_max=q_offset_max):
+                return "fused"
+        elif impl == "split" or not tri_ok:
             return "split"
     return "tri" if tri_ok else "split"
 
@@ -431,7 +499,8 @@ def flash_attention_bwd_auto(
     and ``dv`` in fp32, the others in ``k``'s dtype, as in JAX.  The split
     pair's tiles are fixed: ``block_sizes`` only skips the tuned lookup."""
     reject_unported(features)
-    impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes)
+    impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes,
+                     q_offset_max=q_offset_max)
     if impl == "tri":
         from .flash_tri import flash_attention_bwd_tri
 

@@ -21,7 +21,7 @@ sends causal calls away from the triangular kernel past N = 4096 or at
 tile-unfriendly lengths (``tri_heuristic``, ``_TRI_MAX_N``,
 ``_UNROLL_CAP``): those are Mosaic compile limits, so the port's
 triangular kernel takes every N.  Its features (window, softcap, ...)
-raise ``NotImplementedError`` on every route (ROADMAP.md, Queue A item 5).
+raise ``NotImplementedError`` on every route (ROADMAP.md, Queue A item 2).
 
 Each kernel's wrapper takes its plain version for a tensor on the CPU and
 launches the kernel, or raises, for a CUDA tensor.  Nothing falls back.
@@ -38,11 +38,13 @@ import torch
 from ..config import DEFAULT_MASK_VALUE, default_scale
 from . import _build
 
-# The head dimension compiled into csrc/flash_fwd.cu (kHeadDim).
+# The head dim every CUDA kernel is built for, and the ones the forward
+# router's three kernels (general, lean, triangular forward) also take.
 HEAD_DIM = 64
+FWD_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-# Features of the JAX kernel not ported yet (ROADMAP.md, Queue A item 5).
+# Features of the JAX kernel not ported yet (ROADMAP.md, Queue A item 2).
 UNPORTED_FEATURES = (
     "window", "sinks", "segment_ids", "kv_positions", "softcap",
     "alibi_slopes", "dropout_rate", "dropout_seed",
@@ -62,7 +64,7 @@ def reject_unported(features: dict) -> None:
     if asked:
         raise NotImplementedError(
             f"{asked} not ported to the PyTorch package yet "
-            "(see ROADMAP.md, Queue A item 5)"
+            "(see ROADMAP.md, Queue A item 2)"
         )
 
 
@@ -172,15 +174,21 @@ def _lib() -> ctypes.CDLL:
     return bind_lean(bind(_build.load()))
 
 
-def _check_cuda_inputs(q, k, v, q_offset=None) -> None:
+def check_head_dim(head_dim: int, built=(HEAD_DIM,)) -> None:
+    """Raise ``ValueError`` for a head dim the kernel is not built for."""
+    if head_dim not in built:
+        raise ValueError(
+            f"the CUDA kernel is compiled for head_dim {' or '.join(map(str, built))}, got "
+            f"{head_dim} (other head dims: ROADMAP.md, Queue C item 2)"
+        )
+
+
+def _check_cuda_inputs(q, k, v, q_offset=None, head_dims=(HEAD_DIM,)) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes bf16 or fp32 inputs, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernel is compiled for head_dim {HEAD_DIM}, got {q.shape[-1]}"
-        )
+    check_head_dim(q.shape[-1], head_dims)
     for name, t in (("q", q), ("k", k), ("v", v), ("q_offset", q_offset)):
         if t is None:
             continue
@@ -245,7 +253,7 @@ def flash_fwd_general(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v, off)
+    _check_cuda_inputs(q, k, v, off, head_dims=FWD_HEAD_DIMS)
     o, lse = _new_outputs(q, save_lse)
     err = _lib().fam_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(),
@@ -294,7 +302,7 @@ def flash_fwd_lean(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, head_dims=FWD_HEAD_DIMS)
     o, lse = _new_outputs(q, save_lse)
     err = _lib().fam_flash_lean(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

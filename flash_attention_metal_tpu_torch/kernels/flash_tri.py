@@ -33,6 +33,7 @@ from . import _build
 from .flash_bwd import _plain_p_ds, bwd_delta, dq_workspace_shape
 from .flash_fwd import (
     _DTYPE_CODES,
+    FWD_HEAD_DIMS,
     _check_cuda_inputs,
     _new_outputs,
     check_shapes,
@@ -146,7 +147,7 @@ def flash_attention_tri(
         return flash_attention_tri_plain(q, k, v, off, sm_scale=sm_scale, save_lse=save_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, head_dims=FWD_HEAD_DIMS)
     o, lse = _new_outputs(q, save_lse)
     err = _lib().fam_flash_tri_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -190,7 +191,7 @@ def flash_attention_bwd_tri(
     if pos_div != 1:
         raise NotImplementedError(
             "pos_div (the GQA row-fold backward) is not ported: GQA is native "
-            "in the port's kernels (see ROADMAP.md, Queue A item 3)"
+            "in the port's kernels (see ROADMAP.md, Queue A item 5)"
         )
     check_shapes(q, k, v)
     if k.shape[1] != q.shape[1]:

@@ -14,7 +14,7 @@ The CUDA kernels are ``fam_flash_paged`` and ``fam_flash_paged_quant`` of
 ``page_size`` is a multiple of 64 (the JAX package asks 128, its lane
 width).  The plain versions gather each slot's pages through the table
 and run the dense plain attention.  The JAX kernels' window/sinks, softcap
-and ALiBi raise ``NotImplementedError`` (ROADMAP.md, Queue A item 5).
+and ALiBi raise ``NotImplementedError`` (ROADMAP.md, Queue A item 2).
 """
 
 from __future__ import annotations

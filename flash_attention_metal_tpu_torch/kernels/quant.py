@@ -19,7 +19,7 @@ is a v5e fact, not this card's.
 The wrapper takes the plain version for a tensor on the CPU and launches
 the kernel, or raises, for a CUDA tensor.  The JAX kernel's
 ``kv_positions``, window/sinks, softcap and ALiBi raise
-``NotImplementedError`` (ROADMAP.md, Queue A item 5).
+``NotImplementedError`` (ROADMAP.md, Queue A item 2).
 """
 
 from __future__ import annotations
@@ -35,9 +35,9 @@ from ..config import default_scale
 from . import _build
 from .flash_fwd import (
     _DTYPE_CODES,
-    HEAD_DIM,
     _new_outputs,
     _offsets,
+    check_head_dim,
     flash_attention_fwd_plain,
     reject_unported,
 )
@@ -162,8 +162,7 @@ def check_cuda_tensors(q: torch.Tensor, rows: dict, others: dict) -> None:
     storage (``rows``, read 16 bytes at a time) 16-byte aligned."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes bf16 or fp32 q, got {q.dtype}")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel is compiled for head_dim {HEAD_DIM}, got {q.shape[-1]}")
+    check_head_dim(q.shape[-1])
     rows = {"q": q, **rows}
     for name, t in (*rows.items(), *others.items()):
         if t.device != q.device:

@@ -140,7 +140,7 @@ class TrainState:
 class Trainer:
     """Single-device trainer over the FlashLM loss, with durable
     checkpoint/resume.  Sharded training waits for the port of the JAX
-    package's ``parallel_train`` (ROADMAP.md, Queue A item 8)."""
+    package's ``parallel_train`` (ROADMAP.md, Queue A item 7)."""
 
     def __init__(
         self,

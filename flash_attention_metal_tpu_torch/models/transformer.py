@@ -58,7 +58,7 @@ class ModelConfig:
         if asked:
             raise NotImplementedError(
                 f"{asked} not ported to the PyTorch package yet "
-                "(see ROADMAP.md, Queue A item 5)"
+                "(see ROADMAP.md, Queue A item 2)"
             )
 
 

@@ -156,7 +156,7 @@ class DecodeEngine:
         if asked:
             raise NotImplementedError(
                 f"DecodeEngine options {asked} are not ported to the PyTorch "
-                "package yet (see ROADMAP.md, Queue A item 6)"
+                "package yet (see ROADMAP.md, Queue A item 3)"
             )
         if multi_step < 1:
             raise ValueError(f"multi_step={multi_step} must be >= 1")

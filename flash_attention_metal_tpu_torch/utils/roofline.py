@@ -77,6 +77,38 @@ def visible_pairs(n_q: int, n_kv: int, q_offset: int, pos_div: int = 1) -> int:
     return sum(max(0, min(n_kv, r // pos_div + q_offset + 1)) for r in range(n_q))
 
 
+def dq_slot_count(n_q: int, n_kv: int, q_offset: int, tile: int = 64) -> int:
+    """Slots of one head's dQ workspace in the fused and triangular
+    backwards (``csrc/dq_slots.cuh``, ``visible_pairs``): the (Q tile, KV
+    tile) pairs of ``tile`` rows that a causal call at ``q_offset`` sees."""
+    slots = 0
+    for i in range(-(-n_q // tile)):
+        limit = min(min((i + 1) * tile, n_q) - 1 + q_offset, n_kv - 1)
+        slots += 0 if limit < 0 else limit // tile + 1
+    return slots
+
+
+def block_sparse_work(batch: int, heads: int, kv_heads: int, n_q: int, n_kv: int,
+                      head_dim: int, itemsize: int, visible: int, kernel: str) -> tuple:
+    """``(flops, bytes)`` one block-sparse kernel must do, ``visible`` being
+    the element-visible (row, column) pairs of one head's mask.
+
+    Flops per visible pair and head dim, as the causal kernels count theirs:
+    the forward 4 (QK^T, PV), dK/dV 8 (QK^T, dO V^T, P^T dO, dS^T Q), dQ 6
+    (QK^T, dO V^T, dS K).  Bytes: each input read once, each output written
+    once (``itemsize`` per element; lse and delta fp32 per row).
+    """
+    q_elems = batch * heads * n_q * head_dim
+    kv_elems = batch * kv_heads * n_kv * head_dim
+    rows = 4 * batch * heads * n_q
+    per_pair, nbytes = {
+        "fwd": (4, (2 * q_elems + 2 * kv_elems) * itemsize + rows),
+        "dkv": (8, (2 * q_elems + 4 * kv_elems) * itemsize + 2 * rows),
+        "dq": (6, (3 * q_elems + 2 * kv_elems) * itemsize + 2 * rows),
+    }[kernel]
+    return float(per_pair * head_dim * batch * heads * visible), float(nbytes)
+
+
 def attention_bytes(
     batch: int,
     heads: int,

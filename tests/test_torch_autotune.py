@@ -190,3 +190,37 @@ def test_the_op_bounds_the_fused_workspace_by_its_int_offset(cache, monkeypatch)
     flash_attention(q, kv, kv, 0, causal=True).sum().backward()
     flash_attention(q, kv, kv, torch.zeros(1, dtype=torch.int32), causal=True).sum().backward()
     assert seen == [0, 0, None]
+
+
+def test_router_declines_a_fused_decision_whose_workspace_does_not_fit(cache, monkeypatch):
+    """A saved "fused" decision is followed while the dQ workspace (one
+    16 KiB slot per visible tile pair and q-head) stays within
+    ``FUSED_WORKSPACE_SHARE`` of the free bytes, and declined for the
+    untuned rule past it.  The CPU has no workspace, so the free bytes are
+    injected."""
+    q = torch.zeros((2, 4, 256, 64))
+    off = torch.zeros(2, dtype=torch.int32)
+    _write(cache, {_key(q, q): {"impl": "fused", "blocks": {}}})
+    # causal, offset 0, 4 x 4 tiles: 10 slots per head, 80 for the call.
+    need = 2 * 4 * 10 * 64 * 64 * 4
+    assert fb.dq_slot_count(256, 256, 0) == 10
+    monkeypatch.setattr(fb, "_free_device_bytes", lambda device: need / fb.FUSED_WORKSPACE_SHARE)
+    assert fb.bwd_route(q, q, None, causal=True) == "fused"
+    assert fb.bwd_route(q, q, off, causal=True, q_offset_max=0) == "fused"
+    monkeypatch.setattr(fb, "_free_device_bytes", lambda device: need / fb.FUSED_WORKSPACE_SHARE - 1)
+    assert fb.bwd_route(q, q, None, causal=True) == "tri"
+    assert fb.bwd_route(q, q, off, causal=True, q_offset_max=0) == "split"
+    # Without q_offset_max a tensor offset sizes every pair: 16 per head,
+    # 1.6 times the slots at offset 0.
+    monkeypatch.setattr(fb, "_free_device_bytes", lambda device: 1.5 * need / fb.FUSED_WORKSPACE_SHARE)
+    assert fb.bwd_route(q, q, off, causal=True) == "split"
+    assert fb.bwd_route(q, q, off, causal=True, q_offset_max=0) == "fused"
+
+
+def test_dq_slot_count_matches_the_kernels_packing():
+    """``roofline.dq_slot_count`` counts the slots ``csrc/dq_slots.cuh``
+    packs (the library's counts at these shapes: tests/test_torch_gpu.py)."""
+    assert fb.dq_slot_count(2048, 2048, 0) == 528
+    assert fb.dq_slot_count(2048, 2048, 2047) == 1024
+    assert fb.dq_slot_count(128, 128, -70) == 1
+    assert fb.dq_slot_count(200, 300, 100) == 3 + 4 + 5 + 5

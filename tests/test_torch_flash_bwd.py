@@ -27,7 +27,11 @@ from flash_attention_metal_tpu.kernels.flash_fwd import (
 from flash_attention_metal_tpu.ops import attention as jax_ops
 from flash_attention_metal_tpu.reference import oracle as jax_oracle
 from flash_attention_metal_tpu_torch import flash_attention
-from flash_attention_metal_tpu_torch.kernels.flash_bwd import flash_attention_bwd
+from flash_attention_metal_tpu_torch.kernels.flash_bwd import (
+    flash_attention_bwd,
+    flash_attention_bwd_fused,
+)
+from flash_attention_metal_tpu_torch.kernels.flash_fwd import flash_attention_fwd
 from flash_attention_metal_tpu_torch.reference import oracle
 
 # fp32: the JAX kernels' fp32 products are bf16x3 (~2^-16 relative, the
@@ -158,6 +162,40 @@ def test_flash_attention_grad_bf16_matches_jax_grad():
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert _err(g, np.asarray(w, np.float32)) < TOL_BF16
+
+
+def test_flash_attention_grad_fp16_matches_jax_grad():
+    """fp16 inputs: both packages run the backward in fp32 on casts and
+    round the gradients to fp16 (JAX ``flash_bwd.py:887-915``).  Both round
+    to fp16 at the end (2^-11 relative), so a gradient may land one fp16
+    step apart: 2e-3 of the largest gradient."""
+    q, k, v, do, _ = _inputs(6, 1, 4, 2, 128, 128)
+    f16 = jnp.float16
+    want = _jax_grads(
+        jnp.asarray(q, f16), jnp.asarray(k, f16), jnp.asarray(v, f16), jnp.asarray(do), None,
+        np.zeros(1, np.int32), False,
+    )
+    got = _torch_grads(
+        _t(q, torch.float16), _t(k, torch.float16), _t(v, torch.float16), _t(do), None,
+        torch.zeros(1, dtype=torch.int32), False,
+    )
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16 and w.dtype == f16
+        assert _err(g, np.asarray(w, np.float32)) < 2e-3
+
+
+def test_fp16_backward_runs_in_fp32_and_rounds_back():
+    """``flash_attention_bwd`` and the fused backward on fp16 equal their
+    fp32 results on the casts, rounded to fp16."""
+    q, k, v, do, _ = _inputs(7, 1, 2, 2, 128, 128)
+    q, k, v, do = (_t(x, torch.float16) for x in (q, k, v, do))
+    o, lse = flash_attention_fwd(q, k, v, causal=True, save_lse=True)
+    assert o.dtype == torch.float16
+    for backward in (flash_attention_bwd, flash_attention_bwd_fused):
+        got = backward(q, k, v, o, do, lse, causal=True)
+        want = backward(q.float(), k.float(), v.float(), o.float(), do.float(), lse, causal=True)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float16 and torch.equal(g, w.half())
 
 
 def test_masked_rows_give_zero_grads():

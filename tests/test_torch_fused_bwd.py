@@ -167,7 +167,10 @@ def test_workspace_counts():
 def test_fused_bwd_reads_offsets_no_higher_than_the_bound():
     """With ``q_offset_max`` each entry of a tensor offset is read no higher
     than it (as the kernel reads it, so its packed workspace never
-    overflows); a bound that holds changes nothing."""
+    overflows); a bound that holds changes nothing.  An entry the host can
+    read above the bound raises instead (the clamp is what a CUDA tensor's
+    entries get, which the host does not read): the plain version's clamp
+    is checked directly."""
     q, k, v, do, _ = (torch.from_numpy(x) for x in _inputs(6, 2, 2, 2, 256))
     off = torch.tensor([0, 64], dtype=torch.int32)
     from flash_attention_metal_tpu_torch.kernels.flash_fwd import flash_attention_fwd
@@ -175,8 +178,33 @@ def test_fused_bwd_reads_offsets_no_higher_than_the_bound():
     o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
     unbounded = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True)
     held = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True, q_offset_max=64)
-    clamped = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True, q_offset_max=0)
+    with pytest.raises(ValueError, match="q_offset_max"):
+        fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True, q_offset_max=0)
+    clamped = fb.flash_attention_bwd_fused_plain(q, k, v, o, do, lse, off.clamp(max=0),
+                                                 sm_scale=0.125, causal=True)
     zeros = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, torch.zeros_like(off), causal=True)
     for a, b, c, z in zip(unbounded, held, clamped, zeros):
         assert torch.equal(a, b) and torch.equal(c, z)
     assert not torch.equal(unbounded[0], clamped[0])
+
+
+def test_fused_bwd_refuses_an_offset_above_q_offset_max():
+    """An offset the host knows (an int, None, a CPU tensor) above
+    ``q_offset_max`` raises: the kernel would read it as ``q_offset_max``
+    and return a narrower mask's gradients.  At or below it, it runs."""
+    q, k, v, do, _ = _inputs(3, 2, 2, 2, 256)
+    o, lse, _ = _jax_case(q, k, v, do, None, True, 256)
+    args = (_t(q), _t(k), _t(v), _t(o), _t(do), _t(lse))
+    with pytest.raises(ValueError, match="q_offset_max"):
+        fb.flash_attention_bwd_fused(*args, torch.tensor([0, 64], dtype=torch.int32),
+                                     causal=True, q_offset_max=32)
+    with pytest.raises(ValueError, match="q_offset_max"):
+        fb.flash_attention_bwd_fused(*args, 64, causal=True, q_offset_max=32)
+    with pytest.raises(ValueError, match="q_offset_max"):
+        fb.flash_attention_bwd_fused(*args, causal=True, q_offset_max=-1)  # None: offset 0
+    got = fb.flash_attention_bwd_fused(*args, torch.tensor([0, 64], dtype=torch.int32),
+                                       causal=True, q_offset_max=64)
+    want = fb.flash_attention_bwd_fused(*args, torch.tensor([0, 64], dtype=torch.int32),
+                                        causal=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

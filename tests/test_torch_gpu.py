@@ -20,6 +20,7 @@ from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving
 from flash_attention_metal_tpu_torch.kernels import _build
 from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
+from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
 from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
 from flash_attention_metal_tpu_torch.kernels import flash_v1 as fv
 from flash_attention_metal_tpu_torch.kernels import naive as nv
@@ -147,7 +148,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         ff.flash_fwd_general(q, q, q, causal=True)
-    q = torch.zeros((1, 2, 8, 128), device=cuda)
+    q = torch.zeros((1, 2, 8, 96), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ff.flash_fwd_general(q, q, q, causal=True)
     q = torch.zeros((1, 2, 64, 8), device=cuda).transpose(2, 3)
@@ -971,9 +972,13 @@ def test_fused_bwd_rejects_what_it_does_not_take(cuda):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, block_sizes=fb.BlockSizes())
     with pytest.raises(NotImplementedError):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, window=16)
+    # fp16 runs in fp32 (as flash_attention_bwd); fp64 has no kernel.
     with pytest.raises(TypeError):
-        fb.flash_attention_bwd_fused(q.half(), q.half(), q.half(), q.half(), q.half(), lse,
-                                     causal=True)
+        fb.flash_attention_bwd_fused(q.double(), q.double(), q.double(), q.double(), q.double(),
+                                     lse, causal=True)
+    grads = fb.flash_attention_bwd_fused(q.half(), q.half(), q.half(), q.half(), q.half(), lse,
+                                         causal=True)
+    assert all(g.dtype == torch.float16 for g in grads)
 
 
 @pytest.mark.gpu
@@ -1042,3 +1047,231 @@ def test_autotune_bwd_on_the_card_sets_the_route(cuda, tuned_cache):
     flash_attention(leaf, k, v, causal=True).float().sum().backward()
     assert {name: c.launches - before[name] for name, c in counters.items()} == {
         "split": 0, "fused": 1}
+
+
+# ---------------------------------------------------------------------------
+# Head dim 128 on the forward router's kernels; the fp16 backward.
+# ---------------------------------------------------------------------------
+
+# (kernel, q shape, kv shape, the wrapper's keywords) at head dim 128:
+# ragged lengths, GQA 2, offsets.
+D128_CASES = {
+    "general_gqa_off": ("flash_fwd", (2, 4, 130, 128), (2, 2, 300, 128),
+                        dict(q_offset=[0, 170], causal=True, save_lse=True)),
+    "lean_gqa": ("flash_lean", (2, 4, 130, 128), (2, 2, 300, 128), dict(save_lse=True)),
+    "lean_longest_row": ("flash_lean", (1, 2, 64, 128), (1, 2, 1024, 128), dict(save_lse=True)),
+    "tri_gqa_off170": ("flash_tri", (2, 4, 130, 128), (2, 2, 300, 128),
+                       dict(q_offset=170, save_lse=True)),
+    "tri_n1024": ("flash_tri", (1, 2, 1024, 128), (1, 2, 1024, 128), dict(save_lse=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixture", ["ladder", "peaked", "spike"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(D128_CASES))
+def test_forward_kernels_at_head_dim_128_match_plain(cuda, case, dtype, fixture):
+    kernel, shape_q, shape_kv, kw = D128_CASES[case]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    if fixture == "spike":
+        q, k, v = onchip.spike_inputs(shape_q, shape_kv, dtype, gen, col=shape_kv[2] // 2)
+    else:
+        scale = onchip.PEAKED_Q_SCALE if fixture == "peaked" else 1.0
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen, scale)
+    if kernel == "flash_fwd":
+        off = torch.tensor(kw["q_offset"], dtype=torch.int32, device=cuda)
+        before = ff.flash_fwd_general.launches
+        err, lse_err = onchip.kernel_error((q, k, v, off, 1))
+        assert ff.flash_fwd_general.launches == before + 1
+    else:
+        wrapper = onchip.LADDER_FWD_KERNELS[kernel][0]
+        before = wrapper.launches
+        err, lse_err = onchip.ladder_fwd_error(kernel, (q, k, v), kw)
+        assert wrapper.launches == before + 1
+    assert err <= TOL[dtype] and lse_err <= TOL[dtype], (err, lse_err)
+
+
+@pytest.mark.gpu
+def test_other_kernels_reject_head_dim_128(cuda):
+    """Every kernel but the forward router's three and the block-sparse
+    ones is built for head dim 64: each raises a ValueError that names
+    ROADMAP.md Queue C item 2."""
+    q = torch.zeros((2, 2, 128, 128), device=cuda)
+    lse = torch.zeros((2, 2, 128), device=cuda)
+    off = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    qkv = qt.quantize_kv(q, q)
+    pool = torch.zeros((3, 2, 128, 128), device=cuda)
+    table = torch.ones((2, 1), dtype=torch.int32, device=cuda)
+    calls = {
+        "naive": lambda: nv.naive_attention(q, q, q),
+        "v1": lambda: fv.flash_attention_v1(q, q, q),
+        "split_bwd": lambda: fb.flash_attention_bwd(q, q, q, q, q, lse, off, causal=True),
+        "fused_bwd": lambda: fb.flash_attention_bwd_fused(q, q, q, q, q, lse, off, causal=True),
+        "tri_bwd": lambda: ft.flash_attention_bwd_tri(q, q, q, q, q, lse),
+        "quant": lambda: qt.flash_attention_quant(q, qkv, off, causal=True),
+        "paged": lambda: pg.flash_attention_paged(q, pool, pool, table, off),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="Queue C item 2"):
+            call()
+        print(name, "raises")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_fp16_grads_through_flash_attention(cuda, causal):
+    """fp16 CUDA tensors through the op: the forward and both backward
+    kernels run in fp32 on casts, the gradients come back fp16 and equal
+    the plain fp32 gradient rounded to fp16 within 2e-3 of its max-abs
+    (fp32 kernel sums vs plain sums, then one fp16 rounding each)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    q, k, v = onchip.ladder_inputs((2, 4, 256, 64), (2, 2, 256, 64), torch.float16, gen)
+    do = onchip.ladder_inputs((2, 4, 256, 64), (2, 2, 256, 64), torch.float16, gen)[0]
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
+    got = torch.autograd.grad(flash_attention(*leaves, causal=causal), leaves, do)
+    assert (fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(flash_attention(*leaves, causal=causal, impl="reference"),
+                               leaves, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float16
+        w16 = w.half().float()
+        assert float((g.float() - w16).abs().max() / w16.abs().max()) <= 2e-3
+
+
+# ---------------------------------------------------------------------------
+# Block-sparse attention (csrc/flash_mask.cu): forward, dK/dV and dQ.
+# ---------------------------------------------------------------------------
+
+SPARSE_N = 512
+SPARSE_MASKS = {
+    "banded-stripes": lambda r, c: (c <= r) & (((r - c) < 96) | ((c % 192) < 64)),
+    "chunked-local": lambda r, c: (r // 160) == (c // 160),
+    "dead-rows": lambda r, c: (r >= 64) & (c <= r),
+    "rung11": lambda r, c: (c <= r) & (((r - c) < SPARSE_N // 4)
+                                       | ((c % (3 * SPARSE_N // 8)) < SPARSE_N // 8)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fixture", ["ladder", "peaked"])
+@pytest.mark.parametrize("mask", sorted(SPARSE_MASKS))
+def test_sparse_kernels_match_plain(cuda, mask, fixture, dtype, head_dim):
+    """Each sparse kernel against its plain version (GQA 2, one launch
+    each); dead rows give o = 0, lse = -inf and zero dQ."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    bm = fm.BlockMask(SPARSE_MASKS[mask], SPARSE_N, SPARSE_N, 128, 128)
+    shape_q, shape_kv = (2, 4, SPARSE_N, head_dim), (2, 2, SPARSE_N, head_dim)
+    scale = onchip.PEAKED_Q_SCALE if fixture == "peaked" else 1.0
+    q, k, v = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen, scale)
+    do = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+    counters = (fm.flash_sparse_fwd, fm.flash_sparse_dkv, fm.flash_sparse_dq)
+    before = [c.launches for c in counters]
+    errors = onchip.sparse_kernel_errors((q, k, v, do, bm))
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    assert max(errors["o"]) <= TOL[dtype], errors
+    assert max(errors[g][1] for g in ("dq", "dk", "dv")) <= BWD_TOL[dtype], errors
+    if mask == "dead-rows":
+        o, lse = fm.flash_attention_block_sparse_fwd(q, k, v, bm, save_lse=True)
+        assert torch.all(o[:, :, :64] == 0) and torch.all(torch.isneginf(lse[:, :, :64]))
+        dq = fm.flash_attention_block_sparse_bwd(q, k, v, o, do, lse, bm)[0]
+        assert torch.all(dq[:, :, :64] == 0) and bool(torch.isfinite(dq).all())
+
+
+@pytest.mark.gpu
+def test_sparse_op_grads_on_the_card(cuda):
+    """``torch.autograd.grad`` through ``block_sparse_attention`` launches
+    the three kernels once each and matches the plain gradient (the chip
+    smoke's check at a smaller shape)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    bm = fm.BlockMask(SPARSE_MASKS["rung11"], SPARSE_N, SPARSE_N, 128, 128)
+    q, k, v = onchip.ladder_inputs((2, 4, SPARSE_N, 64), (2, 2, SPARSE_N, 64), torch.bfloat16, gen)
+    do = onchip.ladder_inputs((2, 4, SPARSE_N, 64), (2, 2, SPARSE_N, 64), torch.bfloat16, gen)[0]
+    counters = (fm.flash_sparse_fwd, fm.flash_sparse_dkv, fm.flash_sparse_dq)
+    before = [c.launches for c in counters]
+    errors = onchip.sparse_op_grad_errors((q, k, v, do, bm))
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    assert max(errors.values()) <= BWD_TOL[torch.bfloat16], errors
+
+
+@pytest.mark.gpu
+def test_sparse_kernels_are_deterministic(cuda):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    bm = fm.BlockMask(SPARSE_MASKS["rung11"], SPARSE_N, SPARSE_N, 128, 128)
+    q, k, v = onchip.ladder_inputs((2, 8, SPARSE_N, 64), (2, 2, SPARSE_N, 64), torch.bfloat16, gen)
+    o, lse = fm.flash_attention_block_sparse_fwd(q, k, v, bm, save_lse=True)
+    first = fm.flash_attention_block_sparse_bwd(q, k, v, o, q, lse, bm)
+    second = fm.flash_attention_block_sparse_bwd(q, k, v, o, q, lse, bm)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_sparse_kernels_reject_what_they_do_not_take(cuda):
+    bm = fm.BlockMask(SPARSE_MASKS["rung11"], SPARSE_N, SPARSE_N, 128, 128)
+    q = torch.zeros((1, 2, SPARSE_N, 96), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fm.block_sparse_attention(q, q, q, bm)
+    q = torch.zeros((1, 2, SPARSE_N, 64), device=cuda)
+    with pytest.raises(TypeError):
+        fm.flash_sparse_fwd(q, q.bfloat16(), q, bm, sm_scale=0.125)
+    with pytest.raises(ValueError, match="mask compiled"):
+        fm.block_sparse_attention(q[:, :, :256], q[:, :, :256], q[:, :, :256], bm)
+
+
+# Faults planted in a copy of csrc/flash_mask.cu: (the kernels whose check
+# must fail, text, replacement).
+PLANTED_SPARSE_FAULTS = {
+    # the forward walks each Q tile's KV list one entry short
+    "fwd_kv_entry_dropped": (("o",), "e < last; ++e) {  // the Q tile's KV list",
+                             "e < last - 1; ++e) {  // the Q tile's KV list"),
+    # the dQ kernel walks each Q tile's KV list one entry short
+    "dq_kv_entry_dropped": (("dq",), "e < last; ++e) {  // the KV list again",
+                            "e < last - 1; ++e) {  // the KV list again"),
+    # the dK/dV kernel walks each KV tile's transposed Q list one entry short
+    "dkv_q_entry_dropped": (("dk", "dv"), "e < last; ++e) {  // the transposed Q list",
+                            "e < last - 1; ++e) {  // the transposed Q list"),
+    # every partial pair's mask read one column off
+    "mask_bit_off_by_one": (("o", "dq", "dk", "dv"),
+                            "bit_tiles[((size_t)bits * kTile + r) * kBitWords + half];",
+                            "(bit_tiles[((size_t)bits * kTile + r) * kBitWords + half] << 1);"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_SPARSE_FAULTS))
+def test_planted_sparse_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's block-sparse checks (rung 11's mask at the training
+    shape, ladder and peaked fixtures) pass the kernels as built and fail a
+    copy with a planted fault in each kernel it touches (errors printed
+    with ``-s``)."""
+    outputs, old, new = PLANTED_SPARSE_FAULTS[fault]
+    lib = fm.bind(_planted_library(tmp_path, "flash_mask.cu", "flash_mask.cu", old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.sparse_cases(gen)
+    names = ("sparse_bf16", "sparse_bf16_peaked")
+
+    def worst(errs, out):
+        return max(errs["o"]) if out == "o" else errs[out][1]
+
+    clean = {n: onchip.sparse_kernel_errors(cases[n]) for n in names}
+    monkeypatch.setattr(fm, "_lib", lambda: lib)
+    faulty = {n: onchip.sparse_kernel_errors(cases[n]) for n in names}
+    print(f"\n{fault}, worst error built -> planted:\n" + "\n".join(
+        f"  {n}: " + ", ".join(f"{out} {worst(clean[n], out):.3e} -> {worst(faulty[n], out):.3e}"
+                               for out in ("o", "dq", "dk", "dv")) for n in names))
+    tol = {"o": TOL[torch.bfloat16], "dq": BWD_TOL[torch.bfloat16], "dk": BWD_TOL[torch.bfloat16],
+           "dv": BWD_TOL[torch.bfloat16]}
+    for n in names:
+        assert all(worst(clean[n], out) <= tol[out] for out in tol)
+        for out in outputs:
+            assert not worst(faulty[n], out) <= tol[out], (n, out)

@@ -54,6 +54,7 @@ def test_the_scan_covers_the_port():
     assert "chip_smoke.py" in FILES
     assert f"{PORT}/kernels/flash_v1.py" in FILES
     assert f"{PORT}/harness/autotune.py" in FILES
+    assert f"{PORT}/kernels/flash_mask.py" in FILES
     assert len(FILES) > 40
 
 
