@@ -38,7 +38,10 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   naming the fused kernel (launched there, the split pair never);
 * the reference benchmark's CSV sweep: both V1 kernels (streaming and
   folded) against their plain version in fp32, and ``run_sweep`` at N =
-  128 and 1024, each point launching its V1 kernel.
+  128 and 1024, each point launching its V1 kernel;
+* block-sparse attention under ladder rung 11's mask, then head dim 128:
+  every kernel against its plain version at its path's shape with D = 128,
+  with its device, plain, bound and library times.
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -271,14 +274,15 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     return {"records": records, "serving": serving_out, "sdpa_decode": sdpa_decode}
 
 
-def grad_check(gen: torch.Generator) -> dict:
+def grad_check(gen: torch.Generator, head_dim: int = 64) -> dict:
     """Every parameter's gradient at full width, depth 2, batch 1, seq
     2048, with the kernels' attention against the fp32 oracle attention
     (bf16 compute both ways); fails above ``GRAD_REL_L2_TOL``."""
     from flash_attention_metal_tpu_torch.harness import train_bench
     from flash_attention_metal_tpu_torch.models import transformer as tf
 
-    gcfg = train_bench.flashlm_config(n_layers=GRAD_CHECK_LAYERS)
+    gcfg = dataclasses.replace(train_bench.flashlm_config(n_layers=GRAD_CHECK_LAYERS),
+                               head_dim=head_dim)
     gen.manual_seed(SEED)
     gparams = tf.init_params(gcfg, gen, master_dtype=torch.float32)
     gtokens = train_bench.fixed_batch(gcfg, 1, 2048, SEED + 2)
@@ -413,7 +417,8 @@ def fused_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
         print(f"[fused-kernel] {name} q {tuple(args[0].shape)} kv {tuple(args[1].shape)}: "
               + ", ".join(f"{g} max_abs {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items())
               + f" (tol rel {tol})")
-    del inputs["high_occupancy_bf16"], inputs["train_bf16_peaked"], inputs["train_fp32_n512"]
+    for name in ("high_occupancy_bf16", "train_bf16_peaked", "train_bf16_spike", "train_fp32_n512"):
+        del inputs[name]
     torch.cuda.empty_cache()
 
     # The autotuner's race at the high-occupancy and the training shape.
@@ -614,62 +619,203 @@ def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) 
     return records
 
 
-def d128_times(gen: torch.Generator, stamp: str, spec) -> dict:
-    """The forward router's three kernels at head dim 128, each at one shape
-    of its path: device ms, plain ms and bound, and the same kernel's device
-    ms at head dim 64 on the same shape, in the same run
-    (``{kernel: {...}}``)."""
+def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
+    """Every kernel at head dim 128, at its path's shape with D = 128 (the
+    ladder fixture; the split pair also peaked): its error against its plain
+    version (checked), device ms, plain ms, bound and SDPA's ms; the forward
+    router's three also beside their own ms at head dim 64 on the same shape.
+    Returns ``{kernel: {...}}``."""
     from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
     from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
+    from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
     from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+    from flash_attention_metal_tpu_torch.kernels import flash_v1 as fv
+    from flash_attention_metal_tpu_torch.kernels import naive as nv
     from flash_attention_metal_tpu_torch.utils import roofline
 
-    off = torch.tensor([512], dtype=torch.int32, device="cuda")
-    shapes = {
-        "flash_fwd": (onchip.PREFILL_D128_Q, onchip.PREFILL_D128_KV,
-                      "prefill q [1,16,512,{d}] kv [1,8,2048,{d}] offset 512 bf16"),
-        "flash_lean": (onchip.SWEEP_1024_D128, onchip.SWEEP_1024_D128,
-                       "sweep N=1024 B=8 H=1 D={d} bf16 non-causal"),
-        "flash_tri": (onchip.TRI_D128, onchip.TRI_D128, "q [2,8,2048,{d}] bf16 causal, lse"),
-    }
-
-    def calls(name, q, k, v):
-        """(kernel, plain, (flops, bytes)) of one kernel on these inputs."""
-        d = q.shape[-1]
-        scale = d ** -0.5
-        if name == "flash_fwd":
-            return (lambda: ff.flash_fwd_general(q, k, v, off, causal=True),
-                    lambda: ff.flash_attention_fwd_plain(q, k, v, off, sm_scale=scale, causal=True),
-                    onchip.fwd_work(q, k, [512]))
-        if name == "flash_lean":
-            b, h, n, _ = q.shape
-            return (lambda: ff.flash_fwd_lean(q, k, v),
-                    lambda: ff.flash_fwd_lean_plain(q, k, v, 0, sm_scale=scale, causal=False),
-                    (4.0 * d * b * h * n * n, 4.0 * q.numel() * 2))
-        b, h, n, _ = q.shape
-        return (lambda: ft.flash_attention_tri(q, k, v, save_lse=True),
-                lambda: ft.flash_attention_tri_plain(q, k, v, 0, sm_scale=scale, save_lse=True),
-                (4.0 * d * b * h * roofline.visible_pairs(n, n, 0),
-                 4.0 * q.numel() * 2 + 4 * q.numel() // d))
-
+    bf16, f32 = torch.bfloat16, torch.float32
+    scale = 128 ** -0.5
     out = {}
-    for name, (shape_q, shape_kv, shape) in shapes.items():
-        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
-        kernel_fn, plain_fn, (flops, nbytes) = calls(name, q, k, v)
-        q64, k64, v64 = (x[..., :64].contiguous() for x in (q, k, v))
-        out[name] = {
-            "ms": onchip.device_ms(kernel_fn),
-            "plain_ms": onchip.device_ms(plain_fn, iters=5),
-            "bound_ms": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
-            "bound_by": roofline.bound_by(flops, nbytes, spec, 16),
-            "shape": shape.format(d=128),
-            "ms_at_d64": onchip.device_ms(calls(name, q64, k64, v64)[0]),
-        }
-        r = out[name]
-        print(f"[time] kernel {name} at head dim 128, {r['shape']}: device {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); the same "
-              f"shape at head dim 64 {r['ms_at_d64']:.4f} ms {stamp}")
-        del q, k, v, q64, k64, v64
+
+    # The training path at head dim 128: every gradient at depth 2 against
+    # the fp32 oracle attention, the backward through the split pair.
+    fb.flash_bwd_dkv.launches = fb.flash_bwd_dq.launches = 0
+    g = grad_check(gen, head_dim=128)
+    launches = [fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches]
+    check(launches == [GRAD_CHECK_LAYERS] * 2,
+          f"head dim 128 gradients launch the split pair once a layer: {launches}")
+    print(f"[d128] grad check, head dim 128: {grad_line(g)}; split pair launches {launches}")
+    out["training_d128"] = {"grad_rel_l2_max": g["worst"], "launches_dkv_dq": launches}
+
+    def nb(*tensors):
+        return float(sum(t.numel() * t.element_size() for t in tensors))
+
+    def record(name, err, tol, kernel_fn, plain_fn, library, work, bits, shape, d64_fn=None):
+        check(err <= tol, f"{name} at head dim 128: error {err:.3e} > {tol}")
+        r = timed_record(kernel_fn, plain_fn, library, *work, bits, shape, spec)
+        r["err"] = err
+        if d64_fn is not None:
+            r["ms_at_d64"] = onchip.device_ms(d64_fn)
+        out[name] = r
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"[d128] kernel {name} at {shape}: error {err:.3e} (tol {tol}); device "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms "
+              f"({r['library_backend']}), bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+              + ("" if d64_fn is None else f"; the same shape at head dim 64 {r['ms_at_d64']:.4f} ms")
+              + f" {stamp}")
+
+    def d64(*xs):
+        return [x[..., :64].contiguous() for x in xs]
+
+    # Row 1: the general forward at the prefill chunk, offset 512.
+    q, k, v = onchip.ladder_inputs(onchip.PREFILL_D128_Q, onchip.PREFILL_D128_KV, bf16, gen)
+    off = torch.tensor([512], dtype=torch.int32, device="cuda")
+    n_q, n_kv = q.shape[2], k.shape[2]
+    mask = torch.arange(n_kv, device="cuda")[None, :] <= torch.arange(n_q, device="cuda")[:, None] + 512
+    q6, k6, v6 = d64(q, k, v)
+    record("flash_fwd", max(onchip.kernel_error((q, k, v, off, 1))), onchip.TOL[bf16],
+           lambda: ff.flash_fwd_general(q, k, v, off, causal=True),
+           lambda: ff.flash_attention_fwd_plain(q, k, v, off, sm_scale=scale, causal=True),
+           onchip.sdpa_ms(q, k, v, mask=mask), onchip.fwd_work(q, k, [512]), 16,
+           "prefill q [1,16,512,128] kv [1,8,2048,128] offset 512 bf16",
+           lambda: ff.flash_fwd_general(q6, k6, v6, off, causal=True))
+    # Rows 2, 8, 9: lean (bf16), naive and streaming V1 (fp32) at the sweep's N = 1024.
+    shp = onchip.SWEEP_1024_D128
+    b, h, n, d = shp
+    full = (4.0 * d * b * h * n * n, 0.0)
+    q, k, v = onchip.ladder_inputs(shp, shp, bf16, gen)
+    q6, k6, v6 = d64(q, k, v)
+    record("flash_lean", max(onchip.ladder_fwd_error("flash_lean", (q, k, v), dict(save_lse=True))),
+           onchip.TOL[bf16], lambda: ff.flash_fwd_lean(q, k, v),
+           lambda: ff.flash_fwd_lean_plain(q, k, v, 0, sm_scale=scale, causal=False),
+           onchip.sdpa_ms(q, k, v), (full[0], 2 * nb(q, k)), 16,
+           "sweep N=1024 B=8 H=1 D=128 bf16 non-causal", lambda: ff.flash_fwd_lean(q6, k6, v6))
+    q, k, v = onchip.ladder_inputs(shp, shp, f32, gen)
+    library = onchip.sdpa_ms(q, k, v)
+    record("naive", onchip.ladder_fwd_error("naive", (q, k, v), {})[0], onchip.TOL[f32],
+           lambda: nv.naive_attention(q, k, v),
+           lambda: nv.naive_attention_plain(q, k, v, sm_scale=scale, causal=False),
+           library, (full[0], 2 * nb(q, k)), 32, "sweep N=1024 B=8 H=1 D=128 fp32 non-causal")
+    check(onchip.v1_kernel(shp) == "flash_v1", "the sweep's N = 1024 takes streaming V1")
+    record("flash_v1", onchip.v1_error((q, k, v), False), onchip.TOL[f32],
+           lambda: fv.flash_attention_v1(q, k, v),
+           lambda: fv.flash_attention_v1_plain(q, k, v, sm_scale=scale, causal=False),
+           library, (full[0], 2 * nb(q, k)), 32, "sweep N=1024 B=8 H=1 D=128 fp32 non-causal")
+    # Row 10: folded V1 at the sweep's N = 128.
+    shp = onchip.SWEEP_128_D128
+    check(onchip.v1_kernel(shp) == "flash_v1_folded", "the sweep's N = 128 takes folded V1")
+    q, k, v = onchip.ladder_inputs(shp, shp, f32, gen)
+    record("flash_v1_folded", onchip.v1_error((q, k, v), False), onchip.TOL[f32],
+           lambda: fv.flash_attention_v1(q, k, v),
+           lambda: fv.flash_attention_v1_plain(q, k, v, sm_scale=scale, causal=False),
+           onchip.sdpa_ms(q, k, v), (4.0 * 128 * shp[0] * shp[2] ** 2, 2 * nb(q, k)), 32,
+           "sweep N=128 B=512 H=1 D=128 fp32 non-causal")
+    del q, k, v, q6, k6, v6
+    # Rows 3-4: the triangular forward and backward, causal.
+    shp = onchip.TRI_D128
+    b, h, n, d = shp
+    pairs = b * h * roofline.visible_pairs(n, n, 0)
+    q, k, v = onchip.ladder_inputs(shp, shp, bf16, gen)
+    do = onchip.ladder_inputs(shp, shp, bf16, gen)[0]
+    q6, k6, v6 = d64(q, k, v)
+    o, lse = ft.flash_attention_tri(q, k, v, save_lse=True)
+    record("flash_tri", max(onchip.ladder_fwd_error("flash_tri", (q, k, v), dict(save_lse=True))),
+           onchip.TOL[bf16], lambda: ft.flash_attention_tri(q, k, v, save_lse=True),
+           lambda: ft.flash_attention_tri_plain(q, k, v, 0, sm_scale=scale, save_lse=True),
+           onchip.sdpa_ms(q, k, v, causal=True), (4.0 * d * pairs, 2 * nb(q, k) + nb(lse)), 16,
+           "q [2,8,2048,128] bf16 causal, lse", lambda: ft.flash_attention_tri(q6, k6, v6, save_lse=True))
+    errs = onchip.tri_bwd_errors((q, k, v, o, do, lse, 0))
+    record("flash_tri_bwd", max(r for _, r in errs.values()), onchip.BWD_TOL[bf16],
+           lambda: ft.flash_attention_bwd_tri(q, k, v, o, do, lse),
+           lambda: ft.flash_attention_bwd_tri_plain(q, k, v, o, do, lse, 0, sm_scale=scale),
+           onchip.sdpa_ms(q, k, v, causal=True, backward_of=do),
+           (10.0 * d * pairs, 5 * nb(q) + nb(lse) + nb(q) + 4 * q.numel() * 2), 16,
+           "q [2,8,2048,128] bf16 causal")
+    del q, k, v, do, o, lse, q6, k6, v6
+    torch.cuda.empty_cache()
+    # Rows 5-7: the split pair (ladder and peaked) and the fused backward at
+    # the training shape.
+    errs = {}
+    for tag, q_scale in (("_peaked", onchip.PEAKED_Q_SCALE), ("", 1.0)):
+        q, k, v = onchip.ladder_inputs(onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV, bf16, gen, q_scale)
+        do = onchip.ladder_inputs(onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV, bf16, gen)[0]
+        inputs = onchip.bwd_inputs((q, k, v, do, torch.zeros(4, dtype=torch.int32, device="cuda")))
+        errs[tag] = onchip.bwd_kernel_errors(inputs)
+        print(f"[d128] split pair, training shape q {tuple(q.shape)}{tag}: "
+              + ", ".join(f"{g} rel {r:.3e}" for g, (_, r) in errs[tag].items()))
+    # Timed on the ladder fixture, as at head dim 64.
+    q, k, v, o, do, lse, off = inputs
+    delta = fb.bwd_delta(o, do, None)
+    kw = dict(sm_scale=scale, causal=True)
+    b, h, n, d = q.shape
+    pairs = b * h * roofline.visible_pairs(n, n, 0)
+    library = onchip.sdpa_ms(q, k, v, causal=True, backward_of=do)
+    rows = nb(lse, delta)
+    shape = "training q [4,16,2048,128] kv [4,8,2048,128] bf16 causal"
+    for name, grads, flops, nbytes, kernel_fn, plain_fn in (
+        ("flash_bwd_dkv", ("dk", "dv"), 8 * d * pairs, nb(q, do, k, v, k, v) + rows,
+         lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw),
+         lambda: fb.flash_bwd_dkv_plain(q, k, v, do, lse, delta, off, **kw)),
+        ("flash_bwd_dq", ("dq",), 6 * d * pairs, nb(q, do, k, v, q) + rows,
+         lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw),
+         lambda: fb.flash_bwd_dq_plain(q, k, v, do, lse, delta, off, **kw)),
+    ):
+        record(name, max(e[g][1] for e in errs.values() for g in grads), onchip.BWD_TOL[bf16],
+               kernel_fn, plain_fn, library, (flops, nbytes), 16, shape)
+    errs = onchip.bwd_kernel_errors(inputs, fused=True)
+    record("flash_bwd_fused", max(r for _, r in errs.values()), onchip.BWD_TOL[bf16],
+           lambda: fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, q_offset_max=0, **kw),
+           lambda: fb.flash_attention_bwd_fused_plain(q, k, v, o, do, lse, off, **kw), library,
+           roofline.fused_bwd_work(b, h, k.shape[1], n, n, d, 2, causal=True), 16, shape)
+    out["flash_bwd_fused"]["workspace_bytes"] = fb.fused_workspace_bytes(
+        q, k, 0, causal=True, q_offset_max=0)
+    del q, k, v, o, do, lse, off, delta, inputs
+    torch.cuda.empty_cache()
+    # Rows 11-13: the KV caches' kernels at folded decode; SDPA over a dense
+    # bf16 cache of the same shape beside them (another function).
+    lengths = torch.from_numpy(onchip.decode_lengths()).to("cuda")
+    qd, kd, vd = onchip.ladder_inputs(onchip.DECODE_D128_Q, onchip.DECODE_D128_KV, bf16, gen)
+    cols = torch.arange(onchip.DECODE_D128_KV[2], device="cuda")
+    dense = onchip.sdpa_ms(qd, kd, vd, mask=(cols <= lengths[:, None])[:, None, None, :])
+    del qd, kd, vd
+    for case, (kernel, args, pos_div) in onchip.kv_d128_cases(gen).items():
+        err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
+        wrapper, plain = onchip.KV_KERNELS[kernel]
+        record(kernel, max(err, lse_err), onchip.TOL[bf16], lambda: wrapper(*args, pos_div),
+               lambda: plain(*args, pos_div), (None, "none: no PyTorch call attends over an "
+                                               "8-bit or paged cache"),
+               onchip.kv_work(kernel, args, pos_div), 16,
+               "decode q [8,8,2,128] pos_div 2 over [8,8,2048,128] at onchip.decode_lengths()"
+               + ("" if kernel == "flash_paged" else ", int8"))
+        out[kernel]["sdpa_dense_bf16_ms"] = dense[0]
+    # Rows 14-16: block-sparse under rung 11's mask.
+    bm = onchip.sparse_mask()
+    q, k, v = onchip.ladder_inputs(onchip.SPARSE_D128_Q, onchip.SPARSE_D128_KV, bf16, gen)
+    do = onchip.ladder_inputs(onchip.SPARSE_D128_Q, onchip.SPARSE_D128_KV, bf16, gen)[0]
+    errs = onchip.sparse_kernel_errors((q, k, v, do, bm))
+    o, lse = fm.flash_sparse_fwd(q, k, v, bm, sm_scale=scale, save_lse=True)
+    delta = fb.bwd_delta(o, do, None)
+    dense_mask = bm.dense("cuda")
+    b, h, n, d = q.shape
+    visible = bm.visible_pairs()
+    shape = "q [1,8,2048,128] kv [1,4,2048,128] bf16, rung 11's mask"
+    fwd_library = onchip.sdpa_ms(q, k, v, mask=dense_mask)
+    bwd_library = onchip.sdpa_ms(q, k, v, mask=dense_mask, backward_of=do, with_forward=True)
+    for name, err, tol, work, library, kernel_fn, plain_fn in (
+        ("flash_sparse_fwd", max(errs["o"]), onchip.TOL[bf16], "fwd", fwd_library,
+         lambda: fm.flash_sparse_fwd(q, k, v, bm, sm_scale=scale, save_lse=True),
+         lambda: fm.flash_sparse_fwd_plain(q, k, v, bm, sm_scale=scale, save_lse=True)),
+        ("flash_sparse_dkv", max(errs[g][1] for g in ("dk", "dv")), onchip.BWD_TOL[bf16], "dkv",
+         bwd_library, lambda: fm.flash_sparse_dkv(q, k, v, do, lse, delta, bm, sm_scale=scale),
+         lambda: fm.flash_sparse_dkv_plain(q, k, v, do, lse, delta, bm, sm_scale=scale)),
+        ("flash_sparse_dq", errs["dq"][1], onchip.BWD_TOL[bf16], "dq", bwd_library,
+         lambda: fm.flash_sparse_dq(q, k, v, do, lse, delta, bm, sm_scale=scale),
+         lambda: fm.flash_sparse_dq_plain(q, k, v, do, lse, delta, bm, sm_scale=scale)),
+    ):
+        record(name, err, tol, kernel_fn, plain_fn, library,
+               roofline.block_sparse_work(b, h, k.shape[1], n, n, d, 2, visible, work), 16, shape)
+    del q, k, v, do, o, lse, delta, dense_mask
     torch.cuda.empty_cache()
     return out
 
@@ -815,11 +961,13 @@ def main() -> int:
     kv = kv_cache_phase(gen, stamp, spec)
 
     # 7. Backward kernels against their plain versions at the training
-    # shape (bf16 ladder and peaked fixtures, fp32 at N = 512).
+    # shape (bf16 ladder, peaked and spike fixtures, fp32 at N = 512); the
+    # bf16 pair bitwise deterministic.
     train_cases = onchip.train_cases(gen)
     bwd_errors = {}
     for name, case in train_cases.items():
-        errs = onchip.bwd_kernel_errors(onchip.bwd_inputs(case))
+        inputs = onchip.bwd_inputs(case)
+        errs = onchip.bwd_kernel_errors(inputs)
         tol = onchip.BWD_TOL[case[0].dtype]
         bwd_errors[name] = errs
         worst_rel = max(rel for _, rel in errs.values())
@@ -827,6 +975,13 @@ def main() -> int:
         print(f"[bwd-kernel] {name} q {tuple(case[0].shape)} kv {tuple(case[1].shape)}: "
               + ", ".join(f"{g} max_abs {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items())
               + f" (tol rel {tol})")
+        if name == "train_bf16_peaked":
+            runs = [fb.flash_attention_bwd(*inputs, causal=True) for _ in range(2)]
+            check(all(torch.equal(a, b) for a, b in zip(*runs)),
+                  f"{name}: two runs of the split pair give the same bits")
+            print(f"[bwd-kernel] {name}: two runs bitwise equal")
+            del runs
+        del inputs
 
     # 8. Gradients at full width, depth 2, batch 1: kernel attention
     # against the fp32 oracle attention, every parameter.
@@ -1053,7 +1208,7 @@ def main() -> int:
     # 15. Block-sparse attention: its three kernels, the op's forward and
     # backward, and the forward router's kernels at head dim 128.
     sparse_records = sparse_phase(gen, stamp, spec, ladder_sparse)
-    d128 = d128_times(gen, stamp, spec)
+    d128 = d128_phase(gen, stamp, spec)
 
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
@@ -1090,10 +1245,16 @@ def main() -> int:
             **times_of(name),
         }
 
-    def with_d128(rec, name):
-        rec.update({f"{key}_d128": d128[name][key] for key in ("ms", "plain_ms", "bound_ms",
-                                                                "bound_by", "shape")})
-        rec["ms_d64_same_shape"] = d128[name]["ms_at_d64"]
+    def with_d128(rec):
+        """The kernel's head-dim-128 numbers beside its record's."""
+        r = d128[rec["name"]]
+        rec.update({f"{key}_d128": r[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend", "shape")})
+        rec["max_err_d128"] = r["err"]
+        for key, name in (("ms_at_d64", "ms_d64_same_shape"), ("workspace_bytes", "workspace_bytes_d128"),
+                          ("sdpa_dense_bf16_ms", "sdpa_dense_bf16_ms_d128")):
+            if key in r:
+                rec[name] = r[key]
         return rec
 
     lean_rec = ladder_record("flash_lean", "flash_lean.cu",
@@ -1105,7 +1266,7 @@ def main() -> int:
                             "flash_attention_metal_tpu/kernels/flash_tri.py:50", "flash_tri")
     tri_rec["max_abs_err_fp32"] = ladder_err("flash_tri", torch.float32)
     record = {
-        "kernels": [with_d128({
+        "kernels": [with_d128(r) for r in [{
             "name": "flash_fwd",
             "route": "cuda",
             "source": "flash_attention_metal_tpu_torch/csrc/flash_fwd.cu",
@@ -1123,14 +1284,13 @@ def main() -> int:
             "train_ms": train_times["flash_fwd"][0],
             "train_plain_ms": train_times["flash_fwd"][1],
             **fwd_extra,
-            "max_abs_err_d128": errors["prefill_bf16_d128_off512"],
-        }, "flash_fwd"),
+        },
             bwd_record("flash_bwd_dkv", 79, ("dk", "dv")),
             bwd_record("flash_bwd_dq", 268, ("dq",)),
             ladder_record("naive", "naive.cu", "flash_attention_metal_tpu/kernels/naive.py:31",
                           "naive"),
-            with_d128(lean_rec, "flash_lean"),
-            with_d128(tri_rec, "flash_tri"),
+            lean_rec,
+            tri_rec,
             {
                 "name": "flash_tri_bwd",
                 "route": "cuda",
@@ -1146,7 +1306,7 @@ def main() -> int:
             fused["record"],
             *v1_records,
             *sparse_records,
-        ],
+        ]],
         "serving": {
             "tokens_per_s": bench["tokens_per_s"],
             "ms_per_step": bench["ms_per_step"],
@@ -1162,7 +1322,9 @@ def main() -> int:
             "mfu": train["mfu"],
             "losses": losses,
             "grad_rel_l2_max": grads["worst"],
+            "train_launches": train_launches,
         },
+        "training_d128": d128.pop("training_d128"),
         "training_fused_backward": {
             "step_ms": fused["step_ms"],
             "losses": fused["losses"],

@@ -2,9 +2,9 @@
 // in a block: the triangular backward (flash_tri.cu) and the fused one
 // (flash_bwd.cu).
 //
-// Each (Q tile, KV tile) pair that a head's rows see has one fp32 64 x 64
-// slot, into which the KV tile's block writes the pair's dQ contribution
-// dS K (unscaled).  A head's slots are packed: Q tile i owns slots
+// Each (Q tile, KV tile) pair that a head's rows see has one fp32 64 x D
+// slot (D the head dim), into which the KV tile's block writes the pair's
+// dQ contribution dS K (unscaled).  A head's slots are packed: Q tile i owns slots
 // first_slot(i) .. first_slot(i) + visible_kv_tiles(i) - 1, in KV-tile order,
 // and a head holds visible_pairs slots.  reduce_kernel sums each Q tile's
 // slots in that order and scales: every dQ element is summed in a fixed
@@ -26,8 +26,7 @@
 namespace {
 namespace dq_slots {
 
-constexpr int kTile = 64;  // rows of a Q tile, columns of a KV tile, head dim
-constexpr int kTileElems = kTile * kTile;  // one slot
+constexpr int kTile = 64;  // rows of a Q tile and of a KV tile
 constexpr int kReduceThreads = 256;
 
 // Last column row `row` sees (-1: none, also for padding rows).
@@ -65,21 +64,22 @@ __device__ __forceinline__ int batch_offset(const int* q_offset, int b, int off_
 
 // One block per (batch x head, Q tile i): dQ of the tile, the sum of its
 // slots in KV-tile order, scaled.  A tile that sees nothing gets 0.
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kReduceThreads)
     reduce_kernel(const float* __restrict__ ws, const int* __restrict__ q_offset,
                   int off_bound, T* __restrict__ dq, int n_heads, int n_q, int n_kv,
                   int n_pairs, float sm_scale) {
+  constexpr int kSlot = kTile * D;  // elements of one slot
   const size_t bh = blockIdx.x;
   const int i = blockIdx.y;
   const int off = batch_offset(q_offset, (int)(bh / n_heads), off_bound);
   const int n_slots = visible_kv_tiles(i, n_q, n_kv, off);
-  const float* base = ws + (bh * n_pairs + first_slot(i, n_q, n_kv, off)) * kTileElems;
+  const float* base = ws + (bh * n_pairs + first_slot(i, n_q, n_kv, off)) * kSlot;
   const int rows_valid = min(kTile, n_q - i * kTile);
-  T* dst = dq + (bh * n_q + (size_t)i * kTile) * kTile;
-  for (int e = threadIdx.x; e < rows_valid * kTile; e += kReduceThreads) {
+  T* dst = dq + (bh * n_q + (size_t)i * kTile) * D;
+  for (int e = threadIdx.x; e < rows_valid * D; e += kReduceThreads) {
     float acc = 0.0f;
-    for (int j = 0; j < n_slots; ++j) acc += base[(size_t)j * kTileElems + e];
+    for (int j = 0; j < n_slots; ++j) acc += base[(size_t)j * kSlot + e];
     if constexpr (std::is_same<T, __nv_bfloat16>::value) {
       dst[e] = __float2bfloat16(acc * sm_scale);
     } else {
@@ -88,12 +88,12 @@ __global__ void __launch_bounds__(kReduceThreads)
   }
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_reduce(const float* ws, const int* q_offset, int off_bound, T* dq,
                           int batch, int n_heads, int n_q, int n_kv, int n_pairs,
                           float sm_scale, cudaStream_t stream) {
   const dim3 grid(batch * n_heads, (n_q + kTile - 1) / kTile);
-  reduce_kernel<T><<<grid, kReduceThreads, 0, stream>>>(
+  reduce_kernel<T, D><<<grid, kReduceThreads, 0, stream>>>(
       ws, q_offset, off_bound, dq, n_heads, n_q, n_kv, n_pairs, sm_scale);
   return cudaGetLastError();
 }

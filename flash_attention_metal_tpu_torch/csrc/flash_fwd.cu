@@ -5,17 +5,17 @@
 // Replaces four Pallas kernels of flash_attention_metal_tpu/kernels/, each
 // with its own entry point:
 //   * flash_fwd.py::_fwd_kernel (fam_flash_fwd): a dense bf16 / fp32 cache
-//     [B, H_kv, N, D], D = 64 or 128, the kernel of dense serving (chunked
-//     prefill, and GQA-folded decode with pos_div = group) and of the
-//     training forward; the three below take D = 64;
+//     [B, H_kv, N, D], the kernel of dense serving (chunked prefill, and
+//     GQA-folded decode with pos_div = group) and of the training forward;
 //   * quant.py::_quant_fwd_kernel (fam_flash_quant): a dense
-//     [B, H_kv, N, 64] int8 / e4m3 / e5m2 cache with per-token fp32 scales
+//     [B, H_kv, N, D] int8 / e4m3 / e5m2 cache with per-token fp32 scales
 //     [B, H_kv, N];
 //   * paged.py::flash_attention_paged (fam_flash_paged): a bf16 / fp32 page
-//     pool [P, H_kv, page, 64] read through an int32 page table
+//     pool [P, H_kv, page, D] read through an int32 page table
 //     [B, max_pages];
 //   * paged.py::flash_attention_paged_quant (fam_flash_paged_quant): an
 //     8-bit page pool with per-token scales [P, H_kv, page].
+// Every entry takes head dim D = 64 or 128 (a template parameter).
 //
 // Contract, for batch b, q-head h, query row r (KV head h / group):
 //   s[c] = sm_scale * s_k[c] * (q[b,h,r] . k[c])      (s_k = 1 unscaled)
@@ -87,10 +87,9 @@ constexpr int kThreads = 2 * kBlockM;  // two threads per query row
 constexpr int kSCols = kBlockN / 2;    // score columns per thread
 constexpr int kLdP = kBlockN + 8;
 static_assert(kThreads == 2 * kBlockN, "half the threads load each scale row");
-// What depends on the head dim D (the dense entry takes 64 and 128, the
-// 8-bit and paged entries 64).  Shared-memory row pitches: padded to spread
-// banks, and kept multiples of 16 bytes (vector copies) and of 32 bytes per
-// 16 rows (WMMA pointers).
+// What depends on the head dim D (64 or 128).  Shared-memory row pitches:
+// padded to spread banks, and kept multiples of 16 bytes (vector copies)
+// and of 32 bytes per 16 rows (WMMA pointers).
 template <int D>
 struct Dims {
   static constexpr int kOCols = D / 2;  // output columns per thread
@@ -497,7 +496,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename KV, bool kPaged, int D = 64>
+template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                    void* o, void* lse, int batch, int n_heads, int n_kv_heads,
                    int n_q, float sm_scale, int causal, int pos_div,
@@ -525,14 +524,14 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
 
 // The 8-bit caches: dtype 0 = bf16 q, 1 = fp32 q; kv_dtype 1 = int8,
 // 2 = float8_e4m3fn, 3 = float8_e5m2.
-template <bool kPaged>
+template <bool kPaged, int D>
 cudaError_t launch_8bit(int dtype, int kv_dtype, const void* q, const KvArgs& kv,
                         const void* q_offset, void* o, void* lse, int batch,
                         int n_heads, int n_kv_heads, int n_q, float sm_scale,
                         int causal, int pos_div, cudaStream_t s) {
 #define FAM_LAUNCH(T, KV)                                                        \
-  return launch<T, KV, kPaged>(q, kv, q_offset, o, lse, batch, n_heads,         \
-                               n_kv_heads, n_q, sm_scale, causal, pos_div, s)
+  return launch<T, KV, kPaged, D>(q, kv, q_offset, o, lse, batch, n_heads,      \
+                                  n_kv_heads, n_q, sm_scale, causal, pos_div, s)
   if (dtype == 0 && kv_dtype == 1) FAM_LAUNCH(bf16, int8_t);
   if (dtype == 0 && kv_dtype == 2) FAM_LAUNCH(bf16, E4M3);
   if (dtype == 0 && kv_dtype == 3) FAM_LAUNCH(bf16, E5M2);
@@ -546,6 +545,8 @@ cudaError_t launch_8bit(int dtype, int kv_dtype, const void* q, const KvArgs& kv
 bool bad_shape(int batch, int n_heads, int n_kv_heads, int n_q, int pos_div) {
   return pos_div < 1 || n_kv_heads < 1 || n_heads % n_kv_heads != 0 || batch < 1 || n_q < 1;
 }
+
+bool bad_head_dim(int head_dim) { return head_dim != 64 && head_dim != 128; }
 
 bool bad_pages(int n_pages, int page_size, int max_pages) {
   return n_pages < 1 || max_pages < 1 || page_size < kBlockN || page_size % kBlockN != 0;
@@ -581,7 +582,7 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// Dense 8-bit cache: k_q, v_q [B, H_kv, N, 64] int8 / fp8; k_scale, v_scale
+// Dense 8-bit cache: k_q, v_q [B, H_kv, N, D] int8 / fp8; k_scale, v_scale
 // fp32 [B, H_kv, N]; q_offset int32 [B] (read only when causal); lse fp32
 // [B, H, N_q] or null.
 extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
@@ -591,17 +592,23 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                int n_kv, int head_dim, float sm_scale,
                                int causal, int pos_div, int dtype,
                                int kv_dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || head_dim != 64 || n_kv < 1) {
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
+      n_kv < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
                   static_cast<const float*>(v_scale), nullptr, n_kv, 0, 0, 0};
-  return (int)launch_8bit<false>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
-                                 n_heads, n_kv_heads, n_q, sm_scale, causal,
-                                 pos_div, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(head_dim == 64
+                   ? launch_8bit<false, 64>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
+                                            n_heads, n_kv_heads, n_q, sm_scale, causal,
+                                            pos_div, s)
+                   : launch_8bit<false, 128>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
+                                             n_heads, n_kv_heads, n_q, sm_scale, causal,
+                                             pos_div, s));
 }
 
-// bf16 / fp32 page pool: pool_k, pool_v [n_pages, H_kv, page_size, 64] in
+// bf16 / fp32 page pool: pool_k, pool_v [n_pages, H_kv, page_size, D] in
 // q's type; table int32 [B, max_pages]; lengths int32 [B] (the causal
 // offset).  page_size is a multiple of 64.
 extern "C" int fam_flash_paged(const void* q, const void* pool_k,
@@ -611,25 +618,25 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
                                int n_pages, int page_size, int max_pages,
                                int head_dim, float sm_scale, int pos_div,
                                int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || head_dim != 64 ||
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages)) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{pool_k, pool_v, nullptr, nullptr, static_cast<const int*>(table),
                   max_pages * page_size, page_size, max_pages, n_pages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch<bf16, bf16, true>(q, kv, lengths, o, nullptr, batch, n_heads,
-                                         n_kv_heads, n_q, sm_scale, 1, pos_div, s);
-  }
-  if (dtype == 1) {
-    return (int)launch<float, float, true>(q, kv, lengths, o, nullptr, batch, n_heads,
-                                           n_kv_heads, n_q, sm_scale, 1, pos_div, s);
-  }
+#define FAM_LAUNCH(T, D)                                                                  \
+  return (int)launch<T, T, true, D>(q, kv, lengths, o, nullptr, batch, n_heads, n_kv_heads, \
+                                    n_q, sm_scale, 1, pos_div, s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// 8-bit page pool: pool_k_q, pool_v_q [n_pages, H_kv, page_size, 64] int8 /
+// 8-bit page pool: pool_k_q, pool_v_q [n_pages, H_kv, page_size, D] int8 /
 // fp8; pool_k_scale, pool_v_scale fp32 [n_pages, H_kv, page_size]; table
 // and lengths as fam_flash_paged.
 extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
@@ -642,7 +649,7 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
                                      int page_size, int max_pages, int head_dim,
                                      float sm_scale, int pos_div, int dtype,
                                      int kv_dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || head_dim != 64 ||
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -650,7 +657,10 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
                   static_cast<const float*>(pool_v_scale),
                   static_cast<const int*>(table), max_pages * page_size,
                   page_size, max_pages, n_pages};
-  return (int)launch_8bit<true>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
-                                n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div,
-                                static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(head_dim == 64
+                   ? launch_8bit<true, 64>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
+                                           n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div, s)
+                   : launch_8bit<true, 128>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
+                                            n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div, s));
 }

@@ -1,5 +1,5 @@
 // FlashAttention V1 for Hopper (sm_90a): tiled fp32 attention, streaming and
-// folded, bf16 and fp32 inputs.
+// folded, bf16 and fp32 inputs, head dim D = 64 or 128.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_v1.py::_flash_v1_kernel
 // (streaming: one KV tile per step of an online softmax) and
@@ -21,12 +21,13 @@
 //     in one pass: no running statistics.  One block serves `fold` batch
 //     elements of one head and one 64-row query tile, one after the other.
 //
-// What bounds it on the H100.  4 * N_q * N_kv * 64 flops per head on the
+// What bounds it on the H100.  4 * N_q * N_kv * D flops per head on the
 // CUDA cores (67 TF/s fp32): at the benchmark's sweep points (B * N^2 =
-// 2^23) ~32 us, against ~4 MB of inputs (1.3 us at 3.35 TB/s): operations.
+// 2^23, D = 64) ~32 us, against ~4 MB of inputs (1.3 us at 3.35 TB/s):
+// operations.
 //
 // What the design does about it.  Two threads per query row, each owning 32
-// of the 64 score columns of a tile and 32 of the 64 output columns; the
+// of the 64 score columns of a tile and D / 2 of the D output columns; the
 // row's statistics stay in registers and the pair combines them with one
 // shuffle.  Every shared-memory operand is read as float4 (4 FMAs per
 // load); the K, V and score rows a warp reads are broadcast (two addresses
@@ -44,12 +45,13 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kBlockM = 64;  // query rows per tile
 constexpr int kBlockN = 64;  // key columns per tile
-constexpr int kHeadDim = 64;
 constexpr int kThreads = 2 * kBlockM;  // two threads per tile row, 4 warps
-constexpr int kHalf = 32;              // columns per thread of a 64-wide row
-// Row pitch of the fp32 tiles in shared memory: a multiple of 4 floats
-// (float4 accesses), padded so a quarter warp's rows fall on distinct banks.
-constexpr int kLd = kHeadDim + 8;
+constexpr int kHalf = 32;              // score columns per thread of a 64-wide row
+// Row pitch of the fp32 tiles in shared memory at head dim D: a multiple of
+// 4 floats (float4 accesses), padded so a quarter warp's rows fall on
+// distinct banks.
+template <int D>
+constexpr int kLd = D + 8;
 constexpr int kLdP = kBlockN + 4;
 // The longest row the folded kernel scores into shared memory.
 constexpr int kFoldedMaxKv = 512;
@@ -83,31 +85,32 @@ __device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
   }
 }
 
-// Copy `rows_valid` rows of head_dim elements (row pitch kHeadDim in global
-// memory) into a [64][kLd] fp32 shared tile; the other rows are zero.
-template <typename T>
+// Copy `rows_valid` rows of D elements (row pitch D in global memory) into
+// a [64][kLd<D>] fp32 shared tile; the other rows are zero.
+template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int rows_valid) {
-  constexpr int kPerRow = kHeadDim / 8;
+  constexpr int kPerRow = D / 8;
   for (int i = threadIdx.x; i < kBlockM * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * 8;
     float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < rows_valid) load8(src + (size_t)r * kHeadDim + c, x);
-    *reinterpret_cast<float4*>(dst + r * kLd + c) = make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(dst + r * kLd + c + 4) = make_float4(x[4], x[5], x[6], x[7]);
+    if (r < rows_valid) load8(src + (size_t)r * D + c, x);
+    *reinterpret_cast<float4*>(dst + r * kLd<D> + c) = make_float4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<float4*>(dst + r * kLd<D> + c + 4) = make_float4(x[4], x[5], x[6], x[7]);
   }
 }
 
 // s[j] = q[r] . k[half * 32 + j]: this thread's half of a score row.
+template <int D>
 __device__ __forceinline__ void scores(const float* q, const float* k, int r,
                                        int half, float (&s)[kHalf]) {
 #pragma unroll
   for (int j = 0; j < kHalf; ++j) s[j] = 0.0f;
-  for (int d = 0; d < kHeadDim; d += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(q + r * kLd + d);
+  for (int d = 0; d < D; d += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(q + r * kLd<D> + d);
 #pragma unroll
     for (int j = 0; j < kHalf; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(k + (half * kHalf + j) * kLd + d);
+      const float4 b = *reinterpret_cast<const float4*>(k + (half * kHalf + j) * kLd<D> + d);
       s[j] = fmaf(a.x, b.x, s[j]);
       s[j] = fmaf(a.y, b.y, s[j]);
       s[j] = fmaf(a.z, b.z, s[j]);
@@ -116,18 +119,19 @@ __device__ __forceinline__ void scores(const float* q, const float* k, int r,
   }
 }
 
-// acc[j] += sum_c p[c] v[c][half * 32 + j] over the 64 columns of a tile;
+// acc[j] += sum_c p[c] v[c][half * D/2 + j] over the 64 columns of a tile;
 // p points at the row's first column of the tile.
+template <int D>
 __device__ __forceinline__ void accumulate_pv(const float* p, const float* v,
-                                              int half, float (&acc)[kHalf]) {
+                                              int half, float (&acc)[D / 2]) {
   for (int c = 0; c < kBlockN; c += 4) {
     const float4 p4 = *reinterpret_cast<const float4*>(p + c);
     const float pc[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
     for (int cc = 0; cc < 4; ++cc) {
-      const float* vrow = v + (c + cc) * kLd + half * kHalf;
+      const float* vrow = v + (c + cc) * kLd<D> + half * (D / 2);
 #pragma unroll
-      for (int j = 0; j < kHalf; j += 4) {
+      for (int j = 0; j < D / 2; j += 4) {
         const float4 b = *reinterpret_cast<const float4*>(vrow + j);
         acc[j] = fmaf(pc[cc], b.x, acc[j]);
         acc[j + 1] = fmaf(pc[cc], b.y, acc[j + 1]);
@@ -139,13 +143,13 @@ __device__ __forceinline__ void accumulate_pv(const float* p, const float* v,
 }
 
 // Write this thread's half of output row `row` (if it is a real row).
-template <typename T>
-__device__ __forceinline__ void store_row(T* o, const float (&acc)[kHalf], float l,
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* o, const float (&acc)[D / 2], float l,
                                           int half, bool valid) {
   if (!valid) return;
   const float inv_l = l == 0.0f ? 1.0f : 1.0f / l;
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) o[half * kHalf + j] = from_float<T>(acc[j] * inv_l);
+  for (int j = 0; j < D / 2; ++j) o[half * (D / 2) + j] = from_float<T>(acc[j] * inv_l);
 }
 
 // Last column row `row` sees (n_kv - 1 unless causal).
@@ -153,22 +157,23 @@ __device__ __forceinline__ int last_visible(int row, int n_kv, int causal) {
   return causal ? min(row, n_kv - 1) : n_kv - 1;
 }
 
+template <int D>
 struct StreamSmem {
-  float q[kBlockM * kLd];
-  float k[kBlockN * kLd];
-  float v[kBlockN * kLd];
+  float q[kBlockM * kLd<D>];
+  float k[kBlockN * kLd<D>];
+  float v[kBlockN * kLd<D>];
   float p[kBlockM * kLdP];  // probabilities of the step
 };
 
 // Streaming: one block per (batch x head, 64-row query tile); the KV walk
 // stops at the tile's last visible column.
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_v1_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o, int n_q,
                     int n_kv, float scale_log2, int causal) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  StreamSmem& sm = *reinterpret_cast<StreamSmem*>(smem_raw);
+  StreamSmem<D>& sm = *reinterpret_cast<StreamSmem<D>*>(smem_raw);
 
   const int tid = threadIdx.x;
   const int r = tid >> 1;    // this thread's row of the tile
@@ -181,23 +186,23 @@ __global__ void __launch_bounds__(kThreads)
   const int tile_limit = last_visible(q_start + rows_valid - 1, n_kv, causal);
   const int n_steps = tile_limit / kBlockN + 1;
 
-  load_tile<T>(sm.q, q + (bh * n_q + q_start) * kHeadDim, rows_valid);
+  load_tile<T, D>(sm.q, q + (bh * n_q + q_start) * D, rows_valid);
 
-  float acc[kHalf];
+  float acc[D / 2];
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
   float m_i = -INFINITY;  // running max, log2 units
   float l_i = 0.0f;       // running sum of exp2(s - m_i)
 
   for (int step = 0; step < n_steps; ++step) {
     const int kv_start = step * kBlockN;
     const int cols_valid = min(kBlockN, n_kv - kv_start);
-    load_tile<T>(sm.k, k + (bh * n_kv + kv_start) * kHeadDim, cols_valid);
-    load_tile<T>(sm.v, v + (bh * n_kv + kv_start) * kHeadDim, cols_valid);
+    load_tile<T, D>(sm.k, k + (bh * n_kv + kv_start) * D, cols_valid);
+    load_tile<T, D>(sm.v, v + (bh * n_kv + kv_start) * D, cols_valid);
     __syncthreads();
 
     float s[kHalf];
-    scores(sm.q, sm.k, r, half, s);
+    scores<D>(sm.q, sm.k, r, half, s);
     const int col0 = kv_start + half * kHalf;
     float step_max = -INFINITY;
 #pragma unroll
@@ -229,18 +234,18 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();  // the partner's half of the P row
 
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) acc[j] *= alpha;
-    accumulate_pv(sm.p + r * kLdP, sm.v, half, acc);
+    for (int j = 0; j < D / 2; ++j) acc[j] *= alpha;
+    accumulate_pv<D>(sm.p + r * kLdP, sm.v, half, acc);
     // The next step's loads overwrite k, v and p.
     __syncthreads();
   }
-  store_row<T>(o + (bh * n_q + row) * kHeadDim, acc, l_i, half, r < rows_valid);
+  store_row<T, D>(o + (bh * n_q + row) * D, acc, l_i, half, r < rows_valid);
 }
 
 // Folded: one block per (group of `fold` batch elements x head, 64-row query
 // tile); n_kv <= kFoldedMaxKv.  The whole score row of each element lives
 // in shared memory (srow, pitch ld_row).
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_v1_folded_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o, int n_heads,
@@ -248,8 +253,8 @@ __global__ void __launch_bounds__(kThreads)
                            float scale_log2, int causal) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* sq = reinterpret_cast<float*>(smem_raw);
-  float* skv = sq + kBlockM * kLd;        // a K tile, then a V tile
-  float* srow = skv + kBlockN * kLd;      // [64][ld_row] scores, then P
+  float* skv = sq + kBlockM * kLd<D>;    // a K tile, then a V tile
+  float* srow = skv + kBlockN * kLd<D>;  // [64][ld_row] scores, then P
 
   const int tid = threadIdx.x;
   const int r = tid >> 1;
@@ -265,17 +270,17 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int f = 0; f < fold; ++f) {
     const size_t bh = (size_t)(group * fold + f) * n_heads + h;
-    const T* kb = k + bh * n_kv * kHeadDim;
-    const T* vb = v + bh * n_kv * kHeadDim;
-    load_tile<T>(sq, q + (bh * n_q + q_start) * kHeadDim, rows_valid);
+    const T* kb = k + bh * n_kv * D;
+    const T* vb = v + bh * n_kv * D;
+    load_tile<T, D>(sq, q + (bh * n_q + q_start) * D, rows_valid);
 
     // Score the whole row, 64 columns at a time, in log2 units.
     for (int ch = 0; ch < n_chunks; ++ch) {
       const int kv_start = ch * kBlockN;
-      load_tile<T>(skv, kb + (size_t)kv_start * kHeadDim, min(kBlockN, n_kv - kv_start));
+      load_tile<T, D>(skv, kb + (size_t)kv_start * D, min(kBlockN, n_kv - kv_start));
       __syncthreads();
       float s[kHalf];
-      scores(sq, skv, r, half, s);
+      scores<D>(sq, skv, r, half, s);
 #pragma unroll
       for (int j = 0; j < kHalf; j += 4) {
         *reinterpret_cast<float4*>(prow + kv_start + half * kHalf + j) =
@@ -309,18 +314,18 @@ __global__ void __launch_bounds__(kThreads)
     }
     l += __shfl_xor_sync(0xffffffffu, l, 1);
 
-    float acc[kHalf];
+    float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
     for (int ch = 0; ch < n_chunks; ++ch) {
       const int kv_start = ch * kBlockN;
-      load_tile<T>(skv, vb + (size_t)kv_start * kHeadDim, min(kBlockN, n_kv - kv_start));
+      load_tile<T, D>(skv, vb + (size_t)kv_start * D, min(kBlockN, n_kv - kv_start));
       // Also orders every thread's P row writes before the reads below.
       __syncthreads();
-      accumulate_pv(prow + kv_start, skv, half, acc);
+      accumulate_pv<D>(prow + kv_start, skv, half, acc);
       __syncthreads();
     }
-    store_row<T>(o + (bh * n_q + row) * kHeadDim, acc, l, half, r < rows_valid);
+    store_row<T, D>(o + (bh * n_q + row) * D, acc, l, half, r < rows_valid);
   }
 }
 
@@ -344,34 +349,36 @@ int folded_row_pitch(int n_kv) {
   return (n_kv + kBlockN - 1) / kBlockN * kBlockN + 4;
 }
 
+template <int D>
 int folded_smem(int n_kv) {
-  return (int)sizeof(float) * ((kBlockM + kBlockN) * kLd + kBlockM * folded_row_pitch(n_kv));
+  return (int)sizeof(float) * ((kBlockM + kBlockN) * kLd<D> + kBlockM * folded_row_pitch(n_kv));
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_stream(const void* q, const void* k, const void* v, void* o,
                           int batch, int n_heads, int n_q, int n_kv, float sm_scale,
                           int causal, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(StreamSmem);
-  cudaError_t err = allow_smem(flash_v1_kernel<T>, smem, done);
+  const int smem = (int)sizeof(StreamSmem<D>);
+  cudaError_t err = allow_smem(flash_v1_kernel<T, D>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * n_heads, (n_q + kBlockM - 1) / kBlockM);
-  flash_v1_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_v1_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), n_q, n_kv, sm_scale * kLog2e, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch_folded(const void* q, const void* k, const void* v, void* o,
                           int batch, int n_heads, int n_q, int n_kv, int fold,
                           float sm_scale, int causal, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  cudaError_t err = allow_smem(flash_v1_folded_kernel<T>, folded_smem(kFoldedMaxKv), done);
+  cudaError_t err =
+      allow_smem(flash_v1_folded_kernel<T, D>, folded_smem<D>(kFoldedMaxKv), done);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch / fold * n_heads, (n_q + kBlockM - 1) / kBlockM);
-  flash_v1_folded_kernel<T><<<grid, kThreads, folded_smem(n_kv), stream>>>(
+  flash_v1_folded_kernel<T, D><<<grid, kThreads, folded_smem<D>(n_kv), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), n_heads, n_q, n_kv, fold, folded_row_pitch(n_kv),
       sm_scale * kLog2e, causal);
@@ -379,15 +386,16 @@ cudaError_t launch_folded(const void* q, const void* k, const void* v, void* o,
 }
 
 bool valid(int batch, int n_heads, int n_q, int n_kv, int head_dim, int causal) {
-  return head_dim == kHeadDim && batch >= 1 && n_heads >= 1 && n_q >= 1 &&
+  return (head_dim == 64 || head_dim == 128) && batch >= 1 && n_heads >= 1 && n_q >= 1 &&
          n_kv >= 1 && (!causal || n_q == n_kv) && n_q <= 65535 * kBlockM;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes (kernels/flash_v1.py).  Pointers are
-// device pointers of contiguous tensors: q, o [B, H, N_q, 64]; k, v [B, H,
-// N_kv, 64] (equal head counts); causal requires n_q == n_kv.  dtype: 0 =
+// device pointers of contiguous tensors: q, o [B, H, N_q, D]; k, v [B, H,
+// N_kv, D] (equal head counts), D = head_dim, 64 or 128; causal requires
+// n_q == n_kv.  dtype: 0 =
 // bf16, 1 = fp32.  Each returns its launch's cudaError_t (0 on success).
 extern "C" int fam_flash_v1(const void* q, const void* k, const void* v, void* o,
                             int batch, int n_heads, int n_q, int n_kv, int head_dim,
@@ -396,14 +404,13 @@ extern "C" int fam_flash_v1(const void* q, const void* k, const void* v, void* o
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch_stream<bf16>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale,
-                                    causal, s);
-  }
-  if (dtype == 1) {
-    return (int)launch_stream<float>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale,
-                                     causal, s);
-  }
+#define FAM_LAUNCH(T, D) \
+  return (int)launch_stream<T, D>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale, causal, s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -417,13 +424,13 @@ extern "C" int fam_flash_v1_folded(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch_folded<bf16>(q, k, v, o, batch, n_heads, n_q, n_kv, fold,
-                                    sm_scale, causal, s);
-  }
-  if (dtype == 1) {
-    return (int)launch_folded<float>(q, k, v, o, batch, n_heads, n_q, n_kv, fold,
-                                     sm_scale, causal, s);
-  }
+#define FAM_LAUNCH(T, D)                                                                    \
+  return (int)launch_folded<T, D>(q, k, v, o, batch, n_heads, n_q, n_kv, fold, sm_scale, causal, \
+                                  s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

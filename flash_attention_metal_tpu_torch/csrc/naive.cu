@@ -12,17 +12,18 @@
 //   type; o comes back in q's type.  A row that sees no column gives
 //   mean(V), exactly as the Pallas kernel does.
 //
-// What bounds it on the H100.  It does 4 * N_q * N_kv * 64 flops per head
-// in fp32 on the CUDA cores (67 TF/s), so at the benchmark's sweep points
-// (B * N^2 = 2^23) the bound is ~32 us.  Its design is what makes it the
-// baseline: nothing is tiled or reused across query rows.
+// What bounds it on the H100.  It does 4 * N_q * N_kv * D flops per head
+// (head dim D = 64 or 128) in fp32 on the CUDA cores (67 TF/s), so at the
+// benchmark's sweep points (B * N^2 = 2^23, D = 64) the bound is ~32 us.
+// Its design is what makes it the baseline: nothing is tiled or reused
+// across query rows.
 //
 // The design.  One warp per query row, four rows per block.  The row's fp32
 // scores live in shared memory (4 B per column: 32 KB per row at N = 8192,
 // the most the sweep asks of it; kMaxKv).  K and V are read from global
 // memory (through L2) once for every query row: lane l scores columns
-// l, l + 32, ..., each a 64-term dot product against the query row held in
-// registers; then each lane owns two output columns and walks every key
+// l, l + 32, ..., each a D-term dot product against the query row held in
+// registers; then each lane owns D / 32 output columns and walks every key
 // row of V.  Masked columns are scored and exponentiated like any other, so
 // a causal call does the full N^2 work, as the Pallas kernel does.
 
@@ -36,7 +37,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 64;
 constexpr int kRowsPerBlock = 4;  // one warp per query row
 constexpr int kThreads = 32 * kRowsPerBlock;
 // Longest score row shared memory holds: 4 rows x 8192 x 4 B = 128 KB.
@@ -85,7 +85,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     naive_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int n_q,
@@ -96,16 +96,16 @@ __global__ void __launch_bounds__(kThreads)
   const int row = blockIdx.x * kRowsPerBlock + warp;
   if (row >= n_q) return;  // no block-wide barrier below
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const T* q_row = q + (bh * n_q + row) * kHeadDim;
-  const T* k_head = k + bh * n_kv * kHeadDim;
-  const T* v_head = v + bh * n_kv * kHeadDim;
+  const T* q_row = q + (bh * n_q + row) * D;
+  const T* k_head = k + bh * n_kv * D;
+  const T* v_head = v + bh * n_kv * D;
   float* s = scores_raw + (size_t)warp * n_kv;
   // Last column the row sees when causal (end-aligned diagonal).
   const int limit = row + (n_kv - n_q);
 
-  float qr[kHeadDim];
+  float qr[D];
 #pragma unroll
-  for (int d = 0; d < kHeadDim; d += 8) {
+  for (int d = 0; d < D; d += 8) {
     float x[8];
     load8(q_row + d, x);
 #pragma unroll
@@ -115,10 +115,10 @@ __global__ void __launch_bounds__(kThreads)
   // Pass 1: every score of the row, masked, and the row max.
   float row_max = -INFINITY;
   for (int c = lane; c < n_kv; c += 32) {
-    const T* k_row = k_head + (size_t)c * kHeadDim;
+    const T* k_row = k_head + (size_t)c * D;
     float acc = 0.0f;
 #pragma unroll
-    for (int d = 0; d < kHeadDim; d += 8) {
+    for (int d = 0; d < D; d += 8) {
       float x[8];
       load8(k_row + d, x);
 #pragma unroll
@@ -141,22 +141,25 @@ __global__ void __launch_bounds__(kThreads)
   row_sum = warp_sum(row_sum);
   __syncwarp();
 
-  // P . V: lane l owns output columns l and l + 32.
-  float o0 = 0.0f, o1 = 0.0f;
+  // P . V: lane l owns output columns l, l + 32, ...
+  constexpr int kCols = D / 32;
+  float acc[kCols];
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) acc[j] = 0.0f;
 #pragma unroll 8
   for (int c = 0; c < n_kv; ++c) {
     const float p = s[c];
-    const T* v_row = v_head + (size_t)c * kHeadDim;
-    o0 = fmaf(p, to_float(v_row[lane]), o0);
-    o1 = fmaf(p, to_float(v_row[lane + 32]), o1);
+    const T* v_row = v_head + (size_t)c * D;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] = fmaf(p, to_float(v_row[lane + 32 * j]), acc[j]);
   }
   const float inv = 1.0f / row_sum;
-  T* o_row = o + (bh * n_q + row) * kHeadDim;
-  o_row[lane] = from_float<T>(o0 * inv);
-  o_row[lane + 32] = from_float<T>(o1 * inv);
+  T* o_row = o + (bh * n_q + row) * D;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) o_row[lane + 32 * j] = from_float<T>(acc[j] * inv);
 }
 
-template <typename T>
+template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int batch, int n_heads, int n_q, int n_kv, float sm_scale,
                    int causal, cudaStream_t stream) {
@@ -168,7 +171,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(naive_kernel<T>,
+    err = cudaFuncSetAttribute(naive_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)(kRowsPerBlock * kMaxKv * sizeof(float)));
     if (err != cudaSuccess) return err;
@@ -176,7 +179,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   const dim3 grid((n_q + kRowsPerBlock - 1) / kRowsPerBlock, n_heads, batch);
   const size_t smem = (size_t)kRowsPerBlock * n_kv * sizeof(float);
-  naive_kernel<T><<<grid, kThreads, smem, stream>>>(
+  naive_kernel<T, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), n_q, n_kv, sm_scale,
       causal);
@@ -186,25 +189,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry point, bound with ctypes (kernels/naive.py).  Pointers are device
-// pointers of contiguous [B, H, N, 64] tensors (q, o: N = n_q; k, v:
-// N = n_kv <= 8192).  dtype: 0 = bf16, 1 = fp32.  Returns the launch's
-// cudaError_t (0 on success).
+// pointers of contiguous [B, H, N, D] tensors, D = head_dim, 64 or 128 (q,
+// o: N = n_q; k, v: N = n_kv <= 8192).  dtype: 0 = bf16, 1 = fp32.  Returns
+// the launch's cudaError_t (0 on success).
 extern "C" int fam_naive(const void* q, const void* k, const void* v, void* o,
                          int batch, int n_heads, int n_q, int n_kv,
                          int head_dim, float sm_scale, int causal, int dtype,
                          void* stream) {
-  if (head_dim != kHeadDim || batch < 1 || n_heads < 1 || n_q < 1 ||
-      n_kv < 1 || n_kv > kMaxKv) {
+  if (batch < 1 || n_heads < 1 || n_q < 1 || n_kv < 1 || n_kv > kMaxKv) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return (int)launch<bf16>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale,
-                             causal, s);
-  }
-  if (dtype == 1) {
-    return (int)launch<float>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale,
-                              causal, s);
-  }
+#define FAM_LAUNCH(T, D) \
+  return (int)launch<T, D>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale, causal, s)
+  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
+  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
+  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
+  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
+#undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

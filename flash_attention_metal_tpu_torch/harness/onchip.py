@@ -5,6 +5,7 @@ its own on a CUDA card:
 
     python -m flash_attention_metal_tpu_torch.harness.onchip sweep
     python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train] [--mode M]
+    python -m flash_attention_metal_tpu_torch.harness.onchip bwd [--csrc DIR]
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
@@ -12,15 +13,22 @@ decode steps and a prefill of the served FlashLM with ``torch.profiler``
 and splits their wall time into device-busy time, by kernel, and idle time
 (``--mode``: the KV cache, a ``serving.SERVING_MODES`` name, dense by default);
 ``profile train`` does the same for ``Trainer.step`` at the
-``train_bench.json`` width.  Every line it prints carries the card's name
-and power limit.
+``train_bench.json`` width.  ``bwd`` times the backward kernels (the
+split pair in bf16 and fp32, the fused kernel), built from the package's
+``csrc/`` or, with ``--csrc``, from another tree's sources of the same C
+entries: two versions compared on one card, in turns.  Every line it
+prints carries the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import json
 import sys
-from typing import Callable, Dict, List, Tuple
+import tempfile
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +91,9 @@ DECODE_Q, DECODE_KV = (8, 8, 2, 64), (8, 8, 2048, 64)
 # 16 q-heads over 8 KV heads), and its fp32 case at N = 512.
 TRAIN_Q, TRAIN_KV = (4, 16, 2048, 64), (4, 8, 2048, 64)
 TRAIN_FP32_Q, TRAIN_FP32_KV = (4, 16, 512, 64), (4, 8, 512, 64)
+# The same attention at head dim 128, and the decode case's.
+TRAIN_D128_Q, TRAIN_D128_KV = (4, 16, 2048, 128), (4, 8, 2048, 128)
+DECODE_D128_Q, DECODE_D128_KV = (8, 8, 2, 128), (8, 8, 2048, 128)
 # Backward kernels against their fp32 plain version: max-abs error over
 # max-abs of the plain gradient, per gradient.  Gradients grow with N and
 # with the fixture's peakedness (dK is O(10) on the peaked one), so an
@@ -143,15 +154,20 @@ def path_cases(gen: torch.Generator) -> Dict[str, tuple]:
 
 def train_cases(gen: torch.Generator) -> Dict[str, tuple]:
     """``{name: (q, k, v, do, q_offset)}`` at the training step's shapes:
-    causal self-attention (offset 0), bf16 on the ladder and the peaked
-    fixture, and fp32 at N = 512.  ``do`` is uniform(-1, 1) too."""
+    causal self-attention (offset 0), bf16 on the ladder, peaked and spike
+    fixtures, and fp32 at N = 512.  ``do`` is uniform(-1, 1) too."""
     cases = {}
-    for name, shape_q, shape_kv, dtype, q_scale in (
-        ("train_bf16", TRAIN_Q, TRAIN_KV, torch.bfloat16, 1.0),
-        ("train_bf16_peaked", TRAIN_Q, TRAIN_KV, torch.bfloat16, PEAKED_Q_SCALE),
-        ("train_fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, torch.float32, 1.0),
+    for name, shape_q, shape_kv, dtype, fixture in (
+        ("train_bf16", TRAIN_Q, TRAIN_KV, torch.bfloat16, "ladder"),
+        ("train_bf16_peaked", TRAIN_Q, TRAIN_KV, torch.bfloat16, "peaked"),
+        ("train_bf16_spike", TRAIN_Q, TRAIN_KV, torch.bfloat16, "spike"),
+        ("train_fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, torch.float32, "ladder"),
     ):
-        q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen, q_scale)
+        if fixture == "spike":
+            q, k, v = spike_inputs(shape_q, shape_kv, dtype, gen)
+        else:
+            scale = PEAKED_Q_SCALE if fixture == "peaked" else 1.0
+            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen, scale)
         do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
         off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
         cases[name] = (q, k, v, do, off)
@@ -215,7 +231,7 @@ def fused_workspace_bytes(inputs: tuple, off_bound: int) -> Tuple[int, int]:
     out_bytes = sum(t.numel() * t.element_size() for t in outputs)
     allocated = torch.cuda.max_memory_allocated() - base - out_bytes
     del outputs
-    ws = torch.full(dq_workspace_shape(q.shape[0], q.shape[1], q.shape[2], k.shape[2], off_bound),
+    ws = torch.full(dq_workspace_shape(*q.shape[:3], k.shape[2], off_bound, q.shape[3]),
                     float("nan"), device=q.device)
     flash_bwd_fused(q, k, v, do, lse, delta, off, workspace=ws, **kw)
     written = int((~torch.isnan(ws).all(dim=-1).all(dim=-1)).sum())
@@ -261,8 +277,9 @@ SWEEP_1024 = (8, 1, 1024, 64)
 SWEEP_128 = (512, 1, 128, 64)
 HIGH_OCC = (16, 8, 2048, 64)
 LADDER = (1, 2, 1024, 64)
-# Head dim 128 at the lean kernel's sweep point and a triangular shape.
+# Head dim 128 at the sweep's points and a triangular shape.
 SWEEP_1024_D128 = (8, 1, 1024, 128)
+SWEEP_128_D128 = (512, 1, 128, 128)
 TRI_D128 = (2, 8, 2048, 128)
 # The spike fixture: every query row has a large first component and key
 # column SPIKE_COL a larger one, so each row that sees that column scores
@@ -533,6 +550,25 @@ def kv_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
         pools = [to_pages(x, perm, n_pages) for x in (k, v)]
         cases[f"paged_{tag}"] = ("flash_paged", (q, *pools, table, off), pos_div)
     return cases
+
+
+def kv_d128_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
+    """``kv_cases``' folded decode at head dim 128 (``DECODE_D128_Q`` over
+    ``DECODE_D128_KV``), bf16 q on the ladder fixture: int8 for the quant
+    and paged-quant kernels, a bf16 pool for the paged one."""
+    lengths = torch.from_numpy(decode_lengths()).to("cuda")
+    q, k, v = ladder_inputs(DECODE_D128_Q, DECODE_D128_KV, torch.bfloat16, gen)
+    b, _, n_kv, _ = DECODE_D128_KV
+    perm, table, n_pages = paged_layout(b, n_kv, lengths, DECODE_D128_Q[2], 2, gen)
+    qkv = quantize_kv(k, v, KV_8BIT["int8"])
+    quant_pools = [to_pages(x, perm, n_pages) for x in (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)]
+    return {
+        "quant_int8_decode_bf16_d128": ("flash_quant", (q, qkv, lengths), 2),
+        "paged_decode_bf16_d128": (
+            "flash_paged", (q, *(to_pages(x, perm, n_pages) for x in (k, v)), table, lengths), 2),
+        "paged_quant_int8_decode_bf16_d128": (
+            "flash_paged_quant", (q, *quant_pools, table, lengths), 2),
+    }
 
 
 # Each kernel of csrc/flash_fwd.cu: its wrapper and its plain version, both
@@ -870,17 +906,58 @@ def profile_train(stamp: str, iters: int = 3, log=print) -> Dict[str, float]:
     return {"wall_ms": wall, "busy_ms": busy, "bwd_ms": bwd_ms, "fwd_ms": fwd_ms}
 
 
+def bwd_times(csrc: Optional[str] = None) -> Dict[str, Dict[str, float]]:
+    """Device ms of the backward kernels: dK/dV, dQ and the fused kernel in
+    bf16 at the training shape (``TRAIN_Q`` over ``TRAIN_KV``, causal) and
+    in fp32 at ``TRAIN_FP32_Q``.  ``csrc``: build them from that directory's
+    ``*.cu`` instead (the same C entries, e.g. an earlier tree's)."""
+    from ..kernels import _build
+    from ..kernels import flash_bwd as fb
+
+    own = fb._lib
+    if csrc is not None:
+        out = Path(tempfile.mkdtemp()) / "lib.so"
+        lib = fb.bind(ctypes.CDLL(str(_build.compile_library(sorted(Path(csrc).glob("*.cu")), out))))
+        fb._lib = lambda: lib
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    times = {}
+    try:
+        for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, torch.bfloat16),
+                                              ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, torch.float32)):
+            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
+            do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+            off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
+            o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+            delta = bwd_delta(o, do, None)
+            kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True)
+            times[tag] = {
+                "dkv": device_ms(lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw)),
+                "dq": device_ms(lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw)),
+                "fused": device_ms(lambda: flash_attention_bwd_fused(
+                    q, k, v, o, do, lse, off, q_offset_max=0, **kw)),
+            }
+    finally:
+        fb._lib = own
+    return times
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("sweep", "profile"))
+    parser.add_argument("what", choices=("sweep", "profile", "bwd"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
+    parser.add_argument("--csrc", help="bwd: build the kernels from this directory's *.cu")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     stamp = serving.nvidia_smi_line()
+    if args.what == "bwd":
+        print(json.dumps({"csrc": args.csrc or "package", "card": stamp,
+                          "ms": bwd_times(args.csrc)}))
+        return 0
     if args.what == "sweep":
         sweep(stamp)
         return 0

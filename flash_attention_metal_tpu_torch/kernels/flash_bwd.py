@@ -6,8 +6,11 @@ package has three backward variants.  ``flash_attention_bwd`` runs the
 split pair, ``_dkv_kernel`` and ``_dq_kernel``, which the training step
 reaches (traced offsets, GQA group 2): ``csrc/flash_bwd.cu`` computes their
 contract with native GQA (no repeated K/V, dK/dV summed over the group in
-fp32) and a per-batch device ``q_offset``.  ``flash_attention_bwd_fused``
-runs the 5-matmul ``_fused_bwd_kernel``: the same source's dK/dV kernel
+fp32) and a per-batch device ``q_offset``, bf16 on the Hopper kernels of
+``csrc/flash_bwd_sm90.cuh`` (``wgmma`` with P and dS as register operands,
+a cp.async ring), fp32 in IEEE FMA; head dim 64 or 128.
+``flash_attention_bwd_fused`` runs the 5-matmul ``_fused_bwd_kernel``: the
+WMMA template of ``csrc/flash_bwd.cu``, whose dK/dV kernel
 writes each visible pair's dQ contribution to its own fp32 slot, and a
 second kernel sums each Q tile's slots in KV-tile order (deterministic).
 The slots are packed as the triangular backward's (``csrc/dq_slots.cuh``):
@@ -55,7 +58,8 @@ from .flash_fwd import (
 # as in the JAX kernels: exp(s - 1e30) is exactly 0, never inf or NaN.
 LSE_SENTINEL = 1e30
 # Rows of the fused kernel's Q and KV tiles, and of one dQ workspace slot
-# (csrc/dq_slots.cuh, kTile): each dQ partial covers this many KV rows.
+# (csrc/dq_slots.cuh, kTile): each dQ partial covers this many KV rows, and
+# a slot holds DQ_TILE rows of head_dim fp32 values.
 DQ_TILE = 64
 
 
@@ -173,13 +177,13 @@ def fused_offset_bound(q_offset, q_offset_max: Optional[int], n_q: int, n_kv: in
     return min(bound, n_kv - 1)
 
 
-def dq_workspace_shape(batch: int, heads: int, n_q: int, n_kv: int, off: int) -> tuple:
+def dq_workspace_shape(batch: int, heads: int, n_q: int, n_kv: int, off: int,
+                       head_dim: int) -> tuple:
     """The fp32 dQ workspace of the fused and the triangular backward
-    kernels (``csrc/dq_slots.cuh``): one ``DQ_TILE`` x ``DQ_TILE`` slot per
-    (batch, q-head, pair visible at offset ``off``), counted by the
-    kernels' library (``fam_bwd_dq_pairs``)."""
-    pairs = _lib().fam_bwd_dq_pairs(n_q, n_kv, off)
-    return (batch * heads * pairs, DQ_TILE, DQ_TILE)
+    kernels (``csrc/dq_slots.cuh``): one ``DQ_TILE`` x ``head_dim`` slot per
+    (batch, q-head, (Q tile, KV tile) pair visible at offset ``off``)
+    (``roofline.dq_slot_count``; the kernels refuse any other count)."""
+    return (batch * heads * dq_slot_count(n_q, n_kv, off, DQ_TILE), DQ_TILE, head_dim)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -198,8 +202,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fam_flash_bwd_dq.restype = ctypes.c_int
     lib.fam_flash_bwd_fused.argtypes = [ptr] * 11 + [i32, i32] + common  # pairs, off_bound
     lib.fam_flash_bwd_fused.restype = ctypes.c_int
-    lib.fam_bwd_dq_pairs.argtypes = [i32, i32, i32]  # n_q, n_kv, offset
-    lib.fam_bwd_dq_pairs.restype = ctypes.c_int
     return lib
 
 
@@ -254,7 +256,7 @@ def flash_bwd_fused(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bo
     ``workspace``: fp32 of ``dq_workspace_shape``, allocated here when
     None (a caller's shows which slots the kernel wrote)."""
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    shape = dq_workspace_shape(q.shape[0], q.shape[1], q.shape[2], k.shape[2], off_bound)
+    shape = dq_workspace_shape(*q.shape[:3], k.shape[2], off_bound, q.shape[3])
     if workspace is None:
         workspace = torch.empty(shape, dtype=torch.float32, device=q.device)
     elif (workspace.shape != shape or workspace.dtype != torch.float32
@@ -433,16 +435,25 @@ def _free_device_bytes(device: torch.device) -> Optional[int]:
 
 def fused_workspace_fits(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool,
                          q_offset_max: Optional[int] = None) -> bool:
-    """Whether the fused kernel's dQ workspace for this call (one 16 KiB
-    slot per visible tile pair and q-head, ``roofline.dq_slot_count``)
-    stays within ``FUSED_WORKSPACE_SHARE`` of the device's free bytes."""
+    """Whether the fused kernel's dQ workspace for this call
+    (``fused_workspace_bytes``) stays within ``FUSED_WORKSPACE_SHARE`` of
+    the device's free bytes."""
     free = _free_device_bytes(q.device)
     if free is None:
         return True
+    return fused_workspace_bytes(q, k, q_offset, causal=causal,
+                                 q_offset_max=q_offset_max) <= FUSED_WORKSPACE_SHARE * free
+
+
+def fused_workspace_bytes(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool,
+                          q_offset_max: Optional[int] = None) -> int:
+    """Bytes of the fused kernel's dQ workspace for this call: one fp32
+    ``DQ_TILE`` x head-dim slot per visible tile pair and q-head
+    (``dq_workspace_shape``)."""
     n_q, n_kv = q.shape[2], k.shape[2]
     bound = fused_offset_bound(q_offset, q_offset_max, n_q, n_kv, causal)
-    slots = q.shape[0] * q.shape[1] * dq_slot_count(n_q, n_kv, bound)
-    return slots * DQ_TILE * DQ_TILE * 4 <= FUSED_WORKSPACE_SHARE * free
+    slots, rows, cols = dq_workspace_shape(*q.shape[:2], n_q, n_kv, bound, q.shape[3])
+    return slots * rows * cols * 4
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1,

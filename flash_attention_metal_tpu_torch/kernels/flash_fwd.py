@@ -38,10 +38,9 @@ import torch
 from ..config import DEFAULT_MASK_VALUE, default_scale
 from . import _build
 
-# The head dim every CUDA kernel is built for, and the ones the forward
-# router's three kernels (general, lean, triangular forward) also take.
-HEAD_DIM = 64
-FWD_HEAD_DIMS = (64, 128)
+# The head dims every CUDA kernel is built for (a template parameter of
+# each, dispatched at its C entry).
+HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 # Features of the JAX kernel not ported yet (ROADMAP.md, Queue A item 2).
@@ -174,21 +173,21 @@ def _lib() -> ctypes.CDLL:
     return bind_lean(bind(_build.load()))
 
 
-def check_head_dim(head_dim: int, built=(HEAD_DIM,)) -> None:
-    """Raise ``ValueError`` for a head dim the kernel is not built for."""
-    if head_dim not in built:
+def check_head_dim(head_dim: int) -> None:
+    """Raise ``ValueError`` for a head dim the kernels are not built for."""
+    if head_dim not in HEAD_DIMS:
         raise ValueError(
-            f"the CUDA kernel is compiled for head_dim {' or '.join(map(str, built))}, got "
-            f"{head_dim} (other head dims: ROADMAP.md, Queue C item 2)"
+            f"the CUDA kernels are built for head_dim {' or '.join(map(str, HEAD_DIMS))}, "
+            f"got {head_dim}"
         )
 
 
-def _check_cuda_inputs(q, k, v, q_offset=None, head_dims=(HEAD_DIM,)) -> None:
+def _check_cuda_inputs(q, k, v, q_offset=None) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes bf16 or fp32 inputs, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    check_head_dim(q.shape[-1], head_dims)
+    check_head_dim(q.shape[-1])
     for name, t in (("q", q), ("k", k), ("v", v), ("q_offset", q_offset)):
         if t is None:
             continue
@@ -253,7 +252,7 @@ def flash_fwd_general(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v, off, head_dims=FWD_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v, off)
     o, lse = _new_outputs(q, save_lse)
     err = _lib().fam_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(),
@@ -302,7 +301,7 @@ def flash_fwd_lean(
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v, head_dims=FWD_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v)
     o, lse = _new_outputs(q, save_lse)
     err = _lib().fam_flash_lean(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -54,8 +54,6 @@ MaskFn = Callable[[np.ndarray, np.ndarray], np.ndarray]
 
 # Rows of the kernels' Q and KV tiles (csrc/flash_mask.cu, kTile).
 TILE = 64
-# Head dims the kernels are built for (csrc/flash_mask.cu).
-HEAD_DIMS = (64, 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,7 +296,7 @@ def _check_cuda(mask: BlockMask, *tensors) -> None:
         raise ValueError(f"no kernel for device {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes bf16 or fp32 inputs, got {q.dtype}")
-    check_head_dim(q.shape[-1], HEAD_DIMS)
+    check_head_dim(q.shape[-1])
     for t in tensors:
         if t.dtype != q.dtype:
             raise TypeError("q, k, v (and do) must share one dtype")

@@ -33,7 +33,6 @@ from . import _build
 from .flash_bwd import _plain_p_ds, bwd_delta, dq_workspace_shape
 from .flash_fwd import (
     _DTYPE_CODES,
-    FWD_HEAD_DIMS,
     _check_cuda_inputs,
     _new_outputs,
     check_shapes,
@@ -147,7 +146,7 @@ def flash_attention_tri(
         return flash_attention_tri_plain(q, k, v, off, sm_scale=sm_scale, save_lse=save_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    _check_cuda_inputs(q, k, v, head_dims=FWD_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v)
     o, lse = _new_outputs(q, save_lse)
     err = _lib().fam_flash_tri_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -220,9 +219,9 @@ def flash_attention_bwd_tri(
     dq = torch.empty_like(q)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    # One fp32 64 x 64 dQ slot per visible (q tile, KV tile) pair and head.
-    ws = torch.empty(dq_workspace_shape(batch, heads, n_q, n_kv, off), dtype=torch.float32,
-                     device=q.device)
+    # One fp32 64 x head_dim dQ slot per visible (q tile, KV tile) pair and head.
+    ws = torch.empty(dq_workspace_shape(batch, heads, n_q, n_kv, off, head_dim),
+                     dtype=torch.float32, device=q.device)
     pairs = ws.shape[0] // (batch * heads)
     err = _lib().fam_flash_tri_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),

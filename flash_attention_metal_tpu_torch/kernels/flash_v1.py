@@ -30,7 +30,7 @@ import torch
 
 from ..config import default_scale
 from . import _build
-from .flash_fwd import _DTYPE_CODES, HEAD_DIM, _check_cuda_inputs
+from .flash_fwd import _DTYPE_CODES, _check_cuda_inputs
 
 # The JAX function's per-N (block_q, block_k) defaults (raced on v5e;
 # flash_v1.py:187-192): they decide the route only.
@@ -135,7 +135,7 @@ def flash_v1_stream(q, k, v, *, sm_scale: float, causal: bool) -> torch.Tensor:
     o = torch.empty_like(q)
     err = _lib().fam_flash_v1(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        batch, heads, n_q, k.shape[2], HEAD_DIM, sm_scale, int(causal), *_stream_args(q),
+        batch, heads, n_q, k.shape[2], q.shape[-1], sm_scale, int(causal), *_stream_args(q),
     )
     if err:
         raise RuntimeError(f"flash_v1 streaming kernel launch failed: cudaError_t {err}")
@@ -153,7 +153,7 @@ def flash_v1_folded(q, k, v, fold: int, *, sm_scale: float, causal: bool) -> tor
     o = torch.empty_like(q)
     err = _lib().fam_flash_v1_folded(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        batch, heads, n_q, k.shape[2], HEAD_DIM, fold, sm_scale, int(causal),
+        batch, heads, n_q, k.shape[2], q.shape[-1], fold, sm_scale, int(causal),
         *_stream_args(q),
     )
     if err:

@@ -20,7 +20,7 @@ import torch
 
 from ..config import DEFAULT_MASK_VALUE, default_scale
 from . import _build
-from .flash_fwd import _DTYPE_CODES, HEAD_DIM, _check_cuda_inputs
+from .flash_fwd import _DTYPE_CODES, _check_cuda_inputs
 
 # Longest KV row the kernel's shared memory holds (csrc/naive.cu, kMaxKv):
 # the benchmark's sweep, like the JAX package's, caps naive at N = 8192.
@@ -95,7 +95,7 @@ def naive_attention(
     o = torch.empty_like(q)
     err = _lib().fam_naive(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        batch, heads, n_q, n_kv, HEAD_DIM, sm_scale, int(causal), _DTYPE_CODES[q.dtype],
+        batch, heads, n_q, n_kv, q.shape[-1], sm_scale, int(causal), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

@@ -158,7 +158,7 @@ def _lib() -> ctypes.CDLL:
 
 def check_cuda_tensors(q: torch.Tensor, rows: dict, others: dict) -> None:
     """What the kernels of ``csrc/flash_fwd.cu`` take: bf16 or fp32 ``q`` of
-    head dim 64; every tensor on q's device and contiguous; q and the K/V
+    head dim 64 or 128; every tensor on q's device and contiguous; q and the K/V
     storage (``rows``, read 16 bytes at a time) 16-byte aligned."""
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes bf16 or fp32 q, got {q.dtype}")

@@ -72,16 +72,18 @@ def _t(x, dtype=torch.float32):
         dict(b=2, hq=2, hkv=2, n=128, off=[0, 0], dlse=False),
         # per-batch offset tensor (chunked rows), GQA 2, with an lse cotangent
         dict(b=2, hq=4, hkv=2, n=128, off=[0, 64], dlse=True),
+        # the same at head dim 128
+        dict(b=2, hq=4, hkv=2, n=128, off=[0, 64], dlse=True, d=128),
     ],
-    ids=["causal_mha", "per_batch_offset_gqa2_dlse"],
+    ids=["causal_mha", "per_batch_offset_gqa2_dlse", "per_batch_offset_gqa2_dlse_d128"],
 )
 def test_flash_bwd_matches_jax_kernels(case):
     """The port's backward against JAX ``flash_attention_bwd`` on the same
     ``o`` and ``lse``.  The JAX kernels take equal head counts, so K/V are
     repeated for them and their dK/dV summed over each group after, which
     is what the JAX op does."""
-    b, hq, hkv, n = case["b"], case["hq"], case["hkv"], case["n"]
-    q, k, v, do, dlse = _inputs(0, b, hq, hkv, n, n)
+    b, hq, hkv, n, d = case["b"], case["hq"], case["hkv"], case["n"], case.get("d", 64)
+    q, k, v, do, dlse = _inputs(0, b, hq, hkv, n, n, d)
     group = hq // hkv
     kb, vb = np.repeat(k, group, axis=1), np.repeat(v, group, axis=1)
     off = np.asarray(case["off"], np.int32)
@@ -94,8 +96,8 @@ def test_flash_bwd_matches_jax_kernels(case):
         jnp.asarray(q), jnp.asarray(kb), jnp.asarray(vb), o, jnp.asarray(do), lse,
         jnp.asarray(off), dlse_j, causal=True, interpret=True,
     )
-    dk_j = np.asarray(dk_j).reshape(b, hkv, group, n, 64).sum(axis=2)
-    dv_j = np.asarray(dv_j).reshape(b, hkv, group, n, 64).sum(axis=2)
+    dk_j = np.asarray(dk_j).reshape(b, hkv, group, n, d).sum(axis=2)
+    dv_j = np.asarray(dv_j).reshape(b, hkv, group, n, d).sum(axis=2)
     dq, dk, dv = flash_attention_bwd(
         _t(q), _t(k), _t(v), _t(o), _t(do), _t(np.asarray(lse)[..., 0]), torch.from_numpy(off),
         _t(dlse) if case["dlse"] else None, causal=True,

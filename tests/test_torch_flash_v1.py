@@ -48,12 +48,14 @@ def _jax_grids(fn, *args):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize(
     "shape,route",
-    [((2, 2, 256, 64), "folded"), ((1, 2, 1024, 64), "stream")],
-    ids=["folded_n256", "stream_n1024"],
+    [((2, 2, 256, 64), "folded"), ((1, 2, 1024, 64), "stream"), ((2, 1, 256, 128), "folded"),
+     ((1, 1, 1024, 128), "stream")],
+    ids=["folded_n256", "stream_n1024", "folded_n256_d128", "stream_n1024_d128"],
 )
 def test_flash_v1_matches_jax(shape, route, causal):
     """(2, 2, 256): one KV block, two batch elements per step (the folded
-    kernel); (1, 2, 1024): two 512-column KV blocks (the streaming one)."""
+    kernel); (1, 2, 1024): two 512-column KV blocks (the streaming one);
+    both again at head dim 128."""
     q, k, v = _inputs(0, shape)
     assert fv.v1_route(shape[0], shape[2], shape[2])[0] == route
     want = jax_v1(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal, interpret=True)

@@ -28,13 +28,13 @@ from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 TOL = 1e-4
 
 
-def _inputs(seed, b, hq, hkv, n):
+def _inputs(seed, b, hq, hkv, n, d=64):
     rng = np.random.default_rng(seed)
 
     def u(*shape):
         return rng.uniform(-1.0, 1.0, shape).astype(np.float32)
 
-    return u(b, hq, n, 64), u(b, hkv, n, 64), u(b, hkv, n, 64), u(b, hq, n, 64), u(b, hq, n)
+    return u(b, hq, n, d), u(b, hkv, n, d), u(b, hkv, n, d), u(b, hq, n, d), u(b, hq, n)
 
 
 def _err(got: torch.Tensor, want) -> float:
@@ -80,6 +80,40 @@ def test_fused_bwd_with_dlse_and_per_batch_offsets_matches_jax():
                                        torch.from_numpy(off), _t(dlse), causal=True)
     for g, w in zip(got, want):
         assert _err(g, w) < TOL
+
+
+def test_fused_bwd_at_head_dim_128_matches_jax():
+    """Head dim 128 (a 64 x 128 dQ slot per pair): an lse cotangent and
+    per-batch offsets, against the JAX kernel with two dQ partials."""
+    q, k, v, do, dlse = _inputs(7, 2, 2, 2, 256, d=128)
+    off = np.asarray([0, 64], np.int32)
+    o, lse, want = _jax_case(q, k, v, do, off, True, 128, dlse)
+    got = fb.flash_attention_bwd_fused(_t(q), _t(k), _t(v), _t(o), _t(do), _t(lse),
+                                       torch.from_numpy(off), _t(dlse), causal=True)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert _err(g, w) < TOL
+
+
+def test_dq_workspace_bytes_follow_the_head_dim(monkeypatch):
+    """One fp32 64 x D slot per visible (Q tile, KV tile) pair and q-head:
+    ``dq_workspace_shape``, the bytes the router counts and its decision at
+    the boundary all equal ``roofline.dq_slot_count x 64 x D x 4``."""
+    for d in (64, 128):
+        q = torch.zeros((2, 4, 256, d))
+        kv = torch.zeros((2, 2, 256, d))
+        slots = fb.dq_slot_count(256, 256, 0)
+        assert fb.dq_workspace_shape(2, 4, 256, 256, 0, d) == (2 * 4 * slots, 64, d)
+        need = 2 * 4 * slots * 64 * d * 4
+        assert fb.fused_workspace_bytes(q, kv, None, causal=True) == need
+        monkeypatch.setattr(fb, "_free_device_bytes",
+                            lambda device, n=need: n / fb.FUSED_WORKSPACE_SHARE)
+        assert fb.fused_workspace_fits(q, kv, None, causal=True)
+        monkeypatch.setattr(fb, "_free_device_bytes",
+                            lambda device, n=need: n / fb.FUSED_WORKSPACE_SHARE - 1)
+        assert not fb.fused_workspace_fits(q, kv, None, causal=True)
+    # Every pair without a causal mask.
+    assert fb.dq_workspace_shape(1, 1, 256, 256, 255, 128) == (16, 64, 128)
 
 
 def test_fused_bwd_gqa_matches_jax_on_broadcast_kv():

@@ -9,6 +9,7 @@ not installed:
 
 import ctypes
 import json
+import math
 import shutil
 
 import numpy as np
@@ -216,59 +217,97 @@ def _bwd_errors(got, want):
         # peaked softmax over several tiles
         dict(b=2, hq=4, hkv=2, n_q=256, n_kv=256, off=[0, 0], causal=True,
              q_scale=onchip.PEAKED_Q_SCALE),
+        # ragged n_q = 1000 (a partial Q step and tile), GQA 1
+        dict(b=2, hq=4, hkv=4, n_q=1000, n_kv=1000, off=[0, 0], causal=True),
+        # head dim 128: n_kv != n_q with per-batch offsets (one row block
+        # masked), GQA 1 non-causal, fully masked rows, peaked, spike
+        dict(b=2, hq=4, hkv=2, n_q=1000, n_kv=1300, off=[300, -40], causal=True, d=128),
+        dict(b=2, hq=4, hkv=4, n_q=1000, n_kv=1000, off=[0, 0], causal=False, d=128),
+        dict(b=1, hq=2, hkv=1, n_q=128, n_kv=128, off=[-70], causal=True, d=128),
+        dict(b=2, hq=4, hkv=2, n_q=256, n_kv=256, off=[0, 0], causal=True, d=128,
+             q_scale=onchip.PEAKED_Q_SCALE),
+        dict(b=2, hq=4, hkv=2, n_q=1000, n_kv=1000, off=[0, 0], causal=True, d=128,
+             spike=True),
     ],
-    ids=["ragged_gqa2", "non_causal", "gqa4", "masked_rows", "peaked"],
+    ids=["ragged_gqa2", "non_causal", "gqa4", "masked_rows", "peaked", "gqa1_n1000",
+         "d128_ragged_offsets", "d128_non_causal_gqa1", "d128_masked_rows", "d128_peaked",
+         "d128_spike"],
 )
 def test_bwd_kernels_match_plain(cuda, dtype, case):
+    """The split pair (bf16: the Hopper kernels of flash_bwd_sm90.cuh; fp32:
+    the FMA template) against its plain version, one launch each."""
     rng = np.random.default_rng(0)
-    q = _uniform(rng, (case["b"], case["hq"], case["n_q"], 64), cuda, dtype,
-                 case.get("q_scale", 1.0))
-    k = _uniform(rng, (case["b"], case["hkv"], case["n_kv"], 64), cuda, dtype)
-    v = _uniform(rng, (case["b"], case["hkv"], case["n_kv"], 64), cuda, dtype)
+    d = case.get("d", 64)
+    shape_q, shape_kv = (case["b"], case["hq"], case["n_q"], d), (case["b"], case["hkv"], case["n_kv"], d)
+    if case.get("spike"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        q, k, v = onchip.spike_inputs(shape_q, shape_kv, dtype, gen, col=case["n_kv"] // 2)
+    else:
+        q = _uniform(rng, shape_q, cuda, dtype, case.get("q_scale", 1.0))
+        k = _uniform(rng, shape_kv, cuda, dtype)
+        v = _uniform(rng, shape_kv, cuda, dtype)
     do = _uniform(rng, q.shape, cuda, dtype)
     dlse = _uniform(rng, q.shape[:3], cuda, torch.float32)
     off = torch.tensor(case["off"], dtype=torch.int32, device=cuda)
     causal = case["causal"]
     o, lse = flash_attention_fwd(q, k, v, off, causal=causal, save_lse=True)
     before = (fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
-    got = fb.flash_attention_bwd(q, k, v, o, do, lse, off, dlse, sm_scale=0.125, causal=causal)
+    sm_scale = d ** -0.5
+    got = fb.flash_attention_bwd(q, k, v, o, do, lse, off, dlse, sm_scale=sm_scale, causal=causal)
     assert (fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
     want = fb.flash_attention_bwd_plain(
         q.float(), k.float(), v.float(), o.float(), do.float(), lse, off, dlse,
-        sm_scale=0.125, causal=causal,
+        sm_scale=sm_scale, causal=causal,
     )
     torch.cuda.synchronize()
     for g, t in zip(got, (q, k, v)):
         assert g.dtype == dtype and g.shape == t.shape and bool(torch.isfinite(g).all())
     errors = _bwd_errors(got, want)
     assert max(errors.values()) <= BWD_TOL[dtype], errors
-    if case["off"] == [-70]:
-        assert torch.all(got[0][:, :, :70] == 0)
+    if min(case["off"]) < 0:
+        rows = -min(case["off"])
+        assert torch.all(got[0][case["off"].index(-rows), :, :rows] == 0)
 
 
 @pytest.mark.gpu
-def test_bwd_kernels_are_deterministic(cuda):
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_bwd_kernels_are_deterministic(cuda, head_dim):
     """Each output tile has one owner block and a fixed summation order:
-    two runs give bit-identical gradients."""
+    two runs give bit-identical gradients (the training shape, peaked)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
-    inputs = onchip.bwd_inputs(onchip.train_cases(gen)["train_bf16_peaked"])
-    q, k, v, o, do, lse, off = inputs
+    case = onchip.train_cases(gen)["train_bf16_peaked"]
+    if head_dim == 128:
+        shape_q, shape_kv = onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen, onchip.PEAKED_Q_SCALE)
+        case = (q, k, v, onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)[0], case[4])
+    q, k, v, o, do, lse, off = onchip.bwd_inputs(case)
     first = fb.flash_attention_bwd(q, k, v, o, do, lse, off, causal=True)
     second = fb.flash_attention_bwd(q, k, v, o, do, lse, off, causal=True)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
 
 
-# Faults planted in a copy of csrc/flash_bwd.cu: (text, replacement).
+# Faults planted in a copy of csrc/flash_bwd_sm90.cuh, the bf16 split pair
+# (built into flash_bwd.cu): (text, replacement).
 PLANTED_BWD_FAULTS = {
-    # dS = P * dP: delta dropped
-    "delta_dropped": ("(sm.dp[r * kLdS + c] - delta)", "sm.dp[r * kLdS + c]"),
-    # the dK/dV walk starts one Q tile late: the diagonal tile is skipped
-    "diagonal_skipped": ("max(0, kv_start - off) / kBlockM", "max(0, kv_start - off) / kBlockM + 1"),
-    # only the group's first q-head is summed into dK
-    "first_head_only": ("mma_atb_bf16(dk_acc, sm.ds, sm.q, warp);",
-                        "if (g == 0) mma_atb_bf16(dk_acc, sm.ds, sm.q, warp);"),
+    # the dQ walk stops one KV tile short: the diagonal tile is left out
+    "dq_walk_one_tile_short": ("limit < 0 ? 0 : limit / kTile + 1;", "limit < 0 ? 0 : limit / kTile;"),
+    # the dK/dV walk starts one Q step late: its first visible Q tile is skipped
+    "dkv_first_q_tile_skipped": ("max(0, kv_start - off) / kRows;",
+                                 "max(0, kv_start - off) / kRows + 1;"),
+    # the dK/dV block walks only its group's first q-head: dK and dV miss the
+    # other q-heads' terms (the training shape is GQA 2)
+    "first_head_only": ("const int n_steps = group * per_head;", "const int n_steps = per_head;"),
+    # dS^T = P^T * dP^T: delta not subtracted
+    "delta_not_subtracted": ("dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e & 1]);",
+                             "dpt[4 * j + e] = p * dpt[4 * j + e];"),
+    # 16-byte chunks 1 and 2 of row 5 of every swizzled tile stored at each
+    # other's address: every slot is written, with finite data
+    "swizzled_chunk_misplaced": (
+        "cp_async16(dst + swz<kRows>(r, c), src",
+        "cp_async16(dst + swz<kRows>(r, r == 5 && (c == 1 || c == 2) ? 3 - c : c), src"),
 }
 
 
@@ -279,11 +318,7 @@ def test_planted_bwd_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     kernels as built and fails a copy with a planted fault (errors printed
     with ``-s``)."""
     old, new = PLANTED_BWD_FAULTS[fault]
-    source = (_build.CSRC / "flash_bwd.cu").read_text()
-    assert source.count(old) == 1
-    planted = tmp_path / "flash_bwd.cu"
-    planted.write_text(source.replace(old, new))
-    lib = fb.bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    lib = fb.bind(_planted_library(tmp_path, "flash_bwd.cu", "flash_bwd_sm90.cuh", old, new))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = onchip.train_cases(gen)
@@ -297,8 +332,10 @@ def test_planted_bwd_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
         for n in names))
     tol = BWD_TOL[torch.bfloat16]
     for name in names:
-        assert max(rel for _, rel in clean[name].values()) <= tol
-        assert max(rel for _, rel in faulty[name].values()) > tol
+        assert all(rel <= tol for _, rel in clean[name].values())
+        planted = [rel for _, rel in faulty[name].values()]
+        # a wrong but finite answer, above the bound
+        assert all(math.isfinite(rel) for rel in planted) and max(planted) > tol, planted
 
 
 @pytest.mark.gpu
@@ -469,11 +506,11 @@ PLANTED_LADDER_FAULTS = {
                             "c < min(n_visible, kBlockN); c += kSub) row_max"),
     # the diagonal tile treated as interior: no mask compare on it
     "tri_diagonal_unmasked": ("flash_tri.cu", ft, ft.bind, "flash_tri",
-                              "kv_start + kBlockN - 1 <= first_limit",
+                              "kv_start + kTile - 1 <= first_limit",
                               "kv_start <= first_limit"),
-    # dS = P * dP: delta dropped
-    "tri_bwd_delta_dropped": ("flash_tri.cu", ft, ft.bind, "flash_tri_bwd",
-                              "(sm.dp[r * kLdS + c] - delta)", "sm.dp[r * kLdS + c]"),
+    # dS = P * dP: delta dropped (the tile helpers the backward shares)
+    "tri_bwd_delta_dropped": (("flash_tri.cu", "wmma_tiles.cuh"), ft, ft.bind, "flash_tri_bwd",
+                              "(sm.dp[r * C::kLdS + c] - delta)", "sm.dp[r * C::kLdS + c]"),
     # each Q tile's last dQ slot left out of the sum (the shared reduce)
     "tri_bwd_last_slot_dropped": (("flash_tri.cu", "dq_slots.cuh"), ft, ft.bind, "flash_tri_bwd",
                                   "j < n_slots; ++j)", "j < n_slots - 1; ++j)"),
@@ -709,9 +746,9 @@ def test_kv_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         qt.flash_attention_quant(q.half(), qkv, causal=True)
     with pytest.raises(ValueError, match="head_dim"):
-        qt.flash_attention_quant(torch.zeros((1, 2, 8, 128), device=cuda),
-                                 qt.quantize_kv(torch.zeros((1, 2, 128, 128), device=cuda),
-                                                torch.zeros((1, 2, 128, 128), device=cuda)))
+        qt.flash_attention_quant(torch.zeros((1, 2, 8, 96), device=cuda),
+                                 qt.quantize_kv(torch.zeros((1, 2, 128, 96), device=cuda),
+                                                torch.zeros((1, 2, 128, 96), device=cuda)))
     pool = torch.zeros((3, 2, 128, 64), device=cuda)
     table = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     lengths = torch.zeros((1,), dtype=torch.int32, device=cuda)
@@ -987,9 +1024,10 @@ def test_fused_workspace_holds_the_visible_pairs(cuda):
     counts at the training shape (528 of 32 x 32 pairs per q-head, causal,
     offset 0), and on the card every slot allocated at a bound that every
     batch meets is written; a batch below the bound leaves some unwritten."""
-    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 0) == (4 * 16 * 528, 64, 64)
-    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 2047) == (4 * 16 * 1024, 64, 64)
-    assert fb.dq_workspace_shape(1, 2, 128, 128, -70) == (2, 64, 64)  # the first tile sees none
+    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 0, 64) == (4 * 16 * 528, 64, 64)
+    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 2047, 64) == (4 * 16 * 1024, 64, 64)
+    # the first tile sees none
+    assert fb.dq_workspace_shape(1, 2, 128, 128, -70, 128) == (2, 64, 128)
     rng = np.random.default_rng(0)
     q = _uniform(rng, (2, 4, 200, 64), cuda, torch.bfloat16)
     k, v = (_uniform(rng, (2, 2, 300, 64), cuda, torch.bfloat16) for _ in range(2))
@@ -998,11 +1036,11 @@ def test_fused_workspace_holds_the_visible_pairs(cuda):
         inputs = onchip.bwd_inputs((q, k, v, q, off))
         allocated, written = onchip.fused_workspace_bytes(inputs, bound)
         slot = 64 * 64 * 4
-        assert allocated == 2 * 4 * fb.dq_workspace_shape(1, 1, 200, 300, bound)[0] * slot
+        assert allocated == 2 * 4 * fb.dq_workspace_shape(1, 1, 200, 300, bound, 64)[0] * slot
         if offs[0] == offs[1]:
             assert written == allocated, (offs, allocated, written)
         else:
-            per_head = [fb.dq_workspace_shape(1, 1, 200, 300, x)[0] for x in offs]
+            per_head = [fb.dq_workspace_shape(1, 1, 200, 300, x, 64)[0] for x in offs]
             assert written == 4 * sum(per_head) * slot < allocated
 
 
@@ -1092,30 +1130,79 @@ def test_forward_kernels_at_head_dim_128_match_plain(cuda, case, dtype, fixture)
     assert err <= TOL[dtype] and lse_err <= TOL[dtype], (err, lse_err)
 
 
+def _d128_check(kernel, gen):
+    """``(error, tolerance)`` of one kernel at head dim 128 against
+    its plain version: small ragged shapes, GQA 2 where the kernel takes it,
+    the KV caches' kernels at folded decode."""
+    bf16 = torch.bfloat16
+    bwd = dict(flash_bwd_dkv=("dk", "dv"), flash_bwd_dq=("dq",), flash_bwd_fused=("dq", "dk", "dv"))
+    if kernel == "flash_fwd":
+        q, k, v = onchip.ladder_inputs((2, 4, 130, 128), (2, 2, 300, 128), bf16, gen)
+        off = torch.tensor([0, 170], dtype=torch.int32, device="cuda")
+        return max(onchip.kernel_error((q, k, v, off, 1))), TOL[bf16]
+    if kernel in ("naive", "flash_lean", "flash_tri"):
+        dtype = torch.float32 if kernel == "naive" else bf16
+        kw = {"naive": dict(causal=True), "flash_lean": dict(causal=True, q_offset=100, save_lse=True),
+              "flash_tri": dict(q_offset=170, save_lse=True)}[kernel]
+        qkv = onchip.ladder_inputs((2, 2, 130, 128), (2, 2, 300, 128), dtype, gen)
+        return max(onchip.ladder_fwd_error(kernel, qkv, kw)), TOL[dtype]
+    if kernel in ("flash_v1", "flash_v1_folded"):
+        shape = (1, 2, 1024, 128) if kernel == "flash_v1" else (8, 1, 128, 128)
+        assert onchip.v1_kernel(shape) == kernel
+        qkv = onchip.ladder_inputs(shape, shape, torch.float32, gen)
+        return onchip.v1_error(qkv, True), TOL[torch.float32]
+    if kernel == "flash_tri_bwd":
+        q, k, v = onchip.ladder_inputs((2, 2, 130, 128), (2, 2, 300, 128), bf16, gen)
+        do = onchip.ladder_inputs((2, 2, 130, 128), (2, 2, 300, 128), bf16, gen)[0]
+        o, lse = ft.flash_attention_tri(q, k, v, q_offset=170, save_lse=True)
+        errs = onchip.tri_bwd_errors((q, k, v, o, do, lse, 170))
+        return max(r for _, r in errs.values()), BWD_TOL[bf16]
+    if kernel in bwd:
+        q, k, v = onchip.ladder_inputs((2, 4, 1000, 128), (2, 2, 1000, 128), bf16, gen)
+        do = onchip.ladder_inputs((2, 4, 1000, 128), (2, 2, 1000, 128), bf16, gen)[0]
+        off = torch.tensor([0, 100], dtype=torch.int32, device="cuda")
+        errs = onchip.bwd_kernel_errors(onchip.bwd_inputs((q, k, v, do, off)),
+                                        fused=kernel == "flash_bwd_fused")
+        return max(errs[g][1] for g in bwd[kernel]), BWD_TOL[bf16]
+    if kernel in onchip.KV_KERNELS:
+        (_, args, pos_div), = [c for c in onchip.kv_d128_cases(gen).values() if c[0] == kernel]
+        return max(onchip.kv_kernel_error(kernel, args, pos_div)), TOL[bf16]
+    bm = fm.BlockMask(SPARSE_MASKS["rung11"], SPARSE_N, SPARSE_N, 128, 128)
+    q, k, v = onchip.ladder_inputs((2, 4, SPARSE_N, 128), (2, 2, SPARSE_N, 128), bf16, gen)
+    do = onchip.ladder_inputs((2, 4, SPARSE_N, 128), (2, 2, SPARSE_N, 128), bf16, gen)[0]
+    errs = onchip.sparse_kernel_errors((q, k, v, do, bm))
+    out = {"flash_sparse_fwd": ("o", TOL), "flash_sparse_dkv": ("dk", BWD_TOL),
+           "flash_sparse_dq": ("dq", BWD_TOL)}[kernel]
+    err = max(errs["o"]) if out[0] == "o" else max(errs["dk"][1], errs["dv"][1]) \
+        if out[0] == "dk" else errs["dq"][1]
+    return err, out[1][bf16]
+
+
+# Each kernel's launch counter (its wrapper).
+D128_COUNTERS = {
+    "flash_fwd": ff.flash_fwd_general, "flash_lean": ff.flash_fwd_lean,
+    "flash_tri": ft.flash_attention_tri, "flash_tri_bwd": ft.flash_attention_bwd_tri,
+    "flash_bwd_dkv": fb.flash_bwd_dkv, "flash_bwd_dq": fb.flash_bwd_dq,
+    "flash_bwd_fused": fb.flash_bwd_fused, "naive": nv.naive_attention, "flash_v1": fv.flash_v1_stream,
+    "flash_v1_folded": fv.flash_v1_folded, "flash_quant": qt.flash_attention_quant,
+    "flash_paged": pg.flash_attention_paged, "flash_paged_quant": pg.flash_attention_paged_quant,
+    "flash_sparse_fwd": fm.flash_sparse_fwd, "flash_sparse_dkv": fm.flash_sparse_dkv,
+    "flash_sparse_dq": fm.flash_sparse_dq,
+}
+
+
 @pytest.mark.gpu
-def test_other_kernels_reject_head_dim_128(cuda):
-    """Every kernel but the forward router's three and the block-sparse
-    ones is built for head dim 64: each raises a ValueError that names
-    ROADMAP.md Queue C item 2."""
-    q = torch.zeros((2, 2, 128, 128), device=cuda)
-    lse = torch.zeros((2, 2, 128), device=cuda)
-    off = torch.zeros((2,), dtype=torch.int32, device=cuda)
-    qkv = qt.quantize_kv(q, q)
-    pool = torch.zeros((3, 2, 128, 128), device=cuda)
-    table = torch.ones((2, 1), dtype=torch.int32, device=cuda)
-    calls = {
-        "naive": lambda: nv.naive_attention(q, q, q),
-        "v1": lambda: fv.flash_attention_v1(q, q, q),
-        "split_bwd": lambda: fb.flash_attention_bwd(q, q, q, q, q, lse, off, causal=True),
-        "fused_bwd": lambda: fb.flash_attention_bwd_fused(q, q, q, q, q, lse, off, causal=True),
-        "tri_bwd": lambda: ft.flash_attention_bwd_tri(q, q, q, q, q, lse),
-        "quant": lambda: qt.flash_attention_quant(q, qkv, off, causal=True),
-        "paged": lambda: pg.flash_attention_paged(q, pool, pool, table, off),
-    }
-    for name, call in calls.items():
-        with pytest.raises(ValueError, match="Queue C item 2"):
-            call()
-        print(name, "raises")
+@pytest.mark.parametrize("kernel", sorted(D128_COUNTERS))
+def test_every_kernel_takes_head_dim_128(cuda, kernel):
+    """Each of the 16 kernels is built for head dim 128: its wrapper
+    launches it (its count moves) and it matches its plain version within
+    the check's tolerance."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    before = D128_COUNTERS[kernel].launches
+    err, tol = _d128_check(kernel, gen)
+    assert D128_COUNTERS[kernel].launches > before
+    assert err <= tol, (kernel, err, tol)
 
 
 @pytest.mark.gpu

@@ -61,13 +61,13 @@ def _rel(got: torch.Tensor, want) -> float:
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "n_q,n_kv,causal",
-    [(256, 256, False), (256, 256, True), (128, 256, True)],
-    ids=["square", "square_causal", "kv_longer_causal"],
+    "n_q,n_kv,causal,d",
+    [(256, 256, False, 64), (256, 256, True, 64), (128, 256, True, 64), (128, 256, True, 128)],
+    ids=["square", "square_causal", "kv_longer_causal", "kv_longer_causal_d128"],
 )
-def test_naive_matches_jax(dtype, n_q, n_kv, causal):
-    (qj, qt), (kj, kt), (vj, vt) = _inputs(0, dtype, (2, 2, n_q, 64), (2, 2, n_kv, 64),
-                                           (2, 2, n_kv, 64))
+def test_naive_matches_jax(dtype, n_q, n_kv, causal, d):
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(0, dtype, (2, 2, n_q, d), (2, 2, n_kv, d),
+                                           (2, 2, n_kv, d))
     want = jax_naive(qj, kj, vj, causal=causal, interpret=True)
     got = naive_attention(qt, kt, vt, causal=causal)
     assert got.dtype == qt.dtype and got.shape == qt.shape
@@ -121,14 +121,14 @@ def test_tri_matches_jax(dtype, hq, hkv, n_q, n_kv, off):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "n_q,n_kv,off,with_dlse",
-    [(256, 256, 0, False), (128, 192, 64, True)],
-    ids=["off0", "off64_dlse"],
+    "n_q,n_kv,off,with_dlse,d",
+    [(256, 256, 0, False, 64), (128, 192, 64, True, 64), (128, 192, 64, True, 128)],
+    ids=["off0", "off64_dlse", "off64_dlse_d128"],
 )
-def test_tri_bwd_matches_jax(dtype, n_q, n_kv, off, with_dlse):
+def test_tri_bwd_matches_jax(dtype, n_q, n_kv, off, with_dlse, d):
     """Both packages take the same o and lse (from the JAX triangular
     forward); dK and dV come back fp32 from both, dQ in q's dtype."""
-    shapes = ((2, 2, n_q, 64), (2, 2, n_kv, 64), (2, 2, n_kv, 64), (2, 2, n_q, 64))
+    shapes = ((2, 2, n_q, d), (2, 2, n_kv, d), (2, 2, n_kv, d), (2, 2, n_q, d))
     (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(3, dtype, *shapes)
     o_j, lse_j = jax_tri(qj, kj, vj, q_offset=off, block_q=128, block_k=128, save_lse=True,
                          interpret=True)

@@ -56,11 +56,12 @@ def _host(x) -> np.ndarray:
     return x.view(np.uint8) if x.itemsize == 1 else x
 
 
-def _scrambled(batch, kv_heads, n_kv, seed):
-    """Dense uniform K/V ``[B, H_kv, n_kv, 64]`` and a shuffled page table
-    over ``1 + batch * n_kv / PS`` pages (page 0 never named)."""
+def _scrambled(batch, kv_heads, n_kv, seed, head_dim=64):
+    """Dense uniform K/V ``[B, H_kv, n_kv, head_dim]`` and a shuffled page
+    table over ``1 + batch * n_kv / PS`` pages (page 0 never named)."""
     rng = np.random.default_rng(seed)
-    k, v = (rng.uniform(-1, 1, (batch, kv_heads, n_kv, 64)).astype(np.float32) for _ in "kv")
+    k, v = (rng.uniform(-1, 1, (batch, kv_heads, n_kv, head_dim)).astype(np.float32)
+            for _ in "kv")
     pages_per = n_kv // PS
     table = (1 + rng.permutation(batch * pages_per)).reshape(batch, pages_per).astype(np.int32)
     return k, v, table, 1 + batch * pages_per
@@ -83,22 +84,24 @@ def _kill_past_diagonal(table, lengths, rows_per_pos):
     return np.where(np.arange(table.shape[1])[None, :] < live[:, None], table, 0).astype(np.int32)
 
 
-# (t_new, fold): decode one token (folded over the group as the decode step
-# does, and not), and a 128-row prefill chunk.
-PAGED_CASES = {"decode_fold": (1, True), "decode": (1, False), "prefill128": (128, False)}
+# (t_new, fold, head_dim): decode one token (folded over the group as the
+# decode step does, and not), a 128-row prefill chunk, and folded decode at
+# head dim 128.
+PAGED_CASES = {"decode_fold": (1, True, 64), "decode": (1, False, 64),
+               "prefill128": (128, False, 64), "decode_fold_d128": (1, True, 128)}
 
 
 def _paged_inputs(case, seed):
-    t_new, fold = PAGED_CASES[case]
+    t_new, fold, d = PAGED_CASES[case]
     batch, heads, kv_heads, n_kv = 2, 4, 2, 512
-    k, v, table, n_pages = _scrambled(batch, kv_heads, n_kv, seed)
+    k, v, table, n_pages = _scrambled(batch, kv_heads, n_kv, seed, d)
     rng = np.random.default_rng(seed + 1)
-    q = rng.uniform(-1, 1, (batch, heads, t_new, 64)).astype(np.float32)
+    q = rng.uniform(-1, 1, (batch, heads, t_new, d)).astype(np.float32)
     lengths = np.asarray([n_kv - t_new, 3 * PS - t_new - 5], np.int32)
     pos_div = 1
     if fold:
         pos_div = heads // kv_heads
-        q = q.reshape(batch, kv_heads, pos_div * t_new, 64)  # the group's rows
+        q = q.reshape(batch, kv_heads, pos_div * t_new, d)  # the group's rows
     return q, k, v, table, _kill_past_diagonal(table, lengths, t_new), n_pages, lengths, pos_div
 
 

@@ -119,6 +119,7 @@ ATTN_CASES = {
     "causal_ragged": ((2, 4, 128, 64), (2, 2, 256, 64), True, [0, 77], 1, True),
     "decode_fold2_ragged": ((3, 2, 8, 64), (3, 2, 256, 64), True, [0, 100, 251], 2, True),
     "decode_one_row": ((2, 4, 1, 64), (2, 2, 256, 64), True, [37, 255], 1, False),
+    "causal_ragged_d128": ((2, 4, 128, 128), (2, 2, 256, 128), True, [0, 77], 1, True),
 }
 
 
