@@ -23,7 +23,9 @@ vocab 32768) with seeded random weights, and the kernel ladder:
 * training: the dK/dV and dQ kernels against their plain versions at the
   training shape, each parameter's gradient at depth 2 against the fp32
   oracle attention, 6 ``Trainer`` steps at batch 4, seq 2048 with the
-  kernels' launch counts, step time, tokens/s and MFU;
+  kernels' launch counts, step time, tokens/s and MFU, and the forward
+  kernel against its plain version at the training shape (ladder, peaked
+  and spike fixtures, head dim 64 and 128);
 * the kernel ladder: the naive, lean and triangular forward kernels and
   the triangular backward against their plain versions at the benchmark's
   and the verification ladder's shapes, the port's verification ladder at
@@ -41,7 +43,8 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   128 and 1024, each point launching its V1 kernel;
 * block-sparse attention under ladder rung 11's mask, then head dim 128:
   every kernel against its plain version at its path's shape with D = 128,
-  with its device, plain, bound and library times.
+  with its device, plain, bound and library times (the general forward
+  also at the training shape and folded decode, lean also at N = 128).
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -651,13 +654,20 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     def nb(*tensors):
         return float(sum(t.numel() * t.element_size() for t in tensors))
 
-    def record(name, err, tol, kernel_fn, plain_fn, library, work, bits, shape, d64_fn=None):
-        check(err <= tol, f"{name} at head dim 128: error {err:.3e} > {tol}")
+    def record(name, err, tol, kernel_fn, plain_fn, library, work, bits, shape, d64_fn=None,
+               tag=None):
+        """The kernel's record at head dim 128, or with ``tag`` a second
+        shape of its path beside it (keys ``<tag>_ms`` etc.)."""
+        check(err <= tol, f"{name} at head dim 128, {shape}: error {err:.3e} > {tol}")
         r = timed_record(kernel_fn, plain_fn, library, *work, bits, shape, spec)
         r["err"] = err
         if d64_fn is not None:
             r["ms_at_d64"] = onchip.device_ms(d64_fn)
-        out[name] = r
+        if tag is None:
+            out[name] = r
+        else:
+            out[name].setdefault("extra", {}).update({f"{tag}_{key}": r[key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "err")})
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"[d128] kernel {name} at {shape}: error {err:.3e} (tol {tol}); device "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib} ms "
@@ -680,6 +690,16 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
            onchip.sdpa_ms(q, k, v, mask=mask), onchip.fwd_work(q, k, [512]), 16,
            "prefill q [1,16,512,128] kv [1,8,2048,128] offset 512 bf16",
            lambda: ff.flash_fwd_general(q6, k6, v6, off, causal=True))
+    # Row 1 at the training shape (causal, with the lse).
+    q, k, v = onchip.ladder_inputs(onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV, bf16, gen)
+    off = torch.zeros(q.shape[0], dtype=torch.int32, device="cuda")
+    record("flash_fwd", max(onchip.kernel_error((q, k, v, off, 1))), onchip.TOL[bf16],
+           lambda: ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=True),
+           lambda: ff.flash_attention_fwd_plain(q, k, v, off, sm_scale=scale, causal=True,
+                                                save_lse=True),
+           onchip.sdpa_ms(q, k, v, causal=True), onchip.fwd_work(q, k, off.tolist(), 1, True), 16,
+           "training q [4,16,2048,128] kv [4,8,2048,128] bf16 causal, lse", tag="train")
+    del q, k, v
     # Rows 2, 8, 9: lean (bf16), naive and streaming V1 (fp32) at the sweep's N = 1024.
     shp = onchip.SWEEP_1024_D128
     b, h, n, d = shp
@@ -691,6 +711,16 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
            lambda: ff.flash_fwd_lean_plain(q, k, v, 0, sm_scale=scale, causal=False),
            onchip.sdpa_ms(q, k, v), (full[0], 2 * nb(q, k)), 16,
            "sweep N=1024 B=8 H=1 D=128 bf16 non-causal", lambda: ff.flash_fwd_lean(q6, k6, v6))
+    shp = onchip.SWEEP_128_D128
+    qs, ks, vs = onchip.ladder_inputs(shp, shp, bf16, gen)
+    record("flash_lean",
+           max(onchip.ladder_fwd_error("flash_lean", (qs, ks, vs), dict(save_lse=True))),
+           onchip.TOL[bf16], lambda: ff.flash_fwd_lean(qs, ks, vs),
+           lambda: ff.flash_fwd_lean_plain(qs, ks, vs, 0, sm_scale=scale, causal=False),
+           onchip.sdpa_ms(qs, ks, vs), (4.0 * 128 * shp[0] * shp[2] ** 2, 2 * nb(qs, ks)), 16,
+           "sweep N=128 B=512 H=1 D=128 bf16 non-causal", tag="n128")
+    del qs, ks, vs
+    shp = onchip.SWEEP_1024_D128
     q, k, v = onchip.ladder_inputs(shp, shp, f32, gen)
     library = onchip.sdpa_ms(q, k, v)
     record("naive", onchip.ladder_fwd_error("naive", (q, k, v), {})[0], onchip.TOL[f32],
@@ -778,6 +808,14 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     qd, kd, vd = onchip.ladder_inputs(onchip.DECODE_D128_Q, onchip.DECODE_D128_KV, bf16, gen)
     cols = torch.arange(onchip.DECODE_D128_KV[2], device="cuda")
     dense = onchip.sdpa_ms(qd, kd, vd, mask=(cols <= lengths[:, None])[:, None, None, :])
+    # Row 1 at folded decode over a dense bf16 cache.
+    record("flash_fwd", max(onchip.kernel_error((qd, kd, vd, lengths, 2))), onchip.TOL[bf16],
+           lambda: ff.flash_fwd_general(qd, kd, vd, lengths, causal=True, pos_div=2),
+           lambda: ff.flash_attention_fwd_plain(qd, kd, vd, lengths, sm_scale=scale, causal=True,
+                                                pos_div=2),
+           dense, onchip.fwd_work(qd, kd, lengths.tolist(), 2), 16,
+           "decode q [8,8,2,128] pos_div 2 over [8,8,2048,128] at onchip.decode_lengths()",
+           tag="decode")
     del qd, kd, vd
     for case, (kernel, args, pos_div) in onchip.kv_d128_cases(gen).items():
         err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
@@ -1010,7 +1048,28 @@ def main() -> int:
           f"warm-up), {train['tokens_per_s']:.0f} tokens/s, {train['model_tflops']:.2f} model "
           f"TF/s, MFU {train['mfu']:.2%} of {train['peak']} 989 TF/s {stamp}")
 
-    # 10. Kernel device times at the training shape.
+    # 10. The forward kernel against its plain version at the training
+    # shape (causal, with the lse; bf16 ladder, peaked and spike fixtures at
+    # head dim 64 and 128), then the kernels' device times there.
+    train_fwd_errors = {}
+    for d in (64, 128):
+        for fixture in ("ladder", "peaked", "spike"):
+            shape_q, shape_kv = (*onchip.TRAIN_Q[:3], d), (*onchip.TRAIN_KV[:3], d)
+            if fixture == "spike":
+                qf, kf, vf = onchip.spike_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+            else:
+                scale_q = onchip.PEAKED_Q_SCALE if fixture == "peaked" else 1.0
+                qf, kf, vf = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen, scale_q)
+            offf = torch.zeros(shape_q[0], dtype=torch.int32, device="cuda")
+            err, lse_err = onchip.kernel_error((qf, kf, vf, offf, 1))
+            tol = onchip.TOL[torch.bfloat16]
+            train_fwd_errors[(d, fixture)] = err
+            check(err <= tol and lse_err <= tol,
+                  f"forward at the training shape, D {d} {fixture}: max abs err {err:.3e}, "
+                  f"lse {lse_err:.3e} > {tol}")
+            print(f"[kernel] flash_fwd at the training shape q {shape_q} kv {shape_kv} causal, "
+                  f"{fixture}: max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+            del qf, kf, vf
     q, k, v, o, do, lse, off = onchip.bwd_inputs(train_cases["train_bf16"])
     delta = fb.bwd_delta(o, do, None)
     kw = dict(sm_scale=0.125, causal=True)
@@ -1251,6 +1310,7 @@ def main() -> int:
         rec.update({f"{key}_d128": r[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_backend", "shape")})
         rec["max_err_d128"] = r["err"]
+        rec.update({f"{key}_d128": value for key, value in r.get("extra", {}).items()})
         for key, name in (("ms_at_d64", "ms_d64_same_shape"), ("workspace_bytes", "workspace_bytes_d128"),
                           ("sdpa_dense_bf16_ms", "sdpa_dense_bf16_ms_d128")):
             if key in r:
@@ -1283,6 +1343,9 @@ def main() -> int:
             "launches_ladder_bench": slice_launches["flash_fwd"],
             "train_ms": train_times["flash_fwd"][0],
             "train_plain_ms": train_times["flash_fwd"][1],
+            "train_max_abs_err": max(e for (d_, _), e in train_fwd_errors.items() if d_ == 64),
+            "train_max_abs_err_d128": max(
+                e for (d_, _), e in train_fwd_errors.items() if d_ == 128),
             **fwd_extra,
         },
             bwd_record("flash_bwd_dkv", 79, ("dk", "dv")),

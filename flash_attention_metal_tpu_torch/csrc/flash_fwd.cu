@@ -6,7 +6,12 @@
 // with its own entry point:
 //   * flash_fwd.py::_fwd_kernel (fam_flash_fwd): a dense bf16 / fp32 cache
 //     [B, H_kv, N, D], the kernel of dense serving (chunked prefill, and
-//     GQA-folded decode with pos_div = group) and of the training forward;
+//     GQA-folded decode with pos_div = group) and of the training forward.
+//     bf16 calls with pos_div == 1 (the training forward, prefill chunks)
+//     run the wgmma kernel of flash_fwd_sm90.cuh; this template takes
+//     folded decode (bytes-bound: it needs split-KV, not wgmma) and fp32
+//     (IEEE FMA, held at 1e-5: no tensor-core route meets that), and the
+//     fp32 lean forward of flash_lean.cu with one int offset;
 //   * quant.py::_quant_fwd_kernel (fam_flash_quant): a dense
 //     [B, H_kv, N, D] int8 / e4m3 / e5m2 cache with per-token fp32 scales
 //     [B, H_kv, N];
@@ -62,9 +67,9 @@
 //   * bf16 QK^T and PV run on the tensor cores through WMMA 16x16x16
 //     fragments with fp32 accumulators; warps whose 16 rows are all past n_q
 //     (most of a folded-decode tile) skip their products.
-// Not done yet: wgmma, TMA and a multi-stage pipeline; split-KV
-// so that decode fills the 132 SMs; fp8 tensor-core products on the 8-bit
-// tiles themselves.
+// Not done yet here: split-KV so that decode fills the 132 SMs; wgmma and a
+// copy ring for the KV caches' bf16 entries; fp8 tensor-core products on
+// the 8-bit tiles themselves.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -76,6 +81,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_fwd_sm90.cuh"
 
 namespace {
 
@@ -376,7 +383,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
                     float* __restrict__ lse, int n_heads, int n_kv_heads,
-                    int n_q, float scale_log2, int causal, int pos_div) {
+                    int n_q, float scale_log2, int causal, int pos_div,
+                    int fixed_offset) {
   constexpr bool kScaled = !std::is_same<KV, T>::value;
   constexpr int kLdS = Dims<D>::kLdS, kOCols = Dims<D>::kOCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -395,7 +403,8 @@ __global__ void __launch_bounds__(kThreads)
 
   const int rows_valid = min(kBlockM, n_q - q_start);
   const bool warp_active = warp * 16 < rows_valid;
-  const int off = causal ? q_offset[b] : 0;
+  // q_offset null: one int offset for every batch (the fp32 lean forward).
+  const int off = !causal ? 0 : q_offset != nullptr ? q_offset[b] : fixed_offset;
   const int row = q_start + r;
   // Last column this thread's row may see (-1: none).
   int col_limit = -1;
@@ -500,7 +509,7 @@ template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                    void* o, void* lse, int batch, int n_heads, int n_kv_heads,
                    int n_q, float sm_scale, int causal, int pos_div,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int fixed_offset = 0) {
   const int smem = (int)sizeof(Smem<T, D>);
   // The dynamic shared-memory limit is raised once per kernel and device.
   static bool smem_set[kMaxDevices] = {};
@@ -518,7 +527,7 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
   flash_fwd_kernel<T, KV, kPaged, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
-      sm_scale * kLog2e, causal, pos_div);
+      sm_scale * kLog2e, causal, pos_div, fixed_offset);
   return cudaGetLastError();
 }
 
@@ -561,6 +570,7 @@ bool bad_pages(int n_pages, int page_size, int max_pages) {
 
 // Dense cache in q's type: k, v [B, H_kv, N, D], D = head_dim 64 or 128;
 // q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null.
+// bf16 with pos_div == 1 runs the wgmma kernel (flash_fwd_sm90.cuh).
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
@@ -571,6 +581,15 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
   }
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* off = static_cast<const int*>(q_offset);
+  if (dtype == 0 && pos_div == 1 && head_dim == 64) {
+    return (int)sm90::launch_fwd<64>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
+                                     n_kv, sm_scale, causal, s);
+  }
+  if (dtype == 0 && pos_div == 1 && head_dim == 128) {
+    return (int)sm90::launch_fwd<128>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
+                                      n_kv, sm_scale, causal, s);
+  }
 #define FAM_LAUNCH(T, D)                                                                 \
   return (int)launch<T, T, false, D>(q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, \
                                      n_q, sm_scale, causal, pos_div, s)
@@ -581,6 +600,23 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
 #undef FAM_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+
+// The fp32 lean forward (flash_lean.cu's entry): the dense fp32 template
+// with one int causal offset, q_offset, for every batch.
+namespace fam {
+cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int batch, int n_heads, int n_kv_heads, int n_q, int n_kv,
+                            int head_dim, float sm_scale, int causal, int q_offset,
+                            cudaStream_t stream) {
+  const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
+  if (head_dim == 64) {
+    return launch<float, float, false, 64>(q, kv, nullptr, o, lse, batch, n_heads, n_kv_heads,
+                                           n_q, sm_scale, causal, 1, stream, q_offset);
+  }
+  return launch<float, float, false, 128>(q, kv, nullptr, o, lse, batch, n_heads, n_kv_heads,
+                                          n_q, sm_scale, causal, 1, stream, q_offset);
+}
+}  // namespace fam
 
 // Dense 8-bit cache: k_q, v_q [B, H_kv, N, D] int8 / fp8; k_scale, v_scale
 // fp32 [B, H_kv, N]; q_offset int32 [B] (read only when causal); lse fp32

@@ -1,0 +1,305 @@
+// The dense bf16 forward redesigned for Hopper (sm_90a), head dim 64 or
+// 128.  Included by flash_fwd.cu (fam_flash_fwd, bf16 with pos_div == 1:
+// the training forward, serving's prefill chunks, the ladder's and bench's
+// general calls) and by flash_lean.cu (fam_flash_lean, bf16).
+//
+// Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel (the
+// general kernel, a per-batch device offset) and ::_fwd_kernel_lean (the
+// whole KV row of n_kv <= 1024 in one block, an int offset given at
+// launch): one function, so one kernel serves both, each entry with its
+// own launch.  Lean's exact two-pass softmax becomes the online one here,
+// which changes only rounding.
+//
+// Contract, for batch b, q-head h (KV head h / group) and query row r:
+//   o[b,h,r] = softmax_c(sm_scale * q[b,h,r] . k[c]) . v
+// over the columns c < n_kv with, when causal, c <= r + off: off is
+// q_offset[b] (a device array) or, with q_offset null, fixed_offset (an
+// int, negative allowed).  Softmax statistics and both products accumulate
+// in fp32; P is rounded to bf16 before the PV product.  The optional lse
+// is the natural-log logsumexp per row, fp32 [B, H, N_q].  A row with no
+// visible column gives o = 0 and lse = -inf.
+//
+// What bounds it on the H100.  At the training shape (q [4,16,2048,64],
+// kv [4,8,2048,64], causal) the kernel does 4 D flops per visible (row,
+// column) pair, 34.4 GFLOP against ~50 MB of I/O: the tensor cores' side
+// (0.0348 ms at 989 TF/s).  Lean's sweep point N = 1024 (B 8, H 1,
+// non-causal) does 2.1 GFLOP on 4 MB, near the balance point (~295 flops
+// per byte); N = 128 (B 512) is bound by bytes.
+//
+// What the design does about the first design's faults (every step's S,
+// P and PV tile round-tripped through shared memory behind four barriers;
+// K/V prefetched through registers and stored on the critical path; WMMA;
+// every score compared against its row's limit; lean's 16-row blocks each
+// reading all of K and V into a [16, n_kv] fp32 score row):
+//   * One warpgroup per 64 Q rows of one (q-head, batch).  S = Q K^T is
+//     wgmma.m64n64k16 with Q and K from shared memory (K-major).  S stays
+//     in registers; the online softmax (row max and sum over the 4 threads
+//     of a row quad, exp2 with the scale folded into one FMA) runs there;
+//     P is rounded to bf16 in registers and is the register A operand of
+//     O += P V (V read through the MN-major descriptor).  O lives in fp32
+//     registers for the whole walk, and the row sums are reduced across the
+//     quad once, at the end.  Nothing of S, P or PV touches shared memory.
+//   * The walk is software-pipelined: S_{i+1} is issued just before
+//     O += P_i V_i, and its softmax runs while PV_i is on the tensor cores.
+//   * K and V come through 2-stage cp.async rings of their own, in the
+//     swizzled layout, one barrier per step: K_{i+2} and V_{i+1} are in
+//     flight while step i computes.
+//   * The walk stops at the tile's last visible column; only tiles that
+//     cross the diagonal or the n_kv edge compare columns, interior tiles
+//     skip it.  Q tiles are launched last tile first (the longest walks).
+//   * Lean's blocks are 64 rows too, so K and V are read once per 64 query
+//     rows (16 times at N = 1024, not 64), and shared memory no longer
+//     grows with n_kv.
+// Block shape: one warpgroup, not two.  At lean's N = 1024, B 8, H 1 there
+// are only 128 tiles of 64 rows: 128-row blocks would leave half of the
+// 132 SMs idle.  At the training shape (2048 tiles) two consumer
+// warpgroups sharing each K/V tile halve the tile reads, but measured on
+// an H100 (PERF.md, Findings) 256-thread blocks were slower than this
+// kernel at every shape: the exposed chain of each step, not L2 traffic,
+// held the first design, and the pipelining addresses the chain.
+// Shared memory: 40 KB at D = 64, 80 KB at D = 128.
+// Not done yet: TMA with mbarriers and warp specialisation (a producer
+// warp, two consumer warpgroups in ping-pong).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "sm90_tiles.cuh"
+
+namespace {
+namespace sm90 {
+
+template <int D>
+struct FwdSmem {
+  bf16 q[kTile * D];
+  bf16 k[kStages][kTile * D];
+  bf16 v[kStages][kTile * D];
+};
+
+// 2^x on the special-function unit (ex2.approx.ftz): exp2f without its
+// fix-up of subnormal results, which P, rounded to bf16, does not need.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Step i's raw scores st (64 Q rows by the 64 KV columns from kv_start) to
+// P in place, online: the row max over the quad into m_i (log2 units, the
+// scale is positive), each row's rescale factor of the earlier steps into
+// alpha, this thread's share of the row sums of P into sum.  Element e of
+// n8 tile j: Q row r_lo (+ 8 for e >= 2), KV column kv_start + 8 j + 2 t
+// + (e & 1).  Tiles whose every pair is visible skip the compare; a hidden
+// column scores -inf.  Rows that have seen nothing yet keep a reference
+// of 0, so exp2 never takes (-inf) - (-inf).
+__device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m_i)[2],
+                                               float (&alpha)[2], float (&sum)[2], int q_start,
+                                               int kv_start, int r_lo, int off, int n_kv, int t,
+                                               float scale_log2) {
+  const bool full = kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!full) {
+        const int c = kv_start + j * 8 + 2 * t + (e & 1);
+        if (c >= n_kv || c > r_lo + (e >> 1) * 8 + off) st[4 * j + e] = -INFINITY;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], st[4 * j + e]);
+    }
+  }
+  float m_ref[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+    mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+    const float m_new = fmaxf(m_i[half], mx[half] * scale_log2);
+    m_ref[half] = m_new == -INFINITY ? 0.0f : m_new;
+    alpha[half] = exp2f(m_i[half] - m_ref[half]);  // 0 until the row sees a column
+    m_i[half] = m_new;
+    sum[half] = 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, -m_ref[e >> 1]));
+      st[4 * j + e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+}
+
+// One block per (Q tile, q-head, batch), the last Q tile first.  Warp w
+// owns Q rows 16w..16w+15 of every product.
+//
+// The walk is software-pipelined: while step i's O += P_i V_i runs on the
+// tensor cores, S_{i+1} = Q K_{i+1} (issued just before it) is already
+// done and its softmax runs.  K and V have rings of their own: K_{i+2} is
+// fetched once S_i has finished everywhere, V_{i+1} once PV_{i-1} has.
+// No product sits under a branch (ptxas serialises wgmma on a divergent
+// path): the last step's S_{i+1} reads a stale stage and is dropped.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const int* __restrict__ q_offset,
+                          int fixed_offset, bf16* __restrict__ o, float* __restrict__ lse,
+                          int n_heads, int n_kv_heads, int n_q, int n_kv, float scale_log2,
+                          int causal) {
+  extern __shared__ unsigned char smem_raw[];
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(aligned_smem(smem_raw));
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int t = lane & 3;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int h_kv = h / (n_heads / n_kv_heads);
+  const size_t q_rows = ((size_t)b * n_heads + h) * n_q;
+  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
+  const int rows_valid = min(kTile, n_q - q_start);
+  // Row r sees columns c <= r + off (all of them when not causal).
+  const int off = !causal ? n_kv : q_offset != nullptr ? q_offset[b] : fixed_offset;
+  // The KV walk stops at the last tile the tile's last row sees.
+  const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
+  const int n_steps = limit < 0 ? 0 : limit / kTile + 1;
+  // Step j's K (V) tile into K (V) ring stage j % 2.
+  auto fetch_k = [&](int j) {
+    const int kv_start = j * kTile;
+    load_tile<D, kTile>(sm.k[j % kStages], k + (kv_rows + kv_start) * D, n_kv - kv_start);
+  };
+  auto fetch_v = [&](int j) {
+    const int kv_start = j * kTile;
+    load_tile<D, kTile>(sm.v[j % kStages], v + (kv_rows + kv_start) * D, n_kv - kv_start);
+  };
+  // st = Q K_j, issued as one group (not waited for).
+  auto issue_scores = [&](float (&st)[kTile / 2], int j) {
+#pragma unroll
+    for (int x = 0; x < kTile / 2; ++x) st[x] = 0.0f;
+    fence_acc(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma(st, desc_k<kTile>(sm.q, kk), desc_k<kTile>(sm.k[j % kStages], kk));
+    }
+    wgmma_commit();
+  };
+
+  load_tile<D, kTile>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+  if (n_steps > 0) fetch_k(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  if (n_steps > 0) fetch_v(0);
+  if (n_steps > 1) fetch_k(1);
+  cp_async_commit();
+
+  // This thread's two Q rows (accumulator rows g and g + 8 of its warp).
+  const int r_lo = q_start + warp * 16 + (lane >> 2);
+  float o_acc[D / 2] = {};
+  float m_i[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
+  float l_i[2] = {0.0f, 0.0f};            // this thread's share of the row sums
+  float st[kTile / 2];                    // the next step's scores, then its P
+  uint32_t ap[kTile / 16][4];             // this step's P, bf16: PV's A operand
+  float alpha[2], sum[2];
+  // The P of online_softmax in st: O and the sums rescaled to the new
+  // running max, P to bf16 A operands.
+  auto take_p = [&]() {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) l_i[half] = l_i[half] * alpha[half] + sum[half];
+#pragma unroll
+    for (int x = 0; x < D / 8; ++x) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[4 * x + e] *= alpha[e >> 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) acc_to_a(ap[kk], st + 8 * kk);
+  };
+
+  issue_scores(st, 0);
+  wgmma_wait_groups<0>();
+  fence_acc(st);
+  if (n_steps > 0) {
+    online_softmax(st, m_i, alpha, sum, q_start, 0, r_lo, off, n_kv, t, scale_log2);
+    take_p();
+  }
+  for (int i = 0; i < n_steps; ++i) {
+    // V_i and K_{i+1} have landed, and every warp is done with S_i and
+    // PV_{i-1}, whose stages V_{i+1} and K_{i+2} overwrite.
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < n_steps) fetch_v(i + 1);
+    if (i + 2 < n_steps) fetch_k(i + 2);
+    cp_async_commit();
+
+    // S_{i+1} = Q K_{i+1}, then O += P_i V_i with P_i from registers.
+    fence_acc(o_acc);
+    issue_scores(st, i + 1);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      wgmma(o_acc, ap[kk], desc_mn<kTile>(sm.v[i % kStages], kk));
+    }
+    wgmma_commit();
+    // S_{i+1} is done (groups finish in order) while PV_i still runs.
+    wgmma_wait_groups<1>();
+    fence_acc(st);
+    const bool next = i + 1 < n_steps;
+    if (next) online_softmax(st, m_i, alpha, sum, q_start, (i + 1) * kTile, r_lo, off, n_kv, t,
+                             scale_log2);
+    wgmma_wait_groups<0>();
+    fence_acc(o_acc);
+    if (next) take_p();
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = l_i[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = r_lo + half * 8;
+    if (r < n_q) {
+      store_row<D>(o + (q_rows + r) * D, o_acc, half, l > 0.0f ? 1.0f / l : 0.0f, t);
+      if (lse != nullptr && t == 0) {
+        lse[q_rows + r] = l > 0.0f ? (m_i[half] + log2f(l)) * kLn2 : -INFINITY;
+      }
+    }
+  }
+}
+
+// Launcher: q, o [B, H, N_q, D]; k, v [B, H_kv, N_kv, D]; lse fp32
+// [B, H, N_q] or null; q_offset int32 [B], or null for fixed_offset.
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q_offset,
+                       int fixed_offset, void* o, void* lse, int batch, int n_heads,
+                       int n_kv_heads, int n_q, int n_kv, float sm_scale, int causal,
+                       cudaStream_t stream) {
+  // The dynamic shared-memory limit is raised once per device.
+  static bool smem_set[kMaxDevices] = {};
+  const int smem = (int)sizeof(FwdSmem<D>) + kAlign;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
+  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      q_offset, fixed_offset, static_cast<bf16*>(o), static_cast<float*>(lse), n_heads,
+      n_kv_heads, n_q, n_kv, sm_scale * kLog2e, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+}  // namespace

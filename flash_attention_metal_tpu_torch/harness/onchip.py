@@ -5,7 +5,7 @@ its own on a CUDA card:
 
     python -m flash_attention_metal_tpu_torch.harness.onchip sweep
     python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train] [--mode M]
-    python -m flash_attention_metal_tpu_torch.harness.onchip bwd [--csrc DIR]
+    python -m flash_attention_metal_tpu_torch.harness.onchip kernels [--csrc DIR]
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
@@ -13,11 +13,13 @@ decode steps and a prefill of the served FlashLM with ``torch.profiler``
 and splits their wall time into device-busy time, by kernel, and idle time
 (``--mode``: the KV cache, a ``serving.SERVING_MODES`` name, dense by default);
 ``profile train`` does the same for ``Trainer.step`` at the
-``train_bench.json`` width.  ``bwd`` times the backward kernels (the
-split pair in bf16 and fp32, the fused kernel), built from the package's
-``csrc/`` or, with ``--csrc``, from another tree's sources of the same C
-entries: two versions compared on one card, in turns.  Every line it
-prints carries the card's name and power limit.
+``train_bench.json`` width.  ``kernels`` times the forward kernels (the
+general and lean kernels, folded decode, fp32, the 8-bit and paged
+caches' kernels) and the backward kernels (the split pair in bf16 and
+fp32, the fused kernel), built from the package's ``csrc/`` or, with
+``--csrc``, from another tree's sources of the same C entries: two
+versions compared on one card, in turns.  Every line it prints carries
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -906,57 +908,105 @@ def profile_train(stamp: str, iters: int = 3, log=print) -> Dict[str, float]:
     return {"wall_ms": wall, "busy_ms": busy, "bwd_ms": bwd_ms, "fwd_ms": fwd_ms}
 
 
-def bwd_times(csrc: Optional[str] = None) -> Dict[str, Dict[str, float]]:
-    """Device ms of the backward kernels: dK/dV, dQ and the fused kernel in
-    bf16 at the training shape (``TRAIN_Q`` over ``TRAIN_KV``, causal) and
-    in fp32 at ``TRAIN_FP32_Q``.  ``csrc``: build them from that directory's
-    ``*.cu`` instead (the same C entries, e.g. an earlier tree's)."""
+def kernel_times(csrc: Optional[str] = None) -> Dict[str, float]:
+    """Device ms of the forward and backward kernels of ``csrc/flash_fwd.cu``,
+    ``flash_lean.cu`` and ``flash_bwd.cu`` at their paths' shapes, built from
+    the package's ``csrc/`` or, with ``csrc``, from that directory's ``*.cu``
+    (the same C entries, e.g. an earlier tree's): two versions compared on
+    one card, in turns.
+
+    The forward: the general kernel at the training shape (``TRAIN_Q``,
+    causal, with its lse) and the prefill chunk (offset 512) at head dim 64
+    and 128, and in fp32 at the prefill chunk; folded decode (``DECODE_Q``
+    at ``decode_lengths()``); lean at the sweep's N = 1024 and N = 128 (D 64
+    and 128, bf16) and at the ladder's N = 1024 in fp32; the quant (int8),
+    paged and paged-quant (int8) kernels at folded decode.  The backward:
+    dK/dV, dQ and the fused kernel in bf16 at the training shape and in
+    fp32 at ``TRAIN_FP32_Q``.  Every input is the ladder fixture.
+    """
     from ..kernels import _build
     from ..kernels import flash_bwd as fb
+    from ..kernels import flash_fwd as ff
+    from ..kernels import paged as pg
+    from ..kernels import quant as qt
 
-    own = fb._lib
+    modules = (ff, fb, qt, pg)
+    own = [m._lib for m in modules]
     if csrc is not None:
         out = Path(tempfile.mkdtemp()) / "lib.so"
-        lib = fb.bind(ctypes.CDLL(str(_build.compile_library(sorted(Path(csrc).glob("*.cu")), out))))
-        fb._lib = lambda: lib
+        lib = ctypes.CDLL(str(_build.compile_library(sorted(Path(csrc).glob("*.cu")), out)))
+        for bind in (ff.bind, ff.bind_lean, fb.bind, qt.bind):
+            bind(lib)
+        for m in modules:
+            m._lib = lambda: lib
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
+    bf16, f32 = torch.bfloat16, torch.float32
     times = {}
     try:
-        for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, torch.bfloat16),
-                                              ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, torch.float32)):
+        for tag, shape_q, shape_kv, dtype, offset in (
+            ("train_d64", TRAIN_Q, TRAIN_KV, bf16, 0),
+            ("train_d128", TRAIN_D128_Q, TRAIN_D128_KV, bf16, 0),
+            ("prefill_d64", PREFILL_Q, PREFILL_KV, bf16, 512),
+            ("prefill_d128", PREFILL_D128_Q, PREFILL_D128_KV, bf16, 512),
+            ("prefill_fp32", PREFILL_Q, PREFILL_KV, f32, 512),
+        ):
+            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
+            off = torch.full((shape_q[0],), offset, dtype=torch.int32, device="cuda")
+            lse = tag.startswith("train")  # the training forward saves it
+            times[f"fwd_{tag}"] = device_ms(
+                lambda: ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=lse))
+        q, k, v = ladder_inputs(DECODE_Q, DECODE_KV, bf16, gen)
+        lengths = torch.from_numpy(decode_lengths()).to("cuda")
+        times["fwd_decode_d64"] = device_ms(
+            lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True, pos_div=2))
+        for tag, shape, dtype in (
+            ("n1024_d64", SWEEP_1024, bf16), ("n1024_d128", SWEEP_1024_D128, bf16),
+            ("n128_d64", SWEEP_128, bf16), ("n128_d128", SWEEP_128_D128, bf16),
+            ("n1024_fp32", LADDER, f32),
+        ):
+            q, k, v = ladder_inputs(shape, shape, dtype, gen)
+            times[f"lean_{tag}"] = device_ms(lambda: ff.flash_fwd_lean(q, k, v))
+        decode = ("quant_int8_decode_bf16", "paged_decode_bf16", "paged_quant_int8_decode_bf16")
+        for name, (kernel, args, pos_div) in kv_cases(gen).items():
+            if name in decode:
+                times[name.replace("_bf16", "")] = device_ms(
+                    lambda: KV_KERNELS[kernel][0](*args, pos_div))
+        for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, bf16),
+                                              ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, f32)):
             q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
             do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
             off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
             o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
             delta = bwd_delta(o, do, None)
             kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True)
-            times[tag] = {
-                "dkv": device_ms(lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw)),
-                "dq": device_ms(lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw)),
-                "fused": device_ms(lambda: flash_attention_bwd_fused(
-                    q, k, v, o, do, lse, off, q_offset_max=0, **kw)),
-            }
+            times[f"dkv_{tag}"] = device_ms(
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw))
+            times[f"dq_{tag}"] = device_ms(
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw))
+            times[f"fused_{tag}"] = device_ms(lambda: flash_attention_bwd_fused(
+                q, k, v, o, do, lse, off, q_offset_max=0, **kw))
     finally:
-        fb._lib = own
+        for m, lib_fn in zip(modules, own):
+            m._lib = lib_fn
     return times
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("sweep", "profile", "bwd"))
+    parser.add_argument("what", choices=("sweep", "profile", "kernels"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
-    parser.add_argument("--csrc", help="bwd: build the kernels from this directory's *.cu")
+    parser.add_argument("--csrc", help="kernels: build them from this directory's *.cu")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     stamp = serving.nvidia_smi_line()
-    if args.what == "bwd":
+    if args.what == "kernels":
         print(json.dumps({"csrc": args.csrc or "package", "card": stamp,
-                          "ms": bwd_times(args.csrc)}))
+                          "ms": kernel_times(args.csrc)}))
         return 0
     if args.what == "sweep":
         sweep(stamp)

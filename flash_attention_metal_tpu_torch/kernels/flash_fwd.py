@@ -15,6 +15,11 @@ Counterpart of ``flash_attention_metal_tpu/kernels/flash_fwd.py``.
   for everything else: tensor offsets (per-batch, on the device), the
   ``pos_div`` row fold of GQA decode, longer non-causal rows.
 
+Lean and general compute one function (lean's offset is one int for every
+batch), so on the card their bf16 calls with ``pos_div == 1`` run one
+``wgmma`` kernel (``csrc/flash_fwd_sm90.cuh``), each entry with its own
+launch count; fp32 and folded decode run ``csrc/flash_fwd.cu``'s template.
+
 fp16 inputs run the fp32 route and are cast back, as in JAX (Mosaic has no
 fp16 datapath; the CUDA kernels take bf16 and fp32).  The JAX router also
 sends causal calls away from the triangular kernel past N = 4096 or at
@@ -133,9 +138,9 @@ def flash_fwd_lean_plain(
     causal: bool,
     save_lse: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The lean kernel's contract in fp32 PyTorch: one static offset for
-    every batch, the whole row's max first (``flash_attention_fwd_plain``
-    takes the softmax in the same two passes)."""
+    """The lean kernel's contract in fp32 PyTorch: the general contract
+    with one static offset for every batch (the softmax exact, the whole
+    row's max first)."""
     off = torch.full((q.shape[0],), int(q_offset), dtype=torch.int32, device=q.device)
     return flash_attention_fwd_plain(
         q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse
@@ -225,7 +230,9 @@ def flash_fwd_general(
     save_lse: bool = False,
     pos_div: int = 1,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The general kernel (``csrc/flash_fwd.cu``) over ``[B, H, N, D]``.
+    """The general kernel (``csrc/flash_fwd.cu``; bf16 with ``pos_div ==
+    1`` on the ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cuh``) over
+    ``[B, H, N, D]``.
 
     ``k``/``v`` may have fewer heads than ``q`` (GQA: q-head ``h`` reads
     kv-head ``h // group``).  With ``causal``, row ``r`` of batch ``b`` sees
@@ -266,8 +273,9 @@ def flash_fwd_general(
     return (o, lse) if save_lse else o
 
 
-# The longest KV row the lean kernel takes in one block (csrc/flash_lean.cu,
-# kMaxKv): the JAX package's default ``block_k_major`` (config.py).
+# The longest KV row the lean entry takes (csrc/flash_lean.cu, kMaxKv): the
+# JAX package's default ``block_k_major`` (config.py), one block of its lean
+# kernel.
 LEAN_MAX_KV = 1024
 
 
@@ -281,10 +289,16 @@ def flash_fwd_lean(
     causal: bool = False,
     save_lse: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The lean kernel (``csrc/flash_lean.cu``): the whole KV row of
-    ``n_kv <= LEAN_MAX_KV`` columns in one block, an exact softmax and a
-    static int ``q_offset`` (default ``n_kv - n_q``), native GQA.  Returns
-    ``o`` or ``(o, lse)`` like ``flash_fwd_general``."""
+    """The lean entry (``csrc/flash_lean.cu``): a KV row of ``n_kv <=
+    LEAN_MAX_KV`` columns, a static int ``q_offset`` (default ``n_kv -
+    n_q``, negative allowed), native GQA.  Returns ``o`` or ``(o, lse)``
+    like ``flash_fwd_general``.
+
+    On the card it runs the general forward's kernels with that one offset
+    for every batch: bf16 the ``wgmma`` kernel, whose softmax is online
+    where the Pallas kernel's is exact in two passes (only the rounding
+    differs, within the ladder's 1e-2), fp32 the FMA template (within 1e-5
+    of ``flash_fwd_lean_plain``)."""
     check_shapes(q, k, v)
     if torch.is_tensor(q_offset):
         raise TypeError("the lean kernel takes a static int q_offset")

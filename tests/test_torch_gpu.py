@@ -53,16 +53,22 @@ def _uniform(rng, shape, device, dtype, scale=1.0):
     return torch.from_numpy(x).to(device, dtype)
 
 
+# Units a unit's library needs beside it: flash_lean.cu's fp32 entry calls
+# the dense template of flash_fwd.cu.
+_COMPANIONS = {"flash_lean.cu": ("flash_fwd.cu",)}
+
+
 def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ctypes.CDLL:
-    """``csrc/<unit>`` built alone with one fault planted in ``csrc/<source>``
-    (the unit itself or a header it includes): a copy beside the unit's
-    copy shadows the original."""
-    text = (_build.CSRC / source).read_text()
+    """``csrc/<unit>`` (with its companions) built from a copy of ``csrc/``
+    in which one fault is planted in ``<source>``: the unit itself or a
+    header it includes, directly or through another header."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    text = (src / source).read_text()
     assert text.count(old) == 1
-    (tmp_path / source).write_text(text.replace(old, new))
-    if unit != source:
-        shutil.copy(_build.CSRC / unit, tmp_path / unit)
-    return ctypes.CDLL(str(_build.compile_library([tmp_path / unit], tmp_path / "planted.so")))
+    (src / source).write_text(text.replace(old, new))
+    units = [src / u for u in (unit, *_COMPANIONS.get(unit, ()))]
+    return ctypes.CDLL(str(_build.compile_library(units, tmp_path / "planted.so")))
 
 
 @pytest.mark.gpu
@@ -105,7 +111,8 @@ def test_kernel_matches_plain(cuda, dtype, case):
     assert float((lse[finite] - lse_p[finite]).abs().max()) <= TOL[dtype]
 
 
-# Faults planted in a copy of csrc/flash_fwd.cu: (text, replacement).
+# Faults planted in a copy of csrc/flash_fwd.cu, the template that folded
+# decode runs (bf16 prefill runs the wgmma kernel): (text, replacement).
 PLANTED_FAULTS = {
     # o and l are not rescaled when the running max rises between KV tiles
     "no_rescale": ("const float alpha = exp2f(m_i - m_new);", "const float alpha = 1.0f;"),
@@ -117,19 +124,15 @@ PLANTED_FAULTS = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
 def test_planted_kernel_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
-    """chip_smoke.py's kernel check on its peaked multi-tile cases passes
-    the kernel as built and fails a copy with a planted fault.  The errors
-    of o and lse on the ladder fixture are printed too (``-s``)."""
+    """chip_smoke.py's kernel check on its folded-decode cases passes the
+    template as built and fails a copy with a planted fault.  The errors of
+    o and lse on the ladder fixture are printed too (``-s``)."""
     old, new = PLANTED_FAULTS[fault]
-    source = (_build.CSRC / "flash_fwd.cu").read_text()
-    assert source.count(old) == 1
-    planted = tmp_path / "flash_fwd.cu"
-    planted.write_text(source.replace(old, new))
-    lib = ff.bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    lib = ff.bind(_planted_library(tmp_path, "flash_fwd.cu", "flash_fwd.cu", old, new))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = onchip.path_cases(gen)
-    names = ("prefill_bf16_off512", "decode_bf16", "prefill_bf16_off512_peaked", "decode_bf16_peaked")
+    names = ("decode_bf16", "decode_bf16_peaked")
     clean = {n: onchip.kernel_error(cases[n]) for n in names}
     monkeypatch.setattr(ff, "_lib", lambda: lib)
     faulty = {n: onchip.kernel_error(cases[n]) for n in names}
@@ -140,8 +143,129 @@ def test_planted_kernel_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault
     for name in names:
         assert max(clean[name]) <= tol
     # On the peaked fixture the output alone fails, not only the lse.
-    for name in ("prefill_bf16_off512_peaked", "decode_bf16_peaked"):
-        assert faulty[name][0] > tol
+    assert faulty["decode_bf16_peaked"][0] > tol
+
+
+# The wgmma forward (csrc/flash_fwd_sm90.cuh): bf16 general calls with
+# pos_div 1 and bf16 lean calls.  General: (q shape, kv shape, per-batch
+# offsets, causal) with ragged n_q = 1000, n_kv != n_q, GQA 1 and 2, rows
+# and a whole batch that see nothing.
+SM90_GENERAL_CASES = {
+    "ragged1000_gqa1": ((2, 4, 1000), (2, 4, 1000), [0, 0], True),
+    "ragged1000_gqa2_kv1300": ((2, 4, 1000), (2, 2, 1300), [300, -40], True),
+    "non_causal_gqa2_kv700": ((2, 4, 1000), (2, 2, 700), [0, 0], False),
+    "batch_sees_nothing": ((2, 2, 128), (2, 1, 128), [-200, 10], True),
+}
+# Lean: (q shape, kv shape, the wrapper's keywords) with an int offset 0,
+# positive or negative; the sweep's points N = 1024 and N = 128 (B 512).
+SM90_LEAN_CASES = {
+    "n1024": ((8, 1, 1024), (8, 1, 1024), dict()),
+    "n128_b512": ((512, 1, 128), (512, 1, 128), dict()),
+    "non_causal_gqa2_kv300": ((2, 4, 130), (2, 2, 300), dict()),
+    "ragged1000_gqa2_off0": ((2, 4, 1000), (2, 2, 1000), dict(causal=True, q_offset=0)),
+    "gqa1_off100": ((2, 2, 900), (2, 2, 1000), dict(causal=True, q_offset=100)),
+    "off_minus70": ((1, 2, 128), (1, 2, 128), dict(causal=True, q_offset=-70)),
+}
+
+
+def _fixture_inputs(shape_q, shape_kv, fixture, gen):
+    if fixture == "spike":
+        return onchip.spike_inputs(shape_q, shape_kv, torch.bfloat16, gen, col=shape_kv[2] // 2)
+    scale = onchip.PEAKED_Q_SCALE if fixture == "peaked" else 1.0
+    return onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixture", ["ladder", "peaked", "spike"])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("case", sorted(SM90_GENERAL_CASES) + sorted(SM90_LEAN_CASES))
+def test_wgmma_forward_matches_plain(cuda, case, head_dim, fixture):
+    """The wgmma forward through ``flash_fwd_general`` and ``flash_fwd_lean``
+    (one launch each) against its plain version within 1e-2 (o and lse),
+    and two runs bitwise equal."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    if case in SM90_GENERAL_CASES:
+        shape_q, shape_kv, offsets, causal = SM90_GENERAL_CASES[case]
+        wrapper = ff.flash_fwd_general
+        off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+        kw = dict(causal=causal, save_lse=True)
+        q, k, v = _fixture_inputs((*shape_q, head_dim), (*shape_kv, head_dim), fixture, gen)
+        run = lambda: wrapper(q, k, v, off, **kw)  # noqa: E731
+        want = flash_attention_fwd_plain(
+            q.float(), k.float(), v.float(), off, sm_scale=head_dim ** -0.5, **kw)
+    else:
+        shape_q, shape_kv, kw = SM90_LEAN_CASES[case]
+        wrapper = ff.flash_fwd_lean
+        q, k, v = _fixture_inputs((*shape_q, head_dim), (*shape_kv, head_dim), fixture, gen)
+        run = lambda: wrapper(q, k, v, save_lse=True, **kw)  # noqa: E731
+        want = onchip.LADDER_FWD_KERNELS["flash_lean"][1](
+            q.float(), k.float(), v.float(), save_lse=True, **kw)
+    before = wrapper.launches
+    got = run()
+    assert wrapper.launches == before + 1
+    err, lse_err = onchip._fwd_errors(got, want)
+    assert err <= TOL[torch.bfloat16] and lse_err <= TOL[torch.bfloat16], (err, lse_err)
+    again = run()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+def _sm90_fwd_cases(gen):
+    """chip_smoke.py's prefill cases and the training shape's forward (bf16
+    ladder, peaked and spike fixtures), as ``path_cases`` entries."""
+    cases = onchip.path_cases(gen)
+    out = {n: cases[n] for n in ("prefill_bf16_off512", "prefill_bf16_off512_peaked")}
+    for name, (q, k, v, _, off) in onchip.train_cases(gen).items():
+        if "bf16" in name:
+            out[name] = (q, k, v, off, 1)
+    return out
+
+
+# Faults planted in a copy of csrc/flash_fwd_sm90.cuh (built into
+# flash_fwd.cu): (text, replacement).
+PLANTED_SM90_FWD_FAULTS = {
+    # o and l are not rescaled when the running max rises between KV tiles
+    "no_rescale": ("alpha[half] = exp2f(m_i[half] - m_ref[half]);", "alpha[half] = 1.0f;"),
+    # the KV walk stops one tile before the last visible column
+    "walk_one_tile_short": ("limit < 0 ? 0 : limit / kTile + 1;", "limit < 0 ? 0 : limit / kTile;"),
+    # the diagonal tile treated as interior: no visibility compare on it
+    "diagonal_unmasked": ("const bool full = kv_start + kTile - 1 <= q_start + off &&",
+                          "const bool full = kv_start <= q_start + off &&"),
+    # 16-byte chunks 1 and 2 of row 5 of every swizzled K tile stored at
+    # each other's address: a permutation, every slot written
+    "k_chunk_misplaced": (
+        "    load_tile<D, kTile>(sm.k[j % kStages], k + (kv_rows + kv_start) * D, n_kv - kv_start);",
+        "    for (int x = threadIdx.x; x < kTile * D / 8; x += kThreads) {\n"
+        "      const int r = x / (D / 8), c = x % (D / 8);\n"
+        "      const bool ok = r < n_kv - kv_start;\n"
+        "      cp_async16(sm.k[j % kStages] + swz<kTile>(r, r == 5 && (c == 1 || c == 2) ? 3 - c : c),\n"
+        "                 k + (kv_rows + kv_start + (ok ? r : 0)) * D + (ok ? c * 8 : 0), ok);\n"
+        "    }"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_SM90_FWD_FAULTS))
+def test_planted_wgmma_forward_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's forward check on the prefill and training-shape cases
+    passes the wgmma kernel as built and fails a copy with a planted fault:
+    finite output errors above the bound (errors printed with ``-s``)."""
+    old, new = PLANTED_SM90_FWD_FAULTS[fault]
+    lib = ff.bind(_planted_library(tmp_path, "flash_fwd.cu", "flash_fwd_sm90.cuh", old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = _sm90_fwd_cases(gen)
+    clean = {n: onchip.kernel_error(c) for n, c in cases.items()}
+    monkeypatch.setattr(ff, "_lib", lambda: lib)
+    faulty = {n: onchip.kernel_error(c) for n, c in cases.items()}
+    print(f"\n{fault}, (o, lse) max-abs error, built -> planted:\n" + "\n".join(
+        f"  {n}: o {clean[n][0]:.3e} -> {faulty[n][0]:.3e}, "
+        f"lse {clean[n][1]:.3e} -> {faulty[n][1]:.3e}" for n in cases))
+    tol = TOL[torch.bfloat16]
+    for name in cases:
+        assert max(clean[name]) <= tol
+    planted = [faulty[n][0] for n in cases]
+    assert all(math.isfinite(e) for e in planted) and max(planted) > tol, planted
 
 
 @pytest.mark.gpu
@@ -290,7 +414,8 @@ def test_bwd_kernels_are_deterministic(cuda, head_dim):
 
 
 # Faults planted in a copy of csrc/flash_bwd_sm90.cuh, the bf16 split pair
-# (built into flash_bwd.cu): (text, replacement).
+# (built into flash_bwd.cu), or of the tile helpers it includes,
+# csrc/sm90_tiles.cuh (source ":tiles"): (text, replacement[, source]).
 PLANTED_BWD_FAULTS = {
     # the dQ walk stops one KV tile short: the diagonal tile is left out
     "dq_walk_one_tile_short": ("limit < 0 ? 0 : limit / kTile + 1;", "limit < 0 ? 0 : limit / kTile;"),
@@ -307,7 +432,8 @@ PLANTED_BWD_FAULTS = {
     # other's address: every slot is written, with finite data
     "swizzled_chunk_misplaced": (
         "cp_async16(dst + swz<kRows>(r, c), src",
-        "cp_async16(dst + swz<kRows>(r, r == 5 && (c == 1 || c == 2) ? 3 - c : c), src"),
+        "cp_async16(dst + swz<kRows>(r, r == 5 && (c == 1 || c == 2) ? 3 - c : c), src",
+        ":tiles"),
 }
 
 
@@ -317,8 +443,9 @@ def test_planted_bwd_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     """chip_smoke.py's backward check at the training shape passes the
     kernels as built and fails a copy with a planted fault (errors printed
     with ``-s``)."""
-    old, new = PLANTED_BWD_FAULTS[fault]
-    lib = fb.bind(_planted_library(tmp_path, "flash_bwd.cu", "flash_bwd_sm90.cuh", old, new))
+    old, new, *where = PLANTED_BWD_FAULTS[fault]
+    source = "sm90_tiles.cuh" if where == [":tiles"] else "flash_bwd_sm90.cuh"
+    lib = fb.bind(_planted_library(tmp_path, "flash_bwd.cu", source, old, new))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = onchip.train_cases(gen)
@@ -500,10 +627,12 @@ def _ladder_fault_errors(kernel, gen):
 PLANTED_LADDER_FAULTS = {
     # causal test c < r in place of c <= r: the diagonal is masked
     "naive_diagonal_masked": ("naive.cu", nv, nv.bind, "naive", "c <= limit", "c < limit"),
-    # the row max over the first 64 columns only
-    "lean_max_first_tile": ("flash_lean.cu", ff, ff.bind_lean, "flash_lean",
-                            "c < n_visible; c += kSub) row_max",
-                            "c < min(n_visible, kBlockN); c += kSub) row_max"),
+    # lean through the wgmma forward: the running max is the first visible
+    # tile's and never rises (the spike fixture overflows exp2)
+    "lean_max_first_tile": (("flash_lean.cu", "flash_fwd_sm90.cuh"), ff, ff.bind_lean, "flash_lean",
+                            "const float m_new = fmaxf(m_i[half], mx[half] * scale_log2);",
+                            "const float m_new = m_i[half] == -INFINITY ? mx[half] * scale_log2 "
+                            ": m_i[half];"),
     # the diagonal tile treated as interior: no mask compare on it
     "tri_diagonal_unmasked": ("flash_tri.cu", ft, ft.bind, "flash_tri",
                               "kv_start + kTile - 1 <= first_limit",

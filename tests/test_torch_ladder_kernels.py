@@ -102,6 +102,37 @@ def test_lean_matches_jax(dtype, hq, hkv, n_q, n_kv, causal):
     assert _diff(lse_t, np.asarray(lse_j)[..., 0]) < TOL[dtype]
 
 
+@pytest.mark.parametrize("off", [0, 100, -70], ids=["off0", "off100", "off_minus70"])
+@pytest.mark.parametrize("d", [64, 128], ids=["d64", "d128"])
+@pytest.mark.parametrize("group", [1, 2], ids=["gqa1", "gqa2"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non_causal"])
+def test_lean_contract_is_the_general_one_with_a_broadcast_offset(causal, group, d, off):
+    """Lean's contract is the general forward's with one int offset for
+    every batch, which is what lets the card run both on one kernel: its
+    plain version (and its wrapper on the CPU) equals the general one given
+    ``torch.full([B], off)``, within fp32 rounding.  Offset -70 leaves the
+    first 70 rows seeing nothing: o = 0 and lse = -inf there."""
+    rng = np.random.default_rng(5)
+    b, hkv, n_q, n_kv = 2, 2, 96, 160
+    q, k, v = (torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+               for shape in ((b, hkv * group, n_q, d), (b, hkv, n_kv, d), (b, hkv, n_kv, d)))
+    scale = d ** -0.5
+    offsets = torch.full([b], off, dtype=torch.int32)
+    want = ff.flash_attention_fwd_plain(q, k, v, offsets, sm_scale=scale, causal=causal,
+                                        save_lse=True)
+    for got in (
+        ff.flash_fwd_lean_plain(q, k, v, off, sm_scale=scale, causal=causal, save_lse=True),
+        ff.flash_fwd_lean(q, k, v, off, causal=causal, save_lse=True),
+        ff.flash_fwd_general(q, k, v, offsets, causal=causal, save_lse=True),
+    ):
+        torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-6)
+    if causal and off < 0:
+        assert torch.all(want[0][:, :, :-off] == 0)
+        assert torch.all(want[1][:, :, :-off] == float("-inf"))
+        assert torch.all(torch.isfinite(want[1][:, :, -off:]))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "hq,hkv,n_q,n_kv,off",
