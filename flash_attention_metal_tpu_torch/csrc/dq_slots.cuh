@@ -1,6 +1,7 @@
-// The dQ workspace of the backward kernels that keep dK and dV of one KV tile
-// in a block: the triangular backward (flash_tri.cu) and the fused one
-// (flash_bwd.cu).
+// The dQ workspace of the triangular backward (flash_tri.cu), which keeps dK
+// and dV of one KV tile in a block.  flash_bwd.cu uses only the visibility
+// helpers (last_visible, visible_kv_tiles, batch_offset): the fused backward
+// adds its dQ in place, in KV-tile order (dq_ordered.cuh).
 //
 // Each (Q tile, KV tile) pair that a head's rows see has one fp32 64 x D
 // slot (D the head dim), into which the KV tile's block writes the pair's
@@ -12,8 +13,8 @@
 //
 // Visibility: row r sees column c when c < n_kv and c <= r + off.  The
 // triangular backward's offset is static; the fused backward's are per batch
-// on the device, read no higher than the bound its workspace was sized for
-// (batch_offset); no causal mask is off = n_kv - 1.
+// on the device, read no higher than the host's bound (batch_offset); no
+// causal mask is off = n_kv - 1.
 
 #pragma once
 

@@ -12,20 +12,43 @@
 //   type; o comes back in q's type.  A row that sees no column gives
 //   mean(V), exactly as the Pallas kernel does.
 //
-// What bounds it on the H100.  It does 4 * N_q * N_kv * D flops per head
-// (head dim D = 64 or 128) in fp32 on the CUDA cores (67 TF/s), so at the
-// benchmark's sweep points (B * N^2 = 2^23, D = 64) the bound is ~32 us.
-// Its design is what makes it the baseline: nothing is tiled or reused
-// across query rows.
+// What bounds it on the H100.  The contract's 4 * N_q * N_kv * D flops per
+// head (head dim D = 64 or 128) run in fp32 on the CUDA cores (67 TF/s):
+// at the benchmark's sweep points (B * N^2 = 2^23, D = 64) the bound is
+// ~32 us.  What makes this kernel the baseline is its function (whole score
+// rows, two passes, fp32), not a lack of reuse.
 //
-// The design.  One warp per query row, four rows per block.  The row's fp32
-// scores live in shared memory (4 B per column: 32 KB per row at N = 8192,
-// the most the sweep asks of it; kMaxKv).  K and V are read from global
-// memory (through L2) once for every query row: lane l scores columns
-// l, l + 32, ..., each a D-term dot product against the query row held in
-// registers; then each lane owns D / 32 output columns and walks every key
-// row of V.  Masked columns are scored and exponentiated like any other, so
-// a causal call does the full N^2 work, as the Pallas kernel does.
+// The design: the Pallas kernel's tiling on CUDA cores.  One block per
+// (Q tile, head, batch); the Q tile (kBq = 64 rows: 32 measured no faster
+// at N = 1024 and slower at N = 128 and D = 128) sits in shared memory as
+// fp32 for the whole call, bf16 widened as it is loaded.  K (and
+// V) stream through shared memory in 64-row tiles, in a 2-stage ring filled
+// with cp.async (16-byte copies; bf16 tiles are widened by ordinary loads).
+// The two passes of the contract are two walks over K: pass 1 scores each
+// tile and keeps only the row max; pass 2 scores it again, takes
+// p = expf(s - m), sums p and accumulates P . V, and o = acc / sum at the
+// end.  That is 6 N^2 D flops against the contract's 4 N^2 D, and no score
+// row is held anywhere, so no length cap comes from shared memory.
+//
+// Products are register-tiled fp32 outer products.  Thread (tr, tc) owns a
+// 4 x 4 patch of the kBq x 64 score tile (rows tr + kBq/4 i, columns
+// tc + 16 j) and reads its operands as float4 along the head dim from
+// padded tiles (row pitch D + 4 floats, an odd number of 16-byte chunks:
+// the 8 consecutive rows a warp's lanes read fall on distinct banks).  P
+// goes to shared memory (pitch 72), and the same thread owns rows
+// tr + kBq/4 i of o and columns 4 tc .. 4 tc + 3 of each 64-column block,
+// which it accumulates from float4 reads of P and V.  A warp is 4 row
+// groups x 8 column groups, so each float4 load serves 4 or 8 FMAs per lane
+// with at most one 128-byte wavefront.  Row max and row sum are reduced
+// over the 16 column groups (shuffles over 8 lanes, then the warp pair
+// through shared memory) once per pass.
+//
+// Causal tile skipping keeps the contract exact.  A masked score's
+// expf(mask - m) is exactly 0 in a row that sees a column, and the mask
+// value never wins its max, so the KV tiles past the last column a Q
+// tile's last row sees are skipped.  A row that sees nothing needs every
+// column (its p is 1 everywhere: mean(V)), so a Q tile holding such a row
+// walks the whole of K.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,156 +56,298 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90_tiles.cuh"  // cp_async16, cp_async_commit, cp_async_wait_all
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRowsPerBlock = 4;  // one warp per query row
-constexpr int kThreads = 32 * kRowsPerBlock;
-// Longest score row shared memory holds: 4 rows x 8192 x 4 B = 128 KB.
+constexpr int kBq = 64;        // rows of a Q tile
+constexpr int kBk = 64;        // rows of a K / V tile
+constexpr int kPPitch = kBk + 8;  // floats per row of the P tile
+// Longest K the wrapper takes (the benchmark's cap on naive, as JAX's).
 constexpr int kMaxKv = 8192;
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+template <int D>
+struct NaiveCfg {
+  static constexpr int kThreads = kBq * 4;  // a 4 x 4 score patch each
+  static constexpr int kRowGroups = kBq / 4;
+  static constexpr int kPitch = D + 4;  // floats per row of the Q, K, V tiles
+  static constexpr int kTileFloats = kBk * kPitch;
+  // q tile, K ring, V ring, P tile, the warp pairs' row reductions
+  static constexpr int kSmemFloats =
+      kBq * kPitch + 2 * kTileFloats + 2 * kTileFloats + kBq * kPPitch + 2 * kBq;
+  static constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
+};
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
+// Rows [0, rows_valid) of a [rows][D] tile into a [rows][kPitch] fp32 tile;
+// the other rows are zero.  fp32 by cp.async (lands at the ring's wait),
+// bf16 widened by ordinary loads (lands at once).
+template <int D, int kPitch, int kThreads>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int rows,
+                                          int rows_valid) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool valid = r < rows_valid;
+    sm90::cp_async16(dst + r * kPitch + c * 4, src + (valid ? (size_t)r * D + c * 4 : 0),
+                     valid);
+  }
 }
-
-// Eight consecutive elements as floats.
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
+template <int D, int kPitch, int kThreads>
+__device__ __forceinline__ void load_rows(float* dst, const bf16* src, int rows,
+                                          int rows_valid) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (r < rows_valid) u = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+    const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
+    float4* out = reinterpret_cast<float4*>(dst + r * kPitch + c * 8);
+    out[0] = make_float4(a.x, a.y, b.x, b.y);
+    out[1] = make_float4(e.x, e.y, f.x, f.y);
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, s));
-  return x;
+__device__ __forceinline__ void store4(float* dst, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
 }
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ void store4(bf16* dst, const float (&x)[4]) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+  uint2 u;
+  u.x = *reinterpret_cast<uint32_t*>(&lo);
+  u.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+// The row's value reduced over the 16 column groups: lanes l ^ 1, 2, 4 of
+// the warp, then the other warp of the pair through red[2][kBq].
+template <bool kMax>
+__device__ __forceinline__ float reduce_cols(float x, float* red, int row, int pair,
+                                             bool writer) {
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(0xffffffffu, x, s);
-  return x;
+  for (int s = 1; s < 8; s <<= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, s);
+    x = kMax ? fmaxf(x, y) : x + y;
+  }
+  if (writer) red[pair * kBq + row] = x;
+  __syncthreads();
+  const float a = red[row], b = red[kBq + row];
+  return kMax ? fmaxf(a, b) : a + b;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
     naive_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int n_q,
-                 int n_kv, float sm_scale, int causal) {
-  extern __shared__ __align__(16) float scores_raw[];
+                 const T* __restrict__ v, T* __restrict__ o, int n_q, int n_kv,
+                 float sm_scale, int causal) {
+  using C = NaiveCfg<D>;
+  constexpr int kPitch = C::kPitch;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;
+  float* sk = sq + kBq * kPitch;           // [2][kBk][kPitch]
+  float* sv = sk + 2 * C::kTileFloats;     // [2][kBk][kPitch]
+  float* sp = sv + 2 * C::kTileFloats;     // [kBq][kPPitch]
+  float* red = sp + kBq * kPPitch;         // [2][kBq]
+
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kRowsPerBlock + warp;
-  if (row >= n_q) return;  // no block-wide barrier below
+  const int pair = warp % 2;               // which half of the column groups
+  const int tc = pair * 8 + lane % 8;      // column group, 0..15
+  const int tr = (warp / 2) * 4 + lane / 8;  // row group, 0..kBq/4 - 1
+  const bool writer = lane % 8 == 0;
+
+  const int q_start = blockIdx.x * kBq;
   const size_t bh = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-  const T* q_row = q + (bh * n_q + row) * D;
   const T* k_head = k + bh * n_kv * D;
   const T* v_head = v + bh * n_kv * D;
-  float* s = scores_raw + (size_t)warp * n_kv;
-  // Last column the row sees when causal (end-aligned diagonal).
-  const int limit = row + (n_kv - n_q);
+  const int off = n_kv - n_q;  // row r sees c <= r + off when causal
+  const int q_last = min(q_start + kBq, n_q) - 1;
+  // KV tiles walked: all of them, or up to the last one the tile's last
+  // row sees when every row of the tile sees a column.
+  int n_t = (n_kv + kBk - 1) / kBk;
+  if (causal && q_start + off >= 0) n_t = min(n_t, (q_last + off) / kBk + 1);
+  const int n_steps = 2 * n_t;  // pass 1, then pass 2
 
-  float qr[D];
-#pragma unroll
-  for (int d = 0; d < D; d += 8) {
-    float x[8];
-    load8(q_row + d, x);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) qr[d + j] = x[j];
-  }
-
-  // Pass 1: every score of the row, masked, and the row max.
-  float row_max = -INFINITY;
-  for (int c = lane; c < n_kv; c += 32) {
-    const T* k_row = k_head + (size_t)c * D;
-    float acc = 0.0f;
-#pragma unroll
-    for (int d = 0; d < D; d += 8) {
-      float x[8];
-      load8(k_row + d, x);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc = fmaf(qr[d + j], x[j], acc);
+  load_rows<D, kPitch, C::kThreads>(sq, q + (bh * n_q + q_start) * D, kBq, n_q - q_start);
+  // Step i's tiles into ring stage i % 2: K in both passes, V in pass 2.
+  auto fetch = [&](int i) {
+    const int t = i < n_t ? i : i - n_t;
+    const int s = i % 2;
+    const size_t at = (size_t)t * kBk * D;
+    load_rows<D, kPitch, C::kThreads>(sk + s * C::kTileFloats, k_head + at, kBk,
+                                      n_kv - t * kBk);
+    if (i >= n_t) {
+      load_rows<D, kPitch, C::kThreads>(sv + s * C::kTileFloats, v_head + at, kBk,
+                                        n_kv - t * kBk);
     }
-    const bool visible = !causal || c <= limit;
-    const float sc = visible ? acc * sm_scale : kMaskValue;
-    s[c] = sc;
-    row_max = fmaxf(row_max, sc);
-  }
-  row_max = warp_max(row_max);
+  };
+  fetch(0);
+  sm90::cp_async_commit();
 
-  // Pass 2: exp and sum; the probability overwrites its score.
-  float row_sum = 0.0f;
-  for (int c = lane; c < n_kv; c += 32) {
-    const float p = expf(s[c] - row_max);
-    s[c] = p;
-    row_sum += p;
-  }
-  row_sum = warp_sum(row_sum);
-  __syncwarp();
+  // This thread's rows: tile rows tr + kRowGroups i.
+  int row_limit[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) row_limit[i] = q_start + tr + C::kRowGroups * i + off;
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  float l[4] = {};
+  float acc[4][D / 16] = {};  // rows i, columns g * 64 + 4 tc + e at [i][4 g + e]
 
-  // P . V: lane l owns output columns l, l + 32, ...
-  constexpr int kCols = D / 32;
-  float acc[kCols];
+  for (int i = 0; i < n_steps; ++i) {
+    sm90::cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < n_steps) fetch(i + 1);
+    sm90::cp_async_commit();
+    const int s = i % 2;
+    const bool second = i >= n_t;
+    const int kv_start = (second ? i - n_t : i) * kBk;
+    const float* kt = sk + s * C::kTileFloats;
+
+    // The 4 x 4 patch of S = Q K^T, summed along D in order.
+    float sc[4][4] = {};
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qa[4], kb[4];
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) acc[j] = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < n_kv; ++c) {
-    const float p = s[c];
-    const T* v_row = v_head + (size_t)c * D;
+      for (int a = 0; a < 4; ++a) {
+        qa[a] = *reinterpret_cast<const float4*>(sq + (tr + C::kRowGroups * a) * kPitch + d);
+        kb[a] = *reinterpret_cast<const float4*>(kt + (tc + 16 * a) * kPitch + d);
+      }
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[j] = fmaf(p, to_float(v_row[lane + 32 * j]), acc[j]);
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          float x = sc[a][b];
+          x = fmaf(qa[a].x, kb[b].x, x);
+          x = fmaf(qa[a].y, kb[b].y, x);
+          x = fmaf(qa[a].z, kb[b].z, x);
+          x = fmaf(qa[a].w, kb[b].w, x);
+          sc[a][b] = x;
+        }
+      }
+    }
+    // Scaled and masked: the mask value past the diagonal, -inf past n_kv
+    // (padding is no column at all).
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int c = kv_start + tc + 16 * b;
+        float x = sc[a][b] * sm_scale;
+        if (causal && c > row_limit[a]) x = kMaskValue;
+        if (c >= n_kv) x = -INFINITY;
+        sc[a][b] = x;
+      }
+    }
+
+    if (!second) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) m[a] = fmaxf(m[a], sc[a][b]);
+      }
+      if (i == n_t - 1) {
+        // The whole row's max, before pass 2 starts.
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int row = tr + C::kRowGroups * a;
+          m[a] = reduce_cols<true>(m[a], red, row, pair, writer);
+          __syncthreads();  // red is read before the next row's writes
+        }
+      }
+      continue;
+    }
+
+    // Pass 2: p = exp(s - m), its sum, and P to shared memory.
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float* prow = sp + (tr + C::kRowGroups * a) * kPPitch;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float p = expf(sc[a][b] - m[a]);
+        l[a] += p;
+        prow[tc + 16 * b] = p;
+      }
+    }
+    __syncthreads();
+
+    // o += P V over the tile's 64 rows, in order.
+    const float* vt = sv + s * C::kTileFloats;
+#pragma unroll 2
+    for (int j = 0; j < kBk; j += 4) {
+      float4 pa[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        pa[a] = *reinterpret_cast<const float4*>(sp + (tr + C::kRowGroups * a) * kPPitch + j);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int g = 0; g < D / 64; ++g) {
+          const float4 vb =
+              *reinterpret_cast<const float4*>(vt + (j + jj) * kPitch + g * 64 + 4 * tc);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float p = jj == 0 ? pa[a].x : jj == 1 ? pa[a].y : jj == 2 ? pa[a].z : pa[a].w;
+            acc[a][4 * g + 0] = fmaf(p, vb.x, acc[a][4 * g + 0]);
+            acc[a][4 * g + 1] = fmaf(p, vb.y, acc[a][4 * g + 1]);
+            acc[a][4 * g + 2] = fmaf(p, vb.z, acc[a][4 * g + 2]);
+            acc[a][4 * g + 3] = fmaf(p, vb.w, acc[a][4 * g + 3]);
+          }
+        }
+      }
+    }
   }
-  const float inv = 1.0f / row_sum;
-  T* o_row = o + (bh * n_q + row) * D;
+  sm90::cp_async_wait_all();
+
+  // The row sums, then o = acc / sum.
 #pragma unroll
-  for (int j = 0; j < kCols; ++j) o_row[lane + 32 * j] = from_float<T>(acc[j] * inv);
+  for (int a = 0; a < 4; ++a) {
+    const int row = tr + C::kRowGroups * a;
+    __syncthreads();  // the previous reads of red are done
+    const float sum = reduce_cols<false>(l[a], red, row, pair, writer);
+    const int r = q_start + row;
+    if (r < n_q) {
+      T* o_row = o + (bh * n_q + r) * D;
+#pragma unroll
+      for (int g = 0; g < D / 64; ++g) {
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = acc[a][4 * g + e] / sum;
+        store4(o_row + g * 64 + 4 * tc, x);
+      }
+    }
+  }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int n_heads, int n_q, int n_kv, float sm_scale,
-                   int causal, cudaStream_t stream) {
-  // The dynamic shared-memory limit is raised once per device, to the most
-  // any call asks.
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch,
+                   int n_heads, int n_q, int n_kv, float sm_scale, int causal,
+                   cudaStream_t stream) {
+  using C = NaiveCfg<D>;
+  // The dynamic shared-memory limit is raised once per device.
   static bool smem_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(naive_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(kRowsPerBlock * kMaxKv * sizeof(float)));
+    err = cudaFuncSetAttribute(naive_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::kSmemBytes);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
-  const dim3 grid((n_q + kRowsPerBlock - 1) / kRowsPerBlock, n_heads, batch);
-  const size_t smem = (size_t)kRowsPerBlock * n_kv * sizeof(float);
-  naive_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), n_q, n_kv, sm_scale,
-      causal);
+  const dim3 grid((n_q + kBq - 1) / kBq, n_heads, batch);
+  naive_kernel<T, D><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), n_q, n_kv, sm_scale, causal);
   return cudaGetLastError();
 }
 
@@ -196,7 +361,8 @@ extern "C" int fam_naive(const void* q, const void* k, const void* v, void* o,
                          int batch, int n_heads, int n_q, int n_kv,
                          int head_dim, float sm_scale, int causal, int dtype,
                          void* stream) {
-  if (batch < 1 || n_heads < 1 || n_q < 1 || n_kv < 1 || n_kv > kMaxKv) {
+  if (batch < 1 || batch > 65535 || n_heads < 1 || n_heads > 65535 || n_q < 1 ||
+      n_kv < 1 || n_kv > kMaxKv) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: the forward
-// (flash_fwd_sm90.cuh) and the split backward pair (flash_bwd_sm90.cuh).
+// (flash_fwd_sm90.cuh), the split backward pair (flash_bwd_sm90.cuh) and the
+// fused backward (flash_bwd_fused_sm90.cuh).
 //
 // One warpgroup (128 threads, 4 warps of 16 rows) per 64-row output tile.
 // Tiles are bf16, copied global -> shared with cp.async and stored in
@@ -165,6 +166,37 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t a, uint64_t b) {
       : "l"(a), "l"(b), "r"(1));
 }
 
+// d (m64n32, fp32) += a b; a MN-major (transposed: M along the tile's
+// rows) and b K-major, both from shared memory.
+__device__ __forceinline__ void wgmma_ta(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (m64n64, fp32) += a b; a K-major and b MN-major, both from shared memory.
+__device__ __forceinline__ void wgmma_tb(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
 // d (m64n64, fp32) += a b; a from registers, b (MN-major) from shared memory.
 __device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -219,6 +251,16 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* acc) {
   a[1] = pack_bf16(acc[2], acc[3]);
   a[2] = pack_bf16(acc[4], acc[5]);
   a[3] = pack_bf16(acc[6], acc[7]);
+}
+
+// Four 8 x 8 bf16 blocks of a warp's packed accumulator (a[i]: block i,
+// this lane's pair in row lane / 4), stored transposed: lane l gives the
+// address of row l % 8 of block l / 8 as stored, 16 bytes.
+__device__ __forceinline__ void stmatrix_trans(bf16* row, const uint32_t (&a)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(row)),
+               "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+               : "memory");
 }
 
 // Row `half` (0: g, 1: g + 8) of this thread's rows of a [64][D] fp32

@@ -16,8 +16,8 @@ and splits their wall time into device-busy time, by kernel, and idle time
 ``train_bench.json`` width.  ``kernels`` times the forward kernels (the
 general and lean kernels, folded decode, fp32, the 8-bit and paged
 caches' kernels) and the backward kernels (the split pair in bf16 and
-fp32, the fused kernel), built from the package's ``csrc/`` or, with
-``--csrc``, from another tree's sources of the same C entries: two
+fp32, the fused kernel) and naive, built from the package's ``csrc/``
+or, with ``--csrc``, through another tree's wrappers and sources: two
 versions compared on one card, in turns.  Every line it prints carries
 the card's name and power limit.
 """
@@ -25,11 +25,12 @@ the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
+import importlib
+import importlib.util
 import json
 import sys
-import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -220,8 +221,9 @@ def bwd_kernel_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[flo
 def fused_workspace_bytes(inputs: tuple, off_bound: int) -> Tuple[int, int]:
     """``(allocated, written)`` bytes of the fused kernel's dQ workspace in
     one call on ``bwd_inputs`` at ``off_bound`` (causal): the allocator's
-    peak over a call less its three outputs, and the slots of a NaN-filled
-    workspace that a second call overwrote."""
+    peak over a call less its three outputs, and the accumulator bytes of a
+    NaN-filled workspace that a second call overwrote (a Q step that sees
+    one KV tile writes dQ directly and leaves its rows)."""
     q, k, v, o, do, lse, off = inputs
     delta = bwd_delta(o, do, None)
     kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True, off_bound=off_bound)
@@ -233,11 +235,10 @@ def fused_workspace_bytes(inputs: tuple, off_bound: int) -> Tuple[int, int]:
     out_bytes = sum(t.numel() * t.element_size() for t in outputs)
     allocated = torch.cuda.max_memory_allocated() - base - out_bytes
     del outputs
-    ws = torch.full(dq_workspace_shape(*q.shape[:3], k.shape[2], off_bound, q.shape[3]),
-                    float("nan"), device=q.device)
+    ws = torch.full(dq_workspace_shape(*q.shape), float("nan"), device=q.device)
     flash_bwd_fused(q, k, v, do, lse, delta, off, workspace=ws, **kw)
-    written = int((~torch.isnan(ws).all(dim=-1).all(dim=-1)).sum())
-    return allocated, written * ws[0].numel() * ws.element_size()
+    written = int((~torch.isnan(ws[:q.numel()])).sum())
+    return allocated, written * ws.element_size()
 
 
 def _fwd_errors(got, want) -> Tuple[float, float]:
@@ -373,6 +374,17 @@ def ladder_fwd_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, dict]]
         # head dim 128
         "lean_bf16_n1024_d128": ("flash_lean", u(SWEEP_1024_D128, bf16), dict(save_lse=True)),
         "tri_bf16_n2048_d128": ("flash_tri", u(TRI_D128, bf16), dict(save_lse=True)),
+        # naive on the fixtures that catch a partial row max (spike) or a
+        # wrong exp (peaked), rows that see nothing (causal, n_q > n_kv:
+        # mean(V)), and head dim 128
+        "naive_fp32_n1024_peaked": ("naive", u(SWEEP_1024, f32, PEAKED_Q_SCALE), {}),
+        "naive_fp32_n1024_spike": (
+            "naive", spike_inputs(SWEEP_1024, SWEEP_1024, f32, gen), dict(causal=True)),
+        "naive_fp32_causal_q_longer": (
+            "naive", ladder_inputs((2, 2, 1000, 64), (2, 2, 700, 64), f32, gen),
+            dict(causal=True)),
+        "naive_fp32_n1024_d128_spike": (
+            "naive", spike_inputs(SWEEP_1024_D128, SWEEP_1024_D128, f32, gen), {}),
     }
 
 
@@ -908,87 +920,109 @@ def profile_train(stamp: str, iters: int = 3, log=print) -> Dict[str, float]:
     return {"wall_ms": wall, "busy_ms": busy, "bwd_ms": bwd_ms, "fwd_ms": fwd_ms}
 
 
+def _kernel_modules(csrc: Optional[str]) -> SimpleNamespace:
+    """The kernel modules whose wrappers ``kernel_times`` calls: this
+    package's, or with ``csrc`` those of the tree whose package holds that
+    ``csrc/`` directory, imported under another name.  Each tree's wrappers
+    then call its own library, built from its own sources into its own
+    ``_build/``, whatever its C entries' signatures."""
+    if csrc is None:
+        pkg = sys.modules[__package__.rpartition(".")[0]]
+    else:
+        root = Path(csrc).resolve().parent
+        name = "fam_other_tree"
+        spec = importlib.util.spec_from_file_location(
+            name, root / "__init__.py", submodule_search_locations=[str(root)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[name] = pkg
+        spec.loader.exec_module(pkg)
+    name = pkg.__name__
+    mod = lambda m: importlib.import_module(f"{name}.kernels.{m}")  # noqa: E731
+    return SimpleNamespace(ff=mod("flash_fwd"), fb=mod("flash_bwd"), qt=mod("quant"),
+                           pg=mod("paged"), nv=mod("naive"))
+
+
 def kernel_times(csrc: Optional[str] = None) -> Dict[str, float]:
-    """Device ms of the forward and backward kernels of ``csrc/flash_fwd.cu``,
-    ``flash_lean.cu`` and ``flash_bwd.cu`` at their paths' shapes, built from
-    the package's ``csrc/`` or, with ``csrc``, from that directory's ``*.cu``
-    (the same C entries, e.g. an earlier tree's): two versions compared on
-    one card, in turns.
+    """Device ms of the forward, backward and naive kernels at their paths'
+    shapes, through this package's wrappers or, with ``csrc``, through the
+    wrappers and the sources of the tree that directory belongs to (e.g. an
+    earlier tree unpacked under ``_scratch/``): two versions compared on one
+    card, in turns.
 
     The forward: the general kernel at the training shape (``TRAIN_Q``,
     causal, with its lse) and the prefill chunk (offset 512) at head dim 64
     and 128, and in fp32 at the prefill chunk; folded decode (``DECODE_Q``
     at ``decode_lengths()``); lean at the sweep's N = 1024 and N = 128 (D 64
     and 128, bf16) and at the ladder's N = 1024 in fp32; the quant (int8),
-    paged and paged-quant (int8) kernels at folded decode.  The backward:
-    dK/dV, dQ and the fused kernel in bf16 at the training shape and in
-    fp32 at ``TRAIN_FP32_Q``.  Every input is the ladder fixture.
+    paged and paged-quant (int8) kernels at folded decode.  Naive in fp32
+    at the sweep's N = 1024 (plain and causal), N = 128 and N = 1024 at
+    head dim 128.  The backward: dK/dV, dQ and the fused kernel in bf16 at
+    the training shape (D 64 and 128) and in fp32 at ``TRAIN_FP32_Q``.
+    Every input is the ladder fixture.
     """
-    from ..kernels import _build
-    from ..kernels import flash_bwd as fb
-    from ..kernels import flash_fwd as ff
-    from ..kernels import paged as pg
-    from ..kernels import quant as qt
-
-    modules = (ff, fb, qt, pg)
-    own = [m._lib for m in modules]
-    if csrc is not None:
-        out = Path(tempfile.mkdtemp()) / "lib.so"
-        lib = ctypes.CDLL(str(_build.compile_library(sorted(Path(csrc).glob("*.cu")), out)))
-        for bind in (ff.bind, ff.bind_lean, fb.bind, qt.bind):
-            bind(lib)
-        for m in modules:
-            m._lib = lambda: lib
+    m = _kernel_modules(csrc)
+    ff, fb = m.ff, m.fb
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     bf16, f32 = torch.bfloat16, torch.float32
     times = {}
-    try:
-        for tag, shape_q, shape_kv, dtype, offset in (
-            ("train_d64", TRAIN_Q, TRAIN_KV, bf16, 0),
-            ("train_d128", TRAIN_D128_Q, TRAIN_D128_KV, bf16, 0),
-            ("prefill_d64", PREFILL_Q, PREFILL_KV, bf16, 512),
-            ("prefill_d128", PREFILL_D128_Q, PREFILL_D128_KV, bf16, 512),
-            ("prefill_fp32", PREFILL_Q, PREFILL_KV, f32, 512),
-        ):
-            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
-            off = torch.full((shape_q[0],), offset, dtype=torch.int32, device="cuda")
-            lse = tag.startswith("train")  # the training forward saves it
-            times[f"fwd_{tag}"] = device_ms(
-                lambda: ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=lse))
-        q, k, v = ladder_inputs(DECODE_Q, DECODE_KV, bf16, gen)
-        lengths = torch.from_numpy(decode_lengths()).to("cuda")
-        times["fwd_decode_d64"] = device_ms(
-            lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True, pos_div=2))
-        for tag, shape, dtype in (
-            ("n1024_d64", SWEEP_1024, bf16), ("n1024_d128", SWEEP_1024_D128, bf16),
-            ("n128_d64", SWEEP_128, bf16), ("n128_d128", SWEEP_128_D128, bf16),
-            ("n1024_fp32", LADDER, f32),
-        ):
-            q, k, v = ladder_inputs(shape, shape, dtype, gen)
-            times[f"lean_{tag}"] = device_ms(lambda: ff.flash_fwd_lean(q, k, v))
-        decode = ("quant_int8_decode_bf16", "paged_decode_bf16", "paged_quant_int8_decode_bf16")
-        for name, (kernel, args, pos_div) in kv_cases(gen).items():
-            if name in decode:
-                times[name.replace("_bf16", "")] = device_ms(
-                    lambda: KV_KERNELS[kernel][0](*args, pos_div))
-        for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, bf16),
-                                              ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, f32)):
-            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
-            do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
-            off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
-            o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
-            delta = bwd_delta(o, do, None)
-            kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True)
+    for tag, shape_q, shape_kv, dtype, offset in (
+        ("train_d64", TRAIN_Q, TRAIN_KV, bf16, 0),
+        ("train_d128", TRAIN_D128_Q, TRAIN_D128_KV, bf16, 0),
+        ("prefill_d64", PREFILL_Q, PREFILL_KV, bf16, 512),
+        ("prefill_d128", PREFILL_D128_Q, PREFILL_D128_KV, bf16, 512),
+        ("prefill_fp32", PREFILL_Q, PREFILL_KV, f32, 512),
+    ):
+        q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
+        off = torch.full((shape_q[0],), offset, dtype=torch.int32, device="cuda")
+        lse = tag.startswith("train")  # the training forward saves it
+        times[f"fwd_{tag}"] = device_ms(
+            lambda: ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=lse))
+    q, k, v = ladder_inputs(DECODE_Q, DECODE_KV, bf16, gen)
+    lengths = torch.from_numpy(decode_lengths()).to("cuda")
+    times["fwd_decode_d64"] = device_ms(
+        lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True, pos_div=2))
+    for tag, shape, dtype in (
+        ("n1024_d64", SWEEP_1024, bf16), ("n1024_d128", SWEEP_1024_D128, bf16),
+        ("n128_d64", SWEEP_128, bf16), ("n128_d128", SWEEP_128_D128, bf16),
+        ("n1024_fp32", LADDER, f32),
+    ):
+        q, k, v = ladder_inputs(shape, shape, dtype, gen)
+        times[f"lean_{tag}"] = device_ms(lambda: ff.flash_fwd_lean(q, k, v))
+    kv_wrappers = {
+        "flash_quant": lambda q, qkv, off, pos_div: m.qt.flash_attention_quant(
+            q, qkv, off, causal=True, pos_div=pos_div, save_lse=True),
+        "flash_paged": lambda q, pk, pv, table, lengths, pos_div: m.pg.flash_attention_paged(
+            q, pk, pv, table, lengths, pos_div=pos_div),
+        "flash_paged_quant": lambda q, pk, pv, pks, pvs, table, lengths, pos_div:
+            m.pg.flash_attention_paged_quant(q, pk, pv, pks, pvs, table, lengths,
+                                             pos_div=pos_div),
+    }
+    decode = ("quant_int8_decode_bf16", "paged_decode_bf16", "paged_quant_int8_decode_bf16")
+    for name, (kernel, args, pos_div) in kv_cases(gen).items():
+        if name in decode:
+            times[name.replace("_bf16", "")] = device_ms(
+                lambda: kv_wrappers[kernel](*args, pos_div))
+    for tag, shape, causal in (("n1024", SWEEP_1024, False), ("n1024_causal", SWEEP_1024, True),
+                               ("n128", SWEEP_128, False), ("n1024_d128", SWEEP_1024_D128, False)):
+        q, k, v = ladder_inputs(shape, shape, f32, gen)
+        times[f"naive_fp32_{tag}"] = device_ms(lambda: m.nv.naive_attention(q, k, v, causal=causal))
+    for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, bf16),
+                                          ("bf16_train_d128", TRAIN_D128_Q, TRAIN_D128_KV, bf16),
+                                          ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, f32)):
+        q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
+        do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+        off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
+        o, lse = ff.flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+        delta = fb.bwd_delta(o, do, None)
+        kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True)
+        if tag != "bf16_train_d128":
             times[f"dkv_{tag}"] = device_ms(
                 lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw))
             times[f"dq_{tag}"] = device_ms(
                 lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw))
-            times[f"fused_{tag}"] = device_ms(lambda: flash_attention_bwd_fused(
-                q, k, v, o, do, lse, off, q_offset_max=0, **kw))
-    finally:
-        for m, lib_fn in zip(modules, own):
-            m._lib = lib_fn
+        times[f"fused_{tag}"] = device_ms(lambda: fb.flash_attention_bwd_fused(
+            q, k, v, o, do, lse, off, q_offset_max=0, **kw))
     return times
 
 
@@ -998,7 +1032,8 @@ def main(argv=None) -> int:
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
-    parser.add_argument("--csrc", help="kernels: build them from this directory's *.cu")
+    parser.add_argument("--csrc", help="kernels: time the wrappers and kernels of the tree "
+                        "whose package holds this csrc/ directory")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)

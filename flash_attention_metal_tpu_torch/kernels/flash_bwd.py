@@ -9,14 +9,16 @@ contract with native GQA (no repeated K/V, dK/dV summed over the group in
 fp32) and a per-batch device ``q_offset``, bf16 on the Hopper kernels of
 ``csrc/flash_bwd_sm90.cuh`` (``wgmma`` with P and dS as register operands,
 a cp.async ring), fp32 in IEEE FMA; head dim 64 or 128.
-``flash_attention_bwd_fused`` runs the 5-matmul ``_fused_bwd_kernel``: the
-WMMA template of ``csrc/flash_bwd.cu``, whose dK/dV kernel
-writes each visible pair's dQ contribution to its own fp32 slot, and a
-second kernel sums each Q tile's slots in KV-tile order (deterministic).
-The slots are packed as the triangular backward's (``csrc/dq_slots.cuh``):
-one per pair visible at a host-known bound on the offsets.  GQA is native
-there too: the JAX kernel takes equal heads only because the JAX op
-repeats K/V first.  The ``delta = rowsum(dO * O) - dlse`` precompute
+``flash_attention_bwd_fused`` runs the 5-matmul ``_fused_bwd_kernel``:
+one launch of ``csrc/flash_bwd_fused_sm90.cuh`` (bf16; the split pair's
+dK/dV mainloop with a fifth ``wgmma`` product, dS K at head dim 64 and its
+transpose at 128) or of the fp32 template of ``csrc/flash_bwd.cu``.  Each KV tile's block adds its dQ
+contribution to one fp32 ``[B, H, N_q, D]`` accumulator in KV-tile order,
+held by a counter per ``DQ_COUNTER_ROWS`` query rows
+(``csrc/dq_ordered.cuh``), and the last KV tile a row sees writes dQ: the
+same bits on every run, and an O(B H N D) workspace
+(``dq_workspace_shape``).  GQA is native there too: the JAX kernel takes
+equal heads only because the JAX op repeats K/V first.  The ``delta = rowsum(dO * O) - dlse`` precompute
 stays a torch op, as it is plain jnp in the JAX package.
 
 ``flash_attention_bwd_auto`` routes in the JAX dispatcher's order of
@@ -44,7 +46,6 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import BlockSizes, default_scale
-from ..utils.roofline import dq_slot_count
 from . import _build
 from .flash_fwd import (
     _DTYPE_CODES,
@@ -57,10 +58,12 @@ from .flash_fwd import (
 # Stands in for lse = -inf (a row that sees no column) when P is rebuilt,
 # as in the JAX kernels: exp(s - 1e30) is exactly 0, never inf or NaN.
 LSE_SENTINEL = 1e30
-# Rows of the fused kernel's Q and KV tiles, and of one dQ workspace slot
-# (csrc/dq_slots.cuh, kTile): each dQ partial covers this many KV rows, and
-# a slot holds DQ_TILE rows of head_dim fp32 values.
+# Rows of the fused kernel's KV tiles: each dQ partial that the kernel adds
+# in KV-tile order covers this many KV rows.
 DQ_TILE = 64
+# Query rows per ordering counter of the fused kernel's dQ accumulator
+# (csrc/dq_ordered.cuh, kRows).
+DQ_COUNTER_ROWS = 32
 
 
 def bwd_delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
@@ -177,13 +180,19 @@ def fused_offset_bound(q_offset, q_offset_max: Optional[int], n_q: int, n_kv: in
     return min(bound, n_kv - 1)
 
 
-def dq_workspace_shape(batch: int, heads: int, n_q: int, n_kv: int, off: int,
-                       head_dim: int) -> tuple:
-    """The fp32 dQ workspace of the fused and the triangular backward
-    kernels (``csrc/dq_slots.cuh``): one ``DQ_TILE`` x ``head_dim`` slot per
-    (batch, q-head, (Q tile, KV tile) pair visible at offset ``off``)
-    (``roofline.dq_slot_count``; the kernels refuse any other count)."""
-    return (batch * heads * dq_slot_count(n_q, n_kv, off, DQ_TILE), DQ_TILE, head_dim)
+def dq_counter_count(batch: int, heads: int, n_q: int) -> int:
+    """int32 counters of the fused kernel's dQ accumulator: the work
+    items' ticket, then one per ``DQ_COUNTER_ROWS`` query rows of each
+    (batch, q-head) (``csrc/dq_ordered.cuh``; the kernel refuses any other
+    count)."""
+    return 1 + batch * heads * -(-n_q // DQ_COUNTER_ROWS)
+
+
+def dq_workspace_shape(batch: int, heads: int, n_q: int, head_dim: int) -> tuple:
+    """The fused kernel's flat fp32 dQ workspace: the ``[B, H, N_q, D]``
+    accumulator, then the ``dq_counter_count`` int32 counters in as many
+    4-byte words.  It does not depend on the offsets or on ``n_kv``."""
+    return (batch * heads * n_q * head_dim + dq_counter_count(batch, heads, n_q),)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -200,7 +209,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fam_flash_bwd_dkv.restype = ctypes.c_int
     lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + common
     lib.fam_flash_bwd_dq.restype = ctypes.c_int
-    lib.fam_flash_bwd_fused.argtypes = [ptr] * 11 + [i32, i32] + common  # pairs, off_bound
+    # ..., dq, dq_acc, counters, n_counters, off_bound
+    lib.fam_flash_bwd_fused.argtypes = [ptr] * 12 + [i32, i32] + common
     lib.fam_flash_bwd_fused.restype = ctypes.c_int
     return lib
 
@@ -251,20 +261,24 @@ def flash_bwd_dq(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool)
 
 def flash_bwd_fused(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
                     off_bound: int, workspace: Optional[torch.Tensor] = None):
-    """``(dq, dk, dv)`` from the fused kernel and its dQ reduction (CUDA
-    tensors, checked by the caller).  ``off_bound``: ``fused_offset_bound``.
+    """``(dq, dk, dv)`` from the fused kernel, one launch (CUDA tensors,
+    checked by the caller).  ``off_bound``: ``fused_offset_bound``.
     ``workspace``: fp32 of ``dq_workspace_shape``, allocated here when
-    None (a caller's shows which slots the kernel wrote)."""
+    None (a caller's shows which accumulator elements the kernel wrote);
+    its counters are zeroed here."""
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    shape = dq_workspace_shape(*q.shape[:3], k.shape[2], off_bound, q.shape[3])
+    batch, heads, n_q, head_dim = q.shape
+    shape = dq_workspace_shape(batch, heads, n_q, head_dim)
     if workspace is None:
         workspace = torch.empty(shape, dtype=torch.float32, device=q.device)
     elif (workspace.shape != shape or workspace.dtype != torch.float32
           or workspace.device != q.device or not workspace.is_contiguous()):
         raise ValueError(f"workspace must be a contiguous fp32 {shape} tensor on {q.device}")
+    n_acc = batch * heads * n_q * head_dim
+    workspace[n_acc:].zero_()  # the counters: int32 zero is fp32 +0.0's bits
     err = _lib().fam_flash_bwd_fused(
         *_inputs(q, k, v, do, lse, delta, off), dk.data_ptr(), dv.data_ptr(), dq.data_ptr(),
-        workspace.data_ptr(), shape[0] // (q.shape[0] * q.shape[1]), off_bound,
+        workspace.data_ptr(), workspace.data_ptr() + 4 * n_acc, shape[0] - n_acc, off_bound,
         *_shape_args(q, k, sm_scale, causal),
     )
     if err:
@@ -379,14 +393,12 @@ def flash_attention_bwd_fused(
     """``(dq, dk, dv)`` from the fused 5-matmul kernel; arguments and
     results as ``flash_attention_bwd`` (``dk``, ``dv`` in ``k``'s dtype, as
     the JAX kernel's).  The kernel's tiles are fixed (``DQ_TILE``).
-    ``q_offset_max``: with a tensor ``q_offset``, an int no entry exceeds;
-    the dQ workspace then holds only the pairs visible at it.  An offset
-    known on the host (None, an int or a CPU tensor) above it raises.  The
-    entries of a CUDA tensor are not read on the host: the caller keeps to
-    the contract, and an entry above ``q_offset_max`` is read as
-    ``q_offset_max`` (a narrower mask).  Without it the workspace holds
-    every pair.  fp16 inputs run in fp32 and return fp16 gradients, as
-    ``flash_attention_bwd``'s.  The JAX wrapper's window/sinks/segment
+    ``q_offset_max``: with a tensor ``q_offset``, an int no entry exceeds.
+    An offset known on the host (None, an int or a CPU tensor) above it
+    raises.  The entries of a CUDA tensor are not read on the host: the
+    caller keeps to the contract, and an entry above ``q_offset_max`` is
+    read as ``q_offset_max`` (a narrower mask).  fp16 inputs run in fp32
+    and return fp16 gradients, as ``flash_attention_bwd``'s.  The JAX wrapper's window/sinks/segment
     arguments raise NotImplementedError if set."""
     reject_unported(features)
     if q.dtype == torch.float16:
@@ -433,32 +445,26 @@ def _free_device_bytes(device: torch.device) -> Optional[int]:
     return torch.cuda.mem_get_info(device)[0]
 
 
-def fused_workspace_fits(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool,
-                         q_offset_max: Optional[int] = None) -> bool:
-    """Whether the fused kernel's dQ workspace for this call
+def fused_workspace_fits(q: torch.Tensor) -> bool:
+    """Whether the fused kernel's dQ workspace for ``q``
     (``fused_workspace_bytes``) stays within ``FUSED_WORKSPACE_SHARE`` of
     the device's free bytes."""
     free = _free_device_bytes(q.device)
     if free is None:
         return True
-    return fused_workspace_bytes(q, k, q_offset, causal=causal,
-                                 q_offset_max=q_offset_max) <= FUSED_WORKSPACE_SHARE * free
+    return fused_workspace_bytes(q) <= FUSED_WORKSPACE_SHARE * free
 
 
-def fused_workspace_bytes(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool,
-                          q_offset_max: Optional[int] = None) -> int:
-    """Bytes of the fused kernel's dQ workspace for this call: one fp32
-    ``DQ_TILE`` x head-dim slot per visible tile pair and q-head
-    (``dq_workspace_shape``)."""
-    n_q, n_kv = q.shape[2], k.shape[2]
-    bound = fused_offset_bound(q_offset, q_offset_max, n_q, n_kv, causal)
-    slots, rows, cols = dq_workspace_shape(*q.shape[:2], n_q, n_kv, bound, q.shape[3])
-    return slots * rows * cols * 4
+def fused_workspace_bytes(q: torch.Tensor) -> int:
+    """Bytes of the fused kernel's dQ workspace for ``q`` (``[B, H, N_q,
+    D]``; ``dq_workspace_shape``): the fp32 accumulator, one value per
+    element of dQ, and the counters.  K, the offsets and the mask do not
+    change it."""
+    return 4 * dq_workspace_shape(*q.shape)[0]
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1,
-              block_sizes: Optional[BlockSizes] = None,
-              q_offset_max: Optional[int] = None) -> str:
+              block_sizes: Optional[BlockSizes] = None) -> str:
     """The kernel(s) ``flash_attention_bwd_auto`` runs: ``"tri"``,
     ``"fused"`` or ``"split"`` (module docstring).  A saved ``"fused"``
     decision is declined, for the untuned rule, when its dQ workspace would
@@ -479,7 +485,7 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_d
     if hit is not None:
         impl = hit[0]
         if impl == "fused":
-            if fused_workspace_fits(q, k, q_offset, causal=causal, q_offset_max=q_offset_max):
+            if fused_workspace_fits(q):
                 return "fused"
         elif impl == "split" or not tri_ok:
             return "split"
@@ -510,8 +516,7 @@ def flash_attention_bwd_auto(
     and ``dv`` in fp32, the others in ``k``'s dtype, as in JAX.  The split
     pair's tiles are fixed: ``block_sizes`` only skips the tuned lookup."""
     reject_unported(features)
-    impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes,
-                     q_offset_max=q_offset_max)
+    impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes)
     if impl == "tri":
         from .flash_tri import flash_attention_bwd_tri
 

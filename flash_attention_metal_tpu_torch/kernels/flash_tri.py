@@ -29,8 +29,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import default_scale
+from ..utils.roofline import dq_slot_count
 from . import _build
-from .flash_bwd import _plain_p_ds, bwd_delta, dq_workspace_shape
+from .flash_bwd import _plain_p_ds, bwd_delta
 from .flash_fwd import (
     _DTYPE_CODES,
     _check_cuda_inputs,
@@ -38,6 +39,20 @@ from .flash_fwd import (
     check_shapes,
     flash_attention_fwd_plain,
 )
+
+
+# Rows of the triangular backward's Q and KV tiles, and of one dQ slot
+# (csrc/dq_slots.cuh, kTile).
+DQ_SLOT_ROWS = 64
+
+
+def dq_slots_shape(batch: int, heads: int, n_q: int, n_kv: int, off: int,
+                   head_dim: int) -> tuple:
+    """The triangular backward's fp32 dQ workspace (``csrc/dq_slots.cuh``):
+    one ``DQ_SLOT_ROWS`` x ``head_dim`` slot per (batch, head, (Q tile, KV
+    tile) pair visible at offset ``off``) (``roofline.dq_slot_count``; the
+    kernel refuses any other count)."""
+    return (batch * heads * dq_slot_count(n_q, n_kv, off, DQ_SLOT_ROWS), DQ_SLOT_ROWS, head_dim)
 
 
 def _static_offset(q_offset, n_q: int, n_kv: int) -> int:
@@ -220,7 +235,7 @@ def flash_attention_bwd_tri(
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
     # One fp32 64 x head_dim dQ slot per visible (q tile, KV tile) pair and head.
-    ws = torch.empty(dq_workspace_shape(batch, heads, n_q, n_kv, off, head_dim),
+    ws = torch.empty(dq_slots_shape(batch, heads, n_q, n_kv, off, head_dim),
                      dtype=torch.float32, device=q.device)
     pairs = ws.shape[0] // (batch * heads)
     err = _lib().fam_flash_tri_bwd(

@@ -4,7 +4,10 @@ Counterpart of ``flash_attention_metal_tpu/kernels/naive.py``: the whole
 score row, a two-pass softmax (row max, then exp, sum and P V), no online
 statistics, everything in fp32 whatever the input type.  It is the
 benchmark's denominator and the ladder's first rung.  ``csrc/naive.cu``
-computes it with one warp per query row and no reuse of K/V across rows.
+computes it with the Pallas kernel's tiling on CUDA cores: one block per
+64-row Q tile, K and V streamed through shared memory in
+64-row tiles, register-tiled fp32 outer products, and the two passes as
+two walks over K (the row max, then exp, sum and P V).
 
 Route: a tensor on the CPU goes to ``naive_attention_plain``; a CUDA tensor
 launches the kernel or raises.  Nothing falls back.
@@ -22,8 +25,8 @@ from ..config import DEFAULT_MASK_VALUE, default_scale
 from . import _build
 from .flash_fwd import _DTYPE_CODES, _check_cuda_inputs
 
-# Longest KV row the kernel's shared memory holds (csrc/naive.cu, kMaxKv):
-# the benchmark's sweep, like the JAX package's, caps naive at N = 8192.
+# Longest KV row the kernel takes (csrc/naive.cu, kMaxKv): the benchmark's
+# sweep, like the JAX package's, caps naive at N = 8192.
 NAIVE_MAX_KV = 8192
 
 
@@ -74,8 +77,8 @@ def naive_attention(
 
     With ``causal`` the diagonal is end-aligned: row ``r`` sees columns
     ``c <= r + n_kv - n_q``.  Returns ``o`` in ``q``'s dtype.  ``block_q``
-    is the Pallas kernel's grid tile; the CUDA kernel takes one warp per
-    row, so it is accepted and ignored.
+    is the Pallas kernel's grid tile (128 rows there); the CUDA kernel's
+    tile is fixed (64 rows), so it is accepted and ignored.
     """
     del block_q
     if q.ndim != 4 or k.shape != v.shape or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
@@ -91,7 +94,7 @@ def naive_attention(
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v)
     if n_kv > NAIVE_MAX_KV:
-        raise ValueError(f"the naive kernel holds score rows up to {NAIVE_MAX_KV}, got {n_kv}")
+        raise ValueError(f"the naive kernel takes score rows up to {NAIVE_MAX_KV}, got {n_kv}")
     o = torch.empty_like(q)
     err = _lib().fam_naive(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

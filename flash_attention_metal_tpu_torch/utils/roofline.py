@@ -78,9 +78,9 @@ def visible_pairs(n_q: int, n_kv: int, q_offset: int, pos_div: int = 1) -> int:
 
 
 def dq_slot_count(n_q: int, n_kv: int, q_offset: int, tile: int = 64) -> int:
-    """Slots of one head's dQ workspace in the fused and triangular
-    backwards (``csrc/dq_slots.cuh``, ``visible_pairs``): the (Q tile, KV
-    tile) pairs of ``tile`` rows that a causal call at ``q_offset`` sees."""
+    """Slots of one head's dQ workspace in the triangular backward
+    (``csrc/dq_slots.cuh``, ``visible_pairs``): the (Q tile, KV tile) pairs
+    of ``tile`` rows that a causal call at ``q_offset`` sees."""
     slots = 0
     for i in range(-(-n_q // tile)):
         limit = min(min((i + 1) * tile, n_q) - 1 + q_offset, n_kv - 1)

@@ -18,8 +18,10 @@ import torch
 from flash_attention_metal_tpu_torch.config import BlockSizes
 from flash_attention_metal_tpu_torch.harness import autotune
 from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
 from flash_attention_metal_tpu_torch.models import trainer as tr
 from flash_attention_metal_tpu_torch.models.transformer import ModelConfig
+from flash_attention_metal_tpu_torch.utils.roofline import dq_slot_count
 
 
 @pytest.fixture
@@ -175,8 +177,8 @@ def test_training_step_through_the_fused_route_equals_the_split_step(cache, monk
 
 def test_the_op_bounds_the_fused_workspace_by_its_int_offset(cache, monkeypatch):
     """The op hands the backward its offset as an int32 tensor, and an int
-    offset also as ``q_offset_max``: the fused kernel's dQ workspace then
-    holds only the pairs visible at it.  A tensor offset gives no bound."""
+    offset also as ``q_offset_max``: the fused kernel then reads each
+    offset no higher than it.  A tensor offset gives no bound."""
     q = torch.zeros((1, 2, 128, 64), requires_grad=True)
     kv = torch.zeros((1, 2, 128, 64))
     _write(cache, {_key(q, kv): {"impl": "fused", "blocks": {}}})
@@ -193,34 +195,30 @@ def test_the_op_bounds_the_fused_workspace_by_its_int_offset(cache, monkeypatch)
 
 
 def test_router_declines_a_fused_decision_whose_workspace_does_not_fit(cache, monkeypatch):
-    """A saved "fused" decision is followed while the dQ workspace (one
-    16 KiB slot per visible tile pair and q-head) stays within
-    ``FUSED_WORKSPACE_SHARE`` of the free bytes, and declined for the
-    untuned rule past it.  The CPU has no workspace, so the free bytes are
-    injected."""
+    """A saved "fused" decision is followed while the dQ workspace (an fp32
+    accumulator of dQ's size and a counter per 32 query rows of each
+    q-head) stays within ``FUSED_WORKSPACE_SHARE`` of the free bytes, and
+    declined for the untuned rule past it, whatever the offset.  The CPU
+    has no workspace, so the free bytes are injected."""
     q = torch.zeros((2, 4, 256, 64))
     off = torch.zeros(2, dtype=torch.int32)
     _write(cache, {_key(q, q): {"impl": "fused", "blocks": {}}})
-    # causal, offset 0, 4 x 4 tiles: 10 slots per head, 80 for the call.
-    need = 2 * 4 * 10 * 64 * 64 * 4
-    assert fb.dq_slot_count(256, 256, 0) == 10
+    # 2 x 4 x 256 x 64 fp32 values, the ticket and 8 counters per head.
+    need = 4 * (2 * 4 * 256 * 64 + 1 + 2 * 4 * 8)
+    assert fb.fused_workspace_bytes(q) == need
     monkeypatch.setattr(fb, "_free_device_bytes", lambda device: need / fb.FUSED_WORKSPACE_SHARE)
     assert fb.bwd_route(q, q, None, causal=True) == "fused"
-    assert fb.bwd_route(q, q, off, causal=True, q_offset_max=0) == "fused"
+    assert fb.bwd_route(q, q, off, causal=True) == "fused"
     monkeypatch.setattr(fb, "_free_device_bytes", lambda device: need / fb.FUSED_WORKSPACE_SHARE - 1)
     assert fb.bwd_route(q, q, None, causal=True) == "tri"
-    assert fb.bwd_route(q, q, off, causal=True, q_offset_max=0) == "split"
-    # Without q_offset_max a tensor offset sizes every pair: 16 per head,
-    # 1.6 times the slots at offset 0.
-    monkeypatch.setattr(fb, "_free_device_bytes", lambda device: 1.5 * need / fb.FUSED_WORKSPACE_SHARE)
     assert fb.bwd_route(q, q, off, causal=True) == "split"
-    assert fb.bwd_route(q, q, off, causal=True, q_offset_max=0) == "fused"
 
 
 def test_dq_slot_count_matches_the_kernels_packing():
     """``roofline.dq_slot_count`` counts the slots ``csrc/dq_slots.cuh``
-    packs (the library's counts at these shapes: tests/test_torch_gpu.py)."""
-    assert fb.dq_slot_count(2048, 2048, 0) == 528
-    assert fb.dq_slot_count(2048, 2048, 2047) == 1024
-    assert fb.dq_slot_count(128, 128, -70) == 1
-    assert fb.dq_slot_count(200, 300, 100) == 3 + 4 + 5 + 5
+    packs for the triangular backward (``flash_tri.dq_slots_shape``)."""
+    assert dq_slot_count(2048, 2048, 0) == 528
+    assert dq_slot_count(2048, 2048, 2047) == 1024
+    assert dq_slot_count(128, 128, -70) == 1
+    assert dq_slot_count(200, 300, 100) == 3 + 4 + 5 + 5
+    assert ft.dq_slots_shape(4, 16, 2048, 2048, 0, 128) == (4 * 16 * 528, 64, 128)

@@ -83,8 +83,9 @@ def test_fused_bwd_with_dlse_and_per_batch_offsets_matches_jax():
 
 
 def test_fused_bwd_at_head_dim_128_matches_jax():
-    """Head dim 128 (a 64 x 128 dQ slot per pair): an lse cotangent and
-    per-batch offsets, against the JAX kernel with two dQ partials."""
+    """Head dim 128 (the CUDA kernel walks 32-row Q steps there): an lse
+    cotangent and per-batch offsets, against the JAX kernel with two dQ
+    partials."""
     q, k, v, do, dlse = _inputs(7, 2, 2, 2, 256, d=128)
     off = np.asarray([0, 64], np.int32)
     o, lse, want = _jax_case(q, k, v, do, off, True, 128, dlse)
@@ -96,24 +97,35 @@ def test_fused_bwd_at_head_dim_128_matches_jax():
 
 
 def test_dq_workspace_bytes_follow_the_head_dim(monkeypatch):
-    """One fp32 64 x D slot per visible (Q tile, KV tile) pair and q-head:
-    ``dq_workspace_shape``, the bytes the router counts and its decision at
-    the boundary all equal ``roofline.dq_slot_count x 64 x D x 4``."""
+    """The fused kernel's workspace is one fp32 value per element of dQ
+    and an int32 counter per 32 query rows of each (batch, q-head), plus
+    the work items' ticket: ``dq_workspace_shape``, the bytes the router
+    counts and its decision at the boundary agree at both head dims."""
     for d in (64, 128):
         q = torch.zeros((2, 4, 256, d))
-        kv = torch.zeros((2, 2, 256, d))
-        slots = fb.dq_slot_count(256, 256, 0)
-        assert fb.dq_workspace_shape(2, 4, 256, 256, 0, d) == (2 * 4 * slots, 64, d)
-        need = 2 * 4 * slots * 64 * d * 4
-        assert fb.fused_workspace_bytes(q, kv, None, causal=True) == need
+        counters = 1 + 2 * 4 * (256 // 32)
+        assert fb.dq_counter_count(2, 4, 256) == counters
+        assert fb.dq_workspace_shape(2, 4, 256, d) == (2 * 4 * 256 * d + counters,)
+        need = 4 * (2 * 4 * 256 * d + counters)
+        assert fb.fused_workspace_bytes(q) == need
         monkeypatch.setattr(fb, "_free_device_bytes",
                             lambda device, n=need: n / fb.FUSED_WORKSPACE_SHARE)
-        assert fb.fused_workspace_fits(q, kv, None, causal=True)
+        assert fb.fused_workspace_fits(q)
         monkeypatch.setattr(fb, "_free_device_bytes",
                             lambda device, n=need: n / fb.FUSED_WORKSPACE_SHARE - 1)
-        assert not fb.fused_workspace_fits(q, kv, None, causal=True)
-    # Every pair without a causal mask.
-    assert fb.dq_workspace_shape(1, 1, 256, 256, 255, 128) == (16, 64, 128)
+        assert not fb.fused_workspace_fits(q)
+    # A ragged last chunk of rows has a counter of its own.
+    assert fb.dq_counter_count(1, 1, 200) == 1 + 7
+
+
+def test_dq_workspace_bytes_at_the_training_shape():
+    """At the training shape (q [4,16,2048,64]) the workspace is the
+    33,554,432-byte accumulator and 4 x 16 x 64 + 1 counters: O(B H N D),
+    where one 16 KiB slot per visible tile pair took 553,648,128 bytes."""
+    assert fb.fused_workspace_bytes(torch.zeros((4, 16, 2048, 64))) == (
+        33_554_432 + 4 * (4 * 16 * 64 + 1))
+    assert fb.fused_workspace_bytes(torch.zeros((4, 16, 2048, 128))) == (
+        67_108_864 + 4 * (4 * 16 * 64 + 1))
 
 
 def test_fused_bwd_gqa_matches_jax_on_broadcast_kv():
@@ -184,10 +196,9 @@ def test_fused_plain_sums_64_column_partials():
 
 
 def test_workspace_counts():
-    """The offset the fused kernel's dQ workspace is counted at (the kernels'
-    library counts its slots: ``test_torch_gpu.py``): a static offset
-    itself, a tensor's bound, every pair (``n_kv - 1``) with neither or
-    without a causal mask."""
+    """The bound the fused kernel reads each offset no higher than: a
+    static offset itself, a tensor's bound, every column (``n_kv - 1``)
+    with neither or without a causal mask."""
     t = torch.zeros(2, dtype=torch.int32)
     assert fb.fused_offset_bound(None, None, 2048, 2048, True) == 0
     assert fb.fused_offset_bound(None, None, 512, 2048, True) == 1536
@@ -200,8 +211,7 @@ def test_workspace_counts():
 
 def test_fused_bwd_reads_offsets_no_higher_than_the_bound():
     """With ``q_offset_max`` each entry of a tensor offset is read no higher
-    than it (as the kernel reads it, so its packed workspace never
-    overflows); a bound that holds changes nothing.  An entry the host can
+    than it (as the kernel reads it); a bound that holds changes nothing.  An entry the host can
     read above the bound raises instead (the clamp is what a CUDA tensor's
     entries get, which the host does not read): the plain version's clamp
     is checked directly."""

@@ -513,6 +513,8 @@ LADDER_FWD_CASES = {
     "naive_causal": ("naive", (2, 2, 300, 64), (2, 2, 300, 64), dict(causal=True)),
     "naive_ragged": ("naive", (2, 2, 130, 64), (2, 2, 257, 64), dict()),
     "naive_causal_kv_longer": ("naive", (1, 2, 64, 64), (1, 2, 100, 64), dict(causal=True)),
+    # rows 0-169 see no column: mean(V), and whole Q tiles walk all of K
+    "naive_causal_q_longer": ("naive", (2, 2, 300, 64), (2, 2, 130, 64), dict(causal=True)),
     "lean_gqa": ("flash_lean", (2, 4, 130, 64), (2, 2, 300, 64), dict(save_lse=True)),
     "lean_causal_off170": ("flash_lean", (2, 4, 130, 64), (2, 2, 300, 64),
                            dict(causal=True, q_offset=170, save_lse=True)),
@@ -599,6 +601,23 @@ def test_tri_bwd_is_deterministic(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", sorted(c for c in LADDER_FWD_CASES if c.startswith("naive")))
+def test_naive_spike_matches_plain(cuda, case, dtype):
+    """Naive on the spike fixture (one column scored far above the rest,
+    past exp's range unless the max is the whole row's): a partial row
+    max overflows there, where the ladder and peaked fixtures hide it."""
+    _, shape_q, shape_kv, kw = LADDER_FWD_CASES[case]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    qkv = onchip.spike_inputs(shape_q, shape_kv, dtype, gen, col=shape_kv[2] - 10)
+    before = nv.naive_attention.launches
+    err, _ = onchip.ladder_fwd_error("naive", qkv, kw)
+    assert nv.naive_attention.launches == before + 1
+    assert err <= TOL[dtype], err
+
+
 def _ladder_fault_errors(kernel, gen):
     """The worst error over chip_smoke.py's cases of one ladder kernel at
     reduced batch, with the check's tolerance."""
@@ -610,7 +629,8 @@ def _ladder_fault_errors(kernel, gen):
                              for _, rel in onchip.tri_bwd_errors(cases[n]).values()])), BWD_TOL[bf16]
     shp = onchip.SWEEP_1024
     cases = {
-        "naive": [(f32, onchip.ladder_inputs(shp, shp, f32, gen), dict(causal=True))],
+        "naive": [(f32, onchip.ladder_inputs(shp, shp, f32, gen), dict(causal=True)),
+                  (f32, onchip.spike_inputs(shp, shp, f32, gen), {})],
         "flash_lean": [(bf16, onchip.ladder_inputs(shp, shp, bf16, gen), dict(save_lse=True)),
                        (bf16, onchip.spike_inputs(shp, shp, bf16, gen), dict(save_lse=True))],
         "flash_tri": [(bf16, onchip.ladder_inputs((2, 8, 2048, 64), (2, 8, 2048, 64), bf16, gen),
@@ -625,8 +645,15 @@ def _ladder_fault_errors(kernel, gen):
 # header it includes), module, its bind function, kernel, text,
 # replacement).
 PLANTED_LADDER_FAULTS = {
-    # causal test c < r in place of c <= r: the diagonal is masked
-    "naive_diagonal_masked": ("naive.cu", nv, nv.bind, "naive", "c <= limit", "c < limit"),
+    # causal test c >= limit in place of c > limit: the diagonal is masked
+    "naive_diagonal_masked": ("naive.cu", nv, nv.bind, "naive", "causal && c > row_limit[a]",
+                              "causal && c >= row_limit[a]"),
+    # pass 1's row max over the first KV tile only (the spike fixture
+    # overflows expf)
+    "naive_max_first_tile": ("naive.cu", nv, nv.bind, "naive",
+                             "for (int b = 0; b < 4; ++b) m[a] = fmaxf(m[a], sc[a][b]);",
+                             "for (int b = 0; b < 4; ++b) m[a] = i == 0 ? fmaxf(m[a], sc[a][b]) "
+                             ": m[a];"),
     # lean through the wgmma forward: the running max is the first visible
     # tile's and never rises (the spike fixture overflows exp2)
     "lean_max_first_tile": (("flash_lean.cu", "flash_fwd_sm90.cuh"), ff, ff.bind_lean, "flash_lean",
@@ -1041,7 +1068,7 @@ def test_v1_rejects_what_it_does_not_take(cuda):
         # ragged n_q and n_kv, GQA 2, per-batch offsets, an lse cotangent
         dict(b=2, hq=4, hkv=2, n_q=130, n_kv=300, off=[0, 170], causal=True),
         dict(b=2, hq=4, hkv=2, n_q=130, n_kv=300, off=[0, 0], causal=False),
-        # GQA 4 (the dK/dV block walks four q-heads, each with its slots)
+        # GQA 4 (the block walks four q-heads, each adding its own dQ rows)
         dict(b=1, hq=8, hkv=2, n_q=256, n_kv=256, off=[0], causal=True),
         # rows and a whole Q tile that see nothing: zero gradients, no NaN
         dict(b=1, hq=2, hkv=1, n_q=128, n_kv=128, off=[-70], causal=True),
@@ -1080,28 +1107,57 @@ def test_fused_bwd_matches_plain(cuda, dtype, case):
         assert torch.all(got[0][:, :, :70] == 0)
 
 
+def _fused_runs(inputs, n):
+    """``n`` fused backward runs on the same inputs (their bound: the
+    largest offset), each a tuple of (dq, dk, dv)."""
+    q, k, v, o, do, lse, off = inputs
+    bound = int(off.max())
+    return [fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True,
+                                         q_offset_max=bound) for _ in range(n)]
+
+
+def _deterministic_inputs(gen):
+    """The training shape (GQA 16 / 8), peaked, with a different device
+    offset per batch."""
+    q, k, v, do, _ = onchip.train_cases(gen)["train_bf16_peaked"]
+    off = torch.tensor([0, 64, 100, 1000], dtype=torch.int32, device="cuda")
+    return onchip.bwd_inputs((q, k, v, do, off))
+
+
 @pytest.mark.gpu
 def test_fused_bwd_is_deterministic(cuda):
-    """Each dK/dV tile has one owner block, each dQ slot one writer, and the
-    slots are summed in KV-tile order: two runs give identical bits."""
+    """Each dK/dV tile has one owner block, and the KV tiles add to each dQ
+    row in KV-tile order, held by the counters: five runs give identical
+    bits (GQA, per-batch device offsets)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
-    q, k, v, o, do, lse, off = onchip.bwd_inputs(onchip.train_cases(gen)["train_bf16_peaked"])
-    first = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True)
-    second = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, off, causal=True)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    runs = _fused_runs(_deterministic_inputs(gen), 5)
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
 
 
-# Faults planted in a copy of csrc/flash_bwd.cu, or of the dQ slot header
-# it includes, that only the fused path runs: (file, text, replacement).
+# Faults planted in a copy of csrc/ that only the fused path runs:
+# (file, text, replacement).  The kernel is built for head dims 64 and 128;
+# the check runs the training shape at 64.
 PLANTED_FUSED_FAULTS = {
-    # each Q tile's last visible dQ partial (the diagonal's) left out
-    "dq_partial_dropped": ("dq_slots.cuh", "for (int j = 0; j < n_slots; ++j)",
-                           "for (int j = 0; j < n_slots - 1; ++j)"),
+    # the last KV tile's dQ contribution (the diagonal's) left out of the sum
+    "dq_partial_dropped": ("dq_ordered.cuh", "rank > 0 ? plus(sum[u], p.x) : p.x",
+                           "rank > 0 ? sum[u] : p.x"),
     # dK stored without sm_scale on the fused path
-    "dk_unscaled": ("flash_bwd.cu", "dk[at + j] = from_float<T>(dk_reg[j] * sm_scale);",
-                    "dk[at + j] = from_float<T>(kFused ? dk_reg[j] : dk_reg[j] * sm_scale);"),
+    "dk_unscaled": ("flash_bwd_fused_sm90.cuh",
+                    "store_row<D>(dk + (kv_rows + c) * D, dk_acc, half, sm_scale, t);",
+                    "store_row<D>(dk + (kv_rows + c) * D, dk_acc, half, 1.0f, t);"),
+    # the dQ fragment staged with its q-row and head-dim indices swapped
+    "dqt_store_transposed": (
+        "flash_bwd_fused_sm90.cuh",
+        "*reinterpret_cast<float2*>(&tile[r * kDqPitch + j * 8 + 2 * t]) =\n"
+        "                make_float2(dqt[0][4 * j + 2 * h], dqt[0][4 * j + 2 * h + 1]);",
+        "tile[(j * 8 + 2 * t) * kDqPitch + r] = dqt[0][4 * j + 2 * h];\n"
+        "            tile[(j * 8 + 2 * t + 1) * kDqPitch + r] = dqt[0][4 * j + 2 * h + 1];"),
+    # the ordered add without its wait on the counter: tiles add in any order
+    "ordered_add_unwaited": ("flash_bwd_fused_sm90.cuh",
+                             "dq_ordered::load_acquire(cnt) < kv_tile", "false"),
 }
 
 
@@ -1110,7 +1166,8 @@ PLANTED_FUSED_FAULTS = {
 def test_planted_fused_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     """chip_smoke.py's fused-backward check at the training shape passes the
     kernel as built and fails a copy with a planted fault (errors printed
-    with ``-s``)."""
+    with ``-s``): its error exceeds the bound, or, for a fault that only
+    breaks the order of the adds, repeated runs differ."""
     source, old, new = PLANTED_FUSED_FAULTS[fault]
     lib = fb.bind(_planted_library(tmp_path, "flash_bwd.cu", source, old, new))
     gen = torch.Generator(device="cuda")
@@ -1118,16 +1175,28 @@ def test_planted_fused_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault)
     cases = onchip.train_cases(gen)
     names = ("train_bf16", "train_bf16_peaked")
     inputs = {n: onchip.bwd_inputs(cases[n]) for n in names}
-    clean = {n: onchip.bwd_kernel_errors(inputs[n], fused=True) for n in names}
+    gen.manual_seed(onchip.SEED)
+    varied = _deterministic_inputs(gen)
+
+    def check():
+        errs = {n: onchip.bwd_kernel_errors(inputs[n], fused=True) for n in names}
+        runs = _fused_runs(varied, 5)
+        same = all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+        return errs, same
+
+    clean, clean_same = check()
     monkeypatch.setattr(fb, "_lib", lambda: lib)
-    faulty = {n: onchip.bwd_kernel_errors(inputs[n], fused=True) for n in names}
+    faulty, faulty_same = check()
     print(f"\n{fault}, (dq, dk, dv) normalised max-abs error, built -> planted:\n" + "\n".join(
         f"  {n}: " + ", ".join(f"{g} {clean[n][g][1]:.3e} -> {faulty[n][g][1]:.3e}" for g in clean[n])
-        for n in names))
+        for n in names) + f"\n  repeated runs identical: {clean_same} -> {faulty_same}")
     tol = BWD_TOL[torch.bfloat16]
     for name in names:
         assert max(rel for _, rel in clean[name].values()) <= tol
-        assert max(rel for _, rel in faulty[name].values()) > tol
+    assert clean_same
+    # np.max, not max(): a NaN error must not hide behind a finite one.
+    worst = float(np.max([rel for n in names for _, rel in faulty[n].values()]))
+    assert not worst <= tol or not faulty_same
 
 
 @pytest.mark.gpu
@@ -1149,28 +1218,32 @@ def test_fused_bwd_rejects_what_it_does_not_take(cuda):
 
 @pytest.mark.gpu
 def test_fused_workspace_holds_the_visible_pairs(cuda):
-    """The packed dQ workspace (csrc/dq_slots.cuh): the library's slot
-    counts at the training shape (528 of 32 x 32 pairs per q-head, causal,
-    offset 0), and on the card every slot allocated at a bound that every
-    batch meets is written; a batch below the bound leaves some unwritten."""
-    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 0, 64) == (4 * 16 * 528, 64, 64)
-    assert fb.dq_workspace_shape(4, 16, 2048, 2048, 2047, 64) == (4 * 16 * 1024, 64, 64)
-    # the first tile sees none
-    assert fb.dq_workspace_shape(1, 2, 128, 128, -70, 128) == (2, 64, 128)
+    """The fused kernel's dQ workspace (csrc/dq_ordered.cuh): what the
+    allocator gives a call is the accumulator and the counters
+    (``fused_workspace_bytes``), whatever the offsets, and on the card the
+    accumulator rows written are those of the Q steps that see two KV tiles
+    or more (a step that sees one writes dQ directly, one that sees none
+    gets zeros)."""
     rng = np.random.default_rng(0)
     q = _uniform(rng, (2, 4, 200, 64), cuda, torch.bfloat16)
     k, v = (_uniform(rng, (2, 2, 300, 64), cuda, torch.bfloat16) for _ in range(2))
+    need = fb.fused_workspace_bytes(q)
+    assert need == 4 * (2 * 4 * 200 * 64 + 1 + 2 * 4 * 7)
+
+    def rows_added(off):
+        # 64-row Q steps: the KV tiles their last row sees
+        return sum(min(64, 200 - s) for s in range(0, 200, 64)
+                   if min(s + 63, 199) + off >= 64)
+
     for offs, bound in (([100, 100], 100), ([0, 100], 100), ([-70, -70], -70)):
         off = torch.tensor(offs, dtype=torch.int32, device=cuda)
         inputs = onchip.bwd_inputs((q, k, v, q, off))
         allocated, written = onchip.fused_workspace_bytes(inputs, bound)
-        slot = 64 * 64 * 4
-        assert allocated == 2 * 4 * fb.dq_workspace_shape(1, 1, 200, 300, bound, 64)[0] * slot
-        if offs[0] == offs[1]:
-            assert written == allocated, (offs, allocated, written)
-        else:
-            per_head = [fb.dq_workspace_shape(1, 1, 200, 300, x, 64)[0] for x in offs]
-            assert written == 4 * sum(per_head) * slot < allocated
+        assert 0 <= allocated - need < 512, (allocated, need)
+        assert written == 4 * sum(rows_added(x) for x in offs) * 64 * 4, (offs, written)
+        got = fb.flash_attention_bwd_fused(*inputs, causal=True, q_offset_max=bound)
+        if offs[0] == -70:
+            assert bool((got[0][:, :, :70] == 0).all())
 
 
 @pytest.fixture
@@ -1217,7 +1290,7 @@ def test_autotune_bwd_on_the_card_sets_the_route(cuda, tuned_cache):
 
 
 # ---------------------------------------------------------------------------
-# Head dim 128 on the forward router's kernels; the fp16 backward.
+# Head dim 128 on the forward router's kernels and naive; the fp16 backward.
 # ---------------------------------------------------------------------------
 
 # (kernel, q shape, kv shape, the wrapper's keywords) at head dim 128:
@@ -1230,6 +1303,7 @@ D128_CASES = {
     "tri_gqa_off170": ("flash_tri", (2, 4, 130, 128), (2, 2, 300, 128),
                        dict(q_offset=170, save_lse=True)),
     "tri_n1024": ("flash_tri", (1, 2, 1024, 128), (1, 2, 1024, 128), dict(save_lse=True)),
+    "naive_ragged_causal": ("naive", (2, 2, 130, 128), (2, 2, 257, 128), dict(causal=True)),
 }
 
 

@@ -62,16 +62,38 @@ def _rel(got: torch.Tensor, want) -> float:
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "n_q,n_kv,causal,d",
-    [(256, 256, False, 64), (256, 256, True, 64), (128, 256, True, 64), (128, 256, True, 128)],
-    ids=["square", "square_causal", "kv_longer_causal", "kv_longer_causal_d128"],
+    [(256, 256, False, 64), (256, 256, True, 64), (128, 256, True, 64), (128, 256, True, 128),
+     # lengths that are not multiples of the CUDA kernel's 64-row tiles
+     (130, 257, False, 64), (130, 257, True, 64), (130, 257, True, 128),
+     # causal with n_q > n_kv: rows 0-126 see no column
+     (257, 130, True, 64)],
+    ids=["square", "square_causal", "kv_longer_causal", "kv_longer_causal_d128",
+         "ragged", "ragged_causal", "ragged_causal_d128", "q_longer_causal"],
 )
 def test_naive_matches_jax(dtype, n_q, n_kv, causal, d):
     (qj, qt), (kj, kt), (vj, vt) = _inputs(0, dtype, (2, 2, n_q, d), (2, 2, n_kv, d),
                                            (2, 2, n_kv, d))
-    want = jax_naive(qj, kj, vj, causal=causal, interpret=True)
+    # One Pallas grid step for the whole row range: n_q need not divide
+    # into the JAX default's 128-row blocks.
+    want = jax_naive(qj, kj, vj, causal=causal, block_q=n_q, interpret=True)
     got = naive_attention(qt, kt, vt, causal=causal)
     assert got.dtype == qt.dtype and got.shape == qt.shape
     assert _diff(got, want.astype(jnp.float32)) < TOL[dtype]
+
+
+def test_naive_rows_that_see_nothing_give_mean_v():
+    """Causal with n_q > n_kv (end-aligned diagonal): rows r < n_q - n_kv
+    see no column, every score takes the mask value, and o is mean(V), as
+    in the JAX kernel; the next row sees column 0 alone and gives v[0]."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(1, "float32", (1, 2, 200, 64), (1, 2, 70, 64),
+                                           (1, 2, 70, 64))
+    got = naive_attention(qt, kt, vt, causal=True)
+    want = jax_naive(qj, kj, vj, causal=True, block_q=200, interpret=True)
+    blind = 200 - 70
+    assert _diff(got[:, :, :blind], np.broadcast_to(np.asarray(vj).mean(axis=2, keepdims=True),
+                                                    (1, 2, blind, 64))) < TOL["float32"]
+    assert _diff(got[:, :, blind], np.asarray(vj)[:, :, 0]) < TOL["float32"]
+    assert _diff(got, want) < TOL["float32"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
