@@ -28,7 +28,9 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   and spike fixtures, head dim 64 and 128);
 * the kernel ladder: the naive, lean and triangular forward kernels and
   the triangular backward against their plain versions at the benchmark's
-  and the verification ladder's shapes, the port's verification ladder at
+  and the verification ladder's shapes (the triangular backward also
+  bit-identical over repeated runs, and its dQ workspace the fused
+  kernel's O(B H N D) one), the port's verification ladder at
   n = 1024 (every ported rung must pass) and a short benchmark (N = 128,
   1024, 4096 and the high-occupancy phase), with each kernel's launches
   over these two runs.  The full sweep is its own command:
@@ -1149,6 +1151,14 @@ def main() -> int:
               f"{tuple(inputs[1].shape)} offset {inputs[6]}: "
               + ", ".join(f"{g} max_abs {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items())
               + f" (tol rel {tol})")
+        if inputs[0].dtype == torch.bfloat16 and name != "tri_bwd_bf16_b16h8n2048":
+            # Deterministic: the KV tiles add to each dQ row in KV-tile order.
+            runs = [ft.flash_attention_bwd_tri(*inputs[:6], q_offset=inputs[6])
+                    for _ in range(3)]
+            check(all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run)),
+                  f"{name}: repeated triangular backward runs differ")
+            print(f"[ladder-kernel] {name} (flash_tri_bwd): 3 runs bit-identical")
+            del runs
     torch.cuda.empty_cache()
 
     # 12. The slice's path: the verification ladder, then a short benchmark,
@@ -1229,6 +1239,18 @@ def main() -> int:
         onchip.sdpa_ms(qo, ko, vo, causal=True, backward_of=doo), 10 * d_ * tri_pairs,
         5 * nb(qo) + nb(lseo) + nb(qo) + 4 * qo.numel() * 2, 16,
         "high occupancy B16 H8 N2048 bf16 causal", spec)
+    # The triangular backward's dQ workspace is the fused kernel's: the fp32
+    # accumulator and its counters, O(B H N D), whatever the offset.
+    ws_alloc, ws_written = onchip.tri_workspace_bytes((qo, ko, vo, oo, doo, lseo, 0))
+    ws_need = fb.fused_workspace_bytes(qo)
+    check(0 <= ws_alloc - ws_need < 512 and 0 < ws_written <= 4 * qo.numel(),
+          f"triangular dQ workspace: {ws_alloc} bytes allocated (accumulator and counters: "
+          f"{ws_need}), {ws_written} bytes of the accumulator written")
+    rec["flash_tri_bwd"].update(workspace_bytes_allocated=ws_alloc,
+                                workspace_bytes_written=ws_written)
+    print(f"[time] kernel flash_tri_bwd at high occupancy: dQ workspace {ws_alloc} bytes "
+          f"allocated, {ws_written} bytes of the accumulator written (the fused kernel's at "
+          f"the training shape: {fused['record']['workspace_bytes_allocated']}) {stamp}")
     del qo, ko, vo, doo, oo, lseo
     torch.cuda.empty_cache()
 
@@ -1334,9 +1356,10 @@ def main() -> int:
     lean_rec.update({"max_abs_err_fp32": ladder_err("flash_lean", torch.float32),
                      **{f"{key}_n128": lean_128[key] for key in (
                          "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}})
-    tri_rec = ladder_record("flash_tri", "flash_tri.cu",
+    tri_rec = ladder_record("flash_tri", "flash_fwd_sm90.cuh",
                             "flash_attention_metal_tpu/kernels/flash_tri.py:50", "flash_tri")
-    tri_rec["max_abs_err_fp32"] = ladder_err("flash_tri", torch.float32)
+    tri_rec.update(entry="flash_attention_metal_tpu_torch/csrc/flash_tri.cu",
+                   max_abs_err_fp32=ladder_err("flash_tri", torch.float32))
     record = {
         "kernels": [with_d128(r) for r in [{
             "name": "flash_fwd",
@@ -1369,13 +1392,16 @@ def main() -> int:
             {
                 "name": "flash_tri_bwd",
                 "route": "cuda",
-                "source": "flash_attention_metal_tpu_torch/csrc/flash_tri.cu",
+                "source": "flash_attention_metal_tpu_torch/csrc/flash_bwd_fused_sm90.cuh",
+                "entry": "flash_attention_metal_tpu_torch/csrc/flash_tri.cu",
                 "replaces": "flash_attention_metal_tpu/kernels/flash_tri.py:431",
                 "launches": slice_launches["flash_tri_bwd"],
                 "max_abs_err": max(e[g][0] for e in bf16_tri_bwd for g in e),
                 "max_rel_err": max(e[g][1] for e in bf16_tri_bwd for g in e),
                 "max_rel_err_fp32": max(r for _, r in tri_bwd_errors["tri_bwd_fp32_n1024"].values()),
                 **times_of("flash_tri_bwd"),
+                "workspace_bytes_allocated": rec["flash_tri_bwd"]["workspace_bytes_allocated"],
+                "workspace_bytes_written": rec["flash_tri_bwd"]["workspace_bytes_written"],
             },
             *kv["records"],
             fused["record"],

@@ -8,8 +8,8 @@
 // step's rows only once the counter reads j (KV tiles 0 .. j - 1 have
 // added), then releases it as j + 1.  So each dQ element is
 // ((s_0 + s_1) + s_2) + ..., summed in KV-tile order whatever the blocks'
-// timing: the same bits on every run, in the order the slot reduce
-// (dq_slots.cuh) sums.  The first KV tile stores, the middle ones add in
+// timing: the same bits on every run.  The first KV tile stores, the
+// middle ones add in
 // L2 (red.global.add: the turn orders them, the atomic only spares a
 // read), and the last one a step sees reads the sum, adds its own, scales
 // by sm_scale and writes dQ in q's dtype, so a step that sees one KV tile
@@ -30,10 +30,15 @@
 // running: no wait depends on the hardware's launch order.
 //
 // Bytes: the accumulator is N_q * D * 4 per q-head (33.5 MB at the training
-// shape, D = 64), where the slots of the triangular backward grow with the
-// visible pairs (N^2).  The adds still move one 64 x D fp32 tile per
-// visible pair, but into a working set the H100's 50 MB L2 can hold,
-// where the slots were written to HBM and read back by a second kernel.
+// shape, D = 64), whatever the offset or n_kv.  The first design (one
+// 64 x D fp32 slot per visible (Q tile, KV tile) pair, summed by a second
+// kernel) grew with the visible pairs, N^2: 1.1 GB at B16 H8 N2048 D64,
+// written to HBM and read back.  The adds still move one 64 x D fp32 tile
+// per visible pair, but into a working set the H100's 50 MB L2 can hold.
+//
+// Users: the fused backward (flash_bwd.cu: the bf16 kernel of
+// flash_bwd_fused_sm90.cuh and the fp32 template) and the triangular
+// backward (flash_tri.cu), which launches the same kernels.
 
 #pragma once
 
@@ -48,6 +53,31 @@ namespace {
 namespace dq_ordered {
 
 constexpr int kRows = 32;  // query rows per counter
+constexpr int kTile = 64;  // rows of a Q tile and of a KV tile (the visibility helpers)
+
+// Visibility: row r sees column c when c < n_kv and c <= r + off, with off
+// a static int (the triangular backward), or per batch on the device and
+// read no higher than the host's bound (batch_offset); no causal mask is
+// off = n_kv - 1.
+
+// Last column row `row` sees (-1: none, also for padding rows).
+__host__ __device__ __forceinline__ int last_visible(int row, int n_q, int n_kv, int off) {
+  if (row >= n_q) return -1;
+  return row + off < n_kv - 1 ? row + off : n_kv - 1;
+}
+
+// KV tiles that Q tile i sees: tiles 0 .. visible_kv_tiles - 1.
+__host__ __device__ __forceinline__ int visible_kv_tiles(int i, int n_q, int n_kv, int off) {
+  const int last_row = (i + 1) * kTile < n_q ? (i + 1) * kTile - 1 : n_q - 1;
+  const int limit = last_visible(last_row, n_q, n_kv, off);
+  return limit < 0 ? 0 : limit / kTile + 1;
+}
+
+// Batch b's offset: q_offset[b] read no higher than off_bound, or
+// off_bound itself when q_offset is null.
+__device__ __forceinline__ int batch_offset(const int* q_offset, int b, int off_bound) {
+  return q_offset == nullptr ? off_bound : min(q_offset[b], off_bound);
+}
 
 // The counters' layout: [0] the ticket, then per (batch x q-head, 32-row
 // chunk), chunk-fastest.

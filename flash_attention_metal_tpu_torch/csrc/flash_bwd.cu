@@ -5,7 +5,9 @@
 // flash_bwd.py: _dkv_kernel (dK, dV over KV tiles) and _dq_kernel (dQ over
 // Q tiles), which the training step reaches through flash_attention_bwd; and
 // _fused_bwd_kernel (flash_attention_bwd_fused), which the backward router
-// takes where the autotuner's saved decision names it.  bf16 runs the
+// takes where the autotuner's saved decision names it (the triangular
+// backward's entry, flash_tri.cu, launches the fused kernels too: bf16
+// through the header, fp32 through fam_flash_bwd_fused).  bf16 runs the
 // Hopper kernels: the split pair of flash_bwd_sm90.cuh and the fused kernel
 // of flash_bwd_fused_sm90.cuh (wgmma with register A operands, a cp.async
 // ring).  fp32 (and fp16, which the wrapper runs in fp32) runs the WMMA/FMA
@@ -62,18 +64,17 @@
 #include <stdint.h>
 
 #include "dq_ordered.cuh"
-#include "dq_slots.cuh"
 #include "flash_bwd_fused_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
 #include "wmma_tiles.cuh"
 
 namespace {
 
-static_assert(kTile == dq_slots::kTile, "the visibility helpers count 64-row tiles");
+static_assert(kTile == dq_ordered::kTile, "the visibility helpers count 64-row tiles");
 static_assert(kTile % dq_ordered::kRows == 0, "a Q tile owns whole dQ counters");
-using dq_slots::batch_offset;
-using dq_slots::last_visible;
-using dq_slots::visible_kv_tiles;
+using dq_ordered::batch_offset;
+using dq_ordered::last_visible;
+using dq_ordered::visible_kv_tiles;
 
 // fp32.  One block per (KV tile, KV head, batch): dK and dV of the tile,
 // summed over the group's q-heads and their visible Q tiles.  kFused:
@@ -300,7 +301,7 @@ template <int D>
 cudaError_t launch_fused(const Args& a, int dtype, int off_bound, void* dk, void* dv, void* dq,
                          float* dq_acc, int* counters) {
   if (dtype == 1) return launch_dkv<float, D, true>(a, off_bound, dk, dv, dq, dq_acc, counters);
-  return sm90::launch_fused<D>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.offsets(),
+  return sm90::launch_fused<D, bf16>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.offsets(),
                                a.bound(off_bound), dk, dv, dq, dq_acc, counters, a.batch,
                                a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.stream);
 }

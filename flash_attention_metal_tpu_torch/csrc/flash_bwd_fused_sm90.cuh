@@ -1,14 +1,21 @@
 // The fused 5-matmul backward redesigned for Hopper (sm_90a), bf16, head dim
 // 64 or 128.  Included by flash_bwd.cu, whose C entry fam_flash_bwd_fused
-// launches it for bf16 and the WMMA/FMA template there for fp32.
+// launches it for bf16 (dK and dV stored in bf16) and the WMMA/FMA template
+// there for fp32; and by flash_tri.cu, whose C entry fam_flash_tri_bwd
+// launches it for bf16 with one int offset and dK and dV stored in fp32.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_bwd.py::_fused_bwd_kernel
 // (flash_attention_bwd_fused), which the backward router takes where the
-// autotuner's saved decision names it.  The contract is flash_bwd.cu's:
-// native GQA with dK/dV summed over the group in fp32 inside the block,
-// per-batch device offsets read no higher than the host's bound, the lse
-// sentinel, P and dS rounded to bf16 before their products, dQ summed over
-// KV tiles in KV-tile order and then scaled, deterministic.
+// autotuner's saved decision names it, and flash_tri.py::_tri_bwd_kernel
+// (flash_attention_bwd_tri), the router's default for causal calls with a
+// static offset and equal head counts: both compute S and P once per
+// visible pair for dQ, dK and dV.  The contract is flash_bwd.cu's: native
+// GQA with dK/dV summed over the group in fp32 inside the block, per-batch
+// device offsets read no higher than the host's bound (or one int offset),
+// the lse sentinel, P and dS rounded to bf16 before their products, dQ
+// summed over KV tiles in KV-tile order and then scaled, deterministic.
+// The fp32 sums of dK and dV are stored in TKV: bf16 for the fused entry,
+// fp32 for the triangular one (the Pallas kernel's output type).
 //
 // What bounds it on the H100.  At the training shape (q [4,16,2048,64],
 // kv [4,8,2048,64], causal) the five products are ~86 GFLOP of visible
@@ -118,14 +125,15 @@ struct FusedSmem {
 // from counters[0]: dK and dV of the tile over the group's q-heads and
 // their visible Q steps, and each step's dQ contribution added to dq_acc in
 // KV-tile order.  Consumer warp w owns KV rows 16w..16w+15 of S^T, dP^T, dK
-// and dV.  q_offset null: every column visible (off_bound = n_kv - 1).
-template <int D>
+// and dV.  q_offset null: off_bound is every batch's offset (n_kv - 1: every
+// column visible).  dK and dV are stored in TKV (bf16 or float).
+template <int D, typename TKV>
 __global__ void __launch_bounds__(kFusedThreads, 2)
     flash_bwd_fused_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 const int* __restrict__ q_offset, int off_bound,
-                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                TKV* __restrict__ dk, TKV* __restrict__ dv,
                                 bf16* __restrict__ dq, float* __restrict__ dq_acc,
                                 int* __restrict__ counters, int batch, int n_heads,
                                 int n_kv_heads, int n_q, int n_kv, float sm_scale,
@@ -429,10 +437,11 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   }
 }
 
-// q, dout, dq [B, H, N_q, D]; k, v, dk, dv [B, H_kv, N_kv, D]; lse, delta
-// fp32 [B, H, N_q]; q_offset int32 [B] or null; dq_acc fp32 [B, H, N_q, D];
-// counters int32 [dq_ordered::counter_count], zero.
-template <int D>
+// q, dout, dq [B, H, N_q, D]; k, v [B, H_kv, N_kv, D], dk, dv the same in
+// TKV; lse, delta fp32 [B, H, N_q]; q_offset int32 [B] or null (off_bound
+// for every batch); dq_acc fp32 [B, H, N_q, D]; counters int32
+// [dq_ordered::counter_count], zero.
+template <int D, typename TKV>
 cudaError_t launch_fused(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, const int* q_offset, int off_bound,
                          void* dk, void* dv, void* dq, float* dq_acc, int* counters, int batch,
@@ -440,14 +449,14 @@ cudaError_t launch_fused(const void* q, const void* k, const void* v, const void
                          cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(FusedSmem<D>) + kAlign;
-  cudaError_t err = allow_smem(flash_bwd_fused_sm90_kernel<D>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_fused_sm90_kernel<D, TKV>, smem, done);
   if (err != cudaSuccess) return err;
   const int items = (n_kv + kTile - 1) / kTile * batch * n_kv_heads;
-  flash_bwd_fused_sm90_kernel<D><<<items, kFusedThreads, smem, stream>>>(
+  flash_bwd_fused_sm90_kernel<D, TKV><<<items, kFusedThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), q_offset, off_bound, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), static_cast<bf16*>(dq), dq_acc, counters, batch, n_heads,
+      static_cast<const float*>(delta), q_offset, off_bound, static_cast<TKV*>(dk),
+      static_cast<TKV*>(dv), static_cast<bf16*>(dq), dq_acc, counters, batch, n_heads,
       n_kv_heads, n_q, n_kv, sm_scale, sm_scale * kLog2e);
   return cudaGetLastError();
 }

@@ -601,8 +601,9 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The fp32 lean forward (flash_lean.cu's entry): the dense fp32 template
-// with one int causal offset, q_offset, for every batch.
+// The fp32 lean and triangular forward (the entries of flash_lean.cu and
+// flash_tri.cu): the dense fp32 template with one int causal offset,
+// q_offset, for every batch.
 namespace fam {
 cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
                             int batch, int n_heads, int n_kv_heads, int n_q, int n_kv,

@@ -1,14 +1,16 @@
 // The dense bf16 forward redesigned for Hopper (sm_90a), head dim 64 or
 // 128.  Included by flash_fwd.cu (fam_flash_fwd, bf16 with pos_div == 1:
 // the training forward, serving's prefill chunks, the ladder's and bench's
-// general calls) and by flash_lean.cu (fam_flash_lean, bf16).
+// general calls), by flash_lean.cu (fam_flash_lean, bf16) and by
+// flash_tri.cu (fam_flash_tri_fwd, bf16: the bench's causal calls).
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel (the
-// general kernel, a per-batch device offset) and ::_fwd_kernel_lean (the
+// general kernel, a per-batch device offset), ::_fwd_kernel_lean (the
 // whole KV row of n_kv <= 1024 in one block, an int offset given at
-// launch): one function, so one kernel serves both, each entry with its
-// own launch.  Lean's exact two-pass softmax becomes the online one here,
-// which changes only rounding.
+// launch) and flash_tri.py::_tri_kernel (causal, an int offset given at
+// launch, any n_kv): one function, so one kernel serves all three, each
+// entry with its own launch.  Lean's exact two-pass softmax becomes the
+// online one here, which changes only rounding.
 //
 // Contract, for batch b, q-head h (KV head h / group) and query row r:
 //   o[b,h,r] = softmax_c(sm_scale * q[b,h,r] . k[c]) . v

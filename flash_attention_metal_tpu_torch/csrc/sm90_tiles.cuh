@@ -275,6 +275,17 @@ __device__ __forceinline__ void store_row(bf16* dst, const float (&acc)[D / 2], 
   }
 }
 
+// The same rows in fp32 (float2 stores).
+template <int D>
+__device__ __forceinline__ void store_row(float* dst, const float (&acc)[D / 2], int half,
+                                          float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<float2*>(dst + j * 8 + 2 * t) =
+        make_float2(acc[4 * j + 2 * half] * scale, acc[4 * j + 2 * half + 1] * scale);
+  }
+}
+
 // The block's shared memory, 1024-byte aligned (the swizzle atoms').
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((kAlign - (smem_addr(raw) & (kAlign - 1))) & (kAlign - 1));

@@ -1,5 +1,5 @@
-// Tile products of the first-generation kernels (flash_mask.cu, flash_tri.cu
-// and the fused and fp32 backward of flash_bwd.cu): 64-row tiles in padded
+// Tile products of the first-generation kernels (flash_mask.cu and the fp32
+// split pair and fused backward of flash_bwd.cu): 64-row tiles in padded
 // shared memory, 128 threads, bf16 products on the tensor cores through WMMA
 // 16x16x16 fragments with fp32 accumulators, fp32 products in IEEE FMA
 // (never TF32), head dim D = 64 or 128.
@@ -145,11 +145,10 @@ __device__ __forceinline__ void mma_atb_bf16(Acc (&acc)[D / 16], const bf16* x, 
   }
 }
 
-// The warp's 16 rows of a [64][D] accumulator into an fp32 tile of pitch ld
-// (kLdS: a staged output; D: a dQ workspace slot).
+// The warp's 16 rows of a [64][D] accumulator into a staged fp32 tile.
 template <int D>
-__device__ __forceinline__ void store_acc(float* out, Acc (&acc)[D / 16], int warp,
-                                          int ld = Cfg<bf16, D>::kLdS) {
+__device__ __forceinline__ void store_acc(float* out, Acc (&acc)[D / 16], int warp) {
+  constexpr int ld = Cfg<bf16, D>::kLdS;
 #pragma unroll
   for (int n = 0; n < D / 16; ++n) {
     wmma::store_matrix_sync(out + warp * 16 * ld + n * 16, acc[n], ld, wmma::mem_row_major);

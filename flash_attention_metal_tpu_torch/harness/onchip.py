@@ -15,8 +15,9 @@ and splits their wall time into device-busy time, by kernel, and idle time
 ``profile train`` does the same for ``Trainer.step`` at the
 ``train_bench.json`` width.  ``kernels`` times the forward kernels (the
 general and lean kernels, folded decode, fp32, the 8-bit and paged
-caches' kernels) and the backward kernels (the split pair in bf16 and
-fp32, the fused kernel) and naive, built from the package's ``csrc/``
+caches' kernels), the backward kernels (the split pair in bf16 and fp32,
+the fused kernel), naive and the triangular forward and backward (with
+the backward's workspace bytes), built from the package's ``csrc/``
 or, with ``--csrc``, through another tree's wrappers and sources: two
 versions compared on one card, in turns.  Every line it prints carries
 the card's name and power limit.
@@ -57,6 +58,7 @@ from ..kernels.flash_tri import (
     flash_attention_bwd_tri_plain,
     flash_attention_tri,
     flash_attention_tri_plain,
+    flash_tri_bwd,
 )
 from ..kernels.flash_v1 import flash_attention_v1, flash_attention_v1_plain, v1_route
 from ..kernels.naive import naive_attention, naive_attention_plain
@@ -218,27 +220,43 @@ def bwd_kernel_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[flo
     return errors
 
 
-def fused_workspace_bytes(inputs: tuple, off_bound: int) -> Tuple[int, int]:
-    """``(allocated, written)`` bytes of the fused kernel's dQ workspace in
-    one call on ``bwd_inputs`` at ``off_bound`` (causal): the allocator's
-    peak over a call less its three outputs, and the accumulator bytes of a
-    NaN-filled workspace that a second call overwrote (a Q step that sees
-    one KV tile writes dQ directly and leaves its rows)."""
-    q, k, v, o, do, lse, off = inputs
-    delta = bwd_delta(o, do, None)
-    kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True, off_bound=off_bound)
+def workspace_bytes(launch: Callable, q: torch.Tensor) -> Tuple[int, int]:
+    """``(allocated, written)`` bytes of a backward's dQ workspace
+    (``dq_workspace_shape``): the allocator's peak over one ``launch()``
+    less the three outputs it returns, and the accumulator bytes of a
+    NaN-filled workspace that ``launch(workspace=...)`` overwrote (a Q step
+    that sees one KV tile writes dQ directly and leaves its rows)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    outputs = flash_bwd_fused(q, k, v, do, lse, delta, off, **kw)
+    outputs = launch()
     torch.cuda.synchronize()
     out_bytes = sum(t.numel() * t.element_size() for t in outputs)
     allocated = torch.cuda.max_memory_allocated() - base - out_bytes
     del outputs
     ws = torch.full(dq_workspace_shape(*q.shape), float("nan"), device=q.device)
-    flash_bwd_fused(q, k, v, do, lse, delta, off, workspace=ws, **kw)
+    launch(workspace=ws)
     written = int((~torch.isnan(ws[:q.numel()])).sum())
     return allocated, written * ws.element_size()
+
+
+def fused_workspace_bytes(inputs: tuple, off_bound: int) -> Tuple[int, int]:
+    """``workspace_bytes`` of the fused kernel on ``bwd_inputs`` at
+    ``off_bound`` (causal)."""
+    q, k, v, o, do, lse, off = inputs
+    delta = bwd_delta(o, do, None)
+    kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True, off_bound=off_bound)
+    return workspace_bytes(
+        lambda **ws: flash_bwd_fused(q, k, v, do, lse, delta, off, **kw, **ws), q)
+
+
+def tri_workspace_bytes(inputs: tuple) -> Tuple[int, int]:
+    """``workspace_bytes`` of the triangular backward on a ``tri_bwd_cases``
+    entry."""
+    q, k, v, o, do, lse, off = inputs
+    delta = bwd_delta(o, do, None)
+    return workspace_bytes(
+        lambda **ws: flash_tri_bwd(q, k, v, do, lse, delta, off, sm_scale=_scale(q), **ws), q)
 
 
 def _fwd_errors(got, want) -> Tuple[float, float]:
@@ -939,15 +957,16 @@ def _kernel_modules(csrc: Optional[str]) -> SimpleNamespace:
     name = pkg.__name__
     mod = lambda m: importlib.import_module(f"{name}.kernels.{m}")  # noqa: E731
     return SimpleNamespace(ff=mod("flash_fwd"), fb=mod("flash_bwd"), qt=mod("quant"),
-                           pg=mod("paged"), nv=mod("naive"))
+                           pg=mod("paged"), nv=mod("naive"), ft=mod("flash_tri"))
 
 
-def kernel_times(csrc: Optional[str] = None) -> Dict[str, float]:
-    """Device ms of the forward, backward and naive kernels at their paths'
-    shapes, through this package's wrappers or, with ``csrc``, through the
-    wrappers and the sources of the tree that directory belongs to (e.g. an
-    earlier tree unpacked under ``_scratch/``): two versions compared on one
-    card, in turns.
+def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str, int]]:
+    """``(ms, bytes)``: device ms of the forward, backward, naive and
+    triangular kernels at their paths' shapes, through this package's
+    wrappers or, with ``csrc``, through the wrappers and the sources of the
+    tree that directory belongs to (e.g. an earlier tree unpacked under
+    ``_scratch/``): two versions compared on one card, in turns; and the
+    triangular backward's workspace at the high-occupancy shape.
 
     The forward: the general kernel at the training shape (``TRAIN_Q``,
     causal, with its lse) and the prefill chunk (offset 512) at head dim 64
@@ -957,8 +976,13 @@ def kernel_times(csrc: Optional[str] = None) -> Dict[str, float]:
     paged and paged-quant (int8) kernels at folded decode.  Naive in fp32
     at the sweep's N = 1024 (plain and causal), N = 128 and N = 1024 at
     head dim 128.  The backward: dK/dV, dQ and the fused kernel in bf16 at
-    the training shape (D 64 and 128) and in fp32 at ``TRAIN_FP32_Q``.
-    Every input is the ladder fixture.
+    the training shape (D 64 and 128) and in fp32 at ``TRAIN_FP32_Q``.  The
+    triangular forward (with its lse) and backward, each through its
+    wrapper (the backward's delta op included), in bf16 at ``HIGH_OCC``
+    and ``TRI_D128`` and in fp32 at ``LADDER``.  Every input is the ladder
+    fixture.  The workspace: the allocator's peak over one backward call at
+    ``HIGH_OCC`` less its outputs and delta (fp32 ``[B, H, N]``), which at
+    that shape outweigh the delta op's fp32 temporaries in either tree.
     """
     m = _kernel_modules(csrc)
     ff, fb = m.ff, m.fb
@@ -1023,7 +1047,26 @@ def kernel_times(csrc: Optional[str] = None) -> Dict[str, float]:
                 lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw))
         times[f"fused_{tag}"] = device_ms(lambda: fb.flash_attention_bwd_fused(
             q, k, v, o, do, lse, off, q_offset_max=0, **kw))
-    return times
+    nbytes = {}
+    for tag, shape, dtype in (("bf16_b16h8n2048", HIGH_OCC, bf16), ("bf16_d128", TRI_D128, bf16),
+                              ("fp32_n1024", LADDER, f32)):
+        q, k, v = ladder_inputs(shape, shape, dtype, gen)
+        do = ladder_inputs(shape, shape, dtype, gen)[0]
+        times[f"tri_fwd_{tag}"] = device_ms(
+            lambda: m.ft.flash_attention_tri(q, k, v, save_lse=True))
+        o, lse = m.ft.flash_attention_tri(q, k, v, save_lse=True)
+        times[f"tri_bwd_{tag}"] = device_ms(
+            lambda: m.ft.flash_attention_bwd_tri(q, k, v, o, do, lse))
+        if shape == HIGH_OCC:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            grads = m.ft.flash_attention_bwd_tri(q, k, v, o, do, lse)
+            torch.cuda.synchronize()
+            held = sum(t.numel() * t.element_size() for t in grads) + 4 * lse.numel()
+            nbytes[f"tri_bwd_workspace_{tag}"] = torch.cuda.max_memory_allocated() - base - held
+            del grads
+    return times, nbytes
 
 
 def main(argv=None) -> int:
@@ -1040,8 +1083,9 @@ def main(argv=None) -> int:
         return 1
     stamp = serving.nvidia_smi_line()
     if args.what == "kernels":
-        print(json.dumps({"csrc": args.csrc or "package", "card": stamp,
-                          "ms": kernel_times(args.csrc)}))
+        ms, nbytes = kernel_times(args.csrc)
+        print(json.dumps({"csrc": args.csrc or "package", "card": stamp, "ms": ms,
+                          "bytes": nbytes}))
         return 0
     if args.what == "sweep":
         sweep(stamp)

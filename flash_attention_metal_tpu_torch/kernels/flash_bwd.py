@@ -28,8 +28,9 @@ split pair; otherwise the autotuner's saved decision for the shape
 only when that file exists) wins, a ``"tri"`` decision only where the
 triangular kernel applies; with no decision, plain causal calls with equal
 head counts, a static offset (None or an int), ``pos_div == 1`` and no fp16
-go to the fused triangular kernel (``flash_tri.flash_attention_bwd_tri``),
-everything else to the split pair.  The JAX dispatcher also asks
+go to the triangular backward (``flash_tri.flash_attention_bwd_tri``: the
+fused kernel given one int offset, dK and dV in fp32), everything else to
+the split pair.  The JAX dispatcher also asks
 ``tri_bwd_heuristic`` (N a multiple of 512, N <= 4096, an unroll budget):
 v5e tile measurements and Mosaic compile limits, not carried.
 
@@ -195,6 +196,25 @@ def dq_workspace_shape(batch: int, heads: int, n_q: int, head_dim: int) -> tuple
     return (batch * heads * n_q * head_dim + dq_counter_count(batch, heads, n_q),)
 
 
+def dq_workspace(q: torch.Tensor, workspace: Optional[torch.Tensor] = None) -> tuple:
+    """``(workspace, args)``: the dQ workspace for ``q`` (fp32 of
+    ``dq_workspace_shape``) and the arguments the fused and the triangular
+    backward's C entries take for it (accumulator pointer, counters pointer,
+    counter count).  ``workspace`` is allocated here when None (a caller's
+    shows which accumulator elements a kernel wrote); its counters are
+    zeroed here.  The caller holds it until the launch."""
+    batch, heads, n_q, head_dim = q.shape
+    shape = dq_workspace_shape(batch, heads, n_q, head_dim)
+    if workspace is None:
+        workspace = torch.empty(shape, dtype=torch.float32, device=q.device)
+    elif (workspace.shape != shape or workspace.dtype != torch.float32
+          or workspace.device != q.device or not workspace.is_contiguous()):
+        raise ValueError(f"workspace must be a contiguous fp32 {shape} tensor on {q.device}")
+    n_acc = batch * heads * n_q * head_dim
+    workspace[n_acc:].zero_()  # the counters: int32 zero is fp32 +0.0's bits
+    return workspace, (workspace.data_ptr(), workspace.data_ptr() + 4 * n_acc, shape[0] - n_acc)
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the backward entry points' C signatures on a library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -263,23 +283,12 @@ def flash_bwd_fused(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bo
                     off_bound: int, workspace: Optional[torch.Tensor] = None):
     """``(dq, dk, dv)`` from the fused kernel, one launch (CUDA tensors,
     checked by the caller).  ``off_bound``: ``fused_offset_bound``.
-    ``workspace``: fp32 of ``dq_workspace_shape``, allocated here when
-    None (a caller's shows which accumulator elements the kernel wrote);
-    its counters are zeroed here."""
+    ``workspace``: see ``dq_workspace``."""
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    batch, heads, n_q, head_dim = q.shape
-    shape = dq_workspace_shape(batch, heads, n_q, head_dim)
-    if workspace is None:
-        workspace = torch.empty(shape, dtype=torch.float32, device=q.device)
-    elif (workspace.shape != shape or workspace.dtype != torch.float32
-          or workspace.device != q.device or not workspace.is_contiguous()):
-        raise ValueError(f"workspace must be a contiguous fp32 {shape} tensor on {q.device}")
-    n_acc = batch * heads * n_q * head_dim
-    workspace[n_acc:].zero_()  # the counters: int32 zero is fp32 +0.0's bits
+    workspace, ws_args = dq_workspace(q, workspace)
     err = _lib().fam_flash_bwd_fused(
         *_inputs(q, k, v, do, lse, delta, off), dk.data_ptr(), dv.data_ptr(), dq.data_ptr(),
-        workspace.data_ptr(), workspace.data_ptr() + 4 * n_acc, shape[0] - n_acc, off_bound,
-        *_shape_args(q, k, sm_scale, causal),
+        *ws_args, off_bound, *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd fused kernel launch failed: cudaError_t {err}")

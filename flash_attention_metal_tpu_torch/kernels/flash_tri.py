@@ -4,12 +4,16 @@ wrappers and their plain versions.
 Counterpart of ``flash_attention_metal_tpu/kernels/flash_tri.py``: the
 forward ``flash_attention_tri`` and the fused backward
 ``flash_attention_bwd_tri``, which the JAX routers take for plain causal
-calls whose offset is a Python int.  ``csrc/flash_tri.cu`` computes both;
-the offset is a launch argument, so each q tile's visible extent is known
-when the grid is issued (heaviest tile first, mask compares only on tiles
-that straddle the diagonal).  The backward computes dQ, dK and dV from one
-recompute of S and P per visible tile pair; dK and dV come back fp32, as
-the Pallas kernel's do.
+calls whose offset is a Python int.  ``csrc/flash_tri.cu`` holds their C
+entries; the kernels are the general paths' own, given the offset as an
+int at launch.  The forward (bf16) is the ``wgmma`` kernel of
+``csrc/flash_fwd_sm90.cuh``, which the general and lean forwards run too:
+heaviest Q tile first, mask compares only on tiles that straddle the
+diagonal.  The backward (bf16) is the fused ``wgmma`` kernel of
+``csrc/flash_bwd_fused_sm90.cuh``: dQ, dK and dV from one recompute of S
+and P per visible tile pair, dQ added to one fp32 accumulator in KV-tile
+order (deterministic), dK and dV stored fp32, as the Pallas kernel's are.
+fp32 runs the FMA templates of ``flash_fwd.cu`` and ``flash_bwd.cu``.
 
 The JAX functions' ``block_q``, ``block_k`` and ``pv_transposed`` choose
 Mosaic tile sizes and a transposed layout for the TPU's 128-wide matrix
@@ -29,9 +33,8 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import default_scale
-from ..utils.roofline import dq_slot_count
 from . import _build
-from .flash_bwd import _plain_p_ds, bwd_delta
+from .flash_bwd import _plain_p_ds, bwd_delta, dq_workspace
 from .flash_fwd import (
     _DTYPE_CODES,
     _check_cuda_inputs,
@@ -39,20 +42,6 @@ from .flash_fwd import (
     check_shapes,
     flash_attention_fwd_plain,
 )
-
-
-# Rows of the triangular backward's Q and KV tiles, and of one dQ slot
-# (csrc/dq_slots.cuh, kTile).
-DQ_SLOT_ROWS = 64
-
-
-def dq_slots_shape(batch: int, heads: int, n_q: int, n_kv: int, off: int,
-                   head_dim: int) -> tuple:
-    """The triangular backward's fp32 dQ workspace (``csrc/dq_slots.cuh``):
-    one ``DQ_SLOT_ROWS`` x ``head_dim`` slot per (batch, head, (Q tile, KV
-    tile) pair visible at offset ``off``) (``roofline.dq_slot_count``; the
-    kernel refuses any other count)."""
-    return (batch * heads * dq_slot_count(n_q, n_kv, off, DQ_SLOT_ROWS), DQ_SLOT_ROWS, head_dim)
 
 
 def _static_offset(q_offset, n_q: int, n_kv: int) -> int:
@@ -115,9 +104,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fam_flash_tri_fwd.restype = ctypes.c_int
     lib.fam_flash_tri_bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, dout, lse, delta
-        ptr, ptr, ptr, ptr,  # dq, dk, dv, dq workspace
+        ptr, ptr, ptr, ptr, ptr, i32,  # dq, dk, dv, dq accumulator, counters, n_counters
         i32, i32, i32, i32, i32,  # batch, heads, n_q, n_kv, head_dim
-        ctypes.c_float, i32, i32, i32,  # sm_scale, q_offset, pairs, dtype
+        ctypes.c_float, i32, i32,  # sm_scale, q_offset, dtype
         ptr,  # stream
     ]
     lib.fam_flash_tri_bwd.restype = ctypes.c_int
@@ -230,18 +219,24 @@ def flash_attention_bwd_tri(
         raise TypeError("do must share q's dtype")
     if lse.dtype != torch.float32 or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be a contiguous fp32 tensor on q's device")
-    delta = bwd_delta(o, do, dlse)
+    return flash_tri_bwd(q, k, v, do, lse, bwd_delta(o, do, dlse), off, sm_scale=sm_scale)
+
+
+def flash_tri_bwd(q, k, v, do, lse, delta, off: int, *, sm_scale: float,
+                  workspace: Optional[torch.Tensor] = None):
+    """``(dq, dk, dv)`` from the triangular backward's one launch (CUDA
+    tensors, checked by the caller; counted on ``flash_attention_bwd_tri``).
+    ``workspace``: the fused kernel's, ``flash_bwd.dq_workspace``: an
+    fp32 dQ accumulator and its counters, whatever ``off`` and ``n_kv``."""
+    batch, heads, n_q, head_dim = q.shape
     dq = torch.empty_like(q)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    # One fp32 64 x head_dim dQ slot per visible (q tile, KV tile) pair and head.
-    ws = torch.empty(dq_slots_shape(batch, heads, n_q, n_kv, off, head_dim),
-                     dtype=torch.float32, device=q.device)
-    pairs = ws.shape[0] // (batch * heads)
+    workspace, ws_args = dq_workspace(q, workspace)
     err = _lib().fam_flash_tri_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
-        batch, heads, n_q, n_kv, head_dim, sm_scale, off, pairs,
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *ws_args, batch, heads, n_q, k.shape[2], head_dim, sm_scale, off,
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

@@ -77,17 +77,6 @@ def visible_pairs(n_q: int, n_kv: int, q_offset: int, pos_div: int = 1) -> int:
     return sum(max(0, min(n_kv, r // pos_div + q_offset + 1)) for r in range(n_q))
 
 
-def dq_slot_count(n_q: int, n_kv: int, q_offset: int, tile: int = 64) -> int:
-    """Slots of one head's dQ workspace in the triangular backward
-    (``csrc/dq_slots.cuh``, ``visible_pairs``): the (Q tile, KV tile) pairs
-    of ``tile`` rows that a causal call at ``q_offset`` sees."""
-    slots = 0
-    for i in range(-(-n_q // tile)):
-        limit = min(min((i + 1) * tile, n_q) - 1 + q_offset, n_kv - 1)
-        slots += 0 if limit < 0 else limit // tile + 1
-    return slots
-
-
 def block_sparse_work(batch: int, heads: int, kv_heads: int, n_q: int, n_kv: int,
                       head_dim: int, itemsize: int, visible: int, kernel: str) -> tuple:
     """``(flops, bytes)`` one block-sparse kernel must do, ``visible`` being

@@ -10,6 +10,7 @@ pointed at them and the memo reset around each test.
 """
 
 import json
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -21,7 +22,6 @@ from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
 from flash_attention_metal_tpu_torch.models import trainer as tr
 from flash_attention_metal_tpu_torch.models.transformer import ModelConfig
-from flash_attention_metal_tpu_torch.utils.roofline import dq_slot_count
 
 
 @pytest.fixture
@@ -214,11 +214,62 @@ def test_router_declines_a_fused_decision_whose_workspace_does_not_fit(cache, mo
     assert fb.bwd_route(q, q, off, causal=True) == "split"
 
 
-def test_dq_slot_count_matches_the_kernels_packing():
-    """``roofline.dq_slot_count`` counts the slots ``csrc/dq_slots.cuh``
-    packs for the triangular backward (``flash_tri.dq_slots_shape``)."""
-    assert dq_slot_count(2048, 2048, 0) == 528
-    assert dq_slot_count(2048, 2048, 2047) == 1024
-    assert dq_slot_count(128, 128, -70) == 1
-    assert dq_slot_count(200, 300, 100) == 3 + 4 + 5 + 5
-    assert ft.dq_slots_shape(4, 16, 2048, 2048, 0, 128) == (4 * 16 * 528, 64, 128)
+def _tri_bwd_launch(monkeypatch, shape_q, n_kv, off) -> dict:
+    """What ``flash_tri_bwd`` hands the C entry for meta tensors of the
+    given shapes: the workspace it allocated (bytes, through
+    ``flash_bwd.dq_workspace``) and the entry's counter count, offset and
+    lengths.  The library and the stream are stand-ins."""
+    seen = {}
+    real = ft.dq_workspace
+
+    def workspace(q, ws=None):
+        ws, args = real(q, ws)
+        seen["workspace_bytes"] = ws.numel() * ws.element_size()
+        return ws, args
+
+    def entry(*args):
+        seen["n_counters"], seen["n_q"], seen["n_kv"], seen["off"] = (
+            args[11], args[14], args[15], args[18])
+        return 0
+
+    monkeypatch.setattr(ft, "dq_workspace", workspace)
+    monkeypatch.setattr(ft, "_lib", lambda: SimpleNamespace(fam_flash_tri_bwd=entry))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    b, h, n_q, d = shape_q
+    q = torch.empty(shape_q, dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((b, h, n_kv, d), dtype=torch.bfloat16, device="meta")
+    rows = torch.empty((b, h, n_q), device="meta")
+    before = ft.flash_attention_bwd_tri.launches
+    dq, dk, dv = ft.flash_tri_bwd(q, kv, kv, q, rows, rows, off, sm_scale=d ** -0.5)
+    assert ft.flash_attention_bwd_tri.launches == before + 1
+    assert dq.dtype == torch.bfloat16 and dk.dtype == dv.dtype == torch.float32
+    return seen
+
+
+def test_tri_bwd_workspace_is_the_fused_kernels_at_high_occupancy(monkeypatch):
+    """The triangular backward's dQ workspace is the fused kernel's
+    (``dq_workspace_shape``): at the bench's high-occupancy shape
+    ``[16,8,2048,64]`` 16,777,216 fp32 accumulator words and 8,193 int32
+    counters (the ticket, one per 32 query rows of each head), 67,141,636
+    bytes, where the first design's 528 slots of 64 x 64 fp32 per head took
+    1,107,296,256."""
+    seen = _tri_bwd_launch(monkeypatch, (16, 8, 2048, 64), 2048, 0)
+    assert seen["workspace_bytes"] == 67_141_636
+    assert seen["workspace_bytes"] == 4 * fb.dq_workspace_shape(16, 8, 2048, 64)[0]
+    assert seen["n_counters"] == fb.dq_counter_count(16, 8, 2048) == 8193
+    assert (seen["n_q"], seen["n_kv"], seen["off"]) == (2048, 2048, 0)
+    assert 16 * 8 * 528 * 64 * 64 * 4 == 1_107_296_256
+
+
+@pytest.mark.parametrize("n_kv,off", [(2048, 0), (2048, 2047), (2048, -1000), (1024, 0),
+                                      (4096, 300)],
+                         ids=["off0", "off2047", "off_neg1000", "kv1024", "kv4096_off300"])
+def test_tri_bwd_workspace_ignores_offset_and_n_kv(monkeypatch, n_kv, off):
+    """The workspace grows with the query rows only: the offset (0 against
+    2047, where the slots were 528 and 1024 a head, or negative) and n_kv
+    leave it at 67,141,636 bytes for q ``[16,8,2048,64]``; the offset
+    reaches the entry as given."""
+    seen = _tri_bwd_launch(monkeypatch, (16, 8, 2048, 64), n_kv, off)
+    assert seen["workspace_bytes"] == 67_141_636
+    assert (seen["n_kv"], seen["off"]) == (n_kv, off)

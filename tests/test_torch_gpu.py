@@ -54,8 +54,10 @@ def _uniform(rng, shape, device, dtype, scale=1.0):
 
 
 # Units a unit's library needs beside it: flash_lean.cu's fp32 entry calls
-# the dense template of flash_fwd.cu.
-_COMPANIONS = {"flash_lean.cu": ("flash_fwd.cu",)}
+# the dense template of flash_fwd.cu; flash_tri.cu's fp32 entries call
+# that template and the fused backward's entry in flash_bwd.cu.
+_COMPANIONS = {"flash_lean.cu": ("flash_fwd.cu",),
+               "flash_tri.cu": ("flash_fwd.cu", "flash_bwd.cu")}
 
 
 def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ctypes.CDLL:
@@ -503,7 +505,8 @@ def test_training_on_cuda_matches_cpu_and_counts_launches(cuda):
 
 # ---------------------------------------------------------------------------
 # The kernel ladder's kernels: naive (csrc/naive.cu), lean
-# (csrc/flash_lean.cu), triangular forward and backward (csrc/flash_tri.cu).
+# (csrc/flash_lean.cu), triangular forward and backward (csrc/flash_tri.cu:
+# the wgmma forward and the fused backward given one int offset).
 # ---------------------------------------------------------------------------
 
 # (kernel, q shape, kv shape, the wrapper's keywords): ragged lengths (not
@@ -526,6 +529,14 @@ LADDER_FWD_CASES = {
     "tri_square": ("flash_tri", (1, 2, 256, 64), (1, 2, 256, 64), dict(save_lse=True)),
     "tri_masked_rows": ("flash_tri", (1, 2, 200, 64), (1, 2, 128, 64),
                         dict(q_offset=-70, save_lse=True)),
+    # Q tiles 0 and 1 see nothing, tile 2 in part (skipped walks, a
+    # mixed tile); every row sees every column; head dim 128
+    "tri_q_longer_off_neg170": ("flash_tri", (2, 4, 300, 64), (2, 2, 130, 64),
+                                dict(q_offset=-170, save_lse=True)),
+    "tri_gqa_off_max": ("flash_tri", (2, 4, 130, 64), (2, 2, 300, 64),
+                        dict(q_offset=299, save_lse=True)),
+    "tri_d128_off100": ("flash_tri", (1, 2, 200, 128), (1, 2, 300, 128),
+                        dict(q_offset=100, save_lse=True)),
 }
 
 
@@ -558,8 +569,14 @@ def test_ladder_kernel_matches_plain(cuda, case, dtype, q_scale):
         dict(shape_q=(1, 2, 200, 64), shape_kv=(1, 2, 128, 64), off=-70, dlse=False),
         dict(shape_q=(2, 4, 256, 64), shape_kv=(2, 4, 256, 64), off=0, dlse=True,
              q_scale=onchip.PEAKED_Q_SCALE),
+        # whole Q steps with no column: KV tile 0 zeroes their dQ rows
+        dict(shape_q=(2, 2, 300, 64), shape_kv=(2, 2, 130, 64), off=-170, dlse=True),
+        # every row sees every column
+        dict(shape_q=(2, 2, 130, 64), shape_kv=(2, 2, 300, 64), off=299, dlse=False),
+        dict(shape_q=(1, 2, 200, 128), shape_kv=(1, 2, 300, 128), off=100, dlse=True),
     ],
-    ids=["ragged_off170_dlse", "square", "masked_rows", "peaked"],
+    ids=["ragged_off170_dlse", "square", "masked_rows", "peaked", "q_longer_off_neg170",
+         "off_max", "d128_off100"],
 )
 def test_tri_bwd_matches_plain(cuda, dtype, case):
     rng = np.random.default_rng(0)
@@ -574,7 +591,8 @@ def test_tri_bwd_matches_plain(cuda, dtype, case):
     got = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, dlse, q_offset=off)
     assert ft.flash_attention_bwd_tri.launches == before + 1
     want = ft.flash_attention_bwd_tri_plain(
-        q.float(), k.float(), v.float(), o.float(), do.float(), lse, off, dlse, sm_scale=0.125
+        q.float(), k.float(), v.float(), o.float(), do.float(), lse, off, dlse,
+        sm_scale=q.shape[-1] ** -0.5,
     )
     torch.cuda.synchronize()
     # dQ in q's dtype; dK and dV fp32, as the Pallas kernel returns them
@@ -584,21 +602,24 @@ def test_tri_bwd_matches_plain(cuda, dtype, case):
         assert bool(torch.isfinite(g).all())
     errors = _bwd_errors(got, want)
     assert max(errors.values()) <= BWD_TOL[dtype], errors
-    if off == -70:
-        assert torch.all(got[0][:, :, :70] == 0)
+    if off < 0:
+        assert torch.all(got[0][:, :, :-off] == 0)
 
 
 @pytest.mark.gpu
-def test_tri_bwd_is_deterministic(cuda):
-    """Each dK/dV tile has one owner block, each dQ slot one writer, and the
-    slots are summed in a fixed order: two runs give identical bits."""
+@pytest.mark.parametrize("case", ["tri_bwd_bf16_n2048_peaked", "tri_bwd_bf16_off300"])
+def test_tri_bwd_is_deterministic(cuda, case):
+    """Each dK/dV tile has one owner block, and the KV tiles' blocks add to
+    each dQ row in KV-tile order, each waiting on the row's counter for its
+    turn: repeated runs give identical bits."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
-    q, k, v, o, do, lse, off = onchip.tri_bwd_cases(gen)["tri_bwd_bf16_n2048_peaked"]
+    q, k, v, o, do, lse, off = onchip.tri_bwd_cases(gen)[case]
     first = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, q_offset=off)
-    second = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, q_offset=off)
-    for a, b in zip(first, second):
-        assert torch.equal(a, b)
+    for _ in range(3):
+        again = ft.flash_attention_bwd_tri(q, k, v, o, do, lse, q_offset=off)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -660,16 +681,24 @@ PLANTED_LADDER_FAULTS = {
                             "const float m_new = fmaxf(m_i[half], mx[half] * scale_log2);",
                             "const float m_new = m_i[half] == -INFINITY ? mx[half] * scale_log2 "
                             ": m_i[half];"),
-    # the diagonal tile treated as interior: no mask compare on it
-    "tri_diagonal_unmasked": ("flash_tri.cu", ft, ft.bind, "flash_tri",
-                              "kv_start + kTile - 1 <= first_limit",
-                              "kv_start <= first_limit"),
-    # dS = P * dP: delta dropped (the tile helpers the backward shares)
-    "tri_bwd_delta_dropped": (("flash_tri.cu", "wmma_tiles.cuh"), ft, ft.bind, "flash_tri_bwd",
-                              "(sm.dp[r * C::kLdS + c] - delta)", "sm.dp[r * C::kLdS + c]"),
-    # each Q tile's last dQ slot left out of the sum (the shared reduce)
-    "tri_bwd_last_slot_dropped": (("flash_tri.cu", "dq_slots.cuh"), ft, ft.bind, "flash_tri_bwd",
-                                  "j < n_slots; ++j)", "j < n_slots - 1; ++j)"),
+    # the diagonal tile treated as interior: no mask compare on it (the
+    # wgmma forward, built through the triangular entry)
+    "tri_diagonal_unmasked": (("flash_tri.cu", "flash_fwd_sm90.cuh"), ft, ft.bind, "flash_tri",
+                              "const bool full = kv_start + kTile - 1 <= q_start + off",
+                              "const bool full = kv_start <= q_start + off"),
+    # dS = P * dP^T: delta dropped (the fused kernel the backward runs)
+    "tri_bwd_delta_dropped": (("flash_tri.cu", "flash_bwd_fused_sm90.cuh"), ft, ft.bind,
+                              "flash_tri_bwd", "pv * (dpt[4 * j + e] - dlt[e & 1])",
+                              "pv * dpt[4 * j + e]"),
+    # the last KV tile a dQ row sees (its diagonal tile) left out of the
+    # ordered sum (the adds the fused kernel shares)
+    "tri_bwd_last_add_dropped": (("flash_tri.cu", "dq_ordered.cuh"), ft, ft.bind,
+                                 "flash_tri_bwd", "rank > 0 ? plus(sum[u], p.x) : p.x",
+                                 "rank > 0 ? sum[u] : p.x"),
+    # the fused kernel given offset 0 in place of the static offset (the
+    # 300 of tri_bwd_bf16_off300)
+    "tri_bwd_offset_dropped": ("flash_tri.cu", ft, ft.bind, "flash_tri_bwd",
+                               "delta, nullptr, off, dk", "delta, nullptr, 0, dk"),
 }
 
 
@@ -1244,6 +1273,24 @@ def test_fused_workspace_holds_the_visible_pairs(cuda):
         got = fb.flash_attention_bwd_fused(*inputs, causal=True, q_offset_max=bound)
         if offs[0] == -70:
             assert bool((got[0][:, :, :70] == 0).all())
+
+
+@pytest.mark.gpu
+def test_tri_workspace_is_the_fused_kernels(cuda):
+    """The triangular backward allocates the fused kernel's dQ workspace
+    (the fp32 accumulator and its counters), the same bytes at every
+    offset, and adds to the accumulator rows of the Q steps that see two KV
+    tiles or more."""
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, (2, 4, 200, 64), cuda, torch.bfloat16)
+    k, v = (_uniform(rng, (2, 4, 300, 64), cuda, torch.bfloat16) for _ in range(2))
+    need = fb.fused_workspace_bytes(q)
+    for off in (100, 0, -70, 299):
+        o, lse = ft.flash_attention_tri(q, k, v, q_offset=off, save_lse=True)
+        allocated, written = onchip.tri_workspace_bytes((q, k, v, o, q, lse, off))
+        rows = sum(min(64, 200 - s) for s in range(0, 200, 64) if min(s + 63, 199) + off >= 64)
+        assert 0 <= allocated - need < 512, (off, allocated, need)
+        assert written == 2 * 4 * rows * 64 * 4, (off, written)
 
 
 @pytest.fixture

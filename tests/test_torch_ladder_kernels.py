@@ -157,37 +157,53 @@ def test_lean_contract_is_the_general_one_with_a_broadcast_offset(causal, group,
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
-    "hq,hkv,n_q,n_kv,off",
-    [(4, 2, 256, 256, 0), (2, 2, 128, 256, None), (4, 2, 128, 192, 16)],
-    ids=["gqa_off0", "end_aligned", "gqa_off16"],
+    "hq,hkv,n_q,n_kv,off,d",
+    [(4, 2, 256, 256, 0, 64), (2, 2, 128, 256, None, 64), (4, 2, 128, 192, 16, 64),
+     (4, 2, 256, 128, -70, 64), (4, 2, 128, 192, 16, 128)],
+    ids=["gqa_off0", "end_aligned", "gqa_off16", "gqa_q_longer_neg_off", "gqa_off16_d128"],
 )
-def test_tri_matches_jax(dtype, hq, hkv, n_q, n_kv, off):
-    (qj, qt), (kj, kt), (vj, vt) = _inputs(2, dtype, (2, hq, n_q, 64), (2, hkv, n_kv, 64),
-                                           (2, hkv, n_kv, 64))
+def test_tri_matches_jax(dtype, hq, hkv, n_q, n_kv, off, d):
+    """Rows that see no column (a negative offset, n_q > n_kv): the port
+    gives o = 0 and lse = -inf, the JAX triangular kernel mean(V) and its
+    finite mask value (ROADMAP.md, standing findings); every other row
+    matches."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(2, dtype, (2, hq, n_q, d), (2, hkv, n_kv, d),
+                                           (2, hkv, n_kv, d))
     o_j, lse_j = jax_tri(qj, kj, vj, q_offset=off, block_q=128, block_k=128, save_lse=True,
                          interpret=True)
     o_t, lse_t = ft.flash_attention_tri(qt, kt, vt, q_offset=off, save_lse=True)
     assert o_t.dtype == qt.dtype
-    assert _diff(o_t, o_j.astype(jnp.float32)) < TOL[dtype]
-    assert _diff(lse_t, np.asarray(lse_j)[..., 0]) < TOL[dtype]
+    seen = np.arange(n_q) + (n_kv - n_q if off is None else off) >= 0
+    o_j = np.asarray(o_j.astype(jnp.float32))
+    lse_j = np.asarray(lse_j)[..., 0]
+    assert _diff(o_t[:, :, seen], o_j[:, :, seen]) < TOL[dtype]
+    assert _diff(lse_t[:, :, seen], lse_j[:, :, seen]) < TOL[dtype]
+    assert torch.all(o_t[:, :, ~seen] == 0)
+    assert torch.all(lse_t[:, :, ~seen] == float("-inf"))
+    assert (off is not None and off < 0) == (not seen.all())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize(
     "n_q,n_kv,off,with_dlse,d",
-    [(256, 256, 0, False, 64), (128, 192, 64, True, 64), (128, 192, 64, True, 128)],
-    ids=["off0", "off64_dlse", "off64_dlse_d128"],
+    [(256, 256, 0, False, 64), (128, 192, 64, True, 64), (128, 192, 64, True, 128),
+     (256, 128, -70, False, 64), (130, 300, 170, True, 64)],
+    ids=["off0", "off64_dlse", "off64_dlse_d128", "q_longer_neg_off", "ragged_off170_dlse"],
 )
 def test_tri_bwd_matches_jax(dtype, n_q, n_kv, off, with_dlse, d):
     """Both packages take the same o and lse (from the JAX triangular
-    forward); dK and dV come back fp32 from both, dQ in q's dtype."""
+    forward); dK and dV come back fp32 from both, dQ in q's dtype.  Rows
+    that see no column (a negative offset) get zero dQ in both, and every
+    gradient stays finite.  The JAX kernel takes Q blocks that divide n_q:
+    a ragged n_q is one block."""
     shapes = ((2, 2, n_q, d), (2, 2, n_kv, d), (2, 2, n_kv, d), (2, 2, n_q, d))
     (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _inputs(3, dtype, *shapes)
-    o_j, lse_j = jax_tri(qj, kj, vj, q_offset=off, block_q=128, block_k=128, save_lse=True,
+    block_q = 128 if n_q % 128 == 0 else n_q
+    o_j, lse_j = jax_tri(qj, kj, vj, q_offset=off, block_q=block_q, block_k=128, save_lse=True,
                          interpret=True)
     dlse = np.random.default_rng(4).uniform(-1, 1, (2, 2, n_q)).astype(np.float32)
     dlse_j, dlse_t = (jnp.asarray(dlse), torch.from_numpy(dlse)) if with_dlse else (None, None)
-    want = jax_bwd_tri(qj, kj, vj, o_j, doj, lse_j, dlse_j, q_offset=off, block_q=128,
+    want = jax_bwd_tri(qj, kj, vj, o_j, doj, lse_j, dlse_j, q_offset=off, block_q=block_q,
                        block_k=128, interpret=True)
     o_t = torch.from_numpy(np.array(o_j.astype(jnp.float32))).to(qt.dtype)
     lse_t = torch.from_numpy(np.asarray(lse_j)[..., 0].copy())
@@ -196,7 +212,11 @@ def test_tri_bwd_matches_jax(dtype, n_q, n_kv, off, with_dlse, d):
     assert got[1].dtype == got[2].dtype == torch.float32
     assert want[1].dtype == want[2].dtype == jnp.float32
     for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
         assert _rel(g, w.astype(jnp.float32)) < BWD_TOL[dtype]
+    if off < 0:
+        assert torch.all(got[0][:, :, :-off] == 0)
+        assert float(np.max(np.abs(np.asarray(want[0][:, :, :-off], np.float32)))) == 0.0
 
 
 def test_split_pair_keeps_k_dtype_where_tri_returns_fp32():
