@@ -41,8 +41,11 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   depth-2 gradient check and 2 ``Trainer`` steps under a saved decision
   naming the fused kernel (launched there, the split pair never);
 * the reference benchmark's CSV sweep: both V1 kernels (streaming and
-  folded) against their plain version in fp32, and ``run_sweep`` at N =
-  128 and 1024, each point launching its V1 kernel;
+  folded, ``csrc/flash_v1.cu`` on the fp32 tiles it shares with naive)
+  against their plain version in fp32, and ``run_sweep`` at N = 128 and
+  1024, each point launching its V1 kernel; each kernel's time, bound and
+  SDPA's at the sweep's shape, with the Q-tile height and block count it
+  took;
 * block-sparse attention under ladder rung 11's mask, then head dim 128:
   every kernel against its plain version at its path's shape with D = 128,
   with its device, plain, bound and library times (the general forward
@@ -385,10 +388,13 @@ def v1_phase(gen: torch.Generator, stamp: str, spec, kernels: dict) -> list:
                 f"sweep N={n} B={b} H=1 fp32 non-causal", spec),
         }
         records.append(rec)
+        route = "folded" if name == "flash_v1_folded" else "stream"
+        rows = fv.v1_tile_rows(route, b, h, n, n, d)
         print(f"[time] kernel {name} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
               f"({rec['library_backend']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-              f"launches over the sweep {rec['launches']} {stamp}")
+              f"{rows}-row Q tiles, {b * h * -(-n // rows)} blocks; launches over the sweep "
+              f"{rec['launches']} {stamp}")
         del q, k, v
     torch.cuda.empty_cache()
     return records

@@ -11,383 +11,419 @@
 //   o[r] = sum_c P[r,c] v[c] / sum_c P[r,c],  P[r,c] = exp(s[r,c] - m[r]),
 //   s[r,c] = sm_scale * q[r] . k[c] over every column c < n_kv (causal: only
 //   c <= r, with n_q == n_kv), m[r] the row max; a row whose sum is 0 divides
-//   by 1.  No lse.  Everything is fp32 (IEEE FMA, never TF32) whatever the
-//   input type; o comes back in q's type.
-//   * Streaming: the row is walked in 64-column KV tiles with running max m,
-//     running sum l and an accumulator rescaled by exp2(m_prev - m_next)
-//     between tiles; one division by l at the end.
+//   by 1.  No lse.  Everything is fp32 (IEEE FMA on the CUDA cores, never
+//   TF32) whatever the input type; o comes back in q's type.
+//   * Streaming: the row is walked in 64-column KV tiles with a running max
+//     m, a running sum l and an accumulator, both rescaled by
+//     exp2(m_prev - m_next) on every step; one division by l at the end.
 //   * Folded (n_kv <= 512): the block scores the whole row into shared
-//     memory first, takes the max over all of it, then exp2, the sum and PV
-//     in one pass: no running statistics.  One block serves `fold` batch
-//     elements of one head and one 64-row query tile, one after the other.
+//     memory first, takes one max over all of it, then exp2, the sum and
+//     P V in a second walk: no running statistics, no score recomputed.
 //
-// What bounds it on the H100.  4 * N_q * N_kv * D flops per head on the
-// CUDA cores (67 TF/s fp32): at the benchmark's sweep points (B * N^2 =
-// 2^23, D = 64) ~32 us, against ~4 MB of inputs (1.3 us at 3.35 TB/s):
-// operations.
+// What bounds it on the H100.  4 * B * H * N_q * N_kv * D flops of fp32 FMA
+// on the CUDA cores (67 TF/s): 0.0321 ms at the benchmark's sweep points
+// (B * N^2 = 2^23, H = 1, D = 64), against about 4 MB of inputs (1.3 us at
+// 3.35 TB/s): operations.
 //
-// What the design does about it.  Two threads per query row, each owning 32
-// of the 64 score columns of a tile and D / 2 of the D output columns; the
-// row's statistics stay in registers and the pair combines them with one
-// shuffle.  Every shared-memory operand is read as float4 (4 FMAs per
-// load); the K, V and score rows a warp reads are broadcast (two addresses
-// per warp).  It stays the simple rung: no tensor cores, no copy pipeline.
+// The design: one warp owns 8 query rows and all 64 columns of each score
+// tile, so a row never leaves its warp.  A lane (tr, tc) = (lane / 16,
+// lane % 16) owns the 4 x 4 patch of rows r0 + 2a (r0 = 8 warp + tr) and
+// columns tc + 16b, and the same rows of o at columns g * 64 + 4 tc + e.
+// The products are csrc/fp32_tiles.cuh's, shared with the naive kernel:
+// float4 operands from padded tiles (pitch D + 4), 8 FMAs per shared load
+// in S = Q K^T, 4 (D = 64) or 8 (D = 128) per load in O += P V.  The step's
+// row max is a 16-lane shuffle reduction and the row sum stays a per-lane
+// partial until the end, so the softmax adds no block barrier; P is
+// warp-private and goes through shared memory under __syncwarp.  (16-row
+// warps with 4 x 8 patches, half the shared-memory wavefronts, measured
+// no faster on the H100.)
+//
+// A block is kWarps warps, a Q tile of 8 kWarps rows (16, 32 or 64),
+// holding Q in fp32 shared memory (bf16 widened as it is loaded).  K and V
+// stream through shared memory by cp.async (fp32; bf16 by ordinary loads):
+//   * streaming: a K buffer and a V buffer.  V_t lands while S_t is
+//     computed and K_{t+1} while P_t V_t is: two barriers a step, each
+//     after the tile it waits for.  P goes through a half tile (32 columns)
+//     at a time.
+//   * folded: a 2-stage ring of K_0 .. K_{n-1}, then V_0 .. V_{n-1}, one
+//     barrier a tile; the score rows (pitch 64 ceil(n_kv / 64) + 16) hold
+//     s, then p in place.
+// Shared memory per block in bytes (4 * (rows (D + 4) + 128 (D + 4) +
+// rows * (48 streaming | pitch folded))):
+//   streaming, 64 rows: 64,512 (D = 64), 113,664 (D = 128); 32 rows:
+//     49,664, 90,624;
+//   folded, D = 64: 64 rows at n_kv 128: 89,088; 32 rows at n_kv 256 /
+//     512: 78,336 / 111,104.  D = 128: 32 rows at 128: 102,912; 16 rows at
+//     256 / 512: 93,440 / 109,824.
+// Registers (ptxas -v, nvcc 12.9, sm_90a), under a 128-register cap that
+// leaves room for 16 warps an SM: streaming 128 (every variant), folded
+// fp32 112 (D = 64) and 128 (D = 128), bf16 96 and 125; no spills.
+//
+// Grid and occupancy.  kernels/flash_v1.py::v1_tile_rows picks the Q-tile
+// height: folded, the tallest whose block leaves room for two on an SM
+// (<= 115,712 bytes); streaming, 32 rows when 64-row tiles would give at
+// most one block an SM (132), else 64 (measured per sweep point by
+// `python -m flash_attention_metal_tpu_torch.harness.onchip v1_tiles`).
+// At the sweep's points (H = 1, D = 64, B = 2^23 / N^2):
+//   N = 128 (B 512) folded, 64 rows, 1024 blocks of 8 warps, 2 an SM;
+//   N = 256 (B 128) folded, 32 rows, 1024 blocks of 4 warps, 2 an SM;
+//   N = 512 (B 32) folded, 32 rows, 512 blocks of 4 warps, 2 an SM;
+//   N = 1024 (B 8), 8192 (B 1) streaming, 32 rows, 256 blocks of 4 warps;
+//   N = 2048 (B 2), 4096 (B 1) streaming, 32 rows, 128 blocks of 4 warps;
+//   N = 16384 (B 1) streaming, 64 rows, 256 blocks of 8 warps.
+// (Streaming blocks fit 4 an SM at 32 rows, 2 at 64 by registers.)
+//
+// Causal tile skipping is exact: a Q tile walks KV tiles up to its last
+// row's diagonal and only the tiles that hold a diagonal or the padded end
+// compare columns.  With n_q == n_kv every row sees column 0, so no row is
+// blind.  Q tiles are launched last first, the longest causal walks ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "fp32_tiles.cuh"
+#include "sm90_tiles.cuh"  // cp_async_commit, cp_async_wait_all
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlockM = 64;  // query rows per tile
-constexpr int kBlockN = 64;  // key columns per tile
-constexpr int kThreads = 2 * kBlockM;  // two threads per tile row, 4 warps
-constexpr int kHalf = 32;              // score columns per thread of a 64-wide row
-// Row pitch of the fp32 tiles in shared memory at head dim D: a multiple of
-// 4 floats (float4 accesses), padded so a quarter warp's rows fall on
-// distinct banks.
-template <int D>
-constexpr int kLd = D + 8;
-constexpr int kLdP = kBlockN + 4;
+constexpr int kTile = 64;  // K / V rows per tile: the score columns of a step
+// A warp owns kWarpRows query rows with all 64 of their columns: kRowGroups
+// lanes down (rows r0 + kRowGroups a), kColGroups across (columns tc +
+// kColGroups b), each lane a 4 x 4 patch of the scores.
+constexpr int kWarpRows = 8;
+constexpr int kRowGroups = 2;
+constexpr int kColGroups = 16;
+// Row pitch of P (streaming: a 32-column half tile; folded: the scores) is
+// its columns plus kColGroups floats (16 mod 32), so a patch's scalar
+// writes and the float4 reads of P V meet no bank conflict.
+constexpr int kHalfPitch = kTile / 2 + kColGroups;
 // The longest row the folded kernel scores into shared memory.
 constexpr int kFoldedMaxKv = 512;
+// Dynamic shared memory a block may take (227 KB).
+constexpr int kMaxSmem = 232448;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
+// KV tiles a Q tile whose last row is q_last walks.
+__device__ __forceinline__ int kv_tiles(int n_kv, int q_last, int causal) {
+  const int n_t = (n_kv + kTile - 1) / kTile;
+  return causal ? min(n_t, q_last / kTile + 1) : n_t;
 }
 
-// Eight consecutive elements as floats.
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-__device__ __forceinline__ void load8(const bf16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// Scores to log2 units; where `edge`, -inf at the padding columns (c >=
+// n_kv) and, when causal, past the diagonal (c > row).  row0 and col0 are
+// the patch's first row and column.
+__device__ __forceinline__ void scale_mask(float (&s)[4][4], float scale_log2, int row0,
+                                           int col0, int n_kv, int causal, bool edge) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int c = col0 + kColGroups * b;
+      float x = s[a][b] * scale_log2;
+      if (edge && (c >= n_kv || (causal && c > row0 + kRowGroups * a))) x = -INFINITY;
+      s[a][b] = x;
+    }
   }
 }
 
-// Copy `rows_valid` rows of D elements (row pitch D in global memory) into
-// a [64][kLd<D>] fp32 shared tile; the other rows are zero.
+// o[r0 + kRowGroups a] = acc[a] / (the row's sum over its kColGroups
+// lanes), for the rows below rows_valid; o points at the tile's first row.
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows_valid) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < kBlockM * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 8;
-    float x[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < rows_valid) load8(src + (size_t)r * D + c, x);
-    *reinterpret_cast<float4*>(dst + r * kLd<D> + c) = make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(dst + r * kLd<D> + c + 4) = make_float4(x[4], x[5], x[6], x[7]);
-  }
-}
-
-// s[j] = q[r] . k[half * 32 + j]: this thread's half of a score row.
-template <int D>
-__device__ __forceinline__ void scores(const float* q, const float* k, int r,
-                                       int half, float (&s)[kHalf]) {
+__device__ __forceinline__ void store_rows(T* o, const float (&acc)[4][D / 16],
+                                           const float (&l)[4], int r0, int tc,
+                                           int rows_valid) {
 #pragma unroll
-  for (int j = 0; j < kHalf; ++j) s[j] = 0.0f;
-  for (int d = 0; d < D; d += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(q + r * kLd<D> + d);
+  for (int a = 0; a < 4; ++a) {
+    float sum = fp32t::reduce_lanes<false, kColGroups>(l[a]);
+    if (sum == 0.0f) sum = 1.0f;
+    const int r = r0 + kRowGroups * a;
+    if (r >= rows_valid) continue;
 #pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      const float4 b = *reinterpret_cast<const float4*>(k + (half * kHalf + j) * kLd<D> + d);
-      s[j] = fmaf(a.x, b.x, s[j]);
-      s[j] = fmaf(a.y, b.y, s[j]);
-      s[j] = fmaf(a.z, b.z, s[j]);
-      s[j] = fmaf(a.w, b.w, s[j]);
+    for (int g = 0; g < D / 64; ++g) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = acc[a][4 * g + e] / sum;
+      fp32t::store4(o + (size_t)r * D + g * 64 + 4 * tc, x);
     }
   }
 }
 
-// acc[j] += sum_c p[c] v[c][half * D/2 + j] over the 64 columns of a tile;
-// p points at the row's first column of the tile.
-template <int D>
-__device__ __forceinline__ void accumulate_pv(const float* p, const float* v,
-                                              int half, float (&acc)[D / 2]) {
-  for (int c = 0; c < kBlockN; c += 4) {
-    const float4 p4 = *reinterpret_cast<const float4*>(p + c);
-    const float pc[4] = {p4.x, p4.y, p4.z, p4.w};
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const float* vrow = v + (c + cc) * kLd<D> + half * (D / 2);
-#pragma unroll
-      for (int j = 0; j < D / 2; j += 4) {
-        const float4 b = *reinterpret_cast<const float4*>(vrow + j);
-        acc[j] = fmaf(pc[cc], b.x, acc[j]);
-        acc[j + 1] = fmaf(pc[cc], b.y, acc[j + 1]);
-        acc[j + 2] = fmaf(pc[cc], b.z, acc[j + 2]);
-        acc[j + 3] = fmaf(pc[cc], b.w, acc[j + 3]);
-      }
-    }
-  }
-}
-
-// Write this thread's half of output row `row` (if it is a real row).
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* o, const float (&acc)[D / 2], float l,
-                                          int half, bool valid) {
-  if (!valid) return;
-  const float inv_l = l == 0.0f ? 1.0f : 1.0f / l;
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) o[half * (D / 2) + j] = from_float<T>(acc[j] * inv_l);
-}
-
-// Last column row `row` sees (n_kv - 1 unless causal).
-__device__ __forceinline__ int last_visible(int row, int n_kv, int causal) {
-  return causal ? min(row, n_kv - 1) : n_kv - 1;
-}
-
-template <int D>
-struct StreamSmem {
-  float q[kBlockM * kLd<D>];
-  float k[kBlockN * kLd<D>];
-  float v[kBlockN * kLd<D>];
-  float p[kBlockM * kLdP];  // probabilities of the step
-};
-
-// Streaming: one block per (batch x head, 64-row query tile); the KV walk
-// stops at the tile's last visible column.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_v1_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ o, int n_q,
-                    int n_kv, float scale_log2, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  StreamSmem<D>& sm = *reinterpret_cast<StreamSmem<D>*>(smem_raw);
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;    // this thread's row of the tile
-  const int half = tid & 1;  // which half of the row's columns it owns
-  const size_t bh = blockIdx.x;
-  const int q_start = blockIdx.y * kBlockM;
-  const int rows_valid = min(kBlockM, n_q - q_start);
-  const int row = q_start + r;
-  const int col_limit = last_visible(row, n_kv, causal);
-  const int tile_limit = last_visible(q_start + rows_valid - 1, n_kv, causal);
-  const int n_steps = tile_limit / kBlockN + 1;
-
-  load_tile<T, D>(sm.q, q + (bh * n_q + q_start) * D, rows_valid);
-
-  float acc[D / 2];
-#pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
-  float m_i = -INFINITY;  // running max, log2 units
-  float l_i = 0.0f;       // running sum of exp2(s - m_i)
-
-  for (int step = 0; step < n_steps; ++step) {
-    const int kv_start = step * kBlockN;
-    const int cols_valid = min(kBlockN, n_kv - kv_start);
-    load_tile<T, D>(sm.k, k + (bh * n_kv + kv_start) * D, cols_valid);
-    load_tile<T, D>(sm.v, v + (bh * n_kv + kv_start) * D, cols_valid);
-    __syncthreads();
-
-    float s[kHalf];
-    scores<D>(sm.q, sm.k, r, half, s);
-    const int col0 = kv_start + half * kHalf;
-    float step_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      s[j] *= scale_log2;
-      if (col0 + j <= col_limit) step_max = fmaxf(step_max, s[j]);
-    }
-    // The pair of threads sharing a row are lanes 2i and 2i + 1 of a warp.
-    step_max = fmaxf(step_max, __shfl_xor_sync(0xffffffffu, step_max, 1));
-    const float m_next = fmaxf(m_i, step_max);
-    // exp2(-inf) = 0 on the first step; a row that has seen no column yet
-    // keeps m = -inf and adds nothing.
-    const float alpha = m_next == -INFINITY ? 1.0f : exp2f(m_i - m_next);
-    float row_sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kHalf; ++j) {
-      const float p = col0 + j <= col_limit ? exp2f(s[j] - m_next) : 0.0f;
-      row_sum += p;
-      s[j] = p;
-    }
-#pragma unroll
-    for (int j = 0; j < kHalf; j += 4) {
-      *reinterpret_cast<float4*>(sm.p + r * kLdP + half * kHalf + j) =
-          make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
-    }
-    row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
-    l_i = alpha * l_i + row_sum;
-    m_i = m_next;
-    __syncwarp();  // the partner's half of the P row
-
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] *= alpha;
-    accumulate_pv<D>(sm.p + r * kLdP, sm.v, half, acc);
-    // The next step's loads overwrite k, v and p.
-    __syncthreads();
-  }
-  store_row<T, D>(o + (bh * n_q + row) * D, acc, l_i, half, r < rows_valid);
-}
-
-// Folded: one block per (group of `fold` batch elements x head, 64-row query
-// tile); n_kv <= kFoldedMaxKv.  The whole score row of each element lives
-// in shared memory (srow, pitch ld_row).
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_v1_folded_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int n_heads,
-                           int n_q, int n_kv, int fold, int ld_row,
+// Streaming: one block per (batch x head, Q tile of 8 kWarps rows).
+template <typename T, int D, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
+    flash_v1_stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o, int n_q, int n_kv,
                            float scale_log2, int causal) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* sq = reinterpret_cast<float*>(smem_raw);
-  float* skv = sq + kBlockM * kLd<D>;    // a K tile, then a V tile
-  float* srow = skv + kBlockN * kLd<D>;  // [64][ld_row] scores, then P
+  using namespace fp32t;
+  constexpr int kRows = kWarps * kWarpRows;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kTileFloats = kTile * kPitch<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                    // [kRows][kPitch]
+  float* sk = sq + kRows * kPitch<D>;  // [kTile][kPitch]: K_t
+  float* sv = sk + kTileFloats;        // [kTile][kPitch]: V_t
+  float* sp = sv + kTileFloats;        // [kRows][kHalfPitch]: half of P_t
 
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;
-  const int half = tid & 1;
-  const int group = blockIdx.x / n_heads;
-  const int h = blockIdx.x % n_heads;
-  const int q_start = blockIdx.y * kBlockM;
-  const int rows_valid = min(kBlockM, n_q - q_start);
-  const int row = q_start + r;
-  const int col_limit = last_visible(row, n_kv, causal);
-  const int n_chunks = (n_kv + kBlockN - 1) / kBlockN;
-  float* prow = srow + r * ld_row;
+  const int lane = threadIdx.x % 32;
+  const int r0 = threadIdx.x / 32 * kWarpRows + lane / kColGroups;  // rows r0 + kRowGroups a
+  const int tc = lane % kColGroups;
+  const size_t bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int n_t = kv_tiles(n_kv, min(q_start + kRows, n_q) - 1, causal);
+  const T* k_head = k + bh * n_kv * D;
+  const T* v_head = v + bh * n_kv * D;
 
-  for (int f = 0; f < fold; ++f) {
-    const size_t bh = (size_t)(group * fold + f) * n_heads + h;
-    const T* kb = k + bh * n_kv * D;
-    const T* vb = v + bh * n_kv * D;
-    load_tile<T, D>(sq, q + (bh * n_q + q_start) * D, rows_valid);
+  load_rows<D, kThreads>(sq, q + (bh * n_q + q_start) * D, kRows, n_q - q_start);
+  load_rows<D, kThreads>(sk, k_head, kTile, n_kv);
+  sm90::cp_async_commit();
 
-    // Score the whole row, 64 columns at a time, in log2 units.
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int kv_start = ch * kBlockN;
-      load_tile<T, D>(skv, kb + (size_t)kv_start * D, min(kBlockN, n_kv - kv_start));
-      __syncthreads();
-      float s[kHalf];
-      scores<D>(sq, skv, r, half, s);
+  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // running max, log2 units
+  float l[4] = {};  // this lane's part of the running sum
+  float acc[4][D / 16] = {};
+  for (int t = 0; t < n_t; ++t) {
+    const int kv_start = t * kTile;
+    // K_t has landed and every warp is done with V_{t-1}: V_t streams in
+    // while S_t is computed.
+    sm90::cp_async_wait_all();
+    __syncthreads();
+    load_rows<D, kThreads>(sv, v_head + (size_t)kv_start * D, kTile, n_kv - kv_start);
+    sm90::cp_async_commit();
+
+    float s[4][4];
+    score_patch<D, kRowGroups>(sq, sk, r0, tc, s);
+    const bool edge = kv_start + kTile > n_kv || (causal && kv_start + kTile - 1 > q_start);
+    scale_mask(s, scale_log2, q_start + r0, kv_start + tc, n_kv, causal, edge);
 #pragma unroll
-      for (int j = 0; j < kHalf; j += 4) {
-        *reinterpret_cast<float4*>(prow + kv_start + half * kHalf + j) =
-            make_float4(s[j] * scale_log2, s[j + 1] * scale_log2,
-                        s[j + 2] * scale_log2, s[j + 3] * scale_log2);
-      }
-      // The next chunk's load overwrites skv.
-      __syncthreads();
-    }
-
-    // The max over the whole row, then exp2 and the sum in place: each
-    // thread walks its half of every chunk.
-    float m = -INFINITY;
-    for (int ch = 0; ch < n_chunks; ++ch) {  // row max over every chunk
-#pragma unroll 4
-      for (int j = 0; j < kHalf; ++j) {
-        const int c = ch * kBlockN + half * kHalf + j;
-        if (c <= col_limit) m = fmaxf(m, prow[c]);
-      }
-    }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    float l = 0.0f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-#pragma unroll 4
-      for (int j = 0; j < kHalf; ++j) {
-        const int c = ch * kBlockN + half * kHalf + j;
-        const float p = c <= col_limit ? exp2f(prow[c] - m) : 0.0f;
-        prow[c] = p;
-        l += p;
-      }
-    }
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-
-    float acc[D / 2];
+    for (int a = 0; a < 4; ++a) {
+      float mx = s[a][0];
 #pragma unroll
-    for (int j = 0; j < D / 2; ++j) acc[j] = 0.0f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      const int kv_start = ch * kBlockN;
-      load_tile<T, D>(skv, vb + (size_t)kv_start * D, min(kBlockN, n_kv - kv_start));
-      // Also orders every thread's P row writes before the reads below.
-      __syncthreads();
-      accumulate_pv<D>(prow + kv_start, skv, half, acc);
-      __syncthreads();
+      for (int b = 1; b < 4; ++b) mx = fmaxf(mx, s[a][b]);
+      const float m_next = fmaxf(m[a], reduce_lanes<true, kColGroups>(mx));
+      // A row that has seen no column keeps m = -inf and adds nothing.
+      const float base = m_next == -INFINITY ? 0.0f : m_next;
+      const float alpha = exp2f(m[a] - base);
+      float sum = 0.0f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        s[a][b] = exp2f(s[a][b] - base);
+        sum += s[a][b];
+      }
+      l[a] = l[a] * alpha + sum;
+#pragma unroll
+      for (int e = 0; e < D / 16; ++e) acc[a][e] *= alpha;
+      m[a] = m_next;
     }
-    store_row<T, D>(o + (bh * n_q + row) * D, acc, l, half, r < rows_valid);
+
+    // V_t has landed and every warp is done with K_t: K_{t+1} streams in
+    // while P_t V_t is computed.
+    sm90::cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < n_t) {
+      load_rows<D, kThreads>(sk, k_head + (size_t)(kv_start + kTile) * D, kTile,
+                             n_kv - kv_start - kTile);
+    }
+    sm90::cp_async_commit();
+    // P_t V_t, 32 columns at a time through this warp's own rows of sp.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          sp[(r0 + kRowGroups * a) * kHalfPitch + tc + kColGroups * b] = s[a][2 * h + b];
+        }
+      }
+      __syncwarp();
+      pv_patch<D, kRowGroups, kTile / 2>(sp, kHalfPitch, sv + h * (kTile / 2) * kPitch<D>, r0,
+                                         tc, acc);
+      __syncwarp();  // read before the next half overwrites it
+    }
   }
+  sm90::cp_async_wait_all();
+  store_rows<T, D>(o + (bh * n_q + q_start) * D, acc, l, r0, tc, n_q - q_start);
 }
 
-// Raise a kernel's dynamic shared-memory limit once per device.
+// Folded: one block per (batch x head, Q tile of 8 kWarps rows); n_kv <=
+// kFoldedMaxKv.  Each warp's score rows live in srow (pitch ld_row).
+template <typename T, int D, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 16 / kWarps)
+    flash_v1_folded_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o, int n_q, int n_kv,
+                           int ld_row, float scale_log2, int causal) {
+  using namespace fp32t;
+  constexpr int kRows = kWarps * kWarpRows;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kTileFloats = kTile * kPitch<D>;
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                      // [kRows][kPitch]
+  float* ring = sq + kRows * kPitch<D>;  // [2][kTile][kPitch]
+  float* srow = ring + 2 * kTileFloats;  // [kRows][ld_row]: s, then p
+
+  const int lane = threadIdx.x % 32;
+  const int r0 = threadIdx.x / 32 * kWarpRows + lane / kColGroups;  // rows r0 + kRowGroups a
+  const int tc = lane % kColGroups;
+  const size_t bh = blockIdx.x;
+  const int q_start = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int n_t = kv_tiles(n_kv, min(q_start + kRows, n_q) - 1, causal);
+  const T* k_head = k + bh * n_kv * D;
+  const T* v_head = v + bh * n_kv * D;
+
+  // Item i of the walk into ring stage i % 2: K_i, then V_{i - n_t}.
+  auto fetch = [&](int i) {
+    const int t = i < n_t ? i : i - n_t;
+    load_rows<D, kThreads>(ring + (i % 2) * kTileFloats,
+                           (i < n_t ? k_head : v_head) + (size_t)t * kTile * D, kTile,
+                           n_kv - t * kTile);
+  };
+  load_rows<D, kThreads>(sq, q + (bh * n_q + q_start) * D, kRows, n_q - q_start);
+  fetch(0);
+  sm90::cp_async_commit();
+
+  // Pass 1: each K tile scored once, into this warp's rows of srow.
+  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+  for (int i = 0; i < n_t; ++i) {
+    sm90::cp_async_wait_all();
+    __syncthreads();  // item i has landed; every warp is done with item i - 1
+    fetch(i + 1);
+    sm90::cp_async_commit();
+    const int kv_start = i * kTile;
+    float s[4][4];
+    score_patch<D, kRowGroups>(sq, ring + (i % 2) * kTileFloats, r0, tc, s);
+    const bool edge = kv_start + kTile > n_kv || (causal && kv_start + kTile - 1 > q_start);
+    scale_mask(s, scale_log2, q_start + r0, kv_start + tc, n_kv, causal, edge);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        mx[a] = fmaxf(mx[a], s[a][b]);
+        srow[(r0 + kRowGroups * a) * ld_row + kv_start + tc + kColGroups * b] = s[a][b];
+      }
+    }
+  }
+
+  // One max over the whole scored row: this lane's columns, then the row's
+  // 16 lanes.  A row that sees nothing adds nothing.
+  float base[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float m = reduce_lanes<true, kColGroups>(mx[a]);
+    base[a] = m == -INFINITY ? 0.0f : m;
+  }
+
+  // Pass 2: p = exp2(s - m) in place and its sum (each lane its own
+  // scores), then P V, a V tile at a time.
+  float l[4] = {};
+  float acc[4][D / 16] = {};
+  for (int i = n_t; i < 2 * n_t; ++i) {
+    sm90::cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < 2 * n_t) fetch(i + 1);
+    sm90::cp_async_commit();
+    const int kv_start = (i - n_t) * kTile;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float* x = srow + (r0 + kRowGroups * a) * ld_row + kv_start + tc + kColGroups * b;
+        const float p = exp2f(*x - base[a]);
+        l[a] += p;
+        *x = p;
+      }
+    }
+    __syncwarp();  // the warp's P rows, before any lane reads them
+    pv_patch<D, kRowGroups, kTile>(srow + kv_start, ld_row, ring + (i % 2) * kTileFloats, r0, tc,
+                                   acc);
+  }
+  sm90::cp_async_wait_all();
+  store_rows<T, D>(o + (bh * n_q + q_start) * D, acc, l, r0, tc, n_q - q_start);
+}
+
+// Raise a kernel's dynamic shared-memory limit to kMaxSmem once per device.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem, bool (&done)[kMaxDevices]) {
+cudaError_t allow_smem(Kernel kernel, bool (&done)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
     done[dev] = true;
   }
   return cudaSuccess;
 }
 
-int folded_row_pitch(int n_kv) {
-  return (n_kv + kBlockN - 1) / kBlockN * kBlockN + 4;
+int folded_row_pitch(int n_kv) { return (n_kv + kTile - 1) / kTile * kTile + kColGroups; }
+
+// Bytes of shared memory a block takes (the header's table).
+int smem_bytes(int folded, int rows, int n_kv, int head_dim) {
+  const int pitch = head_dim + 4;
+  return 4 * (rows * pitch + 2 * kTile * pitch +
+              rows * (folded ? folded_row_pitch(n_kv) : kHalfPitch));
 }
 
-template <int D>
-int folded_smem(int n_kv) {
-  return (int)sizeof(float) * ((kBlockM + kBlockN) * kLd<D> + kBlockM * folded_row_pitch(n_kv));
-}
+struct Args {
+  const void *q, *k, *v;
+  void* o;
+  int batch, n_heads, n_q, n_kv, head_dim, rows;
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
 
-template <typename T, int D>
-cudaError_t launch_stream(const void* q, const void* k, const void* v, void* o,
-                          int batch, int n_heads, int n_q, int n_kv, float sm_scale,
-                          int causal, cudaStream_t stream) {
+template <typename T, int D, int kWarps, bool kFolded>
+cudaError_t launch(const Args& a) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(StreamSmem<D>);
-  cudaError_t err = allow_smem(flash_v1_kernel<T, D>, smem, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch * n_heads, (n_q + kBlockM - 1) / kBlockM);
-  flash_v1_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), n_q, n_kv, sm_scale * kLog2e, causal);
+  constexpr int kRows = kWarps * kWarpRows;
+  const dim3 grid(a.batch * a.n_heads, (a.n_q + kRows - 1) / kRows);
+  const int smem = smem_bytes(kFolded, kRows, a.n_kv, D);
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  T* o = static_cast<T*>(a.o);
+  if constexpr (kFolded) {
+    cudaError_t err = allow_smem(flash_v1_folded_kernel<T, D, kWarps>, done);
+    if (err != cudaSuccess) return err;
+    flash_v1_folded_kernel<T, D, kWarps><<<grid, kWarps * 32, smem, a.stream>>>(
+        q, k, v, o, a.n_q, a.n_kv, folded_row_pitch(a.n_kv), a.sm_scale * kLog2e, a.causal);
+  } else {
+    cudaError_t err = allow_smem(flash_v1_stream_kernel<T, D, kWarps>, done);
+    if (err != cudaSuccess) return err;
+    flash_v1_stream_kernel<T, D, kWarps><<<grid, kWarps * 32, smem, a.stream>>>(
+        q, k, v, o, a.n_q, a.n_kv, a.sm_scale * kLog2e, a.causal);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_folded(const void* q, const void* k, const void* v, void* o,
-                          int batch, int n_heads, int n_q, int n_kv, int fold,
-                          float sm_scale, int causal, cudaStream_t stream) {
-  static bool done[kMaxDevices] = {};
-  cudaError_t err =
-      allow_smem(flash_v1_folded_kernel<T, D>, folded_smem<D>(kFoldedMaxKv), done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch / fold * n_heads, (n_q + kBlockM - 1) / kBlockM);
-  flash_v1_folded_kernel<T, D><<<grid, kThreads, folded_smem<D>(n_kv), stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), n_heads, n_q, n_kv, fold, folded_row_pitch(n_kv),
-      sm_scale * kLog2e, causal);
-  return cudaGetLastError();
+template <typename T, int D, bool kFolded>
+cudaError_t by_rows(const Args& a) {
+  if (a.rows == 64) return launch<T, D, 64 / kWarpRows, kFolded>(a);
+  if (a.rows == 32) return launch<T, D, 32 / kWarpRows, kFolded>(a);
+  if constexpr (kFolded) {
+    if (a.rows == 16) return launch<T, D, 16 / kWarpRows, true>(a);
+  }
+  return cudaErrorInvalidValue;
 }
 
-bool valid(int batch, int n_heads, int n_q, int n_kv, int head_dim, int causal) {
-  return (head_dim == 64 || head_dim == 128) && batch >= 1 && n_heads >= 1 && n_q >= 1 &&
-         n_kv >= 1 && (!causal || n_q == n_kv) && n_q <= 65535 * kBlockM;
+template <bool kFolded>
+int dispatch(const Args& a, int dtype) {
+  const bool ok = (a.head_dim == 64 || a.head_dim == 128) && a.batch >= 1 && a.n_heads >= 1 &&
+                  (long long)a.batch * a.n_heads <= 0x7fffffffLL && a.n_q >= 1 &&
+                  a.n_kv >= 1 && (!a.causal || a.n_q == a.n_kv) && a.rows >= 16 &&
+                  (a.n_q + a.rows - 1) / a.rows <= 65535 &&
+                  (!kFolded || a.n_kv <= kFoldedMaxKv) &&
+                  smem_bytes(kFolded, a.rows, a.n_kv, a.head_dim) <= kMaxSmem;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && a.head_dim == 64) return (int)by_rows<bf16, 64, kFolded>(a);
+  if (dtype == 0 && a.head_dim == 128) return (int)by_rows<bf16, 128, kFolded>(a);
+  if (dtype == 1 && a.head_dim == 64) return (int)by_rows<float, 64, kFolded>(a);
+  if (dtype == 1 && a.head_dim == 128) return (int)by_rows<float, 128, kFolded>(a);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -395,42 +431,26 @@ bool valid(int batch, int n_heads, int n_q, int n_kv, int head_dim, int causal) 
 // C entry points, bound with ctypes (kernels/flash_v1.py).  Pointers are
 // device pointers of contiguous tensors: q, o [B, H, N_q, D]; k, v [B, H,
 // N_kv, D] (equal head counts), D = head_dim, 64 or 128; causal requires
-// n_q == n_kv.  dtype: 0 =
+// n_q == n_kv.  rows: query rows per block (kernels/flash_v1.py::
+// v1_tile_rows), 32 or 64 streaming, 16, 32 or 64 folded.  dtype: 0 =
 // bf16, 1 = fp32.  Each returns its launch's cudaError_t (0 on success).
 extern "C" int fam_flash_v1(const void* q, const void* k, const void* v, void* o,
                             int batch, int n_heads, int n_q, int n_kv, int head_dim,
-                            float sm_scale, int causal, int dtype, void* stream) {
-  if (!valid(batch, n_heads, n_q, n_kv, head_dim, causal)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FAM_LAUNCH(T, D) \
-  return (int)launch_stream<T, D>(q, k, v, o, batch, n_heads, n_q, n_kv, sm_scale, causal, s)
-  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
-  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
-  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
-  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
-#undef FAM_LAUNCH
-  return (int)cudaErrorInvalidValue;
+                            int rows, float sm_scale, int causal, int dtype, void* stream) {
+  const Args a{q, k, v, o, batch, n_heads, n_q, n_kv, head_dim, rows, sm_scale, causal,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(a, dtype);
 }
 
-// Folded: `fold` divides batch and n_kv <= 512.
-extern "C" int fam_flash_v1_folded(const void* q, const void* k, const void* v,
-                                   void* o, int batch, int n_heads, int n_q, int n_kv,
-                                   int head_dim, int fold, float sm_scale, int causal,
-                                   int dtype, void* stream) {
-  if (!valid(batch, n_heads, n_q, n_kv, head_dim, causal) || fold < 1 ||
-      batch % fold != 0 || n_kv > kFoldedMaxKv) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FAM_LAUNCH(T, D)                                                                    \
-  return (int)launch_folded<T, D>(q, k, v, o, batch, n_heads, n_q, n_kv, fold, sm_scale, causal, \
-                                  s)
-  if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
-  if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
-  if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
-  if (dtype == 1 && head_dim == 128) FAM_LAUNCH(float, 128);
-#undef FAM_LAUNCH
-  return (int)cudaErrorInvalidValue;
+// Folded: n_kv <= 512, and the block of `rows` must fit its shared memory.
+// The grid covers every (batch element, head, Q tile); the JAX kernel's
+// fold of batch elements per step only picks this route (the wrapper
+// checks that it divides the batch).
+extern "C" int fam_flash_v1_folded(const void* q, const void* k, const void* v, void* o,
+                                   int batch, int n_heads, int n_q, int n_kv, int head_dim,
+                                   int rows, float sm_scale, int causal, int dtype,
+                                   void* stream) {
+  const Args a{q, k, v, o, batch, n_heads, n_q, n_kv, head_dim, rows, sm_scale, causal,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(a, dtype);
 }

@@ -30,18 +30,20 @@
 // end.  That is 6 N^2 D flops against the contract's 4 N^2 D, and no score
 // row is held anywhere, so no length cap comes from shared memory.
 //
-// Products are register-tiled fp32 outer products.  Thread (tr, tc) owns a
-// 4 x 4 patch of the kBq x 64 score tile (rows tr + kBq/4 i, columns
-// tc + 16 j) and reads its operands as float4 along the head dim from
-// padded tiles (row pitch D + 4 floats, an odd number of 16-byte chunks:
-// the 8 consecutive rows a warp's lanes read fall on distinct banks).  P
-// goes to shared memory (pitch 72), and the same thread owns rows
-// tr + kBq/4 i of o and columns 4 tc .. 4 tc + 3 of each 64-column block,
-// which it accumulates from float4 reads of P and V.  A warp is 4 row
-// groups x 8 column groups, so each float4 load serves 4 or 8 FMAs per lane
-// with at most one 128-byte wavefront.  Row max and row sum are reduced
-// over the 16 column groups (shuffles over 8 lanes, then the warp pair
-// through shared memory) once per pass.
+// Products are register-tiled fp32 outer products, on the helpers this
+// kernel shares with FlashAttention V1 (csrc/fp32_tiles.cuh: the loads,
+// the padded pitch, the score and P V patches, the row reductions).
+// Thread (tr, tc) owns a 4 x 4 patch of the kBq x 64 score tile (rows
+// tr + kBq/4 i, columns tc + 16 j) and reads its operands as float4 along
+// the head dim from padded tiles (row pitch D + 4 floats, an odd number of
+// 16-byte chunks: the 8 consecutive rows a warp's lanes read fall on
+// distinct banks).  P goes to shared memory (pitch 72), and the same
+// thread owns rows tr + kBq/4 i of o and columns 4 tc .. 4 tc + 3 of each
+// 64-column block, which it accumulates from float4 reads of P and V.  A
+// warp is 4 row groups x 8 column groups, so each float4 load serves 4 or
+// 8 FMAs per lane with at most one 128-byte wavefront.  Row max and row sum
+// are reduced over the 16 column groups (shuffles over 8 lanes, then the
+// warp pair through shared memory) once per pass.
 //
 // Causal tile skipping keeps the contract exact.  A masked score's
 // expf(mask - m) is exactly 0 in a row that sees a column, and the mask
@@ -56,7 +58,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "sm90_tiles.cuh"  // cp_async16, cp_async_commit, cp_async_wait_all
+#include "fp32_tiles.cuh"  // the fp32 tile helpers V1 shares
+#include "sm90_tiles.cuh"  // cp_async_commit, cp_async_wait_all
 
 namespace {
 
@@ -74,7 +77,7 @@ template <int D>
 struct NaiveCfg {
   static constexpr int kThreads = kBq * 4;  // a 4 x 4 score patch each
   static constexpr int kRowGroups = kBq / 4;
-  static constexpr int kPitch = D + 4;  // floats per row of the Q, K, V tiles
+  static constexpr int kPitch = fp32t::kPitch<D>;  // floats per row of the Q, K, V tiles
   static constexpr int kTileFloats = kBk * kPitch;
   // q tile, K ring, V ring, P tile, the warp pairs' row reductions
   static constexpr int kSmemFloats =
@@ -82,73 +85,13 @@ struct NaiveCfg {
   static constexpr int kSmemBytes = kSmemFloats * (int)sizeof(float);
 };
 
-// Rows [0, rows_valid) of a [rows][D] tile into a [rows][kPitch] fp32 tile;
-// the other rows are zero.  fp32 by cp.async (lands at the ring's wait),
-// bf16 widened by ordinary loads (lands at once).
-template <int D, int kPitch, int kThreads>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, int rows,
-                                          int rows_valid) {
-  constexpr int kChunks = D / 4;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    const bool valid = r < rows_valid;
-    sm90::cp_async16(dst + r * kPitch + c * 4, src + (valid ? (size_t)r * D + c * 4 : 0),
-                     valid);
-  }
-}
-template <int D, int kPitch, int kThreads>
-__device__ __forceinline__ void load_rows(float* dst, const bf16* src, int rows,
-                                          int rows_valid) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (r < rows_valid) u = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c * 8);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    const float2 e = __bfloat1622float2(h[2]), f = __bfloat1622float2(h[3]);
-    float4* out = reinterpret_cast<float4*>(dst + r * kPitch + c * 8);
-    out[0] = make_float4(a.x, a.y, b.x, b.y);
-    out[1] = make_float4(e.x, e.y, f.x, f.y);
-  }
-}
-
-__device__ __forceinline__ void store4(float* dst, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-}
-__device__ __forceinline__ void store4(bf16* dst, const float (&x)[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-
-// The row's value reduced over the 16 column groups: lanes l ^ 1, 2, 4 of
-// the warp, then the other warp of the pair through red[2][kBq].
-template <bool kMax>
-__device__ __forceinline__ float reduce_cols(float x, float* red, int row, int pair,
-                                             bool writer) {
-#pragma unroll
-  for (int s = 1; s < 8; s <<= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, s);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  if (writer) red[pair * kBq + row] = x;
-  __syncthreads();
-  const float a = red[row], b = red[kBq + row];
-  return kMax ? fmaxf(a, b) : a + b;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
     naive_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int n_q, int n_kv,
                  float sm_scale, int causal) {
   using C = NaiveCfg<D>;
+  using namespace fp32t;
   constexpr int kPitch = C::kPitch;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;
@@ -176,17 +119,15 @@ __global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
   if (causal && q_start + off >= 0) n_t = min(n_t, (q_last + off) / kBk + 1);
   const int n_steps = 2 * n_t;  // pass 1, then pass 2
 
-  load_rows<D, kPitch, C::kThreads>(sq, q + (bh * n_q + q_start) * D, kBq, n_q - q_start);
+  load_rows<D, C::kThreads>(sq, q + (bh * n_q + q_start) * D, kBq, n_q - q_start);
   // Step i's tiles into ring stage i % 2: K in both passes, V in pass 2.
   auto fetch = [&](int i) {
     const int t = i < n_t ? i : i - n_t;
     const int s = i % 2;
     const size_t at = (size_t)t * kBk * D;
-    load_rows<D, kPitch, C::kThreads>(sk + s * C::kTileFloats, k_head + at, kBk,
-                                      n_kv - t * kBk);
+    load_rows<D, C::kThreads>(sk + s * C::kTileFloats, k_head + at, kBk, n_kv - t * kBk);
     if (i >= n_t) {
-      load_rows<D, kPitch, C::kThreads>(sv + s * C::kTileFloats, v_head + at, kBk,
-                                        n_kv - t * kBk);
+      load_rows<D, C::kThreads>(sv + s * C::kTileFloats, v_head + at, kBk, n_kv - t * kBk);
     }
   };
   fetch(0);
@@ -211,28 +152,8 @@ __global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
     const float* kt = sk + s * C::kTileFloats;
 
     // The 4 x 4 patch of S = Q K^T, summed along D in order.
-    float sc[4][4] = {};
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qa[a] = *reinterpret_cast<const float4*>(sq + (tr + C::kRowGroups * a) * kPitch + d);
-        kb[a] = *reinterpret_cast<const float4*>(kt + (tc + 16 * a) * kPitch + d);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          float x = sc[a][b];
-          x = fmaf(qa[a].x, kb[b].x, x);
-          x = fmaf(qa[a].y, kb[b].y, x);
-          x = fmaf(qa[a].z, kb[b].z, x);
-          x = fmaf(qa[a].w, kb[b].w, x);
-          sc[a][b] = x;
-        }
-      }
-    }
+    float sc[4][4];
+    score_patch<D, C::kRowGroups>(sq, kt, tr, tc, sc);
     // Scaled and masked: the mask value past the diagonal, -inf past n_kv
     // (padding is no column at all).
 #pragma unroll
@@ -258,7 +179,7 @@ __global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const int row = tr + C::kRowGroups * a;
-          m[a] = reduce_cols<true>(m[a], red, row, pair, writer);
+          m[a] = reduce_cols<true, kBq>(m[a], red, row, pair, writer);
           __syncthreads();  // red is read before the next row's writes
         }
       }
@@ -279,31 +200,7 @@ __global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
     __syncthreads();
 
     // o += P V over the tile's 64 rows, in order.
-    const float* vt = sv + s * C::kTileFloats;
-#pragma unroll 2
-    for (int j = 0; j < kBk; j += 4) {
-      float4 pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        pa[a] = *reinterpret_cast<const float4*>(sp + (tr + C::kRowGroups * a) * kPPitch + j);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int g = 0; g < D / 64; ++g) {
-          const float4 vb =
-              *reinterpret_cast<const float4*>(vt + (j + jj) * kPitch + g * 64 + 4 * tc);
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const float p = jj == 0 ? pa[a].x : jj == 1 ? pa[a].y : jj == 2 ? pa[a].z : pa[a].w;
-            acc[a][4 * g + 0] = fmaf(p, vb.x, acc[a][4 * g + 0]);
-            acc[a][4 * g + 1] = fmaf(p, vb.y, acc[a][4 * g + 1]);
-            acc[a][4 * g + 2] = fmaf(p, vb.z, acc[a][4 * g + 2]);
-            acc[a][4 * g + 3] = fmaf(p, vb.w, acc[a][4 * g + 3]);
-          }
-        }
-      }
-    }
+    pv_patch<D, C::kRowGroups, kBk>(sp, kPPitch, sv + s * C::kTileFloats, tr, tc, acc);
   }
   sm90::cp_async_wait_all();
 
@@ -312,7 +209,7 @@ __global__ void __launch_bounds__(NaiveCfg<D>::kThreads)
   for (int a = 0; a < 4; ++a) {
     const int row = tr + C::kRowGroups * a;
     __syncthreads();  // the previous reads of red are done
-    const float sum = reduce_cols<false>(l[a], red, row, pair, writer);
+    const float sum = reduce_cols<false, kBq>(l[a], red, row, pair, writer);
     const int r = q_start + row;
     if (r < n_q) {
       T* o_row = o + (bh * n_q + r) * D;

@@ -6,6 +6,7 @@ its own on a CUDA card:
     python -m flash_attention_metal_tpu_torch.harness.onchip sweep
     python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train] [--mode M]
     python -m flash_attention_metal_tpu_torch.harness.onchip kernels [--csrc DIR]
+    python -m flash_attention_metal_tpu_torch.harness.onchip v1_tiles
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
@@ -16,11 +17,14 @@ and splits their wall time into device-busy time, by kernel, and idle time
 ``train_bench.json`` width.  ``kernels`` times the forward kernels (the
 general and lean kernels, folded decode, fp32, the 8-bit and paged
 caches' kernels), the backward kernels (the split pair in bf16 and fp32,
-the fused kernel), naive and the triangular forward and backward (with
-the backward's workspace bytes), built from the package's ``csrc/``
-or, with ``--csrc``, through another tree's wrappers and sources: two
-versions compared on one card, in turns.  Every line it prints carries
-the card's name and power limit.
+the fused kernel), naive, both V1 kernels and the triangular forward and
+backward (with the backward's workspace bytes), built from the package's
+``csrc/`` or, with ``--csrc``, through another tree's wrappers and
+sources: two versions compared on one card, in turns.  ``v1_tiles`` times
+each V1 kernel at every Q-tile height it takes, at every point of the
+benchmark's sweep (and at head dim 128 at N = 128 and 1024), beside the
+height ``v1_tile_rows`` picks.  Every line it prints carries the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -60,7 +64,16 @@ from ..kernels.flash_tri import (
     flash_attention_tri_plain,
     flash_tri_bwd,
 )
-from ..kernels.flash_v1 import flash_attention_v1, flash_attention_v1_plain, v1_route
+from ..kernels.flash_v1 import (
+    BLOCK_SMEM_MAX,
+    flash_attention_v1,
+    flash_attention_v1_plain,
+    flash_v1_folded,
+    flash_v1_stream,
+    v1_route,
+    v1_smem_bytes,
+    v1_tile_rows,
+)
 from ..kernels.naive import naive_attention, naive_attention_plain
 from ..kernels.paged import (
     flash_attention_paged,
@@ -957,7 +970,8 @@ def _kernel_modules(csrc: Optional[str]) -> SimpleNamespace:
     name = pkg.__name__
     mod = lambda m: importlib.import_module(f"{name}.kernels.{m}")  # noqa: E731
     return SimpleNamespace(ff=mod("flash_fwd"), fb=mod("flash_bwd"), qt=mod("quant"),
-                           pg=mod("paged"), nv=mod("naive"), ft=mod("flash_tri"))
+                           pg=mod("paged"), nv=mod("naive"), ft=mod("flash_tri"),
+                           fv=mod("flash_v1"))
 
 
 def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str, int]]:
@@ -975,7 +989,9 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
     and 128, bf16) and at the ladder's N = 1024 in fp32; the quant (int8),
     paged and paged-quant (int8) kernels at folded decode.  Naive in fp32
     at the sweep's N = 1024 (plain and causal), N = 128 and N = 1024 at
-    head dim 128.  The backward: dK/dV, dQ and the fused kernel in bf16 at
+    head dim 128.  V1 in fp32 through ``flash_attention_v1`` (the kernel its
+    route takes): streaming at the sweep's N = 1024, folded at N = 128, each
+    at head dim 64 and 128.  The backward: dK/dV, dQ and the fused kernel in bf16 at
     the training shape (D 64 and 128) and in fp32 at ``TRAIN_FP32_Q``.  The
     triangular forward (with its lse) and backward, each through its
     wrapper (the backward's delta op included), in bf16 at ``HIGH_OCC``
@@ -1031,6 +1047,10 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
                                ("n128", SWEEP_128, False), ("n1024_d128", SWEEP_1024_D128, False)):
         q, k, v = ladder_inputs(shape, shape, f32, gen)
         times[f"naive_fp32_{tag}"] = device_ms(lambda: m.nv.naive_attention(q, k, v, causal=causal))
+    for tag, shape in (("stream_n1024", SWEEP_1024), ("stream_n1024_d128", SWEEP_1024_D128),
+                       ("folded_n128", SWEEP_128), ("folded_n128_d128", SWEEP_128_D128)):
+        q, k, v = ladder_inputs(shape, shape, f32, gen)
+        times[f"v1_fp32_{tag}"] = device_ms(lambda: m.fv.flash_attention_v1(q, k, v))
     for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, bf16),
                                           ("bf16_train_d128", TRAIN_D128_Q, TRAIN_D128_KV, bf16),
                                           ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, f32)):
@@ -1069,9 +1089,44 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
     return times, nbytes
 
 
+def v1_tile_times(log=print) -> List[dict]:
+    """Each V1 kernel's device ms at every Q-tile height it takes (fp32,
+    the ladder fixture, non-causal), at every point of the benchmark's sweep
+    (N = 128 .. 16384 at ``amortizing_batch(N)``, H = 1, D = 64) and at head
+    dim 128 at N = 128 and 1024; with the height ``v1_tile_rows`` picks and
+    each height's block count.  Heights whose block exceeds 227 KB of shared
+    memory are left out."""
+    from .benchmark import DEFAULT_SWEEP, amortizing_batch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    points = [(n, 64) for n in DEFAULT_SWEEP] + [(128, 128), (1024, 128)]
+    out = []
+    for n, d in points:
+        b = amortizing_batch(n)
+        route, fold = v1_route(b, n, n)
+        q, k, v = ladder_inputs((b, 1, n, d), (b, 1, n, d), torch.float32, gen)
+        kw = dict(sm_scale=default_scale(d), causal=False)
+        heights = (64, 32, 16) if route == "folded" else (64, 32)
+        ms = {}
+        for rows in heights:
+            if v1_smem_bytes(route, rows, n, d) > BLOCK_SMEM_MAX:
+                continue
+            if route == "folded":
+                ms[rows] = device_ms(lambda: flash_v1_folded(q, k, v, fold, rows=rows, **kw))
+            else:
+                ms[rows] = device_ms(lambda: flash_v1_stream(q, k, v, rows=rows, **kw))
+        rec = {"n": n, "b": b, "d": d, "route": route, "rule": v1_tile_rows(route, b, 1, n, n, d),
+               "ms": ms, "blocks": {r: b * -(-n // r) for r in ms}}
+        out.append(rec)
+        log(json.dumps(rec))
+        del q, k, v
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("sweep", "profile", "kernels"))
+    parser.add_argument("what", choices=("sweep", "profile", "kernels", "v1_tiles"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
@@ -1089,6 +1144,10 @@ def main(argv=None) -> int:
         return 0
     if args.what == "sweep":
         sweep(stamp)
+        return 0
+    if args.what == "v1_tiles":
+        print(f"[v1_tiles] {stamp}")
+        v1_tile_times(log=lambda line: print(f"[v1_tiles] {line}"))
         return 0
     if args.target == "train":
         profile_train(stamp)

@@ -12,9 +12,13 @@ The route is the JAX function's (``flash_v1.py:224-256``): the per-N tile
 table ``_V1_BLOCKS`` (512 x 512 elsewhere) sets the logical tiles; when one
 KV tile covers the row, one Q tile covers the queries and ``_lean_batch_fold``
 packs more than one batch element per step, the folded kernel runs, else
-the streaming one.  The CUDA kernels choose their own tiles (64 x 64; the
-v5e table and the 128-lane scratch are Mosaic facts), so ``block_q`` and
-``block_k`` decide only the route and the divisibility check, as in JAX.
+the streaming one.  The v5e table and the 128-lane scratch are Mosaic
+facts, so ``block_q`` and ``block_k`` decide only the route and the
+divisibility check, as in JAX.  The CUDA kernels walk K and V in 64-row
+tiles, and ``v1_tile_rows`` picks their Q tile's height (64, 32 or 16
+rows, a warp per 8) from the grid and the shared memory: the folded
+kernel's grid covers every (batch element, head, Q tile), so JAX's fold
+of batch elements per step only selects the route.
 
 Route: tensors on the CPU go to the plain version; CUDA tensors launch a
 kernel or raise.  Nothing falls back.
@@ -41,6 +45,14 @@ _FOLD_ROWS = 1024
 # The longest row the folded kernel scores in shared memory
 # (csrc/flash_v1.cu, kFoldedMaxKv); the route never sends it more.
 FOLDED_MAX_KV = 512
+# Shared memory a block may take (227 KB, csrc/flash_v1.cu's kMaxSmem), and
+# so that two fit on an H100 SM: 228 KB per SM, 1 KB reserved per block.
+BLOCK_SMEM_MAX = 232448
+_TWO_BLOCKS_SMEM = 233472 // 2 - 1024
+# The streaming kernel takes 32-row Q tiles when 64-row ones would give at
+# most one block per SM of the H100 (132): measured faster there at every
+# sweep point, level at 256 blocks (``harness/onchip.py v1_tiles``).
+_STREAM_SMALL_GRID = 132
 
 
 def _lean_batch_fold(batch: int, n_q: int, n_kv: int) -> int:
@@ -81,6 +93,33 @@ def v1_route(batch: int, n_q: int, n_kv: int, block_q: Optional[int] = None,
     return "stream", 1
 
 
+def v1_smem_bytes(route: str, rows: int, n_kv: int, head_dim: int) -> int:
+    """Shared memory of one block of the ``route`` kernel with ``rows``-row
+    Q tiles (``csrc/flash_v1.cu``'s ``smem_bytes``): the fp32 Q tile and two
+    64-row K/V tiles at pitch ``head_dim + 4``, and the folded kernel's
+    score rows (pitch ``64 ceil(n_kv / 64) + 16``) or the streaming one's
+    32-column P half tile (pitch 48)."""
+    pitch = head_dim + 4
+    tail = -(-n_kv // 64) * 64 + 16 if route == "folded" else 48
+    return 4 * (rows * pitch + 2 * 64 * pitch + rows * tail)
+
+
+def v1_tile_rows(route: str, batch: int, heads: int, n_q: int, n_kv: int,
+                 head_dim: int) -> int:
+    """Query rows per block of the CUDA kernel ``route`` takes.
+
+    Folded: the tallest of 64, 32 and 16 rows whose block leaves room for
+    two on an SM (its score rows grow with ``n_kv``).  Streaming: 64 rows,
+    or 32 when 64-row tiles would give at most ``_STREAM_SMALL_GRID`` blocks
+    (one an SM or fewer): twice the blocks, each re-reading K and V."""
+    if route == "folded":
+        for rows in (64, 32, 16):
+            if v1_smem_bytes(route, rows, n_kv, head_dim) <= _TWO_BLOCKS_SMEM:
+                return rows
+        raise ValueError(f"no folded Q tile fits n_kv {n_kv} at head dim {head_dim}")
+    return 32 if batch * heads * -(-n_q // 64) <= _STREAM_SMALL_GRID else 64
+
+
 def flash_attention_v1_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, sm_scale: float, causal: bool
 ) -> torch.Tensor:
@@ -103,20 +142,14 @@ def flash_attention_v1_plain(
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the two V1 entry points' C signatures on a loaded library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fam_flash_v1.argtypes = [
-        ptr, ptr, ptr, ptr,  # q, k, v, o
-        i32, i32, i32, i32, i32,  # batch, heads, n_q, n_kv, head_dim
-        ctypes.c_float, i32, i32,  # sm_scale, causal, dtype
-        ptr,  # stream
-    ]
-    lib.fam_flash_v1.restype = ctypes.c_int
-    lib.fam_flash_v1_folded.argtypes = [
-        ptr, ptr, ptr, ptr,  # q, k, v, o
-        i32, i32, i32, i32, i32, i32,  # batch, heads, n_q, n_kv, head_dim, fold
-        ctypes.c_float, i32, i32,  # sm_scale, causal, dtype
-        ptr,  # stream
-    ]
-    lib.fam_flash_v1_folded.restype = ctypes.c_int
+    for fn in (lib.fam_flash_v1, lib.fam_flash_v1_folded):
+        fn.argtypes = [
+            ptr, ptr, ptr, ptr,  # q, k, v, o
+            i32, i32, i32, i32, i32, i32,  # batch, heads, n_q, n_kv, head_dim, rows
+            ctypes.c_float, i32, i32,  # sm_scale, causal, dtype
+            ptr,  # stream
+        ]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -129,13 +162,18 @@ def _stream_args(q):
     return _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream
 
 
-def flash_v1_stream(q, k, v, *, sm_scale: float, causal: bool) -> torch.Tensor:
-    """``o`` from the streaming kernel (CUDA tensors, checked by the caller)."""
-    batch, heads, n_q, _ = q.shape
+def flash_v1_stream(q, k, v, *, sm_scale: float, causal: bool,
+                    rows: Optional[int] = None) -> torch.Tensor:
+    """``o`` from the streaming kernel (CUDA tensors, checked by the caller),
+    ``rows`` query rows per block (``v1_tile_rows`` unless given)."""
+    batch, heads, n_q, head_dim = q.shape
+    if rows is None:
+        rows = v1_tile_rows("stream", batch, heads, n_q, k.shape[2], head_dim)
     o = torch.empty_like(q)
     err = _lib().fam_flash_v1(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        batch, heads, n_q, k.shape[2], q.shape[-1], sm_scale, int(causal), *_stream_args(q),
+        batch, heads, n_q, k.shape[2], head_dim, rows, sm_scale, int(causal),
+        *_stream_args(q),
     )
     if err:
         raise RuntimeError(f"flash_v1 streaming kernel launch failed: cudaError_t {err}")
@@ -143,18 +181,24 @@ def flash_v1_stream(q, k, v, *, sm_scale: float, causal: bool) -> torch.Tensor:
     return o
 
 
-def flash_v1_folded(q, k, v, fold: int, *, sm_scale: float, causal: bool) -> torch.Tensor:
-    """``o`` from the folded kernel, ``fold`` batch elements per block (CUDA
-    tensors, checked by the caller; ``n_kv <= FOLDED_MAX_KV``)."""
-    batch, heads, n_q, _ = q.shape
-    if k.shape[2] > FOLDED_MAX_KV or batch % fold:
+def flash_v1_folded(q, k, v, fold: int, *, sm_scale: float, causal: bool,
+                    rows: Optional[int] = None) -> torch.Tensor:
+    """``o`` from the folded kernel (CUDA tensors, checked by the caller;
+    ``n_kv <= FOLDED_MAX_KV``), ``rows`` query rows per block
+    (``v1_tile_rows`` unless given).  ``fold``, the JAX route's batch
+    elements per step, must divide the batch; the grid covers every batch
+    element on its own."""
+    batch, heads, n_q, head_dim = q.shape
+    n_kv = k.shape[2]
+    if n_kv > FOLDED_MAX_KV or batch % fold:
         raise ValueError(f"the folded kernel takes n_kv <= {FOLDED_MAX_KV} and a fold "
-                         f"dividing the batch; got n_kv {k.shape[2]}, fold {fold}, batch {batch}")
+                         f"dividing the batch; got n_kv {n_kv}, fold {fold}, batch {batch}")
+    if rows is None:
+        rows = v1_tile_rows("folded", batch, heads, n_q, n_kv, head_dim)
     o = torch.empty_like(q)
     err = _lib().fam_flash_v1_folded(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        batch, heads, n_q, k.shape[2], q.shape[-1], fold, sm_scale, int(causal),
-        *_stream_args(q),
+        batch, heads, n_q, n_kv, head_dim, rows, sm_scale, int(causal), *_stream_args(q),
     )
     if err:
         raise RuntimeError(f"flash_v1 folded kernel launch failed: cudaError_t {err}")

@@ -983,18 +983,33 @@ def test_engine_modes_cuda_match_cpu(cuda, mode):
 # ---------------------------------------------------------------------------
 
 # (q shape, causal, (block_q, block_k) or None): the route each takes is
-# the JAX function's (fv.v1_route).  Folded: one KV tile per row, fold 8, 2
-# and 4 (ragged: 200 columns, not a multiple of the 64-column chunk).
-# Streaming: two 512-column logical blocks, a ragged row of 200 at batch 1
-# (fold 1), and 1000 rows in 200-row logical blocks.
+# the JAX function's (fv.v1_route), the Q-tile height fv.v1_tile_rows's.
+# Folded: one KV tile per row, fold 8, 2 and 4 (ragged: 200 columns, not a
+# multiple of the 64-column tile); every n_kv the sweep sends (128: 64-row
+# tiles, 256 and 512: 32 rows; 16 at head dim 128) and 330, fold 2, in
+# 32-row tiles that do not divide it.  Streaming: two 512-column logical
+# blocks, a ragged row of 200 at batch 1 (fold 1), 1000 rows in 200-row
+# logical blocks, N = 1024 on 128 blocks of 64 rows, and N = 2048 at
+# batch 1 and 2, whose small grids take 32-row tiles.
 V1_CASES = {
     "folded_n128": ((16, 2, 128, 64), False, None),
+    "folded_n256": ((8, 1, 256, 64), False, None),
     "folded_n512_causal": ((4, 2, 512, 64), True, None),
     "folded_ragged_causal": ((4, 1, 200, 64), True, None),
+    "folded_n330": ((2, 1, 330, 64), False, None),
+    "folded_n330_causal": ((2, 1, 330, 64), True, None),
+    "folded_n128_d128": ((8, 1, 128, 128), True, None),
+    "folded_n256_d128": ((4, 1, 256, 128), False, None),
+    "folded_n512_d128_causal": ((2, 1, 512, 128), True, None),
     "stream_n1024": ((2, 2, 1024, 64), False, None),
     "stream_n1024_causal": ((1, 2, 1024, 64), True, None),
     "stream_ragged_n200": ((1, 2, 200, 64), True, None),
     "stream_n1000_blocks200": ((1, 2, 1000, 64), True, (200, 200)),
+    "stream_n1024_b8_causal": ((8, 1, 1024, 64), True, None),
+    "stream_n1024_d128": ((4, 2, 1024, 128), False, None),
+    "stream_n2048_b1": ((1, 1, 2048, 64), True, None),
+    "stream_n2048_b2": ((2, 1, 2048, 64), False, None),
+    "stream_n2048_d128_causal": ((2, 1, 2048, 128), True, None),
 }
 
 
@@ -1016,8 +1031,8 @@ def test_v1_kernels_match_plain(cuda, case, dtype, q_scale):
     before = (kernel.launches, other.launches)
     o = fv.flash_attention_v1(q, k, v, causal=causal, block_q=block_q, block_k=block_k)
     assert (kernel.launches, other.launches) == (before[0] + 1, before[1])
-    want = fv.flash_attention_v1_plain(q.float(), k.float(), v.float(), sm_scale=0.125,
-                                       causal=causal)
+    want = fv.flash_attention_v1_plain(q.float(), k.float(), v.float(),
+                                       sm_scale=shape[-1] ** -0.5, causal=causal)
     torch.cuda.synchronize()
     assert o.dtype == dtype and o.shape == q.shape
     assert float((o.float() - want).abs().max()) <= TOL[dtype]
@@ -1040,12 +1055,22 @@ PLANTED_V1_FAULTS = {
     # the accumulator and the running sum kept unrescaled when the running
     # max rises between KV tiles
     "stream_no_rescale": ("flash_v1", "v1_fp32_n1024_peaked",
-                          "const float alpha = m_next == -INFINITY ? 1.0f : exp2f(m_i - m_next);",
+                          "const float alpha = exp2f(m[a] - base);",
                           "const float alpha = 1.0f;"),
-    # the folded kernel's row max taken over the first 64-column chunk only
+    # the folded kernel's row max taken over the first 64-column K tile only
     "folded_partial_row_max": ("flash_v1_folded", "v1_fp32_n128_spike",
-                               "for (int ch = 0; ch < n_chunks; ++ch) {  // row max",
-                               "for (int ch = 0; ch < 1; ++ch) {  // row max"),
+                               "mx[a] = fmaxf(mx[a], s[a][b]);",
+                               "mx[a] = i == 0 ? fmaxf(mx[a], s[a][b]) : mx[a];"),
+    # the streaming step's row max over 8 of the row's 16 lanes: half its
+    # columns (the spike fixture's column lies in the other half for some
+    # rows' lanes)
+    "stream_partial_step_max": ("flash_v1", "v1_fp32_n1024_spike",
+                                "fmaxf(m[a], reduce_lanes<true, kColGroups>(mx))",
+                                "fmaxf(m[a], reduce_lanes<true, kColGroups / 2>(mx))"),
+    # the causal walk one KV tile short: the diagonal tile is skipped
+    "causal_walk_short": ("flash_v1", "v1_fp32_n1024_causal",
+                          "return causal ? min(n_t, q_last / kTile + 1) : n_t;",
+                          "return causal ? min(n_t, q_last / kTile) : n_t;"),
 }
 
 
@@ -1056,11 +1081,7 @@ def test_planted_v1_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     copy with a planted fault on the fixture that shows it (errors printed
     with ``-s``; NaN counts as a failure)."""
     kernel, shows, old, new = PLANTED_V1_FAULTS[fault]
-    text = (_build.CSRC / "flash_v1.cu").read_text()
-    assert text.count(old) == 1
-    planted = tmp_path / "flash_v1.cu"
-    planted.write_text(text.replace(old, new))
-    lib = fv.bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    lib = fv.bind(_planted_library(tmp_path, "flash_v1.cu", "flash_v1.cu", old, new))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = {n: c for n, c in onchip.v1_cases(gen).items() if c[0] == kernel}
