@@ -13,9 +13,11 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   shapes, 16 requests through ``DecodeEngine``, served logits against a
   plain fp32 forward, kernel/prefill/decode times;
 * the 8-bit and paged KV caches: the quant, paged and paged-quant kernels
-  (``csrc/flash_fwd.cu``) against their plain versions at the serving
-  shapes (int8 and e4m3, bf16 pools, fp32 q at one shape; shuffled page
-  tables), then 16 requests through one engine per mode (``kv_quant``
+  (``csrc/flash_fwd.cu``; decode on the split-KV grid of
+  ``csrc/flash_decode.cuh``) against their plain versions at the serving
+  shapes and the split's edges (int8 and e4m3, bf16 pools, fp32 q at one
+  shape; shuffled page tables), each kernel's time with its split count
+  and blocks, then 16 requests through one engine per mode (``kv_quant``
   int8 and fp8, ``paged``, ``paged`` with ``prefix_share`` on prompts
   sharing their first half, ``paged`` int8), each with its kernel launched
   in prefill and decode and the dense kernel never, and its served logits
@@ -216,7 +218,8 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
         torch.cuda.empty_cache()
 
     # Times at the decode case (most of the path's launches) and the prefill
-    # case, each beside its plain version and its roofline bound.  No PyTorch
+    # case, each beside its plain version and its roofline bound, and the
+    # grid the timed launches took (the wrapper's ``.grid``).  No PyTorch
     # call attends over an 8-bit or paged cache; SDPA on a dense bf16 cache
     # of the same shape (a different function) is timed beside them.
     def timed(case):
@@ -224,8 +227,10 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
         wrapper, plain = onchip.KV_KERNELS[kernel]
         flops, nbytes = onchip.kv_work(kernel, args, pos_div)
         bits = 32 if args[0].dtype == torch.float32 else 16
+        ms = onchip.device_ms(lambda: wrapper(*args, pos_div))
         return {
-            "ms": onchip.device_ms(lambda: wrapper(*args, pos_div)),
+            "ms": ms,
+            **counters[kernel].grid._asdict(),
             "plain_ms": onchip.device_ms(lambda: plain(*args, pos_div), iters=5),
             "bound_ms": roofline.roofline_time(flops, nbytes, spec, bits) * 1e3,
             "bound_by": roofline.bound_by(flops, nbytes, spec, bits),
@@ -250,7 +255,8 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
         rec = {
             "name": kernel,
             "route": "cuda",
-            "source": "flash_attention_metal_tpu_torch/csrc/flash_fwd.cu",
+            "source": "flash_attention_metal_tpu_torch/csrc/flash_decode.cuh",
+            "entry": "flash_attention_metal_tpu_torch/csrc/flash_fwd.cu",
             "replaces": f"flash_attention_metal_tpu/kernels/{line}",
             "launches": launches[kernel],
             "max_abs_err": max(e for k_, d_, e in errors.values()
@@ -271,10 +277,13 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
         if kernel != "flash_paged":
             rec["ms_e4m3"] = timed(f"{tag.format('e4m3')}_decode_bf16")["ms"]
         records.append(rec)
-        print(f"[time] kernel {kernel} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
+        print(f"[time] kernel {kernel} at {rec['shape']}, split-KV grid {rec['kv_splits']} "
+              f"splits of {rec['kv_chunk']} columns, {rec['blocks']} blocks: device "
+              f"{rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
               f"SDPA on a dense bf16 cache {rec['sdpa_dense_bf16_ms']:.4f} ms; prefill q "
-              f"[1,16,512,64] offset 512: device {rec['prefill_ms']:.4f} ms, plain "
+              f"[1,16,512,64] offset 512 ({rec['prefill_blocks']} blocks, unsplit): device "
+              f"{rec['prefill_ms']:.4f} ms, plain "
               f"{rec['prefill_plain_ms']:.4f} ms, bound {rec['prefill_bound_ms']:.4f} ms "
               f"({rec['prefill_bound_by']}), SDPA dense {sdpa_prefill[0]:.4f} ms {stamp}")
     del cases
@@ -656,6 +665,8 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
     from flash_attention_metal_tpu_torch.kernels import flash_v1 as fv
     from flash_attention_metal_tpu_torch.kernels import naive as nv
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
     from flash_attention_metal_tpu_torch.utils import roofline
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -676,12 +687,17 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
         return float(sum(t.numel() * t.element_size() for t in tensors))
 
     def record(name, err, tol, kernel_fn, plain_fn, library, work, bits, shape, d64_fn=None,
-               tag=None):
+               tag=None, wrapper=None):
         """The kernel's record at head dim 128, or with ``tag`` a second
-        shape of its path beside it (keys ``<tag>_ms`` etc.)."""
+        shape of its path beside it (keys ``<tag>_ms`` etc.); with
+        ``wrapper``, the grid its timed launches took (its ``.grid``)."""
         check(err <= tol, f"{name} at head dim 128, {shape}: error {err:.3e} > {tol}")
         r = timed_record(kernel_fn, plain_fn, library, *work, bits, shape, spec)
         r["err"] = err
+        if wrapper is not None:
+            r.update(wrapper.grid._asdict())
+            shape = r["shape"] = (f"{shape}, split-KV grid {r['kv_splits']} splits of "
+                                  f"{r['kv_chunk']} columns, {r['blocks']} blocks")
         if d64_fn is not None:
             r["ms_at_d64"] = onchip.device_ms(d64_fn)
         if tag is None:
@@ -837,6 +853,8 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
            "decode q [8,8,2,128] pos_div 2 over [8,8,2048,128] at onchip.decode_lengths()",
            tag="decode")
     del qd, kd, vd
+    wrappers = {"flash_quant": qt.flash_attention_quant, "flash_paged": pg.flash_attention_paged,
+                "flash_paged_quant": pg.flash_attention_paged_quant}
     for case, (kernel, args, pos_div) in onchip.kv_d128_cases(gen).items():
         err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
         wrapper, plain = onchip.KV_KERNELS[kernel]
@@ -845,7 +863,7 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
                                                "8-bit or paged cache"),
                onchip.kv_work(kernel, args, pos_div), 16,
                "decode q [8,8,2,128] pos_div 2 over [8,8,2048,128] at onchip.decode_lengths()"
-               + ("" if kernel == "flash_paged" else ", int8"))
+               + ("" if kernel == "flash_paged" else ", int8"), wrapper=wrappers[kernel])
         out[kernel]["sdpa_dense_bf16_ms"] = dense[0]
     # Rows 14-16: block-sparse under rung 11's mask.
     bm = onchip.sparse_mask()
@@ -1352,7 +1370,9 @@ def main() -> int:
         rec["max_err_d128"] = r["err"]
         rec.update({f"{key}_d128": value for key, value in r.get("extra", {}).items()})
         for key, name in (("ms_at_d64", "ms_d64_same_shape"), ("workspace_bytes", "workspace_bytes_d128"),
-                          ("sdpa_dense_bf16_ms", "sdpa_dense_bf16_ms_d128")):
+                          ("sdpa_dense_bf16_ms", "sdpa_dense_bf16_ms_d128"),
+                          ("kv_chunk", "kv_chunk_d128"), ("kv_splits", "kv_splits_d128"),
+                          ("blocks", "blocks_d128")):
             if key in r:
                 rec[name] = r[key]
         return rec

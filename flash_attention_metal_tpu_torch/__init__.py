@@ -3,8 +3,9 @@
 Counterpart of ``flash_attention_metal_tpu`` (the JAX package, which stays
 the reference).  Module names mirror the JAX package.  Every kernel is
 hand-written CUDA C++ under ``csrc/``: the general forward over a dense,
-8-bit, paged or paged 8-bit KV cache (``flash_fwd.cu``, one template:
-serving, the op and the training forward), the split backward pair
+8-bit, paged or paged 8-bit KV cache (``flash_fwd.cu``: serving, the op
+and the training forward; decode on the split-KV grid of
+``flash_decode.cuh``), the split backward pair
 (``flash_bwd.cu``, training), and the kernel ladder the benchmark and the
 verification ladder run: naive (``naive.cu``), the single-block forward
 (``flash_lean.cu``) and the triangular causal forward and fused backward

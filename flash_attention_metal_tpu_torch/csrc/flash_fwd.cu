@@ -34,9 +34,10 @@
 // scores.  A row with no visible column gives o = 0 and lse = -inf (the
 // optional lse, natural log, fp32 [B, H, N_q], of the dense entry points).
 //
-// Arithmetic, as the Pallas kernels': 8-bit K/V tiles are widened to q's
-// type in shared memory (exact: int8 and fp8 values fit bf16's 8-bit
-// significand); the K scale multiplies each fp32 score column together
+// Arithmetic, as the Pallas kernels': 8-bit K/V elements are widened
+// exactly (int8 and fp8 values fit bf16's 8-bit significand; the decode
+// grid widens them to fp32 registers, where bf16 products are exact too);
+// the K scale multiplies each fp32 score column together
 // with sm_scale * log2(e); the V scale is folded into P, which is rounded
 // to q's type before the PV product (quant.py:265-270), so bf16 results
 // keep parity with the Pallas kernel.  Unscaled caches skip both scales at
@@ -49,27 +50,29 @@
 // (3.35 TB/s).  Prefill at n_q >= 512 does ~n_q / 2 flops per KV byte:
 // bound by the tensor cores.
 //
-// What this design does about it.
-//   * One block per (64-row q tile, q-head, batch); the KV loop stops at the
-//     last column visible to the tile's last row, so decode reads length[b]
-//     rows of the cache, causal prefill skips the upper triangle, and table
-//     entries past a slot's diagonal (the unallocated zeros) are never
-//     dereferenced.
-//   * Each step's K/V tiles are fetched into registers while the step
-//     before computes, then stored to shared memory; an 8-bit tile is read
-//     16 bytes per thread and widened on that store: HBM traffic is half
-//     of a bf16 cache's.
+// What this design does about it.  Two grids over one contract.
+//   * Decode (n_q <= kDecodeRows = 16: a token, or a KV head's group of
+//     q-heads folded into rows): split-KV (flash_decode.cuh, its instances
+//     in flash_decode*.cu).  The grid is (split, q-head, batch), each split
+//     a chunk of KV columns that the caller picks from static shapes, so a
+//     decode step fills the 132 SMs whatever the slots' lengths; the last
+//     block of a (q-head, batch) merges the splits' partials in split order.
+//   * Everything else (prefill chunks, the fp32 training forward): one
+//     block per (64-row q tile, q-head, batch); the KV loop stops at the
+//     last column visible to the tile's last row, so causal prefill skips
+//     the upper triangle, and table entries past a slot's diagonal (the
+//     unallocated zeros) are never dereferenced.  Each step's K/V tiles are
+//     fetched into registers while the step before computes, then stored to
+//     shared memory, an 8-bit tile widened on that store.  bf16 QK^T and PV
+//     run on the tensor cores through WMMA 16x16x16 fragments with fp32
+//     accumulators.
 //   * Paged addressing is per 64-row KV tile: a page holds whole tiles, so
 //     one table lookup serves a tile and its rows are contiguous.
 //   * Native GQA (KV head h / group): nothing is repeated in memory.  Folded
 //     decode packs a KV head's group q-heads into the rows of one tile, so
 //     the cache streams once per KV head.
-//   * bf16 QK^T and PV run on the tensor cores through WMMA 16x16x16
-//     fragments with fp32 accumulators; warps whose 16 rows are all past n_q
-//     (most of a folded-decode tile) skip their products.
-// Not done yet here: split-KV so that decode fills the 132 SMs; wgmma and a
-// copy ring for the KV caches' bf16 entries; fp8 tensor-core products on
-// the 8-bit tiles themselves.
+// Not done yet here: wgmma and a copy ring for the prefill grid's bf16
+// caches; fp8 tensor-core products on the 8-bit tiles themselves.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -83,13 +86,11 @@
 #include <type_traits>
 
 #include "flash_fwd_sm90.cuh"
+#include "kv_tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kBlockM = 64;   // query rows per block (16 per warp)
-constexpr int kBlockN = 64;   // key columns per KV step
 constexpr int kThreads = 2 * kBlockM;  // two threads per query row
 constexpr int kSCols = kBlockN / 2;    // score columns per thread
 constexpr int kLdP = kBlockN + 8;
@@ -107,38 +108,6 @@ struct Dims {
 // Finite mask value (config.DEFAULT_MASK_VALUE): exp2(mask - mask) is never
 // NaN, and visibility is tested explicitly, so masked entries add nothing.
 constexpr float kMaskValue = -0.7f * FLT_MAX;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kMaxDevices = 64;
-
-// Tags of the two 8-bit float formats (their bytes are loaded as uint8_t).
-struct E4M3 {};
-struct E5M2 {};
-
-// The exact float value of one stored 8-bit element.
-template <typename KV>
-__device__ __forceinline__ float widen(uint8_t x);
-template <>
-__device__ __forceinline__ float widen<int8_t>(uint8_t x) {
-  return static_cast<float>(static_cast<int8_t>(x));
-}
-template <>
-__device__ __forceinline__ float widen<E4M3>(uint8_t x) {
-  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E4M3)));
-}
-template <>
-__device__ __forceinline__ float widen<E5M2>(uint8_t x) {
-  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, __NV_E5M2)));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T, int D>
 struct Smem {
@@ -149,21 +118,6 @@ struct Smem {
   float s[kBlockM * Dims<D>::kLdS];  // scores, then the PV product of the step
   float sk[kBlockN];                 // the step's K and V scales (8-bit caches)
   float sv[kBlockN];
-};
-
-// Where the KV cache lives.  Dense: k, v [B, H_kv, n_kv, D] and scales
-// [B, H_kv, n_kv].  Paged: k, v [n_pages, H_kv, page, D], scales
-// [n_pages, H_kv, page], table [B, max_pages], n_kv = max_pages * page.
-struct KvArgs {
-  const void* k;
-  const void* v;
-  const float* k_scale;  // null for a bf16 / fp32 cache
-  const float* v_scale;
-  const int* table;      // null for a dense cache
-  int n_kv;
-  int page;
-  int max_pages;
-  int n_pages;
 };
 
 // Copy `kRows` rows of D elements (row pitch D in global memory) into
@@ -211,20 +165,6 @@ __device__ __forceinline__ void widen_store(T* dst, uint4 raw) {
       out[w] = make_uint4(__float_as_uint(f[4 * w]), __float_as_uint(f[4 * w + 1]),
                           __float_as_uint(f[4 * w + 2]), __float_as_uint(f[4 * w + 3]));
     }
-  }
-}
-
-// Row index (in head_dim rows of the K/V storage) of the KV tile that
-// starts at logical column kv_start; the tile's rows are contiguous.
-template <bool kPaged>
-__device__ __forceinline__ size_t tile_row0(const KvArgs& kv, int b, int h_kv, int n_kv_heads,
-                                            int kv_start) {
-  if constexpr (kPaged) {
-    const int logical = min(kv_start / kv.page, kv.max_pages - 1);
-    const int phys = min(max(kv.table[(size_t)b * kv.max_pages + logical], 0), kv.n_pages - 1);
-    return ((size_t)phys * n_kv_heads + h_kv) * kv.page + kv_start % kv.page;
-  } else {
-    return ((size_t)b * n_kv_heads + h_kv) * kv.n_kv + kv_start;
   }
 }
 
@@ -505,11 +445,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The split of a call: kv_chunk columns per split (a multiple of 64),
+// part the partials' workspace and tickets one zeroed int32 per (q-head,
+// batch), both needed only when the chunk leaves more than one split.
+struct Split {
+  int kv_chunk;
+  void* part;
+  void* tickets;
+};
+
+// No split: one chunk over the whole row.
+Split whole_row(int n_kv) {
+  return Split{(n_kv + kBlockN - 1) / kBlockN * kBlockN, nullptr, nullptr};
+}
+
+// Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
+// says); the others run one block per 64-row q tile and take no split.
 template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                    void* o, void* lse, int batch, int n_heads, int n_kv_heads,
-                   int n_q, float sm_scale, int causal, int pos_div,
+                   int n_q, float sm_scale, int causal, int pos_div, const Split& split,
                    cudaStream_t stream, int fixed_offset = 0) {
+  if (n_q <= kDecodeRows) {
+    const fam::DecodeCall call{q, kv, static_cast<const int*>(q_offset), o,
+                               static_cast<float*>(lse), batch, n_heads, n_kv_heads, n_q,
+                               sm_scale, causal, pos_div, fixed_offset, split.kv_chunk,
+                               static_cast<float*>(split.part), static_cast<int*>(split.tickets),
+                               stream};
+    constexpr int dtype = std::is_same<T, bf16>::value ? 0 : 1;
+    if constexpr (std::is_same<KV, T>::value) {
+      return fam::flash_decode_native(call, dtype, D, kPaged);
+    } else if constexpr (std::is_same<KV, int8_t>::value) {
+      return fam::flash_decode_int8(call, dtype, D, kPaged);
+    } else if constexpr (std::is_same<KV, E4M3>::value) {
+      return fam::flash_decode_e4m3(call, dtype, D, kPaged);
+    } else {
+      return fam::flash_decode_e5m2(call, dtype, D, kPaged);
+    }
+  }
   const int smem = (int)sizeof(Smem<T, D>);
   // The dynamic shared-memory limit is raised once per kernel and device.
   static bool smem_set[kMaxDevices] = {};
@@ -537,10 +510,10 @@ template <bool kPaged, int D>
 cudaError_t launch_8bit(int dtype, int kv_dtype, const void* q, const KvArgs& kv,
                         const void* q_offset, void* o, void* lse, int batch,
                         int n_heads, int n_kv_heads, int n_q, float sm_scale,
-                        int causal, int pos_div, cudaStream_t s) {
-#define FAM_LAUNCH(T, KV)                                                        \
-  return launch<T, KV, kPaged, D>(q, kv, q_offset, o, lse, batch, n_heads,      \
-                                  n_kv_heads, n_q, sm_scale, causal, pos_div, s)
+                        int causal, int pos_div, const Split& split, cudaStream_t s) {
+#define FAM_LAUNCH(T, KV)                                                             \
+  return launch<T, KV, kPaged, D>(q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, \
+                                  n_q, sm_scale, causal, pos_div, split, s)
   if (dtype == 0 && kv_dtype == 1) FAM_LAUNCH(bf16, int8_t);
   if (dtype == 0 && kv_dtype == 2) FAM_LAUNCH(bf16, E4M3);
   if (dtype == 0 && kv_dtype == 3) FAM_LAUNCH(bf16, E5M2);
@@ -561,38 +534,56 @@ bool bad_pages(int n_pages, int page_size, int max_pages) {
   return n_pages < 1 || max_pages < 1 || page_size < kBlockN || page_size % kBlockN != 0;
 }
 
+// A chunk is a positive multiple of 64 columns; more than one split needs
+// a decode tile, the workspace and the tickets.
+bool bad_split(int n_q, int n_kv, const Split& split) {
+  if (split.kv_chunk < kBlockN || split.kv_chunk % kBlockN != 0) return true;
+  if (split.kv_chunk >= n_kv) return false;
+  return n_q > kDecodeRows || split.part == nullptr || split.tickets == nullptr;
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (kernels/flash_fwd.py, kernels/quant.py,
 // kernels/paged.py).  Pointers are device pointers of contiguous tensors;
 // q and o are [B, H, N_q, D]; dtype is q's: 0 = bf16, 1 = fp32.  Each
 // returns the launch's cudaError_t (0 on success).
+//
+// The split of every entry: kv_chunk, the KV columns of a split (a
+// multiple of 64; n_splits = ceil(n_kv / kv_chunk), n_kv the dense
+// length or max_pages * page_size); more than one split only for n_q <= 16,
+// with part, fp32 [B * H * n_splits * n_q * (D + 2)], and tickets, int32
+// [B * H] all zero (each call leaves them zero again).
 
 // Dense cache in q's type: k, v [B, H_kv, N, D], D = head_dim 64 or 128;
 // q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null.
-// bf16 with pos_div == 1 runs the wgmma kernel (flash_fwd_sm90.cuh).
+// bf16 with pos_div == 1 and n_q > 16 runs the wgmma kernel
+// (flash_fwd_sm90.cuh).
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
                              int n_kv, int head_dim, float sm_scale,
-                             int causal, int pos_div, int dtype, void* stream) {
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || n_kv < 1) {
+                             int causal, int pos_div, int dtype, int kv_chunk,
+                             void* part, void* tickets, void* stream) {
+  const Split split{kv_chunk, part, tickets};
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || n_kv < 1 ||
+      bad_split(n_q, n_kv, split)) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
-  if (dtype == 0 && pos_div == 1 && head_dim == 64) {
+  if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 64) {
     return (int)sm90::launch_fwd<64>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
                                      n_kv, sm_scale, causal, s);
   }
-  if (dtype == 0 && pos_div == 1 && head_dim == 128) {
+  if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 128) {
     return (int)sm90::launch_fwd<128>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
                                       n_kv, sm_scale, causal, s);
   }
 #define FAM_LAUNCH(T, D)                                                                 \
   return (int)launch<T, T, false, D>(q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, \
-                                     n_q, sm_scale, causal, pos_div, s)
+                                     n_q, sm_scale, causal, pos_div, split, s)
   if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
   if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
   if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
@@ -603,7 +594,7 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
 
 // The fp32 lean and triangular forward (the entries of flash_lean.cu and
 // flash_tri.cu): the dense fp32 template with one int causal offset,
-// q_offset, for every batch.
+// q_offset, for every batch, unsplit.
 namespace fam {
 cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o, void* lse,
                             int batch, int n_heads, int n_kv_heads, int n_q, int n_kv,
@@ -612,10 +603,12 @@ cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   if (head_dim == 64) {
     return launch<float, float, false, 64>(q, kv, nullptr, o, lse, batch, n_heads, n_kv_heads,
-                                           n_q, sm_scale, causal, 1, stream, q_offset);
+                                           n_q, sm_scale, causal, 1, whole_row(n_kv), stream,
+                                           q_offset);
   }
   return launch<float, float, false, 128>(q, kv, nullptr, o, lse, batch, n_heads, n_kv_heads,
-                                          n_q, sm_scale, causal, 1, stream, q_offset);
+                                          n_q, sm_scale, causal, 1, whole_row(n_kv), stream,
+                                          q_offset);
 }
 }  // namespace fam
 
@@ -628,9 +621,11 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                int batch, int n_heads, int n_kv_heads, int n_q,
                                int n_kv, int head_dim, float sm_scale,
                                int causal, int pos_div, int dtype,
-                               int kv_dtype, void* stream) {
+                               int kv_dtype, int kv_chunk, void* part, void* tickets,
+                               void* stream) {
+  const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      n_kv < 1) {
+      n_kv < 1 || bad_split(n_q, n_kv, split)) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
@@ -639,10 +634,10 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
   return (int)(head_dim == 64
                    ? launch_8bit<false, 64>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
                                             n_heads, n_kv_heads, n_q, sm_scale, causal,
-                                            pos_div, s)
+                                            pos_div, split, s)
                    : launch_8bit<false, 128>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
                                              n_heads, n_kv_heads, n_q, sm_scale, causal,
-                                             pos_div, s));
+                                             pos_div, split, s));
 }
 
 // bf16 / fp32 page pool: pool_k, pool_v [n_pages, H_kv, page_size, D] in
@@ -654,9 +649,12 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
                                int n_heads, int n_kv_heads, int n_q,
                                int n_pages, int page_size, int max_pages,
                                int head_dim, float sm_scale, int pos_div,
-                               int dtype, void* stream) {
+                               int dtype, int kv_chunk, void* part, void* tickets,
+                               void* stream) {
+  const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      bad_pages(n_pages, page_size, max_pages)) {
+      bad_pages(n_pages, page_size, max_pages) ||
+      bad_split(n_q, max_pages * page_size, split)) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{pool_k, pool_v, nullptr, nullptr, static_cast<const int*>(table),
@@ -664,7 +662,7 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FAM_LAUNCH(T, D)                                                                  \
   return (int)launch<T, T, true, D>(q, kv, lengths, o, nullptr, batch, n_heads, n_kv_heads, \
-                                    n_q, sm_scale, 1, pos_div, s)
+                                    n_q, sm_scale, 1, pos_div, split, s)
   if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
   if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
   if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
@@ -685,9 +683,12 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
                                      int n_kv_heads, int n_q, int n_pages,
                                      int page_size, int max_pages, int head_dim,
                                      float sm_scale, int pos_div, int dtype,
-                                     int kv_dtype, void* stream) {
+                                     int kv_dtype, int kv_chunk, void* part, void* tickets,
+                                     void* stream) {
+  const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      bad_pages(n_pages, page_size, max_pages)) {
+      bad_pages(n_pages, page_size, max_pages) ||
+      bad_split(n_q, max_pages * page_size, split)) {
     return (int)cudaErrorInvalidValue;
   }
   const KvArgs kv{pool_k_q, pool_v_q, static_cast<const float*>(pool_k_scale),
@@ -697,7 +698,9 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(head_dim == 64
                    ? launch_8bit<true, 64>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
-                                           n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div, s)
+                                           n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div,
+                                           split, s)
                    : launch_8bit<true, 128>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
-                                            n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div, s));
+                                            n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div,
+                                            split, s));
 }

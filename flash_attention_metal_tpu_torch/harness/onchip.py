@@ -7,6 +7,7 @@ its own on a CUDA card:
     python -m flash_attention_metal_tpu_torch.harness.onchip profile [serving|train] [--mode M]
     python -m flash_attention_metal_tpu_torch.harness.onchip kernels [--csrc DIR]
     python -m flash_attention_metal_tpu_torch.harness.onchip v1_tiles
+    python -m flash_attention_metal_tpu_torch.harness.onchip decode_splits
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
@@ -23,7 +24,9 @@ backward (with the backward's workspace bytes), built from the package's
 sources: two versions compared on one card, in turns.  ``v1_tiles`` times
 each V1 kernel at every Q-tile height it takes, at every point of the
 benchmark's sweep (and at head dim 128 at N = 128 and 1024), beside the
-height ``v1_tile_rows`` picks.  Every line it prints carries the card's
+height ``v1_tile_rows`` picks.  ``decode_splits`` times the decode kernels
+(``csrc/flash_decode.cuh``) at every KV chunk of their split grid, beside the
+chunk ``decode_kv_chunk`` picks.  Every line it prints carries the card's
 name and power limit.
 """
 
@@ -112,6 +115,9 @@ TRAIN_FP32_Q, TRAIN_FP32_KV = (4, 16, 512, 64), (4, 8, 512, 64)
 # The same attention at head dim 128, and the decode case's.
 TRAIN_D128_Q, TRAIN_D128_KV = (4, 16, 2048, 128), (4, 8, 2048, 128)
 DECODE_D128_Q, DECODE_D128_KV = (8, 8, 2, 128), (8, 8, 2048, 128)
+# Unfolded decode (pos_div 1) of a model without GQA: a token of 16 heads
+# over as many KV heads.
+DECODE_MHA_Q, DECODE_MHA_KV = (8, 16, 1, 64), (8, 16, 2048, 64)
 # Backward kernels against their fp32 plain version: max-abs error over
 # max-abs of the plain gradient, per gradient.  Gradients grow with N and
 # with the fixture's peakedness (dK is O(10) on the peaked one), so an
@@ -558,26 +564,48 @@ def to_pages(x: torch.Tensor, perm: torch.Tensor, n_pages: int) -> torch.Tensor:
     return pool
 
 
+def skewed_lengths() -> np.ndarray:
+    """One slot at 2047 (the whole cache), seven at 64: the decode step
+    whose time one long slot sets without a split."""
+    return np.array([2047] + [64] * 7, dtype=np.int32)
+
+
+# The decode grid's edges (csrc/flash_decode.cuh splits the KV walk of decode
+# calls): skewed slots, every slot at length 0 (all splits but the first
+# empty), a row of 1920 columns (not a whole number of the serving shape's
+# 256-column chunks), and head dim 128 over 128-row pages.
+DECODE_N1920_KV = (8, 8, 1920, 64)
+KV_EDGE_FIXTURES = {"decode_skewed": ("", "_peaked"), "decode_empty": ("",),
+                    "decode_n1920": ("",), "decode_d128": ("", "_peaked")}
+
+
 def kv_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
     """``{name: (kernel, args, pos_div)}`` for ``KV_KERNELS`` at the serving
     path's shapes: folded decode (``DECODE_Q`` over ``DECODE_KV`` at
     ``decode_lengths()``) and a 512-row prefill chunk at offset 512; the
     ladder, peaked (q x 8) and spike fixtures; int8 and e4m3 for the 8-bit
-    kernels, bf16 pools for the paged one, and fp32 q on the prefill shape.
+    kernels, bf16 pools for the paged one, and fp32 q on the prefill shape;
+    then the split's edges in bf16 (``KV_EDGE_FIXTURES``).
     Every page table is shuffled, with page 0 (NaN) past each slot's
     diagonal (``paged_layout``, ``to_pages``)."""
     lengths = torch.from_numpy(decode_lengths()).to("cuda")
     shapes = {
         "decode": (DECODE_Q, DECODE_KV, lengths, 2),
         "prefill": (PREFILL_Q, PREFILL_KV, torch.tensor([512], dtype=torch.int32, device="cuda"), 1),
+        "decode_skewed": (DECODE_Q, DECODE_KV, torch.from_numpy(skewed_lengths()).to("cuda"), 2),
+        "decode_empty": (DECODE_Q, DECODE_KV, torch.zeros_like(lengths), 2),
+        "decode_n1920": (DECODE_Q, DECODE_N1920_KV, lengths.clamp(max=DECODE_N1920_KV[2] - 1), 2),
+        "decode_d128": (DECODE_D128_Q, DECODE_D128_KV, lengths, 2),
     }
     fixtures = {
         "": lambda sq, skv, dt: ladder_inputs(sq, skv, dt, gen),
         "_peaked": lambda sq, skv, dt: ladder_inputs(sq, skv, dt, gen, PEAKED_Q_SCALE),
         "_spike": lambda sq, skv, dt: spike_inputs(sq, skv, dt, gen),
     }
-    runs = [(shape, fix, torch.bfloat16) for shape in shapes for fix in fixtures]
+    runs = [(shape, fix, torch.bfloat16) for shape in ("decode", "prefill") for fix in fixtures]
     runs.append(("prefill", "", torch.float32))
+    runs += [(shape, fix, torch.bfloat16) for shape, fixes in KV_EDGE_FIXTURES.items()
+             for fix in fixes]
     cases = {}
     for shape, fix, dtype in runs:
         shape_q, shape_kv, off, pos_div = shapes[shape]
@@ -985,9 +1013,12 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
     The forward: the general kernel at the training shape (``TRAIN_Q``,
     causal, with its lse) and the prefill chunk (offset 512) at head dim 64
     and 128, and in fp32 at the prefill chunk; folded decode (``DECODE_Q``
-    at ``decode_lengths()``); lean at the sweep's N = 1024 and N = 128 (D 64
-    and 128, bf16) and at the ladder's N = 1024 in fp32; the quant (int8),
-    paged and paged-quant (int8) kernels at folded decode.  Naive in fp32
+    at ``decode_lengths()``, D 64 and 128), and unfolded bf16 decode of one
+    token (``DECODE_MHA_Q`` over ``DECODE_MHA_KV``); lean at the sweep's N = 1024 and
+    N = 128 (D 64 and 128, bf16) and at the ladder's N = 1024 in fp32; the
+    quant (int8), paged and paged-quant (int8) kernels at folded decode (D
+    64 and 128, and D 64 at ``skewed_lengths()``) and at the prefill chunk;
+    SDPA over a dense bf16 cache at folded decode (D 64 and 128).  Naive in fp32
     at the sweep's N = 1024 (plain and causal), N = 128 and N = 1024 at
     head dim 128.  V1 in fp32 through ``flash_attention_v1`` (the kernel its
     route takes): streaming at the sweep's N = 1024, folded at N = 128, each
@@ -1038,11 +1069,30 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
             m.pg.flash_attention_paged_quant(q, pk, pv, pks, pvs, table, lengths,
                                              pos_div=pos_div),
     }
-    decode = ("quant_int8_decode_bf16", "paged_decode_bf16", "paged_quant_int8_decode_bf16")
+    timed = [f"{k}_{shape}_bf16" for k in ("quant_int8", "paged", "paged_quant_int8")
+             for shape in ("decode", "decode_skewed", "prefill")]
     for name, (kernel, args, pos_div) in kv_cases(gen).items():
-        if name in decode:
+        if name in timed:
             times[name.replace("_bf16", "")] = device_ms(
                 lambda: kv_wrappers[kernel](*args, pos_div))
+    for name, (kernel, args, pos_div) in kv_d128_cases(gen).items():
+        times[name.replace("_bf16", "")] = device_ms(lambda: kv_wrappers[kernel](*args, pos_div))
+    q, k, v = ladder_inputs(DECODE_D128_Q, DECODE_D128_KV, bf16, gen)
+    times["fwd_decode_d128"] = device_ms(
+        lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True, pos_div=2))
+    # Unfolded decode of an MHA model: one token of 16 heads over 16 KV
+    # heads, bf16, pos_div 1.
+    q, k, v = ladder_inputs(DECODE_MHA_Q, DECODE_MHA_KV, bf16, gen)
+    times["fwd_decode_unfolded_d64"] = device_ms(
+        lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True))
+    # The yardstick: SDPA over a dense bf16 cache at the decode shape, each
+    # KV head's group as q-heads.
+    for tag, kv_shape in (("d64", DECODE_KV), ("d128", DECODE_D128_KV)):
+        b, h, n_kv, d = kv_shape
+        qd, kd, vd = ladder_inputs((b, 2 * h, 1, d), kv_shape, bf16, gen)
+        mask = (torch.arange(n_kv, device="cuda") <= lengths[:, None])[:, None, None, :]
+        times[f"sdpa_dense_decode_{tag}"] = sdpa_ms(qd, kd, vd, mask=mask)[0]
+    del q, k, v, qd, kd, vd
     for tag, shape, causal in (("n1024", SWEEP_1024, False), ("n1024_causal", SWEEP_1024, True),
                                ("n128", SWEEP_128, False), ("n1024_d128", SWEEP_1024_D128, False)):
         q, k, v = ladder_inputs(shape, shape, f32, gen)
@@ -1124,9 +1174,77 @@ def v1_tile_times(log=print) -> List[dict]:
     return out
 
 
+SPLIT_CHUNKS = (64, 128, 192, 256, 384, 512, 768, 1024, 2048)
+
+
+def decode_split_times(log=print) -> List[dict]:
+    """Device ms of each decode kernel (``csrc/flash_decode.cuh``) at every
+    chunk of ``SPLIT_CHUNKS`` (bf16, the ladder fixture): the quant (int8),
+    paged and paged-quant (int8) kernels and the dense folded decode at the
+    serving shape (``DECODE_Q`` over ``DECODE_KV``, D 64 and 128) at
+    ``decode_lengths()`` and ``skewed_lengths()``, and the quant kernel at
+    1 to 64 slots (``decode_lengths()`` from its 2046-long slot on,
+    repeated); beside the chunk ``decode_kv_chunk`` picks.  A chunk is
+    forced by standing in for ``decode_kv_chunk``; each time's blocks are
+    the wrapper's ``.grid`` at its last launch."""
+    from unittest import mock
+
+    from ..kernels import flash_fwd as ff
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+
+    def row(what, shape_q, n_kv, wrapper, call):
+        b, h, n_q, _ = shape_q
+        rule = ff.decode_kv_chunk(b, h, n_q, n_kv, sms)
+        rec = {"case": what, "q": list(shape_q), "n_kv": n_kv, "rule": rule, "ms": {},
+               "blocks": {}}
+        for chunk in sorted({c for c in SPLIT_CHUNKS if c <= n_kv} | {rule}):
+            with mock.patch.object(ff, "decode_kv_chunk", lambda *shape, c=chunk: c):
+                rec["ms"][chunk] = device_ms(call)
+            rec["blocks"][chunk] = wrapper.grid.blocks
+        out.append(rec)
+        log(json.dumps(rec))
+
+    for lengths_name, lengths_np in (("decode_lengths", decode_lengths()),
+                                     ("skewed", skewed_lengths())):
+        lengths = torch.from_numpy(lengths_np).to("cuda")
+        for shape_q, shape_kv in ((DECODE_Q, DECODE_KV), (DECODE_D128_Q, DECODE_D128_KV)):
+            q, k, v = ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+            b, _, n_kv, d = shape_kv
+            perm, table, n_pages = paged_layout(b, n_kv, lengths, shape_q[2], 2, gen)
+            qkv = quantize_kv(k, v, torch.int8)
+            runs = {
+                "flash_quant": (flash_attention_quant, (q, qkv, lengths)),
+                "flash_paged": (flash_attention_paged, (
+                    q, *(to_pages(x, perm, n_pages) for x in (k, v)), table, lengths)),
+                "flash_paged_quant": (flash_attention_paged_quant, (q, *(
+                    to_pages(x, perm, n_pages) for x in (qkv.k_q, qkv.v_q, qkv.k_scale,
+                                                         qkv.v_scale)), table, lengths)),
+            }
+            for kernel, (wrapper, args) in runs.items():
+                row(f"{kernel} d{d} {lengths_name}", shape_q, n_kv, wrapper,
+                    lambda: KV_KERNELS[kernel][0](*args, 2))
+            row(f"flash_fwd folded d{d} {lengths_name}", shape_q, n_kv, ff.flash_fwd_general,
+                lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True, pos_div=2))
+            del q, k, v, qkv, runs
+    for slots in (1, 2, 4, 16, 32, 64):
+        shape_q, shape_kv = (slots,) + DECODE_Q[1:], (slots,) + DECODE_KV[1:]
+        q, k, v = ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        lengths = torch.from_numpy(np.resize(np.roll(decode_lengths(), -1), slots)).to("cuda")
+        qkv = quantize_kv(k, v, torch.int8)
+        row(f"flash_quant d64, {slots} slots", shape_q, shape_kv[2], flash_attention_quant,
+            lambda: KV_KERNELS["flash_quant"][0](q, qkv, lengths, 2))
+        del q, k, v, qkv
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("sweep", "profile", "kernels", "v1_tiles"))
+    parser.add_argument("what", choices=("sweep", "profile", "kernels", "v1_tiles",
+                                         "decode_splits"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
@@ -1144,6 +1262,10 @@ def main(argv=None) -> int:
         return 0
     if args.what == "sweep":
         sweep(stamp)
+        return 0
+    if args.what == "decode_splits":
+        print(f"[decode_splits] {stamp}")
+        decode_split_times(log=lambda line: print(f"[decode_splits] {line}"))
         return 0
     if args.what == "v1_tiles":
         print(f"[v1_tiles] {stamp}")

@@ -18,7 +18,15 @@ Counterpart of ``flash_attention_metal_tpu/kernels/flash_fwd.py``.
 Lean and general compute one function (lean's offset is one int for every
 batch), so on the card their bf16 calls with ``pos_div == 1`` run one
 ``wgmma`` kernel (``csrc/flash_fwd_sm90.cuh``), each entry with its own
-launch count; fp32 and folded decode run ``csrc/flash_fwd.cu``'s template.
+launch count; fp32 prefill runs ``csrc/flash_fwd.cu``'s template.
+
+Decode (``n_q <= DECODE_ROWS``) runs the split-KV grid of
+``csrc/flash_decode.cuh`` over every cache, dense or not: the
+KV columns are cut into chunks of ``decode_kv_chunk`` columns, a pure
+function of static shapes and the card's SM count, each chunk a block; the
+last block of a (q-head, batch) merges the chunks' partials
+(``merge_splits_plain`` is that merge in PyTorch).  The wrappers of the
+dense, 8-bit and paged caches share ``split_args`` for it.
 
 fp16 inputs run the fp32 route and are cast back, as in JAX (Mosaic has no
 fp16 datapath; the CUDA kernels take bf16 and fp32).  The JAX router also
@@ -36,7 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -82,6 +90,133 @@ def _offsets(q_offset, batch: int, default: int, device) -> torch.Tensor:
     return off.expand(batch).contiguous() if off.numel() == 1 else off
 
 
+# Query rows of the decode grid's tile (csrc/kv_tiles.cuh, kDecodeRows):
+# calls with at most this many rows split their KV walk across blocks.
+DECODE_ROWS = 16
+# Rows of the kernels' KV tile: a chunk is a whole number of tiles.
+KV_TILE = 64
+# The decode grid's split rule, measured by ``onchip decode_splits`` on an
+# H100 (1 to 64 slots of 8 folded KV heads over 2048 columns, D 64 and
+# 128): chunks of fewer than 4 tiles lose more to the merge and the
+# blocks' fixed costs than they gain, and past about 16 blocks per SM a
+# longer chunk is as fast.
+SPLIT_BLOCKS_PER_SM = 16
+MIN_CHUNK_TILES = 4
+
+
+def decode_kv_chunk(batch: int, heads: int, n_q: int, n_kv: int, sm_count: int) -> int:
+    """KV columns per split of a call: a multiple of ``KV_TILE``, from static
+    shapes alone (never from the slots' lengths, which live on the device).
+
+    A call of more than ``DECODE_ROWS`` query rows keeps one block per
+    64-row q tile and is not split (one chunk over the row).  A decode call
+    has one block per (q-head, batch); its row is cut into chunks of at
+    least ``MIN_CHUNK_TILES`` tiles, and into as many more as it takes to
+    give the grid ``SPLIT_BLOCKS_PER_SM`` blocks per SM.  The head dim does
+    not enter the rule: the bytes of a tile scale with it on both sides of
+    the trade (the same chunk measured fastest at 64 and 128).  At the
+    serving shape (64 units over 2048 columns) the tile floor alone sets
+    the chunk; the blocks-per-SM term lengthens it from 64 slots up.
+    """
+    tiles = -(-n_kv // KV_TILE)
+    if n_q > DECODE_ROWS:
+        return tiles * KV_TILE
+    splits = -(-SPLIT_BLOCKS_PER_SM * sm_count // (batch * heads))
+    return min(tiles, max(MIN_CHUNK_TILES, -(-tiles // splits))) * KV_TILE
+
+
+def kv_splits(n_kv: int, kv_chunk: int) -> int:
+    """Blocks a (q-head, batch) of a call takes: chunks of its KV row."""
+    return -(-n_kv // kv_chunk)
+
+
+class SplitGrid(NamedTuple):
+    """The grid of one launch of a ``csrc/flash_fwd.cu`` entry: KV columns
+    per split, splits per (q-head, batch), and blocks (split x q-head x
+    batch on the decode grid; 64-row q tile x q-head x batch above it)."""
+
+    kv_chunk: int
+    kv_splits: int
+    blocks: int
+
+
+def split_workspace_numel(batch: int, heads: int, n_q: int, head_dim: int, splits: int) -> int:
+    """fp32 elements of the partials: o ``[B*H*splits*n_q, D]``, then m and l."""
+    return batch * heads * splits * n_q * (head_dim + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _cuda_args(q: torch.Tensor) -> Tuple[int, int]:
+    """``(stream, sm_count)`` of the card q lies on."""
+    return torch.cuda.current_stream(q.device).cuda_stream, _sm_count(q.device.index)
+
+
+# One int32 ticket per (q-head, batch), all zero between calls (the merging
+# block resets its own), per (device, stream): calls on one stream run in
+# order, so they never share a ticket at once.
+_TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (str(device), stream)
+    held = _TICKETS.get(key)
+    if held is None or held.numel() < n:
+        held = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return held
+
+
+def split_args(q: torch.Tensor, n_kv: int) -> tuple:
+    """``(grid, part, tickets, stream)`` for a launch of a
+    ``csrc/flash_fwd.cu`` entry over q and a KV row of ``n_kv`` columns:
+    the ``SplitGrid`` of ``decode_kv_chunk``'s chunk, and for more than one
+    split the partials' workspace (torch's caching allocator: no
+    ``cudaMalloc`` per call) and the stream's tickets; else None for both.
+    Keep ``part`` alive until the launch has been issued.  The wrapper
+    keeps ``grid`` as its ``.grid`` beside its ``.launches``."""
+    batch, heads, n_q, head_dim = q.shape
+    stream, sms = _cuda_args(q)
+    kv_chunk = decode_kv_chunk(batch, heads, n_q, n_kv, sms)
+    splits = kv_splits(n_kv, kv_chunk)
+    tiles = splits if n_q <= DECODE_ROWS else -(-n_q // KV_TILE)
+    grid = SplitGrid(kv_chunk, splits, tiles * heads * batch)
+    if splits == 1:
+        return grid, None, None, stream
+    part = torch.empty(split_workspace_numel(batch, heads, n_q, head_dim, splits),
+                       dtype=torch.float32, device=q.device)
+    return grid, part, _tickets(q.device, stream, batch * heads), stream
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale):
+    """The plain versions' fp32 ``(scores, visible, v, v_scale columns)``:
+    K/V repeated to q's heads, the K scale on each score column, the causal
+    visibility ``c <= r // pos_div + q_offset[b]``, and the V scale as a
+    ``[B, H, 1, N_kv]`` factor of P's columns (None unscaled)."""
+    b, h, n_q, _ = q.shape
+    n_kv = k.shape[2]
+    group = h // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
+    if k_scale is not None:
+        s = s * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
+    visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=q.device)
+    if causal:
+        row = torch.arange(n_q, device=q.device) // pos_div
+        col = torch.arange(n_kv, device=q.device)
+        limit = row[:, None] + q_offset.to(q.device, torch.int64).reshape(b, 1, 1, 1)
+        visible = col <= limit
+    v_cols = None if v_scale is None else v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
+    return s, visible, vf, v_cols
+
+
 def flash_attention_fwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -101,31 +236,80 @@ def flash_attention_fwd_plain(
     an 8-bit ``k``, ``v`` (``kernels/quant.py``): the K scale multiplies
     each score column, the V scale each column of P.
     """
-    b, h, n_q, _ = q.shape
-    n_kv = k.shape[2]
-    group = h // k.shape[1]
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
-    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
-    if k_scale is not None:
-        s = s * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
-    visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=q.device)
-    if causal:
-        row = torch.arange(n_q, device=q.device) // pos_div
-        col = torch.arange(n_kv, device=q.device)
-        limit = row[:, None] + q_offset.to(q.device, torch.int64).reshape(b, 1, 1, 1)
-        visible = col <= limit
+    s, visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
+                                           k_scale, v_scale)
     s = s.masked_fill(~visible, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * visible
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    pv = p if v_scale is None else p * v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
+    pv = p if v_cols is None else p * v_cols
     o = (torch.matmul(pv, vf) / l_safe).to(q.dtype)
     if not save_lse:
         return o
     lse = torch.where(l == 0.0, float("-inf"), m + torch.log(l_safe))[..., 0]
     return o, lse
+
+
+def split_partials_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: torch.Tensor,
+    kv_chunk: int,
+    *,
+    sm_scale: float,
+    causal: bool,
+    pos_div: int = 1,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decode grid's partials in fp32 PyTorch: ``(o_s, m_s, l_s)``, each
+    with a leading split axis, for chunks of ``kv_chunk`` columns.
+
+    Split s sees the columns of ``[s * kv_chunk, (s + 1) * kv_chunk)`` that
+    the contract lets a row see: ``m_s`` is the row's max score over them
+    (natural log units), ``l_s = sum exp(s - m_s)``, ``o_s = sum exp(s - m_s)
+    * s_v * v``, not normalised.  A row that sees none of a split's columns
+    (a chunk past the diagonal: an empty split) has ``m_s = -inf``, ``l_s =
+    0`` and ``o_s = 0``.
+    """
+    s, visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
+                                           k_scale, v_scale)
+    n_kv = k.shape[2]
+    col = torch.arange(n_kv, device=q.device)
+    os_, ms_, ls_ = [], [], []
+    for start in range(0, n_kv, kv_chunk):
+        seen = visible & (col >= start) & (col < start + kv_chunk)
+        m = s.masked_fill(~seen, float("-inf")).amax(dim=-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)).masked_fill(~seen, 0.0)
+        pv = p if v_cols is None else p * v_cols
+        os_.append(torch.matmul(pv, vf))
+        ms_.append(m[..., 0])
+        ls_.append(p.sum(dim=-1))
+    return torch.stack(os_), torch.stack(ms_), torch.stack(ls_)
+
+
+def merge_splits_plain(
+    o_s: torch.Tensor, m_s: torch.Tensor, l_s: torch.Tensor, dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` from the splits' partials (``split_partials_plain``'s
+    layout), merged in split order: ``o = sum_s e^(m_s - M) o_s / sum_s
+    e^(m_s - M) l_s`` with ``M = max_s m_s``, ``lse = M + log L``; a split
+    with ``m_s = -inf`` weighs 0, and a row that no split saw gives 0 and
+    -inf.  ``o`` in ``dtype``, ``lse`` fp32."""
+    big = m_s.amax(dim=0)
+    safe = torch.where(torch.isinf(big), 0.0, big)
+    weight = torch.where(torch.isinf(m_s), 0.0, torch.exp(m_s - safe))
+    o = torch.zeros_like(o_s[0])
+    total = torch.zeros_like(l_s[0])
+    for s in range(o_s.shape[0]):
+        o = o + weight[s][..., None] * o_s[s]
+        total = total + weight[s] * l_s[s]
+    seen = total > 0.0
+    o = o / torch.where(seen, total, 1.0)[..., None]
+    lse = torch.where(seen, big + torch.log(torch.where(seen, total, 1.0)), float("-inf"))
+    return o.to(dtype), lse
 
 
 def flash_fwd_lean_plain(
@@ -154,6 +338,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, q_offset, o, lse
         i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
         ctypes.c_float, i32, i32, i32,  # sm_scale, causal, pos_div, dtype
+        i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
     lib.fam_flash_fwd.restype = ctypes.c_int
@@ -231,8 +416,8 @@ def flash_fwd_general(
     pos_div: int = 1,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The general kernel (``csrc/flash_fwd.cu``; bf16 with ``pos_div ==
-    1`` on the ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cuh``) over
-    ``[B, H, N, D]``.
+    1`` and more than ``DECODE_ROWS`` rows on the ``wgmma`` kernel of
+    ``csrc/flash_fwd_sm90.cuh``) over ``[B, H, N, D]``.
 
     ``k``/``v`` may have fewer heads than ``q`` (GQA: q-head ``h`` reads
     kv-head ``h // group``).  With ``causal``, row ``r`` of batch ``b`` sees
@@ -261,15 +446,16 @@ def flash_fwd_general(
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, off)
     o, lse = _new_outputs(q, save_lse)
+    grid, part, tickets, stream = split_args(q, n_kv)
     err = _lib().fam_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, k.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
-        pos_div, _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        pos_div, _DTYPE_CODES[q.dtype], grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
     flash_fwd_general.launches += 1
+    flash_fwd_general.grid = grid
     return (o, lse) if save_lse else o
 
 
@@ -329,8 +515,10 @@ def flash_fwd_lean(
     return (o, lse) if save_lse else o
 
 
-# Launches of each CUDA kernel since import (the CPU route does not count).
+# Launches of each CUDA kernel since import (the CPU route does not count),
+# and the general entry's grid at its last launch (None before one).
 flash_fwd_general.launches = 0
+flash_fwd_general.grid = None
 flash_fwd_lean.launches = 0
 
 

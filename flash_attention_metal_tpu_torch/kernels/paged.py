@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from ..config import default_scale
-from .flash_fwd import _DTYPE_CODES, flash_attention_fwd_plain, reject_unported
+from .flash_fwd import _DTYPE_CODES, _ptr, flash_attention_fwd_plain, reject_unported, split_args
 from .quant import KV_CODES, _lib, check_cuda_tensors, check_scales
 
 # Rows of the kernels' KV tile: a page holds whole tiles.
@@ -135,18 +135,26 @@ def flash_attention_paged(
     check_cuda_tensors(
         q, dict(pool_k=pool_k, pool_v=pool_v), dict(page_table=page_table, lengths=lengths)
     )
+    return _launch_paged(q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale,
+                         pos_div=pos_div)
+
+
+def _launch_paged(q, pool_k, pool_v, page_table, lengths, *, sm_scale, pos_div):
+    """``fam_flash_paged`` on checked tensors."""
     batch, heads, n_q, head_dim = q.shape
     n_pages, kv_heads, page_size, _ = pool_k.shape
     o = torch.empty_like(q)
+    grid, part, tickets, stream = split_args(q, page_table.shape[1] * page_size)
     err = _lib().fam_flash_paged(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), o.data_ptr(), batch, heads, kv_heads, n_q, n_pages, page_size,
         page_table.shape[1], head_dim, sm_scale, pos_div, _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_paged kernel launch failed: cudaError_t {err}")
     flash_attention_paged.launches += 1
+    flash_attention_paged.grid = grid
     return o
 
 
@@ -188,22 +196,34 @@ def flash_attention_paged_quant(
         dict(pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale, page_table=page_table,
              lengths=lengths),
     )
+    return _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_table,
+                               lengths, sm_scale=sm_scale, pos_div=pos_div)
+
+
+def _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_table, lengths,
+                        *, sm_scale, pos_div):
+    """``fam_flash_paged_quant`` on checked tensors."""
     batch, heads, n_q, head_dim = q.shape
     n_pages, kv_heads, page_size, _ = pool_k_q.shape
     o = torch.empty_like(q)
+    grid, part, tickets, stream = split_args(q, page_table.shape[1] * page_size)
     err = _lib().fam_flash_paged_quant(
         q.data_ptr(), pool_k_q.data_ptr(), pool_v_q.data_ptr(), pool_k_scale.data_ptr(),
         pool_v_scale.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         batch, heads, kv_heads, n_q, n_pages, page_size, page_table.shape[1], head_dim,
         sm_scale, pos_div, _DTYPE_CODES[q.dtype], KV_CODES[pool_k_q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_paged_quant kernel launch failed: cudaError_t {err}")
     flash_attention_paged_quant.launches += 1
+    flash_attention_paged_quant.grid = grid
     return o
 
 
-# Launches of each CUDA kernel since import (the CPU route does not count).
+# Launches of each CUDA kernel since import (the CPU route does not count),
+# and each one's grid at its last launch (flash_fwd.SplitGrid; None before one).
 flash_attention_paged.launches = 0
+flash_attention_paged.grid = None
 flash_attention_paged_quant.launches = 0
+flash_attention_paged_quant.grid = None

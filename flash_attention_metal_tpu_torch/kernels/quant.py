@@ -37,9 +37,11 @@ from .flash_fwd import (
     _DTYPE_CODES,
     _new_outputs,
     _offsets,
+    _ptr,
     check_head_dim,
     flash_attention_fwd_plain,
     reject_unported,
+    split_args,
 )
 
 # Largest magnitude of each 8-bit format: the per-token scale maps a token's
@@ -130,6 +132,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_q, v_q, k/v scale, q_offset, o, lse
         i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
         f32, i32, i32, i32, i32,  # sm_scale, causal, pos_div, dtype, kv dtype
+        i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
     lib.fam_flash_paged.argtypes = [
@@ -137,6 +140,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32,  # batch, heads, kv heads, n_q
         i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
         f32, i32, i32,  # sm_scale, pos_div, dtype
+        i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
     lib.fam_flash_paged_quant.argtypes = [
@@ -144,6 +148,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32,  # batch, heads, kv heads, n_q
         i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
         f32, i32, i32, i32,  # sm_scale, pos_div, dtype, kv dtype
+        i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
     for fn in (lib.fam_flash_quant, lib.fam_flash_paged, lib.fam_flash_paged_quant):
@@ -233,20 +238,31 @@ def flash_attention_quant(
         q, dict(k_q=qkv.k_q, v_q=qkv.v_q),
         dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale, q_offset=off),
     )
+    return _launch_quant(q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
+                         save_lse=save_lse)
+
+
+def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse):
+    """``fam_flash_quant`` on checked tensors: ``o`` or ``(o, lse)``."""
+    batch, heads, n_q, head_dim = q.shape
+    n_kv = qkv.seq_len
     o, lse = _new_outputs(q, save_lse)
+    grid, part, tickets, stream = split_args(q, n_kv)
     err = _lib().fam_flash_quant(
         q.data_ptr(), qkv.k_q.data_ptr(), qkv.v_q.data_ptr(), qkv.k_scale.data_ptr(),
-        qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(),
+        qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, qkv.k_q.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
-        pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype], grid.kv_chunk, _ptr(part),
+        _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_quant kernel launch failed: cudaError_t {err}")
     flash_attention_quant.launches += 1
+    flash_attention_quant.grid = grid
     return (o, lse) if save_lse else o
 
 
-# Launches of the CUDA kernel since import (the CPU route does not count).
+# Launches of the CUDA kernel since import (the CPU route does not count),
+# and its grid at the last launch (flash_fwd.SplitGrid; None before one).
 flash_attention_quant.launches = 0
+flash_attention_quant.grid = None

@@ -53,11 +53,15 @@ def _uniform(rng, shape, device, dtype, scale=1.0):
     return torch.from_numpy(x).to(device, dtype)
 
 
-# Units a unit's library needs beside it: flash_lean.cu's fp32 entry calls
-# the dense template of flash_fwd.cu; flash_tri.cu's fp32 entries call
-# that template and the fused backward's entry in flash_bwd.cu.
-_COMPANIONS = {"flash_lean.cu": ("flash_fwd.cu",),
-               "flash_tri.cu": ("flash_fwd.cu", "flash_bwd.cu")}
+# Units a unit's library needs beside it: flash_fwd.cu's entries launch the
+# decode grid's instances (one unit per KV element type); flash_lean.cu's
+# fp32 entry calls the dense template of flash_fwd.cu; flash_tri.cu's fp32
+# entries call that template and the fused backward's entry in flash_bwd.cu.
+_DECODE_UNITS = ("flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
+                 "flash_decode_e5m2.cu")
+_COMPANIONS = {"flash_fwd.cu": _DECODE_UNITS,
+               "flash_lean.cu": ("flash_fwd.cu", *_DECODE_UNITS),
+               "flash_tri.cu": ("flash_fwd.cu", "flash_bwd.cu", *_DECODE_UNITS)}
 
 
 def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ctypes.CDLL:
@@ -88,8 +92,15 @@ def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ct
         # peaked softmax over 5 KV tiles: the running max rises across tiles
         dict(b=2, hq=4, hkv=2, n_q=130, n_kv=300, off=[0, 170], pos_div=1, causal=True,
              q_scale=onchip.PEAKED_Q_SCALE),
+        # the decode grid's 16-row tile (group 8), a ragged row in 16 splits
+        # of one tile, peaked
+        dict(b=2, hq=2, hkv=2, n_q=8, n_kv=1000, off=[0, 999], pos_div=8, causal=True,
+             q_scale=onchip.PEAKED_Q_SCALE),
+        # one decode token of 4 q-heads unfolded, non-causal (every column)
+        dict(b=2, hq=4, hkv=2, n_q=1, n_kv=700, off=[0, 0], pos_div=1, causal=False),
     ],
-    ids=["prefill_ragged", "non_causal", "decode_fold4", "masked_rows", "prefill_peaked"],
+    ids=["prefill_ragged", "non_causal", "decode_fold4", "masked_rows", "prefill_peaked",
+         "decode_fold8_ragged", "decode_one_row_non_causal"],
 )
 def test_kernel_matches_plain(cuda, dtype, case):
     rng = np.random.default_rng(0)
@@ -113,39 +124,51 @@ def test_kernel_matches_plain(cuda, dtype, case):
     assert float((lse[finite] - lse_p[finite]).abs().max()) <= TOL[dtype]
 
 
-# Faults planted in a copy of csrc/flash_fwd.cu, the template that folded
-# decode runs (bf16 prefill runs the wgmma kernel): (text, replacement).
+# Faults planted in a copy of csrc/: (source, the path_cases whose output
+# alone must fail, text, replacement).  Folded decode runs the split-KV
+# grid of flash_decode.cuh; fp32 prefill runs flash_fwd.cu's 64-row
+# template (bf16 prefill runs the wgmma kernel).
 PLANTED_FAULTS = {
     # o and l are not rescaled when the running max rises between KV tiles
-    "no_rescale": ("const float alpha = exp2f(m_i - m_new);", "const float alpha = 1.0f;"),
-    # the KV loop stops one tile before the last visible column
-    "last_tile_dropped": ("tile_limit / kBlockN + 1", "tile_limit / kBlockN"),
+    "no_rescale": ("flash_decode.cuh", ("decode_bf16_peaked",),
+                   "alpha[r] = m[r] == -INFINITY ? 0.0f : exp2f(m[r] - m_new);",
+                   "alpha[r] = 1.0f;"),
+    # each split stops one tile before the last column it should walk
+    "last_tile_dropped": ("flash_decode.cuh", ("decode_bf16_peaked",),
+                          "(kv_end - kv_begin - 1) / kBlockN + 1;",
+                          "(kv_end - kv_begin - 1) / kBlockN;"),
+    "template_no_rescale": ("flash_fwd.cu", ("prefill_fp32_off512",),
+                            "const float alpha = exp2f(m_i - m_new);", "const float alpha = 1.0f;"),
+    "template_last_tile_dropped": ("flash_fwd.cu", ("prefill_fp32_off512",),
+                                   "tile_limit / kBlockN + 1", "tile_limit / kBlockN"),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
 def test_planted_kernel_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
-    """chip_smoke.py's kernel check on its folded-decode cases passes the
-    template as built and fails a copy with a planted fault.  The errors of
-    o and lse on the ladder fixture are printed too (``-s``)."""
-    old, new = PLANTED_FAULTS[fault]
-    lib = ff.bind(_planted_library(tmp_path, "flash_fwd.cu", "flash_fwd.cu", old, new))
+    """chip_smoke.py's kernel check passes the kernels as built and fails a
+    copy with a planted fault on the cases that run the planted code: the
+    decode grid's on folded decode (the ladder fixture and the peaked one),
+    the template's on fp32 prefill.  The errors of o and lse are printed
+    too (``-s``)."""
+    source, failing, old, new = PLANTED_FAULTS[fault]
+    lib = ff.bind(_planted_library(tmp_path, "flash_fwd.cu", source, old, new))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = onchip.path_cases(gen)
-    names = ("decode_bf16", "decode_bf16_peaked")
+    names = ("decode_bf16",) + failing if source == "flash_decode.cuh" else failing
     clean = {n: onchip.kernel_error(cases[n]) for n in names}
     monkeypatch.setattr(ff, "_lib", lambda: lib)
     faulty = {n: onchip.kernel_error(cases[n]) for n in names}
     print(f"\n{fault}, (o, lse) max-abs error, built -> planted:\n" + "\n".join(
         f"  {n}: o {clean[n][0]:.3e} -> {faulty[n][0]:.3e}, "
         f"lse {clean[n][1]:.3e} -> {faulty[n][1]:.3e}" for n in names))
-    tol = TOL[torch.bfloat16]
     for name in names:
-        assert max(clean[name]) <= tol
-    # On the peaked fixture the output alone fails, not only the lse.
-    assert faulty["decode_bf16_peaked"][0] > tol
+        assert max(clean[name]) <= TOL[cases[name][0].dtype]
+    # The output alone fails, not only the lse.
+    for name in failing:
+        assert faulty[name][0] > TOL[cases[name][0].dtype], name
 
 
 # The wgmma forward (csrc/flash_fwd_sm90.cuh): bf16 general calls with
@@ -854,9 +877,46 @@ def test_quant_kernel_masked_rows_and_non_causal(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [64, 192, 256, 2048])
+@pytest.mark.parametrize("kernel,fmt", KV_KERNEL_RUNS)
+def test_kv_kernels_at_every_chunk(cuda, monkeypatch, kernel, fmt, chunk):
+    """Any chunking of the decode grid gives the plain version's result:
+    one-tile splits, splits that do not divide the row, the rule's 256
+    and no split at all, on the peaked fixture at the serving shape (the
+    chunk forced by standing in for ``decode_kv_chunk``)."""
+    monkeypatch.setattr(ff, "decode_kv_chunk", lambda *shape: chunk)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    lengths = torch.from_numpy(onchip.decode_lengths()).to("cuda")
+    q, k, v = onchip.ladder_inputs(onchip.DECODE_Q, onchip.DECODE_KV, torch.bfloat16, gen,
+                                   onchip.PEAKED_Q_SCALE)
+    if kernel == "flash_quant":
+        args = (q, qt.quantize_kv(k, v, KV_FORMATS[fmt]), lengths)
+        wrapper = qt.flash_attention_quant
+        call = lambda: wrapper(*args, causal=True, pos_div=2, save_lse=True)  # noqa: E731
+    else:
+        b, _, n_kv, _ = onchip.DECODE_KV
+        perm, table, n_pages = onchip.paged_layout(b, n_kv, lengths, 2, 2, gen)
+        if kernel == "flash_paged":
+            kv_ = (k, v)
+        else:
+            qkv = qt.quantize_kv(k, v, KV_FORMATS[fmt])
+            kv_ = (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
+        args = (q, *(onchip.to_pages(x, perm, n_pages) for x in kv_), table, lengths)
+        wrapper = pg.flash_attention_paged if kernel == "flash_paged" else pg.flash_attention_paged_quant
+        call = lambda: wrapper(*args, pos_div=2)  # noqa: E731
+    want = onchip.KV_KERNELS[kernel][1](*args, 2)
+    err, lse_err = onchip._fwd_errors(call(), want)
+    assert err <= TOL[torch.bfloat16] and lse_err <= TOL[torch.bfloat16], (err, lse_err)
+    splits = -(-onchip.DECODE_KV[2] // chunk)
+    assert wrapper.grid == ff.SplitGrid(chunk, splits, 8 * 8 * splits)
+
+
+@pytest.mark.gpu
 def test_kv_kernels_are_deterministic(cuda):
-    """One owner block per output tile and a fixed KV order: two runs of
-    each kernel at chip_smoke.py's shapes give identical bits."""
+    """One owner block per output tile, a fixed KV order in each split and
+    the splits merged in split order by whichever block arrives last: two
+    runs of each kernel at chip_smoke.py's shapes give identical bits."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     for name, (kernel, args, pos_div) in onchip.kv_cases(gen).items():
@@ -866,35 +926,73 @@ def test_kv_kernels_are_deterministic(cuda):
             assert torch.equal(a, b), name
 
 
-# Faults planted in a copy of csrc/flash_fwd.cu: (kernels whose check must
-# fail, text, replacement).
+# Faults planted in a copy of csrc/: (source, kernels whose check must
+# fail, text, replacement).  flash_decode.cuh is the split-KV decode grid,
+# flash_fwd.cu the 64-row template that the 512-row prefill chunk runs (bf16
+# and fp32 q), kv_tiles.cuh the paged addressing both share.
 PLANTED_KV_FAULTS = {
-    # every column of a KV step takes the step's first V scale: s_v
-    # applied to the step's sum instead of to each column of P
-    "v_scale_on_the_sum": (("flash_quant", "flash_paged_quant"),
-                           "const float v_scale = kScaled ? sm.sv[c] : 1.0f;",
-                           "const float v_scale = kScaled ? sm.sv[0] : 1.0f;"),
+    # every column of a KV tile takes the tile's first V scale: s_v
+    # applied to the tile's sum instead of to each column of P
+    "v_scale_on_the_sum": ("flash_decode.cuh", ("flash_quant", "flash_paged_quant"),
+                           "const float v_scale = kScaled ? scales[kBlockN + c] : 1.0f;",
+                           "const float v_scale = kScaled ? scales[kBlockN] : 1.0f;"),
     # the K scale dropped on one column of each KV tile
-    "k_scale_dropped_on_one_column": (("flash_quant", "flash_paged_quant"),
-                                      "const float k_scale = kScaled ? sm.sk[c] : 1.0f;",
-                                      "const float k_scale = kScaled && c != 5 ? sm.sk[c] : 1.0f;"),
+    "k_scale_dropped_on_one_column": ("flash_decode.cuh", ("flash_quant", "flash_paged_quant"),
+                                      "const float k_scale = kScaled ? scales[c] : 1.0f;",
+                                      "const float k_scale = kScaled && c != 5 ? scales[c] : 1.0f;"),
     # logical page j read as physical page j
-    "identity_page_table": (("flash_paged", "flash_paged_quant"),
+    "identity_page_table": ("kv_tiles.cuh", ("flash_paged", "flash_paged_quant"),
                             "const int phys = min(max(kv.table[(size_t)b * kv.max_pages + logical], "
                             "0), kv.n_pages - 1);",
                             "const int phys = min(logical, kv.n_pages - 1);"),
+    # the split that holds a slot's diagonal reads on up to a page past it
+    "page_past_the_diagonal": ("flash_decode.cuh", ("flash_paged", "flash_paged_quant"),
+                               "const int kv_end = min(kv_begin + kv_chunk, tile_limit + 1);",
+                               "const int kv_end = min(kv_begin + kv_chunk, "
+                               "tile_limit + 1 + (kPaged ? kv.page : 0));"),
+    # the merge stops a split short: it drops the last split, the last
+    # non-empty one of every slot whose diagonal lies in it (slot 1 of
+    # decode_lengths, the long slot of skewed_lengths)
+    "merge_drops_last_split": ("flash_decode.cuh",
+                               ("flash_quant", "flash_paged", "flash_paged_quant"),
+                               "for (int s = 0; s < n_splits; ++s) {",
+                               "for (int s = 0; s < n_splits - 1; ++s) {"),
+    # the merge adds each split's o_s without its e^(m_s - M) rescale (the
+    # peaked fixture's splits have far apart maxima)
+    "merge_no_rescale": ("flash_decode.cuh", ("flash_quant", "flash_paged", "flash_paged_quant"),
+                         "om += weight * __ldcg(part + p * D + d);",
+                         "om += __ldcg(part + p * D + d);"),
+    # a split whose chunk starts past the diagonal reads its chunk's first
+    # tile: an unallocated table entry, so page 0 (NaN)
+    "empty_split_reads_its_page": ("flash_decode.cuh", ("flash_paged", "flash_paged_quant"),
+                                   "const int n_steps = kv_begin >= kv_end ? 0 :",
+                                   "const int n_steps = kv_begin >= kv_end ? 1 :"),
+    # The template's versions of the first faults, on the prefill chunk.
+    "template_v_scale_on_the_sum": ("flash_fwd.cu", ("flash_quant", "flash_paged_quant"),
+                                    "const float v_scale = kScaled ? sm.sv[c] : 1.0f;",
+                                    "const float v_scale = kScaled ? sm.sv[0] : 1.0f;"),
+    "template_k_scale_dropped_on_one_column": (
+        "flash_fwd.cu", ("flash_quant", "flash_paged_quant"),
+        "const float k_scale = kScaled ? sm.sk[c] : 1.0f;",
+        "const float k_scale = kScaled && c != 5 ? sm.sk[c] : 1.0f;"),
     # the KV loop reads one page past each row block's diagonal
-    "page_past_the_diagonal": (("flash_paged", "flash_paged_quant"),
-                               "tile_limit / kBlockN + 1;",
-                               "tile_limit / kBlockN + 1 + (kPaged ? kv.page / kBlockN : 0);"),
+    "template_page_past_the_diagonal": (
+        "flash_fwd.cu", ("flash_paged", "flash_paged_quant"), "tile_limit / kBlockN + 1;",
+        "tile_limit / kBlockN + 1 + (kPaged ? kv.page / kBlockN : 0);"),
 }
+# The kv_cases each source's code runs, by a part of the case's name: each
+# group must fail on its own.
+KV_FAULT_REACH = {"flash_decode.cuh": ("_decode_",),
+                  "flash_fwd.cu": ("_prefill_bf16", "_prefill_fp32"),
+                  "kv_tiles.cuh": ("_decode_", "_prefill_bf16", "_prefill_fp32")}
 
 
-def _kv_check(kernel, gen):
-    """The worst error of chip_smoke.py's checks of one kernel (NaN if any
-    case reads NaN)."""
+def _kv_check(kernel, group, gen):
+    """The worst error of chip_smoke.py's checks of one kernel on the cases
+    whose name holds ``group`` (NaN if any reads NaN)."""
     gen.manual_seed(onchip.SEED)
-    cases = [c for c in onchip.kv_cases(gen).values() if c[0] == kernel]
+    cases = [c for name, c in onchip.kv_cases(gen).items() if c[0] == kernel and group in name]
+    assert cases, (kernel, group)
     return float(np.max([onchip.kv_kernel_error(*c) for c in cases]))
 
 
@@ -902,25 +1000,23 @@ def _kv_check(kernel, gen):
 @pytest.mark.parametrize("fault", sorted(PLANTED_KV_FAULTS))
 def test_planted_kv_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     """chip_smoke.py's check of the 8-bit and paged kernels passes them as
-    built and fails a copy with a planted fault (errors printed with
-    ``-s``; NaN counts as a failure)."""
-    kernels, old, new = PLANTED_KV_FAULTS[fault]
-    text = (_build.CSRC / "flash_fwd.cu").read_text()
-    assert text.count(old) == 1
-    planted = tmp_path / "flash_fwd.cu"
-    planted.write_text(text.replace(old, new))
-    lib = qt.bind(ctypes.CDLL(str(_build.compile_library([planted], tmp_path / "planted.so"))))
+    built and fails a copy with a planted fault, on every group of cases
+    that runs the planted file (errors printed with ``-s``; NaN counts as a
+    failure)."""
+    source, kernels, old, new = PLANTED_KV_FAULTS[fault]
+    lib = qt.bind(_planted_library(tmp_path, "flash_fwd.cu", source, old, new))
     gen = torch.Generator(device="cuda")
-    clean = {k: _kv_check(k, gen) for k in kernels}
+    runs = [(k, g) for k in kernels for g in KV_FAULT_REACH[source]]
+    clean = {run: _kv_check(*run, gen) for run in runs}
     monkeypatch.setattr(qt, "_lib", lambda: lib)
     monkeypatch.setattr(pg, "_lib", lambda: lib)
-    faulty = {k: _kv_check(k, gen) for k in kernels}
-    tol = TOL[torch.bfloat16]
-    print(f"\n{fault}: worst error built -> planted: " + ", ".join(
-        f"{k} {clean[k]:.3e} -> {faulty[k]:.3e}" for k in kernels) + f" (tol {tol})")
-    for k in kernels:
-        assert clean[k] <= tol
-        assert not faulty[k] <= tol, k
+    faulty = {run: _kv_check(*run, gen) for run in runs}
+    tol = {g: TOL[torch.float32 if "fp32" in g else torch.bfloat16] for _, g in runs}
+    print(f"\n{fault} ({source}): worst error built -> planted: " + ", ".join(
+        f"{k}{g} {clean[k, g]:.3e} -> {faulty[k, g]:.3e} (tol {tol[g]})" for k, g in runs))
+    for run in runs:
+        assert clean[run] <= tol[run[1]]
+        assert not faulty[run] <= tol[run[1]], run
 
 
 @pytest.mark.gpu
