@@ -48,7 +48,9 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   1024, each point launching its V1 kernel; each kernel's time, bound and
   SDPA's at the sweep's shape, with the Q-tile height and block count it
   took;
-* block-sparse attention under ladder rung 11's mask, then head dim 128:
+* block-sparse attention under ladder rung 11's mask (the backward
+  kernels' grids, the dK/dV plan's chunk cap, chunks and blocks, read from
+  their wrappers after the timed launches), then head dim 128:
   every kernel against its plain version at its path's shape with D = 128,
   with its device, plain, bound and library times (the general forward
   also at the training shape and folded decode, lean also at N = 128).
@@ -533,6 +535,12 @@ def fused_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
             "step_ms": train["step_ms"]}
 
 
+def sparse_grid_text(grid) -> str:
+    """A block-sparse backward kernel's grid (``flash_mask.SparseGrid``)."""
+    return (f"grid: at most {grid.cap} tile pairs a block, {grid.chunks} blocks a head, "
+            f"{grid.blocks} blocks")
+
+
 def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) -> list:
     """Block-sparse attention (``csrc/flash_mask.cu``) under ladder rung
     11's mask at the training shape: each of the three kernels against its
@@ -540,8 +548,10 @@ def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) 
     N = 512, bf16 at head dim 128); then the main path, one
     ``torch.autograd.grad`` through ``block_sparse_attention`` with every
     count set to 0 before it, against the plain gradient; each kernel's
-    times, bound and SDPA's (boolean mask, efficient backend).  Returns the
-    three kernel records; ``ladder_launches``: the rung-11 run's counts."""
+    times, bound and SDPA's (boolean mask, efficient backend), and the
+    backward kernels' grids of the timed launches (the dK/dV plan's chunk
+    cap, chunks and blocks), as their wrappers kept them.  Returns the three
+    kernel records; ``ladder_launches``: the rung-11 run's counts."""
     from flash_attention_metal_tpu_torch.harness import onchip
     from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
     from flash_attention_metal_tpu_torch.kernels.flash_bwd import bwd_delta
@@ -620,10 +630,12 @@ def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) 
     for name, (kernel_fn, plain_fn, work, library, line) in timed.items():
         flops, nbytes = roofline.block_sparse_work(batch, heads, k.shape[1], n, n, d, 2, visible,
                                                    work)
+        source = "flash_mask.cu" if work == "fwd" else "flash_bwd_sm90.cuh"
         rec = {
             "name": name,
             "route": "cuda",
-            "source": "flash_attention_metal_tpu_torch/csrc/flash_mask.cu",
+            "source": f"flash_attention_metal_tpu_torch/csrc/{source}",
+            "entry": "flash_attention_metal_tpu_torch/csrc/flash_mask.cu",
             "replaces": f"flash_attention_metal_tpu/kernels/flash_mask.py:{line}",
             "launches": launches[name],
             "launches_ladder": ladder_launches[name],
@@ -642,11 +654,14 @@ def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) 
             rec["max_rel_err_fp32"] = max(errors["sparse_fp32_n512"][g][1] for g in grads)
             rec["library_backend"] += " forward and backward (dQ, dK, dV together)"
             rec["op_grad_rel_err"] = max(grad_errors[g] for g in grads)
+            # The grid of the timed launches, as the wrapper kept it.
+            rec.update(counters[name].grid._asdict())
         records.append(rec)
         print(f"[time] kernel {name} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
               f"({rec['library_backend']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-              f"launches {rec['launches']} {stamp}")
+              f"launches {rec['launches']}" + ("" if work == "fwd" else "; " + sparse_grid_text(
+                  counters[name].grid)) + f" {stamp}")
     del q, k, v, do, o, lse, delta, dense, qf, kf, vf, dof
     torch.cuda.empty_cache()
     return records
@@ -696,8 +711,11 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
         r["err"] = err
         if wrapper is not None:
             r.update(wrapper.grid._asdict())
-            shape = r["shape"] = (f"{shape}, split-KV grid {r['kv_splits']} splits of "
-                                  f"{r['kv_chunk']} columns, {r['blocks']} blocks")
+            if isinstance(wrapper.grid, fm.SparseGrid):
+                shape = r["shape"] = f"{shape}, {sparse_grid_text(wrapper.grid)}"
+            else:
+                shape = r["shape"] = (f"{shape}, split-KV grid {r['kv_splits']} splits of "
+                                      f"{r['kv_chunk']} columns, {r['blocks']} blocks")
         if d64_fn is not None:
             r["ms_at_d64"] = onchip.device_ms(d64_fn)
         if tag is None:
@@ -890,7 +908,8 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
          lambda: fm.flash_sparse_dq_plain(q, k, v, do, lse, delta, bm, sm_scale=scale)),
     ):
         record(name, err, tol, kernel_fn, plain_fn, library,
-               roofline.block_sparse_work(b, h, k.shape[1], n, n, d, 2, visible, work), 16, shape)
+               roofline.block_sparse_work(b, h, k.shape[1], n, n, d, 2, visible, work), 16, shape,
+               wrapper=None if work == "fwd" else getattr(fm, name))
     del q, k, v, do, o, lse, delta, dense_mask
     torch.cuda.empty_cache()
     return out
@@ -1372,6 +1391,7 @@ def main() -> int:
         for key, name in (("ms_at_d64", "ms_d64_same_shape"), ("workspace_bytes", "workspace_bytes_d128"),
                           ("sdpa_dense_bf16_ms", "sdpa_dense_bf16_ms_d128"),
                           ("kv_chunk", "kv_chunk_d128"), ("kv_splits", "kv_splits_d128"),
+                          ("cap", "cap_d128"), ("chunks", "chunks_d128"),
                           ("blocks", "blocks_d128")):
             if key in r:
                 rec[name] = r[key]

@@ -100,7 +100,6 @@ __global__ void __launch_bounds__(kThreads)
   T* ds = sm.ds_tile();
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int r = tid >> 1;    // tile row: a Q row in the walk, a KV row at the store
   const int half = tid & 1;  // which half of the row's columns it owns
   int kv_tile = blockIdx.x, h_kv = blockIdx.y, b = blockIdx.z;
@@ -149,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
       load_rows(sm, lse + q_rows + q_start, delta + q_rows + q_start, rows_valid);
       __syncthreads();
 
-      bwd_scores(sm, warp, r, half);
+      bwd_scores(sm, r, half);
       __syncthreads();
 
       softmax_grad(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off),
@@ -210,7 +209,6 @@ __global__ void __launch_bounds__(kThreads)
   BwdSmem<float, D>& sm = *reinterpret_cast<BwdSmem<float, D>*>(smem_raw);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int r = tid >> 1;
   const int half = tid & 1;
   const int q_start = blockIdx.x * kTile;
@@ -240,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<float, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
     __syncthreads();
 
-    bwd_scores(sm, warp, r, half);
+    bwd_scores(sm, r, half);
     __syncthreads();
 
     // P and dS over the scores and dP.
@@ -324,19 +322,29 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
 
 // The split pair: bf16 on the Hopper kernels (flash_bwd_sm90.cuh), fp32 on
 // the template above.
+// The bf16 kernels' arguments, outputs dk, dv or dq.
+sm90::BwdArgs sm90_args(const Args& a, void* dk, void* dv, void* dq) {
+  return {static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+          static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<bf16*>(dq),
+          a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.sm_scale * kLog2e};
+}
+
 template <int D>
 cudaError_t launch_split_dkv(const Args& a, int dtype, void* dk, void* dv) {
   if (dtype == 1) return launch_dkv<float, D, false>(a, a.n_kv - 1, dk, dv);
-  return sm90::launch_dkv<D>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.offsets(), dk, dv,
-                             a.batch, a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale,
-                             a.stream);
+  const dim3 grid(a.batch * a.n_kv_heads, (a.n_kv + kTile - 1) / kTile);
+  return sm90::launch_dkv<D>(sm90_args(a, dk, dv, nullptr), sm90::CausalWalk{a.offsets()},
+                             grid, a.stream);
 }
 
 template <int D>
 cudaError_t launch_split_dq(const Args& a, int dtype, void* dq) {
   if (dtype == 1) return launch_dq_f32<D>(a, dq);
-  return sm90::launch_dq<D>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.offsets(), dq, a.batch,
-                            a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.stream);
+  const dim3 grid(a.batch * a.n_heads, (a.n_q + kTile - 1) / kTile);
+  return sm90::launch_dq<D>(sm90_args(a, nullptr, nullptr, dq), sm90::CausalWalk{a.offsets()},
+                            grid, a.stream);
 }
 
 bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_dim,

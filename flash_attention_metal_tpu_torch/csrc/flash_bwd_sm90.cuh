@@ -1,11 +1,15 @@
 // The split backward pair redesigned for Hopper (sm_90a), bf16, head dim 64
-// or 128: dK/dV and dQ.  Included by flash_bwd.cu, whose C entries
-// (fam_flash_bwd_dkv, fam_flash_bwd_dq) launch these kernels for bf16 and
-// the WMMA/FMA template there for fp32.
+// or 128: dK/dV and dQ, one mainloop for two walks.  Included by
+// flash_bwd.cu, whose C entries (fam_flash_bwd_dkv, fam_flash_bwd_dq) launch
+// these kernels on the causal walk for bf16 (the WMMA/FMA template there
+// for fp32), and by flash_mask.cu, whose bf16 backward entries
+// (fam_flash_sparse_dkv, fam_flash_sparse_dq) launch them on the sparse
+// walk (the first-generation template there for fp32).
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_bwd.py::_dkv_kernel
 // (dK, dV over KV tiles) and ::_dq_kernel (dQ over Q tiles), the backward
-// of every untuned training step.  The contract is flash_bwd.cu's: native
+// of every untuned training step; and flash_mask.py::_dkv_sparse_kernel and
+// ::_dq_sparse_kernel, the block-sparse backward.  The contract is flash_bwd.cu's: native
 // GQA with dK/dV summed over the group in fp32 inside the block, per-batch
 // device offsets, lse = -inf (and padding) rows held at a sentinel so their
 // P is exactly 0, P and dS rounded to bf16 before their products, one owner
@@ -52,6 +56,30 @@
 // and of dV: 128 at D = 64, 160 at D = 128); the dQ block walks KV tiles of
 // 64 rows.  Shared memory at D = 128: 65 KB (dK/dV), 96 KB (dQ).
 //
+// The walks.  A kernel takes a walk policy: which block owns which output
+// tile, how many steps it takes, each step's (q-head, tile), whether a step
+// is full (every element visible: the compare is skipped) and the element
+// test.  Both are block-uniform but the test, which selects on the
+// accumulator after the products, so no wgmma sits under a branch.
+//   * CausalWalk (rows 5-6): one block per (KV head x batch, KV tile) or
+//     (q-head x batch, Q tile), heaviest first; the Q tiles that see the KV
+//     tile / the KV tiles up to the diagonal; c <= r + q_offset[b].
+//   * SparseWalk (rows 15-16): a MaskTables' CSR lists of 64 x 64 tile
+//     pairs (kernels/flash_mask.py::compile_tables), a full pair (bits -1)
+//     or one of 64 x 2-word bit tiles.  A partial step's bit rows come
+//     through the ring beside lse and delta (a thread reads one word per
+//     Q row from shared memory); a full one loads and tests nothing.  The
+//     dQ block walks its Q tile's KV list, Q tiles issued by a host-made
+//     order, longest list first.  The dK/dV grid follows a host-made plan
+//     of chunks: a KV tile's walk over the group's q-heads and its
+//     transposed list (group x list length pairs) longer than the cap is
+//     cut into chunks, each a block, issued longest first.  A chunk of a
+//     split tile writes its fp32 dK/dV to a workspace slot; the last of
+//     the tile's chunks to arrive (an acq_rel ticket it resets) sums the
+//     slots in chunk order and stores once, so the result has the same
+//     bits on every run and whichever chunk ends last.  An unsplit tile
+//     stores straight from registers.
+//
 // Not done yet: TMA with mbarriers in place of cp.async, a producer warp
 // and two consumer warpgroups per block (warp specialisation), and
 // overlapping one step's softmax with the next step's products.
@@ -69,10 +97,15 @@
 namespace {
 namespace sm90 {
 
-// Q rows per step of the dK/dV walk.
+// Q rows per step of the dK/dV walk, and the blocks an SM must hold: at
+// D = 64 the kernel wants 174 registers a thread, two blocks an SM; capped
+// at 168 (a few bytes of spill) it holds three, and the causal walk ran
+// 12% faster at the training shape on the H100 (`onchip kernels`, PERF.md
+// §6).
 template <int D>
 struct DkvStep {
   static constexpr int kRows = D == 64 ? 64 : 32;
+  static constexpr int kMinBlocks = D == 64 ? 3 : 1;
 };
 
 // lse in log2 units, sentinel-guarded.
@@ -80,7 +113,243 @@ __device__ __forceinline__ float lse_log2(float x) {
   return (x == -INFINITY ? kLseSentinel : x) * kLog2e;
 }
 
-template <int D>
+// What both kernels take besides their walk.  q, dout, dq [B, H, N_q, D];
+// k, v, dk, dv [B, H_kv, N_kv, D]; lse, delta fp32 [B, H, N_q].
+struct BwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;
+  bf16 *dk, *dv, *dq;
+  int n_heads, n_kv_heads, n_q, n_kv;
+  float sm_scale, scale_log2;
+};
+
+// One step of a walk: the group's q-head g (dK/dV), the walked tile's first
+// row, its bit tile (-1: none) and the first of its rows the step covers,
+// and whether every element of the step is visible.
+struct Step {
+  int g, start, bits, bit_row;
+  bool full;
+};
+
+// Element (row, col) of a bit-tile stage: row within the staged rows, col
+// within the 64 KV columns.
+__device__ __forceinline__ bool bit_seen(const uint32_t* bits, int row, int col) {
+  return (bits[row * 2 + (col >> 5)] >> (col & 31)) & 1u;
+}
+
+// `kRows` rows from `row0` of bit tile `tile` (64 rows of 2 words) into a
+// stage: kRows / 2 chunks of 16 bytes.
+template <int kRows>
+__device__ __forceinline__ void load_bits(uint32_t* dst, const uint32_t* bit_tiles, int tile,
+                                          int row0) {
+  if (threadIdx.x < kRows / 2) {
+    const uint32_t* src = bit_tiles + ((size_t)tile * kTile + row0) * 2;
+    cp_async16(dst + threadIdx.x * 4, src + threadIdx.x * 4, true);
+  }
+}
+
+// The split pair's causal walk (rows 5-6).  q_offset: int32 [B], column c
+// visible from row r when c <= r + q_offset[b]; null: every column.
+struct CausalWalk {
+  static constexpr bool kBits = false;
+  const int* q_offset;
+
+  __device__ int offset(int b, int n_kv) const {
+    return q_offset == nullptr ? n_kv - 1 : min(q_offset[b], n_kv - 1);
+  }
+
+  // A block per (KV head x batch, KV tile), KV tile 0 first, over the
+  // group's q-heads and the Q tiles of kRows rows that see the tile.
+  template <int kRows>
+  struct Dkv {
+    int bh, kv_tile, n_steps;
+    int kv_start, n_q, off, q_first, per_head;
+    __device__ Dkv(const CausalWalk& w, const BwdArgs& a) {
+      bh = blockIdx.x;
+      kv_tile = blockIdx.y;
+      kv_start = kv_tile * kTile;
+      n_q = a.n_q;
+      off = w.offset(bh / a.n_kv_heads, a.n_kv);
+      // Rows r >= kv_start - off see the tile's first column; earlier Q
+      // tiles see none of it and are skipped.
+      q_first = max(0, kv_start - off) / kRows;
+      per_head = max(0, (n_q + kRows - 1) / kRows - q_first);
+      const int group = a.n_heads / a.n_kv_heads;
+      n_steps = group * per_head;
+    }
+    __device__ Step step(int i) const {
+      const int q_start = (q_first + i % per_head) * kRows;
+      return {i / per_head, q_start, -1, 0,
+              kv_start + kTile - 1 <= q_start + off && q_start + kRows <= n_q};
+    }
+    __device__ void fetch_bits(uint32_t*, const Step&) const {}
+    __device__ bool seen(const uint32_t*, int r, int c, int, int) const {
+      return r < n_q && c <= r + off;
+    }
+    template <int D>
+    __device__ bool merge(float (&)[D / 2], float (&)[D / 2]) const { return true; }
+  };
+
+  // A block per (q-head x batch, Q tile), the last Q tile first, over the
+  // KV tiles up to its last row's diagonal.
+  struct Dq {
+    int bh, q_tile, n_steps;
+    int q_start, n_kv, off;
+    __device__ Dq(const CausalWalk& w, const BwdArgs& a) {
+      bh = blockIdx.x;
+      q_tile = gridDim.y - 1 - blockIdx.y;
+      q_start = q_tile * kTile;
+      n_kv = a.n_kv;
+      off = w.offset(bh / a.n_heads, n_kv);
+      const int rows_valid = min(kTile, a.n_q - q_start);
+      // The KV walk stops at the last tile the tile's last row sees.
+      const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
+      n_steps = limit < 0 ? 0 : limit / kTile + 1;
+    }
+    __device__ Step step(int i) const {
+      const int kv_start = i * kTile;
+      return {0, kv_start, -1, 0,
+              kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv};
+    }
+    __device__ void fetch_bits(uint32_t*, const Step&) const {}
+    __device__ bool seen(const uint32_t*, int r, int c, int, int) const {
+      return c < n_kv && c <= r + off;
+    }
+  };
+};
+
+// Ints per entry of the dK/dV plan (kernels/flash_mask.py::dkv_plan): KV
+// tile, first and end pair of the chunk in the tile's walk, the chunk's
+// index and the tile's chunk count, the tile's first workspace slot, the
+// tile's ticket group (split tiles only), padding.
+constexpr int kPlanInts = 8;
+
+// The block-sparse walk (rows 15-16) over a MaskTables.  ptr / list: the
+// per-KV-tile lists (dK/dV) or per-Q-tile lists (dQ); plan: the dK/dV
+// plan, or the dQ kernel's Q tiles in issue order; part: fp32 slots of
+// 64 x D dK and dV, kThreads-strided by accumulator register, per (slot,
+// KV head x batch); tickets: one int per (split tile, KV head x batch),
+// zero between calls.
+struct SparseWalk {
+  static constexpr bool kBits = true;
+  const int* plan;
+  const int* ptr;
+  const int2* list;
+  const uint32_t* bit_tiles;
+  float* part;
+  int* tickets;
+
+  // A block per (KV head x batch, plan entry): pairs p0 .. p1 - 1 of the
+  // walk p -> (q-head p / len, list entry p % len), kRows / 64 steps each.
+  template <int kRows>
+  struct Dkv {
+    static constexpr int kSub = kTile / kRows;
+    const int2* list;
+    const uint32_t* bit_tiles;
+    float* part;
+    int* tickets;
+    int bh, kv_tile, n_steps;
+    int first, len, p0, chunk, n_chunks, slot0, ticket;
+    __device__ Dkv(const SparseWalk& walk, const BwdArgs&) {
+      list = walk.list;
+      bit_tiles = walk.bit_tiles;
+      part = walk.part;
+      tickets = walk.tickets;
+      const int* e = walk.plan + (size_t)blockIdx.y * kPlanInts;
+      bh = blockIdx.x;
+      kv_tile = e[0];
+      p0 = e[1];
+      n_steps = (e[2] - e[1]) * kSub;
+      chunk = e[3];
+      n_chunks = e[4];
+      slot0 = e[5];
+      ticket = e[6] * gridDim.x + bh;
+      first = walk.ptr[kv_tile];
+      len = walk.ptr[kv_tile + 1] - first;
+    }
+    __device__ Step step(int i) const {
+      const int p = p0 + i / kSub;
+      const int2 entry = list[first + p % len];
+      const int row = (i % kSub) * kRows;
+      return {p / len, entry.x * kTile + row, entry.y, row, entry.y < 0};
+    }
+    __device__ void fetch_bits(uint32_t* dst, const Step& st) const {
+      if (!st.full) load_bits<kRows>(dst, bit_tiles, st.bits, st.bit_row);
+    }
+    __device__ bool seen(const uint32_t* bits, int, int, int row, int col) const {
+      return bit_seen(bits, row, col);
+    }
+    // A chunk of a split tile: publish this block's sums, and let the last
+    // chunk to arrive replace its own with every chunk's, in chunk order.
+    // False: another block stores the tile.
+    template <int D>
+    __device__ bool merge(float (&dk)[D / 2], float (&dv)[D / 2]) const {
+      if (n_chunks == 1) return true;
+      __shared__ int is_last;
+      const int tid = threadIdx.x;
+      const size_t n_bh = gridDim.x;
+      float* mine = part + ((size_t)(slot0 + chunk) * n_bh + bh) * D * kThreads;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        __stcg(mine + i * kThreads + tid, dk[i]);
+        __stcg(mine + (D / 2 + i) * kThreads + tid, dv[i]);
+      }
+      // The barrier, then one thread's acq_rel add, publish this block's
+      // sums and see the earlier chunks' (csrc/flash_decode.cuh's merge).
+      __syncthreads();
+      if (tid == 0) {
+        int arrived;
+        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                     : "=r"(arrived) : "l"(tickets + ticket) : "memory");
+        is_last = arrived == n_chunks - 1;
+      }
+      __syncthreads();
+      if (!is_last) return false;
+      const float* slots = part + ((size_t)slot0 * n_bh + bh) * D * kThreads;
+      const size_t stride = n_bh * D * kThreads;  // one slot to the next
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) {
+        float sk = 0.0f, sv = 0.0f;
+        for (int c = 0; c < n_chunks; ++c) {  // in chunk order: the same bits on every run
+          const float* at = slots + c * stride + i * kThreads + tid;
+          sk += c == chunk ? dk[i] : __ldcg(at);
+          sv += c == chunk ? dv[i] : __ldcg(at + (D / 2) * kThreads);
+        }
+        dk[i] = sk;
+        dv[i] = sv;
+      }
+      if (tid == 0) tickets[ticket] = 0;  // ready for the next call on this stream
+      return true;
+    }
+  };
+
+  // A block per (q-head x batch, plan[blockIdx.y]): the Q tile's KV list.
+  struct Dq {
+    const int2* list;
+    const uint32_t* bit_tiles;
+    int bh, q_tile, n_steps, first;
+    __device__ Dq(const SparseWalk& walk, const BwdArgs&) {
+      list = walk.list;
+      bit_tiles = walk.bit_tiles;
+      bh = blockIdx.x;
+      q_tile = walk.plan[blockIdx.y];
+      first = walk.ptr[q_tile];
+      n_steps = walk.ptr[q_tile + 1] - first;
+    }
+    __device__ Step step(int i) const {
+      const int2 entry = list[first + i];
+      return {0, entry.x * kTile, entry.y, 0, entry.y < 0};
+    }
+    __device__ void fetch_bits(uint32_t* dst, const Step& st) const {
+      if (!st.full) load_bits<kTile>(dst, bit_tiles, st.bits, 0);
+    }
+    __device__ bool seen(const uint32_t* bits, int, int, int row, int col) const {
+      return bit_seen(bits, row, col);
+    }
+  };
+};
+
+template <int D, bool kBits>
 struct DkvSmem {
   static constexpr int kRows = DkvStep<D>::kRows;
   bf16 k[kTile * D];
@@ -89,54 +358,46 @@ struct DkvSmem {
   bf16 dout[kStages][kRows * D];
   float lse[kStages][kRows];
   float delta[kStages][kRows];
+  alignas(16) uint32_t bits[kStages][kBits ? kRows * 2 : 4];  // the step's bit rows
 };
 
-// One block per (KV head x batch, KV tile), KV tile 0 first: dK and dV of
-// the tile over the group's q-heads and their visible Q tiles.  Warp w owns
-// KV rows 16w..16w+15 of every product; q_offset null: every column
-// visible.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                              const float* __restrict__ lse, const float* __restrict__ delta,
-                              const int* __restrict__ q_offset, bf16* __restrict__ dk,
-                              bf16* __restrict__ dv, int n_heads, int n_kv_heads, int n_q,
-                              int n_kv, float sm_scale, float scale_log2) {
+// dK and dV of one KV tile over the steps of its walk (a chunk of it on
+// the sparse walk).  Warp w owns KV rows 16w..16w+15 of every product.
+template <int D, class Walk>
+__global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
+    flash_bwd_dkv_sm90_kernel(const BwdArgs a, const Walk walk) {
   constexpr int kRows = DkvStep<D>::kRows;
   extern __shared__ unsigned char smem_raw[];
-  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(aligned_smem(smem_raw));
+  DkvSmem<D, Walk::kBits>& sm =
+      *reinterpret_cast<DkvSmem<D, Walk::kBits>*>(aligned_smem(smem_raw));
+  const typename Walk::template Dkv<kRows> blk(walk, a);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int kv_start = blockIdx.y * kTile;
-  const int b = blockIdx.x / n_kv_heads;
-  const int h_kv = blockIdx.x % n_kv_heads;
-  const int group = n_heads / n_kv_heads;
-  const size_t kv_rows = (size_t)blockIdx.x * n_kv;
-  const int off = q_offset == nullptr ? n_kv - 1 : min(q_offset[b], n_kv - 1);
-  // Rows r >= kv_start - off see the tile's first column; earlier Q tiles
-  // see none of it and are skipped.
-  const int q_first = max(0, kv_start - off) / kRows;
-  const int per_head = max(0, (n_q + kRows - 1) / kRows - q_first);
-  const int n_steps = group * per_head;
+  const int kv_start = blk.kv_tile * kTile;
+  const int b = blk.bh / a.n_kv_heads;
+  const int h_kv = blk.bh % a.n_kv_heads;
+  const int group = a.n_heads / a.n_kv_heads;
+  const size_t kv_rows = (size_t)blk.bh * a.n_kv;
+  const int n_steps = blk.n_steps;
   // This thread's two KV rows (accumulator rows g and g + 8 of its warp).
   const int c_lo = kv_start + warp * 16 + (lane >> 2);
 
-  load_tile<D, kTile>(sm.k, k + (kv_rows + kv_start) * D, n_kv - kv_start);
-  load_tile<D, kTile>(sm.v, v + (kv_rows + kv_start) * D, n_kv - kv_start);
-  // Step i's Q tile, dO tile, lse and delta rows into ring stage i % 2.
+  load_tile<D, kTile>(sm.k, a.k + (kv_rows + kv_start) * D, a.n_kv - kv_start);
+  load_tile<D, kTile>(sm.v, a.v + (kv_rows + kv_start) * D, a.n_kv - kv_start);
+  // Step i's Q tile, dO tile, lse and delta rows (and bit rows) into ring
+  // stage i % 2.
   auto fetch = [&](int i) {
-    const int qt = q_first + i % per_head;
-    const size_t q_rows = ((size_t)b * n_heads + h_kv * group + i / per_head) * n_q;
-    const int q_start = qt * kRows;
-    const int rows_valid = n_q - q_start;
+    const Step st = blk.step(i);
+    const size_t q_rows = ((size_t)b * a.n_heads + h_kv * group + st.g) * a.n_q;
+    const int rows_valid = a.n_q - st.start;
     const int s = i % kStages;
-    load_tile<D, kRows>(sm.q[s], q + (q_rows + q_start) * D, rows_valid);
-    load_tile<D, kRows>(sm.dout[s], dout + (q_rows + q_start) * D, rows_valid);
-    load_rows<kRows>(sm.lse[s], lse + q_rows + q_start, rows_valid);
-    load_rows<kRows>(sm.delta[s], delta + q_rows + q_start, rows_valid);
+    load_tile<D, kRows>(sm.q[s], a.q + (q_rows + st.start) * D, rows_valid);
+    load_tile<D, kRows>(sm.dout[s], a.dout + (q_rows + st.start) * D, rows_valid);
+    load_rows<kRows>(sm.lse[s], a.lse + q_rows + st.start, rows_valid);
+    load_rows<kRows>(sm.delta[s], a.delta + q_rows + st.start, rows_valid);
+    blk.fetch_bits(sm.bits[s], st);
   };
   if (n_steps > 0) fetch(0);
   cp_async_commit();
@@ -151,26 +412,26 @@ __global__ void __launch_bounds__(kThreads)
     if (i + 1 < n_steps) fetch(i + 1);
     cp_async_commit();
     const int s = i % kStages;
-    const int q_start = (q_first + i % per_head) * kRows;
+    const Step st = blk.step(i);
+    const uint32_t* step_bits = sm.bits[s];
 
     // S^T = K Q^T and dP^T = V dO^T: 64 KV rows by kRows q rows.
-    float st[kRows / 2] = {};
+    float st_acc[kRows / 2] = {};
     float dpt[kRows / 2] = {};
-    fence_acc(st);
+    fence_acc(st_acc);
     fence_acc(dpt);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma(st, desc_k<kTile>(sm.k, kk), desc_k<kRows>(sm.q[s], kk));
+      wgmma(st_acc, desc_k<kTile>(sm.k, kk), desc_k<kRows>(sm.q[s], kk));
       wgmma(dpt, desc_k<kTile>(sm.v, kk), desc_k<kRows>(sm.dout[s], kk));
     }
-    wgmma_wait(st);
+    wgmma_wait(st_acc);
     fence_acc(dpt);
 
     // P^T and dS^T in place.  Element e of n8 tile j: KV row c_lo (+ 8 for
-    // e >= 2), q row q_start + 8 j + 2 t + (e & 1).  Steps whose every pair
-    // is visible skip the compare.
-    const bool full = kv_start + kTile - 1 <= q_start + off && q_start + kRows <= n_q;
+    // e >= 2), q row st.start + 8 j + 2 t + (e & 1).  Steps whose every
+    // pair is visible skip the test.
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       const int col = j * 8 + 2 * t;
@@ -180,11 +441,11 @@ __global__ void __launch_bounds__(kThreads)
       const float dlt[2] = {dl.x, dl.y};
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = q_start + col + (e & 1);
+        const int r = st.start + col + (e & 1);
         const int c = c_lo + (e >> 1) * 8;
-        float p = exp2f(st[4 * j + e] * scale_log2 - lse2[e & 1]);
-        if (!full && (r >= n_q || c > r + off)) p = 0.0f;
-        st[4 * j + e] = p;
+        float p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e & 1]);
+        if (!st.full && !blk.seen(step_bits, r, c, col + (e & 1), c - kv_start)) p = 0.0f;
+        st_acc[4 * j + e] = p;
         dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e & 1]);
       }
     }
@@ -193,7 +454,7 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t ap[kRows / 16][4], ads[kRows / 16][4];
 #pragma unroll
     for (int kk = 0; kk < kRows / 16; ++kk) {
-      acc_to_a(ap[kk], st + 8 * kk);
+      acc_to_a(ap[kk], st_acc + 8 * kk);
       acc_to_a(ads[kk], dpt + 8 * kk);
     }
     fence_acc(dv_acc);
@@ -208,59 +469,55 @@ __global__ void __launch_bounds__(kThreads)
     fence_acc(dk_acc);
   }
   cp_async_wait_all();
+  if (!blk.template merge<D>(dk_acc, dv_acc)) return;
 
   for (int half = 0; half < 2; ++half) {
     const int c = c_lo + half * 8;
-    if (c < n_kv) {
-      store_row<D>(dk + (kv_rows + c) * D, dk_acc, half, sm_scale, t);
-      store_row<D>(dv + (kv_rows + c) * D, dv_acc, half, 1.0f, t);
+    if (c < a.n_kv) {
+      store_row<D>(a.dk + (kv_rows + c) * D, dk_acc, half, a.sm_scale, t);
+      store_row<D>(a.dv + (kv_rows + c) * D, dv_acc, half, 1.0f, t);
     }
   }
 }
 
-template <int D>
+template <int D, bool kBits>
 struct DqSmem {
   bf16 q[kTile * D];
   bf16 dout[kTile * D];
   bf16 k[kStages][kTile * D];
   bf16 v[kStages][kTile * D];
+  alignas(16) uint32_t bits[kStages][kBits ? kTile * 2 : 4];  // the pair's bit tile
 };
 
-// One block per (q-head x batch, Q tile), the last Q tile first: dQ of the
-// tile over its visible KV tiles.  Warp w owns Q rows 16w..16w+15.
-template <int D>
+// dQ of one Q tile over the KV tiles of its walk.  Warp w owns Q rows
+// 16w..16w+15.
+template <int D, class Walk>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                             const float* __restrict__ lse, const float* __restrict__ delta,
-                             const int* __restrict__ q_offset, bf16* __restrict__ dq,
-                             int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
-                             float scale_log2) {
+    flash_bwd_dq_sm90_kernel(const BwdArgs a, const Walk walk) {
   extern __shared__ unsigned char smem_raw[];
-  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(aligned_smem(smem_raw));
+  DqSmem<D, Walk::kBits>& sm = *reinterpret_cast<DqSmem<D, Walk::kBits>*>(aligned_smem(smem_raw));
+  const typename Walk::Dq blk(walk, a);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int q_start = (gridDim.y - 1 - blockIdx.y) * kTile;
-  const int b = blockIdx.x / n_heads;
-  const int h_kv = blockIdx.x % n_heads / (n_heads / n_kv_heads);
-  const size_t q_rows = (size_t)blockIdx.x * n_q;
-  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
-  const int rows_valid = min(kTile, n_q - q_start);
-  const int off = q_offset == nullptr ? n_kv - 1 : min(q_offset[b], n_kv - 1);
-  // The KV walk stops at the last tile the tile's last row sees.
-  const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
-  const int n_steps = limit < 0 ? 0 : limit / kTile + 1;
+  const int q_start = blk.q_tile * kTile;
+  const int b = blk.bh / a.n_heads;
+  const int h_kv = blk.bh % a.n_heads / (a.n_heads / a.n_kv_heads);
+  const size_t q_rows = (size_t)blk.bh * a.n_q;
+  const size_t kv_rows = ((size_t)b * a.n_kv_heads + h_kv) * a.n_kv;
+  const int rows_valid = min(kTile, a.n_q - q_start);
+  const int n_steps = blk.n_steps;
 
-  load_tile<D, kTile>(sm.q, q + (q_rows + q_start) * D, rows_valid);
-  load_tile<D, kTile>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
-  // Step i's K and V tiles into ring stage i % 2.
+  load_tile<D, kTile>(sm.q, a.q + (q_rows + q_start) * D, rows_valid);
+  load_tile<D, kTile>(sm.dout, a.dout + (q_rows + q_start) * D, rows_valid);
+  // Step i's K and V tiles (and bit tile) into ring stage i % 2.
   auto fetch = [&](int i) {
-    const int kv_start = i * kTile;
+    const Step st = blk.step(i);
     const int s = i % kStages;
-    load_tile<D, kTile>(sm.k[s], k + (kv_rows + kv_start) * D, n_kv - kv_start);
-    load_tile<D, kTile>(sm.v[s], v + (kv_rows + kv_start) * D, n_kv - kv_start);
+    load_tile<D, kTile>(sm.k[s], a.k + (kv_rows + st.start) * D, a.n_kv - st.start);
+    load_tile<D, kTile>(sm.v[s], a.v + (kv_rows + st.start) * D, a.n_kv - st.start);
+    blk.fetch_bits(sm.bits[s], st);
   };
   if (n_steps > 0) fetch(0);
   cp_async_commit();
@@ -272,8 +529,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r_lo + half * 8;
-    lse2[half] = r < n_q ? lse_log2(lse[q_rows + r]) : kLseSentinel * kLog2e;
-    dlt[half] = r < n_q ? delta[q_rows + r] : 0.0f;
+    lse2[half] = r < a.n_q ? lse_log2(a.lse[q_rows + r]) : kLseSentinel * kLog2e;
+    dlt[half] = r < a.n_q ? a.delta[q_rows + r] : 0.0f;
   }
 
   float dq_acc[D / 2] = {};
@@ -283,33 +540,34 @@ __global__ void __launch_bounds__(kThreads)
     if (i + 1 < n_steps) fetch(i + 1);
     cp_async_commit();
     const int s = i % kStages;
-    const int kv_start = i * kTile;
+    const Step st = blk.step(i);
+    const int kv_start = st.start;
+    const uint32_t* pair_bits = sm.bits[s];
 
     // S = Q K^T and dP = dO V^T: 64 Q rows by 64 KV columns.
-    float st[kTile / 2] = {};
+    float st_acc[kTile / 2] = {};
     float dpt[kTile / 2] = {};
-    fence_acc(st);
+    fence_acc(st_acc);
     fence_acc(dpt);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma(st, desc_k<kTile>(sm.q, kk), desc_k<kTile>(sm.k[s], kk));
+      wgmma(st_acc, desc_k<kTile>(sm.q, kk), desc_k<kTile>(sm.k[s], kk));
       wgmma(dpt, desc_k<kTile>(sm.dout, kk), desc_k<kTile>(sm.v[s], kk));
     }
-    wgmma_wait(st);
+    wgmma_wait(st_acc);
     fence_acc(dpt);
 
     // dS in place of dP.  Element e of n8 tile j: Q row r_lo (+ 8 for
     // e >= 2), KV column kv_start + 8 j + 2 t + (e & 1).
-    const bool full = kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv;
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = kv_start + j * 8 + 2 * t + (e & 1);
         const int r = r_lo + (e >> 1) * 8;
-        float p = exp2f(st[4 * j + e] * scale_log2 - lse2[e >> 1]);
-        if (!full && (c >= n_kv || c > r + off)) p = 0.0f;
+        float p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e >> 1]);
+        if (!st.full && !blk.seen(pair_bits, r, c, r - q_start, c - kv_start)) p = 0.0f;
         dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e >> 1]);
       }
     }
@@ -328,45 +586,29 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int half = 0; half < 2; ++half) {
     const int r = r_lo + half * 8;
-    if (r < n_q) store_row<D>(dq + (q_rows + r) * D, dq_acc, half, sm_scale, t);
+    if (r < a.n_q) store_row<D>(a.dq + (q_rows + r) * D, dq_acc, half, a.sm_scale, t);
   }
 }
 
-// Launchers: q, dout [B, H, N_q, D]; k, v, dk, dv [B, H_kv, N_kv, D]; lse,
-// delta fp32 [B, H, N_q]; q_offset int32 [B] or null (every column).
-template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, const int* q_offset, void* dk,
-                       void* dv, int batch, int n_heads, int n_kv_heads, int n_q, int n_kv,
-                       float sm_scale, cudaStream_t stream) {
+// Launchers.  grid: (KV head x batch, walk's tiles or chunks) for dK/dV,
+// (q-head x batch, Q tiles) for dQ.
+template <int D, class Walk>
+cudaError_t launch_dkv(const BwdArgs& a, const Walk& walk, dim3 grid, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(DkvSmem<D>) + kAlign;
-  cudaError_t err = allow_smem(flash_bwd_dkv_sm90_kernel<D>, smem, done);
+  const int smem = (int)sizeof(DkvSmem<D, Walk::kBits>) + kAlign;
+  cudaError_t err = allow_smem(flash_bwd_dkv_sm90_kernel<D, Walk>, smem, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * n_kv_heads, (n_kv + kTile - 1) / kTile);
-  flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), q_offset, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), n_heads, n_kv_heads, n_q, n_kv, sm_scale, sm_scale * kLog2e);
+  flash_bwd_dkv_sm90_kernel<D, Walk><<<grid, kThreads, smem, stream>>>(a, walk);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, const int* q_offset, void* dq,
-                      int batch, int n_heads, int n_kv_heads, int n_q, int n_kv,
-                      float sm_scale, cudaStream_t stream) {
+template <int D, class Walk>
+cudaError_t launch_dq(const BwdArgs& a, const Walk& walk, dim3 grid, cudaStream_t stream) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(DqSmem<D>) + kAlign;
-  cudaError_t err = allow_smem(flash_bwd_dq_sm90_kernel<D>, smem, done);
+  const int smem = (int)sizeof(DqSmem<D, Walk::kBits>) + kAlign;
+  cudaError_t err = allow_smem(flash_bwd_dq_sm90_kernel<D, Walk>, smem, done);
   if (err != cudaSuccess) return err;
-  const dim3 grid(batch * n_heads, (n_q + kTile - 1) / kTile);
-  flash_bwd_dq_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), q_offset, static_cast<bf16*>(dq), n_heads, n_kv_heads,
-      n_q, n_kv, sm_scale, sm_scale * kLog2e);
+  flash_bwd_dq_sm90_kernel<D, Walk><<<grid, kThreads, smem, stream>>>(a, walk);
   return cudaGetLastError();
 }
 

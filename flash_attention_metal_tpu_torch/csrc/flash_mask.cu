@@ -50,25 +50,33 @@
 // What the design does about it.
 //   * One block per (Q tile, head, batch) walks that tile's list only: empty
 //     pairs cost neither bytes nor products (the Pallas grid's elided DMA).
-//   * A thread's half row is one 32-bit word of the pair's bit tile, read
-//     from device memory once per pair: no shared memory for the mask, and a
-//     full pair reads nothing.
-//   * dK/dV: one block per (KV tile, KV head, batch) walks the group's
-//     q-heads and the tile's transposed list, accumulating in fp32 WMMA
-//     fragments (bf16) or registers (fp32), one store: deterministic, no
-//     atomics.  dQ: one block per (Q tile, head, batch) walks the KV list
-//     again, so every output has one owner.
-//   * bf16 products on the tensor cores through WMMA 16x16x16
-//     (wmma_tiles.cuh); fp32 P and dS are written over the scores they come
-//     from (the fp32 tiles at D = 128 would not fit 227 KB otherwise).
-// Not yet done: wgmma, TMA and a copy pipeline; a split-Q dK/dV walk for
-// KV tiles with long lists.
+//   * The bf16 backward runs the split pair's wgmma mainloop
+//     (flash_bwd_sm90.cuh) on its sparse walk: S, dP, P and dS stay in
+//     registers, a 2-stage cp.async ring carries each step's tiles and bit
+//     rows, one barrier a step.  dQ: one block per (Q tile, head, batch)
+//     over the tile's KV list, longest list first.  dK/dV: one block per
+//     chunk of a KV tile's walk over the group's q-heads and its transposed
+//     list; a walk longer than the cap (kernels/flash_mask.py::
+//     dkv_chunk_cap, from list lengths and static shapes) is split, and the
+//     last of its chunks sums their fp32 partials in chunk order
+//     (deterministic, no float atomics), so a mask whose transposed lists
+//     are uneven no longer waits on its longest one.
+//   * The forward and the fp32 backward keep the first-generation
+//     template: a thread's half row is one 32-bit word of the pair's bit
+//     tile, read from device memory once per pair; bf16 products through
+//     WMMA 16x16x16 (wmma_tiles.cuh); fp32 in IEEE FMA, P and dS written
+//     over the scores they come from (the fp32 tiles at D = 128 would not
+//     fit 227 KB otherwise).  The fp32 dK/dV block walks the group's
+//     q-heads and the whole transposed list of its (KV tile, KV head,
+//     batch), one store.
+// Not yet done: the forward on wgmma; TMA in place of cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_bwd_sm90.cuh"
 #include "wmma_tiles.cuh"
 
 namespace {
@@ -211,11 +219,13 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 
 // P and dS of one visited pair for this thread's half row, from the scores
-// in s and dO V^T in dp; invisible elements get 0.
-template <typename T, int D>
-__device__ __forceinline__ void softmax_grad_bits(BwdSmem<T, D>& sm, T* p, T* ds, int r,
-                                                  int half, uint32_t word, float scale_log2) {
-  using C = Cfg<T, D>;
+// in s and dO V^T in dp, over them (fp32); invisible elements get 0.
+template <int D>
+__device__ __forceinline__ void softmax_grad_bits(BwdSmem<float, D>& sm, int r, int half,
+                                                  uint32_t word, float scale_log2) {
+  using C = Cfg<float, D>;
+  float* p = sm.p_tile();
+  float* ds = sm.ds_tile();
   const float lse2 = sm.lse2[r];
   const float delta = sm.delta[r];
 #pragma unroll
@@ -223,30 +233,27 @@ __device__ __forceinline__ void softmax_grad_bits(BwdSmem<T, D>& sm, T* p, T* ds
     const int c = half * kHalf + j;
     const float pj = (word >> j) & 1u ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;
     const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
-    p[r * C::kLdX + c] = from_float<T>(pj);
-    ds[r * C::kLdX + c] = from_float<T>(dsj);
+    p[r * C::kLdX + c] = pj;
+    ds[r * C::kLdX + c] = dsj;
   }
 }
 
-// One block per (KV tile j, KV head, batch): dK and dV of the tile over the
-// group's q-heads and the tile's transposed list.
-template <typename T, int D>
+// fp32.  One block per (KV tile j, KV head, batch): dK and dV of the tile
+// over the group's q-heads and the tile's transposed list.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
+    sparse_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
-                      T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ kv_ptr,
-                      const int2* __restrict__ kv_list, const uint32_t* __restrict__ bit_tiles,
-                      int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
-                      float scale_log2) {
-  using C = Cfg<T, D>;
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      const int* __restrict__ kv_ptr, const int2* __restrict__ kv_list,
+                      const uint32_t* __restrict__ bit_tiles, int n_heads, int n_kv_heads,
+                      int n_q, int n_kv, float sm_scale, float scale_log2) {
+  using C = Cfg<float, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  BwdSmem<T, D>& sm = *reinterpret_cast<BwdSmem<T, D>*>(smem_raw);
-  T* p = sm.p_tile();
-  T* ds = sm.ds_tile();
+  BwdSmem<float, D>& sm = *reinterpret_cast<BwdSmem<float, D>*>(smem_raw);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int r = tid >> 1;    // tile row: a Q row in the walk, a KV row at the store
   const int half = tid & 1;  // which half of the row's columns it owns
   const int kv_start = blockIdx.x * kTile;
@@ -258,21 +265,12 @@ __global__ void __launch_bounds__(kThreads)
   const int first = kv_ptr[blockIdx.x];
   const int last = kv_ptr[blockIdx.x + 1];
 
-  load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
-  load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+  load_tile<float, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+  load_tile<float, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
 
-  Acc dk_acc[D / 16], dv_acc[D / 16];
   float dk_reg[C::kOut], dv_reg[C::kOut];
-  if constexpr (C::kBf16) {
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fill_fragment(dk_acc[n], 0.0f);
-      wmma::fill_fragment(dv_acc[n], 0.0f);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < C::kOut; ++j) dk_reg[j] = dv_reg[j] = 0.0f;
-  }
+  for (int j = 0; j < C::kOut; ++j) dk_reg[j] = dv_reg[j] = 0.0f;
 
   for (int g = 0; g < group; ++g) {
     const size_t q_rows = ((size_t)b * n_heads + h_kv * group + g) * n_q;
@@ -280,69 +278,51 @@ __global__ void __launch_bounds__(kThreads)
       const int2 entry = kv_list[e];
       const int q_start = entry.x * kTile;
       const int rows_valid = min(kTile, n_q - q_start);
-      load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
-      load_tile<T, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
+      load_tile<float, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+      load_tile<float, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
       load_rows(sm, lse + q_rows + q_start, delta + q_rows + q_start, rows_valid);
       const uint32_t word = visible_word(bit_tiles, entry.y, r, half);
       __syncthreads();
 
-      bwd_scores(sm, warp, r, half);
+      bwd_scores(sm, r, half);
       __syncthreads();
 
-      softmax_grad_bits(sm, p, ds, r, half, word, scale_log2);
+      softmax_grad_bits(sm, r, half, word, scale_log2);
       __syncthreads();
 
-      if constexpr (C::kBf16) {
-        mma_atb_bf16<D>(dv_acc, p, sm.dout, warp);
-        mma_atb_bf16<D>(dk_acc, ds, sm.q, warp);
-      } else {
-        mma_atb_f32<D>(dv_reg, p, sm.dout, r, half);
-        mma_atb_f32<D>(dk_reg, ds, sm.q, r, half);
-      }
+      mma_atb_f32<D>(dv_reg, sm.p_tile(), sm.dout, r, half);
+      mma_atb_f32<D>(dk_reg, sm.ds_tile(), sm.q, r, half);
       // The next pair's loads overwrite q, dout, lse2 and delta.
       __syncthreads();
     }
   }
 
-  if constexpr (C::kBf16) {
-    // Warp w holds KV rows 16w..16w+15; thread (r, half) stores row r.
-    store_acc<D>(sm.s, dk_acc, warp);
-    store_acc<D>(sm.dp, dv_acc, warp);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < C::kOut; ++j) {
-      dk_reg[j] = sm.s[r * C::kLdS + half * C::kOut + j];
-      dv_reg[j] = sm.dp[r * C::kLdS + half * C::kOut + j];
-    }
-  }
   if (r < cols_valid) {
     const size_t at = (kv_rows + kv_start + r) * D + half * C::kOut;
 #pragma unroll
     for (int j = 0; j < C::kOut; ++j) {
-      dk[at + j] = from_float<T>(dk_reg[j] * sm_scale);
-      dv[at + j] = from_float<T>(dv_reg[j]);
+      dk[at + j] = dk_reg[j] * sm_scale;
+      dv[at + j] = dv_reg[j];
     }
   }
 }
 
-// One block per (Q tile i, q-head, batch): dQ of the tile over its KV list.
-template <typename T, int D>
+// fp32.  One block per (Q tile i, q-head, batch): dQ of the tile over its
+// KV list.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    sparse_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dq, const int* __restrict__ q_ptr,
+                     float* __restrict__ dq, const int* __restrict__ q_ptr,
                      const int2* __restrict__ q_list, const uint32_t* __restrict__ bit_tiles,
                      int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
                      float scale_log2) {
-  using C = Cfg<T, D>;
+  using C = Cfg<float, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  BwdSmem<T, D>& sm = *reinterpret_cast<BwdSmem<T, D>*>(smem_raw);
-  T* p = sm.p_tile();
-  T* ds = sm.ds_tile();
+  BwdSmem<float, D>& sm = *reinterpret_cast<BwdSmem<float, D>*>(smem_raw);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int r = tid >> 1;
   const int half = tid & 1;
   const int q_start = blockIdx.x * kTile;
@@ -355,54 +335,38 @@ __global__ void __launch_bounds__(kThreads)
   const int first = q_ptr[blockIdx.x];
   const int last = q_ptr[blockIdx.x + 1];
 
-  load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
-  load_tile<T, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
+  load_tile<float, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+  load_tile<float, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
   load_rows(sm, lse + q_rows + q_start, delta + q_rows + q_start, rows_valid);
 
-  Acc dq_acc[D / 16];
   float dq_reg[C::kOut];
-  if constexpr (C::kBf16) {
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.0f);
-  } else {
-#pragma unroll
-    for (int j = 0; j < C::kOut; ++j) dq_reg[j] = 0.0f;
-  }
+  for (int j = 0; j < C::kOut; ++j) dq_reg[j] = 0.0f;
 
   for (int e = first; e < last; ++e) {  // the KV list again
     const int2 entry = q_list[e];
     const int kv_start = entry.x * kTile;
     const int cols_valid = min(kTile, n_kv - kv_start);
-    load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
-    load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<float, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<float, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
     const uint32_t word = visible_word(bit_tiles, entry.y, r, half);
     __syncthreads();
 
-    bwd_scores(sm, warp, r, half);
+    bwd_scores(sm, r, half);
     __syncthreads();
 
-    softmax_grad_bits(sm, p, ds, r, half, word, scale_log2);
+    softmax_grad_bits(sm, r, half, word, scale_log2);
     __syncthreads();
 
-    if constexpr (C::kBf16) {
-      mma_ab_bf16<D>(dq_acc, ds, sm.k, warp);
-    } else {
-      mma_ab_f32<D>(dq_reg, ds, sm.k, r, half);
-    }
+    mma_ab_f32<D>(dq_reg, sm.ds_tile(), sm.k, r, half);
     // The next pair's loads overwrite k and v.
     __syncthreads();
   }
 
-  if constexpr (C::kBf16) {
-    store_acc<D>(sm.s, dq_acc, warp);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < C::kOut; ++j) dq_reg[j] = sm.s[r * C::kLdS + half * C::kOut + j];
-  }
   if (r < rows_valid) {
-    T* dst = dq + (q_rows + q_start + r) * D + half * C::kOut;
+    float* dst = dq + (q_rows + q_start + r) * D + half * C::kOut;
 #pragma unroll
-    for (int j = 0; j < C::kOut; ++j) dst[j] = from_float<T>(dq_reg[j] * sm_scale);
+    for (int j = 0; j < C::kOut; ++j) dst[j] = dq_reg[j] * sm_scale;
   }
 }
 
@@ -430,48 +394,70 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv,
-                       const void* kv_ptr, const void* kv_list, const void* bits,
-                       const Shape& s) {
+// The backward's lists: per KV tile (dK/dV) or per Q tile (dQ), and the
+// bit tiles.
+struct Lists {
+  const void *ptr, *list, *bits;
+};
+
+template <int D>
+cudaError_t launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv,
+                           const Lists& l, const Shape& s) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(BwdSmem<T, D>);
-  cudaError_t err = allow_smem(sparse_dkv_kernel<T, D>, smem, done);
+  const int smem = (int)sizeof(BwdSmem<float, D>);
+  cudaError_t err = allow_smem(sparse_dkv_kernel<D>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.n_kv + kTile - 1) / kTile, s.n_kv_heads, s.batch);
-  sparse_dkv_kernel<T, D><<<grid, kThreads, smem, s.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<const int*>(kv_ptr), static_cast<const int2*>(kv_list),
-      static_cast<const uint32_t*>(bits), s.n_heads, s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale,
+  sparse_dkv_kernel<D><<<grid, kThreads, smem, s.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+      static_cast<const int*>(l.ptr), static_cast<const int2*>(l.list),
+      static_cast<const uint32_t*>(l.bits), s.n_heads, s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale,
       s.sm_scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, const void* q_ptr,
-                      const void* q_list, const void* bits, const Shape& s) {
+template <int D>
+cudaError_t launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dq, const Lists& l,
+                          const Shape& s) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(BwdSmem<T, D>);
-  cudaError_t err = allow_smem(sparse_dq_kernel<T, D>, smem, done);
+  const int smem = (int)sizeof(BwdSmem<float, D>);
+  cudaError_t err = allow_smem(sparse_dq_kernel<D>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.n_q + kTile - 1) / kTile, s.n_heads, s.batch);
-  sparse_dq_kernel<T, D><<<grid, kThreads, smem, s.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<const int*>(q_ptr),
-      static_cast<const int2*>(q_list), static_cast<const uint32_t*>(bits), s.n_heads,
+  sparse_dq_kernel<D><<<grid, kThreads, smem, s.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), static_cast<const int*>(l.ptr),
+      static_cast<const int2*>(l.list), static_cast<const uint32_t*>(l.bits), s.n_heads,
       s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale, s.sm_scale * kLog2e);
   return cudaGetLastError();
+}
+
+// bf16: the split pair's wgmma kernels on the sparse walk.
+sm90::BwdArgs sm90_args(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dk, void* dv, void* dq,
+                        const Shape& s) {
+  return {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+          static_cast<const float*>(lse), static_cast<const float*>(delta),
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<bf16*>(dq),
+          s.n_heads, s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale, s.sm_scale * kLog2e};
+}
+
+sm90::SparseWalk sparse_walk(const void* plan, const Lists& l, void* part, void* tickets) {
+  return {static_cast<const int*>(plan), static_cast<const int*>(l.ptr),
+          static_cast<const int2*>(l.list), static_cast<const uint32_t*>(l.bits),
+          static_cast<float*>(part), static_cast<int*>(tickets)};
 }
 
 bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_dim, int dtype) {
   return (head_dim == 64 || head_dim == 128) && (dtype == 0 || dtype == 1) && batch >= 1 &&
          batch <= 65535 && n_kv_heads >= 1 && n_heads % n_kv_heads == 0 && n_heads <= 65535 &&
-         n_q >= 1 && n_kv >= 1;
+         n_q >= 1 && n_kv >= 1 && n_q <= 65535 * kTile;
 }
 
 }  // namespace
@@ -502,30 +488,58 @@ extern "C" int fam_flash_sparse_fwd(const void* q, const void* k, const void* v,
   FAM_SPARSE_DISPATCH(launch_fwd, q, k, v, o, lse, q_ptr, q_list, bits, s);
 }
 
+// dK/dV.  bf16: plan int32 [n_chunks, 8] (kernels/flash_mask.py::
+// dkv_plan), one block per (KV head x batch, plan entry); part fp32, 64 x D
+// x 2 floats per (workspace slot, KV head x batch) (null when no tile is
+// split); tickets int32 per (split tile, KV head x batch), zero, left zero.
+// fp32 reads none of them (one block per KV tile, KV head and batch).
 extern "C" int fam_flash_sparse_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
                                     void* dk, void* dv, const void* kv_ptr, const void* kv_list,
-                                    const void* bits, int batch, int n_heads, int n_kv_heads,
+                                    const void* bits, const void* plan, void* part,
+                                    void* tickets, int batch, int n_heads, int n_kv_heads,
                                     int n_q, int n_kv, int head_dim, float sm_scale, int dtype,
-                                    void* stream) {
-  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+                                    int n_chunks, void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
+      (dtype == 0 && (plan == nullptr || n_chunks < 1 || n_chunks > 65535))) {
     return (int)cudaErrorInvalidValue;
   }
   const Shape s{batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
                 static_cast<cudaStream_t>(stream)};
-  FAM_SPARSE_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, kv_ptr, kv_list, bits, s);
+  const Lists l{kv_ptr, kv_list, bits};
+  if (dtype == 1) {
+    return (int)(head_dim == 64 ? launch_dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, l, s)
+                                : launch_dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, l, s));
+  }
+  const sm90::BwdArgs a = sm90_args(q, k, v, dout, lse, delta, dk, dv, nullptr, s);
+  const dim3 grid(batch * n_kv_heads, n_chunks);
+  const sm90::SparseWalk w = sparse_walk(plan, l, part, tickets);
+  return (int)(head_dim == 64 ? sm90::launch_dkv<64>(a, w, grid, s.stream)
+                              : sm90::launch_dkv<128>(a, w, grid, s.stream));
 }
 
+// dQ.  bf16: order int32 [n_q tiles], the Q tiles in issue order (longest
+// list first); fp32 does not read it.
 extern "C" int fam_flash_sparse_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    void* dq, const void* q_ptr, const void* q_list,
-                                   const void* bits, int batch, int n_heads, int n_kv_heads,
-                                   int n_q, int n_kv, int head_dim, float sm_scale, int dtype,
-                                   void* stream) {
-  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+                                   const void* bits, const void* order, int batch, int n_heads,
+                                   int n_kv_heads, int n_q, int n_kv, int head_dim,
+                                   float sm_scale, int dtype, void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
+      (dtype == 0 && order == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const Shape s{batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
                 static_cast<cudaStream_t>(stream)};
-  FAM_SPARSE_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, q_ptr, q_list, bits, s);
+  const Lists l{q_ptr, q_list, bits};
+  if (dtype == 1) {
+    return (int)(head_dim == 64 ? launch_dq_f32<64>(q, k, v, dout, lse, delta, dq, l, s)
+                                : launch_dq_f32<128>(q, k, v, dout, lse, delta, dq, l, s));
+  }
+  const sm90::BwdArgs a = sm90_args(q, k, v, dout, lse, delta, nullptr, nullptr, dq, s);
+  const dim3 grid(batch * n_heads, (n_q + kTile - 1) / kTile);
+  const sm90::SparseWalk w = sparse_walk(order, l, nullptr, nullptr);
+  return (int)(head_dim == 64 ? sm90::launch_dq<64>(a, w, grid, s.stream)
+                              : sm90::launch_dq<128>(a, w, grid, s.stream));
 }

@@ -1,5 +1,6 @@
-// Tile products of the first-generation kernels (flash_mask.cu and the fp32
-// split pair and fused backward of flash_bwd.cu): 64-row tiles in padded
+// Tile products of the first-generation kernels (flash_mask.cu's forward and
+// fp32 backward, and the fp32 split pair and fused backward of
+// flash_bwd.cu; the bf16 backward kernels run on wgmma): 64-row tiles in padded
 // shared memory, 128 threads, bf16 products on the tensor cores through WMMA
 // 16x16x16 fragments with fp32 accumulators, fp32 products in IEEE FMA
 // (never TF32), head dim D = 64 or 128.
@@ -76,7 +77,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) 
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 
@@ -116,26 +116,6 @@ __device__ __forceinline__ void mma_ab_bf16(Acc (&acc)[D / 16], const bf16* x, c
   for (int kk = 0; kk < kTile; kk += 16) {
     FragA fa;
     wmma::load_matrix_sync(fa, x + warp * 16 * kLdX + kk, kLdX);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, y + kk * kLdT + n * 16, kLdT);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// acc += X^T[warp's 16 columns of X][64] . Y: X is [64 q][kLdX] (P, dS), Y
-// [64 q][kLdT] (dO, Q).  dV += P^T dO and dK += dS^T Q.
-template <int D>
-__device__ __forceinline__ void mma_atb_bf16(Acc (&acc)[D / 16], const bf16* x, const bf16* y,
-                                             int warp) {
-  constexpr int kLdT = Cfg<bf16, D>::kLdT, kLdX = Cfg<bf16, D>::kLdX;
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    // X^T as a column-major operand: element (c, r) sits at x[r][c].
-    FragAT fa;
-    wmma::load_matrix_sync(fa, x + kk * kLdX + warp * 16, kLdX);
 #pragma unroll
     for (int n = 0; n < D / 16; ++n) {
       FragB fb;
@@ -205,20 +185,19 @@ __device__ __forceinline__ void mma_atb_f32(float (&acc)[D / 2], const float* x,
 template <typename T, int D>
 struct BwdSmem {
   using C = Cfg<T, D>;
+  static_assert(!C::kBf16, "the bf16 backward runs on wgmma (flash_bwd_sm90.cuh)");
   T q[kTile * C::kLdT];
   T k[kTile * C::kLdT];
   T v[kTile * C::kLdT];
   T dout[kTile * C::kLdT];
-  float s[kTile * C::kLdS];   // scores (P over them in fp32); dK or dQ staged (bf16)
-  float dp[kTile * C::kLdS];  // dO V^T (dS over it in fp32); dV staged (bf16)
+  float s[kTile * C::kLdS];   // scores, P over them
+  float dp[kTile * C::kLdS];  // dO V^T, dS over it
   float lse2[kTile];          // row lse in log2 units, sentinel-guarded
   float delta[kTile];
-  T p[C::kBf16 ? kTile * C::kLdX : 1];   // P for the tensor cores (bf16)
-  T ds[C::kBf16 ? kTile * C::kLdX : 1];  // dS for the tensor cores (bf16)
 
-  // Where P and dS go: their own tiles (bf16), over s and dp (fp32).
-  __device__ __forceinline__ T* p_tile() { return C::kBf16 ? p : reinterpret_cast<T*>(s); }
-  __device__ __forceinline__ T* ds_tile() { return C::kBf16 ? ds : reinterpret_cast<T*>(dp); }
+  // Where P and dS go: over s and dp.
+  __device__ __forceinline__ T* p_tile() { return s; }
+  __device__ __forceinline__ T* ds_tile() { return dp; }
 };
 
 // The Q tile's lse (log2 units) and delta; padding rows get the sentinel.
@@ -239,14 +218,9 @@ __device__ __forceinline__ void load_rows(BwdSmem<T, D>& sm, const float* lse,
 
 // S = Q K^T into s and dP = dO V^T into dp.
 template <typename T, int D>
-__device__ __forceinline__ void bwd_scores(BwdSmem<T, D>& sm, int warp, int r, int half) {
-  if constexpr (Cfg<T, D>::kBf16) {
-    mm_abt_bf16<D>(sm.q, sm.k, sm.s, warp);
-    mm_abt_bf16<D>(sm.dout, sm.v, sm.dp, warp);
-  } else {
-    mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
-    mm_abt_f32<D>(sm.dout, sm.v, sm.dp, r, half);
-  }
+__device__ __forceinline__ void bwd_scores(BwdSmem<T, D>& sm, int r, int half) {
+  mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
+  mm_abt_f32<D>(sm.dout, sm.v, sm.dp, r, half);
 }
 
 // P and dS of one causal pair for this thread's half row, from the scores

@@ -8,6 +8,7 @@ its own on a CUDA card:
     python -m flash_attention_metal_tpu_torch.harness.onchip kernels [--csrc DIR]
     python -m flash_attention_metal_tpu_torch.harness.onchip v1_tiles
     python -m flash_attention_metal_tpu_torch.harness.onchip decode_splits
+    python -m flash_attention_metal_tpu_torch.harness.onchip sparse_splits
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
@@ -18,16 +19,19 @@ and splits their wall time into device-busy time, by kernel, and idle time
 ``train_bench.json`` width.  ``kernels`` times the forward kernels (the
 general and lean kernels, folded decode, fp32, the 8-bit and paged
 caches' kernels), the backward kernels (the split pair in bf16 and fp32,
-the fused kernel), naive, both V1 kernels and the triangular forward and
-backward (with the backward's workspace bytes), built from the package's
+the fused kernel), naive, both V1 kernels, the triangular forward and
+backward (with the backward's workspace bytes) and the three block-sparse
+kernels, built from the package's
 ``csrc/`` or, with ``--csrc``, through another tree's wrappers and
 sources: two versions compared on one card, in turns.  ``v1_tiles`` times
 each V1 kernel at every Q-tile height it takes, at every point of the
 benchmark's sweep (and at head dim 128 at N = 128 and 1024), beside the
 height ``v1_tile_rows`` picks.  ``decode_splits`` times the decode kernels
 (``csrc/flash_decode.cuh``) at every KV chunk of their split grid, beside the
-chunk ``decode_kv_chunk`` picks.  Every line it prints carries the card's
-name and power limit.
+chunk ``decode_kv_chunk`` picks.  ``sparse_splits`` times the bf16
+block-sparse dK/dV kernel at every chunk cap of its plan, beside the cap
+``dkv_chunk_cap`` picks.  Every line it prints carries the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -738,7 +742,8 @@ def sparse_mask(n: int = SPARSE_N):
 def sparse_cases(gen: torch.Generator) -> Dict[str, tuple]:
     """``{name: (q, k, v, do, mask)}`` under ``sparse_mask``: the training
     shape (``TRAIN_Q`` over ``TRAIN_KV``, bf16) on the ladder, peaked and
-    spike fixtures; fp32 at N = 512; bf16 at head dim 128."""
+    spike fixtures; fp32 at N = 512; bf16 at head dim 128 (where the dK/dV
+    plan splits the longest walks) on the ladder and peaked fixtures."""
     bf16, f32 = torch.bfloat16, torch.float32
     masks = {n: sparse_mask(n) for n in (SPARSE_N, TRAIN_FP32_Q[2])}
     runs = {
@@ -747,6 +752,7 @@ def sparse_cases(gen: torch.Generator) -> Dict[str, tuple]:
         "sparse_bf16_spike": (TRAIN_Q, TRAIN_KV, bf16, "spike"),
         "sparse_fp32_n512": (TRAIN_FP32_Q, TRAIN_FP32_KV, f32, "ladder"),
         "sparse_bf16_d128": (SPARSE_D128_Q, SPARSE_D128_KV, bf16, "ladder"),
+        "sparse_bf16_d128_peaked": (SPARSE_D128_Q, SPARSE_D128_KV, bf16, "peaked"),
     }
     cases = {}
     for name, (shape_q, shape_kv, dtype, fixture) in runs.items():
@@ -999,7 +1005,7 @@ def _kernel_modules(csrc: Optional[str]) -> SimpleNamespace:
     mod = lambda m: importlib.import_module(f"{name}.kernels.{m}")  # noqa: E731
     return SimpleNamespace(ff=mod("flash_fwd"), fb=mod("flash_bwd"), qt=mod("quant"),
                            pg=mod("paged"), nv=mod("naive"), ft=mod("flash_tri"),
-                           fv=mod("flash_v1"))
+                           fv=mod("flash_v1"), fm=mod("flash_mask"))
 
 
 def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str, int]]:
@@ -1026,8 +1032,11 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
     the training shape (D 64 and 128) and in fp32 at ``TRAIN_FP32_Q``.  The
     triangular forward (with its lse) and backward, each through its
     wrapper (the backward's delta op included), in bf16 at ``HIGH_OCC``
-    and ``TRI_D128`` and in fp32 at ``LADDER``.  Every input is the ladder
-    fixture.  The workspace: the allocator's peak over one backward call at
+    and ``TRI_D128`` and in fp32 at ``LADDER``.  The three block-sparse
+    kernels under rung 11's mask (``BlockMask`` of the tree's own module) in
+    bf16 at the training shape and at ``SPARSE_D128_Q`` (with SDPA's forward
+    and backward under the same mask there) and in fp32 at
+    ``TRAIN_FP32_Q``.  Every input is the ladder fixture.  The workspace: the allocator's peak over one backward call at
     ``HIGH_OCC`` less its outputs and delta (fp32 ``[B, H, N]``), which at
     that shape outweigh the delta op's fp32 temporaries in either tree.
     """
@@ -1110,13 +1119,33 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
         o, lse = ff.flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
         delta = fb.bwd_delta(o, do, None)
         kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True)
-        if tag != "bf16_train_d128":
-            times[f"dkv_{tag}"] = device_ms(
-                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw))
-            times[f"dq_{tag}"] = device_ms(
-                lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw))
+        times[f"dkv_{tag}"] = device_ms(
+            lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw))
+        times[f"dq_{tag}"] = device_ms(
+            lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw))
         times[f"fused_{tag}"] = device_ms(lambda: fb.flash_attention_bwd_fused(
             q, k, v, o, do, lse, off, q_offset_max=0, **kw))
+    for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, bf16),
+                                          ("bf16_d128", SPARSE_D128_Q, SPARSE_D128_KV, bf16),
+                                          ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, f32)):
+        from .verify import block_sparse_rung_mask
+
+        n = shape_q[2]
+        bm = m.fm.BlockMask(block_sparse_rung_mask(n), n, n, SPARSE_BLOCK, SPARSE_BLOCK)
+        q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
+        do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+        kw = dict(sm_scale=_scale(q))
+        o, lse = m.fm.flash_sparse_fwd(q, k, v, bm, save_lse=True, **kw)
+        delta = fb.bwd_delta(o, do, None)
+        times[f"sparse_fwd_{tag}"] = device_ms(
+            lambda: m.fm.flash_sparse_fwd(q, k, v, bm, save_lse=True, **kw))
+        times[f"sparse_dkv_{tag}"] = device_ms(
+            lambda: m.fm.flash_sparse_dkv(q, k, v, do, lse, delta, bm, **kw))
+        times[f"sparse_dq_{tag}"] = device_ms(
+            lambda: m.fm.flash_sparse_dq(q, k, v, do, lse, delta, bm, **kw))
+        if tag == "bf16_d128":  # the yardstick: SDPA's forward and backward, same mask
+            times["sdpa_sparse_fwd_bwd_d128"] = sdpa_ms(q, k, v, mask=bm.dense("cuda"),
+                                                        backward_of=do, with_forward=True)[0]
     nbytes = {}
     for tag, shape, dtype in (("bf16_b16h8n2048", HIGH_OCC, bf16), ("bf16_d128", TRI_D128, bf16),
                               ("fp32_n1024", LADDER, f32)):
@@ -1241,10 +1270,56 @@ def decode_split_times(log=print) -> List[dict]:
     return out
 
 
+# Caps of the block-sparse dK/dV plan timed by ``sparse_splits``, in tile
+# pairs a block walks (64 and more: no tile of rung 11's mask at N = 2048 is
+# split at GQA 2).
+SPARSE_CAPS = (4, 8, 12, 14, 16, 18, 20, 24, 32, 48, 56, 61, 64, 73)
+
+
+def sparse_split_times(log=print) -> List[dict]:
+    """Device ms of the bf16 block-sparse dK/dV kernel at every cap of
+    ``SPARSE_CAPS`` under rung 11's mask (the ladder fixture), at the
+    training shape and at ``SPARSE_D128_Q``, beside the cap
+    ``dkv_chunk_cap`` picks; with the dQ kernel's time once per shape.  A
+    cap is forced by standing in for ``dkv_chunk_cap``; each time's chunks
+    and blocks are the wrapper's ``.grid`` at its last launch."""
+    from unittest import mock
+
+    from ..kernels import flash_mask as fm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bm = sparse_mask()
+    out = []
+    for shape_q, shape_kv in ((TRAIN_Q, TRAIN_KV), (SPARSE_D128_Q, SPARSE_D128_KV)):
+        b, h, _, d = shape_q
+        h_kv = shape_kv[1]
+        q, k, v = ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        do = ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)[0]
+        kw = dict(sm_scale=_scale(q))
+        o, lse = fm.flash_sparse_fwd(q, k, v, bm, save_lse=True, **kw)
+        delta = bwd_delta(o, do, None)
+        rule = fm.dkv_chunk_cap(bm.kv_lengths, b, h_kv, h // h_kv, d, sms)
+        rec = {"q": list(shape_q), "kv": list(shape_kv), "rule": rule, "ms": {}, "chunks": {},
+               "blocks": {}}
+        for cap in sorted(set(SPARSE_CAPS) | {rule}):
+            with mock.patch.object(fm, "dkv_chunk_cap", lambda *shape, c=cap: c):
+                rec["ms"][cap] = device_ms(
+                    lambda: fm.flash_sparse_dkv(q, k, v, do, lse, delta, bm, **kw))
+            rec["chunks"][cap] = fm.flash_sparse_dkv.grid.chunks
+            rec["blocks"][cap] = fm.flash_sparse_dkv.grid.blocks
+        rec["dq_ms"] = device_ms(lambda: fm.flash_sparse_dq(q, k, v, do, lse, delta, bm, **kw))
+        out.append(rec)
+        log(json.dumps(rec))
+        del q, k, v, do, o, lse, delta
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("sweep", "profile", "kernels", "v1_tiles",
-                                         "decode_splits"))
+                                         "decode_splits", "sparse_splits"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
@@ -1266,6 +1341,10 @@ def main(argv=None) -> int:
     if args.what == "decode_splits":
         print(f"[decode_splits] {stamp}")
         decode_split_times(log=lambda line: print(f"[decode_splits] {line}"))
+        return 0
+    if args.what == "sparse_splits":
+        print(f"[sparse_splits] {stamp}")
+        sparse_split_times(log=lambda line: print(f"[sparse_splits] {line}"))
         return 0
     if args.what == "v1_tiles":
         print(f"[v1_tiles] {stamp}")

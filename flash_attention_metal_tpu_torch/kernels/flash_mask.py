@@ -23,12 +23,17 @@ Kernels (``csrc/flash_mask.cu``):
   sees nothing gives ``o = 0`` and ``lse = -inf``; native GQA (KV head
   ``h // group``); lse fp32 ``[B, H, N_q]``.
 * ``flash_sparse_dkv`` (``_dkv_sparse_kernel``): dK and dV per KV tile over
-  its transposed Q list, P rebuilt from the lse (``LSE_SENTINEL`` for
-  ``-inf``).  The JAX backward takes equal heads only (its op repeats K/V
-  and sums the group after, in the input dtype); this kernel sums a KV
-  head's group of q-heads in fp32 before its one store, as the split pair.
+  the group's q-heads and its transposed Q list, P rebuilt from the lse
+  (``LSE_SENTINEL`` for ``-inf``).  The JAX backward takes equal heads only
+  (its op repeats K/V and sums the group after, in the input dtype); this
+  kernel sums a KV head's group of q-heads in fp32 before its one store, as
+  the split pair.  bf16 runs the split pair's ``wgmma`` kernel
+  (``csrc/flash_bwd_sm90.cuh``) over a plan of chunks (``dkv_plan``): a
+  tile's walk longer than ``dkv_chunk_cap`` pairs is cut into chunks, one
+  block each, whose fp32 partials the last of them sums in chunk order.
 * ``flash_sparse_dq`` (``_dq_sparse_kernel``): dQ per Q tile over its KV
-  list again.
+  list again; bf16 on the split pair's ``wgmma`` kernel, Q tiles issued
+  longest list first (``dq_order``).
 
 Each wrapper takes its plain version (the dense masked softmax from the
 predicate) for tensors on the CPU, and launches its kernel, or raises, for
@@ -40,13 +45,15 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Tuple, Union
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT_MASK_VALUE, default_scale
 from . import _build
+from . import flash_fwd as ff
 from .flash_bwd import LSE_SENTINEL, _group_sum, bwd_delta
 from .flash_fwd import _DTYPE_CODES, check_head_dim, check_shapes
 
@@ -132,6 +139,119 @@ def compile_tables(mask_fn: MaskFn, n_q: int, n_kv: int) -> MaskTables:
     return MaskTables(q_ptr, q_list, kv_ptr, kv_list, torch.from_numpy(np.ascontiguousarray(bits)))
 
 
+# The dK/dV grid (csrc/flash_bwd_sm90.cuh, SparseWalk).  A (KV tile, KV
+# head, batch) walks group x list-length tile pairs; the transposed lists
+# of a causal mask are uneven (rung 11's at N = 2048: 1 to 32 entries), and
+# with one block per walk the longest ones set the kernel's time.  A walk
+# longer than the cap is cut into chunks of near-equal length, one block
+# each, the fp32 partials summed in chunk order by the last chunk to end.
+# The cap is CHUNK_SLACK times the pairs per block slot of the card when
+# every walk is spread evenly (DKV_BLOCKS_PER_SM: the kernel holds 3
+# blocks an SM at D = 64, csrc/flash_bwd_sm90.cuh's launch bound, and 2 at
+# D = 128, by its registers), but at least MIN_CHUNK_PAIRS: a shorter
+# chunk pays its K/V tile loads, its 64 x D x 2 fp32 partial and its share
+# of the merge for too few products.  The slack is measured on the H100
+# (`onchip sparse_splits`, PERF.md §6): the longest-first issue order
+# absorbs that much imbalance, and a finer split costs more than it gains.
+# Under rung 11's mask the best caps were 15-17 pairs at the D = 128 shape
+# (3008 pairs, 11.4 a slot; 12 ran 8% and no split 2x slower) and no split
+# at the D = 64 training shape (60.8 a slot; cap 61 ran 3-5% slower).
+DKV_BLOCKS_PER_SM = {64: 3, 128: 2}
+CHUNK_SLACK = 1.4
+MIN_CHUNK_PAIRS = 4
+# Ints per dK/dV plan entry (csrc/flash_bwd_sm90.cuh, kPlanInts): KV tile,
+# first and end pair of the chunk in the tile's walk, the chunk's index,
+# the tile's chunk count, the tile's first workspace slot, the tile's index
+# among the split tiles (its tickets), padding.
+PLAN_INTS = 8
+
+
+def dkv_chunk_cap(kv_lengths: np.ndarray, batch: int, n_kv_heads: int, group: int,
+                  head_dim: int, sm_count: int) -> int:
+    """The most tile pairs one dK/dV block walks, from the transposed lists'
+    lengths and static shapes alone (no tensor data): ``CHUNK_SLACK`` times
+    the pairs of the whole call over ``sm_count *
+    DKV_BLOCKS_PER_SM[head_dim]`` block slots, rounded up, at least
+    ``MIN_CHUNK_PAIRS``."""
+    total = batch * n_kv_heads * group * int(np.sum(kv_lengths))
+    slots = sm_count * DKV_BLOCKS_PER_SM[head_dim]
+    return max(MIN_CHUNK_PAIRS, math.ceil(CHUNK_SLACK * total / slots))
+
+
+class SparseGrid(NamedTuple):
+    """The grid of one launch of a block-sparse backward kernel: the most
+    tile pairs one block walks (dK/dV: the chunk cap), the blocks per
+    (head, batch) (dK/dV: chunks; dQ: Q tiles) and the blocks."""
+
+    cap: int
+    chunks: int
+    blocks: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DkvPlan:
+    """The dK/dV kernel's chunks in issue order, longest first.
+
+    ``entries [chunks, PLAN_INTS]`` int32, each ``(KV tile, first pair, end
+    pair, chunk, chunks of the tile, first slot, split tile, 0)``: pairs
+    ``p`` of a tile's walk are ``(q-head p // len, list entry p % len)``.
+    A tile whose walk fits the cap is one chunk with no slot or ticket;
+    ``slots`` workspace slots and ``split_tiles`` tickets serve the others.
+    """
+
+    cap: int
+    entries: np.ndarray
+    slots: int
+    split_tiles: int
+
+    @property
+    def chunks(self) -> int:
+        return len(self.entries)
+
+    def grid(self, batch: int, n_kv_heads: int) -> SparseGrid:
+        return SparseGrid(self.cap, self.chunks, self.chunks * batch * n_kv_heads)
+
+    def part_numel(self, batch: int, n_kv_heads: int, head_dim: int) -> int:
+        """fp32 elements of the workspace: 64 x D for dK and for dV per
+        (slot, KV head, batch)."""
+        return self.slots * batch * n_kv_heads * 2 * TILE * head_dim
+
+
+def dkv_plan(kv_lengths: np.ndarray, group: int, cap: int) -> DkvPlan:
+    """Every KV tile's walk of ``group * length`` pairs cut into
+    ``ceil(walk / cap)`` chunks of near-equal length (an empty tile is one
+    empty chunk, which stores zeros), ordered longest first, ties in tile
+    and chunk order.  A pure function of the lengths, ``group`` and
+    ``cap``."""
+    rows, slots, split = [], 0, 0
+    for tile, length in enumerate(int(n) for n in kv_lengths):
+        walk = group * length
+        n = max(1, -(-walk // cap))
+        bounds = [walk * i // n for i in range(n + 1)]
+        for c in range(n):
+            rows.append((tile, bounds[c], bounds[c + 1], c, n, slots if n > 1 else 0,
+                         split if n > 1 else 0, 0))
+        if n > 1:
+            slots += n
+            split += 1
+    rows.sort(key=lambda r: (r[1] - r[2], r[0], r[3]))
+    entries = np.array(rows, dtype=np.int32).reshape(-1, PLAN_INTS)
+    return DkvPlan(cap, entries, slots, split)
+
+
+def dq_order(q_lengths: np.ndarray) -> np.ndarray:
+    """The dQ kernel's Q tiles in issue order: longest list first, ties in
+    tile order (int32)."""
+    return np.argsort(-np.asarray(q_lengths), kind="stable").astype(np.int32)
+
+
+def _device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class BlockMask:
     """Compiled block-sparse mask for a fixed ``(n_q, n_kv, blocks)`` layout.
 
@@ -143,7 +263,9 @@ class BlockMask:
     predicate is evaluated on numpy int arrays, one block tile at a time.
 
     ``tables(device)``: the kernels' tables (``MaskTables``), built at
-    construction and copied once per device.
+    construction and copied once per device; ``q_lengths`` and
+    ``kv_lengths`` their lists' lengths; ``dkv_plan`` and ``dq_order`` the
+    backward kernels' grids, kept beside them.
     """
 
     def __init__(self, mask_fn: MaskFn, n_q: int, n_kv: int, block_q: int, block_kv: int):
@@ -171,8 +293,13 @@ class BlockMask:
         self.max_q = max(int(self.kv_counts.max()), 1)
         self.q_ids = self._padded_lists(occupancy.T, self.max_q)
 
-        self._tables: Dict[torch.device, MaskTables] = {
-            torch.device("cpu"): compile_tables(mask_fn, n_q, n_kv)}
+        cpu = compile_tables(mask_fn, n_q, n_kv)
+        self._tables: Dict[torch.device, MaskTables] = {torch.device("cpu"): cpu}
+        # Entries of each Q tile's and each KV tile's list.
+        self.q_lengths = np.diff(cpu.q_ptr.numpy())
+        self.kv_lengths = np.diff(cpu.kv_ptr.numpy())
+        self._plans: Dict[tuple, Tuple[DkvPlan, torch.Tensor]] = {}
+        self._orders: Dict[torch.device, torch.Tensor] = {}
 
     @staticmethod
     def _padded_lists(occupancy: np.ndarray, width: int) -> np.ndarray:
@@ -191,12 +318,26 @@ class BlockMask:
 
     def tables(self, device) -> MaskTables:
         """The kernels' tables on ``device`` (copied there once)."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = _device(device)
         if device not in self._tables:
             self._tables[device] = self._tables[torch.device("cpu")].to(device)
         return self._tables[device]
+
+    def dkv_plan(self, device, group: int, cap: int) -> Tuple[DkvPlan, torch.Tensor]:
+        """``dkv_plan`` of this mask's transposed lists, and its entries on
+        ``device`` (built and copied once per (device, group, cap))."""
+        key = (_device(device), group, cap)
+        if key not in self._plans:
+            plan = dkv_plan(self.kv_lengths, group, cap)
+            self._plans[key] = plan, torch.from_numpy(plan.entries).to(key[0])
+        return self._plans[key]
+
+    def dq_order(self, device) -> torch.Tensor:
+        """``dq_order`` of this mask's lists on ``device`` (copied once)."""
+        device = _device(device)
+        if device not in self._orders:
+            self._orders[device] = torch.from_numpy(dq_order(self.q_lengths)).to(device)
+        return self._orders[device]
 
     def dense(self, device=None) -> torch.Tensor:
         """The elementwise mask ``[n_q, n_kv]`` (bool): the plain versions'
@@ -262,6 +403,62 @@ def flash_sparse_dq_plain(q, k, v, do, lse, delta, mask: BlockMask, *, sm_scale:
     return (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
 
 
+def _bit_tiles_dense(t: MaskTables) -> torch.Tensor:
+    """The partial pairs' bit tiles as bool ``[n_partial, 64, 64]``."""
+    words = t.bit_tiles.numpy().view(np.uint32)
+    bits = (words[..., None] >> np.arange(32, dtype=np.uint32)) & 1
+    return torch.from_numpy(bits.reshape(-1, TILE, TILE).astype(bool))
+
+
+def flash_sparse_dkv_chunked_plain(q, k, v, do, lse, delta, mask: BlockMask, plan: DkvPlan, *,
+                                   sm_scale: float):
+    """The bf16 dK/dV kernel's split walk in fp32 PyTorch, for the tests:
+    for every plan entry, the fp32 partial dK and dV of its pairs (each a
+    list entry of the mask's tables and its bit tile, or full), summed per
+    tile in chunk order, then scaled and cast as the kernel stores."""
+    b, h, n_q, d = q.shape
+    h_kv, n_kv = k.shape[1], k.shape[2]
+    group = h // h_kv
+    t = mask.tables("cpu")
+    kv_ptr, kv_list = t.kv_ptr.tolist(), t.kv_list.tolist()
+    bits = _bit_tiles_dense(t).to(q.device)
+    qf = q.float().view(b, h_kv, group, n_q, d)
+    dof = do.float().view(b, h_kv, group, n_q, d)
+    lse_safe = torch.where(torch.isneginf(lse), LSE_SENTINEL, lse.float()).view(b, h_kv, group, n_q)
+    delta = delta.float().view(b, h_kv, group, n_q)
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros((b, h_kv, n_kv, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    partials: Dict[int, Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = {}
+    for tile, first_pair, end_pair, chunk, *_ in plan.entries.tolist():
+        first, length = kv_ptr[tile], kv_ptr[tile + 1] - kv_ptr[tile]
+        cols = slice(tile * TILE, min(n_kv, (tile + 1) * TILE))
+        kt, vt = kf[:, :, cols], vf[:, :, cols]
+        acc_k = torch.zeros_like(kt)
+        acc_v = torch.zeros_like(vt)
+        for pair in range(first_pair, end_pair):
+            g = pair // length
+            q_tile, bit = kv_list[first + pair % length]
+            rows = slice(q_tile * TILE, min(n_q, (q_tile + 1) * TILE))
+            qt, dot = qf[:, :, g, rows], dof[:, :, g, rows]
+            s = torch.matmul(qt, kt.transpose(-1, -2)) * sm_scale
+            p = torch.exp(s - lse_safe[:, :, g, rows, None])
+            if bit >= 0:
+                seen = bits[bit, : p.shape[-2], : p.shape[-1]]
+                p = p.masked_fill(~seen, 0.0)
+            dp = torch.matmul(dot, vt.transpose(-1, -2))
+            ds = p * (dp - delta[:, :, g, rows, None])
+            acc_v += torch.matmul(p.transpose(-1, -2), dot)
+            acc_k += torch.matmul(ds.transpose(-1, -2), qt)
+        partials.setdefault(tile, {})[chunk] = (acc_k, acc_v)
+    for tile, chunks in partials.items():
+        cols = slice(tile * TILE, min(n_kv, (tile + 1) * TILE))
+        for c in range(len(chunks)):  # in chunk order, from zero, as the kernel merges
+            dk[:, :, cols] += chunks[c][0]
+            dv[:, :, cols] += chunks[c][1]
+    return (dk * sm_scale).to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
 # The kernels' wrappers.
 # ---------------------------------------------------------------------------
@@ -274,11 +471,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # q, k, v, o, lse, q_ptr, q_list, bits
     lib.fam_flash_sparse_fwd.argtypes = [ptr] * 8 + shape
     lib.fam_flash_sparse_fwd.restype = ctypes.c_int
-    # q, k, v, dout, lse, delta, dk, dv, kv_ptr, kv_list, bits
-    lib.fam_flash_sparse_dkv.argtypes = [ptr] * 11 + shape
+    # q, k, v, dout, lse, delta, dk, dv, kv_ptr, kv_list, bits, plan, part,
+    # tickets; the shape; n_chunks before the stream
+    lib.fam_flash_sparse_dkv.argtypes = [ptr] * 14 + shape[:-1] + [i32, ptr]
     lib.fam_flash_sparse_dkv.restype = ctypes.c_int
-    # q, k, v, dout, lse, delta, dq, q_ptr, q_list, bits
-    lib.fam_flash_sparse_dq.argtypes = [ptr] * 10 + shape
+    # q, k, v, dout, lse, delta, dq, q_ptr, q_list, bits, order
+    lib.fam_flash_sparse_dq.argtypes = [ptr] * 11 + shape
     lib.fam_flash_sparse_dq.restype = ctypes.c_int
     return lib
 
@@ -312,10 +510,9 @@ def _check_rows(q, *rows) -> None:
             raise ValueError("lse and delta must be contiguous fp32 tensors on q's device")
 
 
-def _dims(q, k, sm_scale):
+def _dims(q, k, sm_scale, stream):
     b, h, n_q, d = q.shape
-    return (b, h, k.shape[1], n_q, k.shape[2], d, sm_scale, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+    return b, h, k.shape[1], n_q, k.shape[2], d, sm_scale, _DTYPE_CODES[q.dtype], stream
 
 
 def flash_sparse_fwd(q, k, v, mask: BlockMask, *, sm_scale: float, save_lse: bool = False):
@@ -329,7 +526,8 @@ def flash_sparse_fwd(q, k, v, mask: BlockMask, *, sm_scale: float, save_lse: boo
     err = _lib().fam_flash_sparse_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        t.q_ptr.data_ptr(), t.q_list.data_ptr(), t.bit_tiles.data_ptr(), *_dims(q, k, sm_scale),
+        t.q_ptr.data_ptr(), t.q_list.data_ptr(), t.bit_tiles.data_ptr(),
+        *_dims(q, k, sm_scale, torch.cuda.current_stream(q.device).cuda_stream),
     )
     if err:
         raise RuntimeError(f"flash_sparse_fwd kernel launch failed: cudaError_t {err}")
@@ -338,47 +536,87 @@ def flash_sparse_fwd(q, k, v, mask: BlockMask, *, sm_scale: float, save_lse: boo
 
 
 def flash_sparse_dkv(q, k, v, do, lse, delta, mask: BlockMask, *, sm_scale: float):
-    """``(dk, dv)`` from the dK/dV kernel (CPU: the plain version)."""
+    """``(dk, dv)`` from the dK/dV kernel (CPU: the plain version).  Keeps
+    the launch's ``SparseGrid`` as ``.grid`` beside ``.launches``."""
     if q.device.type == "cpu":
         return flash_sparse_dkv_plain(q, k, v, do, lse, delta, mask, sm_scale=sm_scale)
     _check_cuda(mask, q, k, v, do)
     _check_rows(q, lse, delta)
+    return _launch_dkv(q, k, v, do, lse, delta, mask, sm_scale)
+
+
+def _launch_dkv(q, k, v, do, lse, delta, mask: BlockMask, sm_scale: float):
+    """The dK/dV entry's launch on checked inputs: the bf16 plan at the
+    cap ``dkv_chunk_cap`` gives for these shapes, its workspace (torch's
+    caching allocator) and the stream's kept tickets; or the fp32
+    template's grid."""
     t = mask.tables(q.device)
+    b, h, _, d = q.shape
+    h_kv = k.shape[1]
+    stream, sms = ff._cuda_args(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = tickets = entries = None
+    if q.dtype == torch.bfloat16:
+        cap = dkv_chunk_cap(mask.kv_lengths, b, h_kv, h // h_kv, d, sms)
+        plan, entries = mask.dkv_plan(q.device, h // h_kv, cap)
+        grid = plan.grid(b, h_kv)
+        if plan.slots:
+            part = torch.empty(plan.part_numel(b, h_kv, d), dtype=torch.float32, device=q.device)
+            tickets = ff._tickets(q.device, stream, plan.split_tiles * b * h_kv)
+    else:  # the fp32 template: one block per (KV tile, KV head, batch)
+        walks = (h // h_kv) * mask.kv_lengths
+        grid = SparseGrid(int(walks.max()), len(walks), len(walks) * b * h_kv)
     err = _lib().fam_flash_sparse_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), t.kv_ptr.data_ptr(),
-        t.kv_list.data_ptr(), t.bit_tiles.data_ptr(), *_dims(q, k, sm_scale),
+        t.kv_list.data_ptr(), t.bit_tiles.data_ptr(), ff._ptr(entries), ff._ptr(part),
+        ff._ptr(tickets), *_dims(q, k, sm_scale, stream)[:-1], grid.chunks, stream,
     )
     if err:
         raise RuntimeError(f"flash_sparse_dkv kernel launch failed: cudaError_t {err}")
     flash_sparse_dkv.launches += 1
+    flash_sparse_dkv.grid = grid
     return dk, dv
 
 
 def flash_sparse_dq(q, k, v, do, lse, delta, mask: BlockMask, *, sm_scale: float):
-    """``dq`` from the dQ kernel (CPU: the plain version)."""
+    """``dq`` from the dQ kernel (CPU: the plain version).  Keeps the
+    launch's ``SparseGrid`` as ``.grid`` beside ``.launches``."""
     if q.device.type == "cpu":
         return flash_sparse_dq_plain(q, k, v, do, lse, delta, mask, sm_scale=sm_scale)
     _check_cuda(mask, q, k, v, do)
     _check_rows(q, lse, delta)
+    return _launch_dq(q, k, v, do, lse, delta, mask, sm_scale)
+
+
+def _launch_dq(q, k, v, do, lse, delta, mask: BlockMask, sm_scale: float):
+    """The dQ entry's launch on checked inputs (bf16: Q tiles longest list
+    first)."""
     t = mask.tables(q.device)
+    stream, _ = ff._cuda_args(q)
+    order = mask.dq_order(q.device) if q.dtype == torch.bfloat16 else None
     dq = torch.empty_like(q)
     err = _lib().fam_flash_sparse_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), t.q_ptr.data_ptr(), t.q_list.data_ptr(),
-        t.bit_tiles.data_ptr(), *_dims(q, k, sm_scale),
+        t.bit_tiles.data_ptr(), ff._ptr(order), *_dims(q, k, sm_scale, stream),
     )
     if err:
         raise RuntimeError(f"flash_sparse_dq kernel launch failed: cudaError_t {err}")
     flash_sparse_dq.launches += 1
+    tiles = len(mask.q_lengths)
+    flash_sparse_dq.grid = SparseGrid(int(mask.q_lengths.max()), tiles,
+                                      tiles * q.shape[0] * q.shape[1])
     return dq
 
 
-# Launches of each CUDA kernel since import (the CPU route does not count).
+# Launches of each CUDA kernel since import (the CPU route does not count),
+# and the backward kernels' grids at their last launch (None before one).
 flash_sparse_fwd.launches = 0
 flash_sparse_dkv.launches = 0
 flash_sparse_dq.launches = 0
+flash_sparse_dkv.grid = None
+flash_sparse_dq.grid = None
 
 
 def _checked(q, k, v, mask: BlockMask, sm_scale):

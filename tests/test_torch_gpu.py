@@ -449,7 +449,7 @@ PLANTED_BWD_FAULTS = {
                                  "max(0, kv_start - off) / kRows + 1;"),
     # the dK/dV block walks only its group's first q-head: dK and dV miss the
     # other q-heads' terms (the training shape is GQA 2)
-    "first_head_only": ("const int n_steps = group * per_head;", "const int n_steps = per_head;"),
+    "first_head_only": ("n_steps = group * per_head;", "n_steps = per_head;"),
     # dS^T = P^T * dP^T: delta not subtracted
     "delta_not_subtracted": ("dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e & 1]);",
                              "dpt[4 * j + e] = p * dpt[4 * j + e];"),
@@ -1607,6 +1607,9 @@ SPARSE_MASKS = {
     "dead-rows": lambda r, c: (r >= 64) & (c <= r),
     "rung11": lambda r, c: (c <= r) & (((r - c) < SPARSE_N // 4)
                                        | ((c % (3 * SPARSE_N // 8)) < SPARSE_N // 8)),
+    # a long transposed list: every row sees the first 64 columns, plus a
+    # band, so the bf16 dK/dV plan splits KV tile 0's walk
+    "long-list": lambda r, c: (c < 64) | ((c <= r) & (r - c < 64)),
 }
 
 
@@ -1617,7 +1620,8 @@ SPARSE_MASKS = {
 @pytest.mark.parametrize("mask", sorted(SPARSE_MASKS))
 def test_sparse_kernels_match_plain(cuda, mask, fixture, dtype, head_dim):
     """Each sparse kernel against its plain version (GQA 2, one launch
-    each); dead rows give o = 0, lse = -inf and zero dQ."""
+    each); dead rows give o = 0, lse = -inf and zero dQ; the long list's
+    dK/dV walk is split in bf16 (more chunks than KV tiles)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     bm = fm.BlockMask(SPARSE_MASKS[mask], SPARSE_N, SPARSE_N, 128, 128)
@@ -1631,6 +1635,8 @@ def test_sparse_kernels_match_plain(cuda, mask, fixture, dtype, head_dim):
     assert [c.launches for c in counters] == [n + 1 for n in before]
     assert max(errors["o"]) <= TOL[dtype], errors
     assert max(errors[g][1] for g in ("dq", "dk", "dv")) <= BWD_TOL[dtype], errors
+    if mask == "long-list" and dtype == torch.bfloat16:
+        assert fm.flash_sparse_dkv.grid.chunks > len(bm.kv_lengths), fm.flash_sparse_dkv.grid
     if mask == "dead-rows":
         o, lse = fm.flash_attention_block_sparse_fwd(q, k, v, bm, save_lse=True)
         assert torch.all(o[:, :, :64] == 0) and torch.all(torch.isneginf(lse[:, :, :64]))
@@ -1681,51 +1687,100 @@ def test_sparse_kernels_reject_what_they_do_not_take(cuda):
         fm.block_sparse_attention(q[:, :, :256], q[:, :, :256], q[:, :, :256], bm)
 
 
-# Faults planted in a copy of csrc/flash_mask.cu: (the kernels whose check
-# must fail, text, replacement).
+# Faults planted in a copy of csrc/ and built into flash_mask.cu: (source,
+# {sparse_cases name: the outputs whose check must fail there}, text,
+# replacement).  The bf16 backward runs the split pair's mainloop on its
+# sparse walk (flash_bwd_sm90.cuh); the forward and the fp32 backward keep
+# the first-generation template (flash_mask.cu), whose faults fail on the
+# cases that still run it.  The cases run in the order given, on inputs no
+# earlier check has computed.
+_BF16 = {"sparse_bf16": ("dq", "dk", "dv"), "sparse_bf16_peaked": ("dq", "dk", "dv")}
+_SPLIT = {"sparse_bf16_d128": ("dk", "dv"), "sparse_bf16_d128_peaked": ("dk", "dv")}
 PLANTED_SPARSE_FAULTS = {
-    # the forward walks each Q tile's KV list one entry short
-    "fwd_kv_entry_dropped": (("o",), "e < last; ++e) {  // the Q tile's KV list",
-                             "e < last - 1; ++e) {  // the Q tile's KV list"),
+    # the dK/dV walk takes each chunk one pair short: an unsplit tile drops
+    # its last q-head's last list entry (dV moves by 8.8e-3 of its max on
+    # the ladder fixture, under the bound; dK fails)
+    "dkv_q_entry_dropped": ("flash_bwd_sm90.cuh", {"sparse_bf16": ("dk",),
+                                                   "sparse_bf16_peaked": ("dk", "dv")},
+                            "n_steps = (e[2] - e[1]) * kSub;",
+                            "n_steps = (e[2] - e[1] - 1) * kSub;"),
     # the dQ kernel walks each Q tile's KV list one entry short
-    "dq_kv_entry_dropped": (("dq",), "e < last; ++e) {  // the KV list again",
-                            "e < last - 1; ++e) {  // the KV list again"),
-    # the dK/dV kernel walks each KV tile's transposed Q list one entry short
-    "dkv_q_entry_dropped": (("dk", "dv"), "e < last; ++e) {  // the transposed Q list",
-                            "e < last - 1; ++e) {  // the transposed Q list"),
+    "dq_kv_entry_dropped": ("flash_bwd_sm90.cuh", {n: ("dq",) for n in _BF16},
+                            "n_steps = walk.ptr[q_tile + 1] - first;",
+                            "n_steps = walk.ptr[q_tile + 1] - first - 1;"),
     # every partial pair's mask read one column off
-    "mask_bit_off_by_one": (("o", "dq", "dk", "dv"),
-                            "bit_tiles[((size_t)bits * kTile + r) * kBitWords + half];",
-                            "(bit_tiles[((size_t)bits * kTile + r) * kBitWords + half] << 1);"),
+    "mask_bit_off_by_one": ("flash_bwd_sm90.cuh", _BF16,
+                            "return (bits[row * 2 + (col >> 5)] >> (col & 31)) & 1u;",
+                            "return (bits[row * 2 + (col >> 5)] >> ((col + 1) & 31)) & 1u;"),
+    # a partial dK/dV step tests the bit rows of the other ring stage
+    "stale_bit_stage": ("flash_bwd_sm90.cuh", {n: ("dk", "dv") for n in _BF16},
+                        "const uint32_t* step_bits = sm.bits[s];",
+                        "const uint32_t* step_bits = sm.bits[s ^ 1];"),
+    # the merge of a split tile leaves out its last chunk
+    "merge_drops_last_chunk": ("flash_bwd_sm90.cuh", _SPLIT,
+                               "c < n_chunks; ++c) {  // in chunk order",
+                               "c < n_chunks - 1; ++c) {  // in chunk order"),
+    # the merging block adds its own chunk twice
+    "merge_adds_a_chunk_twice": ("flash_bwd_sm90.cuh", _SPLIT, "float sk = 0.0f, sv = 0.0f;",
+                                 "float sk = dk[i], sv = dv[i];"),
+    # the merging block leaves its ticket set: the first call is right, the
+    # second finds no last chunk and stores no split tile
+    "ticket_not_reset": ("flash_bwd_sm90.cuh", {"sparse_bf16_d128": (),
+                                                "sparse_bf16_d128_peaked": ("dk", "dv")},
+                         "if (tid == 0) tickets[ticket] = 0;", ""),
+    # the template's forward walks each Q tile's KV list one entry short
+    "fwd_kv_entry_dropped": ("flash_mask.cu", {n: ("o",) for n in ("sparse_bf16",
+                                                                   "sparse_bf16_peaked",
+                                                                   "sparse_fp32_n512")},
+                             "e < last; ++e) {  // the Q tile's KV list",
+                             "e < last - 1; ++e) {  // the Q tile's KV list"),
+    # the fp32 dQ template walks each Q tile's KV list one entry short
+    "template_dq_kv_entry_dropped": ("flash_mask.cu", {"sparse_fp32_n512": ("dq",)},
+                                     "e < last; ++e) {  // the KV list again",
+                                     "e < last - 1; ++e) {  // the KV list again"),
+    # the fp32 dK/dV template walks each transposed Q list one entry short
+    "template_dkv_q_entry_dropped": ("flash_mask.cu", {"sparse_fp32_n512": ("dk", "dv")},
+                                     "e < last; ++e) {  // the transposed Q list",
+                                     "e < last - 1; ++e) {  // the transposed Q list"),
+    # the template's mask words (the forward, the fp32 backward) one column off
+    "template_mask_bit_off_by_one": (
+        "flash_mask.cu", {"sparse_bf16": ("o",), "sparse_fp32_n512": ("o", "dq", "dk", "dv")},
+        "bit_tiles[((size_t)bits * kTile + r) * kBitWords + half];",
+        "(bit_tiles[((size_t)bits * kTile + r) * kBitWords + half] << 1);"),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("fault", sorted(PLANTED_SPARSE_FAULTS))
 def test_planted_sparse_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
-    """chip_smoke.py's block-sparse checks (rung 11's mask at the training
-    shape, ladder and peaked fixtures) pass the kernels as built and fail a
-    copy with a planted fault in each kernel it touches (errors printed
-    with ``-s``)."""
-    outputs, old, new = PLANTED_SPARSE_FAULTS[fault]
-    lib = fm.bind(_planted_library(tmp_path, "flash_mask.cu", "flash_mask.cu", old, new))
+    """chip_smoke.py's block-sparse checks (rung 11's mask: the training
+    shape on the ladder and peaked fixtures, fp32 at N = 512, head dim 128
+    where the dK/dV plan splits) fail a copy with a planted fault on each
+    case it reaches, and pass the kernels as built (errors printed with
+    ``-s``).  The planted copy runs first, on inputs seeded apart from
+    every other check, so a split tile that it never stores cannot hold a
+    right answer left by an earlier call; each library gets fresh tickets."""
+    source, reach, old, new = PLANTED_SPARSE_FAULTS[fault]
+    lib = fm.bind(_planted_library(tmp_path, "flash_mask.cu", source, old, new))
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(onchip.SEED)
+    gen.manual_seed(onchip.SEED + 1)
     cases = onchip.sparse_cases(gen)
-    names = ("sparse_bf16", "sparse_bf16_peaked")
 
     def worst(errs, out):
         return max(errs["o"]) if out == "o" else errs[out][1]
 
-    clean = {n: onchip.sparse_kernel_errors(cases[n]) for n in names}
-    monkeypatch.setattr(fm, "_lib", lambda: lib)
-    faulty = {n: onchip.sparse_kernel_errors(cases[n]) for n in names}
-    print(f"\n{fault}, worst error built -> planted:\n" + "\n".join(
+    monkeypatch.setattr(ff, "_TICKETS", {})
+    with monkeypatch.context() as m:
+        m.setattr(fm, "_lib", lambda: lib)
+        faulty = {n: onchip.sparse_kernel_errors(cases[n]) for n in reach}
+    monkeypatch.setattr(ff, "_TICKETS", {})
+    clean = {n: onchip.sparse_kernel_errors(cases[n]) for n in reach}
+    print(f"\n{fault} ({source}), worst error built -> planted:\n" + "\n".join(
         f"  {n}: " + ", ".join(f"{out} {worst(clean[n], out):.3e} -> {worst(faulty[n], out):.3e}"
-                               for out in ("o", "dq", "dk", "dv")) for n in names))
-    tol = {"o": TOL[torch.bfloat16], "dq": BWD_TOL[torch.bfloat16], "dk": BWD_TOL[torch.bfloat16],
-           "dv": BWD_TOL[torch.bfloat16]}
-    for n in names:
-        assert all(worst(clean[n], out) <= tol[out] for out in tol)
+                               for out in ("o", "dq", "dk", "dv")) for n in reach))
+    for n, outputs in reach.items():
+        dtype = cases[n][0].dtype
+        tol = {"o": TOL[dtype], "dq": BWD_TOL[dtype], "dk": BWD_TOL[dtype], "dv": BWD_TOL[dtype]}
+        assert all(worst(clean[n], out) <= tol[out] for out in tol), (n, clean[n])
         for out in outputs:
             assert not worst(faulty[n], out) <= tol[out], (n, out)
