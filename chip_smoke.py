@@ -48,9 +48,10 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   1024, each point launching its V1 kernel; each kernel's time, bound and
   SDPA's at the sweep's shape, with the Q-tile height and block count it
   took;
-* block-sparse attention under ladder rung 11's mask (the backward
-  kernels' grids, the dK/dV plan's chunk cap, chunks and blocks, read from
-  their wrappers after the timed launches), then head dim 128:
+* block-sparse attention under ladder rung 11's mask (each kernel's
+  grid, read from its wrapper after the timed launches: the forward's and
+  dQ's one block per Q tile, the dK/dV plan's chunk cap, chunks and
+  blocks), then head dim 128:
   every kernel against its plain version at its path's shape with D = 128,
   with its device, plain, bound and library times (the general forward
   also at the training shape and folded decode, lean also at N = 128).
@@ -536,21 +537,23 @@ def fused_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
 
 
 def sparse_grid_text(grid) -> str:
-    """A block-sparse backward kernel's grid (``flash_mask.SparseGrid``)."""
+    """A block-sparse kernel's grid (``flash_mask.SparseGrid``); the bf16
+    kernels issue their blocks longest walk first."""
     return (f"grid: at most {grid.cap} tile pairs a block, {grid.chunks} blocks a head, "
-            f"{grid.blocks} blocks")
+            f"{grid.blocks} blocks, longest walk first")
 
 
 def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) -> list:
-    """Block-sparse attention (``csrc/flash_mask.cu``) under ladder rung
+    """Block-sparse attention (``csrc/flash_mask.cu``'s entries; bf16 on
+    ``flash_fwd_sm90.cuh`` and ``flash_bwd_sm90.cuh``) under ladder rung
     11's mask at the training shape: each of the three kernels against its
     plain version (bf16 on the ladder, peaked and spike fixtures, fp32 at
     N = 512, bf16 at head dim 128); then the main path, one
     ``torch.autograd.grad`` through ``block_sparse_attention`` with every
     count set to 0 before it, against the plain gradient; each kernel's
-    times, bound and SDPA's (boolean mask, efficient backend), and the
-    backward kernels' grids of the timed launches (the dK/dV plan's chunk
-    cap, chunks and blocks), as their wrappers kept them.  Returns the three
+    times, bound and SDPA's (boolean mask, efficient backend), and each
+    kernel's grid of the timed launches (the dK/dV plan's chunk cap, chunks
+    and blocks), as its wrapper kept it.  Returns the three
     kernel records; ``ladder_launches``: the rung-11 run's counts."""
     from flash_attention_metal_tpu_torch.harness import onchip
     from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
@@ -630,7 +633,7 @@ def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) 
     for name, (kernel_fn, plain_fn, work, library, line) in timed.items():
         flops, nbytes = roofline.block_sparse_work(batch, heads, k.shape[1], n, n, d, 2, visible,
                                                    work)
-        source = "flash_mask.cu" if work == "fwd" else "flash_bwd_sm90.cuh"
+        source = "flash_fwd_sm90.cuh" if work == "fwd" else "flash_bwd_sm90.cuh"
         rec = {
             "name": name,
             "route": "cuda",
@@ -654,14 +657,14 @@ def sparse_phase(gen: torch.Generator, stamp: str, spec, ladder_launches: dict) 
             rec["max_rel_err_fp32"] = max(errors["sparse_fp32_n512"][g][1] for g in grads)
             rec["library_backend"] += " forward and backward (dQ, dK, dV together)"
             rec["op_grad_rel_err"] = max(grad_errors[g] for g in grads)
-            # The grid of the timed launches, as the wrapper kept it.
-            rec.update(counters[name].grid._asdict())
+        # The grid of the timed launches, as the wrapper kept it.
+        rec.update(counters[name].grid._asdict())
         records.append(rec)
         print(f"[time] kernel {name} at {rec['shape']}: device {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
               f"({rec['library_backend']}), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}); "
-              f"launches {rec['launches']}" + ("" if work == "fwd" else "; " + sparse_grid_text(
-                  counters[name].grid)) + f" {stamp}")
+              f"launches {rec['launches']}; source {source}; "
+              f"{sparse_grid_text(counters[name].grid)} {stamp}")
     del q, k, v, do, o, lse, delta, dense, qf, kf, vf, dof
     torch.cuda.empty_cache()
     return records
@@ -909,7 +912,7 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     ):
         record(name, err, tol, kernel_fn, plain_fn, library,
                roofline.block_sparse_work(b, h, k.shape[1], n, n, d, 2, visible, work), 16, shape,
-               wrapper=None if work == "fwd" else getattr(fm, name))
+               wrapper=getattr(fm, name))
     del q, k, v, do, o, lse, delta, dense_mask
     torch.cuda.empty_cache()
     return out

@@ -10,7 +10,7 @@
 // through the header, fp32 through fam_flash_bwd_fused).  bf16 runs the
 // Hopper kernels: the split pair of flash_bwd_sm90.cuh and the fused kernel
 // of flash_bwd_fused_sm90.cuh (wgmma with register A operands, a cp.async
-// ring).  fp32 (and fp16, which the wrapper runs in fp32) runs the WMMA/FMA
+// ring).  fp32 (and fp16, which the wrapper runs in fp32) runs the FMA
 // template below.
 //
 // Contract, for every batch b, q-head h (KV head h / group), query row r and
@@ -93,7 +93,8 @@ __global__ void __launch_bounds__(kThreads)
                          int* __restrict__ counters, int batch, int n_heads, int n_kv_heads,
                          int n_q, int n_kv, float sm_scale, float scale_log2) {
   using C = Cfg<T, D>;
-  static_assert(!C::kBf16, "bf16 runs flash_bwd_sm90.cuh and flash_bwd_fused_sm90.cuh");
+  static_assert(std::is_same<T, float>::value,
+                "bf16 runs flash_bwd_sm90.cuh and flash_bwd_fused_sm90.cuh");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem<T, D>& sm = *reinterpret_cast<BwdSmem<T, D>*>(smem_raw);
   T* p = sm.p_tile();

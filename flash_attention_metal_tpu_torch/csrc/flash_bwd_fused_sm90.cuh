@@ -1,6 +1,6 @@
 // The fused 5-matmul backward redesigned for Hopper (sm_90a), bf16, head dim
 // 64 or 128.  Included by flash_bwd.cu, whose C entry fam_flash_bwd_fused
-// launches it for bf16 (dK and dV stored in bf16) and the WMMA/FMA template
+// launches it for bf16 (dK and dV stored in bf16) and the FMA template
 // there for fp32; and by flash_tri.cu, whose C entry fam_flash_tri_bwd
 // launches it for bf16 with one int offset and dK and dV stored in fp32.
 //

@@ -1,7 +1,7 @@
 // The split backward pair redesigned for Hopper (sm_90a), bf16, head dim 64
 // or 128: dK/dV and dQ, one mainloop for two walks.  Included by
 // flash_bwd.cu, whose C entries (fam_flash_bwd_dkv, fam_flash_bwd_dq) launch
-// these kernels on the causal walk for bf16 (the WMMA/FMA template there
+// these kernels on the causal walk for bf16 (the FMA template there
 // for fp32), and by flash_mask.cu, whose bf16 backward entries
 // (fam_flash_sparse_dkv, fam_flash_sparse_dq) launch them on the sparse
 // walk (the first-generation template there for fp32).
@@ -135,17 +135,6 @@ struct Step {
 // within the 64 KV columns.
 __device__ __forceinline__ bool bit_seen(const uint32_t* bits, int row, int col) {
   return (bits[row * 2 + (col >> 5)] >> (col & 31)) & 1u;
-}
-
-// `kRows` rows from `row0` of bit tile `tile` (64 rows of 2 words) into a
-// stage: kRows / 2 chunks of 16 bytes.
-template <int kRows>
-__device__ __forceinline__ void load_bits(uint32_t* dst, const uint32_t* bit_tiles, int tile,
-                                          int row0) {
-  if (threadIdx.x < kRows / 2) {
-    const uint32_t* src = bit_tiles + ((size_t)tile * kTile + row0) * 2;
-    cp_async16(dst + threadIdx.x * 4, src + threadIdx.x * 4, true);
-  }
 }
 
 // The split pair's causal walk (rows 5-6).  q_offset: int32 [B], column c

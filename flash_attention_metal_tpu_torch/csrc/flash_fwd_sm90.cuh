@@ -1,24 +1,30 @@
-// The dense bf16 forward redesigned for Hopper (sm_90a), head dim 64 or
-// 128.  Included by flash_fwd.cu (fam_flash_fwd, bf16 with pos_div == 1:
-// the training forward, serving's prefill chunks, the ladder's and bench's
-// general calls), by flash_lean.cu (fam_flash_lean, bf16) and by
-// flash_tri.cu (fam_flash_tri_fwd, bf16: the bench's causal calls).
+// The bf16 forward redesigned for Hopper (sm_90a), head dim 64 or 128: one
+// mainloop for two walks.  Included by flash_fwd.cu (fam_flash_fwd, bf16
+// with pos_div == 1: the training forward, serving's prefill chunks, the
+// ladder's and bench's general calls), by flash_lean.cu (fam_flash_lean,
+// bf16) and by flash_tri.cu (fam_flash_tri_fwd, bf16: the bench's causal
+// calls), which launch it on the dense walk; and by flash_mask.cu
+// (fam_flash_sparse_fwd, bf16), which launches it on the sparse walk.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel (the
 // general kernel, a per-batch device offset), ::_fwd_kernel_lean (the
 // whole KV row of n_kv <= 1024 in one block, an int offset given at
-// launch) and flash_tri.py::_tri_kernel (causal, an int offset given at
-// launch, any n_kv): one function, so one kernel serves all three, each
-// entry with its own launch.  Lean's exact two-pass softmax becomes the
-// online one here, which changes only rounding.
+// launch), flash_tri.py::_tri_kernel (causal, an int offset given at
+// launch, any n_kv) and flash_mask.py::_fwd_sparse_kernel (each Q block
+// over its KV skip list, the mask elementwise on visited blocks): one
+// function, so one kernel serves all four, each entry with its own launch.
+// Lean's exact two-pass softmax becomes the online one here, which changes
+// only rounding.
 //
 // Contract, for batch b, q-head h (KV head h / group) and query row r:
 //   o[b,h,r] = softmax_c(sm_scale * q[b,h,r] . k[c]) . v
-// over the columns c < n_kv with, when causal, c <= r + off: off is
-// q_offset[b] (a device array) or, with q_offset null, fixed_offset (an
-// int, negative allowed).  Softmax statistics and both products accumulate
-// in fp32; P is rounded to bf16 before the PV product.  The optional lse
-// is the natural-log logsumexp per row, fp32 [B, H, N_q].  A row with no
+// over the visible columns c.  Dense walk: c < n_kv and, when causal,
+// c <= r + off: off is q_offset[b] (a device array) or, with q_offset
+// null, fixed_offset (an int, negative allowed).  Sparse walk: the columns
+// a block-sparse mask's tables mark (kernels/flash_mask.py::
+// compile_tables).  Softmax statistics and both products accumulate in
+// fp32; P is rounded to bf16 before the PV product.  The optional lse is
+// the natural-log logsumexp per row, fp32 [B, H, N_q].  A row with no
 // visible column gives o = 0 and lse = -inf.
 //
 // What bounds it on the H100.  At the training shape (q [4,16,2048,64],
@@ -26,7 +32,9 @@
 // column) pair, 34.4 GFLOP against ~50 MB of I/O: the tensor cores' side
 // (0.0348 ms at 989 TF/s).  Lean's sweep point N = 1024 (B 8, H 1,
 // non-causal) does 2.1 GFLOP on 4 MB, near the balance point (~295 flops
-// per byte); N = 128 (B 512) is bound by bytes.
+// per byte); N = 128 (B 512) is bound by bytes.  Under ladder rung 11's
+// block-sparse mask at the training shape, 23.6 GFLOP over the visible
+// pairs: the tensor cores' side too.
 //
 // What the design does about the first design's faults (every step's S,
 // P and PV tile round-tripped through shared memory behind four barriers;
@@ -46,12 +54,29 @@
 //   * K and V come through 2-stage cp.async rings of their own, in the
 //     swizzled layout, one barrier per step: K_{i+2} and V_{i+1} are in
 //     flight while step i computes.
-//   * The walk stops at the tile's last visible column; only tiles that
-//     cross the diagonal or the n_kv edge compare columns, interior tiles
-//     skip it.  Q tiles are launched last tile first (the longest walks).
+//   * Only steps whose tile holds a hidden element test their columns;
+//     full steps skip it.
 //   * Lean's blocks are 64 rows too, so K and V are read once per 64 query
 //     rows (16 times at N = 1024, not 64), and shared memory no longer
 //     grows with n_kv.
+//
+// The walks.  A kernel takes a walk policy: which (Q tile, q-head, batch) a
+// block owns, its steps, each step's KV tile, whether a step is full and the
+// element test.  The test selects on the scores after the product, so no
+// wgmma sits under a branch that differs between steps or blocks.
+//   * DenseWalk (rows 1-3): one block per (Q tile, q-head, batch), the last
+//     Q tile first (the longest walks); KV tiles 0 .. the tile's last
+//     visible column, in order; only tiles that cross the diagonal or the
+//     n_kv edge compare columns.
+//   * SparseFwdWalk (row 14): one block per (q-head x batch, Q tile), the Q
+//     tiles issued by a host-made order, longest list first, across heads
+//     (the heads are grid x, the fastest dimension); the steps are the Q
+//     tile's list of visited (KV tile, bits) pairs.  A partial pair's
+//     64 x 2-word bit tile comes through the K ring beside K (the softmax
+//     of a step reads it right after its scores) and a thread reads the two
+//     words of each of its two Q rows once per step; a full pair fetches
+//     and tests nothing.  An empty list walks no step: o = 0, lse = -inf.
+//     Step entries are read from the list a step ahead of their fetches.
 // Block shape: one warpgroup, not two.  At lean's N = 1024, B 8, H 1 there
 // are only 128 tiles of 64 rows: 128-row blocks would leave half of the
 // 132 SMs idle.  At the training shape (2048 tiles) two consumer
@@ -59,7 +84,8 @@
 // an H100 (PERF.md, Findings) 256-thread blocks were slower than this
 // kernel at every shape: the exposed chain of each step, not L2 traffic,
 // held the first design, and the pipelining addresses the chain.
-// Shared memory: 40 KB at D = 64, 80 KB at D = 128.
+// Shared memory: 40 KB at D = 64, 80 KB at D = 128; the sparse walk's two
+// bit stages add 1 KB.
 // Not done yet: TMA with mbarriers and warp specialisation (a producer
 // warp, two consumer warpgroups in ping-pong).
 
@@ -75,11 +101,12 @@
 namespace {
 namespace sm90 {
 
-template <int D>
+template <int D, bool kBits>
 struct FwdSmem {
   bf16 q[kTile * D];
   bf16 k[kStages][kTile * D];
   bf16 v[kStages][kTile * D];
+  alignas(16) uint32_t bits[kStages][kBits ? kTile * 2 : 4];  // a partial pair's bit tile
 };
 
 // 2^x on the special-function unit (ex2.approx.ftz): exp2f without its
@@ -90,28 +117,135 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// Step i's raw scores st (64 Q rows by the 64 KV columns from kv_start) to
-// P in place, online: the row max over the quad into m_i (log2 units, the
-// scale is positive), each row's rescale factor of the earlier steps into
-// alpha, this thread's share of the row sums of P into sum.  Element e of
-// n8 tile j: Q row r_lo (+ 8 for e >= 2), KV column kv_start + 8 j + 2 t
-// + (e & 1).  Tiles whose every pair is visible skip the compare; a hidden
-// column scores -inf.  Rows that have seen nothing yet keep a reference
-// of 0, so exp2 never takes (-inf) - (-inf).
+// The dense walk (rows 1-3).  q_offset: int32 [B], row r sees columns
+// c <= r + q_offset[b]; null: c <= r + fixed_offset; not causal: every
+// column below n_kv.
+struct DenseWalk {
+  static constexpr bool kBits = false;
+  const int* q_offset;
+  int fixed_offset, causal;
+
+  // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
+  // e >= 2), KV column c0 + 8 j + (e & 1).
+  struct Mask {
+    bool full;
+    int c0, r0, off, n_kv;
+    __device__ bool seen(int j, int e) const {
+      const int c = c0 + j * 8 + (e & 1);
+      return c < n_kv && c <= r0 + (e >> 1) * 8 + off;
+    }
+  };
+
+  // A block per (Q tile, q-head, batch), the last Q tile first, over the
+  // KV tiles up to its last row's last visible column.
+  struct Blk {
+    int b, h, q_start, n_steps, off, n_kv;
+    __device__ Blk(const DenseWalk& w, int, int n_q, int n_kv_) {
+      n_kv = n_kv_;
+      b = blockIdx.z;
+      h = blockIdx.y;
+      q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
+      const int rows_valid = min(kTile, n_q - q_start);
+      off = !w.causal ? n_kv : w.q_offset != nullptr ? w.q_offset[b] : w.fixed_offset;
+      // The KV walk stops at the last tile the tile's last row sees.
+      const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
+      n_steps = limit < 0 ? 0 : limit / kTile + 1;
+    }
+    // Step j: (KV tile, bits); the dense walk has no bit tiles.
+    __device__ int2 entry(int j) const { return make_int2(j, -1); }
+    __device__ void fetch_bits(uint32_t*, int2) const {}
+    // row: this thread's first Q row within the tile.  Tiles that cross the
+    // diagonal or the n_kv edge compare columns, interior tiles skip it.
+    __device__ Mask mask(int2 entry, const uint32_t*, int row, int t) const {
+      const int kv_start = entry.x * kTile;
+      const bool full = kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv;
+      return {full, kv_start + 2 * t, q_start + row, off, n_kv};
+    }
+  };
+};
+
+// The block-sparse walk (row 14) over a MaskTables (kernels/flash_mask.py::
+// compile_tables): q_ptr [n_q tiles + 1] and q_list [nnz] of (KV tile,
+// bits), bits -1 for a full pair or the index of a 64 x 2-word bit tile of
+// bit_tiles; order [n_q tiles]: the Q tiles in issue order, longest list
+// first.  Elements past n_q or n_kv are 0 in the bit tiles, so an edge pair
+// is never full and needs no compare.
+struct SparseFwdWalk {
+  static constexpr bool kBits = true;
+  const int* q_ptr;
+  const int2* q_list;
+  const uint32_t* bit_tiles;
+  const int* order;
+
+  // One step's element test: bit 8 j + 2 t + (e & 1) of this thread's two
+  // bit rows (e >= 2: the second).  w holds both words of each row shifted
+  // down by 2 t, this thread's first column of every n8 tile, so each test
+  // shifts by a constant.
+  struct Mask {
+    bool full;
+    uint32_t w[2][2];
+    __device__ bool seen(int j, int e) const {
+      return (w[e >> 1][j >> 2] >> (8 * (j & 3) + (e & 1))) & 1u;
+    }
+  };
+
+  // A block per (q-head x batch, order[blockIdx.y]): the Q tile's KV list.
+  struct Blk {
+    const int2* list;
+    const uint32_t* bit_tiles;
+    int b, h, q_start, n_steps, first;
+    __device__ Blk(const SparseFwdWalk& w, int n_heads, int, int) {
+      list = w.q_list;
+      bit_tiles = w.bit_tiles;
+      b = blockIdx.x / n_heads;
+      h = blockIdx.x % n_heads;
+      const int tile = w.order[blockIdx.y];
+      q_start = tile * kTile;
+      first = w.q_ptr[tile];
+      n_steps = w.q_ptr[tile + 1] - first;
+    }
+    __device__ int2 entry(int j) const {
+      return j < n_steps ? list[first + j] : make_int2(0, -1);
+    }
+    __device__ void fetch_bits(uint32_t* dst, int2 entry) const {
+      if (entry.y >= 0) load_bits<kTile>(dst, bit_tiles, entry.y, 0);
+    }
+    // bits: the step's stage; row: this thread's first Q row within the
+    // tile (its second is row + 8).
+    __device__ Mask mask(int2 entry, const uint32_t* bits, int row, int t) const {
+      Mask m{};
+      m.full = entry.y < 0;
+      if (!m.full) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint2 x = *reinterpret_cast<const uint2*>(bits + (row + half * 8) * 2);
+          m.w[half][0] = x.x >> (2 * t);
+          m.w[half][1] = x.y >> (2 * t);
+        }
+      }
+      return m;
+    }
+  };
+};
+
+// Step i's raw scores st (64 Q rows by the 64 KV columns of the step's
+// tile) to P in place, online: the row max over the quad into m_i (log2
+// units, the scale is positive), each row's rescale factor of the earlier
+// steps into alpha, this thread's share of the row sums of P into sum.
+// Element e of n8 tile j: Q row r_lo (+ 8 for e >= 2), the tile's column
+// 8 j + 2 t + (e & 1).  A full step skips the test; a hidden element
+// scores -inf.  Rows that have seen nothing yet keep a reference of 0, so
+// exp2 never takes (-inf) - (-inf).
+template <class Mask>
 __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m_i)[2],
-                                               float (&alpha)[2], float (&sum)[2], int q_start,
-                                               int kv_start, int r_lo, int off, int n_kv, int t,
-                                               float scale_log2) {
-  const bool full = kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv;
+                                               float (&alpha)[2], float (&sum)[2],
+                                               const Mask& mask, float scale_log2) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if (!full) {
-        const int c = kv_start + j * 8 + 2 * t + (e & 1);
-        if (c >= n_kv || c > r_lo + (e >> 1) * 8 + off) st[4 * j + e] = -INFINITY;
-      }
+      if (!mask.full && !mask.seen(j, e)) st[4 * j + e] = -INFINITY;
       mx[e >> 1] = fmaxf(mx[e >> 1], st[4 * j + e]);
     }
   }
@@ -137,47 +271,45 @@ __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m
   }
 }
 
-// One block per (Q tile, q-head, batch), the last Q tile first.  Warp w
-// owns Q rows 16w..16w+15 of every product.
+// One block per 64-row Q tile of a (q-head, batch), over the KV tiles of
+// its walk.  Warp w owns Q rows 16w..16w+15 of every product.
 //
 // The walk is software-pipelined: while step i's O += P_i V_i runs on the
 // tensor cores, S_{i+1} = Q K_{i+1} (issued just before it) is already
-// done and its softmax runs.  K and V have rings of their own: K_{i+2} is
-// fetched once S_i has finished everywhere, V_{i+1} once PV_{i-1} has.
-// No product sits under a branch (ptxas serialises wgmma on a divergent
-// path): the last step's S_{i+1} reads a stale stage and is dropped.
-template <int D>
+// done and its softmax runs.  K and V have rings of their own: K_{i+2} (and
+// its bit tile) is fetched once S_i has finished everywhere, V_{i+1} once
+// PV_{i-1} has.  No product sits under a branch (ptxas serialises wgmma on
+// a divergent path): the last step's S_{i+1} reads a stale stage and is
+// dropped, and so is the first S of a walk with no step.
+template <int D, class Walk>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const int* __restrict__ q_offset,
-                          int fixed_offset, bf16* __restrict__ o, float* __restrict__ lse,
-                          int n_heads, int n_kv_heads, int n_q, int n_kv, float scale_log2,
-                          int causal) {
+                          const bf16* __restrict__ v, bf16* __restrict__ o,
+                          float* __restrict__ lse, int n_heads, int n_kv_heads, int n_q,
+                          int n_kv, float scale_log2, const Walk walk) {
   extern __shared__ unsigned char smem_raw[];
-  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(aligned_smem(smem_raw));
+  FwdSmem<D, Walk::kBits>& sm =
+      *reinterpret_cast<FwdSmem<D, Walk::kBits>*>(aligned_smem(smem_raw));
+  const typename Walk::Blk blk(walk, n_heads, n_q, n_kv);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int t = lane & 3;
-  const int q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int h_kv = h / (n_heads / n_kv_heads);
-  const size_t q_rows = ((size_t)b * n_heads + h) * n_q;
-  const size_t kv_rows = ((size_t)b * n_kv_heads + h_kv) * n_kv;
+  const int q_start = blk.q_start;
+  const int h_kv = blk.h / (n_heads / n_kv_heads);
+  const size_t q_rows = ((size_t)blk.b * n_heads + blk.h) * n_q;
+  const size_t kv_rows = ((size_t)blk.b * n_kv_heads + h_kv) * n_kv;
   const int rows_valid = min(kTile, n_q - q_start);
-  // Row r sees columns c <= r + off (all of them when not causal).
-  const int off = !causal ? n_kv : q_offset != nullptr ? q_offset[b] : fixed_offset;
-  // The KV walk stops at the last tile the tile's last row sees.
-  const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
-  const int n_steps = limit < 0 ? 0 : limit / kTile + 1;
-  // Step j's K (V) tile into K (V) ring stage j % 2.
-  auto fetch_k = [&](int j) {
-    const int kv_start = j * kTile;
+  const int n_steps = blk.n_steps;
+  // Step j's K tile (and bit tile) into K ring stage j % 2, its V tile into
+  // V ring stage j % 2; entry: the step's (KV tile, bits).
+  auto fetch_k = [&](int j, int2 entry) {
+    const int kv_start = entry.x * kTile;
     load_tile<D, kTile>(sm.k[j % kStages], k + (kv_rows + kv_start) * D, n_kv - kv_start);
+    blk.fetch_bits(sm.bits[j % kStages], entry);
   };
-  auto fetch_v = [&](int j) {
-    const int kv_start = j * kTile;
+  auto fetch_v = [&](int j, int2 entry) {
+    const int kv_start = entry.x * kTile;
     load_tile<D, kTile>(sm.v[j % kStages], v + (kv_rows + kv_start) * D, n_kv - kv_start);
   };
   // st = Q K_j, issued as one group (not waited for).
@@ -193,17 +325,21 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_commit();
   };
 
+  // Steps 0, i + 1 and i + 2's entries, each read a step before its fetch.
+  const int2 e0 = blk.entry(0);
+  int2 e1 = blk.entry(1), e2 = blk.entry(2);
   load_tile<D, kTile>(sm.q, q + (q_rows + q_start) * D, rows_valid);
-  if (n_steps > 0) fetch_k(0);
+  if (n_steps > 0) fetch_k(0, e0);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
-  if (n_steps > 0) fetch_v(0);
-  if (n_steps > 1) fetch_k(1);
+  if (n_steps > 0) fetch_v(0, e0);
+  if (n_steps > 1) fetch_k(1, e1);
   cp_async_commit();
 
   // This thread's two Q rows (accumulator rows g and g + 8 of its warp).
-  const int r_lo = q_start + warp * 16 + (lane >> 2);
+  const int row = warp * 16 + (lane >> 2);
+  const int r_lo = q_start + row;
   float o_acc[D / 2] = {};
   float m_i[2] = {-INFINITY, -INFINITY};  // running row max, log2 units
   float l_i[2] = {0.0f, 0.0f};            // this thread's share of the row sums
@@ -228,17 +364,18 @@ __global__ void __launch_bounds__(kThreads)
   wgmma_wait_groups<0>();
   fence_acc(st);
   if (n_steps > 0) {
-    online_softmax(st, m_i, alpha, sum, q_start, 0, r_lo, off, n_kv, t, scale_log2);
+    online_softmax(st, m_i, alpha, sum, blk.mask(e0, sm.bits[0], row, t), scale_log2);
     take_p();
   }
   for (int i = 0; i < n_steps; ++i) {
-    // V_i and K_{i+1} have landed, and every warp is done with S_i and
-    // PV_{i-1}, whose stages V_{i+1} and K_{i+2} overwrite.
+    // V_i and K_{i+1} (with its bits) have landed, and every warp is done
+    // with S_i and PV_{i-1}, whose stages V_{i+1} and K_{i+2} overwrite.
     cp_async_wait_all();
     __syncthreads();
-    if (i + 1 < n_steps) fetch_v(i + 1);
-    if (i + 2 < n_steps) fetch_k(i + 2);
+    if (i + 1 < n_steps) fetch_v(i + 1, e1);
+    if (i + 2 < n_steps) fetch_k(i + 2, e2);
     cp_async_commit();
+    const int2 e3 = blk.entry(i + 3);
 
     // S_{i+1} = Q K_{i+1}, then O += P_i V_i with P_i from registers.
     fence_acc(o_acc);
@@ -252,11 +389,15 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_wait_groups<1>();
     fence_acc(st);
     const bool next = i + 1 < n_steps;
-    if (next) online_softmax(st, m_i, alpha, sum, q_start, (i + 1) * kTile, r_lo, off, n_kv, t,
-                             scale_log2);
+    if (next) {
+      online_softmax(st, m_i, alpha, sum, blk.mask(e1, sm.bits[(i + 1) % kStages], row, t),
+                     scale_log2);
+    }
     wgmma_wait_groups<0>();
     fence_acc(o_acc);
     if (next) take_p();
+    e1 = e2;
+    e2 = e3;
   }
   cp_async_wait_all();
 
@@ -275,32 +416,51 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Launcher: q, o [B, H, N_q, D]; k, v [B, H_kv, N_kv, D]; lse fp32
-// [B, H, N_q] or null; q_offset int32 [B], or null for fixed_offset.
-template <int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q_offset,
-                       int fixed_offset, void* o, void* lse, int batch, int n_heads,
-                       int n_kv_heads, int n_q, int n_kv, float sm_scale, int causal,
-                       cudaStream_t stream) {
+// The kernel on a walk over `grid`: q, o [B, H, N_q, D]; k, v [B, H_kv,
+// N_kv, D]; lse fp32 [B, H, N_q] or null.
+template <int D, class Walk>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                   int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
+                   const Walk& walk, dim3 grid, cudaStream_t stream) {
   // The dynamic shared-memory limit is raised once per device.
   static bool smem_set[kMaxDevices] = {};
-  const int smem = (int)sizeof(FwdSmem<D>) + kAlign;
+  const int smem = (int)sizeof(FwdSmem<D, Walk::kBits>) + kAlign;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, Walk>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
-  const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_sm90_kernel<D, Walk><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      q_offset, fixed_offset, static_cast<bf16*>(o), static_cast<float*>(lse), n_heads,
-      n_kv_heads, n_q, n_kv, sm_scale * kLog2e, causal);
+      static_cast<bf16*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q, n_kv,
+      sm_scale * kLog2e, walk);
   return cudaGetLastError();
+}
+
+// The dense walk: q_offset int32 [B], or null for fixed_offset.
+template <int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q_offset,
+                       int fixed_offset, void* o, void* lse, int batch, int n_heads,
+                       int n_kv_heads, int n_q, int n_kv, float sm_scale, int causal,
+                       cudaStream_t stream) {
+  const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
+  return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                   DenseWalk{q_offset, fixed_offset, causal}, grid, stream);
+}
+
+// The sparse walk: grid (q-head x batch, Q tiles).
+template <int D>
+cudaError_t launch_fwd_sparse(const void* q, const void* k, const void* v, void* o, void* lse,
+                              const SparseFwdWalk& walk, int batch, int n_heads, int n_kv_heads,
+                              int n_q, int n_kv, float sm_scale, cudaStream_t stream) {
+  const dim3 grid(batch * n_heads, (n_q + kTile - 1) / kTile);
+  return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale, walk, grid,
+                   stream);
 }
 
 }  // namespace sm90

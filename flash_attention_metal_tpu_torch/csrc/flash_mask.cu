@@ -50,6 +50,13 @@
 // What the design does about it.
 //   * One block per (Q tile, head, batch) walks that tile's list only: empty
 //     pairs cost neither bytes nor products (the Pallas grid's elided DMA).
+//   * The bf16 forward runs the dense forward's wgmma mainloop
+//     (flash_fwd_sm90.cuh) on its sparse walk: S, P and O stay in
+//     registers, S_{i+1} is issued before PV_i, K and V come through
+//     cp.async rings of their own with a partial pair's bit tile beside K,
+//     one barrier a step; a full pair fetches and tests no bits.  One block
+//     per (q-head x batch, Q tile), the Q tiles issued longest list first
+//     across heads.
 //   * The bf16 backward runs the split pair's wgmma mainloop
 //     (flash_bwd_sm90.cuh) on its sparse walk: S, dP, P and dS stay in
 //     registers, a 2-stage cp.async ring carries each step's tiles and bit
@@ -61,15 +68,14 @@
 //     last of its chunks sums their fp32 partials in chunk order
 //     (deterministic, no float atomics), so a mask whose transposed lists
 //     are uneven no longer waits on its longest one.
-//   * The forward and the fp32 backward keep the first-generation
-//     template: a thread's half row is one 32-bit word of the pair's bit
-//     tile, read from device memory once per pair; bf16 products through
-//     WMMA 16x16x16 (wmma_tiles.cuh); fp32 in IEEE FMA, P and dS written
-//     over the scores they come from (the fp32 tiles at D = 128 would not
-//     fit 227 KB otherwise).  The fp32 dK/dV block walks the group's
-//     q-heads and the whole transposed list of its (KV tile, KV head,
-//     batch), one store.
-// Not yet done: the forward on wgmma; TMA in place of cp.async.
+//   * fp32 keeps the first-generation template (this file): a thread's half
+//     row is one 32-bit word of the pair's bit tile, read from device memory
+//     once per pair; products in IEEE FMA (wmma_tiles.cuh's fp32 helpers),
+//     P and dS written over the scores they come from (the fp32 tiles at
+//     D = 128 would not fit 227 KB otherwise).  The fp32 dK/dV block walks
+//     the group's q-heads and the whole transposed list of its (KV tile,
+//     KV head, batch), one store.
+// Not yet done: TMA in place of cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +83,7 @@
 #include <stdint.h>
 
 #include "flash_bwd_sm90.cuh"
+#include "flash_fwd_sm90.cuh"
 #include "wmma_tiles.cuh"
 
 namespace {
@@ -95,31 +102,30 @@ __device__ __forceinline__ uint32_t visible_word(const uint32_t* __restrict__ bi
 // Forward.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+// fp32 (bf16 runs flash_fwd_sm90.cuh's SparseFwdWalk).
+template <int D>
 struct FwdSmem {
-  using C = Cfg<T, D>;
-  T q[kTile * C::kLdT];
-  T k[kTile * C::kLdT];
-  T v[kTile * C::kLdT];
-  float s[kTile * C::kLdS];             // scores (P over them in fp32), then P V (bf16)
-  T p[C::kBf16 ? kTile * C::kLdX : 1];  // P for the tensor cores (bf16)
+  using C = Cfg<float, D>;
+  float q[kTile * C::kLdT];
+  float k[kTile * C::kLdT];
+  float v[kTile * C::kLdT];
+  float s[kTile * C::kLdS];  // scores, P over them
 };
 
-// One block per (Q tile, q-head, batch) over the tile's KV list.
-template <typename T, int D>
+// fp32.  One block per (Q tile, q-head, batch) over the tile's KV list.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    sparse_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                       const int* __restrict__ q_ptr, const int2* __restrict__ q_list,
                       const uint32_t* __restrict__ bit_tiles, int n_heads, int n_kv_heads,
                       int n_q, int n_kv, float scale_log2) {
-  using C = Cfg<T, D>;
+  using C = Cfg<float, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  FwdSmem<T, D>& sm = *reinterpret_cast<FwdSmem<T, D>*>(smem_raw);
-  T* p = C::kBf16 ? sm.p : reinterpret_cast<T*>(sm.s);
+  FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(smem_raw);
+  float* p = sm.s;
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
   const int r = tid >> 1;    // this thread's row of the tile
   const int half = tid & 1;  // which half of the row's columns it owns
   const int q_start = blockIdx.x * kTile;
@@ -132,7 +138,7 @@ __global__ void __launch_bounds__(kThreads)
   const int first = q_ptr[blockIdx.x];
   const int last = q_ptr[blockIdx.x + 1];
 
-  load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
+  load_tile<float, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
 
   float o_acc[C::kOut];
 #pragma unroll
@@ -144,16 +150,12 @@ __global__ void __launch_bounds__(kThreads)
     const int2 entry = q_list[e];
     const int kv_start = entry.x * kTile;
     const int cols_valid = min(kTile, n_kv - kv_start);
-    load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
-    load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<float, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
+    load_tile<float, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
     const uint32_t word = visible_word(bit_tiles, entry.y, r, half);
     __syncthreads();
 
-    if constexpr (C::kBf16) {
-      mm_abt_bf16<D>(sm.q, sm.k, sm.s, warp);
-    } else {
-      mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
-    }
+    mm_abt_f32<D>(sm.q, sm.k, sm.s, r, half);
     __syncthreads();
 
     // Online softmax over this thread's half row; the pair of threads that
@@ -175,29 +177,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kHalf; ++j) {
       const float pj = (word >> j) & 1u ? exp2f(s_reg[j] - m_new) : 0.0f;
       row_sum += pj;
-      p[r * C::kLdX + half * kHalf + j] = from_float<T>(pj);
+      p[r * C::kLdS + half * kHalf + j] = pj;
     }
     row_sum += __shfl_xor_sync(0xffffffffu, row_sum, 1);
     l_i = l_i * alpha + row_sum;
     m_i = m_new;
     __syncthreads();
 
-    if constexpr (C::kBf16) {
-      Acc acc[D / 16];
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-      mma_ab_bf16<D>(acc, sm.p, sm.v, warp);
-      store_acc<D>(sm.s, acc, warp);
-#pragma unroll
-      for (int j = 0; j < C::kOut; ++j) o_acc[j] *= alpha;
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < C::kOut; ++j) o_acc[j] += sm.s[r * C::kLdS + half * C::kOut + j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < C::kOut; ++j) o_acc[j] *= alpha;
-      mma_ab_f32<D>(o_acc, p, sm.v, r, half);
-    }
+    for (int j = 0; j < C::kOut; ++j) o_acc[j] *= alpha;
+    mma_ab_f32<D>(o_acc, p, sm.v, r, half);
     // The next pair's loads overwrite k and v; its first write to s comes
     // after the barrier that follows them.
     __syncthreads();
@@ -205,9 +194,9 @@ __global__ void __launch_bounds__(kThreads)
 
   if (r < rows_valid) {
     const float inv_l = l_i > 0.0f ? 1.0f / l_i : 0.0f;
-    T* dst = o + (q_rows + q_start + r) * D + half * C::kOut;
+    float* dst = o + (q_rows + q_start + r) * D + half * C::kOut;
 #pragma unroll
-    for (int j = 0; j < C::kOut; ++j) dst[j] = from_float<T>(o_acc[j] * inv_l);
+    for (int j = 0; j < C::kOut; ++j) dst[j] = o_acc[j] * inv_l;
     if (lse != nullptr && half == 0) {
       lse[q_rows + q_start + r] = l_i > 0.0f ? (m_i + log2f(l_i)) * kLn2 : -INFINITY;
     }
@@ -233,8 +222,8 @@ __device__ __forceinline__ void softmax_grad_bits(BwdSmem<float, D>& sm, int r, 
     const int c = half * kHalf + j;
     const float pj = (word >> j) & 1u ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;
     const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
-    p[r * C::kLdX + c] = pj;
-    ds[r * C::kLdX + c] = dsj;
+    p[r * C::kLdS + c] = pj;
+    ds[r * C::kLdS + c] = dsj;
   }
 }
 
@@ -377,18 +366,18 @@ struct Shape {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                       const void* q_ptr, const void* q_list, const void* bits,
-                       const Shape& s) {
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+                           const void* q_ptr, const void* q_list, const void* bits,
+                           const Shape& s) {
   static bool done[kMaxDevices] = {};
-  const int smem = (int)sizeof(FwdSmem<T, D>);
-  cudaError_t err = allow_smem(sparse_fwd_kernel<T, D>, smem, done);
+  const int smem = (int)sizeof(FwdSmem<D>);
+  cudaError_t err = allow_smem(sparse_fwd_kernel<D>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((s.n_q + kTile - 1) / kTile, s.n_heads, s.batch);
-  sparse_fwd_kernel<T, D><<<grid, kThreads, smem, s.stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), static_cast<const int*>(q_ptr),
+  sparse_fwd_kernel<D><<<grid, kThreads, smem, s.stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), static_cast<const int*>(q_ptr),
       static_cast<const int2*>(q_list), static_cast<const uint32_t*>(bits), s.n_heads,
       s.n_kv_heads, s.n_q, s.n_kv, s.sm_scale * kLog2e);
   return cudaGetLastError();
@@ -457,35 +446,45 @@ sm90::SparseWalk sparse_walk(const void* plan, const Lists& l, void* part, void*
 bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_dim, int dtype) {
   return (head_dim == 64 || head_dim == 128) && (dtype == 0 || dtype == 1) && batch >= 1 &&
          batch <= 65535 && n_kv_heads >= 1 && n_heads % n_kv_heads == 0 && n_heads <= 65535 &&
-         n_q >= 1 && n_kv >= 1 && n_q <= 65535 * kTile;
+         n_q >= 1 && n_kv >= 1 && n_q <= 65535 * kTile &&
+         (long long)batch * n_heads <= 0x7fffffff;  // the bf16 grids' x: q-head x batch
 }
 
 }  // namespace
-
-// Dispatch on (dtype, head_dim): dtype 0 = bf16, 1 = fp32; head_dim 64 or 128.
-#define FAM_SPARSE_DISPATCH(LAUNCH, ...)                                                   \
-  if (dtype == 0 && head_dim == 64) return (int)LAUNCH<bf16, 64>(__VA_ARGS__);             \
-  if (dtype == 0 && head_dim == 128) return (int)LAUNCH<bf16, 128>(__VA_ARGS__);           \
-  if (dtype == 1 && head_dim == 64) return (int)LAUNCH<float, 64>(__VA_ARGS__);            \
-  return (int)LAUNCH<float, 128>(__VA_ARGS__)
 
 // C entry points, bound with ctypes (kernels/flash_mask.py).  Pointers are
 // device pointers of contiguous tensors: q, dout, o, dq [B, H, N_q, D]; k, v,
 // dk, dv [B, H_kv, N_kv, D]; lse, delta fp32 [B, H, N_q] (the forward's lse
 // may be null); the mask's tables as compile_tables makes them (int32; each
-// list entry two ints; bit tiles [n_partial, 64, 2] words).  Each returns
-// the launch's cudaError_t (0 on success).
+// list entry two ints; bit tiles [n_partial, 64, 2] words).  dtype: 0 =
+// bf16, 1 = fp32; head_dim 64 or 128.  Each returns the launch's
+// cudaError_t (0 on success).
+
+// The forward.  bf16: order int32 [n_q tiles], the Q tiles in issue order
+// (longest list first); fp32 does not read it.
 extern "C" int fam_flash_sparse_fwd(const void* q, const void* k, const void* v, void* o,
                                     void* lse, const void* q_ptr, const void* q_list,
-                                    const void* bits, int batch, int n_heads, int n_kv_heads,
-                                    int n_q, int n_kv, int head_dim, float sm_scale, int dtype,
-                                    void* stream) {
-  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+                                    const void* bits, const void* order, int batch, int n_heads,
+                                    int n_kv_heads, int n_q, int n_kv, int head_dim,
+                                    float sm_scale, int dtype, void* stream) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
+      (dtype == 0 && order == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const Shape s{batch, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
                 static_cast<cudaStream_t>(stream)};
-  FAM_SPARSE_DISPATCH(launch_fwd, q, k, v, o, lse, q_ptr, q_list, bits, s);
+  if (dtype == 1) {
+    return (int)(head_dim == 64 ? launch_fwd_f32<64>(q, k, v, o, lse, q_ptr, q_list, bits, s)
+                                : launch_fwd_f32<128>(q, k, v, o, lse, q_ptr, q_list, bits, s));
+  }
+  const sm90::SparseFwdWalk w{static_cast<const int*>(q_ptr), static_cast<const int2*>(q_list),
+                              static_cast<const uint32_t*>(bits), static_cast<const int*>(order)};
+  return (int)(head_dim == 64 ? sm90::launch_fwd_sparse<64>(q, k, v, o, lse, w, batch, n_heads,
+                                                            n_kv_heads, n_q, n_kv, sm_scale,
+                                                            s.stream)
+                              : sm90::launch_fwd_sparse<128>(q, k, v, o, lse, w, batch, n_heads,
+                                                             n_kv_heads, n_q, n_kv, sm_scale,
+                                                             s.stream));
 }
 
 // dK/dV.  bf16: plan int32 [n_chunks, 8] (kernels/flash_mask.py::

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: the forward
-// (flash_fwd_sm90.cuh), the split backward pair (flash_bwd_sm90.cuh) and the
-// fused backward (flash_bwd_fused_sm90.cuh).
+// (flash_fwd_sm90.cuh, dense and block-sparse), the split backward pair
+// (flash_bwd_sm90.cuh, causal and block-sparse) and the fused backward
+// (flash_bwd_fused_sm90.cuh).
 //
 // One warpgroup (128 threads, 4 warps of 16 rows) per 64-row output tile.
 // Tiles are bf16, copied global -> shared with cp.async and stored in
@@ -82,6 +83,18 @@ template <int kRows>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int rows_valid) {
   for (int i = threadIdx.x; i < kRows; i += kThreads) {
     cp_async4(dst + i, src + (i < rows_valid ? i : 0), i < rows_valid);
+  }
+}
+
+// `kRows` rows from `row0` of bit tile `tile` of a block-sparse mask's
+// bit_tiles (64 rows of 2 words, kernels/flash_mask.py::compile_tables)
+// into a ring stage: kRows / 2 chunks of 16 bytes.
+template <int kRows>
+__device__ __forceinline__ void load_bits(uint32_t* dst, const uint32_t* bit_tiles, int tile,
+                                          int row0) {
+  if (threadIdx.x < kRows / 2) {
+    const uint32_t* src = bit_tiles + ((size_t)tile * kTile + row0) * 2;
+    cp_async16(dst + threadIdx.x * 4, src + threadIdx.x * 4, true);
   }
 }
 

@@ -1,14 +1,13 @@
-// Tile products of the first-generation kernels (flash_mask.cu's forward and
-// fp32 backward, and the fp32 split pair and fused backward of
-// flash_bwd.cu; the bf16 backward kernels run on wgmma): 64-row tiles in padded
-// shared memory, 128 threads, bf16 products on the tensor cores through WMMA
-// 16x16x16 fragments with fp32 accumulators, fp32 products in IEEE FMA
-// (never TF32), head dim D = 64 or 128.
+// Tile helpers of the first-generation fp32 kernels (flash_mask.cu's
+// block-sparse forward and backward, and the fp32 split pair and fused
+// backward of flash_bwd.cu; every bf16 kernel runs on wgmma): 64-row tiles
+// in padded shared memory, 128 threads, products in IEEE FMA (never TF32),
+// head dim D = 64 or 128.  Also the constants and the shared-memory limit
+// helper the wgmma backward kernels share with them.
 //
-// Thread layout.  Warp w owns tile rows 16w..16w+15 in the WMMA products;
-// thread (r = tid / 2, half = tid % 2) owns half of tile row r in the
-// elementwise work and the FMA products: 32 of its 64 score columns and
-// D / 2 of its output columns.
+// Thread layout.  Thread (r = tid / 2, half = tid % 2) owns half of tile
+// row r in the elementwise work and the products: 32 of its 64 score
+// columns and D / 2 of its output columns.
 
 #pragma once
 
@@ -16,14 +15,12 @@
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
-#include <mma.h>
 
 #include <type_traits>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int kTile = 64;            // rows of a Q tile and of a KV tile
 constexpr int kThreads = 2 * kTile;  // two threads per tile row, 4 warps
@@ -39,14 +36,11 @@ constexpr float kLseSentinel = 1e30f;
 constexpr int kMaxDevices = 64;
 
 // Pitches for input type T and head dim D.  Padded to spread banks, and
-// multiples of 16 bytes (vector copies) and of 32 bytes per 16 rows (WMMA).
+// multiples of 16 bytes (vector copies).
 template <typename T, int D>
 struct Cfg {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
   static constexpr int kLdT = D + 8;                        // Q, K, V, dO tiles
-  static constexpr int kLdS = (D > kTile ? D : kTile) + 4;  // fp32 scores, staged outputs
-  // P and dS: their own tile in bf16, the scores' in fp32 (written over them).
-  static constexpr int kLdX = kBf16 ? kTile + 8 : kLdS;
+  static constexpr int kLdS = (D > kTile ? D : kTile) + 4;  // fp32 scores, P, dS
   static constexpr int kOut = D / 2;  // output columns per thread
 };
 
@@ -54,10 +48,6 @@ template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Copy `rows_valid` rows of D elements (row pitch D in global memory) into
 // a [64][kLdT] shared tile; the other rows are zero.
@@ -72,66 +62,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int rows_valid) 
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows_valid) val = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
     *reinterpret_cast<uint4*>(dst + r * kLdT + c) = val;
-  }
-}
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-
-// out[warp's 16 rows][64] = A B^T over D on the tensor cores: A and B are
-// [64][kLdT] tiles (Q K^T, dO V^T).
-template <int D>
-__device__ __forceinline__ void mm_abt_bf16(const bf16* a, const bf16* b, float* out, int warp) {
-  constexpr int kLdT = Cfg<bf16, D>::kLdT, kLdS = Cfg<bf16, D>::kLdS;
-  Acc acc[kTile / 16];
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + warp * 16 * kLdT + kk, kLdT);
-#pragma unroll
-    for (int n = 0; n < kTile / 16; ++n) {
-      // B^T as a column-major operand: element (d, c) sits at b[c][d].
-      FragBT fb;
-      wmma::load_matrix_sync(fb, b + n * 16 * kLdT + kk, kLdT);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    wmma::store_matrix_sync(out + warp * 16 * kLdS + n * 16, acc[n], kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc += X[warp's 16 rows][64] . Y: X is [64][kLdX] (P, dS), Y [64][kLdT]
-// (V, K).  O += P V and dQ += dS K.
-template <int D>
-__device__ __forceinline__ void mma_ab_bf16(Acc (&acc)[D / 16], const bf16* x, const bf16* y,
-                                            int warp) {
-  constexpr int kLdT = Cfg<bf16, D>::kLdT, kLdX = Cfg<bf16, D>::kLdX;
-#pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, x + warp * 16 * kLdX + kk, kLdX);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, y + kk * kLdT + n * 16, kLdT);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// The warp's 16 rows of a [64][D] accumulator into a staged fp32 tile.
-template <int D>
-__device__ __forceinline__ void store_acc(float* out, Acc (&acc)[D / 16], int warp) {
-  constexpr int ld = Cfg<bf16, D>::kLdS;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(out + warp * 16 * ld + n * 16, acc[n], ld, wmma::mem_row_major);
   }
 }
 
@@ -157,9 +87,9 @@ __device__ __forceinline__ void mm_abt_f32(const float* a, const float* b, float
 template <int D>
 __device__ __forceinline__ void mma_ab_f32(float (&acc)[D / 2], const float* x, const float* y,
                                            int r, int half) {
-  constexpr int kLdT = Cfg<float, D>::kLdT, kLdX = Cfg<float, D>::kLdX;
+  constexpr int kLdT = Cfg<float, D>::kLdT, kLdS = Cfg<float, D>::kLdS;
   for (int c = 0; c < kTile; ++c) {
-    const float xv = x[r * kLdX + c];
+    const float xv = x[r * kLdS + c];
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) acc[j] = fmaf(xv, y[c * kLdT + half * (D / 2) + j], acc[j]);
   }
@@ -170,9 +100,9 @@ __device__ __forceinline__ void mma_ab_f32(float (&acc)[D / 2], const float* x, 
 template <int D>
 __device__ __forceinline__ void mma_atb_f32(float (&acc)[D / 2], const float* x, const float* y,
                                             int c, int half) {
-  constexpr int kLdT = Cfg<float, D>::kLdT, kLdX = Cfg<float, D>::kLdX;
+  constexpr int kLdT = Cfg<float, D>::kLdT, kLdS = Cfg<float, D>::kLdS;
   for (int i = 0; i < kTile; ++i) {
-    const float xv = x[i * kLdX + c];
+    const float xv = x[i * kLdS + c];
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) acc[j] = fmaf(xv, y[i * kLdT + half * (D / 2) + j], acc[j]);
   }
@@ -185,7 +115,8 @@ __device__ __forceinline__ void mma_atb_f32(float (&acc)[D / 2], const float* x,
 template <typename T, int D>
 struct BwdSmem {
   using C = Cfg<T, D>;
-  static_assert(!C::kBf16, "the bf16 backward runs on wgmma (flash_bwd_sm90.cuh)");
+  static_assert(std::is_same<T, float>::value,
+                "the bf16 backward runs on wgmma (flash_bwd_sm90.cuh)");
   T q[kTile * C::kLdT];
   T k[kTile * C::kLdT];
   T v[kTile * C::kLdT];
@@ -241,8 +172,8 @@ __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half,
                          ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2)
                          : 0.0f;
     const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
-    p[r * C::kLdX + c] = from_float<T>(pj);
-    ds[r * C::kLdX + c] = from_float<T>(dsj);
+    p[r * C::kLdS + c] = from_float<T>(pj);
+    ds[r * C::kLdS + c] = from_float<T>(dsj);
   }
 }
 

@@ -9,6 +9,7 @@ its own on a CUDA card:
     python -m flash_attention_metal_tpu_torch.harness.onchip v1_tiles
     python -m flash_attention_metal_tpu_torch.harness.onchip decode_splits
     python -m flash_attention_metal_tpu_torch.harness.onchip sparse_splits
+    python -m flash_attention_metal_tpu_torch.harness.onchip ptxas [--csrc DIR]
 
 ``sweep`` times the forward kernel against slot length (decode) and chunk
 offset (prefill).  ``profile`` (``serving``, the default) traces steady
@@ -31,7 +32,10 @@ height ``v1_tile_rows`` picks.  ``decode_splits`` times the decode kernels
 chunk ``decode_kv_chunk`` picks.  ``sparse_splits`` times the bf16
 block-sparse dK/dV kernel at every chunk cap of its plan, beside the cap
 ``dkv_chunk_cap`` picks.  Every line it prints carries the card's name and
-power limit.
+power limit.  ``ptxas`` needs ``nvcc`` but no card: it compiles
+``flash_fwd.cu`` and ``flash_mask.cu`` of ``csrc/`` (another tree's with
+``--csrc``) with the build's flags and ``-Xptxas -v`` and prints each
+kernel's registers, spills and stack, one JSON line a kernel.
 """
 
 from __future__ import annotations
@@ -40,7 +44,11 @@ import argparse
 import importlib
 import importlib.util
 import json
+import re
+import shutil
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Callable, Dict, List, Optional, Tuple
@@ -1316,16 +1324,73 @@ def sparse_split_times(log=print) -> List[dict]:
     return out
 
 
+PTXAS_UNITS = ("flash_fwd.cu", "flash_mask.cu")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments, demangled with ``c++filt``
+    when the toolkit's host has it (else the mangled name)."""
+    filt = shutil.which("c++filt")
+    if filt is None:
+        return mangled
+    name = subprocess.run([filt, mangled], capture_output=True, text=True).stdout.strip()
+    name = re.sub(r"\(anonymous namespace\)::", "", name).split("(")[0]
+    return name[len("void "):] if name.startswith("void ") else name
+
+
+def parse_ptxas(unit: str, text: str) -> List[dict]:
+    """Each kernel's registers, spill bytes and stack frame from the output
+    of ``nvcc -Xptxas -v`` on ``unit``."""
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        regs = re.search(r"Used (\d+) registers", block)
+        stack = re.search(r"(\d+) bytes stack frame", block)
+        out.append({"unit": unit, "kernel": _kernel_name(mangled),
+                    "registers": int(regs.group(1)),
+                    "spill_stores": int(spill.group(1)) if spill else 0,
+                    "spill_loads": int(spill.group(2)) if spill else 0,
+                    "stack": int(stack.group(1)) if stack else 0})
+    return out
+
+
+def ptxas_report(csrc: Optional[str] = None) -> List[dict]:
+    """``parse_ptxas`` of every unit of ``PTXAS_UNITS`` in this package's
+    ``csrc/`` (or ``csrc``), compiled with the build's flags and ``-Xptxas
+    -v``; one ``nvcc`` per unit, all started together."""
+    from ..kernels import _build
+
+    src = Path(csrc) if csrc else _build.CSRC
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    out = []
+    with tempfile.TemporaryDirectory() as work:
+        procs = [(unit, subprocess.Popen(
+            [_build._nvcc(), *flags, "-Xptxas", "-v", "-I", str(src), "-c", "-o",
+             str(Path(work) / f"{unit}.o"), str(src / unit)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for unit in PTXAS_UNITS]
+        for unit, proc in procs:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src / unit}:\n{text}")
+            out += parse_ptxas(unit, text)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("sweep", "profile", "kernels", "v1_tiles",
-                                         "decode_splits", "sparse_splits"))
+                                         "decode_splits", "sparse_splits", "ptxas"))
     parser.add_argument("target", nargs="?", choices=("serving", "train"), default="serving")
     parser.add_argument("--mode", choices=sorted(serving.SERVING_MODES), default="dense",
                         help="the KV cache the serving profile decodes from")
     parser.add_argument("--csrc", help="kernels: time the wrappers and kernels of the tree "
-                        "whose package holds this csrc/ directory")
+                        "whose package holds this csrc/ directory; ptxas: compile its sources")
     args = parser.parse_args(argv)
+    if args.what == "ptxas":
+        for rec in ptxas_report(args.csrc):
+            print(json.dumps({"csrc": args.csrc or "package", **rec}))
+        return 0
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 1

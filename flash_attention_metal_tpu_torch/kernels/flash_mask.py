@@ -21,7 +21,9 @@ Kernels (``csrc/flash_mask.cu``):
 * ``flash_sparse_fwd`` (the Pallas ``_fwd_sparse_kernel``): online softmax
   over each Q tile's KV list, P zeroed where the mask is off, so a row that
   sees nothing gives ``o = 0`` and ``lse = -inf``; native GQA (KV head
-  ``h // group``); lse fp32 ``[B, H, N_q]``.
+  ``h // group``); lse fp32 ``[B, H, N_q]``.  bf16 runs the dense forward's
+  ``wgmma`` kernel (``csrc/flash_fwd_sm90.cuh``) on its sparse walk, Q
+  tiles issued longest list first across heads (``dq_order``).
 * ``flash_sparse_dkv`` (``_dkv_sparse_kernel``): dK and dV per KV tile over
   the group's q-heads and its transposed Q list, P rebuilt from the lse
   (``LSE_SENTINEL`` for ``-inf``).  The JAX backward takes equal heads only
@@ -179,9 +181,10 @@ def dkv_chunk_cap(kv_lengths: np.ndarray, batch: int, n_kv_heads: int, group: in
 
 
 class SparseGrid(NamedTuple):
-    """The grid of one launch of a block-sparse backward kernel: the most
-    tile pairs one block walks (dK/dV: the chunk cap), the blocks per
-    (head, batch) (dK/dV: chunks; dQ: Q tiles) and the blocks."""
+    """The grid of one launch of a block-sparse kernel: the most tile pairs
+    one block walks (dK/dV: the chunk cap; the forward and dQ: the longest
+    Q list), the blocks per (head, batch) (dK/dV: chunks; the forward and
+    dQ: Q tiles) and the blocks."""
 
     cap: int
     chunks: int
@@ -240,8 +243,8 @@ def dkv_plan(kv_lengths: np.ndarray, group: int, cap: int) -> DkvPlan:
 
 
 def dq_order(q_lengths: np.ndarray) -> np.ndarray:
-    """The dQ kernel's Q tiles in issue order: longest list first, ties in
-    tile order (int32)."""
+    """The bf16 forward's and dQ kernel's Q tiles in issue order: longest
+    list first, ties in tile order (int32)."""
     return np.argsort(-np.asarray(q_lengths), kind="stable").astype(np.int32)
 
 
@@ -265,7 +268,8 @@ class BlockMask:
     ``tables(device)``: the kernels' tables (``MaskTables``), built at
     construction and copied once per device; ``q_lengths`` and
     ``kv_lengths`` their lists' lengths; ``dkv_plan`` and ``dq_order`` the
-    backward kernels' grids, kept beside them.
+    kernels' grids (``dq_order`` also the bf16 forward's), kept beside
+    them.
     """
 
     def __init__(self, mask_fn: MaskFn, n_q: int, n_kv: int, block_q: int, block_kv: int):
@@ -468,8 +472,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the block-sparse entry points' C signatures on a library."""
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     shape = [i32] * 6 + [ctypes.c_float, i32, ptr]  # b, h, h_kv, n_q, n_kv, d, scale, dtype, stream
-    # q, k, v, o, lse, q_ptr, q_list, bits
-    lib.fam_flash_sparse_fwd.argtypes = [ptr] * 8 + shape
+    # q, k, v, o, lse, q_ptr, q_list, bits, order
+    lib.fam_flash_sparse_fwd.argtypes = [ptr] * 9 + shape
     lib.fam_flash_sparse_fwd.restype = ctypes.c_int
     # q, k, v, dout, lse, delta, dk, dv, kv_ptr, kv_list, bits, plan, part,
     # tickets; the shape; n_chunks before the stream
@@ -516,23 +520,40 @@ def _dims(q, k, sm_scale, stream):
 
 
 def flash_sparse_fwd(q, k, v, mask: BlockMask, *, sm_scale: float, save_lse: bool = False):
-    """``o`` or ``(o, lse)`` from the forward kernel (CPU: the plain version)."""
+    """``o`` or ``(o, lse)`` from the forward kernel (CPU: the plain
+    version).  Keeps the launch's ``SparseGrid`` as ``.grid`` beside
+    ``.launches``."""
     if q.device.type == "cpu":
         return flash_sparse_fwd_plain(q, k, v, mask, sm_scale=sm_scale, save_lse=save_lse)
     _check_cuda(mask, q, k, v)
+    o, lse = _launch_fwd(q, k, v, mask, sm_scale, save_lse)
+    return (o, lse) if save_lse else o
+
+
+def _launch_fwd(q, k, v, mask: BlockMask, sm_scale: float, save_lse: bool):
+    """The forward entry's launch on checked inputs (bf16: Q tiles longest
+    list first); ``(o, lse or None)``."""
     t = mask.tables(q.device)
+    stream, _ = ff._cuda_args(q)
+    order = mask.dq_order(q.device) if q.dtype == torch.bfloat16 else None
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if save_lse else None
     err = _lib().fam_flash_sparse_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        t.q_ptr.data_ptr(), t.q_list.data_ptr(), t.bit_tiles.data_ptr(),
-        *_dims(q, k, sm_scale, torch.cuda.current_stream(q.device).cuda_stream),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ff._ptr(lse),
+        t.q_ptr.data_ptr(), t.q_list.data_ptr(), t.bit_tiles.data_ptr(), ff._ptr(order),
+        *_dims(q, k, sm_scale, stream),
     )
     if err:
         raise RuntimeError(f"flash_sparse_fwd kernel launch failed: cudaError_t {err}")
     flash_sparse_fwd.launches += 1
-    return (o, lse) if save_lse else o
+    flash_sparse_fwd.grid = _q_tile_grid(mask, q)
+    return o, lse
+
+
+def _q_tile_grid(mask: BlockMask, q) -> SparseGrid:
+    """The forward's and dQ's grid: one block per (Q tile, q-head, batch)."""
+    tiles = len(mask.q_lengths)
+    return SparseGrid(int(mask.q_lengths.max()), tiles, tiles * q.shape[0] * q.shape[1])
 
 
 def flash_sparse_dkv(q, k, v, do, lse, delta, mask: BlockMask, *, sm_scale: float):
@@ -604,17 +625,16 @@ def _launch_dq(q, k, v, do, lse, delta, mask: BlockMask, sm_scale: float):
     if err:
         raise RuntimeError(f"flash_sparse_dq kernel launch failed: cudaError_t {err}")
     flash_sparse_dq.launches += 1
-    tiles = len(mask.q_lengths)
-    flash_sparse_dq.grid = SparseGrid(int(mask.q_lengths.max()), tiles,
-                                      tiles * q.shape[0] * q.shape[1])
+    flash_sparse_dq.grid = _q_tile_grid(mask, q)
     return dq
 
 
 # Launches of each CUDA kernel since import (the CPU route does not count),
-# and the backward kernels' grids at their last launch (None before one).
+# and each kernel's grid at its last launch (None before one).
 flash_sparse_fwd.launches = 0
 flash_sparse_dkv.launches = 0
 flash_sparse_dq.launches = 0
+flash_sparse_fwd.grid = None
 flash_sparse_dkv.grid = None
 flash_sparse_dq.grid = None
 

@@ -1644,6 +1644,38 @@ def test_sparse_kernels_match_plain(cuda, mask, fixture, dtype, head_dim):
         assert torch.all(dq[:, :, :64] == 0) and bool(torch.isfinite(dq).all())
 
 
+# Lengths that are not a multiple of the kernels' 64-row tiles: the edge
+# tiles' bits past n are zero, so an edge pair is never full, even where
+# every element is visible ("all"), and K/V rows past n never count.
+RAGGED_MASKS = {
+    "all": lambda r, c: (r >= 0) & (c >= 0),
+    "causal-17": lambda r, c: c <= r + 17,
+    "banded-stripes": SPARSE_MASKS["banded-stripes"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [300, 568])
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mask", sorted(RAGGED_MASKS))
+def test_sparse_kernels_match_plain_at_ragged_lengths(cuda, mask, dtype, head_dim, n):
+    """Each sparse kernel against its plain version (GQA 2, one launch
+    each) at a length whose last Q and KV tiles are part-filled."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    bm = fm.BlockMask(RAGGED_MASKS[mask], n, n, 4, 4)
+    shape_q, shape_kv = (2, 4, n, head_dim), (2, 2, n, head_dim)
+    q, k, v = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen)
+    do = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+    counters = (fm.flash_sparse_fwd, fm.flash_sparse_dkv, fm.flash_sparse_dq)
+    before = [c.launches for c in counters]
+    errors = onchip.sparse_kernel_errors((q, k, v, do, bm))
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    assert max(errors["o"]) <= TOL[dtype], errors
+    assert max(errors[g][1] for g in ("dq", "dk", "dv")) <= BWD_TOL[dtype], errors
+
+
 @pytest.mark.gpu
 def test_sparse_op_grads_on_the_card(cuda):
     """``torch.autograd.grad`` through ``block_sparse_attention`` launches
@@ -1689,13 +1721,14 @@ def test_sparse_kernels_reject_what_they_do_not_take(cuda):
 
 # Faults planted in a copy of csrc/ and built into flash_mask.cu: (source,
 # {sparse_cases name: the outputs whose check must fail there}, text,
-# replacement).  The bf16 backward runs the split pair's mainloop on its
-# sparse walk (flash_bwd_sm90.cuh); the forward and the fp32 backward keep
-# the first-generation template (flash_mask.cu), whose faults fail on the
-# cases that still run it.  The cases run in the order given, on inputs no
-# earlier check has computed.
+# replacement).  The bf16 forward runs the dense forward's mainloop on its
+# sparse walk (flash_fwd_sm90.cuh), the bf16 backward the split pair's
+# (flash_bwd_sm90.cuh); fp32 keeps the first-generation template
+# (flash_mask.cu), whose faults fail on the one case that still runs it.
+# The cases run in the order given, on inputs no earlier check has computed.
 _BF16 = {"sparse_bf16": ("dq", "dk", "dv"), "sparse_bf16_peaked": ("dq", "dk", "dv")}
 _SPLIT = {"sparse_bf16_d128": ("dk", "dv"), "sparse_bf16_d128_peaked": ("dk", "dv")}
+_FWD = {n: ("o",) for n in ("sparse_bf16", "sparse_bf16_peaked", "sparse_bf16_d128")}
 PLANTED_SPARSE_FAULTS = {
     # the dK/dV walk takes each chunk one pair short: an unsplit tile drops
     # its last q-head's last list entry (dV moves by 8.8e-3 of its max on
@@ -1728,10 +1761,22 @@ PLANTED_SPARSE_FAULTS = {
     "ticket_not_reset": ("flash_bwd_sm90.cuh", {"sparse_bf16_d128": (),
                                                 "sparse_bf16_d128_peaked": ("dk", "dv")},
                          "if (tid == 0) tickets[ticket] = 0;", ""),
-    # the template's forward walks each Q tile's KV list one entry short
-    "fwd_kv_entry_dropped": ("flash_mask.cu", {n: ("o",) for n in ("sparse_bf16",
-                                                                   "sparse_bf16_peaked",
-                                                                   "sparse_fp32_n512")},
+    # the bf16 forward walks each Q tile's KV list one entry short
+    "fwd_sparse_entry_dropped": ("flash_fwd_sm90.cuh", _FWD,
+                                 "n_steps = w.q_ptr[tile + 1] - first;",
+                                 "n_steps = w.q_ptr[tile + 1] - first - 1;"),
+    # the bf16 forward reads every partial pair's mask one column off
+    "fwd_mask_bit_off_by_one": ("flash_fwd_sm90.cuh", _FWD, "(8 * (j & 3) + (e & 1))",
+                                "(8 * (j & 3) + (e & 1) + 1)"),
+    # the bf16 forward tests step i + 1 against the bit stage of step i
+    "fwd_stale_bit_stage": ("flash_fwd_sm90.cuh", _FWD, "sm.bits[(i + 1) % kStages]",
+                            "sm.bits[i % kStages]"),
+    # the bf16 forward takes the first partial pair (bit tile 0: Q tile 0's
+    # diagonal under rung 11's mask) for a full one
+    "fwd_partial_pair_full": ("flash_fwd_sm90.cuh", _FWD, "m.full = entry.y < 0;",
+                              "m.full = entry.y <= 0;"),
+    # the fp32 template's forward walks each Q tile's KV list one entry short
+    "fwd_kv_entry_dropped": ("flash_mask.cu", {"sparse_fp32_n512": ("o",)},
                              "e < last; ++e) {  // the Q tile's KV list",
                              "e < last - 1; ++e) {  // the Q tile's KV list"),
     # the fp32 dQ template walks each Q tile's KV list one entry short
@@ -1742,9 +1787,10 @@ PLANTED_SPARSE_FAULTS = {
     "template_dkv_q_entry_dropped": ("flash_mask.cu", {"sparse_fp32_n512": ("dk", "dv")},
                                      "e < last; ++e) {  // the transposed Q list",
                                      "e < last - 1; ++e) {  // the transposed Q list"),
-    # the template's mask words (the forward, the fp32 backward) one column off
+    # the fp32 template's mask words (the forward and the backward) one
+    # column off
     "template_mask_bit_off_by_one": (
-        "flash_mask.cu", {"sparse_bf16": ("o",), "sparse_fp32_n512": ("o", "dq", "dk", "dv")},
+        "flash_mask.cu", {"sparse_fp32_n512": ("o", "dq", "dk", "dv")},
         "bit_tiles[((size_t)bits * kTile + r) * kBitWords + half];",
         "(bit_tiles[((size_t)bits * kTile + r) * kBitWords + half] << 1);"),
 }

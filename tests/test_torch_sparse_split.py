@@ -1,5 +1,5 @@
-"""PyTorch port: the block-sparse backward's walk, its chunk plan and the
-chunked dK/dV merge.
+"""PyTorch port: the block-sparse kernels' walks and grids, the backward's
+chunk plan and the chunked dK/dV merge.
 
 The bf16 dK/dV kernel (``csrc/flash_bwd_sm90.cuh``, ``SparseWalk``) runs one
 block per chunk of a plan: a KV tile's walk over the group's q-heads and its
@@ -11,8 +11,13 @@ arithmetic, pair by pair from the tables) against the unsplit plain version
 to fp32 rounding, and against JAX's ``flash_attention_block_sparse_bwd`` in
 interpret mode within ``tests/test_torch_flash_mask.py``'s 1e-4 of the
 largest gradient (equal heads, and GQA against JAX's repeat-and-sum); the C
-entries' arguments through a recorder (no card here).  The kernels run on
-the card in ``tests/test_torch_gpu.py``.
+entries' arguments through a recorder (no card here).  The bf16 forward
+(``csrc/flash_fwd_sm90.cuh``, ``SparseFwdWalk``) walks each Q tile's list,
+Q tiles issued longest list first like dQ's: its entry's arguments through
+the recorder, and the plain forward on masks whose Q lists include empty
+ones (the kernel's walk of no step: o = 0, lse = -inf) against JAX's
+forward in interpret mode.  The kernels run on the card in
+``tests/test_torch_gpu.py``.
 """
 
 import ctypes
@@ -298,6 +303,11 @@ def test_bind_declares_each_entrys_c_parameters(name):
     entry = getattr(lib, name)
     assert entry.argtypes == [_ctype(p) for p in _c_params(name)]
     assert entry.restype is ctypes.c_int
+    # The forward and dQ take the Q tiles' issue order right after the bit
+    # tiles; dK/dV its plan.
+    params = [p.split()[-1].lstrip("*") for p in _c_params(name)]
+    after = "plan" if name == "fam_flash_sparse_dkv" else "order"
+    assert params[params.index("bits") + 1] == after
 
 
 @pytest.fixture
@@ -310,11 +320,11 @@ def recorder(monkeypatch):
             return 0
         return call
 
-    names = ("fam_flash_sparse_dkv", "fam_flash_sparse_dq")
+    names = ("fam_flash_sparse_fwd", "fam_flash_sparse_dkv", "fam_flash_sparse_dq")
     monkeypatch.setattr(fm, "_lib", lambda: SimpleNamespace(**{n: entry(n) for n in names}))
     monkeypatch.setattr(ff, "_cuda_args", lambda q: (7, H100_SMS))
     monkeypatch.setattr(ff, "_TICKETS", {})
-    for fn in (fm.flash_sparse_dkv, fm.flash_sparse_dq):  # the recorder launches nothing
+    for fn in (fm.flash_sparse_fwd, fm.flash_sparse_dkv, fm.flash_sparse_dq):  # launches nothing
         monkeypatch.setattr(fn, "launches", fn.launches)
         monkeypatch.setattr(fn, "grid", fn.grid)
     return calls
@@ -387,3 +397,66 @@ def test_dq_launch_passes_the_issue_order(recorder, dtype):
         assert a["order"] is None
     tiles = len(bm.q_lengths)
     assert fm.flash_sparse_dq.grid == fm.SparseGrid(int(bm.q_lengths.max()), tiles, tiles * 2 * 4)
+
+
+@pytest.mark.parametrize("save_lse", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_launch_passes_the_issue_order(recorder, dtype, save_lse):
+    """bf16: the mask's issue order, the tensor the dQ launch passes
+    (longest Q list first); fp32 (the template) null.  The lse pointer is
+    null when it is not saved; the wrapper counts the launch and keeps its
+    grid, one block per (Q tile, q-head, batch)."""
+    bm = _mask("rung11")
+    q, k, _ = _rows(2, 4, 2, N, 64, dtype)
+    before = fm.flash_sparse_fwd.launches
+    o, lse = fm._launch_fwd(q, k, k, bm, 0.125, save_lse)
+    assert o.shape == q.shape and o.dtype == dtype
+    (name, args), = recorder
+    a = _args(name, args)
+    assert len(args) == len(_c_params(name)) and a["stream"] == 7
+    assert a["dtype"] == (0 if dtype == torch.bfloat16 else 1) and a["o"] == o.data_ptr()
+    assert a["lse"] == (lse.data_ptr() if save_lse else None) and (lse is None) != save_lse
+    t = bm.tables("cpu")
+    assert (a["q_ptr"], a["q_list"], a["bits"]) == (t.q_ptr.data_ptr(), t.q_list.data_ptr(),
+                                                    t.bit_tiles.data_ptr())
+    if dtype == torch.bfloat16:
+        assert a["order"] == bm.dq_order("cpu").data_ptr()
+    else:
+        assert a["order"] is None
+    tiles = len(bm.q_lengths)
+    assert fm.flash_sparse_fwd.launches == before + 1
+    assert fm.flash_sparse_fwd.grid == fm.SparseGrid(int(bm.q_lengths.max()), tiles, tiles * 2 * 4)
+
+
+# Masks whose Q lists at the kernels' 64-row tile include empty ones.
+EMPTY_LISTS = {
+    # Q tiles 1, 4 and 7 see nothing, between tiles that do
+    "empty-middle": lambda r, c: (c <= r) & ((r // 64) % 3 != 1),
+    # the last Q tile sees nothing
+    "empty-last": lambda r, c: (c <= r) & (r < N - 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EMPTY_LISTS))
+def test_plain_forward_on_empty_q_lists_matches_jax(name):
+    """An empty Q list walks no step: its rows give o = 0 and lse = -inf,
+    as JAX's ``flash_attention_block_sparse_fwd`` (interpret mode) gives,
+    and the other rows match it within ``test_torch_flash_mask.py``'s fp32
+    2e-5 (GQA 2).  The issue order puts the empty lists last."""
+    bm = fm.BlockMask(EMPTY_LISTS[name], N, N, 64, 64)
+    empty = np.flatnonzero(bm.q_lengths == 0)
+    assert len(empty) > 0 and len(empty) < len(bm.q_lengths)
+    assert sorted(fm.dq_order(bm.q_lengths)[-len(empty):].tolist()) == empty.tolist()
+    q, k, v, _ = _inputs(5, 1, 4, 2, N)
+    jbm = jfm.BlockMask(EMPTY_LISTS[name], N, N, 64, 64)
+    o_j, lse_j = jfm.flash_attention_block_sparse_fwd(*map(jnp.asarray, (q, k, v)), jbm,
+                                                      save_lse=True, interpret=True)
+    o_j, lse_j = np.asarray(o_j, np.float32), np.asarray(lse_j)[..., 0]
+    o, lse = fm.flash_attention_block_sparse_fwd(_t(q), _t(k), _t(v), bm, save_lse=True)
+    rows = np.concatenate([np.arange(i * fm.TILE, (i + 1) * fm.TILE) for i in empty])
+    assert torch.all(o[:, :, rows] == 0) and torch.all(torch.isneginf(lse[:, :, rows]))
+    assert np.all(o_j[:, :, rows] == 0) and not np.any(np.isfinite(lse_j[:, :, rows]))
+    finite = np.isfinite(lse_j)
+    assert np.array_equal(finite, torch.isfinite(lse).numpy())
+    assert float(np.max(np.abs(o.numpy() - o_j))) < 2e-5
+    assert float(np.max(np.abs(lse.numpy()[finite] - lse_j[finite]))) < 2e-5
