@@ -54,7 +54,16 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   blocks), then head dim 128:
   every kernel against its plain version at its path's shape with D = 128,
   with its device, plain, bound and library times (the general forward
-  also at the training shape and folded decode, lean also at N = 128).
+  also at the training shape and folded decode, lean also at N = 128);
+* sliding-window attention with sinks (W 512, 4 sinks) and segment ids:
+  the windowed and segmented forward, split pair, fused backward and cache
+  kernels against their plain versions (D 64 and 128, bf16 and fp32),
+  the windowed FlashLM's gradient check, ``Trainer`` steps (split pair,
+  then the fused backward under a saved decision) and 16 requests through
+  ``DecodeEngine`` on the dense and the paged int8 cache, with launches
+  counted over each run; each windowed kernel's time beside its
+  unwindowed time, its bound over the window's visible pairs and SDPA's
+  with a boolean window mask (the records' ``window_*`` keys).
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -83,6 +92,8 @@ N_REQUESTS, PROMPT_LENS, MAX_NEW = 16, (64, 1000), 64
 SEED = 0
 # Training: full width; the gradient check at depth 2, batch 1.
 TRAIN_STEPS, GRAD_CHECK_LAYERS = 6, 2
+# The windowed FlashLM's training run (W = 512, 4 sinks).
+WINDOW_TRAIN_STEPS = 4
 # Largest relative L2 error of one parameter's gradient with the kernels'
 # attention against the fp32 oracle attention (bf16 compute both ways).
 GRAD_REL_L2_TOL = 5e-2
@@ -294,14 +305,15 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     return {"records": records, "serving": serving_out, "sdpa_decode": sdpa_decode}
 
 
-def grad_check(gen: torch.Generator, head_dim: int = 64) -> dict:
+def grad_check(gen: torch.Generator, head_dim: int = 64, **window) -> dict:
     """Every parameter's gradient at full width, depth 2, batch 1, seq
     2048, with the kernels' attention against the fp32 oracle attention
-    (bf16 compute both ways); fails above ``GRAD_REL_L2_TOL``."""
+    (bf16 compute both ways); fails above ``GRAD_REL_L2_TOL``.  ``window``:
+    the model's sliding window and sinks."""
     from flash_attention_metal_tpu_torch.harness import train_bench
     from flash_attention_metal_tpu_torch.models import transformer as tf
 
-    gcfg = dataclasses.replace(train_bench.flashlm_config(n_layers=GRAD_CHECK_LAYERS),
+    gcfg = dataclasses.replace(train_bench.flashlm_config(n_layers=GRAD_CHECK_LAYERS, **window),
                                head_dim=head_dim)
     gen.manual_seed(SEED)
     gparams = tf.init_params(gcfg, gen, master_dtype=torch.float32)
@@ -534,6 +546,273 @@ def fused_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
     torch.cuda.empty_cache()
     return {"record": rec, "grad_rel_l2_max": g["worst"], "losses": train["losses"],
             "step_ms": train["step_ms"]}
+
+
+def window_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
+    """Sliding-window attention with sinks (the windowed FlashLM's W = 512,
+    4 sinks) and segment ids.  Every windowed and segmented kernel (rows
+    1, 5, 6, 7, 11, 12 and 13: the wgmma forward, the fp32 template and the
+    decode grid; the split pair and the fused backward; the quant, paged
+    and paged-quant kernels) against its plain version
+    (``onchip.WINDOW_*_CASES``: D 64 and 128, bf16 and fp32, ladder, peaked,
+    spike and negative-score fixtures, windows ending mid-tile, sink tiles
+    far left of the window, decode splits wholly outside it).  Then the
+    main path: the depth-2 gradient check, ``Trainer`` steps at full width,
+    the same under a saved decision naming the fused backward, and 16
+    requests through ``DecodeEngine`` on the dense and the paged int8 cache,
+    each with its kernels' launches counted over that run only.  Then each
+    kernel's time at its path's shape, D 64 and 128, beside its unwindowed
+    time in the same call, its bound over the visible pairs of the window,
+    and SDPA's with an explicit boolean window mask.  Returns each record's
+    ``window_*`` keys by kernel name, and the runs' numbers."""
+    from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving, train_bench
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import flash_attention_fwd, flash_fwd_general
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    w, s = onchip.WINDOW, onchip.SINKS
+    win = dict(window=w, sinks=s)
+    errs = {}  # (kernel, tag) -> worst error, tag: bf16 / d128 / fp32
+
+    def keep(kernel, tag, err):
+        errs[(kernel, tag)] = max(err, errs.get((kernel, tag), 0.0))
+
+    def tag_of(q):
+        return "fp32" if q.dtype == torch.float32 else "d128" if q.shape[-1] == 128 else "bf16"
+
+    # 1. Each windowed and segmented kernel against its plain version.
+    fwd_cases = onchip.window_fwd_cases(gen)
+    for name, case in fwd_cases.items():
+        err, lse_err = onchip.window_fwd_error(case)
+        tol = onchip.TOL[case[0].dtype]
+        check(err <= tol and lse_err <= tol,
+              f"window {name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+        keep("flash_fwd", tag_of(case[0]), err)
+        feats = {k: v for k, v in case[5].items() if k != "segment_ids"}
+        print(f"[window-kernel] flash_fwd {name} q {tuple(case[0].shape)} kv "
+              f"{tuple(case[1].shape)} {feats}{' segment ids' if 'segment_ids' in case[5] else ''}"
+              f": max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+    for name, with_fused in onchip.WINDOW_BWD_CASES:
+        inputs = onchip.window_bwd_inputs(fwd_cases[name], gen)
+        tol = onchip.BWD_TOL[inputs[0].dtype]
+        for fused in (False, True) if with_fused else (False,):
+            e = onchip.window_bwd_errors(inputs, fused=fused)
+            worst = max(rel for _, rel in e.values())
+            check(worst <= tol, f"window {name} {'fused' if fused else 'split'}: backward "
+                  f"normalised error {worst:.3e} > {tol}")
+            if fused:
+                keep("flash_bwd_fused", tag_of(inputs[0]), worst)
+            else:
+                keep("flash_bwd_dkv", tag_of(inputs[0]), max(e["dk"][1], e["dv"][1]))
+                keep("flash_bwd_dq", tag_of(inputs[0]), e["dq"][1])
+            print(f"[window-kernel] {'flash_bwd_fused' if fused else 'split pair'} {name}: "
+                  + ", ".join(f"{g} rel {r:.3e}" for g, (_, r) in e.items()) + f" (tol rel {tol})")
+        del inputs
+    del fwd_cases
+    torch.cuda.empty_cache()
+    kv_cases = {**onchip.kv_cases(gen), **onchip.kv_d128_cases(gen)}
+    for name, kw_w, kw_s in onchip.WINDOW_KV_CASES:
+        kernel, args, pos_div = kv_cases[name]
+        err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div, window=kw_w, sinks=kw_s)
+        tol = onchip.TOL[args[0].dtype]
+        check(err <= tol and lse_err <= tol,
+              f"window {name} W {kw_w} S {kw_s}: max abs err {err:.3e}, lse {lse_err:.3e}")
+        keep(kernel, tag_of(args[0]), err)
+        print(f"[window-kernel] {kernel} {name} W {kw_w} sinks {kw_s}: max_abs_err {err:.3e} "
+              f"lse_err {lse_err:.3e} (tol {tol})")
+    del kv_cases
+    torch.cuda.empty_cache()
+
+    # 2. The main path: training (split pair, then the fused backward under
+    # a saved decision) and serving, every count reset just before its run.
+    g = grad_check(gen, **win)
+    print(f"[window-grad-check] W {w} sinks {s}: {grad_line(g)}")
+    counters = {"fwd": flash_fwd_general, "dkv": fb.flash_bwd_dkv, "dq": fb.flash_bwd_dq,
+                "fused": fb.flash_bwd_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    train = train_bench.run_train_bench(steps=WINDOW_TRAIN_STEPS, log=lambda m: None, **win)
+    train_launches = {name: fn.launches for name, fn in counters.items()}
+    layers = train["model"]["n_layers"]
+    want = {"fwd": 2 * layers * WINDOW_TRAIN_STEPS, "dkv": layers * WINDOW_TRAIN_STEPS,
+            "dq": layers * WINDOW_TRAIN_STEPS, "fused": 0}
+    losses = train["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[1],
+          f"windowed training losses finite and falling: {losses}")
+    check(train_launches == want, f"windowed training launches {train_launches} == {want}")
+    print(f"[window-train] {WINDOW_TRAIN_STEPS} Trainer steps, L{layers} d2048 b4 s2048 W {w} "
+          f"sinks {s}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {train_launches}; step {train['step_ms']:.2f} ms, "
+          f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']:.2%} {stamp}")
+    tuned = os.path.join(tmp, "window_fused.json")
+    b_, h_, n_, d_ = onchip.TRAIN_Q
+    autotune.record_bwd((b_, h_, onchip.TRAIN_KV[1], n_, d_), "fused", {}, cache_path=tuned)
+    default_cache = autotune.DEFAULT_CACHE
+    autotune.DEFAULT_CACHE = tuned
+    autotune.reset_memo()
+    for fn in counters.values():
+        fn.launches = 0
+    train_f = train_bench.run_train_bench(steps=2, log=lambda m: None, **win)
+    fused_launches = {name: fn.launches for name, fn in counters.items()}
+    autotune.DEFAULT_CACHE = default_cache
+    autotune.reset_memo()
+    want = {"fwd": 4 * layers, "dkv": 0, "dq": 0, "fused": 2 * layers}
+    check(all(np.isfinite(train_f["losses"])) and fused_launches == want,
+          f"windowed training under a saved \"fused\" decision: launches {fused_launches} == "
+          f"{want}, losses {train_f['losses']}")
+    print(f"[window-train-fused] 2 Trainer steps W {w} sinks {s} under a cache naming "
+          f"\"fused\": losses " + ", ".join(f"{x:.4f}" for x in train_f["losses"])
+          + f"; launches {fused_launches}; step {train_f['step_ms']:.2f} ms {stamp}")
+    serving_out = {}
+    prng = np.random.default_rng(SEED + 5)
+    for mode, counted in (("dense", flash_fwd_general), ("paged_int8", pg.flash_attention_paged_quant)):
+        opts, bound = serving.SERVING_MODES[mode]
+        eng, cfg = serving.build_engine(
+            **serving.FLASHLM_D2048, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+            device="cuda", **win, **opts)
+        eng.submit(serving.Request(uid=-1, prompt=list(range(1, 101)), max_new_tokens=4))
+        eng.run()
+        requests = serving.make_requests(N_REQUESTS, cfg.vocab_size, PROMPT_LENS, MAX_NEW, SEED)
+        others = [fn for fn in (flash_fwd_general, qt.flash_attention_quant,
+                                pg.flash_attention_paged, pg.flash_attention_paged_quant)
+                  if fn is not counted]
+        for fn in (counted, *others):
+            fn.launches = 0
+        bench = serving.run_serving_bench(eng, requests, log=lambda m: None)
+        n_launch, n_other = counted.launches, sum(fn.launches for fn in others)
+        check(all(r.done and len(r.generated) == MAX_NEW for r in requests)
+              and all(np.isfinite(lp) and lp <= 0 for r in requests for lp in r.logprobs),
+              f"windowed {mode} serving: every request finishes, log-probabilities finite")
+        check(n_launch > 0 and n_other == 0,
+              f"windowed {mode} serving launches its kernel ({n_launch}) and no other ({n_other})")
+        crossing = sum(len(r.prompt) + MAX_NEW > w for r in requests)
+        prompts = [prng.integers(1, cfg.vocab_size, n).tolist() for n in CHECK_PROMPTS]
+        rel = serving.teacher_forced_errors(eng.params, cfg, prompts, 16, MAX_LEN, seed=SEED,
+                                            mode=mode)
+        worst = float(np.max(rel))
+        check(worst <= bound, f"windowed {mode} served logits rel L2 {worst:.3e} > {bound}")
+        serving_out[mode] = {"tokens_per_s": bench["tokens_per_s"],
+                             "ms_per_step": bench["ms_per_step"], "launches": n_launch,
+                             "served_logits_rel_l2_max": worst, "requests_crossing": crossing}
+        print(f"[window-serve] {mode}: {N_REQUESTS} requests x {MAX_NEW} tokens, prompts "
+              f"{min(len(r.prompt) for r in requests)}-{max(len(r.prompt) for r in requests)} "
+              f"({crossing} cross the window of {w}): {bench['tokens_per_s']:.1f} tok/s, "
+              f"{bench['ms_per_step']:.3f} ms/step; its kernel launched {n_launch} times, the "
+              f"others 0; served logits rel L2 max {worst:.3e} (tol {bound}) {stamp}")
+        del eng
+        torch.cuda.empty_cache()
+
+    # 3. Times at the path's shapes, D 64 and 128: windowed, unwindowed in
+    # the same call, the bound over the window's visible pairs, SDPA with
+    # the window as a boolean mask.
+    out = {name: {} for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_fused",
+                                 "flash_quant", "flash_paged", "flash_paged_quant")}
+
+    def put(name, suffix, ms, unwindowed_ms, flops, nbytes, library, shape):
+        out[name].update({
+            f"window_ms{suffix}": ms, f"window_unwindowed_ms{suffix}": unwindowed_ms,
+            f"window_bound_ms{suffix}": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+            f"window_bound_by{suffix}": roofline.bound_by(flops, nbytes, spec, 16),
+            f"window_library_ms{suffix}": library[0],
+            f"window_library_backend{suffix}": library[1] + " (explicit boolean window mask)",
+            f"window_shape{suffix}": shape})
+        r = out[name]
+        print(f"[window-time] {name} at {shape}: W {w} {ms:.4f} ms, unwindowed {unwindowed_ms:.4f}"
+              f" ms, bound {r[f'window_bound_ms{suffix}']:.4f} ms "
+              f"({r[f'window_bound_by{suffix}']}), SDPA with the window mask "
+              f"{library[0]:.4f} ms {stamp}")
+
+    for suffix, (shape_q, shape_kv) in (("", (onchip.TRAIN_Q, onchip.TRAIN_KV)),
+                                        ("_d128", (onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV))):
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        do = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)[0]
+        off = torch.zeros(shape_q[0], dtype=torch.int32, device="cuda")
+        batch, heads, n, d = shape_q
+        mask = onchip.window_mask(n, n, off[:1], w, s)
+        shape = f"training q {list(shape_q)} kv {list(shape_kv)} bf16 causal W {w} sinks {s}"
+        kw = dict(sm_scale=d ** -0.5, causal=True)
+        o, lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True, **win)
+        o_u, lse_u = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+        flops, nbytes = onchip.fwd_work(q, k, off.tolist(), 1, True, **win)
+        put("flash_fwd", suffix,
+            onchip.device_ms(lambda: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True,
+                                                         **win)),
+            onchip.device_ms(lambda: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)),
+            flops, nbytes, onchip.sdpa_ms(q, k, v, mask=mask), shape)
+        delta, delta_u = fb.bwd_delta(o, do, None), fb.bwd_delta(o_u, do, None)
+        pairs = roofline.visible_pairs(n, n, 0, **win)
+        lib_bwd = onchip.sdpa_ms(q, k, v, mask=mask, backward_of=do)
+        for name, fn in (("flash_bwd_dkv", fb.flash_bwd_dkv), ("flash_bwd_dq", fb.flash_bwd_dq)):
+            flops, nbytes = roofline.block_sparse_work(batch, heads, k.shape[1], n, n, d, 2, pairs,
+                                                       name[-3:].lstrip("_"))
+            put(name, suffix,
+                onchip.device_ms(lambda: fn(q, k, v, do, lse, delta, off, window=w, sinks=s, **kw)),
+                onchip.device_ms(lambda: fn(q, k, v, do, lse_u, delta_u, off, **kw)),
+                flops, nbytes, lib_bwd, shape)
+        flops, nbytes = roofline.fused_bwd_work(batch, heads, k.shape[1], n, n, d, 2, causal=True,
+                                                **win)
+        put("flash_bwd_fused", suffix,
+            onchip.device_ms(lambda: fb.flash_attention_bwd_fused(
+                q, k, v, o, do, lse, off, q_offset_max=0, **kw, **win)),
+            onchip.device_ms(lambda: fb.flash_attention_bwd_fused(
+                q, k, v, o_u, do, lse_u, off, q_offset_max=0, **kw)),
+            flops, nbytes, lib_bwd, shape)
+        del q, k, v, do, o, lse, o_u, lse_u, delta, delta_u, mask
+        torch.cuda.empty_cache()
+    # Folded decode: the forward's decode grid and the cache kernels.
+    lengths = torch.from_numpy(onchip.decode_lengths()).to("cuda")
+    for suffix, (shape_q, shape_kv) in (("", (onchip.DECODE_Q, onchip.DECODE_KV)),
+                                        ("_d128", (onchip.DECODE_D128_Q, onchip.DECODE_D128_KV))):
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        b, h_kv, n_kv, d = shape_kv
+        qd = onchip.ladder_inputs((b, 2 * h_kv, 1, d), shape_kv, torch.bfloat16, gen)[0]
+        lib = onchip.sdpa_ms(qd, k, v, mask=onchip.window_mask(1, n_kv, lengths, w, s))
+        shape = (f"folded decode q {list(shape_q)} over a cache {list(shape_kv)} at the decode "
+                 f"lengths, W {w} sinks {s}")
+        flops, nbytes = onchip.fwd_work(q, k, lengths.tolist(), 2, False, **win)
+        put("flash_fwd", f"_decode{suffix}",
+            onchip.device_ms(lambda: flash_attention_fwd(q, k, v, lengths, causal=True, pos_div=2,
+                                                         **win)),
+            onchip.device_ms(lambda: flash_attention_fwd(q, k, v, lengths, causal=True, pos_div=2)),
+            flops, nbytes, lib, shape)
+        gen_kv = torch.Generator(device="cuda")
+        gen_kv.manual_seed(SEED)
+        cases = onchip.kv_d128_cases(gen_kv) if suffix else onchip.kv_cases(gen_kv)
+        for name, kernel in (("quant_int8_decode_bf16", "flash_quant"),
+                             ("paged_decode_bf16", "flash_paged"),
+                             ("paged_quant_int8_decode_bf16", "flash_paged_quant")):
+            kernel_, args, pos_div = cases[name + suffix]
+            wrapper = onchip.KV_KERNELS[kernel][0]
+            flops, nbytes = onchip.kv_work(kernel, args, pos_div, **win)
+            put(kernel, suffix, onchip.device_ms(lambda: wrapper(*args, pos_div, **win)),
+                onchip.device_ms(lambda: wrapper(*args, pos_div)), flops, nbytes, lib, shape)
+        del q, k, v, qd, cases
+        torch.cuda.empty_cache()
+
+    # Launches on the main path: the forward in training and dense serving,
+    # the split pair in training, the fused kernel under its decision, the
+    # paged-quant kernel in paged int8 serving; the quant and paged kernels
+    # are checked at kernel level only.
+    launches = {"flash_fwd": train_launches["fwd"] + serving_out["dense"]["launches"],
+                "flash_bwd_dkv": train_launches["dkv"], "flash_bwd_dq": train_launches["dq"],
+                "flash_bwd_fused": fused_launches["fused"], "flash_quant": 0, "flash_paged": 0,
+                "flash_paged_quant": serving_out["paged_int8"]["launches"]}
+    for name in out:
+        out[name]["window_launches"] = launches[name]
+        out[name]["window_max_err"] = errs.get((name, "bf16"), errs.get((name, "fp32")))
+        for tag in ("d128", "fp32"):
+            if (name, tag) in errs:
+                out[name][f"window_max_err_{tag}"] = errs[(name, tag)]
+    unlaunched = [n for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_fused",
+                              "flash_paged_quant") if launches[n] == 0]
+    check(not unlaunched, f"every windowed kernel of the main path launched: not {unlaunched}")
+    return {"records": out, "grad_rel_l2_max": g["worst"], "train": {
+        "losses": losses, "step_ms": train["step_ms"], "tokens_per_s": train["tokens_per_s"],
+        "mfu": train["mfu"], "launches": train_launches, "fused_losses": train_f["losses"],
+        "fused_step_ms": train_f["step_ms"], "fused_launches": fused_launches},
+        "serving": serving_out}
 
 
 def sparse_grid_text(grid) -> str:
@@ -1349,6 +1628,11 @@ def main() -> int:
     sparse_records = sparse_phase(gen, stamp, spec, ladder_sparse)
     d128 = d128_phase(gen, stamp, spec)
 
+    # 16. Sliding-window attention with sinks, and segment ids: the
+    # windowed and segmented kernels, the windowed FlashLM's training and
+    # serving, and the windowed times beside the unwindowed ones.
+    window = window_phase(gen, stamp, spec, tmp)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -1492,6 +1776,10 @@ def main() -> int:
         },
         "card": smi,
     }
+    for rec_ in record["kernels"]:
+        rec_.update(window["records"].get(rec_["name"], {}))
+    record["training_window"] = {"grad_rel_l2_max": window["grad_rel_l2_max"], **window["train"]}
+    record["serving_window"] = window["serving"]
     tmp_dir.cleanup()
     check(len(record["kernels"]) == 16, f"16 kernels recorded: {len(record['kernels'])}")
     print(smi)

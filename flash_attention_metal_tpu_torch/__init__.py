@@ -13,6 +13,7 @@ verification ladder run: naive (``naive.cu``), the single-block forward
 tensors on the CPU take their plain PyTorch versions.
 """
 
+from .config import AttentionConfig, BlockSizes, SegmentIds
 from .kernels.flash_bwd import flash_attention_bwd, flash_attention_bwd_auto
 from .kernels.flash_mxu import flash_attention_mxu
 from .kernels.flash_tri import flash_attention_bwd_tri, flash_attention_tri
@@ -26,9 +27,12 @@ from .ops.attention import flash_attention
 from .runtime.engine import DecodeEngine, Request
 
 __all__ = [
+    "AttentionConfig",
+    "BlockSizes",
     "DecodeEngine",
     "ModelConfig",
     "Request",
+    "SegmentIds",
     "Trainer",
     "flash_attention",
     "flash_attention_bwd",

@@ -8,6 +8,7 @@ bounded instead by the 16x16 tensor-core fragment, so that is the rule here.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -38,6 +39,28 @@ class BlockSizes:
                 raise ValueError(
                     f"{name}={v} must be a positive multiple of {MMA_TILE}"
                 )
+
+
+@dataclasses.dataclass
+class SegmentIds:
+    """Packed-sequence segment ids for Q and KV: tokens attend only within
+    equal ids.  ``q``: int32 ``[B, N_q]``; ``kv``: int32 ``[B, N_kv]``.
+    Composes with causal and windowed masking.  Counterpart of the JAX
+    ``config.SegmentIds`` (which is also a pytree; nothing here needs it)."""
+
+    q: torch.Tensor
+    kv: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    """Top-level attention op configuration, as the JAX package's."""
+
+    causal: bool = False
+    sm_scale: Optional[float] = None  # default: 1/sqrt(head_dim)
+    block_sizes: Optional[BlockSizes] = None
+    # Softmax statistics are fp32 whatever the input dtype.
+    save_lse: bool = False
 
 
 def default_scale(head_dim: int) -> float:

@@ -4,9 +4,10 @@
 // A fused block owns one KV tile j of one (batch, KV head) and computes,
 // for each Q step it walks, that step's dQ contribution dS K (unscaled).
 // Every 32 query rows of every q-head have one int32 counter: the number
-// of KV tiles that have added to those rows so far.  Block j adds to a
-// step's rows only once the counter reads j (KV tiles 0 .. j - 1 have
-// added), then releases it as j + 1.  So each dQ element is
+// of KV tiles that have added to those rows so far.  The block of the
+// KV tile of rank j among the tiles a step sees, in KV-tile order (tile j
+// itself without a window), adds to the step's rows only once the counter
+// reads j, then releases it as j + 1.  So each dQ element is
 // ((s_0 + s_1) + s_2) + ..., summed in KV-tile order whatever the blocks'
 // timing: the same bits on every run.  The first KV tile stores, the
 // middle ones add in
@@ -53,24 +54,17 @@ namespace {
 namespace dq_ordered {
 
 constexpr int kRows = 32;  // query rows per counter
-constexpr int kTile = 64;  // rows of a Q tile and of a KV tile (the visibility helpers)
 
 // Visibility: row r sees column c when c < n_kv and c <= r + off, with off
 // a static int (the triangular backward), or per batch on the device and
 // read no higher than the host's bound (batch_offset); no causal mask is
-// off = n_kv - 1.
+// off = n_kv - 1.  A window narrows it further (window.cuh); the KV tiles
+// a Q tile sees, in the order they add to it, are window.cuh's kv_runs.
 
 // Last column row `row` sees (-1: none, also for padding rows).
 __host__ __device__ __forceinline__ int last_visible(int row, int n_q, int n_kv, int off) {
   if (row >= n_q) return -1;
   return row + off < n_kv - 1 ? row + off : n_kv - 1;
-}
-
-// KV tiles that Q tile i sees: tiles 0 .. visible_kv_tiles - 1.
-__host__ __device__ __forceinline__ int visible_kv_tiles(int i, int n_q, int n_kv, int off) {
-  const int last_row = (i + 1) * kTile < n_q ? (i + 1) * kTile - 1 : n_q - 1;
-  const int limit = last_visible(last_row, n_q, n_kv, off);
-  return limit < 0 ? 0 : limit / kTile + 1;
 }
 
 // Batch b's offset: q_offset[b] read no higher than off_bound, or

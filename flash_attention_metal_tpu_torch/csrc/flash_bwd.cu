@@ -25,6 +25,10 @@
 //             computed by the wrapper)
 //   dK[c]   = sm_scale * sum_{h in group} sum_r dS[r,c] q[r]
 //   dQ[r]   = sm_scale * sum_c dS[r,c] k[c]
+// Under a sliding window (with causal) row r at position p = r + q_offset[b]
+// sees only c > p - window, besides c < sinks, and with segment ids only
+// columns of its own id (window.cuh); the walks skip the tiles outside the
+// window and the sinks.
 // Products and sums accumulate in fp32; P and dS enter the bf16 products
 // rounded to bf16 (the JAX kernels do the same).  fp32 inputs use plain
 // IEEE FMA (never TF32).  dK and dV come out in k's dtype, dQ in q's.
@@ -66,23 +70,24 @@
 #include "dq_ordered.cuh"
 #include "flash_bwd_fused_sm90.cuh"
 #include "flash_bwd_sm90.cuh"
+#include "window.cuh"
 #include "wmma_tiles.cuh"
 
 namespace {
 
-static_assert(kTile == dq_ordered::kTile, "the visibility helpers count 64-row tiles");
 static_assert(kTile % dq_ordered::kRows == 0, "a Q tile owns whole dQ counters");
 using dq_ordered::batch_offset;
 using dq_ordered::last_visible;
-using dq_ordered::visible_kv_tiles;
 
 // fp32.  One block per (KV tile, KV head, batch): dK and dV of the tile,
 // summed over the group's q-heads and their visible Q tiles.  kFused:
 // the block takes its (KV tile, batch x KV head) item from the ticket in
 // counters[0] instead, walks its Q tiles from the last one down, and adds
 // each visible pair's dQ contribution to dq_acc in KV-tile order
-// (dq_ordered.cuh), the last KV tile writing dq.  q_offset: per-batch
-// offsets read no higher than off_bound; null: off_bound for every batch.
+// (dq_ordered.cuh), the last KV tile writing dq: each Q tile's adders are
+// the KV tiles of its walk (window.cuh, kv_runs), in that order.
+// q_offset: per-batch offsets read no higher than off_bound; null:
+// off_bound for every batch.  f: the window and the segment ids.
 template <typename T, int D, bool kFused>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -91,7 +96,7 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ q_offset, int off_bound, T* __restrict__ dk,
                          T* __restrict__ dv, T* __restrict__ dq, float* __restrict__ dq_acc,
                          int* __restrict__ counters, int batch, int n_heads, int n_kv_heads,
-                         int n_q, int n_kv, float sm_scale, float scale_log2) {
+                         int n_q, int n_kv, float sm_scale, float scale_log2, Feat f) {
   using C = Cfg<T, D>;
   static_assert(std::is_same<T, float>::value,
                 "bf16 runs flash_bwd_sm90.cuh and flash_bwd_fused_sm90.cuh");
@@ -116,20 +121,33 @@ __global__ void __launch_bounds__(kThreads)
   const int cols_valid = min(kTile, n_kv - kv_start);
   const int off = batch_offset(q_offset, b, off_bound);
   // Rows r >= kv_start - off see the tile's first column; earlier Q tiles
-  // see none of it and are skipped.
+  // see none of it and are skipped, and so are the Q tiles past the last
+  // whose window reaches the tile.
   const int q_first = max(0, kv_start - off) / kTile;
-  const int n_q_tiles = (n_q + kTile - 1) / kTile;
+  const int q_stop = q_end<kTile>(kv_start, kv_start + cols_valid - 1, off, n_q, f.window, f.sinks);
 
   if (kFused && kv_tile == 0) {
-    // The Q tiles before KV tile 0's first see no column: no block adds to
-    // them.
-    const int rows = n_q - 1 + off < 0 ? n_q : min(n_q, q_first * kTile);
-    for (int g = 0; g < group; ++g) {
-      T* dst = dq + ((size_t)b * n_heads + h_kv * group + g) * n_q * D;
-      for (int i = tid; i < rows * D; i += kThreads) dst[i] = from_float<T>(0.0f);
+    // The Q tiles that see no column: no block adds to them.
+    for (int qt = 0; qt * kTile < n_q; ++qt) {
+      const int q_start = qt * kTile;
+      const int rows = min(kTile, n_q - q_start);
+      if (kv_runs<kTile>(q_start + off, q_start + rows - 1 + off, n_kv, f.window, f.sinks)
+              .steps() > 0) {
+        continue;
+      }
+      for (int g = 0; g < group; ++g) {
+        T* dst = dq + (((size_t)b * n_heads + h_kv * group + g) * n_q + q_start) * D;
+        for (int i = tid; i < rows * D; i += kThreads) dst[i] = from_float<T>(0.0f);
+      }
     }
   }
 
+  // The tile's KV segment ids, and the walked rows' (null: none).
+  __shared__ int kv_ids[kTile];
+  const int* kids = f.kv_seg == nullptr ? nullptr : kv_ids;
+  if (kids != nullptr && tid < kTile) {
+    kv_ids[tid] = tid < cols_valid ? f.kv_seg[(size_t)b * n_kv + kv_start + tid] : 0;
+  }
   load_tile<T, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
   load_tile<T, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
 
@@ -140,8 +158,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int g = 0; g < group; ++g) {
     const size_t bh = (size_t)b * n_heads + h_kv * group + g;
     const size_t q_rows = bh * n_q;
-    for (int step = 0; step < n_q_tiles - q_first; ++step) {
-      const int qt = kFused ? n_q_tiles - 1 - step : q_first + step;
+    for (int step = 0; step < q_stop - q_first; ++step) {
+      const int qt = kFused ? q_stop - 1 - step : q_first + step;
       const int q_start = qt * kTile;
       const int rows_valid = min(kTile, n_q - q_start);
       load_tile<T, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
@@ -152,32 +170,38 @@ __global__ void __launch_bounds__(kThreads)
       bwd_scores(sm, r, half);
       __syncthreads();
 
-      softmax_grad(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off),
-                   scale_log2);
+      const int qid =
+          kids != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + q_start + r] : 0;
+      softmax_grad(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off), scale_log2,
+                   q_start + r + off - f.window + 1, f.sinks, qid, kids);
       __syncthreads();
 
       mma_atb_f32<D>(dv_reg, p, sm.dout, r, half);
       mma_atb_f32<D>(dk_reg, ds, sm.q, r, half);
       if constexpr (kFused) {
-        // Row kv_start - off can fall past a ragged last Q tile's valid
-        // rows: that tile sees nothing of this KV tile.
-        const int last = visible_kv_tiles(qt, n_q, n_kv, off) - 1;
-        if (kv_tile <= last) {
+        // The Q tile's adders, in order: its walk's KV tiles.  Row kv_start
+        // - off can fall past a ragged last Q tile's valid rows: that tile
+        // sees nothing of this KV tile, which is then no adder.
+        const TileRuns adders = kv_runs<kTile>(q_start + off, q_start + rows_valid - 1 + off,
+                                               n_kv, f.window, f.sinks);
+        const int rank = adders.rank(kv_tile);
+        const int last = adders.steps() - 1;
+        if (rank >= 0) {
           float dq_reg[C::kOut];
 #pragma unroll
           for (int j = 0; j < C::kOut; ++j) dq_reg[j] = 0.0f;
           mma_ab_f32<D>(dq_reg, ds, sm.k, r, half);
           int* cnt = dq_ordered::counter(counters, bh, n_q, q_start);
-          dq_ordered::wait_turn(cnt, kv_tile);
+          dq_ordered::wait_turn(cnt, rank);
           if (r < rows_valid) {
             const size_t at = (q_rows + q_start + r) * D + half * C::kOut;
 #pragma unroll
             for (int j = 0; j < C::kOut; ++j) {
-              dq_ordered::add(dq_acc, dq, at + j, dq_reg[j], kv_tile, last, sm_scale);
+              dq_ordered::add(dq_acc, dq, at + j, dq_reg[j], rank, last, sm_scale);
             }
           }
           __syncthreads();
-          dq_ordered::pass_turn(cnt, kv_tile);
+          dq_ordered::pass_turn(cnt, rank);
         }
       }
       // The next tile's loads overwrite q, dout, lse2 and delta.
@@ -204,7 +228,7 @@ __global__ void __launch_bounds__(kThreads)
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             const int* __restrict__ q_offset, int off_bound,
                             float* __restrict__ dq, int n_heads, int n_kv_heads, int n_q,
-                            int n_kv, float sm_scale, float scale_log2) {
+                            int n_kv, float sm_scale, float scale_log2, Feat f) {
   using C = Cfg<float, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem<float, D>& sm = *reinterpret_cast<BwdSmem<float, D>*>(smem_raw);
@@ -221,8 +245,15 @@ __global__ void __launch_bounds__(kThreads)
   const int rows_valid = min(kTile, n_q - q_start);
   const int off = batch_offset(q_offset, b, off_bound);
   const int col_limit = last_visible(q_start + r, n_q, n_kv, off);
-  // The KV walk stops at the last tile any row of the tile sees.
-  const int n_steps = visible_kv_tiles(blockIdx.x, n_q, n_kv, off);
+  // The KV walk: the sink tiles, then the window's up to the last tile any
+  // row of the tile sees (every tile up to it without a window).
+  const TileRuns runs = kv_runs<kTile>(q_start + off, q_start + rows_valid - 1 + off, n_kv,
+                                       f.window, f.sinks);
+  const int n_steps = runs.steps();
+  // The step's KV segment ids, and this row's (null: none).
+  __shared__ int kv_ids[kTile];
+  const int* kids = f.kv_seg == nullptr ? nullptr : kv_ids;
+  const int qid = kids != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + q_start + r] : 0;
 
   load_tile<float, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
   load_tile<float, D>(sm.dout, dout + (q_rows + q_start) * D, rows_valid);
@@ -233,17 +264,21 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < C::kOut; ++j) dq_reg[j] = 0.0f;
 
   for (int step = 0; step < n_steps; ++step) {
-    const int kv_start = step * kTile;
+    const int kv_start = runs.tile(step) * kTile;
     const int cols_valid = min(kTile, n_kv - kv_start);
     load_tile<float, D>(sm.k, k + (kv_rows + kv_start) * D, cols_valid);
     load_tile<float, D>(sm.v, v + (kv_rows + kv_start) * D, cols_valid);
+    if (kids != nullptr && tid < kTile) {
+      kv_ids[tid] = tid < cols_valid ? f.kv_seg[(size_t)b * n_kv + kv_start + tid] : 0;
+    }
     __syncthreads();
 
     bwd_scores(sm, r, half);
     __syncthreads();
 
     // P and dS over the scores and dP.
-    softmax_grad(sm, r, half, kv_start, col_limit, scale_log2);
+    softmax_grad(sm, r, half, kv_start, col_limit, scale_log2, q_start + r + off - f.window + 1,
+                 f.sinks, qid, kids);
     __syncthreads();
 
     mma_ab_f32<D>(dq_reg, sm.ds_tile(), sm.k, r, half);
@@ -263,13 +298,16 @@ struct Args {
   int batch, n_heads, n_kv_heads, n_q, n_kv, causal;
   float sm_scale;
   cudaStream_t stream;
+  Feat f;
   // The kernels' offsets: q_offset read no higher than off_bound when
   // causal, else n_kv - 1 (every column) with no read.  The split pair's
-  // bound is n_kv - 1, which sees what any higher offset sees.
+  // bound is n_kv - 1, which sees what any higher offset sees, unless a
+  // window moves with the offset: then none.
   const int* offsets() const {
     return causal ? static_cast<const int*>(q_offset) : nullptr;
   }
   int bound(int off_bound) const { return causal ? off_bound : n_kv - 1; }
+  int split_bound() const { return f.window == kNoWindow ? n_kv - 1 : INT_MAX; }
 };
 
 // The dK/dV kernel; kFused (fp32) also adds dQ to dq_acc in KV-tile order
@@ -290,7 +328,7 @@ cudaError_t launch_dkv(const Args& a, int off_bound, void* dk, void* dv, void* d
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       a.offsets(), a.bound(off_bound), static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<T*>(dq), dq_acc, counters, a.batch, a.n_heads, a.n_kv_heads, a.n_q,
-      a.n_kv, a.sm_scale, a.sm_scale * kLog2e);
+      a.n_kv, a.sm_scale, a.sm_scale * kLog2e, a.f);
   return cudaGetLastError();
 }
 
@@ -300,6 +338,12 @@ template <int D>
 cudaError_t launch_fused(const Args& a, int dtype, int off_bound, void* dk, void* dv, void* dq,
                          float* dq_acc, int* counters) {
   if (dtype == 1) return launch_dkv<float, D, true>(a, off_bound, dk, dv, dq, dq_acc, counters);
+  if (a.f.q_seg != nullptr || a.f.window != kNoWindow) {
+    return sm90::launch_fused<D, bf16, true>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.offsets(),
+                                             a.bound(off_bound), dk, dv, dq, dq_acc, counters,
+                                             a.batch, a.n_heads, a.n_kv_heads, a.n_q, a.n_kv,
+                                             a.sm_scale, a.stream, a.f);
+  }
   return sm90::launch_fused<D, bf16>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.offsets(),
                                a.bound(off_bound), dk, dv, dq, dq_acc, counters, a.batch,
                                a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.stream);
@@ -316,8 +360,8 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), a.offsets(),
-      a.bound(a.n_kv - 1), static_cast<float*>(dq), a.n_heads, a.n_kv_heads, a.n_q, a.n_kv,
-      a.sm_scale, a.sm_scale * kLog2e);
+      a.bound(a.split_bound()), static_cast<float*>(dq), a.n_heads, a.n_kv_heads, a.n_q, a.n_kv,
+      a.sm_scale, a.sm_scale * kLog2e, a.f);
   return cudaGetLastError();
 }
 
@@ -332,20 +376,51 @@ sm90::BwdArgs sm90_args(const Args& a, void* dk, void* dv, void* dq) {
           a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.sm_scale * kLog2e};
 }
 
+// bf16: the causal walk, or under a window or segment ids the walk that
+// takes them (CausalWalkT<kSeg, true>).
+template <class Launch>
+cudaError_t launch_walk(const Args& a, Launch launch) {
+  const Feat& f = a.f;
+  if (f.q_seg != nullptr) {
+    return launch(sm90::CausalWalkT<true, true>{a.offsets(), f.window, f.sinks, f.q_seg,
+                                                f.kv_seg});
+  }
+  if (f.window != kNoWindow) {
+    return launch(sm90::CausalWalkT<false, true>{a.offsets(), f.window, f.sinks});
+  }
+  return launch(sm90::CausalWalk{a.offsets()});
+}
+
 template <int D>
 cudaError_t launch_split_dkv(const Args& a, int dtype, void* dk, void* dv) {
-  if (dtype == 1) return launch_dkv<float, D, false>(a, a.n_kv - 1, dk, dv);
+  if (dtype == 1) return launch_dkv<float, D, false>(a, a.split_bound(), dk, dv);
   const dim3 grid(a.batch * a.n_kv_heads, (a.n_kv + kTile - 1) / kTile);
-  return sm90::launch_dkv<D>(sm90_args(a, dk, dv, nullptr), sm90::CausalWalk{a.offsets()},
-                             grid, a.stream);
+  const sm90::BwdArgs args = sm90_args(a, dk, dv, nullptr);
+  return launch_walk(a, [&](const auto& walk) {
+    return sm90::launch_dkv<D>(args, walk, grid, a.stream);
+  });
 }
 
 template <int D>
 cudaError_t launch_split_dq(const Args& a, int dtype, void* dq) {
   if (dtype == 1) return launch_dq_f32<D>(a, dq);
   const dim3 grid(a.batch * a.n_heads, (a.n_q + kTile - 1) / kTile);
-  return sm90::launch_dq<D>(sm90_args(a, nullptr, nullptr, dq), sm90::CausalWalk{a.offsets()},
-                            grid, a.stream);
+  const sm90::BwdArgs args = sm90_args(a, nullptr, nullptr, dq);
+  return launch_walk(a, [&](const auto& walk) {
+    return sm90::launch_dq<D>(args, walk, grid, a.stream);
+  });
+}
+
+// The window and the segment ids of an entry's call: window 0 for none
+// (more needs causal), sinks >= 0; both segment ids or neither.
+bool valid_feat(int window, int sinks, const void* q_seg, const void* kv_seg, int causal) {
+  return window >= 0 && sinks >= 0 && (window == 0 || causal) &&
+         (q_seg == nullptr) == (kv_seg == nullptr);
+}
+
+Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg) {
+  return {window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
+          static_cast<const int*>(kv_seg)};
 }
 
 bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_dim,
@@ -362,19 +437,25 @@ bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_d
 // device pointers of contiguous tensors: q, dout [B, H, N_q, D]; k, v, dk,
 // dv [B, H_kv, N_kv, D], D = head_dim, 64 or 128; lse, delta fp32
 // [B, H, N_q]; q_offset int32 [B] (read only when causal).  dtype: 0 =
-// bf16, 1 = fp32.  Each returns its launches' cudaError_t (0 on success).
+// bf16, 1 = fp32.  window: the columns a row sees back from its position
+// (0: none; more needs causal), sinks the first columns it sees besides;
+// q_seg, kv_seg: int32 segment ids [B, N_q] and [B, N_kv], or both null.
+// Each returns its launches' cudaError_t (0 on success).
 extern "C" int fam_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* q_offset,
-                                 void* dk, void* dv, int batch, int n_heads,
+                                 void* dk, void* dv, int window, int sinks, const void* q_seg,
+                                 const void* kv_seg, int batch, int n_heads,
                                  int n_kv_heads, int n_q, int n_kv,
                                  int head_dim, float sm_scale, int causal,
                                  int dtype, void* stream) {
-  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
+      !valid_feat(window, sinks, q_seg, kv_seg, causal)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
-               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream)};
+               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
+               make_feat(window, sinks, q_seg, kv_seg)};
   return (int)(head_dim == 64 ? launch_split_dkv<64>(a, dtype, dk, dv)
                               : launch_split_dkv<128>(a, dtype, dk, dv));
 }
@@ -382,15 +463,18 @@ extern "C" int fam_flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int fam_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* q_offset,
-                                void* dq, int batch, int n_heads,
+                                void* dq, int window, int sinks, const void* q_seg,
+                                const void* kv_seg, int batch, int n_heads,
                                 int n_kv_heads, int n_q, int n_kv, int head_dim,
                                 float sm_scale, int causal, int dtype,
                                 void* stream) {
-  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype)) {
+  if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
+      !valid_feat(window, sinks, q_seg, kv_seg, causal)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
-               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream)};
+               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
+               make_feat(window, sinks, q_seg, kv_seg)};
   return (int)(head_dim == 64 ? launch_split_dq<64>(a, dtype, dq)
                               : launch_split_dq<128>(a, dtype, dq));
 }
@@ -400,21 +484,24 @@ extern "C" int fam_flash_bwd_dq(const void* q, const void* k, const void* v,
 // dq_ordered::counter_count(batch, n_heads, n_q) (the ticket, then one per
 // 32 query rows of each q-head), all zero (kernels/flash_bwd.py::
 // dq_workspace_shape counts both).  When causal, each q_offset entry is
-// read no higher than off_bound.
+// read no higher than off_bound.  window, sinks, q_seg, kv_seg as above.
 extern "C" int fam_flash_bwd_fused(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse,
                                    const void* delta, const void* q_offset,
                                    void* dk, void* dv, void* dq, void* dq_acc,
-                                   void* counters, int n_counters, int off_bound, int batch,
+                                   void* counters, int n_counters, int off_bound, int window,
+                                   int sinks, const void* q_seg, const void* kv_seg, int batch,
                                    int n_heads, int n_kv_heads, int n_q, int n_kv,
                                    int head_dim, float sm_scale, int causal, int dtype,
                                    void* stream) {
   if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
-      n_counters != dq_ordered::counter_count(batch, n_heads, n_q)) {
+      n_counters != dq_ordered::counter_count(batch, n_heads, n_q) ||
+      !valid_feat(window, sinks, q_seg, kv_seg, causal)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
-               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream)};
+               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
+               make_feat(window, sinks, q_seg, kv_seg)};
   float* acc = static_cast<float*>(dq_acc);
   int* cnt = static_cast<int*>(counters);
   return (int)(head_dim == 64 ? launch_fused<64>(a, dtype, off_bound, dk, dv, dq, acc, cnt)

@@ -56,8 +56,15 @@
 //     the wait for tile j - 1's add is absorbed by the shorter walk instead
 //     of growing with j (an ascending walk would meet tile j - 1 at every
 //     step, j steps late).
-//   * KV tile 0's block writes zeros to the dQ rows before its first step,
-//     which see no column (causal with a negative offset) and which no
+//   * Under a sliding window with sinks (window.cuh) a KV tile walks only
+//     the Q steps that see it, and a Q step's adders are the KV tiles of its
+//     own walk (kv_runs: the sink tiles, then the window's): a block adds
+//     when the step's counter reaches its rank among them, and the last of
+//     them writes dQ.  Every adder walks the step, so every turn comes.
+//     Segment ids are an element test (the step's Q ids ride the ring, the
+//     block's KV ids are read once per thread).
+//   * KV tile 0's block writes zeros to the dQ rows of the Q steps that
+//     see no column (causal with a negative offset) and which no
 //     block adds to.
 //   * Measured slower on the H100 and not taken (PERF.md, section 6): two
 //     consumer warpgroups per 128-row KV block (half the adds' bytes, one
@@ -76,6 +83,7 @@
 #include "dq_ordered.cuh"
 #include "flash_bwd_sm90.cuh"
 #include "sm90_tiles.cuh"
+#include "window.cuh"
 
 namespace {
 namespace sm90 {
@@ -118,6 +126,7 @@ struct FusedSmem {
   bf16 ds[kRows * kTile];  // the step's dS, [Q rows][64 KV columns], swizzled
   float lse[kStages][kRows];
   float delta[kStages][kRows];
+  int qids[kStages][kRows];  // the step's Q segment ids
   float dq[2][kRows * kDqPitchOf<D>];  // staged dQ, [q row][head dim], two buffers
 };
 
@@ -126,8 +135,10 @@ struct FusedSmem {
 // their visible Q steps, and each step's dQ contribution added to dq_acc in
 // KV-tile order.  Consumer warp w owns KV rows 16w..16w+15 of S^T, dP^T, dK
 // and dV.  q_offset null: off_bound is every batch's offset (n_kv - 1: every
-// column visible).  dK and dV are stored in TKV (bf16 or float).
-template <int D, typename TKV>
+// column visible).  dK and dV are stored in TKV (bf16 or float).  f: the
+// window and the segment ids, read only with kFeat (without, the kernel
+// holds no feature state).
+template <int D, typename TKV, bool kFeat>
 __global__ void __launch_bounds__(kFusedThreads, 2)
     flash_bwd_fused_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -137,7 +148,7 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
                                 bf16* __restrict__ dq, float* __restrict__ dq_acc,
                                 int* __restrict__ counters, int batch, int n_heads,
                                 int n_kv_heads, int n_q, int n_kv, float sm_scale,
-                                float scale_log2) {
+                                float scale_log2, Feat f) {
   constexpr int kRows = DkvStep<D>::kRows;
   constexpr int kDqPitch = kDqPitchOf<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -157,20 +168,35 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   const size_t kv_rows = (size_t)bkv * n_kv;
   const int off = q_offset == nullptr ? off_bound : min(q_offset[b], off_bound);
   // Rows r >= kv_start - off see the tile's first column; earlier Q steps
-  // see none of it and are skipped.
+  // see none of it and are skipped, and so are the Q steps past the last
+  // whose window reaches the tile.
   const int q_first = max(0, kv_start - off) / kRows;
-  const int q_last = (n_q + kRows - 1) / kRows - 1;
+  const int q_last = (kFeat ? q_end<kRows>(kv_start, min(kv_start + kTile, n_kv) - 1, off, n_q,
+                                           f.window, f.sinks)
+                            : (n_q + kRows - 1) / kRows) - 1;
   const int per_head = max(0, q_last + 1 - q_first);
   const int n_steps = group * per_head;
+  // The KV tiles the Q step at q_start sees, in its order: the adders of
+  // its dQ rows (without a window, tiles 0 .. its last row's diagonal).
+  auto adders_at = [&](int q_start) {
+    const int row_end = min(q_start + kRows, n_q) - 1;
+    if constexpr (kFeat) {
+      return kv_runs<kTile>(q_start + off, row_end + off, n_kv, f.window, f.sinks);
+    }
+    const int limit = min(row_end + off, n_kv - 1);
+    return TileRuns{0, 0, 0, limit < 0 ? 0 : limit / kTile + 1};
+  };
 
-  // KV tile 0: the Q steps before its first one see no column at all (and
-  // all of them when the last row sees none); no block adds to them.
+  // KV tile 0: the Q steps that see no column at all; no block adds to them.
   if (kv_tile == 0) {
-    const int rows = n_q - 1 + off < 0 ? n_q : min(n_q, q_first * kRows);
-    for (int g = 0; g < group; ++g) {
-      bf16* dst = dq + ((size_t)b * n_heads + h_kv * group + g) * n_q * D;
-      for (int i = threadIdx.x; i < rows * D / 8; i += kFusedThreads) {
-        reinterpret_cast<uint4*>(dst)[i] = make_uint4(0, 0, 0, 0);
+    for (int q_start = 0; q_start < n_q; q_start += kRows) {
+      if (adders_at(q_start).steps() > 0) continue;
+      const int rows = min(kRows, n_q - q_start);
+      for (int g = 0; g < group; ++g) {
+        bf16* dst = dq + (((size_t)b * n_heads + h_kv * group + g) * n_q + q_start) * D;
+        for (int i = threadIdx.x; i < rows * D / 8; i += kFusedThreads) {
+          reinterpret_cast<uint4*>(dst)[i] = make_uint4(0, 0, 0, 0);
+        }
       }
     }
   }
@@ -180,13 +206,6 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
   auto q_start_of = [&](int i) { return (q_last - i % per_head) * kRows; };
   auto q_rows_of = [&](int i) {
     return ((size_t)b * n_heads + h_kv * group + i / per_head) * n_q;
-  };
-  // The last KV tile step i's rows see; this tile adds to them when it is
-  // not past it.
-  auto last_of = [&](int i) {
-    const int row_end = min(q_start_of(i) + kRows, n_q) - 1;
-    const int limit = min(row_end + off, n_kv - 1);
-    return limit < 0 ? -1 : limit / kTile;
   };
 
   // Warp-uniform role, as the compiler can see it.
@@ -216,20 +235,25 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
         const size_t at = valid ? q_rows + q_start + r : 0;
         cp_async4(sm.lse[s] + r, lse + at, valid);
         cp_async4(sm.delta[s] + r, delta + at, valid);
+        if (kFeat && f.q_seg != nullptr) {
+          cp_async4(sm.qids[s] + r, f.q_seg + (valid ? (size_t)b * n_q + q_start + r : 0), valid);
+        }
       }
       cp_async_commit();
     };
     int n_add = 0;
     auto add_step = [&](int i) {
-      const int last = last_of(i);
-      if (kv_tile > last) return;
-      const int buf = n_add++ % 2;
       const int q_start = q_start_of(i);
+      const TileRuns adders = adders_at(q_start);
+      const int rank = adders.rank(kv_tile);
+      if (rank < 0) return;
+      const int last = adders.steps() - 1;
+      const int buf = n_add++ % 2;
       const size_t q_rows = q_rows_of(i);
       int* cnt = dq_ordered::counter(counters, q_rows / n_q, n_q, q_start);
       bar_sync(kBarDqFull + buf, kFusedThreads);
       if (p == 0) {
-        while (dq_ordered::load_acquire(cnt) < kv_tile) {
+        while (dq_ordered::load_acquire(cnt) < rank) {
         }
       }
       bar_sync(kBarProducers, kThreads);
@@ -247,10 +271,10 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
               return dq_ordered::Part{*reinterpret_cast<const float4*>(&tile[r * kDqPitch + c]),
                                       (q_rows + q_start + r) * D + c, q_start + r < n_q};
             },
-            kv_tile, last, sm_scale);
+            rank, last, sm_scale);
       }
       bar_sync(kBarProducers, kThreads);
-      if (p == 0) dq_ordered::store_release(cnt, kv_tile + 1);
+      if (p == 0) dq_ordered::store_release(cnt, rank + 1);
       bar_arrive(kBarDqEmpty + buf, kFusedThreads);
     };
     // Both dQ buffers start empty.
@@ -283,8 +307,16 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
 
   // The consumer warpgroup.
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  // This thread's two KV rows (accumulator rows g8 and g8 + 8 of its warp).
+  // This thread's two KV rows (accumulator rows g8 and g8 + 8 of its warp),
+  // and their segment ids.
   const int c_lo = kv_start + warp * 16 + g8;
+  int kid[2] = {0, 0};
+  if (kFeat && f.kv_seg != nullptr) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      kid[half] = f.kv_seg[(size_t)b * n_kv + min(c_lo + half * 8, n_kv - 1)];
+    }
+  }
   load_tile<D, kTile>(sm.k, k + (kv_rows + kv_start) * D, n_kv - kv_start);
   load_tile<D, kTile>(sm.v, v + (kv_rows + kv_start) * D, n_kv - kv_start);
   cp_async_commit();
@@ -315,7 +347,11 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
 
     // P^T and dS^T in place.  Element e of n8 tile j: KV row c_lo (+ 8 for
     // e >= 2), q row q_start + 8 j + 2 t + (e & 1).
-    const bool full = kv_start + kTile - 1 <= q_start + off && q_start + kRows <= n_q;
+    bool full = kv_start + kTile - 1 <= q_start + off && q_start + kRows <= n_q;
+    if constexpr (kFeat) {
+      full = full && f.q_seg == nullptr &&
+             tile_in_window(kv_start, kTile, q_start + kRows - 1 + off, f.window, f.sinks);
+    }
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       const int col = j * 8 + 2 * t;
@@ -328,7 +364,12 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
         const int r = q_start + col + (e & 1);
         const int c = c_lo + (e >> 1) * 8;
         float pv = exp2f(st[4 * j + e] * scale_log2 - lse2[e & 1]);
-        if (!full && (r >= n_q || c > r + off)) pv = 0.0f;
+        bool hidden = r >= n_q || c > r + off;
+        if constexpr (kFeat) {
+          hidden = hidden || !in_window(c, r + off, f.window, f.sinks) ||
+                   (f.q_seg != nullptr && sm.qids[s][col + (e & 1)] != kid[e >> 1]);
+        }
+        if (!full && hidden) pv = 0.0f;
         st[4 * j + e] = pv;
         dpt[4 * j + e] = pv * (dpt[4 * j + e] - dlt[e & 1]);
       }
@@ -387,7 +428,7 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
     for (int mh = 0; mh < D / 64; ++mh) fence_acc(dqt[mh]);
     bar_arrive(kBarEmpty + s, kFusedThreads);  // stage s may be refilled
 
-    if (kv_tile <= last_of(i)) {
+    if (adders_at(q_start).rank(kv_tile) >= 0) {
       // dQ to a staging buffer, [q row][head dim], for the producer's adds.
       // D = 64, element e of n8 tile j: q row 16 w + g8 (+ 8 for e >= 2),
       // column 8 j + 2 t + (e & 1).  D = 128 (dQ^T), element e of n8 tile
@@ -440,24 +481,24 @@ __global__ void __launch_bounds__(kFusedThreads, 2)
 // q, dout, dq [B, H, N_q, D]; k, v [B, H_kv, N_kv, D], dk, dv the same in
 // TKV; lse, delta fp32 [B, H, N_q]; q_offset int32 [B] or null (off_bound
 // for every batch); dq_acc fp32 [B, H, N_q, D]; counters int32
-// [dq_ordered::counter_count], zero.
-template <int D, typename TKV>
+// [dq_ordered::counter_count], zero.  kFeat: the kernel that reads f.
+template <int D, typename TKV, bool kFeat = false>
 cudaError_t launch_fused(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, const int* q_offset, int off_bound,
                          void* dk, void* dv, void* dq, float* dq_acc, int* counters, int batch,
                          int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, const Feat& f = Feat{}) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(FusedSmem<D>) + kAlign;
-  cudaError_t err = allow_smem(flash_bwd_fused_sm90_kernel<D, TKV>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_fused_sm90_kernel<D, TKV, kFeat>, smem, done);
   if (err != cudaSuccess) return err;
   const int items = (n_kv + kTile - 1) / kTile * batch * n_kv_heads;
-  flash_bwd_fused_sm90_kernel<D, TKV><<<items, kFusedThreads, smem, stream>>>(
+  flash_bwd_fused_sm90_kernel<D, TKV, kFeat><<<items, kFusedThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), q_offset, off_bound, static_cast<TKV*>(dk),
       static_cast<TKV*>(dv), static_cast<bf16*>(dq), dq_acc, counters, batch, n_heads,
-      n_kv_heads, n_q, n_kv, sm_scale, sm_scale * kLog2e);
+      n_kv_heads, n_q, n_kv, sm_scale, sm_scale * kLog2e, f);
   return cudaGetLastError();
 }
 

@@ -63,7 +63,16 @@
 // accumulator after the products, so no wgmma sits under a branch.
 //   * CausalWalk (rows 5-6): one block per (KV head x batch, KV tile) or
 //     (q-head x batch, Q tile), heaviest first; the Q tiles that see the KV
-//     tile / the KV tiles up to the diagonal; c <= r + q_offset[b].
+//     tile / the KV tiles up to the diagonal; c <= r + q_offset[b].  Under
+//     a sliding window (window.cuh) the dK/dV walk ends at the last Q tile
+//     whose window reaches the KV tile (every later Q tile after a tile of
+//     sinks), and the dQ walk is the sink tiles then the window's: the
+//     tiles outside are neither loaded nor computed.  With segment ids
+//     (CausalWalkT<true>) every step compares: the walked tile's ids come
+//     through the ring's bit stage, the block's own tile's ids are read
+//     once per thread.  The window is a template flag (CausalWalkT<kSeg,
+//     kWin>): an unwindowed call runs the causal walk with no window
+//     state.
 //   * SparseWalk (rows 15-16): a MaskTables' CSR lists of 64 x 64 tile
 //     pairs (kernels/flash_mask.py::compile_tables), a full pair (bits -1)
 //     or one of 64 x 2-word bit tiles.  A partial step's bit rows come
@@ -92,6 +101,7 @@
 #include <stdint.h>
 
 #include "sm90_tiles.cuh"
+#include "window.cuh"
 #include "wmma_tiles.cuh"  // kLseSentinel, allow_smem
 
 namespace {
@@ -138,13 +148,24 @@ __device__ __forceinline__ bool bit_seen(const uint32_t* bits, int row, int col)
 }
 
 // The split pair's causal walk (rows 5-6).  q_offset: int32 [B], column c
-// visible from row r when c <= r + q_offset[b]; null: every column.
-struct CausalWalk {
-  static constexpr bool kBits = false;
+// visible from row r (position p = r + q_offset[b]) when c <= p; null:
+// every column.  kWin: only inside the row's window (window, sinks); kSeg:
+// also only equal segment ids (q_seg [B, N_q], kv_seg [B, N_kv]).  Without
+// kWin the walk holds no window state.
+template <bool kSeg, bool kWin>
+struct CausalWalkT {
+  static constexpr bool kBits = kSeg;  // the bit stage holds the walked tile's ids
   const int* q_offset;
+  int window = kNoWindow, sinks = 0;
+  const int* q_seg = nullptr;
+  const int* kv_seg = nullptr;
 
+  // Without a window an offset past n_kv - 1 sees what n_kv - 1 sees; a
+  // window moves with it, so it is read as it is.
   __device__ int offset(int b, int n_kv) const {
-    return q_offset == nullptr ? n_kv - 1 : min(q_offset[b], n_kv - 1);
+    if (q_offset == nullptr) return n_kv - 1;
+    if constexpr (kWin) return q_offset[b];
+    return min(q_offset[b], n_kv - 1);
   }
 
   // A block per (KV head x batch, KV tile), KV tile 0 first, over the
@@ -152,60 +173,129 @@ struct CausalWalk {
   template <int kRows>
   struct Dkv {
     int bh, kv_tile, n_steps;
-    int kv_start, n_q, off, q_first, per_head;
-    __device__ Dkv(const CausalWalk& w, const BwdArgs& a) {
+    int kv_start, n_q, off, q_first, per_head, window, sinks;
+    const int* q_ids;
+    int kid[2];
+    __device__ Dkv(const CausalWalkT& w, const BwdArgs& a) {
       bh = blockIdx.x;
       kv_tile = blockIdx.y;
       kv_start = kv_tile * kTile;
       n_q = a.n_q;
-      off = w.offset(bh / a.n_kv_heads, a.n_kv);
+      const int b = bh / a.n_kv_heads;
+      off = w.offset(b, a.n_kv);
+      window = w.window;
+      sinks = w.sinks;
       // Rows r >= kv_start - off see the tile's first column; earlier Q
-      // tiles see none of it and are skipped.
+      // tiles see none of it and are skipped; under a window, so are the
+      // Q tiles past the last whose window reaches the tile.
       q_first = max(0, kv_start - off) / kRows;
-      per_head = max(0, (n_q + kRows - 1) / kRows - q_first);
+      if constexpr (kWin) {
+        per_head = max(0, q_end<kRows>(kv_start, min(kv_start + kTile, a.n_kv) - 1, off, n_q,
+                                       window, sinks) - q_first);
+      } else {
+        per_head = max(0, (n_q + kRows - 1) / kRows - q_first);
+      }
       const int group = a.n_heads / a.n_kv_heads;
       n_steps = group * per_head;
+      q_ids = nullptr;
+      kid[0] = kid[1] = 0;
+      if constexpr (kSeg) {
+        q_ids = w.q_seg + (size_t)b * n_q;
+        // This thread's two KV rows (accumulator rows g and g + 8 of its warp).
+        const int c = kv_start + (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          kid[half] = w.kv_seg[(size_t)b * a.n_kv + min(c + half * 8, a.n_kv - 1)];
+        }
+      }
     }
     __device__ Step step(int i) const {
       const int q_start = (q_first + i % per_head) * kRows;
-      return {i / per_head, q_start, -1, 0,
-              kv_start + kTile - 1 <= q_start + off && q_start + kRows <= n_q};
+      bool full = kv_start + kTile - 1 <= q_start + off && q_start + kRows <= n_q;
+      if constexpr (kWin) {
+        full = full && tile_in_window(kv_start, kTile, q_start + kRows - 1 + off, window, sinks);
+      }
+      return {i / per_head, q_start, -1, 0, full && !kSeg};
     }
-    __device__ void fetch_bits(uint32_t*, const Step&) const {}
-    __device__ bool seen(const uint32_t*, int r, int c, int, int) const {
-      return r < n_q && c <= r + off;
+    // With segment ids the step's Q ids ride the ring's bit stage.
+    __device__ void fetch_bits(uint32_t* dst, const Step& st) const {
+      if constexpr (kSeg) load_ids<kRows>(dst, q_ids + st.start, n_q - st.start);
+    }
+    // row: the Q row within the step; c's id is this thread's (bit 3 of its
+    // row in the tile picks which of its two).
+    __device__ bool seen(const uint32_t* ids, int r, int c, int row, int col) const {
+      bool ok = r < n_q && c <= r + off;
+      if constexpr (kWin) ok = ok && in_window(c, r + off, window, sinks);
+      if constexpr (kSeg) ok = ok && (int)ids[row] == kid[(col >> 3) & 1];
+      return ok;
     }
     template <int D>
     __device__ bool merge(float (&)[D / 2], float (&)[D / 2]) const { return true; }
   };
 
   // A block per (q-head x batch, Q tile), the last Q tile first, over the
-  // KV tiles up to its last row's diagonal.
+  // KV tiles up to its last row's diagonal; under a window, the sink tiles
+  // and then the window's tiles up to it.
   struct Dq {
     int bh, q_tile, n_steps;
-    int q_start, n_kv, off;
-    __device__ Dq(const CausalWalk& w, const BwdArgs& a) {
+    int q_start, n_kv, off, window, sinks;
+    TileRuns runs;
+    const int* kv_ids;
+    int qid[2];
+    __device__ Dq(const CausalWalkT& w, const BwdArgs& a) {
       bh = blockIdx.x;
       q_tile = gridDim.y - 1 - blockIdx.y;
       q_start = q_tile * kTile;
       n_kv = a.n_kv;
-      off = w.offset(bh / a.n_heads, n_kv);
+      const int b = bh / a.n_heads;
+      off = w.offset(b, n_kv);
+      window = w.window;
+      sinks = w.sinks;
       const int rows_valid = min(kTile, a.n_q - q_start);
-      // The KV walk stops at the last tile the tile's last row sees.
-      const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
-      n_steps = limit < 0 ? 0 : limit / kTile + 1;
+      if constexpr (kWin) {
+        runs = kv_runs<kTile>(q_start + off, q_start + rows_valid - 1 + off, n_kv, window, sinks);
+        n_steps = runs.steps();
+      } else {
+        // The KV walk stops at the last tile the tile's last row sees.
+        const int limit = min(q_start + rows_valid - 1 + off, n_kv - 1);
+        n_steps = limit < 0 ? 0 : limit / kTile + 1;
+      }
+      kv_ids = nullptr;
+      qid[0] = qid[1] = 0;
+      if constexpr (kSeg) {
+        kv_ids = w.kv_seg + (size_t)b * n_kv;
+        // This thread's two Q rows (accumulator rows g and g + 8 of its warp).
+        const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          qid[half] = w.q_seg[(size_t)b * a.n_q + min(q_start + row + half * 8, a.n_q - 1)];
+        }
+      }
     }
     __device__ Step step(int i) const {
-      const int kv_start = i * kTile;
-      return {0, kv_start, -1, 0,
-              kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv};
+      int kv_start = i * kTile;
+      if constexpr (kWin) kv_start = runs.tile(i) * kTile;
+      bool full = kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv;
+      if constexpr (kWin) {
+        full = full && tile_in_window(kv_start, kTile, q_start + kTile - 1 + off, window, sinks);
+      }
+      return {0, kv_start, -1, 0, full && !kSeg};
     }
-    __device__ void fetch_bits(uint32_t*, const Step&) const {}
-    __device__ bool seen(const uint32_t*, int r, int c, int, int) const {
-      return c < n_kv && c <= r + off;
+    // With segment ids the step's KV ids ride the K ring's bit stage.
+    __device__ void fetch_bits(uint32_t* dst, const Step& st) const {
+      if constexpr (kSeg) load_ids<kTile>(dst, kv_ids + st.start, n_kv - st.start);
+    }
+    // row: r's row within the Q tile (bit 3 picks which of this thread's
+    // two ids), col: c's column within the step's tile.
+    __device__ bool seen(const uint32_t* ids, int r, int c, int row, int col) const {
+      bool ok = c < n_kv && c <= r + off;
+      if constexpr (kWin) ok = ok && in_window(c, r + off, window, sinks);
+      if constexpr (kSeg) ok = ok && (int)ids[col] == qid[(row >> 3) & 1];
+      return ok;
     }
   };
 };
+using CausalWalk = CausalWalkT<false, false>;
 
 // Ints per entry of the dK/dV plan (kernels/flash_mask.py::dkv_plan): KV
 // tile, first and end pair of the chunk in the tile's walk, the chunk's

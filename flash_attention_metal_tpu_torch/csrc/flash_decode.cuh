@@ -20,6 +20,10 @@
 //     sets the step's time and the grid fills the SMs.  A split whose chunk
 //     starts past the diagonal reads no K/V row and no table entry: it
 //     writes an empty partial (m = -inf, l = 0, o = 0).
+//   * Under a sliding window a split walks only its tiles among the sink
+//     tiles and the window's (window.cuh, kv_runs over the rows'
+//     positions): a split wholly outside both is empty in the same way, and
+//     the merge weighs it 0.
 //   * In a block the 4 warps each take 16 columns of every 64-row KV tile
 //     for all query rows at once, two lanes a column (one half of D each),
 //     on the CUDA cores in fp32 FMA: the 64-row wgmma tile would carry 62
@@ -154,13 +158,15 @@ __device__ __forceinline__ float to_float<bf16>(bf16 x) { return __bfloat162floa
 // E5M2 with scales); D: the head dim; kRows: the tile's rows (>= n_q).
 // Grid (n_splits, n_heads, batch), kDecThreads threads.  With one split
 // the block writes o (and lse); with more it writes its partial to `part`
-// and the last block of its (q-head, batch) merges them.
-template <typename T, typename KV, bool kPaged, int D, int kRows>
+// and the last block of its (q-head, batch) merges them.  kWin: the window
+// (window, sinks) is read; without it the kernel holds no window state.
+template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin>
 __global__ void __launch_bounds__(kDecThreads)
     flash_decode_kernel(const T* __restrict__ q, KvArgs kv, const int* __restrict__ q_offset,
                         T* __restrict__ o, float* __restrict__ lse, int n_heads, int n_kv_heads,
                         int n_q, float scale_log2, int causal, int pos_div, int fixed_offset,
-                        int kv_chunk, float* __restrict__ part, int* __restrict__ tickets) {
+                        int kv_chunk, float* __restrict__ part, int* __restrict__ tickets,
+                        int window, int sinks) {
   using P = Decode<T, KV, D, kRows>;
   using Stored = typename P::Stored;
   constexpr bool kScaled = P::kScaled;
@@ -186,21 +192,35 @@ __global__ void __launch_bounds__(kDecThreads)
   // q_offset null: one int offset for every batch (the fp32 lean forward).
   const int off = !causal ? 0 : q_offset != nullptr ? q_offset[b] : fixed_offset;
 
-  // Last column each row sees (-1: none, and for rows past n_q).
-  int lim[kRows];
+  // Last column each row sees (-1: none, and for rows past n_q), and under
+  // a window the first column of its window.
+  int lim[kRows], lo[kWin ? kRows : 1];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     lim[r] = r >= n_q ? -1 : causal ? min(n_kv - 1, r / pos_div + off) : n_kv - 1;
+    if constexpr (kWin) lo[r] = r / pos_div + off - window + 1;
   }
   const int tile_limit = causal ? min(n_kv - 1, (n_q - 1) / pos_div + off) : n_kv - 1;
   // This split's columns: [kv_begin, kv_end).  A chunk that starts past the
-  // diagonal is empty: no K/V row, no table entry is read.
+  // diagonal is empty: no K/V row, no table entry is read.  Under a window
+  // the split walks only its tiles among the sink tiles and the window's
+  // (runs): a chunk wholly outside both is empty too.
   const int kv_begin = split * kv_chunk;
   const int kv_end = min(kv_begin + kv_chunk, tile_limit + 1);
-  const int n_steps = kv_begin >= kv_end ? 0 : (kv_end - kv_begin - 1) / kBlockN + 1;
+  TileRuns runs{};
+  if constexpr (kWin) {
+    runs = kv_runs<kBlockN>(off, (n_q - 1) / pos_div + off, n_kv, window, sinks)
+               .within(kv_begin / kBlockN, (kv_begin + kv_chunk) / kBlockN);
+  }
+  const int n_steps = kv_begin >= kv_end ? 0 :
+                      kWin ? runs.steps() : (kv_end - kv_begin - 1) / kBlockN + 1;
+  // Step s's first column.
+  auto step_start = [&](int s) {
+    return kWin ? runs.tile(s) * kBlockN : kv_begin + s * kBlockN;
+  };
 
   auto load = [&](int step) {
-    const int kv_start = kv_begin + step * kBlockN;
+    const int kv_start = step_start(step);
     decode_load<T, KV, D, kRows>(smem_raw + (step % kDecStages) * P::kStageBytes, kv,
                                  tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, kv_start),
                                  min(kBlockN, n_kv - kv_start));
@@ -234,7 +254,7 @@ __global__ void __launch_bounds__(kDecThreads)
     if (step + kDecStages - 1 < n_steps) load(step + kDecStages - 1);
     sm90::cp_async_commit();
     const unsigned char* stage = smem_raw + (step % kDecStages) * P::kStageBytes;
-    const int kv_start = kv_begin + step * kBlockN;
+    const int kv_start = step_start(step);
 
     // Scores of column c: this lane's half of D, then the other lane's.
     constexpr int kVec = 16 / (int)sizeof(Stored);
@@ -269,7 +289,8 @@ __global__ void __launch_bounds__(kDecThreads)
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       s[r] += __shfl_xor_sync(0xffffffffu, s[r], kWarpCols);
-      const bool visible = kv_start + c <= lim[r];
+      bool visible = kv_start + c <= lim[r];
+      if constexpr (kWin) visible = visible && (kv_start + c >= lo[r] || kv_start + c < sinks);
       const float x = visible ? s[r] * (k_scale * scale_log2) : -INFINITY;
       float step_max = x;
 #pragma unroll
@@ -399,28 +420,31 @@ __global__ void __launch_bounds__(kDecThreads)
   if (tid == 0) tickets[unit] = 0;  // ready for the next call on this stream
 }
 
-template <typename T, typename KV, bool kPaged, int D, int kRows>
+template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin>
 cudaError_t launch_decode_rows(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                                void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                                float sm_scale, int causal, int pos_div, int fixed_offset,
-                               int kv_chunk, void* part, void* tickets, cudaStream_t stream) {
+                               int kv_chunk, void* part, void* tickets, cudaStream_t stream,
+                               int window, int sinks) {
   constexpr int smem = Decode<T, KV, D, kRows>::kSmem;
+  using Kernel = decltype(&flash_decode_kernel<T, KV, kPaged, D, kRows, kWin>);
+  const Kernel kernel = flash_decode_kernel<T, KV, kPaged, D, kRows, kWin>;
   static bool smem_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_decode_kernel<T, KV, kPaged, D, kRows>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((kv.n_kv + kv_chunk - 1) / kv_chunk, n_heads, batch);
-  flash_decode_kernel<T, KV, kPaged, D, kRows><<<grid, kDecThreads, smem, stream>>>(
+  kernel<<<grid, kDecThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset), static_cast<T*>(o),
       static_cast<float*>(lse), n_heads, n_kv_heads, n_q, sm_scale * kLog2e, causal, pos_div,
-      fixed_offset, kv_chunk, static_cast<float*>(part), static_cast<int*>(tickets));
+      fixed_offset, kv_chunk, static_cast<float*>(part), static_cast<int*>(tickets), window,
+      sinks);
   return cudaGetLastError();
 }
 
@@ -429,16 +453,25 @@ struct Native {};
 template <typename T, typename Tag>
 using KvType = typename std::conditional<std::is_same<Tag, Native>::value, T, Tag>::type;
 
+template <typename T, typename KV, bool kPaged, int D, bool kWin>
+cudaError_t launch_decode_win(const fam::DecodeCall& c) {
+  if (c.n_q <= 4) {
+    return launch_decode_rows<T, KV, kPaged, D, 4, kWin>(
+        c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
+        c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream, c.window,
+        c.sinks);
+  }
+  return launch_decode_rows<T, KV, kPaged, D, kDecodeRows, kWin>(
+      c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
+      c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream, c.window,
+      c.sinks);
+}
+
+// A call under a window takes the kernel that reads it.
 template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch_decode(const fam::DecodeCall& c) {
-  if (c.n_q <= 4) {
-    return launch_decode_rows<T, KV, kPaged, D, 4>(
-        c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
-        c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream);
-  }
-  return launch_decode_rows<T, KV, kPaged, D, kDecodeRows>(
-      c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
-      c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream);
+  if (c.window != kNoWindow) return launch_decode_win<T, KV, kPaged, D, true>(c);
+  return launch_decode_win<T, KV, kPaged, D, false>(c);
 }
 
 // Every instance for one KV element type (Native: q's own type).

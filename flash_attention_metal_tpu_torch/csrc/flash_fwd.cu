@@ -31,8 +31,12 @@
 // Paged: row c % page of physical page table[b, c / page], the page id
 // clamped to [0, P - 1] as the Pallas index map clamps it (paged.py:64-65);
 // masks are in logical positions, so physical placement never enters the
-// scores.  A row with no visible column gives o = 0 and lse = -inf (the
-// optional lse, natural log, fp32 [B, H, N_q], of the dense entry points).
+// scores.  Every entry takes a sliding window with attention sinks (with
+// causal, row position p sees only c > p - window, besides c < sinks; the
+// tiles outside both are skipped, window.cuh), and fam_flash_fwd segment
+// ids (only columns of the row's id; such a call takes no split).  A row
+// with no visible column gives o = 0 and lse = -inf (the optional lse,
+// natural log, fp32 [B, H, N_q], of the dense entry points).
 //
 // Arithmetic, as the Pallas kernels': 8-bit K/V elements are widened
 // exactly (int8 and fp8 values fit bf16's 8-bit significand; the decode
@@ -118,6 +122,7 @@ struct Smem {
   float s[kBlockM * Dims<D>::kLdS];  // scores, then the PV product of the step
   float sk[kBlockN];                 // the step's K and V scales (8-bit caches)
   float sv[kBlockN];
+  int kseg[kBlockN];                 // the step's KV segment ids
 };
 
 // Copy `kRows` rows of D elements (row pitch D in global memory) into
@@ -317,14 +322,15 @@ __device__ __forceinline__ void pv_f32(Smem<float, D>& sm, int r, int half) {
 
 // T: q's type (bf16 or fp32).  KV: the cache's element type, T itself for a
 // bf16 / fp32 cache, int8_t / E4M3 / E5M2 for an 8-bit one (with scales).
-// D: the head dim.
-template <typename T, typename KV, bool kPaged, int D>
+// D: the head dim.  kFeat: the window and segment ids of f are read;
+// without it the kernel holds no feature state.
+template <typename T, typename KV, bool kPaged, int D, bool kFeat>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
                     float* __restrict__ lse, int n_heads, int n_kv_heads,
                     int n_q, float scale_log2, int causal, int pos_div,
-                    int fixed_offset) {
+                    int fixed_offset, Feat f) {
   constexpr bool kScaled = !std::is_same<KV, T>::value;
   constexpr int kLdS = Dims<D>::kLdS, kOCols = Dims<D>::kOCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -346,20 +352,37 @@ __global__ void __launch_bounds__(kThreads)
   // q_offset null: one int offset for every batch (the fp32 lean forward).
   const int off = !causal ? 0 : q_offset != nullptr ? q_offset[b] : fixed_offset;
   const int row = q_start + r;
-  // Last column this thread's row may see (-1: none).
+  // Last column this thread's row may see (-1: none), and its window's first.
   int col_limit = -1;
   if (r < rows_valid) {
     col_limit = causal ? min(n_kv - 1, row / pos_div + off) : n_kv - 1;
   }
-  // Last column any row of the tile may see: the KV loop stops there, so
-  // no page past the tile's diagonal is ever read.
-  int tile_limit = n_kv - 1;
-  if (causal) tile_limit = min(tile_limit, (q_start + rows_valid - 1) / pos_div + off);
-  const int n_steps = tile_limit < 0 ? 0 : tile_limit / kBlockN + 1;
+  const int col_lo = kFeat ? row / pos_div + off - f.window + 1 : 0;
+  const int my_seg =
+      kFeat && f.q_seg != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + row] : 0;
+  // The tiles any row of the tile may see, up to the last row's diagonal
+  // (under a window: the sink tiles, then the window's), so no page past
+  // the tile's diagonal or before its window is ever read.
+  TileRuns runs;
+  if constexpr (kFeat) {
+    runs = causal ? kv_runs<kBlockN>(q_start / pos_div + off,
+                                     (q_start + rows_valid - 1) / pos_div + off, n_kv, f.window,
+                                     f.sinks)
+                  : kv_runs<kBlockN>(0, n_kv - 1, n_kv, kNoWindow, 0);
+  } else {
+    int tile_limit = n_kv - 1;
+    if (causal) tile_limit = min(tile_limit, (q_start + rows_valid - 1) / pos_div + off);
+    const int n_tiles = tile_limit < 0 ? 0 : tile_limit / kBlockN + 1;
+    runs = {0, 0, 0, n_tiles};
+  }
+  const int n_steps = runs.steps();
 
   // The first KV step's tiles are in flight while q is loaded.
   KvRegs<T, KV, D> regs;
-  if (n_steps > 0) regs.fetch(kv, tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, 0), min(kBlockN, n_kv));
+  if (n_steps > 0) {
+    const int first = runs.tile(0) * kBlockN;
+    regs.fetch(kv, tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, first), min(kBlockN, n_kv - first));
+  }
   load_tile<T, kBlockM, D>(sm.q, q + (q_rows + q_start) * D, rows_valid);
 
   float o_acc[kOCols];
@@ -369,12 +392,17 @@ __global__ void __launch_bounds__(kThreads)
   float l_i = 0.0f;       // running sum of exp2(s - m_i)
 
   for (int step = 0; step < n_steps; ++step) {
-    const int kv_start = step * kBlockN;
+    const int kv_start = runs.tile(step) * kBlockN;
     regs.stash(sm);
+    // The step's KV ids (the softmax of the step before read them before
+    // its last barrier).
+    if (kFeat && f.kv_seg != nullptr && tid < kBlockN) {
+      sm.kseg[tid] = kv_start + tid < n_kv ? f.kv_seg[(size_t)b * n_kv + kv_start + tid] : 0;
+    }
     __syncthreads();
     // The next step's tiles are in flight while this step computes.
     if (step + 1 < n_steps) {
-      const int next = kv_start + kBlockN;
+      const int next = runs.tile(step + 1) * kBlockN;
       regs.fetch(kv, tile_row0<kPaged>(kv, b, h_kv, n_kv_heads, next), min(kBlockN, n_kv - next));
     }
 
@@ -388,13 +416,20 @@ __global__ void __launch_bounds__(kThreads)
     // Online softmax over this thread's half row; the pair of threads that
     // share a row are lanes 2i and 2i+1 of one warp.
     float s_reg[kSCols];
+    bool seen[kSCols];
     float step_max = kMaskValue;
     const int c0 = half * kSCols;
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
       const int c = c0 + j;
+      const int cc = kv_start + c;
+      seen[j] = cc <= col_limit;
+      if constexpr (kFeat) {
+        seen[j] = seen[j] && (cc >= col_lo || cc < f.sinks) &&
+                  (f.kv_seg == nullptr || sm.kseg[c] == my_seg);
+      }
       float x = kMaskValue;
-      if (kv_start + c <= col_limit) {
+      if (seen[j]) {
         const float k_scale = kScaled ? sm.sk[c] : 1.0f;
         x = sm.s[r * kLdS + c] * (k_scale * scale_log2);
       }
@@ -408,7 +443,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
       const int c = c0 + j;
-      const float p = kv_start + c <= col_limit ? exp2f(s_reg[j] - m_new) : 0.0f;
+      const float p = seen[j] ? exp2f(s_reg[j] - m_new) : 0.0f;
       row_sum += p;
       // The V scale folds into P (quant.py:265-270).
       const float v_scale = kScaled ? sm.sv[c] : 1.0f;
@@ -461,17 +496,45 @@ Split whole_row(int n_kv) {
 
 // Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
 // says); the others run one block per 64-row q tile and take no split.
+// One block per 64-row q tile (the kernel that reads f with kFeat).
+template <typename T, typename KV, bool kPaged, int D, bool kFeat>
+cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, void* o,
+                         void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
+                         float sm_scale, int causal, int pos_div, cudaStream_t stream,
+                         int fixed_offset, const Feat& f) {
+  const int smem = (int)sizeof(Smem<T, D>);
+  // The dynamic shared-memory limit is raised once per kernel and device.
+  static bool smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set[dev] = true;
+  }
+  const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
+  flash_fwd_kernel<T, KV, kPaged, D, kFeat><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
+      static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
+      sm_scale * kLog2e, causal, pos_div, fixed_offset, f);
+  return cudaGetLastError();
+}
+
+// Segment ids (f.q_seg) keep every call on the 64-row grid.
 template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                    void* o, void* lse, int batch, int n_heads, int n_kv_heads,
                    int n_q, float sm_scale, int causal, int pos_div, const Split& split,
-                   cudaStream_t stream, int fixed_offset = 0) {
-  if (n_q <= kDecodeRows) {
+                   cudaStream_t stream, int fixed_offset = 0, const Feat& f = Feat{}) {
+  if (n_q <= kDecodeRows && f.q_seg == nullptr) {
     const fam::DecodeCall call{q, kv, static_cast<const int*>(q_offset), o,
                                static_cast<float*>(lse), batch, n_heads, n_kv_heads, n_q,
                                sm_scale, causal, pos_div, fixed_offset, split.kv_chunk,
                                static_cast<float*>(split.part), static_cast<int*>(split.tickets),
-                               stream};
+                               stream, f.window, f.sinks};
     constexpr int dtype = std::is_same<T, bf16>::value ? 0 : 1;
     if constexpr (std::is_same<KV, T>::value) {
       return fam::flash_decode_native(call, dtype, D, kPaged);
@@ -483,25 +546,14 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
       return fam::flash_decode_e5m2(call, dtype, D, kPaged);
     }
   }
-  const int smem = (int)sizeof(Smem<T, D>);
-  // The dynamic shared-memory limit is raised once per kernel and device.
-  static bool smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev] = true;
+  if (f.window != kNoWindow || f.q_seg != nullptr) {
+    return launch_tiles<T, KV, kPaged, D, true>(q, kv, q_offset, o, lse, batch, n_heads,
+                                                n_kv_heads, n_q, sm_scale, causal, pos_div,
+                                                stream, fixed_offset, f);
   }
-  const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T, KV, kPaged, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
-      static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
-      sm_scale * kLog2e, causal, pos_div, fixed_offset);
-  return cudaGetLastError();
+  return launch_tiles<T, KV, kPaged, D, false>(q, kv, q_offset, o, lse, batch, n_heads,
+                                               n_kv_heads, n_q, sm_scale, causal, pos_div, stream,
+                                               fixed_offset, f);
 }
 
 // The 8-bit caches: dtype 0 = bf16 q, 1 = fp32 q; kv_dtype 1 = int8,
@@ -510,10 +562,11 @@ template <bool kPaged, int D>
 cudaError_t launch_8bit(int dtype, int kv_dtype, const void* q, const KvArgs& kv,
                         const void* q_offset, void* o, void* lse, int batch,
                         int n_heads, int n_kv_heads, int n_q, float sm_scale,
-                        int causal, int pos_div, const Split& split, cudaStream_t s) {
+                        int causal, int pos_div, const Split& split, cudaStream_t s,
+                        const Feat& f) {
 #define FAM_LAUNCH(T, KV)                                                             \
   return launch<T, KV, kPaged, D>(q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, \
-                                  n_q, sm_scale, causal, pos_div, split, s)
+                                  n_q, sm_scale, causal, pos_div, split, s, 0, f)
   if (dtype == 0 && kv_dtype == 1) FAM_LAUNCH(bf16, int8_t);
   if (dtype == 0 && kv_dtype == 2) FAM_LAUNCH(bf16, E4M3);
   if (dtype == 0 && kv_dtype == 3) FAM_LAUNCH(bf16, E5M2);
@@ -532,6 +585,11 @@ bool bad_head_dim(int head_dim) { return head_dim != 64 && head_dim != 128; }
 
 bool bad_pages(int n_pages, int page_size, int max_pages) {
   return n_pages < 1 || max_pages < 1 || page_size < kBlockN || page_size % kBlockN != 0;
+}
+
+// A window needs causal (0: none); sinks are at least 0.
+bool bad_window(int window, int sinks, int causal) {
+  return window < 0 || sinks < 0 || (window > 0 && !causal);
 }
 
 // A chunk is a positive multiple of 64 columns; more than one split needs
@@ -554,25 +612,46 @@ bool bad_split(int n_q, int n_kv, const Split& split) {
 // length or max_pages * page_size); more than one split only for n_q <= 16,
 // with part, fp32 [B * H * n_splits * n_q * (D + 2)], and tickets, int32
 // [B * H] all zero (each call leaves them zero again).
+//
+// The window of every entry: window, the columns a row sees back from its
+// position (0: no window; more needs causal), and sinks, the first columns
+// every row sees besides (read only with a window).
 
 // Dense cache in q's type: k, v [B, H_kv, N, D], D = head_dim 64 or 128;
-// q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null.
-// bf16 with pos_div == 1 and n_q > 16 runs the wgmma kernel
-// (flash_fwd_sm90.cuh).
+// q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null;
+// q_seg, kv_seg int32 [B, N_q] and [B, N_kv], or both null (segment ids:
+// pos_div 1 and one split).  bf16 with pos_div == 1 and n_q > 16, or with
+// segment ids, runs the wgmma kernel (flash_fwd_sm90.cuh).
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
                              int n_kv, int head_dim, float sm_scale,
-                             int causal, int pos_div, int dtype, int kv_chunk,
+                             int causal, int pos_div, int dtype, int window, int sinks,
+                             const void* q_seg, const void* kv_seg, int kv_chunk,
                              void* part, void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
-  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || n_kv < 1 ||
-      bad_split(n_q, n_kv, split)) {
+  const bool seg = q_seg != nullptr;
+  if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
+      n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
+      seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv))) {
     return (int)cudaErrorInvalidValue;
   }
+  const Feat f{window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
+               static_cast<const int*>(kv_seg)};
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
+  // Segment ids take the wgmma kernel at any n_q; a window or segment ids
+  // take its featured walks, the rest the causal walk as before.
+  const bool wgmma = dtype == 0 && pos_div == 1 && (n_q > kDecodeRows || seg);
+  const bool featured = seg || f.window != kNoWindow;
+  if (wgmma && featured) {
+    return (int)(head_dim == 64
+                     ? sm90::launch_fwd_feat<64>(q, k, v, off, o, lse, batch, n_heads, n_kv_heads,
+                                                 n_q, n_kv, sm_scale, causal, f, s)
+                     : sm90::launch_fwd_feat<128>(q, k, v, off, o, lse, batch, n_heads,
+                                                  n_kv_heads, n_q, n_kv, sm_scale, causal, f, s));
+  }
   if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 64) {
     return (int)sm90::launch_fwd<64>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
                                      n_kv, sm_scale, causal, s);
@@ -583,7 +662,7 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
   }
 #define FAM_LAUNCH(T, D)                                                                 \
   return (int)launch<T, T, false, D>(q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, \
-                                     n_q, sm_scale, causal, pos_div, split, s)
+                                     n_q, sm_scale, causal, pos_div, split, s, 0, f)
   if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
   if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
   if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
@@ -621,23 +700,24 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                int batch, int n_heads, int n_kv_heads, int n_q,
                                int n_kv, int head_dim, float sm_scale,
                                int causal, int pos_div, int dtype,
-                               int kv_dtype, int kv_chunk, void* part, void* tickets,
-                               void* stream) {
+                               int kv_dtype, int window, int sinks, int kv_chunk, void* part,
+                               void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      n_kv < 1 || bad_split(n_q, n_kv, split)) {
+      n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal)) {
     return (int)cudaErrorInvalidValue;
   }
+  const Feat f{window_or_none(window), window > 0 ? sinks : 0};
   const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
                   static_cast<const float*>(v_scale), nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(head_dim == 64
                    ? launch_8bit<false, 64>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
                                             n_heads, n_kv_heads, n_q, sm_scale, causal,
-                                            pos_div, split, s)
+                                            pos_div, split, s, f)
                    : launch_8bit<false, 128>(dtype, kv_dtype, q, kv, q_offset, o, lse, batch,
                                              n_heads, n_kv_heads, n_q, sm_scale, causal,
-                                             pos_div, split, s));
+                                             pos_div, split, s, f));
 }
 
 // bf16 / fp32 page pool: pool_k, pool_v [n_pages, H_kv, page_size, D] in
@@ -649,20 +729,21 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
                                int n_heads, int n_kv_heads, int n_q,
                                int n_pages, int page_size, int max_pages,
                                int head_dim, float sm_scale, int pos_div,
-                               int dtype, int kv_chunk, void* part, void* tickets,
-                               void* stream) {
+                               int dtype, int window, int sinks, int kv_chunk, void* part,
+                               void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages) ||
-      bad_split(n_q, max_pages * page_size, split)) {
+      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  const Feat f{window_or_none(window), window > 0 ? sinks : 0};
   const KvArgs kv{pool_k, pool_v, nullptr, nullptr, static_cast<const int*>(table),
                   max_pages * page_size, page_size, max_pages, n_pages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FAM_LAUNCH(T, D)                                                                  \
   return (int)launch<T, T, true, D>(q, kv, lengths, o, nullptr, batch, n_heads, n_kv_heads, \
-                                    n_q, sm_scale, 1, pos_div, split, s)
+                                    n_q, sm_scale, 1, pos_div, split, s, 0, f)
   if (dtype == 0 && head_dim == 64) FAM_LAUNCH(bf16, 64);
   if (dtype == 0 && head_dim == 128) FAM_LAUNCH(bf16, 128);
   if (dtype == 1 && head_dim == 64) FAM_LAUNCH(float, 64);
@@ -683,14 +764,15 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
                                      int n_kv_heads, int n_q, int n_pages,
                                      int page_size, int max_pages, int head_dim,
                                      float sm_scale, int pos_div, int dtype,
-                                     int kv_dtype, int kv_chunk, void* part, void* tickets,
-                                     void* stream) {
+                                     int kv_dtype, int window, int sinks, int kv_chunk,
+                                     void* part, void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages) ||
-      bad_split(n_q, max_pages * page_size, split)) {
+      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1)) {
     return (int)cudaErrorInvalidValue;
   }
+  const Feat f{window_or_none(window), window > 0 ? sinks : 0};
   const KvArgs kv{pool_k_q, pool_v_q, static_cast<const float*>(pool_k_scale),
                   static_cast<const float*>(pool_v_scale),
                   static_cast<const int*>(table), max_pages * page_size,
@@ -699,8 +781,8 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
   return (int)(head_dim == 64
                    ? launch_8bit<true, 64>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
                                            n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div,
-                                           split, s)
+                                           split, s, f)
                    : launch_8bit<true, 128>(dtype, kv_dtype, q, kv, lengths, o, nullptr, batch,
                                             n_heads, n_kv_heads, n_q, sm_scale, 1, pos_div,
-                                            split, s));
+                                            split, s, f));
 }

@@ -22,7 +22,10 @@
 // c <= r + off: off is q_offset[b] (a device array) or, with q_offset
 // null, fixed_offset (an int, negative allowed).  Sparse walk: the columns
 // a block-sparse mask's tables mark (kernels/flash_mask.py::
-// compile_tables).  Softmax statistics and both products accumulate in
+// compile_tables).  The dense walk also takes a sliding window with
+// attention sinks and segment ids (window.cuh): row r at position p = r +
+// off sees c <= p with c > p - window or c < sinks, and with segment ids
+// only columns of its own id.  Softmax statistics and both products accumulate in
 // fp32; P is rounded to bf16 before the PV product.  The optional lse is
 // the natural-log logsumexp per row, fp32 [B, H, N_q].  A row with no
 // visible column gives o = 0 and lse = -inf.
@@ -67,7 +70,14 @@
 //   * DenseWalk (rows 1-3): one block per (Q tile, q-head, batch), the last
 //     Q tile first (the longest walks); KV tiles 0 .. the tile's last
 //     visible column, in order; only tiles that cross the diagonal or the
-//     n_kv edge compare columns.
+//     n_kv edge compare columns.  Under a window the walk is the sink tiles
+//     then the window's tiles (window.cuh, kv_runs), so an out-of-window
+//     tile is neither fetched nor computed; tiles that cross the window's
+//     edge compare columns too (FeatWalk, a walk of its own, so that an
+//     unwindowed call runs DenseWalk's code with no window state).  With
+//     segment ids (FeatWalk<true>, row 1 only) every step compares: the KV
+//     tile's 64 ids come through the K ring's bit stage beside K, and each
+//     thread reads its two rows' ids once.
 //   * SparseFwdWalk (row 14): one block per (q-head x batch, Q tile), the Q
 //     tiles issued by a host-made order, longest list first, across heads
 //     (the heads are grid x, the fastest dimension); the steps are the Q
@@ -97,6 +107,7 @@
 #include <stdint.h>
 
 #include "sm90_tiles.cuh"
+#include "window.cuh"
 
 namespace {
 namespace sm90 {
@@ -160,6 +171,88 @@ struct DenseWalk {
       const int kv_start = entry.x * kTile;
       const bool full = kv_start + kTile - 1 <= q_start + off && kv_start + kTile <= n_kv;
       return {full, kv_start + 2 * t, q_start + row, off, n_kv};
+    }
+  };
+};
+
+// The dense walk under a window and, with kSeg, segment ids (row 1): row r
+// at position p = r + q_offset[b] sees c <= p inside its window (window,
+// sinks; kNoWindow: none), and with kSeg only columns whose segment id
+// (kv_seg [B, N_kv]) is the row's (q_seg [B, N_q]).  A call without either
+// runs DenseWalk, which holds no such state.
+template <bool kSeg>
+struct FeatWalk {
+  static constexpr bool kBits = kSeg;  // the bit stage holds the KV tile's ids
+  const int* q_offset;
+  int fixed_offset, causal;
+  int window = kNoWindow, sinks = 0;
+  const int* q_seg = nullptr;
+  const int* kv_seg = nullptr;
+
+  // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
+  // e >= 2), KV column c0 + 8 j + (e & 1); ids: the step's KV ids from
+  // this thread's first column on, qid: its two rows' ids.
+  struct Mask {
+    bool full;
+    int c0, r0, off, n_kv, window, sinks;
+    const uint32_t* ids;
+    int qid[2];
+    __device__ bool seen(int j, int e) const {
+      const int c = c0 + j * 8 + (e & 1);
+      const int p = r0 + (e >> 1) * 8 + off;
+      bool ok = c < n_kv && c <= p && in_window(c, p, window, sinks);
+      if constexpr (kSeg) ok = ok && (int)ids[j * 8 + (e & 1)] == qid[e >> 1];
+      return ok;
+    }
+  };
+
+  // A block per (Q tile, q-head, batch), the last Q tile first, over the
+  // sink tiles and then the window's tiles up to its last row's last
+  // visible column.
+  struct Blk {
+    int b, h, q_start, n_steps, off, n_kv, window, sinks;
+    TileRuns runs;
+    const int* kv_ids;
+    int qid[2];
+    __device__ Blk(const FeatWalk& w, int, int n_q, int n_kv_) {
+      n_kv = n_kv_;
+      b = blockIdx.z;
+      h = blockIdx.y;
+      q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
+      const int rows_valid = min(kTile, n_q - q_start);
+      off = !w.causal ? n_kv : w.q_offset != nullptr ? w.q_offset[b] : w.fixed_offset;
+      window = w.window;
+      sinks = w.sinks;
+      runs = kv_runs<kTile>(q_start + off, q_start + rows_valid - 1 + off, n_kv, window, sinks);
+      n_steps = runs.steps();
+      kv_ids = nullptr;
+      qid[0] = qid[1] = 0;
+      if constexpr (kSeg) {
+        kv_ids = w.kv_seg + (size_t)b * n_kv;
+        // This thread's two Q rows (accumulator rows g and g + 8 of its warp).
+        const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          qid[half] = w.q_seg[(size_t)b * n_q + min(q_start + row + half * 8, n_q - 1)];
+        }
+      }
+    }
+    // Step j: (KV tile, bits); no bit tiles here either.
+    __device__ int2 entry(int j) const { return make_int2(runs.tile(j), -1); }
+    // With segment ids the KV tile's ids ride the K ring's bit stage.
+    __device__ void fetch_bits(uint32_t* dst, int2 entry) const {
+      if constexpr (kSeg) load_ids<kTile>(dst, kv_ids + entry.x * kTile, n_kv - entry.x * kTile);
+    }
+    // row: this thread's first Q row within the tile.  Tiles that cross the
+    // diagonal, the window's edge or the n_kv edge compare columns, interior
+    // tiles skip it (never with segment ids).
+    __device__ Mask mask(int2 entry, const uint32_t* bits, int row, int t) const {
+      const int kv_start = entry.x * kTile;
+      const bool full = !kSeg && kv_start + kTile - 1 <= q_start + off &&
+                        kv_start + kTile <= n_kv &&
+                        tile_in_window(kv_start, kTile, q_start + kTile - 1 + off, window, sinks);
+      return {full, kv_start + 2 * t, q_start + row, off, n_kv, window, sinks, bits + 2 * t,
+              {qid[0], qid[1]}};
     }
   };
 };
@@ -451,6 +544,23 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q
   const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
   return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
                    DenseWalk{q_offset, fixed_offset, causal}, grid, stream);
+}
+
+// The dense walk under a window (f.window, f.sinks) and, when f.q_seg is
+// set, segment ids (q_seg [B, N_q], kv_seg [B, N_kv]).
+template <int D>
+cudaError_t launch_fwd_feat(const void* q, const void* k, const void* v, const int* q_offset,
+                            void* o, void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
+                            int n_kv, float sm_scale, int causal, const Feat& f,
+                            cudaStream_t stream) {
+  const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
+  if (f.q_seg != nullptr) {
+    return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                     FeatWalk<true>{q_offset, 0, causal, f.window, f.sinks, f.q_seg, f.kv_seg},
+                     grid, stream);
+  }
+  return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                   FeatWalk<false>{q_offset, 0, causal, f.window, f.sinks}, grid, stream);
 }
 
 // The sparse walk: grid (q-head x batch, Q tiles).

@@ -70,6 +70,7 @@ extern "C" int fam_flash_bwd_fused(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
                                    const void* q_offset, void* dk, void* dv, void* dq,
                                    void* dq_acc, void* counters, int n_counters, int off_bound,
+                                   int window, int sinks, const void* q_seg, const void* kv_seg,
                                    int batch, int n_heads, int n_kv_heads, int n_q, int n_kv,
                                    int head_dim, float sm_scale, int causal, int dtype,
                                    void* stream);
@@ -150,7 +151,8 @@ extern "C" int fam_flash_tri_bwd(const void* q, const void* k, const void* v,
   const int off = clamp_offset(q_offset, n_q, n_kv);
   if (dtype == 1) {
     return fam_flash_bwd_fused(q, k, v, dout, lse, delta, nullptr, dk, dv, dq, dq_acc, counters,
-                               n_counters, off, batch, n_heads, n_heads, n_q, n_kv, head_dim,
+                               n_counters, off, 0, 0, nullptr, nullptr, batch, n_heads, n_heads,
+                               n_q, n_kv, head_dim,
                                sm_scale, 1, 1, stream);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

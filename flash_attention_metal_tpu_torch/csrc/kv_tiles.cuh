@@ -14,6 +14,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "window.cuh"
+
 namespace fam {
 
 // Where the KV cache lives.  Dense: k, v [B, H_kv, n_kv, D] and scales
@@ -53,6 +55,8 @@ struct DecodeCall {
   float* part;
   int* tickets;
   cudaStream_t stream;
+  int window = kNoWindow;  // a row sees c > position - window, or c < sinks
+  int sinks = 0;
 };
 
 // The decode grid for a cache in q's own type (bf16 / fp32), int8, e4m3 and

@@ -78,6 +78,16 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows_v
   }
 }
 
+// `rows_valid` int32 segment ids into [kRows] (a bit-tile stage); the rest
+// zero.
+template <int kRows>
+__device__ __forceinline__ void load_ids(uint32_t* dst, const int* src, int rows_valid) {
+  for (int i = threadIdx.x; i < kRows; i += kThreads) {
+    const bool valid = i < rows_valid;
+    cp_async4(dst + i, src + (valid ? i : 0), valid);
+  }
+}
+
 // `rows_valid` fp32 row values (lse or delta) into [kRows]; the rest zero.
 template <int kRows>
 __device__ __forceinline__ void load_rows(float* dst, const float* src, int rows_valid) {

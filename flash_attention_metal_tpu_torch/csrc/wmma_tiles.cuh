@@ -14,6 +14,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
+#include <limits.h>
 #include <math.h>
 
 #include <type_traits>
@@ -156,10 +157,14 @@ __device__ __forceinline__ void bwd_scores(BwdSmem<T, D>& sm, int r, int half) {
 
 // P and dS of one causal pair for this thread's half row, from the scores
 // in s and dO V^T in dp, into sm.p_tile() and sm.ds_tile().  col_limit: the
-// last column the row sees (-1: none, also for padding rows).
+// last column the row sees (-1: none, also for padding rows); col_lo: the
+// first column of its window, and sinks the columns it sees before it;
+// kids: the tile's 64 KV segment ids (null: none), qid the row's.
 template <typename T, int D>
 __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half, int kv_start,
-                                             int col_limit, float scale_log2) {
+                                             int col_limit, float scale_log2,
+                                             int col_lo = INT_MIN, int sinks = 0, int qid = 0,
+                                             const int* kids = nullptr) {
   using C = Cfg<T, D>;
   T* p = sm.p_tile();
   T* ds = sm.ds_tile();
@@ -168,9 +173,10 @@ __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half,
 #pragma unroll
   for (int j = 0; j < kHalf; ++j) {
     const int c = half * kHalf + j;
-    const float pj = kv_start + c <= col_limit
-                         ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2)
-                         : 0.0f;
+    const int cc = kv_start + c;
+    const bool seen = cc <= col_limit && (cc >= col_lo || cc < sinks) &&
+                      (kids == nullptr || kids[c] == qid);
+    const float pj = seen ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;
     const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
     p[r * C::kLdS + c] = from_float<T>(pj);
     ds[r * C::kLdS + c] = from_float<T>(dsj);

@@ -43,6 +43,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import inspect
 import json
 import re
 import shutil
@@ -56,7 +57,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import default_scale
+from ..config import SegmentIds, default_scale
 from ..kernels.flash_bwd import (
     bwd_delta,
     dq_workspace_shape,
@@ -98,7 +99,7 @@ from ..kernels.paged import (
 from ..kernels.quant import flash_attention_quant, flash_attention_quant_plain, quantize_kv
 from ..runtime import decode as decode_mod
 from ..runtime.kv_cache import as_bytes
-from ..utils.roofline import kv_cache_bytes, visible_pairs
+from ..utils.roofline import kv_cache_bytes, visible_kv_rows, visible_pairs
 from ..utils.timing import device_ms, wall_ms
 from . import serving
 
@@ -658,70 +659,254 @@ def kv_d128_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
 
 # Each kernel of csrc/flash_fwd.cu: its wrapper and its plain version, both
 # called with a ``kv_cases`` entry's args and pos_div (the quant kernel
-# with its lse).
+# with its lse), and optionally a window and its sinks.
 KV_KERNELS = {
     "flash_quant": (
-        lambda q, qkv, off, pos_div: flash_attention_quant(
-            q, qkv, off, causal=True, pos_div=pos_div, save_lse=True),
-        lambda q, qkv, off, pos_div: flash_attention_quant_plain(
+        lambda q, qkv, off, pos_div, **win: flash_attention_quant(
+            q, qkv, off, causal=True, pos_div=pos_div, save_lse=True, **win),
+        lambda q, qkv, off, pos_div, **win: flash_attention_quant_plain(
             q.float(), qkv, off, sm_scale=_scale(q), causal=True, pos_div=pos_div,
-            save_lse=True),
+            save_lse=True, **win),
     ),
     "flash_paged": (
-        lambda q, pk, pv, table, lengths, pos_div: flash_attention_paged(
-            q, pk, pv, table, lengths, pos_div=pos_div),
-        lambda q, pk, pv, table, lengths, pos_div: flash_attention_paged_plain(
+        lambda q, pk, pv, table, lengths, pos_div, **win: flash_attention_paged(
+            q, pk, pv, table, lengths, pos_div=pos_div, **win),
+        lambda q, pk, pv, table, lengths, pos_div, **win: flash_attention_paged_plain(
             q.float(), pk.float(), pv.float(), table, lengths, sm_scale=_scale(q),
-            pos_div=pos_div),
+            pos_div=pos_div, **win),
     ),
     "flash_paged_quant": (
-        lambda q, pk, pv, pks, pvs, table, lengths, pos_div: flash_attention_paged_quant(
-            q, pk, pv, pks, pvs, table, lengths, pos_div=pos_div),
-        lambda q, pk, pv, pks, pvs, table, lengths, pos_div: flash_attention_paged_plain(
+        lambda q, pk, pv, pks, pvs, table, lengths, pos_div, **win: flash_attention_paged_quant(
+            q, pk, pv, pks, pvs, table, lengths, pos_div=pos_div, **win),
+        lambda q, pk, pv, pks, pvs, table, lengths, pos_div, **win: flash_attention_paged_plain(
             q.float(), pk, pv, table, lengths, sm_scale=_scale(q), pos_div=pos_div,
-            pool_k_scale=pks, pool_v_scale=pvs),
+            pool_k_scale=pks, pool_v_scale=pvs, **win),
     ),
 }
 
 
-def kv_kernel_error(kernel: str, args: tuple, pos_div: int) -> Tuple[float, float]:
+def kv_kernel_error(kernel: str, args: tuple, pos_div: int, **win) -> Tuple[float, float]:
     """Errors of one ``csrc/flash_fwd.cu`` kernel against its plain version
-    on the same 8-bit or paged data, in fp32 (see ``_fwd_errors``)."""
+    on the same 8-bit or paged data, in fp32 (see ``_fwd_errors``);
+    ``win``: a window and its sinks."""
     wrapper, plain = KV_KERNELS[kernel]
-    return _fwd_errors(wrapper(*args, pos_div), plain(*args, pos_div))
+    return _fwd_errors(wrapper(*args, pos_div, **win), plain(*args, pos_div, **win))
+
+
+# ---------------------------------------------------------------------------
+# The sliding window with attention sinks, and segment ids: the forward
+# (row 1: the wgmma kernel, the fp32 template and the decode grid), the
+# split pair and the fused backward (rows 5-7), and the cache kernels
+# (rows 11-13), against their plain versions.
+# ---------------------------------------------------------------------------
+
+# The windowed FlashLM's attention (ModelConfig.attn_window, attn_sinks).
+WINDOW, SINKS = 512, 4
+# Segment starts in position space, per batch (ragged: starts inside tiles,
+# one across a 64-column edge, a batch of one segment).
+SEGMENT_CUTS = ((300, 1000, 1700), (63, 1500), (), (7, 777, 2000))
+
+
+def segment_ids(batch: int, n_q: int, n_kv: int, offsets, cuts=SEGMENT_CUTS) -> SegmentIds:
+    """Segment ids on the card for rows at positions ``r + offsets[b]`` and
+    columns ``c``: a new segment at each cut, so that a row shares its own
+    position's id (every causal row sees its diagonal)."""
+    def ids(b, n, start):
+        pos = torch.arange(n, device="cuda") + start
+        return sum((pos >= c).int() for c in cuts[b % len(cuts)]) + torch.zeros_like(pos).int()
+    offsets = [int(x) for x in offsets]
+    return SegmentIds(torch.stack([ids(b, n_q, offsets[b]) for b in range(batch)]).int(),
+                      torch.stack([ids(b, n_kv, 0) for b in range(batch)]).int())
+
+
+def _fixture(shape_q, shape_kv, dtype, gen, fixture):
+    if fixture == "spike":
+        return spike_inputs(shape_q, shape_kv, dtype, gen)
+    if fixture == "negative":
+        # Every score far below zero (~-150 log2 units): a split or state
+        # whose max is taken as 0 instead of -inf underflows every weight.
+        def u(shape, lo, hi):
+            x = torch.rand(shape, generator=gen, device="cuda", dtype=torch.float32)
+            return (lo + (hi - lo) * x).to(dtype)
+        return u(shape_q, 12.0, 24.0), u(shape_kv, -1.0, -0.5), u(shape_kv, -1.0, 1.0)
+    return ladder_inputs(shape_q, shape_kv, dtype, gen,
+                         PEAKED_Q_SCALE if fixture == "peaked" else 1.0)
+
+
+# (name, q shape, kv shape, dtype, fixture, offsets (None: decode lengths),
+# pos_div, features).  Training shape: the window of the windowed FlashLM on
+# the ladder, peaked and spike fixtures, a window ending mid-tile with a
+# partial sink tile far left of it, a window of 16 (a column more or less
+# moves every row), segment ids causal and not, and with
+# the window; head dim 128; fp32 at N 512; the prefill chunk; folded
+# decode, with a window of 64 whose row leaves every split but its last
+# and the first (the sinks') wholly outside.
+WINDOW_FWD_CASES = (
+    ("train_w512_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1, dict(window=WINDOW, sinks=SINKS)),
+    ("train_w512_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("train_w512_bf16_spike", TRAIN_Q, TRAIN_KV, "bf16", "spike", 0, 1,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("train_w500_s70_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(window=500, sinks=70)),
+    ("train_w16_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(window=16)),
+    ("train_seg_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(segments=True)),
+    ("train_seg_full_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1,
+     dict(segments=True, causal=False)),
+    ("train_seg_w512_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1,
+     dict(segments=True, window=WINDOW, sinks=SINKS)),
+    ("train_w512_bf16_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "ladder", 0, 1,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("train_w512_bf16_peaked_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "peaked", 0, 1,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("train_seg_w512_bf16_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "peaked", 0, 1,
+     dict(segments=True, window=WINDOW, sinks=SINKS)),
+    ("fp32_n512_w100", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "peaked", 0, 1,
+     dict(window=100, sinks=SINKS)),
+    ("fp32_n512_seg_w100", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "ladder", 0, 1,
+     dict(segments=True, window=100, sinks=70)),
+    ("prefill_w512_bf16_off512", PREFILL_Q, PREFILL_KV, "bf16", "peaked", 512, 1,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("decode_w512_bf16", DECODE_Q, DECODE_KV, "bf16", "ladder", None, 2,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("decode_w64_bf16_peaked", DECODE_Q, DECODE_KV, "bf16", "peaked", None, 2,
+     dict(window=64, sinks=SINKS)),
+    ("decode_w64_bf16_negative", DECODE_Q, DECODE_KV, "bf16", "negative", None, 2,
+     dict(window=64, sinks=SINKS)),
+    ("decode_w512_bf16_d128", DECODE_D128_Q, DECODE_D128_KV, "bf16", "peaked", None, 2,
+     dict(window=WINDOW, sinks=SINKS)),
+    ("decode_w100_fp32", DECODE_Q, DECODE_KV, "fp32", "peaked", None, 2, dict(window=100, sinks=70)),
+)
+_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def window_fwd_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
+    """``{name: (q, k, v, q_offset, pos_div, features)}`` of
+    ``WINDOW_FWD_CASES`` (all, or ``names``); ``features`` holds ``causal``
+    and the wrapper's window, sinks and segment ids."""
+    cases = {}
+    for name, sq, skv, dt, fixture, off, pos_div, feats in WINDOW_FWD_CASES:
+        if names is not None and name not in names:
+            continue
+        q, k, v = _fixture(sq, skv, _DTYPES[dt], gen, fixture)
+        offs = (torch.from_numpy(decode_lengths()) if off is None
+                else torch.full((sq[0],), off, dtype=torch.int32))
+        feats = dict(feats)
+        feats.setdefault("causal", True)
+        if feats.pop("segments", False):
+            feats["segment_ids"] = segment_ids(sq[0], sq[2], skv[2], offs)
+        cases[name] = (q, k, v, offs.to("cuda", torch.int32), pos_div, feats)
+    return cases
+
+
+def window_fwd_error(case: tuple) -> Tuple[float, float]:
+    """``kernel_error`` of the general forward under a case's features."""
+    q, k, v, off, pos_div, feats = case
+    got = flash_attention_fwd(q, k, v, off, pos_div=pos_div, save_lse=True, **feats)
+    want = flash_attention_fwd_plain(q.float(), k.float(), v.float(), off,
+                                     sm_scale=default_scale(q.shape[-1]), pos_div=pos_div,
+                                     save_lse=True, **feats)
+    return _fwd_errors(got, want)
+
+
+# (name, forward case, fused too): the backward checks.
+WINDOW_BWD_CASES = (
+    ("train_w512_bf16", True), ("train_w512_bf16_peaked", True), ("train_w512_bf16_spike", False),
+    ("train_w500_s70_bf16", True), ("train_seg_bf16", True), ("train_seg_full_bf16", False),
+    ("train_seg_w512_bf16", True), ("train_w512_bf16_d128", True),
+    ("train_w512_bf16_peaked_d128", False), ("train_seg_w512_bf16_d128", True),
+    ("fp32_n512_w100", True), ("fp32_n512_seg_w100", True),
+)
+
+
+def window_bwd_inputs(case: tuple, gen: torch.Generator) -> tuple:
+    """``(q, k, v, o, do, lse, q_offset, features)``: a forward case with
+    the forward kernel's ``o`` and ``lse`` and a uniform(-1, 1) ``do``."""
+    q, k, v, off, _, feats = case
+    do = ladder_inputs(q.shape, k.shape, q.dtype, gen)[0]
+    o, lse = flash_attention_fwd(q, k, v, off, save_lse=True, **feats)
+    return q, k, v, o, do, lse, off, feats
+
+
+def window_bwd_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[float, float]]:
+    """``bwd_kernel_errors`` under the inputs' features."""
+    q, k, v, o, do, lse, off, feats = inputs
+    scale = default_scale(q.shape[-1])
+    kernel, plain = ((flash_attention_bwd_fused, flash_attention_bwd_fused_plain) if fused
+                     else (flash_attention_bwd, flash_attention_bwd_plain))
+    bound = {"q_offset_max": int(off.max())} if fused else {}
+    got = kernel(q, k, v, o, do, lse, off, sm_scale=scale, **bound, **feats)
+    want = plain(q.float(), k.float(), v.float(), o.float(), do.float(), lse, off,
+                 sm_scale=scale, **feats)
+    torch.cuda.synchronize()
+    errors = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = (g.float() - w).abs().max().item()
+        errors[name] = (err, err / max(w.abs().max().item(), 1e-30))
+    return errors
+
+
+def window_mask(n_q: int, n_kv: int, offsets: torch.Tensor, window: int, sinks: int,
+                pos_div: int = 1) -> torch.Tensor:
+    """SDPA's boolean mask of a windowed call, ``[B, 1, N_q, N_kv]`` on the
+    card: row ``r`` of batch ``b`` at position ``r // pos_div +
+    offsets[b]`` sees ``c <= p`` with ``c > p - window`` or ``c < sinks``."""
+    pos = (torch.arange(n_q, device="cuda") // pos_div)[None, :, None] + offsets.to(
+        "cuda", torch.int64)[:, None, None]
+    col = torch.arange(n_kv, device="cuda")
+    return ((col <= pos) & ((col > pos - window) | (col < sinks)))[:, None]
+
+
+# The cache kernels' windowed checks: (kv_cases entry, window, sinks).  The
+# decode cases at the windowed FlashLM's window, one of 64 whose rows leave
+# the middle splits wholly outside, sinks far left of the window; the
+# prefill chunk; fp32 q.
+WINDOW_KV_CASES = tuple(
+    (f"{kernel}_{tag}", window, sinks)
+    for kernel in ("quant_int8", "paged", "paged_quant_int8")
+    for tag, window, sinks in (("decode_bf16", WINDOW, SINKS), ("decode_bf16_peaked", 64, SINKS),
+                               ("decode_bf16_spike", 300, 70), ("prefill_bf16", WINDOW, SINKS),
+                               ("prefill_bf16_peaked", 100, 70), ("prefill_fp32", WINDOW, SINKS),
+                               ("decode_skewed_bf16", 64, 0))
+) + tuple((f"{kernel}_decode_bf16_d128", WINDOW, SINKS)
+          for kernel in ("quant_int8", "paged", "paged_quant_int8"))
 
 
 def fwd_work(q: torch.Tensor, k: torch.Tensor, offsets, pos_div: int = 1,
-             save_lse: bool = False) -> Tuple[float, float]:
+             save_lse: bool = False, window: Optional[int] = None,
+             sinks: int = 0) -> Tuple[float, float]:
     """``(flops, bytes)`` one causal call of the dense forward kernel must
-    do: 4 * D flops per visible (row, column) pair; each slot's K and V rows
-    up to its last visible column read once, q read and o (and the lse)
-    written once."""
+    do: 4 * D flops per visible (row, column) pair (under a window, its
+    visible pairs only); each slot's K and V rows that any of its rows sees
+    read once, q read and o (and the lse) written once."""
     heads, n_q, head_dim = q.shape[1:]
     kv_heads, n_kv = k.shape[1], k.shape[2]
     offsets = [int(x) for x in offsets]
-    pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div) for off in offsets)
-    rows = kv_heads * sum(min(n_kv, max(0, (n_q - 1) // pos_div + off + 1)) for off in offsets)
+    win = dict(window=window, sinks=sinks)
+    pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div, **win) for off in offsets)
+    rows = kv_heads * sum(visible_kv_rows(n_q, n_kv, off, pos_div, **win) for off in offsets)
     nbytes = kv_cache_bytes(rows, head_dim, k.element_size()) + 2 * q.numel() * q.element_size()
     if save_lse:
         nbytes += 4 * q.numel() // head_dim
     return 4.0 * head_dim * pairs, nbytes
 
 
-def kv_work(kernel: str, args: tuple, pos_div: int) -> Tuple[float, float]:
+def kv_work(kernel: str, args: tuple, pos_div: int, window: Optional[int] = None,
+            sinks: int = 0) -> Tuple[float, float]:
     """``(flops, bytes)`` one ``KV_KERNELS`` call must do on this data: 4 *
-    D flops per visible (row, column) pair; each slot's K and V rows up to
-    its last visible column read once (``kv_cache_bytes``: 1 byte per
-    element and a 4-byte scale per row of an 8-bit cache), q read and o
-    (and the quant kernel's lse) written once."""
+    D flops per visible (row, column) pair (under a window, its visible
+    pairs only); each slot's K and V rows that any of its rows sees read
+    once (``kv_cache_bytes``: 1 byte per element and a 4-byte scale per row
+    of an 8-bit cache), q read and o (and the quant kernel's lse) written
+    once."""
     q, offsets = args[0], args[-1].tolist()
     heads, n_q, head_dim = q.shape[1:]
     if kernel == "flash_quant":
         kv_heads, n_kv, item = args[1].k_q.shape[1], args[1].seq_len, 1
     else:
         kv_heads, n_kv, item = args[1].shape[1], args[-2].shape[1] * PAGE, args[1].element_size()
-    pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div) for off in offsets)
-    rows = kv_heads * sum(min(n_kv, (n_q - 1) // pos_div + off + 1) for off in offsets)
+    win = dict(window=window, sinks=sinks)
+    pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div, **win) for off in offsets)
+    rows = kv_heads * sum(visible_kv_rows(n_q, n_kv, off, pos_div, **win) for off in offsets)
     nbytes = kv_cache_bytes(rows, head_dim, item, scaled=kernel != "flash_paged")
     nbytes += 2 * q.numel() * q.element_size()
     if kernel == "flash_quant":
@@ -1044,7 +1229,11 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
     kernels under rung 11's mask (``BlockMask`` of the tree's own module) in
     bf16 at the training shape and at ``SPARSE_D128_Q`` (with SDPA's forward
     and backward under the same mask there) and in fp32 at
-    ``TRAIN_FP32_Q``.  Every input is the ladder fixture.  The workspace: the allocator's peak over one backward call at
+    ``TRAIN_FP32_Q``.  In a tree whose wrappers take a sliding window: the
+    general forward, the split pair and the fused backward at the training
+    shape (D 64 and 128), folded decode and the quant, paged and
+    paged-quant kernels at decode (D 64 and 128), each under ``WINDOW`` and
+    ``SINKS`` (keys ``window_*``).  Every input is the ladder fixture.  The workspace: the allocator's peak over one backward call at
     ``HIGH_OCC`` less its outputs and delta (fp32 ``[B, H, N]``), which at
     that shape outweigh the delta op's fp32 temporaries in either tree.
     """
@@ -1078,13 +1267,13 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
         q, k, v = ladder_inputs(shape, shape, dtype, gen)
         times[f"lean_{tag}"] = device_ms(lambda: ff.flash_fwd_lean(q, k, v))
     kv_wrappers = {
-        "flash_quant": lambda q, qkv, off, pos_div: m.qt.flash_attention_quant(
-            q, qkv, off, causal=True, pos_div=pos_div, save_lse=True),
-        "flash_paged": lambda q, pk, pv, table, lengths, pos_div: m.pg.flash_attention_paged(
-            q, pk, pv, table, lengths, pos_div=pos_div),
-        "flash_paged_quant": lambda q, pk, pv, pks, pvs, table, lengths, pos_div:
+        "flash_quant": lambda q, qkv, off, pos_div, **win: m.qt.flash_attention_quant(
+            q, qkv, off, causal=True, pos_div=pos_div, save_lse=True, **win),
+        "flash_paged": lambda q, pk, pv, table, lengths, pos_div, **win: m.pg.flash_attention_paged(
+            q, pk, pv, table, lengths, pos_div=pos_div, **win),
+        "flash_paged_quant": lambda q, pk, pv, pks, pvs, table, lengths, pos_div, **win:
             m.pg.flash_attention_paged_quant(q, pk, pv, pks, pvs, table, lengths,
-                                             pos_div=pos_div),
+                                             pos_div=pos_div, **win),
     }
     timed = [f"{k}_{shape}_bf16" for k in ("quant_int8", "paged", "paged_quant_int8")
              for shape in ("decode", "decode_skewed", "prefill")]
@@ -1173,6 +1362,39 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
             held = sum(t.numel() * t.element_size() for t in grads) + 4 * lse.numel()
             nbytes[f"tri_bwd_workspace_{tag}"] = torch.cuda.max_memory_allocated() - base - held
             del grads
+    # The windowed kernels come last, so that every key both trees time
+    # follows the same work on the card.
+    if "window" in inspect.signature(ff.flash_fwd_general).parameters:
+        win = dict(window=WINDOW, sinks=SINKS)
+        for tag, shape_q, shape_kv in (("d64", TRAIN_Q, TRAIN_KV),
+                                       ("d128", TRAIN_D128_Q, TRAIN_D128_KV)):
+            q, k, v = ladder_inputs(shape_q, shape_kv, bf16, gen)
+            do = ladder_inputs(shape_q, shape_kv, bf16, gen)[0]
+            off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
+            o, lse = ff.flash_attention_fwd(q, k, v, off, causal=True, save_lse=True, **win)
+            delta = fb.bwd_delta(o, do, None)
+            kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True)
+            times[f"window_fwd_train_{tag}"] = device_ms(
+                lambda: ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=True, **win))
+            times[f"window_dkv_train_{tag}"] = device_ms(
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw, **win))
+            times[f"window_dq_train_{tag}"] = device_ms(
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw, **win))
+            times[f"window_fused_train_{tag}"] = device_ms(lambda: fb.flash_attention_bwd_fused(
+                q, k, v, o, do, lse, off, q_offset_max=0, **kw, **win))
+        for tag, shape_q, shape_kv in (("d64", DECODE_Q, DECODE_KV),
+                                       ("d128", DECODE_D128_Q, DECODE_D128_KV)):
+            q, k, v = ladder_inputs(shape_q, shape_kv, bf16, gen)
+            times[f"window_fwd_decode_{tag}"] = device_ms(
+                lambda: ff.flash_fwd_general(q, k, v, lengths, causal=True, pos_div=2, **win))
+        cases = {**kv_cases(gen), **kv_d128_cases(gen)}
+        for name in ("quant_int8_decode_bf16", "paged_decode_bf16",
+                     "paged_quant_int8_decode_bf16"):
+            for suffix in ("", "_d128"):
+                kernel, args, pos_div = cases[name + suffix]
+                times[f"window_{name.replace('_bf16', '')}{suffix or '_d64'}"] = device_ms(
+                    lambda: kv_wrappers[kernel](*args, pos_div, **win))
+        del cases
     return times, nbytes
 
 
@@ -1324,7 +1546,11 @@ def sparse_split_times(log=print) -> List[dict]:
     return out
 
 
-PTXAS_UNITS = ("flash_fwd.cu", "flash_mask.cu")
+# Every unit of csrc/ (the same kernel compiles in each unit that includes
+# its header, so each unit's instances are reported).
+PTXAS_UNITS = ("flash_fwd.cu", "flash_bwd.cu", "flash_mask.cu", "flash_tri.cu", "flash_lean.cu",
+               "flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
+               "flash_decode_e5m2.cu", "naive.cu", "flash_v1.cu")
 
 
 def _kernel_name(mangled: str) -> str:

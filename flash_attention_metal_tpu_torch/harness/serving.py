@@ -18,7 +18,7 @@ import dataclasses
 import os
 import subprocess
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -103,13 +103,16 @@ def build_engine(
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
     device="cuda",
+    window: Optional[int] = None,
+    sinks: int = 0,
     **engine_kwargs,
 ) -> tuple:
-    """A ``DecodeEngine`` over a FlashLM with seeded random weights."""
+    """A ``DecodeEngine`` over a FlashLM with seeded random weights
+    (``window``, ``sinks``: its sliding-window attention)."""
     cfg = ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=max_len,
-        dtype=dtype,
+        dtype=dtype, attn_window=window, attn_sinks=sinks,
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -18,7 +18,7 @@ import argparse
 import json
 import sys
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -61,13 +61,16 @@ def flashlm_config(
     d_ff: int = 4096,
     vocab: int = 32768,
     seq: int = 2048,
+    window: Optional[int] = None,
+    sinks: int = 0,
 ) -> ModelConfig:
     """The trained FlashLM: bf16 compute, head_dim 64; defaults are the
-    ``train_bench.json`` width."""
+    ``train_bench.json`` width.  ``window``, ``sinks``: the sliding window
+    of every attention call (``ModelConfig.attn_window``, ``attn_sinks``)."""
     return ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=seq,
-        dtype=torch.bfloat16,
+        dtype=torch.bfloat16, attn_window=window, attn_sinks=sinks,
     )
 
 
@@ -90,6 +93,8 @@ def run_train_bench(
     seq: int = 2048,
     steps: int = 7,
     optimizer: str = "adamw",
+    window: Optional[int] = None,
+    sinks: int = 0,
     log=print,
 ) -> Dict[str, object]:
     """Run ``steps`` training steps on one fixed seeded batch and time them.
@@ -98,7 +103,8 @@ def run_train_bench(
     compute, ``make_optimizer(warmup_steps=2)``); ``"sgd"`` drives
     ``sgd_train_step`` (lr 1e-3), as the JAX bench does.  Each step runs
     between ``torch.cuda.synchronize()`` fences; the first is the warm-up
-    and the reported step time is the median of the rest.
+    and the reported step time is the median of the rest.  ``window``,
+    ``sinks``: a FlashLM with sliding-window attention.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("run_train_bench needs a CUDA card")
@@ -107,7 +113,7 @@ def run_train_bench(
     spec = detect_chip()
     cfg = flashlm_config(
         n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
-        d_ff=d_ff, vocab=vocab, seq=seq,
+        d_ff=d_ff, vocab=vocab, seq=seq, window=window, sinks=sinks,
     )
     tokens = fixed_batch(cfg, batch, seq, SEED + 1)
     if optimizer == "adamw":
@@ -141,6 +147,7 @@ def run_train_bench(
         "model": {
             "n_layers": n_layers, "d_model": d_model, "n_heads": n_heads,
             "n_kv_heads": n_kv_heads, "d_ff": d_ff, "vocab": vocab,
+            "attn_window": window, "attn_sinks": sinks,
         },
         "batch": batch,
         "seq": seq,

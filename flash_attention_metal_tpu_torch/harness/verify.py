@@ -6,8 +6,8 @@ there: fp32 kernels anchor to the golden oracle, upper rungs difference
 against the verified naive rung, causal and backward rungs get their own
 fixtures.  One ``[PASS]``/``[FAIL]`` line per rung, in the same format.
 
-The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 11, 12
-prefill and decode chunk, 18); the others print a ``[SKIP]`` line naming
+The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 10, 11,
+12 prefill and decode chunk, 18); the others print a ``[SKIP]`` line naming
 the ``ROADMAP.md`` item they wait for and are never counted as passes.
 ``device="cpu"`` runs every kernel's plain version (the tests do); the
 default runs the CUDA kernels.
@@ -69,7 +69,6 @@ RUNGS_2_8_9_12_18 = (
 # Rungs of the JAX ladder that wait for a feature or a kernel of the port,
 # by the ROADMAP.md item that holds it.
 _FEATURES = "not ported (ROADMAP.md Queue A item 2: op features)"
-SKIPPED_SLIDING_WINDOW = ("flash sliding-window vs oracle", _FEATURES)
 SKIPPED_TRANSFORM_RUNGS = (
     ("flash softcap causal vs oracle", _FEATURES),
     ("flash ALiBi causal vs oracle", _FEATURES),
@@ -233,8 +232,12 @@ def run_ladder(
         q, kg.float().expand(k.shape), vg.float().expand(v.shape), causal=True)
     rung("flash MQA (native head-fold) vs oracle", og, oracle_g, TOL_HALF)
 
-    # Rung 10: sliding window, not ported.
-    log(_skip(*SKIPPED_SLIDING_WINDOW))
+    # Rung 10: sliding-window attention vs the windowed oracle (the general
+    # kernel: a window skips the tiles outside it).
+    w = max(n // 4, 128)
+    ow = flash_attention_fwd(qh, kh, vh, causal=True, window=w)
+    oracle_w = attention_reference(q, k, v, causal=True, window=w)
+    rung(f"flash sliding-window (W={w}) vs oracle", ow, oracle_w, TOL_HALF)
 
     # Rung 11: an arbitrary block-sparse mask (JAX's: a causal band of n/4
     # plus strided columns, 128-row blocks) against a masked fp32 oracle.

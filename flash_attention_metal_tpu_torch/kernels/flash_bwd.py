@@ -34,6 +34,13 @@ the split pair.  The JAX dispatcher also asks
 ``tri_bwd_heuristic`` (N a multiple of 512, N <= 4096, an unroll budget):
 v5e tile measurements and Mosaic compile limits, not carried.
 
+The sliding window with its sinks and segment ids are taken by the split
+pair and the fused kernel (JAX ``flash_bwd.py:145-151, 315-321, 566-572``):
+each KV tile's dK/dV walk visits the Q tiles that see it, each Q tile's dQ
+walk the KV tiles it sees (the sink tiles, then the window's), and the
+fused kernel adds each Q tile's dQ contributions in the order of its own
+visible KV tiles.  Such calls never take the triangular route, as in JAX.
+
 Route: tensors on the CPU go to the plain versions; CUDA tensors launch the
 kernels or raise.  Nothing falls back.
 """
@@ -46,14 +53,17 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ..config import BlockSizes, default_scale
+from ..config import BlockSizes, SegmentIds, default_scale
 from . import _build
 from .flash_fwd import (
     _DTYPE_CODES,
     _check_cuda_inputs,
     _offsets,
+    check_segment_ids,
     is_static_offset,
+    plain_visible,
     reject_unported,
+    window_args,
 )
 
 # Stands in for lse = -inf (a row that sees no column) when P is rebuilt,
@@ -78,9 +88,11 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -
     return delta.contiguous()
 
 
-def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal):
-    """fp32 P (rebuilt from ``lse``) and dS over repeated KV heads."""
-    b, h, n_q, _ = q.shape
+def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window=None, sinks=0,
+                segment_ids=None):
+    """fp32 P (rebuilt from ``lse``) and dS over repeated KV heads, P zero
+    outside ``flash_fwd.plain_visible``."""
+    _, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     group = h // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
@@ -88,11 +100,10 @@ def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal):
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
     lse_safe = torch.where(torch.isneginf(lse), LSE_SENTINEL, lse.float())
     p = torch.exp(s.sub_(lse_safe[..., None]))
-    if causal:
-        row = torch.arange(n_q, device=q.device)[:, None]
-        col = torch.arange(n_kv, device=q.device)
-        limit = row + off.to(q.device, torch.int64).reshape(b, 1, 1, 1)
-        p = p.masked_fill_(col > limit, 0.0)
+    if causal or segment_ids is not None:
+        visible = plain_visible(n_q, n_kv, off, causal=causal, window=window, sinks=sinks,
+                                segment_ids=segment_ids, device=q.device)
+        p = p.masked_fill_(~visible, 0.0)
     dp = torch.matmul(do.float(), vf.transpose(-1, -2))
     ds = dp.sub_(delta[..., None]).mul_(p)
     return p, ds, kf
@@ -103,18 +114,22 @@ def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
     return x.reshape(b, h_kv, h // h_kv, n, d).sum(dim=2)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool):
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
+                        window=None, sinks=0, segment_ids=None):
     """The dK/dV kernel's contract in fp32 PyTorch: ``(dk, dv)``, summed over
     each KV head's group of q-heads."""
-    p, ds, _ = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal)
+    p, ds, _ = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window, sinks,
+                           segment_ids)
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), k.shape[1])
     dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), k.shape[1]) * sm_scale
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool):
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
+                       window=None, sinks=0, segment_ids=None):
     """The dQ kernel's contract in fp32 PyTorch."""
-    _, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal)
+    _, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window, sinks,
+                            segment_ids)
     return (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
 
 
@@ -130,11 +145,15 @@ def flash_attention_bwd_plain(
     *,
     sm_scale: float,
     causal: bool,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``flash_attention_bwd``'s contract in fp32 PyTorch (``q_offset``:
     int32 ``[B]``): the delta precompute and the two kernels' plain versions."""
     delta = bwd_delta(o, do, dlse)
-    kw = dict(sm_scale=sm_scale, causal=causal)
+    kw = dict(sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
+              segment_ids=segment_ids)
     dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_offset, **kw)
     return flash_bwd_dq_plain(q, k, v, do, lse, delta, q_offset, **kw), dk, dv
 
@@ -151,12 +170,16 @@ def flash_attention_bwd_fused_plain(
     *,
     sm_scale: float,
     causal: bool,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``flash_attention_bwd_fused``'s contract in fp32 PyTorch: dK/dV as the
     split pair's, and dQ as one partial ``dS K`` per ``DQ_TILE`` KV rows,
     summed in KV order (the kernel's workspace slots), then scaled."""
     delta = bwd_delta(o, do, dlse)
-    p, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, q_offset, sm_scale, causal)
+    p, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, q_offset, sm_scale, causal, window, sinks,
+                            segment_ids)
     h_kv = k.shape[1]
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), h_kv)
     dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), h_kv) * sm_scale
@@ -167,18 +190,20 @@ def flash_attention_bwd_fused_plain(
 
 
 def fused_offset_bound(q_offset, q_offset_max: Optional[int], n_q: int, n_kv: int,
-                       causal: bool) -> int:
+                       causal: bool, window: bool = False) -> int:
     """The offset the fused kernel's workspace is sized for: a static
     ``q_offset`` (None or an int) itself, else ``q_offset_max``; ``n_kv -
     1`` (every pair visible) when not causal or when neither is known.
-    The kernel reads each offset no higher than it."""
+    The kernel reads each offset no higher than it.  Without a window an
+    offset past ``n_kv - 1`` sees what ``n_kv - 1`` sees, so the bound is
+    cut there; with one it moves the window, so it is not cut."""
     if not causal:
         return n_kv - 1
     if is_static_offset(q_offset):
         bound = n_kv - n_q if q_offset is None else int(q_offset)
     else:
         bound = n_kv - 1 if q_offset_max is None else int(q_offset_max)
-    return min(bound, n_kv - 1)
+    return bound if window else min(bound, n_kv - 1)
 
 
 def dq_counter_count(batch: int, heads: int, n_q: int) -> int:
@@ -223,14 +248,16 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float, i32, i32,  # sm_scale, causal, dtype
         ptr,  # stream
     ]
+    # window, sinks, q segment ids, kv segment ids
+    feats = [i32, i32, ptr, ptr]
     # q, k, v, dout, lse, delta, q_offset, then the outputs (and the fused
     # kernel's workspace).
-    lib.fam_flash_bwd_dkv.argtypes = [ptr] * 9 + common
+    lib.fam_flash_bwd_dkv.argtypes = [ptr] * 9 + feats + common
     lib.fam_flash_bwd_dkv.restype = ctypes.c_int
-    lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + common
+    lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + feats + common
     lib.fam_flash_bwd_dq.restype = ctypes.c_int
     # ..., dq, dq_acc, counters, n_counters, off_bound
-    lib.fam_flash_bwd_fused.argtypes = [ptr] * 12 + [i32, i32] + common
+    lib.fam_flash_bwd_fused.argtypes = [ptr] * 12 + [i32, i32] + feats + common
     lib.fam_flash_bwd_fused.restype = ctypes.c_int
     return lib
 
@@ -253,12 +280,22 @@ def _inputs(q, k, v, do, lse, delta, off):
             lse.data_ptr(), delta.data_ptr(), off.data_ptr())
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool):
-    """``(dk, dv)`` from the dK/dV kernel (CUDA tensors, checked by the caller)."""
+def _feature_args(window: int, sinks: int, segment_ids: Optional[SegmentIds]) -> tuple:
+    """``(window, sinks, q ids, kv ids)`` as the C entries take them
+    (``flash_fwd.window_args``' ints; checked ids or None)."""
+    if segment_ids is None:
+        return window, sinks, None, None
+    return window, sinks, segment_ids.q.data_ptr(), segment_ids.kv.data_ptr()
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
+                  window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None):
+    """``(dk, dv)`` from the dK/dV kernel (CUDA tensors, checked by the
+    caller; ``window``, ``sinks`` as ``flash_fwd.window_args`` gives them)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _lib().fam_flash_bwd_dkv(
         *_inputs(q, k, v, do, lse, delta, off), dk.data_ptr(), dv.data_ptr(),
-        *_shape_args(q, k, sm_scale, causal),
+        *_feature_args(window, sinks, segment_ids), *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd dK/dV kernel launch failed: cudaError_t {err}")
@@ -266,12 +303,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool
     return dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool):
+def flash_bwd_dq(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
+                 window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None):
     """``dq`` from the dQ kernel (CUDA tensors, checked by the caller)."""
     dq = torch.empty_like(q)
     err = _lib().fam_flash_bwd_dq(
         *_inputs(q, k, v, do, lse, delta, off), dq.data_ptr(),
-        *_shape_args(q, k, sm_scale, causal),
+        *_feature_args(window, sinks, segment_ids), *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd dQ kernel launch failed: cudaError_t {err}")
@@ -280,7 +318,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool)
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
-                    off_bound: int, workspace: Optional[torch.Tensor] = None):
+                    off_bound: int, workspace: Optional[torch.Tensor] = None,
+                    window: int = 0, sinks: int = 0,
+                    segment_ids: Optional[SegmentIds] = None):
     """``(dq, dk, dv)`` from the fused kernel, one launch (CUDA tensors,
     checked by the caller).  ``off_bound``: ``fused_offset_bound``.
     ``workspace``: see ``dq_workspace``."""
@@ -288,7 +328,8 @@ def flash_bwd_fused(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bo
     workspace, ws_args = dq_workspace(q, workspace)
     err = _lib().fam_flash_bwd_fused(
         *_inputs(q, k, v, do, lse, delta, off), dk.data_ptr(), dv.data_ptr(), dq.data_ptr(),
-        *ws_args, off_bound, *_shape_args(q, k, sm_scale, causal),
+        *ws_args, off_bound, *_feature_args(window, sinks, segment_ids),
+        *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd fused kernel launch failed: cudaError_t {err}")
@@ -350,6 +391,9 @@ def flash_attention_bwd(
     *,
     sm_scale: Optional[float] = None,
     causal: bool = False,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
     **features,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of flash attention over ``[B, H, N, D]`` inputs.
@@ -357,9 +401,10 @@ def flash_attention_bwd(
     ``o`` and ``lse`` (fp32 ``[B, H, N_q]``, natural log) are the forward's
     saved outputs, ``do`` the output's cotangent and ``dlse`` the optional
     lse cotangent.  ``k``/``v`` may have fewer heads than ``q`` (GQA); the
-    masking rule and the ``q_offset`` default (``n_kv - n_q``) are the
-    forward's.  The JAX wrapper's window/sinks/segment/softcap/ALiBi/dropout
-    arguments and ``pos_div`` raise NotImplementedError if set.
+    masking rule (window, sinks and segment ids included) and the
+    ``q_offset`` default (``n_kv - n_q``) are the forward's.  The JAX
+    wrapper's softcap/ALiBi/dropout arguments and ``pos_div`` raise
+    NotImplementedError if set.
     """
     pos_div = features.pop("pos_div", 1)
     if pos_div != 1:
@@ -368,17 +413,21 @@ def flash_attention_bwd(
             "in the port's kernels (see ROADMAP.md, Queue A item 5)"
         )
     reject_unported(features)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     if q.dtype == torch.float16:
         return _in_fp32(flash_attention_bwd, q, k, v, o, do, lse, q_offset, dlse,
-                        sm_scale=sm_scale, causal=causal)
+                        sm_scale=sm_scale, causal=causal, **feats)
     sm_scale, off = _checked(q, k, v, o, do, lse, q_offset, sm_scale)
+    w, n_sinks = window_args(window, sinks, causal)
+    seg = check_segment_ids(segment_ids, q.shape[0], q.shape[2], k.shape[2], q.device)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
-            q, k, v, o, do, lse, off, dlse, sm_scale=sm_scale, causal=causal
+            q, k, v, o, do, lse, off, dlse, sm_scale=sm_scale, causal=causal,
+            window=window if w else None, sinks=n_sinks, segment_ids=seg,
         )
     _check_cuda(q, k, v, do, lse, off)
     delta = bwd_delta(o, do, dlse)
-    kw = dict(sm_scale=sm_scale, causal=causal)
+    kw = dict(sm_scale=sm_scale, causal=causal, window=w, sinks=n_sinks, segment_ids=seg)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, off, **kw)
     return dq, dk, dv
@@ -397,22 +446,25 @@ def flash_attention_bwd_fused(
     sm_scale: Optional[float] = None,
     causal: bool = False,
     q_offset_max: Optional[int] = None,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
     **features,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the fused 5-matmul kernel; arguments and
     results as ``flash_attention_bwd`` (``dk``, ``dv`` in ``k``'s dtype, as
-    the JAX kernel's).  The kernel's tiles are fixed (``DQ_TILE``).
+    the JAX kernel's; the window, sinks and segment ids included).  The kernel's tiles are fixed (``DQ_TILE``).
     ``q_offset_max``: with a tensor ``q_offset``, an int no entry exceeds.
     An offset known on the host (None, an int or a CPU tensor) above it
     raises.  The entries of a CUDA tensor are not read on the host: the
     caller keeps to the contract, and an entry above ``q_offset_max`` is
     read as ``q_offset_max`` (a narrower mask).  fp16 inputs run in fp32
-    and return fp16 gradients, as ``flash_attention_bwd``'s.  The JAX wrapper's window/sinks/segment
-    arguments raise NotImplementedError if set."""
+    and return fp16 gradients, as ``flash_attention_bwd``'s."""
     reject_unported(features)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     if q.dtype == torch.float16:
         return _in_fp32(flash_attention_bwd_fused, q, k, v, o, do, lse, q_offset, dlse,
-                        sm_scale=sm_scale, causal=causal, q_offset_max=q_offset_max)
+                        sm_scale=sm_scale, causal=causal, q_offset_max=q_offset_max, **feats)
     host_max = host_offset_max(q_offset, q.shape[2], k.shape[2])
     if causal and q_offset_max is not None and host_max is not None and host_max > q_offset_max:
         raise ValueError(
@@ -420,14 +472,18 @@ def flash_attention_bwd_fused(
             "backward would compute a narrower mask's gradients"
         )
     sm_scale, off = _checked(q, k, v, o, do, lse, q_offset, sm_scale)
-    bound = fused_offset_bound(q_offset, q_offset_max, q.shape[2], k.shape[2], causal)
+    w, n_sinks = window_args(window, sinks, causal)
+    seg = check_segment_ids(segment_ids, q.shape[0], q.shape[2], k.shape[2], q.device)
+    bound = fused_offset_bound(q_offset, q_offset_max, q.shape[2], k.shape[2], causal, w > 0)
     if q.device.type == "cpu":
         return flash_attention_bwd_fused_plain(
-            q, k, v, o, do, lse, off.clamp(max=bound), dlse, sm_scale=sm_scale, causal=causal
+            q, k, v, o, do, lse, off.clamp(max=bound), dlse, sm_scale=sm_scale, causal=causal,
+            window=window if w else None, sinks=n_sinks, segment_ids=seg,
         )
     _check_cuda(q, k, v, do, lse, off)
     return flash_bwd_fused(q, k, v, do, lse, bwd_delta(o, do, dlse), off,
-                           sm_scale=sm_scale, causal=causal, off_bound=bound)
+                           sm_scale=sm_scale, causal=causal, off_bound=bound,
+                           window=w, sinks=n_sinks, segment_ids=seg)
 
 
 def host_offset_max(q_offset, n_q: int, n_kv: int) -> Optional[int]:
@@ -473,13 +529,15 @@ def fused_workspace_bytes(q: torch.Tensor) -> int:
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1,
-              block_sizes: Optional[BlockSizes] = None) -> str:
+              block_sizes: Optional[BlockSizes] = None, featured: bool = False) -> str:
     """The kernel(s) ``flash_attention_bwd_auto`` runs: ``"tri"``,
     ``"fused"`` or ``"split"`` (module docstring).  A saved ``"fused"``
     decision is declined, for the untuned rule, when its dQ workspace would
-    not fit (``fused_workspace_fits``)."""
+    not fit (``fused_workspace_fits``).  ``featured`` (a window or segment
+    ids) rules the triangular kernel out, as in JAX."""
     tri_ok = (
         causal
+        and not featured
         and k.shape[1] == q.shape[1]
         and q.dtype != torch.float16
         and is_static_offset(q_offset)
@@ -516,6 +574,9 @@ def flash_attention_bwd_auto(
     pos_div: int = 1,
     block_sizes: Optional[BlockSizes] = None,
     q_offset_max: Optional[int] = None,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
     **features,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)``, routed to the triangular kernel, the fused kernel
@@ -525,7 +586,10 @@ def flash_attention_bwd_auto(
     and ``dv`` in fp32, the others in ``k``'s dtype, as in JAX.  The split
     pair's tiles are fixed: ``block_sizes`` only skips the tuned lookup."""
     reject_unported(features)
-    impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
+    featured = window is not None or segment_ids is not None
+    impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes,
+                     featured=featured)
     if impl == "tri":
         from .flash_tri import flash_attention_bwd_tri
 
@@ -535,9 +599,9 @@ def flash_attention_bwd_auto(
     if impl == "fused":
         return flash_attention_bwd_fused(
             q, k, v, o, do, lse, q_offset, dlse, sm_scale=sm_scale, causal=causal,
-            q_offset_max=q_offset_max,
+            q_offset_max=q_offset_max, **feats,
         )
     return flash_attention_bwd(
         q, k, v, o, do, lse, q_offset, dlse, sm_scale=sm_scale, causal=causal,
-        pos_div=pos_div,
+        pos_div=pos_div, **feats,
     )

@@ -33,8 +33,15 @@ fp16 datapath; the CUDA kernels take bf16 and fp32).  The JAX router also
 sends causal calls away from the triangular kernel past N = 4096 or at
 tile-unfriendly lengths (``tri_heuristic``, ``_TRI_MAX_N``,
 ``_UNROLL_CAP``): those are Mosaic compile limits, so the port's
-triangular kernel takes every N.  Its features (window, softcap, ...)
-raise ``NotImplementedError`` on every route (ROADMAP.md, Queue A item 2).
+triangular kernel takes every N.
+
+The sliding window with attention sinks and packed segment ids are the
+general kernel's, as in JAX (``flash_fwd.py:829-838, 932-958``): a call
+that asks for either goes to it.  A window skips the KV tiles outside the
+window and the sinks, and the decode grid's splits that hold none of them
+run no step.  Segment ids are an element test on every step and take no
+split.  The other features (``UNPORTED_FEATURES``) raise
+``NotImplementedError`` on every route (ROADMAP.md, Queue A item 2).
 
 Each kernel's wrapper takes its plain version for a tensor on the CPU and
 launches the kernel, or raises, for a CUDA tensor.  Nothing falls back.
@@ -48,7 +55,7 @@ from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..config import DEFAULT_MASK_VALUE, default_scale
+from ..config import DEFAULT_MASK_VALUE, SegmentIds, default_scale
 from . import _build
 
 # The head dims every CUDA kernel is built for (a template parameter of
@@ -56,10 +63,10 @@ from . import _build
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-# Features of the JAX kernel not ported yet (ROADMAP.md, Queue A item 2).
+# Features of the JAX kernel not ported yet (ROADMAP.md, Queue A items 2
+# and 3).
 UNPORTED_FEATURES = (
-    "window", "sinks", "segment_ids", "kv_positions", "softcap",
-    "alibi_slopes", "dropout_rate", "dropout_seed",
+    "kv_positions", "softcap", "alibi_slopes", "dropout_rate", "dropout_seed",
 )
 
 
@@ -78,6 +85,61 @@ def reject_unported(features: dict) -> None:
             f"{asked} not ported to the PyTorch package yet "
             "(see ROADMAP.md, Queue A item 2)"
         )
+
+
+def window_args(window: Optional[int], sinks: int, causal: bool) -> Tuple[int, int]:
+    """``(window, sinks)`` as the C entries take them: 0 for no window (and
+    then no sinks: they apply only beside a window, as in JAX).  A window
+    needs ``causal`` and is at least 1; sinks are at least 0."""
+    if sinks < 0:
+        raise ValueError(f"sinks must be >= 0, got {sinks}")
+    if window is None:
+        return 0, 0
+    if not causal:
+        raise ValueError("window requires causal=True")
+    if int(window) < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return int(window), int(sinks)
+
+
+def check_segment_ids(segment_ids: Optional[SegmentIds], batch: int, n_q: int, n_kv: int,
+                      device) -> Optional[SegmentIds]:
+    """The ids as int32 ``[B, N_q]`` and ``[B, N_kv]`` tensors on ``device``
+    (contiguous, as the kernels read them), or None."""
+    if segment_ids is None:
+        return None
+    sq, skv = segment_ids.q, segment_ids.kv
+    if tuple(sq.shape) != (batch, n_q) or tuple(skv.shape) != (batch, n_kv):
+        raise ValueError(f"segment ids [{batch}, {n_q}] and [{batch}, {n_kv}] expected, got "
+                         f"{tuple(sq.shape)} and {tuple(skv.shape)}")
+    if sq.dtype.is_floating_point or skv.dtype.is_floating_point:
+        raise TypeError("segment ids must be integers")
+    return SegmentIds(sq.to(device=device, dtype=torch.int32).contiguous(),
+                      skv.to(device=device, dtype=torch.int32).contiguous())
+
+
+def plain_visible(n_q: int, n_kv: int, q_offset: torch.Tensor, *, causal: bool,
+                  pos_div: int = 1, window: Optional[int] = None, sinks: int = 0,
+                  segment_ids: Optional[SegmentIds] = None, device=None) -> torch.Tensor:
+    """Bool ``[B or 1, 1, N_q, N_kv]``: the pairs a kernel's contract lets a
+    row see.  With ``causal`` row ``r`` of batch ``b`` sits at position ``p
+    = r // pos_div + q_offset[b]`` and sees ``c <= p``, with a window only
+    ``c > p - window`` unless ``c < sinks``; segment ids: equal ids only."""
+    visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=device)
+    if causal:
+        row = torch.arange(n_q, device=device) // pos_div
+        col = torch.arange(n_kv, device=device)
+        pos = row[:, None] + q_offset.to(device, torch.int64).reshape(-1, 1, 1, 1)
+        visible = col <= pos
+        if window is not None:
+            keep = col > pos - window
+            if sinks:
+                keep = keep | (col < sinks)
+            visible = visible & keep
+    if segment_ids is not None:
+        seg = segment_ids.q.to(device)[:, None, :, None] == segment_ids.kv.to(device)[:, None, None, :]
+        visible = visible & seg
+    return visible
 
 
 def _offsets(q_offset, batch: int, default: int, device) -> torch.Tensor:
@@ -169,19 +231,22 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return held
 
 
-def split_args(q: torch.Tensor, n_kv: int) -> tuple:
+def split_args(q: torch.Tensor, n_kv: int, split: bool = True) -> tuple:
     """``(grid, part, tickets, stream)`` for a launch of a
     ``csrc/flash_fwd.cu`` entry over q and a KV row of ``n_kv`` columns:
     the ``SplitGrid`` of ``decode_kv_chunk``'s chunk, and for more than one
     split the partials' workspace (torch's caching allocator: no
     ``cudaMalloc`` per call) and the stream's tickets; else None for both.
     Keep ``part`` alive until the launch has been issued.  The wrapper
-    keeps ``grid`` as its ``.grid`` beside its ``.launches``."""
+    keeps ``grid`` as its ``.grid`` beside its ``.launches``.  ``split``
+    False (segment ids: no decode grid) keeps one chunk over the row."""
     batch, heads, n_q, head_dim = q.shape
     stream, sms = _cuda_args(q)
     kv_chunk = decode_kv_chunk(batch, heads, n_q, n_kv, sms)
+    if not split:
+        kv_chunk = -(-n_kv // KV_TILE) * KV_TILE
     splits = kv_splits(n_kv, kv_chunk)
-    tiles = splits if n_q <= DECODE_ROWS else -(-n_q // KV_TILE)
+    tiles = splits if n_q <= DECODE_ROWS and split else -(-n_q // KV_TILE)
     grid = SplitGrid(kv_chunk, splits, tiles * heads * batch)
     if splits == 1:
         return grid, None, None, stream
@@ -194,12 +259,13 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale):
+def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale,
+                  window=None, sinks=0, segment_ids=None):
     """The plain versions' fp32 ``(scores, visible, v, v_scale columns)``:
-    K/V repeated to q's heads, the K scale on each score column, the causal
-    visibility ``c <= r // pos_div + q_offset[b]``, and the V scale as a
-    ``[B, H, 1, N_kv]`` factor of P's columns (None unscaled)."""
-    b, h, n_q, _ = q.shape
+    K/V repeated to q's heads, the K scale on each score column, the
+    visibility of ``plain_visible``, and the V scale as a ``[B, H, 1,
+    N_kv]`` factor of P's columns (None unscaled)."""
+    _, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     group = h // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
@@ -207,12 +273,8 @@ def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
     if k_scale is not None:
         s = s * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
-    visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=q.device)
-    if causal:
-        row = torch.arange(n_q, device=q.device) // pos_div
-        col = torch.arange(n_kv, device=q.device)
-        limit = row[:, None] + q_offset.to(q.device, torch.int64).reshape(b, 1, 1, 1)
-        visible = col <= limit
+    visible = plain_visible(n_q, n_kv, q_offset, causal=causal, pos_div=pos_div, window=window,
+                            sinks=sinks, segment_ids=segment_ids, device=q.device)
     v_cols = None if v_scale is None else v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
     return s, visible, vf, v_cols
 
@@ -229,15 +291,19 @@ def flash_attention_fwd_plain(
     save_lse: bool = False,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``).
 
     ``k_scale``, ``v_scale``: fp32 ``[B, H_kv, N_kv]`` per-token scales of
     an 8-bit ``k``, ``v`` (``kernels/quant.py``): the K scale multiplies
-    each score column, the V scale each column of P.
+    each score column, the V scale each column of P.  ``window``,
+    ``sinks``, ``segment_ids``: see ``plain_visible``.
     """
     s, visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
-                                           k_scale, v_scale)
+                                           k_scale, v_scale, window, sinks, segment_ids)
     s = s.masked_fill(~visible, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m) * visible
@@ -263,6 +329,8 @@ def split_partials_plain(
     pos_div: int = 1,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    sinks: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decode grid's partials in fp32 PyTorch: ``(o_s, m_s, l_s)``, each
     with a leading split axis, for chunks of ``kv_chunk`` columns.
@@ -272,10 +340,11 @@ def split_partials_plain(
     (natural log units), ``l_s = sum exp(s - m_s)``, ``o_s = sum exp(s - m_s)
     * s_v * v``, not normalised.  A row that sees none of a split's columns
     (a chunk past the diagonal: an empty split) has ``m_s = -inf``, ``l_s =
-    0`` and ``o_s = 0``.
+    0`` and ``o_s = 0``: so is a split wholly outside a row's window and
+    sinks.
     """
     s, visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
-                                           k_scale, v_scale)
+                                           k_scale, v_scale, window, sinks)
     n_kv = k.shape[2]
     col = torch.arange(n_kv, device=q.device)
     os_, ms_, ls_ = [], [], []
@@ -338,6 +407,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,  # q, k, v, q_offset, o, lse
         i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
         ctypes.c_float, i32, i32, i32,  # sm_scale, causal, pos_div, dtype
+        i32, i32, ptr, ptr,  # window (0: none), sinks, q segment ids, kv segment ids
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -414,10 +484,13 @@ def flash_fwd_general(
     causal: bool = False,
     save_lse: bool = False,
     pos_div: int = 1,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The general kernel (``csrc/flash_fwd.cu``; bf16 with ``pos_div ==
-    1`` and more than ``DECODE_ROWS`` rows on the ``wgmma`` kernel of
-    ``csrc/flash_fwd_sm90.cuh``) over ``[B, H, N, D]``.
+    1`` and more than ``DECODE_ROWS`` rows, or segment ids, on the
+    ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cuh``) over ``[B, H, N, D]``.
 
     ``k``/``v`` may have fewer heads than ``q`` (GQA: q-head ``h`` reads
     kv-head ``h // group``).  With ``causal``, row ``r`` of batch ``b`` sees
@@ -425,12 +498,21 @@ def flash_fwd_general(
     a ``[B]`` tensor and defaults to ``n_kv - n_q // pos_div``.  Returns
     ``o`` (``q``'s dtype) or ``(o, lse)`` with ``lse`` fp32 ``[B, H, N_q]``;
     rows with nothing visible give ``o = 0`` and ``lse = -inf``.
+
+    ``window`` (needs ``causal``): row ``r`` at position ``p = r // pos_div
+    + q_offset[b]`` sees only ``c > p - window``, besides ``c < sinks``;
+    the KV tiles outside both are skipped.  ``segment_ids``
+    (``config.SegmentIds``, not with ``pos_div > 1``): equal ids only.
     """
     check_shapes(q, k, v)
     batch, heads, n_q, head_dim = q.shape
     if pos_div < 1 or (pos_div > 1 and not causal):
         raise ValueError(f"pos_div={pos_div} must be >= 1, and > 1 only with causal")
+    if pos_div > 1 and segment_ids is not None:
+        raise NotImplementedError("pos_div > 1 (the GQA decode fold) does not take segment_ids")
     n_kv = k.shape[2]
+    w, n_sinks = window_args(window, sinks, causal)
+    seg = check_segment_ids(segment_ids, batch, n_q, n_kv, q.device)
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
     off = _offsets(q_offset, batch, n_kv - n_q // pos_div, q.device)
@@ -440,17 +522,19 @@ def flash_fwd_general(
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
-            save_lse=save_lse,
+            save_lse=save_lse, window=window if w else None, sinks=n_sinks, segment_ids=seg,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, off)
     o, lse = _new_outputs(q, save_lse)
-    grid, part, tickets, stream = split_args(q, n_kv)
+    grid, part, tickets, stream = split_args(q, n_kv, split=seg is None)
     err = _lib().fam_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, k.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
-        pos_div, _DTYPE_CODES[q.dtype], grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
+        pos_div, _DTYPE_CODES[q.dtype], w, n_sinks, None if seg is None else seg.q.data_ptr(),
+        None if seg is None else seg.kv.data_ptr(), grid.kv_chunk, _ptr(part), _ptr(tickets),
+        stream,
     )
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
@@ -528,10 +612,13 @@ def is_static_offset(q_offset) -> bool:
     return q_offset is None or (isinstance(q_offset, int) and not isinstance(q_offset, bool))
 
 
-def fwd_route(n_kv: int, q_offset, *, causal: bool, pos_div: int = 1) -> str:
+def fwd_route(n_kv: int, q_offset, *, causal: bool, pos_div: int = 1,
+              featured: bool = False) -> str:
     """The kernel ``flash_attention_fwd`` runs: ``"tri"``, ``"lean"`` or
-    ``"general"`` (the JAX router's rules without its Mosaic limits)."""
-    if is_static_offset(q_offset) and pos_div == 1:
+    ``"general"`` (the JAX router's rules without its Mosaic limits).
+    ``featured``: a window or segment ids, which only the general kernel
+    takes (JAX ``flash_fwd.py:829-838, 932-958``)."""
+    if is_static_offset(q_offset) and pos_div == 1 and not featured:
         if causal:
             return "tri"
         if n_kv <= LEAN_MAX_KV:
@@ -549,6 +636,9 @@ def flash_attention_fwd(
     causal: bool = False,
     save_lse: bool = False,
     pos_div: int = 1,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash-attention forward over ``[B, H, N, D]`` inputs, routed to the
@@ -556,17 +646,20 @@ def flash_attention_fwd(
 
     The contract is ``flash_fwd_general``'s: GQA, causal masking with
     ``q_offset`` (None, an int or a ``[B]`` tensor; default
-    ``n_kv - n_q // pos_div``), ``pos_div`` rows per position, ``o`` or
-    ``(o, lse)``.  fp16 inputs compute in fp32 and return fp16.
+    ``n_kv - n_q // pos_div``), ``pos_div`` rows per position, the window
+    with its sinks and segment ids, ``o`` or ``(o, lse)``.  fp16 inputs
+    compute in fp32 and return fp16.
     """
     reject_unported(features)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     if q.dtype == torch.float16:
         out = flash_attention_fwd(
             q.float(), k.float(), v.float(), q_offset, sm_scale=sm_scale,
-            causal=causal, save_lse=save_lse, pos_div=pos_div,
+            causal=causal, save_lse=save_lse, pos_div=pos_div, **feats,
         )
         return (out[0].half(), out[1]) if save_lse else out.half()
-    route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div)
+    featured = window is not None or segment_ids is not None
+    route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div, featured=featured)
     if route == "tri":
         from .flash_tri import flash_attention_tri
 
@@ -577,5 +670,5 @@ def flash_attention_fwd(
         )
     return flash_fwd_general(
         q, k, v, q_offset, sm_scale=sm_scale, causal=causal, save_lse=save_lse,
-        pos_div=pos_div,
+        pos_div=pos_div, **feats,
     )

@@ -42,6 +42,7 @@ from .flash_fwd import (
     flash_attention_fwd_plain,
     reject_unported,
     split_args,
+    window_args,
 )
 
 # Largest magnitude of each 8-bit format: the per-token scale maps a token's
@@ -116,11 +117,14 @@ def flash_attention_quant_plain(
     causal: bool,
     pos_div: int = 1,
     save_lse: bool = False,
+    window: Optional[int] = None,
+    sinks: int = 0,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``)."""
     return flash_attention_fwd_plain(
         q, qkv.k_q, qkv.v_q, q_offset, sm_scale=sm_scale, causal=causal,
         pos_div=pos_div, save_lse=save_lse, k_scale=qkv.k_scale, v_scale=qkv.v_scale,
+        window=window, sinks=sinks,
     )
 
 
@@ -132,6 +136,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # q, k_q, v_q, k/v scale, q_offset, o, lse
         i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
         f32, i32, i32, i32, i32,  # sm_scale, causal, pos_div, dtype, kv dtype
+        i32, i32,  # window (0: none), sinks
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -140,6 +145,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32,  # batch, heads, kv heads, n_q
         i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
         f32, i32, i32,  # sm_scale, pos_div, dtype
+        i32, i32,  # window (0: none), sinks
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -148,6 +154,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32,  # batch, heads, kv heads, n_q
         i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
         f32, i32, i32, i32,  # sm_scale, pos_div, dtype, kv dtype
+        i32, i32,  # window (0: none), sinks
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -201,6 +208,8 @@ def flash_attention_quant(
     causal: bool = False,
     save_lse: bool = False,
     pos_div: int = 1,
+    window: Optional[int] = None,
+    sinks: int = 0,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash attention of ``q [B, H, N_q, D]`` (bf16/fp32) against an 8-bit
@@ -212,8 +221,11 @@ def flash_attention_quant(
     to ``n_kv - n_q // pos_div``; ``pos_div > 1`` (the GQA decode fold)
     needs ``causal``.  Returns ``o`` in q's dtype, or ``(o, lse)`` with lse
     fp32 ``[B, H, N_q]``; rows with nothing visible give 0 and -inf.
+    ``window`` and ``sinks`` (with ``causal``) as ``flash_fwd_general``'s:
+    the KV tiles outside both are skipped.
     """
     reject_unported(dict(features, kv_positions=kv_positions))
+    w, n_sinks = window_args(window, sinks, causal)
     check_scales(qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
     if q.ndim != 4 or qkv.k_q.ndim != 4 or qkv.k_q.shape[0] != q.shape[0] \
             or qkv.k_q.shape[3] != q.shape[3] or q.shape[1] % qkv.k_q.shape[1]:
@@ -230,7 +242,8 @@ def flash_attention_quant(
 
     if q.device.type == "cpu":
         return flash_attention_quant_plain(
-            q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div, save_lse=save_lse
+            q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div, save_lse=save_lse,
+            window=window if w else None, sinks=n_sinks,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -239,10 +252,10 @@ def flash_attention_quant(
         dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale, q_offset=off),
     )
     return _launch_quant(q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
-                         save_lse=save_lse)
+                         save_lse=save_lse, window=w, sinks=n_sinks)
 
 
-def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse):
+def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0, sinks=0):
     """``fam_flash_quant`` on checked tensors: ``o`` or ``(o, lse)``."""
     batch, heads, n_q, head_dim = q.shape
     n_kv = qkv.seq_len
@@ -252,8 +265,8 @@ def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse):
         q.data_ptr(), qkv.k_q.data_ptr(), qkv.v_q.data_ptr(), qkv.k_scale.data_ptr(),
         qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, qkv.k_q.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
-        pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype], grid.kv_chunk, _ptr(part),
-        _ptr(tickets), stream,
+        pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype], window, sinks,
+        grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_quant kernel launch failed: cudaError_t {err}")

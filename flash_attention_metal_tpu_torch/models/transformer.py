@@ -35,10 +35,12 @@ class ModelConfig:
     # "auto": the flash-attention kernel; "reference": the fp32 oracle
     # (the JAX package's attn_impl="xla").
     attn_impl: str = "auto"
-    # The JAX config's attention features, not ported yet: each raises
-    # NotImplementedError unless left at its "off" value.
+    # Sliding-window attention with attention sinks (the JAX config's):
+    # every attention call of training and serving takes them.
     attn_window: Optional[int] = None
     attn_sinks: int = 0
+    # The JAX config's other attention features, not ported yet: each
+    # raises NotImplementedError unless left at its "off" value.
     attn_softcap: Optional[float] = None
     attn_alibi: bool = False
     attn_dropout: float = 0.0
@@ -50,10 +52,10 @@ class ModelConfig:
             raise ValueError("d_model and d_ff must be multiples of 128")
         if self.attn_impl not in ("auto", "reference"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
+        if self.attn_window is not None and self.attn_window < 1:
+            raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")
         asked = [
-            name for name in (
-                "attn_window", "attn_sinks", "attn_softcap", "attn_alibi", "attn_dropout"
-            ) if getattr(self, name)
+            name for name in ("attn_softcap", "attn_alibi", "attn_dropout") if getattr(self, name)
         ]
         if asked:
             raise NotImplementedError(
@@ -166,9 +168,11 @@ def qkv_projections(layer: Params, x: torch.Tensor, cfg: ModelConfig, positions)
 def attention_block(
     layer: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 ) -> torch.Tensor:
-    """Causal self-attention over ``x`` with a residual connection."""
+    """Causal self-attention over ``x`` with a residual connection (within
+    ``cfg.attn_window`` and its sinks when set)."""
     q, k, v = qkv_projections(layer, x, cfg, positions)
-    o = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    o = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.attn_window,
+                        sinks=cfg.attn_sinks)
     return x + _merge_heads(o) @ weight(layer["wo"], cfg.dtype)
 
 

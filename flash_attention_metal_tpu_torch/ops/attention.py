@@ -7,7 +7,9 @@ outputs keep the JAX package's ``[B, H, N, D]`` layout.  The JAX op is a
 row logsumexp and whose backward runs the backward router.  Offsets reach
 the kernels as int32 ``[B]`` tensors, so the routers take the general
 forward kernel and, unless the autotuner's saved decision for the shape
-names the fused kernel, the split backward pair, as in JAX.
+names the fused kernel, the split backward pair, as in JAX.  The sliding
+window with its sinks and packed segment ids ride the same Function into
+both routers.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
-from ..config import default_scale
+from ..config import SegmentIds, default_scale
 from ..kernels.flash_bwd import flash_attention_bwd_auto
 from ..kernels.flash_fwd import _offsets, flash_attention_fwd, reject_unported
 from ..reference.oracle import attention_reference, attention_reference_with_lse
@@ -29,12 +31,12 @@ class _FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, off, off_max, sm_scale, causal, save_lse):
+    def forward(ctx, q, k, v, off, off_max, sm_scale, causal, save_lse, feats):
         o, lse = flash_attention_fwd(
-            q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True
+            q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True, **feats
         )
         ctx.save_for_backward(q, k, v, off, o, lse)
-        ctx.off_max, ctx.sm_scale, ctx.causal = off_max, sm_scale, causal
+        ctx.off_max, ctx.sm_scale, ctx.causal, ctx.feats = off_max, sm_scale, causal, feats
         ctx.set_materialize_grads(False)
         if save_lse:
             return o, lse
@@ -49,9 +51,9 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd_auto(
             q, k, v, o, do, lse, off,
             None if dlse is None else dlse.contiguous(),
-            sm_scale=ctx.sm_scale, causal=ctx.causal, q_offset_max=ctx.off_max,
+            sm_scale=ctx.sm_scale, causal=ctx.causal, q_offset_max=ctx.off_max, **ctx.feats,
         )
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -64,6 +66,9 @@ def flash_attention(
     sm_scale: Optional[float] = None,
     save_lse: bool = False,
     impl: str = "auto",
+    window: Optional[int] = None,
+    sinks: int = 0,
+    segment_ids: Optional[SegmentIds] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Differentiable flash attention over ``[B, H, N, D]`` inputs.
@@ -80,8 +85,15 @@ def flash_attention(
       impl: ``"auto"`` runs the kernels (their plain versions for CPU
         tensors); ``"reference"`` runs the fp32 oracle, differentiated by
         torch autograd: the counterpart of the JAX package's ``impl="xla"``.
-      features: the JAX op's window/sinks/segment_ids/kv_positions/softcap/
-        alibi/dropout arguments; each raises NotImplementedError if set.
+      window: with ``causal``, row ``r`` (position ``p = r + q_offset[b]``)
+        sees only its last ``window`` columns, ``c > p - window``
+        (sliding-window attention); the KV tiles outside it are skipped.
+      sinks: with ``window``, columns ``c < sinks`` stay visible beyond it
+        (attention sinks).
+      segment_ids: ``config.SegmentIds`` of packed sequences: tokens
+        attend only within equal ids.  Composes with causal and window.
+      features: the JAX op's kv_positions/softcap/alibi/dropout arguments;
+        each raises NotImplementedError if set.
 
     Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.  When
     grad is enabled and an input requires it, the backward runs the
@@ -95,13 +107,14 @@ def flash_attention(
             f"q heads ({q.shape[1]}) must be a multiple of kv heads ({k.shape[1]})"
         )
     reject_unported(features)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     if sm_scale is None:
         sm_scale = default_scale(q.shape[-1])
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
     if impl == "reference":
         ref = attention_reference_with_lse if save_lse else attention_reference
-        return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset)
+        return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset, **feats)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -112,9 +125,9 @@ def flash_attention(
     off = _offsets(q_offset, q.shape[0], 0, q.device)
     off_max = None if torch.is_tensor(q_offset) else int(q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, off, off_max, sm_scale, causal, save_lse)
+        return _FlashAttention.apply(q, k, v, off, off_max, sm_scale, causal, save_lse, feats)
     return flash_attention_fwd(
-        q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse
+        q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse, **feats
     )
 
 
@@ -153,6 +166,8 @@ def gqa_decode_attention(
     *,
     sm_scale: Optional[float] = None,
     save_lse: bool = False,
+    window: Optional[int] = None,
+    sinks: int = 0,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Head-folded GQA/MQA decode attention (forward only, serving path).
@@ -161,8 +176,9 @@ def gqa_decode_attention(
     ``q_offset[b] + t``; ``k, v``: ``[B, H_kv, N, D]`` cache.  Each KV
     head's ``group`` query heads fold into adjacent rows of one tile
     (kernel ``pos_div`` masking), so the cache streams once per KV head
-    instead of once per q-head.  Returns ``o`` shaped like ``q`` (and
-    ``lse [B, H_q, T]``).
+    instead of once per q-head.  ``window`` and ``sinks``: as
+    ``flash_attention``'s, in each row's position.  Returns ``o`` shaped
+    like ``q`` (and ``lse [B, H_q, T]``).
     """
     b, hq, t, d = q.shape
     hkv = k.shape[1]
@@ -171,7 +187,8 @@ def gqa_decode_attention(
     group = hq // hkv
     out = flash_attention_fwd(
         fold_gqa_rows(q, hkv).contiguous(), k, v, q_offset, causal=True,
-        sm_scale=sm_scale, save_lse=save_lse, pos_div=group, **features,
+        sm_scale=sm_scale, save_lse=save_lse, pos_div=group, window=window, sinks=sinks,
+        **features,
     )
     if save_lse:
         return unfold_gqa_rows(out[0], hq, t), unfold_gqa_rows(out[1], hq, t)

@@ -71,8 +71,10 @@ def _attn_with_cache(
     layer_idx: int,
     positions: torch.Tensor,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One attention block reading and writing the cache (T new tokens)."""
+    """One attention block reading and writing the cache (T new tokens),
+    within the config's window and sinks on every cache kind."""
     t_new = x.shape[1]
+    win = dict(window=cfg.attn_window, sinks=cfg.attn_sinks)
     q, k, v = qkv_projections(layer, x, cfg, positions)
     # GQA decode head-fold: the group q-heads sharing a KV head become
     # rows of one tile, so the cache is read once per KV head.  Prefill
@@ -87,12 +89,12 @@ def _attn_with_cache(
         cache = append_tokens_paged(cache, i, k, v)
         o = _attend(lambda qq, pos_div: flash_attention_paged(
             qq, cache.pool_k[i], cache.pool_v[i], cache.page_table, cache.lengths,
-            pos_div=pos_div), q.contiguous(), cfg.n_kv_heads, fold)
+            pos_div=pos_div, **win), q.contiguous(), cfg.n_kv_heads, fold)
     elif isinstance(cache, PagedQuantKVCache):
         cache = append_tokens_paged_quant(cache, i, k, v)
         o = _attend(lambda qq, pos_div: flash_attention_paged_quant(
             qq, cache.pool_k_q[i], cache.pool_v_q[i], cache.pool_k_scale[i],
-            cache.pool_v_scale[i], cache.page_table, cache.lengths, pos_div=pos_div),
+            cache.pool_v_scale[i], cache.page_table, cache.lengths, pos_div=pos_div, **win),
             q.contiguous(), cfg.n_kv_heads, fold)
     elif isinstance(cache, QuantKVCache):
         # Tokens are quantized at append; the kernel reads 8-bit KV and
@@ -100,16 +102,16 @@ def _attn_with_cache(
         cache = append_tokens_quant(cache, i, k, v)
         qkv = QuantizedKV(cache.k_q[i], cache.v_q[i], cache.k_scale[i], cache.v_scale[i])
         o = _attend(lambda qq, pos_div: flash_attention_quant(
-            qq, qkv, cache.lengths, causal=True, pos_div=pos_div),
+            qq, qkv, cache.lengths, causal=True, pos_div=pos_div, **win),
             q.contiguous(), cfg.n_kv_heads, fold)
     else:
         cache = append_tokens(cache, i, k, v)
         if fold and cfg.attn_impl != "reference":
-            o = gqa_decode_attention(q, cache.k[i], cache.v[i], cache.lengths)
+            o = gqa_decode_attention(q, cache.k[i], cache.v[i], cache.lengths, **win)
         else:
             o = flash_attention(
                 q, cache.k[i], cache.v[i], q_offset=cache.lengths, causal=True,
-                impl=cfg.attn_impl,
+                impl=cfg.attn_impl, **win,
             )
     return x + _merge_heads(o) @ weight(layer["wo"], cfg.dtype), cache
 

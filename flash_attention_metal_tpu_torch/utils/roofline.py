@@ -70,11 +70,40 @@ def attention_flops(
     return f
 
 
-def visible_pairs(n_q: int, n_kv: int, q_offset: int, pos_div: int = 1) -> int:
-    """(row, column) pairs a causal call computes: row ``r`` sees columns
-    ``c <= r // pos_div + q_offset``, ``c < n_kv``.  ``4 * D`` flops each
-    in the forward (per head)."""
-    return sum(max(0, min(n_kv, r // pos_div + q_offset + 1)) for r in range(n_q))
+def _row_visible(p: int, n_kv: int, window: Optional[int], sinks: int) -> int:
+    """Columns a row at position ``p`` sees: ``c <= p``, ``c < n_kv`` and,
+    under a window, ``c > p - window`` or ``c < sinks``."""
+    last = min(n_kv - 1, p)
+    if last < 0:
+        return 0
+    if window is None:
+        return last + 1
+    lo = max(0, p - window + 1)
+    return max(0, last - lo + 1) + max(0, min(sinks, lo, last + 1))
+
+
+def visible_pairs(n_q: int, n_kv: int, q_offset: int, pos_div: int = 1,
+                  window: Optional[int] = None, sinks: int = 0) -> int:
+    """(row, column) pairs a causal call computes: row ``r`` at position
+    ``p = r // pos_div + q_offset`` sees columns ``c <= p``, ``c < n_kv``,
+    and under a sliding window only ``c > p - window``, besides the first
+    ``sinks``.  ``4 * D`` flops each in the forward (per head)."""
+    return sum(_row_visible(r // pos_div + q_offset, n_kv, window, sinks) for r in range(n_q))
+
+
+def visible_kv_rows(n_q: int, n_kv: int, q_offset: int, pos_div: int = 1,
+                    window: Optional[int] = None, sinks: int = 0) -> int:
+    """KV rows any of the call's rows sees (per KV head): the least a
+    causal call must read.  The rows' windows overlap, so their union is
+    the sinks and the span from the first row's window to the last row's
+    diagonal."""
+    last = min(n_kv - 1, (n_q - 1) // pos_div + q_offset)
+    if last < 0:
+        return 0
+    if window is None:
+        return last + 1
+    lo = max(0, q_offset - window + 1)
+    return max(0, last - lo + 1) + max(0, min(sinks, lo, last + 1))
 
 
 def block_sparse_work(batch: int, heads: int, kv_heads: int, n_q: int, n_kv: int,
@@ -128,13 +157,17 @@ def fused_bwd_work(
     *,
     causal: bool,
     q_offset: int = 0,
+    window: Optional[int] = None,
+    sinks: int = 0,
 ) -> tuple:
     """``(flops, bytes)`` the fused backward must do: five products per
-    visible (row, column) pair (S, dP, dV, dK and dQ: ``10 * D`` flops),
+    visible (row, column) pair (S, dP, dV, dK and dQ: ``10 * D`` flops;
+    under a window its visible pairs only),
     and q, o, dO, k, v and the fp32 lse read once, dq, dk, dv written once
     (``itemsize`` bytes per element).  Its dQ workspace is the design's
     cost, not the function's, and is left out."""
-    pairs = visible_pairs(n_q, n_kv, q_offset) if causal else n_q * n_kv
+    pairs = (visible_pairs(n_q, n_kv, q_offset, window=window, sinks=sinks) if causal
+             else n_q * n_kv)
     q_elems = batch * heads * n_q * head_dim
     kv_elems = batch * kv_heads * n_kv * head_dim
     nbytes = (4 * q_elems + 4 * kv_elems) * itemsize + 4 * batch * heads * n_q

@@ -169,8 +169,8 @@ def test_gqa_decode_attention_matches_jax(hq, hkv, t):
 
 @pytest.mark.parametrize(
     "feature",
-    [dict(window=64), dict(softcap=30.0), dict(dropout_rate=0.1),
-     dict(alibi_slopes=torch.ones(2))],
+    [dict(kv_positions=torch.zeros((1, 8), dtype=torch.int32)), dict(softcap=30.0),
+     dict(dropout_rate=0.1), dict(alibi_slopes=torch.ones(2))],
 )
 def test_unported_features_raise(feature):
     q = torch.zeros((1, 2, 8, 64))

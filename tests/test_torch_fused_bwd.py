@@ -173,7 +173,13 @@ def test_fused_bwd_keeps_k_dtype_and_checks_its_tile():
     with pytest.raises(TypeError, match="block_sizes"):
         fb.flash_attention_bwd_fused(q, k, v, o, do, lse, causal=True, block_sizes=BlockSizes())
     with pytest.raises(NotImplementedError):
-        fb.flash_attention_bwd_fused(q, k, v, o, do, lse, causal=True, window=16)
+        fb.flash_attention_bwd_fused(q, k, v, o, do, lse, causal=True, softcap=30.0)
+    # The window is ported: the fused route's gradients are the split
+    # pair's under it (their plain versions differ only in dQ's summation).
+    fused = fb.flash_attention_bwd_fused(q, k, v, o, do, lse, causal=True, window=16, sinks=2)
+    split = fb.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=16, sinks=2)
+    for g, w in zip(fused, split):
+        assert float((g.float() - w.float()).abs().max()) <= 1e-2 * float(w.float().abs().max())
 
 
 def test_fused_plain_sums_64_column_partials():

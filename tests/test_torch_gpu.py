@@ -497,7 +497,9 @@ def test_bwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(NotImplementedError):
         fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, pos_div=2)
     with pytest.raises(NotImplementedError):
-        fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, window=16)
+        fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)
+    with pytest.raises(ValueError, match="causal"):
+        fb.flash_attention_bwd(q, q, q, q, q, lse, causal=False, window=16)
     with pytest.raises(ValueError, match="lse"):
         fb.flash_attention_bwd(q, q, q, q, q, lse.double(), causal=True)
 
@@ -1303,7 +1305,7 @@ PLANTED_FUSED_FAULTS = {
         "            tile[(j * 8 + 2 * t + 1) * kDqPitch + r] = dqt[0][4 * j + 2 * h + 1];"),
     # the ordered add without its wait on the counter: tiles add in any order
     "ordered_add_unwaited": ("flash_bwd_fused_sm90.cuh",
-                             "dq_ordered::load_acquire(cnt) < kv_tile", "false"),
+                             "dq_ordered::load_acquire(cnt) < rank", "false"),
 }
 
 
@@ -1352,7 +1354,9 @@ def test_fused_bwd_rejects_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="block_sizes"):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, block_sizes=fb.BlockSizes())
     with pytest.raises(NotImplementedError):
-        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, window=16)
+        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, softcap=30.0)
+    with pytest.raises(ValueError, match="causal"):
+        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=False, window=16)
     # fp16 runs in fp32 (as flash_attention_bwd); fp64 has no kernel.
     with pytest.raises(TypeError):
         fb.flash_attention_bwd_fused(q.double(), q.double(), q.double(), q.double(), q.double(),
@@ -1830,3 +1834,137 @@ def test_planted_sparse_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault
         assert all(worst(clean[n], out) <= tol[out] for out in tol), (n, clean[n])
         for out in outputs:
             assert not worst(faulty[n], out) <= tol[out], (n, out)
+
+
+# ---------------------------------------------------------------------------
+# The sliding window with attention sinks, and segment ids (rows 1, 5-7 and
+# 11-13): each windowed and segmented kernel against its plain version
+# (onchip.WINDOW_*_CASES: the training, prefill and decode shapes, head dim
+# 64 and 128, bf16 and fp32, the ladder, peaked and spike fixtures, a window
+# ending mid-tile, a sink tile far left of it, decode splits wholly outside
+# the window), then planted faults.
+
+WINDOW_FWD_NAMES = [c[0] for c in onchip.WINDOW_FWD_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WINDOW_FWD_NAMES)
+def test_window_forward_matches_plain(cuda, name):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    case = onchip.window_fwd_cases(gen, (name,))[name]
+    err, lse_err = onchip.window_fwd_error(case)
+    tol = TOL[case[0].dtype]
+    print(f"\n{name}: o {err:.3e}, lse {lse_err:.3e}")
+    assert err <= tol and lse_err <= tol, (err, lse_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["split", "fused"])
+@pytest.mark.parametrize("name,with_fused", onchip.WINDOW_BWD_CASES)
+def test_window_bwd_matches_plain(cuda, name, with_fused, fused):
+    if fused and not with_fused:
+        pytest.skip("the split pair alone on this fixture")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    inputs = onchip.window_bwd_inputs(onchip.window_fwd_cases(gen, (name,))[name], gen)
+    errs = onchip.window_bwd_errors(inputs, fused=fused)
+    print(f"\n{name} {'fused' if fused else 'split'}: "
+          + ", ".join(f"{g} {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items()))
+    assert all(rel <= BWD_TOL[inputs[0].dtype] for _, rel in errs.values()), errs
+
+
+@pytest.mark.gpu
+def test_window_bwd_kernels_are_deterministic(cuda):
+    """The windowed split pair and the fused kernel's ordered dQ adds (over
+    a Q tile's sink and window tiles) give the same bits on every run."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    q, k, v, o, do, lse, off, feats = onchip.window_bwd_inputs(
+        onchip.window_fwd_cases(gen, ("train_w500_s70_bf16",))["train_w500_s70_bf16"], gen)
+    for fn, kw in ((fb.flash_attention_bwd, {}), (fb.flash_attention_bwd_fused, {"q_offset_max": 0})):
+        runs = [fn(q, k, v, o, do, lse, off, **kw, **feats) for _ in range(3)]
+        assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,window,sinks", onchip.WINDOW_KV_CASES)
+def test_window_kv_kernels_match_plain(cuda, name, window, sinks):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = {**onchip.kv_cases(gen), **onchip.kv_d128_cases(gen)}
+    kernel, args, pos_div = cases[name]
+    err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div, window=window, sinks=sinks)
+    print(f"\n{name} W {window} S {sinks}: o {err:.3e}, lse {lse_err:.3e}")
+    assert err <= TOL[args[0].dtype] and lse_err <= TOL[args[0].dtype]
+
+
+@pytest.mark.gpu
+def test_window_skips_the_tiles_outside(cuda):
+    """Out-of-window tiles are skipped, not masked: at N = 2048, W = 512 the
+    windowed forward and split pair take well under the causal time."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    q, k, v, off, _, feats = onchip.window_fwd_cases(gen, ("train_w512_bf16",))["train_w512_bf16"]
+    causal = onchip.device_ms(lambda: ff.flash_attention_fwd(q, k, v, off, causal=True))
+    windowed = onchip.device_ms(lambda: ff.flash_attention_fwd(q, k, v, off, **feats))
+    print(f"\nforward causal {causal:.4f} ms, W 512 {windowed:.4f} ms")
+    assert windowed < 0.8 * causal
+
+
+# (source, unit, kind, failing cases, old, new): each fault fails the
+# checks of the cases that run it.
+PLANTED_WINDOW_FAULTS = {
+    # the window one column too wide: c >= p - window
+    "window_off_by_one": ("window.cuh", "flash_fwd.cu", "fwd", ("train_w16_bf16_peaked",),
+                          "return c > p - window || c < sinks;",
+                          "return c >= p - window || c < sinks;"),
+    # the walk leaves out the tiles of sinks (the columns stay "visible")
+    "sink_tile_dropped": ("window.cuh", "flash_fwd.cu", "fwd", ("train_w500_s70_bf16",),
+                          "const int n_sink = sink_tiles < end ? sink_tiles : end;",
+                          "const int n_sink = 0;"),
+    # a tile that crosses the window's edge taken as interior: out-of-window
+    # columns the walk visits are not masked
+    "out_of_window_tile_unmasked": (
+        "flash_fwd_sm90.cuh", "flash_fwd.cu", "fwd", ("train_w512_bf16", "train_w16_bf16_peaked"),
+        "tile_in_window(kv_start, kTile, q_start + kTile - 1 + off, window, sinks);", "true;"),
+    # the dQ step reads the other ring stage's KV ids: the last step's
+    "stale_kv_id_stage": ("flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd", ("train_seg_bf16",),
+                          "const uint32_t* pair_bits = sm.bits[s];",
+                          "const uint32_t* pair_bits = sm.bits[s ^ 1];"),
+    # an empty split's partial written with m = 0, not -inf: merged as a
+    # zero score, its weight swamps splits whose scores are far below 0
+    "empty_split_merged_as_zero": ("flash_decode.cuh", "flash_fwd.cu", "fwd",
+                                   ("decode_w64_bf16_negative",),
+                                   "part_m[p] = mb;", "part_m[p] = mb == -INFINITY ? 0.0f : mb;"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_WINDOW_FAULTS))
+def test_planted_window_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's windowed checks pass the kernels as built and fail a
+    copy with a planted fault (errors printed with ``-s``)."""
+    source, unit, kind, failing, old, new = PLANTED_WINDOW_FAULTS[fault]
+    mod = ff if kind == "fwd" else fb
+    lib = mod.bind(_planted_library(tmp_path, unit, source, old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.window_fwd_cases(gen, failing)
+
+    def check():
+        if kind == "fwd":
+            return {n: max(onchip.window_fwd_error(c)) for n, c in cases.items()}
+        gen.manual_seed(onchip.SEED + 1)
+        return {n: max(rel for _, rel in onchip.window_bwd_errors(
+            onchip.window_bwd_inputs(c, gen)).values()) for n, c in cases.items()}
+
+    clean = check()
+    monkeypatch.setattr(mod, "_lib", lambda: lib)
+    faulty = check()
+    print(f"\n{fault}, worst error, built -> planted: "
+          + ", ".join(f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in failing))
+    for n in failing:
+        tol = TOL[cases[n][0].dtype]
+        assert clean[n] <= tol
+        assert not faulty[n] <= tol, n

@@ -278,9 +278,12 @@ FWD_ROUTES = [
     # the int offset, traced by JAX's jit
     ("float32", True, "int", 256, 1, {}, "tri", "general"),
     ("float32", False, "int", 256, 1, {}, "lean", "general"),
-    # a feature: the port raises (ROADMAP Queue A item 5); JAX runs it on
-    # the general kernel
-    ("float32", True, "none", 256, 1, {"window": 64}, "raises", "general"),
+    # the sliding window (with its sinks): the general kernel in both
+    ("float32", True, "none", 256, 1, {"window": 64}, "general", "general"),
+    ("bfloat16", True, "none", 256, 1, {"window": 64, "sinks": 4}, "general", "general"),
+    # a feature not ported yet: the port raises (ROADMAP Queue A item 2);
+    # JAX runs it on the general kernel
+    ("float32", True, "none", 256, 1, {"softcap": 30.0}, "raises", "general"),
 ]
 
 
@@ -306,7 +309,8 @@ def test_forward_route_table(row, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ff.flash_attention_fwd(qt, qt, qt, t_off, causal=causal, **features)
         return
-    assert ff.fwd_route(n, t_off, causal=causal, pos_div=pos_div) == port_route
+    featured = "window" in features
+    assert ff.fwd_route(n, t_off, causal=causal, pos_div=pos_div, featured=featured) == port_route
     called = []
     for name, module, attr in (("tri", ft, "flash_attention_tri"),
                                ("lean", ff, "flash_fwd_lean"),
@@ -316,7 +320,8 @@ def test_forward_route_table(row, monkeypatch):
             called.append(_n), _r(*a, **k))[1])
     qk = torch.zeros((1, 2, n, 64), dtype=getattr(torch, dtype)) if n <= 1024 else None
     if qk is not None:
-        out = ff.flash_attention_fwd(qk, qk, qk, t_off, causal=causal, pos_div=pos_div)
+        out = ff.flash_attention_fwd(qk, qk, qk, t_off, causal=causal, pos_div=pos_div,
+                                     **features)
         assert called == [port_route] and out.dtype == qk.dtype
 
 
@@ -349,6 +354,22 @@ def test_backward_route_table(row):
     qt = torch.zeros((1, 2, 8, 64), dtype=getattr(torch, dtype))
     t_off = torch.from_numpy(off) if kind == "tensor" else off
     assert fb.bwd_route(qt, qt, t_off, causal=causal) == port_route
+
+
+@pytest.mark.parametrize("kind", ["none", "int"])
+def test_backward_route_with_a_window_takes_the_split_pair(kind):
+    """A window (with sinks) rules the triangular backward out in both
+    routers: the shapes of the table's tri rows take the split pair."""
+    q = jnp.zeros((1, 2, 1024, 64), jnp.bfloat16)
+    lse = jnp.zeros((1, 2, 1024, 128), jnp.float32)
+    off = _offset(kind, 1)
+    ranks = _jax_grid_ranks(
+        lambda x, l: jax_bwd_auto(x, x, x, x, x, l, off, causal=True, window=128, sinks=4,
+                                  interpret=True), q, lse)
+    assert ranks == [4, 4]
+    qt = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    assert fb.bwd_route(qt, qt, off, causal=True, featured=True) == "split"
+    assert fb.bwd_route(qt, qt, off, causal=True) == "tri"
 
 
 def test_backward_route_gqa_takes_the_split_pair():

@@ -145,6 +145,32 @@ def test_paged_quant_plain_matches_jax(case, fmt):
     assert paged.flash_attention_paged_quant.launches == 0
 
 
+@pytest.mark.parametrize("window,sinks", [(100, 0), (37, 4), (200, 130)])
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_window_matches_jax(case, window, sinks):
+    """Both paged kernels' plain versions under a window with sinks, against
+    the JAX kernels in interpret mode through the shuffled tables."""
+    q, k, v, full, table, n_pages, lengths, pos_div = _paged_inputs(case, seed=5)
+    kw = dict(pos_div=pos_div, window=window, sinks=sinks)
+    pool_k, pool_v = _pool(k, full, n_pages), _pool(v, full, n_pages)
+    got = paged.flash_attention_paged(
+        *(torch.from_numpy(x) for x in (q, pool_k, pool_v, table, lengths)), **kw)
+    want = jax_paged.flash_attention_paged(
+        *(jnp.asarray(x) for x in (q, pool_k, pool_v, table, lengths)), interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL, rtol=0)
+    qkv = quant.quantize_kv(torch.from_numpy(k), torch.from_numpy(v))
+    pools = [torch.from_numpy(_pool(_host(x), full, n_pages)).view(torch.int8)
+             for x in (qkv.k_q, qkv.v_q)]
+    pools += [torch.from_numpy(_pool(s.numpy(), full, n_pages)) for s in (qkv.k_scale, qkv.v_scale)]
+    got = paged.flash_attention_paged_quant(
+        torch.from_numpy(q), *pools, torch.from_numpy(table), torch.from_numpy(lengths), **kw)
+    j_pools = [jnp.asarray(_host(p)).view(jnp.int8) for p in pools[:2]]
+    j_pools += [jnp.asarray(p.numpy()) for p in pools[2:]]
+    want = jax_paged.flash_attention_paged_quant(
+        jnp.asarray(q), *j_pools, jnp.asarray(table), jnp.asarray(lengths), interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL, rtol=0)
+
+
 def test_paged_kernels_reject_what_they_do_not_take():
     q = torch.zeros((1, 2, 1, 64))
     pool = torch.zeros((3, 2, PS, 64))
@@ -324,6 +350,28 @@ def test_engine_matches_jax(params, jax_params, mode):
         pinned = len(eng._prefix_registry)
         assert eng._allocator.free_pages == eng.cache.n_pages - 1 - pinned
         assert not torch.any(eng.cache.page_table)
+
+
+# A window the prefix crosses, with sinks (tests/test_model.py's pattern).
+WIN_JAX_CFG = dataclasses.replace(JAX_CFG, attn_window=64, attn_sinks=4)
+WIN_CFG = dataclasses.replace(CFG, attn_window=64, attn_sinks=4)
+
+
+@pytest.mark.parametrize("mode", sorted(serving.SERVING_MODES))
+def test_windowed_engine_matches_jax(params, jax_params, mode):
+    """A FlashLM with a 64-token window and 4 sinks served in every cache
+    mode: the greedy token streams equal the JAX engine's, and the
+    log-probabilities agree (the same bounds as unwindowed)."""
+    opts = serving.SERVING_MODES[mode][0]
+    prompts = [[3, 2, 1]] + [PREFIX + [uid] for uid in range(1, 4)]
+    _, want = _serve(jax_eng, jax_params, WIN_JAX_CFG, prompts, **opts)
+    _, got = _serve(eng_mod, params, WIN_CFG, prompts, **opts)
+    for g, w in zip(got, want):
+        assert g.generated == w.generated and len(g.generated) == 5
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=LOGP_TOL.get(mode, 1e-4), rtol=0)
+    # The window changes what is served: the unwindowed engine differs.
+    _, plain = _serve(eng_mod, params, CFG, prompts[1:2], **opts)
+    assert not np.allclose(plain[0].logprobs, got[1].logprobs, atol=1e-3, rtol=0)
 
 
 def test_paged_oversubscribed_pool(params):

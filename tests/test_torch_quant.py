@@ -155,13 +155,59 @@ def test_flash_attention_quant_matches_jax(case, dtype, fmt):
     assert quant.flash_attention_quant.launches == 0  # the CPU takes the plain version
 
 
+# (case, window, sinks): windows that end mid-tile, sinks far left of them.
+WINDOW_CASES = [("causal_ragged", 64, 0), ("causal_ragged", 100, 4),
+                ("decode_fold2_ragged", 37, 70), ("decode_one_row", 1, 0),
+                ("decode_one_row", 130, 3)]
+
+
+@pytest.mark.parametrize("case,window,sinks", WINDOW_CASES)
+def test_flash_attention_quant_window_matches_jax(case, window, sinks):
+    """The sliding window with sinks on the 8-bit cache, against the JAX
+    kernel in interpret mode (fp32 q, int8 cache), folded decode included."""
+    shape_q, shape_kv, causal, offsets, pos_div, lse = ATTN_CASES[case]
+    rng = np.random.default_rng(4)
+    q = rng.uniform(-1, 1, shape_q).astype(np.float32)
+    k = rng.uniform(-1, 1, shape_kv).astype(np.float32)
+    v = rng.uniform(-1, 1, shape_kv).astype(np.float32)
+    off = None if offsets is None else np.asarray(offsets, np.int32)
+    kw = dict(causal=causal, save_lse=lse, pos_div=pos_div, window=window, sinks=sinks)
+    got = quant.flash_attention_quant(
+        torch.from_numpy(q), quant.quantize_kv(torch.from_numpy(k), torch.from_numpy(v)),
+        None if off is None else torch.from_numpy(off), **kw)
+    want = jax_quant.flash_attention_quant(
+        jnp.asarray(q), jax_quant.quantize_kv(jnp.asarray(k), jnp.asarray(v)),
+        None if off is None else jnp.asarray(off), interpret=True, **kw)
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0],
+                                   atol=ATTN_TOL[torch.float32], rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL[torch.float32],
+                               rtol=0)
+
+
 def test_flash_attention_quant_rejects_unported():
     q = torch.zeros((1, 2, 8, 64))
     qkv = quant.quantize_kv(torch.ones((1, 2, 128, 64)), torch.ones((1, 2, 128, 64)))
-    for kw in (dict(window=16), dict(softcap=30.0), dict(sinks=4),
-               dict(alibi_slopes=torch.ones(2))):
+    for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             quant.flash_attention_quant(q, qkv, causal=True, **kw)
+    # The window and its sinks are ported: the plain route equals the
+    # oracle on the dequantized cache (sinks alone change nothing, as in JAX).
+    from flash_attention_metal_tpu_torch.reference.oracle import attention_reference
+
+    rng = np.random.default_rng(0)
+    qr = torch.from_numpy(rng.uniform(-1, 1, (1, 2, 8, 64)).astype(np.float32))
+    kr, vr = (torch.from_numpy(rng.uniform(-1, 1, (1, 2, 128, 64)).astype(np.float32))
+              for _ in range(2))
+    qkv_r = quant.quantize_kv(kr, vr)
+    kd, vd = quant.dequantize_kv(qkv_r, torch.float32)
+    for kw in (dict(window=16), dict(window=16, sinks=4)):
+        got = quant.flash_attention_quant(qr, qkv_r, causal=True, **kw)
+        want = attention_reference(qr, kd, vd, causal=True, **kw)
+        assert float((got - want).abs().max()) < ATTN_TOL[torch.float32]
+    assert torch.equal(quant.flash_attention_quant(qr, qkv_r, causal=True, sinks=4),
+                       quant.flash_attention_quant(qr, qkv_r, causal=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quant.flash_attention_quant(q, qkv, None, torch.zeros((1, 128), dtype=torch.int32),
                                     causal=True)

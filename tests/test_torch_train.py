@@ -8,6 +8,7 @@ blockwise loss, and a bit-exact resume.  The JAX side runs its Pallas
 kernels in interpret mode; the port runs its kernels' plain versions.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -91,6 +92,24 @@ def test_loss_and_grads_match_jax(jax_params):
     )
     assert abs(float(loss_t) - float(loss_j)) < 1e-5
     _assert_trees_close(grads_t, grads_j)
+
+
+def test_windowed_loss_and_grads_match_jax(jax_params):
+    """A depth-2 FlashLM with a 48-token window and 4 sinks over 128-token
+    sequences (the JAX tests' pattern, tests/test_model.py): the loss and
+    every gradient against the JAX model's."""
+    jcfg = dataclasses.replace(JAX_CFG, attn_window=48, attn_sinks=4)
+    cfg = dataclasses.replace(CFG, attn_window=48, attn_sinks=4)
+    tokens = _tokens(3)
+    loss_j, grads_j = jax.value_and_grad(jax_tf.loss_fn)(jax_params, jnp.asarray(tokens), jcfg)
+    loss_t, grads_t = tf.value_and_grad(
+        tf.loss_fn, _port_params(jax_params), torch.from_numpy(tokens), cfg
+    )
+    assert abs(float(loss_t) - float(loss_j)) < 1e-5
+    _assert_trees_close(grads_t, grads_j)
+    # The window is in force: the unwindowed loss differs.
+    assert abs(float(tf.loss_fn(_port_params(jax_params), torch.from_numpy(tokens), CFG))
+               - float(loss_t)) > 1e-6
 
 
 def test_sgd_train_step_matches_jax(jax_params):
