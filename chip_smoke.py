@@ -63,7 +63,15 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   ``DecodeEngine`` on the dense and the paged int8 cache, with launches
   counted over each run; each windowed kernel's time beside its
   unwindowed time, its bound over the window's visible pairs and SDPA's
-  with a boolean window mask (the records' ``window_*`` keys).
+  with a boolean window mask (the records' ``window_*`` keys);
+* the score transforms (the tanh softcap and ALiBi with the slopes'
+  gradient): the transformed forward, split pair and cache kernels against
+  their plain versions (D 64 and 128, bf16 and fp32), the capped ALiBi
+  FlashLM's gradient check, ``Trainer`` steps (the split pair, and under a
+  saved "fused" decision, which the transforms decline) and 16 requests on
+  the dense and the paged int8 cache; each kernel's time under the softcap,
+  ALiBi and both beside its untransformed time, its bound and SDPA's with
+  the ALiBi bias as a float mask (the records' ``xf_*`` keys).
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -94,6 +102,16 @@ SEED = 0
 TRAIN_STEPS, GRAD_CHECK_LAYERS = 6, 2
 # The windowed FlashLM's training run (W = 512, 4 sinks).
 WINDOW_TRAIN_STEPS = 4
+# The capped ALiBi FlashLM's training run (softcap 30, ALiBi in place of RoPE).
+XF_TRAIN_STEPS = 4
+# MUFU (special-function unit) ops per visible pair under each transform in
+# the timed bf16 kernels: the softmax's exp2 (one; the backward rebuilds P
+# with one), and the softcap's tanh one more (tanh.approx.f32, csrc/xf.cuh);
+# ALiBi adds none (an FMA on a distance that the unrolled loop keeps in
+# floats).
+XF_MUFU = {name: {"none": 1, "softcap": 2, "alibi": 1, "both": 2}
+           for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_quant",
+                        "flash_paged", "flash_paged_quant")}
 # Largest relative L2 error of one parameter's gradient with the kernels'
 # attention against the fp32 oracle attention (bf16 compute both ways).
 GRAD_REL_L2_TOL = 5e-2
@@ -812,6 +830,329 @@ def window_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
         "losses": losses, "step_ms": train["step_ms"], "tokens_per_s": train["tokens_per_s"],
         "mfu": train["mfu"], "launches": train_launches, "fused_losses": train_f["losses"],
         "fused_step_ms": train_f["step_ms"], "fused_launches": fused_launches},
+        "serving": serving_out}
+
+
+def xf_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
+    """The score transforms, the tanh softcap and ALiBi with the slopes'
+    gradient (the capped ALiBi FlashLM's cap 30 and standard slopes).  Every
+    transformed kernel (rows 1, 5, 6, 11, 12 and 13: the wgmma forward, the
+    fp32 template and the decode grid; the split pair with d_slopes; the
+    quant, paged and paged-quant kernels) against its plain version
+    (``onchip.XF_*_CASES``: D 64 and 128, bf16 and fp32, ladder, peaked and
+    spike fixtures, caps 0.5 to 30, standard, large and small slopes,
+    composed with the window and segment ids, offsets, not causal; and
+    ``onchip.XF_FAR_FP32``, fp32 rows far past the cache, at limits scaled
+    to their lse).  Then the main path: the depth-2 gradient check, ``Trainer`` steps at full width on
+    the split pair, 2 steps under a saved decision naming the fused backward
+    (which takes no transform: declined, 0 launches), and 16 requests
+    through ``DecodeEngine`` on the dense and the paged int8 cache (ALiBi
+    unfolds the decode rows), each with its kernels' launches counted over
+    that run only.  Then each kernel's time at its path's shapes, D 64 and
+    128, under the softcap alone, ALiBi alone and both, beside its
+    untransformed time in the same call, its bound (the untransformed
+    work; the MUFU ops per pair named beside it) and, under ALiBi, SDPA's
+    with the bias as a float mask (the softcap has no SDPA counterpart).
+    Returns each record's ``xf_*`` keys by kernel name, and the runs'
+    numbers."""
+    from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving, train_bench
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
+        flash_attention_fwd,
+        flash_fwd_general,
+        plain_visible,
+    )
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    model = dict(softcap=onchip.SOFTCAP, alibi=True)
+    errs = {}  # (kernel, tag) -> worst error, tag: bf16 / d128 / fp32
+
+    def keep(kernel, tag, err):
+        errs[(kernel, tag)] = max(err, errs.get((kernel, tag), 0.0))
+
+    def tag_of(q):
+        return "fp32" if q.dtype == torch.float32 else "d128" if q.shape[-1] == 128 else "bf16"
+
+    def feats_text(feats):
+        return {k: (v if k != "alibi_slopes" else "slopes") for k, v in feats.items()
+                if k != "segment_ids"}
+
+    # 1. Each transformed kernel against its plain version.
+    fwd_cases = onchip.xf_fwd_cases(gen)
+    for name, case in fwd_cases.items():
+        err, lse_err = onchip.window_fwd_error(case)
+        tol = onchip.TOL[case[0].dtype]
+        check(err <= tol and lse_err <= tol,
+              f"xf {name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+        keep("flash_fwd", tag_of(case[0]), err)
+        print(f"[xf-kernel] flash_fwd {name} q {tuple(case[0].shape)} kv {tuple(case[1].shape)} "
+              f"{feats_text(case[5])}: max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+    for name in onchip.XF_BWD_CASES:
+        inputs = onchip.window_bwd_inputs(fwd_cases[name], gen)
+        tol = onchip.BWD_TOL[inputs[0].dtype]
+        e = onchip.window_bwd_errors(inputs)
+        check(all(rel <= onchip.bwd_limit(g, inputs[0].dtype) for g, (_, rel) in e.items()),
+              f"xf {name}: backward normalised errors {e} over their bounds")
+        keep("flash_bwd_dkv", tag_of(inputs[0]),
+             max(rel for g, (_, rel) in e.items() if g != "dq"))
+        keep("flash_bwd_dq", tag_of(inputs[0]), e["dq"][1])
+        print(f"[xf-kernel] split pair {name}: "
+              + ", ".join(f"{g} rel {r:.3e}" for g, (_, r) in e.items()) + f" (tol rel {tol}; "
+              f"d_slopes_head {onchip.DSLOPE_HEAD_TOL[inputs[0].dtype]})")
+        del inputs
+    del fwd_cases
+    far = onchip.xf_far_errors(gen)
+    check(all(e <= lim for e, lim in far.values()),
+          f"xf {onchip.XF_FAR_FP32[0]}: errors over their limits {far}")
+    print(f"[xf-kernel] {onchip.XF_FAR_FP32[0]} (fp32, rows far past the cache, limits scaled to "
+          "the lse): " + ", ".join(f"{g} {e:.3e} (limit {lim:.3e})" for g, (e, lim) in far.items()))
+    torch.cuda.empty_cache()
+    kv_cases = {**onchip.kv_cases(gen), **onchip.kv_d128_cases(gen)}
+    for name, unfold, feats in onchip.XF_KV_CASES:
+        kernel, args, pos_div, kw = onchip.xf_kv_case(kv_cases, name, unfold, feats)
+        err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div, **kw)
+        tol = onchip.TOL[args[0].dtype]
+        check(err <= tol and lse_err <= tol,
+              f"xf {name} {feats}: max abs err {err:.3e}, lse {lse_err:.3e}")
+        keep(kernel, tag_of(args[0]), err)
+        print(f"[xf-kernel] {kernel} {name}{' unfolded' if unfold else ''} {feats}: max_abs_err "
+              f"{err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+    del kv_cases
+    torch.cuda.empty_cache()
+
+    # 2. The main path: training (the split pair, then under a saved
+    # "fused" decision, which the transforms decline) and serving, every
+    # count reset just before its run.
+    g = grad_check(gen, **model)
+    print(f"[xf-grad-check] softcap {onchip.SOFTCAP:g} ALiBi: {grad_line(g)}")
+    counters = {"fwd": flash_fwd_general, "dkv": fb.flash_bwd_dkv, "dq": fb.flash_bwd_dq,
+                "fused": fb.flash_bwd_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    train = train_bench.run_train_bench(steps=XF_TRAIN_STEPS, log=lambda m: None, **model)
+    train_launches = {name: fn.launches for name, fn in counters.items()}
+    layers = train["model"]["n_layers"]
+    want = {"fwd": 2 * layers * XF_TRAIN_STEPS, "dkv": layers * XF_TRAIN_STEPS,
+            "dq": layers * XF_TRAIN_STEPS, "fused": 0}
+    losses = train["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[1],
+          f"capped ALiBi training losses finite and falling: {losses}")
+    check(train_launches == want, f"capped ALiBi training launches {train_launches} == {want}")
+    print(f"[xf-train] {XF_TRAIN_STEPS} Trainer steps, L{layers} d2048 b4 s2048 softcap "
+          f"{onchip.SOFTCAP:g} ALiBi: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {train_launches}; step {train['step_ms']:.2f} ms, "
+          f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']:.2%} {stamp}")
+    tuned = os.path.join(tmp, "xf_fused.json")
+    b_, h_, n_, d_ = onchip.TRAIN_Q
+    autotune.record_bwd((b_, h_, onchip.TRAIN_KV[1], n_, d_), "fused", {}, cache_path=tuned)
+    default_cache = autotune.DEFAULT_CACHE
+    autotune.DEFAULT_CACHE = tuned
+    autotune.reset_memo()
+    for fn in counters.values():
+        fn.launches = 0
+    train_f = train_bench.run_train_bench(steps=2, log=lambda m: None, **model)
+    fused_launches = {name: fn.launches for name, fn in counters.items()}
+    autotune.DEFAULT_CACHE = default_cache
+    autotune.reset_memo()
+    want = {"fwd": 4 * layers, "dkv": 2 * layers, "dq": 2 * layers, "fused": 0}
+    check(all(np.isfinite(train_f["losses"])) and fused_launches == want,
+          f"capped ALiBi training under a saved \"fused\" decision: launches {fused_launches} "
+          f"== {want}, losses {train_f['losses']}")
+    print(f"[xf-train-fused] 2 Trainer steps under a cache naming \"fused\": declined, losses "
+          + ", ".join(f"{x:.4f}" for x in train_f["losses"])
+          + f"; launches {fused_launches}; step {train_f['step_ms']:.2f} ms {stamp}")
+    serving_out = {}
+    prng = np.random.default_rng(SEED + 6)
+    for mode, counted in (("dense", flash_fwd_general), ("paged_int8", pg.flash_attention_paged_quant)):
+        opts, bound = serving.SERVING_MODES[mode]
+        eng, cfg = serving.build_engine(
+            **serving.FLASHLM_D2048, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+            device="cuda", **model, **opts)
+        eng.submit(serving.Request(uid=-1, prompt=list(range(1, 101)), max_new_tokens=4))
+        eng.run()
+        requests = serving.make_requests(N_REQUESTS, cfg.vocab_size, PROMPT_LENS, MAX_NEW, SEED)
+        others = [fn for fn in (flash_fwd_general, qt.flash_attention_quant,
+                                pg.flash_attention_paged, pg.flash_attention_paged_quant)
+                  if fn is not counted]
+        for fn in (counted, *others):
+            fn.launches = 0
+        bench = serving.run_serving_bench(eng, requests, log=lambda m: None)
+        n_launch, n_other = counted.launches, sum(fn.launches for fn in others)
+        check(all(r.done and len(r.generated) == MAX_NEW for r in requests)
+              and all(np.isfinite(lp) and lp <= 0 for r in requests for lp in r.logprobs),
+              f"capped ALiBi {mode} serving: every request finishes, log-probabilities finite")
+        check(n_launch > 0 and n_other == 0,
+              f"capped ALiBi {mode} serving launches its kernel ({n_launch}) and no other "
+              f"({n_other})")
+        prompts = [prng.integers(1, cfg.vocab_size, n).tolist() for n in CHECK_PROMPTS]
+        rel = serving.teacher_forced_errors(eng.params, cfg, prompts, 16, MAX_LEN, seed=SEED,
+                                            mode=mode)
+        worst = float(np.max(rel))
+        check(worst <= bound, f"capped ALiBi {mode} served logits rel L2 {worst:.3e} > {bound}")
+        serving_out[mode] = {"tokens_per_s": bench["tokens_per_s"],
+                             "ms_per_step": bench["ms_per_step"], "launches": n_launch,
+                             "served_logits_rel_l2_max": worst}
+        print(f"[xf-serve] {mode}: {N_REQUESTS} requests x {MAX_NEW} tokens, prompts "
+              f"{min(len(r.prompt) for r in requests)}-{max(len(r.prompt) for r in requests)}: "
+              f"{bench['tokens_per_s']:.1f} tok/s, {bench['ms_per_step']:.3f} ms/step; its kernel "
+              f"launched {n_launch} times, the others 0; served logits rel L2 max {worst:.3e} "
+              f"(tol {bound}) {stamp}")
+        del eng
+        torch.cuda.empty_cache()
+
+    # 3. Times at the path's shapes, D 64 and 128: each transform and both,
+    # the untransformed kernel in the same call, the bound of the
+    # untransformed work with the MUFU ops per pair beside it, SDPA with
+    # the ALiBi bias as a float mask.
+    out = {name: {} for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_quant",
+                                 "flash_paged", "flash_paged_quant")}
+    variants = (("softcap", dict(softcap=onchip.SOFTCAP)), ("alibi", dict(alibi=True)),
+                ("both", dict(softcap=onchip.SOFTCAP, alibi=True)))
+
+    def xf_kw(v, heads):
+        kw = {k: val for k, val in v.items() if k != "alibi"}
+        if v.get("alibi"):
+            kw["alibi_slopes"] = onchip.alibi_slopes("std", heads)
+        return kw
+
+    def put(name, suffix, times, plain_kernel_ms, flops, nbytes, libraries, shape):
+        r = out[name]
+        r.update({f"xf_{v}_ms{suffix}": ms for v, ms in times.items()})
+        r.update({
+            f"xf_untransformed_ms{suffix}": plain_kernel_ms,
+            f"xf_bound_ms{suffix}": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+            f"xf_bound_by{suffix}": roofline.bound_by(flops, nbytes, spec, 16),
+            f"xf_shape{suffix}": shape})
+        for v, lib in libraries.items():
+            r[f"xf_{v}_library_ms{suffix}"] = lib[0]
+            r[f"xf_{v}_library_backend{suffix}"] = lib[1] + " (ALiBi bias as a float mask)"
+        print(f"[xf-time] {name} at {shape}: " + ", ".join(
+            f"{v} {ms:.4f} ms" for v, ms in times.items())
+            + f"; untransformed {plain_kernel_ms:.4f} ms; bound {r[f'xf_bound_ms{suffix}']:.4f} ms "
+            f"({r[f'xf_bound_by{suffix}']}, MUFU ops a pair: {XF_MUFU[name]}); SDPA with the "
+            "ALiBi mask " + ", ".join(f"{v} {lib[0]:.4f} ms" for v, lib in libraries.items())
+            + f" (softcap: no SDPA counterpart) {stamp}")
+
+    for suffix, (shape_q, shape_kv) in (("", (onchip.TRAIN_Q, onchip.TRAIN_KV)),
+                                        ("_d128", (onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV))):
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        do = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)[0]
+        off = torch.zeros(shape_q[0], dtype=torch.int32, device="cuda")
+        batch, heads, n, d = shape_q
+        visible = plain_visible(n, n, off[:1], causal=True, device="cuda")
+        mask = onchip.alibi_bias(onchip.alibi_slopes("std", heads), n, n, off[:1], visible)
+        shape = f"training q {list(shape_q)} kv {list(shape_kv)} bf16 causal"
+        kw = dict(sm_scale=d ** -0.5, causal=True)
+        # Each variant's keywords (its slopes on the card) made once, outside
+        # the timed calls.
+        kws = {name: xf_kw(vv, heads) for name, vv in variants}
+        fwd = {name: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True, **kw_)
+               for name, kw_ in kws.items()}
+        fwd["none"] = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+        flops, nbytes = onchip.fwd_work(q, k, off.tolist(), 1, True)
+        times = {name: onchip.device_ms(lambda: flash_attention_fwd(
+            q, k, v, off, causal=True, save_lse=True, **kw_)) for name, kw_ in kws.items()}
+        lib = onchip.sdpa_ms(q, k, v, mask=mask)
+        put("flash_fwd", suffix, times,
+            onchip.device_ms(lambda: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)),
+            flops, nbytes, {"alibi": lib, "both": lib}, shape)
+        deltas = {name: fb.bwd_delta(o, do, None) for name, (o, _) in fwd.items()}
+        pairs = roofline.visible_pairs(n, n, 0)
+        lib_bwd = onchip.sdpa_ms(q, k, v, mask=mask, backward_of=do)
+        for name, fn in (("flash_bwd_dkv", fb.flash_bwd_dkv), ("flash_bwd_dq", fb.flash_bwd_dq)):
+            flops, nbytes = roofline.block_sparse_work(batch, heads, k.shape[1], n, n, d, 2, pairs,
+                                                       name[-3:].lstrip("_"))
+
+            def run(vname):
+                x = kws.get(vname, {})
+                cap = x.get("softcap") or 0.0
+                return lambda: fn(q, k, v, do, fwd[vname][1], deltas[vname], off, softcap=cap,
+                                  slopes=x.get("alibi_slopes"), **kw)
+
+            times = {vname: onchip.device_ms(run(vname)) for vname, _ in variants}
+            put(name, suffix, times, onchip.device_ms(run("none")), flops, nbytes,
+                {"alibi": lib_bwd, "both": lib_bwd}, shape)
+        del q, k, v, do, fwd, deltas, mask, visible
+        torch.cuda.empty_cache()
+    # Decode: the softcap on the folded rows, ALiBi unfolded (a q-head a
+    # row), beside the untransformed folded and unfolded kernels.
+    lengths = torch.from_numpy(onchip.decode_lengths()).to("cuda")
+    for suffix, (shape_q, shape_kv) in (("", (onchip.XF_DECODE_Q, onchip.DECODE_KV)),
+                                        ("_d128", (onchip.XF_DECODE_D128_Q, onchip.DECODE_D128_KV))):
+        from flash_attention_metal_tpu_torch.ops.attention import fold_gqa_rows
+
+        qu, k, v = onchip.ladder_inputs(shape_q, shape_kv, torch.bfloat16, gen)
+        b, h_kv, n_kv, d = shape_kv
+        heads = shape_q[1]
+        qf = fold_gqa_rows(qu, h_kv).contiguous()
+        visible = plain_visible(1, n_kv, lengths, causal=True, device="cuda")
+        lib = onchip.sdpa_ms(qu, k, v, mask=onchip.alibi_bias(
+            onchip.alibi_slopes("std", heads), 1, n_kv, lengths, visible))
+        shape = (f"decode q {list(shape_q)} (the softcap folded {list(qf.shape)}) over a cache "
+                 f"{list(shape_kv)} at the decode lengths")
+        flops, nbytes = onchip.fwd_work(qf, k, lengths.tolist(), 2, False)
+
+        def call(vv):
+            x = xf_kw(vv, heads)
+            if "alibi_slopes" in x:
+                return lambda: flash_attention_fwd(qu, k, v, lengths, causal=True, **x)
+            return lambda: flash_attention_fwd(qf, k, v, lengths, causal=True, pos_div=2, **x)
+
+        times = {vname: onchip.device_ms(call(vv)) for vname, vv in variants}
+        times["untransformed_unfolded"] = onchip.device_ms(
+            lambda: flash_attention_fwd(qu, k, v, lengths, causal=True))
+        put("flash_fwd", f"_decode{suffix}", times,
+            onchip.device_ms(lambda: flash_attention_fwd(qf, k, v, lengths, causal=True,
+                                                         pos_div=2)),
+            flops, nbytes, {"alibi": lib, "both": lib}, shape)
+        gen_kv = torch.Generator(device="cuda")
+        gen_kv.manual_seed(SEED)
+        cases = onchip.kv_d128_cases(gen_kv) if suffix else onchip.kv_cases(gen_kv)
+        for name, kernel in (("quant_int8_decode_bf16", "flash_quant"),
+                             ("paged_decode_bf16", "flash_paged"),
+                             ("paged_quant_int8_decode_bf16", "flash_paged_quant")):
+            kernel_, args, pos_div = cases[name + suffix]
+            wrapper = onchip.KV_KERNELS[kernel][0]
+            uargs = onchip.unfolded(args, heads)
+            flops, nbytes = onchip.kv_work(kernel, args, pos_div)
+
+            def kv_call(vv):
+                x = xf_kw(vv, heads)
+                if "alibi_slopes" in x:
+                    return lambda: wrapper(*uargs, 1, **x)
+                return lambda: wrapper(*args, pos_div, **x)
+
+            times = {vname: onchip.device_ms(kv_call(vv)) for vname, vv in variants}
+            times["untransformed_unfolded"] = onchip.device_ms(lambda: wrapper(*uargs, 1))
+            put(kernel, suffix, times, onchip.device_ms(lambda: wrapper(*args, pos_div)),
+                flops, nbytes, {"alibi": lib, "both": lib}, shape)
+        del qu, qf, k, v, cases
+        torch.cuda.empty_cache()
+
+    # Launches on the main path: the forward in training and dense serving,
+    # the split pair in training (the fused kernel never), the paged-quant
+    # kernel in paged int8 serving; the quant and paged kernels are checked
+    # at kernel level only.
+    launches = {"flash_fwd": train_launches["fwd"] + serving_out["dense"]["launches"],
+                "flash_bwd_dkv": train_launches["dkv"], "flash_bwd_dq": train_launches["dq"],
+                "flash_quant": 0, "flash_paged": 0,
+                "flash_paged_quant": serving_out["paged_int8"]["launches"]}
+    for name in out:
+        out[name]["xf_launches"] = launches[name]
+        out[name]["xf_mufu_per_pair"] = XF_MUFU[name]
+        out[name]["xf_max_err"] = errs.get((name, "bf16"), errs.get((name, "fp32")))
+        for tag in ("d128", "fp32"):
+            if (name, tag) in errs:
+                out[name][f"xf_max_err_{tag}"] = errs[(name, tag)]
+    unlaunched = [n for n in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_paged_quant")
+                  if launches[n] == 0]
+    check(not unlaunched, f"every transformed kernel of the main path launched: not {unlaunched}")
+    return {"records": out, "grad_rel_l2_max": g["worst"], "train": {
+        "losses": losses, "step_ms": train["step_ms"], "tokens_per_s": train["tokens_per_s"],
+        "mfu": train["mfu"], "launches": train_launches, "fused_decision_losses": train_f["losses"],
+        "fused_decision_step_ms": train_f["step_ms"], "fused_decision_launches": fused_launches},
         "serving": serving_out}
 
 
@@ -1633,6 +1974,11 @@ def main() -> int:
     # serving, and the windowed times beside the unwindowed ones.
     window = window_phase(gen, stamp, spec, tmp)
 
+    # 17. The score transforms, the tanh softcap and ALiBi: the transformed
+    # kernels, the capped ALiBi FlashLM's training (the fused decision
+    # declined) and serving, and the transformed times beside the others.
+    xf = xf_phase(gen, stamp, spec, tmp)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -1778,8 +2124,11 @@ def main() -> int:
     }
     for rec_ in record["kernels"]:
         rec_.update(window["records"].get(rec_["name"], {}))
+        rec_.update(xf["records"].get(rec_["name"], {}))
     record["training_window"] = {"grad_rel_l2_max": window["grad_rel_l2_max"], **window["train"]}
     record["serving_window"] = window["serving"]
+    record["training_xf"] = {"grad_rel_l2_max": xf["grad_rel_l2_max"], **xf["train"]}
+    record["serving_xf"] = xf["serving"]
     tmp_dir.cleanup()
     check(len(record["kernels"]) == 16, f"16 kernels recorded: {len(record['kernels'])}")
     print(smi)

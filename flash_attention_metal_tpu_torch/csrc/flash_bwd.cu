@@ -28,7 +28,11 @@
 // Under a sliding window (with causal) row r at position p = r + q_offset[b]
 // sees only c > p - window, besides c < sinks, and with segment ids only
 // columns of its own id (window.cuh); the walks skip the tiles outside the
-// window and the sinks.
+// window and the sinks.  Under the score transforms (xf.cuh) the score in P
+// is capped and biased as the forward's, dS is the cotangent of the
+// transformed score, d_slopes[h] sums dS * (c - p) over the pairs (the
+// dK/dV kernel, a partial per batch, q-head, KV tile and warp), and dS then
+// takes the softcap's chain 1 - tanh^2 before dK and dQ.
 // Products and sums accumulate in fp32; P and dS enter the bf16 products
 // rounded to bf16 (the JAX kernels do the same).  fp32 inputs use plain
 // IEEE FMA (never TF32).  dK and dV come out in k's dtype, dQ in q's.
@@ -87,8 +91,11 @@ using dq_ordered::last_visible;
 // (dq_ordered.cuh), the last KV tile writing dq: each Q tile's adders are
 // the KV tiles of its walk (window.cuh, kv_runs), in that order.
 // q_offset: per-batch offsets read no higher than off_bound; null:
-// off_bound for every batch.  f: the window and the segment ids.
-template <typename T, int D, bool kFused>
+// off_bound for every batch.  f: the window and the segment ids.  kXf (not
+// with kFused): f's score transforms too (xf.cuh), the bias measured from
+// r + pos[b], and d_slopes partials into dslope (fp32 [B, H, n_kv_tiles,
+// kXfWarps], or null).
+template <typename T, int D, bool kFused, bool kXf = false>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -96,7 +103,9 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ q_offset, int off_bound, T* __restrict__ dk,
                          T* __restrict__ dv, T* __restrict__ dq, float* __restrict__ dq_acc,
                          int* __restrict__ counters, int batch, int n_heads, int n_kv_heads,
-                         int n_q, int n_kv, float sm_scale, float scale_log2, Feat f) {
+                         int n_q, int n_kv, float sm_scale, float scale_log2, Feat f,
+                         const int* __restrict__ pos = nullptr, float* __restrict__ dslope = nullptr) {
+  static_assert(!(kFused && kXf), "the fused backward takes no score transforms");
   using C = Cfg<T, D>;
   static_assert(std::is_same<T, float>::value,
                 "bf16 runs flash_bwd_sm90.cuh and flash_bwd_fused_sm90.cuh");
@@ -158,6 +167,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int g = 0; g < group; ++g) {
     const size_t bh = (size_t)b * n_heads + h_kv * group + g;
     const size_t q_rows = bh * n_q;
+    XfHead xf;
+    double dsl = 0.0;  // this thread's share of the head's d_slopes partial
+    if constexpr (kXf) xf = XfHead(f.softcap, f.slopes, h_kv * group + g, sm_scale);
     for (int step = 0; step < q_stop - q_first; ++step) {
       const int qt = kFused ? q_stop - 1 - step : q_first + step;
       const int q_start = qt * kTile;
@@ -172,8 +184,9 @@ __global__ void __launch_bounds__(kThreads)
 
       const int qid =
           kids != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + q_start + r] : 0;
-      softmax_grad(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off), scale_log2,
-                   q_start + r + off - f.window + 1, f.sinks, qid, kids);
+      softmax_grad<T, D, kXf>(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off),
+                              scale_log2, q_start + r + off - f.window + 1, f.sinks, qid, kids,
+                              xf, kXf ? q_start + r + pos[b] : 0, &dsl);
       __syncthreads();
 
       mma_atb_f32<D>(dv_reg, p, sm.dout, r, half);
@@ -207,6 +220,11 @@ __global__ void __launch_bounds__(kThreads)
       // The next tile's loads overwrite q, dout, lse2 and delta.
       __syncthreads();
     }
+    if constexpr (kXf) {
+      if (dslope != nullptr) {
+        xf_warp_store(dsl, dslope + ((bh * gridDim.x + kv_tile) * kXfWarps + (tid >> 5)));
+      }
+    }
   }
 
   if (r < cols_valid) {
@@ -220,15 +238,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The fp32 split pair's dQ: one block per (Q tile, q-head, batch), dQ of the
-// tile over its visible KV tiles.
-template <int D>
+// tile over its visible KV tiles.  kXf: f's score transforms, the bias
+// measured from r + pos[b].
+template <int D, bool kXf = false>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ dout,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             const int* __restrict__ q_offset, int off_bound,
                             float* __restrict__ dq, int n_heads, int n_kv_heads, int n_q,
-                            int n_kv, float sm_scale, float scale_log2, Feat f) {
+                            int n_kv, float sm_scale, float scale_log2, Feat f,
+                            const int* __restrict__ pos = nullptr) {
   using C = Cfg<float, D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   BwdSmem<float, D>& sm = *reinterpret_cast<BwdSmem<float, D>*>(smem_raw);
@@ -262,6 +282,9 @@ __global__ void __launch_bounds__(kThreads)
   float dq_reg[C::kOut];
 #pragma unroll
   for (int j = 0; j < C::kOut; ++j) dq_reg[j] = 0.0f;
+  XfHead xf;
+  double dsl = 0.0;  // d_slopes is dK/dV's: unused here
+  if constexpr (kXf) xf = XfHead(f.softcap, f.slopes, h, sm_scale);
 
   for (int step = 0; step < n_steps; ++step) {
     const int kv_start = runs.tile(step) * kTile;
@@ -277,8 +300,9 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // P and dS over the scores and dP.
-    softmax_grad(sm, r, half, kv_start, col_limit, scale_log2, q_start + r + off - f.window + 1,
-                 f.sinks, qid, kids);
+    softmax_grad<float, D, kXf>(sm, r, half, kv_start, col_limit, scale_log2,
+                                q_start + r + off - f.window + 1, f.sinks, qid, kids, xf,
+                                kXf ? q_start + r + pos[b] : 0, &dsl);
     __syncthreads();
 
     mma_ab_f32<D>(dq_reg, sm.ds_tile(), sm.k, r, half);
@@ -299,6 +323,9 @@ struct Args {
   float sm_scale;
   cudaStream_t stream;
   Feat f;
+  float* dslope = nullptr;  // d_slopes partials (dK/dV under ALiBi), or null
+  // The offsets the ALiBi bias measures rows from (also when not causal).
+  const int* pos() const { return static_cast<const int*>(q_offset); }
   // The kernels' offsets: q_offset read no higher than off_bound when
   // causal, else n_kv - 1 (every column) with no read.  The split pair's
   // bound is n_kv - 1, which sees what any higher offset sees, unless a
@@ -311,24 +338,25 @@ struct Args {
 };
 
 // The dK/dV kernel; kFused (fp32) also adds dQ to dq_acc in KV-tile order
-// and writes dq (one block per work item of the ticket in counters[0]).
-template <typename T, int D, bool kFused>
+// and writes dq (one block per work item of the ticket in counters[0]);
+// kXf: the score transforms and d_slopes.
+template <typename T, int D, bool kFused, bool kXf = false>
 cudaError_t launch_dkv(const Args& a, int off_bound, void* dk, void* dv, void* dq = nullptr,
                        float* dq_acc = nullptr, int* counters = nullptr) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(BwdSmem<T, D>);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D, kFused>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D, kFused, kXf>, smem, done);
   if (err != cudaSuccess) return err;
   const int kv_tiles = (a.n_kv + kTile - 1) / kTile;
   const dim3 grid = kFused ? dim3(kv_tiles * a.n_kv_heads * a.batch)
                            : dim3(kv_tiles, a.n_kv_heads, a.batch);
-  flash_bwd_dkv_kernel<T, D, kFused><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dkv_kernel<T, D, kFused, kXf><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       a.offsets(), a.bound(off_bound), static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<T*>(dq), dq_acc, counters, a.batch, a.n_heads, a.n_kv_heads, a.n_q,
-      a.n_kv, a.sm_scale, a.sm_scale * kLog2e, a.f);
+      a.n_kv, a.sm_scale, a.sm_scale * kLog2e, a.f, a.pos(), a.dslope);
   return cudaGetLastError();
 }
 
@@ -349,19 +377,19 @@ cudaError_t launch_fused(const Args& a, int dtype, int off_bound, void* dk, void
                                a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.stream);
 }
 
-template <int D>
+template <int D, bool kXf>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(BwdSmem<float, D>);
-  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D, kXf>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + kTile - 1) / kTile, a.n_heads, a.batch);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dq_f32_kernel<D, kXf><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), a.offsets(),
       a.bound(a.split_bound()), static_cast<float*>(dq), a.n_heads, a.n_kv_heads, a.n_q, a.n_kv,
-      a.sm_scale, a.sm_scale * kLog2e, a.f);
+      a.sm_scale, a.sm_scale * kLog2e, a.f, a.pos());
   return cudaGetLastError();
 }
 
@@ -377,10 +405,21 @@ sm90::BwdArgs sm90_args(const Args& a, void* dk, void* dv, void* dq) {
 }
 
 // bf16: the causal walk, or under a window or segment ids the walk that
-// takes them (CausalWalkT<kSeg, true>).
+// takes them (CausalWalkT<kSeg, true>), under the score transforms the one
+// that also takes them (CausalWalkT<kSeg, true, true>, any window).
 template <class Launch>
 cudaError_t launch_walk(const Args& a, Launch launch) {
   const Feat& f = a.f;
+  if (f.xf()) {
+    if (f.q_seg != nullptr) {
+      return launch(sm90::CausalWalkT<true, true, true>{a.offsets(), f.window, f.sinks, f.q_seg,
+                                                        f.kv_seg, f.softcap, f.slopes, a.pos(),
+                                                        a.dslope});
+    }
+    return launch(sm90::CausalWalkT<false, true, true>{a.offsets(), f.window, f.sinks, nullptr,
+                                                       nullptr, f.softcap, f.slopes, a.pos(),
+                                                       a.dslope});
+  }
   if (f.q_seg != nullptr) {
     return launch(sm90::CausalWalkT<true, true>{a.offsets(), f.window, f.sinks, f.q_seg,
                                                 f.kv_seg});
@@ -393,6 +432,7 @@ cudaError_t launch_walk(const Args& a, Launch launch) {
 
 template <int D>
 cudaError_t launch_split_dkv(const Args& a, int dtype, void* dk, void* dv) {
+  if (dtype == 1 && a.f.xf()) return launch_dkv<float, D, false, true>(a, a.split_bound(), dk, dv);
   if (dtype == 1) return launch_dkv<float, D, false>(a, a.split_bound(), dk, dv);
   const dim3 grid(a.batch * a.n_kv_heads, (a.n_kv + kTile - 1) / kTile);
   const sm90::BwdArgs args = sm90_args(a, dk, dv, nullptr);
@@ -403,7 +443,8 @@ cudaError_t launch_split_dkv(const Args& a, int dtype, void* dk, void* dv) {
 
 template <int D>
 cudaError_t launch_split_dq(const Args& a, int dtype, void* dq) {
-  if (dtype == 1) return launch_dq_f32<D>(a, dq);
+  if (dtype == 1 && a.f.xf()) return launch_dq_f32<D, true>(a, dq);
+  if (dtype == 1) return launch_dq_f32<D, false>(a, dq);
   const dim3 grid(a.batch * a.n_heads, (a.n_q + kTile - 1) / kTile);
   const sm90::BwdArgs args = sm90_args(a, nullptr, nullptr, dq);
   return launch_walk(a, [&](const auto& walk) {
@@ -418,9 +459,16 @@ bool valid_feat(int window, int sinks, const void* q_seg, const void* kv_seg, in
          (q_seg == nullptr) == (kv_seg == nullptr);
 }
 
-Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg) {
+Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg,
+               float softcap = 0.0f, const void* slopes = nullptr) {
   return {window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
-          static_cast<const int*>(kv_seg)};
+          static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes)};
+}
+
+// The score transforms: a cap of 0 (none) or more; slopes need the offsets
+// (the bias measures each row's position from them, also when not causal).
+bool valid_xf(float softcap, const void* slopes, const void* q_offset) {
+  return softcap >= 0.0f && (slopes == nullptr || q_offset != nullptr);
 }
 
 bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_dim,
@@ -436,26 +484,32 @@ bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_d
 // C entry points, bound with ctypes (kernels/flash_bwd.py).  Pointers are
 // device pointers of contiguous tensors: q, dout [B, H, N_q, D]; k, v, dk,
 // dv [B, H_kv, N_kv, D], D = head_dim, 64 or 128; lse, delta fp32
-// [B, H, N_q]; q_offset int32 [B] (read only when causal).  dtype: 0 =
-// bf16, 1 = fp32.  window: the columns a row sees back from its position
-// (0: none; more needs causal), sinks the first columns it sees besides;
-// q_seg, kv_seg: int32 segment ids [B, N_q] and [B, N_kv], or both null.
-// Each returns its launches' cudaError_t (0 on success).
+// [B, H, N_q]; q_offset int32 [B] (read only when causal, or with slopes).
+// dtype: 0 = bf16, 1 = fp32.  window: the columns a row sees back from its
+// position (0: none; more needs causal), sinks the first columns it sees
+// besides; q_seg, kv_seg: int32 segment ids [B, N_q] and [B, N_kv], or
+// both null.  softcap (0: none) and slopes (fp32 [H] or null): the score
+// transforms (xf.cuh); dslope: fp32 [B, H, ceil(N_kv / 64), 4] zeros, into
+// which the dK/dV entry writes the d_slopes partials under slopes (null:
+// none are written).  Each returns its launches' cudaError_t (0 on
+// success).
 extern "C" int fam_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* q_offset,
                                  void* dk, void* dv, int window, int sinks, const void* q_seg,
-                                 const void* kv_seg, int batch, int n_heads,
+                                 const void* kv_seg, float softcap, const void* slopes,
+                                 void* dslope, int batch, int n_heads,
                                  int n_kv_heads, int n_q, int n_kv,
                                  int head_dim, float sm_scale, int causal,
                                  int dtype, void* stream) {
   if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
-      !valid_feat(window, sinks, q_seg, kv_seg, causal)) {
+      !valid_feat(window, sinks, q_seg, kv_seg, causal) || !valid_xf(softcap, slopes, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
-               n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
-               make_feat(window, sinks, q_seg, kv_seg)};
+  Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
+         n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
+         make_feat(window, sinks, q_seg, kv_seg, softcap, slopes)};
+  a.dslope = slopes != nullptr ? static_cast<float*>(dslope) : nullptr;
   return (int)(head_dim == 64 ? launch_split_dkv<64>(a, dtype, dk, dv)
                               : launch_split_dkv<128>(a, dtype, dk, dv));
 }
@@ -464,17 +518,18 @@ extern "C" int fam_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* q_offset,
                                 void* dq, int window, int sinks, const void* q_seg,
-                                const void* kv_seg, int batch, int n_heads,
+                                const void* kv_seg, float softcap, const void* slopes,
+                                int batch, int n_heads,
                                 int n_kv_heads, int n_q, int n_kv, int head_dim,
                                 float sm_scale, int causal, int dtype,
                                 void* stream) {
   if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
-      !valid_feat(window, sinks, q_seg, kv_seg, causal)) {
+      !valid_feat(window, sinks, q_seg, kv_seg, causal) || !valid_xf(softcap, slopes, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
                n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
-               make_feat(window, sinks, q_seg, kv_seg)};
+               make_feat(window, sinks, q_seg, kv_seg, softcap, slopes)};
   return (int)(head_dim == 64 ? launch_split_dq<64>(a, dtype, dq)
                               : launch_split_dq<128>(a, dtype, dq));
 }

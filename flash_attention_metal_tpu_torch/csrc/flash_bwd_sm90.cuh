@@ -151,14 +151,23 @@ __device__ __forceinline__ bool bit_seen(const uint32_t* bits, int row, int col)
 // visible from row r (position p = r + q_offset[b]) when c <= p; null:
 // every column.  kWin: only inside the row's window (window, sinks); kSeg:
 // also only equal segment ids (q_seg [B, N_q], kv_seg [B, N_kv]).  Without
-// kWin the walk holds no window state.
-template <bool kSeg, bool kWin>
+// kWin the walk holds no window state.  kXf (with kWin, whose window may be
+// kNoWindow): the score transforms (xf.cuh: softcap, slopes, the bias
+// measured from r + pos[b], pos the offsets also when not causal), and
+// dK/dV's d_slopes partials into dslope (fp32 [B, H, n_kv_tiles,
+// kXfWarps], or null: none).
+template <bool kSeg, bool kWin, bool kXf_ = false>
 struct CausalWalkT {
   static constexpr bool kBits = kSeg;  // the bit stage holds the walked tile's ids
+  static constexpr bool kXf = kXf_;
   const int* q_offset;
   int window = kNoWindow, sinks = 0;
   const int* q_seg = nullptr;
   const int* kv_seg = nullptr;
+  float softcap = 0.0f;
+  const float* slopes = nullptr;
+  const int* pos = nullptr;
+  float* dslope = nullptr;
 
   // Without a window an offset past n_kv - 1 sees what n_kv - 1 sees; a
   // window moves with it, so it is read as it is.
@@ -176,6 +185,7 @@ struct CausalWalkT {
     int kv_start, n_q, off, q_first, per_head, window, sinks;
     const int* q_ids;
     int kid[2];
+    int xoff;  // the offset the bias measures rows from
     __device__ Dkv(const CausalWalkT& w, const BwdArgs& a) {
       bh = blockIdx.x;
       kv_tile = blockIdx.y;
@@ -183,6 +193,7 @@ struct CausalWalkT {
       n_q = a.n_q;
       const int b = bh / a.n_kv_heads;
       off = w.offset(b, a.n_kv);
+      xoff = kXf_ ? w.pos[b] : 0;
       window = w.window;
       sinks = w.sinks;
       // Rows r >= kv_start - off see the tile's first column; earlier Q
@@ -242,6 +253,7 @@ struct CausalWalkT {
     TileRuns runs;
     const int* kv_ids;
     int qid[2];
+    int xoff;  // the offset the bias measures rows from
     __device__ Dq(const CausalWalkT& w, const BwdArgs& a) {
       bh = blockIdx.x;
       q_tile = gridDim.y - 1 - blockIdx.y;
@@ -249,6 +261,7 @@ struct CausalWalkT {
       n_kv = a.n_kv;
       const int b = bh / a.n_heads;
       off = w.offset(b, n_kv);
+      xoff = kXf_ ? w.pos[b] : 0;
       window = w.window;
       sinks = w.sinks;
       const int rows_valid = min(kTile, a.n_q - q_start);
@@ -311,6 +324,7 @@ constexpr int kPlanInts = 8;
 // zero between calls.
 struct SparseWalk {
   static constexpr bool kBits = true;
+  static constexpr bool kXf = false;
   const int* plan;
   const int* ptr;
   const int2* list;
@@ -481,6 +495,11 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
   if (n_steps > 0) fetch(0);
   cp_async_commit();
 
+  // The score transforms: each step's q-head's, and this thread's share of
+  // its d_slopes partial over the steps of that head.
+  XfHead xf;
+  float dslope = 0.0f;
+
   float dk_acc[D / 2] = {};
   float dv_acc[D / 2] = {};
   for (int i = 0; i < n_steps; ++i) {
@@ -507,10 +526,18 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
     }
     wgmma_wait(st_acc);
     fence_acc(dpt);
+    if constexpr (Walk::kXf) {
+      xf = XfHead(walk.softcap, walk.slopes, h_kv * group + st.g, a.sm_scale);
+      xf_cap<false>(xf, st_acc);  // capped scores t, log2 units
+    }
 
     // P^T and dS^T in place.  Element e of n8 tile j: KV row c_lo (+ 8 for
     // e >= 2), q row st.start + 8 j + 2 t + (e & 1).  Steps whose every
-    // pair is visible skip the test.
+    // pair is visible skip the test.  Under the transforms dS^T takes the
+    // bias's distance into d_slopes, then the softcap's chain; an
+    // element's distance c - r - offset is the step's base plus a constant.
+    float base = 0.0f;
+    if constexpr (Walk::kXf) base = (float)(c_lo - st.start - 2 * t - blk.xoff);
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       const int col = j * 8 + 2 * t;
@@ -522,10 +549,32 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
       for (int e = 0; e < 4; ++e) {
         const int r = st.start + col + (e & 1);
         const int c = c_lo + (e >> 1) * 8;
-        float p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e & 1]);
+        float p, dist = 0.0f, chain = 1.0f;
+        if constexpr (Walk::kXf) {
+          const float t2 = st_acc[4 * j + e];
+          dist = base + (float)((e >> 1) * 8 - j * 8 - (e & 1));
+          chain = xf.chain(t2);
+          p = exp2f(xf.shifted(t2, dist, lse2[e & 1]));
+        } else {
+          p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e & 1]);
+        }
         if (!st.full && !blk.seen(step_bits, r, c, col + (e & 1), c - kv_start)) p = 0.0f;
         st_acc[4 * j + e] = p;
         dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e & 1]);
+        if constexpr (Walk::kXf) {
+          dslope = fmaf(dpt[4 * j + e], dist, dslope);
+          dpt[4 * j + e] *= chain;
+        }
+      }
+    }
+    if constexpr (Walk::kXf) {
+      // The head's last step: its partial, per warp (every lane of the warp
+      // takes the same branch).
+      if (walk.dslope != nullptr && (i + 1) % blk.per_head == 0) {
+        const size_t at = (((size_t)b * a.n_heads + h_kv * group + st.g) * gridDim.y +
+                           blk.kv_tile) * kXfWarps + warp;
+        xf_warp_store(dslope, walk.dslope + at);
+        dslope = 0.0f;
       }
     }
 
@@ -611,6 +660,9 @@ __global__ void __launch_bounds__(kThreads)
     lse2[half] = r < a.n_q ? lse_log2(a.lse[q_rows + r]) : kLseSentinel * kLog2e;
     dlt[half] = r < a.n_q ? a.delta[q_rows + r] : 0.0f;
   }
+  // The score transforms of the block's q-head.
+  XfHead xf;
+  if constexpr (Walk::kXf) xf = XfHead(walk.softcap, walk.slopes, blk.bh % a.n_heads, a.sm_scale);
 
   float dq_acc[D / 2] = {};
   for (int i = 0; i < n_steps; ++i) {
@@ -636,18 +688,31 @@ __global__ void __launch_bounds__(kThreads)
     }
     wgmma_wait(st_acc);
     fence_acc(dpt);
+    if constexpr (Walk::kXf) xf_cap<false>(xf, st_acc);  // capped scores t, log2 units
 
     // dS in place of dP.  Element e of n8 tile j: Q row r_lo (+ 8 for
-    // e >= 2), KV column kv_start + 8 j + 2 t + (e & 1).
+    // e >= 2), KV column kv_start + 8 j + 2 t + (e & 1).  Under the
+    // transforms: the bias (the distance the step's base plus a constant),
+    // and dS through the softcap's chain.
+    float base = 0.0f;
+    if constexpr (Walk::kXf) base = (float)(kv_start + 2 * t - r_lo - blk.xoff);
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = kv_start + j * 8 + 2 * t + (e & 1);
         const int r = r_lo + (e >> 1) * 8;
-        float p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e >> 1]);
+        float p, chain = 1.0f;
+        if constexpr (Walk::kXf) {
+          const float t2 = st_acc[4 * j + e];
+          chain = xf.chain(t2);
+          p = exp2f(xf.shifted(t2, base + (float)(j * 8 + (e & 1) - (e >> 1) * 8), lse2[e >> 1]));
+        } else {
+          p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e >> 1]);
+        }
         if (!st.full && !blk.seen(pair_bits, r, c, r - q_start, c - kv_start)) p = 0.0f;
         dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e >> 1]);
+        if constexpr (Walk::kXf) dpt[4 * j + e] *= chain;
       }
     }
 

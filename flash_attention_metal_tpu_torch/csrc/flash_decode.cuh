@@ -23,7 +23,8 @@
 //   * Under a sliding window a split walks only its tiles among the sink
 //     tiles and the window's (window.cuh, kv_runs over the rows'
 //     positions): a split wholly outside both is empty in the same way, and
-//     the merge weighs it 0.
+//     the merge weighs it 0.  The score transforms (xf.cuh) act on each
+//     score before the split's softmax; they take the windowed kernel.
 //   * In a block the 4 warps each take 16 columns of every 64-row KV tile
 //     for all query rows at once, two lanes a column (one half of D each),
 //     on the CUDA cores in fp32 FMA: the 64-row wgmma tile would carry 62
@@ -160,13 +161,16 @@ __device__ __forceinline__ float to_float<bf16>(bf16 x) { return __bfloat162floa
 // the block writes o (and lse); with more it writes its partial to `part`
 // and the last block of its (q-head, batch) merges them.  kWin: the window
 // (window, sinks) is read; without it the kernel holds no window state.
-template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin>
+// kXf (with kWin, whose window may be kNoWindow): the score transforms
+// (xf.cuh) too, the bias measured from r / pos_div + the batch's offset
+// (callers fold no rows under ALiBi: a folded row is not one q-head).
+template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf>
 __global__ void __launch_bounds__(kDecThreads)
     flash_decode_kernel(const T* __restrict__ q, KvArgs kv, const int* __restrict__ q_offset,
                         T* __restrict__ o, float* __restrict__ lse, int n_heads, int n_kv_heads,
                         int n_q, float scale_log2, int causal, int pos_div, int fixed_offset,
                         int kv_chunk, float* __restrict__ part, int* __restrict__ tickets,
-                        int window, int sinks) {
+                        int window, int sinks, float softcap, const float* __restrict__ slopes) {
   using P = Decode<T, KV, D, kRows>;
   using Stored = typename P::Stored;
   constexpr bool kScaled = P::kScaled;
@@ -191,6 +195,15 @@ __global__ void __launch_bounds__(kDecThreads)
   const int n_kv = kv.n_kv;
   // q_offset null: one int offset for every batch (the fp32 lean forward).
   const int off = !causal ? 0 : q_offset != nullptr ? q_offset[b] : fixed_offset;
+  XfHead xf;
+  int xoff = 0;  // the offset the bias measures rows from
+  float rpos[kXf ? kRows : 1];  // each row's r / pos_div, as a float (kXf)
+  if constexpr (kXf) {
+    xf = XfHead(softcap, slopes, h, scale_log2 / kLog2e);
+    xoff = q_offset != nullptr ? q_offset[b] : fixed_offset;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) rpos[r] = (float)(r / pos_div);
+  }
 
   // Last column each row sees (-1: none, and for rows past n_q), and under
   // a window the first column of its window.
@@ -209,7 +222,9 @@ __global__ void __launch_bounds__(kDecThreads)
   const int kv_end = min(kv_begin + kv_chunk, tile_limit + 1);
   TileRuns runs{};
   if constexpr (kWin) {
-    runs = kv_runs<kBlockN>(off, (n_q - 1) / pos_div + off, n_kv, window, sinks)
+    // Not causal (the transforms' kernel, no window): every column.
+    runs = kv_runs<kBlockN>(off, kXf && !causal ? n_kv - 1 : (n_q - 1) / pos_div + off, n_kv,
+                            window, sinks)
                .within(kv_begin / kBlockN, (kv_begin + kv_chunk) / kBlockN);
   }
   const int n_steps = kv_begin >= kv_end ? 0 :
@@ -286,12 +301,23 @@ __global__ void __launch_bounds__(kDecThreads)
 
     // Online softmax over the warp's 16 columns, row by row.
     float alpha[kRows];
+    const float cbase = kXf ? (float)(kv_start + c - xoff) : 0.0f;  // c - xoff
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       s[r] += __shfl_xor_sync(0xffffffffu, s[r], kWarpCols);
       bool visible = kv_start + c <= lim[r];
       if constexpr (kWin) visible = visible && (kv_start + c >= lo[r] || kv_start + c < sinks);
-      const float x = visible ? s[r] * (k_scale * scale_log2) : -INFINITY;
+      float x = -INFINITY;
+      float t = 0.0f, dist = 0.0f;  // the capped score and the distance (kXf)
+      if constexpr (kXf) {
+        if (visible) {
+          t = xf.capped<std::is_same<T, float>::value>(s[r] * k_scale);
+          dist = cbase - rpos[r];
+          x = t + xf.bias(dist);  // the max's; P takes xf.shifted (xf.cuh)
+        }
+      } else {
+        x = visible ? s[r] * (k_scale * scale_log2) : -INFINITY;
+      }
       float step_max = x;
 #pragma unroll
       for (int w = 1; w < kWarpCols; w *= 2) {
@@ -299,7 +325,12 @@ __global__ void __launch_bounds__(kDecThreads)
       }
       const float m_new = fmaxf(m[r], step_max);
       alpha[r] = m[r] == -INFINITY ? 0.0f : exp2f(m[r] - m_new);
-      const float p = visible ? exp2f(x - m_new) : 0.0f;
+      float p;
+      if constexpr (kXf) {
+        p = visible ? exp2f(xf.shifted(t, dist, m_new)) : 0.0f;
+      } else {
+        p = visible ? exp2f(x - m_new) : 0.0f;
+      }
       l[r] = l[r] * alpha[r] + (half == 0 ? p : 0.0f);
       m[r] = m_new;
       if (half == 0) pw[r * kWarpCols + col] = to_float<T>(from_float<T>(p * v_scale));
@@ -420,15 +451,15 @@ __global__ void __launch_bounds__(kDecThreads)
   if (tid == 0) tickets[unit] = 0;  // ready for the next call on this stream
 }
 
-template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin>
+template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf>
 cudaError_t launch_decode_rows(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                                void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                                float sm_scale, int causal, int pos_div, int fixed_offset,
                                int kv_chunk, void* part, void* tickets, cudaStream_t stream,
-                               int window, int sinks) {
+                               int window, int sinks, float softcap, const float* slopes) {
   constexpr int smem = Decode<T, KV, D, kRows>::kSmem;
-  using Kernel = decltype(&flash_decode_kernel<T, KV, kPaged, D, kRows, kWin>);
-  const Kernel kernel = flash_decode_kernel<T, KV, kPaged, D, kRows, kWin>;
+  using Kernel = decltype(&flash_decode_kernel<T, KV, kPaged, D, kRows, kWin, kXf>);
+  const Kernel kernel = flash_decode_kernel<T, KV, kPaged, D, kRows, kWin, kXf>;
   static bool smem_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -444,7 +475,7 @@ cudaError_t launch_decode_rows(const void* q, const KvArgs& kv, const void* q_of
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset), static_cast<T*>(o),
       static_cast<float*>(lse), n_heads, n_kv_heads, n_q, sm_scale * kLog2e, causal, pos_div,
       fixed_offset, kv_chunk, static_cast<float*>(part), static_cast<int*>(tickets), window,
-      sinks);
+      sinks, softcap, slopes);
   return cudaGetLastError();
 }
 
@@ -453,25 +484,29 @@ struct Native {};
 template <typename T, typename Tag>
 using KvType = typename std::conditional<std::is_same<Tag, Native>::value, T, Tag>::type;
 
-template <typename T, typename KV, bool kPaged, int D, bool kWin>
+template <typename T, typename KV, bool kPaged, int D, bool kWin, bool kXf>
 cudaError_t launch_decode_win(const fam::DecodeCall& c) {
   if (c.n_q <= 4) {
-    return launch_decode_rows<T, KV, kPaged, D, 4, kWin>(
+    return launch_decode_rows<T, KV, kPaged, D, 4, kWin, kXf>(
         c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
         c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream, c.window,
-        c.sinks);
+        c.sinks, c.softcap, c.slopes);
   }
-  return launch_decode_rows<T, KV, kPaged, D, kDecodeRows, kWin>(
+  return launch_decode_rows<T, KV, kPaged, D, kDecodeRows, kWin, kXf>(
       c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
       c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream, c.window,
-      c.sinks);
+      c.sinks, c.softcap, c.slopes);
 }
 
-// A call under a window takes the kernel that reads it.
+// A call under a window takes the kernel that reads it; under the score
+// transforms, the windowed kernel that also takes them (any window).
 template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch_decode(const fam::DecodeCall& c) {
-  if (c.window != kNoWindow) return launch_decode_win<T, KV, kPaged, D, true>(c);
-  return launch_decode_win<T, KV, kPaged, D, false>(c);
+  if (c.softcap > 0.0f || c.slopes != nullptr) {
+    return launch_decode_win<T, KV, kPaged, D, true, true>(c);
+  }
+  if (c.window != kNoWindow) return launch_decode_win<T, KV, kPaged, D, true, false>(c);
+  return launch_decode_win<T, KV, kPaged, D, false, false>(c);
 }
 
 // Every instance for one KV element type (Native: q's own type).

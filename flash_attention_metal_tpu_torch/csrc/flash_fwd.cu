@@ -31,9 +31,12 @@
 // Paged: row c % page of physical page table[b, c / page], the page id
 // clamped to [0, P - 1] as the Pallas index map clamps it (paged.py:64-65);
 // masks are in logical positions, so physical placement never enters the
-// scores.  Every entry takes a sliding window with attention sinks (with
-// causal, row position p sees only c > p - window, besides c < sinks; the
-// tiles outside both are skipped, window.cuh), and fam_flash_fwd segment
+// scores.  Every entry takes the score transforms of xf.cuh (the tanh
+// softcap on s, then the ALiBi bias measured from r / pos_div + q_offset[b]
+// or the slot's length; ALiBi with pos_div 1 only) and a sliding window
+// with attention sinks (with causal, row position p sees only c > p -
+// window, besides c < sinks; the tiles outside both are skipped,
+// window.cuh), and fam_flash_fwd segment
 // ids (only columns of the row's id; such a call takes no split).  A row
 // with no visible column gives o = 0 and lse = -inf (the optional lse,
 // natural log, fp32 [B, H, N_q], of the dense entry points).
@@ -323,8 +326,10 @@ __device__ __forceinline__ void pv_f32(Smem<float, D>& sm, int r, int half) {
 // T: q's type (bf16 or fp32).  KV: the cache's element type, T itself for a
 // bf16 / fp32 cache, int8_t / E4M3 / E5M2 for an 8-bit one (with scales).
 // D: the head dim.  kFeat: the window and segment ids of f are read;
-// without it the kernel holds no feature state.
-template <typename T, typename KV, bool kPaged, int D, bool kFeat>
+// without it the kernel holds no feature state.  kXf (with kFeat): the
+// score transforms of f too (xf.cuh; tanhf for fp32 q), the bias measured
+// from r / pos_div + the batch's offset, also when not causal.
+template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
@@ -358,6 +363,12 @@ __global__ void __launch_bounds__(kThreads)
     col_limit = causal ? min(n_kv - 1, row / pos_div + off) : n_kv - 1;
   }
   const int col_lo = kFeat ? row / pos_div + off - f.window + 1 : 0;
+  XfHead xf;
+  int xpos = 0;  // the row's position for the bias
+  if constexpr (kXf) {
+    xf = XfHead(f.softcap, f.slopes, h, scale_log2 / kLog2e);
+    xpos = row / pos_div + (q_offset != nullptr ? q_offset[b] : fixed_offset);
+  }
   const int my_seg =
       kFeat && f.q_seg != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + row] : 0;
   // The tiles any row of the tile may see, up to the last row's diagonal
@@ -431,9 +442,15 @@ __global__ void __launch_bounds__(kThreads)
       float x = kMaskValue;
       if (seen[j]) {
         const float k_scale = kScaled ? sm.sk[c] : 1.0f;
-        x = sm.s[r * kLdS + c] * (k_scale * scale_log2);
+        if constexpr (kXf) {
+          // s_reg keeps the capped score t; the max takes t + bias (xf.cuh).
+          s_reg[j] = xf.capped<std::is_same<T, float>::value>(sm.s[r * kLdS + c] * k_scale);
+          x = s_reg[j] + xf.bias((float)(cc - xpos));
+        } else {
+          x = sm.s[r * kLdS + c] * (k_scale * scale_log2);
+        }
       }
-      s_reg[j] = x;
+      if constexpr (!kXf) s_reg[j] = x;
       step_max = fmaxf(step_max, x);
     }
     step_max = fmaxf(step_max, __shfl_xor_sync(0xffffffffu, step_max, 1));
@@ -443,7 +460,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
       const int c = c0 + j;
-      const float p = seen[j] ? exp2f(s_reg[j] - m_new) : 0.0f;
+      float p;
+      if constexpr (kXf) {
+        p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(kv_start + c - xpos), m_new)) : 0.0f;
+      } else {
+        p = seen[j] ? exp2f(s_reg[j] - m_new) : 0.0f;
+      }
       row_sum += p;
       // The V scale folds into P (quant.py:265-270).
       const float v_scale = kScaled ? sm.sv[c] : 1.0f;
@@ -496,8 +518,9 @@ Split whole_row(int n_kv) {
 
 // Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
 // says); the others run one block per 64-row q tile and take no split.
-// One block per 64-row q tile (the kernel that reads f with kFeat).
-template <typename T, typename KV, bool kPaged, int D, bool kFeat>
+// One block per 64-row q tile (the kernel that reads f with kFeat, and
+// its transforms with kXf).
+template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf>
 cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                          void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                          float sm_scale, int causal, int pos_div, cudaStream_t stream,
@@ -510,13 +533,13 @@ cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, 
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T, KV, kPaged, D, kFeat><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
       sm_scale * kLog2e, causal, pos_div, fixed_offset, f);
@@ -534,7 +557,7 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                                static_cast<float*>(lse), batch, n_heads, n_kv_heads, n_q,
                                sm_scale, causal, pos_div, fixed_offset, split.kv_chunk,
                                static_cast<float*>(split.part), static_cast<int*>(split.tickets),
-                               stream, f.window, f.sinks};
+                               stream, f.window, f.sinks, f.softcap, f.slopes};
     constexpr int dtype = std::is_same<T, bf16>::value ? 0 : 1;
     if constexpr (std::is_same<KV, T>::value) {
       return fam::flash_decode_native(call, dtype, D, kPaged);
@@ -546,14 +569,19 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
       return fam::flash_decode_e5m2(call, dtype, D, kPaged);
     }
   }
-  if (f.window != kNoWindow || f.q_seg != nullptr) {
-    return launch_tiles<T, KV, kPaged, D, true>(q, kv, q_offset, o, lse, batch, n_heads,
-                                                n_kv_heads, n_q, sm_scale, causal, pos_div,
-                                                stream, fixed_offset, f);
+  if (f.xf()) {
+    return launch_tiles<T, KV, kPaged, D, true, true>(q, kv, q_offset, o, lse, batch, n_heads,
+                                                      n_kv_heads, n_q, sm_scale, causal, pos_div,
+                                                      stream, fixed_offset, f);
   }
-  return launch_tiles<T, KV, kPaged, D, false>(q, kv, q_offset, o, lse, batch, n_heads,
-                                               n_kv_heads, n_q, sm_scale, causal, pos_div, stream,
-                                               fixed_offset, f);
+  if (f.window != kNoWindow || f.q_seg != nullptr) {
+    return launch_tiles<T, KV, kPaged, D, true, false>(q, kv, q_offset, o, lse, batch, n_heads,
+                                                       n_kv_heads, n_q, sm_scale, causal, pos_div,
+                                                       stream, fixed_offset, f);
+  }
+  return launch_tiles<T, KV, kPaged, D, false, false>(q, kv, q_offset, o, lse, batch, n_heads,
+                                                      n_kv_heads, n_q, sm_scale, causal, pos_div,
+                                                      stream, fixed_offset, f);
 }
 
 // The 8-bit caches: dtype 0 = bf16 q, 1 = fp32 q; kv_dtype 1 = int8,
@@ -592,6 +620,19 @@ bool bad_window(int window, int sinks, int causal) {
   return window < 0 || sinks < 0 || (window > 0 && !causal);
 }
 
+// The score transforms: a cap of 0 (none) or more; slopes are one per
+// q-head, so they take no row fold (pos_div 1), and the bias needs the
+// offsets.
+bool bad_xf(float softcap, const void* slopes, int pos_div, const void* q_offset) {
+  return !(softcap >= 0.0f) || (slopes != nullptr && (pos_div != 1 || q_offset == nullptr));
+}
+
+Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg, float softcap,
+               const void* slopes) {
+  return Feat{window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
+              static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes)};
+}
+
 // A chunk is a positive multiple of 64 columns; more than one split needs
 // a decode tile, the workspace and the tickets.
 bool bad_split(int n_q, int n_kv, const Split& split) {
@@ -615,7 +656,11 @@ bool bad_split(int n_q, int n_kv, const Split& split) {
 //
 // The window of every entry: window, the columns a row sees back from its
 // position (0: no window; more needs causal), and sinks, the first columns
-// every row sees besides (read only with a window).
+// every row sees besides (read only with a window).  The score transforms
+// of every entry (xf.cuh): softcap, 0 for none; slopes, fp32 [H] ALiBi
+// slopes of the q-heads or null (pos_div 1 only, and q_offset or lengths
+// given: the bias measures each row's position from them; the quant entry
+// also needs causal, as the JAX kernel does).
 
 // Dense cache in q's type: k, v [B, H_kv, N, D], D = head_dim 64 or 128;
 // q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null;
@@ -627,24 +672,26 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              int batch, int n_heads, int n_kv_heads, int n_q,
                              int n_kv, int head_dim, float sm_scale,
                              int causal, int pos_div, int dtype, int window, int sinks,
-                             const void* q_seg, const void* kv_seg, int kv_chunk,
-                             void* part, void* tickets, void* stream) {
+                             const void* q_seg, const void* kv_seg, float softcap,
+                             const void* slopes, int kv_chunk, void* part, void* tickets,
+                             void* stream) {
   const Split split{kv_chunk, part, tickets};
   const bool seg = q_seg != nullptr;
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
-      seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv))) {
+      seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv)) ||
+      bad_xf(softcap, slopes, pos_div, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f{window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
-               static_cast<const int*>(kv_seg)};
+  const Feat f = make_feat(window, sinks, q_seg, kv_seg, softcap, slopes);
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
-  // Segment ids take the wgmma kernel at any n_q; a window or segment ids
-  // take its featured walks, the rest the causal walk as before.
+  // Segment ids take the wgmma kernel at any n_q; a window, segment ids or
+  // the score transforms take its featured walks, the rest the causal walk
+  // as before.
   const bool wgmma = dtype == 0 && pos_div == 1 && (n_q > kDecodeRows || seg);
-  const bool featured = seg || f.window != kNoWindow;
+  const bool featured = seg || f.window != kNoWindow || f.xf();
   if (wgmma && featured) {
     return (int)(head_dim == 64
                      ? sm90::launch_fwd_feat<64>(q, k, v, off, o, lse, batch, n_heads, n_kv_heads,
@@ -700,14 +747,16 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                int batch, int n_heads, int n_kv_heads, int n_q,
                                int n_kv, int head_dim, float sm_scale,
                                int causal, int pos_div, int dtype,
-                               int kv_dtype, int window, int sinks, int kv_chunk, void* part,
-                               void* tickets, void* stream) {
+                               int kv_dtype, int window, int sinks, float softcap,
+                               const void* slopes, int kv_chunk, void* part, void* tickets,
+                               void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal)) {
+      n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
+      bad_xf(softcap, slopes, pos_div, q_offset) || (slopes != nullptr && !causal)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f{window_or_none(window), window > 0 ? sinks : 0};
+  const Feat f = make_feat(window, sinks, nullptr, nullptr, softcap, slopes);
   const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
                   static_cast<const float*>(v_scale), nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -729,15 +778,17 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
                                int n_heads, int n_kv_heads, int n_q,
                                int n_pages, int page_size, int max_pages,
                                int head_dim, float sm_scale, int pos_div,
-                               int dtype, int window, int sinks, int kv_chunk, void* part,
-                               void* tickets, void* stream) {
+                               int dtype, int window, int sinks, float softcap,
+                               const void* slopes, int kv_chunk, void* part, void* tickets,
+                               void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages) ||
-      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1)) {
+      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1) ||
+      bad_xf(softcap, slopes, pos_div, lengths)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f{window_or_none(window), window > 0 ? sinks : 0};
+  const Feat f = make_feat(window, sinks, nullptr, nullptr, softcap, slopes);
   const KvArgs kv{pool_k, pool_v, nullptr, nullptr, static_cast<const int*>(table),
                   max_pages * page_size, page_size, max_pages, n_pages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -764,15 +815,17 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
                                      int n_kv_heads, int n_q, int n_pages,
                                      int page_size, int max_pages, int head_dim,
                                      float sm_scale, int pos_div, int dtype,
-                                     int kv_dtype, int window, int sinks, int kv_chunk,
-                                     void* part, void* tickets, void* stream) {
+                                     int kv_dtype, int window, int sinks, float softcap,
+                                     const void* slopes, int kv_chunk, void* part,
+                                     void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages) ||
-      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1)) {
+      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1) ||
+      bad_xf(softcap, slopes, pos_div, lengths)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f{window_or_none(window), window > 0 ? sinks : 0};
+  const Feat f = make_feat(window, sinks, nullptr, nullptr, softcap, slopes);
   const KvArgs kv{pool_k_q, pool_v_q, static_cast<const float*>(pool_k_scale),
                   static_cast<const float*>(pool_v_scale),
                   static_cast<const int*>(table), max_pages * page_size,

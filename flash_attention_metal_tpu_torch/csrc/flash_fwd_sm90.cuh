@@ -25,7 +25,8 @@
 // compile_tables).  The dense walk also takes a sliding window with
 // attention sinks and segment ids (window.cuh): row r at position p = r +
 // off sees c <= p with c > p - window or c < sinks, and with segment ids
-// only columns of its own id.  Softmax statistics and both products accumulate in
+// only columns of its own id, and the score transforms of xf.cuh (the tanh
+// softcap, ALiBi).  Softmax statistics and both products accumulate in
 // fp32; P is rounded to bf16 before the PV product.  The optional lse is
 // the natural-log logsumexp per row, fp32 [B, H, N_q].  A row with no
 // visible column gives o = 0 and lse = -inf.
@@ -74,7 +75,10 @@
 //     then the window's tiles (window.cuh, kv_runs), so an out-of-window
 //     tile is neither fetched nor computed; tiles that cross the window's
 //     edge compare columns too (FeatWalk, a walk of its own, so that an
-//     unwindowed call runs DenseWalk's code with no window state).  With
+//     unwindowed call runs DenseWalk's code with no window state).  Under
+//     the score transforms (FeatWalk<kSeg, true>, with or without a
+//     window) the softmax of a step first caps its scores and measures the
+//     bias into its exponents (online_softmax).  With
 //     segment ids (FeatWalk<true>, row 1 only) every step compares: the KV
 //     tile's 64 ids come through the K ring's bit stage beside K, and each
 //     thread reads its two rows' ids once.
@@ -139,6 +143,7 @@ struct DenseWalk {
   // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
   // e >= 2), KV column c0 + 8 j + (e & 1).
   struct Mask {
+    static constexpr bool kXf = false;
     bool full;
     int c0, r0, off, n_kv;
     __device__ bool seen(int j, int e) const {
@@ -178,9 +183,11 @@ struct DenseWalk {
 // The dense walk under a window and, with kSeg, segment ids (row 1): row r
 // at position p = r + q_offset[b] sees c <= p inside its window (window,
 // sinks; kNoWindow: none), and with kSeg only columns whose segment id
-// (kv_seg [B, N_kv]) is the row's (q_seg [B, N_q]).  A call without either
-// runs DenseWalk, which holds no such state.
-template <bool kSeg>
+// (kv_seg [B, N_kv]) is the row's (q_seg [B, N_q]).  kXf: the score
+// transforms (xf.cuh: softcap, slopes; the bias measured from r +
+// q_offset[b] also when not causal), with or without a window.  A call
+// without any runs DenseWalk, which holds no such state.
+template <bool kSeg, bool kXf_ = false>
 struct FeatWalk {
   static constexpr bool kBits = kSeg;  // the bit stage holds the KV tile's ids
   const int* q_offset;
@@ -188,21 +195,34 @@ struct FeatWalk {
   int window = kNoWindow, sinks = 0;
   const int* q_seg = nullptr;
   const int* kv_seg = nullptr;
+  float softcap = 0.0f, sm_scale = 0.0f;
+  const float* slopes = nullptr;
 
   // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
   // e >= 2), KV column c0 + 8 j + (e & 1); ids: the step's KV ids from
-  // this thread's first column on, qid: its two rows' ids.
+  // this thread's first column on, qid: its two rows' ids.  With kXf, xf
+  // and the distances of the score transforms (xoff: the offset the bias
+  // measures rows from; online_softmax).
   struct Mask {
+    static constexpr bool kXf = kXf_;
     bool full;
     int c0, r0, off, n_kv, window, sinks;
     const uint32_t* ids;
     int qid[2];
+    XfHead xf;
+    float base;  // this thread's first distance c0 - (r0 + xoff), as a float
     __device__ bool seen(int j, int e) const {
       const int c = c0 + j * 8 + (e & 1);
       const int p = r0 + (e >> 1) * 8 + off;
       bool ok = c < n_kv && c <= p && in_window(c, p, window, sinks);
       if constexpr (kSeg) ok = ok && (int)ids[j * 8 + (e & 1)] == qid[e >> 1];
       return ok;
+    }
+    // Element (j, e)'s distance c - p: the step's base plus a constant of
+    // the unrolled loop (the int-to-float conversion, a MUFU-rate op, taken
+    // once a step in mask()).
+    __device__ float dist(int j, int e) const {
+      return base + (float)(j * 8 + (e & 1) - (e >> 1) * 8);
     }
   };
 
@@ -214,6 +234,8 @@ struct FeatWalk {
     TileRuns runs;
     const int* kv_ids;
     int qid[2];
+    XfHead xf;
+    int xoff;
     __device__ Blk(const FeatWalk& w, int, int n_q, int n_kv_) {
       n_kv = n_kv_;
       b = blockIdx.z;
@@ -221,6 +243,11 @@ struct FeatWalk {
       q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
       const int rows_valid = min(kTile, n_q - q_start);
       off = !w.causal ? n_kv : w.q_offset != nullptr ? w.q_offset[b] : w.fixed_offset;
+      xoff = 0;
+      if constexpr (kXf_) {
+        xf = XfHead(w.softcap, w.slopes, h, w.sm_scale);
+        xoff = w.q_offset != nullptr ? w.q_offset[b] : w.fixed_offset;
+      }
       window = w.window;
       sinks = w.sinks;
       runs = kv_runs<kTile>(q_start + off, q_start + rows_valid - 1 + off, n_kv, window, sinks);
@@ -251,8 +278,9 @@ struct FeatWalk {
       const bool full = !kSeg && kv_start + kTile - 1 <= q_start + off &&
                         kv_start + kTile <= n_kv &&
                         tile_in_window(kv_start, kTile, q_start + kTile - 1 + off, window, sinks);
+      const float base = kXf_ ? (float)(kv_start + 2 * t - (q_start + row) - xoff) : 0.0f;
       return {full, kv_start + 2 * t, q_start + row, off, n_kv, window, sinks, bits + 2 * t,
-              {qid[0], qid[1]}};
+              {qid[0], qid[1]}, xf, base};
     }
   };
 };
@@ -275,6 +303,7 @@ struct SparseFwdWalk {
   // down by 2 t, this thread's first column of every n8 tile, so each test
   // shifts by a constant.
   struct Mask {
+    static constexpr bool kXf = false;
     bool full;
     uint32_t w[2][2];
     __device__ bool seen(int j, int e) const {
@@ -328,18 +357,29 @@ struct SparseFwdWalk {
 // Element e of n8 tile j: Q row r_lo (+ 8 for e >= 2), the tile's column
 // 8 j + 2 t + (e & 1).  A full step skips the test; a hidden element
 // scores -inf.  Rows that have seen nothing yet keep a reference of 0, so
-// exp2 never takes (-inf) - (-inf).
+// exp2 never takes (-inf) - (-inf).  Under the score transforms
+// (Mask::kXf, xf.cuh) st first becomes the capped scores t, already in
+// log2 units; the row max takes t + bias, and P = exp2(t + fma(slope2,
+// dist, -max)), the bias and the max in one FMA (xf.cuh, "Precision").
 template <class Mask>
 __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m_i)[2],
                                                float (&alpha)[2], float (&sum)[2],
                                                const Mask& mask, float scale_log2) {
+  if constexpr (Mask::kXf) {
+    xf_cap<false>(mask.xf, st);
+    scale_log2 = 1.0f;
+  }
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
   for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (!mask.full && !mask.seen(j, e)) st[4 * j + e] = -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], st[4 * j + e]);
+      if constexpr (Mask::kXf) {
+        mx[e >> 1] = fmaxf(mx[e >> 1], st[4 * j + e] + mask.xf.bias(mask.dist(j, e)));
+      } else {
+        mx[e >> 1] = fmaxf(mx[e >> 1], st[4 * j + e]);
+      }
     }
   }
   float m_ref[2];
@@ -357,7 +397,12 @@ __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m
   for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, -m_ref[e >> 1]));
+      float p;
+      if constexpr (Mask::kXf) {
+        p = exp2_ftz(mask.xf.shifted(st[4 * j + e], mask.dist(j, e), m_ref[e >> 1]));
+      } else {
+        p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, -m_ref[e >> 1]));
+      }
       st[4 * j + e] = p;
       sum[e >> 1] += p;
     }
@@ -547,13 +592,26 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q
 }
 
 // The dense walk under a window (f.window, f.sinks) and, when f.q_seg is
-// set, segment ids (q_seg [B, N_q], kv_seg [B, N_kv]).
+// set, segment ids (q_seg [B, N_q], kv_seg [B, N_kv]); under the score
+// transforms (f.xf(): the softcap, the slopes) the walks that take them.
 template <int D>
 cudaError_t launch_fwd_feat(const void* q, const void* k, const void* v, const int* q_offset,
                             void* o, void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                             int n_kv, float sm_scale, int causal, const Feat& f,
                             cudaStream_t stream) {
   const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
+  if (f.xf()) {
+    if (f.q_seg != nullptr) {
+      return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                       FeatWalk<true, true>{q_offset, 0, causal, f.window, f.sinks, f.q_seg,
+                                            f.kv_seg, f.softcap, sm_scale, f.slopes},
+                       grid, stream);
+    }
+    return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                     FeatWalk<false, true>{q_offset, 0, causal, f.window, f.sinks, nullptr,
+                                           nullptr, f.softcap, sm_scale, f.slopes},
+                     grid, stream);
+  }
   if (f.q_seg != nullptr) {
     return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
                      FeatWalk<true>{q_offset, 0, causal, f.window, f.sinks, f.q_seg, f.kv_seg},

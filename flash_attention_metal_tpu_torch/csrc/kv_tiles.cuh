@@ -57,6 +57,8 @@ struct DecodeCall {
   cudaStream_t stream;
   int window = kNoWindow;  // a row sees c > position - window, or c < sinks
   int sinks = 0;
+  float softcap = 0.0f;       // the score transforms (xf.cuh): 0 for no cap,
+  const float* slopes = nullptr;  // fp32 [H_q] ALiBi slopes or null
 };
 
 // The decode grid for a cache in q's own type (bf16 / fp32), int8, e4m3 and

@@ -25,19 +25,25 @@
 
 #include <cuda_runtime.h>
 
+#include "xf.cuh"
+
 namespace {
 
 // Far past any position: p - kNoWindow < 0 <= c, and c > p - kNoWindow
 // holds for every column without an int overflow.
 constexpr int kNoWindow = 1 << 30;
 
-// The masking features of a call.  window: kNoWindow for none (then sinks
-// is 0); q_seg, kv_seg: int32 [B, N_q] and [B, N_kv], or null for none.
+// The features of a call.  window: kNoWindow for none (then sinks is 0);
+// q_seg, kv_seg: int32 [B, N_q] and [B, N_kv], or null for none; the score
+// transforms (xf.cuh): softcap 0 for none, slopes fp32 [H_q] or null.
 struct Feat {
   int window = kNoWindow;
   int sinks = 0;
   const int* q_seg = nullptr;
   const int* kv_seg = nullptr;
+  float softcap = 0.0f;
+  const float* slopes = nullptr;
+  __host__ __device__ bool xf() const { return softcap > 0.0f || slopes != nullptr; }
 };
 
 // A C entry's window argument (0: none) as the kernels take it.

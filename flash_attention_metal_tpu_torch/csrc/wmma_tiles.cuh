@@ -19,6 +19,8 @@
 
 #include <type_traits>
 
+#include "xf.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -159,12 +161,17 @@ __device__ __forceinline__ void bwd_scores(BwdSmem<T, D>& sm, int r, int half) {
 // in s and dO V^T in dp, into sm.p_tile() and sm.ds_tile().  col_limit: the
 // last column the row sees (-1: none, also for padding rows); col_lo: the
 // first column of its window, and sinks the columns it sees before it;
-// kids: the tile's 64 KV segment ids (null: none), qid the row's.
-template <typename T, int D>
+// kids: the tile's 64 KV segment ids (null: none), qid the row's.  kXf:
+// the score transforms xf (xf.cuh, tanhf) with the row at position pos;
+// dS * (c - pos) adds into *dslope (a double: xf_warp_store) before the
+// softcap's chain.
+template <typename T, int D, bool kXf = false>
 __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half, int kv_start,
                                              int col_limit, float scale_log2,
                                              int col_lo = INT_MIN, int sinks = 0, int qid = 0,
-                                             const int* kids = nullptr) {
+                                             const int* kids = nullptr,
+                                             const XfHead& xf = XfHead(), int pos = 0,
+                                             double* dslope = nullptr) {
   using C = Cfg<T, D>;
   T* p = sm.p_tile();
   T* ds = sm.ds_tile();
@@ -176,10 +183,20 @@ __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half,
     const int cc = kv_start + c;
     const bool seen = cc <= col_limit && (cc >= col_lo || cc < sinks) &&
                       (kids == nullptr || kids[c] == qid);
-    const float pj = seen ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;
-    const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
-    p[r * C::kLdS + c] = from_float<T>(pj);
-    ds[r * C::kLdS + c] = from_float<T>(dsj);
+    if constexpr (kXf) {
+      const float t = xf.capped<true>(sm.s[r * C::kLdS + c]);
+      const float dist = (float)(cc - pos);
+      const float pj = seen ? exp2f(xf.shifted(t, dist, lse2)) : 0.0f;
+      const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
+      *dslope = fma((double)dsj, (double)dist, *dslope);
+      p[r * C::kLdS + c] = from_float<T>(pj);
+      ds[r * C::kLdS + c] = from_float<T>(dsj * xf.chain(t));
+    } else {
+      const float pj = seen ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;
+      const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
+      p[r * C::kLdS + c] = from_float<T>(pj);
+      ds[r * C::kLdS + c] = from_float<T>(dsj);
+    }
   }
 }
 

@@ -61,6 +61,7 @@ from ..config import SegmentIds, default_scale
 from ..kernels.flash_bwd import (
     bwd_delta,
     dq_workspace_shape,
+    dslope_term_sizes,
     flash_attention_bwd,
     flash_attention_bwd_fused,
     flash_attention_bwd_fused_plain,
@@ -97,6 +98,7 @@ from ..kernels.paged import (
     flash_attention_paged_quant,
 )
 from ..kernels.quant import flash_attention_quant, flash_attention_quant_plain, quantize_kv
+from ..models import transformer
 from ..runtime import decode as decode_mod
 from ..runtime.kv_cache import as_bytes
 from ..utils.roofline import kv_cache_bytes, visible_kv_rows, visible_pairs
@@ -779,21 +781,27 @@ WINDOW_FWD_CASES = (
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
-def window_fwd_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
+def window_fwd_cases(gen: torch.Generator, names=None, table=WINDOW_FWD_CASES) -> Dict[str, tuple]:
     """``{name: (q, k, v, q_offset, pos_div, features)}`` of
-    ``WINDOW_FWD_CASES`` (all, or ``names``); ``features`` holds ``causal``
-    and the wrapper's window, sinks and segment ids."""
+    ``WINDOW_FWD_CASES`` (or ``table``: all, or ``names``); ``features``
+    holds ``causal`` and the wrapper's window, sinks, segment ids, softcap
+    and ALiBi slopes (``alibi``: an ``ALIBI_SLOPES`` name).  An offset is
+    an int for every batch, a tuple per batch or None (the decode
+    lengths)."""
     cases = {}
-    for name, sq, skv, dt, fixture, off, pos_div, feats in WINDOW_FWD_CASES:
+    for name, sq, skv, dt, fixture, off, pos_div, feats in table:
         if names is not None and name not in names:
             continue
         q, k, v = _fixture(sq, skv, _DTYPES[dt], gen, fixture)
         offs = (torch.from_numpy(decode_lengths()) if off is None
+                else torch.tensor(off, dtype=torch.int32) if isinstance(off, tuple)
                 else torch.full((sq[0],), off, dtype=torch.int32))
         feats = dict(feats)
         feats.setdefault("causal", True)
         if feats.pop("segments", False):
             feats["segment_ids"] = segment_ids(sq[0], sq[2], skv[2], offs)
+        if "alibi" in feats:
+            feats["alibi_slopes"] = alibi_slopes(feats.pop("alibi"), sq[1])
         cases[name] = (q, k, v, offs.to("cuda", torch.int32), pos_div, feats)
     return cases
 
@@ -828,21 +836,69 @@ def window_bwd_inputs(case: tuple, gen: torch.Generator) -> tuple:
 
 
 def window_bwd_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[float, float]]:
-    """``bwd_kernel_errors`` under the inputs' features."""
+    """``bwd_kernel_errors`` under the inputs' features; under ALiBi also
+    ``d_slopes``, read two ways: normalised as the other gradients are (by
+    the plain version's max-abs entry), and as ``d_slopes_head``, each
+    head's error over the size of its own terms (``dslope_term_sizes``:
+    the sum of |dS * distance| over the head's pairs), held at
+    ``DSLOPE_HEAD_TOL`` (``bwd_limit``).  A head's entry is a sum that
+    cancels (dS sums to 0 over a row), so the first measure alone lets a
+    head whose sum is small beside the largest one err by as much as that
+    one may, and a per-entry measure (ladder rung 17's ``|d| + 1``) holds
+    a small sum to the rounding of terms far larger than it: the fp32
+    kernel read up to 2.4e-5 of ``|d| + 1`` on the peaked fixture, where
+    its plain version is no closer to the exact sum (the CPU tests hold
+    both against float64)."""
     q, k, v, o, do, lse, off, feats = inputs
     scale = default_scale(q.shape[-1])
     kernel, plain = ((flash_attention_bwd_fused, flash_attention_bwd_fused_plain) if fused
                      else (flash_attention_bwd, flash_attention_bwd_plain))
     bound = {"q_offset_max": int(off.max())} if fused else {}
     got = kernel(q, k, v, o, do, lse, off, sm_scale=scale, **bound, **feats)
-    want = plain(q.float(), k.float(), v.float(), o.float(), do.float(), lse, off,
-                 sm_scale=scale, **feats)
+    plain_in = (q.float(), k.float(), v.float(), o.float(), do.float(), lse, off)
+    want = plain(*plain_in, sm_scale=scale, **feats)
     torch.cuda.synchronize()
     errors = {}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         err = (g.float() - w).abs().max().item()
         errors[name] = (err, err / max(w.abs().max().item(), 1e-30))
+    if len(want) > 3:
+        err = (got[3].float() - want[3]).abs()
+        sizes = dslope_term_sizes(*plain_in, sm_scale=scale, **feats)
+        worst = err.max().item()
+        errors["d_slopes"] = (worst, worst / max(want[3].abs().max().item(), 1e-30))
+        errors["d_slopes_head"] = (worst, (err / sizes.clamp_min(1e-30)).max().item())
     return errors
+
+
+# d_slopes head by head (``window_bwd_errors``' ``d_slopes_head``): each
+# head's error over the size of its terms.  The bf16 kernels too sum it in
+# fp32 from dS that is never rounded to bf16, and the kernel and its plain
+# version rebuild P from the same lse, so it reads near fp32 rounding: on
+# the H100 every case of XF_BWD_CASES read at most 3.3e-7 (bf16) and
+# 1.3e-8 (fp32), the far fp32 rows 5.6e-9 (PERF.md §6).  The bounds sit
+# 30x and 77x above that, far below the bf16 gradients' 1e-2, which would
+# let the steepest head's d_slopes (a small sum of large terms) err by 7x
+# its own value.
+DSLOPE_HEAD_TOL = {torch.bfloat16: 1e-5, torch.float32: 1e-6}
+
+
+def bwd_limit(key: str, dtype: torch.dtype) -> float:
+    """The bound of a ``window_bwd_errors`` entry's normalised error."""
+    return (DSLOPE_HEAD_TOL if key == "d_slopes_head" else BWD_TOL)[dtype]
+
+
+def dslope_heads(inputs: tuple) -> Tuple[List[float], List[float], List[float]]:
+    """Per q-head, the kernel's ``d_slopes``, the plain version's and the
+    size of its terms (``dslope_term_sizes``) on ``window_bwd_inputs``
+    under ALiBi: what ``window_bwd_errors`` reads, head by head."""
+    q, k, v, o, do, lse, off, feats = inputs
+    scale = default_scale(q.shape[-1])
+    got = flash_attention_bwd(q, k, v, o, do, lse, off, sm_scale=scale, **feats)[3]
+    plain_in = (q.float(), k.float(), v.float(), o.float(), do.float(), lse, off)
+    want = flash_attention_bwd_plain(*plain_in, sm_scale=scale, **feats)[3]
+    sizes = dslope_term_sizes(*plain_in, sm_scale=scale, **feats)
+    return got.tolist(), want.tolist(), sizes.tolist()
 
 
 def window_mask(n_q: int, n_kv: int, offsets: torch.Tensor, window: int, sinks: int,
@@ -869,6 +925,200 @@ WINDOW_KV_CASES = tuple(
                                ("decode_skewed_bf16", 64, 0))
 ) + tuple((f"{kernel}_decode_bf16_d128", WINDOW, SINKS)
           for kernel in ("quant_int8", "paged", "paged_quant_int8"))
+
+
+# ---------------------------------------------------------------------------
+# The score transforms: the tanh softcap and ALiBi on the forward (row 1:
+# the wgmma kernel, the fp32 template and the decode grid), the split pair
+# (rows 5-6) and the cache kernels (rows 11-13), against their plain
+# versions.
+# ---------------------------------------------------------------------------
+
+# The capped ALiBi FlashLM's softcap (ModelConfig.attn_softcap, the JAX
+# tests' 30; Gemma-2 caps its attention logits at 50, its final logits at 30).
+SOFTCAP = 30.0
+
+
+def alibi_slopes(kind: str, heads: int) -> torch.Tensor:
+    """fp32 ``[heads]`` slopes on the card: ``"std"`` the standard schedule
+    ``2^(-8 i / H)`` (ModelConfig.attn_alibi's), ``"large"`` 0.25 to 1 (a
+    column 64 back weighs ~e^-16 to e^-64: the bias decides the softmax),
+    ``"small"`` the standard ones over 256 (the bias a perturbation)."""
+    std = transformer.alibi_slopes(heads, "cuda")
+    return {"std": std, "large": torch.linspace(0.25, 1.0, heads, device="cuda"),
+            "small": std / 256}[kind]
+
+
+# Unfolded decode (ALiBi takes no GQA row fold): a token of each of 16
+# q-heads over the 8 KV heads' cache.
+XF_DECODE_Q, XF_DECODE_D128_Q = (8, 16, 1, 64), (8, 16, 1, 128)
+# Per-batch offsets of a training-shape case (a row's ALiBi distance and
+# its diagonal move with them): the rows of the last batch sit up to 1500
+# positions past the cache's end, so under a window of 100 they see only
+# the sinks, ~1500-3500 columns away.  Such rows score in the hundreds to
+# thousands of log2 units, where fp32 resolves 6e-5 to 2e-4: an fp32
+# kernel and its plain version differ there by ~1e-4 relative in P and the
+# lse (the stored lse, the slope's rounding times the distance), above the
+# fp32 bound of 1e-5, so the fp32 case of XF_FWD_CASES takes offsets of 0
+# or less, whose rows all see their own neighbourhood (or nothing); the
+# far rows are held in bf16 here, and in fp32 at a limit scaled to their
+# lse (XF_FAR_FP32).
+XF_OFFSETS = (0, 100, 517, 1500)
+XF_NEAR_OFFSETS = (0, -17, -64, -100)
+_CAP, _BOTH = dict(softcap=SOFTCAP), dict(softcap=SOFTCAP, alibi="std")
+# (name, q shape, kv shape, dtype, fixture, offsets, pos_div, features), as
+# WINDOW_FWD_CASES.  Training shape: cap 30 and 20 (tanh held against the
+# bound where the scores are peaked), cap 0.5 (every score saturated),
+# ALiBi with the standard, large and small slopes, both (the capped ALiBi
+# FlashLM's), both composed with the window and sinks, with segment ids,
+# not causal, and with per-batch offsets; head dim 128; fp32 at N 512; the
+# prefill chunk at offset 512; decode folded (softcap only) and unfolded.
+XF_FWD_CASES = (
+    ("train_cap30_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1, _CAP),
+    ("train_cap30_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, _CAP),
+    ("train_cap20_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(softcap=20.0)),
+    ("train_cap05_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(softcap=0.5)),
+    ("train_alibi_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1, dict(alibi="std")),
+    ("train_alibi_large_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1,
+     dict(alibi="large")),
+    ("train_alibi_small_bf16_spike", TRAIN_Q, TRAIN_KV, "bf16", "spike", 0, 1, dict(alibi="small")),
+    ("train_both_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, _BOTH),
+    ("train_cap05_alibi_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1,
+     dict(softcap=0.5, alibi="std")),
+    ("train_both_bf16_spike", TRAIN_Q, TRAIN_KV, "bf16", "spike", 0, 1, _BOTH),
+    ("train_both_w512_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1,
+     dict(_BOTH, window=WINDOW, sinks=SINKS)),
+    ("train_both_seg_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(_BOTH, segments=True)),
+    ("train_both_full_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", XF_OFFSETS, 1,
+     dict(_BOTH, causal=False)),
+    ("train_both_offs_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", XF_OFFSETS, 1, _BOTH),
+    ("train_both_bf16_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "peaked", 0, 1, _BOTH),
+    ("train_cap05_bf16_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "ladder", 0, 1,
+     dict(softcap=0.5)),
+    ("fp32_n512_both", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "peaked", 0, 1, _BOTH),
+    ("fp32_n512_cap05", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "ladder", 0, 1, dict(softcap=0.5)),
+    ("fp32_n512_alibi_large_w100", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "peaked", XF_NEAR_OFFSETS,
+     1, dict(alibi="large", window=100, sinks=SINKS)),
+    ("train_alibi_large_w100_offs_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", XF_OFFSETS, 1,
+     dict(alibi="large", window=100, sinks=SINKS)),
+    ("prefill_both_bf16_off512", PREFILL_Q, PREFILL_KV, "bf16", "peaked", 512, 1, _BOTH),
+    ("decode_cap30_bf16", DECODE_Q, DECODE_KV, "bf16", "peaked", None, 2, _CAP),
+    ("decode_both_bf16", XF_DECODE_Q, DECODE_KV, "bf16", "peaked", None, 1, _BOTH),
+    ("decode_alibi_large_bf16_spike", XF_DECODE_Q, DECODE_KV, "bf16", "spike", None, 1,
+     dict(alibi="large")),
+    ("decode_both_bf16_d128", XF_DECODE_D128_Q, DECODE_D128_KV, "bf16", "peaked", None, 1, _BOTH),
+    ("decode_both_fp32", XF_DECODE_Q, DECODE_KV, "fp32", "peaked", None, 1, _BOTH),
+)
+# The backward checks (the split pair: the fused kernel takes no transform).
+XF_BWD_CASES = tuple(name for name in (
+    "train_cap30_bf16_peaked", "train_cap05_bf16_peaked", "train_alibi_bf16",
+    "train_alibi_large_bf16_peaked", "train_both_bf16_peaked", "train_cap05_alibi_bf16_peaked",
+    "train_both_bf16_spike",
+    "train_both_w512_bf16", "train_both_seg_bf16", "train_both_full_bf16",
+    "train_both_offs_bf16", "train_both_bf16_d128", "train_cap05_bf16_d128", "fp32_n512_both",
+    "fp32_n512_cap05", "fp32_n512_alibi_large_w100", "train_alibi_large_w100_offs_bf16"))
+
+
+def xf_fwd_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
+    """``window_fwd_cases`` of ``XF_FWD_CASES``."""
+    return window_fwd_cases(gen, names, XF_FWD_CASES)
+
+
+# The fp32 kernels on rows far past the cache, as
+# train_alibi_large_w100_offs_bf16 in fp32 at N 512: the last batch's rows
+# sit 1500-2011 positions past the start of a 512-row cache, so under the
+# window of 100 they see only the sinks, 1500-2000 columns back, at slopes
+# up to 1, and score (and their lse) down to about -2000.  fp32 resolves
+# such a number to 2^-23 of itself (~1.8e-4 at 1500): the exponent's reference
+# and the slope's rounding times the distance move P by that much
+# relative, above the bound of 1e-5.  So this case is held at a limit
+# scaled to the lse: o at the fp32 bound (P's relative error leaves o's
+# weights summing to 1), each row's lse within FAR_ULPS units of 2^-23 of
+# its own |lse| (or the bound, the larger), and the gradients, normalised
+# as ``window_bwd_errors`` does, within FAR_ULPS * 2^-23 of the case's
+# largest |lse| (or the bound).
+XF_FAR_FP32 = ("fp32_n512_alibi_large_w100_far", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "peaked",
+               XF_OFFSETS, 1, dict(alibi="large", window=100, sinks=SINKS))
+FAR_ULPS = 2
+
+
+def xf_far_errors(gen: torch.Generator) -> Dict[str, Tuple[float, float]]:
+    """``{check: (error, limit)}`` of ``XF_FAR_FP32``: ``o`` (max-abs),
+    ``lse`` (the largest row's error over its own limit: limit 1), and the
+    split pair's ``dq``, ``dk``, ``dv``, ``d_slopes`` and ``d_slopes_head``
+    (as ``window_bwd_errors``'s normalised errors)."""
+    name = XF_FAR_FP32[0]
+    case = window_fwd_cases(gen, (name,), (XF_FAR_FP32,))[name]
+    q, k, v, off, pos_div, feats = case
+    got = flash_attention_fwd(q, k, v, off, pos_div=pos_div, save_lse=True, **feats)
+    want = flash_attention_fwd_plain(q.float(), k.float(), v.float(), off,
+                                     sm_scale=default_scale(q.shape[-1]), pos_div=pos_div,
+                                     save_lse=True, **feats)
+    err, _ = _fwd_errors(got, want)
+    tol = TOL[torch.float32]
+    lse, lse_ref = got[1], want[1]
+    finite = torch.isfinite(lse_ref)
+    ulp = FAR_ULPS * 2.0 ** -23
+    if not torch.equal(finite, torch.isfinite(lse)):
+        lse_ratio = float("inf")
+    else:
+        row_limit = (lse_ref[finite].abs() * ulp).clamp_min(tol)
+        lse_ratio = ((lse[finite] - lse_ref[finite]).abs() / row_limit).max().item()
+    out = {"o": (err, tol), "lse": (lse_ratio, 1.0)}
+    grad_limit = max(tol, ulp * lse_ref[finite].abs().max().item())
+    for g, (_, rel) in window_bwd_errors(window_bwd_inputs(case, gen)).items():
+        out[g] = (rel, grad_limit)
+    return out
+
+
+def unfolded(args: tuple, heads: int) -> tuple:
+    """A ``kv_cases`` entry's args with its folded decode q (``[B, H_kv,
+    group, D]``, pos_div = group) unfolded to ``[B, heads, 1, D]``."""
+    from ..ops.attention import unfold_gqa_rows
+
+    return (unfold_gqa_rows(args[0], heads, 1).contiguous(),) + tuple(args[1:])
+
+
+# The cache kernels' transformed checks: (kv_cases entry, unfold the
+# decode rows, features).  Folded decode takes the softcap alone; ALiBi
+# runs unfolded (16 q-heads, a row each).  The prefill chunk, fp32 q, the
+# skewed lengths and head dim 128; e4m3 once.
+XF_KV_CASES = tuple(
+    (f"{kernel}_{tag}", unfold, feats)
+    for kernel in ("quant_int8", "paged", "paged_quant_int8")
+    for tag, unfold, feats in (
+        ("decode_bf16", False, _CAP), ("decode_bf16_peaked", True, _BOTH),
+        ("decode_bf16_spike", True, dict(alibi="large")),
+        ("decode_bf16_peaked", False, dict(softcap=0.5)),
+        ("prefill_bf16", False, _BOTH), ("prefill_bf16_peaked", False, dict(softcap=0.5,
+                                                                           alibi="small")),
+        ("prefill_fp32", False, _BOTH), ("decode_skewed_bf16", True, dict(_BOTH, window=64)),
+        ("decode_bf16_d128", True, _BOTH))
+) + (("quant_e4m3_decode_bf16_peaked", True, _BOTH),
+     ("paged_quant_e4m3_prefill_bf16", False, _BOTH))
+
+
+def xf_kv_case(cases: dict, name: str, unfold: bool, feats: dict) -> Tuple[str, tuple, int, dict]:
+    """``(kernel, args, pos_div, keywords)`` of an ``XF_KV_CASES`` entry
+    over ``kv_cases`` (and ``kv_d128_cases``)."""
+    kernel, args, pos_div = cases[name]
+    if unfold:
+        args, pos_div = unfolded(args, 2 * args[0].shape[1]), 1
+    kw = dict(feats)
+    if "alibi" in kw:
+        kw["alibi_slopes"] = alibi_slopes(kw.pop("alibi"), args[0].shape[1])
+    return kernel, args, pos_div, kw
+
+
+def alibi_bias(slopes: torch.Tensor, n_q: int, n_kv: int, offsets: torch.Tensor,
+               visible: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """SDPA's float mask of an ALiBi call: ``slope_h * (c - p)`` where
+    ``visible`` (``[B or 1, 1, N_q, N_kv]``), -inf elsewhere, ``[B or 1, H,
+    N_q, N_kv]`` in ``dtype`` on the card."""
+    pos = torch.arange(n_q, device="cuda")[None, :, None] + offsets.to("cuda", torch.int64)[:, None, None]
+    dist = (torch.arange(n_kv, device="cuda") - pos).float()[:, None]
+    bias = slopes.reshape(1, -1, 1, 1) * dist
+    return bias.masked_fill(~visible, float("-inf")).to(dtype)
 
 
 def fwd_work(q: torch.Tensor, k: torch.Tensor, offsets, pos_div: int = 1,

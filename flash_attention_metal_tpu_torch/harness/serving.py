@@ -105,14 +105,18 @@ def build_engine(
     device="cuda",
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi: bool = False,
     **engine_kwargs,
 ) -> tuple:
     """A ``DecodeEngine`` over a FlashLM with seeded random weights
-    (``window``, ``sinks``: its sliding-window attention)."""
+    (``window``, ``sinks``: its sliding-window attention; ``softcap``,
+    ``alibi``: its score transforms)."""
     cfg = ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=max_len,
-        dtype=dtype, attn_window=window, attn_sinks=sinks,
+        dtype=dtype, attn_window=window, attn_sinks=sinks, attn_softcap=softcap,
+        attn_alibi=alibi,
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -63,14 +63,19 @@ def flashlm_config(
     seq: int = 2048,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi: bool = False,
 ) -> ModelConfig:
     """The trained FlashLM: bf16 compute, head_dim 64; defaults are the
     ``train_bench.json`` width.  ``window``, ``sinks``: the sliding window
-    of every attention call (``ModelConfig.attn_window``, ``attn_sinks``)."""
+    of every attention call (``ModelConfig.attn_window``, ``attn_sinks``);
+    ``softcap``, ``alibi``: its score transforms (``attn_softcap``,
+    ``attn_alibi``)."""
     return ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=seq,
-        dtype=torch.bfloat16, attn_window=window, attn_sinks=sinks,
+        dtype=torch.bfloat16, attn_window=window, attn_sinks=sinks, attn_softcap=softcap,
+        attn_alibi=alibi,
     )
 
 
@@ -95,6 +100,8 @@ def run_train_bench(
     optimizer: str = "adamw",
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi: bool = False,
     log=print,
 ) -> Dict[str, object]:
     """Run ``steps`` training steps on one fixed seeded batch and time them.
@@ -104,7 +111,8 @@ def run_train_bench(
     ``sgd_train_step`` (lr 1e-3), as the JAX bench does.  Each step runs
     between ``torch.cuda.synchronize()`` fences; the first is the warm-up
     and the reported step time is the median of the rest.  ``window``,
-    ``sinks``: a FlashLM with sliding-window attention.
+    ``sinks``: a FlashLM with sliding-window attention; ``softcap``,
+    ``alibi``: one with the score transforms.
     """
     if not torch.cuda.is_available():
         raise RuntimeError("run_train_bench needs a CUDA card")
@@ -113,7 +121,8 @@ def run_train_bench(
     spec = detect_chip()
     cfg = flashlm_config(
         n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
-        d_ff=d_ff, vocab=vocab, seq=seq, window=window, sinks=sinks,
+        d_ff=d_ff, vocab=vocab, seq=seq, window=window, sinks=sinks, softcap=softcap,
+        alibi=alibi,
     )
     tokens = fixed_batch(cfg, batch, seq, SEED + 1)
     if optimizer == "adamw":
@@ -147,7 +156,8 @@ def run_train_bench(
         "model": {
             "n_layers": n_layers, "d_model": d_model, "n_heads": n_heads,
             "n_kv_heads": n_kv_heads, "d_ff": d_ff, "vocab": vocab,
-            "attn_window": window, "attn_sinks": sinks,
+            "attn_window": window, "attn_sinks": sinks, "attn_softcap": softcap,
+            "attn_alibi": alibi,
         },
         "batch": batch,
         "seq": seq,

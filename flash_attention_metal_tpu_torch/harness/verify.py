@@ -7,8 +7,9 @@ against the verified naive rung, causal and backward rungs get their own
 fixtures.  One ``[PASS]``/``[FAIL]`` line per rung, in the same format.
 
 The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 10, 11,
-12 prefill and decode chunk, 18); the others print a ``[SKIP]`` line naming
-the ``ROADMAP.md`` item they wait for and are never counted as passes.
+12 prefill and decode chunk, 13-17, 18); the two dropout rungs print a
+``[SKIP]`` line naming the ``ROADMAP.md`` item they wait for and are never
+counted as passes.
 ``device="cpu"`` runs every kernel's plain version (the tests do); the
 default runs the CUDA kernels.
 
@@ -39,6 +40,7 @@ from ..kernels import (
     naive_attention,
     quantize_kv,
 )
+from ..models.transformer import alibi_slopes
 from ..ops.attention import flash_attention
 from ..reference import attention_reference, attention_reference_bwd, make_qkv
 
@@ -66,18 +68,22 @@ RUNGS_2_8_9_12_18 = (
     "GQA-fold backward dK,dV (group-summed in-kernel) vs oracle",
 )
 
+# The score transforms' rungs (13-17): the softcap of JAX's rung 13 and
+# their names.
+RUNG_SOFTCAP = 20.0
+TRANSFORM_RUNGS = (
+    f"flash softcap ({RUNG_SOFTCAP:g}) causal vs oracle",
+    "flash ALiBi causal vs oracle",
+    "flash_quant int8-KV softcap+ALiBi vs oracle",
+    "flash paged-KV softcap+ALiBi vs oracle",
+    "softcap backward (dQ,dK,dV) vs oracle",
+    "ALiBi backward (dQ,dK,dV) vs oracle",
+    "ALiBi backward d_slopes vs oracle (relative)",
+)
+
 # Rungs of the JAX ladder that wait for a feature or a kernel of the port,
 # by the ROADMAP.md item that holds it.
 _FEATURES = "not ported (ROADMAP.md Queue A item 2: op features)"
-SKIPPED_TRANSFORM_RUNGS = (
-    ("flash softcap causal vs oracle", _FEATURES),
-    ("flash ALiBi causal vs oracle", _FEATURES),
-    ("flash_quant int8-KV softcap+ALiBi vs oracle", _FEATURES),
-    ("flash paged-KV softcap+ALiBi vs oracle", _FEATURES),
-    ("softcap backward (dQ,dK,dV) vs oracle", _FEATURES),
-    ("ALiBi backward (dQ,dK,dV) vs oracle", _FEATURES),
-    ("ALiBi backward d_slopes vs oracle (relative)", _FEATURES),
-)
 SKIPPED_DROPOUT_RUNGS = (
     ("flash dropout (p=0.2) causal vs oracle", _FEATURES),
     ("flash dropout backward (dQ,dK,dV) vs oracle", _FEATURES),
@@ -272,9 +278,52 @@ def run_ladder(
     rung("flash paged-KV decode chunk vs causal oracle", op_dec, oracle_c[:, :, n - ps:],
          TOL_HALF)
 
-    # Rungs 13-17: softcap and ALiBi, forward and backward, not ported.
-    for name, why in SKIPPED_TRANSFORM_RUNGS:
-        log(_skip(name, why))
+    # Rung 13: the tanh softcap against the capped oracle: the kernels
+    # transform in log2 units, so this checks the rebase of the cap.
+    cap = RUNG_SOFTCAP
+    osc = flash_attention_fwd(qh, kh, vh, causal=True, softcap=cap)
+    rung(TRANSFORM_RUNGS[0], osc, attention_reference(q, k, v, causal=True, softcap=cap),
+         TOL_HALF)
+
+    # Rung 14: ALiBi (the standard per-head slopes) against the biased oracle.
+    slopes = alibi_slopes(heads, device)
+    oal = flash_attention_fwd(qh, kh, vh, causal=True, alibi_slopes=slopes)
+    rung(TRANSFORM_RUNGS[1], oal,
+         attention_reference(q, k, v, causal=True, alibi_slopes=slopes), TOL_HALF)
+
+    # Rung 15: both through the cache kernels, the int8 cache (the
+    # transforms between the dequant scale and the mask) and the paged
+    # pool (distances in logical positions), against the dense oracle.
+    oracle_tc = attention_reference(q, k, v, causal=True, softcap=cap, alibi_slopes=slopes)
+    otq = flash_attention_quant(qh, quantize_kv(kh, vh, dtype=torch.int8), causal=True,
+                                softcap=cap, alibi_slopes=slopes)
+    rung(TRANSFORM_RUNGS[2], otq, oracle_tc, TOL_QUANT_INT8)
+    otp = flash_attention_paged(
+        qh, *pools, table, torch.zeros((batch,), dtype=torch.int32, device=device),
+        softcap=cap, alibi_slopes=slopes)
+    rung(TRANSFORM_RUNGS[3], otp, oracle_tc, TOL_HALF)
+
+    # Rung 16: the softcap's backward through the op in fp32 (the split
+    # pair chains dS through 1 - tanh^2) against the oracle's autograd.
+    def grads(fn, *xs):
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        return torch.autograd.grad((fn(*leaves) * do).sum(), leaves)
+
+    g_sc = grads(lambda a, b, c: flash_attention(a, b, c, causal=True, softcap=cap), q, k, v)
+    g_sc_r = grads(lambda a, b, c: attention_reference(a, b, c, causal=True, softcap=cap),
+                   q, k, v)
+    rung(TRANSFORM_RUNGS[4], torch.stack(g_sc), torch.stack(g_sc_r), TOL_FP32)
+
+    # Rung 17: ALiBi's backward with the slopes' gradient (dS times the
+    # distance, summed in the dK/dV kernel), compared relatively as JAX
+    # does: the slopes' gradients are O(N^2) sums.
+    g_al = grads(lambda a, b, c, sl: flash_attention(a, b, c, causal=True, alibi_slopes=sl),
+                 q, k, v, slopes)
+    g_al_r = grads(lambda a, b, c, sl: attention_reference(a, b, c, causal=True,
+                                                           alibi_slopes=sl), q, k, v, slopes)
+    rung(TRANSFORM_RUNGS[5], torch.stack(g_al[:3]), torch.stack(g_al_r[:3]), TOL_FP32)
+    scale = g_al_r[3].abs() + 1.0
+    rung(TRANSFORM_RUNGS[6], g_al[3] / scale, g_al_r[3] / scale, TOL_FP32)
 
     # Rung 18: the GQA backward (one KV head) through the op's autograd,
     # against the broadcast oracle's gradient.  The JAX rung runs the

@@ -40,6 +40,14 @@ each KV tile's dK/dV walk visits the Q tiles that see it, each Q tile's dQ
 walk the KV tiles it sees (the sink tiles, then the window's), and the
 fused kernel adds each Q tile's dQ contributions in the order of its own
 visible KV tiles.  Such calls never take the triangular route, as in JAX.
+The score transforms (the tanh softcap, ALiBi) are the split pair's only
+(JAX ``flash_bwd.py:180-265, 496-508``): a transformed call takes it
+whatever the autotuner's saved decision, and the fused kernel refuses one.
+Under ALiBi the backward also returns ``d_slopes`` (fp32 ``[H]``): the
+dK/dV kernel writes one partial per (batch, q-head, KV tile, warp), which
+the wrapper sums (JAX reduces ``[B, H, n_kv_blocks, 128]`` partials the
+same way, ``flash_bwd.py:1108-1161``); a partial per KV head would mix the
+slopes of a GQA group.
 
 Route: tensors on the CPU go to the plain versions; CUDA tensors launch the
 kernels or raise.  Nothing falls back.
@@ -59,11 +67,16 @@ from .flash_fwd import (
     _DTYPE_CODES,
     _check_cuda_inputs,
     _offsets,
+    _ptr,
     check_segment_ids,
+    check_xf,
     is_static_offset,
     plain_visible,
     reject_unported,
+    row_positions,
     window_args,
+    xf_exp,
+    xf_parts,
 )
 
 # Stands in for lse = -inf (a row that sees no column) when P is rebuilt,
@@ -75,6 +88,9 @@ DQ_TILE = 64
 # Query rows per ordering counter of the fused kernel's dQ accumulator
 # (csrc/dq_ordered.cuh, kRows).
 DQ_COUNTER_ROWS = 32
+# KV rows per d_slopes partial of the dK/dV kernel, and its warps, each of
+# which writes its own partial (csrc/xf.cuh, kXfWarps).
+DSLOPE_TILE, DSLOPE_WARPS = 64, 4
 
 
 def bwd_delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
@@ -89,24 +105,41 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -
 
 
 def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window=None, sinks=0,
-                segment_ids=None):
+                segment_ids=None, softcap=None, alibi_slopes=None, dslope_abs=False):
     """fp32 P (rebuilt from ``lse``) and dS over repeated KV heads, P zero
-    outside ``flash_fwd.plain_visible``."""
+    outside ``flash_fwd.plain_visible``, and ``d_slopes`` (fp32 ``[H]``, or
+    None without ALiBi).  Under the score transforms dS is the cotangent of
+    the natural scaled score: ``d_slopes`` sums dS * (c - p) first, then dS
+    takes the softcap's chain 1 - u^2.  ``dslope_abs``: sum |dS * (c - p)|
+    in its place (``dslope_term_sizes``)."""
     _, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     group = h // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
+    u = None if not softcap else torch.tanh(s / softcap)
     lse_safe = torch.where(torch.isneginf(lse), LSE_SENTINEL, lse.float())
-    p = torch.exp(s.sub_(lse_safe[..., None]))
+    if softcap or alibi_slopes is not None:
+        t, bias = xf_parts(s, row_positions(n_q, off, 1, q.device), softcap, alibi_slopes)
+        p = xf_exp(t, bias, lse_safe[..., None])
+    else:
+        p = torch.exp(s.sub_(lse_safe[..., None]))
     if causal or segment_ids is not None:
         visible = plain_visible(n_q, n_kv, off, causal=causal, window=window, sinks=sinks,
                                 segment_ids=segment_ids, device=q.device)
         p = p.masked_fill_(~visible, 0.0)
     dp = torch.matmul(do.float(), vf.transpose(-1, -2))
     ds = dp.sub_(delta[..., None]).mul_(p)
-    return p, ds, kf
+    d_slopes = None
+    if alibi_slopes is not None:
+        # A sum that cancels (dS sums to 0 over a row): taken in float64.
+        dist = (torch.arange(n_kv, device=q.device) - row_positions(n_q, off, 1, q.device)).double()
+        terms = ds.double() * dist
+        d_slopes = (terms.abs_() if dslope_abs else terms).sum(dim=(0, 2, 3)).float()
+    if u is not None:
+        ds = ds.mul_(1.0 - u * u)
+    return p, ds, kf, d_slopes
 
 
 def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
@@ -115,21 +148,25 @@ def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
-                        window=None, sinks=0, segment_ids=None):
+                        window=None, sinks=0, segment_ids=None, softcap=None,
+                        alibi_slopes=None):
     """The dK/dV kernel's contract in fp32 PyTorch: ``(dk, dv)``, summed over
-    each KV head's group of q-heads."""
-    p, ds, _ = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window, sinks,
-                           segment_ids)
+    each KV head's group of q-heads, and under ALiBi ``d_slopes`` too."""
+    p, ds, _, d_slopes = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window,
+                                     sinks, segment_ids, softcap, alibi_slopes)
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), k.shape[1])
     dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), k.shape[1]) * sm_scale
+    if d_slopes is not None:
+        return dk.to(k.dtype), dv.to(v.dtype), d_slopes
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
-                       window=None, sinks=0, segment_ids=None):
+                       window=None, sinks=0, segment_ids=None, softcap=None,
+                       alibi_slopes=None):
     """The dQ kernel's contract in fp32 PyTorch."""
-    _, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window, sinks,
-                            segment_ids)
+    _, ds, kf, _ = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window, sinks,
+                               segment_ids, softcap, alibi_slopes)
     return (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
 
 
@@ -148,14 +185,29 @@ def flash_attention_bwd_plain(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+) -> tuple:
     """``flash_attention_bwd``'s contract in fp32 PyTorch (``q_offset``:
-    int32 ``[B]``): the delta precompute and the two kernels' plain versions."""
+    int32 ``[B]``): the delta precompute and the two kernels' plain
+    versions; ``(dq, dk, dv)``, and ``d_slopes`` last under ALiBi."""
     delta = bwd_delta(o, do, dlse)
     kw = dict(sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
-              segment_ids=segment_ids)
-    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_offset, **kw)
-    return flash_bwd_dq_plain(q, k, v, do, lse, delta, q_offset, **kw), dk, dv
+              segment_ids=segment_ids, softcap=softcap, alibi_slopes=alibi_slopes)
+    dkv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_offset, **kw)
+    return (flash_bwd_dq_plain(q, k, v, do, lse, delta, q_offset, **kw),) + tuple(dkv)
+
+
+def dslope_term_sizes(q, k, v, o, do, lse, q_offset, dlse=None, *, sm_scale: float,
+                      causal: bool, alibi_slopes: torch.Tensor, window=None, sinks=0,
+                      segment_ids=None, softcap=None) -> torch.Tensor:
+    """fp32 ``[H]``: each q-head's sum of |dS * (c - p)| over its pairs, the
+    size of the terms whose sum (which cancels: dS sums to 0 over a row) is
+    that head's ``d_slopes``; the scale a head's ``d_slopes`` error is read
+    against.  Arguments as ``flash_attention_bwd_plain``'s."""
+    delta = bwd_delta(o, do, dlse)
+    return _plain_p_ds(q, k, v, do, lse, delta, q_offset, sm_scale, causal, window, sinks,
+                       segment_ids, softcap, alibi_slopes, dslope_abs=True)[3]
 
 
 def flash_attention_bwd_fused_plain(
@@ -178,7 +230,7 @@ def flash_attention_bwd_fused_plain(
     split pair's, and dQ as one partial ``dS K`` per ``DQ_TILE`` KV rows,
     summed in KV order (the kernel's workspace slots), then scaled."""
     delta = bwd_delta(o, do, dlse)
-    p, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, q_offset, sm_scale, causal, window, sinks,
+    p, ds, kf, _ = _plain_p_ds(q, k, v, do, lse, delta, q_offset, sm_scale, causal, window, sinks,
                             segment_ids)
     h_kv = k.shape[1]
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), h_kv)
@@ -250,11 +302,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     # window, sinks, q segment ids, kv segment ids
     feats = [i32, i32, ptr, ptr]
+    # softcap (0: none), ALiBi slopes (and dK/dV's d_slopes partials)
+    xf = [ctypes.c_float, ptr]
     # q, k, v, dout, lse, delta, q_offset, then the outputs (and the fused
     # kernel's workspace).
-    lib.fam_flash_bwd_dkv.argtypes = [ptr] * 9 + feats + common
+    lib.fam_flash_bwd_dkv.argtypes = [ptr] * 9 + feats + xf + [ptr] + common
     lib.fam_flash_bwd_dkv.restype = ctypes.c_int
-    lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + feats + common
+    lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + feats + xf + common
     lib.fam_flash_bwd_dq.restype = ctypes.c_int
     # ..., dq, dq_acc, counters, n_counters, off_bound
     lib.fam_flash_bwd_fused.argtypes = [ptr] * 12 + [i32, i32] + feats + common
@@ -288,28 +342,45 @@ def _feature_args(window: int, sinks: int, segment_ids: Optional[SegmentIds]) ->
     return window, sinks, segment_ids.q.data_ptr(), segment_ids.kv.data_ptr()
 
 
+def dslope_partials(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """The dK/dV kernel's zeroed d_slopes partials: fp32 ``[B, H, ceil(n_kv
+    / DSLOPE_TILE), DSLOPE_WARPS]``, one per (batch, q-head, KV tile, warp);
+    ``d_slopes`` is their sum over all but the head axis."""
+    return torch.zeros((q.shape[0], q.shape[1], -(-n_kv // DSLOPE_TILE), DSLOPE_WARPS),
+                       dtype=torch.float32, device=q.device)
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
-                  window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None):
-    """``(dk, dv)`` from the dK/dV kernel (CUDA tensors, checked by the
-    caller; ``window``, ``sinks`` as ``flash_fwd.window_args`` gives them)."""
+                  window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None,
+                  softcap: float = 0.0, slopes: Optional[torch.Tensor] = None):
+    """``(dk, dv)`` from the dK/dV kernel, and ``d_slopes`` (fp32 ``[H]``)
+    last with ``slopes`` (CUDA tensors, checked by the caller; ``window``,
+    ``sinks`` as ``flash_fwd.window_args`` gives them, ``softcap`` and
+    ``slopes`` as ``flash_fwd.check_xf``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    part = None if slopes is None else dslope_partials(q, k.shape[2])
     err = _lib().fam_flash_bwd_dkv(
         *_inputs(q, k, v, do, lse, delta, off), dk.data_ptr(), dv.data_ptr(),
-        *_feature_args(window, sinks, segment_ids), *_shape_args(q, k, sm_scale, causal),
+        *_feature_args(window, sinks, segment_ids), softcap, _ptr(slopes), _ptr(part),
+        *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd dK/dV kernel launch failed: cudaError_t {err}")
     flash_bwd_dkv.launches += 1
+    if part is not None:
+        return dk, dv, part.double().sum(dim=(0, 2, 3)).float()
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
-                 window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None):
+                 window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None,
+                 softcap: float = 0.0, slopes: Optional[torch.Tensor] = None):
     """``dq`` from the dQ kernel (CUDA tensors, checked by the caller)."""
     dq = torch.empty_like(q)
     err = _lib().fam_flash_bwd_dq(
         *_inputs(q, k, v, do, lse, delta, off), dq.data_ptr(),
-        *_feature_args(window, sinks, segment_ids), *_shape_args(q, k, sm_scale, causal),
+        *_feature_args(window, sinks, segment_ids), softcap, _ptr(slopes),
+        *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd dQ kernel launch failed: cudaError_t {err}")
@@ -376,7 +447,8 @@ def _in_fp32(backward, q, k, v, o, do, lse, q_offset, dlse, **kw):
     back to fp16.  The CUDA kernels take bf16 and fp32 only."""
     grads = backward(q.float(), k.float(), v.float(), o.float(), do.float(), lse, q_offset,
                      dlse, **kw)
-    return tuple(g.half() for g in grads)
+    # d_slopes, last under ALiBi, stays fp32 (as JAX keeps it).
+    return tuple(g.half() for g in grads[:3]) + tuple(grads[3:])
 
 
 def flash_attention_bwd(
@@ -394,17 +466,21 @@ def flash_attention_bwd(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(dq, dk, dv)`` of flash attention over ``[B, H, N, D]`` inputs.
+) -> tuple:
+    """``(dq, dk, dv)`` of flash attention over ``[B, H, N, D]`` inputs,
+    and ``d_slopes`` (fp32 ``[H]``) last with ``alibi_slopes``, as the JAX
+    wrapper returns it.
 
     ``o`` and ``lse`` (fp32 ``[B, H, N_q]``, natural log) are the forward's
     saved outputs, ``do`` the output's cotangent and ``dlse`` the optional
     lse cotangent.  ``k``/``v`` may have fewer heads than ``q`` (GQA); the
-    masking rule (window, sinks and segment ids included) and the
-    ``q_offset`` default (``n_kv - n_q``) are the forward's.  The JAX
-    wrapper's softcap/ALiBi/dropout arguments and ``pos_div`` raise
-    NotImplementedError if set.
+    masking rule (window, sinks and segment ids included), the score
+    transforms (``softcap``, ``alibi_slopes``) and the ``q_offset`` default
+    (``n_kv - n_q``) are the forward's.  The JAX wrapper's dropout
+    arguments and ``pos_div`` raise NotImplementedError if set.
     """
     pos_div = features.pop("pos_div", 1)
     if pos_div != 1:
@@ -413,24 +489,28 @@ def flash_attention_bwd(
             "in the port's kernels (see ROADMAP.md, Queue A item 5)"
         )
     reject_unported(features)
-    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap,
+                 alibi_slopes=alibi_slopes)
     if q.dtype == torch.float16:
         return _in_fp32(flash_attention_bwd, q, k, v, o, do, lse, q_offset, dlse,
                         sm_scale=sm_scale, causal=causal, **feats)
     sm_scale, off = _checked(q, k, v, o, do, lse, q_offset, sm_scale)
     w, n_sinks = window_args(window, sinks, causal)
     seg = check_segment_ids(segment_ids, q.shape[0], q.shape[2], k.shape[2], q.device)
+    cap, slopes = check_xf(softcap, alibi_slopes, q.shape[1], q.device)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, o, do, lse, off, dlse, sm_scale=sm_scale, causal=causal,
-            window=window if w else None, sinks=n_sinks, segment_ids=seg,
+            window=window if w else None, sinks=n_sinks, segment_ids=seg, softcap=softcap,
+            alibi_slopes=slopes,
         )
     _check_cuda(q, k, v, do, lse, off)
     delta = bwd_delta(o, do, dlse)
-    kw = dict(sm_scale=sm_scale, causal=causal, window=w, sinks=n_sinks, segment_ids=seg)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw)
+    kw = dict(sm_scale=sm_scale, causal=causal, window=w, sinks=n_sinks, segment_ids=seg,
+              softcap=cap, slopes=slopes)
+    dkv = flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, off, **kw)
-    return dq, dk, dv
+    return (dq,) + tuple(dkv)
 
 
 def flash_attention_bwd_fused(
@@ -449,17 +529,26 @@ def flash_attention_bwd_fused(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the fused 5-matmul kernel; arguments and
     results as ``flash_attention_bwd`` (``dk``, ``dv`` in ``k``'s dtype, as
-    the JAX kernel's; the window, sinks and segment ids included).  The kernel's tiles are fixed (``DQ_TILE``).
+    the JAX kernel's; the window, sinks and segment ids included; a softcap
+    or ALiBi slopes raise NotImplementedError, as JAX's fused kernel takes
+    neither).  The kernel's tiles are fixed (``DQ_TILE``).
     ``q_offset_max``: with a tensor ``q_offset``, an int no entry exceeds.
     An offset known on the host (None, an int or a CPU tensor) above it
     raises.  The entries of a CUDA tensor are not read on the host: the
     caller keeps to the contract, and an entry above ``q_offset_max`` is
     read as ``q_offset_max`` (a narrower mask).  fp16 inputs run in fp32
     and return fp16 gradients, as ``flash_attention_bwd``'s."""
+    if softcap is not None or alibi_slopes is not None:
+        raise NotImplementedError(
+            "the fused backward takes no softcap or ALiBi slopes: JAX's fused kernel takes "
+            "neither (flash_bwd.py:496-508); the split pair (flash_attention_bwd) takes both"
+        )
     reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     if q.dtype == torch.float16:
@@ -529,12 +618,17 @@ def fused_workspace_bytes(q: torch.Tensor) -> int:
 
 
 def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1,
-              block_sizes: Optional[BlockSizes] = None, featured: bool = False) -> str:
+              block_sizes: Optional[BlockSizes] = None, featured: bool = False,
+              transformed: bool = False) -> str:
     """The kernel(s) ``flash_attention_bwd_auto`` runs: ``"tri"``,
     ``"fused"`` or ``"split"`` (module docstring).  A saved ``"fused"``
     decision is declined, for the untuned rule, when its dQ workspace would
     not fit (``fused_workspace_fits``).  ``featured`` (a window or segment
-    ids) rules the triangular kernel out, as in JAX."""
+    ids) rules the triangular kernel out, as in JAX; ``transformed`` (a
+    softcap or ALiBi) takes the split pair whatever the saved decision, as
+    JAX's dispatcher does (``flash_bwd.py:496-508``)."""
+    if transformed:
+        return "split"
     tri_ok = (
         causal
         and not featured
@@ -577,19 +671,23 @@ def flash_attention_bwd_auto(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> tuple:
     """``(dq, dk, dv)``, routed to the triangular kernel, the fused kernel
-    or the split pair (module docstring).  Arguments as
-    ``flash_attention_bwd``; ``q_offset_max`` as ``flash_attention_bwd_fused``
-    (only the fused route reads it).  The triangular route returns ``dk``
-    and ``dv`` in fp32, the others in ``k``'s dtype, as in JAX.  The split
-    pair's tiles are fixed: ``block_sizes`` only skips the tuned lookup."""
+    or the split pair (module docstring), and ``d_slopes`` last under ALiBi
+    (the split pair's).  Arguments as ``flash_attention_bwd``;
+    ``q_offset_max`` as ``flash_attention_bwd_fused`` (only the fused route
+    reads it).  The triangular route returns ``dk`` and ``dv`` in fp32, the
+    others in ``k``'s dtype, as in JAX.  The split pair's tiles are fixed:
+    ``block_sizes`` only skips the tuned lookup."""
     reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     featured = window is not None or segment_ids is not None
+    transformed = softcap is not None or alibi_slopes is not None
     impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes,
-                     featured=featured)
+                     featured=featured, transformed=transformed)
     if impl == "tri":
         from .flash_tri import flash_attention_bwd_tri
 
@@ -603,5 +701,5 @@ def flash_attention_bwd_auto(
         )
     return flash_attention_bwd(
         q, k, v, o, do, lse, q_offset, dlse, sm_scale=sm_scale, causal=causal,
-        pos_div=pos_div, **feats,
+        pos_div=pos_div, softcap=softcap, alibi_slopes=alibi_slopes, **feats,
     )

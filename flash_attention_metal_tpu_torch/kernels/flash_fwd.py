@@ -35,13 +35,16 @@ tile-unfriendly lengths (``tri_heuristic``, ``_TRI_MAX_N``,
 ``_UNROLL_CAP``): those are Mosaic compile limits, so the port's
 triangular kernel takes every N.
 
-The sliding window with attention sinks and packed segment ids are the
-general kernel's, as in JAX (``flash_fwd.py:829-838, 932-958``): a call
-that asks for either goes to it.  A window skips the KV tiles outside the
-window and the sinks, and the decode grid's splits that hold none of them
-run no step.  Segment ids are an element test on every step and take no
-split.  The other features (``UNPORTED_FEATURES``) raise
-``NotImplementedError`` on every route (ROADMAP.md, Queue A item 2).
+The sliding window with attention sinks, packed segment ids and the score
+transforms (the tanh softcap, ALiBi) are the general kernel's, as in JAX
+(``flash_fwd.py:829-838, 932-958``): a call that asks for any goes to it.
+A window skips the KV tiles outside the window and the sinks, and the
+decode grid's splits that hold none of them run no step.  Segment ids are
+an element test on every step and take no split.  The transforms act on
+each score between the QK^T product and the mask (``csrc/xf.cuh``); ALiBi
+takes no GQA row fold (``pos_div`` 1: a folded row is not one q-head).
+The other features (``UNPORTED_FEATURES``) raise ``NotImplementedError``
+on every route, naming their ROADMAP.md item.
 
 Each kernel's wrapper takes its plain version for a tensor on the CPU and
 launches the kernel, or raises, for a CUDA tensor.  Nothing falls back.
@@ -63,11 +66,13 @@ from . import _build
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-# Features of the JAX kernel not ported yet (ROADMAP.md, Queue A items 2
-# and 3).
-UNPORTED_FEATURES = (
-    "kv_positions", "softcap", "alibi_slopes", "dropout_rate", "dropout_seed",
-)
+# Features of the JAX kernel not ported yet, each with its ROADMAP.md item
+# (Queue A): the rolling caches' position map, and attention dropout.
+UNPORTED_FEATURES = {
+    "kv_positions": "Queue A item 3",
+    "dropout_rate": "Queue A item 2",
+    "dropout_seed": "Queue A item 2",
+}
 
 
 def reject_unported(features: dict) -> None:
@@ -81,10 +86,63 @@ def reject_unported(features: dict) -> None:
         if val is not None and not (isinstance(val, (bool, int, float)) and val == 0)
     )
     if asked:
+        items = ", ".join(f"{n}: {UNPORTED_FEATURES[n]}" for n in asked)
         raise NotImplementedError(
-            f"{asked} not ported to the PyTorch package yet "
-            "(see ROADMAP.md, Queue A item 2)"
+            f"{asked} not ported to the PyTorch package yet (see ROADMAP.md, {items})"
         )
+
+
+def check_xf(softcap: Optional[float], alibi_slopes: Optional[torch.Tensor], heads: int,
+             device, pos_div: int = 1) -> Tuple[float, Optional[torch.Tensor]]:
+    """The score transforms as the C entries take them: ``(softcap, slopes)``
+    with softcap 0.0 for none (a cap must be > 0) and the slopes an fp32
+    ``[heads]`` contiguous tensor on ``device``, or None.  ALiBi takes no
+    row fold (``pos_div`` 1), as in JAX."""
+    cap = 0.0 if softcap is None else float(softcap)
+    if softcap is not None and not cap > 0.0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    if alibi_slopes is None:
+        return cap, None
+    if pos_div != 1:
+        raise NotImplementedError(
+            "pos_div > 1 (the GQA decode fold) needs per-row ALiBi slopes; use the unfolded path"
+        )
+    slopes = torch.as_tensor(alibi_slopes).to(device=device, dtype=torch.float32).reshape(-1)
+    if slopes.shape != (heads,):
+        raise ValueError(f"alibi_slopes must be [{heads}] (one per q-head), got "
+                         f"{tuple(torch.as_tensor(alibi_slopes).shape)}")
+    return cap, slopes.contiguous()
+
+
+def xf_parts(s: torch.Tensor, positions: torch.Tensor, softcap: Optional[float],
+             alibi_slopes: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The score transforms on fp32 natural scores ``s [B, H, N_q, N_kv]``:
+    ``(t, bias)`` with ``t = cap * tanh(s / cap)`` (``s`` without a cap) and
+    the ALiBi bias ``slope_h * (c - p)`` in float64 (None without slopes),
+    ``p`` the rows' positions (``[B or 1, 1, N_q, 1]``).  The transformed
+    score is ``t + bias``; ``xf_exp`` takes ``exp(t + bias - ref)`` with the
+    bias and the reference subtracted in float64, as the kernels do in one
+    FMA (``csrc/xf.cuh``): a row far from every column it sees has scores
+    in the thousands, where fp32 would keep 2^-13 of each."""
+    t = softcap * torch.tanh(s / softcap) if softcap else s
+    if alibi_slopes is None:
+        return t, None
+    dist = (torch.arange(s.shape[-1], device=s.device) - positions).double()
+    return t, alibi_slopes.to(s.device, torch.float64).reshape(1, -1, 1, 1) * dist
+
+
+def xf_exp(t: torch.Tensor, bias: Optional[torch.Tensor], ref: torch.Tensor) -> torch.Tensor:
+    """``exp(t + bias - ref)``, ``ref`` broadcast over the columns; ``bias
+    - ref`` in float64 (``xf_parts``)."""
+    if bias is None:
+        return torch.exp(t - ref)
+    return torch.exp(t + (bias - ref.double()).float())
+
+
+def row_positions(n_q: int, q_offset: torch.Tensor, pos_div: int = 1, device=None) -> torch.Tensor:
+    """``[B, 1, N_q, 1]`` positions ``r // pos_div + q_offset[b]``."""
+    row = torch.arange(n_q, device=device) // pos_div
+    return row[:, None] + q_offset.to(device, torch.int64).reshape(-1, 1, 1, 1)
 
 
 def window_args(window: Optional[int], sinks: int, causal: bool) -> Tuple[int, int]:
@@ -127,9 +185,8 @@ def plain_visible(n_q: int, n_kv: int, q_offset: torch.Tensor, *, causal: bool,
     ``c > p - window`` unless ``c < sinks``; segment ids: equal ids only."""
     visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=device)
     if causal:
-        row = torch.arange(n_q, device=device) // pos_div
         col = torch.arange(n_kv, device=device)
-        pos = row[:, None] + q_offset.to(device, torch.int64).reshape(-1, 1, 1, 1)
+        pos = row_positions(n_q, q_offset, pos_div, device)
         visible = col <= pos
         if window is not None:
             keep = col > pos - window
@@ -260,10 +317,11 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale,
-                  window=None, sinks=0, segment_ids=None):
-    """The plain versions' fp32 ``(scores, visible, v, v_scale columns)``:
-    K/V repeated to q's heads, the K scale on each score column, the
-    visibility of ``plain_visible``, and the V scale as a ``[B, H, 1,
+                  window=None, sinks=0, segment_ids=None, softcap=None, alibi_slopes=None):
+    """The plain versions' fp32 ``((t, bias), visible, v, v_scale
+    columns)``: K/V repeated to q's heads, the K scale on each score
+    column, the score transforms (``xf_parts``: the scores are ``t + bias``),
+    the visibility of ``plain_visible``, and the V scale as a ``[B, H, 1,
     N_kv]`` factor of P's columns (None unscaled)."""
     _, h, n_q, _ = q.shape
     n_kv = k.shape[2]
@@ -273,6 +331,7 @@ def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
     if k_scale is not None:
         s = s * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
+    s = xf_parts(s, row_positions(n_q, q_offset, pos_div, q.device), softcap, alibi_slopes)
     visible = plain_visible(n_q, n_kv, q_offset, causal=causal, pos_div=pos_div, window=window,
                             sinks=sinks, segment_ids=segment_ids, device=q.device)
     v_cols = None if v_scale is None else v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
@@ -294,19 +353,28 @@ def flash_attention_fwd_plain(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``).
 
     ``k_scale``, ``v_scale``: fp32 ``[B, H_kv, N_kv]`` per-token scales of
     an 8-bit ``k``, ``v`` (``kernels/quant.py``): the K scale multiplies
     each score column, the V scale each column of P.  ``window``,
-    ``sinks``, ``segment_ids``: see ``plain_visible``.
+    ``sinks``, ``segment_ids``: see ``plain_visible``; ``softcap``,
+    ``alibi_slopes``: see ``xf_parts`` (rows at ``r // pos_div +
+    q_offset[b]``, also when not causal).
     """
-    s, visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
-                                           k_scale, v_scale, window, sinks, segment_ids)
+    (t, bias), visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
+                                                   k_scale, v_scale, window, sinks, segment_ids,
+                                                   softcap, alibi_slopes)
+    s = t if bias is None else t + bias.float()
     s = s.masked_fill(~visible, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m) * visible
+    if bias is None:
+        p = torch.exp(s - m) * visible
+    else:  # a row that sees nothing has m = DEFAULT_MASK_VALUE: no inf * 0 here
+        p = xf_exp(t, bias, m).masked_fill(~visible, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     pv = p if v_cols is None else p * v_cols
@@ -331,6 +399,8 @@ def split_partials_plain(
     v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decode grid's partials in fp32 PyTorch: ``(o_s, m_s, l_s)``, each
     with a leading split axis, for chunks of ``kv_chunk`` columns.
@@ -343,15 +413,17 @@ def split_partials_plain(
     0`` and ``o_s = 0``: so is a split wholly outside a row's window and
     sinks.
     """
-    s, visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
-                                           k_scale, v_scale, window, sinks)
+    (t, bias), visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
+                                                   k_scale, v_scale, window, sinks, None, softcap,
+                                                   alibi_slopes)
+    s = t if bias is None else t + bias.float()
     n_kv = k.shape[2]
     col = torch.arange(n_kv, device=q.device)
     os_, ms_, ls_ = [], [], []
     for start in range(0, n_kv, kv_chunk):
         seen = visible & (col >= start) & (col < start + kv_chunk)
         m = s.masked_fill(~seen, float("-inf")).amax(dim=-1, keepdim=True)
-        p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)).masked_fill(~seen, 0.0)
+        p = xf_exp(t, bias, torch.where(torch.isinf(m), 0.0, m)).masked_fill(~seen, 0.0)
         pv = p if v_cols is None else p * v_cols
         os_.append(torch.matmul(pv, vf))
         ms_.append(m[..., 0])
@@ -408,6 +480,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
         ctypes.c_float, i32, i32, i32,  # sm_scale, causal, pos_div, dtype
         i32, i32, ptr, ptr,  # window (0: none), sinks, q segment ids, kv segment ids
+        ctypes.c_float, ptr,  # softcap (0: none), ALiBi slopes
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -487,6 +560,8 @@ def flash_fwd_general(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The general kernel (``csrc/flash_fwd.cu``; bf16 with ``pos_div ==
     1`` and more than ``DECODE_ROWS`` rows, or segment ids, on the
@@ -503,6 +578,10 @@ def flash_fwd_general(
     + q_offset[b]`` sees only ``c > p - window``, besides ``c < sinks``;
     the KV tiles outside both are skipped.  ``segment_ids``
     (``config.SegmentIds``, not with ``pos_div > 1``): equal ids only.
+    ``softcap`` (> 0): each scaled score ``s -> softcap * tanh(s /
+    softcap)``; ``alibi_slopes`` (``[H]``, not with ``pos_div > 1``): then
+    ``+ slope_h * (c - p)``, with ``p`` the row's position also when not
+    causal.
     """
     check_shapes(q, k, v)
     batch, heads, n_q, head_dim = q.shape
@@ -513,6 +592,7 @@ def flash_fwd_general(
     n_kv = k.shape[2]
     w, n_sinks = window_args(window, sinks, causal)
     seg = check_segment_ids(segment_ids, batch, n_q, n_kv, q.device)
+    cap, slopes = check_xf(softcap, alibi_slopes, heads, q.device, pos_div)
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
     off = _offsets(q_offset, batch, n_kv - n_q // pos_div, q.device)
@@ -523,6 +603,7 @@ def flash_fwd_general(
         return flash_attention_fwd_plain(
             q, k, v, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
             save_lse=save_lse, window=window if w else None, sinks=n_sinks, segment_ids=seg,
+            softcap=softcap, alibi_slopes=slopes,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -533,8 +614,8 @@ def flash_fwd_general(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, k.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
         pos_div, _DTYPE_CODES[q.dtype], w, n_sinks, None if seg is None else seg.q.data_ptr(),
-        None if seg is None else seg.kv.data_ptr(), grid.kv_chunk, _ptr(part), _ptr(tickets),
-        stream,
+        None if seg is None else seg.kv.data_ptr(), cap, _ptr(slopes), grid.kv_chunk,
+        _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
@@ -616,8 +697,8 @@ def fwd_route(n_kv: int, q_offset, *, causal: bool, pos_div: int = 1,
               featured: bool = False) -> str:
     """The kernel ``flash_attention_fwd`` runs: ``"tri"``, ``"lean"`` or
     ``"general"`` (the JAX router's rules without its Mosaic limits).
-    ``featured``: a window or segment ids, which only the general kernel
-    takes (JAX ``flash_fwd.py:829-838, 932-958``)."""
+    ``featured``: a window, segment ids or a score transform, which only
+    the general kernel takes (JAX ``flash_fwd.py:829-838, 932-958``)."""
     if is_static_offset(q_offset) and pos_div == 1 and not featured:
         if causal:
             return "tri"
@@ -639,6 +720,8 @@ def flash_attention_fwd(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash-attention forward over ``[B, H, N, D]`` inputs, routed to the
@@ -647,18 +730,19 @@ def flash_attention_fwd(
     The contract is ``flash_fwd_general``'s: GQA, causal masking with
     ``q_offset`` (None, an int or a ``[B]`` tensor; default
     ``n_kv - n_q // pos_div``), ``pos_div`` rows per position, the window
-    with its sinks and segment ids, ``o`` or ``(o, lse)``.  fp16 inputs
-    compute in fp32 and return fp16.
+    with its sinks, segment ids, the softcap and ALiBi, ``o`` or ``(o,
+    lse)``.  fp16 inputs compute in fp32 and return fp16.
     """
     reject_unported(features)
-    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap,
+                 alibi_slopes=alibi_slopes)
     if q.dtype == torch.float16:
         out = flash_attention_fwd(
             q.float(), k.float(), v.float(), q_offset, sm_scale=sm_scale,
             causal=causal, save_lse=save_lse, pos_div=pos_div, **feats,
         )
         return (out[0].half(), out[1]) if save_lse else out.half()
-    featured = window is not None or segment_ids is not None
+    featured = any(x is not None for x in (window, segment_ids, softcap, alibi_slopes))
     route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div, featured=featured)
     if route == "tri":
         from .flash_tri import flash_attention_tri

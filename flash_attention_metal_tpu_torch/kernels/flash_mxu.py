@@ -4,9 +4,9 @@ Counterpart of ``flash_attention_metal_tpu/kernels/flash_mxu.py``, which
 names the ladder's V3/V4 rungs and the benchmark's flash side.  It has no
 kernel of its own: ``flash_fwd.flash_attention_fwd`` routes bf16 and fp32
 calls to the triangular, lean or general kernel and runs fp16 in fp32.
-``window`` and ``block_sizes`` are the JAX signature's; a window raises
-``NotImplementedError`` (ROADMAP.md, Queue A item 2), block sizes are
-Mosaic tiles and are ignored.
+``window`` and ``block_sizes`` are the JAX signature's: the window takes
+the general kernel (the router's), block sizes are Mosaic tiles and are
+ignored.
 """
 
 from __future__ import annotations

@@ -85,7 +85,7 @@ def flash_attention_bwd_tri_plain(
     with ``dq`` in ``q``'s dtype and ``dk``, ``dv`` fp32."""
     off = torch.full((q.shape[0],), int(q_offset), dtype=torch.int32, device=q.device)
     delta = bwd_delta(o, do, dlse)
-    p, ds, kf = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, True)
+    p, ds, kf, _ = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, True)
     dv = torch.matmul(p.transpose(-1, -2), do.float())
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * sm_scale
     dq = (torch.matmul(ds, kf) * sm_scale).to(q.dtype)

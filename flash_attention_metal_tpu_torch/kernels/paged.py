@@ -14,8 +14,9 @@ The CUDA kernels are ``fam_flash_paged`` and ``fam_flash_paged_quant`` of
 ``page_size`` is a multiple of 64 (the JAX package asks 128, its lane
 width).  The plain versions gather each slot's pages through the table
 and run the dense plain attention.  Both kernels take the JAX kernels'
-window and sinks: the pages outside both are never read.  Softcap and
-ALiBi raise ``NotImplementedError`` (ROADMAP.md, Queue A item 2).
+window and sinks (the pages outside both are never read), the softcap and
+ALiBi, whose bias measures each row from ``lengths[b]``; ALiBi takes no row
+fold (``pos_div`` 1), as in JAX (``paged.py:116, 265``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..config import default_scale
 from .flash_fwd import (
     _DTYPE_CODES,
     _ptr,
+    check_xf,
     flash_attention_fwd_plain,
     reject_unported,
     split_args,
@@ -70,6 +72,8 @@ def flash_attention_paged_plain(
     pool_v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Both paged kernels' contract in fp32 PyTorch: the slots' pages up to
     each one's last visible column gathered through the table, then the
@@ -85,7 +89,8 @@ def flash_attention_paged_plain(
         scales = dict(k_scale=gather(pool_k_scale), v_scale=gather(pool_v_scale))
     return flash_attention_fwd_plain(
         q, gather(pool_k), gather(pool_v), lengths, sm_scale=sm_scale, causal=True,
-        pos_div=pos_div, window=window, sinks=sinks, **scales,
+        pos_div=pos_div, window=window, sinks=sinks, softcap=softcap,
+        alibi_slopes=alibi_slopes, **scales,
     )
 
 
@@ -120,6 +125,8 @@ def flash_attention_paged(
     pos_div: int = 1,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
 ) -> torch.Tensor:
     """Causal flash attention reading a bf16/fp32 KV pool through a page
@@ -131,11 +138,13 @@ def flash_attention_paged(
       ``ceil((lengths[b] + T) / page_size)`` must be allocated.
     * ``lengths``: int32 ``[B]``, the tokens in the cache before this
       step's rows: the causal offset.  ``pos_div``: the GQA decode fold.
-    * ``window``, ``sinks``: as ``flash_fwd.flash_fwd_general``'s.
+    * ``window``, ``sinks``, ``softcap``, ``alibi_slopes``: as
+      ``flash_fwd.flash_fwd_general``'s (ALiBi with ``pos_div`` 1 only).
     """
     reject_unported(features)
     w, n_sinks = window_args(window, sinks, True)
     _check(q, pool_k, pool_v, page_table, lengths, pos_div)
+    cap, slopes = check_xf(softcap, alibi_slopes, q.shape[1], q.device, pos_div)
     if pool_k.dtype != q.dtype or pool_v.dtype != q.dtype:
         raise TypeError(f"the pool must be in q's dtype {q.dtype}, got {pool_k.dtype}")
     if sm_scale is None:
@@ -143,7 +152,7 @@ def flash_attention_paged(
     if q.device.type == "cpu":
         return flash_attention_paged_plain(
             q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale, pos_div=pos_div,
-            window=window if w else None, sinks=n_sinks,
+            window=window if w else None, sinks=n_sinks, softcap=softcap, alibi_slopes=slopes,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -151,11 +160,11 @@ def flash_attention_paged(
         q, dict(pool_k=pool_k, pool_v=pool_v), dict(page_table=page_table, lengths=lengths)
     )
     return _launch_paged(q, pool_k, pool_v, page_table, lengths, sm_scale=sm_scale,
-                         pos_div=pos_div, window=w, sinks=n_sinks)
+                         pos_div=pos_div, window=w, sinks=n_sinks, softcap=cap, slopes=slopes)
 
 
 def _launch_paged(q, pool_k, pool_v, page_table, lengths, *, sm_scale, pos_div, window=0,
-                  sinks=0):
+                  sinks=0, softcap=0.0, slopes=None):
     """``fam_flash_paged`` on checked tensors."""
     batch, heads, n_q, head_dim = q.shape
     n_pages, kv_heads, page_size, _ = pool_k.shape
@@ -165,7 +174,7 @@ def _launch_paged(q, pool_k, pool_v, page_table, lengths, *, sm_scale, pos_div, 
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), o.data_ptr(), batch, heads, kv_heads, n_q, n_pages, page_size,
         page_table.shape[1], head_dim, sm_scale, pos_div, _DTYPE_CODES[q.dtype],
-        window, sinks, grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
+        window, sinks, softcap, _ptr(slopes), grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_paged kernel launch failed: cudaError_t {err}")
@@ -187,6 +196,8 @@ def flash_attention_paged_quant(
     pos_div: int = 1,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
 ) -> torch.Tensor:
     """Causal flash attention over an 8-bit paged pool
@@ -195,20 +206,21 @@ def flash_attention_paged_quant(
 
     * ``pool_k_q`` / ``pool_v_q``: ``[P, H_kv, page_size, D]`` int8/fp8.
     * ``pool_k_scale`` / ``pool_v_scale``: fp32 ``[P, H_kv, page_size]``.
-    * ``page_table`` / ``lengths``, ``window`` / ``sinks``: as
-      ``flash_attention_paged``.
+    * ``page_table`` / ``lengths``, ``window`` / ``sinks``, ``softcap`` /
+      ``alibi_slopes``: as ``flash_attention_paged``.
     """
     reject_unported(features)
     w, n_sinks = window_args(window, sinks, True)
     _check(q, pool_k_q, pool_v_q, page_table, lengths, pos_div)
     check_scales(pool_k_q, pool_v_q, pool_k_scale, pool_v_scale)
+    cap, slopes = check_xf(softcap, alibi_slopes, q.shape[1], q.device, pos_div)
     if sm_scale is None:
         sm_scale = default_scale(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_paged_plain(
             q, pool_k_q, pool_v_q, page_table, lengths, sm_scale=sm_scale, pos_div=pos_div,
             pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale,
-            window=window if w else None, sinks=n_sinks,
+            window=window if w else None, sinks=n_sinks, softcap=softcap, alibi_slopes=slopes,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -219,11 +231,11 @@ def flash_attention_paged_quant(
     )
     return _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_table,
                                lengths, sm_scale=sm_scale, pos_div=pos_div, window=w,
-                               sinks=n_sinks)
+                               sinks=n_sinks, softcap=cap, slopes=slopes)
 
 
 def _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_table, lengths,
-                        *, sm_scale, pos_div, window=0, sinks=0):
+                        *, sm_scale, pos_div, window=0, sinks=0, softcap=0.0, slopes=None):
     """``fam_flash_paged_quant`` on checked tensors."""
     batch, heads, n_q, head_dim = q.shape
     n_pages, kv_heads, page_size, _ = pool_k_q.shape
@@ -234,7 +246,7 @@ def _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_
         pool_v_scale.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         batch, heads, kv_heads, n_q, n_pages, page_size, page_table.shape[1], head_dim,
         sm_scale, pos_div, _DTYPE_CODES[q.dtype], KV_CODES[pool_k_q.dtype],
-        window, sinks, grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
+        window, sinks, softcap, _ptr(slopes), grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_paged_quant kernel launch failed: cudaError_t {err}")

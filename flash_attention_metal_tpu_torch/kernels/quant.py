@@ -17,9 +17,10 @@ fp8 formats are native: the TPU note that they run ~10x slower than int8
 is a v5e fact, not this card's.
 
 The wrapper takes the plain version for a tensor on the CPU and launches
-the kernel, or raises, for a CUDA tensor.  The JAX kernel's
-``kv_positions``, window/sinks, softcap and ALiBi raise
-``NotImplementedError`` (ROADMAP.md, Queue A item 2).
+the kernel, or raises, for a CUDA tensor.  It takes the JAX kernel's
+window with its sinks, the softcap and ALiBi (which, as in JAX
+``quant.py:377-384``, needs ``causal`` and no row fold); ``kv_positions``
+raises ``NotImplementedError`` (ROADMAP.md, Queue A item 3).
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from .flash_fwd import (
     _offsets,
     _ptr,
     check_head_dim,
+    check_xf,
     flash_attention_fwd_plain,
     reject_unported,
     split_args,
@@ -119,12 +121,15 @@ def flash_attention_quant_plain(
     save_lse: bool = False,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``)."""
+    """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``);
+    the softcap acts on the score with its K scale, as in JAX."""
     return flash_attention_fwd_plain(
         q, qkv.k_q, qkv.v_q, q_offset, sm_scale=sm_scale, causal=causal,
         pos_div=pos_div, save_lse=save_lse, k_scale=qkv.k_scale, v_scale=qkv.v_scale,
-        window=window, sinks=sinks,
+        window=window, sinks=sinks, softcap=softcap, alibi_slopes=alibi_slopes,
     )
 
 
@@ -137,6 +142,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # batch, heads, kv heads, n_q, n_kv, head_dim
         f32, i32, i32, i32, i32,  # sm_scale, causal, pos_div, dtype, kv dtype
         i32, i32,  # window (0: none), sinks
+        f32, ptr,  # softcap (0: none), ALiBi slopes
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -146,6 +152,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
         f32, i32, i32,  # sm_scale, pos_div, dtype
         i32, i32,  # window (0: none), sinks
+        f32, ptr,  # softcap (0: none), ALiBi slopes
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -155,6 +162,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, i32, i32,  # n_pages, page_size, max_pages, head_dim
         f32, i32, i32, i32,  # sm_scale, pos_div, dtype, kv dtype
         i32, i32,  # window (0: none), sinks
+        f32, ptr,  # softcap (0: none), ALiBi slopes
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -210,6 +218,8 @@ def flash_attention_quant(
     pos_div: int = 1,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash attention of ``q [B, H, N_q, D]`` (bf16/fp32) against an 8-bit
@@ -222,10 +232,14 @@ def flash_attention_quant(
     needs ``causal``.  Returns ``o`` in q's dtype, or ``(o, lse)`` with lse
     fp32 ``[B, H, N_q]``; rows with nothing visible give 0 and -inf.
     ``window`` and ``sinks`` (with ``causal``) as ``flash_fwd_general``'s:
-    the KV tiles outside both are skipped.
+    the KV tiles outside both are skipped.  ``softcap`` and
+    ``alibi_slopes`` as ``flash_fwd_general``'s, on the K-scaled score;
+    ALiBi needs ``causal`` and ``pos_div`` 1, as in JAX.
     """
     reject_unported(dict(features, kv_positions=kv_positions))
     w, n_sinks = window_args(window, sinks, causal)
+    if alibi_slopes is not None and not causal:
+        raise ValueError("alibi_slopes requires causal=True on the quant path")
     check_scales(qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)
     if q.ndim != 4 or qkv.k_q.ndim != 4 or qkv.k_q.shape[0] != q.shape[0] \
             or qkv.k_q.shape[3] != q.shape[3] or q.shape[1] % qkv.k_q.shape[1]:
@@ -233,6 +247,7 @@ def flash_attention_quant(
     batch, heads, n_q, head_dim = q.shape
     if pos_div < 1 or (pos_div > 1 and not causal):
         raise NotImplementedError("pos_div > 1 requires causal=True")
+    cap, slopes = check_xf(softcap, alibi_slopes, heads, q.device, pos_div)
     n_kv = qkv.seq_len
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
@@ -243,7 +258,7 @@ def flash_attention_quant(
     if q.device.type == "cpu":
         return flash_attention_quant_plain(
             q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div, save_lse=save_lse,
-            window=window if w else None, sinks=n_sinks,
+            window=window if w else None, sinks=n_sinks, softcap=softcap, alibi_slopes=slopes,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
@@ -252,10 +267,11 @@ def flash_attention_quant(
         dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale, q_offset=off),
     )
     return _launch_quant(q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
-                         save_lse=save_lse, window=w, sinks=n_sinks)
+                         save_lse=save_lse, window=w, sinks=n_sinks, softcap=cap, slopes=slopes)
 
 
-def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0, sinks=0):
+def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0, sinks=0,
+                  softcap=0.0, slopes=None):
     """``fam_flash_quant`` on checked tensors: ``o`` or ``(o, lse)``."""
     batch, heads, n_q, head_dim = q.shape
     n_kv = qkv.seq_len
@@ -266,7 +282,7 @@ def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0,
         qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, qkv.k_q.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
         pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype], window, sinks,
-        grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
+        softcap, _ptr(slopes), grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_quant kernel launch failed: cudaError_t {err}")

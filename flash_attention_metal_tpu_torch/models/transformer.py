@@ -1,8 +1,8 @@
 """FlashLM: the GQA decoder-only transformer the port serves and trains.
 
 Counterpart of ``flash_attention_metal_tpu/models/transformer.py``:
-RMSNorm, SwiGLU, interleaved-pair RoPE and GQA attention through the
-port's flash-attention op, a per-block activation checkpoint (remat) for
+RMSNorm, SwiGLU, interleaved-pair RoPE (or ALiBi in its place) and GQA
+attention through the port's flash-attention op, a per-block activation checkpoint (remat) for
 training, the next-token loss and a plain SGD step.  Parameters are a plain
 dict with the JAX package's keys and ``[in, out]`` layout, so the two are
 compared leaf by leaf (``models/from_jax.py``).
@@ -11,6 +11,7 @@ compared leaf by leaf (``models/from_jax.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -39,10 +40,13 @@ class ModelConfig:
     # every attention call of training and serving takes them.
     attn_window: Optional[int] = None
     attn_sinks: int = 0
-    # The JAX config's other attention features, not ported yet: each
-    # raises NotImplementedError unless left at its "off" value.
+    # The tanh logit cap (Gemma-2 style) and ALiBi position biases (the
+    # JAX config's; ALiBi replaces RoPE): every attention call of training
+    # and serving takes them.
     attn_softcap: Optional[float] = None
     attn_alibi: bool = False
+    # Attention dropout, not ported yet: raises NotImplementedError unless
+    # left at 0.
     attn_dropout: float = 0.0
 
     def __post_init__(self):
@@ -54,12 +58,11 @@ class ModelConfig:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}")
         if self.attn_window is not None and self.attn_window < 1:
             raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")
-        asked = [
-            name for name in ("attn_softcap", "attn_alibi", "attn_dropout") if getattr(self, name)
-        ]
-        if asked:
+        if self.attn_softcap is not None and not self.attn_softcap > 0:
+            raise ValueError(f"attn_softcap must be > 0, got {self.attn_softcap}")
+        if self.attn_dropout:
             raise NotImplementedError(
-                f"{asked} not ported to the PyTorch package yet "
+                "['attn_dropout'] not ported to the PyTorch package yet "
                 "(see ROADMAP.md, Queue A item 2)"
             )
 
@@ -145,6 +148,31 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.reshape(x.shape).to(x.dtype)
 
 
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """The standard ALiBi slope schedule, fp32 ``[n_heads]``: ``2^(-8 i /
+    n)`` for head ``i = 1 .. n`` (JAX ``transformer.py:141``)."""
+    return torch.tensor([2.0 ** (-8.0 * (i + 1) / n_heads) for i in range(n_heads)],
+                        dtype=torch.float32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes_on(n_heads: int, device: torch.device) -> torch.Tensor:
+    return alibi_slopes(n_heads, device)
+
+
+def attn_transforms(cfg: "ModelConfig", device) -> dict:
+    """The config's score transforms as ``flash_attention`` takes them (the
+    slopes made once per device, not per call)."""
+    slopes = _slopes_on(cfg.n_heads, torch.device(device)) if cfg.attn_alibi else None
+    return dict(softcap=cfg.attn_softcap, alibi_slopes=slopes)
+
+
+def _maybe_rope(x: torch.Tensor, positions: torch.Tensor, cfg: "ModelConfig") -> torch.Tensor:
+    """RoPE, unless the config takes ALiBi for position (ALiBi models train
+    without rotary, as in JAX)."""
+    return x if cfg.attn_alibi else rope(x, positions, cfg.rope_theta)
+
+
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     b, n, _ = x.shape
     return x.reshape(b, n, n_heads, head_dim).transpose(1, 2)
@@ -156,23 +184,25 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_projections(layer: Params, x: torch.Tensor, cfg: ModelConfig, positions):
-    """Pre-norm Q/K/V projections with RoPE on Q and K: ``[B, H, N, D]``."""
+    """Pre-norm Q/K/V projections with RoPE on Q and K (none under ALiBi):
+    ``[B, H, N, D]``."""
     dt = cfg.dtype
     h = rms_norm(x, layer["attn_norm"])
     q = _split_heads(h @ weight(layer["wq"], dt), cfg.n_heads, cfg.head_dim)
     k = _split_heads(h @ weight(layer["wk"], dt), cfg.n_kv_heads, cfg.head_dim)
     v = _split_heads(h @ weight(layer["wv"], dt), cfg.n_kv_heads, cfg.head_dim)
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    return _maybe_rope(q, positions, cfg), _maybe_rope(k, positions, cfg), v
 
 
 def attention_block(
     layer: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 ) -> torch.Tensor:
     """Causal self-attention over ``x`` with a residual connection (within
-    ``cfg.attn_window`` and its sinks when set)."""
+    ``cfg.attn_window`` and its sinks when set, under the config's softcap
+    and ALiBi)."""
     q, k, v = qkv_projections(layer, x, cfg, positions)
     o = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.attn_window,
-                        sinks=cfg.attn_sinks)
+                        sinks=cfg.attn_sinks, **attn_transforms(cfg, x.device))
     return x + _merge_heads(o) @ weight(layer["wo"], cfg.dtype)
 
 

@@ -8,8 +8,10 @@ row logsumexp and whose backward runs the backward router.  Offsets reach
 the kernels as int32 ``[B]`` tensors, so the routers take the general
 forward kernel and, unless the autotuner's saved decision for the shape
 names the fused kernel, the split backward pair, as in JAX.  The sliding
-window with its sinks and packed segment ids ride the same Function into
-both routers.
+window with its sinks, packed segment ids and the softcap ride the same
+Function into both routers; the ALiBi slopes are one of its tensor inputs,
+whose gradient the split pair's ``d_slopes`` gives (a transformed call
+takes the split pair whatever the saved decision, as JAX's dispatcher).
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ class _FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, off, off_max, sm_scale, causal, save_lse, feats):
+    def forward(ctx, q, k, v, slopes, off, off_max, sm_scale, causal, save_lse, feats):
         o, lse = flash_attention_fwd(
-            q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True, **feats
+            q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True, alibi_slopes=slopes,
+            **feats
         )
-        ctx.save_for_backward(q, k, v, off, o, lse)
+        ctx.save_for_backward(q, k, v, off, o, lse, slopes)
         ctx.off_max, ctx.sm_scale, ctx.causal, ctx.feats = off_max, sm_scale, causal, feats
         ctx.set_materialize_grads(False)
         if save_lse:
@@ -44,16 +47,20 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse=None):
-        q, k, v, off, o, lse = ctx.saved_tensors
+        q, k, v, off, o, lse, slopes = ctx.saved_tensors
         # Cotangents arrive strided (the heads merge is a transpose): the
         # kernels take contiguous rows, so copy once here.
         do = torch.zeros_like(o) if do is None else do.contiguous()
-        dq, dk, dv = flash_attention_bwd_auto(
+        grads = flash_attention_bwd_auto(
             q, k, v, o, do, lse, off,
             None if dlse is None else dlse.contiguous(),
-            sm_scale=ctx.sm_scale, causal=ctx.causal, q_offset_max=ctx.off_max, **ctx.feats,
+            sm_scale=ctx.sm_scale, causal=ctx.causal, q_offset_max=ctx.off_max,
+            alibi_slopes=slopes, **ctx.feats,
         )
-        return dq, dk, dv, None, None, None, None, None, None
+        d_slopes = None
+        if slopes is not None and ctx.needs_input_grad[3]:
+            d_slopes = grads[3].to(slopes.dtype)
+        return grads[0], grads[1], grads[2], d_slopes, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -69,6 +76,8 @@ def flash_attention(
     window: Optional[int] = None,
     sinks: int = 0,
     segment_ids: Optional[SegmentIds] = None,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Differentiable flash attention over ``[B, H, N, D]`` inputs.
@@ -92,8 +101,14 @@ def flash_attention(
         (attention sinks).
       segment_ids: ``config.SegmentIds`` of packed sequences: tokens
         attend only within equal ids.  Composes with causal and window.
-      features: the JAX op's kv_positions/softcap/alibi/dropout arguments;
-        each raises NotImplementedError if set.
+      softcap: the tanh logit cap (Gemma-2 style, > 0) on the scaled scores,
+        ``s -> softcap * tanh(s / softcap)``; differentiable.
+      alibi_slopes: ``[q_heads]`` fp32 ALiBi slopes: after the cap, each
+        score gains ``slope_h * (c - p)``, ``p = r + q_offset[b]`` (also
+        when not causal).  Differentiable: with ``requires_grad`` the
+        backward gives their gradient (the JAX op's ``d_slopes``).
+      features: the JAX op's kv_positions/dropout arguments; each raises
+        NotImplementedError if set.
 
     Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.  When
     grad is enabled and an input requires it, the backward runs the
@@ -107,14 +122,15 @@ def flash_attention(
             f"q heads ({q.shape[1]}) must be a multiple of kv heads ({k.shape[1]})"
         )
     reject_unported(features)
-    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
+    feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap)
     if sm_scale is None:
         sm_scale = default_scale(q.shape[-1])
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
     if impl == "reference":
         ref = attention_reference_with_lse if save_lse else attention_reference
-        return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset, **feats)
+        return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+                   alibi_slopes=alibi_slopes, **feats)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -124,10 +140,16 @@ def flash_attention(
     # int offset still bounds the fused backward's dQ workspace.
     off = _offsets(q_offset, q.shape[0], 0, q.device)
     off_max = None if torch.is_tensor(q_offset) else int(q_offset)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, off, off_max, sm_scale, causal, save_lse, feats)
+    slopes = alibi_slopes
+    if slopes is not None and not torch.is_tensor(slopes):
+        slopes = torch.as_tensor(slopes, dtype=torch.float32, device=q.device)
+    inputs = (q, k, v) if slopes is None else (q, k, v, slopes)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FlashAttention.apply(q, k, v, slopes, off, off_max, sm_scale, causal, save_lse,
+                                     feats)
     return flash_attention_fwd(
-        q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse, **feats
+        q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse, alibi_slopes=slopes,
+        **feats
     )
 
 
@@ -168,6 +190,7 @@ def gqa_decode_attention(
     save_lse: bool = False,
     window: Optional[int] = None,
     sinks: int = 0,
+    softcap: Optional[float] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Head-folded GQA/MQA decode attention (forward only, serving path).
@@ -176,9 +199,11 @@ def gqa_decode_attention(
     ``q_offset[b] + t``; ``k, v``: ``[B, H_kv, N, D]`` cache.  Each KV
     head's ``group`` query heads fold into adjacent rows of one tile
     (kernel ``pos_div`` masking), so the cache streams once per KV head
-    instead of once per q-head.  ``window`` and ``sinks``: as
-    ``flash_attention``'s, in each row's position.  Returns ``o`` shaped
-    like ``q`` (and ``lse [B, H_q, T]``).
+    instead of once per q-head.  ``window``, ``sinks`` and ``softcap``: as
+    ``flash_attention``'s, in each row's position.  ALiBi slopes are per
+    q-head, so they take the unfolded path (``alibi_slopes`` raises
+    NotImplementedError here, as in JAX).  Returns ``o`` shaped like ``q``
+    (and ``lse [B, H_q, T]``).
     """
     b, hq, t, d = q.shape
     hkv = k.shape[1]
@@ -188,7 +213,7 @@ def gqa_decode_attention(
     out = flash_attention_fwd(
         fold_gqa_rows(q, hkv).contiguous(), k, v, q_offset, causal=True,
         sm_scale=sm_scale, save_lse=save_lse, pos_div=group, window=window, sinks=sinks,
-        **features,
+        softcap=softcap, **features,
     )
     if save_lse:
         return unfold_gqa_rows(out[0], hq, t), unfold_gqa_rows(out[1], hq, t)

@@ -22,6 +22,7 @@ from ..models.transformer import (
     ModelConfig,
     Params,
     _merge_heads,
+    attn_transforms,
     mlp_block,
     qkv_projections,
     rms_norm,
@@ -72,15 +73,21 @@ def _attn_with_cache(
     positions: torch.Tensor,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One attention block reading and writing the cache (T new tokens),
-    within the config's window and sinks on every cache kind."""
+    within the config's window and sinks and under its softcap and ALiBi on
+    every cache kind (JAX ``decode.py:92-270``)."""
     t_new = x.shape[1]
-    win = dict(window=cfg.attn_window, sinks=cfg.attn_sinks)
+    xf = attn_transforms(cfg, x.device)
+    win = dict(window=cfg.attn_window, sinks=cfg.attn_sinks, softcap=xf["softcap"])
+    slopes = xf["alibi_slopes"]
     q, k, v = qkv_projections(layer, x, cfg, positions)
     # GQA decode head-fold: the group q-heads sharing a KV head become
     # rows of one tile, so the cache is read once per KV head.  Prefill
-    # chunks (t_new * group > 128) keep the native GQA grid.
+    # chunks (t_new * group > 128) keep the native GQA grid, and so does
+    # ALiBi, whose slope is a q-head's (a folded row is not one head).
     group = cfg.n_heads // cfg.n_kv_heads
-    fold = group > 1 and t_new * group <= 128
+    fold = group > 1 and t_new * group <= 128 and slopes is None
+    if slopes is not None:
+        win["alibi_slopes"] = slopes
     # The causal offset is the OLD length: new row r sits at length + r.
     i = layer_idx
     if isinstance(cache, PagedKVCache):

@@ -256,10 +256,14 @@ def test_oracle_bwd_matches_jax_oracle_bwd():
 
 
 def test_bwd_rejects_unported_features():
+    """The softcap and ALiBi are the split pair's now: the backward returns
+    (dq, dk, dv), and d_slopes last under ALiBi; pos_div and dropout still
+    raise."""
     q = torch.zeros((1, 2, 8, 64))
     lse = torch.zeros((1, 2, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)
+    assert len(flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)) == 3
+    grads = flash_attention_bwd(q, q, q, q, q, lse, causal=True, alibi_slopes=torch.ones(2))
+    assert len(grads) == 4 and grads[3].shape == (2,) and grads[3].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="pos_div"):
         flash_attention_bwd(q, q, q, q, q, lse, causal=True, pos_div=2)
     with pytest.raises(NotImplementedError):

@@ -172,7 +172,7 @@ def test_fused_bwd_keeps_k_dtype_and_checks_its_tile():
     assert fb.DQ_TILE == 64
     with pytest.raises(TypeError, match="block_sizes"):
         fb.flash_attention_bwd_fused(q, k, v, o, do, lse, causal=True, block_sizes=BlockSizes())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="JAX's fused kernel takes neither"):
         fb.flash_attention_bwd_fused(q, k, v, o, do, lse, causal=True, softcap=30.0)
     # The window is ported: the fused route's gradients are the split
     # pair's under it (their plain versions differ only in dQ's summation).

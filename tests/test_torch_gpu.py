@@ -496,8 +496,11 @@ def test_bwd_rejects_what_it_does_not_take(cuda):
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(NotImplementedError):
         fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, pos_div=2)
+    # The softcap is the split pair's now (the transformed kernels' checks:
+    # test_xf_*); dropout still raises.
+    assert len(fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)) == 3
     with pytest.raises(NotImplementedError):
-        fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)
+        fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, dropout_rate=0.1)
     with pytest.raises(ValueError, match="causal"):
         fb.flash_attention_bwd(q, q, q, q, q, lse, causal=False, window=16)
     with pytest.raises(ValueError, match="lse"):
@@ -1353,7 +1356,7 @@ def test_fused_bwd_rejects_what_it_does_not_take(cuda):
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(TypeError, match="block_sizes"):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, block_sizes=fb.BlockSizes())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="JAX's fused kernel takes neither"):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, softcap=30.0)
     with pytest.raises(ValueError, match="causal"):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=False, window=16)
@@ -1951,6 +1954,221 @@ def test_planted_window_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = onchip.window_fwd_cases(gen, failing)
+
+    def check():
+        if kind == "fwd":
+            return {n: max(onchip.window_fwd_error(c)) for n, c in cases.items()}
+        gen.manual_seed(onchip.SEED + 1)
+        return {n: max(rel for _, rel in onchip.window_bwd_errors(
+            onchip.window_bwd_inputs(c, gen)).values()) for n, c in cases.items()}
+
+    clean = check()
+    monkeypatch.setattr(mod, "_lib", lambda: lib)
+    faulty = check()
+    print(f"\n{fault}, worst error, built -> planted: "
+          + ", ".join(f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in failing))
+    for n in failing:
+        tol = TOL[cases[n][0].dtype]
+        assert clean[n] <= tol
+        assert not faulty[n] <= tol, n
+
+
+# The score transforms, the tanh softcap and ALiBi (rows 1, 5-6 and 11-13):
+# each transformed kernel against its plain version (onchip.XF_*_CASES: the
+# training, prefill and decode shapes, head dim 64 and 128, bf16 and fp32,
+# the ladder, peaked and spike fixtures, caps 0.5 to 30, standard, large and
+# small slopes, composed with the window, sinks and segment ids, per-batch
+# offsets, not causal), then planted faults.
+
+XF_FWD_NAMES = [c[0] for c in onchip.XF_FWD_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", XF_FWD_NAMES)
+def test_xf_forward_matches_plain(cuda, name):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    case = onchip.xf_fwd_cases(gen, (name,))[name]
+    err, lse_err = onchip.window_fwd_error(case)
+    tol = TOL[case[0].dtype]
+    print(f"\n{name}: o {err:.3e}, lse {lse_err:.3e}")
+    assert err <= tol and lse_err <= tol, (err, lse_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", onchip.XF_BWD_CASES)
+def test_xf_bwd_matches_plain(cuda, name):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    inputs = onchip.window_bwd_inputs(onchip.xf_fwd_cases(gen, (name,))[name], gen)
+    errs = onchip.window_bwd_errors(inputs)
+    print(f"\n{name}: " + ", ".join(f"{g} {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items()))
+    assert all(rel <= onchip.bwd_limit(g, inputs[0].dtype) for g, (_, rel) in errs.items()), errs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["train_both_bf16_peaked", "fp32_n512_both"])
+def test_xf_d_slopes_per_head(cuda, name):
+    """Each q-head's d_slopes from the kernel within ``DSLOPE_HEAD_TOL`` of
+    the size of its own terms (the sum of |dS * distance|) of the plain
+    version's: the kernel's, the plain version's and the size printed head
+    by head with ``-s``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    inputs = onchip.window_bwd_inputs(onchip.xf_fwd_cases(gen, (name,))[name], gen)
+    got, want, sizes = onchip.dslope_heads(inputs)
+    print(f"\n{name} d_slopes per head (kernel / plain / size of the terms):\n"
+          + "\n".join(f"  h{h}: {g:.7e} / {w:.7e} / {z:.4e}"
+                      for h, (g, w, z) in enumerate(zip(got, want, sizes))))
+    tol = onchip.DSLOPE_HEAD_TOL[inputs[0].dtype]
+    assert all(abs(g - w) <= tol * z for g, w, z in zip(got, want, sizes)), (got, want, sizes)
+
+
+@pytest.mark.gpu
+def test_xf_fp32_far_rows_hold_the_lse_scaled_limit(cuda):
+    """The fp32 forward and split pair on rows far past the cache
+    (``onchip.XF_FAR_FP32``) within their limit scaled to the lse."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    errs = onchip.xf_far_errors(gen)
+    print("\n" + ", ".join(f"{g} {e:.3e} (limit {lim:.3e})" for g, (e, lim) in errs.items()))
+    assert all(e <= lim for e, lim in errs.values()), errs
+
+
+@pytest.mark.gpu
+def test_xf_bwd_is_deterministic_and_declines_fused(cuda, tmp_path, monkeypatch):
+    """The transformed split pair (d_slopes included) gives the same bits
+    on every run, and the router takes it under a saved "fused" decision."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    q, k, v, o, do, lse, off, feats = onchip.window_bwd_inputs(
+        onchip.xf_fwd_cases(gen, ("train_both_bf16_peaked",))["train_both_bf16_peaked"], gen)
+    runs = [fb.flash_attention_bwd(q, k, v, o, do, lse, off, **feats) for _ in range(3)]
+    assert len(runs[0]) == 4
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+    cache = tmp_path / "fused.json"
+    b, h, n, d = q.shape
+    autotune.record_bwd((b, h, k.shape[1], n, d), "fused", {}, cache_path=str(cache))
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", str(cache))
+    autotune.reset_memo()
+    counts = (fb.flash_bwd_fused.launches, fb.flash_bwd_dkv.launches)
+    got = fb.flash_attention_bwd_auto(q, k, v, o, do, lse, off, **feats)
+    autotune.reset_memo()
+    assert fb.flash_bwd_fused.launches == counts[0] and fb.flash_bwd_dkv.launches == counts[1] + 1
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,unfold,feats", onchip.XF_KV_CASES)
+def test_xf_kv_kernels_match_plain(cuda, name, unfold, feats):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = {**onchip.kv_cases(gen), **onchip.kv_d128_cases(gen)}
+    kernel, args, pos_div, kw = onchip.xf_kv_case(cases, name, unfold, feats)
+    err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div, **kw)
+    print(f"\n{name} {feats}{' unfolded' if unfold else ''}: o {err:.3e}, lse {lse_err:.3e}")
+    assert err <= TOL[args[0].dtype] and lse_err <= TOL[args[0].dtype]
+
+
+@pytest.mark.gpu
+def test_xf_entries_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros((1, 4, 64, 64), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 64), device=cuda)
+    slopes = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="softcap"):
+        ff.flash_attention_fwd(q, q, q, causal=True, softcap=0.0)
+    with pytest.raises(ValueError, match="alibi_slopes"):
+        ff.flash_attention_fwd(q, q, q, causal=True, alibi_slopes=torch.ones(3, device=cuda))
+    with pytest.raises(NotImplementedError, match="pos_div"):
+        ff.flash_attention_fwd(q, q[:, :2], q[:, :2], causal=True, pos_div=2, alibi_slopes=slopes)
+    with pytest.raises(NotImplementedError, match="fused"):
+        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, alibi_slopes=slopes)
+    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+        ff.flash_attention_fwd(q, q, q, causal=True, dropout_rate=0.1)
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+        ff.flash_attention_fwd(q, q, q, causal=True, kv_positions=torch.zeros(1))
+
+
+@pytest.mark.gpu
+def test_xf_tanh_choice(cuda, tmp_path, monkeypatch):
+    """The bf16 kernels' tanh (tanh.approx.f32, one MUFU op) holds the bound
+    on the peaked fixture at caps 20 and 30; beside it the two-op 1 - 2 /
+    (2^(2x log2 e) + 1) on ex2 and rcp in its place, the more exact, printed
+    with -s (o and lse errors of each: the reason for the choice)."""
+    names = ("train_cap20_bf16_peaked", "train_cap30_bf16_peaked", "train_both_bf16_peaked")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.xf_fwd_cases(gen, names)
+    built = {n: onchip.window_fwd_error(c) for n, c in cases.items()}
+    exact = ('    asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));\n    return y;',
+             '    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"((2.0f * kXfLog2e) * '
+             'fminf(fmaxf(x, -20.0f), 20.0f)));\n    return 1.0f - __fdividef(2.0f, y + 1.0f);')
+    lib = ff.bind(_planted_library(tmp_path, "flash_fwd.cu", "xf.cuh", *exact))
+    monkeypatch.setattr(ff, "_lib", lambda: lib)
+    other = {n: onchip.window_fwd_error(c) for n, c in cases.items()}
+    print("\ntanh.approx.f32 vs ex2+rcp, error of o and of the lse: "
+          + ", ".join(f"{n} o {built[n][0]:.3e} vs {other[n][0]:.3e}, lse {built[n][1]:.3e} vs "
+                      f"{other[n][1]:.3e}" for n in names))
+    assert all(max(err) <= TOL[torch.bfloat16] for err in built.values())
+
+
+# (source, unit, kind, failing cases, old, new): each fault fails the
+# checks of the cases that run it.
+PLANTED_XF_FAULTS = {
+    # o and l not rescaled when the running max rises between KV tiles, in
+    # the wgmma forward's softmax that the transformed walks share
+    # (PLANTED_SM90_FWD_FAULTS' no_rescale, held here on transformed cases)
+    "xf_no_rescale": ("flash_fwd_sm90.cuh", "flash_fwd.cu", "fwd",
+                      ("train_cap30_bf16_peaked", "train_both_bf16_peaked"),
+                      "alpha[half] = exp2f(m_i[half] - m_ref[half]);", "alpha[half] = 1.0f;"),
+    # the cap applied to the log2-scaled score: cap * tanh(s2 / cap) in
+    # place of c2 * tanh(s2 / c2)
+    "cap_on_log2_score": (
+        "xf.cuh", "flash_fwd.cu", "fwd", ("train_cap30_bf16_peaked",),
+        "    pre = cap ? sm_scale / softcap : sm_scale * kXfLog2e;\n"
+        "    c2 = cap ? softcap * kXfLog2e : 0.0f;",
+        "    pre = cap ? sm_scale * kXfLog2e / softcap : sm_scale * kXfLog2e;\n"
+        "    c2 = cap ? softcap : 0.0f;"),
+    # ALiBi's row position without the batch's offset
+    "alibi_row_without_offset": (
+        "flash_fwd_sm90.cuh", "flash_fwd.cu", "fwd",
+        ("prefill_both_bf16_off512", "train_both_offs_bf16"),
+        "xoff = w.q_offset != nullptr ? w.q_offset[b] : w.fixed_offset;", "xoff = 0;"),
+    # dS without the softcap's chain 1 - u^2
+    "softcap_chain_dropped": ("xf.cuh", "flash_bwd.cu", "bwd",
+                              ("train_cap30_bf16_peaked", "train_cap05_bf16_peaked"),
+                              "return 1.0f - u * u;", "return 1.0f;"),
+    # d_slopes summed from dS after the chain, not before
+    "dslopes_after_chain": ("flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd",
+                            ("train_cap05_alibi_bf16_peaked",),
+                            "dslope = fmaf(dpt[4 * j + e], dist, dslope);",
+                            "dslope = fmaf(dpt[4 * j + e] * chain, dist, dslope);"),
+    # d_slopes gathered per KV head: the group's q-heads summed into one
+    # partial (the training shape is GQA 2)
+    "dslopes_per_kv_head": (
+        "flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd", ("train_alibi_bf16",),
+        "      if (walk.dslope != nullptr && (i + 1) % blk.per_head == 0) {\n"
+        "        const size_t at = (((size_t)b * a.n_heads + h_kv * group + st.g) * gridDim.y +",
+        "      if (walk.dslope != nullptr && i + 1 == n_steps) {\n"
+        "        const size_t at = (((size_t)b * a.n_heads + h_kv * group) * gridDim.y +"),
+    # the KV head's slope for each of its q-heads (dQ)
+    "kv_head_slope": ("flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd", ("train_alibi_bf16",),
+                      "xf = XfHead(walk.softcap, walk.slopes, blk.bh % a.n_heads, a.sm_scale);",
+                      "xf = XfHead(walk.softcap, walk.slopes, h_kv, a.sm_scale);"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_XF_FAULTS))
+def test_planted_xf_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's transform checks pass the kernels as built and fail a
+    copy with a planted fault (errors printed with ``-s``)."""
+    source, unit, kind, failing, old, new = PLANTED_XF_FAULTS[fault]
+    mod = ff if kind == "fwd" else fb
+    lib = mod.bind(_planted_library(tmp_path, unit, source, old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.xf_fwd_cases(gen, failing)
 
     def check():
         if kind == "fwd":

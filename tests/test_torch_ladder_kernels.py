@@ -281,9 +281,10 @@ FWD_ROUTES = [
     # the sliding window (with its sinks): the general kernel in both
     ("float32", True, "none", 256, 1, {"window": 64}, "general", "general"),
     ("bfloat16", True, "none", 256, 1, {"window": 64, "sinks": 4}, "general", "general"),
-    # a feature not ported yet: the port raises (ROADMAP Queue A item 2);
-    # JAX runs it on the general kernel
-    ("float32", True, "none", 256, 1, {"softcap": 30.0}, "raises", "general"),
+    # the score transforms: the general kernel in both (a causal static
+    # offset would take tri, a short non-causal row lean, without them)
+    ("float32", True, "none", 256, 1, {"softcap": 30.0}, "general", "general"),
+    ("bfloat16", False, "none", 256, 1, {"softcap": 20.0}, "general", "general"),
 ]
 
 
@@ -309,7 +310,7 @@ def test_forward_route_table(row, monkeypatch):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ff.flash_attention_fwd(qt, qt, qt, t_off, causal=causal, **features)
         return
-    featured = "window" in features
+    featured = bool(features)
     assert ff.fwd_route(n, t_off, causal=causal, pos_div=pos_div, featured=featured) == port_route
     called = []
     for name, module, attr in (("tri", ft, "flash_attention_tri"),

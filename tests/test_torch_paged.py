@@ -176,8 +176,14 @@ def test_paged_kernels_reject_what_they_do_not_take():
     pool = torch.zeros((3, 2, PS, 64))
     table = torch.zeros((1, 2), dtype=torch.int32)
     lengths = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        paged.flash_attention_paged(q, pool, pool, table, lengths, softcap=30.0)
+    # The softcap and ALiBi are ported (tests/test_torch_xf.py holds them
+    # against JAX); ALiBi takes no row fold, as in JAX, and a cap is > 0.
+    assert paged.flash_attention_paged(q, pool, pool, table, lengths, softcap=30.0).shape == q.shape
+    with pytest.raises(NotImplementedError, match="pos_div"):
+        paged.flash_attention_paged(torch.zeros((1, 2, 2, 64)), pool[:, :1], pool[:, :1], table,
+                                    lengths, pos_div=2, alibi_slopes=torch.ones(2))
+    with pytest.raises(ValueError, match="softcap"):
+        paged.flash_attention_paged(q, pool, pool, table, lengths, softcap=0.0)
     with pytest.raises(ValueError, match="multiple of 64"):
         paged.flash_attention_paged(q, pool[:, :, :96], pool[:, :, :96], table, lengths)
     with pytest.raises(TypeError, match="int32"):
@@ -291,6 +297,39 @@ def test_released_slot_writes_land_on_page_0():
     assert changed == sorted({0, int(cache.page_table[1, 0])})
 
 
+@pytest.mark.parametrize("case,feats", [
+    ("decode", dict(softcap=30.0, alibi=True)), ("prefill128", dict(softcap=0.5, alibi=True)),
+    ("decode_fold", dict(softcap=20.0)), ("decode_fold_d128", dict(softcap=30.0, window=100)),
+    ("prefill128", dict(softcap=30.0, alibi=True, window=37, sinks=4))])
+def test_paged_xf_matches_jax(case, feats):
+    """Both paged kernels' plain versions under the softcap and ALiBi (the
+    distance in logical positions), against the JAX kernels in interpret
+    mode through the shuffled tables; folded decode takes the softcap alone."""
+    q, k, v, full, table, n_pages, lengths, pos_div = _paged_inputs(case, seed=7)
+    t_kw, j_kw = dict(feats, pos_div=pos_div), dict(feats, pos_div=pos_div)
+    if t_kw.pop("alibi", False):
+        j_kw.pop("alibi")
+        slopes = np.asarray([0.5, 0.25, 0.125, 0.0625], np.float32)
+        t_kw["alibi_slopes"], j_kw["alibi_slopes"] = torch.from_numpy(slopes), jnp.asarray(slopes)
+    pool_k, pool_v = _pool(k, full, n_pages), _pool(v, full, n_pages)
+    got = paged.flash_attention_paged(
+        *(torch.from_numpy(x) for x in (q, pool_k, pool_v, table, lengths)), **t_kw)
+    want = jax_paged.flash_attention_paged(
+        *(jnp.asarray(x) for x in (q, pool_k, pool_v, table, lengths)), interpret=True, **j_kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL, rtol=0)
+    qkv = quant.quantize_kv(torch.from_numpy(k), torch.from_numpy(v), torch.int8)
+    pools = [torch.from_numpy(_pool(_host(x), full, n_pages)).view(torch.int8)
+             for x in (qkv.k_q, qkv.v_q)]
+    pools += [torch.from_numpy(_pool(s.numpy(), full, n_pages)) for s in (qkv.k_scale, qkv.v_scale)]
+    got = paged.flash_attention_paged_quant(
+        torch.from_numpy(q), *pools, torch.from_numpy(table), torch.from_numpy(lengths), **t_kw)
+    j_pools = [jnp.asarray(_host(p)).view(jnp.int8) for p in pools[:2]]
+    j_pools += [jnp.asarray(p.numpy()) for p in pools[2:]]
+    want = jax_paged.flash_attention_paged_quant(
+        jnp.asarray(q), *j_pools, jnp.asarray(table), jnp.asarray(lengths), interpret=True, **j_kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=KERNEL_TOL, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # DecodeEngine against the JAX engine (tests/test_paged.py's configuration)
 # ---------------------------------------------------------------------------
@@ -370,6 +409,29 @@ def test_windowed_engine_matches_jax(params, jax_params, mode):
         assert g.generated == w.generated and len(g.generated) == 5
         np.testing.assert_allclose(g.logprobs, w.logprobs, atol=LOGP_TOL.get(mode, 1e-4), rtol=0)
     # The window changes what is served: the unwindowed engine differs.
+    _, plain = _serve(eng_mod, params, CFG, prompts[1:2], **opts)
+    assert not np.allclose(plain[0].logprobs, got[1].logprobs, atol=1e-3, rtol=0)
+
+
+# A capped ALiBi FlashLM (tests/test_model.py's pattern: ALiBi in place of
+# RoPE, cap 30).
+XF_JAX_CFG = dataclasses.replace(JAX_CFG, attn_softcap=30.0, attn_alibi=True)
+XF_CFG = dataclasses.replace(CFG, attn_softcap=30.0, attn_alibi=True)
+
+
+@pytest.mark.parametrize("mode", sorted(serving.SERVING_MODES))
+def test_xf_engine_matches_jax(params, jax_params, mode):
+    """The capped ALiBi FlashLM served in every cache mode (ALiBi unfolds
+    the decode rows): the greedy token streams equal the JAX engine's and
+    the log-probabilities agree (the same bounds as untransformed)."""
+    opts = serving.SERVING_MODES[mode][0]
+    prompts = [[3, 2, 1]] + [PREFIX + [uid] for uid in range(1, 4)]
+    _, want = _serve(jax_eng, jax_params, XF_JAX_CFG, prompts, **opts)
+    _, got = _serve(eng_mod, params, XF_CFG, prompts, **opts)
+    for g, w in zip(got, want):
+        assert g.generated == w.generated and len(g.generated) == 5
+        np.testing.assert_allclose(g.logprobs, w.logprobs, atol=LOGP_TOL.get(mode, 1e-4), rtol=0)
+    # The transforms change what is served: the plain engine differs.
     _, plain = _serve(eng_mod, params, CFG, prompts[1:2], **opts)
     assert not np.allclose(plain[0].logprobs, got[1].logprobs, atol=1e-3, rtol=0)
 

@@ -189,11 +189,15 @@ def test_flash_attention_quant_window_matches_jax(case, window, sinks):
 def test_flash_attention_quant_rejects_unported():
     q = torch.zeros((1, 2, 8, 64))
     qkv = quant.quantize_kv(torch.ones((1, 2, 128, 64)), torch.ones((1, 2, 128, 64)))
-    for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quant.flash_attention_quant(q, qkv, causal=True, **kw)
-    # The window and its sinks are ported: the plain route equals the
-    # oracle on the dequantized cache (sinks alone change nothing, as in JAX).
+    # ALiBi needs causal and the unfolded rows, as in JAX.
+    with pytest.raises(ValueError, match="causal"):
+        quant.flash_attention_quant(q, qkv, alibi_slopes=torch.ones(2))
+    with pytest.raises(NotImplementedError, match="pos_div"):
+        quant.flash_attention_quant(q[:, :1], quant.quantize_kv(*(torch.ones((1, 1, 128, 64)),) * 2),
+                                    causal=True, pos_div=2, alibi_slopes=torch.ones(1))
+    # The window and its sinks, the softcap and ALiBi are ported: the plain
+    # route equals the oracle on the dequantized cache (sinks alone change
+    # nothing, as in JAX).
     from flash_attention_metal_tpu_torch.reference.oracle import attention_reference
 
     rng = np.random.default_rng(0)
@@ -202,7 +206,9 @@ def test_flash_attention_quant_rejects_unported():
               for _ in range(2))
     qkv_r = quant.quantize_kv(kr, vr)
     kd, vd = quant.dequantize_kv(qkv_r, torch.float32)
-    for kw in (dict(window=16), dict(window=16, sinks=4)):
+    for kw in (dict(window=16), dict(window=16, sinks=4), dict(softcap=30.0),
+               dict(alibi_slopes=torch.tensor([0.5, 0.25])),
+               dict(softcap=0.5, alibi_slopes=torch.tensor([0.5, 0.25]), window=16)):
         got = quant.flash_attention_quant(qr, qkv_r, causal=True, **kw)
         want = attention_reference(qr, kd, vd, causal=True, **kw)
         assert float((got - want).abs().max()) < ATTN_TOL[torch.float32]
@@ -216,3 +222,49 @@ def test_flash_attention_quant_rejects_unported():
     with pytest.raises(TypeError, match="scales must be fp32"):
         bad = quant.QuantizedKV(qkv.k_q, qkv.v_q, qkv.k_scale.double(), qkv.v_scale)
         quant.flash_attention_quant(q, bad, causal=True)
+
+
+# (case, format, features): the softcap and ALiBi on the 8-bit cache (the
+# transforms on the K-scaled score), composed with a window; folded decode
+# takes the softcap alone (ALiBi needs the unfolded rows, as in JAX).
+XF_CASES = [
+    ("causal_ragged", "int8", dict(softcap=30.0, alibi="std")),
+    ("causal_ragged", "e4m3", dict(softcap=0.5, alibi="std", window=40, sinks=4)),
+    ("decode_one_row", "int8", dict(softcap=20.0, alibi="large")),
+    ("decode_fold2_ragged", "int8", dict(softcap=0.5)),
+    ("causal_ragged_d128", "int8", dict(softcap=30.0, alibi="std")),
+]
+
+
+def _slopes(kind, heads):
+    std = np.asarray([2.0 ** (-8.0 * (i + 1) / heads) for i in range(heads)], np.float32)
+    return std if kind == "std" else np.linspace(0.25, 1.0, heads).astype(np.float32)
+
+
+@pytest.mark.parametrize("case,fmt,feats", XF_CASES)
+def test_flash_attention_quant_xf_matches_jax(case, fmt, feats):
+    """The score transforms on the 8-bit cache against the JAX kernel in
+    interpret mode (fp32 q: summation order only, ``ATTN_TOL``)."""
+    shape_q, shape_kv, causal, offsets, pos_div, lse = ATTN_CASES[case]
+    tdt, jdt = FORMATS[fmt]
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.uniform(-2, 2, s).astype(np.float32) for s in (shape_q, shape_kv, shape_kv))
+    off = None if offsets is None else np.asarray(offsets, np.int32)
+    t_kw, j_kw = dict(feats), dict(feats)
+    if "alibi" in feats:
+        slopes = _slopes(t_kw.pop("alibi"), shape_q[1])
+        j_kw.pop("alibi")
+        t_kw["alibi_slopes"], j_kw["alibi_slopes"] = torch.from_numpy(slopes), jnp.asarray(slopes)
+    kw = dict(causal=causal, save_lse=lse, pos_div=pos_div)
+    got = quant.flash_attention_quant(
+        torch.from_numpy(q), quant.quantize_kv(torch.from_numpy(k), torch.from_numpy(v), tdt),
+        None if off is None else torch.from_numpy(off), **kw, **t_kw)
+    want = jax_quant.flash_attention_quant(
+        jnp.asarray(q), jax_quant.quantize_kv(jnp.asarray(k), jnp.asarray(v), dtype=jdt),
+        None if off is None else jnp.asarray(off), interpret=True, **kw, **j_kw)
+    if lse:
+        (got, got_lse), (want, want_lse) = got, want
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse)[..., 0],
+                                   atol=ATTN_TOL[torch.float32], rtol=0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATTN_TOL[torch.float32],
+                               rtol=0)

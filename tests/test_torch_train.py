@@ -112,6 +112,29 @@ def test_windowed_loss_and_grads_match_jax(jax_params):
                - float(loss_t)) > 1e-6
 
 
+def test_xf_loss_and_grads_match_jax(jax_params):
+    """A depth-2 capped ALiBi FlashLM (cap 30, ALiBi in place of RoPE, the
+    JAX tests' pattern): the loss and every gradient against the JAX
+    model's."""
+    jcfg = dataclasses.replace(JAX_CFG, attn_softcap=30.0, attn_alibi=True)
+    cfg = dataclasses.replace(CFG, attn_softcap=30.0, attn_alibi=True)
+    tokens = _tokens(4)
+    loss_j, grads_j = jax.value_and_grad(jax_tf.loss_fn)(jax_params, jnp.asarray(tokens), jcfg)
+    loss_t, grads_t = tf.value_and_grad(
+        tf.loss_fn, _port_params(jax_params), torch.from_numpy(tokens), cfg
+    )
+    assert abs(float(loss_t) - float(loss_j)) < 1e-5
+    _assert_trees_close(grads_t, grads_j)
+    # The transforms are in force: the plain model's loss differs, and so
+    # does the capped one's with RoPE (ALiBi's model has none).
+    assert abs(float(tf.loss_fn(_port_params(jax_params), torch.from_numpy(tokens), CFG))
+               - float(loss_t)) > 1e-6
+    q = torch.ones((1, 4, 3, 64))
+    pos = torch.arange(3)[None]
+    assert torch.equal(tf._maybe_rope(q, pos, cfg), q)
+    assert torch.equal(tf.alibi_slopes(4), torch.tensor([2.0 ** -2, 2.0 ** -4, 2.0 ** -6, 2.0 ** -8]))
+
+
 def test_sgd_train_step_matches_jax(jax_params):
     tokens = _tokens(1)
     new_j, loss_j = jax_tf.sgd_train_step(jax_params, jnp.asarray(tokens), JAX_CFG, lr=0.1)
@@ -266,8 +289,11 @@ def test_model_flops_per_token_matches_jax():
 def test_unported_training_features_and_cards_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ModelConfig(attn_dropout=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelConfig(attn_softcap=30.0)
+    # The softcap and ALiBi are ported (the model's parity:
+    # tests/test_torch_xf.py); a cap must be > 0.
+    assert ModelConfig(attn_softcap=30.0, attn_alibi=True).attn_alibi
+    with pytest.raises(ValueError, match="attn_softcap"):
+        ModelConfig(attn_softcap=0.0)
     with pytest.raises(RuntimeError, match="CUDA"):
         roofline.detect_chip()
     with pytest.raises(RuntimeError, match="CUDA"):

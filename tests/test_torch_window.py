@@ -319,11 +319,13 @@ def test_feature_arguments_are_checked():
     seg = SegmentIds(torch.zeros((1, 64), dtype=torch.int32), torch.zeros((1, 64), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="pos_div"):
         ff.flash_fwd_general(q, q, q, causal=True, pos_div=2, segment_ids=seg)
-    # The features still waiting (ROADMAP.md Queue A items 2-3) raise.
-    for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2)), dict(dropout_rate=0.1),
-               dict(kv_positions=torch.zeros((1, 64), dtype=torch.int32))):
+    # The features still waiting (ROADMAP.md Queue A items 2-3) raise; the
+    # softcap and ALiBi compose with the window (tests/test_torch_xf.py).
+    for kw in (dict(dropout_rate=0.1), dict(kv_positions=torch.zeros((1, 64), dtype=torch.int32))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             flash_attention(q, q, q, causal=True, window=8, **kw)
+    for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2))):
+        assert flash_attention(q, q, q, causal=True, window=8, **kw).shape == q.shape
 
 
 def test_split_partials_outside_the_window_are_empty():
