@@ -71,7 +71,16 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   saved "fused" decision, which the transforms decline) and 16 requests on
   the dense and the paged int8 cache; each kernel's time under the softcap,
   ALiBi and both beside its untransformed time, its bound and SDPA's with
-  the ALiBi bias as a float mask (the records' ``xf_*`` keys).
+  the ALiBi bias as a float mask (the records' ``xf_*`` keys);
+* attention dropout (GPT-2's attn_pdrop 0.1): the forward kernel's keep
+  mask equal to the plain one bit for bit, the dropout forward and split
+  pair against their plain versions (D 64 and 128, bf16 and fp32, alone
+  and with the window, sinks, softcap and ALiBi), the gradient check with
+  the same seeds both ways, the dropout FlashLM trained through
+  ``Trainer.train`` from token shards (``utils/data.py``) beside the same
+  model without dropout, and served without seeds, equal to the model
+  without dropout; each kernel's time with dropout beside its time without,
+  its bound and SDPA's with ``dropout_p`` (the records' ``drop_*`` keys).
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -104,6 +113,9 @@ TRAIN_STEPS, GRAD_CHECK_LAYERS = 6, 2
 WINDOW_TRAIN_STEPS = 4
 # The capped ALiBi FlashLM's training run (softcap 30, ALiBi in place of RoPE).
 XF_TRAIN_STEPS = 4
+# The dropout FlashLM's training runs (attn_dropout 0.1, and 0 beside it),
+# each fed from token shards: the first step warms up, the rest are timed.
+DROP_TRAIN_STEPS = 4
 # MUFU (special-function unit) ops per visible pair under each transform in
 # the timed bf16 kernels: the softmax's exp2 (one; the backward rebuilds P
 # with one), and the softcap's tanh one more (tanh.approx.f32, csrc/xf.cuh);
@@ -323,11 +335,13 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     return {"records": records, "serving": serving_out, "sdpa_decode": sdpa_decode}
 
 
-def grad_check(gen: torch.Generator, head_dim: int = 64, **window) -> dict:
+def grad_check(gen: torch.Generator, head_dim: int = 64, dropout_seeds=None, **window) -> dict:
     """Every parameter's gradient at full width, depth 2, batch 1, seq
     2048, with the kernels' attention against the fp32 oracle attention
     (bf16 compute both ways); fails above ``GRAD_REL_L2_TOL``.  ``window``:
-    the model's sliding window and sinks."""
+    the model's sliding window and sinks (and its other attention options:
+    ``train_bench.flashlm_config``'s keywords); ``dropout_seeds``: the
+    layers' dropout seeds, the same both ways."""
     from flash_attention_metal_tpu_torch.harness import train_bench
     from flash_attention_metal_tpu_torch.models import transformer as tf
 
@@ -336,9 +350,10 @@ def grad_check(gen: torch.Generator, head_dim: int = 64, **window) -> dict:
     gen.manual_seed(SEED)
     gparams = tf.init_params(gcfg, gen, master_dtype=torch.float32)
     gtokens = train_bench.fixed_batch(gcfg, 1, 2048, SEED + 2)
-    loss_k, grads_k = tf.value_and_grad(tf.loss_fn, gparams, gtokens, gcfg)
+    seeds = () if dropout_seeds is None else (dropout_seeds,)
+    loss_k, grads_k = tf.value_and_grad(tf.loss_fn, gparams, gtokens, gcfg, *seeds)
     loss_r, grads_r = tf.value_and_grad(
-        tf.loss_fn, gparams, gtokens, dataclasses.replace(gcfg, attn_impl="reference"))
+        tf.loss_fn, gparams, gtokens, dataclasses.replace(gcfg, attn_impl="reference"), *seeds)
     names = leaf_names(gparams)
     rels = [float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
             for a, b in zip(tf.param_leaves(grads_k), tf.param_leaves(grads_r))]
@@ -1154,6 +1169,247 @@ def xf_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
         "mfu": train["mfu"], "launches": train_launches, "fused_decision_losses": train_f["losses"],
         "fused_decision_step_ms": train_f["step_ms"], "fused_decision_launches": fused_launches},
         "serving": serving_out}
+
+
+def drop_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
+    """Attention dropout at GPT-2's ``attn_pdrop`` 0.1 (``onchip.DROP_RATE``)
+    on the general forward and the split pair (rows 1, 5 and 6: the wgmma
+    kernels and the fp32 templates).  First the keep mask bit for bit
+    against ``_common.keep_factors`` (``onchip.MASK_CASES``: q = k = 0 and V
+    the identity, so ``o * n_kv`` is the mask; D 64 and 128, bf16 and fp32,
+    a seed with its top bit set, shard offsets and a head count that puts
+    bh past 2^16), then each kernel against its plain version
+    (``onchip.DROP_*_CASES``: the training shape at D 64 and 128, bf16 and
+    fp32, ladder, peaked and spike fixtures, with the window, sinks,
+    softcap and ALiBi together, segment ids, shard offsets, per-batch
+    offsets, not causal, one decode token).  Then the main path: the
+    depth-2 gradient check against the oracle with the same seeds, the
+    dropout FlashLM trained through ``Trainer.train`` from token shards
+    (``utils.data``: shards written here, ``batch_iterator``,
+    ``prefetch_to_device``) beside the same model without dropout on the
+    same stream, launches counted over the dropout run, and 16 requests
+    served by the dropout config, which takes no seeds, equal to those of
+    the config without dropout.  Then each kernel's time with dropout, D 64
+    and 128 and fp32, beside its time without it in the same call, its
+    bound (dropout adds no bytes and no tensor-core work: the undropped
+    call's) and SDPA's with ``dropout_p`` in training mode (its own RNG, so
+    another mask; forward, and forward and backward).  Returns each
+    record's ``drop_*`` keys by kernel name, and the runs' numbers."""
+    from flash_attention_metal_tpu_torch.harness import onchip, serving, train_bench
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
+        check_dropout,
+        flash_attention_fwd,
+        flash_fwd_general,
+    )
+    from flash_attention_metal_tpu_torch.models import Trainer, make_optimizer
+    from flash_attention_metal_tpu_torch.utils import data, roofline
+
+    t_start = time.perf_counter()
+    rate = onchip.DROP_RATE
+    errs = {}  # (kernel, tag) -> worst error, tag: bf16 / d128 / fp32
+
+    def keep(kernel, tag, err):
+        errs[(kernel, tag)] = max(err, errs.get((kernel, tag), 0.0))
+
+    def tag_of(q):
+        return "fp32" if q.dtype == torch.float32 else "d128" if q.shape[-1] == 128 else "bf16"
+
+    def feats_text(feats):
+        return {k: v for k, v in feats.items()
+                if k not in ("segment_ids", "alibi_slopes", "dropout_seed")}
+
+    # 1. The keep mask, bit for bit.
+    for name, *_ in onchip.MASK_CASES:
+        got, want = onchip.dropout_mask(name)
+        n_bad = int((got != want).sum())
+        check(n_bad == 0, f"dropout mask {name}: {n_bad} of {got.numel()} keep factors differ "
+              "from _common.keep_factors")
+        print(f"[drop-mask] {name}: {got.numel()} keep factors of the forward kernel equal to "
+              f"_common.keep_factors bit for bit (kept {float((want > 0).float().mean()):.4f} at "
+              f"rate {onchip.MASK_RATE})")
+
+    # 2. Each dropout kernel against its plain version.
+    fwd_cases = onchip.drop_fwd_cases(gen)
+    for name, case in fwd_cases.items():
+        err, lse_err = onchip.window_fwd_error(case)
+        tol = onchip.TOL[case[0].dtype]
+        check(err <= tol and lse_err <= tol,
+              f"dropout {name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+        keep("flash_fwd", tag_of(case[0]), err)
+        print(f"[drop-kernel] flash_fwd {name} q {tuple(case[0].shape)} kv {tuple(case[1].shape)} "
+              f"{feats_text(case[5])}{' segment ids' if 'segment_ids' in case[5] else ''}: "
+              f"max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+    for name in onchip.DROP_BWD_CASES:
+        inputs = onchip.window_bwd_inputs(fwd_cases[name], gen)
+        tol = onchip.BWD_TOL[inputs[0].dtype]
+        e = onchip.window_bwd_errors(inputs)
+        check(all(rel <= onchip.bwd_limit(g, inputs[0].dtype) for g, (_, rel) in e.items()),
+              f"dropout {name}: backward normalised errors {e} over their bounds")
+        keep("flash_bwd_dkv", tag_of(inputs[0]), max(rel for g, (_, rel) in e.items() if g != "dq"))
+        keep("flash_bwd_dq", tag_of(inputs[0]), e["dq"][1])
+        print(f"[drop-kernel] split pair {name}: "
+              + ", ".join(f"{g} rel {r:.3e}" for g, (_, r) in e.items()) + f" (tol rel {tol})")
+        del inputs
+    del fwd_cases
+    torch.cuda.empty_cache()
+
+    # 3. The main path.  The gradient check with the same seeds both ways.
+    seeds = torch.tensor([onchip.DROP_SEED, 77], dtype=torch.int32, device="cuda")
+    g = grad_check(gen, attn_dropout=rate, dropout_seeds=seeds)
+    print(f"[drop-grad-check] attn_dropout {rate}, seeds {seeds.tolist()}: {grad_line(g)}")
+    # Training from token shards: seeded tokens in two shards, enough
+    # 2048-token windows for every step of both runs.
+    cfg = train_bench.flashlm_config(attn_dropout=rate)
+    batch, seq = 4, 2048
+    windows = DROP_TRAIN_STEPS * batch
+    rng = np.random.default_rng(SEED + 7)
+    paths = []
+    for i in range(2):
+        paths.append(os.path.join(tmp, f"tokens{i}.bin"))
+        data.write_token_shard(paths[-1], rng.integers(0, cfg.vocab_size, windows // 2 * seq))
+    dataset = data.TokenDataset(paths)
+
+    def stream():
+        return (b for b, _ in data.prefetch_to_device(
+            data.batch_iterator(dataset, batch, seq - 1, seed=SEED), size=2, device="cuda"))
+
+    def train_run(run_cfg):
+        trainer = Trainer(run_cfg, optimizer=make_optimizer(warmup_steps=2, total_steps=1000),
+                          seed=SEED, device="cuda")
+        batches, losses, times = stream(), [], []
+        for _ in range(DROP_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses += trainer.train(batches, steps=1)["losses"]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        del trainer
+        torch.cuda.empty_cache()
+        return losses, float(np.median(times[1:])) * 1e3
+
+    counters = {"fwd": flash_fwd_general, "dkv": fb.flash_bwd_dkv, "dq": fb.flash_bwd_dq,
+                "fused": fb.flash_bwd_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms = train_run(cfg)
+    train_launches = {name: fn.launches for name, fn in counters.items()}
+    layers = cfg.n_layers
+    want = {"fwd": 2 * layers * DROP_TRAIN_STEPS, "dkv": layers * DROP_TRAIN_STEPS,
+            "dq": layers * DROP_TRAIN_STEPS, "fused": 0}
+    check(all(np.isfinite(losses)), f"dropout training losses finite: {losses}")
+    check(train_launches == want, f"dropout training launches {train_launches} == {want}")
+    plain_losses, plain_step_ms = train_run(dataclasses.replace(cfg, attn_dropout=0.0))
+    check(all(np.isfinite(plain_losses)) and plain_losses != losses,
+          f"the run without dropout differs: {plain_losses} vs {losses}")
+    print(f"[drop-train] {DROP_TRAIN_STEPS} Trainer.train steps from {len(paths)} token shards "
+          f"(batch_iterator, prefetch_to_device), L{layers} d2048 b{batch} s{seq} attn_dropout "
+          f"{rate}: losses " + ", ".join(f"{x:.4f}" for x in losses)
+          + f"; launches {train_launches}; step {step_ms:.2f} ms against {plain_step_ms:.2f} ms "
+          "without dropout on the same stream (losses "
+          + ", ".join(f"{x:.4f}" for x in plain_losses) + f") {stamp}")
+    # Serving: the dropout config passes no seeds, so it serves what the
+    # config without dropout serves.
+    served = {}
+    for label, drop in (("attn_dropout", rate), ("none", 0.0)):
+        eng, ecfg = serving.build_engine(
+            **serving.FLASHLM_D2048, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+            device="cuda", attn_dropout=drop)
+        requests = serving.make_requests(N_REQUESTS, ecfg.vocab_size, PROMPT_LENS, MAX_NEW, SEED)
+        flash_fwd_general.launches = 0
+        serving.run_serving_bench(eng, requests, log=lambda m: None)
+        served[label] = ([r.generated for r in requests], [r.logprobs for r in requests],
+                         flash_fwd_general.launches)
+        del eng
+        torch.cuda.empty_cache()
+    same = served["attn_dropout"][:2] == served["none"][:2]
+    check(same and served["attn_dropout"][2] > 0,
+          "the dropout config serves the tokens and log-probabilities of the config without "
+          f"dropout ({same}), through the forward kernel ({served['attn_dropout'][2]} launches)")
+    print(f"[drop-serve] dense: {N_REQUESTS} requests x {MAX_NEW} tokens from the attn_dropout "
+          f"{rate} config (no seeds): tokens and log-probabilities equal to the attn_dropout 0 "
+          f"config's, bit for bit; forward kernel launched {served['attn_dropout'][2]} times")
+
+    # 4. Times at the training shape, D 64 and 128 bf16 and fp32 at N 512:
+    # with dropout, without it in the same call, the undropped bound, SDPA
+    # with dropout_p in training mode.
+    out = {name: {} for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    for suffix, (shape_q, shape_kv, dtype) in (
+            ("", (onchip.TRAIN_Q, onchip.TRAIN_KV, torch.bfloat16)),
+            ("_d128", (onchip.TRAIN_D128_Q, onchip.TRAIN_D128_KV, torch.bfloat16)),
+            ("_fp32", (onchip.TRAIN_FP32_Q, onchip.TRAIN_FP32_KV, torch.float32))):
+        q, k, v = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen)
+        do = onchip.ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+        off = torch.zeros(shape_q[0], dtype=torch.int32, device="cuda")
+        b_, h_, n, d = shape_q
+        bits = 16 if dtype == torch.bfloat16 else 32
+        shape = (f"training q {list(shape_q)} kv {list(shape_kv)} "
+                 f"{'bf16' if bits == 16 else 'fp32'} causal")
+        # The seed packed on the card once, as the op packs it: a timed call
+        # copies nothing from the host.
+        drop = check_dropout(rate, onchip.DROP_SEED, device="cuda")
+        dkw = dict(dropout_rate=rate, dropout_seed=drop.seed)
+        o_d, lse_d = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True, **dkw)
+        o_u, lse_u = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+        lib_f = onchip.sdpa_ms(q, k, v, causal=True, dropout_p=rate)
+        lib_b = onchip.sdpa_ms(q, k, v, causal=True, dropout_p=rate, backward_of=do,
+                               with_forward=True)
+        kw = dict(sm_scale=d ** -0.5, causal=True)
+        delta_d, delta_u = fb.bwd_delta(o_d, do, None), fb.bwd_delta(o_u, do, None)
+        flops, nbytes = onchip.fwd_work(q, k, off.tolist(), 1, True)
+        works = {"flash_fwd": (flops, nbytes)}
+        pairs = roofline.visible_pairs(n, n, 0)
+        for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+            works[name] = roofline.block_sparse_work(b_, h_, k.shape[1], n, n, d, bits // 8,
+                                                     pairs, name[-3:].lstrip("_"))
+        calls = {
+            "flash_fwd": (lambda: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True,
+                                                      **dkw),
+                          lambda: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True),
+                          lib_f),
+            "flash_bwd_dkv": (lambda: fb.flash_bwd_dkv(q, k, v, do, lse_d, delta_d, off,
+                                                       drop=drop, **kw),
+                              lambda: fb.flash_bwd_dkv(q, k, v, do, lse_u, delta_u, off, **kw),
+                              lib_b),
+            "flash_bwd_dq": (lambda: fb.flash_bwd_dq(q, k, v, do, lse_d, delta_d, off, drop=drop,
+                                                     **kw),
+                             lambda: fb.flash_bwd_dq(q, k, v, do, lse_u, delta_u, off, **kw),
+                             lib_b),
+        }
+        for name, (with_drop, without, lib) in calls.items():
+            ms, plain_ms = onchip.device_ms(with_drop), onchip.device_ms(without)
+            flops_, nbytes_ = works[name]
+            r = out[name]
+            r.update({
+                f"drop_ms{suffix}": ms,
+                f"drop_undropped_ms{suffix}": plain_ms,
+                f"drop_bound_ms{suffix}": roofline.roofline_time(flops_, nbytes_, spec, bits) * 1e3,
+                f"drop_bound_by{suffix}": roofline.bound_by(flops_, nbytes_, spec, bits),
+                f"drop_library_ms{suffix}": lib[0],
+                f"drop_library_backend{suffix}": lib[1] + f" with dropout_p {rate} ("
+                + ("forward" if name == "flash_fwd" else "forward and backward") + ")",
+                f"drop_shape{suffix}": shape})
+            print(f"[drop-time] {name} at {shape}: dropout {ms:.4f} ms, without {plain_ms:.4f} ms "
+                  f"({ms / plain_ms:.2f}x); bound {r[f'drop_bound_ms{suffix}']:.4f} ms "
+                  f"({r[f'drop_bound_by{suffix}']}); SDPA dropout_p {rate} {lib[0]:.4f} ms "
+                  f"({r[f'drop_library_backend{suffix}']}) {stamp}")
+        del q, k, v, do, o_d, o_u, lse_d, lse_u, delta_d, delta_u, calls
+        torch.cuda.empty_cache()
+
+    launches = {"flash_fwd": train_launches["fwd"], "flash_bwd_dkv": train_launches["dkv"],
+                "flash_bwd_dq": train_launches["dq"]}
+    for name in out:
+        out[name]["drop_launches"] = launches[name]
+        out[name]["drop_max_err"] = errs[(name, "bf16")]
+        out[name]["drop_max_err_d128"] = errs[(name, "d128")]
+        out[name]["drop_max_err_fp32"] = errs[(name, "fp32")]
+    check(all(launches.values()), f"every dropout kernel of the main path launched: {launches}")
+    secs = time.perf_counter() - t_start
+    print(f"[drop] phase {secs:.1f} s")
+    return {"records": out, "grad_rel_l2_max": g["worst"], "seconds": secs, "train": {
+        "losses": losses, "step_ms": step_ms, "launches": train_launches,
+        "undropped_losses": plain_losses, "undropped_step_ms": plain_step_ms,
+        "shards": len(paths), "tokens": dataset.n_tokens}}
 
 
 def sparse_grid_text(grid) -> str:
@@ -1979,6 +2235,11 @@ def main() -> int:
     # declined) and serving, and the transformed times beside the others.
     xf = xf_phase(gen, stamp, spec, tmp)
 
+    # 18. Attention dropout: the mask bit for bit, the dropout kernels, the
+    # dropout FlashLM trained from token shards and served without seeds,
+    # and the dropout times beside the others.
+    drop = drop_phase(gen, stamp, spec, tmp)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -2125,10 +2386,13 @@ def main() -> int:
     for rec_ in record["kernels"]:
         rec_.update(window["records"].get(rec_["name"], {}))
         rec_.update(xf["records"].get(rec_["name"], {}))
+        rec_.update(drop["records"].get(rec_["name"], {}))
     record["training_window"] = {"grad_rel_l2_max": window["grad_rel_l2_max"], **window["train"]}
     record["serving_window"] = window["serving"]
     record["training_xf"] = {"grad_rel_l2_max": xf["grad_rel_l2_max"], **xf["train"]}
     record["serving_xf"] = xf["serving"]
+    record["training_dropout"] = {"grad_rel_l2_max": drop["grad_rel_l2_max"],
+                                  "phase_seconds": drop["seconds"], **drop["train"]}
     tmp_dir.cleanup()
     check(len(record["kernels"]) == 16, f"16 kernels recorded: {len(record['kernels'])}")
     print(smi)

@@ -32,7 +32,10 @@
 // is capped and biased as the forward's, dS is the cotangent of the
 // transformed score, d_slopes[h] sums dS * (c - p) over the pairs (the
 // dK/dV kernel, a partial per batch, q-head, KV tile and warp), and dS then
-// takes the softcap's chain 1 - tanh^2 before dK and dQ.
+// takes the softcap's chain 1 - tanh^2 before dK and dQ.  Under attention
+// dropout (dropout.cuh; the split pair only, as JAX routes it) each pair's
+// keep factor K[r,c] in {0, 1 / (1 - rate)} is rebuilt from the seed and
+// (q-head, r, c): dV sums (P o K)^T dO and dS = P (dP K - delta).
 // Products and sums accumulate in fp32; P and dS enter the bf16 products
 // rounded to bf16 (the JAX kernels do the same).  fp32 inputs use plain
 // IEEE FMA (never TF32).  dK and dV come out in k's dtype, dQ in q's.
@@ -94,8 +97,8 @@ using dq_ordered::last_visible;
 // off_bound for every batch.  f: the window and the segment ids.  kXf (not
 // with kFused): f's score transforms too (xf.cuh), the bias measured from
 // r + pos[b], and d_slopes partials into dslope (fp32 [B, H, n_kv_tiles,
-// kXfWarps], or null).
-template <typename T, int D, bool kFused, bool kXf = false>
+// kXfWarps], or null).  kDrop (with kXf, not kFused): f's attention dropout.
+template <typename T, int D, bool kFused, bool kXf = false, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
@@ -106,6 +109,7 @@ __global__ void __launch_bounds__(kThreads)
                          int n_q, int n_kv, float sm_scale, float scale_log2, Feat f,
                          const int* __restrict__ pos = nullptr, float* __restrict__ dslope = nullptr) {
   static_assert(!(kFused && kXf), "the fused backward takes no score transforms");
+  static_assert(!(kFused && kDrop), "the fused backward takes no dropout (JAX: the split pair)");
   using C = Cfg<T, D>;
   static_assert(std::is_same<T, float>::value,
                 "bf16 runs flash_bwd_sm90.cuh and flash_bwd_fused_sm90.cuh");
@@ -163,6 +167,8 @@ __global__ void __launch_bounds__(kThreads)
   float dk_reg[C::kOut], dv_reg[C::kOut];
 #pragma unroll
   for (int j = 0; j < C::kOut; ++j) dk_reg[j] = dv_reg[j] = 0.0f;
+  DropBlock drop;
+  if constexpr (kDrop) drop = DropBlock(f.drop, b);
 
   for (int g = 0; g < group; ++g) {
     const size_t bh = (size_t)b * n_heads + h_kv * group + g;
@@ -170,6 +176,8 @@ __global__ void __launch_bounds__(kThreads)
     XfHead xf;
     double dsl = 0.0;  // this thread's share of the head's d_slopes partial
     if constexpr (kXf) xf = XfHead(f.softcap, f.slopes, h_kv * group + g, sm_scale);
+    uint32_t dhead = 0;
+    if constexpr (kDrop) dhead = drop.head_hash(h_kv * group + g);
     for (int step = 0; step < q_stop - q_first; ++step) {
       const int qt = kFused ? q_stop - 1 - step : q_first + step;
       const int q_start = qt * kTile;
@@ -184,9 +192,12 @@ __global__ void __launch_bounds__(kThreads)
 
       const int qid =
           kids != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + q_start + r] : 0;
-      softmax_grad<T, D, kXf>(sm, r, half, kv_start, last_visible(q_start + r, n_q, n_kv, off),
-                              scale_log2, q_start + r + off - f.window + 1, f.sinks, qid, kids,
-                              xf, kXf ? q_start + r + pos[b] : 0, &dsl);
+      uint32_t dat = 0;  // the row's dropout hash plus column kv_start's term
+      if constexpr (kDrop) dat = drop.row_hash(dhead, q_start + r) + drop.col_term(kv_start);
+      softmax_grad<T, D, kXf, kDrop>(sm, r, half, kv_start,
+                                     last_visible(q_start + r, n_q, n_kv, off), scale_log2,
+                                     q_start + r + off - f.window + 1, f.sinks, qid, kids, xf,
+                                     kXf ? q_start + r + pos[b] : 0, &dsl, drop, dat);
       __syncthreads();
 
       mma_atb_f32<D>(dv_reg, p, sm.dout, r, half);
@@ -239,8 +250,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // The fp32 split pair's dQ: one block per (Q tile, q-head, batch), dQ of the
 // tile over its visible KV tiles.  kXf: f's score transforms, the bias
-// measured from r + pos[b].
-template <int D, bool kXf = false>
+// measured from r + pos[b]; kDrop (with kXf): f's attention dropout.
+template <int D, bool kXf = false, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const float* __restrict__ dout,
@@ -285,6 +296,13 @@ __global__ void __launch_bounds__(kThreads)
   XfHead xf;
   double dsl = 0.0;  // d_slopes is dK/dV's: unused here
   if constexpr (kXf) xf = XfHead(f.softcap, f.slopes, h, sm_scale);
+  // The row's part of the dropout hash, for the whole walk.
+  DropBlock drop;
+  uint32_t drow = 0;
+  if constexpr (kDrop) {
+    drop = DropBlock(f.drop, b);
+    drow = drop.row_hash(drop.head_hash(h), q_start + r);
+  }
 
   for (int step = 0; step < n_steps; ++step) {
     const int kv_start = runs.tile(step) * kTile;
@@ -300,9 +318,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // P and dS over the scores and dP.
-    softmax_grad<float, D, kXf>(sm, r, half, kv_start, col_limit, scale_log2,
-                                q_start + r + off - f.window + 1, f.sinks, qid, kids, xf,
-                                kXf ? q_start + r + pos[b] : 0, &dsl);
+    softmax_grad<float, D, kXf, kDrop>(sm, r, half, kv_start, col_limit, scale_log2,
+                                       q_start + r + off - f.window + 1, f.sinks, qid, kids, xf,
+                                       kXf ? q_start + r + pos[b] : 0, &dsl, drop,
+                                       kDrop ? drow + drop.col_term(kv_start) : 0u);
     __syncthreads();
 
     mma_ab_f32<D>(dq_reg, sm.ds_tile(), sm.k, r, half);
@@ -339,18 +358,18 @@ struct Args {
 
 // The dK/dV kernel; kFused (fp32) also adds dQ to dq_acc in KV-tile order
 // and writes dq (one block per work item of the ticket in counters[0]);
-// kXf: the score transforms and d_slopes.
-template <typename T, int D, bool kFused, bool kXf = false>
+// kXf: the score transforms and d_slopes; kDrop: dropout.
+template <typename T, int D, bool kFused, bool kXf = false, bool kDrop = false>
 cudaError_t launch_dkv(const Args& a, int off_bound, void* dk, void* dv, void* dq = nullptr,
                        float* dq_acc = nullptr, int* counters = nullptr) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(BwdSmem<T, D>);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D, kFused, kXf>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D, kFused, kXf, kDrop>, smem, done);
   if (err != cudaSuccess) return err;
   const int kv_tiles = (a.n_kv + kTile - 1) / kTile;
   const dim3 grid = kFused ? dim3(kv_tiles * a.n_kv_heads * a.batch)
                            : dim3(kv_tiles, a.n_kv_heads, a.batch);
-  flash_bwd_dkv_kernel<T, D, kFused, kXf><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dkv_kernel<T, D, kFused, kXf, kDrop><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -377,14 +396,14 @@ cudaError_t launch_fused(const Args& a, int dtype, int off_bound, void* dk, void
                                a.n_heads, a.n_kv_heads, a.n_q, a.n_kv, a.sm_scale, a.stream);
 }
 
-template <int D, bool kXf>
+template <int D, bool kXf, bool kDrop = false>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
   static bool done[kMaxDevices] = {};
   const int smem = (int)sizeof(BwdSmem<float, D>);
-  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D, kXf>, smem, done);
+  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D, kXf, kDrop>, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n_q + kTile - 1) / kTile, a.n_heads, a.batch);
-  flash_bwd_dq_f32_kernel<D, kXf><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dq_f32_kernel<D, kXf, kDrop><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), a.offsets(),
@@ -406,10 +425,22 @@ sm90::BwdArgs sm90_args(const Args& a, void* dk, void* dv, void* dq) {
 
 // bf16: the causal walk, or under a window or segment ids the walk that
 // takes them (CausalWalkT<kSeg, true>), under the score transforms the one
-// that also takes them (CausalWalkT<kSeg, true, true>, any window).
+// that also takes them (CausalWalkT<kSeg, true, true>, any window), under
+// dropout the one that takes it too (CausalWalkT<kSeg, true, true, true>,
+// any window and transforms).
 template <class Launch>
 cudaError_t launch_walk(const Args& a, Launch launch) {
   const Feat& f = a.f;
+  if (f.drop.on()) {
+    if (f.q_seg != nullptr) {
+      return launch(sm90::CausalWalkT<true, true, true, true>{
+          a.offsets(), f.window, f.sinks, f.q_seg, f.kv_seg, f.softcap, f.slopes, a.pos(),
+          a.dslope, f.drop});
+    }
+    return launch(sm90::CausalWalkT<false, true, true, true>{
+        a.offsets(), f.window, f.sinks, nullptr, nullptr, f.softcap, f.slopes, a.pos(), a.dslope,
+        f.drop});
+  }
   if (f.xf()) {
     if (f.q_seg != nullptr) {
       return launch(sm90::CausalWalkT<true, true, true>{a.offsets(), f.window, f.sinks, f.q_seg,
@@ -432,6 +463,9 @@ cudaError_t launch_walk(const Args& a, Launch launch) {
 
 template <int D>
 cudaError_t launch_split_dkv(const Args& a, int dtype, void* dk, void* dv) {
+  if (dtype == 1 && a.f.drop.on()) {
+    return launch_dkv<float, D, false, true, true>(a, a.split_bound(), dk, dv);
+  }
   if (dtype == 1 && a.f.xf()) return launch_dkv<float, D, false, true>(a, a.split_bound(), dk, dv);
   if (dtype == 1) return launch_dkv<float, D, false>(a, a.split_bound(), dk, dv);
   const dim3 grid(a.batch * a.n_kv_heads, (a.n_kv + kTile - 1) / kTile);
@@ -443,6 +477,7 @@ cudaError_t launch_split_dkv(const Args& a, int dtype, void* dk, void* dv) {
 
 template <int D>
 cudaError_t launch_split_dq(const Args& a, int dtype, void* dq) {
+  if (dtype == 1 && a.f.drop.on()) return launch_dq_f32<D, true, true>(a, dq);
   if (dtype == 1 && a.f.xf()) return launch_dq_f32<D, true>(a, dq);
   if (dtype == 1) return launch_dq_f32<D, false>(a, dq);
   const dim3 grid(a.batch * a.n_heads, (a.n_q + kTile - 1) / kTile);
@@ -460,9 +495,22 @@ bool valid_feat(int window, int sinks, const void* q_seg, const void* kv_seg, in
 }
 
 Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg,
-               float softcap = 0.0f, const void* slopes = nullptr) {
+               float softcap = 0.0f, const void* slopes = nullptr, const Drop& drop = Drop{}) {
   return {window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
-          static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes)};
+          static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes), drop};
+}
+
+// Dropout (seed null: none): a threshold in [0, 2^31), a keep factor of 1
+// or more, the (b, h) stream's head count, and the offsets (the walks it
+// rides measure the bias from them).
+bool valid_drop(const void* seed, int threshold, float inv_keep, int heads,
+                const void* q_offset) {
+  return seed == nullptr ||
+         (threshold >= 0 && inv_keep >= 1.0f && heads >= 1 && q_offset != nullptr);
+}
+
+Drop make_drop(const void* seed, int threshold, float inv_keep, int heads) {
+  return Drop{static_cast<const int*>(seed), (uint32_t)threshold, inv_keep, heads};
 }
 
 // The score transforms: a cap of 0 (none) or more; slopes need the offsets
@@ -491,24 +539,29 @@ bool valid(int batch, int n_heads, int n_kv_heads, int n_q, int n_kv, int head_d
 // both null.  softcap (0: none) and slopes (fp32 [H] or null): the score
 // transforms (xf.cuh); dslope: fp32 [B, H, ceil(N_kv / 64), 4] zeros, into
 // which the dK/dV entry writes the d_slopes partials under slopes (null:
-// none are written).  Each returns its launches' cudaError_t (0 on
-// success).
+// none are written).  drop_seed, drop_threshold, drop_inv_keep,
+// drop_heads: the forward's attention dropout (fam_flash_fwd), seed null
+// for none (q_offset then needed).  Each returns its launches' cudaError_t
+// (0 on success).
 extern "C" int fam_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* q_offset,
                                  void* dk, void* dv, int window, int sinks, const void* q_seg,
                                  const void* kv_seg, float softcap, const void* slopes,
-                                 void* dslope, int batch, int n_heads,
+                                 void* dslope, const void* drop_seed, int drop_threshold,
+                                 float drop_inv_keep, int drop_heads, int batch, int n_heads,
                                  int n_kv_heads, int n_q, int n_kv,
                                  int head_dim, float sm_scale, int causal,
                                  int dtype, void* stream) {
   if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
-      !valid_feat(window, sinks, q_seg, kv_seg, causal) || !valid_xf(softcap, slopes, q_offset)) {
+      !valid_feat(window, sinks, q_seg, kv_seg, causal) || !valid_xf(softcap, slopes, q_offset) ||
+      !valid_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }
   Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
          n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
-         make_feat(window, sinks, q_seg, kv_seg, softcap, slopes)};
+         make_feat(window, sinks, q_seg, kv_seg, softcap, slopes,
+                   make_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads))};
   a.dslope = slopes != nullptr ? static_cast<float*>(dslope) : nullptr;
   return (int)(head_dim == 64 ? launch_split_dkv<64>(a, dtype, dk, dv)
                               : launch_split_dkv<128>(a, dtype, dk, dv));
@@ -519,17 +572,20 @@ extern "C" int fam_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* delta, const void* q_offset,
                                 void* dq, int window, int sinks, const void* q_seg,
                                 const void* kv_seg, float softcap, const void* slopes,
-                                int batch, int n_heads,
+                                const void* drop_seed, int drop_threshold, float drop_inv_keep,
+                                int drop_heads, int batch, int n_heads,
                                 int n_kv_heads, int n_q, int n_kv, int head_dim,
                                 float sm_scale, int causal, int dtype,
                                 void* stream) {
   if (!valid(batch, n_heads, n_kv_heads, n_q, n_kv, head_dim, dtype) ||
-      !valid_feat(window, sinks, q_seg, kv_seg, causal) || !valid_xf(softcap, slopes, q_offset)) {
+      !valid_feat(window, sinks, q_seg, kv_seg, causal) || !valid_xf(softcap, slopes, q_offset) ||
+      !valid_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, q_offset)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k, v, dout, lse, delta, q_offset, batch, n_heads, n_kv_heads,
                n_q, n_kv, causal, sm_scale, static_cast<cudaStream_t>(stream),
-               make_feat(window, sinks, q_seg, kv_seg, softcap, slopes)};
+               make_feat(window, sinks, q_seg, kv_seg, softcap, slopes,
+                         make_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads))};
   return (int)(head_dim == 64 ? launch_split_dq<64>(a, dtype, dq)
                               : launch_split_dq<128>(a, dtype, dq));
 }

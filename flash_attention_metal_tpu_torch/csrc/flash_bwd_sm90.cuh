@@ -72,7 +72,11 @@
 //     through the ring's bit stage, the block's own tile's ids are read
 //     once per thread.  The window is a template flag (CausalWalkT<kSeg,
 //     kWin>): an unwindowed call runs the causal walk with no window
-//     state.
+//     state.  Attention dropout (CausalWalkT<kSeg, true, true, true>)
+//     rebuilds the forward's keep mask from the seed and each score's
+//     (q row, KV column, q-head): dV takes the dropped P, dS the undropped
+//     one (dS = P (dP keep - delta)), and under ALiBi d_slopes sums that
+//     dS.
 //   * SparseWalk (rows 15-16): a MaskTables' CSR lists of 64 x 64 tile
 //     pairs (kernels/flash_mask.py::compile_tables), a full pair (bits -1)
 //     or one of 64 x 2-word bit tiles.  A partial step's bit rows come
@@ -155,11 +159,15 @@ __device__ __forceinline__ bool bit_seen(const uint32_t* bits, int row, int col)
 // kNoWindow): the score transforms (xf.cuh: softcap, slopes, the bias
 // measured from r + pos[b], pos the offsets also when not causal), and
 // dK/dV's d_slopes partials into dslope (fp32 [B, H, n_kv_tiles,
-// kXfWarps], or null: none).
-template <bool kSeg, bool kWin, bool kXf_ = false>
+// kXfWarps], or null: none).  kDrop (with kXf, whose cap may be 0 and
+// slopes null): attention dropout (dropout.cuh): dV takes the dropped P,
+// dS = P (dP keep - delta) the undropped one.
+template <bool kSeg, bool kWin, bool kXf_ = false, bool kDrop_ = false>
 struct CausalWalkT {
+  static_assert(kXf_ || !kDrop_, "dropout rides the transformed walk");
   static constexpr bool kBits = kSeg;  // the bit stage holds the walked tile's ids
   static constexpr bool kXf = kXf_;
+  static constexpr bool kDrop = kDrop_;
   const int* q_offset;
   int window = kNoWindow, sinks = 0;
   const int* q_seg = nullptr;
@@ -168,6 +176,7 @@ struct CausalWalkT {
   const float* slopes = nullptr;
   const int* pos = nullptr;
   float* dslope = nullptr;
+  Drop drop = {};
 
   // Without a window an offset past n_kv - 1 sees what n_kv - 1 sees; a
   // window moves with it, so it is read as it is.
@@ -186,6 +195,7 @@ struct CausalWalkT {
     const int* q_ids;
     int kid[2];
     int xoff;  // the offset the bias measures rows from
+    DropBlock drop;
     __device__ Dkv(const CausalWalkT& w, const BwdArgs& a) {
       bh = blockIdx.x;
       kv_tile = blockIdx.y;
@@ -194,6 +204,7 @@ struct CausalWalkT {
       const int b = bh / a.n_kv_heads;
       off = w.offset(b, a.n_kv);
       xoff = kXf_ ? w.pos[b] : 0;
+      if constexpr (kDrop_) drop = DropBlock(w.drop, b);
       window = w.window;
       sinks = w.sinks;
       // Rows r >= kv_start - off see the tile's first column; earlier Q
@@ -254,6 +265,7 @@ struct CausalWalkT {
     const int* kv_ids;
     int qid[2];
     int xoff;  // the offset the bias measures rows from
+    DropBlock drop;
     __device__ Dq(const CausalWalkT& w, const BwdArgs& a) {
       bh = blockIdx.x;
       q_tile = gridDim.y - 1 - blockIdx.y;
@@ -262,6 +274,7 @@ struct CausalWalkT {
       const int b = bh / a.n_heads;
       off = w.offset(b, n_kv);
       xoff = kXf_ ? w.pos[b] : 0;
+      if constexpr (kDrop_) drop = DropBlock(w.drop, b);
       window = w.window;
       sinks = w.sinks;
       const int rows_valid = min(kTile, a.n_q - q_start);
@@ -325,6 +338,7 @@ constexpr int kPlanInts = 8;
 struct SparseWalk {
   static constexpr bool kBits = true;
   static constexpr bool kXf = false;
+  static constexpr bool kDrop = false;
   const int* plan;
   const int* ptr;
   const int2* list;
@@ -499,6 +513,10 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
   // its d_slopes partial over the steps of that head.
   XfHead xf;
   float dslope = 0.0f;
+  // Dropout: this thread's KV row's column term of the hash (the second
+  // row's is 8 columns on).
+  uint32_t dcol = 0;
+  if constexpr (Walk::kDrop) dcol = blk.drop.col_term(c_lo);
 
   float dk_acc[D / 2] = {};
   float dv_acc[D / 2] = {};
@@ -536,8 +554,12 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
     // pair is visible skip the test.  Under the transforms dS^T takes the
     // bias's distance into d_slopes, then the softcap's chain; an
     // element's distance c - r - offset is the step's base plus a constant.
+    // Under dropout the hash takes (q row, KV column), not the tile's axes:
+    // each of this thread's q rows is hashed once a step (two a j).
     float base = 0.0f;
     if constexpr (Walk::kXf) base = (float)(c_lo - st.start - 2 * t - blk.xoff);
+    uint32_t dhead = 0;
+    if constexpr (Walk::kDrop) dhead = blk.drop.head_hash(h_kv * group + st.g);
 #pragma unroll
     for (int j = 0; j < kRows / 8; ++j) {
       const int col = j * 8 + 2 * t;
@@ -545,6 +567,11 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
       const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[s][col]);
       const float lse2[2] = {lse_log2(l2.x), lse_log2(l2.y)};
       const float dlt[2] = {dl.x, dl.y};
+      uint32_t drow[2] = {0u, 0u};
+      if constexpr (Walk::kDrop) {
+        drow[0] = blk.drop.row_hash(dhead, st.start + col) + dcol;
+        drow[1] = blk.drop.row_hash(dhead, st.start + col + 1) + dcol;
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = st.start + col + (e & 1);
@@ -559,8 +586,14 @@ __global__ void __launch_bounds__(kThreads, DkvStep<D>::kMinBlocks)
           p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e & 1]);
         }
         if (!st.full && !blk.seen(step_bits, r, c, col + (e & 1), c - kv_start)) p = 0.0f;
-        st_acc[4 * j + e] = p;
-        dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e & 1]);
+        if constexpr (Walk::kDrop) {
+          const float keep = blk.drop.keep(drow[e & 1] + (uint32_t)((e >> 1) * 8) * kMixA);
+          st_acc[4 * j + e] = p * keep;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] * keep - dlt[e & 1]);
+        } else {
+          st_acc[4 * j + e] = p;
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e & 1]);
+        }
         if constexpr (Walk::kXf) {
           dslope = fmaf(dpt[4 * j + e], dist, dslope);
           dpt[4 * j + e] *= chain;
@@ -663,6 +696,13 @@ __global__ void __launch_bounds__(kThreads)
   // The score transforms of the block's q-head.
   XfHead xf;
   if constexpr (Walk::kXf) xf = XfHead(walk.softcap, walk.slopes, blk.bh % a.n_heads, a.sm_scale);
+  // Dropout: this thread's two rows' hashes, the block's for the whole walk.
+  uint32_t drow[2] = {0u, 0u};
+  if constexpr (Walk::kDrop) {
+    const uint32_t head = blk.drop.head_hash(blk.bh % a.n_heads);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) drow[half] = blk.drop.row_hash(head, r_lo + half * 8);
+  }
 
   float dq_acc[D / 2] = {};
   for (int i = 0; i < n_steps; ++i) {
@@ -696,6 +736,12 @@ __global__ void __launch_bounds__(kThreads)
     // and dS through the softcap's chain.
     float base = 0.0f;
     if constexpr (Walk::kXf) base = (float)(kv_start + 2 * t - r_lo - blk.xoff);
+    uint32_t dat[2] = {0u, 0u};
+    if constexpr (Walk::kDrop) {
+      const uint32_t col = blk.drop.col_term(kv_start + 2 * t);
+      dat[0] = drow[0] + col;
+      dat[1] = drow[1] + col;
+    }
 #pragma unroll
     for (int j = 0; j < kTile / 8; ++j) {
 #pragma unroll
@@ -711,7 +757,12 @@ __global__ void __launch_bounds__(kThreads)
           p = exp2f(st_acc[4 * j + e] * a.scale_log2 - lse2[e >> 1]);
         }
         if (!st.full && !blk.seen(pair_bits, r, c, r - q_start, c - kv_start)) p = 0.0f;
-        dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e >> 1]);
+        if constexpr (Walk::kDrop) {
+          const float keep = blk.drop.keep(dat[e >> 1] + (uint32_t)(j * 8 + (e & 1)) * kMixA);
+          dpt[4 * j + e] = p * (dpt[4 * j + e] * keep - dlt[e >> 1]);
+        } else {
+          dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e >> 1]);
+        }
         if constexpr (Walk::kXf) dpt[4 * j + e] *= chain;
       }
     }

@@ -37,7 +37,10 @@
 // with attention sinks (with causal, row position p sees only c > p -
 // window, besides c < sinks; the tiles outside both are skipped,
 // window.cuh), and fam_flash_fwd segment
-// ids (only columns of the row's id; such a call takes no split).  A row
+// ids (only columns of the row's id; such a call takes no split) and
+// attention dropout (dropout.cuh: P times its keep factor in the PV
+// product, the statistics and the lse of the undropped P; one split, the
+// wgmma kernel for bf16, the template for fp32).  A row
 // with no visible column gives o = 0 and lse = -inf (the optional lse,
 // natural log, fp32 [B, H, N_q], of the dense entry points).
 //
@@ -328,8 +331,10 @@ __device__ __forceinline__ void pv_f32(Smem<float, D>& sm, int r, int half) {
 // D: the head dim.  kFeat: the window and segment ids of f are read;
 // without it the kernel holds no feature state.  kXf (with kFeat): the
 // score transforms of f too (xf.cuh; tanhf for fp32 q), the bias measured
-// from r / pos_div + the batch's offset, also when not causal.
-template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf>
+// from r / pos_div + the batch's offset, also when not causal.  kDrop (with
+// kXf, a dense cache, pos_div 1): f's attention dropout (dropout.cuh), P
+// times its keep factor in the PV product, the row sum of the undropped P.
+template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
@@ -371,6 +376,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int my_seg =
       kFeat && f.q_seg != nullptr && r < rows_valid ? f.q_seg[(size_t)b * n_q + row] : 0;
+  // The row's part of the dropout hash, for the whole walk.
+  DropBlock drop;
+  uint32_t drow = 0;
+  if constexpr (kDrop) {
+    drop = DropBlock(f.drop, b);
+    drow = drop.row_hash(drop.head_hash(h), row);
+  }
   // The tiles any row of the tile may see, up to the last row's diagonal
   // (under a window: the sink tiles, then the window's), so no page past
   // the tile's diagonal or before its window is ever read.
@@ -457,6 +469,7 @@ __global__ void __launch_bounds__(kThreads)
     const float m_new = fmaxf(m_i, step_max);
     const float alpha = exp2f(m_i - m_new);  // 0 on the first step
     float row_sum = 0.0f;
+    const uint32_t dat = kDrop ? drow + drop.col_term(kv_start + c0) : 0u;
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
       const int c = c0 + j;
@@ -467,6 +480,7 @@ __global__ void __launch_bounds__(kThreads)
         p = seen[j] ? exp2f(s_reg[j] - m_new) : 0.0f;
       }
       row_sum += p;
+      if constexpr (kDrop) p *= drop.keep(dat + (uint32_t)j * kMixA);
       // The V scale folds into P (quant.py:265-270).
       const float v_scale = kScaled ? sm.sv[c] : 1.0f;
       sm.p[r * kLdP + c] = from_float<T>(p * v_scale);
@@ -518,9 +532,9 @@ Split whole_row(int n_kv) {
 
 // Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
 // says); the others run one block per 64-row q tile and take no split.
-// One block per 64-row q tile (the kernel that reads f with kFeat, and
-// its transforms with kXf).
-template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf>
+// One block per 64-row q tile (the kernel that reads f with kFeat, its
+// transforms with kXf, its dropout with kDrop).
+template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false>
 cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                          void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                          float sm_scale, int causal, int pos_div, cudaStream_t stream,
@@ -533,13 +547,13 @@ cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, 
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
       sm_scale * kLog2e, causal, pos_div, fixed_offset, f);
@@ -628,9 +642,22 @@ bool bad_xf(float softcap, const void* slopes, int pos_div, const void* q_offset
 }
 
 Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg, float softcap,
-               const void* slopes) {
+               const void* slopes, const Drop& drop = Drop{}) {
   return Feat{window_or_none(window), window > 0 ? sinks : 0, static_cast<const int*>(q_seg),
-              static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes)};
+              static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes), drop};
+}
+
+// Dropout (seed null: none): a threshold in [0, 2^31), a keep factor of 1
+// or more, the (b, h) stream's head count; one row per position (pos_div 1)
+// and one KV split, as JAX (flash_fwd.py:905-929).
+bool bad_drop(const void* seed, int threshold, float inv_keep, int heads, int pos_div,
+              int kv_chunk, int n_kv) {
+  return seed != nullptr &&
+         (threshold < 0 || !(inv_keep >= 1.0f) || heads < 1 || pos_div != 1 || kv_chunk < n_kv);
+}
+
+Drop make_drop(const void* seed, int threshold, float inv_keep, int heads) {
+  return Drop{static_cast<const int*>(seed), (uint32_t)threshold, inv_keep, heads};
 }
 
 // A chunk is a positive multiple of 64 columns; more than one split needs
@@ -665,39 +692,59 @@ bool bad_split(int n_q, int n_kv, const Split& split) {
 // Dense cache in q's type: k, v [B, H_kv, N, D], D = head_dim 64 or 128;
 // q_offset int32 [B] (read only when causal); lse fp32 [B, H, N_q] or null;
 // q_seg, kv_seg int32 [B, N_q] and [B, N_kv], or both null (segment ids:
-// pos_div 1 and one split).  bf16 with pos_div == 1 and n_q > 16, or with
-// segment ids, runs the wgmma kernel (flash_fwd_sm90.cuh).
+// pos_div 1 and one split).  drop_seed: int32 [5] on the device, the packed
+// seed and offsets of attention dropout (dropout.cuh), or null for none;
+// drop_threshold, drop_inv_keep: min(round(rate 2^31), 2^31 - 1) and the
+// fp32 of 1 / (1 - rate); drop_heads: the (b, h) stream's head count
+// (dropout: pos_div 1 and one split).  bf16 with pos_div == 1 and n_q > 16,
+// or with segment ids or dropout, runs the wgmma kernel
+// (flash_fwd_sm90.cuh).
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
                              int n_kv, int head_dim, float sm_scale,
                              int causal, int pos_div, int dtype, int window, int sinks,
                              const void* q_seg, const void* kv_seg, float softcap,
-                             const void* slopes, int kv_chunk, void* part, void* tickets,
-                             void* stream) {
+                             const void* slopes, const void* drop_seed, int drop_threshold,
+                             float drop_inv_keep, int drop_heads, int kv_chunk, void* part,
+                             void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   const bool seg = q_seg != nullptr;
+  const bool drop = drop_seed != nullptr;
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
       seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv)) ||
-      bad_xf(softcap, slopes, pos_div, q_offset)) {
+      bad_xf(softcap, slopes, pos_div, q_offset) ||
+      bad_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, pos_div, kv_chunk, n_kv)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f = make_feat(window, sinks, q_seg, kv_seg, softcap, slopes);
+  const Feat f = make_feat(window, sinks, q_seg, kv_seg, softcap, slopes,
+                           make_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads));
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
-  // Segment ids take the wgmma kernel at any n_q; a window, segment ids or
-  // the score transforms take its featured walks, the rest the causal walk
-  // as before.
-  const bool wgmma = dtype == 0 && pos_div == 1 && (n_q > kDecodeRows || seg);
-  const bool featured = seg || f.window != kNoWindow || f.xf();
+  // Segment ids and dropout take the wgmma kernel at any n_q; a window,
+  // segment ids, the score transforms or dropout take its featured walks,
+  // the rest the causal walk as before.
+  const bool wgmma = dtype == 0 && pos_div == 1 && (n_q > kDecodeRows || seg || drop);
+  const bool featured = seg || f.window != kNoWindow || f.xf() || drop;
   if (wgmma && featured) {
     return (int)(head_dim == 64
                      ? sm90::launch_fwd_feat<64>(q, k, v, off, o, lse, batch, n_heads, n_kv_heads,
                                                  n_q, n_kv, sm_scale, causal, f, s)
                      : sm90::launch_fwd_feat<128>(q, k, v, off, o, lse, batch, n_heads,
                                                   n_kv_heads, n_q, n_kv, sm_scale, causal, f, s));
+  }
+  // fp32 dropout: the template's dropout walk, one block per 64-row q
+  // tile at any n_q (never the decode grid).
+  if (drop && dtype == 1) {
+    return (int)(head_dim == 64
+                     ? launch_tiles<float, float, false, 64, true, true, true>(
+                           q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, n_q, sm_scale,
+                           causal, 1, s, 0, f)
+                     : launch_tiles<float, float, false, 128, true, true, true>(
+                           q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, n_q, sm_scale,
+                           causal, 1, s, 0, f));
   }
   if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 64) {
     return (int)sm90::launch_fwd<64>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,

@@ -25,8 +25,10 @@
 // compile_tables).  The dense walk also takes a sliding window with
 // attention sinks and segment ids (window.cuh): row r at position p = r +
 // off sees c <= p with c > p - window or c < sinks, and with segment ids
-// only columns of its own id, and the score transforms of xf.cuh (the tanh
-// softcap, ALiBi).  Softmax statistics and both products accumulate in
+// only columns of its own id, the score transforms of xf.cuh (the tanh
+// softcap, ALiBi) and attention dropout (dropout.cuh: the P of the PV
+// product times its keep factor, the statistics and the lse those of the
+// undropped P).  Softmax statistics and both products accumulate in
 // fp32; P is rounded to bf16 before the PV product.  The optional lse is
 // the natural-log logsumexp per row, fp32 [B, H, N_q].  A row with no
 // visible column gives o = 0 and lse = -inf.
@@ -78,7 +80,9 @@
 //     unwindowed call runs DenseWalk's code with no window state).  Under
 //     the score transforms (FeatWalk<kSeg, true>, with or without a
 //     window) the softmax of a step first caps its scores and measures the
-//     bias into its exponents (online_softmax).  With
+//     bias into its exponents (online_softmax).  Under dropout
+//     (FeatWalk<kSeg, true, true>, whatever the transforms) a thread hashes
+//     its two rows once per block and each score once.  With
 //     segment ids (FeatWalk<true>, row 1 only) every step compares: the KV
 //     tile's 64 ids come through the K ring's bit stage beside K, and each
 //     thread reads its two rows' ids once.
@@ -144,6 +148,7 @@ struct DenseWalk {
   // e >= 2), KV column c0 + 8 j + (e & 1).
   struct Mask {
     static constexpr bool kXf = false;
+    static constexpr bool kDrop = false;
     bool full;
     int c0, r0, off, n_kv;
     __device__ bool seen(int j, int e) const {
@@ -185,10 +190,14 @@ struct DenseWalk {
 // sinks; kNoWindow: none), and with kSeg only columns whose segment id
 // (kv_seg [B, N_kv]) is the row's (q_seg [B, N_q]).  kXf: the score
 // transforms (xf.cuh: softcap, slopes; the bias measured from r +
-// q_offset[b] also when not causal), with or without a window.  A call
-// without any runs DenseWalk, which holds no such state.
-template <bool kSeg, bool kXf_ = false>
+// q_offset[b] also when not causal), with or without a window.  kDrop
+// (with kXf, whose cap may be 0 and slopes null): attention dropout
+// (dropout.cuh), each P of O += P V times its keep factor, the row
+// statistics of the undropped P.  A call without any runs DenseWalk, which
+// holds no such state.
+template <bool kSeg, bool kXf_ = false, bool kDrop_ = false>
 struct FeatWalk {
+  static_assert(kXf_ || !kDrop_, "dropout rides the transformed walk");
   static constexpr bool kBits = kSeg;  // the bit stage holds the KV tile's ids
   const int* q_offset;
   int fixed_offset, causal;
@@ -197,20 +206,25 @@ struct FeatWalk {
   const int* kv_seg = nullptr;
   float softcap = 0.0f, sm_scale = 0.0f;
   const float* slopes = nullptr;
+  Drop drop = {};
 
   // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
   // e >= 2), KV column c0 + 8 j + (e & 1); ids: the step's KV ids from
   // this thread's first column on, qid: its two rows' ids.  With kXf, xf
   // and the distances of the score transforms (xoff: the offset the bias
-  // measures rows from; online_softmax).
+  // measures rows from; online_softmax).  With kDrop, drop and this
+  // thread's two rows' hash inputs at column c0 (dropout.cuh).
   struct Mask {
     static constexpr bool kXf = kXf_;
+    static constexpr bool kDrop = kDrop_;
     bool full;
     int c0, r0, off, n_kv, window, sinks;
     const uint32_t* ids;
     int qid[2];
     XfHead xf;
     float base;  // this thread's first distance c0 - (r0 + xoff), as a float
+    DropBlock drop;
+    uint32_t dat[2];
     __device__ bool seen(int j, int e) const {
       const int c = c0 + j * 8 + (e & 1);
       const int p = r0 + (e >> 1) * 8 + off;
@@ -224,6 +238,10 @@ struct FeatWalk {
     __device__ float dist(int j, int e) const {
       return base + (float)(j * 8 + (e & 1) - (e >> 1) * 8);
     }
+    // Element (j, e)'s keep factor: its column's term a constant away.
+    __device__ float keep(int j, int e) const {
+      return drop.keep(dat[e >> 1] + (uint32_t)(j * 8 + (e & 1)) * kMixA);
+    }
   };
 
   // A block per (Q tile, q-head, batch), the last Q tile first, over the
@@ -236,6 +254,8 @@ struct FeatWalk {
     int qid[2];
     XfHead xf;
     int xoff;
+    DropBlock drop;
+    uint32_t drow[2];  // this thread's two rows' row hashes (kDrop)
     __device__ Blk(const FeatWalk& w, int, int n_q, int n_kv_) {
       n_kv = n_kv_;
       b = blockIdx.z;
@@ -263,6 +283,17 @@ struct FeatWalk {
           qid[half] = w.q_seg[(size_t)b * n_q + min(q_start + row + half * 8, n_q - 1)];
         }
       }
+      drow[0] = drow[1] = 0;
+      if constexpr (kDrop_) {
+        // The rows are the block's for the whole walk: their hashes once.
+        drop = DropBlock(w.drop, b);
+        const uint32_t head = drop.head_hash(h);
+        const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          drow[half] = drop.row_hash(head, q_start + row + half * 8);
+        }
+      }
     }
     // Step j: (KV tile, bits); no bit tiles here either.
     __device__ int2 entry(int j) const { return make_int2(runs.tile(j), -1); }
@@ -279,8 +310,15 @@ struct FeatWalk {
                         kv_start + kTile <= n_kv &&
                         tile_in_window(kv_start, kTile, q_start + kTile - 1 + off, window, sinks);
       const float base = kXf_ ? (float)(kv_start + 2 * t - (q_start + row) - xoff) : 0.0f;
-      return {full, kv_start + 2 * t, q_start + row, off, n_kv, window, sinks, bits + 2 * t,
-              {qid[0], qid[1]}, xf, base};
+      Mask m{full, kv_start + 2 * t, q_start + row, off, n_kv, window, sinks, bits + 2 * t,
+             {qid[0], qid[1]}, xf, base};
+      if constexpr (kDrop_) {
+        m.drop = drop;
+        const uint32_t col = drop.col_term(kv_start + 2 * t);
+        m.dat[0] = drow[0] + col;
+        m.dat[1] = drow[1] + col;
+      }
+      return m;
     }
   };
 };
@@ -304,6 +342,7 @@ struct SparseFwdWalk {
   // shifts by a constant.
   struct Mask {
     static constexpr bool kXf = false;
+    static constexpr bool kDrop = false;
     bool full;
     uint32_t w[2][2];
     __device__ bool seen(int j, int e) const {
@@ -361,6 +400,8 @@ struct SparseFwdWalk {
 // (Mask::kXf, xf.cuh) st first becomes the capped scores t, already in
 // log2 units; the row max takes t + bias, and P = exp2(t + fma(slope2,
 // dist, -max)), the bias and the max in one FMA (xf.cuh, "Precision").
+// Under dropout (Mask::kDrop) the row sums take P as it is and st keeps P
+// times its keep factor, the P of O += P V (dropout.cuh).
 template <class Mask>
 __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m_i)[2],
                                                float (&alpha)[2], float (&sum)[2],
@@ -403,8 +444,9 @@ __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m
       } else {
         p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, -m_ref[e >> 1]));
       }
-      st[4 * j + e] = p;
       sum[e >> 1] += p;
+      if constexpr (Mask::kDrop) p *= mask.keep(j, e);
+      st[4 * j + e] = p;
     }
   }
 }
@@ -593,13 +635,27 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const int* q
 
 // The dense walk under a window (f.window, f.sinks) and, when f.q_seg is
 // set, segment ids (q_seg [B, N_q], kv_seg [B, N_kv]); under the score
-// transforms (f.xf(): the softcap, the slopes) the walks that take them.
+// transforms (f.xf(): the softcap, the slopes) the walks that take them,
+// and under dropout (f.drop) the transformed walks with it.
 template <int D>
 cudaError_t launch_fwd_feat(const void* q, const void* k, const void* v, const int* q_offset,
                             void* o, void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                             int n_kv, float sm_scale, int causal, const Feat& f,
                             cudaStream_t stream) {
   const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
+  if (f.drop.on()) {
+    if (f.q_seg != nullptr) {
+      return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                       FeatWalk<true, true, true>{q_offset, 0, causal, f.window, f.sinks,
+                                                  f.q_seg, f.kv_seg, f.softcap, sm_scale,
+                                                  f.slopes, f.drop},
+                       grid, stream);
+    }
+    return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                     FeatWalk<false, true, true>{q_offset, 0, causal, f.window, f.sinks, nullptr,
+                                                 nullptr, f.softcap, sm_scale, f.slopes, f.drop},
+                     grid, stream);
+  }
   if (f.xf()) {
     if (f.q_seg != nullptr) {
       return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,

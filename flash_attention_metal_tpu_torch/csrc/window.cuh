@@ -25,6 +25,7 @@
 
 #include <cuda_runtime.h>
 
+#include "dropout.cuh"
 #include "xf.cuh"
 
 namespace {
@@ -35,7 +36,9 @@ constexpr int kNoWindow = 1 << 30;
 
 // The features of a call.  window: kNoWindow for none (then sinks is 0);
 // q_seg, kv_seg: int32 [B, N_q] and [B, N_kv], or null for none; the score
-// transforms (xf.cuh): softcap 0 for none, slopes fp32 [H_q] or null.
+// transforms (xf.cuh): softcap 0 for none, slopes fp32 [H_q] or null;
+// drop: attention dropout (dropout.cuh; the general forward and the split
+// pair only), its seed null for none.
 struct Feat {
   int window = kNoWindow;
   int sinks = 0;
@@ -43,6 +46,7 @@ struct Feat {
   const int* kv_seg = nullptr;
   float softcap = 0.0f;
   const float* slopes = nullptr;
+  Drop drop = {};
   __host__ __device__ bool xf() const { return softcap > 0.0f || slopes != nullptr; }
 };
 

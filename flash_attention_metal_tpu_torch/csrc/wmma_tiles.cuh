@@ -19,6 +19,7 @@
 
 #include <type_traits>
 
+#include "dropout.cuh"
 #include "xf.cuh"
 
 namespace {
@@ -164,14 +165,19 @@ __device__ __forceinline__ void bwd_scores(BwdSmem<T, D>& sm, int r, int half) {
 // kids: the tile's 64 KV segment ids (null: none), qid the row's.  kXf:
 // the score transforms xf (xf.cuh, tanhf) with the row at position pos;
 // dS * (c - pos) adds into *dslope (a double: xf_warp_store) before the
-// softcap's chain.
-template <typename T, int D, bool kXf = false>
+// softcap's chain.  kDrop: attention dropout (dropout.cuh), drop's keep
+// factor of the score whose hash input is dat + (c - kv_start) kMixA (dat
+// the row hash plus column kv_start's term): the p tile takes the dropped
+// P, dS = P (dP keep - delta) the undropped one.
+template <typename T, int D, bool kXf = false, bool kDrop = false>
 __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half, int kv_start,
                                              int col_limit, float scale_log2,
                                              int col_lo = INT_MIN, int sinks = 0, int qid = 0,
                                              const int* kids = nullptr,
                                              const XfHead& xf = XfHead(), int pos = 0,
-                                             double* dslope = nullptr) {
+                                             double* dslope = nullptr,
+                                             const DropBlock& drop = DropBlock(),
+                                             uint32_t dat = 0) {
   using C = Cfg<T, D>;
   T* p = sm.p_tile();
   T* ds = sm.ds_tile();
@@ -183,13 +189,16 @@ __device__ __forceinline__ void softmax_grad(BwdSmem<T, D>& sm, int r, int half,
     const int cc = kv_start + c;
     const bool seen = cc <= col_limit && (cc >= col_lo || cc < sinks) &&
                       (kids == nullptr || kids[c] == qid);
+    float keep = 1.0f;
+    if constexpr (kDrop) keep = drop.keep(dat + (uint32_t)c * kMixA);
     if constexpr (kXf) {
       const float t = xf.capped<true>(sm.s[r * C::kLdS + c]);
       const float dist = (float)(cc - pos);
       const float pj = seen ? exp2f(xf.shifted(t, dist, lse2)) : 0.0f;
-      const float dsj = pj * (sm.dp[r * C::kLdS + c] - delta);
+      const float dpj = kDrop ? sm.dp[r * C::kLdS + c] * keep : sm.dp[r * C::kLdS + c];
+      const float dsj = pj * (dpj - delta);
       *dslope = fma((double)dsj, (double)dist, *dslope);
-      p[r * C::kLdS + c] = from_float<T>(pj);
+      p[r * C::kLdS + c] = from_float<T>(kDrop ? pj * keep : pj);
       ds[r * C::kLdS + c] = from_float<T>(dsj * xf.chain(t));
     } else {
       const float pj = seen ? exp2f(sm.s[r * C::kLdS + c] * scale_log2 - lse2) : 0.0f;

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..config import SegmentIds, default_scale
+from ..kernels._common import keep_factors, pack_dropout_seed
 from ..kernels.flash_bwd import (
     bwd_delta,
     dq_workspace_shape,
@@ -69,6 +70,7 @@ from ..kernels.flash_bwd import (
     flash_bwd_fused,
 )
 from ..kernels.flash_fwd import (
+    check_dropout,
     flash_attention_fwd,
     flash_attention_fwd_plain,
     flash_fwd_lean,
@@ -784,10 +786,11 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 def window_fwd_cases(gen: torch.Generator, names=None, table=WINDOW_FWD_CASES) -> Dict[str, tuple]:
     """``{name: (q, k, v, q_offset, pos_div, features)}`` of
     ``WINDOW_FWD_CASES`` (or ``table``: all, or ``names``); ``features``
-    holds ``causal`` and the wrapper's window, sinks, segment ids, softcap
-    and ALiBi slopes (``alibi``: an ``ALIBI_SLOPES`` name).  An offset is
-    an int for every batch, a tuple per batch or None (the decode
-    lengths)."""
+    holds ``causal`` and the wrapper's window, sinks, segment ids, softcap,
+    ALiBi slopes (``alibi``: an ``alibi_slopes`` kind) and dropout
+    (``dropout``: the rate, with ``seed`` and ``drop_offsets`` packed into
+    ``dropout_seed`` on the card).  An offset is an int for every batch, a
+    tuple per batch or None (the decode lengths)."""
     cases = {}
     for name, sq, skv, dt, fixture, off, pos_div, feats in table:
         if names is not None and name not in names:
@@ -802,8 +805,23 @@ def window_fwd_cases(gen: torch.Generator, names=None, table=WINDOW_FWD_CASES) -
             feats["segment_ids"] = segment_ids(sq[0], sq[2], skv[2], offs)
         if "alibi" in feats:
             feats["alibi_slopes"] = alibi_slopes(feats.pop("alibi"), sq[1])
+        if "dropout" in feats:
+            feats["dropout_rate"] = feats.pop("dropout")
+            feats["dropout_seed"] = pack_dropout_seed(
+                feats.pop("seed", DROP_SEED), feats.pop("drop_offsets", None)).to("cuda")
         cases[name] = (q, k, v, offs.to("cuda", torch.int32), pos_div, feats)
     return cases
+
+
+def plain_features(feats: dict, device) -> dict:
+    """A case's features as the plain versions take them: the entries'
+    ``dropout_*`` keywords as one checked ``Dropout`` (``drop``), left out
+    without dropout."""
+    feats = dict(feats)
+    drop = check_dropout(feats.pop("dropout_rate", 0.0), feats.pop("dropout_seed", None),
+                         feats.pop("dropout_offsets", None), feats.pop("dropout_heads", None),
+                         device)
+    return feats if drop is None else {**feats, "drop": drop}
 
 
 def window_fwd_error(case: tuple) -> Tuple[float, float]:
@@ -812,7 +830,7 @@ def window_fwd_error(case: tuple) -> Tuple[float, float]:
     got = flash_attention_fwd(q, k, v, off, pos_div=pos_div, save_lse=True, **feats)
     want = flash_attention_fwd_plain(q.float(), k.float(), v.float(), off,
                                      sm_scale=default_scale(q.shape[-1]), pos_div=pos_div,
-                                     save_lse=True, **feats)
+                                     save_lse=True, **plain_features(feats, q.device))
     return _fwd_errors(got, want)
 
 
@@ -856,6 +874,7 @@ def window_bwd_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[flo
     bound = {"q_offset_max": int(off.max())} if fused else {}
     got = kernel(q, k, v, o, do, lse, off, sm_scale=scale, **bound, **feats)
     plain_in = (q.float(), k.float(), v.float(), o.float(), do.float(), lse, off)
+    feats = plain_features(feats, q.device)
     want = plain(*plain_in, sm_scale=scale, **feats)
     torch.cuda.synchronize()
     errors = {}
@@ -896,6 +915,7 @@ def dslope_heads(inputs: tuple) -> Tuple[List[float], List[float], List[float]]:
     scale = default_scale(q.shape[-1])
     got = flash_attention_bwd(q, k, v, o, do, lse, off, sm_scale=scale, **feats)[3]
     plain_in = (q.float(), k.float(), v.float(), o.float(), do.float(), lse, off)
+    feats = plain_features(feats, q.device)
     want = flash_attention_bwd_plain(*plain_in, sm_scale=scale, **feats)[3]
     sizes = dslope_term_sizes(*plain_in, sm_scale=scale, **feats)
     return got.tolist(), want.tolist(), sizes.tolist()
@@ -1110,6 +1130,95 @@ def xf_kv_case(cases: dict, name: str, unfold: bool, feats: dict) -> Tuple[str, 
     return kernel, args, pos_div, kw
 
 
+# ---------------------------------------------------------------------------
+# Attention dropout on the general forward (row 1: the wgmma kernel and the
+# fp32 template) and the split pair (rows 5-6), against their plain versions,
+# which multiply by the keep factors of kernels/_common.py::keep_factors.
+# ---------------------------------------------------------------------------
+
+# GPT-2's attn_pdrop, the rate of the dropout FlashLM, and the seed of the
+# checks (its top bit set: the hash must take it as unsigned).
+DROP_RATE = 0.1
+DROP_SEED = -1_234_567_891
+# Shard offsets (row, col, batch, head) and a global head count of 4096
+# (so that bh passes 2^16 from the first batch on), as a sequence-, data-
+# and head-sharded call passes them.
+DROP_OFFSETS = (1000, 333, 30, 7)
+DROP_HEADS = 4096
+FP32_D128_Q, FP32_D128_KV = (4, 16, 512, 128), (4, 8, 512, 128)
+_DROP = dict(dropout=DROP_RATE)
+# (name, q shape, kv shape, dtype, fixture, offsets, pos_div, features), as
+# WINDOW_FWD_CASES.  The training shape at D 64 and 128, bf16 and fp32, on
+# the ladder, peaked and spike fixtures; dropout with the window and sinks,
+# the softcap and ALiBi all together; with segment ids; with shard offsets
+# and a global head count; per-batch offsets (which must not enter the
+# hash); not causal; fp32 at N 512; one unfolded decode token (n_q 1: the
+# wgmma kernel and the template, never the decode grid).
+DROP_FWD_CASES = (
+    ("train_drop_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1, _DROP),
+    ("train_drop_bf16_peaked", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, _DROP),
+    ("train_drop_bf16_spike", TRAIN_Q, TRAIN_KV, "bf16", "spike", 0, 1, _DROP),
+    ("train_drop_bf16_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "ladder", 0, 1, _DROP),
+    ("train_drop_bf16_peaked_d128", TRAIN_D128_Q, TRAIN_D128_KV, "bf16", "peaked", 0, 1, _DROP),
+    ("train_drop_fp32", TRAIN_Q, TRAIN_KV, "fp32", "ladder", 0, 1, _DROP),
+    ("train_drop_fp32_d128", TRAIN_D128_Q, TRAIN_D128_KV, "fp32", "ladder", 0, 1, _DROP),
+    ("train_drop_all_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1,
+     dict(_DROP, window=WINDOW, sinks=SINKS, softcap=SOFTCAP, alibi="std")),
+    ("train_drop_seg_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", 0, 1, dict(_DROP, segments=True)),
+    ("train_drop_shard_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1,
+     dict(_DROP, drop_offsets=DROP_OFFSETS, dropout_heads=DROP_HEADS)),
+    ("train_drop_offs_bf16", TRAIN_Q, TRAIN_KV, "bf16", "peaked", XF_NEAR_OFFSETS, 1, _DROP),
+    ("train_drop_full_bf16", TRAIN_Q, TRAIN_KV, "bf16", "ladder", 0, 1,
+     dict(_DROP, causal=False)),
+    ("fp32_n512_drop_peaked", TRAIN_FP32_Q, TRAIN_FP32_KV, "fp32", "peaked", 0, 1, _DROP),
+    ("fp32_n512_drop_all_d128", FP32_D128_Q, FP32_D128_KV, "fp32", "peaked", 0, 1,
+     dict(_DROP, window=100, sinks=SINKS, softcap=SOFTCAP, alibi="std", segments=True,
+          drop_offsets=DROP_OFFSETS, dropout_heads=DROP_HEADS)),
+    ("decode_drop_bf16", XF_DECODE_Q, DECODE_KV, "bf16", "peaked", None, 1, _DROP),
+    ("decode_drop_fp32", XF_DECODE_Q, DECODE_KV, "fp32", "peaked", None, 1, _DROP),
+)
+# The backward checks (the split pair: dropout takes no other backward).
+DROP_BWD_CASES = tuple(c[0] for c in DROP_FWD_CASES if not c[0].startswith("decode"))
+
+
+def drop_fwd_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
+    """``window_fwd_cases`` of ``DROP_FWD_CASES``."""
+    return window_fwd_cases(gen, names, DROP_FWD_CASES)
+
+
+# The bit-exact mask check: (name, q shape, kv heads, dtype, seed, offsets,
+# heads).  Rate 0.2 keeps 1.25 (1.25 / 64 and / 128 are exact in bf16).
+MASK_RATE = 0.2
+MASK_CASES = (
+    ("mask_bf16_d64", (2, 4, 200, 64), 2, "bf16", 5, None, None),
+    ("mask_bf16_d128", (2, 4, 200, 128), 2, "bf16", 5, None, None),
+    ("mask_bf16_d64_shard", (2, 4, 200, 64), 2, "bf16", DROP_SEED, DROP_OFFSETS, DROP_HEADS),
+    ("mask_bf16_d128_shard", (2, 4, 130, 128), 4, "bf16", DROP_SEED, DROP_OFFSETS, DROP_HEADS),
+    ("mask_fp32_d64_shard", (2, 4, 200, 64), 2, "fp32", DROP_SEED, DROP_OFFSETS, DROP_HEADS),
+    ("mask_fp32_d128", (2, 4, 130, 128), 4, "fp32", -7, (0, 5, 0, 70000), None),
+    ("mask_bf16_d64_one_row", (3, 4, 1, 64), 2, "bf16", DROP_SEED, DROP_OFFSETS, DROP_HEADS),
+)
+
+
+def dropout_mask(name: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(got, want)`` of a ``MASK_CASES`` entry: the forward kernel's keep
+    mask and ``_common.keep_factors`` (computed on the host), both fp32
+    ``[B, H, N_q, N_kv]``.  With q = k = 0 every score is 0, P is 1 and the
+    row sum ``n_kv``; over ``n_kv = D`` columns and V the identity, ``o *
+    n_kv`` is row r's keep factors exactly, so the two must be equal."""
+    _, shape_q, hkv, dt, seed, offsets, heads = next(c for c in MASK_CASES if c[0] == name)
+    b, h, n_q, d = shape_q
+    dtype = _DTYPES[dt]
+    q = torch.zeros(shape_q, dtype=dtype, device="cuda")
+    k = torch.zeros((b, hkv, d, d), dtype=dtype, device="cuda")
+    v = torch.eye(d, dtype=dtype, device="cuda").expand(b, hkv, d, d).contiguous()
+    packed = pack_dropout_seed(seed, offsets)
+    o = flash_attention_fwd(q, k, v, causal=False, dropout_rate=MASK_RATE,
+                            dropout_seed=packed.to("cuda"), dropout_heads=heads)
+    want = keep_factors((b, h, n_q, d), MASK_RATE, packed, heads, "cpu")
+    return o.float().cpu() * d, want
+
+
 def alibi_bias(slopes: torch.Tensor, n_q: int, n_kv: int, offsets: torch.Tensor,
                visible: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     """SDPA's float mask of an ALiBi call: ``slope_h * (c - p)`` where
@@ -1262,7 +1371,7 @@ def sparse_op_grad_errors(case: tuple) -> Dict[str, float]:
 
 
 def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None,
-            with_forward: bool = False) -> Tuple[float, str]:
+            with_forward: bool = False, dropout_p: float = 0.0) -> Tuple[float, str]:
     """The library yardstick: ``F.scaled_dot_product_attention`` on the
     same inputs, its device ms and the backend it was pinned to.
 
@@ -1271,8 +1380,9 @@ def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None,
     one.  GQA K/V are repeated to q's heads before the timed call.  With
     ``backward_of=do`` the time is SDPA's backward from
     ``torch.autograd.grad`` with that cotangent (dQ, dK and dV together),
-    and with ``with_forward`` the forward and that backward.  The port
-    never calls SDPA; it is timed here only.
+    and with ``with_forward`` the forward and that backward.  ``dropout_p``:
+    SDPA's own attention dropout (its RNG, so another mask than the port's).
+    The port never calls SDPA; it is timed here only.
     """
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1282,16 +1392,16 @@ def sdpa_ms(q, k, v, *, causal: bool = False, mask=None, backward_of=None,
     fast = q.dtype == torch.bfloat16 and mask is None
     backend = SDPBackend.FLASH_ATTENTION if fast else SDPBackend.EFFICIENT_ATTENTION
     with sdpa_kernel(backend):
+        kw = dict(attn_mask=mask, is_causal=causal, dropout_p=dropout_p)
         if backward_of is None:
-            ms = device_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=causal))
+            ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw))
         elif with_forward:
             q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
             ms = device_ms(lambda: torch.autograd.grad(F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=causal), (q, k, v), backward_of))
+                q, k, v, **kw), (q, k, v), backward_of))
         else:
             q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
-            o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=causal)
+            o = F.scaled_dot_product_attention(q, k, v, **kw)
             ms = device_ms(lambda: torch.autograd.grad(o, (q, k, v), backward_of, retain_graph=True))
     return ms, backend.name
 
@@ -1483,7 +1593,10 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
     general forward, the split pair and the fused backward at the training
     shape (D 64 and 128), folded decode and the quant, paged and
     paged-quant kernels at decode (D 64 and 128), each under ``WINDOW`` and
-    ``SINKS`` (keys ``window_*``).  Every input is the ladder fixture.  The workspace: the allocator's peak over one backward call at
+    ``SINKS`` (keys ``window_*``); in one whose wrappers take dropout, the
+    general forward and the split pair at the training shape (D 64 and 128)
+    and in fp32 at ``TRAIN_FP32_Q`` at ``DROP_RATE`` (keys ``drop_*``).
+    Every input is the ladder fixture.  The workspace: the allocator's peak over one backward call at
     ``HIGH_OCC`` less its outputs and delta (fp32 ``[B, H, N]``), which at
     that shape outweigh the delta op's fp32 temporaries in either tree.
     """
@@ -1645,6 +1758,28 @@ def kernel_times(csrc: Optional[str] = None) -> Tuple[Dict[str, float], Dict[str
                 times[f"window_{name.replace('_bf16', '')}{suffix or '_d64'}"] = device_ms(
                     lambda: kv_wrappers[kernel](*args, pos_div, **win))
         del cases
+    # Then, in a tree whose wrappers take dropout, the dropout instances:
+    # the general forward and the split pair at the training shape (bf16, D
+    # 64 and 128) and at TRAIN_FP32_Q, at DROP_RATE, with the seed packed on
+    # the card beforehand, so that no timed call copies it from the host.
+    if "dropout_rate" in inspect.signature(ff.flash_fwd_general).parameters:
+        d = ff.check_dropout(DROP_RATE, DROP_SEED, device="cuda")
+        drop = dict(dropout_rate=DROP_RATE, dropout_seed=d.seed)
+        for tag, shape_q, shape_kv, dtype in (("bf16_train", TRAIN_Q, TRAIN_KV, bf16),
+                                              ("bf16_train_d128", TRAIN_D128_Q, TRAIN_D128_KV, bf16),
+                                              ("fp32_n512", TRAIN_FP32_Q, TRAIN_FP32_KV, f32)):
+            q, k, v = ladder_inputs(shape_q, shape_kv, dtype, gen)
+            do = ladder_inputs(shape_q, shape_kv, dtype, gen)[0]
+            off = torch.zeros((shape_q[0],), dtype=torch.int32, device="cuda")
+            o, lse = ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=True, **drop)
+            delta = fb.bwd_delta(o, do, None)
+            kw = dict(sm_scale=default_scale(q.shape[-1]), causal=True, drop=d)
+            times[f"drop_fwd_{tag}"] = device_ms(
+                lambda: ff.flash_fwd_general(q, k, v, off, causal=True, save_lse=True, **drop))
+            times[f"drop_dkv_{tag}"] = device_ms(
+                lambda: fb.flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw))
+            times[f"drop_dq_{tag}"] = device_ms(
+                lambda: fb.flash_bwd_dq(q, k, v, do, lse, delta, off, **kw))
     return times, nbytes
 
 

@@ -107,16 +107,19 @@ def build_engine(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi: bool = False,
+    attn_dropout: float = 0.0,
     **engine_kwargs,
 ) -> tuple:
     """A ``DecodeEngine`` over a FlashLM with seeded random weights
     (``window``, ``sinks``: its sliding-window attention; ``softcap``,
-    ``alibi``: its score transforms)."""
+    ``alibi``: its score transforms; ``attn_dropout``: its training-time
+    dropout rate, which serving never applies: the engine passes no
+    seeds)."""
     cfg = ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=max_len,
         dtype=dtype, attn_window=window, attn_sinks=sinks, attn_softcap=softcap,
-        attn_alibi=alibi,
+        attn_alibi=alibi, attn_dropout=attn_dropout,
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)

@@ -65,17 +65,18 @@ def flashlm_config(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi: bool = False,
+    attn_dropout: float = 0.0,
 ) -> ModelConfig:
     """The trained FlashLM: bf16 compute, head_dim 64; defaults are the
     ``train_bench.json`` width.  ``window``, ``sinks``: the sliding window
     of every attention call (``ModelConfig.attn_window``, ``attn_sinks``);
     ``softcap``, ``alibi``: its score transforms (``attn_softcap``,
-    ``attn_alibi``)."""
+    ``attn_alibi``); ``attn_dropout``: its attention dropout rate."""
     return ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=seq,
         dtype=torch.bfloat16, attn_window=window, attn_sinks=sinks, attn_softcap=softcap,
-        attn_alibi=alibi,
+        attn_alibi=alibi, attn_dropout=attn_dropout,
     )
 
 
@@ -102,6 +103,7 @@ def run_train_bench(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi: bool = False,
+    attn_dropout: float = 0.0,
     log=print,
 ) -> Dict[str, object]:
     """Run ``steps`` training steps on one fixed seeded batch and time them.
@@ -112,7 +114,9 @@ def run_train_bench(
     between ``torch.cuda.synchronize()`` fences; the first is the warm-up
     and the reported step time is the median of the rest.  ``window``,
     ``sinks``: a FlashLM with sliding-window attention; ``softcap``,
-    ``alibi``: one with the score transforms.
+    ``alibi``: one with the score transforms; ``attn_dropout``: one with
+    attention dropout (the Trainer draws each step's seeds; ``"sgd"``
+    draws none and refuses it).
     """
     if not torch.cuda.is_available():
         raise RuntimeError("run_train_bench needs a CUDA card")
@@ -122,8 +126,11 @@ def run_train_bench(
     cfg = flashlm_config(
         n_layers=n_layers, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv_heads,
         d_ff=d_ff, vocab=vocab, seq=seq, window=window, sinks=sinks, softcap=softcap,
-        alibi=alibi,
+        alibi=alibi, attn_dropout=attn_dropout,
     )
+    if attn_dropout and optimizer != "adamw":
+        raise ValueError("attn_dropout trains through the Trainer (optimizer 'adamw'), "
+                         "which draws each step's dropout seeds")
     tokens = fixed_batch(cfg, batch, seq, SEED + 1)
     if optimizer == "adamw":
         trainer = Trainer(
@@ -157,7 +164,7 @@ def run_train_bench(
             "n_layers": n_layers, "d_model": d_model, "n_heads": n_heads,
             "n_kv_heads": n_kv_heads, "d_ff": d_ff, "vocab": vocab,
             "attn_window": window, "attn_sinks": sinks, "attn_softcap": softcap,
-            "attn_alibi": alibi,
+            "attn_alibi": alibi, "attn_dropout": attn_dropout,
         },
         "batch": batch,
         "seq": seq,
@@ -186,13 +193,15 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--sgd", action="store_true", help="time sgd_train_step, not Trainer.step")
+    ap.add_argument("--attn-dropout", type=float, default=0.0,
+                    help="attention dropout rate (GPT-2's attn_pdrop is 0.1)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     result = run_train_bench(
         n_layers=args.layers, d_model=args.d_model, batch=args.batch, seq=args.seq,
-        optimizer="sgd" if args.sgd else "adamw",
+        optimizer="sgd" if args.sgd else "adamw", attn_dropout=args.attn_dropout,
     )
     print(json.dumps(result))
     return 0

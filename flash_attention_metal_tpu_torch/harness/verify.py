@@ -6,10 +6,8 @@ there: fp32 kernels anchor to the golden oracle, upper rungs difference
 against the verified naive rung, causal and backward rungs get their own
 fixtures.  One ``[PASS]``/``[FAIL]`` line per rung, in the same format.
 
-The rungs whose kernels are ported run (1-7c, 8 int8 and fp8, 9, 10, 11,
-12 prefill and decode chunk, 13-17, 18); the two dropout rungs print a
-``[SKIP]`` line naming the ``ROADMAP.md`` item they wait for and are never
-counted as passes.
+Every rung of the JAX ladder runs (1-7c, 8 int8 and fp8, 9, 10, 11, 12
+prefill and decode chunk, 13-17, 18, and the dropout rungs 24-25).
 ``device="cpu"`` runs every kernel's plain version (the tests do); the
 default runs the CUDA kernels.
 
@@ -81,13 +79,12 @@ TRANSFORM_RUNGS = (
     "ALiBi backward d_slopes vs oracle (relative)",
 )
 
-# Rungs of the JAX ladder that wait for a feature or a kernel of the port,
-# by the ROADMAP.md item that holds it.
-_FEATURES = "not ported (ROADMAP.md Queue A item 2: op features)"
-SKIPPED_DROPOUT_RUNGS = (
-    ("flash dropout (p=0.2) causal vs oracle", _FEATURES),
-    ("flash dropout backward (dQ,dK,dV) vs oracle", _FEATURES),
+# The dropout rungs (24-25) and their rate and seed (JAX's).
+DROPOUT_RUNGS = (
+    "flash dropout (p=0.2) causal vs oracle",
+    "flash dropout backward (dQ,dK,dV) vs oracle",
 )
+RUNG_DROPOUT_RATE, RUNG_DROPOUT_SEED = 0.2, 424242
 
 
 @dataclasses.dataclass
@@ -132,10 +129,6 @@ def masked_oracle(q, k, v, visible: torch.Tensor) -> torch.Tensor:
     p = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m))
     l = p.sum(dim=-1, keepdim=True)
     return torch.matmul(p / torch.where(l == 0, 1.0, l), v.float())
-
-
-def _skip(name: str, why: str) -> str:
-    return f"[SKIP] {name}: {why}"
 
 
 def run_ladder(
@@ -341,9 +334,18 @@ def run_ladder(
     rung("GQA-fold backward dK,dV (group-summed in-kernel) vs oracle",
          torch.stack(g_gq[1:]), torch.stack(g_gq_r[1:]), TOL_FP32)
 
-    # Rungs 24-25: in-kernel dropout, not ported.
-    for name, why in SKIPPED_DROPOUT_RUNGS:
-        log(_skip(name, why))
+    # Rungs 24-25: in-kernel attention dropout, forward and backward.  The
+    # keep mask is a stateless hash of the seed and each score's
+    # coordinates that the kernels and the oracle share bit for bit
+    # (kernels/_common.py::keep_factors), so dropout verifies at the fp32
+    # tolerance, not only statistically.
+    drop = dict(dropout_rate=RUNG_DROPOUT_RATE, dropout_seed=RUNG_DROPOUT_SEED)
+    odr = flash_attention_fwd(q, k, v, causal=True, **drop)
+    rung(DROPOUT_RUNGS[0], odr, attention_reference(q, k, v, causal=True, **drop), TOL_FP32)
+    od_f, lse_dr = flash_attention_fwd(q, k, v, causal=True, save_lse=True, **drop)
+    g_dr = flash_attention_bwd(q, k, v, od_f, do, lse_dr, causal=True, **drop)
+    g_dr_r = attention_reference_bwd(q, k, v, do, causal=True, **drop)
+    rung(DROPOUT_RUNGS[1], torch.stack(g_dr), torch.stack(g_dr_r), TOL_FP32)
     return results
 
 

@@ -13,6 +13,7 @@ after every multiply and add): the same bits as the JAX uint32 pattern.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence, Union
 
 import torch
@@ -66,6 +67,17 @@ def pack_dropout_seed(seed: IntLike, offsets: Optional[Sequence[IntLike]] = None
     return torch.cat([seed, offs.to(seed.device)])
 
 
+def dropout_threshold(rate: float) -> int:
+    """The 31-bit keep threshold of ``rate``: a score is kept when its
+    hash's low 31 bits are at least this (JAX ``_common.py:97``)."""
+    return min(int(round(rate * 2.0**31)), 2**31 - 1)
+
+
+def dropout_inv_keep(rate: float) -> float:
+    """The fp32 keep factor ``1 / (1 - rate)`` (as a Python float)."""
+    return torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+
+
 def dropout_keep(seed: IntLike, bh: IntLike, rows: IntLike, cols: IntLike,
                  rate: float) -> torch.Tensor:
     """Counter-based attention-dropout keep mask: fp32 ``{0, 1/(1-rate)}``.
@@ -73,10 +85,28 @@ def dropout_keep(seed: IntLike, bh: IntLike, rows: IntLike, cols: IntLike,
     Every argument broadcasts (the oracle passes ``[B, H, 1, 1]``,
     ``[1, 1, N, 1]`` and ``[1, 1, 1, N]`` tensors).  Keep probability is
     ``1 - rate`` on a 31-bit lattice, bit for bit the JAX mask."""
-    threshold = min(int(round(rate * 2.0**31)), 2**31 - 1)
-    inv_keep = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32).item()
+    threshold = dropout_threshold(rate)
+    inv_keep = dropout_inv_keep(rate)
     h = _mix32(_u32(seed) ^ ((_u32(bh) * _MIX_A) & _U32))
     h = _mix32((h + _u32(rows) * _MIX_B) & _U32)
     h = _mix32((h + _u32(cols) * _MIX_A) & _U32)
     keep = (h & _MASK31) >= threshold
     return torch.where(keep, inv_keep, 0.0).to(torch.float32)
+
+
+def keep_factors(shape, rate: float, seed: IntLike, heads: Optional[int] = None,
+                 device=None) -> torch.Tensor:
+    """The keep factors ``{0, 1/(1-rate)}`` of a ``[B, H, N_q, N_kv]`` call,
+    fp32 on ``device``: score ``(b, h, r, c)`` hashed at ``bh = (b +
+    batch_off) * heads + h + head_off``, row ``r + row_off`` and column ``c
+    + col_off`` (``seed`` a scalar, or packed ``[seed, row_off, col_off,
+    batch_off, head_off]``; ``heads`` the stream's head count, ``H`` when
+    None), as every kernel hashes it.  Computed on ``device``."""
+    sv = pack_dropout_seed(seed).to(device=device, dtype=torch.int64)
+    b, h, n_q, n_kv = shape
+    mul = h if heads is None else heads
+    ar = functools.partial(torch.arange, device=device)
+    bh = (ar(b)[:, None] + sv[3]) * mul + ar(h)[None, :] + sv[4]
+    rows = sv[1] + ar(n_q).reshape(1, 1, n_q, 1)
+    cols = sv[2] + ar(n_kv).reshape(1, 1, 1, n_kv)
+    return dropout_keep(sv[0], bh.reshape(b, h, 1, 1), rows, cols, rate)

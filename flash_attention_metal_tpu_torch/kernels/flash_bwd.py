@@ -47,7 +47,12 @@ Under ALiBi the backward also returns ``d_slopes`` (fp32 ``[H]``): the
 dK/dV kernel writes one partial per (batch, q-head, KV tile, warp), which
 the wrapper sums (JAX reduces ``[B, H, n_kv_blocks, 128]`` partials the
 same way, ``flash_bwd.py:1108-1161``); a partial per KV head would mix the
-slopes of a GQA group.
+slopes of a GQA group.  Attention dropout is the split pair's too (JAX
+``flash_bwd.py:222-245, 380-386, 496-508``): each kernel rebuilds the
+forward's keep factors K from the seed on the device and each score's
+(q-head, row, column) (``csrc/dropout.cuh``); dV takes (P o K)^T dO and
+dS = P o (dP o K - delta), with the undropped P.  A dropout call takes the
+split pair whatever the saved decision; the fused kernel refuses one.
 
 Route: tensors on the CPU go to the plain versions; CUDA tensors launch the
 kernels or raise.  Nothing falls back.
@@ -65,9 +70,12 @@ from ..config import BlockSizes, SegmentIds, default_scale
 from . import _build
 from .flash_fwd import (
     _DTYPE_CODES,
+    NO_DROPOUT_ARGS,
+    Dropout,
     _check_cuda_inputs,
     _offsets,
     _ptr,
+    check_dropout,
     check_segment_ids,
     check_xf,
     is_static_offset,
@@ -105,13 +113,16 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -
 
 
 def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window=None, sinks=0,
-                segment_ids=None, softcap=None, alibi_slopes=None, dslope_abs=False):
+                segment_ids=None, softcap=None, alibi_slopes=None, dslope_abs=False,
+                drop: Optional[Dropout] = None):
     """fp32 P (rebuilt from ``lse``) and dS over repeated KV heads, P zero
     outside ``flash_fwd.plain_visible``, and ``d_slopes`` (fp32 ``[H]``, or
     None without ALiBi).  Under the score transforms dS is the cotangent of
     the natural scaled score: ``d_slopes`` sums dS * (c - p) first, then dS
     takes the softcap's chain 1 - u^2.  ``dslope_abs``: sum |dS * (c - p)|
-    in its place (``dslope_term_sizes``)."""
+    in its place (``dslope_term_sizes``).  ``drop``: dropout, dS = P (dP K
+    - delta) with K the keep factors, and the returned P is the dropped P K
+    (dV's)."""
     _, h, n_q, _ = q.shape
     n_kv = k.shape[2]
     group = h // k.shape[1]
@@ -130,6 +141,9 @@ def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window=None, sin
                                 segment_ids=segment_ids, device=q.device)
         p = p.masked_fill_(~visible, 0.0)
     dp = torch.matmul(do.float(), vf.transpose(-1, -2))
+    keep = None if drop is None else drop.keep(p.shape, q.device)
+    if keep is not None:
+        dp = dp.mul_(keep)
     ds = dp.sub_(delta[..., None]).mul_(p)
     d_slopes = None
     if alibi_slopes is not None:
@@ -139,6 +153,8 @@ def _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window=None, sin
         d_slopes = (terms.abs_() if dslope_abs else terms).sum(dim=(0, 2, 3)).float()
     if u is not None:
         ds = ds.mul_(1.0 - u * u)
+    if keep is not None:
+        p = p.mul_(keep)
     return p, ds, kf, d_slopes
 
 
@@ -149,11 +165,11 @@ def _group_sum(x: torch.Tensor, h_kv: int) -> torch.Tensor:
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
                         window=None, sinks=0, segment_ids=None, softcap=None,
-                        alibi_slopes=None):
+                        alibi_slopes=None, drop: Optional[Dropout] = None):
     """The dK/dV kernel's contract in fp32 PyTorch: ``(dk, dv)``, summed over
     each KV head's group of q-heads, and under ALiBi ``d_slopes`` too."""
     p, ds, _, d_slopes = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window,
-                                     sinks, segment_ids, softcap, alibi_slopes)
+                                     sinks, segment_ids, softcap, alibi_slopes, drop=drop)
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), do.float()), k.shape[1])
     dk = _group_sum(torch.matmul(ds.transpose(-1, -2), q.float()), k.shape[1]) * sm_scale
     if d_slopes is not None:
@@ -163,10 +179,10 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
                        window=None, sinks=0, segment_ids=None, softcap=None,
-                       alibi_slopes=None):
+                       alibi_slopes=None, drop: Optional[Dropout] = None):
     """The dQ kernel's contract in fp32 PyTorch."""
     _, ds, kf, _ = _plain_p_ds(q, k, v, do, lse, delta, off, sm_scale, causal, window, sinks,
-                               segment_ids, softcap, alibi_slopes)
+                               segment_ids, softcap, alibi_slopes, drop=drop)
     return (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
 
 
@@ -187,27 +203,30 @@ def flash_attention_bwd_plain(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    drop: Optional[Dropout] = None,
 ) -> tuple:
     """``flash_attention_bwd``'s contract in fp32 PyTorch (``q_offset``:
     int32 ``[B]``): the delta precompute and the two kernels' plain
-    versions; ``(dq, dk, dv)``, and ``d_slopes`` last under ALiBi."""
+    versions; ``(dq, dk, dv)``, and ``d_slopes`` last under ALiBi.
+    ``drop``: a checked ``Dropout`` (``check_dropout``) or None."""
     delta = bwd_delta(o, do, dlse)
     kw = dict(sm_scale=sm_scale, causal=causal, window=window, sinks=sinks,
-              segment_ids=segment_ids, softcap=softcap, alibi_slopes=alibi_slopes)
+              segment_ids=segment_ids, softcap=softcap, alibi_slopes=alibi_slopes, drop=drop)
     dkv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, q_offset, **kw)
     return (flash_bwd_dq_plain(q, k, v, do, lse, delta, q_offset, **kw),) + tuple(dkv)
 
 
 def dslope_term_sizes(q, k, v, o, do, lse, q_offset, dlse=None, *, sm_scale: float,
                       causal: bool, alibi_slopes: torch.Tensor, window=None, sinks=0,
-                      segment_ids=None, softcap=None) -> torch.Tensor:
+                      segment_ids=None, softcap=None,
+                      drop: Optional[Dropout] = None) -> torch.Tensor:
     """fp32 ``[H]``: each q-head's sum of |dS * (c - p)| over its pairs, the
     size of the terms whose sum (which cancels: dS sums to 0 over a row) is
     that head's ``d_slopes``; the scale a head's ``d_slopes`` error is read
     against.  Arguments as ``flash_attention_bwd_plain``'s."""
     delta = bwd_delta(o, do, dlse)
     return _plain_p_ds(q, k, v, do, lse, delta, q_offset, sm_scale, causal, window, sinks,
-                       segment_ids, softcap, alibi_slopes, dslope_abs=True)[3]
+                       segment_ids, softcap, alibi_slopes, dslope_abs=True, drop=drop)[3]
 
 
 def flash_attention_bwd_fused_plain(
@@ -306,9 +325,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     xf = [ctypes.c_float, ptr]
     # q, k, v, dout, lse, delta, q_offset, then the outputs (and the fused
     # kernel's workspace).
-    lib.fam_flash_bwd_dkv.argtypes = [ptr] * 9 + feats + xf + [ptr] + common
+    # dropout: packed seed (null: none), threshold, 1 / (1 - rate), heads
+    drop = [ptr, i32, ctypes.c_float, i32]
+    lib.fam_flash_bwd_dkv.argtypes = [ptr] * 9 + feats + xf + [ptr] + drop + common
     lib.fam_flash_bwd_dkv.restype = ctypes.c_int
-    lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + feats + xf + common
+    lib.fam_flash_bwd_dq.argtypes = [ptr] * 8 + feats + xf + drop + common
     lib.fam_flash_bwd_dq.restype = ctypes.c_int
     # ..., dq, dq_acc, counters, n_counters, off_bound
     lib.fam_flash_bwd_fused.argtypes = [ptr] * 12 + [i32, i32] + feats + common
@@ -350,19 +371,25 @@ def dslope_partials(q: torch.Tensor, n_kv: int) -> torch.Tensor:
                        dtype=torch.float32, device=q.device)
 
 
+def _drop_args(drop: Optional[Dropout], q: torch.Tensor) -> tuple:
+    return NO_DROPOUT_ARGS if drop is None else drop.c_args(q.shape[1])
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
                   window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None,
-                  softcap: float = 0.0, slopes: Optional[torch.Tensor] = None):
+                  softcap: float = 0.0, slopes: Optional[torch.Tensor] = None,
+                  drop: Optional[Dropout] = None):
     """``(dk, dv)`` from the dK/dV kernel, and ``d_slopes`` (fp32 ``[H]``)
     last with ``slopes`` (CUDA tensors, checked by the caller; ``window``,
     ``sinks`` as ``flash_fwd.window_args`` gives them, ``softcap`` and
-    ``slopes`` as ``flash_fwd.check_xf``)."""
+    ``slopes`` as ``flash_fwd.check_xf``, ``drop`` as
+    ``flash_fwd.check_dropout``)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     part = None if slopes is None else dslope_partials(q, k.shape[2])
     err = _lib().fam_flash_bwd_dkv(
         *_inputs(q, k, v, do, lse, delta, off), dk.data_ptr(), dv.data_ptr(),
         *_feature_args(window, sinks, segment_ids), softcap, _ptr(slopes), _ptr(part),
-        *_shape_args(q, k, sm_scale, causal),
+        *_drop_args(drop, q), *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd dK/dV kernel launch failed: cudaError_t {err}")
@@ -374,13 +401,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool
 
 def flash_bwd_dq(q, k, v, do, lse, delta, off, *, sm_scale: float, causal: bool,
                  window: int = 0, sinks: int = 0, segment_ids: Optional[SegmentIds] = None,
-                 softcap: float = 0.0, slopes: Optional[torch.Tensor] = None):
+                 softcap: float = 0.0, slopes: Optional[torch.Tensor] = None,
+                 drop: Optional[Dropout] = None):
     """``dq`` from the dQ kernel (CUDA tensors, checked by the caller)."""
     dq = torch.empty_like(q)
     err = _lib().fam_flash_bwd_dq(
         *_inputs(q, k, v, do, lse, delta, off), dq.data_ptr(),
         *_feature_args(window, sinks, segment_ids), softcap, _ptr(slopes),
-        *_shape_args(q, k, sm_scale, causal),
+        *_drop_args(drop, q), *_shape_args(q, k, sm_scale, causal),
     )
     if err:
         raise RuntimeError(f"flash_bwd dQ kernel launch failed: cudaError_t {err}")
@@ -468,6 +496,10 @@ def flash_attention_bwd(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
     **features,
 ) -> tuple:
     """``(dq, dk, dv)`` of flash attention over ``[B, H, N, D]`` inputs,
@@ -478,9 +510,10 @@ def flash_attention_bwd(
     saved outputs, ``do`` the output's cotangent and ``dlse`` the optional
     lse cotangent.  ``k``/``v`` may have fewer heads than ``q`` (GQA); the
     masking rule (window, sinks and segment ids included), the score
-    transforms (``softcap``, ``alibi_slopes``) and the ``q_offset`` default
-    (``n_kv - n_q``) are the forward's.  The JAX wrapper's dropout
-    arguments and ``pos_div`` raise NotImplementedError if set.
+    transforms (``softcap``, ``alibi_slopes``), dropout (the forward's
+    ``dropout_*`` arguments: the same keep factors) and the ``q_offset``
+    default (``n_kv - n_q``) are the forward's.  ``pos_div`` raises
+    NotImplementedError if set.
     """
     pos_div = features.pop("pos_div", 1)
     if pos_div != 1:
@@ -490,7 +523,8 @@ def flash_attention_bwd(
         )
     reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap,
-                 alibi_slopes=alibi_slopes)
+                 alibi_slopes=alibi_slopes, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                 dropout_offsets=dropout_offsets, dropout_heads=dropout_heads)
     if q.dtype == torch.float16:
         return _in_fp32(flash_attention_bwd, q, k, v, o, do, lse, q_offset, dlse,
                         sm_scale=sm_scale, causal=causal, **feats)
@@ -498,16 +532,17 @@ def flash_attention_bwd(
     w, n_sinks = window_args(window, sinks, causal)
     seg = check_segment_ids(segment_ids, q.shape[0], q.shape[2], k.shape[2], q.device)
     cap, slopes = check_xf(softcap, alibi_slopes, q.shape[1], q.device)
+    drop = check_dropout(dropout_rate, dropout_seed, dropout_offsets, dropout_heads, q.device)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, o, do, lse, off, dlse, sm_scale=sm_scale, causal=causal,
             window=window if w else None, sinks=n_sinks, segment_ids=seg, softcap=softcap,
-            alibi_slopes=slopes,
+            alibi_slopes=slopes, drop=drop,
         )
     _check_cuda(q, k, v, do, lse, off)
     delta = bwd_delta(o, do, dlse)
     kw = dict(sm_scale=sm_scale, causal=causal, window=w, sinks=n_sinks, segment_ids=seg,
-              softcap=cap, slopes=slopes)
+              softcap=cap, slopes=slopes, drop=drop)
     dkv = flash_bwd_dkv(q, k, v, do, lse, delta, off, **kw)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, off, **kw)
     return (dq,) + tuple(dkv)
@@ -531,13 +566,14 @@ def flash_attention_bwd_fused(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
     **features,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the fused 5-matmul kernel; arguments and
     results as ``flash_attention_bwd`` (``dk``, ``dv`` in ``k``'s dtype, as
-    the JAX kernel's; the window, sinks and segment ids included; a softcap
-    or ALiBi slopes raise NotImplementedError, as JAX's fused kernel takes
-    neither).  The kernel's tiles are fixed (``DQ_TILE``).
+    the JAX kernel's; the window, sinks and segment ids included; a softcap,
+    ALiBi slopes or dropout raise NotImplementedError, as JAX's fused
+    kernel takes none of them).  The kernel's tiles are fixed (``DQ_TILE``).
     ``q_offset_max``: with a tensor ``q_offset``, an int no entry exceeds.
     An offset known on the host (None, an int or a CPU tensor) above it
     raises.  The entries of a CUDA tensor are not read on the host: the
@@ -548,6 +584,11 @@ def flash_attention_bwd_fused(
         raise NotImplementedError(
             "the fused backward takes no softcap or ALiBi slopes: JAX's fused kernel takes "
             "neither (flash_bwd.py:496-508); the split pair (flash_attention_bwd) takes both"
+        )
+    if dropout_rate:
+        raise NotImplementedError(
+            "the fused backward takes no dropout: JAX's dispatcher routes it to the split pair "
+            "(flash_bwd.py:496-508, flash_attention_bwd)"
         )
     reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
@@ -625,8 +666,8 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_d
     decision is declined, for the untuned rule, when its dQ workspace would
     not fit (``fused_workspace_fits``).  ``featured`` (a window or segment
     ids) rules the triangular kernel out, as in JAX; ``transformed`` (a
-    softcap or ALiBi) takes the split pair whatever the saved decision, as
-    JAX's dispatcher does (``flash_bwd.py:496-508``)."""
+    softcap, ALiBi or dropout) takes the split pair whatever the saved
+    decision, as JAX's dispatcher does (``flash_bwd.py:496-508``)."""
     if transformed:
         return "split"
     tri_ok = (
@@ -673,11 +714,16 @@ def flash_attention_bwd_auto(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
     **features,
 ) -> tuple:
     """``(dq, dk, dv)``, routed to the triangular kernel, the fused kernel
     or the split pair (module docstring), and ``d_slopes`` last under ALiBi
-    (the split pair's).  Arguments as ``flash_attention_bwd``;
+    (the split pair's); dropout takes the split pair.  Arguments as
+    ``flash_attention_bwd``;
     ``q_offset_max`` as ``flash_attention_bwd_fused`` (only the fused route
     reads it).  The triangular route returns ``dk`` and ``dv`` in fp32, the
     others in ``k``'s dtype, as in JAX.  The split pair's tiles are fixed:
@@ -685,7 +731,7 @@ def flash_attention_bwd_auto(
     reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     featured = window is not None or segment_ids is not None
-    transformed = softcap is not None or alibi_slopes is not None
+    transformed = softcap is not None or alibi_slopes is not None or bool(dropout_rate)
     impl = bwd_route(q, k, q_offset, causal=causal, pos_div=pos_div, block_sizes=block_sizes,
                      featured=featured, transformed=transformed)
     if impl == "tri":
@@ -701,5 +747,7 @@ def flash_attention_bwd_auto(
         )
     return flash_attention_bwd(
         q, k, v, o, do, lse, q_offset, dlse, sm_scale=sm_scale, causal=causal,
-        pos_div=pos_div, softcap=softcap, alibi_slopes=alibi_slopes, **feats,
+        pos_div=pos_div, softcap=softcap, alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
+        dropout_seed=dropout_seed, dropout_offsets=dropout_offsets, dropout_heads=dropout_heads,
+        **feats,
     )

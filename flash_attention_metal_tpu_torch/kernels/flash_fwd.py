@@ -35,16 +35,22 @@ tile-unfriendly lengths (``tri_heuristic``, ``_TRI_MAX_N``,
 ``_UNROLL_CAP``): those are Mosaic compile limits, so the port's
 triangular kernel takes every N.
 
-The sliding window with attention sinks, packed segment ids and the score
-transforms (the tanh softcap, ALiBi) are the general kernel's, as in JAX
-(``flash_fwd.py:829-838, 932-958``): a call that asks for any goes to it.
+The sliding window with attention sinks, packed segment ids, the score
+transforms (the tanh softcap, ALiBi) and attention dropout are the general
+kernel's, as in JAX (``flash_fwd.py:829-838, 932-958``): a call that asks
+for any goes to it.
 A window skips the KV tiles outside the window and the sinks, and the
 decode grid's splits that hold none of them run no step.  Segment ids are
 an element test on every step and take no split.  The transforms act on
 each score between the QK^T product and the mask (``csrc/xf.cuh``); ALiBi
 takes no GQA row fold (``pos_div`` 1: a folded row is not one q-head).
-The other features (``UNPORTED_FEATURES``) raise ``NotImplementedError``
-on every route, naming their ROADMAP.md item.
+Dropout (``csrc/dropout.cuh``) multiplies each P of the PV product by a
+keep factor hashed from a seed on the device and the score's tensor
+coordinates; the row statistics and the lse stay those of the undropped
+P.  It takes one row per position and one KV split, so a dropout call
+never takes the decode grid (bf16 runs the ``wgmma`` kernel, fp32 the
+template).  The feature still waiting (``UNPORTED_FEATURES``) raises
+``NotImplementedError`` on every route, naming its ROADMAP.md item.
 
 Each kernel's wrapper takes its plain version for a tensor on the CPU and
 launches the kernel, or raises, for a CUDA tensor.  Nothing falls back.
@@ -60,6 +66,7 @@ import torch
 
 from ..config import DEFAULT_MASK_VALUE, SegmentIds, default_scale
 from . import _build
+from ._common import dropout_inv_keep, dropout_threshold, keep_factors, pack_dropout_seed
 
 # The head dims every CUDA kernel is built for (a template parameter of
 # each, dispatched at its C entry).
@@ -67,11 +74,9 @@ HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 # Features of the JAX kernel not ported yet, each with its ROADMAP.md item
-# (Queue A): the rolling caches' position map, and attention dropout.
+# (Queue A): the rolling caches' position map.
 UNPORTED_FEATURES = {
     "kv_positions": "Queue A item 3",
-    "dropout_rate": "Queue A item 2",
-    "dropout_seed": "Queue A item 2",
 }
 
 
@@ -112,6 +117,55 @@ def check_xf(softcap: Optional[float], alibi_slopes: Optional[torch.Tensor], hea
         raise ValueError(f"alibi_slopes must be [{heads}] (one per q-head), got "
                          f"{tuple(torch.as_tensor(alibi_slopes).shape)}")
     return cap, slopes.contiguous()
+
+
+class Dropout(NamedTuple):
+    """A call's attention dropout as the kernels take it: the rate, the
+    packed int32 ``[seed, row_off, col_off, batch_off, head_off]`` on the
+    call's device, and the (b, h) stream's head count (None: the call's
+    q-heads)."""
+
+    rate: float
+    seed: torch.Tensor
+    heads: Optional[int]
+
+    def c_args(self, n_heads: int) -> tuple:
+        """``(seed pointer, threshold, inv_keep, heads)`` of the C entries."""
+        return (self.seed.data_ptr(), dropout_threshold(self.rate), dropout_inv_keep(self.rate),
+                n_heads if self.heads is None else self.heads)
+
+    def keep(self, shape, device) -> torch.Tensor:
+        """fp32 keep factors of a ``[B, H, N_q, N_kv]`` call
+        (``_common.keep_factors``): what the plain versions multiply."""
+        return keep_factors(shape, self.rate, self.seed, self.heads, device)
+
+
+# The C entries' dropout arguments of a call without dropout.
+NO_DROPOUT_ARGS = (None, 0, 1.0, 0)
+
+
+def check_dropout(rate: float, seed, offsets=None, heads: Optional[int] = None, device=None,
+                  pos_div: int = 1) -> Optional[Dropout]:
+    """A call's dropout, checked as JAX checks it (``flash_fwd.py:905-929``):
+    None for a rate of 0 (the seed then unread), else a ``Dropout`` whose
+    seed is packed (``_common.pack_dropout_seed``: a scalar, or packed
+    ``[5]``, with ``offsets`` (row, col, batch, head)) and lies on
+    ``device``, contiguous.  The rate is in (0, 1), a seed is given, and
+    the row fold of GQA decode (``pos_div`` > 1) takes none."""
+    if not rate:
+        return None
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if seed is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seed")
+    if pos_div != 1:
+        raise NotImplementedError(
+            "pos_div > 1 (GQA decode head-fold) does not compose with dropout"
+        )
+    if heads is not None and int(heads) < 1:
+        raise ValueError(f"dropout_heads must be >= 1, got {heads}")
+    packed = pack_dropout_seed(seed, offsets).to(device=device, dtype=torch.int32).contiguous()
+    return Dropout(float(rate), packed, None if heads is None else int(heads))
 
 
 def xf_parts(s: torch.Tensor, positions: torch.Tensor, softcap: Optional[float],
@@ -355,6 +409,7 @@ def flash_attention_fwd_plain(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    drop: Optional[Dropout] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``).
 
@@ -363,7 +418,9 @@ def flash_attention_fwd_plain(
     each score column, the V scale each column of P.  ``window``,
     ``sinks``, ``segment_ids``: see ``plain_visible``; ``softcap``,
     ``alibi_slopes``: see ``xf_parts`` (rows at ``r // pos_div +
-    q_offset[b]``, also when not causal).
+    q_offset[b]``, also when not causal).  ``drop``: a checked ``Dropout``
+    (``check_dropout``) or None; P of the PV product times its keep
+    factors, the row sums and the lse of the undropped P.
     """
     (t, bias), visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
                                                    k_scale, v_scale, window, sinks, segment_ids,
@@ -378,6 +435,8 @@ def flash_attention_fwd_plain(
     l = p.sum(dim=-1, keepdim=True)
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     pv = p if v_cols is None else p * v_cols
+    if drop is not None:
+        pv = pv * drop.keep(p.shape, q.device)
     o = (torch.matmul(pv, vf) / l_safe).to(q.dtype)
     if not save_lse:
         return o
@@ -481,6 +540,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float, i32, i32, i32,  # sm_scale, causal, pos_div, dtype
         i32, i32, ptr, ptr,  # window (0: none), sinks, q segment ids, kv segment ids
         ctypes.c_float, ptr,  # softcap (0: none), ALiBi slopes
+        ptr, i32, ctypes.c_float, i32,  # dropout seed (null: none), threshold, 1/keep, heads
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -562,10 +622,15 @@ def flash_fwd_general(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The general kernel (``csrc/flash_fwd.cu``; bf16 with ``pos_div ==
-    1`` and more than ``DECODE_ROWS`` rows, or segment ids, on the
-    ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cuh``) over ``[B, H, N, D]``.
+    1`` and more than ``DECODE_ROWS`` rows, or segment ids or dropout, on
+    the ``wgmma`` kernel of ``csrc/flash_fwd_sm90.cuh``) over ``[B, H, N,
+    D]``.
 
     ``k``/``v`` may have fewer heads than ``q`` (GQA: q-head ``h`` reads
     kv-head ``h // group``).  With ``causal``, row ``r`` of batch ``b`` sees
@@ -581,7 +646,13 @@ def flash_fwd_general(
     ``softcap`` (> 0): each scaled score ``s -> softcap * tanh(s /
     softcap)``; ``alibi_slopes`` (``[H]``, not with ``pos_div > 1``): then
     ``+ slope_h * (c - p)``, with ``p`` the row's position also when not
-    causal.
+    causal.  ``dropout_rate`` (in [0, 1)) with ``dropout_seed`` (an int32
+    scalar, or packed ``[5]``, a tensor on the card or on the host, or an
+    int), ``dropout_offsets`` (row, col, batch, head) and ``dropout_heads``
+    (the global head count): attention dropout, each P of the PV product
+    times the keep factor of its (batch, q-head, row, column), tensor
+    indices plus the offsets (``_common.keep_factors``).  The lse is the
+    undropped one's.
     """
     check_shapes(q, k, v)
     batch, heads, n_q, head_dim = q.shape
@@ -593,6 +664,8 @@ def flash_fwd_general(
     w, n_sinks = window_args(window, sinks, causal)
     seg = check_segment_ids(segment_ids, batch, n_q, n_kv, q.device)
     cap, slopes = check_xf(softcap, alibi_slopes, heads, q.device, pos_div)
+    drop = check_dropout(dropout_rate, dropout_seed, dropout_offsets, dropout_heads, q.device,
+                         pos_div)
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
     off = _offsets(q_offset, batch, n_kv - n_q // pos_div, q.device)
@@ -603,18 +676,19 @@ def flash_fwd_general(
         return flash_attention_fwd_plain(
             q, k, v, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
             save_lse=save_lse, window=window if w else None, sinks=n_sinks, segment_ids=seg,
-            softcap=softcap, alibi_slopes=slopes,
+            softcap=softcap, alibi_slopes=slopes, drop=drop,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, off)
     o, lse = _new_outputs(q, save_lse)
-    grid, part, tickets, stream = split_args(q, n_kv, split=seg is None)
+    grid, part, tickets, stream = split_args(q, n_kv, split=seg is None and drop is None)
     err = _lib().fam_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, k.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
         pos_div, _DTYPE_CODES[q.dtype], w, n_sinks, None if seg is None else seg.q.data_ptr(),
-        None if seg is None else seg.kv.data_ptr(), cap, _ptr(slopes), grid.kv_chunk,
+        None if seg is None else seg.kv.data_ptr(), cap, _ptr(slopes),
+        *(NO_DROPOUT_ARGS if drop is None else drop.c_args(heads)), grid.kv_chunk,
         _ptr(part), _ptr(tickets), stream,
     )
     if err:
@@ -697,8 +771,9 @@ def fwd_route(n_kv: int, q_offset, *, causal: bool, pos_div: int = 1,
               featured: bool = False) -> str:
     """The kernel ``flash_attention_fwd`` runs: ``"tri"``, ``"lean"`` or
     ``"general"`` (the JAX router's rules without its Mosaic limits).
-    ``featured``: a window, segment ids or a score transform, which only
-    the general kernel takes (JAX ``flash_fwd.py:829-838, 932-958``)."""
+    ``featured``: a window, segment ids, a score transform or dropout,
+    which only the general kernel takes (JAX ``flash_fwd.py:829-838,
+    932-958``)."""
     if is_static_offset(q_offset) and pos_div == 1 and not featured:
         if causal:
             return "tri"
@@ -722,6 +797,10 @@ def flash_attention_fwd(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash-attention forward over ``[B, H, N, D]`` inputs, routed to the
@@ -730,19 +809,21 @@ def flash_attention_fwd(
     The contract is ``flash_fwd_general``'s: GQA, causal masking with
     ``q_offset`` (None, an int or a ``[B]`` tensor; default
     ``n_kv - n_q // pos_div``), ``pos_div`` rows per position, the window
-    with its sinks, segment ids, the softcap and ALiBi, ``o`` or ``(o,
-    lse)``.  fp16 inputs compute in fp32 and return fp16.
+    with its sinks, segment ids, the softcap and ALiBi, dropout, ``o`` or
+    ``(o, lse)``.  fp16 inputs compute in fp32 and return fp16.
     """
     reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap,
-                 alibi_slopes=alibi_slopes)
+                 alibi_slopes=alibi_slopes, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+                 dropout_offsets=dropout_offsets, dropout_heads=dropout_heads)
     if q.dtype == torch.float16:
         out = flash_attention_fwd(
             q.float(), k.float(), v.float(), q_offset, sm_scale=sm_scale,
             causal=causal, save_lse=save_lse, pos_div=pos_div, **feats,
         )
         return (out[0].half(), out[1]) if save_lse else out.half()
-    featured = any(x is not None for x in (window, segment_ids, softcap, alibi_slopes))
+    featured = bool(dropout_rate) or any(
+        x is not None for x in (window, segment_ids, softcap, alibi_slopes))
     route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div, featured=featured)
     if route == "tri":
         from .flash_tri import flash_attention_tri

@@ -12,6 +12,7 @@ optional z-loss (PaLM) penalises log Z drifting from 0.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -73,13 +74,14 @@ def loss_fn_blockwise(
     params: Params,
     tokens: torch.Tensor,
     cfg: ModelConfig,
+    dropout_seeds: Optional[torch.Tensor] = None,
     *,
     vocab_chunk: int = 4096,
     z_loss: float = 0.0,
 ) -> torch.Tensor:
     """Next-token CE equal to ``transformer.loss_fn`` without ``[B, N, V]``
-    logits."""
-    hidden = forward_hidden(params, tokens, cfg)
+    logits; ``dropout_seeds`` as ``transformer.forward_hidden``'s."""
+    hidden = forward_hidden(params, tokens, cfg, dropout_seeds=dropout_seeds)
     return blockwise_softmax_xent(
         hidden[:, :-1],
         weight(params["lm_head"], cfg.dtype),

@@ -158,7 +158,14 @@ class Trainer:
         at the activation memory of one microbatch.
 
         ``loss``: a loss with ``loss_fn``'s signature ``(params, tokens,
-        cfg)``, e.g. ``functools.partial(losses.loss_fn_blockwise, ...)``.
+        cfg)``, e.g. ``functools.partial(losses.loss_fn_blockwise, ...)``;
+        with ``cfg.attn_dropout > 0`` it also takes ``dropout_seeds`` fourth.
+
+        With ``cfg.attn_dropout > 0`` every step draws fresh per-layer
+        dropout seeds from the trainer's generator, on its device (no host
+        sync), one row per microbatch (JAX ``trainer.py:99-125`` draws a
+        key per step and splits it per microbatch): the generator's state
+        is saved with the checkpoint, so a resumed run draws the same.
 
         ``ema_decay > 0`` keeps an exponential moving average of the
         parameters (``ema = d*ema + (1-d)*p``, ``d_t = min(d, (1+t)/(10+t))``)
@@ -186,16 +193,31 @@ class Trainer:
             map_params(torch.clone, params) if ema_decay else None
         )
 
+    def dropout_seeds(self, n: int) -> Optional[torch.Tensor]:
+        """Fresh int32 ``[n, n_layers]`` dropout seeds in ``[0, 2^31 - 1)``
+        (JAX's ``randint`` range) from the trainer's generator on its device,
+        a row per microbatch; None without ``cfg.attn_dropout``."""
+        if not self.cfg.attn_dropout > 0.0:
+            return None
+        gen = self.state.generator
+        return torch.randint(0, 2**31 - 1, (n, self.cfg.n_layers), generator=gen,
+                             device=gen.device, dtype=torch.int32)
+
     def _grads(self, tokens: torch.Tensor):
         params, cfg = self.state.params, self.cfg
+        seeds = self.dropout_seeds(self.grad_accum)
+
+        def extra(i):  # the loss's dropout seeds, only when dropout is on
+            return () if seeds is None else (seeds[i],)
+
         if self.grad_accum == 1:
-            return value_and_grad(self.loss, params, tokens, cfg)
+            return value_and_grad(self.loss, params, tokens, cfg, *extra(0))
         b = tokens.shape[0]
         if b % self.grad_accum:
             raise ValueError(f"batch {b} not divisible by grad_accum {self.grad_accum}")
         g_sum, l_sum = None, torch.zeros((), device=tokens.device)
-        for micro in tokens.reshape(self.grad_accum, b // self.grad_accum, -1):
-            loss, g = value_and_grad(self.loss, params, micro, cfg)
+        for i, micro in enumerate(tokens.reshape(self.grad_accum, b // self.grad_accum, -1)):
+            loss, g = value_and_grad(self.loss, params, micro, cfg, *extra(i))
             g_sum = g if g_sum is None else map_params(torch.add, g_sum, g)
             l_sum = l_sum + loss
         inv = 1.0 / self.grad_accum

@@ -3,7 +3,8 @@
 Counterpart of ``flash_attention_metal_tpu/models/transformer.py``:
 RMSNorm, SwiGLU, interleaved-pair RoPE (or ALiBi in its place) and GQA
 attention through the port's flash-attention op, a per-block activation checkpoint (remat) for
-training, the next-token loss and a plain SGD step.  Parameters are a plain
+training, attention dropout when the caller passes per-layer seeds, the
+next-token loss and a plain SGD step.  Parameters are a plain
 dict with the JAX package's keys and ``[in, out]`` layout, so the two are
 compared leaf by leaf (``models/from_jax.py``).
 """
@@ -45,8 +46,9 @@ class ModelConfig:
     # and serving takes them.
     attn_softcap: Optional[float] = None
     attn_alibi: bool = False
-    # Attention dropout, not ported yet: raises NotImplementedError unless
-    # left at 0.
+    # Attention-probability dropout rate (training only: applied when the
+    # caller passes per-layer seeds to forward / loss_fn; the Trainer draws
+    # them every step).  In-kernel, no mask tensor.
     attn_dropout: float = 0.0
 
     def __post_init__(self):
@@ -60,11 +62,8 @@ class ModelConfig:
             raise ValueError(f"attn_window must be >= 1, got {self.attn_window}")
         if self.attn_softcap is not None and not self.attn_softcap > 0:
             raise ValueError(f"attn_softcap must be > 0, got {self.attn_softcap}")
-        if self.attn_dropout:
-            raise NotImplementedError(
-                "['attn_dropout'] not ported to the PyTorch package yet "
-                "(see ROADMAP.md, Queue A item 2)"
-            )
+        if not 0.0 <= self.attn_dropout < 1.0:
+            raise ValueError(f"attn_dropout must be in [0, 1), got {self.attn_dropout}")
 
 
 Params = Dict[str, Any]
@@ -195,14 +194,20 @@ def qkv_projections(layer: Params, x: torch.Tensor, cfg: ModelConfig, positions)
 
 
 def attention_block(
-    layer: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+    layer: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+    dropout_seed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal self-attention over ``x`` with a residual connection (within
     ``cfg.attn_window`` and its sinks when set, under the config's softcap
-    and ALiBi)."""
+    and ALiBi).  ``dropout_seed``: an int32 scalar enabling
+    ``cfg.attn_dropout`` for this call (training passes one per layer per
+    step; serving passes none)."""
     q, k, v = qkv_projections(layer, x, cfg, positions)
+    drop = {}
+    if cfg.attn_dropout > 0.0 and dropout_seed is not None:
+        drop = dict(dropout_rate=cfg.attn_dropout, dropout_seed=dropout_seed)
     o = flash_attention(q, k, v, causal=True, impl=cfg.attn_impl, window=cfg.attn_window,
-                        sinks=cfg.attn_sinks, **attn_transforms(cfg, x.device))
+                        sinks=cfg.attn_sinks, **attn_transforms(cfg, x.device), **drop)
     return x + _merge_heads(o) @ weight(layer["wo"], cfg.dtype)
 
 
@@ -221,12 +226,20 @@ def forward_hidden(
     *,
     positions: Optional[torch.Tensor] = None,
     remat: bool = True,
+    dropout_seeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Transformer stack up to the final norm: ``[B, N, d]`` hidden.
 
     With ``remat`` and grad enabled each block runs under an activation
     checkpoint (the JAX ``jax.checkpoint``): its activations are recomputed
-    in the backward, so the attention forward runs twice per layer.
+    in the backward, so the attention forward runs twice per layer, and
+    draws the same dropout mask twice (the hash is stateless).
+
+    ``dropout_seeds``: int32 ``[n_layers]`` (on the device, as the Trainer
+    draws them), layer ``i``'s attention taking seed ``i`` at
+    ``cfg.attn_dropout``; None (eval, serving) runs deterministically.  The
+    JAX model draws its seeds from ``dropout_key`` with ``jax.random``,
+    which the port cannot reproduce: a test hands both the same seeds.
     """
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device).expand(
@@ -236,14 +249,18 @@ def forward_hidden(
     # fixed order, so a training step is deterministic.
     x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
 
-    def block(x, layer):
-        return mlp_block(layer, attention_block(layer, x, cfg, positions), cfg)
+    def block(x, layer, seed):
+        return mlp_block(layer, attention_block(layer, x, cfg, positions, seed), cfg)
 
-    for layer in params["layers"]:
+    if dropout_seeds is not None and dropout_seeds.shape != (len(params["layers"]),):
+        raise ValueError(f"dropout_seeds must be [{len(params['layers'])}] (one per layer), got "
+                         f"{tuple(dropout_seeds.shape)}")
+    for i, layer in enumerate(params["layers"]):
+        seed = None if dropout_seeds is None else dropout_seeds[i]
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block, x, layer, use_reentrant=False)
+            x = checkpoint(block, x, layer, seed, use_reentrant=False)
         else:
-            x = block(x, layer)
+            x = block(x, layer, seed)
     return rms_norm(x, params["final_norm"])
 
 
@@ -254,15 +271,21 @@ def forward(
     *,
     positions: Optional[torch.Tensor] = None,
     remat: bool = True,
+    dropout_seeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``[B, N]`` tokens -> ``[B, N, V]`` fp32 logits (no cache)."""
-    x = forward_hidden(params, tokens, cfg, positions=positions, remat=remat)
+    """``[B, N]`` tokens -> ``[B, N, V]`` fp32 logits (no cache);
+    ``dropout_seeds`` as ``forward_hidden``'s."""
+    x = forward_hidden(params, tokens, cfg, positions=positions, remat=remat,
+                       dropout_seeds=dropout_seeds)
     return (x @ weight(params["lm_head"], cfg.dtype)).float()
 
 
-def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Next-token cross entropy over ``[B, N]`` tokens, on fp32 logits."""
-    logits = forward(params, tokens, cfg)[:, :-1]
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            dropout_seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy over ``[B, N]`` tokens, on fp32 logits;
+    ``dropout_seeds`` (the JAX loss's ``dropout_key``) as
+    ``forward_hidden``'s."""
+    logits = forward(params, tokens, cfg, dropout_seeds=dropout_seeds)[:, :-1]
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, targets[..., None])[..., 0].mean()

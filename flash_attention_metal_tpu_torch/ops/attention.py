@@ -12,6 +12,10 @@ window with its sinks, packed segment ids and the softcap ride the same
 Function into both routers; the ALiBi slopes are one of its tensor inputs,
 whose gradient the split pair's ``d_slopes`` gives (a transformed call
 takes the split pair whatever the saved decision, as JAX's dispatcher).
+Attention dropout's seed is packed once per call (with its offsets, on the
+device: a new seed every step costs no host sync) and saved for the
+backward, which rebuilds the same keep mask; its gradient is None, and a
+dropout call takes the split pair too.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from ..config import SegmentIds, default_scale
 from ..kernels.flash_bwd import flash_attention_bwd_auto
-from ..kernels.flash_fwd import _offsets, flash_attention_fwd, reject_unported
+from ..kernels.flash_fwd import _offsets, check_dropout, flash_attention_fwd, reject_unported
 from ..reference.oracle import attention_reference, attention_reference_with_lse
 
 
@@ -33,12 +37,12 @@ class _FlashAttention(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q, k, v, slopes, off, off_max, sm_scale, causal, save_lse, feats):
+    def forward(ctx, q, k, v, slopes, seed, off, off_max, sm_scale, causal, save_lse, feats):
         o, lse = flash_attention_fwd(
             q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=True, alibi_slopes=slopes,
-            **feats
+            dropout_seed=seed, **feats
         )
-        ctx.save_for_backward(q, k, v, off, o, lse, slopes)
+        ctx.save_for_backward(q, k, v, off, o, lse, slopes, seed)
         ctx.off_max, ctx.sm_scale, ctx.causal, ctx.feats = off_max, sm_scale, causal, feats
         ctx.set_materialize_grads(False)
         if save_lse:
@@ -47,7 +51,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, dlse=None):
-        q, k, v, off, o, lse, slopes = ctx.saved_tensors
+        q, k, v, off, o, lse, slopes, seed = ctx.saved_tensors
         # Cotangents arrive strided (the heads merge is a transpose): the
         # kernels take contiguous rows, so copy once here.
         do = torch.zeros_like(o) if do is None else do.contiguous()
@@ -55,12 +59,13 @@ class _FlashAttention(torch.autograd.Function):
             q, k, v, o, do, lse, off,
             None if dlse is None else dlse.contiguous(),
             sm_scale=ctx.sm_scale, causal=ctx.causal, q_offset_max=ctx.off_max,
-            alibi_slopes=slopes, **ctx.feats,
+            alibi_slopes=slopes, dropout_seed=seed, **ctx.feats,
         )
         d_slopes = None
         if slopes is not None and ctx.needs_input_grad[3]:
             d_slopes = grads[3].to(slopes.dtype)
-        return grads[0], grads[1], grads[2], d_slopes, None, None, None, None, None, None
+        return (grads[0], grads[1], grads[2], d_slopes, None, None, None, None, None, None,
+                None)
 
 
 def flash_attention(
@@ -78,6 +83,10 @@ def flash_attention(
     segment_ids: Optional[SegmentIds] = None,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
     **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Differentiable flash attention over ``[B, H, N, D]`` inputs.
@@ -107,7 +116,21 @@ def flash_attention(
         score gains ``slope_h * (c - p)``, ``p = r + q_offset[b]`` (also
         when not causal).  Differentiable: with ``requires_grad`` the
         backward gives their gradient (the JAX op's ``d_slopes``).
-      features: the JAX op's kv_positions/dropout arguments; each raises
+      dropout_rate: attention-probability dropout in [0, 1): the normalised
+        probabilities times a keep mask ``{0, 1/(1-rate)}`` hashed from
+        ``dropout_seed`` and each score's (batch, q-head, row, column)
+        tensor indices (``kernels._common.keep_factors``), rebuilt bit for
+        bit by the backward; the lse stays the undropped one's.  A
+        training-path feature: the serving paths take none.
+      dropout_seed: an int32 scalar (an int or a tensor, on the card or
+        not; a new one each step costs no rebuild), or packed ``[5]``;
+        required when ``dropout_rate > 0``.
+      dropout_offsets: ``(row, col, batch, head)`` added to the local
+        indices before hashing, so a shard of a larger call draws the
+        global call's mask.
+      dropout_heads: the global head count of the (batch, head) stream
+        (default: ``q_heads``).
+      features: the JAX op's kv_positions argument, which raises
         NotImplementedError if set.
 
     Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.  When
@@ -127,10 +150,21 @@ def flash_attention(
         sm_scale = default_scale(q.shape[-1])
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
+    # The seed packed once with its offsets, on q's device: the forward and
+    # the backward read it there.
+    drop = check_dropout(dropout_rate, dropout_seed, dropout_offsets, dropout_heads, q.device)
+    seed = None if drop is None else drop.seed
+    if drop is not None:
+        feats.update(dropout_rate=drop.rate, dropout_heads=drop.heads)
     if impl == "reference":
-        ref = attention_reference_with_lse if save_lse else attention_reference
-        return ref(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
-                   alibi_slopes=alibi_slopes, **feats)
+        if save_lse:
+            if seed is not None:
+                raise NotImplementedError("save_lse with dropout")
+            return attention_reference_with_lse(q, k, v, causal=causal, sm_scale=sm_scale,
+                                                q_offset=q_offset, alibi_slopes=alibi_slopes,
+                                                **feats)
+        return attention_reference(q, k, v, causal=causal, sm_scale=sm_scale, q_offset=q_offset,
+                                   alibi_slopes=alibi_slopes, dropout_seed=seed, **feats)
     if impl != "auto":
         raise ValueError(f"unknown impl {impl!r}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -145,11 +179,11 @@ def flash_attention(
         slopes = torch.as_tensor(slopes, dtype=torch.float32, device=q.device)
     inputs = (q, k, v) if slopes is None else (q, k, v, slopes)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        return _FlashAttention.apply(q, k, v, slopes, off, off_max, sm_scale, causal, save_lse,
-                                     feats)
+        return _FlashAttention.apply(q, k, v, slopes, seed, off, off_max, sm_scale, causal,
+                                     save_lse, feats)
     return flash_attention_fwd(
         q, k, v, off, sm_scale=sm_scale, causal=causal, save_lse=save_lse, alibi_slopes=slopes,
-        **feats
+        dropout_seed=seed, **feats
     )
 
 
@@ -202,9 +236,14 @@ def gqa_decode_attention(
     instead of once per q-head.  ``window``, ``sinks`` and ``softcap``: as
     ``flash_attention``'s, in each row's position.  ALiBi slopes are per
     q-head, so they take the unfolded path (``alibi_slopes`` raises
-    NotImplementedError here, as in JAX).  Returns ``o`` shaped like ``q``
-    (and ``lse [B, H_q, T]``).
+    NotImplementedError here, as in JAX), and so does dropout: a serving
+    path (JAX's fold takes none).  Returns ``o`` shaped like ``q`` (and
+    ``lse [B, H_q, T]``).
     """
+    if features.get("dropout_rate"):
+        raise NotImplementedError(
+            "gqa_decode_attention is a serving path: it takes no dropout (use flash_attention)"
+        )
     b, hq, t, d = q.shape
     hkv = k.shape[1]
     if hq % hkv:

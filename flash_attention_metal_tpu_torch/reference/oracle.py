@@ -15,7 +15,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from ..config import SegmentIds, default_scale
-from ..kernels._common import dropout_keep, pack_dropout_seed
+from ..kernels._common import keep_factors
 
 Offset = Union[None, int, torch.Tensor]
 
@@ -80,15 +80,9 @@ def _scores(q, k, sm_scale, softcap, alibi_slopes, q_offset):
 
 def _keep(shape, rate, seed, n_heads, device) -> torch.Tensor:
     """The kernels' dropout keep factors ``{0, 1/(1-rate)}`` over
-    ``[B, H, N_q, N_kv]`` (``kernels._common.dropout_keep``); ``seed`` a
+    ``[B, H, N_q, N_kv]`` (``kernels._common.keep_factors``); ``seed`` a
     scalar or the packed ``[seed, row, col, batch, head]`` offsets."""
-    sv = pack_dropout_seed(seed).to(torch.int64)
-    b, h, n_q, n_kv = shape
-    mul = h if n_heads is None else n_heads
-    bh = ((torch.arange(b)[:, None] + sv[3]) * mul + torch.arange(h)[None, :] + sv[4])
-    rows = sv[1] + torch.arange(n_q).reshape(1, 1, n_q, 1)
-    cols = sv[2] + torch.arange(n_kv).reshape(1, 1, 1, n_kv)
-    return dropout_keep(sv[0], bh.reshape(b, h, 1, 1), rows, cols, rate).to(device)
+    return keep_factors(shape, rate, seed, n_heads, device)
 
 
 def _probs(q, k, *, causal, sm_scale, q_offset, window, sinks, segment_ids, softcap,

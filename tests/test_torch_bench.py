@@ -34,18 +34,17 @@ from flash_attention_metal_tpu_torch.utils.timing import measure_kernel_pair
 def test_run_ladder_on_cpu_passes_every_ported_rung():
     lines = []
     results = verify.run_ladder(n=256, device="cpu", log=lines.append)
-    assert len(results) == 33 and all(r.passed for r in results), [r.line() for r in results]
+    assert len(results) == 35 and all(r.passed for r in results), [r.line() for r in results]
     assert [r.name for r in results][:3] == [
         "naive vs oracle (fp32)", "flash_v1 vs naive (fp32)", "flash_v2 vs naive (fp32)"]
-    # The unported rungs print SKIP, name their ROADMAP.md item and are
-    # never results.
-    skips = [line for line in lines if line.startswith("[SKIP]")]
-    assert len(skips) == len(verify.SKIPPED_DROPOUT_RUNGS)
+    # Every rung runs now: no SKIP line (the dropout rungs 24-25 were the
+    # last to wait), and they come last under JAX's names.
+    assert not [line for line in lines if line.startswith("[SKIP]")]
+    assert [r.name for r in results][-2:] == list(verify.DROPOUT_RUNGS)
     # The transform rungs (13-17) run under JAX's names.
     assert [r.name for r in results if r.name in verify.TRANSFORM_RUNGS] == list(
         verify.TRANSFORM_RUNGS)
-    assert all("ROADMAP.md Queue" in line for line in skips)
-    assert all(line.startswith("[PASS]") for line in lines if line not in skips)
+    assert all(line.startswith("[PASS]") for line in lines)
 
 
 def _jax_rung_names() -> list:
@@ -107,7 +106,7 @@ def test_rung_line_format_matches_jax():
 
 def test_verify_main_runs_the_cpu_ladder_and_refuses_a_missing_card(capsys):
     assert verify.main(["--n", "128", "--device", "cpu"]) == 0
-    assert "ALL PASS (33/33)" in capsys.readouterr().out
+    assert "ALL PASS (35/35)" in capsys.readouterr().out
     assert verify.main([]) == 1  # the default device is the card
 
 

@@ -256,9 +256,9 @@ def test_oracle_bwd_matches_jax_oracle_bwd():
 
 
 def test_bwd_rejects_unported_features():
-    """The softcap and ALiBi are the split pair's now: the backward returns
-    (dq, dk, dv), and d_slopes last under ALiBi; pos_div and dropout still
-    raise."""
+    """The softcap, ALiBi and dropout are the split pair's now: the backward
+    returns (dq, dk, dv), and d_slopes last under ALiBi; pos_div still
+    raises, and so does dropout without its seed."""
     q = torch.zeros((1, 2, 8, 64))
     lse = torch.zeros((1, 2, 8))
     assert len(flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)) == 3
@@ -266,5 +266,7 @@ def test_bwd_rejects_unported_features():
     assert len(grads) == 4 and grads[3].shape == (2,) and grads[3].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="pos_div"):
         flash_attention_bwd(q, q, q, q, q, lse, causal=True, pos_div=2)
-    with pytest.raises(NotImplementedError):
+    assert len(flash_attention_bwd(q, q, q, q, q, lse, causal=True, dropout_rate=0.1,
+                                   dropout_seed=2)) == 3
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         flash_attention(q.requires_grad_(True), q, q, causal=True, dropout_rate=0.1)

@@ -170,14 +170,15 @@ def test_gqa_decode_attention_matches_jax(hq, hkv, t):
 @pytest.mark.parametrize(
     "feature",
     [dict(kv_positions=torch.zeros((1, 8), dtype=torch.int32)), dict(softcap=30.0),
-     dict(dropout_rate=0.1), dict(alibi_slopes=torch.ones(2))],
+     dict(dropout_rate=0.1, dropout_seed=3), dict(alibi_slopes=torch.ones(2))],
 )
 def test_unported_features_raise(feature):
-    """kv_positions (ROADMAP.md Queue A item 3) and dropout (item 2) raise,
-    naming their item; the softcap and ALiBi are ported: the op and the
-    forward router equal the oracle under them (fp32, 1e-5)."""
+    """kv_positions (ROADMAP.md Queue A item 3) raises, naming its item;
+    the softcap, ALiBi and dropout are ported: the op and the forward
+    router equal the oracle under them (fp32, 1e-5; dropout's mask is the
+    oracle's bit for bit)."""
     q = torch.zeros((1, 2, 8, 64))
-    if "softcap" in feature or "alibi_slopes" in feature:
+    if "kv_positions" not in feature:
         rng = np.random.default_rng(3)
         qr, kr, vr = (torch.from_numpy(rng.uniform(-2, 2, (1, 2, 8, 64)).astype(np.float32))
                       for _ in range(3))
@@ -185,7 +186,7 @@ def test_unported_features_raise(feature):
         for fn in (flash_attention, flash_attention_fwd):
             assert float((fn(qr, kr, vr, causal=True, **feature) - want).abs().max()) < 1e-5
         return
-    item = "Queue A item 3" if "kv_positions" in feature else "Queue A item 2"
+    item = "Queue A item 3"
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, .*{item}"):
         flash_attention(q, q, q, causal=True, **feature)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, .*{item}"):
@@ -197,8 +198,9 @@ def test_unported_features_raise(feature):
 def test_requires_grad_raises():
     """An input that requires grad was refused while the port was
     forward-only; now it is differentiated (tests/test_torch_flash_bwd.py
-    checks the gradients), under the softcap too, and only an unported
-    feature still raises."""
+    checks the gradients), under the softcap and dropout too
+    (tests/test_torch_dropout.py checks those), and only an unported
+    feature, or dropout without its seed, still raises."""
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
     o = flash_attention(q, q.detach(), q.detach(), causal=True)
     assert o.requires_grad and o.grad_fn is not None
@@ -207,8 +209,15 @@ def test_requires_grad_raises():
     o = flash_attention(q, q.detach(), q.detach(), causal=True, softcap=30.0)
     (g,) = torch.autograd.grad(o.sum(), q)
     assert g.shape == q.shape
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    o = flash_attention(q, q.detach(), q.detach(), causal=True, dropout_rate=0.1,
+                        dropout_seed=4)
+    (g,) = torch.autograd.grad(o.sum(), q)
+    assert g.shape == q.shape
+    with pytest.raises(ValueError, match="requires dropout_seed"):
         flash_attention(q, q.detach(), q.detach(), causal=True, dropout_rate=0.1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, q.detach(), q.detach(), causal=True,
+                        kv_positions=torch.zeros((1, 8), dtype=torch.int32))
 
 
 def test_block_sizes_rule():

@@ -10,6 +10,7 @@ not installed:
 import ctypes
 import json
 import math
+import re
 import shutil
 
 import numpy as np
@@ -496,10 +497,16 @@ def test_bwd_rejects_what_it_does_not_take(cuda):
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(NotImplementedError):
         fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, pos_div=2)
-    # The softcap is the split pair's now (the transformed kernels' checks:
-    # test_xf_*); dropout still raises.
+    # The softcap and dropout are the split pair's now (the transformed
+    # kernels' checks: test_xf_*, dropout's: test_drop_*); the fused
+    # backward refuses dropout, and dropout needs its seed.
     assert len(fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, softcap=30.0)) == 3
-    with pytest.raises(NotImplementedError):
+    assert len(fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, dropout_rate=0.1,
+                                      dropout_seed=3)) == 3
+    with pytest.raises(NotImplementedError, match="dropout"):
+        fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, dropout_rate=0.1,
+                                     dropout_seed=3)
+    with pytest.raises(ValueError, match="dropout_seed"):
         fb.flash_attention_bwd(q, q, q, q, q, lse, causal=True, dropout_rate=0.1)
     with pytest.raises(ValueError, match="causal"):
         fb.flash_attention_bwd(q, q, q, q, q, lse, causal=False, window=16)
@@ -2083,7 +2090,13 @@ def test_xf_entries_refuse_what_they_do_not_take(cuda):
         ff.flash_attention_fwd(q, q[:, :2], q[:, :2], causal=True, pos_div=2, alibi_slopes=slopes)
     with pytest.raises(NotImplementedError, match="fused"):
         fb.flash_attention_bwd_fused(q, q, q, q, q, lse, causal=True, alibi_slopes=slopes)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
+    # Dropout runs (test_drop_*): it takes no row fold and needs its seed.
+    assert ff.flash_attention_fwd(q, q, q, causal=True, dropout_rate=0.1,
+                                  dropout_seed=3).shape == q.shape
+    with pytest.raises(NotImplementedError, match="pos_div"):
+        ff.flash_attention_fwd(q, q[:, :2], q[:, :2], causal=True, pos_div=2, dropout_rate=0.1,
+                               dropout_seed=3)
+    with pytest.raises(ValueError, match="dropout_seed"):
         ff.flash_attention_fwd(q, q, q, causal=True, dropout_rate=0.1)
     with pytest.raises(NotImplementedError, match="Queue A item 3"):
         ff.flash_attention_fwd(q, q, q, causal=True, kv_positions=torch.zeros(1))
@@ -2169,6 +2182,180 @@ def test_planted_xf_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(onchip.SEED)
     cases = onchip.xf_fwd_cases(gen, failing)
+
+    def check():
+        if kind == "fwd":
+            return {n: max(onchip.window_fwd_error(c)) for n, c in cases.items()}
+        gen.manual_seed(onchip.SEED + 1)
+        return {n: max(rel for _, rel in onchip.window_bwd_errors(
+            onchip.window_bwd_inputs(c, gen)).values()) for n, c in cases.items()}
+
+    clean = check()
+    monkeypatch.setattr(mod, "_lib", lambda: lib)
+    faulty = check()
+    print(f"\n{fault}, worst error, built -> planted: "
+          + ", ".join(f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in failing))
+    for n in failing:
+        tol = TOL[cases[n][0].dtype]
+        assert clean[n] <= tol
+        assert not faulty[n] <= tol, n
+
+
+# Attention dropout (rows 1, 5 and 6, `-k drop`): the keep mask bit for
+# bit, each dropout kernel against its plain version (onchip.DROP_*_CASES:
+# the training shape, D 64 and 128, bf16 and fp32, ladder, peaked and spike
+# fixtures, with the window, sinks, softcap and ALiBi together, segment
+# ids, shard offsets, per-batch offsets, not causal, one decode token),
+# determinism and the declined "fused" decision, the parent's instances at
+# their registers and spills, then planted faults.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [c[0] for c in onchip.MASK_CASES])
+def test_drop_mask_is_bit_exact(cuda, name):
+    """The forward kernel's keep mask (q = k = 0, V the identity: o * n_kv
+    is the mask) equal to ``_common.keep_factors`` bit for bit."""
+    got, want = onchip.dropout_mask(name)
+    print(f"\n{name}: {int((got != want).sum())} of {got.numel()} differ, kept "
+          f"{float((want > 0).float().mean()):.4f}")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [c[0] for c in onchip.DROP_FWD_CASES])
+def test_drop_forward_matches_plain(cuda, name):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    case = onchip.drop_fwd_cases(gen, (name,))[name]
+    err, lse_err = onchip.window_fwd_error(case)
+    tol = TOL[case[0].dtype]
+    print(f"\n{name}: o {err:.3e}, lse {lse_err:.3e}")
+    assert err <= tol and lse_err <= tol, (err, lse_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", onchip.DROP_BWD_CASES)
+def test_drop_bwd_matches_plain(cuda, name):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    inputs = onchip.window_bwd_inputs(onchip.drop_fwd_cases(gen, (name,))[name], gen)
+    errs = onchip.window_bwd_errors(inputs)
+    print(f"\n{name}: " + ", ".join(f"{g} {a:.3e} rel {r:.3e}" for g, (a, r) in errs.items()))
+    assert all(rel <= onchip.bwd_limit(g, inputs[0].dtype) for g, (_, rel) in errs.items()), errs
+
+
+@pytest.mark.gpu
+def test_drop_bwd_is_deterministic_and_declines_fused(cuda, tmp_path, monkeypatch):
+    """The dropout split pair gives the same bits on every run, and the
+    router takes it under a saved "fused" decision."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    name = "train_drop_bf16_peaked"
+    q, k, v, o, do, lse, off, feats = onchip.window_bwd_inputs(
+        onchip.drop_fwd_cases(gen, (name,))[name], gen)
+    runs = [fb.flash_attention_bwd(q, k, v, o, do, lse, off, **feats) for _ in range(3)]
+    assert all(torch.equal(a, b) for run in runs[1:] for a, b in zip(runs[0], run))
+    cache = tmp_path / "fused.json"
+    b, h, n, d = q.shape
+    autotune.record_bwd((b, h, k.shape[1], n, d), "fused", {}, cache_path=str(cache))
+    monkeypatch.setattr(autotune, "DEFAULT_CACHE", str(cache))
+    autotune.reset_memo()
+    counts = (fb.flash_bwd_fused.launches, fb.flash_bwd_dkv.launches)
+    got = fb.flash_attention_bwd_auto(q, k, v, o, do, lse, off, **feats)
+    autotune.reset_memo()
+    assert fb.flash_bwd_fused.launches == counts[0] and fb.flash_bwd_dkv.launches == counts[1] + 1
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], got))
+
+
+# The kernel instances that carry the dropout flag, by unit: the wgmma
+# forward's featured walk and the split pair's transformed walk (each
+# segmented and not, at D 64 and 128), and the fp32 forward and split
+# pair's templates (D 64 and 128).
+DROP_INSTANCES = {
+    "flash_fwd.cu": (
+        r"sm90::flash_fwd_sm90_kernel<(64|128), sm90::FeatWalk<(true|false), true, true> >",
+        r"flash_fwd_kernel<float, float, false, (64|128), true, true, true>"),
+    "flash_bwd.cu": (
+        r"sm90::flash_bwd_dkv_sm90_kernel<(64|128), sm90::CausalWalkT<(true|false), true, true, true> >",
+        r"sm90::flash_bwd_dq_sm90_kernel<(64|128), sm90::CausalWalkT<(true|false), true, true, true> >",
+        r"flash_bwd_dkv_kernel<float, (64|128), false, true, true>",
+        r"flash_bwd_dq_f32_kernel<(64|128), true, true>"),
+}
+
+
+@pytest.mark.gpu
+def test_drop_instances_compile_and_the_unsegmented_wgmma_walks_spill_nothing(cuda):
+    """Every dropout instance compiles (18: the wgmma walks segmented and
+    not, the fp32 templates, each at D 64 and 128), and the unsegmented
+    wgmma walks that the training path runs spill nothing.  Registers and
+    spills of every one print with ``-s``; the instances without dropout
+    are held against an earlier tree by ``onchip ptxas --csrc``."""
+    found = {f"{r['unit']}|{r['kernel']}": r for r in onchip.ptxas_report()
+             if any(re.fullmatch(pattern, r["kernel"])
+                    for pattern in DROP_INSTANCES.get(r["unit"], ()))}
+    print("\n" + "; ".join(
+        f"{key} {[r[f] for f in ('registers', 'spill_stores', 'spill_loads', 'stack')]}"
+        for key, r in sorted(found.items())))
+    assert len(found) == 18, sorted(found)
+    unsegmented = {key: (r["spill_stores"], r["spill_loads"]) for key, r in found.items()
+                   if "Walk<false," in key or "WalkT<false," in key}
+    assert len(unsegmented) == 6 and all(v == (0, 0) for v in unsegmented.values()), unsegmented
+
+
+# (source, unit, kind, failing cases, old, new): each fault fails the
+# checks of the cases that run it.
+PLANTED_DROP_FAULTS = {
+    # the forward hashes the row's position r + off, not its tensor row
+    "hash_on_position": (
+        "flash_fwd_sm90.cuh", "flash_fwd.cu", "fwd", ("train_drop_offs_bf16",),
+        "drow[half] = drop.row_hash(head, q_start + row + half * 8);",
+        "drow[half] = drop.row_hash(head, q_start + row + half * 8 + off);"),
+    # an arithmetic shift in mix32 (the hash of a signed int)
+    "arithmetic_shift": ("dropout.cuh", "flash_fwd.cu", "fwd", ("train_drop_bf16_peaked",),
+                         "  x ^= x >> 16;\n  x *= kMixC;",
+                         "  x ^= (uint32_t)((int32_t)x >> 16);\n  x *= kMixC;"),
+    # the row sum l over the dropped P
+    "row_sum_of_dropped_p": (
+        "flash_fwd_sm90.cuh", "flash_fwd.cu", "fwd", ("train_drop_bf16_peaked",),
+        "      sum[e >> 1] += p;\n      if constexpr (Mask::kDrop) p *= mask.keep(j, e);",
+        "      if constexpr (Mask::kDrop) p *= mask.keep(j, e);\n      sum[e >> 1] += p;"),
+    # dV from the undropped P
+    "dv_from_undropped_p": ("flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd",
+                            ("train_drop_bf16_peaked",),
+                            "          st_acc[4 * j + e] = p * keep;",
+                            "          st_acc[4 * j + e] = p;"),
+    # the dS bracket multiplied by the dropped P (dK/dV)
+    "ds_with_dropped_p": (
+        "flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd", ("train_drop_bf16_peaked",),
+        "          dpt[4 * j + e] = p * (dpt[4 * j + e] * keep - dlt[e & 1]);",
+        "          dpt[4 * j + e] = p * keep * (dpt[4 * j + e] * keep - dlt[e & 1]);"),
+    # dQ's dP left unmasked
+    "dq_dp_unmasked": (
+        "flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd", ("train_drop_bf16_peaked",),
+        "          dpt[4 * j + e] = p * (dpt[4 * j + e] * keep - dlt[e >> 1]);",
+        "          dpt[4 * j + e] = p * (dpt[4 * j + e] - dlt[e >> 1]);"),
+    # dK/dV hashes the KV head, not the q-head, under GQA
+    "bh_from_kv_head": (
+        "flash_bwd_sm90.cuh", "flash_bwd.cu", "bwd", ("train_drop_bf16_peaked",),
+        "if constexpr (Walk::kDrop) dhead = blk.drop.head_hash(h_kv * group + st.g);",
+        "if constexpr (Walk::kDrop) dhead = blk.drop.head_hash(h_kv);"),
+    # the packed row offset ignored
+    "row_off_ignored": ("dropout.cuh", "flash_fwd.cu", "fwd", ("train_drop_shard_bf16",),
+                        "    return mix32(head + ((uint32_t)r + row_off) * kMixB);",
+                        "    return mix32(head + (uint32_t)r * kMixB);"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_DROP_FAULTS))
+def test_drop_planted_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's dropout checks pass the kernels as built and fail a
+    copy with a planted fault (errors printed with ``-s``)."""
+    source, unit, kind, failing, old, new = PLANTED_DROP_FAULTS[fault]
+    mod = ff if kind == "fwd" else fb
+    lib = mod.bind(_planted_library(tmp_path, unit, source, old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.drop_fwd_cases(gen, failing)
 
     def check():
         if kind == "fwd":

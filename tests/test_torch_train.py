@@ -287,8 +287,11 @@ def test_model_flops_per_token_matches_jax():
 
 
 def test_unported_training_features_and_cards_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ModelConfig(attn_dropout=0.1)
+    # Attention dropout is ported (the model's and the trainer's parity:
+    # tests/test_torch_dropout.py); a rate must lie in [0, 1).
+    assert ModelConfig(attn_dropout=0.1).attn_dropout == 0.1
+    with pytest.raises(ValueError, match="attn_dropout"):
+        ModelConfig(attn_dropout=1.0)
     # The softcap and ALiBi are ported (the model's parity:
     # tests/test_torch_xf.py); a cap must be > 0.
     assert ModelConfig(attn_softcap=30.0, attn_alibi=True).attn_alibi

@@ -319,13 +319,18 @@ def test_feature_arguments_are_checked():
     seg = SegmentIds(torch.zeros((1, 64), dtype=torch.int32), torch.zeros((1, 64), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="pos_div"):
         ff.flash_fwd_general(q, q, q, causal=True, pos_div=2, segment_ids=seg)
-    # The features still waiting (ROADMAP.md Queue A items 2-3) raise; the
-    # softcap and ALiBi compose with the window (tests/test_torch_xf.py).
-    for kw in (dict(dropout_rate=0.1), dict(kv_positions=torch.zeros((1, 64), dtype=torch.int32))):
+    # The feature still waiting (ROADMAP.md Queue A item 3) raises; the
+    # softcap, ALiBi and dropout compose with the window
+    # (tests/test_torch_xf.py, tests/test_torch_dropout.py), and dropout
+    # without its seed raises.
+    for kw in (dict(kv_positions=torch.zeros((1, 64), dtype=torch.int32)),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             flash_attention(q, q, q, causal=True, window=8, **kw)
-    for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2))):
+    for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2)),
+               dict(dropout_rate=0.1, dropout_seed=3)):
         assert flash_attention(q, q, q, causal=True, window=8, **kw).shape == q.shape
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, q, q, causal=True, window=8, dropout_rate=0.1)
 
 
 def test_split_partials_outside_the_window_are_empty():
