@@ -143,6 +143,17 @@ RUNG_11 = "flash block-sparse mask (density 0.44) vs oracle"
 KV_MODES = ("int8", "fp8", "paged", "paged_prefix_shared", "paged_int8")
 PREFIX_PROMPT, PREFIX_SHARED = 1024, 512
 PREFIX_CHECK_PROMPTS = (600, 700, 1000, 1024)
+# The rest of one-device serving (serve_phase): the rolling caches'
+# requests (64 to 3000 tokens, most past the 768-slot cache) and their
+# engines' length, and the teacher-forced prompts past the capacity; the
+# near-tie margin under which two engines' greedy streams may part;
+# multi-step dispatch, speculative proposals, the beam, the snapshot's step.
+ROLL_PROMPT_LENS, ROLL_MAX_LEN = (64, 3000), 4096
+ROLL_CHECK_PROMPTS = (5, 700, 1000, 2900)
+NEAR_TIE = 0.1
+MULTI_STEP, SPEC_GAMMA = 4, 4
+BEAM_WIDTH, BEAM_PROMPT, BEAM_NEW, BEAM_REL_TOL = 4, 512, 32, 1e-2
+SNAPSHOT_STEPS = 20
 
 
 def check(cond: bool, what: str) -> None:
@@ -1412,6 +1423,409 @@ def drop_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
         "shards": len(paths), "tokens": dataset.n_tokens}}
 
 
+def greedy_requests(n: int, vocab: int, prompt_lens, max_new: int, seed: int) -> list:
+    """``serving.make_requests``' prompts, every request greedy."""
+    from flash_attention_metal_tpu_torch.harness import serving
+
+    reqs = serving.make_requests(n, vocab, prompt_lens, max_new, seed)
+    for r in reqs:
+        r.temperature, r.top_k = 0.0, 0
+    return reqs
+
+
+def stream_partings(params, cfg, got: list, want: list, what: str) -> list:
+    """Greedy streams of ``got`` equal ``want``'s token for token, except
+    where the reference's two largest logits at the step they part lie
+    within ``NEAR_TIE`` of each other (a plain bf16 forward of its prompt and
+    tokens up to there): returns the steps of such partings, fails on any
+    other."""
+    from flash_attention_metal_tpu_torch.models.transformer import forward
+
+    partings = []
+    for g, w in zip(got, want):
+        check(len(g.generated) == len(w.generated), f"{what}: request {w.uid} emitted "
+              f"{len(g.generated)} tokens, the reference {len(w.generated)}")
+        if g.generated == w.generated:
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g.generated, w.generated)) if a != b)
+        with torch.no_grad():
+            seq = torch.tensor([w.prompt + w.generated[:j]], device="cuda")
+            top = torch.topk(forward(params, seq, cfg)[0, -1].float(), 2).values
+        margin = float(top[0] - top[1])
+        check(margin < NEAR_TIE, f"{what}: request {w.uid} parts at step {j} where the "
+              f"reference's top-2 logit margin is {margin:.3f} >= {NEAR_TIE}")
+        partings.append(j)
+    return partings
+
+
+def partings_text(steps: list) -> str:
+    """``stream_partings``' steps for a log line."""
+    if not steps:
+        return "no near-tie parting"
+    return (f"{len(steps)} near-tie partings (margin < {NEAR_TIE}) at steps {min(steps)}-"
+            f"{max(steps)}, median {int(np.median(steps))}")
+
+
+def cache_bytes_per_slot(eng) -> float:
+    """Bytes of an engine's KV cache (every tensor of it) per batch slot."""
+    tensors = [getattr(eng.cache, f.name) for f in dataclasses.fields(eng.cache)]
+    return sum(t.numel() * t.element_size() for t in tensors if torch.is_tensor(t)) / len(
+        eng.slots)
+
+
+def serve_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
+    """The rest of one-device serving.  First the position-map kernels
+    (rows 1 and 11 under ``kv_positions``: the wgmma forward's position
+    walk, the fp32 template's and the decode grid's kPos instances, the
+    8-bit caches' template and decode instances) against their plain
+    versions (``onchip.POS_CASES``: prefill chunks of 128 rows and decode
+    tokens over a 768-slot rolling cache wrapped up to six times, slots
+    shuffled and 5% holes, W 512 with 4 (and 70) sinks, the softcap and
+    ALiBi, D 64 and 128, bf16 and fp32, ladder, peaked, spike and negative
+    fixtures).  Then the main path at full width (the windowed FlashLM,
+    W 512, 4 sinks): 16 greedy requests of 64-3000 tokens through
+    ``DecodeEngine(rolling=True)`` dense and int8 beside the windowed dense
+    and int8 engines at max_len 4096 (streams equal but at near ties; the
+    position instances launched, the index-space instances never; cache
+    bytes per slot; teacher-forced logits past the capacity); then, on the
+    same weights without the window, ``multi_step=4`` (dense and paged
+    int8) beside one step, speculative serving with a 2-layer d 512 draft
+    (dense, int8 and paged targets) and with the target as its own draft,
+    beam search, a snapshot restored into a fresh engine, and the
+    weight-only int8 tree.  Then each position kernel's time beside the
+    index-space windowed kernel's on a linear cache with the same visible
+    pairs, its bound over the visible pairs and SDPA's under the positions'
+    boolean mask.  Returns the records' ``pos_*`` keys and the runs'
+    numbers."""
+    from flash_attention_metal_tpu_torch.harness import onchip, serving
+    from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import flash_fwd_general, flash_fwd_lean
+    from flash_attention_metal_tpu_torch.models.transformer import forward, init_params, weight
+    from flash_attention_metal_tpu_torch.models.wquant import quantize_weights, weight_bytes
+    from flash_attention_metal_tpu_torch.runtime.beam import beam_search_generate
+    from flash_attention_metal_tpu_torch.runtime.engine import DecodeEngine
+    from flash_attention_metal_tpu_torch.runtime.speculative import speculative_generate
+    from flash_attention_metal_tpu_torch.utils import roofline
+    from flash_attention_metal_tpu_torch.utils.checkpoint import restore_pytree, save_pytree
+
+    t_phase = time.perf_counter()
+    counters = (flash_fwd_general, qt.flash_attention_quant, pg.flash_attention_paged,
+                pg.flash_attention_paged_quant, flash_fwd_lean, ft.flash_attention_tri)
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        flash_fwd_general.pos_launches = qt.flash_attention_quant.pos_launches = 0
+
+    # 1. Each position kernel against its plain version.
+    errs = {}  # (record, tag) -> worst error; tag: bf16 / d128 / fp32
+    cases = onchip.pos_cases(gen)
+    for name, case in cases.items():
+        err, lse_err = onchip.pos_error(case)
+        q = case[1]
+        tol = onchip.TOL[q.dtype]
+        check(err <= tol and lse_err <= tol,
+              f"{name}: position-map kernel vs plain o {err:.3e} lse {lse_err:.3e} > {tol}")
+        rec = "flash_fwd" if case[0] == "fwd" else "flash_quant"
+        tag = "fp32" if q.dtype == torch.float32 else "d128" if q.shape[-1] == 128 else "bf16"
+        errs[(rec, tag)] = max(errs.get((rec, tag), 0.0), err, lse_err)
+        print(f"[pos-kernel] {name}: {case[0]} q {list(q.shape)} over {case[4].shape[1]} slots "
+              f"a batch; o {err:.3e} lse {lse_err:.3e} (tol {tol})")
+
+    # 2. Rolling serving at full width against the windowed dense engines.
+    win = dict(window=onchip.WINDOW, sinks=onchip.SINKS)
+    ref_eng, cfg = serving.build_engine(
+        **serving.FLASHLM_D2048, max_batch=MAX_BATCH, max_len=ROLL_MAX_LEN, seed=SEED,
+        device="cuda", **win)
+    params = ref_eng.params
+    vocab = cfg.vocab_size
+    requests = greedy_requests(N_REQUESTS, vocab, ROLL_PROMPT_LENS, MAX_NEW, SEED + 7)
+    long_ = sum(len(r.prompt) > onchip.ROLL_CAP for r in requests)
+    check(2 * long_ >= len(requests), f"{long_} of {len(requests)} rolling prompts pass the "
+          f"{onchip.ROLL_CAP}-slot capacity: at least half must")
+    prng = np.random.default_rng(SEED + 8)
+    roll_prompts = [prng.integers(1, vocab, n).tolist() for n in ROLL_CHECK_PROMPTS]
+    out_serve = {}
+    pos_launches = {"flash_fwd": 0, "flash_quant": 0}
+
+    def serve(eng, reqs, mode):
+        eng.submit(serving.Request(uid=-1, prompt=list(range(1, 101)), max_new_tokens=4))
+        eng.run()
+        reset()
+        reqs = [dataclasses.replace(r, generated=[], logprobs=[], slot=None, done=False)
+                for r in reqs]
+        bench = serving.run_serving_bench(eng, reqs, mode=mode, log=lambda m: None)
+        check(all(r.done and len(r.generated) == r.max_new_tokens for r in reqs),
+              f"{mode}: every request finishes")
+        return reqs, bench
+
+    for mode, kv_quant in (("rolling", None), ("rolling_int8", "int8")):
+        linear = ref_eng if kv_quant is None else DecodeEngine(
+            params, cfg, max_batch=MAX_BATCH, max_len=ROLL_MAX_LEN, seed=SEED, kv_quant=kv_quant)
+        want, bench_lin = serve(linear, requests, f"windowed {kv_quant or 'dense'}")
+        lin_launch = (flash_fwd_general if kv_quant is None else qt.flash_attention_quant)
+        lin_counts = (lin_launch.launches, lin_launch.pos_launches)
+        check(lin_counts[0] > 0 and lin_counts[1] == 0,
+              f"the linear engine takes the index-space instances: {lin_counts}")
+        eng = DecodeEngine(params, cfg, max_batch=MAX_BATCH, max_len=ROLL_MAX_LEN, seed=SEED,
+                           **serving.SERVING_MODES[mode][0])
+        got, bench = serve(eng, requests, mode)
+        counted = flash_fwd_general if kv_quant is None else qt.flash_attention_quant
+        n_pos, n_all = counted.pos_launches, counted.launches
+        n_other = sum(fn.launches for fn in counters if fn is not counted)
+        check(n_pos > 0 and n_pos == n_all and n_other == 0,
+              f"{mode} serving launches only the position instances: {n_pos} of {n_all}, "
+              f"others {n_other}")
+        pos_launches["flash_fwd" if kv_quant is None else "flash_quant"] += n_pos
+        partings = stream_partings(params, cfg, got, want, mode)
+        bound = serving.SERVING_MODES[mode][1]
+        rel = serving.teacher_forced_errors(params, cfg, roll_prompts, 16, ROLL_MAX_LEN,
+                                            seed=SEED, mode=mode)
+        worst = float(np.max(rel))
+        check(worst <= bound, f"{mode} served logits rel L2 {worst:.3e} > {bound}")
+        slot_bytes, lin_bytes = cache_bytes_per_slot(eng), cache_bytes_per_slot(linear)
+        out_serve[mode] = {
+            "tokens_per_s": bench["tokens_per_s"], "ms_per_step": bench["ms_per_step"],
+            "linear_tokens_per_s": bench_lin["tokens_per_s"],
+            "linear_ms_per_step": bench_lin["ms_per_step"], "pos_launches": n_pos,
+            "linear_launches": lin_counts[0], "near_tie_partings": partings,
+            "served_logits_rel_l2_max": worst, "cache_bytes_per_slot": slot_bytes,
+            "linear_cache_bytes_per_slot": lin_bytes, "prompts_past_capacity": long_}
+        print(f"[serve-rolling] {mode}: {N_REQUESTS} greedy requests x {MAX_NEW} tokens, prompts "
+              f"{min(len(r.prompt) for r in requests)}-{max(len(r.prompt) for r in requests)} "
+              f"({long_} past the {eng.cache.capacity}-slot cache): {bench['tokens_per_s']:.1f} "
+              f"tok/s, {bench['ms_per_step']:.3f} ms/step (windowed max_len {ROLL_MAX_LEN}: "
+              f"{bench_lin['tokens_per_s']:.1f} tok/s, {bench_lin['ms_per_step']:.3f} ms/step); "
+              f"position instances {n_pos} launches, index-space {n_all - n_pos}, others "
+              f"{n_other} (the windowed engine: index-space {lin_counts[0]}); greedy streams equal "
+              f"but {partings_text(partings)}; teacher-forced logits rel L2 "
+              f"max {worst:.3e} (tol {bound}) at prompts {list(ROLL_CHECK_PROMPTS)}; cache "
+              f"{slot_bytes / 2**20:.2f} MiB a slot ({eng.cache.capacity} rows) against "
+              f"{lin_bytes / 2**20:.2f} MiB ({ROLL_MAX_LEN} rows) {stamp}")
+        if linear is not ref_eng:
+            del linear
+        del eng
+        torch.cuda.empty_cache()
+    del ref_eng
+    torch.cuda.empty_cache()
+
+    # 3. multi_step, speculative, beam, snapshot and weight-only int8 on
+    # the same weights without the window.
+    plain_cfg = dataclasses.replace(cfg, attn_window=None, attn_sinks=0)
+    reqs = greedy_requests(N_REQUESTS, vocab, PROMPT_LENS, MAX_NEW, SEED + 9)
+    single = {}
+    for mode, opts in (("dense", {}), ("paged_int8", dict(paged=True, kv_quant="int8"))):
+        one, bench1 = serve(DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH,
+                                         max_len=MAX_LEN, seed=SEED, **opts), reqs, mode)
+        single[mode] = one
+        multi, bench4 = serve(DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH,
+                                           max_len=MAX_LEN, seed=SEED, multi_step=MULTI_STEP,
+                                           **opts), reqs, f"{mode} multi_step {MULTI_STEP}")
+        partings = stream_partings(params, plain_cfg, multi, one, f"{mode} multi_step")
+        out_serve[f"multi_step_{mode}"] = {
+            "ms_per_step": bench4["ms_per_step"], "tokens_per_s": bench4["tokens_per_s"],
+            "single_ms_per_step": bench1["ms_per_step"],
+            "single_tokens_per_s": bench1["tokens_per_s"], "steps": bench4["decode_steps"],
+            "single_steps": bench1["decode_steps"], "near_tie_partings": partings}
+        print(f"[serve-multi] {mode} multi_step={MULTI_STEP}: {bench4['ms_per_step']:.3f} ms/step, "
+              f"{bench4['tokens_per_s']:.1f} tok/s over {bench4['decode_steps']} steps (harvest "
+              f"lag 16 dispatches) against one step {bench1['ms_per_step']:.3f} "
+              f"ms/step, {bench1['tokens_per_s']:.1f} tok/s over {bench1['decode_steps']} steps; "
+              f"greedy streams equal but "
+              f"{partings_text(partings)} {stamp}")
+        torch.cuda.empty_cache()
+    bound = serving.SERVING_MODES["multi_step_8"][1]
+    check_prompts = [prng.integers(1, vocab, n).tolist() for n in CHECK_PROMPTS]
+    rel = serving.teacher_forced_errors(params, plain_cfg, check_prompts, 16, MAX_LEN, seed=SEED,
+                                        mode="multi_step_8")
+    check(max(rel) <= bound, f"multi_step_8 served logits rel L2 {max(rel):.3e} > {bound}")
+    out_serve["multi_step_8_served_logits_rel_l2_max"] = float(max(rel))
+
+    draft = serving.draft_model(plain_cfg, serving.DRAFT_D512, SEED, "cuda")
+    for mode, opts in (("dense", {}), ("int8", dict(kv_quant="int8")), ("paged", dict(paged=True))):
+        want = single.get(mode)
+        if want is None:
+            want, _ = serve(DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                                         seed=SEED, **opts), reqs, mode)
+        got, bench = serve(DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                                        seed=SEED, draft=draft, spec_gamma=SPEC_GAMMA, **opts),
+                           reqs, f"{mode} speculative")
+        partings = stream_partings(params, plain_cfg, got, want, f"{mode} speculative")
+        out_serve[f"speculative_{mode}"] = {
+            "tokens_per_s": bench["tokens_per_s"], "rounds": bench["decode_steps"],
+            "near_tie_partings": partings}
+        print(f"[serve-spec] {mode} target, draft 2 x d512, gamma {SPEC_GAMMA}: "
+              f"{bench['tokens_per_s']:.1f} tok/s over {bench['decode_steps']} rounds; greedy "
+              f"streams equal the plain engine's but {partings_text(partings)} {stamp}")
+        torch.cuda.empty_cache()
+    rel = serving.teacher_forced_errors(params, plain_cfg, check_prompts, 15, MAX_LEN, seed=SEED,
+                                        mode="speculative")
+    bound = serving.SERVING_MODES["speculative"][1]
+    check(max(rel) <= bound, f"speculative verify-chunk logits rel L2 {max(rel):.3e} > {bound}")
+    out_serve["speculative_served_logits_rel_l2_max"] = float(max(rel))
+    stats = {}
+    speculative_generate(params, plain_cfg, params, plain_cfg, [r.prompt for r in reqs[:8]],
+                         MAX_NEW, gamma=SPEC_GAMMA, seed=SEED, stats=stats)
+    per_round = stats["emitted"] / stats["slot_rounds"]
+    check(per_round > SPEC_GAMMA, f"self-draft tokens per round {per_round:.3f} <= {SPEC_GAMMA}")
+    out_serve["speculative_self_draft_tokens_per_round"] = per_round
+    print(f"[serve-spec] the target as its own draft: {per_round:.3f} tokens a slot a round "
+          f"(gamma {SPEC_GAMMA}; {stats['emitted']} tokens in {stats['slot_rounds']} slot-rounds)"
+          f" {stamp}")
+    del draft
+    torch.cuda.empty_cache()
+
+    prompt = prng.integers(1, vocab, BEAM_PROMPT).tolist()
+    t0 = time.perf_counter()
+    toks, score = beam_search_generate(params, plain_cfg, prompt, beam_width=BEAM_WIDTH,
+                                       max_new_tokens=BEAM_NEW, max_len=1024)
+    beam_s = time.perf_counter() - t0
+    with torch.no_grad():
+        logits = forward(params, torch.tensor([prompt + toks], device="cuda"), plain_cfg)[0]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ref = float(sum(logp[len(prompt) - 1 + i, t] for i, t in enumerate(toks)))
+    beam_rel = abs(score - ref) / abs(ref)
+    check(len(toks) == BEAM_NEW and beam_rel <= BEAM_REL_TOL,
+          f"beam score {score:.4f} vs its tokens' summed log-probabilities {ref:.4f}: rel "
+          f"{beam_rel:.3e} > {BEAM_REL_TOL}")
+    out_serve["beam"] = {"score": score, "prefill_logprob_sum": ref, "rel_err": beam_rel,
+                         "seconds": beam_s}
+    print(f"[serve-beam] width {BEAM_WIDTH}, a {BEAM_PROMPT}-token prompt, {BEAM_NEW} tokens: "
+          f"score {score:.4f}, one prefill of prompt + tokens sums {ref:.4f} (rel {beam_rel:.3e},"
+          f" tol {BEAM_REL_TOL}); {beam_s:.2f} s {stamp}")
+
+    # A snapshot mid-run, saved to disk, restored into a fresh engine: every
+    # stream and its log-probabilities, of the engine that went on and of
+    # the restored one, equal an uninterrupted run's bit for bit.
+    snap_opts = dict(paged=True, kv_quant="int8")
+
+    def mixed():
+        return serving.make_requests(N_REQUESTS, vocab, PROMPT_LENS, MAX_NEW, SEED + 10)
+
+    eng_c = DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+                         **snap_opts)
+    for r in mixed():
+        eng_c.submit(r)
+    eng_c.run()
+    want = {u: (r.generated, r.logprobs) for u, r in eng_c.finished.items()}
+    del eng_c
+    torch.cuda.empty_cache()
+    eng_a = DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+                         **snap_opts)
+    for r in mixed():
+        eng_a.submit(r)
+    for _ in range(SNAPSHOT_STEPS):
+        eng_a.step()
+    snap = eng_a.snapshot()
+    path = os.path.join(tmp, "serving_snapshot.pt")
+    save_pytree(path, snap)
+    before = {u: (list(r.generated), list(r.logprobs)) for u, r in eng_a.finished.items()}
+    eng_a.run()
+    eng_b = DecodeEngine(params, plain_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED + 99,
+                         **snap_opts)
+    eng_b.restore(restore_pytree(path))
+    eng_b.finished = {}
+    eng_b.run()
+    resumed = {**before, **{u: (r.generated, r.logprobs) for u, r in eng_b.finished.items()}}
+    went_on = {u: (r.generated, r.logprobs) for u, r in eng_a.finished.items()}
+    same = sum(resumed.get(u) == w for u, w in want.items())
+    same_on = sum(went_on.get(u) == w for u, w in want.items())
+    check(len(want) == N_REQUESTS and same == N_REQUESTS and same_on == N_REQUESTS,
+          f"snapshot/restore: {same} restored and {same_on} continued of {N_REQUESTS} streams "
+          f"and log-probabilities equal the uninterrupted run's")
+    out_serve["snapshot"] = {"steps_before": SNAPSHOT_STEPS, "bytes": os.path.getsize(path),
+                             "streams_equal": same, "continued_streams_equal": same_on}
+    print(f"[serve-snapshot] paged int8 engine, 16 requests (half sampled), snapshot after "
+          f"{SNAPSHOT_STEPS} steps ({os.path.getsize(path) / 2**20:.1f} MiB on disk) restored "
+          f"into a fresh engine: {same} restored and {same_on} continued of {N_REQUESTS} "
+          f"streams and log-probabilities equal an uninterrupted run's bit for bit {stamp}")
+    del eng_a, eng_b, snap
+    torch.cuda.empty_cache()
+
+    # Weight-only int8 of the fp32 masters (as JAX quantizes them).
+    wgen = torch.Generator(device="cuda")
+    wgen.manual_seed(SEED)
+    masters = init_params(plain_cfg, wgen, master_dtype=torch.float32)
+    qparams = quantize_weights(masters)
+    ratio = weight_bytes(qparams) / weight_bytes(masters)
+    ratio_bf16 = weight_bytes(qparams) / weight_bytes(params)
+    check(ratio < 0.45, f"weight-only int8 bytes {ratio:.3f} of the fp32 tree's >= 0.45")
+    bound = serving.SERVING_MODES["weight_int8"][1]
+    rel = serving.teacher_forced_errors(masters, plain_cfg, check_prompts, 16, MAX_LEN, seed=SEED,
+                                        mode="weight_int8")
+    check(max(rel) <= bound, f"weight_int8 served logits rel L2 {max(rel):.3e} > {bound}")
+    rel_orig = serving.teacher_forced_errors(masters, plain_cfg, check_prompts, 16, MAX_LEN,
+                                             seed=SEED, mode="weight_int8",
+                                             reference_params=masters)
+    got, bench = serve(DecodeEngine(qparams, plain_cfg, max_batch=MAX_BATCH, max_len=MAX_LEN,
+                                    seed=SEED), reqs, "weight_int8")
+    w_q, w_b = qparams["layers"][0]["w_up"], params["layers"][0]["w_up"]
+    x = torch.randn((MAX_BATCH, plain_cfg.d_model), device="cuda", dtype=plain_cfg.dtype)
+    deq_ms = onchip.device_ms(lambda: x @ weight(w_q, plain_cfg.dtype))
+    bf16_ms = onchip.device_ms(lambda: x @ w_b)
+    out_serve["weight_int8"] = {
+        "bytes_over_fp32": ratio, "bytes_over_bf16": ratio_bf16,
+        "served_logits_rel_l2_max": float(max(rel)),
+        "rel_l2_vs_unquantized": float(max(rel_orig)), "tokens_per_s": bench["tokens_per_s"],
+        "ms_per_step": bench["ms_per_step"], "w_up_dequant_matmul_ms": deq_ms,
+        "w_up_bf16_matmul_ms": bf16_ms}
+    print(f"[serve-wint8] weight-only int8: {ratio:.3f} of the fp32 tree's bytes "
+          f"({ratio_bf16:.3f} of the bf16 tree's: the embedding stays), served logits rel L2 max "
+          f"{max(rel):.3e} against the dequantized fp32 forward (tol {bound}), "
+          f"{max(rel_orig):.3e} against the unquantized; {bench['tokens_per_s']:.1f} tok/s, "
+          f"{bench['ms_per_step']:.3f} ms/step; the w_up product at decode (dequantize + "
+          f"matmul) {deq_ms:.4f} ms against bf16 {bf16_ms:.4f} ms {stamp}")
+    del masters, qparams
+    torch.cuda.empty_cache()
+
+    # 4. Times: each position kernel at the rolling path's shapes beside the
+    # index-space windowed kernel on a linear cache with the same visible
+    # pairs, its bound over the visible pairs and SDPA under the positions'
+    # boolean mask.
+    out = {"flash_fwd": {}, "flash_quant": {}}
+    for rec_name, name, key in (("flash_fwd", "pos_prefill_bf16", "prefill"),
+                                ("flash_fwd", "pos_decode_bf16", "decode"),
+                                ("flash_fwd", "pos_prefill_bf16_d128", "prefill_d128"),
+                                ("flash_fwd", "pos_decode_bf16_d128", "decode_d128"),
+                                ("flash_fwd", "pos_prefill_fp32", "prefill_fp32"),
+                                ("flash_fwd", "pos_decode_fp32", "decode_fp32"),
+                                ("flash_quant", "pos_prefill_int8", "prefill"),
+                                ("flash_quant", "pos_decode_int8", "decode"),
+                                ("flash_quant", "pos_prefill_int8_d128", "prefill_d128"),
+                                ("flash_quant", "pos_decode_int8_d128", "decode_d128")):
+        case = cases[name]
+        q = case[1]
+        call = lambda: onchip.pos_call(case)
+        lin_call = lambda: onchip.pos_call(case, linear=True)
+        flops, nbytes = onchip.pos_work(case)
+        bits = 32 if q.dtype == torch.float32 else 16
+        r = {f"pos_ms_{key}": onchip.device_ms(call),
+             f"pos_linear_ms_{key}": onchip.device_ms(lin_call),
+             f"pos_plain_ms_{key}": onchip.device_ms(lambda: onchip.pos_call(case, plain=True),
+                                                     iters=5),
+             f"pos_bound_ms_{key}": roofline.roofline_time(flops, nbytes, spec, bits) * 1e3,
+             f"pos_bound_by_{key}": roofline.bound_by(flops, nbytes, spec, bits),
+             f"pos_library_ms_{key}": onchip.pos_sdpa_ms(case)}
+        out[rec_name].update(r)
+        print(f"[pos-time] {rec_name} {key} ({name}: q {list(q.shape)}, {case[4].shape[1]} slots):"
+              f" position map {r[f'pos_ms_{key}']:.4f} ms, index-space windowed on a linear cache"
+              f" {r[f'pos_linear_ms_{key}']:.4f} ms, plain {r[f'pos_plain_ms_{key}']:.4f} ms, "
+              f"bound {r[f'pos_bound_ms_{key}']:.4f} ms ({r[f'pos_bound_by_{key}']}), SDPA under "
+              f"the positions' mask {r[f'pos_library_ms_{key}']:.4f} ms {stamp}")
+    for rec_name in out:
+        out[rec_name]["pos_launches"] = pos_launches[rec_name]
+        out[rec_name]["pos_source"] = ("flash_attention_metal_tpu_torch/csrc/flash_fwd_sm90.cuh "
+                                       "(PosWalk), flash_fwd.cu, flash_decode.cuh (kPos)")
+        for tag in ("bf16", "d128", "fp32"):
+            if (rec_name, tag) in errs:
+                out[rec_name]["pos_max_err" + ("" if tag == "bf16" else f"_{tag}")] = errs[
+                    (rec_name, tag)]
+    print(f"[serve-phase] {time.perf_counter() - t_phase:.1f} s {stamp}")
+    return {"records": out, "serving": out_serve}
+
+
 def sparse_grid_text(grid) -> str:
     """A block-sparse kernel's grid (``flash_mask.SparseGrid``); the bf16
     kernels issue their blocks longest walk first."""
@@ -2240,6 +2654,11 @@ def main() -> int:
     # and the dropout times beside the others.
     drop = drop_phase(gen, stamp, spec, tmp)
 
+    # 19. The rest of one-device serving: the position-map kernels, rolling
+    # caches, multi-step dispatch, speculative and beam decoding,
+    # snapshot/restore and weight-only int8.
+    serve_rest = serve_phase(gen, stamp, spec, tmp)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -2387,10 +2806,12 @@ def main() -> int:
         rec_.update(window["records"].get(rec_["name"], {}))
         rec_.update(xf["records"].get(rec_["name"], {}))
         rec_.update(drop["records"].get(rec_["name"], {}))
+        rec_.update(serve_rest["records"].get(rec_["name"], {}))
     record["training_window"] = {"grad_rel_l2_max": window["grad_rel_l2_max"], **window["train"]}
     record["serving_window"] = window["serving"]
     record["training_xf"] = {"grad_rel_l2_max": xf["grad_rel_l2_max"], **xf["train"]}
     record["serving_xf"] = xf["serving"]
+    record["serving_rest"] = serve_rest["serving"]
     record["training_dropout"] = {"grad_rel_l2_max": drop["grad_rel_l2_max"],
                                   "phase_seconds": drop["seconds"], **drop["train"]}
     tmp_dir.cleanup()

@@ -25,6 +25,18 @@
 //     positions): a split wholly outside both is empty in the same way, and
 //     the merge weighs it 0.  The score transforms (xf.cuh) act on each
 //     score before the split's softmax; they take the windowed kernel.
+//   * A rolling cache (kPos: kv_pos int32 [B, n_kv], the position each slot
+//     holds, -1 for none; replaces the kv_positions input of flash_fwd.py::
+//     _fwd_kernel and quant.py::_quant_fwd_kernel) masks in position space:
+//     slot j is visible to row r when 0 <= pos <= r + off and, under the
+//     window, pos > r + off - window or pos < sinks; ALiBi's distance is
+//     pos - (r + off).  After a wrap slot order is not position order, so a
+//     kPos split walks every tile of its chunk, skips nothing by index, and
+//     a chunk of slots never written is an empty partial (m = -inf, l = 0).
+//     Each lane reads its column's position once a step (one int-to-float
+//     conversion a step for the bias); one kPos instance per (q type, KV
+//     type, head dim, rows) reads the window, sinks, cap and slopes at run
+//     time.
 //   * In a block the 4 warps each take 16 columns of every 64-row KV tile
 //     for all query rows at once, two lanes a column (one half of D each),
 //     on the CUDA cores in fp32 FMA: the 64-row wgmma tile would carry 62
@@ -164,13 +176,18 @@ __device__ __forceinline__ float to_float<bf16>(bf16 x) { return __bfloat162floa
 // kXf (with kWin, whose window may be kNoWindow): the score transforms
 // (xf.cuh) too, the bias measured from r / pos_div + the batch's offset
 // (callers fold no rows under ALiBi: a folded row is not one q-head).
-template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf>
+// kPos (with kWin and kXf, a dense cache, causal, pos_div 1): the rolling
+// cache's position map kv_pos [B, n_kv] (see the header).
+template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf,
+          bool kPos = false>
 __global__ void __launch_bounds__(kDecThreads)
     flash_decode_kernel(const T* __restrict__ q, KvArgs kv, const int* __restrict__ q_offset,
                         T* __restrict__ o, float* __restrict__ lse, int n_heads, int n_kv_heads,
                         int n_q, float scale_log2, int causal, int pos_div, int fixed_offset,
                         int kv_chunk, float* __restrict__ part, int* __restrict__ tickets,
-                        int window, int sinks, float softcap, const float* __restrict__ slopes) {
+                        int window, int sinks, float softcap, const float* __restrict__ slopes,
+                        const int* __restrict__ kv_pos) {
+  static_assert(!kPos || (kWin && kXf && !kPaged), "positions ride the transformed dense walk");
   using P = Decode<T, KV, D, kRows>;
   using Stored = typename P::Stored;
   constexpr bool kScaled = P::kScaled;
@@ -206,14 +223,22 @@ __global__ void __launch_bounds__(kDecThreads)
   }
 
   // Last column each row sees (-1: none, and for rows past n_q), and under
-  // a window the first column of its window.
+  // a window the first column of its window; under kPos the same bounds on
+  // the positions the slots hold (not clamped to n_kv: positions run past
+  // the cache's capacity).
   int lim[kRows], lo[kWin ? kRows : 1];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
-    lim[r] = r >= n_q ? -1 : causal ? min(n_kv - 1, r / pos_div + off) : n_kv - 1;
+    if constexpr (kPos) {
+      lim[r] = r >= n_q ? -1 : r + off;
+    } else {
+      lim[r] = r >= n_q ? -1 : causal ? min(n_kv - 1, r / pos_div + off) : n_kv - 1;
+    }
     if constexpr (kWin) lo[r] = r / pos_div + off - window + 1;
   }
-  const int tile_limit = causal ? min(n_kv - 1, (n_q - 1) / pos_div + off) : n_kv - 1;
+  // Under kPos every tile of the chunk: no skip by slot index.
+  const int tile_limit =
+      kPos ? n_kv - 1 : causal ? min(n_kv - 1, (n_q - 1) / pos_div + off) : n_kv - 1;
   // This split's columns: [kv_begin, kv_end).  A chunk that starts past the
   // diagonal is empty: no K/V row, no table entry is read.  Under a window
   // the split walks only its tiles among the sink tiles and the window's
@@ -221,17 +246,17 @@ __global__ void __launch_bounds__(kDecThreads)
   const int kv_begin = split * kv_chunk;
   const int kv_end = min(kv_begin + kv_chunk, tile_limit + 1);
   TileRuns runs{};
-  if constexpr (kWin) {
+  if constexpr (kWin && !kPos) {
     // Not causal (the transforms' kernel, no window): every column.
     runs = kv_runs<kBlockN>(off, kXf && !causal ? n_kv - 1 : (n_q - 1) / pos_div + off, n_kv,
                             window, sinks)
                .within(kv_begin / kBlockN, (kv_begin + kv_chunk) / kBlockN);
   }
   const int n_steps = kv_begin >= kv_end ? 0 :
-                      kWin ? runs.steps() : (kv_end - kv_begin - 1) / kBlockN + 1;
+                      kWin && !kPos ? runs.steps() : (kv_end - kv_begin - 1) / kBlockN + 1;
   // Step s's first column.
   auto step_start = [&](int s) {
-    return kWin ? runs.tile(s) * kBlockN : kv_begin + s * kBlockN;
+    return kWin && !kPos ? runs.tile(s) * kBlockN : kv_begin + s * kBlockN;
   };
 
   auto load = [&](int step) {
@@ -270,6 +295,12 @@ __global__ void __launch_bounds__(kDecThreads)
     sm90::cp_async_commit();
     const unsigned char* stage = smem_raw + (step % kDecStages) * P::kStageBytes;
     const int kv_start = step_start(step);
+    // The position slot c of this tile holds (kPos; -1 past n_kv), read
+    // here so that its load overlaps the scores.
+    int pc = -1;
+    if constexpr (kPos) {
+      if (kv_start + c < n_kv) pc = kv_pos[(size_t)b * n_kv + kv_start + c];
+    }
 
     // Scores of column c: this lane's half of D, then the other lane's.
     constexpr int kVec = 16 / (int)sizeof(Stored);
@@ -301,12 +332,15 @@ __global__ void __launch_bounds__(kDecThreads)
 
     // Online softmax over the warp's 16 columns, row by row.
     float alpha[kRows];
-    const float cbase = kXf ? (float)(kv_start + c - xoff) : 0.0f;  // c - xoff
+    // The column's position (its slot's under kPos), and c - xoff.
+    const int cpos = kPos ? pc : kv_start + c;
+    const float cbase = kXf ? (float)(cpos - xoff) : 0.0f;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       s[r] += __shfl_xor_sync(0xffffffffu, s[r], kWarpCols);
-      bool visible = kv_start + c <= lim[r];
-      if constexpr (kWin) visible = visible && (kv_start + c >= lo[r] || kv_start + c < sinks);
+      bool visible = cpos <= lim[r];
+      if constexpr (kPos) visible = visible && cpos >= 0;
+      if constexpr (kWin) visible = visible && (cpos >= lo[r] || cpos < sinks);
       float x = -INFINITY;
       float t = 0.0f, dist = 0.0f;  // the capped score and the distance (kXf)
       if constexpr (kXf) {
@@ -451,15 +485,17 @@ __global__ void __launch_bounds__(kDecThreads)
   if (tid == 0) tickets[unit] = 0;  // ready for the next call on this stream
 }
 
-template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf>
+template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf,
+          bool kPos = false>
 cudaError_t launch_decode_rows(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                                void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                                float sm_scale, int causal, int pos_div, int fixed_offset,
                                int kv_chunk, void* part, void* tickets, cudaStream_t stream,
-                               int window, int sinks, float softcap, const float* slopes) {
+                               int window, int sinks, float softcap, const float* slopes,
+                               const int* kv_pos = nullptr) {
   constexpr int smem = Decode<T, KV, D, kRows>::kSmem;
-  using Kernel = decltype(&flash_decode_kernel<T, KV, kPaged, D, kRows, kWin, kXf>);
-  const Kernel kernel = flash_decode_kernel<T, KV, kPaged, D, kRows, kWin, kXf>;
+  using Kernel = decltype(&flash_decode_kernel<T, KV, kPaged, D, kRows, kWin, kXf, kPos>);
+  const Kernel kernel = flash_decode_kernel<T, KV, kPaged, D, kRows, kWin, kXf, kPos>;
   static bool smem_set[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -475,7 +511,7 @@ cudaError_t launch_decode_rows(const void* q, const KvArgs& kv, const void* q_of
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset), static_cast<T*>(o),
       static_cast<float*>(lse), n_heads, n_kv_heads, n_q, sm_scale * kLog2e, causal, pos_div,
       fixed_offset, kv_chunk, static_cast<float*>(part), static_cast<int*>(tickets), window,
-      sinks, softcap, slopes);
+      sinks, softcap, slopes, kv_pos);
   return cudaGetLastError();
 }
 
@@ -484,24 +520,33 @@ struct Native {};
 template <typename T, typename Tag>
 using KvType = typename std::conditional<std::is_same<Tag, Native>::value, T, Tag>::type;
 
-template <typename T, typename KV, bool kPaged, int D, bool kWin, bool kXf>
+template <typename T, typename KV, bool kPaged, int D, bool kWin, bool kXf, bool kPos = false>
 cudaError_t launch_decode_win(const fam::DecodeCall& c) {
   if (c.n_q <= 4) {
-    return launch_decode_rows<T, KV, kPaged, D, 4, kWin, kXf>(
+    return launch_decode_rows<T, KV, kPaged, D, 4, kWin, kXf, kPos>(
         c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
         c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream, c.window,
-        c.sinks, c.softcap, c.slopes);
+        c.sinks, c.softcap, c.slopes, c.kv_pos);
   }
-  return launch_decode_rows<T, KV, kPaged, D, kDecodeRows, kWin, kXf>(
+  return launch_decode_rows<T, KV, kPaged, D, kDecodeRows, kWin, kXf, kPos>(
       c.q, c.kv, c.q_offset, c.o, c.lse, c.batch, c.n_heads, c.n_kv_heads, c.n_q, c.sm_scale,
       c.causal, c.pos_div, c.fixed_offset, c.kv_chunk, c.part, c.tickets, c.stream, c.window,
-      c.sinks, c.softcap, c.slopes);
+      c.sinks, c.softcap, c.slopes, c.kv_pos);
 }
 
 // A call under a window takes the kernel that reads it; under the score
-// transforms, the windowed kernel that also takes them (any window).
+// transforms, the windowed kernel that also takes them (any window); a
+// rolling cache's position map (dense caches only), the kPos kernel that
+// reads all of them.
 template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch_decode(const fam::DecodeCall& c) {
+  if (c.kv_pos != nullptr) {
+    if constexpr (kPaged) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_decode_win<T, KV, false, D, true, true, true>(c);
+    }
+  }
   if (c.softcap > 0.0f || c.slopes != nullptr) {
     return launch_decode_win<T, KV, kPaged, D, true, true>(c);
   }

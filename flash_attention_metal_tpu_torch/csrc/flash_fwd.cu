@@ -36,7 +36,11 @@
 // or the slot's length; ALiBi with pos_div 1 only) and a sliding window
 // with attention sinks (with causal, row position p sees only c > p -
 // window, besides c < sinks; the tiles outside both are skipped,
-// window.cuh), and fam_flash_fwd segment
+// window.cuh), the dense entries a rolling cache's position map (kv_pos
+// int32 [B, N_kv], the position each slot holds, -1 for none; with causal,
+// pos_div 1: the mask, the window and ALiBi's distance act on the slots'
+// positions, and every KV tile is visited, since slot order is not
+// position order), and fam_flash_fwd segment
 // ids (only columns of the row's id; such a call takes no split) and
 // attention dropout (dropout.cuh: P times its keep factor in the PV
 // product, the statistics and the lse of the undropped P; one split, the
@@ -334,13 +338,17 @@ __device__ __forceinline__ void pv_f32(Smem<float, D>& sm, int r, int half) {
 // from r / pos_div + the batch's offset, also when not causal.  kDrop (with
 // kXf, a dense cache, pos_div 1): f's attention dropout (dropout.cuh), P
 // times its keep factor in the PV product, the row sum of the undropped P.
-template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false>
+// kPos (with kXf, a dense cache, causal, pos_div 1): f.kv_pos, the rolling
+// cache's positions: every tile walked, each step's positions in kseg.
+template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false,
+          bool kPos = false>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
                     float* __restrict__ lse, int n_heads, int n_kv_heads,
                     int n_q, float scale_log2, int causal, int pos_div,
                     int fixed_offset, Feat f) {
+  static_assert(!kPos || (kXf && !kPaged && !kDrop), "positions ride the transformed dense walk");
   constexpr bool kScaled = !std::is_same<KV, T>::value;
   constexpr int kLdS = Dims<D>::kLdS, kOCols = Dims<D>::kOCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -365,7 +373,8 @@ __global__ void __launch_bounds__(kThreads)
   // Last column this thread's row may see (-1: none), and its window's first.
   int col_limit = -1;
   if (r < rows_valid) {
-    col_limit = causal ? min(n_kv - 1, row / pos_div + off) : n_kv - 1;
+    // Under kPos a bound on the slots' positions, which run past n_kv.
+    col_limit = kPos ? row + off : causal ? min(n_kv - 1, row / pos_div + off) : n_kv - 1;
   }
   const int col_lo = kFeat ? row / pos_div + off - f.window + 1 : 0;
   XfHead xf;
@@ -387,7 +396,9 @@ __global__ void __launch_bounds__(kThreads)
   // (under a window: the sink tiles, then the window's), so no page past
   // the tile's diagonal or before its window is ever read.
   TileRuns runs;
-  if constexpr (kFeat) {
+  if constexpr (kPos) {
+    runs = {0, 0, 0, (n_kv + kBlockN - 1) / kBlockN};
+  } else if constexpr (kFeat) {
     runs = causal ? kv_runs<kBlockN>(q_start / pos_div + off,
                                      (q_start + rows_valid - 1) / pos_div + off, n_kv, f.window,
                                      f.sinks)
@@ -422,6 +433,10 @@ __global__ void __launch_bounds__(kThreads)
     if (kFeat && f.kv_seg != nullptr && tid < kBlockN) {
       sm.kseg[tid] = kv_start + tid < n_kv ? f.kv_seg[(size_t)b * n_kv + kv_start + tid] : 0;
     }
+    // Under kPos kseg holds the step's positions instead (-1 past n_kv).
+    if (kPos && tid < kBlockN) {
+      sm.kseg[tid] = kv_start + tid < n_kv ? f.kv_pos[(size_t)b * n_kv + kv_start + tid] : -1;
+    }
     __syncthreads();
     // The next step's tiles are in flight while this step computes.
     if (step + 1 < n_steps) {
@@ -445,9 +460,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kSCols; ++j) {
       const int c = c0 + j;
-      const int cc = kv_start + c;
+      const int cc = kPos ? sm.kseg[c] : kv_start + c;  // the column's position
       seen[j] = cc <= col_limit;
-      if constexpr (kFeat) {
+      if constexpr (kPos) {
+        seen[j] = seen[j] && cc >= 0 && (cc >= col_lo || cc < f.sinks);
+      } else if constexpr (kFeat) {
         seen[j] = seen[j] && (cc >= col_lo || cc < f.sinks) &&
                   (f.kv_seg == nullptr || sm.kseg[c] == my_seg);
       }
@@ -475,7 +492,8 @@ __global__ void __launch_bounds__(kThreads)
       const int c = c0 + j;
       float p;
       if constexpr (kXf) {
-        p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(kv_start + c - xpos), m_new)) : 0.0f;
+        const int cc = kPos ? sm.kseg[c] : kv_start + c;
+        p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(cc - xpos), m_new)) : 0.0f;
       } else {
         p = seen[j] ? exp2f(s_reg[j] - m_new) : 0.0f;
       }
@@ -533,8 +551,9 @@ Split whole_row(int n_kv) {
 // Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
 // says); the others run one block per 64-row q tile and take no split.
 // One block per 64-row q tile (the kernel that reads f with kFeat, its
-// transforms with kXf, its dropout with kDrop).
-template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false>
+// transforms with kXf, its dropout with kDrop, its positions with kPos).
+template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false,
+          bool kPos = false>
 cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                          void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                          float sm_scale, int causal, int pos_div, cudaStream_t stream,
@@ -547,13 +566,13 @@ cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, 
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop, kPos>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop, kPos><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
       sm_scale * kLog2e, causal, pos_div, fixed_offset, f);
@@ -571,7 +590,7 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                                static_cast<float*>(lse), batch, n_heads, n_kv_heads, n_q,
                                sm_scale, causal, pos_div, fixed_offset, split.kv_chunk,
                                static_cast<float*>(split.part), static_cast<int*>(split.tickets),
-                               stream, f.window, f.sinks, f.softcap, f.slopes};
+                               stream, f.window, f.sinks, f.softcap, f.slopes, f.kv_pos};
     constexpr int dtype = std::is_same<T, bf16>::value ? 0 : 1;
     if constexpr (std::is_same<KV, T>::value) {
       return fam::flash_decode_native(call, dtype, D, kPaged);
@@ -581,6 +600,17 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
       return fam::flash_decode_e4m3(call, dtype, D, kPaged);
     } else {
       return fam::flash_decode_e5m2(call, dtype, D, kPaged);
+    }
+  }
+  if (f.kv_pos != nullptr) {
+    // bf16 prefill over a bf16 cache takes the wgmma position walk
+    // (fam_flash_fwd), never this template.
+    if constexpr (kPaged || (std::is_same<T, bf16>::value && std::is_same<KV, T>::value)) {
+      return cudaErrorInvalidValue;
+    } else {
+      return launch_tiles<T, KV, false, D, true, true, false, true>(
+          q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, n_q, sm_scale, causal, pos_div,
+          stream, fixed_offset, f);
     }
   }
   if (f.xf()) {
@@ -647,6 +677,15 @@ Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg, flo
               static_cast<const int*>(kv_seg), softcap, static_cast<const float*>(slopes), drop};
 }
 
+// A rolling cache's positions (null: none) need causal and one row per
+// position, and take no segment ids or dropout (as JAX, flash_fwd.py:
+// 899-916; the port's position walks take no ids).
+bool bad_pos(const void* kv_pos, int causal, int pos_div, const void* q_seg,
+             const void* drop_seed) {
+  return kv_pos != nullptr &&
+         (!causal || pos_div != 1 || q_seg != nullptr || drop_seed != nullptr);
+}
+
 // Dropout (seed null: none): a threshold in [0, 2^31), a keep factor of 1
 // or more, the (b, h) stream's head count; one row per position (pos_div 1)
 // and one KV split, as JAX (flash_fwd.py:905-929).
@@ -696,9 +735,10 @@ bool bad_split(int n_q, int n_kv, const Split& split) {
 // seed and offsets of attention dropout (dropout.cuh), or null for none;
 // drop_threshold, drop_inv_keep: min(round(rate 2^31), 2^31 - 1) and the
 // fp32 of 1 / (1 - rate); drop_heads: the (b, h) stream's head count
-// (dropout: pos_div 1 and one split).  bf16 with pos_div == 1 and n_q > 16,
-// or with segment ids or dropout, runs the wgmma kernel
-// (flash_fwd_sm90.cuh).
+// (dropout: pos_div 1 and one split).  kv_pos: a rolling cache's int32
+// [B, N_kv] positions, or null (bad_pos).  bf16 with pos_div == 1 and
+// n_q > 16, or with segment ids or dropout, runs the wgmma kernel
+// (flash_fwd_sm90.cuh; with kv_pos its position walk).
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
@@ -706,8 +746,8 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              int causal, int pos_div, int dtype, int window, int sinks,
                              const void* q_seg, const void* kv_seg, float softcap,
                              const void* slopes, const void* drop_seed, int drop_threshold,
-                             float drop_inv_keep, int drop_heads, int kv_chunk, void* part,
-                             void* tickets, void* stream) {
+                             float drop_inv_keep, int drop_heads, const void* kv_pos,
+                             int kv_chunk, void* part, void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   const bool seg = q_seg != nullptr;
   const bool drop = drop_seed != nullptr;
@@ -715,18 +755,29 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
       n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
       seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv)) ||
       bad_xf(softcap, slopes, pos_div, q_offset) ||
-      bad_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, pos_div, kv_chunk, n_kv)) {
+      bad_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, pos_div, kv_chunk, n_kv) ||
+      bad_pos(kv_pos, causal, pos_div, q_seg, drop_seed)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f = make_feat(window, sinks, q_seg, kv_seg, softcap, slopes,
-                           make_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads));
+  Feat f = make_feat(window, sinks, q_seg, kv_seg, softcap, slopes,
+                     make_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads));
+  f.kv_pos = static_cast<const int*>(kv_pos);
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
+  // A rolling cache's bf16 prefill chunks: the wgmma kernel's position walk.
+  if (kv_pos != nullptr && dtype == 0 && n_q > kDecodeRows) {
+    return (int)(head_dim == 64
+                     ? sm90::launch_fwd_pos<64>(q, k, v, off, o, lse, batch, n_heads, n_kv_heads,
+                                                n_q, n_kv, sm_scale, f, s)
+                     : sm90::launch_fwd_pos<128>(q, k, v, off, o, lse, batch, n_heads,
+                                                 n_kv_heads, n_q, n_kv, sm_scale, f, s));
+  }
   // Segment ids and dropout take the wgmma kernel at any n_q; a window,
   // segment ids, the score transforms or dropout take its featured walks,
   // the rest the causal walk as before.
-  const bool wgmma = dtype == 0 && pos_div == 1 && (n_q > kDecodeRows || seg || drop);
+  const bool wgmma =
+      dtype == 0 && pos_div == 1 && (n_q > kDecodeRows || seg || drop) && kv_pos == nullptr;
   const bool featured = seg || f.window != kNoWindow || f.xf() || drop;
   if (wgmma && featured) {
     return (int)(head_dim == 64
@@ -746,11 +797,11 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                            q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, n_q, sm_scale,
                            causal, 1, s, 0, f));
   }
-  if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 64) {
+  if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 64 && kv_pos == nullptr) {
     return (int)sm90::launch_fwd<64>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
                                      n_kv, sm_scale, causal, s);
   }
-  if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 128) {
+  if (dtype == 0 && pos_div == 1 && n_q > kDecodeRows && head_dim == 128 && kv_pos == nullptr) {
     return (int)sm90::launch_fwd<128>(q, k, v, off, 0, o, lse, batch, n_heads, n_kv_heads, n_q,
                                       n_kv, sm_scale, causal, s);
   }
@@ -787,7 +838,8 @@ cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o
 
 // Dense 8-bit cache: k_q, v_q [B, H_kv, N, D] int8 / fp8; k_scale, v_scale
 // fp32 [B, H_kv, N]; q_offset int32 [B] (read only when causal); lse fp32
-// [B, H, N_q] or null.
+// [B, H, N_q] or null; kv_pos a rolling cache's int32 [B, N] positions or
+// null (causal, pos_div 1).
 extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                const void* k_scale, const void* v_scale,
                                const void* q_offset, void* o, void* lse,
@@ -795,15 +847,17 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                int n_kv, int head_dim, float sm_scale,
                                int causal, int pos_div, int dtype,
                                int kv_dtype, int window, int sinks, float softcap,
-                               const void* slopes, int kv_chunk, void* part, void* tickets,
-                               void* stream) {
+                               const void* slopes, const void* kv_pos, int kv_chunk, void* part,
+                               void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
-      bad_xf(softcap, slopes, pos_div, q_offset) || (slopes != nullptr && !causal)) {
+      bad_xf(softcap, slopes, pos_div, q_offset) || (slopes != nullptr && !causal) ||
+      bad_pos(kv_pos, causal, pos_div, nullptr, nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Feat f = make_feat(window, sinks, nullptr, nullptr, softcap, slopes);
+  Feat f = make_feat(window, sinks, nullptr, nullptr, softcap, slopes);
+  f.kv_pos = static_cast<const int*>(kv_pos);
   const KvArgs kv{k_q, v_q, static_cast<const float*>(k_scale),
                   static_cast<const float*>(v_scale), nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

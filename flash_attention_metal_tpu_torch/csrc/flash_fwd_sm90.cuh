@@ -95,6 +95,16 @@
 //     words of each of its two Q rows once per step; a full pair fetches
 //     and tests nothing.  An empty list walks no step: o = 0, lse = -inf.
 //     Step entries are read from the list a step ahead of their fetches.
+//   * PosWalk (row 1 over a rolling cache, flash_fwd.py::_fwd_kernel's
+//     kv_positions): the KV slots carry the positions they hold (kv_pos
+//     [B, N_kv], -1 for none), and the mask, the window and ALiBi's
+//     distance act on those: slot j is visible to row r when 0 <= pos <=
+//     r + off and, under the window, pos > r + off - window or pos < sinks.
+//     Slot order is not position order after a wrap, so the walk visits
+//     every KV tile and compares every element (JAX turns its block skip
+//     off too, flash_fwd.py:319); the tile's 64 positions ride the K ring's
+//     bit stage beside K.  It reads the window, sinks, cap and slopes at run
+//     time (one instance a head dim).
 // Block shape: one warpgroup, not two.  At lean's N = 1024, B 8, H 1 there
 // are only 128 tiles of 64 rows: 128-row blocks would leave half of the
 // 132 SMs idle.  At the training shape (2048 tiles) two consumer
@@ -319,6 +329,84 @@ struct FeatWalk {
         m.dat[1] = drow[1] + col;
       }
       return m;
+    }
+  };
+};
+
+// The dense walk over a rolling cache (see the header): q_offset int32
+// [B] (causal), kv_pos int32 [B, N_kv]; the window (kNoWindow: none), the
+// sinks and the transforms (xf.cuh: cap 0 for none, slopes null for none)
+// read at run time.  Positions below 2^23 convert to float exactly by one
+// integer and one float add (pos_float), not an int-to-float conversion per
+// score, which runs at the special-function unit's rate (PERF.md §6).
+struct PosWalk {
+  static constexpr bool kBits = true;  // the bit stage holds the KV tile's positions
+  const int* q_offset;
+  const int* kv_pos;
+  int window = kNoWindow, sinks = 0;
+  float softcap = 0.0f, sm_scale = 0.0f;
+  const float* slopes = nullptr;
+
+  // 0 <= x < 2^23 as a float: the bits of 2^23 + x, less 2^23.
+  static __device__ __forceinline__ float pos_float(int x) {
+    return __int_as_float(0x4B000000 + x) - 8388608.0f;
+  }
+
+  // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
+  // e >= 2), slot c0 + 8 j + (e & 1) holding position pos[8 j + (e & 1)];
+  // rowf: this thread's two rows' positions as floats.
+  struct Mask {
+    static constexpr bool kXf = true;
+    static constexpr bool kDrop = false;
+    bool full;
+    int c0, r0, off, n_kv, window, sinks;
+    const uint32_t* pos;
+    XfHead xf;
+    float rowf[2];
+    __device__ bool seen(int j, int e) const {
+      const int c = c0 + j * 8 + (e & 1);
+      const int p = r0 + (e >> 1) * 8 + off;
+      const int cp = (int)pos[j * 8 + (e & 1)];
+      return c < n_kv && cp >= 0 && cp <= p && in_window(cp, p, window, sinks);
+    }
+    // Element (j, e)'s distance pos - p (read only where seen, pos >= 0).
+    __device__ float dist(int j, int e) const {
+      return pos_float((int)pos[j * 8 + (e & 1)]) - rowf[e >> 1];
+    }
+  };
+
+  // A block per (Q tile, q-head, batch), the last Q tile first, over every
+  // KV tile.
+  struct Blk {
+    int b, h, q_start, n_steps, off, n_kv, window, sinks;
+    const int* kv_pos;
+    XfHead xf;
+    float rowf[2];
+    __device__ Blk(const PosWalk& w, int, int, int n_kv_) {
+      n_kv = n_kv_;
+      b = blockIdx.z;
+      h = blockIdx.y;
+      q_start = (gridDim.x - 1 - blockIdx.x) * kTile;
+      off = w.q_offset[b];
+      window = w.window;
+      sinks = w.sinks;
+      xf = XfHead(w.softcap, w.slopes, h, w.sm_scale);
+      n_steps = (n_kv + kTile - 1) / kTile;
+      kv_pos = w.kv_pos + (size_t)b * n_kv;
+      // This thread's two Q rows' positions, once a block.
+      const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+      rowf[0] = (float)(q_start + row + off);
+      rowf[1] = rowf[0] + 8.0f;
+    }
+    __device__ int2 entry(int j) const { return make_int2(j, -1); }
+    // The KV tile's positions ride the K ring's bit stage (0 past n_kv,
+    // where the column test hides them).
+    __device__ void fetch_bits(uint32_t* dst, int2 entry) const {
+      load_ids<kTile>(dst, kv_pos + entry.x * kTile, n_kv - entry.x * kTile);
+    }
+    __device__ Mask mask(int2 entry, const uint32_t* bits, int row, int t) const {
+      return Mask{false, entry.x * kTile + 2 * t, q_start + row, off, n_kv, window, sinks,
+                  bits + 2 * t, xf, {rowf[0], rowf[1]}};
     }
   };
 };
@@ -675,6 +763,18 @@ cudaError_t launch_fwd_feat(const void* q, const void* k, const void* v, const i
   }
   return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
                    FeatWalk<false>{q_offset, 0, causal, f.window, f.sinks}, grid, stream);
+}
+
+// The position walk over a rolling cache: q_offset int32 [B], f.kv_pos
+// [B, N_kv], f's window, sinks and transforms.
+template <int D>
+cudaError_t launch_fwd_pos(const void* q, const void* k, const void* v, const int* q_offset,
+                           void* o, void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
+                           int n_kv, float sm_scale, const Feat& f, cudaStream_t stream) {
+  const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
+  return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                   PosWalk{q_offset, f.kv_pos, f.window, f.sinks, f.softcap, sm_scale, f.slopes},
+                   grid, stream);
 }
 
 // The sparse walk: grid (q-head x batch, Q tiles).

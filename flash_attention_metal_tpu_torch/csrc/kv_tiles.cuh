@@ -59,6 +59,7 @@ struct DecodeCall {
   int sinks = 0;
   float softcap = 0.0f;       // the score transforms (xf.cuh): 0 for no cap,
   const float* slopes = nullptr;  // fp32 [H_q] ALiBi slopes or null
+  const int* kv_pos = nullptr;    // a rolling cache's int32 [B, n_kv] positions, or null
 };
 
 // The decode grid for a cache in q's own type (bf16 / fp32), int8, e4m3 and

@@ -38,7 +38,8 @@ constexpr int kNoWindow = 1 << 30;
 // q_seg, kv_seg: int32 [B, N_q] and [B, N_kv], or null for none; the score
 // transforms (xf.cuh): softcap 0 for none, slopes fp32 [H_q] or null;
 // drop: attention dropout (dropout.cuh; the general forward and the split
-// pair only), its seed null for none.
+// pair only), its seed null for none; kv_pos: a rolling cache's int32
+// [B, N_kv] positions (the forward kernels over a dense cache), or null.
 struct Feat {
   int window = kNoWindow;
   int sinks = 0;
@@ -47,6 +48,7 @@ struct Feat {
   float softcap = 0.0f;
   const float* slopes = nullptr;
   Drop drop = {};
+  const int* kv_pos = nullptr;
   __host__ __device__ bool xf() const { return softcap > 0.0f || slopes != nullptr; }
 };
 

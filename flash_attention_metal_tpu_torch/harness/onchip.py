@@ -75,6 +75,7 @@ from ..kernels.flash_fwd import (
     flash_attention_fwd_plain,
     flash_fwd_lean,
     flash_fwd_lean_plain,
+    plain_visible,
 )
 from ..kernels.flash_tri import (
     flash_attention_bwd_tri,
@@ -99,7 +100,12 @@ from ..kernels.paged import (
     flash_attention_paged_plain,
     flash_attention_paged_quant,
 )
-from ..kernels.quant import flash_attention_quant, flash_attention_quant_plain, quantize_kv
+from ..kernels.quant import (
+    dequantize_kv,
+    flash_attention_quant,
+    flash_attention_quant_plain,
+    quantize_kv,
+)
 from ..models import transformer
 from ..runtime import decode as decode_mod
 from ..runtime.kv_cache import as_bytes
@@ -1271,6 +1277,217 @@ def kv_work(kernel: str, args: tuple, pos_div: int, window: Optional[int] = None
     if kernel == "flash_quant":
         nbytes += 4 * q.numel() // head_dim
     return 4.0 * head_dim * pairs, nbytes
+
+
+# ---------------------------------------------------------------------------
+# A rolling cache's position map (kv_positions): rows 1 and 11 in position
+# space, the wgmma forward's position walk, the template's and the decode
+# grid's kPos instances, against their plain versions.
+# ---------------------------------------------------------------------------
+
+# The rolling cache of the windowed FlashLM (W 512, 4 sinks):
+# ceil((512 + 4) / 128) * 128 + 128 slots, as DecodeEngine(rolling=True).
+ROLL_CAP = 768
+# Tokens each slot has seen (the query rows' included) at decode: a slot
+# that has not filled the cache (most slots -1), one at the capacity, and
+# slots wrapped once to six times.
+POS_DECODE_TOTALS = (1, 37, 300, 700, 768, 1000, 3000, 5000)
+# Decode totals whose rows' windows all lie near them (fp32 under ALiBi:
+# XF_OFFSETS' note on far rows).
+POS_NEAR_TOTALS = (1, 37, 100, 300, 500, 700, 760, 768)
+# A prefill chunk of 128 rows: a wrapped slot and a short one.
+POS_PREFILL_TOTALS = (2000, 300)
+# Share of the slots whose position is set to -1 (holes: a padded row's
+# slot, or one never written), beside the slots no token reached.
+POS_HOLES = 0.05
+_W = dict(window=WINDOW, sinks=SINKS)
+_XF = dict(window=WINDOW, sinks=SINKS, softcap=30.0, alibi="std")
+_S70 = dict(window=WINDOW, sinks=70)
+POS_PREFILL_Q, POS_PREFILL_KV = (2, 16, 128, 64), (2, 8, ROLL_CAP, 64)
+POS_DECODE_Q, POS_DECODE_KV = (8, 16, 1, 64), (8, 8, ROLL_CAP, 64)
+POS_PREFILL_D128_Q, POS_PREFILL_D128_KV = (2, 16, 128, 128), (2, 8, ROLL_CAP, 128)
+POS_DECODE_D128_Q, POS_DECODE_D128_KV = (8, 16, 1, 128), (8, 8, ROLL_CAP, 128)
+# (name, kernel: "fwd" (row 1) or the 8-bit cache of row 11, q shape, kv
+# shape, dtype, fixture, totals, features).  The sinks-70 cases make the
+# sinks a visible share of every long row (a fault that drops them shows).
+POS_CASES = (
+    ("pos_prefill_bf16", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "ladder",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_prefill_bf16_peaked", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_prefill_bf16_spike", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "spike",
+     (2000, 900), _W),
+    ("pos_prefill_bf16_xf", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _XF),
+    ("pos_prefill_bf16_s70", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _S70),
+    ("pos_prefill_bf16_d128", "fwd", POS_PREFILL_D128_Q, POS_PREFILL_D128_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_prefill_bf16_xf_d128", "fwd", POS_PREFILL_D128_Q, POS_PREFILL_D128_KV, "bf16",
+     "peaked", POS_PREFILL_TOTALS, _XF),
+    ("pos_prefill_fp32", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_prefill_fp32_s70", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked",
+     POS_PREFILL_TOTALS, _S70),
+    ("pos_prefill_fp32_xf", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked", (700, 300),
+     _XF),
+    ("pos_prefill_fp32_d128", "fwd", POS_PREFILL_D128_Q, POS_PREFILL_D128_KV, "fp32", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_decode_bf16", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "ladder", POS_DECODE_TOTALS,
+     _W),
+    ("pos_decode_bf16_peaked", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _W),
+    ("pos_decode_bf16_spike", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "spike",
+     POS_DECODE_TOTALS, _W),
+    ("pos_decode_bf16_negative", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "negative",
+     POS_DECODE_TOTALS, _W),
+    ("pos_decode_bf16_xf", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _XF),
+    ("pos_decode_bf16_s70", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _S70),
+    ("pos_decode_bf16_d128", "fwd", POS_DECODE_D128_Q, POS_DECODE_D128_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _W),
+    ("pos_decode_fp32", "fwd", POS_DECODE_Q, POS_DECODE_KV, "fp32", "peaked", POS_DECODE_TOTALS,
+     _W),
+    ("pos_decode_fp32_xf", "fwd", POS_DECODE_Q, POS_DECODE_KV, "fp32", "peaked", POS_NEAR_TOTALS,
+     _XF),
+    ("pos_decode_fp32_d128", "fwd", POS_DECODE_D128_Q, POS_DECODE_D128_KV, "fp32", "peaked",
+     POS_DECODE_TOTALS, _W),
+    ("pos_prefill_int8", "int8", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_prefill_int8_xf", "int8", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _XF),
+    ("pos_prefill_int8_d128", "int8", POS_PREFILL_D128_Q, POS_PREFILL_D128_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_prefill_int8_fp32", "int8", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked",
+     POS_PREFILL_TOTALS, _W),
+    ("pos_decode_int8", "int8", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked", POS_DECODE_TOTALS,
+     _W),
+    ("pos_decode_int8_xf", "int8", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _XF),
+    ("pos_decode_int8_d128", "int8", POS_DECODE_D128_Q, POS_DECODE_D128_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _W),
+    ("pos_decode_int8_fp32", "int8", POS_DECODE_Q, POS_DECODE_KV, "fp32", "peaked",
+     POS_DECODE_TOTALS, _W),
+    ("pos_decode_e4m3", "e4m3", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked", POS_DECODE_TOTALS,
+     _W),
+)
+_QDT = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+
+
+def rolling_positions(totals, capacity: int, sinks: int, gen: torch.Generator,
+                      holes: float = POS_HOLES) -> torch.Tensor:
+    """int32 ``[B, capacity]`` position maps on the card, one per slot
+    count in ``totals``: each position below ``totals[b]`` in its rolling
+    slot (``runtime.kv_cache.rolling_slots``; the latest writer wins), then
+    the slots shuffled (a kernel must not rely on slot order) and a
+    ``holes`` share of them set to -1."""
+    rows = []
+    for total in totals:
+        pos = np.full(capacity, -1, np.int64)
+        p = np.arange(total)
+        slots = np.where(p < sinks, p, sinks + (p - sinks) % (capacity - sinks))
+        np.maximum.at(pos, slots, p)
+        rows.append(torch.from_numpy(pos))
+    pos = torch.stack(rows).to("cuda")
+    perm = torch.argsort(torch.rand(pos.shape, generator=gen, device="cuda"), dim=1)
+    pos = pos.gather(1, perm)
+    drop = torch.rand(pos.shape, generator=gen, device="cuda") < holes
+    return pos.masked_fill(drop, -1).to(torch.int32).contiguous()
+
+
+def pos_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
+    """``{name: (kernel, q, kv, q_offset, kv_positions, features)}`` of
+    ``POS_CASES`` (all, or ``names``): ``kv`` the ``(k, v)`` pair, or for
+    an 8-bit kernel its ``QuantizedKV``; row ``r`` of batch ``b`` at
+    position ``totals[b] - n_q + r``, so the last row is the slot's newest
+    token."""
+    cases = {}
+    for name, kernel, sq, skv, dt, fixture, totals, feats in POS_CASES:
+        if names is not None and name not in names:
+            continue
+        q, k, v = _fixture(sq, skv, _DTYPES[dt], gen, fixture)
+        kv = (k, v) if kernel == "fwd" else quantize_kv(k, v, _QDT[kernel])
+        pos = rolling_positions(totals, skv[2], feats["sinks"], gen)
+        offs = torch.tensor([t - sq[2] for t in totals], dtype=torch.int32, device="cuda")
+        feats = dict(feats, causal=True)
+        if "alibi" in feats:
+            feats["alibi_slopes"] = alibi_slopes(feats.pop("alibi"), sq[1])
+        cases[name] = (kernel, q, kv, offs, pos, feats)
+    return cases
+
+
+def _pos_kv(case: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A case's K/V in q's type (an 8-bit cache dequantized)."""
+    kernel, q, kv = case[:3]
+    return kv if kernel == "fwd" else dequantize_kv(kv, q.dtype)
+
+
+def pos_call(case: tuple, plain: bool = False, linear: bool = False):
+    """The case's kernel with the lse (``plain``: its fp32 plain version):
+    ``flash_attention_fwd`` or ``flash_attention_quant``.  ``linear``: the
+    index-space windowed call with the same visible pairs, on a linear
+    cache of the rolling cache's length, each row at position ``min(p,
+    capacity - n_q + r)`` (a row that has filled the cache sees the
+    window's and the sinks' columns there)."""
+    kernel, q, kv, off, pos, feats = case
+    if linear:
+        cap = (kv[0] if kernel == "fwd" else kv.k_q).shape[2]
+        off, pos = torch.clamp(off, max=cap - q.shape[2]).to(torch.int32), None
+    scale = default_scale(q.shape[-1])
+    if kernel == "fwd":
+        k, v = kv
+        if plain:
+            return flash_attention_fwd_plain(q.float(), k.float(), v.float(), off, sm_scale=scale,
+                                             save_lse=True, kv_positions=pos, **feats)
+        return flash_attention_fwd(q, k, v, off, save_lse=True, kv_positions=pos, **feats)
+    if plain:
+        return flash_attention_quant_plain(q.float(), kv, off, sm_scale=scale, save_lse=True,
+                                           kv_positions=pos, **feats)
+    return flash_attention_quant(q, kv, off, pos, save_lse=True, **feats)
+
+
+def pos_error(case: tuple) -> Tuple[float, float]:
+    """Errors of a ``pos_cases`` entry's kernel against its plain version
+    (see ``_fwd_errors``)."""
+    return _fwd_errors(pos_call(case), pos_call(case, plain=True))
+
+
+def _pos_visible(case: tuple) -> torch.Tensor:
+    kernel, q, kv, off, pos, feats = case
+    return plain_visible(q.shape[2], pos.shape[1], off, causal=True, window=feats["window"],
+                         sinks=feats["sinks"], device=q.device, kv_positions=pos)
+
+
+def pos_work(case: tuple) -> Tuple[float, float]:
+    """``(flops, bytes)`` a position-map call must do on this data: 4 * D
+    flops per visible (row, slot) pair; each KV row a row sees read once
+    (an 8-bit row with its two scales), the positions, q and o read or
+    written once, and the lse."""
+    kernel, q, kv, off, pos, feats = case
+    heads, n_q, head_dim = q.shape[1:]
+    k = kv[0] if kernel == "fwd" else kv.k_q
+    visible = _pos_visible(case)
+    pairs = heads * int(visible.sum())
+    rows = k.shape[1] * int(visible.any(dim=2).sum())
+    nbytes = kv_cache_bytes(rows, head_dim, k.element_size(), scaled=kernel != "fwd")
+    nbytes += pos.numel() * 4 + 2 * q.numel() * q.element_size() + 4 * q.numel() // head_dim
+    return 4.0 * head_dim * pairs, nbytes
+
+
+def pos_sdpa_ms(case: tuple) -> float:
+    """SDPA on the case's K/V in q's type (an 8-bit cache dequantized) under
+    the boolean mask of the positions' visible pairs (ALiBi as its float
+    bias)."""
+    kernel, q, kv, off, pos, feats = case
+    k, v = _pos_kv(case)
+    mask = visible = _pos_visible(case)
+    if feats.get("alibi_slopes") is not None:
+        rowp = torch.arange(q.shape[2], device="cuda")[None, :, None] + off[:, None, None].long()
+        dist = (pos.long()[:, None, :] - rowp).float()[:, None]
+        mask = (feats["alibi_slopes"].reshape(1, -1, 1, 1) * dist).masked_fill(
+            ~visible, float("-inf")).to(q.dtype)
+    return sdpa_ms(q, k, v, mask=mask)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@
 Counterpart of ``flash_attention_metal_tpu/harness/serving.py``:
 continuous-batching decode throughput of ``DecodeEngine`` on a FlashLM
 model in each serving mode (``SERVING_MODES``: the dense, 8-bit and paged
-caches, and prefix sharing), timed on the host clock between device
-fences.  ``host_context`` records the card's name and power limit, since a
+caches, prefix sharing, the rolling caches of a sliding-window model,
+multi-step dispatch, weight-only int8 and speculative decoding), timed on
+the host clock between device fences.  ``host_context`` records the card's name and power limit, since a
 card set below its maximum power runs slower under load.
 
 ``teacher_forced_errors`` is the check that the served path is right: the
@@ -24,8 +25,11 @@ import numpy as np
 import torch
 
 from ..models.transformer import ModelConfig, Params, forward, init_params
-from ..runtime.decode import decode_step
+from ..models.wquant import quantize_weights
+from ..runtime.decode import decode_and_sample_multi, decode_step
 from ..runtime.engine import DecodeEngine, Request
+from ..runtime.kv_cache import bump_lengths
+from ..runtime.speculative import _forward_chunk
 
 # Largest relative L2 error ||served - reference|| / ||reference|| allowed
 # for one step's [V] logits by ``teacher_forced_errors`` with bf16
@@ -49,8 +53,28 @@ LOGITS_REL_L2_TOL = 5e-2
 LOGITS_REL_L2_TOL_INT8 = 5e-2
 LOGITS_REL_L2_TOL_FP8 = 1.5e-1
 
-# Each serving mode: the engine's cache options, and the bound on its
-# served logits (the prefix-shared mode serves from the paged cache).
+# The speculative mode's draft: a 2-layer, d 512 FlashLM of the target's
+# vocab, head dim and dtype, its weights seeded apart from the target's.
+DRAFT_D512 = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=4, d_ff=2048)
+
+# Each serving mode: the engine's options, and the bound on its served
+# logits (the prefix-shared mode serves from the paged cache).  Two
+# options are not the engine's: ``weight_quant`` serves the weight-only
+# int8 tree of the model (``models/wquant.py``) and ``draft`` builds the
+# draft model of those sizes (``engine_options``).  The bounds of the new
+# modes, each against the plain fp32 forward of the same weights:
+#   * rolling, rolling_int8: the dense and int8 caches' bounds.  The rolling
+#     cache holds the same values in other slots, and the kernels mask in
+#     position space, so only the cache's format adds error; a slot whose
+#     position is off by one (tests/test_torch_rolling.py) exceeds them.
+#   * multi_step_8: the dense bound; each step of the dispatch is a dense
+#     decode step, fed the token the step before it chose on the device (a
+#     step fed another token, or none, reads far past it).
+#   * weight_int8: the dense bound, against the fp32 forward of the
+#     dequantized weights (the same tree): the int8 rounding is in both,
+#     and what is left is the bf16 one.
+#   * speculative: the dense bound on the verify chunk's logits (gamma + 1
+#     rows a call at each slot's offset, the decode grid's multi-row tile).
 SERVING_MODES = {
     "dense": (dict(), LOGITS_REL_L2_TOL),
     "int8": (dict(kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
@@ -58,7 +82,37 @@ SERVING_MODES = {
     "paged": (dict(paged=True), LOGITS_REL_L2_TOL),
     "paged_prefix_shared": (dict(paged=True, prefix_share=True), LOGITS_REL_L2_TOL),
     "paged_int8": (dict(paged=True, kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
+    "rolling": (dict(rolling=True), LOGITS_REL_L2_TOL),
+    "rolling_int8": (dict(rolling=True, kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
+    "multi_step_8": (dict(multi_step=8), LOGITS_REL_L2_TOL),
+    "weight_int8": (dict(weight_quant=True), LOGITS_REL_L2_TOL),
+    "speculative": (dict(draft=DRAFT_D512), LOGITS_REL_L2_TOL),
 }
+# The KV-cache modes: every model serves them (the rolling ones need a
+# sliding window).
+KV_MODES = ("dense", "int8", "fp8", "paged", "paged_prefix_shared", "paged_int8")
+
+
+def draft_model(cfg: ModelConfig, sizes: dict, seed: int, device) -> tuple:
+    """``(params, cfg)`` of a draft FlashLM of ``sizes`` (``DRAFT_D512``'s
+    keys) with ``cfg``'s vocab, head dim, dtype and length, seeded."""
+    dcfg = ModelConfig(vocab_size=cfg.vocab_size, head_dim=cfg.head_dim, dtype=cfg.dtype,
+                       max_seq_len=cfg.max_seq_len, **sizes)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    return init_params(dcfg, gen), dcfg
+
+
+def engine_options(params: Params, cfg: ModelConfig, options: dict, seed: int = 0) -> tuple:
+    """``(params, DecodeEngine keywords)`` of a mode's options: the
+    weight-only int8 tree for ``weight_quant``, a seeded draft model for
+    ``draft``."""
+    opts = dict(options)
+    if opts.pop("weight_quant", False):
+        params = quantize_weights(params)
+    if isinstance(opts.get("draft"), dict):
+        opts["draft"] = draft_model(cfg, opts["draft"], seed, params["embed"].device)
+    return params, opts
 
 # The widest FlashLM the repo records (the model of train_bench.json), as
 # ``build_engine`` keywords.
@@ -114,7 +168,8 @@ def build_engine(
     (``window``, ``sinks``: its sliding-window attention; ``softcap``,
     ``alibi``: its score transforms; ``attn_dropout``: its training-time
     dropout rate, which serving never applies: the engine passes no
-    seeds)."""
+    seeds).  ``engine_kwargs``: a ``SERVING_MODES`` entry's options
+    (``engine_options``) or the engine's own."""
     cfg = ModelConfig(
         vocab_size=vocab, d_model=d_model, n_layers=n_layers, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=64, d_ff=d_ff, max_seq_len=max_len,
@@ -123,10 +178,8 @@ def build_engine(
     )
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = init_params(cfg, gen)
-    eng = DecodeEngine(
-        params, cfg, max_batch=max_batch, max_len=max_len, seed=seed, **engine_kwargs
-    )
+    params, opts = engine_options(init_params(cfg, gen), cfg, engine_kwargs, seed)
+    eng = DecodeEngine(params, cfg, max_batch=max_batch, max_len=max_len, seed=seed, **opts)
     return eng, cfg
 
 
@@ -222,6 +275,7 @@ def teacher_forced_errors(
     max_len: int,
     seed: int = 0,
     mode: str = "dense",
+    reference_params: Optional[Params] = None,
 ) -> List[float]:
     """Relative L2 errors of served logits against a plain fp32 forward.
 
@@ -232,18 +286,25 @@ def teacher_forced_errors(
     one, whose tail alone is prefilled; at least one page must be adopted).
     Then ``n_decode`` teacher-forced ``decode_step``s feed seeded tokens to
     all slots at once, each after the engine's page growth
-    (``grow_for_decode``).  The reference runs the same tokens through
-    ``forward`` in fp32 with the oracle attention and no cache.  Returns
-    one error per slot per step (the prefill's last-token logits first).
-    Logits, not tokens, are compared: with random weights the top logit
-    flips on rounding.
+    (``grow_for_decode``); the speculative mode feeds them as its verify
+    chunks of ``gamma + 1`` rows (``n_decode`` a multiple of it).  A
+    multi-step mode runs the engine's dispatch (``decode_and_sample_multi``,
+    greedy) from the first seeded token: each step is fed the token the one
+    before it chose on the device, and those tokens are the ones the
+    reference forwards.  The
+    reference runs the same tokens through ``forward`` in fp32 with the
+    oracle attention and no cache, with the mode's weights (the weight-only
+    int8 tree dequantized).  Returns one error per slot per step (the
+    prefill's last-token logits first).  Logits, not tokens, are compared:
+    with random weights the top logit flips on rounding.
+    ``reference_params``: the reference's weights instead (the weight-only
+    int8 mode's error against the unquantized model).
     """
     device = params["embed"].device
     rng = np.random.default_rng(seed)
     cont = rng.integers(1, cfg.vocab_size, (len(prompts), n_decode))
-    eng = DecodeEngine(
-        params, cfg, max_batch=len(prompts), max_len=max_len, **SERVING_MODES[mode][0]
-    )
+    params, opts = engine_options(params, cfg, SERVING_MODES[mode][0], seed)
+    eng = DecodeEngine(params, cfg, max_batch=len(prompts), max_len=max_len, **opts)
     served: List[List[torch.Tensor]] = []
     for slot, prompt in enumerate(prompts):
         req = Request(uid=slot, prompt=list(prompt), max_new_tokens=n_decode)
@@ -254,18 +315,39 @@ def teacher_forced_errors(
     if SERVING_MODES[mode][0].get("prefix_share") and not eng.stats()["pages_adopted"]:
         raise ValueError("no prompt shares a full page with an earlier one")
     active = torch.ones((len(prompts),), dtype=torch.bool, device=device)
-    for t in range(n_decode):
-        eng.grow_for_decode(range(len(prompts)))
-        toks = torch.from_numpy(cont[:, t].astype(np.int32)).to(device)
-        logits, eng.cache = decode_step(params, cfg, eng.cache, toks, active)
+    multi = opts.get("multi_step", 1)
+    rows = eng._spec_gamma + 1 if "draft" in opts else 1
+    if n_decode % rows:
+        raise ValueError(f"n_decode={n_decode} must be a multiple of the {rows}-row chunk")
+    greedy = torch.zeros((len(prompts),), dtype=torch.float32, device=device)
+    chunk = max(multi, rows)
+    for t in range(0, n_decode, chunk):
+        n = min(chunk, n_decode - t)
+        eng.grow_for_decode(range(len(prompts)), n)
+        toks = torch.from_numpy(cont[:, t : t + n].astype(np.int32)).to(device)
+        if multi > 1:
+            # Each step is fed the token the one before it chose, on the
+            # device: those become the continuation the reference forwards.
+            chosen, _, eng.cache, logits = decode_and_sample_multi(
+                params, cfg, eng.cache, toks[:, 0], active, eng.generator, greedy, n_steps=n,
+                with_logits=True)
+            cont[:, t + 1 : t + n + 1] = chosen.T.cpu().numpy()[:, : n_decode - t - 1]
+            logits = logits.transpose(0, 1)
+        elif rows == 1:
+            logits, eng.cache = decode_step(params, cfg, eng.cache, toks[:, 0], active)
+            logits = logits[:, None]
+        else:
+            logits, eng.cache = _forward_chunk(params, cfg, eng.cache, toks)
+            eng.cache = bump_lengths(eng.cache, rows, active)
         for slot in range(len(prompts)):
-            served[slot].append(logits[slot])
+            served[slot].extend(logits[slot])
 
     ref_cfg = dataclasses.replace(cfg, dtype=torch.float32, attn_impl="reference")
     errors = []
     for slot, prompt in enumerate(prompts):
         seq = torch.tensor([list(prompt) + cont[slot].tolist()], device=device)
-        ref = forward(params, seq, ref_cfg)[0]
+        ref = forward(params if reference_params is None else reference_params, seq,
+                      ref_cfg)[0]
         for i, got in enumerate(served[slot]):
             errors.append(_rel_l2(got, ref[len(prompt) - 1 + i]))
     return errors

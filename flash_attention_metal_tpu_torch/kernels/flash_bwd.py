@@ -80,7 +80,6 @@ from .flash_fwd import (
     check_xf,
     is_static_offset,
     plain_visible,
-    reject_unported,
     row_positions,
     window_args,
     xf_exp,
@@ -500,7 +499,7 @@ def flash_attention_bwd(
     dropout_seed=None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
-    **features,
+    pos_div: int = 1,
 ) -> tuple:
     """``(dq, dk, dv)`` of flash attention over ``[B, H, N, D]`` inputs,
     and ``d_slopes`` (fp32 ``[H]``) last with ``alibi_slopes``, as the JAX
@@ -515,13 +514,11 @@ def flash_attention_bwd(
     default (``n_kv - n_q``) are the forward's.  ``pos_div`` raises
     NotImplementedError if set.
     """
-    pos_div = features.pop("pos_div", 1)
     if pos_div != 1:
         raise NotImplementedError(
             "pos_div (the GQA row-fold backward) is not ported: GQA is native "
             "in the port's kernels (see ROADMAP.md, Queue A item 5)"
         )
-    reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap,
                  alibi_slopes=alibi_slopes, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
                  dropout_offsets=dropout_offsets, dropout_heads=dropout_heads)
@@ -567,7 +564,9 @@ def flash_attention_bwd_fused(
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
     dropout_rate: float = 0.0,
-    **features,
+    dropout_seed=None,
+    dropout_offsets=None,
+    dropout_heads: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` from the fused 5-matmul kernel; arguments and
     results as ``flash_attention_bwd`` (``dk``, ``dv`` in ``k``'s dtype, as
@@ -590,7 +589,6 @@ def flash_attention_bwd_fused(
             "the fused backward takes no dropout: JAX's dispatcher routes it to the split pair "
             "(flash_bwd.py:496-508, flash_attention_bwd)"
         )
-    reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     if q.dtype == torch.float16:
         return _in_fp32(flash_attention_bwd_fused, q, k, v, o, do, lse, q_offset, dlse,
@@ -718,7 +716,6 @@ def flash_attention_bwd_auto(
     dropout_seed=None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
-    **features,
 ) -> tuple:
     """``(dq, dk, dv)``, routed to the triangular kernel, the fused kernel
     or the split pair (module docstring), and ``d_slopes`` last under ALiBi
@@ -728,7 +725,6 @@ def flash_attention_bwd_auto(
     reads it).  The triangular route returns ``dk`` and ``dv`` in fp32, the
     others in ``k``'s dtype, as in JAX.  The split pair's tiles are fixed:
     ``block_sizes`` only skips the tuned lookup."""
-    reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids)
     featured = window is not None or segment_ids is not None
     transformed = softcap is not None or alibi_slopes is not None or bool(dropout_rate)

@@ -49,8 +49,11 @@ keep factor hashed from a seed on the device and the score's tensor
 coordinates; the row statistics and the lse stay those of the undropped
 P.  It takes one row per position and one KV split, so a dropout call
 never takes the decode grid (bf16 runs the ``wgmma`` kernel, fp32 the
-template).  The feature still waiting (``UNPORTED_FEATURES``) raises
-``NotImplementedError`` on every route, naming its ROADMAP.md item.
+template).  The rolling caches' position map (``kv_positions``, int32 ``[B,
+N_kv]``: the global position each slot holds, -1 for none) moves the causal
+mask, the window and ALiBi's distance into position space; slot order is
+not position order after a wrap, so such a call visits every KV tile of
+the cache (the walks' and the decode grid's ``kPos`` instances).
 
 Each kernel's wrapper takes its plain version for a tensor on the CPU and
 launches the kernel, or raises, for a CUDA tensor.  Nothing falls back.
@@ -73,28 +76,31 @@ from ._common import dropout_inv_keep, dropout_threshold, keep_factors, pack_dro
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
-# Features of the JAX kernel not ported yet, each with its ROADMAP.md item
-# (Queue A): the rolling caches' position map.
-UNPORTED_FEATURES = {
-    "kv_positions": "Queue A item 3",
-}
-
-
-def reject_unported(features: dict) -> None:
-    """Raise for any requested feature the CUDA kernel does not take."""
-    unknown = sorted(set(features) - set(UNPORTED_FEATURES))
-    if unknown:
-        raise TypeError(f"unexpected keyword arguments {unknown}")
-    # None, 0, 0.0 and False are each feature's "off" value.
-    asked = sorted(
-        n for n, val in features.items()
-        if val is not None and not (isinstance(val, (bool, int, float)) and val == 0)
-    )
-    if asked:
-        items = ", ".join(f"{n}: {UNPORTED_FEATURES[n]}" for n in asked)
+def check_positions(kv_positions: Optional[torch.Tensor], batch: int, n_kv: int, *,
+                    causal: bool, pos_div: int = 1, dropout_rate: float = 0.0,
+                    device=None) -> Optional[torch.Tensor]:
+    """A rolling cache's position map as the kernels take it: int32 ``[B,
+    N_kv]``, contiguous, on ``device`` (None: none).  It needs ``causal`` and
+    takes no row fold, as in JAX (``flash_fwd.py:899-916``); dropout is a
+    training-path feature it takes none of (``ops/attention.py:404-412``)."""
+    if kv_positions is None:
+        return None
+    if not causal:
+        raise ValueError("kv_positions requires causal=True")
+    if pos_div != 1:
         raise NotImplementedError(
-            f"{asked} not ported to the PyTorch package yet (see ROADMAP.md, {items})"
+            "pos_div > 1 (GQA decode head-fold) does not compose with kv_positions"
         )
+    if dropout_rate:
+        raise NotImplementedError(
+            "dropout is a training-path feature; rolling-cache (kv_positions) serving does "
+            "not support it"
+        )
+    pos = torch.as_tensor(kv_positions)
+    if pos.dtype.is_floating_point or tuple(pos.shape) != (batch, n_kv):
+        raise ValueError(f"kv_positions must be integers [{batch}, {n_kv}], got "
+                         f"{pos.dtype} {tuple(pos.shape)}")
+    return pos.to(device=device, dtype=torch.int32).contiguous()
 
 
 def check_xf(softcap: Optional[float], alibi_slopes: Optional[torch.Tensor], heads: int,
@@ -169,7 +175,9 @@ def check_dropout(rate: float, seed, offsets=None, heads: Optional[int] = None, 
 
 
 def xf_parts(s: torch.Tensor, positions: torch.Tensor, softcap: Optional[float],
-             alibi_slopes: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+             alibi_slopes: Optional[torch.Tensor],
+             kv_positions: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The score transforms on fp32 natural scores ``s [B, H, N_q, N_kv]``:
     ``(t, bias)`` with ``t = cap * tanh(s / cap)`` (``s`` without a cap) and
     the ALiBi bias ``slope_h * (c - p)`` in float64 (None without slopes),
@@ -177,11 +185,14 @@ def xf_parts(s: torch.Tensor, positions: torch.Tensor, softcap: Optional[float],
     score is ``t + bias``; ``xf_exp`` takes ``exp(t + bias - ref)`` with the
     bias and the reference subtracted in float64, as the kernels do in one
     FMA (``csrc/xf.cuh``): a row far from every column it sees has scores
-    in the thousands, where fp32 would keep 2^-13 of each."""
+    in the thousands, where fp32 would keep 2^-13 of each.  With
+    ``kv_positions`` (``[B, N_kv]``) ``c`` is the position a slot holds."""
     t = softcap * torch.tanh(s / softcap) if softcap else s
     if alibi_slopes is None:
         return t, None
-    dist = (torch.arange(s.shape[-1], device=s.device) - positions).double()
+    cols = (torch.arange(s.shape[-1], device=s.device) if kv_positions is None
+            else kv_positions.to(s.device, torch.int64)[:, None, None, :])
+    dist = (cols - positions).double()
     return t, alibi_slopes.to(s.device, torch.float64).reshape(1, -1, 1, 1) * dist
 
 
@@ -232,16 +243,23 @@ def check_segment_ids(segment_ids: Optional[SegmentIds], batch: int, n_q: int, n
 
 def plain_visible(n_q: int, n_kv: int, q_offset: torch.Tensor, *, causal: bool,
                   pos_div: int = 1, window: Optional[int] = None, sinks: int = 0,
-                  segment_ids: Optional[SegmentIds] = None, device=None) -> torch.Tensor:
+                  segment_ids: Optional[SegmentIds] = None, device=None,
+                  kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bool ``[B or 1, 1, N_q, N_kv]``: the pairs a kernel's contract lets a
     row see.  With ``causal`` row ``r`` of batch ``b`` sits at position ``p
     = r // pos_div + q_offset[b]`` and sees ``c <= p``, with a window only
-    ``c > p - window`` unless ``c < sinks``; segment ids: equal ids only."""
+    ``c > p - window`` unless ``c < sinks``; segment ids: equal ids only.
+    With ``kv_positions`` (``[B, N_kv]``) ``c`` is the position slot ``j``
+    holds, and a slot of a negative position (never written) is hidden."""
     visible = torch.ones((1, 1, n_q, n_kv), dtype=torch.bool, device=device)
     if causal:
         col = torch.arange(n_kv, device=device)
         pos = row_positions(n_q, q_offset, pos_div, device)
+        if kv_positions is not None:
+            col = kv_positions.to(device, torch.int64)[:, None, None, :]
         visible = col <= pos
+        if kv_positions is not None:
+            visible = visible & (col >= 0)
         if window is not None:
             keep = col > pos - window
             if sinks:
@@ -371,7 +389,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale,
-                  window=None, sinks=0, segment_ids=None, softcap=None, alibi_slopes=None):
+                  window=None, sinks=0, segment_ids=None, softcap=None, alibi_slopes=None,
+                  kv_positions=None):
     """The plain versions' fp32 ``((t, bias), visible, v, v_scale
     columns)``: K/V repeated to q's heads, the K scale on each score
     column, the score transforms (``xf_parts``: the scores are ``t + bias``),
@@ -385,9 +404,11 @@ def _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div, k_scale, v_scale
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * sm_scale
     if k_scale is not None:
         s = s * k_scale.repeat_interleave(group, dim=1)[:, :, None, :]
-    s = xf_parts(s, row_positions(n_q, q_offset, pos_div, q.device), softcap, alibi_slopes)
+    s = xf_parts(s, row_positions(n_q, q_offset, pos_div, q.device), softcap, alibi_slopes,
+                 kv_positions)
     visible = plain_visible(n_q, n_kv, q_offset, causal=causal, pos_div=pos_div, window=window,
-                            sinks=sinks, segment_ids=segment_ids, device=q.device)
+                            sinks=sinks, segment_ids=segment_ids, device=q.device,
+                            kv_positions=kv_positions)
     v_cols = None if v_scale is None else v_scale.repeat_interleave(group, dim=1)[:, :, None, :]
     return s, visible, vf, v_cols
 
@@ -410,6 +431,7 @@ def flash_attention_fwd_plain(
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
     drop: Optional[Dropout] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``).
 
@@ -420,11 +442,12 @@ def flash_attention_fwd_plain(
     ``alibi_slopes``: see ``xf_parts`` (rows at ``r // pos_div +
     q_offset[b]``, also when not causal).  ``drop``: a checked ``Dropout``
     (``check_dropout``) or None; P of the PV product times its keep
-    factors, the row sums and the lse of the undropped P.
+    factors, the row sums and the lse of the undropped P.  ``kv_positions``:
+    a rolling cache's position map (``plain_visible``, ``xf_parts``).
     """
     (t, bias), visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
                                                    k_scale, v_scale, window, sinks, segment_ids,
-                                                   softcap, alibi_slopes)
+                                                   softcap, alibi_slopes, kv_positions)
     s = t if bias is None else t + bias.float()
     s = s.masked_fill(~visible, DEFAULT_MASK_VALUE)
     m = s.amax(dim=-1, keepdim=True)
@@ -460,6 +483,7 @@ def split_partials_plain(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decode grid's partials in fp32 PyTorch: ``(o_s, m_s, l_s)``, each
     with a leading split axis, for chunks of ``kv_chunk`` columns.
@@ -470,11 +494,11 @@ def split_partials_plain(
     * s_v * v``, not normalised.  A row that sees none of a split's columns
     (a chunk past the diagonal: an empty split) has ``m_s = -inf``, ``l_s =
     0`` and ``o_s = 0``: so is a split wholly outside a row's window and
-    sinks.
+    sinks, and under ``kv_positions`` a split of slots never written.
     """
     (t, bias), visible, vf, v_cols = _plain_scores(q, k, v, q_offset, sm_scale, causal, pos_div,
                                                    k_scale, v_scale, window, sinks, None, softcap,
-                                                   alibi_slopes)
+                                                   alibi_slopes, kv_positions)
     s = t if bias is None else t + bias.float()
     n_kv = k.shape[2]
     col = torch.arange(n_kv, device=q.device)
@@ -541,6 +565,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i32, i32, ptr, ptr,  # window (0: none), sinks, q segment ids, kv segment ids
         ctypes.c_float, ptr,  # softcap (0: none), ALiBi slopes
         ptr, i32, ctypes.c_float, i32,  # dropout seed (null: none), threshold, 1/keep, heads
+        ptr,  # kv positions (null: none)
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -626,6 +651,7 @@ def flash_fwd_general(
     dropout_seed=None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The general kernel (``csrc/flash_fwd.cu``; bf16 with ``pos_div ==
     1`` and more than ``DECODE_ROWS`` rows, or segment ids or dropout, on
@@ -652,7 +678,14 @@ def flash_fwd_general(
     (the global head count): attention dropout, each P of the PV product
     times the keep factor of its (batch, q-head, row, column), tensor
     indices plus the offsets (``_common.keep_factors``).  The lse is the
-    undropped one's.
+    undropped one's.  ``kv_positions`` (int32 ``[B, N_kv]``, needs
+    ``causal``, no row fold or dropout; with segment ids on CPU tensors
+    only): slot ``j`` holds position ``kv_positions[b, j]`` (-1: never
+    written, hidden), and the
+    causal mask, the window, the sinks and ALiBi's distance act on those
+    positions: row ``r`` at ``p = r + q_offset[b]`` sees slot ``j`` when
+    ``0 <= pos <= p`` (and ``pos > p - window`` or ``pos < sinks``).  Every
+    KV tile is visited: slot order is not position order.
     """
     check_shapes(q, k, v)
     batch, heads, n_q, head_dim = q.shape
@@ -664,6 +697,8 @@ def flash_fwd_general(
     w, n_sinks = window_args(window, sinks, causal)
     seg = check_segment_ids(segment_ids, batch, n_q, n_kv, q.device)
     cap, slopes = check_xf(softcap, alibi_slopes, heads, q.device, pos_div)
+    pos = check_positions(kv_positions, batch, n_kv, causal=causal, pos_div=pos_div,
+                          dropout_rate=dropout_rate, device=q.device)
     drop = check_dropout(dropout_rate, dropout_seed, dropout_offsets, dropout_heads, q.device,
                          pos_div)
     if sm_scale is None:
@@ -676,11 +711,17 @@ def flash_fwd_general(
         return flash_attention_fwd_plain(
             q, k, v, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
             save_lse=save_lse, window=window if w else None, sinks=n_sinks, segment_ids=seg,
-            softcap=softcap, alibi_slopes=slopes, drop=drop,
+            softcap=softcap, alibi_slopes=slopes, drop=drop, kv_positions=pos,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check_cuda_inputs(q, k, v, off)
+    if pos is not None and pos.device != q.device:
+        raise ValueError(f"kv_positions is on {pos.device}, q on {q.device}")
+    if pos is not None and seg is not None:
+        raise NotImplementedError(
+            "the CUDA position walks take no segment_ids with kv_positions (the plain version "
+            "on CPU tensors does; see ROADMAP.md, Queue C)")
     o, lse = _new_outputs(q, save_lse)
     grid, part, tickets, stream = split_args(q, n_kv, split=seg is None and drop is None)
     err = _lib().fam_flash_fwd(
@@ -688,12 +729,13 @@ def flash_fwd_general(
         batch, heads, k.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
         pos_div, _DTYPE_CODES[q.dtype], w, n_sinks, None if seg is None else seg.q.data_ptr(),
         None if seg is None else seg.kv.data_ptr(), cap, _ptr(slopes),
-        *(NO_DROPOUT_ARGS if drop is None else drop.c_args(heads)), grid.kv_chunk,
+        *(NO_DROPOUT_ARGS if drop is None else drop.c_args(heads)), _ptr(pos), grid.kv_chunk,
         _ptr(part), _ptr(tickets), stream,
     )
     if err:
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
     flash_fwd_general.launches += 1
+    flash_fwd_general.pos_launches += pos is not None
     flash_fwd_general.grid = grid
     return (o, lse) if save_lse else o
 
@@ -755,8 +797,11 @@ def flash_fwd_lean(
 
 
 # Launches of each CUDA kernel since import (the CPU route does not count),
-# and the general entry's grid at its last launch (None before one).
+# those of the general entry with a position map among them (its kPos
+# instances), and the general entry's grid at its last launch (None before
+# one).
 flash_fwd_general.launches = 0
+flash_fwd_general.pos_launches = 0
 flash_fwd_general.grid = None
 flash_fwd_lean.launches = 0
 
@@ -771,8 +816,8 @@ def fwd_route(n_kv: int, q_offset, *, causal: bool, pos_div: int = 1,
               featured: bool = False) -> str:
     """The kernel ``flash_attention_fwd`` runs: ``"tri"``, ``"lean"`` or
     ``"general"`` (the JAX router's rules without its Mosaic limits).
-    ``featured``: a window, segment ids, a score transform or dropout,
-    which only the general kernel takes (JAX ``flash_fwd.py:829-838,
+    ``featured``: a window, segment ids, a score transform, dropout or a
+    position map, which only the general kernel takes (JAX ``flash_fwd.py:829-838,
     932-958``)."""
     if is_static_offset(q_offset) and pos_div == 1 and not featured:
         if causal:
@@ -801,7 +846,7 @@ def flash_attention_fwd(
     dropout_seed=None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
-    **features,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash-attention forward over ``[B, H, N, D]`` inputs, routed to the
     triangular, lean or general kernel (see the module docstring).
@@ -809,13 +854,14 @@ def flash_attention_fwd(
     The contract is ``flash_fwd_general``'s: GQA, causal masking with
     ``q_offset`` (None, an int or a ``[B]`` tensor; default
     ``n_kv - n_q // pos_div``), ``pos_div`` rows per position, the window
-    with its sinks, segment ids, the softcap and ALiBi, dropout, ``o`` or
-    ``(o, lse)``.  fp16 inputs compute in fp32 and return fp16.
+    with its sinks, segment ids, the softcap and ALiBi, dropout, a rolling
+    cache's ``kv_positions``, ``o`` or ``(o, lse)``.  fp16 inputs compute in
+    fp32 and return fp16.
     """
-    reject_unported(features)
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap,
                  alibi_slopes=alibi_slopes, dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                 dropout_offsets=dropout_offsets, dropout_heads=dropout_heads)
+                 dropout_offsets=dropout_offsets, dropout_heads=dropout_heads,
+                 kv_positions=kv_positions)
     if q.dtype == torch.float16:
         out = flash_attention_fwd(
             q.float(), k.float(), v.float(), q_offset, sm_scale=sm_scale,
@@ -823,7 +869,7 @@ def flash_attention_fwd(
         )
         return (out[0].half(), out[1]) if save_lse else out.half()
     featured = bool(dropout_rate) or any(
-        x is not None for x in (window, segment_ids, softcap, alibi_slopes))
+        x is not None for x in (window, segment_ids, softcap, alibi_slopes, kv_positions))
     route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div, featured=featured)
     if route == "tri":
         from .flash_tri import flash_attention_tri

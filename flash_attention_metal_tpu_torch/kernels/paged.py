@@ -31,7 +31,6 @@ from .flash_fwd import (
     _ptr,
     check_xf,
     flash_attention_fwd_plain,
-    reject_unported,
     split_args,
     window_args,
 )
@@ -127,7 +126,6 @@ def flash_attention_paged(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
-    **features,
 ) -> torch.Tensor:
     """Causal flash attention reading a bf16/fp32 KV pool through a page
     table (``fam_flash_paged``).
@@ -141,7 +139,6 @@ def flash_attention_paged(
     * ``window``, ``sinks``, ``softcap``, ``alibi_slopes``: as
       ``flash_fwd.flash_fwd_general``'s (ALiBi with ``pos_div`` 1 only).
     """
-    reject_unported(features)
     w, n_sinks = window_args(window, sinks, True)
     _check(q, pool_k, pool_v, page_table, lengths, pos_div)
     cap, slopes = check_xf(softcap, alibi_slopes, q.shape[1], q.device, pos_div)
@@ -198,7 +195,6 @@ def flash_attention_paged_quant(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
-    **features,
 ) -> torch.Tensor:
     """Causal flash attention over an 8-bit paged pool
     (``fam_flash_paged_quant``): ``flash_attention_paged`` with
@@ -209,7 +205,6 @@ def flash_attention_paged_quant(
     * ``page_table`` / ``lengths``, ``window`` / ``sinks``, ``softcap`` /
       ``alibi_slopes``: as ``flash_attention_paged``.
     """
-    reject_unported(features)
     w, n_sinks = window_args(window, sinks, True)
     _check(q, pool_k_q, pool_v_q, page_table, lengths, pos_div)
     check_scales(pool_k_q, pool_v_q, pool_k_scale, pool_v_scale)

@@ -19,8 +19,9 @@ is a v5e fact, not this card's.
 The wrapper takes the plain version for a tensor on the CPU and launches
 the kernel, or raises, for a CUDA tensor.  It takes the JAX kernel's
 window with its sinks, the softcap and ALiBi (which, as in JAX
-``quant.py:377-384``, needs ``causal`` and no row fold); ``kv_positions``
-raises ``NotImplementedError`` (ROADMAP.md, Queue A item 3).
+``quant.py:377-384``, needs ``causal`` and no row fold), and a rolling
+cache's ``kv_positions`` (causal, no row fold), which moves the mask and
+ALiBi's distance into position space.
 """
 
 from __future__ import annotations
@@ -40,9 +41,9 @@ from .flash_fwd import (
     _offsets,
     _ptr,
     check_head_dim,
+    check_positions,
     check_xf,
     flash_attention_fwd_plain,
-    reject_unported,
     split_args,
     window_args,
 )
@@ -123,6 +124,7 @@ def flash_attention_quant_plain(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The kernel's contract in fp32 PyTorch (``q_offset``: int32 ``[B]``);
     the softcap acts on the score with its K scale, as in JAX."""
@@ -130,6 +132,7 @@ def flash_attention_quant_plain(
         q, qkv.k_q, qkv.v_q, q_offset, sm_scale=sm_scale, causal=causal,
         pos_div=pos_div, save_lse=save_lse, k_scale=qkv.k_scale, v_scale=qkv.v_scale,
         window=window, sinks=sinks, softcap=softcap, alibi_slopes=alibi_slopes,
+        kv_positions=kv_positions,
     )
 
 
@@ -143,6 +146,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f32, i32, i32, i32, i32,  # sm_scale, causal, pos_div, dtype, kv dtype
         i32, i32,  # window (0: none), sinks
         f32, ptr,  # softcap (0: none), ALiBi slopes
+        ptr,  # kv positions (null: none)
         i32, ptr, ptr,  # kv_chunk, part, tickets
         ptr,  # stream
     ]
@@ -220,7 +224,6 @@ def flash_attention_quant(
     sinks: int = 0,
     softcap: Optional[float] = None,
     alibi_slopes: Optional[torch.Tensor] = None,
-    **features,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Flash attention of ``q [B, H, N_q, D]`` (bf16/fp32) against an 8-bit
     cache (``csrc/flash_fwd.cu``, ``fam_flash_quant``).
@@ -234,9 +237,10 @@ def flash_attention_quant(
     ``window`` and ``sinks`` (with ``causal``) as ``flash_fwd_general``'s:
     the KV tiles outside both are skipped.  ``softcap`` and
     ``alibi_slopes`` as ``flash_fwd_general``'s, on the K-scaled score;
-    ALiBi needs ``causal`` and ``pos_div`` 1, as in JAX.
+    ALiBi needs ``causal`` and ``pos_div`` 1, as in JAX.  ``kv_positions``
+    (int32 ``[B, N_kv]``) as ``flash_fwd_general``'s: the mask, the window
+    and ALiBi in the positions the slots hold, every KV tile visited.
     """
-    reject_unported(dict(features, kv_positions=kv_positions))
     w, n_sinks = window_args(window, sinks, causal)
     if alibi_slopes is not None and not causal:
         raise ValueError("alibi_slopes requires causal=True on the quant path")
@@ -249,6 +253,8 @@ def flash_attention_quant(
         raise NotImplementedError("pos_div > 1 requires causal=True")
     cap, slopes = check_xf(softcap, alibi_slopes, heads, q.device, pos_div)
     n_kv = qkv.seq_len
+    pos = check_positions(kv_positions, batch, n_kv, causal=causal, pos_div=pos_div,
+                          device=q.device)
     if sm_scale is None:
         sm_scale = default_scale(head_dim)
     off = _offsets(q_offset, batch, n_kv - n_q // pos_div, q.device)
@@ -259,19 +265,22 @@ def flash_attention_quant(
         return flash_attention_quant_plain(
             q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div, save_lse=save_lse,
             window=window if w else None, sinks=n_sinks, softcap=softcap, alibi_slopes=slopes,
+            kv_positions=pos,
         )
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     check_cuda_tensors(
         q, dict(k_q=qkv.k_q, v_q=qkv.v_q),
-        dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale, q_offset=off),
+        dict(k_scale=qkv.k_scale, v_scale=qkv.v_scale, q_offset=off,
+             **({} if pos is None else dict(kv_positions=pos))),
     )
     return _launch_quant(q, qkv, off, sm_scale=sm_scale, causal=causal, pos_div=pos_div,
-                         save_lse=save_lse, window=w, sinks=n_sinks, softcap=cap, slopes=slopes)
+                         save_lse=save_lse, window=w, sinks=n_sinks, softcap=cap, slopes=slopes,
+                         kv_positions=pos)
 
 
 def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0, sinks=0,
-                  softcap=0.0, slopes=None):
+                  softcap=0.0, slopes=None, kv_positions=None):
     """``fam_flash_quant`` on checked tensors: ``o`` or ``(o, lse)``."""
     batch, heads, n_q, head_dim = q.shape
     n_kv = qkv.seq_len
@@ -282,16 +291,20 @@ def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0,
         qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, qkv.k_q.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
         pos_div, _DTYPE_CODES[q.dtype], KV_CODES[qkv.k_q.dtype], window, sinks,
-        softcap, _ptr(slopes), grid.kv_chunk, _ptr(part), _ptr(tickets), stream,
+        softcap, _ptr(slopes), _ptr(kv_positions), grid.kv_chunk, _ptr(part), _ptr(tickets),
+        stream,
     )
     if err:
         raise RuntimeError(f"flash_quant kernel launch failed: cudaError_t {err}")
     flash_attention_quant.launches += 1
+    flash_attention_quant.pos_launches += kv_positions is not None
     flash_attention_quant.grid = grid
     return (o, lse) if save_lse else o
 
 
 # Launches of the CUDA kernel since import (the CPU route does not count),
-# and its grid at the last launch (flash_fwd.SplitGrid; None before one).
+# those with a position map among them (its kPos instances), and its grid
+# at the last launch (flash_fwd.SplitGrid; None before one).
 flash_attention_quant.launches = 0
+flash_attention_quant.pos_launches = 0
 flash_attention_quant.grid = None

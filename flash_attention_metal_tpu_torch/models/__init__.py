@@ -1,4 +1,5 @@
-"""FlashLM, its loss and trainer, and its parameter loader."""
+"""FlashLM, its loss and trainer, its parameter loader, and weight-only
+int8 serving trees."""
 
 from .from_jax import params_from_jax
 from .losses import blockwise_softmax_xent, loss_fn_blockwise, perplexity
@@ -11,6 +12,7 @@ from .transformer import (
     loss_fn,
     sgd_train_step,
 )
+from .wquant import WEIGHT_QUANT_TARGETS, quantize_weight, quantize_weights, weight_bytes
 
 __all__ = [
     "AdamW",
@@ -25,6 +27,10 @@ __all__ = [
     "make_optimizer",
     "params_from_jax",
     "perplexity",
+    "quantize_weight",
+    "quantize_weights",
     "sgd_train_step",
     "synthetic_batches",
+    "weight_bytes",
+    "WEIGHT_QUANT_TARGETS",
 ]

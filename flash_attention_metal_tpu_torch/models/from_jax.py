@@ -32,16 +32,16 @@ def params_from_jax(
     default ``cfg.dtype``
     (for serving: the JAX model casts its fp32 masters to that dtype at
     every use); training passes ``torch.float32`` to keep fp32 masters.
-    Norm gains stay fp32.  Weight-only int8 and MoE layers are not ported
-    and raise.
+    Norm gains stay fp32.  A weight-only int8 matrix of
+    ``models/wquant.py`` (``{"qw", "scale"}``) comes across as it is: int8
+    ``qw`` and fp32 ``scale``.  MoE layers are not ported and raise.
     """
     store = cfg.dtype if dtype is None else dtype
 
     def tensor(a, dtype):
         if isinstance(a, Mapping):
-            raise NotImplementedError(
-                "weight-only int8 parameters are not ported (see ROADMAP.md)"
-            )
+            return {"qw": torch.from_numpy(np.array(a["qw"], dtype=np.int8)).to(device),
+                    "scale": tensor(a["scale"], torch.float32)}
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(
             device=device, dtype=dtype
         )

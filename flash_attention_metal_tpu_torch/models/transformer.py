@@ -119,8 +119,12 @@ def init_params(
     }
 
 
-def weight(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    """A dense weight in compute dtype (no copy when it is stored so)."""
+def weight(w, dt: torch.dtype) -> torch.Tensor:
+    """A dense weight in compute dtype (no copy when it is stored so), or a
+    weight-only int8 ``{"qw", "scale"}`` (``models/wquant.py``) dequantized
+    to it, as JAX's ``qw.astype(dt) * scale.astype(dt)``."""
+    if isinstance(w, dict):
+        return w["qw"].to(dt) * w["scale"].to(dt)
     return w.to(dt)
 
 

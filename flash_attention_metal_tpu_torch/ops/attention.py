@@ -15,7 +15,9 @@ takes the split pair whatever the saved decision, as JAX's dispatcher).
 Attention dropout's seed is packed once per call (with its offsets, on the
 device: a new seed every step costs no host sync) and saved for the
 backward, which rebuilds the same keep mask; its gradient is None, and a
-dropout call takes the split pair too.
+dropout call takes the split pair too.  A rolling cache's position map
+(``kv_positions``) is forward only, as in JAX: such a call goes straight to
+the forward router.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from ..config import SegmentIds, default_scale
 from ..kernels.flash_bwd import flash_attention_bwd_auto
-from ..kernels.flash_fwd import _offsets, check_dropout, flash_attention_fwd, reject_unported
+from ..kernels.flash_fwd import _offsets, check_dropout, flash_attention_fwd
 from ..reference.oracle import attention_reference, attention_reference_with_lse
 
 
@@ -87,7 +89,7 @@ def flash_attention(
     dropout_seed=None,
     dropout_offsets=None,
     dropout_heads: Optional[int] = None,
-    **features,
+    kv_positions: Optional[torch.Tensor] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Differentiable flash attention over ``[B, H, N, D]`` inputs.
 
@@ -130,8 +132,10 @@ def flash_attention(
         global call's mask.
       dropout_heads: the global head count of the (batch, head) stream
         (default: ``q_heads``).
-      features: the JAX op's kv_positions argument, which raises
-        NotImplementedError if set.
+      kv_positions: a rolling (wrapped) KV cache's ``[B, N_kv]`` int32
+        position map (-1: a slot never written): the causal mask, the
+        window and ALiBi act on the positions the slots hold.  Forward only
+        (the serving path), with ``causal``; it takes no dropout.
 
     Returns ``o`` with the shape and dtype of ``q``, or ``(o, lse)``.  When
     grad is enabled and an input requires it, the backward runs the
@@ -144,12 +148,26 @@ def flash_attention(
         raise ValueError(
             f"q heads ({q.shape[1]}) must be a multiple of kv heads ({k.shape[1]})"
         )
-    reject_unported(features)
+    if dropout_rate and kv_positions is not None:
+        raise NotImplementedError(
+            "dropout is a training-path feature; rolling-cache (kv_positions) serving does "
+            "not support it"
+        )
     feats = dict(window=window, sinks=sinks, segment_ids=segment_ids, softcap=softcap)
     if sm_scale is None:
         sm_scale = default_scale(q.shape[-1])
     if q_offset is None:
         q_offset = k.shape[2] - q.shape[2]
+    if kv_positions is not None:
+        # The rolling-cache serving path: forward only, straight to the router.
+        if torch.is_grad_enabled() and any(
+                torch.is_tensor(t) and t.requires_grad for t in (q, k, v, alibi_slopes)):
+            raise NotImplementedError("kv_positions is forward only (the serving path)")
+        return flash_attention_fwd(
+            q.contiguous(), k.contiguous(), v.contiguous(), q_offset, sm_scale=sm_scale,
+            causal=causal, save_lse=save_lse, alibi_slopes=alibi_slopes,
+            kv_positions=kv_positions, **feats,
+        )
     # The seed packed once with its offsets, on q's device: the forward and
     # the backward read it there.
     drop = check_dropout(dropout_rate, dropout_seed, dropout_offsets, dropout_heads, q.device)

@@ -1,10 +1,13 @@
-"""Prefill and single-step decode against the KV caches, and sampling.
+"""Prefill, single- and multi-step decode against the KV caches, and
+sampling.
 
 Counterpart of ``flash_attention_metal_tpu/runtime/decode.py`` on its
-dense, 8-bit, paged and paged 8-bit caches.  A decode step with per-slot
-valid lengths is causal flash attention with ``q_offset[b] = length[b]``,
-so stale cache rows past each slot's write head are masked like future
-tokens: one kernel per cache kind serves prefill and decode.
+dense, 8-bit, paged and paged 8-bit caches and the rolling (wrapped) dense
+and 8-bit caches.  A decode step with per-slot valid lengths is causal
+flash attention with ``q_offset[b] = length[b]``, so stale cache rows past
+each slot's write head are masked like future tokens: one kernel per cache
+kind serves prefill and decode.  A rolling cache masks in position space:
+its slots carry the positions they hold (``kv_positions``).
 
 Sampling draws from a ``torch.Generator`` on the logits' device.  Its
 numbers differ from ``jax.random``'s, so the two packages agree on greedy
@@ -39,10 +42,18 @@ from ..ops.attention import (
 from .kv_cache import (
     KVCache,
     QuantKVCache,
+    RollingKVCache,
+    RollingQuantKVCache,
     append_tokens,
     append_tokens_quant,
+    append_tokens_rolling,
+    append_tokens_rolling_quant,
     bump_lengths,
+    bump_rolling_positions,
+    rolling_write_slots,
 )
+
+ROLLING_CACHES = (RollingKVCache, RollingQuantKVCache)
 from .paged_kv import (
     PagedKVCache,
     PagedQuantKVCache,
@@ -62,6 +73,16 @@ def _attend(
     heads, t = q.shape[1], q.shape[2]
     o = fn(fold_gqa_rows(q, n_kv_heads).contiguous(), heads // n_kv_heads)
     return unfold_gqa_rows(o, heads, t)
+
+
+def _effective_positions(cache, t_new: int) -> torch.Tensor:
+    """The position map with the tokens being appended this step: the
+    cache's own map advances once a step, after all layers, but the
+    attention calls inside the step must see the in-flight tokens."""
+    rows, pos, slots = rolling_write_slots(cache, t_new)
+    eff = cache.positions.clone()
+    eff[rows, slots] = pos
+    return eff
 
 
 def _attn_with_cache(
@@ -90,7 +111,22 @@ def _attn_with_cache(
         win["alibi_slopes"] = slopes
     # The causal offset is the OLD length: new row r sits at length + r.
     i = layer_idx
-    if isinstance(cache, PagedKVCache):
+    if isinstance(cache, ROLLING_CACHES):
+        # A rolling cache: O(window) memory, masked in position space (the
+        # map with this step's tokens in flight).  Positions take no GQA
+        # fold: the calls are unfolded.
+        if cfg.attn_window is None:
+            raise ValueError(f"{type(cache).__name__} requires cfg.attn_window")
+        if isinstance(cache, RollingKVCache):
+            cache = append_tokens_rolling(cache, i, k, v)
+            o = flash_attention(q, cache.k[i], cache.v[i], q_offset=cache.lengths, causal=True,
+                                kv_positions=_effective_positions(cache, t_new), **win)
+        else:
+            cache = append_tokens_rolling_quant(cache, i, k, v)
+            qkv = QuantizedKV(cache.k_q[i], cache.v_q[i], cache.k_scale[i], cache.v_scale[i])
+            o = flash_attention_quant(q.contiguous(), qkv, cache.lengths,
+                                      _effective_positions(cache, t_new), causal=True, **win)
+    elif isinstance(cache, PagedKVCache):
         # Appends scatter through the page table; the kernel reads through
         # it.  The engine's allocator granted the pages of length + t_new.
         cache = append_tokens_paged(cache, i, k, v)
@@ -146,6 +182,8 @@ def decode_step(
         x, cache = _attn_with_cache(layer, x, cfg, cache, i, positions)
         x = mlp_block(layer, x, cfg)
     logits = _logits(params, x, cfg)
+    if isinstance(cache, ROLLING_CACHES):
+        return logits[:, 0], bump_rolling_positions(cache, 1, active)
     return logits[:, 0], bump_lengths(cache, 1, active)
 
 
@@ -164,9 +202,10 @@ def prefill_chunk(
     ``prompt_len``: the full true prompt length; positions past it inside
     the chunk are padding.  Padded rows' keys and values are written too
     (later decode steps overwrite them), and the slot's length becomes
-    ``min(prompt_len, start_len + n_chunk)``.  Returns the logits of the
-    prompt's last true token if it falls in this chunk, else of the
-    chunk's last row.
+    ``min(prompt_len, start_len + n_chunk)``.  A rolling cache records the
+    positions of the true prompt tokens only (padded rows' slots get -1).
+    Returns the logits of the prompt's last true token if it falls in this
+    chunk, else of the chunk's last row.
     """
     n_chunk = tokens.shape[0]
     positions = (start_len + torch.arange(n_chunk, device=tokens.device))[None, :]
@@ -175,6 +214,9 @@ def prefill_chunk(
     for i, layer in enumerate(params["layers"]):
         x, slot_cache = _attn_with_cache(layer, x, cfg, slot_cache, i, positions)
         x = mlp_block(layer, x, cfg)
+    if isinstance(cache, ROLLING_CACHES):
+        _, pos, slots = rolling_write_slots(slot_cache, n_chunk)
+        slot_cache.positions[0, slots[0]] = torch.where(pos[0] < prompt_len, pos[0], -1)
     cache.lengths[slot] = min(prompt_len, start_len + n_chunk)
     last_idx = min(max(prompt_len - start_len - 1, 0), n_chunk - 1)
     return _logits(params, x[:, last_idx : last_idx + 1], cfg)[0, 0], cache
@@ -189,11 +231,15 @@ def _slot_view(cache, slot: int, start_len: int):
         return dataclasses.replace(
             cache, page_table=cache.page_table[slot : slot + 1], lengths=lengths
         )
-    # Dense caches: every field but lengths is [n_layers, B, ...].
-    views = {
-        f.name: getattr(cache, f.name)[:, slot : slot + 1]
-        for f in dataclasses.fields(cache) if f.name != "lengths"
-    }
+    # Dense and rolling caches: every tensor but lengths and a rolling
+    # cache's positions [B, capacity] is [n_layers, B, ...].
+    views = {}
+    for f in dataclasses.fields(cache):
+        val = getattr(cache, f.name)
+        if f.name == "positions":
+            views[f.name] = val[slot : slot + 1]
+        elif torch.is_tensor(val) and f.name != "lengths":
+            views[f.name] = val[:, slot : slot + 1]
     return dataclasses.replace(cache, lengths=lengths, **views)
 
 
@@ -213,6 +259,17 @@ def prefill_slot(
     logits of the prompt's last true token.
     """
     n_pad = tokens.shape[0]
+    if isinstance(cache, ROLLING_CACHES):
+        # Every chunk row's window (and the sinks) must still be resident
+        # when the chunk's attention runs: capacity >= window + sinks +
+        # chunk.  A larger chunk would evict in-window KV silently.
+        safe = cache.capacity - (cfg.attn_window or 0) - cache.sinks
+        eff_chunk = n_pad if (chunk is None or chunk >= n_pad) else chunk
+        if eff_chunk > safe:
+            raise ValueError(
+                f"rolling prefill chunk {eff_chunk} exceeds capacity {cache.capacity} - window "
+                f"{cfg.attn_window} - sinks {cache.sinks} = {safe}; pass a smaller chunk="
+            )
     if chunk is None or chunk >= n_pad:
         return prefill_chunk(params, cfg, cache, tokens, 0, prompt_len, slot)
     if chunk % 128:
@@ -287,6 +344,31 @@ def _categorical(scaled: torch.Tensor, generator: torch.Generator) -> torch.Tens
     return torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
 
 
+def sample(
+    logits: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    min_p: float = 0.0,
+) -> torch.Tensor:
+    """Greedy (temperature 0, or no generator) / temperature / top-k /
+    nucleus / min-p sampling of one token from ``[..., V]`` logits (JAX
+    ``decode.py::sample``): min-p first, then top-k/top-p, as
+    ``sample_batch``."""
+    if temperature <= 0.0 or generator is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = (logits.float() / temperature).reshape(1, -1)
+
+    def one(value, dtype):
+        return torch.tensor([value], dtype=dtype, device=scaled.device)
+
+    # A filter at its off value (top_k 0, top_p 1, min_p 0) keeps everything.
+    scaled = filter_scaled_logits(scaled, one(top_k, torch.int32), one(top_p, torch.float32),
+                                  one(min_p, torch.float32))
+    return _categorical(scaled, generator)[0]
+
+
 def sample_batch(
     logits: torch.Tensor,
     generator: torch.Generator,
@@ -348,17 +430,70 @@ def decode_and_sample(
     cache does not advance.  ``pen_counts`` is updated in place.
     """
     logits, cache = decode_step(params, cfg, cache, tokens, active)
+    toks, logp = _sample_step(logits, active, generator, temperatures, top_ks, top_ps,
+                              pen_counts, presences, frequencies, min_ps)
+    if pen_counts is None:
+        return toks, logp, cache
+    return toks, logp, cache, pen_counts
+
+
+def _sample_step(logits, active, generator, temperatures, top_ks, top_ps, pen_counts,
+                 presences, frequencies, min_ps):
+    """``decode_and_sample``'s sampling of one step's ``logits``: the tokens
+    (0 for inactive slots) and their log-probabilities, ``pen_counts``
+    counted in place."""
     toks = sample_batch(
         logits, generator, temperatures, top_ks, top_ps,
         pen_counts, presences, frequencies, min_ps,
     )
     toks = torch.where(active, toks, torch.zeros_like(toks))
     logp = _token_logprobs(logits, toks)
-    if pen_counts is None:
-        return toks, logp, cache
-    rows = torch.arange(toks.shape[0], device=toks.device)
-    pen_counts.index_put_((rows, toks.long()), active.to(pen_counts.dtype), accumulate=True)
-    return toks, logp, cache, pen_counts
+    if pen_counts is not None:
+        rows = torch.arange(toks.shape[0], device=toks.device)
+        pen_counts.index_put_((rows, toks.long()), active.to(pen_counts.dtype), accumulate=True)
+    return toks, logp
+
+
+def decode_and_sample_multi(
+    params: Params,
+    cfg: ModelConfig,
+    cache: KVCache,
+    tokens: torch.Tensor,
+    active: torch.Tensor,
+    generator: torch.Generator,
+    temperatures: torch.Tensor,
+    top_ks: Optional[torch.Tensor] = None,
+    top_ps: Optional[torch.Tensor] = None,
+    pen_counts: Optional[torch.Tensor] = None,
+    presences: Optional[torch.Tensor] = None,
+    frequencies: Optional[torch.Tensor] = None,
+    min_ps: Optional[torch.Tensor] = None,
+    *,
+    n_steps: int,
+    with_logits: bool = False,
+):
+    """``n_steps`` decode + sample steps, each step's tokens fed to the next
+    on the device: no host sync between them (JAX's ``lax.scan``).
+
+    Returns ``(toks [n_steps, B], logprobs [n_steps, B], cache[,
+    pen_counts])``, and with ``with_logits`` each step's logits ``[n_steps,
+    B, V]`` last (the served-path check reads them).  A slot may decode up
+    to ``n_steps - 1`` tokens past its stop point; the engine discards them
+    at harvest, and the next occupant's lengths mask them.
+    """
+    all_toks, all_logps, all_logits = [], [], []
+    for _ in range(n_steps):
+        logits, cache = decode_step(params, cfg, cache, tokens, active)
+        tokens, logp = _sample_step(logits, active, generator, temperatures, top_ks, top_ps,
+                                    pen_counts, presences, frequencies, min_ps)
+        all_toks.append(tokens)
+        all_logps.append(logp)
+        if with_logits:
+            all_logits.append(logits)
+    out = (torch.stack(all_toks), torch.stack(all_logps), cache)
+    if pen_counts is not None:
+        out += (pen_counts,)
+    return (*out, torch.stack(all_logits)) if with_logits else out
 
 
 def admit_update(

@@ -1,12 +1,22 @@
 """Continuous-batching decode engine on one device.
 
 Counterpart of ``flash_attention_metal_tpu/runtime/engine.py`` on one
-device, over a dense, 8-bit (``kv_quant``) or paged (``paged``, with
-``prefix_share``) KV cache: a fixed pool of batch slots, a FIFO admission
-queue, per-step retirement, and bookkeeping that runs ``harvest_lag`` steps
-behind the device through non-blocking device-to-host copies, so the host
-never waits for a step it has just queued.  Admission and retirement only
-change per-slot state; the shapes the device sees never change.
+device, over a dense, 8-bit (``kv_quant``), paged (``paged``, with
+``prefix_share``) or rolling (``rolling``: O(window) slots for a
+sliding-window model, dense or 8-bit) KV cache: a fixed pool of batch
+slots, a FIFO admission queue, per-step retirement, and bookkeeping that
+runs ``harvest_lag`` steps behind the device through non-blocking
+device-to-host copies, so the host never waits for a step it has just
+queued.  Admission and retirement only change per-slot state; the shapes
+the device sees never change.
+
+A step queues ``multi_step`` decode + sample steps with no host sync
+between them (the tokens stay on the device), or with ``draft=`` one
+speculative round (``runtime/speculative.py``).  Tokens decoded past a
+request's end (EOS, ``max_new_tokens``, a stop sequence) are discarded at
+harvest.  ``snapshot`` / ``restore`` carry the serving state, the
+allocator's and the prefix registry's included, through
+``utils/checkpoint.py``.
 
 The paged cache's pages are granted and released by a host allocator
 (``runtime/paged_kv.py``), with admission control by worst-case page
@@ -21,15 +31,29 @@ import dataclasses
 import hashlib
 import time
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models.transformer import ModelConfig, Params
-from .decode import admit_update, decode_and_sample, prefill_chunk, prefill_slot
-from .kv_cache import init_cache, init_quant_cache, reset_slot
+from . import kv_cache, paged_kv
+from .decode import (
+    admit_update,
+    decode_and_sample,
+    decode_and_sample_multi,
+    prefill_chunk,
+    prefill_slot,
+)
+from .kv_cache import (
+    init_cache,
+    init_quant_cache,
+    init_rolling_cache,
+    init_rolling_quant_cache,
+    reset_slot,
+)
 from .paged_kv import PageAllocator, init_paged_cache, init_paged_quant_cache
+from .speculative import speculative_step
 
 # The 8-bit formats of ``kv_quant``: "fp8" is e4m3, as in the JAX engine.
 KV_QUANT_DTYPES = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
@@ -108,7 +132,13 @@ class DecodeEngine:
         while eng.pending():
             finished = eng.step()
 
-    The device is that of ``params``.
+    The device is that of ``params``.  ``multi_step``: decode steps a
+    ``step()`` queues.  ``draft``: a ``(params, cfg)`` draft model for
+    speculative serving, ``spec_gamma`` proposals a round (its cache is
+    dense whatever the target's).  ``rolling``: a wrapped cache of
+    ``ceil((window + sinks) / 128) * 128 + 128`` slots for a model with
+    ``cfg.attn_window``, prefilled in chunks of 128.  ``mesh`` (sharded
+    serving) raises NotImplementedError.
     """
 
     def __init__(
@@ -122,7 +152,8 @@ class DecodeEngine:
         seed: int = 0,
         harvest_lag: int = 16,
         multi_step: int = 1,
-        draft=None,
+        draft: Optional[Tuple[Params, ModelConfig]] = None,
+        spec_gamma: int = 4,
         kv_quant: Optional[str] = None,
         rolling: bool = False,
         paged: bool = False,
@@ -131,7 +162,21 @@ class DecodeEngine:
         prefix_share: bool = False,
         mesh=None,
     ):
-        # The JAX engine's checks of the paged options come first.
+        # The JAX engine's refusals, in its order.
+        if multi_step < 1:
+            raise ValueError(f"multi_step={multi_step} must be >= 1")
+        if draft is not None:
+            if multi_step > 1 or rolling:
+                raise ValueError(
+                    "draft= (speculative serving) composes with the dense, quantized and paged "
+                    "caches; rolling caches have no sound O(1) rollback (wrapped slots are "
+                    "overwritten) and multi_step is the same dispatch-amortization axis"
+                )
+            if paged and prefix_share:
+                raise NotImplementedError(
+                    "draft= with prefix_share=True is not wired (a verify window may not "
+                    "overwrite an adopted shared page)"
+                )
         if paged and rolling:
             raise ValueError(
                 "paged=True does not compose with rolling (a wrapped position "
@@ -142,32 +187,34 @@ class DecodeEngine:
                 "paged=True is single-device (a shared physical pool has no "
                 "batch dim to shard)"
             )
+        if mesh is not None:
+            raise NotImplementedError(
+                "DecodeEngine(mesh=...) (sharded serving) is not ported to the PyTorch package "
+                "yet (see ROADMAP.md, Queue A item 7)"
+            )
+        if rolling and cfg.attn_window is None:
+            raise ValueError("rolling=True requires cfg.attn_window")
         if prefix_share and not paged:
             raise ValueError("prefix_share=True requires paged=True")
         if kv_quant is not None and kv_quant not in KV_QUANT_DTYPES:
             raise ValueError(f"kv_quant={kv_quant!r} must be one of {sorted(KV_QUANT_DTYPES)}")
-        unported = {
-            "multi_step > 1": multi_step > 1,
-            "draft (speculative serving)": draft is not None,
-            "rolling": rolling,
-            "mesh": mesh is not None,
-        }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"DecodeEngine options {asked} are not ported to the PyTorch "
-                "package yet (see ROADMAP.md, Queue A item 3)"
-            )
-        if multi_step < 1:
-            raise ValueError(f"multi_step={multi_step} must be >= 1")
         self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
         self.max_len = max_len
         self.device = params["embed"].device
+        self._multi_step = multi_step
+        self._draft = draft
+        self._spec_gamma = spec_gamma
+        # Rows a speculative round may write past a slot's length (JAX pads
+        # the verify chunk to 8 rows; the page grant and margin keep that).
+        self._spec_pad = -(-(spec_gamma + 1) // 8) * 8 if draft is not None else 0
         # Tokens a retired slot may still decode before its retirement
-        # lands (harvest runs harvest_lag steps behind the device).
-        self._zombie_margin = harvest_lag + 1
+        # lands: harvest runs harvest_lag dispatches behind, and each
+        # dispatch emits up to multi_step tokens, or writes up to the
+        # padded verify window.
+        window = max(multi_step, self._spec_pad if draft is not None else 1)
+        self._zombie_margin = harvest_lag * window + window
         shape = (cfg.n_layers, max_batch, cfg.n_kv_heads, max_len, cfg.head_dim)
         qdt = KV_QUANT_DTYPES.get(kv_quant)
         self.kv_quant = kv_quant
@@ -176,6 +223,8 @@ class DecodeEngine:
         # Tokens each slot will hold once the queued steps land: the host's
         # count, read by the page bookkeeping instead of the device lengths.
         self._host_len = [0] * max_batch
+        # Prefill chunk (None: the whole padded prompt at once).
+        self._prefill_chunk: Optional[int] = None
         if paged:
             if n_pages is None:
                 # No oversubscription (the dense cache's capacity) plus the
@@ -187,10 +236,23 @@ class DecodeEngine:
                 device=self.device,
             )
             self._allocator = PageAllocator(n_pages, max_batch)
+        elif rolling:
+            # O(window) slots; prefill in chunks of 128, so every chunk
+            # row's window is still resident when the chunk attends.
+            cap = -(-(cfg.attn_window + cfg.attn_sinks) // 128) * 128 + 128
+            init = init_rolling_quant_cache if qdt else init_rolling_cache
+            self.cache = init(*shape[:3], cap, cfg.head_dim, dtype=qdt or cfg.dtype,
+                              sinks=cfg.attn_sinks, device=self.device)
+            self._prefill_chunk = 128
         elif qdt:
             self.cache = init_quant_cache(*shape, dtype=qdt, device=self.device)
         else:
             self.cache = init_cache(*shape, dtype=cfg.dtype, device=self.device)
+        self.draft_cache = None
+        if draft is not None:
+            dcfg = draft[1]
+            self.draft_cache = init_cache(dcfg.n_layers, max_batch, dcfg.n_kv_heads, max_len,
+                                          dcfg.head_dim, dtype=dcfg.dtype, device=self.device)
         self._prefix_share = prefix_share
         # Retained prefix registry: chain key -> physical page, LRU order.
         # Each entry pins its page so shared prefixes outlive their slots;
@@ -293,7 +355,8 @@ class DecodeEngine:
         The paged cache first reserves the request's pages and adopts the
         registered pages of its prefix (``_reserve_pages``); adopted pages
         are not prefilled again, and the prompt's full pages are registered
-        for later requests.  The slot's sampling state is ``_admit``'s.
+        for later requests.  A speculative engine prefills the draft's cache
+        too.  The slot's sampling state is ``_admit``'s.
         """
         padded = _pad_to(req.prompt, 128)
         keys, shared = [], 0
@@ -312,7 +375,13 @@ class DecodeEngine:
             )
         else:
             logits, self.cache = prefill_slot(
-                self.params, self.cfg, self.cache, tokens, len(req.prompt), slot
+                self.params, self.cfg, self.cache, tokens, len(req.prompt), slot,
+                chunk=self._prefill_chunk,
+            )
+        if self._draft is not None:
+            # The draft must hold the same prompt before it can propose.
+            _, self.draft_cache = prefill_slot(
+                self._draft[0], self._draft[1], self.draft_cache, tokens, len(req.prompt), slot
             )
         if self._prefix_share:
             # Register the prompt's full pages (adopted ones already are).
@@ -323,16 +392,19 @@ class DecodeEngine:
                     self._prefix_registry[key] = owned[i]
         return logits
 
-    def grow_for_decode(self, slots) -> None:
-        """Grant each of ``slots`` the page of the token its next decode
-        step appends (paged cache), from the host's count of its tokens."""
+    def grow_for_decode(self, slots, n: int = 1) -> None:
+        """Grant each of ``slots`` the pages of the ``n`` tokens its next
+        dispatch appends (paged cache), from the host's count of its
+        tokens.  A speculative round's count runs ahead of the true length
+        by up to its padded verify window a round; harvest sets it back to
+        the true length plus a window for each round still in flight."""
         if not self._paged:
             return
         for slot in slots:
             self.cache = self._allocator.grow(
-                self.cache, slot, min(self._host_len[slot] + 1, self.max_len)
+                self.cache, slot, min(self._host_len[slot] + n, self.max_len)
             )
-            self._host_len[slot] += 1
+            self._host_len[slot] += n
 
     def _admit(self) -> None:
         """Prefill queued requests into free slots."""
@@ -389,6 +461,8 @@ class DecodeEngine:
                 self._host_len[req.slot] = 0
             else:
                 self.cache = reset_slot(self.cache, req.slot)
+            if self.draft_cache is not None:
+                self.draft_cache = reset_slot(self.draft_cache, req.slot)
             self.finished[req.uid] = req
 
     # ------------------------------------------------------------------
@@ -401,28 +475,52 @@ class DecodeEngine:
             if done is not None:
                 done.synchronize()
             req.generated.append(int(tok))
-            req.logprobs.append(float(logp))
+            if self._draft is None:  # the speculative path keeps no logprobs
+                req.logprobs.append(float(logp))
             self._maybe_finish(req)
             if req.done:
                 finished.append(req)
             return finished
-        (toks, lps), done, uids = entry
+        kind, (toks, lps), done, uids = entry
         if done is not None:
             done.synchronize()
         toks, lps = toks.tolist(), lps.tolist()
-        for slot, uid in enumerate(uids):
-            req = self.slots[slot]
-            if uid is None or req is None or req.uid != uid or req.done:
-                continue  # retired or reused since this step was queued
-            req.generated.append(toks[slot])
-            req.logprobs.append(lps[slot])
-            self._maybe_finish(req)
-            if req.done:
-                finished.append(req)
+        if kind == "spec":  # one round: out [B, gamma + 1], n_emit [B]
+            for slot, uid in enumerate(uids):
+                req = self.slots[slot]
+                if uid is None or req is None or req.uid != uid or req.done:
+                    continue
+                for tok in toks[slot][: lps[slot]]:
+                    req.generated.append(tok)
+                    self._maybe_finish(req)
+                    if req.done:
+                        break
+                if self._paged and not req.done:
+                    # Back to the true length, plus a whole verify window
+                    # for each of this slot's rounds still in flight: the
+                    # device is up to that far ahead of the harvested round.
+                    ahead = sum(e[0] == "spec" and e[3][slot] == uid for e in self._inflight)
+                    self._host_len[slot] = (len(req.prompt) + len(req.generated)
+                                            + ahead * self._spec_pad)
+                if req.done:
+                    finished.append(req)
+            return finished
+        # multi_step rows [S, B] (one row for a single step).
+        for row, lrow in zip(toks, lps):
+            for slot, uid in enumerate(uids):
+                req = self.slots[slot]
+                if uid is None or req is None or req.uid != uid or req.done:
+                    continue  # retired, reused, or stopped earlier in the window
+                req.generated.append(row[slot])
+                req.logprobs.append(lrow[slot])
+                self._maybe_finish(req)
+                if req.done:
+                    finished.append(req)
         return finished
 
     def step(self) -> List[Request]:
-        """Admit, queue one decode step, and harvest lagged bookkeeping."""
+        """Admit, queue ``multi_step`` decode steps (or one speculative
+        round), and harvest lagged bookkeeping."""
         t0 = time.perf_counter()
         self._admit()
         active_reqs = [r for r in self.slots if r is not None]
@@ -433,19 +531,37 @@ class DecodeEngine:
                     [r is not None for r in self.slots], dtype=torch.bool
                 ).to(self.device)
                 self._occupancy_dirty = False
-            self.grow_for_decode(s for s, r in enumerate(self.slots) if r is not None)
-            toks, lps, self.cache, self.pen_counts = decode_and_sample(
-                self.params, self.cfg, self.cache, self.next_token,
-                self._active_dev, self.generator, self.temps, self.top_ks,
-                self.top_ps, self.pen_counts, self.presences,
-                self.frequencies, self.min_ps,
-            )
-            self.next_token = toks
-            hosts, done = _fetch_async(toks, lps)
+            self.grow_for_decode((s for s, r in enumerate(self.slots) if r is not None),
+                                 self._spec_pad if self._draft is not None else self._multi_step)
+            sampling = (self.generator, self.temps, self.top_ks, self.top_ps)
+            penalties = (self.pen_counts, self.presences, self.frequencies)
+            if self._draft is not None:
+                out, n_emit, self.next_token, self.cache, self.draft_cache, self.pen_counts = (
+                    speculative_step(
+                        self.params, self.cfg, self.cache, self._draft[0], self._draft[1],
+                        self.draft_cache, self.next_token, self._active_dev, *sampling,
+                        self.min_ps, *penalties, gamma=self._spec_gamma,
+                    ))
+                kind, fetched = "spec", (out, n_emit)
+            elif self._multi_step > 1:
+                toks, lps, self.cache, self.pen_counts = decode_and_sample_multi(
+                    self.params, self.cfg, self.cache, self.next_token, self._active_dev,
+                    *sampling, *penalties, self.min_ps, n_steps=self._multi_step,
+                )
+                self.next_token = toks[-1]
+                kind, fetched = "decode", (toks, lps)
+            else:
+                toks, lps, self.cache, self.pen_counts = decode_and_sample(
+                    self.params, self.cfg, self.cache, self.next_token, self._active_dev,
+                    *sampling, *penalties, self.min_ps,
+                )
+                self.next_token = toks
+                kind, fetched = "decode", (toks[None], lps[None])
+            hosts, done = _fetch_async(*fetched)
             self._inflight.append(
-                (hosts, done, [r.uid if r else None for r in self.slots])
+                (kind, hosts, done, [r.uid if r else None for r in self.slots])
             )
-            self.steps += 1
+            self.steps += 1 if self._draft is not None else self._multi_step
 
         finished: List[Request] = []
         while self._inflight and (
@@ -485,3 +601,127 @@ class DecodeEngine:
         while self.pending():
             self.step()
         return {uid: r.generated for uid, r in self.finished.items()}
+
+    # ------------------------------------------------------------------
+    # Crash/restart recovery: the serving state as tensors and plain
+    # metadata, which round-trip through utils/checkpoint.py.
+    _STATE = ("next_token", "temps", "top_ks", "top_ps", "presences", "frequencies",
+              "min_ps", "pen_counts")
+    _REQUEST_FIELDS = ("uid", "prompt", "max_new_tokens", "temperature", "top_k", "top_p",
+                       "presence_penalty", "frequency_penalty", "min_p", "stop")
+
+    def snapshot(self) -> dict:
+        """A consistent copy of the serving state that leaves the run as it
+        was: the lagged bookkeeping still in flight is copied once its
+        tokens reach the host, not applied (the JAX engine applies it
+        first, which retires slots and admits queued requests earlier than
+        an uninterrupted run would), and every device tensor is copied (the
+        engine keeps updating its own in place).  So the engine that goes
+        on and one restored from the copy both run exactly as an
+        uninterrupted engine.  The generator's state stands in for the JAX
+        engine's key; the paged allocator's state and the prefix registry
+        are included.  The dict holds tensors, numbers, strings and lists
+        only, so ``utils.checkpoint.save_pytree`` writes it."""
+        inflight = []
+        for kind, hosts, done, who in self._inflight:
+            if done is not None:
+                done.synchronize()
+            entry = {"kind": kind, "values": [h.clone() for h in hosts]}
+            if kind == "admit":
+                # Its request holds the slot until this entry is harvested.
+                entry["slot"] = who.slot
+            else:
+                entry["uids"] = list(who)
+            inflight.append(entry)
+        paged_state = None
+        if self._paged:
+            alloc = self._allocator
+            paged_state = {
+                "owned": [list(x) for x in alloc._owned],
+                "reserved": list(alloc._reserved),
+                "refs": list(alloc._refs),
+                "free": list(alloc._free),
+                "registry": [[k, v] for k, v in self._prefix_registry.items()],
+                "host_len": list(self._host_len),
+            }
+
+        def request(r: Request, live: bool) -> dict:
+            meta = {name: getattr(r, name) for name in self._REQUEST_FIELDS}
+            meta["prompt"] = list(r.prompt)
+            meta["stop"] = [list(x) for x in r.stop]
+            if live:
+                meta.update(generated=list(r.generated), logprobs=list(r.logprobs), slot=r.slot)
+            return meta
+
+        return {
+            "paged": paged_state,
+            "cache": _cache_state(self.cache),
+            "draft_cache": None if self.draft_cache is None else _cache_state(self.draft_cache),
+            **{name: getattr(self, name).clone() for name in self._STATE},
+            "generator": self.generator.get_state(),
+            "steps": self.steps,
+            "slots": [None if r is None else request(r, True) for r in self.slots],
+            "queue": [request(r, False) for r in self.queue],
+            "inflight": inflight,
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Resume from a ``snapshot()`` (after a crash or a restart), in an
+        engine built with the same options."""
+        self.cache = _cache_from_state(snap["cache"], self.device)
+        if self.draft_cache is not None and snap.get("draft_cache") is not None:
+            self.draft_cache = _cache_from_state(snap["draft_cache"], self.device)
+        for name in self._STATE:
+            setattr(self, name, snap[name].to(self.device).clone())
+        self.generator.set_state(snap["generator"].cpu())
+        self.steps = int(snap["steps"])
+
+        def request(meta: dict) -> Request:
+            req = Request(**{name: meta[name] for name in self._REQUEST_FIELDS})
+            req.prompt = list(req.prompt)
+            req.stop = [list(x) for x in req.stop]
+            if "generated" in meta:
+                req.generated = list(meta["generated"])
+                req.logprobs = list(meta["logprobs"])
+                req.slot = meta["slot"]
+            return req
+
+        self.slots = [None if meta is None else request(meta) for meta in snap["slots"]]
+        self.queue = deque(request(meta) for meta in snap["queue"])
+        self._inflight = deque(
+            (e["kind"], tuple(v.cpu() for v in e["values"]), None,
+             self.slots[e["slot"]] if e["kind"] == "admit" else list(e["uids"]))
+            for e in snap["inflight"])
+        self._occupancy_dirty = True
+        if self._paged and snap.get("paged") is not None:
+            meta = snap["paged"]
+            alloc = self._allocator
+            alloc._owned = [list(x) for x in meta["owned"]]
+            alloc._reserved = list(meta["reserved"])
+            alloc._refs = list(meta["refs"])
+            alloc._free = list(meta["free"])
+            alloc._committed = sum(alloc._reserved)
+            alloc._pinned = len(meta["registry"])
+            self._prefix_registry = OrderedDict((k, int(v)) for k, v in meta["registry"])
+            self._host_len = list(meta["host_len"])
+
+
+# The cache classes a snapshot names.
+_CACHE_TYPES = {cls.__name__: cls for cls in (
+    kv_cache.KVCache, kv_cache.QuantKVCache, kv_cache.RollingKVCache,
+    kv_cache.RollingQuantKVCache, paged_kv.PagedKVCache, paged_kv.PagedQuantKVCache)}
+
+
+def _cache_state(cache) -> dict:
+    """A cache as a dict of copied tensors (and a rolling cache's sinks)."""
+    fields = {}
+    for f in dataclasses.fields(cache):
+        val = getattr(cache, f.name)
+        fields[f.name] = val.clone() if torch.is_tensor(val) else val
+    return {"type": type(cache).__name__, "fields": fields}
+
+
+def _cache_from_state(state: dict, device):
+    fields = {name: val.to(device).clone() if torch.is_tensor(val) else val
+              for name, val in state["fields"].items()}
+    return _CACHE_TYPES[state["type"]](**fields)

@@ -293,7 +293,8 @@ def test_dropout_arguments_are_checked():
     with pytest.raises(NotImplementedError, match="save_lse with dropout"):
         flash_attention(q, q, q, causal=True, impl="reference", save_lse=True,
                         dropout_rate=0.1, dropout_seed=1)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    # A rolling cache's serving path takes no dropout, with JAX's message.
+    with pytest.raises(NotImplementedError, match="training-path feature"):
         flash_attention(q, q, q, causal=True, dropout_rate=0.1, dropout_seed=1,
                         kv_positions=torch.zeros((1, 64), dtype=torch.int32))
     with pytest.raises(ValueError, match="dropout_heads"):

@@ -169,38 +169,34 @@ def test_gqa_decode_attention_matches_jax(hq, hkv, t):
 
 @pytest.mark.parametrize(
     "feature",
-    [dict(kv_positions=torch.zeros((1, 8), dtype=torch.int32)), dict(softcap=30.0),
+    [dict(kv_positions=torch.arange(8, dtype=torch.int32)[None]), dict(softcap=30.0),
      dict(dropout_rate=0.1, dropout_seed=3), dict(alibi_slopes=torch.ones(2))],
 )
 def test_unported_features_raise(feature):
-    """kv_positions (ROADMAP.md Queue A item 3) raises, naming its item;
-    the softcap, ALiBi and dropout are ported: the op and the forward
-    router equal the oracle under them (fp32, 1e-5; dropout's mask is the
-    oracle's bit for bit)."""
+    """Every feature of the JAX op is ported: kv_positions (here the
+    identity map, whose position-space mask is the index-space causal one),
+    the softcap, ALiBi and dropout: the op and the forward router equal the
+    oracle under them (fp32, 1e-5; dropout's mask is the oracle's bit for
+    bit)."""
     q = torch.zeros((1, 2, 8, 64))
-    if "kv_positions" not in feature:
-        rng = np.random.default_rng(3)
-        qr, kr, vr = (torch.from_numpy(rng.uniform(-2, 2, (1, 2, 8, 64)).astype(np.float32))
-                      for _ in range(3))
-        want = oracle.attention_reference(qr, kr, vr, causal=True, **feature)
-        for fn in (flash_attention, flash_attention_fwd):
-            assert float((fn(qr, kr, vr, causal=True, **feature) - want).abs().max()) < 1e-5
-        return
-    item = "Queue A item 3"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, .*{item}"):
-        flash_attention(q, q, q, causal=True, **feature)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, .*{item}"):
-        flash_attention_fwd(q, q, q, causal=True, **feature)
+    rng = np.random.default_rng(3)
+    qr, kr, vr = (torch.from_numpy(rng.uniform(-2, 2, (1, 2, 8, 64)).astype(np.float32))
+                  for _ in range(3))
+    oracle_kw = {name: val for name, val in feature.items() if name != "kv_positions"}
+    want = oracle.attention_reference(qr, kr, vr, causal=True, **oracle_kw)
+    for fn in (flash_attention, flash_attention_fwd):
+        assert float((fn(qr, kr, vr, causal=True, **feature) - want).abs().max()) < 1e-5
     # Each feature's off value is accepted.
-    flash_attention(q, q, q, causal=True, window=None, sinks=0, dropout_rate=0.0)
+    flash_attention(q, q, q, causal=True, window=None, sinks=0, dropout_rate=0.0,
+                    kv_positions=None)
 
 
 def test_requires_grad_raises():
     """An input that requires grad was refused while the port was
     forward-only; now it is differentiated (tests/test_torch_flash_bwd.py
     checks the gradients), under the softcap and dropout too
-    (tests/test_torch_dropout.py checks those), and only an unported
-    feature, or dropout without its seed, still raises."""
+    (tests/test_torch_dropout.py checks those), and only the forward-only
+    position map, or dropout without its seed, still raises."""
     q = torch.zeros((1, 2, 8, 64), requires_grad=True)
     o = flash_attention(q, q.detach(), q.detach(), causal=True)
     assert o.requires_grad and o.grad_fn is not None
@@ -215,7 +211,8 @@ def test_requires_grad_raises():
     assert g.shape == q.shape
     with pytest.raises(ValueError, match="requires dropout_seed"):
         flash_attention(q, q.detach(), q.detach(), causal=True, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The position map is the rolling caches' serving path: forward only.
+    with pytest.raises(NotImplementedError, match="forward only"):
         flash_attention(q, q.detach(), q.detach(), causal=True,
                         kv_positions=torch.zeros((1, 8), dtype=torch.int32))
 

@@ -8,6 +8,7 @@ not installed:
 """
 
 import ctypes
+import dataclasses
 import json
 import math
 import re
@@ -1052,7 +1053,7 @@ def test_kv_kernels_reject_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("mode", sorted(serving.SERVING_MODES))
+@pytest.mark.parametrize("mode", sorted(serving.KV_MODES))
 def test_engine_modes_cuda_match_cpu(cuda, mode):
     """Greedy fp32 serving in each KV-cache mode: the card (the mode's
     kernel) and the CPU (its plain version) emit the same tokens, with
@@ -2098,8 +2099,11 @@ def test_xf_entries_refuse_what_they_do_not_take(cuda):
                                dropout_seed=3)
     with pytest.raises(ValueError, match="dropout_seed"):
         ff.flash_attention_fwd(q, q, q, causal=True, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        ff.flash_attention_fwd(q, q, q, causal=True, kv_positions=torch.zeros(1))
+    # A position map takes no row fold, as in JAX.
+    with pytest.raises(NotImplementedError, match="pos_div"):
+        ff.flash_attention_fwd(q, q[:, :2], q[:, :2], causal=True, pos_div=2,
+                               kv_positions=torch.zeros((q.shape[0], q.shape[2]),
+                                                        dtype=torch.int32))
 
 
 @pytest.mark.gpu
@@ -2373,3 +2377,293 @@ def test_drop_planted_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
         tol = TOL[cases[n][0].dtype]
         assert clean[n] <= tol
         assert not faulty[n] <= tol, n
+
+
+# ---------------------------------------------------------------------------
+# A rolling cache's position map (kv_positions) on rows 1 and 11: the wgmma
+# forward's position walk, the fp32 / 8-bit template's and the decode grid's
+# kPos instances against their plain versions (onchip.POS_CASES), planted
+# faults; then the rest of one-device serving on the card (test_serve_*:
+# the rolling caches, multi_step, speculative and beam decoding,
+# snapshot/restore, weight-only int8).
+# ---------------------------------------------------------------------------
+
+POS_NAMES = [c[0] for c in onchip.POS_CASES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", POS_NAMES)
+def test_pos_kernel_matches_plain(cuda, name):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    case = onchip.pos_cases(gen, (name,))[name]
+    err, lse_err = onchip.pos_error(case)
+    print(f"\n{name}: o {err:.3e}, lse {lse_err:.3e}")
+    tol = TOL[case[1].dtype]
+    assert err <= tol and lse_err <= tol
+
+
+@pytest.mark.gpu
+def test_pos_segment_ids_raise_on_cuda(cuda):
+    """Positions with segment ids run on CPU tensors only: a CUDA call
+    raises, and launches nothing."""
+    from flash_attention_metal_tpu_torch.config import SegmentIds
+
+    q = torch.zeros((1, 2, 128, 64), device="cuda", dtype=torch.bfloat16)
+    pos = torch.arange(128, dtype=torch.int32, device="cuda")[None]
+    ids = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
+    before = ff.flash_fwd_general.launches
+    with pytest.raises(NotImplementedError, match="segment_ids"):
+        ff.flash_attention_fwd(q, q, q, causal=True, kv_positions=pos,
+                               segment_ids=SegmentIds(ids, ids))
+    assert ff.flash_fwd_general.launches == before
+
+
+# (source, failing cases, old, new): each fault fails the checks of the
+# cases that run its instance (the decode grid: decode rows; the wgmma
+# position walk: bf16 prefill; the template: fp32 and 8-bit prefill).
+PLANTED_POS_FAULTS = {
+    # the slot index used as the column's position
+    "decode_slot_index_for_position": (
+        "flash_decode.cuh", ("pos_decode_bf16_peaked",),
+        "const int cpos = kPos ? pc : kv_start + c;", "const int cpos = kv_start + c;"),
+    "wgmma_slot_index_for_position": (
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked",),
+        "const int cp = (int)pos[j * 8 + (e & 1)];", "const int cp = c;"),
+    "template_slot_index_for_position": (
+        "flash_fwd.cu", ("pos_prefill_fp32",),
+        "const int cc = kPos ? sm.kseg[c] : kv_start + c;  // the column's position",
+        "const int cc = kv_start + c;"),
+    # the pos >= 0 test dropped: slots never written are seen
+    "decode_pos_nonnegative_dropped": (
+        "flash_decode.cuh", ("pos_decode_bf16_peaked",),
+        "if constexpr (kPos) visible = visible && cpos >= 0;", "(void)0;"),
+    "wgmma_pos_nonnegative_dropped": (
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked",),
+        "return c < n_kv && cp >= 0 && cp <= p", "return c < n_kv && cp <= p"),
+    "template_pos_nonnegative_dropped": (
+        "flash_fwd.cu", ("pos_prefill_fp32",),
+        "seen[j] = seen[j] && cc >= 0 && (cc >= col_lo || cc < f.sinks);",
+        "seen[j] = seen[j] && (cc >= col_lo || cc < f.sinks);"),
+    # the index-space skip left on: slots past the rows' last position by
+    # index are not walked
+    "decode_index_split_skip": (
+        "flash_decode.cuh", ("pos_decode_bf16_peaked",),
+        "kPos ? n_kv - 1 : causal ?", "kPos ? min(n_kv - 1, (n_q - 1) + off) : causal ?"),
+    "wgmma_index_tile_skip": (
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked",),
+        "n_steps = (n_kv + kTile - 1) / kTile;",
+        "n_steps = min((n_kv + kTile - 1) / kTile, (q_start + kTile - 1 + off) / kTile + 1);"),
+    "template_index_tile_skip": (
+        "flash_fwd.cu", ("pos_prefill_fp32",),
+        "runs = {0, 0, 0, (n_kv + kBlockN - 1) / kBlockN};",
+        "runs = {0, 0, 0, min((n_kv + kBlockN - 1) / kBlockN, "
+        "(q_start + rows_valid - 1 + off) / kBlockN + 1)};"),
+    # ALiBi's distance measured from the slot index
+    "decode_alibi_from_index": (
+        "flash_decode.cuh", ("pos_decode_bf16_xf",),
+        "const float cbase = kXf ? (float)(cpos - xoff) : 0.0f;",
+        "const float cbase = kXf ? (float)(kv_start + c - xoff) : 0.0f;"),
+    "wgmma_alibi_from_index": (
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_xf",),
+        "return pos_float((int)pos[j * 8 + (e & 1)]) - rowf[e >> 1];",
+        "return pos_float(c0 + j * 8 + (e & 1)) - rowf[e >> 1];"),
+    "template_alibi_from_index": (
+        "flash_fwd.cu", ("pos_prefill_int8_xf",),
+        "p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(cc - xpos), m_new)) : 0.0f;",
+        "p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(kv_start + c - xpos), m_new)) : 0.0f;"),
+    # the sinks term dropped: only the window is seen
+    "decode_sinks_dropped": (
+        "flash_decode.cuh", ("pos_decode_bf16_s70",),
+        "if constexpr (kWin) visible = visible && (cpos >= lo[r] || cpos < sinks);",
+        "if constexpr (kWin) visible = visible && (cpos >= lo[r] || (!kPos && cpos < sinks));"),
+    "wgmma_sinks_dropped": (
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_s70",),
+        "cp <= p && in_window(cp, p, window, sinks);", "cp <= p && in_window(cp, p, window, 0);"),
+    "template_sinks_dropped": (
+        "flash_fwd.cu", ("pos_prefill_fp32_s70",),
+        "seen[j] = seen[j] && cc >= 0 && (cc >= col_lo || cc < f.sinks);",
+        "seen[j] = seen[j] && cc >= 0 && cc >= col_lo;"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_POS_FAULTS))
+def test_pos_planted_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """chip_smoke.py's position-map checks pass the kernels as built and fail
+    a copy with a planted fault (errors printed with ``-s``)."""
+    source, failing, old, new = PLANTED_POS_FAULTS[fault]
+    lib = qt.bind(ff.bind(_planted_library(tmp_path, "flash_fwd.cu", source, old, new)))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.pos_cases(gen, failing)
+    clean = {n: max(onchip.pos_error(c)) for n, c in cases.items()}
+    monkeypatch.setattr(ff, "_lib", lambda: lib)
+    monkeypatch.setattr(qt, "_lib", lambda: lib)
+    faulty = {n: max(onchip.pos_error(c)) for n, c in cases.items()}
+    print(f"\n{fault}, worst error, built -> planted: "
+          + ", ".join(f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in failing))
+    for n in failing:
+        tol = TOL[cases[n][1].dtype]
+        assert clean[n] <= tol
+        assert not faulty[n] <= tol, n
+
+
+def _small_engine_model(dtype, **model):
+    _, cfg = serving.build_engine(
+        n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_ff=256, vocab=256, max_batch=2,
+        max_len=1024, dtype=dtype, device="cpu", **model)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return tf.init_params(cfg, gen), cfg
+
+
+def _serve_on(dev, params, cfg, prompts, max_new=8, **opts):
+    eng = serving.DecodeEngine(tf.map_params(lambda p: p.to(dev), params), cfg, max_batch=2,
+                               max_len=1024, **opts)
+    reqs = [serving.Request(uid=u, prompt=p, max_new_tokens=max_new) for u, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return eng, reqs
+
+
+_LONG = [7 + (i * 5) % 200 for i in range(600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rolling", "rolling_int8"])
+def test_serve_rolling_cuda_matches_cpu(cuda, mode):
+    """Greedy fp32 serving through a rolling cache (W 64, 4 sinks: 256
+    slots) past its capacity: the card's position instances emit the CPU's
+    tokens, log-probabilities within fp32 rounding (8-bit: a key a step
+    apart), and only they launch."""
+    params, cfg = _small_engine_model(torch.float32, window=64, sinks=4)
+    prompts = [_LONG, [3, 2, 1]]
+    opts = serving.SERVING_MODES[mode][0]
+    _, want = _serve_on("cpu", params, cfg, prompts, **opts)
+    counted = ff.flash_fwd_general if mode == "rolling" else qt.flash_attention_quant
+    counted.launches = counted.pos_launches = 0
+    _, got = _serve_on("cuda", params, cfg, prompts, **opts)
+    assert counted.pos_launches > 0 and counted.pos_launches == counted.launches
+    atol = 5e-4 if mode.endswith("int8") else 1e-4
+    for a, b in zip(got, want):
+        assert a.generated == b.generated
+        np.testing.assert_allclose(a.logprobs, b.logprobs, atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", [None, "no_inflight_tokens"])
+def test_serve_rolling_logits_bound_catches_effective_positions(cuda, monkeypatch, fault):
+    """The rolling mode's served-logits bound on the card (bf16, prompts
+    past the capacity): held as built, exceeded when the step's effective
+    positions leave out the tokens in flight."""
+    params, cfg = _small_engine_model(torch.bfloat16, window=64, sinks=4)
+    if fault:
+        monkeypatch.setattr(dec, "_effective_positions", lambda c, t: c.positions.clone())
+    params = tf.map_params(lambda p: p.to("cuda"), params)
+    worst = max(serving.teacher_forced_errors(params, cfg, [[5, 9, 100], _LONG], 8, 1024,
+                                              mode="rolling"))
+    bound = serving.SERVING_MODES["rolling"][1]
+    print(f"\n{fault}: served logits rel L2 {worst:.3e} (bound {bound})")
+    assert (worst < bound) if fault is None else (worst > bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(), dict(paged=True, kv_quant="int8")],
+                         ids=["dense", "paged_int8"])
+def test_serve_multi_step_cuda_matches_single(cuda, opts):
+    """multi_step=4 emits the single-step engine's greedy tokens and
+    log-probabilities on the card, EOS overshoot discarded."""
+    params, cfg = _small_engine_model(torch.float32)
+    prompts = [[3, 2, 1], _LONG[:150]]
+    _, one = _serve_on("cuda", params, cfg, prompts, max_new=11, **opts)
+    _, four = _serve_on("cuda", params, cfg, prompts, max_new=11, multi_step=4, **opts)
+    for a, b in zip(four, one):
+        assert a.generated == b.generated and len(a.generated) == 11
+        np.testing.assert_allclose(a.logprobs, b.logprobs, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(), dict(kv_quant="int8"), dict(paged=True)],
+                         ids=["dense", "int8", "paged"])
+def test_serve_speculative_cuda_matches_plain(cuda, opts):
+    """Greedy speculative serving on the card (a 1-layer draft; the verify
+    chunk of gamma + 1 rows on the decode grid) emits the plain engine's
+    tokens."""
+    params, cfg = _small_engine_model(torch.float32)
+    draft_cfg = dataclasses.replace(cfg, n_layers=1)
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    draft = (tf.map_params(lambda p: p.to("cuda"), tf.init_params(draft_cfg, gen)), draft_cfg)
+    prompts = [[3, 2, 1], _LONG[:150]]
+    _, want = _serve_on("cuda", params, cfg, prompts, max_new=12, **opts)
+    _, got = _serve_on("cuda", params, cfg, prompts, max_new=12, draft=draft, **opts)
+    assert [r.generated for r in got] == [r.generated for r in want]
+
+
+@pytest.mark.gpu
+def test_serve_speculative_paged_self_draft_long_cuda(cuda):
+    """A paged target as its own draft on the card, 320 new tokens: the
+    device runs gamma + 1 tokens a round ahead of the lagged harvest, and
+    the pages granted keep ahead of the verify chunk's writes (the greedy
+    streams equal the plain engine's)."""
+    params, cfg = _small_engine_model(torch.float32)
+    cuda_params = tf.map_params(lambda p: p.to("cuda"), params)
+    prompts = [[3, 2, 1], _LONG[:150]]
+    _, want = _serve_on("cuda", params, cfg, prompts, max_new=320, paged=True)
+    eng, got = _serve_on("cuda", params, cfg, prompts, max_new=320, paged=True,
+                         draft=(cuda_params, cfg))
+    assert eng.steps <= 320 // 5 + 1 + eng.harvest_lag
+    assert [r.generated for r in got] == [r.generated for r in want]
+
+
+@pytest.mark.gpu
+def test_serve_beam_and_snapshot_cuda(cuda, tmp_path):
+    """Beam search on the card equals the CPU's (tokens; score to fp32
+    rounding), and a snapshot taken mid-run on the card, saved and
+    restored into a fresh engine, finishes every stream as an uninterrupted
+    run does, bit for bit, and so does the engine that went on."""
+    from flash_attention_metal_tpu_torch.runtime.beam import beam_search_generate
+    from flash_attention_metal_tpu_torch.utils.checkpoint import restore_pytree, save_pytree
+
+    params, cfg = _small_engine_model(torch.float32)
+    cuda_params = tf.map_params(lambda p: p.to("cuda"), params)
+    want = beam_search_generate(params, cfg, _LONG[:100], beam_width=3, max_new_tokens=8)
+    got = beam_search_generate(cuda_params, cfg, _LONG[:100], beam_width=3, max_new_tokens=8)
+    assert got[0] == want[0] and abs(got[1] - want[1]) < 1e-3
+    plain = serving.DecodeEngine(cuda_params, cfg, max_batch=2, max_len=1024, paged=True)
+    for r in serving.make_requests(4, 256, (5, 200), 10, seed=3):
+        plain.submit(r)
+    plain.run()
+    eng = serving.DecodeEngine(cuda_params, cfg, max_batch=2, max_len=1024, paged=True)
+    for r in serving.make_requests(4, 256, (5, 200), 10, seed=3):
+        eng.submit(r)
+    for _ in range(12):  # the first two requests are done on the card, not yet harvested
+        eng.step()
+    save_pytree(str(tmp_path / "snap.pt"), eng.snapshot())
+    before = {u: (list(r.generated), list(r.logprobs)) for u, r in eng.finished.items()}
+    eng.run()
+    eng2 = serving.DecodeEngine(cuda_params, cfg, max_batch=2, max_len=1024, paged=True, seed=7)
+    eng2.restore(restore_pytree(str(tmp_path / "snap.pt")))
+    eng2.finished = {}
+    eng2.run()
+    resumed = {**before, **{u: (r.generated, r.logprobs) for u, r in eng2.finished.items()}}
+    want = {u: (r.generated, r.logprobs) for u, r in plain.finished.items()}
+    assert resumed == want
+    assert {u: (r.generated, r.logprobs) for u, r in eng.finished.items()} == want
+
+
+@pytest.mark.gpu
+def test_serve_weight_int8_cuda_matches_cpu(cuda):
+    """The weight-only int8 tree served on the card emits the CPU's greedy
+    tokens, log-probabilities within fp32 rounding."""
+    from flash_attention_metal_tpu_torch.models.wquant import quantize_weights
+
+    params, cfg = _small_engine_model(torch.float32)
+    qparams = quantize_weights(params)
+    _, want = _serve_on("cpu", qparams, cfg, [[3, 2, 1], _LONG[:150]])
+    _, got = _serve_on("cuda", qparams, cfg, [[3, 2, 1], _LONG[:150]])
+    for a, b in zip(got, want):
+        assert a.generated == b.generated
+        np.testing.assert_allclose(a.logprobs, b.logprobs, atol=1e-4, rtol=0)

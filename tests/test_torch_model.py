@@ -110,6 +110,13 @@ def test_model_config_and_loader_reject_bad_input(jax_params):
     with pytest.raises(ValueError):
         ModelConfig(attn_impl="xla")
     tree = jax.tree_util.tree_map(np.asarray, jax_params)
-    tree["layers"][0]["wq"] = {"qw": tree["layers"][0]["wq"], "scale": 1.0}
-    with pytest.raises(NotImplementedError, match="int8"):
+    # A weight-only int8 matrix ({"qw", "scale"}, models/wquant.py) comes
+    # across as it is (tests/test_torch_wquant.py holds its logits to JAX's).
+    qw = np.clip(np.round(tree["layers"][0]["wq"] * 100), -127, 127).astype(np.int8)
+    tree["layers"][0]["wq"] = {"qw": qw, "scale": np.full((1, qw.shape[1]), 0.01, np.float32)}
+    got = params_from_jax(tree, CFG, device="cpu")["layers"][0]["wq"]
+    assert got["qw"].dtype == torch.int8 and torch.equal(got["qw"], torch.from_numpy(qw))
+    assert got["scale"].dtype == torch.float32
+    tree["layers"][0]["w_router"] = np.zeros((1, 1), np.float32)
+    with pytest.raises(NotImplementedError, match="MoE"):
         params_from_jax(tree, CFG, device="cpu")

@@ -345,7 +345,7 @@ CFG = ModelConfig(
 # A prompt prefix of more than one full page (tests/test_paged.py).
 PREFIX = [7 + (i * 5) % 200 for i in range(150)]
 # The serving modes of the 8-bit and paged caches, as the harness runs them.
-ENGINE_MODES = {m: opts for m, (opts, _) in serving.SERVING_MODES.items() if m != "dense"}
+ENGINE_MODES = {m: serving.SERVING_MODES[m][0] for m in serving.KV_MODES if m != "dense"}
 # Log-probabilities of the same greedy tokens, fp32.  The 8-bit caches
 # round fp32 keys that differ between the packages in their last bits to
 # the same 8-bit values almost always; where one lands on the other side
@@ -396,7 +396,7 @@ WIN_JAX_CFG = dataclasses.replace(JAX_CFG, attn_window=64, attn_sinks=4)
 WIN_CFG = dataclasses.replace(CFG, attn_window=64, attn_sinks=4)
 
 
-@pytest.mark.parametrize("mode", sorted(serving.SERVING_MODES))
+@pytest.mark.parametrize("mode", sorted(serving.KV_MODES))
 def test_windowed_engine_matches_jax(params, jax_params, mode):
     """A FlashLM with a 64-token window and 4 sinks served in every cache
     mode: the greedy token streams equal the JAX engine's, and the
@@ -419,7 +419,7 @@ XF_JAX_CFG = dataclasses.replace(JAX_CFG, attn_softcap=30.0, attn_alibi=True)
 XF_CFG = dataclasses.replace(CFG, attn_softcap=30.0, attn_alibi=True)
 
 
-@pytest.mark.parametrize("mode", sorted(serving.SERVING_MODES))
+@pytest.mark.parametrize("mode", sorted(serving.KV_MODES))
 def test_xf_engine_matches_jax(params, jax_params, mode):
     """The capped ALiBi FlashLM served in every cache mode (ALiBi unfolds
     the decode rows): the greedy token streams equal the JAX engine's and

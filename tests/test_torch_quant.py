@@ -214,9 +214,12 @@ def test_flash_attention_quant_rejects_unported():
         assert float((got - want).abs().max()) < ATTN_TOL[torch.float32]
     assert torch.equal(quant.flash_attention_quant(qr, qkv_r, causal=True, sinks=4),
                        quant.flash_attention_quant(qr, qkv_r, causal=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant.flash_attention_quant(q, qkv, None, torch.zeros((1, 128), dtype=torch.int32),
-                                    causal=True)
+    # A rolling cache's position map is ported: the identity map gives the
+    # index-space result (tests/test_torch_rolling.py holds it against JAX).
+    ident = torch.arange(128, dtype=torch.int32)[None]
+    got = quant.flash_attention_quant(qr, qkv_r, None, ident, causal=True, window=16)
+    want = quant.flash_attention_quant(qr, qkv_r, causal=True, window=16)
+    assert float((got - want).abs().max()) < 1e-6
     with pytest.raises(NotImplementedError, match="causal"):
         quant.flash_attention_quant(q, qkv, pos_div=2)
     with pytest.raises(TypeError, match="scales must be fp32"):

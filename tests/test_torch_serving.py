@@ -9,6 +9,7 @@ are never compared: greedy tokens, filters, logits and log-probabilities
 are.
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -222,10 +223,18 @@ def test_engine_matches_jax_greedy(params, jax_params):
 
 
 def test_engine_rejects_unported_options(params):
-    for kw in (dict(rolling=True), dict(multi_step=4), dict(draft=(params, CFG)),
-               dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, **kw)
+    # Only sharded serving (ROADMAP.md Queue A item 7) is left to port.
+    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+        eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, mesh=object())
+    # The rolling caches, multi-step dispatch and speculative serving are
+    # ported: each option constructs (the rolling cache needs a window).
+    win = dataclasses.replace(CFG, attn_window=64, attn_sinks=4)
+    for cfg, kw, cache in ((win, dict(rolling=True), "RollingKVCache"),
+                           (win, dict(rolling=True, kv_quant="fp8"), "RollingQuantKVCache"),
+                           (CFG, dict(multi_step=4), "KVCache"),
+                           (CFG, dict(draft=(params, CFG)), "KVCache")):
+        eng = eng_mod.DecodeEngine(params, cfg, max_batch=2, max_len=MAX_LEN, **kw)
+        assert type(eng.cache).__name__ == cache
     # The 8-bit and paged caches are ported: each option constructs.
     for kw, cache in ((dict(kv_quant="int8"), "QuantKVCache"),
                       (dict(kv_quant="fp8"), "QuantKVCache"),

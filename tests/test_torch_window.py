@@ -319,15 +319,13 @@ def test_feature_arguments_are_checked():
     seg = SegmentIds(torch.zeros((1, 64), dtype=torch.int32), torch.zeros((1, 64), dtype=torch.int32))
     with pytest.raises(NotImplementedError, match="pos_div"):
         ff.flash_fwd_general(q, q, q, causal=True, pos_div=2, segment_ids=seg)
-    # The feature still waiting (ROADMAP.md Queue A item 3) raises; the
-    # softcap, ALiBi and dropout compose with the window
-    # (tests/test_torch_xf.py, tests/test_torch_dropout.py), and dropout
+    # The softcap, ALiBi, dropout (tests/test_torch_xf.py,
+    # tests/test_torch_dropout.py) and a rolling cache's position map
+    # (tests/test_torch_rolling.py) compose with the window, and dropout
     # without its seed raises.
-    for kw in (dict(kv_positions=torch.zeros((1, 64), dtype=torch.int32)),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            flash_attention(q, q, q, causal=True, window=8, **kw)
     for kw in (dict(softcap=30.0), dict(alibi_slopes=torch.ones(2)),
-               dict(dropout_rate=0.1, dropout_seed=3)):
+               dict(dropout_rate=0.1, dropout_seed=3),
+               dict(kv_positions=torch.arange(64, dtype=torch.int32)[None])):
         assert flash_attention(q, q, q, causal=True, window=8, **kw).shape == q.shape
     with pytest.raises(ValueError, match="dropout_seed"):
         flash_attention(q, q, q, causal=True, window=8, dropout_rate=0.1)
