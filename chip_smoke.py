@@ -99,6 +99,7 @@ import json
 import os
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -154,6 +155,23 @@ NEAR_TIE = 0.1
 MULTI_STEP, SPEC_GAMMA = 4, 4
 BEAM_WIDTH, BEAM_PROMPT, BEAM_NEW, BEAM_REL_TOL = 4, 512, 32, 1e-2
 SNAPSHOT_STEPS = 20
+# The one-device model families (family_phase): Mixtral's routing on the
+# serving FlashLM; the MoE training depth; the steps, batch, depth and
+# AdamW rate of the families' training runs; seq2seq's target length,
+# decoded source and tokens; TinyLlama-1.1B's published widths (its
+# config.json) and the converted model's depth.
+MOE = dict(n_experts=8, top_k=2, capacity_factor=1.25)
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 4
+# Served MoE logits (fp32 on both sides, moe_served_errors): a row whose
+# plain forward holds, in some layer, a gap under this between the router's
+# k-th and (k+1)-th probability may route a token elsewhere and exceed the
+# logits bound (moe_router_gaps; fp32 rounding moves them by ~1e-6).
+MOE_NEAR_TIE = 1e-4
+FAMILY_STEPS, FAMILY_BATCH, FAMILY_LAYERS, FAMILY_LR = 4, 8, 2, 1e-3
+S2S_TGT, S2S_SOURCE, S2S_NEW = 128, 100, 32
+LLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+             num_attention_heads=32, num_key_value_heads=4)
+LLAMA_LAYERS = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -1826,6 +1844,595 @@ def serve_phase(gen: torch.Generator, stamp: str, spec, tmp: str) -> dict:
     return {"records": out, "serving": out_serve}
 
 
+def pos_seg_phase(gen: torch.Generator, stamp: str, spec, planted) -> dict:
+    """Position maps with segment ids on the card (row 1: the wgmma
+    forward's segmented position walk for bf16, decode-sized calls
+    included, the fp32 template's segmented kPos instance), each case of
+    ``onchip.POS_SEG_CASES`` (the 768-slot rolling cache wrapped and
+    shuffled, slot ids changing inside a 64-slot tile, row ids inside a Q
+    tile, a row or a decode batch whose id no slot holds) against its plain
+    version, one kPos launch a call; then the same checks on a library
+    built with ``onchip.POS_SEG_IGNORED`` planted (``planted()`` returns
+    its path: both segmented walks ignore the ids), which must fail them;
+    then each segmented call's time beside the unsegmented position walk's
+    on the same case, its bound over the visible pairs and SDPA's under the
+    positions' and ids' boolean mask.  Returns the flash_fwd record's
+    ``pos_seg_*`` keys."""
+    import ctypes
+
+    from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    t_phase = time.perf_counter()
+    cases = onchip.pos_cases(gen, table=onchip.POS_SEG_CASES)
+    errs, launches = {}, 0
+    for name, case in cases.items():
+        before = ff.flash_fwd_general.pos_launches
+        err, lse_err = onchip.pos_error(case)
+        q = case[1]
+        tol = onchip.TOL[q.dtype]
+        n = ff.flash_fwd_general.pos_launches - before
+        launches += n
+        check(n == 1, f"{name}: {n} position-walk launches for one call")
+        check(err <= tol and lse_err <= tol,
+              f"{name}: segmented position walk vs plain o {err:.3e} lse {lse_err:.3e} > {tol}")
+        tag = "fp32" if q.dtype == torch.float32 else "d128" if q.shape[-1] == 128 else "bf16"
+        errs[tag] = max(errs.get(tag, 0.0), err, lse_err)
+        seg = case[5]["segment_ids"]
+        print(f"[pos-seg] {name}: q {list(q.shape)} over {case[4].shape[1]} slots, kv ids cut at "
+              f"slot {onchip.POS_SEG_KV_CUT}, q ids {sorted(set(seg.q.flatten().tolist()))}; "
+              f"o {err:.3e} lse {lse_err:.3e} (tol {tol})")
+
+    lib = ff.bind(ctypes.CDLL(str(planted())))
+    saved = ff._lib
+    ff._lib = lambda: lib
+    try:
+        for name in ("pos_seg_prefill_bf16_peaked", "pos_seg_decode_bf16", "pos_seg_prefill_fp32",
+                     "pos_seg_decode_fp32"):
+            tol = onchip.TOL[cases[name][1].dtype]
+            faulty = max(onchip.pos_error(cases[name]))
+            check(not faulty <= tol, f"{name}: the planted walk that ignores the ids passes "
+                  f"({faulty:.3e} <= {tol})")
+            print(f"[pos-seg] planted fault (the segmented walks ignore the ids) on {name}: "
+                  f"{faulty:.3e} > {tol}, as it must")
+    finally:
+        ff._lib = saved
+
+    out = {"pos_seg_launches_checks": launches}
+    for name, key in (("pos_seg_prefill_bf16", "prefill"), ("pos_seg_decode_bf16", "decode"),
+                      ("pos_seg_prefill_fp32", "prefill_fp32"),
+                      ("pos_seg_decode_fp32", "decode_fp32")):
+        case = cases[name]
+        q = case[1]
+        unseg = case[:5] + ({k: v for k, v in case[5].items() if k != "segment_ids"},)
+        flops, nbytes = onchip.pos_work(case)
+        bits = 32 if q.dtype == torch.float32 else 16
+        r = {f"pos_seg_ms_{key}": onchip.device_ms(lambda: onchip.pos_call(case)),
+             f"pos_seg_unsegmented_ms_{key}": onchip.device_ms(lambda: onchip.pos_call(unseg)),
+             f"pos_seg_plain_ms_{key}": onchip.device_ms(
+                 lambda: onchip.pos_call(case, plain=True), iters=5),
+             f"pos_seg_bound_ms_{key}": roofline.roofline_time(flops, nbytes, spec, bits) * 1e3,
+             f"pos_seg_bound_by_{key}": roofline.bound_by(flops, nbytes, spec, bits),
+             f"pos_seg_library_ms_{key}": onchip.pos_sdpa_ms(case)}
+        out.update(r)
+        print(f"[pos-seg-time] {key} ({name}: q {list(q.shape)}, {case[4].shape[1]} slots): "
+              f"segmented {r[f'pos_seg_ms_{key}']:.4f} ms, the unsegmented position walk "
+              f"{r[f'pos_seg_unsegmented_ms_{key}']:.4f} ms, plain "
+              f"{r[f'pos_seg_plain_ms_{key}']:.4f} ms, bound {r[f'pos_seg_bound_ms_{key}']:.4f} ms "
+              f"({r[f'pos_seg_bound_by_{key}']}), SDPA under the positions' and ids' mask "
+              f"{r[f'pos_seg_library_ms_{key}']:.4f} ms {stamp}")
+    for tag, err in errs.items():
+        out["pos_seg_max_err" + ("" if tag == "bf16" else f"_{tag}")] = err
+    out["pos_seg_source"] = ("flash_attention_metal_tpu_torch/csrc/flash_fwd_sm90.cuh "
+                             "(PosSegWalk), flash_fwd.cu (kPosSeg)")
+    print(f"[pos-seg-phase] {time.perf_counter() - t_phase:.1f} s {stamp}")
+    return out
+
+
+def family_counters() -> dict:
+    """The attention kernels' wrappers the families' paths can reach, by
+    record name."""
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import flash_fwd_general, flash_fwd_lean
+
+    return {"flash_fwd": flash_fwd_general, "flash_lean": flash_fwd_lean,
+            "flash_tri": ft.flash_attention_tri, "flash_tri_bwd": ft.flash_attention_bwd_tri,
+            "flash_bwd_dkv": fb.flash_bwd_dkv, "flash_bwd_dq": fb.flash_bwd_dq,
+            "flash_bwd_fused": fb.flash_bwd_fused, "flash_quant": qt.flash_attention_quant,
+            "flash_paged": pg.flash_attention_paged,
+            "flash_paged_quant": pg.flash_attention_paged_quant}
+
+
+def counted(fn) -> tuple:
+    """``(fn()'s result, launches of each family counter during it)``: every
+    count set to 0 just before and read just after."""
+    counters = family_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: c.launches for name, c in counters.items() if c.launches}
+
+
+def adam_steps(loss, params, batch: tuple, steps: int, lr: float) -> tuple:
+    """``steps`` AdamW steps (constant ``lr``, clip 1.0) of ``loss(params,
+    *batch)`` on one batch, in place: the losses and the median step ms
+    after the first."""
+    from flash_attention_metal_tpu_torch.models.trainer import constant_adamw
+    from flash_attention_metal_tpu_torch.models.transformer import value_and_grad
+
+    opt = constant_adamw(lr, grad_clip=1.0)
+    state = opt.init(params)
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value, grads = value_and_grad(loss, params, *batch)
+        opt.update(grads, state, params)
+        losses.append(float(value))
+        times.append(time.perf_counter() - t0)
+    return losses, float(np.median(times[1:])) * 1e3
+
+
+def falling(losses: list) -> bool:
+    return all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
+def launches_text(counts: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in sorted(counts.items())) or "none"
+
+
+def moe_served_errors(params, cfg, prompts: list, mode: str) -> tuple:
+    """Served logits of an MoE model against the plain forward, the worst
+    relative L2 over the teacher-forced rows and how many rows over the
+    bound a router near tie excuses.
+
+    Routing is discrete: a rounding that crosses a tie at the router's
+    top-k edge sends a token to another expert.  So both sides run an fp32
+    copy of the weights (the card's fp32 kernel instances; the oracle
+    attention), where the served path and the plain forward differ by
+    ~1e-6, and under an 8-bit cache the plain forward attends over K and V
+    round-tripped through the same per-token int8 quantization (the
+    cache's own arithmetic, which bf16 logits cannot absorb at a tie).  A
+    row may exceed the bound only where the plain forward's router holds a
+    gap under ``MOE_NEAR_TIE`` at the top-k edge in some layer."""
+    from flash_attention_metal_tpu_torch.harness import serving
+    from flash_attention_metal_tpu_torch.kernels.quant import dequantize_kv, quantize_kv
+    from flash_attention_metal_tpu_torch.models import transformer
+    from flash_attention_metal_tpu_torch.models.transformer import map_params
+
+    fp = map_params(lambda t: t.float(), params)
+    fcfg = dataclasses.replace(cfg, dtype=torch.float32)
+    attend = transformer.flash_attention
+    kv_quant = serving.SERVING_MODES[mode][0].get("kv_quant")
+
+    def round_trip(q, k, v, **kw):
+        k, v = dequantize_kv(quantize_kv(k, v, torch.int8), k.dtype)
+        return attend(q, k, v, **kw)
+
+    if kv_quant is not None:
+        check(kv_quant == "int8", f"the MoE check takes an int8 cache, not {kv_quant}")
+        transformer.flash_attention = round_trip
+    try:
+        errs = serving.teacher_forced_errors(fp, fcfg, prompts, 16, MAX_LEN, seed=SEED, mode=mode)
+    finally:
+        transformer.flash_attention = attend
+    bound = serving.SERVING_MODES[mode][1]
+    if max(errs) <= bound:
+        return float(max(errs)), 0
+    gaps = moe_router_gaps(fp, fcfg, prompts, 16)
+    ties = sum(e > bound and g < MOE_NEAR_TIE for e, g in zip(errs, gaps))
+    return float(max([e for e, g in zip(errs, gaps) if g >= MOE_NEAR_TIE] or [0.0])), ties
+
+
+def moe_router_gaps(params, cfg, prompts: list, n_decode: int) -> list:
+    """For each row ``serving.teacher_forced_errors`` compares (each
+    prompt's last token, then its ``n_decode`` seeded tokens), the smallest
+    gap over the layers between the router's k-th and (k+1)-th largest
+    probability in a plain forward of the same tokens (oracle attention,
+    the model's dtype)."""
+    from flash_attention_metal_tpu_torch.models import moe
+    from flash_attention_metal_tpu_torch.models.transformer import forward
+
+    cont = np.random.default_rng(SEED).integers(1, cfg.vocab_size, (len(prompts), n_decode))
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    router = moe._router_probs
+    gaps = []
+    for slot, prompt in enumerate(prompts):
+        seen = []
+
+        def spy(layer, h):
+            probs = router(layer, h)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            seen.append(top[:, cfg.top_k - 1] - top[:, cfg.top_k])
+            return probs
+
+        moe._router_probs = spy
+        try:
+            with torch.no_grad():
+                forward(params, torch.tensor([list(prompt) + cont[slot].tolist()], device="cuda"),
+                        ref_cfg)
+        finally:
+            moe._router_probs = router
+        gap = torch.stack(seen).amin(dim=0)
+        gaps += gap[len(prompt) - 1: len(prompt) + n_decode].tolist()
+    return gaps
+
+
+def family_phase(gen: torch.Generator, stamp: str, spec) -> dict:
+    """The one-device model families at their widths (PERF.md §4).
+
+    * ``[family-moe]``: FlashLM at the serving width with Mixtral's routing
+      (``MOE``: 8 experts, top-2, capacity factor 1.25), bf16, served by
+      ``DecodeEngine(8, 2048)`` dense and paged int8 (16 requests; served
+      logits within rel L2 5e-2 of the plain fp32 forward on the card,
+      teacher-forced), the routed MLP's device time at decode; then
+      ``MOE_TRAIN_STEPS`` AdamW steps of the capacity-bucketed MoE loss with
+      the Switch aux loss at batch 1 x 2048 (depth ``MOE_TRAIN_LAYERS``),
+      the loss falling.
+    * ``[family-encoder]``: ``EncoderConfig``'s defaults (d 512, 4 layers, 8
+      heads, length 512) with attention dropout 0.1 over a padded batch:
+      the kernel path's hidden states against the oracle attention's
+      (without dropout), then masked-LM AdamW steps with fresh seeds, the
+      loss falling.
+    * ``[family-seq2seq]``: ``Seq2SeqConfig``'s defaults: AdamW steps over
+      padded sources, the loss falling; greedy decoding equal to the
+      teacher-forced argmax of its own chain (but at near ties), and beam
+      width 1 equal to greedy.
+    * ``[family-lora]``: rank-8 attention adapters on FlashLM at d 2048
+      (depth ``FAMILY_LAYERS``): AdamW steps, the loss falling, the base
+      weights unchanged bit for bit; the merged tree served through the
+      engine within the served-logits bound.
+    * ``[family-muon]``: ``Trainer(optimizer=make_muon_optimizer(...))`` on
+      the same FlashLM, the loss falling.
+    * ``[family-llama]``: a seeded state dict with Hugging Face LLaMA names
+      at TinyLlama-1.1B's published widths (``LLAMA``; depth
+      ``LLAMA_LAYERS``) converted by ``models.convert`` (GQA group 8, head
+      dim 64): the kernel path's logits within rel L2 5e-2 of the plain
+      fp32 path, and served through the engine within the bound.
+
+    Every run's attention launches are counted (``counted``) and must
+    include its kernels.  Returns each kernel's ``family_launches`` and the
+    families' numbers."""
+    from types import SimpleNamespace
+
+    from flash_attention_metal_tpu_torch.harness import onchip, serving
+    from flash_attention_metal_tpu_torch.models import convert, encoder, lora, moe, muon, seq2seq
+    from flash_attention_metal_tpu_torch.models.trainer import Trainer
+    from flash_attention_metal_tpu_torch.models.transformer import (
+        ModelConfig,
+        forward,
+        init_params,
+        map_params,
+        param_leaves,
+    )
+    from flash_attention_metal_tpu_torch.runtime.engine import DecodeEngine
+
+    t_phase = time.perf_counter()
+    fams, launches = {}, {}
+    prng = np.random.default_rng(SEED + 20)
+
+    def note(family: str, counts: dict) -> None:
+        for name, n in counts.items():
+            launches.setdefault(name, {})
+            launches[name][family] = launches[name].get(family, 0) + n
+
+    def serve_mode(params, cfg, mode, tag):
+        eng = DecodeEngine(params, cfg, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+                           **serving.SERVING_MODES[mode][0])
+        eng.submit(serving.Request(uid=-1, prompt=list(range(1, 101)), max_new_tokens=4))
+        eng.run()
+        reqs = serving.make_requests(N_REQUESTS, cfg.vocab_size, PROMPT_LENS, MAX_NEW, SEED + 21)
+        bench, counts = counted(lambda: serving.run_serving_bench(eng, reqs, mode=mode,
+                                                                  log=lambda m: None))
+        check(all(r.done and len(r.generated) == MAX_NEW for r in reqs),
+              f"{tag} {mode}: every request finishes")
+        kernel = "flash_fwd" if mode == "dense" else "flash_paged_quant"
+        check(counts.get(kernel, 0) > 0, f"{tag} {mode} serving launched {kernel}: {counts}")
+        note(tag, counts)
+        del eng
+        torch.cuda.empty_cache()
+        prompts = [prng.integers(1, cfg.vocab_size, n).tolist() for n in CHECK_PROMPTS]
+        bound = serving.SERVING_MODES[mode][1]
+        routed = hasattr(cfg, "n_experts")
+        if routed:
+            worst, ties = moe_served_errors(params, cfg, prompts, mode)
+        else:
+            worst = float(max(serving.teacher_forced_errors(params, cfg, prompts, 16, MAX_LEN,
+                                                            seed=SEED, mode=mode)))
+            ties = 0
+        check(worst <= bound, f"{tag} {mode} served logits rel L2 {worst:.3e} > {bound}")
+        return {"tokens_per_s": bench["tokens_per_s"], "ms_per_step": bench["ms_per_step"],
+                "served_logits_rel_l2_max": worst, "router_near_tie_rows_over_bound": ties,
+                "launches": counts}
+
+    # MoE: served at the full width, then trained at a cut depth.
+    d2048 = dict(vocab_size=serving.FLASHLM_D2048["vocab"], d_model=2048, n_heads=16,
+                 n_kv_heads=8, head_dim=128, d_ff=4096)
+    mcfg = moe.MoEConfig(**d2048, n_layers=serving.FLASHLM_D2048["n_layers"], **MOE)
+    mgen = torch.Generator(device="cuda")
+    mgen.manual_seed(SEED)
+    mparams = moe.init_moe_params(mcfg, mgen, master_dtype=None)
+    stack_bytes = sum(t.numel() * t.element_size() for layer in mparams["layers"]
+                      for k, t in layer.items() if k in ("w_gate", "w_up", "w_down"))
+    out = {"expert_stack_bytes": stack_bytes}
+    for mode in ("dense", "paged_int8"):
+        out[mode] = serve_mode(mparams, mcfg, mode, "moe")
+        print(f"[family-moe] serve {mode}: d2048 L{mcfg.n_layers} {mcfg.n_experts} experts top-"
+              f"{mcfg.top_k} ({stack_bytes / 1e9:.2f} GB of bf16 expert stacks), "
+              f"{N_REQUESTS} requests: {out[mode]['tokens_per_s']:.1f} tok/s, "
+              f"{out[mode]['ms_per_step']:.3f} ms/step; served logits rel L2 max "
+              f"{out[mode]['served_logits_rel_l2_max']:.3e} (tol "
+              f"{serving.SERVING_MODES[mode][1]}); launches {launches_text(out[mode]['launches'])} "
+              f"{stamp}")
+    x = torch.randn((MAX_BATCH, 1, mcfg.d_model), generator=mgen, device="cuda",
+                    dtype=mcfg.dtype)
+    layer = mparams["layers"][0]
+    out["routed_mlp_decode_ms"] = onchip.device_ms(lambda: moe.moe_mlp_dense(layer, x, mcfg))
+    out["routed_mlp_decode_bytes"] = stack_bytes / mcfg.n_layers
+    print(f"[family-moe] the drop-free routed MLP of one layer at decode (batch {MAX_BATCH}): "
+          f"{out['routed_mlp_decode_ms']:.4f} ms for {out['routed_mlp_decode_bytes'] / 1e6:.0f} "
+          f"MB of expert weights (bound {out['routed_mlp_decode_bytes'] / spec.hbm_bw * 1e3:.4f}"
+          f" ms) {stamp}")
+    del mparams, layer
+    torch.cuda.empty_cache()
+    tcfg = dataclasses.replace(mcfg, n_layers=MOE_TRAIN_LAYERS)
+    masters = moe.init_moe_params(tcfg, mgen)
+    tokens = torch.randint(0, tcfg.vocab_size, (1, MAX_LEN), generator=mgen, device="cuda")
+    (losses, step_ms), counts = counted(lambda: adam_steps(
+        moe._moe_loss, masters, (tokens, tcfg), MOE_TRAIN_STEPS, FAMILY_LR))
+    check(falling(losses), f"MoE training losses finite and falling: {losses}")
+    check(all(counts.get(k, 0) > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+          f"MoE training launched the forward and the split pair: {counts}")
+    note("moe", counts)
+    with torch.no_grad():
+        aux_share = float(moe._moe_loss(masters, tokens, tcfg)) - float(
+            moe._moe_loss(masters, tokens, dataclasses.replace(tcfg, aux_loss_weight=0.0)))
+    out["train"] = {"losses": losses, "step_ms": step_ms, "layers": MOE_TRAIN_LAYERS,
+                    "aux_loss_term": aux_share, "launches": counts}
+    print(f"[family-moe] train: {MOE_TRAIN_STEPS} AdamW steps of the capacity-bucketed loss "
+          f"(capacity {moe._capacity(MAX_LEN, tcfg)} a expert) + Switch aux (term "
+          f"{aux_share:.4f}), d2048 L{MOE_TRAIN_LAYERS} b1 s{MAX_LEN}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; step {step_ms:.2f} ms; launches "
+          f"{launches_text(counts)} {stamp}")
+    fams["moe"] = out
+    del masters
+    torch.cuda.empty_cache()
+
+    # The encoder: its contract (segment ids and dropout in one call).
+    ecfg = encoder.EncoderConfig(attn_dropout=0.1)
+    egen = torch.Generator(device="cuda")
+    egen.manual_seed(SEED + 1)
+    eparams = encoder.init_params(ecfg, egen)
+    n = ecfg.max_seq_len
+    etok = torch.randint(1, ecfg.vocab_size, (FAMILY_BATCH, n), generator=egen, device="cuda")
+    lengths = torch.randint(n // 3, n + 1, (FAMILY_BATCH,), generator=egen, device="cuda")
+    lengths[0] = n
+    emask = (torch.arange(n, device="cuda")[None] < lengths[:, None]).to(torch.int32)
+    with torch.no_grad():
+        kern = encoder.encode(eparams, etok, emask, cfg=ecfg).float()
+        ref = encoder.encode(eparams, etok, emask,
+                             cfg=dataclasses.replace(ecfg, dtype=torch.float32,
+                                                     attn_impl="reference")).float()
+    real = emask.bool()
+    enc_rel = float((kern - ref)[real].norm() / ref[real].norm())
+    check(enc_rel <= serving.LOGITS_REL_L2_TOL,
+          f"encoder kernel path vs the oracle attention: rel L2 {enc_rel:.3e}")
+    labels = etok.clone()
+    loss_mask = (torch.rand(etok.shape, generator=egen, device="cuda") < 0.15).int() * emask
+    corrupt = torch.where(loss_mask.bool(), torch.zeros_like(etok), etok)
+
+    def enc_loss(p, seeds):
+        return encoder.mlm_loss(p, corrupt, labels, loss_mask, emask, cfg=ecfg,
+                                dropout_seeds=seeds)
+
+    seeds = torch.randint(0, 2**31 - 1, (FAMILY_STEPS, ecfg.n_layers), generator=egen,
+                          device="cuda", dtype=torch.int32)
+    step_no = iter(range(FAMILY_STEPS))
+    (losses, step_ms), counts = counted(lambda: adam_steps(
+        lambda p: enc_loss(p, seeds[next(step_no)]), eparams, (), FAMILY_STEPS, FAMILY_LR))
+    check(falling(losses), f"encoder training losses finite and falling: {losses}")
+    check(all(counts.get(k, 0) > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+          f"encoder training launched the forward and the split pair: {counts}")
+    note("encoder", counts)
+    fams["encoder"] = {"rel_l2_vs_oracle": enc_rel, "losses": losses, "step_ms": step_ms,
+                       "launches": counts}
+    print(f"[family-encoder] d{ecfg.d_model} L{ecfg.n_layers} {ecfg.n_heads} heads, batch "
+          f"{FAMILY_BATCH} x {n}, pads from {int(lengths.min())} tokens on, dropout "
+          f"{ecfg.attn_dropout}: hidden states rel L2 {enc_rel:.3e} against the oracle attention "
+          f"(tol {serving.LOGITS_REL_L2_TOL}); {FAMILY_STEPS} masked-LM AdamW steps: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; step {step_ms:.2f} ms; launches "
+          f"{launches_text(counts)} {stamp}")
+    del eparams
+    torch.cuda.empty_cache()
+
+    # seq2seq: training, then greedy and beam decoding.
+    scfg = seq2seq.Seq2SeqConfig()
+    sgen = torch.Generator(device="cuda")
+    sgen.manual_seed(SEED + 2)
+    sparams = seq2seq.init_params(scfg, sgen)
+    src = torch.randint(2, scfg.vocab_size, (FAMILY_BATCH, scfg.max_src_len), generator=sgen,
+                        device="cuda")
+    src_len = torch.randint(64, scfg.max_src_len + 1, (FAMILY_BATCH,), generator=sgen,
+                            device="cuda")
+    smask = (torch.arange(scfg.max_src_len, device="cuda")[None] < src_len[:, None]).int()
+    tgt = torch.randint(2, scfg.vocab_size, (FAMILY_BATCH, S2S_TGT), generator=sgen,
+                        device="cuda")
+    (losses, step_ms), counts = counted(lambda: adam_steps(
+        seq2seq.loss_fn, sparams, (src, tgt, scfg, smask), FAMILY_STEPS, FAMILY_LR))
+    check(falling(losses), f"seq2seq training losses finite and falling: {losses}")
+    check(all(counts.get(k, 0) > 0 for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")),
+          f"seq2seq training launched the forward and the split pair: {counts}")
+    note("seq2seq", counts)
+    source = prng.integers(2, scfg.vocab_size, S2S_SOURCE).tolist()
+    t0 = time.perf_counter()
+    greedy, dec_counts = counted(lambda: seq2seq.greedy_generate(
+        sparams, scfg, source, max_new_tokens=S2S_NEW))
+    greedy_s = time.perf_counter() - t0
+    check(len(greedy) == S2S_NEW and dec_counts.get("flash_fwd", 0) > 0,
+          f"seq2seq greedy: {len(greedy)} tokens, launches {dec_counts}")
+    note("seq2seq", dec_counts)
+    s_pad = -(-len(source) // 128) * 128
+    src1 = torch.zeros((1, s_pad), dtype=torch.int32, device="cuda")
+    src1[0, : len(source)] = torch.tensor(source, device="cuda")
+    mask1 = (torch.arange(s_pad, device="cuda") < len(source)).int()[None]
+    with torch.no_grad():
+        tf_logits = seq2seq.forward(sparams, src1, torch.tensor([[1] + greedy], device="cuda"),
+                                    scfg, mask1)[0, :S2S_NEW]
+    top2 = torch.topk(tf_logits, 2, dim=-1).values
+    argmax = tf_logits.argmax(-1).tolist()
+    partings = [t for t, (a, b) in enumerate(zip(argmax, greedy)) if a != b]
+    near = [t for t in partings if float(top2[t, 0] - top2[t, 1]) < NEAR_TIE]
+    check(partings == near, f"seq2seq greedy parts from the teacher-forced argmax at steps "
+          f"{partings}, not all near ties ({near})")
+    beam1, _ = seq2seq.beam_generate(sparams, scfg, source, beam_width=1, max_new_tokens=S2S_NEW)
+    check(beam1 == greedy, "seq2seq beam width 1 equals greedy")
+    beam4, score4 = seq2seq.beam_generate(sparams, scfg, source, beam_width=4,
+                                          max_new_tokens=S2S_NEW)
+    check(len(beam4) == S2S_NEW and np.isfinite(score4), "seq2seq beam width 4 finishes")
+    fams["seq2seq"] = {"losses": losses, "step_ms": step_ms, "greedy_seconds": greedy_s,
+                       "teacher_forced_partings": partings, "beam4_score": score4,
+                       "launches": counts, "decode_launches": dec_counts}
+    print(f"[family-seq2seq] d{scfg.d_model} L{scfg.enc_layers}+{scfg.dec_layers}, batch "
+          f"{FAMILY_BATCH}, sources of {int(src_len.min())}-{scfg.max_src_len} tokens padded to "
+          f"{scfg.max_src_len}, targets {S2S_TGT}: {FAMILY_STEPS} AdamW steps, losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; step {step_ms:.2f} ms; launches "
+          f"{launches_text(counts)}; greedy {S2S_NEW} tokens from a {S2S_SOURCE}-token source "
+          f"in {greedy_s:.2f} s (launches {launches_text(dec_counts)}) equal the teacher-forced "
+          f"argmax but {len(partings)} near ties; beam width 1 equals greedy; width 4 score "
+          f"{score4:.4f} {stamp}")
+    del sparams
+    torch.cuda.empty_cache()
+
+    # LoRA and Muon on FlashLM at d 2048, a cut depth.
+    fcfg = ModelConfig(**d2048, n_layers=FAMILY_LAYERS)
+    fgen = torch.Generator(device="cuda")
+    fgen.manual_seed(SEED + 3)
+    base = init_params(fcfg, fgen, master_dtype=torch.float32)
+    ftok = torch.randint(0, fcfg.vocab_size, (2, MAX_LEN // 2), generator=fgen, device="cuda")
+    lcfg = lora.LoRAConfig()
+    adapters = lora.init_lora(base, lcfg, fgen)
+    before = [t.clone() for t in param_leaves(base)]
+    step, init = lora.make_lora_train_step(fcfg, lcfg)
+    state = init(adapters)
+
+    def lora_run():
+        losses = []
+        for _ in range(FAMILY_STEPS):
+            _, _, value = step(adapters, state, base, ftok)
+            losses.append(float(value))
+        return losses
+
+    losses, counts = counted(lora_run)
+    check(falling(losses), f"LoRA training losses finite and falling: {losses}")
+    check(all(torch.equal(a, b) for a, b in zip(param_leaves(base), before)),
+          "LoRA leaves the base weights unchanged bit for bit")
+    check(counts.get("flash_bwd_dkv", 0) > 0, f"LoRA training launched the split pair: {counts}")
+    note("lora", counts)
+    merged = map_params(lambda t: t.to(fcfg.dtype) if t.ndim == 2 else t,
+                        lora.merge_lora(base, adapters, lcfg))
+    served = serve_mode(merged, fcfg, "dense", "lora")
+    fams["lora"] = {"losses": losses, "adapter_params": lora.lora_num_params(adapters),
+                    "served": served, "launches": counts}
+    print(f"[family-lora] rank {lcfg.rank} on {', '.join(lcfg.targets)}, d2048 L{FAMILY_LAYERS}"
+          f" b2 s{MAX_LEN // 2}: {lora.lora_num_params(adapters)} adapter parameters, "
+          f"{FAMILY_STEPS} AdamW steps: losses " + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; base unchanged bit for bit; launches {launches_text(counts)}; the merged tree "
+          f"served: {served['tokens_per_s']:.1f} tok/s, logits rel L2 max "
+          f"{served['served_logits_rel_l2_max']:.3e} {stamp}")
+    del merged, adapters, state
+    torch.cuda.empty_cache()
+
+    opt = muon.make_muon_optimizer(base)
+    trainer = Trainer(fcfg, optimizer=opt, seed=SEED + 4, device="cuda")
+
+    def muon_run():
+        losses, times = [], []
+        for _ in range(FAMILY_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.step(ftok))
+            times.append(time.perf_counter() - t0)
+        return losses, float(np.median(times[1:])) * 1e3
+
+    (losses, step_ms), counts = counted(muon_run)
+    check(falling(losses), f"Muon training losses finite and falling: {losses}")
+    check(counts.get("flash_bwd_dkv", 0) > 0, f"Muon training launched the split pair: {counts}")
+    note("muon", counts)
+    n_muon = sum(lab == "muon" for lab in param_leaves(muon.muon_label_tree(base)))
+    fams["muon"] = {"losses": losses, "step_ms": step_ms, "muon_leaves": n_muon,
+                    "launches": counts}
+    print(f"[family-muon] Trainer with make_muon_optimizer ({n_muon} hidden matrices on Muon, "
+          f"the rest AdamW), d2048 L{FAMILY_LAYERS} b2 s{MAX_LEN // 2}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; step {step_ms:.2f} ms; launches "
+          f"{launches_text(counts)} {stamp}")
+    del trainer, opt, base
+    torch.cuda.empty_cache()
+
+    # LLaMA: a seeded state dict with Hugging Face names, converted.
+    hf = SimpleNamespace(**LLAMA, num_hidden_layers=LLAMA_LAYERS, max_position_embeddings=2048,
+                         rope_theta=10000.0)
+    lgen = torch.Generator(device="cuda")
+    lgen.manual_seed(SEED + 5)
+    h, hd = hf.hidden_size, hf.hidden_size // hf.num_attention_heads
+
+    def lin(n_out, n_in):
+        return torch.randn((n_out, n_in), generator=lgen, device="cuda") * n_in**-0.5
+
+    sd = {"model.embed_tokens.weight": torch.randn((hf.vocab_size, h), generator=lgen,
+                                                   device="cuda") * 0.02,
+          "model.norm.weight": torch.ones(h, device="cuda"),
+          "lm_head.weight": lin(hf.vocab_size, h)}
+    for i in range(LLAMA_LAYERS):
+        pre = f"model.layers.{i}."
+        sd.update({
+            pre + "input_layernorm.weight": torch.ones(h, device="cuda"),
+            pre + "post_attention_layernorm.weight": torch.ones(h, device="cuda"),
+            pre + "self_attn.q_proj.weight": lin(h, h),
+            pre + "self_attn.k_proj.weight": lin(hf.num_key_value_heads * hd, h),
+            pre + "self_attn.v_proj.weight": lin(hf.num_key_value_heads * hd, h),
+            pre + "self_attn.o_proj.weight": lin(h, h),
+            pre + "mlp.gate_proj.weight": lin(hf.intermediate_size, h),
+            pre + "mlp.up_proj.weight": lin(hf.intermediate_size, h),
+            pre + "mlp.down_proj.weight": lin(h, hf.intermediate_size)})
+    lcfg_, lparams = convert.convert_hf_llama(SimpleNamespace(config=hf, state_dict=lambda: sd),
+                                              device="cuda", master_dtype=torch.bfloat16)
+    del sd
+    check((lcfg_.n_heads // lcfg_.n_kv_heads, lcfg_.head_dim) == (8, 64),
+          f"the converted LLaMA is GQA group 8 at head dim 64: {lcfg_}")
+    ltok = torch.randint(0, hf.vocab_size, (1, 512), generator=lgen, device="cuda")
+    with torch.no_grad():
+        kern_logits, counts = counted(lambda: forward(lparams, ltok, lcfg_))
+        ref_logits = forward(lparams, ltok, dataclasses.replace(
+            lcfg_, dtype=torch.float32, attn_impl="reference"))
+    llama_rel = float((kern_logits - ref_logits).norm() / ref_logits.norm())
+    check(llama_rel <= serving.LOGITS_REL_L2_TOL,
+          f"converted LLaMA kernel path vs plain path: rel L2 {llama_rel:.3e}")
+    check(counts.get("flash_fwd", 0) > 0, f"the LLaMA forward launched flash_fwd: {counts}")
+    note("llama", counts)
+    served = serve_mode(lparams, lcfg_, "dense", "llama")
+    fams["llama"] = {"rel_l2_kernel_vs_plain": llama_rel, "served": served,
+                     "launches": counts, "layers": LLAMA_LAYERS}
+    print(f"[family-llama] a seeded Hugging Face state dict at TinyLlama-1.1B's widths (hidden "
+          f"{h}, intermediate {hf.intermediate_size}, {hf.num_attention_heads}/"
+          f"{hf.num_key_value_heads} heads, vocab {hf.vocab_size}; L{LLAMA_LAYERS}) converted: "
+          f"kernel-path logits rel L2 {llama_rel:.3e} from the plain path (tol "
+          f"{serving.LOGITS_REL_L2_TOL}); served {served['tokens_per_s']:.1f} tok/s, "
+          f"{served['ms_per_step']:.3f} ms/step, logits rel L2 max "
+          f"{served['served_logits_rel_l2_max']:.3e}; launches "
+          f"{launches_text(served['launches'])} {stamp}")
+    del lparams
+    torch.cuda.empty_cache()
+    fams["seconds"] = time.perf_counter() - t_phase
+    print(f"[family-phase] {fams['seconds']:.1f} s {stamp}")
+    return {"records": {name: {"family_launches": per} for name, per in launches.items()},
+            "families": fams}
+
+
 def sparse_grid_text(grid) -> str:
     """A block-sparse kernel's grid (``flash_mask.SparseGrid``); the bf16
     kernels issue their blocks longest walk first."""
@@ -2241,7 +2848,28 @@ def main() -> int:
           f"cuda {torch.version.cuda}; count {torch.cuda.device_count()}")
     print(smi)
 
-    # 2. Build.
+    # 2. Build; beside it (its nvcc processes started with the build's), a
+    # copy of csrc/ with the segmented position walks' planted fault, which
+    # pos_seg_phase reads.  The thread is not a daemon: a run that fails
+    # earlier waits for its processes before it exits.
+    planted_tmp = tempfile.TemporaryDirectory()
+    planted_box = {}
+
+    def build_planted():
+        try:
+            planted_box["path"] = onchip.build_planted(planted_tmp.name, onchip.POS_SEG_IGNORED)
+        except (RuntimeError, OSError, ValueError) as err:  # raised where the phase reads it
+            planted_box["error"] = err
+
+    planted_thread = threading.Thread(target=build_planted)
+    planted_thread.start()
+
+    def planted():
+        planted_thread.join()
+        if "error" in planted_box:
+            raise planted_box["error"]
+        return planted_box["path"]
+
     t0 = time.perf_counter()
     lib = _build.build()
     print(f"[build] {lib.name} in {time.perf_counter() - t0:.2f} s")
@@ -2659,6 +3287,15 @@ def main() -> int:
     # snapshot/restore and weight-only int8.
     serve_rest = serve_phase(gen, stamp, spec, tmp)
 
+    # 20. Position maps with segment ids on the card, and their planted
+    # fault (ROADMAP Queue C 15).
+    pos_seg = pos_seg_phase(gen, stamp, spec, planted)
+    planted_tmp.cleanup()
+
+    # 21. The one-device model families: MoE served and trained, the
+    # encoder, seq2seq, LoRA, Muon and a converted LLaMA.
+    families = family_phase(gen, stamp, spec)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -2807,11 +3444,15 @@ def main() -> int:
         rec_.update(xf["records"].get(rec_["name"], {}))
         rec_.update(drop["records"].get(rec_["name"], {}))
         rec_.update(serve_rest["records"].get(rec_["name"], {}))
+        rec_.update(families["records"].get(rec_["name"], {}))
+        if rec_["name"] == "flash_fwd":
+            rec_.update(pos_seg)
     record["training_window"] = {"grad_rel_l2_max": window["grad_rel_l2_max"], **window["train"]}
     record["serving_window"] = window["serving"]
     record["training_xf"] = {"grad_rel_l2_max": xf["grad_rel_l2_max"], **xf["train"]}
     record["serving_xf"] = xf["serving"]
     record["serving_rest"] = serve_rest["serving"]
+    record["families"] = families["families"]
     record["training_dropout"] = {"grad_rel_l2_max": drop["grad_rel_l2_max"],
                                   "phase_seconds": drop["seconds"], **drop["train"]}
     tmp_dir.cleanup()

@@ -340,8 +340,10 @@ __device__ __forceinline__ void pv_f32(Smem<float, D>& sm, int r, int half) {
 // times its keep factor in the PV product, the row sum of the undropped P.
 // kPos (with kXf, a dense cache, causal, pos_div 1): f.kv_pos, the rolling
 // cache's positions: every tile walked, each step's positions in kseg.
+// kPosSeg (with kPos, an unscaled cache): f's segment ids too, each step's
+// KV ids in kBlockN ints past Smem (kids), so kPos alone keeps its layout.
 template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false,
-          bool kPos = false>
+          bool kPos = false, bool kPosSeg = false>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, KvArgs kv,
                     const int* __restrict__ q_offset, T* __restrict__ o,
@@ -350,9 +352,11 @@ __global__ void __launch_bounds__(kThreads)
                     int fixed_offset, Feat f) {
   static_assert(!kPos || (kXf && !kPaged && !kDrop), "positions ride the transformed dense walk");
   constexpr bool kScaled = !std::is_same<KV, T>::value;
+  static_assert(!kPosSeg || (kPos && !kScaled), "segment ids ride the dense position walk");
   constexpr int kLdS = Dims<D>::kLdS, kOCols = Dims<D>::kOCols;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem<T, D>& sm = *reinterpret_cast<Smem<T, D>*>(smem_raw);
+  int* kids = reinterpret_cast<int*>(smem_raw + sizeof(Smem<T, D>));  // kPosSeg only
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -430,12 +434,17 @@ __global__ void __launch_bounds__(kThreads)
     regs.stash(sm);
     // The step's KV ids (the softmax of the step before read them before
     // its last barrier).
-    if (kFeat && f.kv_seg != nullptr && tid < kBlockN) {
+    if (kFeat && !kPosSeg && f.kv_seg != nullptr && tid < kBlockN) {
       sm.kseg[tid] = kv_start + tid < n_kv ? f.kv_seg[(size_t)b * n_kv + kv_start + tid] : 0;
     }
     // Under kPos kseg holds the step's positions instead (-1 past n_kv).
     if (kPos && tid < kBlockN) {
       sm.kseg[tid] = kv_start + tid < n_kv ? f.kv_pos[(size_t)b * n_kv + kv_start + tid] : -1;
+    }
+    // Under kPosSeg the step's KV ids go to kids (0 past n_kv, hidden there
+    // by the position -1).
+    if (kPosSeg && tid < kBlockN) {
+      kids[tid] = kv_start + tid < n_kv ? f.kv_seg[(size_t)b * n_kv + kv_start + tid] : 0;
     }
     __syncthreads();
     // The next step's tiles are in flight while this step computes.
@@ -464,6 +473,7 @@ __global__ void __launch_bounds__(kThreads)
       seen[j] = cc <= col_limit;
       if constexpr (kPos) {
         seen[j] = seen[j] && cc >= 0 && (cc >= col_lo || cc < f.sinks);
+        if constexpr (kPosSeg) seen[j] = seen[j] && kids[c] == my_seg;
       } else if constexpr (kFeat) {
         seen[j] = seen[j] && (cc >= col_lo || cc < f.sinks) &&
                   (f.kv_seg == nullptr || sm.kseg[c] == my_seg);
@@ -551,14 +561,15 @@ Split whole_row(int n_kv) {
 // Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
 // says); the others run one block per 64-row q tile and take no split.
 // One block per 64-row q tile (the kernel that reads f with kFeat, its
-// transforms with kXf, its dropout with kDrop, its positions with kPos).
+// transforms with kXf, its dropout with kDrop, its positions with kPos,
+// and with kPosSeg their segment ids).
 template <typename T, typename KV, bool kPaged, int D, bool kFeat, bool kXf, bool kDrop = false,
-          bool kPos = false>
+          bool kPos = false, bool kPosSeg = false>
 cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, void* o,
                          void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                          float sm_scale, int causal, int pos_div, cudaStream_t stream,
                          int fixed_offset, const Feat& f) {
-  const int smem = (int)sizeof(Smem<T, D>);
+  const int smem = (int)(sizeof(Smem<T, D>) + (kPosSeg ? kBlockN * sizeof(int) : 0));
   // The dynamic shared-memory limit is raised once per kernel and device.
   static bool smem_set[kMaxDevices] = {};
   int dev = 0;
@@ -566,13 +577,13 @@ cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, 
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop, kPos>,
+    err = cudaFuncSetAttribute(flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop, kPos, kPosSeg>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
   const dim3 grid((n_q + kBlockM - 1) / kBlockM, n_heads, batch);
-  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop, kPos><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, KV, kPaged, D, kFeat, kXf, kDrop, kPos, kPosSeg><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), kv, static_cast<const int*>(q_offset),
       static_cast<T*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q,
       sm_scale * kLog2e, causal, pos_div, fixed_offset, f);
@@ -608,6 +619,15 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
     if constexpr (kPaged || (std::is_same<T, bf16>::value && std::is_same<KV, T>::value)) {
       return cudaErrorInvalidValue;
     } else {
+      // fp32 with segment ids (fam_flash_fwd; the 8-bit entry takes none):
+      // the segmented instance, at any n_q.
+      if constexpr (std::is_same<KV, T>::value) {
+        if (f.q_seg != nullptr) {
+          return launch_tiles<T, KV, false, D, true, true, false, true, true>(
+              q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, n_q, sm_scale, causal,
+              pos_div, stream, fixed_offset, f);
+        }
+      }
       return launch_tiles<T, KV, false, D, true, true, false, true>(
           q, kv, q_offset, o, lse, batch, n_heads, n_kv_heads, n_q, sm_scale, causal, pos_div,
           stream, fixed_offset, f);
@@ -678,12 +698,10 @@ Feat make_feat(int window, int sinks, const void* q_seg, const void* kv_seg, flo
 }
 
 // A rolling cache's positions (null: none) need causal and one row per
-// position, and take no segment ids or dropout (as JAX, flash_fwd.py:
-// 899-916; the port's position walks take no ids).
-bool bad_pos(const void* kv_pos, int causal, int pos_div, const void* q_seg,
-             const void* drop_seed) {
-  return kv_pos != nullptr &&
-         (!causal || pos_div != 1 || q_seg != nullptr || drop_seed != nullptr);
+// position, and take no dropout (as JAX, flash_fwd.py:899-916); segment
+// ids they take (flash_fwd.py:984-985; fam_flash_fwd only).
+bool bad_pos(const void* kv_pos, int causal, int pos_div, const void* drop_seed) {
+  return kv_pos != nullptr && (!causal || pos_div != 1 || drop_seed != nullptr);
 }
 
 // Dropout (seed null: none): a threshold in [0, 2^31), a keep factor of 1
@@ -738,7 +756,9 @@ bool bad_split(int n_q, int n_kv, const Split& split) {
 // (dropout: pos_div 1 and one split).  kv_pos: a rolling cache's int32
 // [B, N_kv] positions, or null (bad_pos).  bf16 with pos_div == 1 and
 // n_q > 16, or with segment ids or dropout, runs the wgmma kernel
-// (flash_fwd_sm90.cuh; with kv_pos its position walk).
+// (flash_fwd_sm90.cuh; with kv_pos its position walk, segmented with
+// segment ids); fp32 with kv_pos and segment ids the template's segmented
+// kPos instance, at any n_q.
 extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
                              const void* q_offset, void* o, void* lse,
                              int batch, int n_heads, int n_kv_heads, int n_q,
@@ -756,7 +776,7 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
       seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv)) ||
       bad_xf(softcap, slopes, pos_div, q_offset) ||
       bad_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, pos_div, kv_chunk, n_kv) ||
-      bad_pos(kv_pos, causal, pos_div, q_seg, drop_seed)) {
+      bad_pos(kv_pos, causal, pos_div, drop_seed)) {
     return (int)cudaErrorInvalidValue;
   }
   Feat f = make_feat(window, sinks, q_seg, kv_seg, softcap, slopes,
@@ -765,8 +785,10 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
   const KvArgs kv{k, v, nullptr, nullptr, nullptr, n_kv, 0, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* off = static_cast<const int*>(q_offset);
-  // A rolling cache's bf16 prefill chunks: the wgmma kernel's position walk.
-  if (kv_pos != nullptr && dtype == 0 && n_q > kDecodeRows) {
+  // A rolling cache's bf16 prefill chunks: the wgmma kernel's position walk;
+  // with segment ids its segmented walk, at any n_q (the decode grid takes
+  // no segment ids).
+  if (kv_pos != nullptr && dtype == 0 && (n_q > kDecodeRows || seg)) {
     return (int)(head_dim == 64
                      ? sm90::launch_fwd_pos<64>(q, k, v, off, o, lse, batch, n_heads, n_kv_heads,
                                                 n_q, n_kv, sm_scale, f, s)
@@ -853,7 +875,7 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
       bad_xf(softcap, slopes, pos_div, q_offset) || (slopes != nullptr && !causal) ||
-      bad_pos(kv_pos, causal, pos_div, nullptr, nullptr)) {
+      bad_pos(kv_pos, causal, pos_div, nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Feat f = make_feat(window, sinks, nullptr, nullptr, softcap, slopes);

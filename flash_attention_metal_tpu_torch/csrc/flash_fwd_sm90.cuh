@@ -104,7 +104,11 @@
 //     every KV tile and compares every element (JAX turns its block skip
 //     off too, flash_fwd.py:319); the tile's 64 positions ride the K ring's
 //     bit stage beside K.  It reads the window, sinks, cap and slopes at run
-//     time (one instance a head dim).
+//     time (one instance a head dim).  With segment ids (PosSegWalk, an
+//     instance of its own, so PosWalk keeps no id state) the tile's 64 ids
+//     ride the bit stage after its positions, and a slot is seen only by
+//     rows of its id; a segmented call takes this walk at any n_q (a
+//     decode-sized one included: the decode grid takes no segment ids).
 // Block shape: one warpgroup, not two.  At lean's N = 1024, B 8, H 1 there
 // are only 128 tiles of 64 rows: 128-row blocks would leave half of the
 // 132 SMs idle.  At the training shape (2048 tiles) two consumer
@@ -339,7 +343,12 @@ struct FeatWalk {
 // read at run time.  Positions below 2^23 convert to float exactly by one
 // integer and one float add (pos_float), not an int-to-float conversion per
 // score, which runs at the special-function unit's rate (PERF.md §6).
-struct PosWalk {
+// kSeg (PosSegWalk): segment ids too, as FeatWalk<true> takes them (q_seg
+// [B, N_q], kv_seg [B, N_kv]; only a slot whose id is the row's is seen):
+// the tile's 64 ids ride the second half of the bit stage, after its
+// positions.  PosWalk holds no id state.
+template <bool kSeg>
+struct PosWalkT {
   static constexpr bool kBits = true;  // the bit stage holds the KV tile's positions
   const int* q_offset;
   const int* kv_pos;
@@ -354,7 +363,9 @@ struct PosWalk {
 
   // One step's element test.  Element e of n8 tile j: Q row r0 (+ 8 for
   // e >= 2), slot c0 + 8 j + (e & 1) holding position pos[8 j + (e & 1)];
-  // rowf: this thread's two rows' positions as floats.
+  // rowf: this thread's two rows' positions as floats.  With kSeg, ids:
+  // the step's KV ids from this thread's first column on, qid: its two
+  // rows' ids.
   struct Mask {
     static constexpr bool kXf = true;
     static constexpr bool kDrop = false;
@@ -363,10 +374,15 @@ struct PosWalk {
     const uint32_t* pos;
     XfHead xf;
     float rowf[2];
+    const uint32_t* ids;
+    int qid[2];
     __device__ bool seen(int j, int e) const {
       const int c = c0 + j * 8 + (e & 1);
       const int p = r0 + (e >> 1) * 8 + off;
       const int cp = (int)pos[j * 8 + (e & 1)];
+      if constexpr (kSeg) {
+        if ((int)ids[j * 8 + (e & 1)] != qid[e >> 1]) return false;
+      }
       return c < n_kv && cp >= 0 && cp <= p && in_window(cp, p, window, sinks);
     }
     // Element (j, e)'s distance pos - p (read only where seen, pos >= 0).
@@ -382,7 +398,10 @@ struct PosWalk {
     const int* kv_pos;
     XfHead xf;
     float rowf[2];
-    __device__ Blk(const PosWalk& w, int, int, int n_kv_) {
+    const int* kv_ids;
+    int qid[2];
+    template <class Walk>
+    __device__ Blk(const Walk& w, int, int n_q, int n_kv_) {
       n_kv = n_kv_;
       b = blockIdx.z;
       h = blockIdx.y;
@@ -397,18 +416,38 @@ struct PosWalk {
       const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
       rowf[0] = (float)(q_start + row + off);
       rowf[1] = rowf[0] + 8.0f;
+      kv_ids = nullptr;
+      qid[0] = qid[1] = 0;
+      if constexpr (kSeg) {
+        kv_ids = w.kv_seg + (size_t)b * n_kv;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          qid[half] = w.q_seg[(size_t)b * n_q + min(q_start + row + half * 8, n_q - 1)];
+        }
+      }
     }
     __device__ int2 entry(int j) const { return make_int2(j, -1); }
     // The KV tile's positions ride the K ring's bit stage (0 past n_kv,
-    // where the column test hides them).
+    // where the column test hides them), with kSeg its ids after them.
     __device__ void fetch_bits(uint32_t* dst, int2 entry) const {
       load_ids<kTile>(dst, kv_pos + entry.x * kTile, n_kv - entry.x * kTile);
+      if constexpr (kSeg) {
+        load_ids<kTile>(dst + kTile, kv_ids + entry.x * kTile, n_kv - entry.x * kTile);
+      }
     }
     __device__ Mask mask(int2 entry, const uint32_t* bits, int row, int t) const {
       return Mask{false, entry.x * kTile + 2 * t, q_start + row, off, n_kv, window, sinks,
-                  bits + 2 * t, xf, {rowf[0], rowf[1]}};
+                  bits + 2 * t, xf, {rowf[0], rowf[1]}, bits + kTile + 2 * t,
+                  {qid[0], qid[1]}};
     }
   };
+};
+
+// The position walk (one instance a head dim), and with segment ids.
+struct PosWalk : PosWalkT<false> {};
+struct PosSegWalk : PosWalkT<true> {
+  const int* q_seg;
+  const int* kv_seg;
 };
 
 // The block-sparse walk (row 14) over a MaskTables (kernels/flash_mask.py::
@@ -766,14 +805,22 @@ cudaError_t launch_fwd_feat(const void* q, const void* k, const void* v, const i
 }
 
 // The position walk over a rolling cache: q_offset int32 [B], f.kv_pos
-// [B, N_kv], f's window, sinks and transforms.
+// [B, N_kv], f's window, sinks and transforms; with f.q_seg set, its
+// segmented instance (q_seg [B, N_q], kv_seg [B, N_kv]).
 template <int D>
 cudaError_t launch_fwd_pos(const void* q, const void* k, const void* v, const int* q_offset,
                            void* o, void* lse, int batch, int n_heads, int n_kv_heads, int n_q,
                            int n_kv, float sm_scale, const Feat& f, cudaStream_t stream) {
   const dim3 grid((n_q + kTile - 1) / kTile, n_heads, batch);
-  return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
-                   PosWalk{q_offset, f.kv_pos, f.window, f.sinks, f.softcap, sm_scale, f.slopes},
+  const PosWalkT<false> base{q_offset, f.kv_pos, f.window, f.sinks, f.softcap, sm_scale, f.slopes};
+  if (f.q_seg != nullptr) {
+    return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale,
+                     PosSegWalk{{base.q_offset, base.kv_pos, base.window, base.sinks,
+                                 base.softcap, base.sm_scale, base.slopes},
+                                f.q_seg, f.kv_seg},
+                     grid, stream);
+  }
+  return launch<D>(q, k, v, o, lse, n_heads, n_kv_heads, n_q, n_kv, sm_scale, PosWalk{base},
                    grid, stream);
 }
 

@@ -1373,6 +1373,51 @@ POS_CASES = (
      _W),
 )
 _QDT = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+# Segment ids over the same rolling caches (row 1; the 8-bit entry takes
+# none, as in JAX): the slots' ids change at slot POS_SEG_KV_CUT, inside a
+# 64-slot tile; a prefill chunk's rows' at row POS_SEG_Q_CUT, inside a Q
+# tile (rows g and g + 8 of one warp differ); the chunk's last row, and
+# decode batch 0, hold POS_SEG_NONE, which no slot holds (o = 0, lse =
+# -inf).  Decode-sized calls take the segmented position walks too.
+POS_SEG_KV_CUT, POS_SEG_Q_CUT, POS_SEG_NONE = 200, 40, 9
+_SEG = dict(_W, segments=True)
+POS_SEG_CASES = (
+    ("pos_seg_prefill_bf16", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "ladder",
+     POS_PREFILL_TOTALS, _SEG),
+    ("pos_seg_prefill_bf16_peaked", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, _SEG),
+    ("pos_seg_prefill_bf16_spike", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "spike",
+     (2000, 900), _SEG),
+    ("pos_seg_prefill_bf16_xf", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "bf16", "peaked",
+     POS_PREFILL_TOTALS, dict(_XF, segments=True)),
+    ("pos_seg_prefill_bf16_d128", "fwd", POS_PREFILL_D128_Q, POS_PREFILL_D128_KV, "bf16",
+     "peaked", POS_PREFILL_TOTALS, _SEG),
+    ("pos_seg_decode_bf16", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked",
+     POS_DECODE_TOTALS, _SEG),
+    ("pos_seg_decode_bf16_negative", "fwd", POS_DECODE_Q, POS_DECODE_KV, "bf16", "negative",
+     POS_DECODE_TOTALS, _SEG),
+    ("pos_seg_prefill_fp32", "fwd", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked",
+     POS_PREFILL_TOTALS, _SEG),
+    ("pos_seg_prefill_fp32_d128", "fwd", POS_PREFILL_D128_Q, POS_PREFILL_D128_KV, "fp32",
+     "peaked", POS_PREFILL_TOTALS, _SEG),
+    ("pos_seg_decode_fp32", "fwd", POS_DECODE_Q, POS_DECODE_KV, "fp32", "peaked",
+     POS_DECODE_TOTALS, _SEG),
+)
+
+
+def pos_segment_ids(q_shape, n_kv: int, device="cuda") -> SegmentIds:
+    """``POS_SEG_CASES``' ids for q ``[B, H, N_q, D]`` over ``n_kv`` slots
+    (see there)."""
+    batch, _, n_q, _ = q_shape
+    kv = 1 + (torch.arange(n_kv, device=device) >= POS_SEG_KV_CUT).int()
+    if n_q > 1:
+        q = 1 + (torch.arange(n_q, device=device) >= POS_SEG_Q_CUT).int()
+        q[-1] = POS_SEG_NONE
+        q = q.expand(batch, n_q)
+    else:
+        q = 1 + (torch.arange(batch, device=device) % 2).int()[:, None]
+        q[0] = POS_SEG_NONE
+    return SegmentIds(q.contiguous(), kv.expand(batch, n_kv).contiguous())
 
 
 def rolling_positions(totals, capacity: int, sinks: int, gen: torch.Generator,
@@ -1396,14 +1441,45 @@ def rolling_positions(totals, capacity: int, sinks: int, gen: torch.Generator,
     return pos.masked_fill(drop, -1).to(torch.int32).contiguous()
 
 
-def pos_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
+# The fault ``chip_smoke.py`` plants in a copy of ``csrc/`` (source, old,
+# new): both segmented position walks ignore the ids, the wgmma walk the
+# bf16 cases' and the template the fp32 cases' (``tests/test_torch_gpu.py::
+# PLANTED_POS_SEG_FAULTS`` plants these and others one at a time).
+POS_SEG_IGNORED = (
+    ("flash_fwd_sm90.cuh", "if ((int)ids[j * 8 + (e & 1)] != qid[e >> 1]) return false;",
+     "(void)0;"),
+    ("flash_fwd.cu", "if constexpr (kPosSeg) seen[j] = seen[j] && kids[c] == my_seg;", ""),
+)
+# The split-KV decode grid's units, which flash_fwd.cu calls.
+DECODE_UNITS = ("flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
+                "flash_decode_e5m2.cu")
+
+
+def build_planted(work: str, faults, units=("flash_fwd.cu", *DECODE_UNITS)) -> Path:
+    """``csrc/`` copied into ``work`` with each ``(source, old, new)`` of
+    ``faults`` planted (``old`` must occur once), and ``units`` built from
+    the copy into ``work/planted.so`` (one ``nvcc`` per unit)."""
+    from ..kernels import _build
+
+    src = Path(work) / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    for source, old, new in faults:
+        text = (src / source).read_text()
+        if text.count(old) != 1:
+            raise ValueError(f"{source}: the planted text occurs {text.count(old)} times")
+        (src / source).write_text(text.replace(old, new))
+    return _build.compile_library([src / u for u in units], Path(work) / "planted.so")
+
+
+def pos_cases(gen: torch.Generator, names=None, table=POS_CASES) -> Dict[str, tuple]:
     """``{name: (kernel, q, kv, q_offset, kv_positions, features)}`` of
-    ``POS_CASES`` (all, or ``names``): ``kv`` the ``(k, v)`` pair, or for
-    an 8-bit kernel its ``QuantizedKV``; row ``r`` of batch ``b`` at
-    position ``totals[b] - n_q + r``, so the last row is the slot's newest
-    token."""
+    ``table`` (``POS_CASES`` or ``POS_SEG_CASES``; all, or ``names``):
+    ``kv`` the ``(k, v)`` pair, or for an 8-bit kernel its ``QuantizedKV``;
+    row ``r`` of batch ``b`` at position ``totals[b] - n_q + r``, so the
+    last row is the slot's newest token; ``segments`` becomes the
+    ``segment_ids`` of ``pos_segment_ids``."""
     cases = {}
-    for name, kernel, sq, skv, dt, fixture, totals, feats in POS_CASES:
+    for name, kernel, sq, skv, dt, fixture, totals, feats in table:
         if names is not None and name not in names:
             continue
         q, k, v = _fixture(sq, skv, _DTYPES[dt], gen, fixture)
@@ -1411,6 +1487,8 @@ def pos_cases(gen: torch.Generator, names=None) -> Dict[str, tuple]:
         pos = rolling_positions(totals, skv[2], feats["sinks"], gen)
         offs = torch.tensor([t - sq[2] for t in totals], dtype=torch.int32, device="cuda")
         feats = dict(feats, causal=True)
+        if feats.pop("segments", False):
+            feats["segment_ids"] = pos_segment_ids(sq, skv[2])
         if "alibi" in feats:
             feats["alibi_slopes"] = alibi_slopes(feats.pop("alibi"), sq[1])
         cases[name] = (kernel, q, kv, offs, pos, feats)
@@ -1456,7 +1534,8 @@ def pos_error(case: tuple) -> Tuple[float, float]:
 def _pos_visible(case: tuple) -> torch.Tensor:
     kernel, q, kv, off, pos, feats = case
     return plain_visible(q.shape[2], pos.shape[1], off, causal=True, window=feats["window"],
-                         sinks=feats["sinks"], device=q.device, kv_positions=pos)
+                         sinks=feats["sinks"], segment_ids=feats.get("segment_ids"),
+                         device=q.device, kv_positions=pos)
 
 
 def pos_work(case: tuple) -> Tuple[float, float]:

@@ -679,13 +679,15 @@ def flash_fwd_general(
     times the keep factor of its (batch, q-head, row, column), tensor
     indices plus the offsets (``_common.keep_factors``).  The lse is the
     undropped one's.  ``kv_positions`` (int32 ``[B, N_kv]``, needs
-    ``causal``, no row fold or dropout; with segment ids on CPU tensors
-    only): slot ``j`` holds position ``kv_positions[b, j]`` (-1: never
-    written, hidden), and the
-    causal mask, the window, the sinks and ALiBi's distance act on those
-    positions: row ``r`` at ``p = r + q_offset[b]`` sees slot ``j`` when
-    ``0 <= pos <= p`` (and ``pos > p - window`` or ``pos < sinks``).  Every
-    KV tile is visited: slot order is not position order.
+    ``causal``, no row fold or dropout): slot ``j`` holds position
+    ``kv_positions[b, j]`` (-1: never written, hidden), and the causal mask,
+    the window, the sinks and ALiBi's distance act on those positions: row
+    ``r`` at ``p = r + q_offset[b]`` sees slot ``j`` when ``0 <= pos <= p``
+    (and ``pos > p - window`` or ``pos < sinks``; with segment ids, only a
+    slot of the row's id).  Every KV tile is visited: slot order is not
+    position order.  With segment ids a call of any ``n_q`` runs the
+    segmented position walk (bf16: the ``wgmma`` kernel's, fp32: the
+    template's), never the decode grid.
     """
     check_shapes(q, k, v)
     batch, heads, n_q, head_dim = q.shape
@@ -718,10 +720,6 @@ def flash_fwd_general(
     _check_cuda_inputs(q, k, v, off)
     if pos is not None and pos.device != q.device:
         raise ValueError(f"kv_positions is on {pos.device}, q on {q.device}")
-    if pos is not None and seg is not None:
-        raise NotImplementedError(
-            "the CUDA position walks take no segment_ids with kv_positions (the plain version "
-            "on CPU tensors does; see ROADMAP.md, Queue C)")
     o, lse = _new_outputs(q, save_lse)
     grid, part, tickets, stream = split_args(q, n_kv, split=seg is None and drop is None)
     err = _lib().fam_flash_fwd(

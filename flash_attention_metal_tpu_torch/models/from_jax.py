@@ -1,4 +1,4 @@
-"""Load the JAX package's FlashLM parameters into the port.
+"""Load the JAX package's FlashLM parameters (dense or MoE) into the port.
 
 The caller turns the JAX pytree into numpy arrays first (for example with
 ``jax.tree_util.tree_map(np.asarray, params)``), so this module never
@@ -17,6 +17,8 @@ from .transformer import ModelConfig, Params
 
 _MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _NORMS = ("attn_norm", "mlp_norm")
+# An MoE layer's router (models/moe.py): fp32, as the JAX router computes.
+_FP32 = _NORMS + ("w_router",)
 
 
 def params_from_jax(
@@ -34,7 +36,9 @@ def params_from_jax(
     every use); training passes ``torch.float32`` to keep fp32 masters.
     Norm gains stay fp32.  A weight-only int8 matrix of
     ``models/wquant.py`` (``{"qw", "scale"}``) comes across as it is: int8
-    ``qw`` and fp32 ``scale``.  MoE layers are not ported and raise.
+    ``qw`` and fp32 ``scale``.  An MoE layer (``models/moe.py``) brings its
+    router ``w_router`` as fp32 and its 3-D expert stacks (``w_gate``,
+    ``w_up`` ``[E, d, f]``, ``w_down`` ``[E, f, d]``) in ``dtype``.
     """
     store = cfg.dtype if dtype is None else dtype
 
@@ -48,10 +52,8 @@ def params_from_jax(
 
     layers = []
     for layer in tree["layers"]:
-        if "w_router" in layer:
-            raise NotImplementedError("MoE layers are not ported (see ROADMAP.md)")
         out = {name: tensor(layer[name], store) for name in _MATRICES}
-        out.update({name: tensor(layer[name], torch.float32) for name in _NORMS})
+        out.update({name: tensor(layer[name], torch.float32) for name in _FP32 if name in layer})
         layers.append(out)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, cfg has {cfg.n_layers}")

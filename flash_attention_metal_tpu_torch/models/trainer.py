@@ -129,6 +129,14 @@ def make_optimizer(
     return AdamW(schedule, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip)
 
 
+def constant_adamw(lr: float, *, b1: float = 0.9, b2: float = 0.999, weight_decay: float = 1e-4,
+                   grad_clip: float = math.inf) -> AdamW:
+    """optax's ``adamw(lr)`` with its defaults (b1 0.9, b2 0.999, weight
+    decay 1e-4), a constant learning rate and, unless ``grad_clip`` is
+    given, no clip (``clip_by_global_norm(grad_clip)`` before it)."""
+    return AdamW(lambda count: lr, b1=b1, b2=b2, weight_decay=weight_decay, grad_clip=grad_clip)
+
+
 @dataclasses.dataclass
 class TrainState:
     params: Params

@@ -216,6 +216,14 @@ def attention_block(
 
 
 def mlp_block(layer: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if "w_router" in layer:
+        # An MoE layer (models/moe.py): the drop-free routed MLP, so forward,
+        # prefill, decode and every cache mode serve MoE through this one
+        # hook, as in JAX (transformer.py:216-222).  Late import: moe
+        # imports this module.
+        from .moe import moe_mlp_dense
+
+        return moe_mlp_dense(layer, x, cfg)
     dt = cfg.dtype
     h = rms_norm(x, layer["mlp_norm"])
     gate = F.silu(h @ weight(layer["w_gate"], dt))
@@ -318,10 +326,13 @@ def map_params(fn, params: Params, *rest: Params) -> Params:
 
 
 def value_and_grad(loss, params: Params, *args) -> Tuple[torch.Tensor, Params]:
-    """``(loss(params, *args), d loss / d params)``; grads shaped like params."""
+    """``(loss(params, *args), d loss / d params)``; grads shaped like params,
+    zeros for a leaf the loss does not use (as ``jax.grad`` gives; e.g. the
+    encoder's ``mlm_head`` under a seq2seq loss)."""
     live = map_params(lambda p: p.detach().requires_grad_(True), params)
     value = loss(live, *args)
-    grads = torch.autograd.grad(value, param_leaves(live))
+    grads = torch.autograd.grad(value, param_leaves(live), allow_unused=True,
+                                materialize_grads=True)
     it = iter(grads)
     return value.detach(), map_params(lambda _: next(it), live)
 

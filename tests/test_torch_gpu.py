@@ -12,7 +12,6 @@ import dataclasses
 import json
 import math
 import re
-import shutil
 
 import numpy as np
 import pytest
@@ -20,7 +19,6 @@ import torch
 
 from flash_attention_metal_tpu_torch import bench, flash_attention
 from flash_attention_metal_tpu_torch.harness import autotune, onchip, serving
-from flash_attention_metal_tpu_torch.kernels import _build
 from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
 from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
 from flash_attention_metal_tpu_torch.kernels import flash_mask as fm
@@ -59,8 +57,7 @@ def _uniform(rng, shape, device, dtype, scale=1.0):
 # decode grid's instances (one unit per KV element type); flash_lean.cu's
 # fp32 entry calls the dense template of flash_fwd.cu; flash_tri.cu's fp32
 # entries call that template and the fused backward's entry in flash_bwd.cu.
-_DECODE_UNITS = ("flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
-                 "flash_decode_e5m2.cu")
+_DECODE_UNITS = onchip.DECODE_UNITS
 _COMPANIONS = {"flash_fwd.cu": _DECODE_UNITS,
                "flash_lean.cu": ("flash_fwd.cu", *_DECODE_UNITS),
                "flash_tri.cu": ("flash_fwd.cu", "flash_bwd.cu", *_DECODE_UNITS)}
@@ -70,13 +67,8 @@ def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ct
     """``csrc/<unit>`` (with its companions) built from a copy of ``csrc/``
     in which one fault is planted in ``<source>``: the unit itself or a
     header it includes, directly or through another header."""
-    src = tmp_path / "csrc"
-    shutil.copytree(_build.CSRC, src)
-    text = (src / source).read_text()
-    assert text.count(old) == 1
-    (src / source).write_text(text.replace(old, new))
-    units = [src / u for u in (unit, *_COMPANIONS.get(unit, ()))]
-    return ctypes.CDLL(str(_build.compile_library(units, tmp_path / "planted.so")))
+    units = (unit, *_COMPANIONS.get(unit, ()))
+    return ctypes.CDLL(str(onchip.build_planted(str(tmp_path), [(source, old, new)], units)))
 
 
 @pytest.mark.gpu
@@ -2404,19 +2396,62 @@ def test_pos_kernel_matches_plain(cuda, name):
 
 
 @pytest.mark.gpu
-def test_pos_segment_ids_raise_on_cuda(cuda):
-    """Positions with segment ids run on CPU tensors only: a CUDA call
-    raises, and launches nothing."""
-    from flash_attention_metal_tpu_torch.config import SegmentIds
+@pytest.mark.parametrize("name", [c[0] for c in onchip.POS_SEG_CASES])
+def test_pos_seg_kernel_matches_plain(cuda, name):
+    """Positions with segment ids on the card (the segmented position walks:
+    the wgmma forward's for bf16, decode-sized calls included, the
+    template's for fp32) against the plain version, rows of an id no slot
+    holds included (lse -inf on both sides)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    case = onchip.pos_cases(gen, (name,), onchip.POS_SEG_CASES)[name]
+    before = ff.flash_fwd_general.pos_launches
+    err, lse_err = onchip.pos_error(case)
+    print(f"\n{name}: o {err:.3e}, lse {lse_err:.3e}")
+    tol = TOL[case[1].dtype]
+    assert ff.flash_fwd_general.pos_launches == before + 1
+    assert err <= tol and lse_err <= tol
 
-    q = torch.zeros((1, 2, 128, 64), device="cuda", dtype=torch.bfloat16)
-    pos = torch.arange(128, dtype=torch.int32, device="cuda")[None]
-    ids = torch.zeros((1, 128), dtype=torch.int32, device="cuda")
-    before = ff.flash_fwd_general.launches
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        ff.flash_attention_fwd(q, q, q, causal=True, kv_positions=pos,
-                               segment_ids=SegmentIds(ids, ids))
-    assert ff.flash_fwd_general.launches == before
+
+# (source, failing cases, old, new): a segmented position walk that
+# ignores the ids, reads them from the positions' half of its stage, or
+# tests both of a thread's rows against its first row's id.
+PLANTED_POS_SEG_FAULTS = {
+    "wgmma_seg_ignored": (
+        "flash_fwd_sm90.cuh", ("pos_seg_prefill_bf16_peaked", "pos_seg_decode_bf16"),
+        "if ((int)ids[j * 8 + (e & 1)] != qid[e >> 1]) return false;", "(void)0;"),
+    "wgmma_seg_ids_from_positions": (
+        "flash_fwd_sm90.cuh", ("pos_seg_prefill_bf16_peaked", "pos_seg_decode_bf16"),
+        "bits + kTile + 2 * t,", "bits + 2 * t,"),
+    "wgmma_seg_first_row_id": (
+        "flash_fwd_sm90.cuh", ("pos_seg_prefill_bf16_peaked",),
+        "if ((int)ids[j * 8 + (e & 1)] != qid[e >> 1]) return false;",
+        "if ((int)ids[j * 8 + (e & 1)] != qid[0]) return false;"),
+    "template_seg_ignored": (
+        "flash_fwd.cu", ("pos_seg_prefill_fp32", "pos_seg_decode_fp32"),
+        "if constexpr (kPosSeg) seen[j] = seen[j] && kids[c] == my_seg;", ""),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_POS_SEG_FAULTS))
+def test_pos_seg_planted_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
+    """The segmented position checks pass the kernels as built and fail a
+    copy with a planted fault (errors printed with ``-s``)."""
+    source, failing, old, new = PLANTED_POS_SEG_FAULTS[fault]
+    lib = ff.bind(_planted_library(tmp_path, "flash_fwd.cu", source, old, new))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.pos_cases(gen, failing, onchip.POS_SEG_CASES)
+    clean = {n: max(onchip.pos_error(c)) for n, c in cases.items()}
+    monkeypatch.setattr(ff, "_lib", lambda: lib)
+    faulty = {n: max(onchip.pos_error(c)) for n, c in cases.items()}
+    print(f"\n{fault}, worst error, built -> planted: "
+          + ", ".join(f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in failing))
+    for n in failing:
+        tol = TOL[cases[n][1].dtype]
+        assert clean[n] <= tol
+        assert not faulty[n] <= tol, n
 
 
 # (source, failing cases, old, new): each fault fails the checks of the
@@ -2667,3 +2702,207 @@ def test_serve_weight_int8_cuda_matches_cpu(cuda):
     for a, b in zip(got, want):
         assert a.generated == b.generated
         np.testing.assert_allclose(a.logprobs, b.logprobs, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The one-device model families on the card (fp32, small widths): each
+# family's path through the kernels against the same path on the CPU, where
+# the wrappers take their plain versions.
+# ---------------------------------------------------------------------------
+
+def _family_counts():
+    counters = {"fwd": ff.flash_fwd_general, "dkv": fb.flash_bwd_dkv, "dq": fb.flash_bwd_dq,
+                "paged_quant": pg.flash_attention_paged_quant}
+    for c in counters.values():
+        c.launches = 0
+    return lambda: {name: c.launches for name, c in counters.items()}
+
+
+def _leaves_close(got, want, tol):
+    for g, w in zip(tf.param_leaves(got), tf.param_leaves(want)):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g.cpu() - w).abs().max()) <= tol * scale
+
+
+def _small_moe():
+    from flash_attention_metal_tpu_torch.models import moe
+
+    cfg = moe.MoEConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                        head_dim=64, d_ff=256, max_seq_len=1024, dtype=torch.float32, n_experts=4,
+                        top_k=2, capacity_factor=1.25)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return moe, cfg, moe.init_moe_params(cfg, gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [dict(), dict(paged=True, kv_quant="int8")],
+                         ids=["dense", "paged_int8"])
+def test_family_moe_serves_as_on_the_cpu(cuda, opts):
+    """An MoE tree served on the card (the mlp_block hook) emits the CPU's
+    greedy tokens, log-probabilities within fp32 rounding (int8: 2e-3, an
+    8-bit code a rounding apart moves a key by a step of its absmax / 127,
+    and the routed MLP's gates follow it), through the mode's kernel."""
+    _, cfg, params = _small_moe()
+    prompts = [[3, 2, 1], _LONG[:150]]
+    _, want = _serve_on("cpu", params, cfg, prompts, **opts)
+    counts = _family_counts()
+    _, got = _serve_on("cuda", params, cfg, prompts, **opts)
+    assert counts()["paged_quant" if opts else "fwd"] > 0
+    for a, b in zip(got, want):
+        assert a.generated == b.generated
+        np.testing.assert_allclose(a.logprobs, b.logprobs, atol=2e-3 if opts else 1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_family_moe_training_matches_the_cpu(cuda):
+    """The capacity-bucketed MoE loss with the aux loss, and its gradients,
+    on the card against the CPU (fp32: 1e-5 of the loss, 1e-4 of the
+    largest gradient)."""
+    moe, cfg, params = _small_moe()
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 256)))
+    loss_c, grads_c = tf.value_and_grad(moe._moe_loss, params, tokens, cfg)
+    counts = _family_counts()
+    loss_g, grads_g = tf.value_and_grad(moe._moe_loss, tf.map_params(lambda t: t.cuda(), params),
+                                        tokens.cuda(), cfg)
+    n = counts()
+    assert n["fwd"] == 2 * cfg.n_layers and n["dkv"] == n["dq"] == cfg.n_layers
+    assert abs(float(loss_g) - float(loss_c)) < 1e-5 * float(loss_c)
+    _leaves_close(grads_g, grads_c, 1e-4)
+
+
+@pytest.mark.gpu
+def test_family_encoder_matches_the_cpu(cuda):
+    """The encoder's contract (non-causal, pads as segment 0, dropout 0.1 in
+    one call): the masked-LM loss and gradients on the card against the
+    CPU's plain versions, the same keep mask both ways."""
+    from flash_attention_metal_tpu_torch.models import encoder
+
+    cfg = encoder.EncoderConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                                d_ff=256, max_seq_len=256, dtype=torch.float32, attn_dropout=0.1)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = encoder.init_params(cfg, gen)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, 256, (2, 256)))
+    mask = torch.from_numpy((np.arange(256)[None] < np.array([[173], [256]])).astype(np.int32))
+    labels = torch.from_numpy(rng.integers(0, 256, (2, 256)))
+    loss_mask = torch.from_numpy((rng.random((2, 256)) < 0.3).astype(np.int32)) * mask
+    seeds = torch.tensor([11, 2**30 + 5], dtype=torch.int32)
+
+    def run(dev, p):
+        return tf.value_and_grad(
+            lambda q: encoder.mlm_loss(q, tokens.to(dev), labels.to(dev), loss_mask.to(dev),
+                                       mask.to(dev), cfg=cfg, dropout_seeds=seeds.to(dev)), p)
+
+    loss_c, grads_c = run("cpu", params)
+    counts = _family_counts()
+    loss_g, grads_g = run("cuda", tf.map_params(lambda t: t.cuda(), params))
+    n = counts()
+    assert n["fwd"] == n["dkv"] == n["dq"] == cfg.n_layers
+    assert abs(float(loss_g) - float(loss_c)) < 1e-5 * float(loss_c)
+    _leaves_close(grads_g, grads_c, 1e-4)
+
+
+@pytest.mark.gpu
+def test_family_seq2seq_decodes_as_on_the_cpu(cuda):
+    """Cross-attention (n_q != n_kv, kv-side segment ids) and the decoder's
+    128-padded target cache at a traced offset: greedy tokens and beam
+    scores on the card equal the CPU's (fp32)."""
+    from flash_attention_metal_tpu_torch.models import seq2seq
+
+    cfg = seq2seq.Seq2SeqConfig(vocab_size=256, d_model=128, enc_layers=2, dec_layers=2,
+                                n_heads=4, n_kv_heads=2, d_ff=256, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = seq2seq.init_params(cfg, gen)
+    src = [5, 9, 2, 44, 17, 3, 81, 200, 7]
+    want = seq2seq.greedy_generate(params, cfg, src, max_new_tokens=12)
+    beam_want = seq2seq.beam_generate(params, cfg, src, beam_width=3, max_new_tokens=8,
+                                      return_all=True)
+    gpu = tf.map_params(lambda t: t.cuda(), params)
+    counts = _family_counts()
+    got = seq2seq.greedy_generate(gpu, cfg, src, max_new_tokens=12)
+    assert counts()["fwd"] == 12 * 2 * cfg.dec_layers + cfg.enc_layers
+    assert got == want
+    beam_got = seq2seq.beam_generate(gpu, cfg, src, beam_width=3, max_new_tokens=8,
+                                     return_all=True)
+    assert [t for t, _ in beam_got] == [t for t, _ in beam_want]
+    np.testing.assert_allclose([s for _, s in beam_got], [s for _, s in beam_want], atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_family_lora_and_muon_steps_match_the_cpu(cuda):
+    """An adapter-only AdamW step (the base untouched) and a Muon step on
+    the card against the CPU: adapters within 1e-5 of their largest value;
+    Muon's bf16 Newton-Schulz within 5e-2 relative L2 (cuBLAS rounds its
+    bf16 products elsewhere than the CPU, and five iterations amplify a
+    rounding: tests/test_torch_muon.py)."""
+    from flash_attention_metal_tpu_torch.models import lora, muon
+
+    cfg = tf.ModelConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2,
+                         head_dim=64, d_ff=256, dtype=torch.float32)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    base = tf.init_params(cfg, gen, master_dtype=torch.float32)
+    lcfg = lora.LoRAConfig()
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 128)))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator()
+        g.manual_seed(1)
+        b = tf.map_params(lambda t: t.to(dev), base)
+        ad = tf.map_params(lambda t: t.to(dev), lora.init_lora(base, lcfg, g))
+        ad["layers"][0]["wq"]["b"].fill_(0.01)
+        step, init = lora.make_lora_train_step(cfg, lcfg)
+        state = init(ad)
+        for _ in range(2):
+            step(ad, state, b, tokens.to(dev))
+        assert all(torch.equal(x.cpu(), y) for x, y in zip(tf.param_leaves(b),
+                                                            tf.param_leaves(base)))
+        results[dev] = ad
+    _leaves_close(results["cuda"], results["cpu"], 1e-5)
+    g = torch.from_numpy(np.random.default_rng(4).normal(size=(128, 384)).astype(np.float32))
+    want = muon.newton_schulz_orthogonalize(g)
+    got = muon.newton_schulz_orthogonalize(g.cuda()).cpu()
+    assert float(torch.linalg.norm(got - want)) < 5e-2 * float(torch.linalg.norm(want))
+
+
+@pytest.mark.gpu
+def test_family_llama_converted_matches_the_cpu(cuda):
+    """A seeded state dict with Hugging Face LLaMA names (GQA group 8, head
+    dim 64) converted on the card: its logits against the CPU's within
+    1e-4 of the largest, and greedy serving through the decode fold equal."""
+    from types import SimpleNamespace
+
+    from flash_attention_metal_tpu_torch.models import convert
+
+    hf = SimpleNamespace(vocab_size=256, hidden_size=512, intermediate_size=384,
+                         num_hidden_layers=2, num_attention_heads=8, num_key_value_heads=1,
+                         max_position_embeddings=1024, rope_theta=10000.0)
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    sd = {"model.embed_tokens.weight": torch.randn(256, 512, generator=gen) * 0.02,
+          "model.norm.weight": torch.ones(512)}
+    for i in range(2):
+        pre = f"model.layers.{i}."
+        for name, shape in (("self_attn.q_proj", (512, 512)), ("self_attn.k_proj", (64, 512)),
+                            ("self_attn.v_proj", (64, 512)), ("self_attn.o_proj", (512, 512)),
+                            ("mlp.gate_proj", (384, 512)), ("mlp.up_proj", (384, 512)),
+                            ("mlp.down_proj", (512, 384))):
+            sd[pre + name + ".weight"] = torch.randn(shape, generator=gen) * shape[1] ** -0.5
+        sd[pre + "input_layernorm.weight"] = torch.ones(512)
+        sd[pre + "post_attention_layernorm.weight"] = torch.ones(512)
+    model = SimpleNamespace(config=hf, state_dict=lambda: sd)
+    cfg, params = convert.convert_hf_llama(model, device="cpu", dtype=torch.float32)
+    _, gpu = convert.convert_hf_llama(model, device="cuda", dtype=torch.float32)
+    assert torch.equal(gpu["lm_head"].cpu(), sd["model.embed_tokens.weight"].t())
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (1, 200)))
+    with torch.no_grad():
+        want = tf.forward(params, tokens, cfg)
+        got = tf.forward(gpu, tokens.cuda(), cfg).cpu()
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    _, reqs_c = _serve_on("cpu", params, cfg, [[3, 2, 1], _LONG[:150]])
+    _, reqs_g = _serve_on("cuda", gpu, cfg, [[3, 2, 1], _LONG[:150]])
+    for a, b in zip(reqs_g, reqs_c):
+        assert a.generated == b.generated

@@ -117,6 +117,11 @@ def test_model_config_and_loader_reject_bad_input(jax_params):
     got = params_from_jax(tree, CFG, device="cpu")["layers"][0]["wq"]
     assert got["qw"].dtype == torch.int8 and torch.equal(got["qw"], torch.from_numpy(qw))
     assert got["scale"].dtype == torch.float32
-    tree["layers"][0]["w_router"] = np.zeros((1, 1), np.float32)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    # An MoE layer's router comes across in fp32 (models/moe.py; the expert
+    # stacks, tests/test_torch_moe.py); a tree of another depth raises.
+    tree["layers"][0]["w_router"] = np.zeros((128, 4), np.float32)
+    got = params_from_jax(tree, CFG, device="cpu", dtype=torch.bfloat16)["layers"][0]
+    assert got["w_router"].dtype == torch.float32 and got["w_router"].shape == (128, 4)
+    tree["layers"] = tree["layers"][:1]
+    with pytest.raises(ValueError, match="layers"):
         params_from_jax(tree, CFG, device="cpu")

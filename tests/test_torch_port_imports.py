@@ -1,8 +1,11 @@
-"""The PyTorch port imports no JAX and nothing of the JAX package.
+"""The PyTorch port imports no JAX, optax or transformers, and nothing of the
+JAX package.
 
 Every ``.py`` file of ``flash_attention_metal_tpu_torch/`` and
 ``chip_smoke.py`` is parsed with ``ast`` (nothing is imported): any
-``import jax...``, any import of ``flash_attention_metal_tpu`` (the JAX
+``import jax...``, ``optax`` or ``transformers`` (the card has none; the
+Llama converter reads any object with a ``.config`` and a
+``.state_dict()``), any import of ``flash_attention_metal_tpu`` (the JAX
 package, not ``_torch``), at module level or inside a function, a relative
 import that climbs out of the port, and ``importlib.import_module`` /
 ``__import__`` of such a name, fail.  Only the tests import both packages.
@@ -21,7 +24,7 @@ FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / PORT).rglob("*.py
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flash_attention_metal_tpu")
+    return top in ("jax", "jaxlib", "optax", "transformers", "flash_attention_metal_tpu")
 
 
 def banned_imports(source: str, path: str) -> list:
@@ -55,6 +58,9 @@ def test_the_scan_covers_the_port():
     assert f"{PORT}/kernels/flash_v1.py" in FILES
     assert f"{PORT}/harness/autotune.py" in FILES
     assert f"{PORT}/kernels/flash_mask.py" in FILES
+    for module in ("models/moe.py", "models/encoder.py", "models/seq2seq.py", "models/lora.py",
+                   "models/muon.py", "models/convert.py", "utils/profiling.py", "utils/debug.py"):
+        assert f"{PORT}/{module}" in FILES
     assert len(FILES) > 40
 
 
@@ -78,9 +84,11 @@ def test_port_file_imports_no_jax(path):
          ["<relative import out of the port>"]),
         ("import flash_attention_metal_tpu_torch\nfrom ..kernels import flash_v1\n", []),
         ("import torch, numpy\n", []),
+        ("import optax\n", ["optax"]),
+        ("def f():\n    from transformers import LlamaForCausalLM\n", ["transformers"]),
     ],
     ids=["import", "submodule", "in_function", "jax_package", "jax_package_in_function",
-         "import_module", "relative_out", "port_itself", "others"],
+         "import_module", "relative_out", "port_itself", "others", "optax", "transformers"],
 )
 def test_scan_flags_what_the_rule_forbids(source, banned):
     got = banned_imports(source, f"{PORT}/harness/example.py")
