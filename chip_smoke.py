@@ -80,7 +80,16 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   ``Trainer.train`` from token shards (``utils/data.py``) beside the same
   model without dropout, and served without seeds, equal to the model
   without dropout; each kernel's time with dropout beside its time without,
-  its bound and SDPA's with ``dropout_p`` (the records' ``drop_*`` keys).
+  its bound and SDPA's with ``dropout_p`` (the records' ``drop_*`` keys);
+* distribution (``dist_phase``, last): 8 gloo ranks sharing the card (one
+  card hosts no two NCCL ranks) run ring attention, ring with dropout,
+  all-gather, Ulysses and lse-combine on a 1-D sp mesh against the
+  single-device op, and the sharded FlashLM step on mesh (2, 2, 2)
+  against the single-device step (loss, SGD update, ring-sp loss, two
+  AdamW steps); then each ring step kind (every pair visible, the
+  diagonal, nothing visible) is timed in this process alone, forward and
+  split backward, beside its bound and SDPA (``[dist-*]`` lines, the
+  record's ``distribution``, each kernel's ``dist_launches``).
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -172,6 +181,21 @@ S2S_TGT, S2S_SOURCE, S2S_NEW = 128, 100, 32
 LLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
              num_attention_heads=32, num_key_value_heads=4)
 LLAMA_LAYERS = 4
+# Distribution (dist_phase) on 8 gloo ranks sharing the card: the
+# attention check's global shape (B, H, H_kv, N, D; n_loc 2048), its
+# dropout rate, decode rows and fp32 shape, and the tolerance on every
+# output (absolute) and gradient (over the largest single-device
+# gradient); the sharded step's mesh, model (the serving FlashLM, full
+# depth), global batch, learning rates and tolerances (loss relative, the
+# SGD update's relative L2 on each leaf).
+DIST_RANKS = 8
+DIST_ATTN_SHAPE, DIST_DROPOUT, DIST_DECODE_ROWS = (1, 16, 8, 16384, 128), 0.1, 128
+DIST_FP32_SHAPE, DIST_TOL = (1, 2, 2, 1024, 64), 1e-2
+DIST_MESH, DIST_BATCH = (2, 2, 2), (2, 4096)
+DIST_MODEL = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=16, n_kv_heads=8,
+                  head_dim=128, d_ff=4096, max_seq_len=4096)
+DIST_SGD_LR, DIST_ADAMW_LR = 1e-2, 3e-4
+DIST_LOSS_REL_TOL, DIST_UPDATE_REL_TOL = 1e-2, 5e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -2433,6 +2457,203 @@ def family_phase(gen: torch.Generator, stamp: str, spec) -> dict:
             "families": fams}
 
 
+def dist_phase(stamp: str, spec, tmp: str) -> dict:
+    """Distribution on one card: 8 gloo ranks sharing it (one card hosts no
+    two NCCL ranks), then each ring step kind timed in this process alone.
+
+    (a) Attention on a 1-D sp mesh of 8 at FlashLM's attention width (B 1,
+    16/8 heads, D 128, bf16, global N ``DIST_ATTN_SHAPE``, n_loc 2048): ring,
+    ring with dropout 0.1, all-gather and Ulysses, each with its gradients,
+    and lse-combine in the decode topology, against the port's single-device
+    op on the whole sequence (``harness/multichip.py::attention_rank``), and
+    an fp32 ring at a small shape.  (b) The full-width FlashLM on mesh
+    (2, 2, 2) (``sharded_train_rank``): one SGD step's loss, and the
+    all-gather and ring steps' updates leaf by leaf, against the
+    single-device step on the same seeded weights and tokens, the ring
+    step's loss against the all-gather one, two AdamW steps.  (c)
+    The three ring step kinds (every pair visible, the diagonal, nothing
+    visible) forward and split backward at n_loc 2048, their kernels against
+    their plain versions, with device, plain, bound and SDPA times."""
+    from flash_attention_metal_tpu_torch.harness import multichip as mc
+    from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+    from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+    )
+    from flash_attention_metal_tpu_torch.models import transformer as tf
+    from flash_attention_metal_tpu_torch.parallel import spawn
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    where = f"{DIST_RANKS} ranks sharing one card over gloo"
+    totals = {name: 0 for name in mc.kernel_counters()}
+
+    # (a) and (b) in one group of ranks (one start, the kernels loaded once).
+    attention_job = dict(device="cuda", seed=SEED, shape=DIST_ATTN_SHAPE, dtype="bfloat16",
+                         methods=list(mc.ATTENTION_METHODS), dropout_rate=DIST_DROPOUT,
+                         dropout_seed=1234, decode_rows=DIST_DECODE_ROWS,
+                         fp32_shape=DIST_FP32_SHAPE)
+    cfg = dict(DIST_MODEL, dtype="bfloat16")
+    train_job = dict(mesh=DIST_MESH, cfg=cfg, batch=DIST_BATCH, seed=SEED, lr=DIST_SGD_LR,
+                     adamw_lr=DIST_ADAMW_LR, device="cuda", sgd_steps=1, adamw_steps=2,
+                     return_delta=True)
+    t0 = time.perf_counter()
+    both = spawn(mc.attention_then_train_rank, DIST_RANKS, (attention_job, train_job),
+                 backend="gloo", device="cuda", workdir=os.path.join(tmp, "dist"))
+    spawn_s = time.perf_counter() - t0
+
+    # (a) Attention on the sp ring.
+    ranks = [r["attention"] for r in both]
+    errors = mc.attention_errors(ranks)
+    for method, errs in errors.items():
+        bad = {key: err for key, err in errs.items() if not err <= DIST_TOL}
+        check(not bad, f"distributed {method}: errors {bad} > {DIST_TOL}")
+        print(f"[dist-attention] {method} on {where}, global q {list(DIST_ATTN_SHAPE)}: "
+              + ", ".join(f"{key} {err:.3e}" for key, err in errs.items())
+              + f" (tol {DIST_TOL}; o and lse absolute, gradients over the largest single-device "
+              f"gradient)")
+    fp32 = max(r["fp32_ring"][0] for r in ranks)
+    check(fp32 <= onchip.TOL[torch.float32], f"fp32 ring error {fp32:.3e}")
+    attn_launches = {name: sum(r["launches"][name] for r in ranks) for name in totals}
+    check(all(attn_launches.values()),
+          f"every kernel of the distributed attention path launched: {attn_launches}")
+    print(f"[dist-attention] fp32 ring {list(DIST_FP32_SHAPE)}: max abs err {fp32:.3e} "
+          f"(tol {onchip.TOL[torch.float32]}); launches over the 8 ranks {attn_launches}; "
+          f"the ranks' checks {max(r['seconds'] for r in ranks):.1f} s")
+
+    # (b) The full-width FlashLM's sharded training step.
+    ranks = [r["train"] for r in both]
+    rep = ranks[0]
+    train_launches = {name: sum(r["launches"][name] for r in ranks) for name in totals}
+    check(all(train_launches.values()),
+          f"every kernel of the sharded step launched: {train_launches}")
+    mcfg = mc._config(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    full = tf.init_params(mcfg, gen, master_dtype=torch.float32)
+    tokens = torch.randint(0, mcfg.vocab_size, DIST_BATCH, generator=gen, device="cuda")
+    loss, grads = tf.value_and_grad(tf.loss_fn, full, tokens, mcfg)
+    loss = float(loss)
+    names = leaf_names(full)
+    attn_leaves = [i for i, n in enumerate(names)
+                   if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv", "wo")]
+    updates = {}
+    for attn, key in (("allgather", "delta"), ("ring", "delta_ring")):
+        errs = mc.update_errors(rep.pop(key), grads, DIST_SGD_LR)
+        order = sorted(range(len(errs)), key=errs.__getitem__, reverse=True)
+        worst_attn = max(attn_leaves, key=errs.__getitem__)
+        updates[attn] = {"worst_leaves": {names[i]: errs[i] for i in order[:3]},
+                         "worst_attention_leaf": {names[worst_attn]: errs[worst_attn]}}
+        print(f"[dist-train] {attn} SGD update against the single-device one, relative L2 per "
+              f"leaf (tol {DIST_UPDATE_REL_TOL}): worst "
+              + ", ".join(f"{names[i]} {errs[i]:.3e}" for i in order[:3])
+              + f"; worst attention leaf {names[worst_attn]} {errs[worst_attn]:.3e}")
+    del full, grads
+    torch.cuda.empty_cache()
+    sharded = rep["losses"][0]
+    loss_rel = abs(sharded - loss) / loss
+    check(loss_rel <= DIST_LOSS_REL_TOL, f"sharded loss {sharded} vs single {loss}: {loss_rel:.3e}")
+    for attn, u in updates.items():
+        check(max(u["worst_leaves"].values()) <= DIST_UPDATE_REL_TOL,
+              f"sharded ({attn}) SGD update, worst leaves {u['worst_leaves']}")
+    check(abs(rep["loss_ring"] - sharded) <= mc.RING_TOL,
+          f"ring-sp loss {rep['loss_ring']} vs all-gather {sharded}")
+    adamw = rep["adamw_losses"]
+    check(adamw[1] < adamw[0], f"AdamW loss falls: {adamw}")
+    steps_ms = [t * 1e3 for t in rep["step_s"]]
+    print(f"[dist-train] FlashLM {DIST_MODEL} on mesh (dp, tp, sp) = {DIST_MESH}, global batch "
+          f"{list(DIST_BATCH)}: loss {sharded:.6f} vs single-device {loss:.6f} (rel {loss_rel:.2e}, "
+          f"tol {DIST_LOSS_REL_TOL}); ring-sp loss {rep['loss_ring']:.6f} (tol {mc.RING_TOL}); "
+          f"AdamW losses {adamw}")
+    print(f"[dist-train] step wall ms (SGD, ring SGD, AdamW x2) {[round(t, 1) for t in steps_ms]}, "
+          f"{where}: a check of the code path, not a scaling figure; launches over the 8 ranks "
+          f"{train_launches}; (a) and (b) {spawn_s:.1f} s with the spawn {stamp}")
+    del ranks, both
+
+    # (c) The ring's step kinds, this process alone.
+    b, h, h_kv, n, d = 1, 16, 8, DIST_ATTN_SHAPE[3] // DIST_RANKS, 128
+    gen.manual_seed(SEED + 7)
+    q, k, v = onchip.ladder_inputs((b, h, n, d), (b, h_kv, n, d), torch.bfloat16, gen)
+    do = onchip.ladder_inputs((b, h, n, d), (b, h_kv, n, d), torch.bfloat16, gen)[0]
+    o, lse = flash_attention_fwd(q, k, v, n, causal=True, save_lse=True)
+    scale = d ** -0.5
+    steps = {}
+    for kind, off in (("visible", n), ("diagonal", 0), ("masked", -n)):
+        t_off = torch.tensor([off], dtype=torch.int32, device="cuda")
+        before = ft.flash_attention_tri.launches
+        got_o, got_lse = flash_attention_fwd(q, k, v, off, causal=True, save_lse=True)
+        fwd_launches = ft.flash_attention_tri.launches - before
+        want_o, want_lse = flash_attention_fwd_plain(q, k, v, t_off, sm_scale=scale, causal=True,
+                                                     save_lse=True)
+        fwd_err = mc._err(got_o, want_o)[0]
+        check(mc._err(got_lse, want_lse)[0] <= onchip.TOL[torch.bfloat16]
+              and fwd_err <= onchip.TOL[torch.bfloat16], f"ring {kind} step forward: {fwd_err:.3e}")
+        before = (fb.flash_bwd_dkv.launches, fb.flash_bwd_dq.launches)
+        grads = fb.flash_attention_bwd(q, k, v, o, do, lse, off, causal=True)
+        bwd_launches = (fb.flash_bwd_dkv.launches - before[0], fb.flash_bwd_dq.launches - before[1])
+        plain = fb.flash_attention_bwd_plain(q, k, v, o, do, lse, t_off, sm_scale=scale,
+                                             causal=True)
+        if kind == "masked":
+            check(float(got_o.abs().max()) == 0.0 and bool(torch.isneginf(got_lse).all()),
+                  "a fully masked ring step gives o = 0 and lse = -inf")
+            check(all(float(g_.abs().max()) == 0.0 for g_ in grads),
+                  "a fully masked ring step's backward gives exact zeros")
+            bwd_err = 0.0
+        else:
+            bwd_err = max(e_ / s_ for e_, s_ in (mc._err(g_, w_) for g_, w_ in zip(grads, plain)))
+        check(bwd_err <= onchip.BWD_TOL[torch.bfloat16], f"ring {kind} step backward: {bwd_err:.3e}")
+        fwd_work = onchip.fwd_work(q, k, [off], save_lse=True)
+        bwd_work = roofline.fused_bwd_work(b, h, h_kv, n, n, d, 2, causal=True, q_offset=off)
+        library = (None, "none: SDPA has no fully masked call")
+        bwd_library = library
+        if kind != "masked":
+            library = onchip.sdpa_ms(q, k, v, causal=kind == "diagonal")
+            bwd_library = onchip.sdpa_ms(q, k, v, causal=kind == "diagonal", backward_of=do)
+        rec = {
+            "fwd": timed_record(
+                lambda: flash_attention_fwd(q, k, v, off, causal=True, save_lse=True),
+                lambda: flash_attention_fwd_plain(q, k, v, t_off, sm_scale=scale, causal=True,
+                                                  save_lse=True),
+                library, *fwd_work, 16, f"q [1,16,{n},128] kv [1,8,{n},128] offset {off}", spec),
+            "bwd": timed_record(
+                lambda: fb.flash_attention_bwd(q, k, v, o, do, lse, off, causal=True),
+                lambda: fb.flash_attention_bwd_plain(q, k, v, o, do, lse, t_off, sm_scale=scale,
+                                                     causal=True),
+                bwd_library, *bwd_work, 16, f"q [1,16,{n},128] kv [1,8,{n},128] offset {off}",
+                spec),
+        }
+        rec["fwd"].update(err=fwd_err, launches=fwd_launches, kernel="flash_tri")
+        rec["bwd"].update(err=bwd_err, launches=list(bwd_launches), kernel="flash_bwd_dkv+dq")
+        steps[kind] = rec
+        for part in ("fwd", "bwd"):
+            r = rec[part]
+            lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            print(f"[dist-step] ring {kind} step {part} ({r['kernel']}, {r['launches']} launch) "
+                  f"at {r['shape']}: error {r['err']:.3e}; device {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, SDPA {lib} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}) {stamp}")
+        check(fwd_launches == 1, f"a ring {kind} step's forward is one launch: {fwd_launches}")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    for name in totals:
+        totals[name] = attn_launches[name] + train_launches[name]
+    seconds = time.perf_counter() - t_phase
+    print(f"[dist] phase {seconds:.1f} s; launches over the distributed runs {totals}")
+    return {
+        "records": {name: {"dist_launches": n_} for name, n_ in totals.items()},
+        "dist": {"attention_errors": errors, "fp32_ring_err": fp32,
+                 "attention_launches": attn_launches, "train_launches": train_launches,
+                 "loss_sharded": sharded, "loss_single": loss, "loss_rel": loss_rel,
+                 "sgd_update_rel_l2": updates,
+                 "loss_ring": rep["loss_ring"], "adamw_losses": adamw,
+                 "step_wall_ms": steps_ms, "step_wall_note": where,
+                 "ring_steps": steps, "phase_seconds": seconds},
+    }
+
+
 def sparse_grid_text(grid) -> str:
     """A block-sparse kernel's grid (``flash_mask.SparseGrid``); the bf16
     kernels issue their blocks longest walk first."""
@@ -2783,6 +3004,17 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
                "decode q [8,8,2,128] pos_div 2 over [8,8,2048,128] at onchip.decode_lengths()"
                + ("" if kernel == "flash_paged" else ", int8"), wrapper=wrappers[kernel])
         out[kernel]["sdpa_dense_bf16_ms"] = dense[0]
+    # Rows 11-13 at the 512-row prefill chunk, head dim 128 (keys prefill_*).
+    for case, (kernel, args, pos_div) in onchip.kv_prefill_d128_cases(gen).items():
+        err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
+        wrapper, plain = onchip.KV_KERNELS[kernel]
+        record(kernel, max(err, lse_err), onchip.TOL[bf16], lambda: wrapper(*args, pos_div),
+               lambda: plain(*args, pos_div), (None, "none: no PyTorch call attends over an "
+                                               "8-bit or paged cache"),
+               onchip.kv_work(kernel, args, pos_div), 16,
+               "prefill q [1,16,512,128] over [1,8,2048,128] at offset 512"
+               + ("" if kernel == "flash_paged" else ", int8"), tag="prefill")
+        del args
     # Rows 14-16: block-sparse under rung 11's mask.
     bm = onchip.sparse_mask()
     q, k, v = onchip.ladder_inputs(onchip.SPARSE_D128_Q, onchip.SPARSE_D128_KV, bf16, gen)
@@ -3296,6 +3528,11 @@ def main() -> int:
     # encoder, seq2seq, LoRA, Muon and a converted LLaMA.
     families = family_phase(gen, stamp, spec)
 
+    # 22. Distribution: 8 gloo ranks sharing the card (ring, ring with
+    # dropout, all-gather, Ulysses, lse-combine; the sharded full-width
+    # step on mesh (2, 2, 2)), then each ring step kind timed alone.
+    dist = dist_phase(stamp, spec, tmp)
+
     bf16_bwd = [errs for name, errs in bwd_errors.items() if "bf16" in name]
     bf16_tri_bwd = [errs for name, errs in tri_bwd_errors.items() if "bf16" in name]
 
@@ -3445,6 +3682,7 @@ def main() -> int:
         rec_.update(drop["records"].get(rec_["name"], {}))
         rec_.update(serve_rest["records"].get(rec_["name"], {}))
         rec_.update(families["records"].get(rec_["name"], {}))
+        rec_.update(dist["records"].get(rec_["name"], {}))
         if rec_["name"] == "flash_fwd":
             rec_.update(pos_seg)
     record["training_window"] = {"grad_rel_l2_max": window["grad_rel_l2_max"], **window["train"]}
@@ -3453,6 +3691,7 @@ def main() -> int:
     record["serving_xf"] = xf["serving"]
     record["serving_rest"] = serve_rest["serving"]
     record["families"] = families["families"]
+    record["distribution"] = dist["dist"]
     record["training_dropout"] = {"grad_rel_l2_max": drop["grad_rel_l2_max"],
                                   "phase_seconds": drop["seconds"], **drop["train"]}
     tmp_dir.cleanup()

@@ -667,6 +667,26 @@ def kv_d128_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
     }
 
 
+def kv_prefill_d128_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
+    """``kv_cases``' 512-row prefill chunk at offset 512 at head dim 128
+    (``PREFILL_D128_Q`` over ``PREFILL_D128_KV``), bf16 q on the ladder
+    fixture: int8 for the quant and paged-quant kernels, a bf16 pool for
+    the paged one."""
+    off = torch.tensor([512], dtype=torch.int32, device="cuda")
+    q, k, v = ladder_inputs(PREFILL_D128_Q, PREFILL_D128_KV, torch.bfloat16, gen)
+    perm, table, n_pages = paged_layout(PREFILL_D128_KV[0], PREFILL_D128_KV[2], off,
+                                        PREFILL_D128_Q[2], 1, gen)
+    qkv = quantize_kv(k, v, KV_8BIT["int8"])
+    quant_pools = [to_pages(x, perm, n_pages) for x in (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)]
+    return {
+        "quant_int8_prefill_bf16_d128": ("flash_quant", (q, qkv, off), 1),
+        "paged_prefill_bf16_d128": (
+            "flash_paged", (q, *(to_pages(x, perm, n_pages) for x in (k, v)), table, off), 1),
+        "paged_quant_int8_prefill_bf16_d128": (
+            "flash_paged_quant", (q, *quant_pools, table, off), 1),
+    }
+
+
 # Each kernel of csrc/flash_fwd.cu: its wrapper and its plain version, both
 # called with a ``kv_cases`` entry's args and pos_div (the quant kernel
 # with its lse), and optionally a window and its sinks.
@@ -1242,14 +1262,17 @@ def fwd_work(q: torch.Tensor, k: torch.Tensor, offsets, pos_div: int = 1,
     """``(flops, bytes)`` one causal call of the dense forward kernel must
     do: 4 * D flops per visible (row, column) pair (under a window, its
     visible pairs only); each slot's K and V rows that any of its rows sees
-    read once, q read and o (and the lse) written once."""
+    read once, q read and o (and the lse) written once.  A call that sees
+    no pair reads nothing: it only writes o = 0 (and lse = -inf)."""
     heads, n_q, head_dim = q.shape[1:]
     kv_heads, n_kv = k.shape[1], k.shape[2]
     offsets = [int(x) for x in offsets]
     win = dict(window=window, sinks=sinks)
     pairs = heads * sum(visible_pairs(n_q, n_kv, off, pos_div, **win) for off in offsets)
     rows = kv_heads * sum(visible_kv_rows(n_q, n_kv, off, pos_div, **win) for off in offsets)
-    nbytes = kv_cache_bytes(rows, head_dim, k.element_size()) + 2 * q.numel() * q.element_size()
+    nbytes = kv_cache_bytes(rows, head_dim, k.element_size()) + q.numel() * q.element_size()
+    if pairs:
+        nbytes += q.numel() * q.element_size()
     if save_lse:
         nbytes += 4 * q.numel() // head_dim
     return 4.0 * head_dim * pairs, nbytes

@@ -26,13 +26,16 @@ precedence (``flash_bwd.py:404-517``): explicit ``block_sizes`` take the
 split pair; otherwise the autotuner's saved decision for the shape
 (``harness/autotune.py::lookup_bwd``, read from ``autotune_cache_torch.json``
 only when that file exists) wins, a ``"tri"`` decision only where the
-triangular kernel applies; with no decision, plain causal calls with equal
-head counts, a static offset (None or an int), ``pos_div == 1`` and no fp16
-go to the triangular backward (``flash_tri.flash_attention_bwd_tri``: the
-fused kernel given one int offset, dK and dV in fp32), everything else to
-the split pair.  The JAX dispatcher also asks
-``tri_bwd_heuristic`` (N a multiple of 512, N <= 4096, an unroll budget):
-v5e tile measurements and Mosaic compile limits, not carried.
+triangular backward (``flash_tri.flash_attention_bwd_tri``: the fused
+kernel given one int offset, dK and dV in fp32) applies: plain causal calls
+with equal head counts, a static offset (None or an int), ``pos_div == 1``
+and no fp16.  With no decision every call takes the split pair.  That rule
+is the H100's race, not JAX's: the JAX dispatcher sends plain causal calls
+with a static offset to its triangular backward (with ``tri_bwd_heuristic``'s
+v5e limits), but on the card the split pair beat the triangular kernel by
+14-16% at the high-occupancy shape ``[16, 8, 2048, D]``, D 64 and 128, and
+the fused one at every training shape (``harness/autotune.py --phase train``,
+PERF.md §6).
 
 The sliding window with its sinks and segment ids are taken by the split
 pair and the fused kernel (JAX ``flash_bwd.py:145-151, 315-321, 566-572``):
@@ -656,13 +659,19 @@ def fused_workspace_bytes(q: torch.Tensor) -> int:
     return 4 * dq_workspace_shape(*q.shape)[0]
 
 
+# The route of a call with no saved decision (module docstring).
+UNTUNED_BWD_ROUTE = "split"
+
+
 def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_div: int = 1,
               block_sizes: Optional[BlockSizes] = None, featured: bool = False,
               transformed: bool = False) -> str:
     """The kernel(s) ``flash_attention_bwd_auto`` runs: ``"tri"``,
-    ``"fused"`` or ``"split"`` (module docstring).  A saved ``"fused"``
-    decision is declined, for the untuned rule, when its dQ workspace would
-    not fit (``fused_workspace_fits``).  ``featured`` (a window or segment
+    ``"fused"`` or ``"split"`` (module docstring): a saved decision where it
+    applies, else the untuned rule, the split pair.  A saved ``"fused"``
+    decision is declined when its dQ workspace would not fit
+    (``fused_workspace_fits``); a saved ``"tri"`` one where the triangular
+    kernel does not apply.  ``featured`` (a window or segment
     ids) rules the triangular kernel out, as in JAX; ``transformed`` (a
     softcap, ALiBi or dropout) takes the split pair whatever the saved
     decision, as JAX's dispatcher does (``flash_bwd.py:496-508``)."""
@@ -684,12 +693,11 @@ def bwd_route(q: torch.Tensor, k: torch.Tensor, q_offset, *, causal: bool, pos_d
                      causal, q.dtype, device=q.device)
     if hit is not None:
         impl = hit[0]
-        if impl == "fused":
-            if fused_workspace_fits(q):
-                return "fused"
-        elif impl == "split" or not tri_ok:
-            return "split"
-    return "tri" if tri_ok else "split"
+        if impl == "fused" and fused_workspace_fits(q):
+            return "fused"
+        if impl == "tri" and tri_ok:
+            return "tri"
+    return UNTUNED_BWD_ROUTE
 
 
 def flash_attention_bwd_auto(

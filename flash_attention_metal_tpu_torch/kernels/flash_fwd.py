@@ -15,6 +15,10 @@ Counterpart of ``flash_attention_metal_tpu/kernels/flash_fwd.py``.
   for everything else: tensor offsets (per-batch, on the device), the
   ``pos_div`` row fold of GQA decode, longer non-causal rows.
 
+A decision the autotuner saved for the call's shape
+(``harness/autotune.py``, the JAX router's tuned lookup) comes first where
+that kernel computes the call (``fwd_route``, ``fwd_applies``).
+
 Lean and general compute one function (lean's offset is one int for every
 batch), so on the card their bf16 calls with ``pos_div == 1`` run one
 ``wgmma`` kernel (``csrc/flash_fwd_sm90.cuh``), each entry with its own
@@ -810,18 +814,49 @@ def is_static_offset(q_offset) -> bool:
     return q_offset is None or (isinstance(q_offset, int) and not isinstance(q_offset, bool))
 
 
+def fwd_applies(impl: str, n_kv: int, q_offset, *, causal: bool, pos_div: int = 1,
+                featured: bool = False) -> bool:
+    """Whether the kernel ``impl`` computes this call: the general kernel
+    every call; the triangular kernel a causal one, the lean kernel one
+    whose KV row fits its block (``n_kv <= LEAN_MAX_KV``), each only with a
+    static offset, ``pos_div == 1`` and no feature (``fwd_route``)."""
+    if impl == "general":
+        return True
+    plain = is_static_offset(q_offset) and pos_div == 1 and not featured
+    if impl == "tri":
+        return plain and causal
+    if impl == "lean":
+        return plain and n_kv <= LEAN_MAX_KV
+    raise ValueError(f"unknown forward impl {impl!r}")
+
+
 def fwd_route(n_kv: int, q_offset, *, causal: bool, pos_div: int = 1,
-              featured: bool = False) -> str:
+              featured: bool = False, q: Optional[torch.Tensor] = None,
+              k: Optional[torch.Tensor] = None) -> str:
     """The kernel ``flash_attention_fwd`` runs: ``"tri"``, ``"lean"`` or
     ``"general"`` (the JAX router's rules without its Mosaic limits).
     ``featured``: a window, segment ids, a score transform, dropout or a
     position map, which only the general kernel takes (JAX ``flash_fwd.py:829-838,
-    932-958``)."""
-    if is_static_offset(q_offset) and pos_div == 1 and not featured:
-        if causal:
-            return "tri"
-        if n_kv <= LEAN_MAX_KV:
-            return "lean"
+    932-958``).  Given the call's ``q`` and ``k``, the autotuner's saved
+    decision for their shape (``harness/autotune.py::lookup_fwd_impl``, read
+    from ``autotune_cache_torch.json`` only when that file exists) wins
+    where it applies to the call (``fwd_applies``: not ``"tri"`` with a
+    tensor offset or a feature, not ``"lean"`` past ``LEAN_MAX_KV``), as
+    the JAX router reads its tuned decision (``flash_fwd.py:841``);
+    otherwise the rule: a static offset, ``pos_div == 1`` and no feature go
+    to the triangular kernel when causal and to the lean kernel when the KV
+    row fits its block; everything else to the general kernel."""
+    kw = dict(causal=causal, pos_div=pos_div, featured=featured)
+    if q is not None:
+        from ..harness.autotune import lookup_fwd_impl
+
+        hit = lookup_fwd_impl(q.shape[0], q.shape[1], k.shape[1], q.shape[2], n_kv, q.shape[3],
+                              causal, q.dtype, device=q.device)
+        if hit is not None and fwd_applies(hit, n_kv, q_offset, **kw):
+            return hit
+    for impl in ("tri", "lean"):
+        if fwd_applies(impl, n_kv, q_offset, **kw):
+            return impl
     return "general"
 
 
@@ -868,7 +903,8 @@ def flash_attention_fwd(
         return (out[0].half(), out[1]) if save_lse else out.half()
     featured = bool(dropout_rate) or any(
         x is not None for x in (window, segment_ids, softcap, alibi_slopes, kv_positions))
-    route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div, featured=featured)
+    route = fwd_route(k.shape[-2], q_offset, causal=causal, pos_div=pos_div, featured=featured,
+                      q=q, k=k)
     if route == "tri":
         from .flash_tri import flash_attention_tri
 

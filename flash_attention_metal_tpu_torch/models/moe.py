@@ -13,7 +13,7 @@ The routed products are plain einsums, which the JAX package leaves to XLA:
 here they are ``torch`` matrix products, no grouped-GEMM library.  The
 attention is FlashLM's, through the port's flash-attention op.  Expert
 parallelism (the ``ep`` mesh axis, its all_to_all, ``moe_param_specs``)
-waits for the port of distribution (ROADMAP.md, Queue A item 7): every
+waits for the rest of distribution (ROADMAP.md, Queue A item 7b): every
 function here is the JAX package's at ``ep = tp = sp = 1``.
 
 ``torch.topk`` and ``jax.lax.top_k`` may order tied probabilities

@@ -90,10 +90,15 @@ class AdamW:
         return {"count": 0, "mu": map_params(zeros, params), "nu": map_params(zeros, params)}
 
     @torch.no_grad()
-    def update(self, grads: Params, state: Dict[str, Any], params: Params) -> None:
-        """Apply one update to ``params`` and ``state``, in place."""
+    def update(self, grads: Params, state: Dict[str, Any], params: Params,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """Apply one update to ``params`` and ``state``, in place.  ``norm``:
+        the gradient's global norm for the clip, when ``grads`` holds only a
+        shard of it (``parallel_train.global_grad_norm``); by default the
+        norm of ``grads``."""
         leaves = param_leaves(grads)
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+        if norm is None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
         lr = self.schedule(state["count"])
         count = state["count"] + 1
         c1 = 1.0 - self.b1**count
@@ -147,8 +152,9 @@ class TrainState:
 
 class Trainer:
     """Single-device trainer over the FlashLM loss, with durable
-    checkpoint/resume.  Sharded training waits for the port of the JAX
-    package's ``parallel_train`` (ROADMAP.md, Queue A item 7)."""
+    checkpoint/resume.  The sharded (dp x tp x sp) step is
+    ``models/parallel_train.py``; a pipelined or expert-parallel trainer
+    waits for ROADMAP.md, Queue A item 7b."""
 
     def __init__(
         self,

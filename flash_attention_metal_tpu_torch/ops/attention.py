@@ -66,8 +66,10 @@ class _FlashAttention(torch.autograd.Function):
         d_slopes = None
         if slopes is not None and ctx.needs_input_grad[3]:
             d_slopes = grads[3].to(slopes.dtype)
-        return (grads[0], grads[1], grads[2], d_slopes, None, None, None, None, None, None,
-                None)
+        # The gradients in the inputs' dtypes, as the JAX op gives them,
+        # whichever kernel ran (a saved "tri" decision's dK/dV are fp32).
+        return (grads[0].to(q.dtype), grads[1].to(k.dtype), grads[2].to(v.dtype), d_slopes, None,
+                None, None, None, None, None, None)
 
 
 def flash_attention(

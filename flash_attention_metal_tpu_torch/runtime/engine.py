@@ -189,8 +189,8 @@ class DecodeEngine:
             )
         if mesh is not None:
             raise NotImplementedError(
-                "DecodeEngine(mesh=...) (sharded serving) is not ported to the PyTorch package "
-                "yet (see ROADMAP.md, Queue A item 7)"
+                "DecodeEngine(mesh=...) (sharded serving, runtime/sp_decode.py) is not ported to "
+                "the PyTorch package yet (see ROADMAP.md, Queue A item 7b)"
             )
         if rolling and cfg.attn_window is None:
             raise ValueError("rolling=True requires cfg.attn_window")

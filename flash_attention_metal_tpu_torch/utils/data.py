@@ -14,7 +14,8 @@ stream:
   ``n``-th window of it, so a run resumes from ``(epoch, step)`` alone;
 * prefetch: ``prefetch_to_device`` keeps ``size`` batches in flight on the
   card, each copied from pinned host memory with ``non_blocking``, so the
-  host's reads and the copy overlap the step before.
+  host's reads and the copy overlap the step before; with a ``sharding``
+  each rank copies only its block of the global batch.
 """
 
 from __future__ import annotations
@@ -113,23 +114,25 @@ def batch_iterator(
         epoch += 1
 
 
-def _to_device(x, device: torch.device):
+def _to_device(x, device: torch.device, block=None):
     """Arrays and tensors of ``x`` (a batch, or a tuple / list / dict of
-    them) on ``device``; other leaves (the ``(epoch, step)`` tag) as they
-    are."""
+    them) on ``device``, each cut to ``block(shape)`` first when given;
+    other leaves (the ``(epoch, step)`` tag) as they are."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
     if torch.is_tensor(x):
+        if block is not None:
+            x = x[block(x.shape)].contiguous()
         if device.type == "cuda":
             # Pinned memory makes the copy asynchronous with the host.
             return x.pin_memory().to(device, non_blocking=True)
         return x.to(device)
     if isinstance(x, tuple):
-        return tuple(_to_device(a, device) for a in x)
+        return tuple(_to_device(a, device, block) for a in x)
     if isinstance(x, list):
-        return [_to_device(a, device) for a in x]
+        return [_to_device(a, device, block) for a in x]
     if isinstance(x, dict):
-        return {k: _to_device(a, device) for k, a in x.items()}
+        return {k: _to_device(a, device, block) for k, a in x.items()}
     return x
 
 
@@ -139,17 +142,23 @@ def prefetch_to_device(it: Iterator, size: int = 2, device="cuda", sharding=None
     tensor copied from pinned memory with ``non_blocking``, on the current
     stream, so the copy and the host's next reads overlap the step the
     consumer is running; non-array leaves (the ``(epoch, step)`` tag) pass
-    through.  ``sharding`` (JAX's ``NamedSharding``) waits for the port of
-    sharded training (ROADMAP.md, Queue A item 7) and raises if given."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "prefetch_to_device(sharding=...) waits for sharded training "
-            "(see ROADMAP.md, Queue A item 7)"
-        )
+    through.
+
+    ``sharding``: a ``parallel.mesh.Sharding`` (JAX's ``NamedSharding``),
+    e.g. ``models.parallel_train.batch_sharding(mesh)``: each rank takes
+    only its block of every array, in the global batch's order (the
+    ``(dp, sp)`` block of a ``[B, N]`` batch: rows ``dp * B / n_dp`` on,
+    columns ``sp * N / n_sp`` on), so the ranks of a mesh read one global
+    stream, as JAX's ``device_put`` lays it over the devices."""
+    from ..parallel.mesh import Sharding
+
+    if sharding is not None and not isinstance(sharding, Sharding):
+        raise TypeError(f"sharding must be a parallel.mesh.Sharding, got {type(sharding).__name__}")
+    block = None if sharding is None else sharding.block
     device = torch.device(device)
     queue = collections.deque()
     for item in it:
-        queue.append(_to_device(item, device))
+        queue.append(_to_device(item, device, block))
         if len(queue) >= size:
             yield queue.popleft()
     while queue:

@@ -165,11 +165,14 @@ def fused_bwd_work(
     under a window its visible pairs only),
     and q, o, dO, k, v and the fp32 lse read once, dq, dk, dv written once
     (``itemsize`` bytes per element).  Its dQ workspace is the design's
-    cost, not the function's, and is left out."""
+    cost, not the function's, and is left out.  A call that sees no pair
+    reads nothing: it only writes zero dq, dk and dv."""
     pairs = (visible_pairs(n_q, n_kv, q_offset, window=window, sinks=sinks) if causal
              else n_q * n_kv)
     q_elems = batch * heads * n_q * head_dim
     kv_elems = batch * kv_heads * n_kv * head_dim
+    if not pairs:
+        return 0.0, float((q_elems + 2 * kv_elems) * itemsize)
     nbytes = (4 * q_elems + 4 * kv_elems) * itemsize + 4 * batch * heads * n_q
     return 10.0 * head_dim * batch * heads * pairs, float(nbytes)
 

@@ -19,6 +19,7 @@ import torch
 from flash_attention_metal_tpu_torch.config import BlockSizes
 from flash_attention_metal_tpu_torch.harness import autotune
 from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
+from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
 from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
 from flash_attention_metal_tpu_torch.models import trainer as tr
 from flash_attention_metal_tpu_torch.models.transformer import ModelConfig
@@ -77,8 +78,9 @@ def test_unknown_impl_raises(cache):
 def test_router_order_of_precedence(cache):
     q = torch.zeros((1, 2, 128, 64))
     off = torch.zeros(1, dtype=torch.int32)
-    # No cache file: the rule (tri for a static offset, split for a tensor).
-    assert fb.bwd_route(q, q, None, causal=True) == "tri"
+    # No cache file: the rule, the split pair for every offset (the H100's
+    # race: split beat tri and fused at every shape raced).
+    assert fb.bwd_route(q, q, None, causal=True) == "split"
     assert fb.bwd_route(q, q, off, causal=True) == "split"
     # A fused decision wins for both offsets.
     _write(cache, {_key(q, q): {"impl": "fused", "blocks": {}}})
@@ -95,7 +97,7 @@ def test_router_order_of_precedence(cache):
     assert fb.bwd_route(q, q, off, causal=True) == "split"
     # Another shape misses: the rule.
     q2 = torch.zeros((1, 2, 256, 64))
-    assert fb.bwd_route(q2, q2, None, causal=True) == "tri"
+    assert fb.bwd_route(q2, q2, None, causal=True) == "split"
     assert fb.bwd_route(q2, q2, off, causal=True) == "split"
 
 
@@ -210,7 +212,7 @@ def test_router_declines_a_fused_decision_whose_workspace_does_not_fit(cache, mo
     assert fb.bwd_route(q, q, None, causal=True) == "fused"
     assert fb.bwd_route(q, q, off, causal=True) == "fused"
     monkeypatch.setattr(fb, "_free_device_bytes", lambda device: need / fb.FUSED_WORKSPACE_SHARE - 1)
-    assert fb.bwd_route(q, q, None, causal=True) == "tri"
+    assert fb.bwd_route(q, q, None, causal=True) == "split"
     assert fb.bwd_route(q, q, off, causal=True) == "split"
 
 
@@ -273,3 +275,127 @@ def test_tri_bwd_workspace_ignores_offset_and_n_kv(monkeypatch, n_kv, off):
     seen = _tri_bwd_launch(monkeypatch, (16, 8, 2048, 64), n_kv, off)
     assert seen["workspace_bytes"] == 67_141_636
     assert (seen["n_kv"], seen["off"]) == (n_kv, off)
+
+
+def _fwd_key(q, k, causal=True):
+    b, h, n, d = q.shape
+    return autotune._key("fwd", b, h, k.shape[1], n, k.shape[2], d, causal, q.dtype, q.device)
+
+
+def test_untuned_backward_rule_is_the_split_pair_the_h100_race_chose(cache):
+    """Pinned: with no saved decision every call takes the split pair,
+    plain causal calls with equal heads and a static offset included (the
+    race on the card: split 1024.9 us against tri 1190.0 and fused 1191.8 at
+    [16, 8, 2048, 64], 2034.5 against 2220.9 and 2221.3 at D 128; PERF.md
+    §6).  The triangular backward runs only where a saved decision names
+    it."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 2, 128, 64), dtype=dtype)
+        for off in (None, 0, 5):
+            assert fb.bwd_route(q, q, off, causal=True) == "split"
+    assert autotune.untuned_route("bwd", 16, 8, 8, 2048, 2048, 64, True, torch.bfloat16) == "split"
+    q = torch.zeros((1, 2, 128, 64))
+    autotune.record_bwd((1, 2, 2, 128, 64), "tri", {}, dtype=torch.float32, device="cpu")
+    assert fb.bwd_route(q, q, None, causal=True) == "tri"
+
+
+def test_fwd_route_follows_a_saved_decision_and_declines_one_that_does_not_apply(cache):
+    q = torch.zeros((1, 2, 128, 64))
+    t_off = torch.zeros(1, dtype=torch.int32)
+    # No decision: the rule.
+    assert ff.fwd_route(128, None, causal=True, q=q, k=q) == "tri"
+    assert ff.fwd_route(128, None, causal=False, q=q, k=q) == "lean"
+    # A saved "general" wins for a plain call, causal or not.
+    autotune.record_fwd((1, 2, 2, 128, 64), "general", dtype=torch.float32, device="cpu")
+    autotune.record_fwd((1, 2, 2, 128, 64), "general", causal=False, dtype=torch.float32,
+                        device="cpu")
+    assert ff.fwd_route(128, None, causal=True, q=q, k=q) == "general"
+    assert ff.fwd_route(128, None, causal=False, q=q, k=q) == "general"
+    # A saved "tri" is declined for a tensor offset and for a feature.
+    autotune.record_fwd((1, 2, 2, 128, 64), "tri", dtype=torch.float32, device="cpu")
+    assert ff.fwd_route(128, 3, causal=True, q=q, k=q) == "tri"
+    assert ff.fwd_route(128, t_off, causal=True, q=q, k=q) == "general"
+    assert ff.fwd_route(128, None, causal=True, featured=True, q=q, k=q) == "general"
+    # A saved "lean" past LEAN_MAX_KV is declined (the same key at N_kv 2048
+    # is another shape: a decision recorded for it by hand).
+    n = 2 * ff.LEAN_MAX_KV
+    q2 = torch.zeros((1, 2, n, 64))
+    autotune.record_fwd((1, 2, 2, n, 64), "lean", causal=False, dtype=torch.float32, device="cpu")
+    assert ff.fwd_route(n, None, causal=False, q=q2, k=q2) == "general"
+    # Without q and k the router asks nothing: the rule.
+    assert ff.fwd_route(128, None, causal=True) == "tri"
+    # The wrapper the router calls follows the decision.
+    autotune.record_fwd((1, 2, 2, 128, 64), "general", dtype=torch.float32, device="cpu")
+    called = []
+    real = ff.flash_fwd_general
+    ff.flash_fwd_general = lambda *a, **kw: called.append("general") or real(*a, **kw)
+    try:
+        ff.flash_attention_fwd(q, q, q, causal=True)
+    finally:
+        ff.flash_fwd_general = real
+    assert called == ["general"]
+    with pytest.raises(ValueError, match="unknown forward impl"):
+        autotune.record_fwd((1, 2, 2, 128, 64), "grid", device="cpu")
+
+
+def test_autotune_fwd_on_the_cpu_races_the_candidates(cache):
+    logs = []
+    impl = autotune.autotune_fwd((1, 2, 2, 128, 64), dtype=torch.float32, device="cpu", iters=1,
+                                 log=logs.append)
+    entries = json.loads(cache.read_text())
+    key = "cpu/fwd/b1h2kv_heads2q128kv128d64/causal1/float32"
+    assert entries[key]["impl"] == impl and set(entries[key]["raced_us"]) == {"general", "tri"}
+    assert autotune.lookup_fwd_impl(1, 2, 2, 128, 128, 64, True, torch.float32,
+                                    device="cpu") == impl
+    assert autotune.fwd_candidates(1024, 1024, False) == ["general", "lean"]
+    assert autotune.fwd_candidates(2048, 2048, False) == ["general"]
+    assert autotune.fwd_candidates(8192, 8192, True) == ["general", "tri"]
+    assert autotune.tri_candidates(16384) == ["tri"]
+
+
+def test_validate_drops_an_entry_that_does_not_beat_the_untuned_route(cache):
+    """A paired re-check on an injected clock: the saved causal "general"
+    loses to the untuned "tri" and is replaced by it; the non-causal
+    "general" beats the untuned "lean" and the backward "fused" the
+    untuned split pair, so both stay; a saved "split", the rule itself, is
+    not raced."""
+    autotune.record_fwd((1, 2, 2, 128, 64), "general", dtype=torch.float32, device="cpu")
+    autotune.record_fwd((1, 2, 2, 128, 64), "general", causal=False, dtype=torch.float32,
+                        device="cpu")
+    autotune.record_bwd((1, 2, 2, 128, 64), "fused", {}, dtype=torch.float32, device="cpu")
+    autotune.record_bwd((1, 2, 2, 256, 64), "split", {}, dtype=torch.float32, device="cpu")
+    speed = {"flash_fwd_general": 2.0, "flash_fwd_lean": 3.0, "flash_attention_tri": 1.0,
+             "flash_attention_bwd": 2.0, "flash_attention_bwd_fused": 1.0}
+
+    def timer(fn, args, iters):
+        return speed[getattr(fn, "func", fn).__name__]
+
+    logs = []
+    dropped = autotune.validate(str(cache), device="cpu", repeats=1, timer=timer,
+                                log=logs.append)
+    assert dropped == ["cpu/fwd/b1h2kv_heads2q128kv128d64/causal1/float32"]
+    entries = json.loads(cache.read_text())
+    assert entries[dropped[0]]["impl"] == "tri" and entries[dropped[0]]["dropped"] == "general"
+    assert entries["cpu/fwd/b1h2kv_heads2q128kv128d64/causal0/float32"]["impl"] == "general"
+    assert entries["cpu/bwd/b1h2kv_heads2q128kv128d64/causal1/float32"]["impl"] == "fused"
+    q = torch.zeros((1, 2, 128, 64))
+    assert ff.fwd_route(128, None, causal=True, q=q, k=q) == "tri"
+    assert any("untuned route; kept" in line for line in logs)
+
+
+def test_audit_lists_the_benchmark_shapes_without_an_entry(cache):
+    keys = autotune.audit_keys("cpu")
+    assert len(keys) == 2 * 8 + 2 * 2 * 2
+    assert "cpu/fwd/b512h1kv_heads1q128kv128d64/causal0/bfloat16" in keys
+    assert "cpu/bwd/b16h8kv_heads8q2048kv2048d128/causal1/bfloat16" in keys
+    cache.write_text(json.dumps({k: {"impl": "general"} for k in keys[:-3]}))
+    logs = []
+    assert autotune.audit(str(cache), device="cpu", log=logs.append) == keys[-3:]
+    assert logs[-1].startswith("audit: 3 ")
+    cache.write_text(json.dumps({k: {"impl": "general"} for k in keys}))
+    assert autotune.audit(str(cache), device="cpu", log=logs.append) == []
+
+
+@pytest.mark.parametrize("phase", ["sweep", "sweep-causal", "validate", "audit", "all"])
+def test_autotune_phases_refuse_a_missing_card(phase):
+    assert autotune.main(["--phase", phase]) == 1

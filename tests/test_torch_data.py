@@ -90,7 +90,7 @@ def test_batch_order_matches_jax(tmp_path, seed, num_hosts, batch):
 def test_prefetch_passes_tags_through(tmp_path):
     """``prefetch_to_device(..., device="cpu")``: int32 tensors, the
     ``(epoch, step)`` tags untouched, every batch in order; nested leaves
-    too; a ``sharding`` raises, naming its ROADMAP item."""
+    too; a ``sharding`` that is not a ``parallel.mesh.Sharding`` raises."""
     ds = data.TokenDataset(_write(tmp_path, data.write_token_shard))
     it = data.batch_iterator(ds, batch_size=2, seq_len=15, epochs=1)
     want = list(data.batch_iterator(ds, batch_size=2, seq_len=15, epochs=1))
@@ -103,8 +103,36 @@ def test_prefetch_passes_tags_through(tmp_path):
     nested = next(data.prefetch_to_device(iter([{"x": np.ones(3, np.int32), "n": 5,
                                                  "l": [np.zeros(2)]}]), device="cpu"))
     assert torch.is_tensor(nested["x"]) and nested["n"] == 5 and torch.is_tensor(nested["l"][0])
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(TypeError, match="Sharding"):
         next(data.prefetch_to_device(iter([]), sharding=object()))
+
+
+def test_prefetch_sharding_gives_each_rank_its_block_in_batch_order(tmp_path):
+    """``prefetch_to_device(sharding=batch_sharding(mesh))``: on a mesh dp 2
+    x tp 2 x sp 2 each rank takes the (dp, sp) block of every global batch
+    of ``batch_iterator`` (JAX's order); the blocks tile the batch, and the
+    tp ranks of one block read the same."""
+    from flash_attention_metal_tpu_torch.models.parallel_train import batch_sharding
+    from flash_attention_metal_tpu_torch.parallel.mesh import Mesh
+
+    ds = data.TokenDataset(_write(tmp_path, data.write_token_shard))
+    want = [b for b, _ in data.batch_iterator(ds, batch_size=4, seq_len=15, epochs=1)]
+    got = {}
+    for rank in range(8):
+        # The block is a function of the coordinates alone: no group needed.
+        mesh = Mesh(("dp", "tp", "sp"), (2, 2, 2), rank, "gloo", torch.device("cpu"), {})
+        it = data.batch_iterator(ds, batch_size=4, seq_len=15, epochs=1)
+        got[rank] = [b for b, _ in data.prefetch_to_device(it, device="cpu",
+                                                           sharding=batch_sharding(mesh))]
+    assert len(got[0]) == len(want) > 0
+    for i, w in enumerate(want):
+        blocks = [[got[dp * 4 + tp * 2 + sp][i] for sp in range(2)] for dp in range(2)
+                  for tp in range(2)]
+        for tp_blocks in (blocks[0], blocks[2]):
+            assert tp_blocks[0].shape == (2, 8)
+        rows = [torch.cat(blocks[dp * 2], dim=1) for dp in range(2)]
+        assert torch.equal(torch.cat(rows, dim=0), torch.from_numpy(w))
+        assert all(torch.equal(a, b) for a, b in zip(blocks[0], blocks[1]))
 
 
 @pytest.mark.parametrize("attn_dropout", [0.0, 0.1])

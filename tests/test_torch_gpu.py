@@ -754,7 +754,7 @@ def test_planted_ladder_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault
 def test_bench_routes_launch_their_kernels(cuda):
     """The benchmark's calls reach the kernels the JAX router names: lean at
     non-causal N <= 1024, the general kernel at N >= 2048, the triangular
-    kernel for causal, its backward in the high-occupancy phase; and the op
+    kernel for causal, the split pair for the untuned backward; and the op
     (tensor offsets) the general kernel and the split pair."""
     rng = np.random.default_rng(0)
 
@@ -775,8 +775,9 @@ def test_bench_routes_launch_their_kernels(cuda):
     assert launched(lambda: flash_attention_mxu(q2, k2, v2, causal=True)) == {"flash_tri": 1}
     q3, k3, v3 = qkv(2, 4, 512)
     o, lse = ff.flash_attention_fwd(q3, k3, v3, causal=True, save_lse=True)
+    # The untuned backward rule is the split pair (the H100's race).
     assert launched(lambda: fb.flash_attention_bwd_auto(q3, k3, v3, o, q3, lse, causal=True)) == {
-        "flash_tri_bwd": 1}
+        "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
     assert launched(lambda: nv.naive_attention(q.float(), k.float(), v.float())) == {"naive": 1}
     assert launched(lambda: flash_attention(q3, k3, v3, causal=True)) == {"flash_fwd": 1}
     q4 = q3.clone().requires_grad_(True)
@@ -1425,6 +1426,29 @@ def tuned_cache(tmp_path, monkeypatch):
     autotune.reset_memo()
     yield path
     autotune.reset_memo()
+
+
+@pytest.mark.gpu
+def test_autotune_fwd_on_the_card_sets_the_route(cuda, tuned_cache):
+    """``autotune_fwd`` races the general and the triangular forward for a
+    causal shape on the card and stores the winner; the forward router then
+    launches it for a static offset, and the general kernel for a tensor
+    offset whatever the decision."""
+    shape = (2, 4, 2, 512, 64)
+    impl = autotune.autotune_fwd(shape, iters=3, log=lambda s: None)
+    entries = json.loads(tuned_cache.read_text())
+    (key,) = entries
+    assert set(entries[key]["raced_us"]) == {"general", "tri"}
+    autotune.reset_memo()
+    rng = np.random.default_rng(0)
+    q = _uniform(rng, (2, 4, 512, 64), cuda, torch.bfloat16)
+    k, v = (_uniform(rng, (2, 2, 512, 64), cuda, torch.bfloat16) for _ in range(2))
+    counters = {"general": ff.flash_fwd_general, "tri": ft.flash_attention_tri}
+    for off, want in ((None, impl), (torch.zeros(2, dtype=torch.int32, device=cuda), "general")):
+        before = {name: c.launches for name, c in counters.items()}
+        flash_attention_fwd(q, k, v, off, causal=True)
+        assert {name: c.launches - before[name] for name, c in counters.items()} == {
+            name: int(name == want) for name in counters}
 
 
 @pytest.mark.gpu
@@ -2906,3 +2930,85 @@ def test_family_llama_converted_matches_the_cpu(cuda):
     _, reqs_g = _serve_on("cuda", gpu, cfg, [[3, 2, 1], _LONG[:150]])
     for a, b in zip(reqs_g, reqs_c):
         assert a.generated == b.generated
+
+
+# ---------------------------------------------------------------------------
+# Distribution (-k test_dist_): chip_smoke.py's dist_phase at reduced size,
+# on 8 gloo ranks sharing the card (one card hosts no two NCCL ranks), and
+# the planted faults its checks must catch.
+DIST_JOB = dict(device="cuda", seed=0, shape=(1, 16, 8, 4096, 128), dtype="bfloat16",
+                methods=["ring", "ring_dropout", "allgather", "ulysses"], dropout_rate=0.1,
+                dropout_seed=1234, decode_rows=128, fp32_shape=(1, 2, 2, 1024, 64))
+DIST_TOL = 1e-2
+
+
+def _dist_attention(tmp_path, **changes):
+    from flash_attention_metal_tpu_torch.harness import multichip
+    from flash_attention_metal_tpu_torch.parallel import spawn
+
+    import torch_dist_cases
+
+    job = dict(DIST_JOB, **changes)
+    fn = torch_dist_cases.planted_attention_rank if "fault" in job else multichip.attention_rank
+    ranks = spawn(fn, 8, (job,), backend="gloo", device="cuda", workdir=str(tmp_path))
+    return ranks, multichip.attention_errors(ranks)
+
+
+@pytest.mark.gpu
+def test_dist_attention_on_8_ranks_matches_the_single_device_op(cuda, tmp_path):
+    """Ring, ring with dropout, all-gather, Ulysses and lse-combine at
+    FlashLM's attention width (global N 4096, n_loc 512), o, lse and
+    gradients against the single-device op; the fp32 ring within 1e-5;
+    every kernel of the path launched on the ranks."""
+    ranks, errors = _dist_attention(tmp_path)
+    print(errors)
+    for method, errs in errors.items():
+        assert all(e <= DIST_TOL for e in errs.values()), (method, errs)
+    assert max(r["fp32_ring"][0] for r in ranks) <= onchip.TOL[torch.float32]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    assert all(launches.values()), launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault,keys", [("ring_offset_sign", ("o", "lse", "dq")),
+                                        ("merge_no_rescale", ("o", "lse")),
+                                        ("accumulators_stay", ("dk", "dv"))])
+def test_dist_planted_ring_fault_fails_the_check(cuda, tmp_path, fault, keys):
+    _, errors = _dist_attention(tmp_path, fault=fault, methods=["ring"], fp32_shape=None)
+    print(fault, errors["ring"])
+    assert all(errors["ring"][k] > DIST_TOL for k in keys), errors["ring"]
+
+
+@pytest.mark.gpu
+def test_dist_sharded_flashlm_step_equals_the_single_device_step(cuda, tmp_path):
+    """The full-width FlashLM cut to depth 2 on mesh (2, 2, 2), global batch
+    2 x 2048: the loss within 1e-2 relative of the single-device loss, the
+    all-gather and the ring steps' SGD updates within relative L2 5e-2 of
+    the single-device update on every leaf, the ring-sp loss within 5e-2,
+    two AdamW steps lowering the loss, every kernel of the step launched."""
+    from flash_attention_metal_tpu_torch.harness import multichip
+    from flash_attention_metal_tpu_torch.parallel import spawn
+
+    cfg = dict(vocab_size=32768, d_model=2048, n_layers=2, n_heads=16, n_kv_heads=8, head_dim=128,
+               d_ff=4096, max_seq_len=2048, dtype="bfloat16")
+    job = dict(mesh=(2, 2, 2), cfg=cfg, batch=(2, 2048), seed=0, lr=1e-2, adamw_lr=3e-4,
+               device="cuda", sgd_steps=1, adamw_steps=2, return_delta=True)
+    ranks = spawn(multichip.sharded_train_rank, 8, (job,), backend="gloo", device="cuda",
+                  workdir=str(tmp_path))
+    rep = ranks[0]
+    mcfg = multichip._config(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    full = tf.init_params(mcfg, gen, master_dtype=torch.float32)
+    tokens = torch.randint(0, mcfg.vocab_size, (2, 2048), generator=gen, device="cuda")
+    loss, grads = tf.value_and_grad(tf.loss_fn, full, tokens, mcfg)
+    errors = {key: multichip.update_errors(rep[key], grads, 1e-2)
+              for key in ("delta", "delta_ring")}
+    print(rep["losses"], float(loss), rep["loss_ring"], rep["adamw_losses"],
+          {key: max(e) for key, e in errors.items()})
+    assert abs(rep["losses"][0] - float(loss)) / float(loss) <= 1e-2
+    assert all(max(e) <= 5e-2 for e in errors.values()), errors
+    assert abs(rep["loss_ring"] - rep["losses"][0]) <= multichip.RING_TOL
+    assert rep["adamw_losses"][1] < rep["adamw_losses"][0]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in rep["launches"]}
+    assert all(launches.values()), launches

@@ -219,10 +219,14 @@ def test_tri_bwd_matches_jax(dtype, n_q, n_kv, off, with_dlse, d):
         assert float(np.max(np.abs(np.asarray(want[0][:, :, :-off], np.float32)))) == 0.0
 
 
-def test_split_pair_keeps_k_dtype_where_tri_returns_fp32():
-    """The two backward routes differ in dK/dV dtype, as in JAX."""
+def test_split_pair_keeps_k_dtype_where_tri_returns_fp32(monkeypatch):
+    """The two backward routes differ in dK/dV dtype, as in JAX.  The
+    untuned rule takes the split pair, so a saved decision names tri."""
+    from flash_attention_metal_tpu_torch.harness import autotune
+
     (_, q), (_, k), (_, v), (_, do) = _inputs(5, "bfloat16", *[(1, 2, 128, 64)] * 4)
     o, lse = ff.flash_attention_fwd(q, k, v, causal=True, save_lse=True)
+    monkeypatch.setattr(autotune, "lookup_bwd", lambda *a, **kw: ("tri", {}))
     tri = fb.flash_attention_bwd_auto(q, k, v, o, do, lse, causal=True)
     split = fb.flash_attention_bwd_auto(q, k, v, o, do, lse, torch.zeros(1, dtype=torch.int32),
                                         causal=True)
@@ -327,18 +331,21 @@ def test_forward_route_table(row, monkeypatch):
 
 
 # The backward route table: (dtype, causal, offset kind, n, equal heads)
-# -> (the port's route, the JAX dispatcher's).  The differing rows are
-# tri_bwd_heuristic's limits (N a multiple of 512, N <= 4096), dropped.
+# -> (the port's untuned route, the JAX dispatcher's).  The differing rows
+# are the H100's race: the port's untuned rule takes the split pair, which
+# beat the triangular backward at every shape raced (PERF.md §6); JAX
+# takes its triangular backward for plain causal calls with a static offset
+# within tri_bwd_heuristic's limits.
 BWD_ROUTES = [
-    ("bfloat16", True, "none", 1024, "tri", "tri"),
-    ("bfloat16", True, "int", 1024, "tri", "tri"),
     ("bfloat16", True, "tensor", 1024, "split", "split"),
     ("bfloat16", False, "none", 1024, "split", "split"),
     ("float16", True, "none", 1024, "split", "split"),
-    ("float32", True, "none", 512, "tri", "tri"),
-    # intended differences: v5e tile choices and Mosaic limits
-    ("bfloat16", True, "none", 128, "tri", "split"),
-    ("bfloat16", True, "none", 8192, "tri", "split"),
+    ("bfloat16", True, "none", 128, "split", "split"),
+    ("bfloat16", True, "none", 8192, "split", "split"),
+    # intended differences: the H100's race
+    ("bfloat16", True, "none", 1024, "split", "tri"),
+    ("bfloat16", True, "int", 1024, "split", "tri"),
+    ("float32", True, "none", 512, "split", "tri"),
 ]
 
 
@@ -358,7 +365,7 @@ def test_backward_route_table(row):
 
 
 @pytest.mark.parametrize("kind", ["none", "int"])
-def test_backward_route_with_a_window_takes_the_split_pair(kind):
+def test_backward_route_with_a_window_takes_the_split_pair(kind, monkeypatch):
     """A window (with sinks) rules the triangular backward out in both
     routers: the shapes of the table's tri rows take the split pair."""
     q = jnp.zeros((1, 2, 1024, 64), jnp.bfloat16)
@@ -369,6 +376,10 @@ def test_backward_route_with_a_window_takes_the_split_pair(kind):
                                   interpret=True), q, lse)
     assert ranks == [4, 4]
     qt = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+    # Even a saved tri decision: the window rules it out.
+    from flash_attention_metal_tpu_torch.harness import autotune
+
+    monkeypatch.setattr(autotune, "lookup_bwd", lambda *a, **kw: ("tri", {}))
     assert fb.bwd_route(qt, qt, off, causal=True, featured=True) == "split"
     assert fb.bwd_route(qt, qt, off, causal=True) == "tri"
 

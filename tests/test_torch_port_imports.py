@@ -59,7 +59,10 @@ def test_the_scan_covers_the_port():
     assert f"{PORT}/harness/autotune.py" in FILES
     assert f"{PORT}/kernels/flash_mask.py" in FILES
     for module in ("models/moe.py", "models/encoder.py", "models/seq2seq.py", "models/lora.py",
-                   "models/muon.py", "models/convert.py", "utils/profiling.py", "utils/debug.py"):
+                   "models/muon.py", "models/convert.py", "utils/profiling.py", "utils/debug.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
+                   "parallel/ring.py", "parallel/context.py", "parallel/ulysses.py",
+                   "models/parallel_train.py", "harness/scaling.py", "harness/multichip.py"):
         assert f"{PORT}/{module}" in FILES
     assert len(FILES) > 40
 
