@@ -86,10 +86,15 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   all-gather, Ulysses and lse-combine on a 1-D sp mesh against the
   single-device op, and the sharded FlashLM step on mesh (2, 2, 2)
   against the single-device step (loss, SGD update, ring-sp loss, two
-  AdamW steps); then each ring step kind (every pair visible, the
-  diagonal, nothing visible) is timed in this process alone, forward and
-  split backward, beside its bound and SDPA (``[dist-*]`` lines, the
-  record's ``distribution``, each kernel's ``dist_launches``).
+  AdamW steps; depth 2); in the same group sharded serving on mesh (dp,
+  tp, sp) = (2, 2, 2) in four modes, the pipeline on (dp, pp, tp, sp) =
+  (2, 2, 2, 1) and expert parallelism on (dp, ep, tp, sp) = (2, 2, 2, 1),
+  each against the single-device path; then each ring step kind (every
+  pair visible, the diagonal, nothing visible) is timed in this process
+  alone, forward and split backward, beside its bound and SDPA, and rows
+  1 and 11 at one sp shard's offsets against their plain versions
+  (``[dist-*]`` lines, the record's ``distribution``, each kernel's
+  ``dist_launches``).
 
 Every phase but the tuned one runs with the backward router's cache
 pointed at an empty temporary directory (the untuned rule).
@@ -195,7 +200,49 @@ DIST_MESH, DIST_BATCH = (2, 2, 2), (2, 4096)
 DIST_MODEL = dict(vocab_size=32768, d_model=2048, n_layers=8, n_heads=16, n_kv_heads=8,
                   head_dim=128, d_ff=4096, max_seq_len=4096)
 DIST_SGD_LR, DIST_ADAMW_LR = 1e-2, 3e-4
+# (b)'s depth: cut from the model's 8 to 2 when (d)-(f) joined the phase,
+# to keep the script near its time (an earlier path's depth goes first).
+DIST_TRAIN_LAYERS = 2
 DIST_LOSS_REL_TOL, DIST_UPDATE_REL_TOL = 1e-2, 5e-2
+# (d) Sharded serving on mesh (dp, tp, sp) = (2, 2, 2) at full width and
+# depth: an engine of 8 slots x 4096 positions (2048 a shard), greedy
+# requests of 64 new tokens whose prompts put two decodes (2040, 2000) and
+# two prefills (2100, 3900) across position 2048 beside a short one (5), in
+# four modes (the draft: serving.DRAFT_D512 at gamma 4).  Cut from 8
+# requests (5, 700, 1500, 2000, 2040, 2100, 3000, 3900) to these 5 after
+# the script ran 791 s with (b) already cut, keeping every kind of shard
+# crossing; in this order the first four fill dp group 0's slots and 3900
+# goes to group 1.  The teacher-forced checks (prompt length, forced
+# tokens, slot): a decode across 2048 in slot 0 (dp group 0) and a
+# prefill across it in slot 5 (dp group 1).
+DIST_SERVE_MESH, DIST_SERVE_BATCH, DIST_SERVE_LEN, DIST_SERVE_NEW = (2, 2, 2), 8, 4096, 64
+DIST_SERVE_PROMPTS = (2040, 2100, 5, 2000, 3900)
+DIST_SERVE_MODES = (("dense", {}), ("int8", {"kv_quant": "int8"}),
+                    ("multi_step_2", {"multi_step": 2}), ("speculative", {"draft": True}))
+DIST_SERVE_CHECK = ((2040, 16, 0), (2100, 8, 5))
+DIST_SERVE_LOGITS_TOL = 5e-2
+# (e) The pipeline on mesh (dp, pp, tp, sp) = (2, 2, 2, 1): the serving
+# FlashLM at depth 8 (4 layers a stage), 2 microbatches, global batch
+# 4 x 2048, two SGD steps.  (f) Expert parallelism on (dp, ep, tp, sp) =
+# (2, 2, 2, 1): the serving FlashLM as Mixtral's MoE (8 experts, top-2) at
+# depth 2, global batch 4 x 2048; one fp32 step at capacity 4.0 (no drops;
+# routing flips at bf16 ties) against the single-device step (loss
+# relative, update relative L2 per leaf), two bf16 steps at 1.25.
+DIST_PP_MESH, DIST_PP_MICRO, DIST_PP_BATCH = (2, 2, 2, 1), 2, (4, 2048)
+DIST_EP_MESH, DIST_EP_LAYERS, DIST_EP_BATCH = (2, 2, 2, 1), 2, (4, 2048)
+DIST_EP_FP32_CAPACITY, DIST_EP_LOSS_REL_TOL, DIST_EP_UPDATE_REL_TOL = 4.0, 1e-4, 1e-3
+# (g) The shard's kernels (rows 1 and 11) in this process alone: q [4, 8,
+# n_q, 128] over one sp shard of the serving cache, [4, 4, 2048, 128], at
+# the offsets a shard sees (per slot): wholly past, the owner's ragged,
+# wholly future, and the edges (-n_q - 5, -1, 0, maxloc - 1, maxloc,
+# 2 maxloc); n_q 1 (decode) and 5 (a verify window of gamma 4).
+SHARD_Q, SHARD_KV = (4, 8, 1, 128), (4, 4, 2048, 128)
+# The kernels of the pipelined and the ep step at sp 1: the differentiable
+# op passes its offset as a tensor, so its forward is the general kernel
+# (row 1), never the triangular one; the backward the split pair.
+STEP_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+SHARD_OFFSETS = {"past": (2048, 2100, 3000, 4096), "ragged": (5, 700, 1500, 2040),
+                 "future": (-1, -6, -1000, -2048)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -2467,13 +2514,25 @@ def dist_phase(stamp: str, spec, tmp: str) -> dict:
     and lse-combine in the decode topology, against the port's single-device
     op on the whole sequence (``harness/multichip.py::attention_rank``), and
     an fp32 ring at a small shape.  (b) The full-width FlashLM on mesh
-    (2, 2, 2) (``sharded_train_rank``): one SGD step's loss, and the
+    (2, 2, 2) at depth ``DIST_TRAIN_LAYERS`` (``sharded_train_rank``): one
+    SGD step's loss, and the
     all-gather and ring steps' updates leaf by leaf, against the
     single-device step on the same seeded weights and tokens, the ring
     step's loss against the all-gather one, two AdamW steps.  (c)
     The three ring step kinds (every pair visible, the diagonal, nothing
     visible) forward and split backward at n_loc 2048, their kernels against
-    their plain versions, with device, plain, bound and SDPA times."""
+    their plain versions, with device, plain, bound and SDPA times.  In the
+    same group of ranks after (a) and (b): (d) sharded serving on mesh (dp,
+    tp, sp) = (2, 2, 2) at full depth (``DIST_SERVE_*``: dense, int8, dense
+    with ``multi_step=2``, dense with a draft), each engine's greedy streams
+    and teacher-forced logits against the single-device engine's on the
+    same weights; (e) the pipeline on (dp, pp, tp, sp) = (2, 2, 2, 1) at
+    full depth, its loss and first SGD update against the single-device
+    step's, and the loss falling over two steps; (f) expert parallelism on
+    (dp, ep, tp, sp) = (2, 2, 2, 1), an fp32 step against the single-device
+    step and two bf16 steps at Mixtral's capacity.  Then (g): rows 1 and 11
+    at one sp shard's offsets (``SHARD_*``) against their plain versions,
+    timed beside their bounds and SDPA on a dense bf16 cache."""
     from flash_attention_metal_tpu_torch.harness import multichip as mc
     from flash_attention_metal_tpu_torch.harness import onchip
     from flash_attention_metal_tpu_torch.kernels import flash_bwd as fb
@@ -2497,13 +2556,31 @@ def dist_phase(stamp: str, spec, tmp: str) -> dict:
                          dropout_seed=1234, decode_rows=DIST_DECODE_ROWS,
                          fp32_shape=DIST_FP32_SHAPE)
     cfg = dict(DIST_MODEL, dtype="bfloat16")
-    train_job = dict(mesh=DIST_MESH, cfg=cfg, batch=DIST_BATCH, seed=SEED, lr=DIST_SGD_LR,
+    train_cfg = dict(cfg, n_layers=DIST_TRAIN_LAYERS)
+    train_job = dict(mesh=DIST_MESH, cfg=train_cfg, batch=DIST_BATCH, seed=SEED, lr=DIST_SGD_LR,
                      adamw_lr=DIST_ADAMW_LR, device="cuda", sgd_steps=1, adamw_steps=2,
                      return_delta=True)
     t0 = time.perf_counter()
-    both = spawn(mc.attention_then_train_rank, DIST_RANKS, (attention_job, train_job),
+    prng = np.random.default_rng(SEED + 21)
+    serve_job = dict(
+        mesh=DIST_SERVE_MESH, cfg=cfg, seed=SEED, device="cuda", draft=serving_draft(),
+        max_batch=DIST_SERVE_BATCH, max_len=DIST_SERVE_LEN, max_new=DIST_SERVE_NEW,
+        spec_gamma=SPEC_GAMMA, modes=DIST_SERVE_MODES,
+        prompts=[prng.integers(1, DIST_MODEL["vocab_size"], n).tolist()
+                 for n in DIST_SERVE_PROMPTS],
+        check=[(prng.integers(1, DIST_MODEL["vocab_size"], n).tolist(),
+                prng.integers(1, DIST_MODEL["vocab_size"], f).tolist(), slot)
+               for n, f, slot in DIST_SERVE_CHECK])
+    pp_job = dict(mesh=DIST_PP_MESH, cfg=cfg, batch=DIST_PP_BATCH, seed=SEED, lr=DIST_SGD_LR,
+                  device="cuda", n_micro=DIST_PP_MICRO, steps=2, return_delta=True)
+    ep_job = dict(mesh=DIST_EP_MESH, cfg=dict(cfg, n_layers=DIST_EP_LAYERS), batch=DIST_EP_BATCH,
+                  seed=SEED, lr=DIST_SGD_LR, device="cuda", moe=MOE, dtype="bfloat16",
+                  fp32_capacity=DIST_EP_FP32_CAPACITY, steps=2, return_delta=True)
+    both = spawn(mc.dist_rank, DIST_RANKS, (dict(attention=attention_job, train=train_job,
+                                                 serve=serve_job, pp=pp_job, ep=ep_job),),
                  backend="gloo", device="cuda", workdir=os.path.join(tmp, "dist"))
     spawn_s = time.perf_counter() - t0
+    path_kernels = mc.TRAIN_KERNELS
 
     # (a) Attention on the sp ring.
     ranks = [r["attention"] for r in both]
@@ -2518,7 +2595,7 @@ def dist_phase(stamp: str, spec, tmp: str) -> dict:
     fp32 = max(r["fp32_ring"][0] for r in ranks)
     check(fp32 <= onchip.TOL[torch.float32], f"fp32 ring error {fp32:.3e}")
     attn_launches = {name: sum(r["launches"][name] for r in ranks) for name in totals}
-    check(all(attn_launches.values()),
+    check(all(attn_launches[name] for name in path_kernels),
           f"every kernel of the distributed attention path launched: {attn_launches}")
     print(f"[dist-attention] fp32 ring {list(DIST_FP32_SHAPE)}: max abs err {fp32:.3e} "
           f"(tol {onchip.TOL[torch.float32]}); launches over the 8 ranks {attn_launches}; "
@@ -2528,9 +2605,9 @@ def dist_phase(stamp: str, spec, tmp: str) -> dict:
     ranks = [r["train"] for r in both]
     rep = ranks[0]
     train_launches = {name: sum(r["launches"][name] for r in ranks) for name in totals}
-    check(all(train_launches.values()),
+    check(all(train_launches[name] for name in path_kernels),
           f"every kernel of the sharded step launched: {train_launches}")
-    mcfg = mc._config(cfg)
+    mcfg = mc._config(train_cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     full = tf.init_params(mcfg, gen, master_dtype=torch.float32)
@@ -2564,13 +2641,16 @@ def dist_phase(stamp: str, spec, tmp: str) -> dict:
     adamw = rep["adamw_losses"]
     check(adamw[1] < adamw[0], f"AdamW loss falls: {adamw}")
     steps_ms = [t * 1e3 for t in rep["step_s"]]
-    print(f"[dist-train] FlashLM {DIST_MODEL} on mesh (dp, tp, sp) = {DIST_MESH}, global batch "
+    print(f"[dist-train] FlashLM {train_cfg} on mesh (dp, tp, sp) = {DIST_MESH}, global batch "
           f"{list(DIST_BATCH)}: loss {sharded:.6f} vs single-device {loss:.6f} (rel {loss_rel:.2e}, "
           f"tol {DIST_LOSS_REL_TOL}); ring-sp loss {rep['loss_ring']:.6f} (tol {mc.RING_TOL}); "
           f"AdamW losses {adamw}")
     print(f"[dist-train] step wall ms (SGD, ring SGD, AdamW x2) {[round(t, 1) for t in steps_ms]}, "
           f"{where}: a check of the code path, not a scaling figure; launches over the 8 ranks "
-          f"{train_launches}; (a) and (b) {spawn_s:.1f} s with the spawn {stamp}")
+          f"{train_launches}; (a)-(f) {spawn_s:.1f} s with the spawn {stamp}")
+    serve_out = dist_serve_check([r["serve"] for r in both], serve_job, where, stamp)
+    pp_out = dist_pp_check([r["pp"] for r in both], pp_job, where, stamp)
+    ep_out = dist_ep_check([r["ep"] for r in both], ep_job, where, stamp)
     del ranks, both
 
     # (c) The ring's step kinds, this process alone.
@@ -2638,20 +2718,274 @@ def dist_phase(stamp: str, spec, tmp: str) -> dict:
         check(fwd_launches == 1, f"a ring {kind} step's forward is one launch: {fwd_launches}")
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    shard_out = shard_kernel_check(gen, stamp, spec)
+    parts = {"serve": serve_out["launches"], "pp": pp_out["launches"], "ep": ep_out["launches"]}
     for name in totals:
-        totals[name] = attn_launches[name] + train_launches[name]
+        totals[name] = attn_launches[name] + train_launches[name] + sum(
+            p[name] for p in parts.values())
     seconds = time.perf_counter() - t_phase
     print(f"[dist] phase {seconds:.1f} s; launches over the distributed runs {totals}")
+    records = {name: {"dist_launches": n_, **{f"dist_launches_{part}": p[name]
+                                              for part, p in parts.items()}}
+               for name, n_ in totals.items()}
+    for name, rec in shard_out["records"].items():
+        records[name].update(rec)
     return {
-        "records": {name: {"dist_launches": n_} for name, n_ in totals.items()},
+        "records": records,
         "dist": {"attention_errors": errors, "fp32_ring_err": fp32,
                  "attention_launches": attn_launches, "train_launches": train_launches,
                  "loss_sharded": sharded, "loss_single": loss, "loss_rel": loss_rel,
                  "sgd_update_rel_l2": updates,
                  "loss_ring": rep["loss_ring"], "adamw_losses": adamw,
                  "step_wall_ms": steps_ms, "step_wall_note": where,
-                 "ring_steps": steps, "phase_seconds": seconds},
+                 "ring_steps": steps, "serving": serve_out, "pipeline": pp_out,
+                 "expert_parallel": ep_out, "shard_kernels": shard_out["checks"],
+                 "phase_seconds": seconds},
     }
+
+
+def serving_draft() -> dict:
+    """The sharded serving check's draft sizes (serve_phase's draft)."""
+    from flash_attention_metal_tpu_torch.harness import serving
+
+    return dict(serving.DRAFT_D512)
+
+
+def _sum_launches(ranks: list) -> dict:
+    return {name: sum(r["launches"][name] for r in ranks) for name in ranks[0]["launches"]}
+
+
+def dist_serve_check(ranks: list, job: dict, where: str, stamp: str) -> dict:
+    """(d): each sharded engine's greedy streams against the single-device
+    engine's on the same weights and requests (equal but at near ties,
+    ``stream_partings``), the same on every rank, and its teacher-forced
+    logits within ``DIST_SERVE_LOGITS_TOL`` relative L2 of the single-device
+    engine's; the kernel of its cache launched."""
+    from types import SimpleNamespace
+
+    from flash_attention_metal_tpu_torch.harness import multichip as mc
+
+    params, cfg, draft = mc.serving_model(job, torch.device("cuda"))
+    single = mc.serve_engines(params, cfg, draft, job)
+    out = {"launches": {}, "modes": {}}
+    for name, options in job["modes"]:
+        got = ranks[0][name]["streams"]
+        check(all(r[name]["streams"] == got for r in ranks),
+              f"sharded {name}: every rank's host sees the same streams")
+        want = single[name]["streams"]
+
+        def reqs(streams):
+            return [SimpleNamespace(uid=u, prompt=job["prompts"][u], generated=streams[u])
+                    for u in sorted(streams)]
+
+        partings = stream_partings(params, cfg, reqs(got), reqs(want), f"sharded {name}")
+        own = ranks[0][name].get("logits_of")
+        if own is None:
+            errs = []
+            for i in range(len(job["check"])):
+                mine = next(r[name]["logits"][i] for r in ranks
+                            if r[name]["logits"][i] is not None)
+                ref = single[name]["logits"][i]
+                errs.append(float((mine - ref).norm(dim=-1).max() / ref.norm(dim=-1).min()))
+            worst = max(errs)
+            check(worst <= DIST_SERVE_LOGITS_TOL,
+                  f"sharded {name} served logits rel L2 {worst:.3e} > {DIST_SERVE_LOGITS_TOL}")
+            logits_text = ("teacher-forced logits rel L2 " + ", ".join(f"{e:.3e}" for e in errs)
+                           + f" (tol {DIST_SERVE_LOGITS_TOL})")
+        else:
+            errs = out["modes"][own]["served_logits_rel_l2"]
+            logits_text = f"teacher-forced logits: {own}'s (the same target steps on its cache)"
+        launches = _sum_launches([r[name] for r in ranks])
+        kernel = "flash_quant" if options.get("kv_quant") else "flash_fwd"
+        check(launches[kernel] > 0, f"sharded {name} launched {kernel}: {launches}")
+        for k_, n_ in launches.items():
+            out["launches"][k_] = out["launches"].get(k_, 0) + n_
+        secs = max(r[name]["seconds"] for r in ranks)
+        out["modes"][name] = {"near_tie_partings": partings, "served_logits_rel_l2": errs,
+                              "served_logits_of": own or name,
+                              "seconds": secs, "single_seconds": single[name]["seconds"],
+                              "launches": launches}
+        print(f"[dist-serve] {name} on mesh (dp, tp, sp) = {job['mesh']}, {job['max_batch']} "
+              f"slots x {job['max_len']} ({job['max_len'] // job['mesh'][2]} a shard), "
+              f"{len(job['prompts'])} greedy requests x {job['max_new']} tokens, prompts "
+              f"{[len(p) for p in job['prompts']]}: greedy streams equal the single-device "
+              f"engine's but {partings_text(partings)}; {logits_text}; launches "
+              f"{launches_text(launches)}; {secs:.1f} s, {where} (single device "
+              f"{single[name]['seconds']:.1f} s) {stamp}")
+    del params, draft, single
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_pp_check(ranks: list, job: dict, where: str, stamp: str) -> dict:
+    """(e): the pipelined loss within ``DIST_LOSS_REL_TOL`` of the
+    single-device loss, its first SGD update within ``DIST_UPDATE_REL_TOL``
+    relative L2 on every leaf, the loss falling over the two steps."""
+    from flash_attention_metal_tpu_torch.harness import multichip as mc
+    from flash_attention_metal_tpu_torch.models import transformer as tf
+
+    rep = ranks[0]
+    mcfg = mc._config(job["cfg"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(job["seed"])
+    full = tf.init_params(mcfg, gen, master_dtype=torch.float32)
+    tokens = torch.randint(0, mcfg.vocab_size, job["batch"], generator=gen, device="cuda")
+    loss, grads = tf.value_and_grad(tf.loss_fn, full, tokens, mcfg)
+    loss = float(loss)
+    names = leaf_names(full)
+    errs = mc.update_errors(rep["delta"], grads, job["lr"])
+    del full, grads
+    torch.cuda.empty_cache()
+    losses = rep["losses"]
+    rel = abs(losses[0] - loss) / loss
+    check(all(r["losses"] == losses for r in ranks), "every rank reports the same pp losses")
+    check(rel <= DIST_LOSS_REL_TOL, f"pp loss {losses[0]} vs single {loss}: {rel:.3e}")
+    check(max(errs) <= DIST_UPDATE_REL_TOL, f"pp SGD update, worst leaf {max(errs):.3e}")
+    check(losses[1] < losses[0], f"pp loss falls: {losses}")
+    launches = _sum_launches(ranks)
+    check(all(launches[k_] for k_ in STEP_KERNELS), f"the pipeline's kernels launched: {launches}")
+    order = sorted(range(len(errs)), key=errs.__getitem__, reverse=True)[:3]
+    steps_ms = [t * 1e3 for t in rep["step_s"]]
+    print(f"[dist-pp] FlashLM depth {mcfg.n_layers} on mesh (dp, pp, tp, sp) = {job['mesh']}, "
+          f"{job['n_micro']} microbatches, global batch {list(job['batch'])}: loss "
+          f"{losses[0]:.6f} vs single-device {loss:.6f} (rel {rel:.2e}, tol {DIST_LOSS_REL_TOL}); "
+          f"SGD update rel L2 worst " + ", ".join(f"{names[i]} {errs[i]:.3e}" for i in order)
+          + f" (tol {DIST_UPDATE_REL_TOL}); losses {losses}; step wall ms "
+          f"{[round(t, 1) for t in steps_ms]}, {where}; launches {launches_text(launches)} {stamp}")
+    return {"losses": losses, "loss_single": loss, "loss_rel": rel,
+            "update_rel_l2_worst": {names[i]: errs[i] for i in order}, "step_wall_ms": steps_ms,
+            "launches": launches}
+
+
+def dist_ep_check(ranks: list, job: dict, where: str, stamp: str) -> dict:
+    """(f): the fp32 ep loss within ``DIST_EP_LOSS_REL_TOL`` of the
+    single-device loss and its SGD update within ``DIST_EP_UPDATE_REL_TOL``
+    relative L2 on every leaf (capacity 4.0: nothing drops), then the bf16
+    loss at Mixtral's capacity falling over two steps."""
+    from flash_attention_metal_tpu_torch.harness import multichip as mc
+    from flash_attention_metal_tpu_torch.models import moe
+    from flash_attention_metal_tpu_torch.models import transformer as tf
+
+    rep = ranks[0]
+    base = mc._config(dict(job["cfg"], dtype="float32"))
+    cfg32 = moe.MoEConfig(**{f: getattr(base, f) for f in base.__dataclass_fields__},
+                          **dict(job["moe"], capacity_factor=job["fp32_capacity"]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(job["seed"])
+    full = moe.init_moe_params(cfg32, gen)
+    tokens = torch.randint(0, cfg32.vocab_size, job["batch"], generator=gen, device="cuda")
+    loss, grads = tf.value_and_grad(moe._moe_loss, full, tokens, cfg32)
+    loss = float(loss)
+    names = leaf_names(full)
+    errs = mc.update_errors(rep["delta"], grads, job["lr"])
+    del full, grads
+    torch.cuda.empty_cache()
+    rel = abs(rep["fp32_loss"] - loss) / loss
+    losses = rep["losses"]
+    check(rel <= DIST_EP_LOSS_REL_TOL, f"ep fp32 loss {rep['fp32_loss']} vs single {loss}: "
+          f"{rel:.3e}")
+    check(max(errs) <= DIST_EP_UPDATE_REL_TOL, f"ep fp32 SGD update, worst leaf {max(errs):.3e}")
+    check(losses[1] < losses[0], f"ep bf16 loss falls: {losses}")
+    launches = _sum_launches(ranks)
+    check(all(launches[k_] for k_ in STEP_KERNELS), f"the ep step's kernels launched: {launches}")
+    order = sorted(range(len(errs)), key=errs.__getitem__, reverse=True)[:3]
+    steps_ms = [t * 1e3 for t in rep["step_s"]]
+    print(f"[dist-ep] MoE FlashLM ({job['moe']}) depth {cfg32.n_layers} on mesh (dp, ep, tp, sp) "
+          f"= {job['mesh']}, global batch {list(job['batch'])}: fp32 at capacity "
+          f"{job['fp32_capacity']} loss {rep['fp32_loss']:.6f} vs single-device {loss:.6f} (rel "
+          f"{rel:.2e}, tol {DIST_EP_LOSS_REL_TOL}); SGD update rel L2 worst "
+          + ", ".join(f"{names[i]} {errs[i]:.3e}" for i in order)
+          + f" (tol {DIST_EP_UPDATE_REL_TOL}); bf16 at {job['moe']['capacity_factor']} losses "
+          f"{losses}; step wall ms {[round(t, 1) for t in steps_ms]}, {where}; launches "
+          f"{launches_text(launches)} {stamp}")
+    return {"fp32_loss": rep["fp32_loss"], "fp32_loss_single": loss, "fp32_loss_rel": rel,
+            "update_rel_l2_worst": {names[i]: errs[i] for i in order}, "bf16_losses": losses,
+            "step_wall_ms": steps_ms, "launches": launches}
+
+
+def shard_kernel_check(gen: torch.Generator, stamp: str, spec) -> dict:
+    """(g): rows 1 (dense bf16 cache) and 11 (int8) at one sp shard of the
+    serving cache, q ``SHARD_Q`` (n_q 1 and 5) over ``SHARD_KV``, at every
+    offset set of ``SHARD_OFFSETS`` and the edges, against their plain
+    versions (o and lse; a wholly future slot gives o = 0 and lse = -inf);
+    each call one launch of the general kernel, none of the triangular
+    one.  At n_q 1, each offset set's device time beside the plain
+    version's, the bound and SDPA on a dense bf16 cache under the same
+    mask (none where every row sees nothing)."""
+    from flash_attention_metal_tpu_torch.harness import multichip as mc
+    from flash_attention_metal_tpu_torch.harness import onchip
+    from flash_attention_metal_tpu_torch.kernels import flash_tri as ft
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.kernels.flash_fwd import (
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+        flash_fwd_general,
+    )
+
+    bf16 = torch.bfloat16
+    maxloc = SHARD_KV[2]
+    scale = SHARD_Q[3] ** -0.5
+    checks, records = {}, {"flash_fwd": {}, "flash_quant": {}}
+    for n_q in (1, 5):
+        q_shape = (*SHARD_Q[:2], n_q, SHARD_Q[3])
+        q, k, v = onchip.ladder_inputs(q_shape, SHARD_KV, bf16, gen)
+        qkv = qt.quantize_kv(k, v, torch.int8)
+        sets = dict(SHARD_OFFSETS, edges=(-n_q - 5, -1, 0, maxloc - 1),
+                    edges_past=(maxloc, 2 * maxloc, maxloc - 1, 0))
+        for label, offs in sets.items():
+            off = torch.tensor(offs, dtype=torch.int32, device="cuda")
+            calls = {
+                "flash_fwd": (lambda: flash_attention_fwd(q, k, v, off, causal=True,
+                                                          save_lse=True),
+                              lambda: flash_attention_fwd_plain(q, k, v, off, sm_scale=scale,
+                                                                causal=True, save_lse=True),
+                              flash_fwd_general),
+                "flash_quant": (lambda: qt.flash_attention_quant(q, qkv, off, causal=True,
+                                                                 save_lse=True),
+                                lambda: qt.flash_attention_quant_plain(
+                                    q, qkv, off, sm_scale=scale, causal=True, save_lse=True),
+                                qt.flash_attention_quant),
+            }
+            for name, (kernel_fn, plain_fn, wrapper) in calls.items():
+                before = (wrapper.launches, ft.flash_attention_tri.launches)
+                (o, lse), (o_p, lse_p) = kernel_fn(), plain_fn()
+                launched = (wrapper.launches - before[0], ft.flash_attention_tri.launches
+                            - before[1])
+                err = max(mc._err(o, o_p)[0], mc._err(lse, lse_p)[0])
+                tol = onchip.TOL[bf16]
+                check(launched == (1, 0), f"shard {name} {label} n_q {n_q}: one general-kernel "
+                      f"launch, no triangular one: {launched}")
+                check(err <= tol, f"shard {name} {label} n_q {n_q}: error {err:.3e} > {tol}")
+                future = off[:, None] + torch.arange(n_q, device="cuda")[None, :] < 0
+                if bool(future.any()):
+                    dead = future[:, None, :].expand(lse.shape)
+                    check(bool(torch.isneginf(lse[dead]).all())
+                          and float(o[dead].abs().max()) == 0.0,
+                          f"shard {name} {label}: a row wholly in the future gives o = 0, "
+                          "lse = -inf")
+                checks[f"{name}_{label}_nq{n_q}"] = err
+                print(f"[dist-shard] {name} q {list(q_shape)} over {list(SHARD_KV)} at offsets "
+                      f"{list(offs)} ({label}): error {err:.3e} (tol {tol}); 1 launch of the "
+                      f"general kernel{' (its split-KV decode grid)' if n_q <= 16 else ''}")
+                if n_q != 1 or label not in SHARD_OFFSETS:
+                    continue
+                cols = torch.arange(maxloc, device="cuda")
+                mask = (cols[None, :] <= off[:, None])[:, None, None, :]
+                library = ((None, "none: every row sees nothing") if label == "future"
+                           else onchip.sdpa_ms(q, k, v, mask=mask))
+                work = (onchip.fwd_work(q, k, offs, save_lse=True) if name == "flash_fwd"
+                        else onchip.kv_work("flash_quant", (q, qkv, off), 1))
+                r = timed_record(kernel_fn, plain_fn, library, *work, 16,
+                                 f"q {list(q_shape)} over {list(SHARD_KV)} at {list(offs)}", spec)
+                records[name].update({f"shard_{label}_{key}": r[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+                lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+                print(f"[dist-shard-time] {name} {label}: device {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms, SDPA on a dense bf16 cache {lib} ms, bound "
+                      f"{r['bound_ms']:.3e} ms ({r['bound_by']}) {stamp}")
+        del q, k, v, qkv
+    torch.cuda.empty_cache()
+    return {"checks": checks, "records": records}
 
 
 def sparse_grid_text(grid) -> str:
@@ -3015,6 +3349,18 @@ def d128_phase(gen: torch.Generator, stamp: str, spec) -> dict:
                "prefill q [1,16,512,128] over [1,8,2048,128] at offset 512"
                + ("" if kernel == "flash_paged" else ", int8"), tag="prefill")
         del args
+    # SDPA on a dense bf16 cache at that prefill shape and offset (another
+    # function, beside rows 11-13's prefill entries as at head dim 64).
+    qp, kp, vp = onchip.ladder_inputs(onchip.PREFILL_D128_Q, onchip.PREFILL_D128_KV, bf16, gen)
+    n_qp, n_kvp = onchip.PREFILL_D128_Q[2], onchip.PREFILL_D128_KV[2]
+    prefill_dense = onchip.sdpa_ms(qp, kp, vp, mask=(
+        torch.arange(n_kvp, device="cuda")[None, :]
+        <= torch.arange(n_qp, device="cuda")[:, None] + 512))
+    for kernel in ("flash_quant", "flash_paged", "flash_paged_quant"):
+        out[kernel]["extra"]["prefill_sdpa_dense_bf16_ms"] = prefill_dense[0]
+    print(f"[d128] SDPA on a dense bf16 cache at the prefill shape q [1,16,512,128] over "
+          f"[1,8,2048,128], offset 512: {prefill_dense[0]:.4f} ms ({prefill_dense[1]}) {stamp}")
+    del qp, kp, vp
     # Rows 14-16: block-sparse under rung 11's mask.
     bm = onchip.sparse_mask()
     q, k, v = onchip.ladder_inputs(onchip.SPARSE_D128_Q, onchip.SPARSE_D128_KV, bf16, gen)

@@ -1,7 +1,7 @@
-"""Mixture-of-Experts FlashLM on one device.
+"""Mixture-of-Experts FlashLM, on one device and with expert parallelism.
 
-Counterpart of the one-device parts of ``flash_attention_metal_tpu/models/
-moe.py``: the GShard/Switch routed SwiGLU MLP with fp32 top-k gating (gates
+Counterpart of ``flash_attention_metal_tpu/models/moe.py``: the
+GShard/Switch routed SwiGLU MLP with fp32 top-k gating (gates
 renormalized over the kept k), capacity-bucketed one-hot dispatch and
 combine tensors ``[T, E, C]`` built from cumsum ranks (tokens past an
 expert's capacity drop from its MLP and ride the residual), the Switch
@@ -11,10 +11,26 @@ any layer that holds ``w_router``).
 
 The routed products are plain einsums, which the JAX package leaves to XLA:
 here they are ``torch`` matrix products, no grouped-GEMM library.  The
-attention is FlashLM's, through the port's flash-attention op.  Expert
-parallelism (the ``ep`` mesh axis, its all_to_all, ``moe_param_specs``)
-waits for the rest of distribution (ROADMAP.md, Queue A item 7b): every
-function here is the JAX package's at ``ep = tp = sp = 1``.
+attention is FlashLM's, through the port's flash-attention op.
+
+Expert parallelism runs on a ``("dp", "ep", "tp", "sp")`` mesh
+(``parallel/mesh.py``): the experts split over ``ep`` and their hidden
+width over ``tp`` (``moe_param_specs``); each rank dispatches its own
+tokens into ``[E, C, d]`` blocks that one all-to-all each way carries to
+and from the experts' ranks (``parallel/comm.py::all_to_all_diff``), and
+the expert output is summed over tp.  ``ep`` is a data axis for the other
+layers: the tokens split over dp x ep (and the sequence over sp), so each
+shard's capacity comes from its own token count and tokens drop where
+JAX's drop.  The attention is the sharded step's Megatron block
+(``parallel_train._tp_attention``), the cross entropy its vocab-split one,
+and the Switch loss reads raw counts summed over (dp, ep, sp).  A leaf's
+gradient is summed over the data axes that hold partial contributions to
+it: (dp, ep, sp) for the replicated and tp-split leaves, (dp, sp) for the
+experts, whose ep group's tokens already reached them.  So the ep step
+equals the one-device step; JAX's ``psum`` of gradients that autodiff has
+already summed scales its update by the mesh size (ROADMAP.md, Queue C
+17), which the port does not copy.  Without a mesh every function is the
+one-device case of the same code.
 
 ``torch.topk`` and ``jax.lax.top_k`` may order tied probabilities
 differently, so two routers can differ on exact ties; the parity tests use
@@ -30,6 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.comm import all_reduce, all_to_all_diff, copy_to, reduce_from
+from ..parallel.mesh import Mesh, shard
 from .trainer import AdamW
 from .transformer import (
     ModelConfig,
@@ -40,6 +58,12 @@ from .transformer import (
     value_and_grad,
     weight,
 )
+
+AXES = ("dp", "ep", "tp", "sp")
+# The data axes: tokens split over them in every layer but the experts'.
+DATA_AXES = ("dp", "ep", "sp")
+# A [B, N] token batch's spec: the batch over dp x ep, the sequence over sp.
+BATCH_SPEC = (("dp", "ep"), "sp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +122,28 @@ def init_moe_params(cfg: MoEConfig, generator: torch.Generator,
         "final_norm": ones(),
         "lm_head": dense(d, (d, cfg.vocab_size)),
     }
+
+
+def moe_param_specs(cfg: MoEConfig) -> Params:
+    """Specs of the MoE tree: the Megatron tp attention, the router
+    replicated, the experts split over ``ep`` and their hidden width over
+    ``tp`` (``w_gate``/``w_up`` by column, ``w_down`` by row)."""
+    col, row = (None, "tp"), ("tp", None)
+    layer = {"attn_norm": (), "wq": col, "wk": col, "wv": col, "wo": row, "mlp_norm": (),
+             "w_router": (), "w_gate": ("ep", None, "tp"), "w_up": ("ep", None, "tp"),
+             "w_down": ("ep", "tp", None)}
+    return {"embed": (), "layers": [dict(layer) for _ in range(cfg.n_layers)], "final_norm": (),
+            "lm_head": col}
+
+
+def moe_opt_state_specs(optimizer: AdamW, params: Params, cfg: MoEConfig) -> dict:
+    """Specs of ``optimizer.init(shards)``: the moments with their experts."""
+    return {"count": (), "mu": moe_param_specs(cfg), "nu": moe_param_specs(cfg)}
+
+
+def shard_moe_params(params: Params, cfg: MoEConfig, mesh: Mesh) -> Params:
+    """This rank's shards of a whole MoE tree, on ``mesh.device``."""
+    return map_params(lambda p, s: shard(p, mesh, s), params, moe_param_specs(cfg))
 
 
 def _capacity(n_tokens: int, cfg: MoEConfig) -> int:
@@ -170,16 +216,25 @@ def moe_mlp_dense(layer: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tenso
     return x + out.reshape(shape)
 
 
-def _moe_mlp(layer: Params, x: torch.Tensor, cfg: MoEConfig):
+def _moe_mlp(layer: Params, x: torch.Tensor, cfg: MoEConfig, mesh: Optional[Mesh] = None):
     """The capacity-bucketed routed MLP of training, with its residual, and
-    the Switch statistics ``(f_sum, p_sum, t)`` (JAX's at ``ep = tp = 1``)."""
+    the Switch statistics ``(f_sum, p_sum, t)`` of this shard's tokens (JAX
+    ``:207``).  ``x``: this rank's ``[B_loc, n_loc, d]``; the capacity is
+    this shard's.  With a ``mesh`` this rank holds ``E / ep`` experts: the
+    dispatched ``[E, C, d]`` blocks go to their experts' ranks by an
+    all-to-all over ``ep`` (``[E / ep, ep * C, d]`` there) and come back by
+    the inverse one, and the tp-split expert output is summed over tp."""
     dt = cfg.dtype
     b, n, d = x.shape
     h = rms_norm(x, layer["mlp_norm"]).reshape(b * n, d)
     probs = _router_probs(layer, h)
     dispatch, combine, stats = topk_dispatch(probs, cfg.top_k, _capacity(b * n, cfg))
     xe = torch.einsum("tec,td->ecd", dispatch.to(dt), h)
+    if mesh is not None:
+        xe = copy_to(all_to_all_diff(xe, mesh, "ep", 0, 1), mesh, "tp")
     ye = _experts(layer, xe, dt)
+    if mesh is not None:
+        ye = all_to_all_diff(reduce_from(ye, mesh, "tp"), mesh, "ep", 1, 0)
     out = torch.einsum("ecd,tec->td", ye, combine.to(dt))
     return x + out.reshape(b, n, d), stats
 
@@ -189,11 +244,15 @@ def _moe_block(layer: Params, x: torch.Tensor, cfg: MoEConfig, positions: torch.
     return _moe_mlp(layer, x, cfg)
 
 
-def _moe_loss(params: Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+def _moe_loss(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+              mesh: Optional[Mesh] = None, sp_attn: str = "allgather") -> torch.Tensor:
     """Next-token cross entropy (the last position has no target) on fp32
     logits, plus ``aux_loss_weight`` times the Switch loss summed over the
     layers; each block under an activation checkpoint when grad is on, as
-    JAX's."""
+    JAX's.  With a ``mesh``: this rank's shards and token block
+    (``BATCH_SPEC``), the global loss (``_moe_loss_sharded``)."""
+    if mesh is not None:
+        return _moe_loss_sharded(params, tokens, cfg, mesh, sp_attn)
     positions = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
     x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -211,13 +270,79 @@ def _moe_loss(params: Params, tokens: torch.Tensor, cfg: MoEConfig) -> torch.Ten
     return ce + cfg.aux_loss_weight * aux
 
 
-def make_moe_train_step(cfg: MoEConfig, lr: float = 1e-2):
-    """One-device SGD step: ``step(params, tokens) -> (params, loss)``, the
-    params updated in place (JAX's ``make_moe_train_step`` on a one-device
-    mesh)."""
+def _moe_loss_sharded(params: Params, tokens: torch.Tensor, cfg: MoEConfig, mesh: Mesh,
+                      sp_attn: str) -> torch.Tensor:
+    """``_moe_loss`` on a ``(dp, ep, tp, sp)`` mesh (JAX ``:249``): the
+    Switch loss of each layer from its statistics summed over the data axes
+    (invariant to how the batch is split), the vocab-split cross entropy
+    averaged over them; the same value on every rank, each rank's gradient
+    its own part."""
+    from .parallel_train import _tp_attention, check_config, vocab_sharded_ce
+
+    check_config(cfg, mesh)
+    n_loc = tokens.shape[1]
+    positions = (mesh.index("sp") * n_loc
+                 + torch.arange(n_loc, device=tokens.device)).expand(tokens.shape)
+    x = F.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
+
+    def block(x, layer):
+        x = _tp_attention(layer, x, cfg, positions, mesh, sp_attn)
+        return _moe_mlp(layer, x, cfg, mesh)
+
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for layer in params["layers"]:
+        if torch.is_grad_enabled():
+            x, (f_sum, p_sum, t) = checkpoint(block, x, layer, use_reentrant=False)
+        else:
+            x, (f_sum, p_sum, t) = block(x, layer)
+        t_g = float(all_reduce(torch.tensor(t, device=tokens.device), mesh, DATA_AXES))
+        f_e = all_reduce(f_sum.detach(), mesh, DATA_AXES) / t_g
+        p_e = reduce_from(p_sum, mesh, *DATA_AXES) / t_g
+        aux = aux + cfg.n_experts * torch.sum(f_e * p_e)
+    x = copy_to(rms_norm(x, params["final_norm"]), mesh, "tp")
+    logits = (x @ weight(params["lm_head"], cfg.dtype)).float()
+    return vocab_sharded_ce(logits, tokens, mesh, reduce_axes=DATA_AXES) + \
+        cfg.aux_loss_weight * aux
+
+
+def _ep_sum_axes(spec) -> tuple:
+    """The data axes a leaf's gradient holds partial sums along: the
+    experts' (split over ep) dp and sp, every other leaf's dp, ep and sp."""
+    return ("dp", "sp") if "ep" in spec else DATA_AXES
+
+
+def moe_value_and_grad(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+                       mesh: Optional[Mesh] = None, sp_attn: str = "allgather"):
+    """``(loss, grads)``: the loss and, with a ``mesh``, this rank's shards
+    of the one-device gradient."""
+    loss, grads = value_and_grad(_moe_loss, params, tokens, cfg, mesh, sp_attn)
+    if mesh is not None:
+        from .parallel_train import sum_partial_grads
+
+        grads = sum_partial_grads(grads, moe_param_specs(cfg), mesh, _ep_sum_axes)
+    return loss, grads
+
+
+def _check_experts(cfg: MoEConfig, mesh: Optional[Mesh]) -> None:
+    ep = mesh.size("ep") if mesh is not None else 1
+    if cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} not divisible by ep={ep}")
+
+
+def make_moe_train_step(mesh, cfg: Optional[MoEConfig] = None, lr: float = 1e-2,
+                        sp_attn: str = "allgather"):
+    """SGD step ``step(params, tokens) -> (params, loss)``, the params
+    updated in place.  ``make_moe_train_step(mesh, cfg, ...)`` on a ``(dp,
+    ep, tp, sp)`` mesh takes this rank's shards (``shard_moe_params``) and
+    token block (``BATCH_SPEC``: ``B`` divisible by ``dp * ep``) and
+    returns the global loss (JAX ``:288``); ``make_moe_train_step(cfg,
+    ...)`` is the one-device step."""
+    if isinstance(mesh, ModelConfig):
+        mesh, cfg = None, mesh
+    _check_experts(cfg, mesh)
 
     def step(params: Params, tokens: torch.Tensor):
-        loss, grads = value_and_grad(_moe_loss, params, tokens, cfg)
+        loss, grads = moe_value_and_grad(params, tokens, cfg, mesh, sp_attn)
         with torch.no_grad():
             map_params(lambda p, g: p.add_(g, alpha=-lr), params, grads)
         return params, loss
@@ -225,14 +350,27 @@ def make_moe_train_step(cfg: MoEConfig, lr: float = 1e-2):
     return step
 
 
-def make_moe_optax_step(cfg: MoEConfig, optimizer: AdamW):
-    """One-device optimizer step with the port's ``AdamW`` (or anything with
-    its ``init`` / ``update`` interface): ``step(params, opt_state, tokens)
-    -> (params, opt_state, loss)``, params and state updated in place."""
+def make_moe_optax_step(mesh, cfg=None, optimizer: Optional[AdamW] = None,
+                        sp_attn: str = "allgather"):
+    """Optimizer step with the port's ``AdamW`` (or anything with its
+    ``init`` / ``update`` interface): ``step(params, opt_state, tokens) ->
+    (params, opt_state, loss)``, params and state updated in place.
+    ``make_moe_optax_step(mesh, cfg, optimizer)`` on a mesh, the state
+    sharded as ``moe_opt_state_specs`` and the clip on the global norm
+    (JAX ``:337``); ``make_moe_optax_step(cfg, optimizer)`` on one
+    device."""
+    if isinstance(mesh, ModelConfig):
+        mesh, cfg, optimizer = None, mesh, cfg
+    _check_experts(cfg, mesh)
 
     def step(params: Params, opt_state, tokens: torch.Tensor):
-        loss, grads = value_and_grad(_moe_loss, params, tokens, cfg)
-        optimizer.update(grads, opt_state, params)
+        loss, grads = moe_value_and_grad(params, tokens, cfg, mesh, sp_attn)
+        norm = None
+        if mesh is not None:
+            from .parallel_train import global_norm
+
+            norm = global_norm(grads, moe_param_specs(cfg), mesh)
+        optimizer.update(grads, opt_state, params, norm=norm)
         return params, opt_state, loss
 
     return step

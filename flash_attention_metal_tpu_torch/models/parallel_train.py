@@ -32,7 +32,7 @@ leaves once.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -220,6 +220,24 @@ def _sum_over(tree: Params, mesh: Mesh, axes: Tuple[str, ...]) -> Params:
     return map_params(lambda g: next(parts).view(g.shape).to(g.dtype), tree)
 
 
+def sum_partial_grads(grads: Params, specs: Params, mesh: Mesh,
+                      axes_of: Callable[[tuple], Tuple[str, ...]]) -> Params:
+    """Every leaf summed over ``axes_of(its spec)``, the axes along which its
+    gradient holds partial sums (the pipeline's and the ep step's rule):
+    one ``_sum_over`` for each set of axes."""
+    leaves, leaf_specs = param_leaves(grads), []
+    map_params(lambda _, s: leaf_specs.append(s), grads, specs)
+    groups: Dict[Tuple[str, ...], List[int]] = {}
+    for i, s in enumerate(leaf_specs):
+        groups.setdefault(tuple(axes_of(s)), []).append(i)
+    out = list(leaves)
+    for axes, idx in groups.items():
+        for i, g in zip(idx, _sum_over([leaves[i] for i in idx], mesh, axes)):
+            out[i] = g
+    it = iter(out)
+    return map_params(lambda _: next(it), grads)
+
+
 def sharded_value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfig, mesh: Mesh,
                            sp_attn: str = "allgather",
                            dropout_seeds: Optional[torch.Tensor] = None
@@ -231,15 +249,23 @@ def sharded_value_and_grad(params: Params, tokens: torch.Tensor, cfg: ModelConfi
     return loss, _sum_over(grads, mesh, ("dp", "sp"))
 
 
+def global_norm(grads: Params, specs: Params, mesh: Mesh) -> torch.Tensor:
+    """The global L2 norm of a gradient held as shards (``specs``): each
+    leaf's squares summed over the mesh axes its spec splits it on, a
+    replicated leaf counted once (one all-reduce for each set of axes)."""
+    sums: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+    map_params(lambda g, s: sums.setdefault(tuple(a for a in mesh.axis_names if a in s), [])
+               .append(torch.sum(g.float() * g.float())), grads, specs)
+    total = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for axes, parts in sums.items():
+        total = total + all_reduce(torch.stack(parts).sum(), mesh, axes)
+    return torch.sqrt(total)
+
+
 def global_grad_norm(grads: Params, cfg: ModelConfig, mesh: Mesh) -> torch.Tensor:
     """The single-device gradient's global L2 norm from this rank's shards:
     tp-split leaves summed over tp, replicated leaves once."""
-    sums = {True: [], False: []}
-    map_params(lambda g, s: sums["tp" in s].append(torch.sum(g.float() * g.float())), grads,
-               param_specs(cfg))
-    split, replicated = (torch.stack(sums[k]).sum() if sums[k] else
-                         torch.zeros((), device=mesh.device) for k in (True, False))
-    return torch.sqrt(all_reduce(split, mesh, ("tp",)) + replicated)
+    return global_norm(grads, param_specs(cfg), mesh)
 
 
 def make_train_step(mesh: Mesh, cfg: ModelConfig, lr: float = 1e-2, sp_attn: str = "allgather",

@@ -152,9 +152,9 @@ class TrainState:
 
 class Trainer:
     """Single-device trainer over the FlashLM loss, with durable
-    checkpoint/resume.  The sharded (dp x tp x sp) step is
-    ``models/parallel_train.py``; a pipelined or expert-parallel trainer
-    waits for ROADMAP.md, Queue A item 7b."""
+    checkpoint/resume.  The sharded steps are functions of a mesh: dp x tp
+    x sp in ``models/parallel_train.py``, the pipeline axis in
+    ``models/pipeline.py`` and expert parallelism in ``models/moe.py``."""
 
     def __init__(
         self,

@@ -24,7 +24,7 @@ the single-device one (the tensor-parallel pair of Megatron-LM):
 from __future__ import annotations
 
 import warnings
-from typing import List, Sequence
+from typing import List, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -63,15 +63,18 @@ def all_reduce(x: torch.Tensor, mesh: Mesh, axes: Sequence[str], op: str = "sum"
     return buf.to(x.device)
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
-    """The ranks' ``x`` along ``axis`` concatenated on ``dim``, in
-    coordinate order (JAX ``all_gather(..., tiled=True)``)."""
-    n = mesh.size(axis)
+def all_gather(x: torch.Tensor, mesh: Mesh, axis: Union[str, Sequence[str]],
+               dim: int) -> torch.Tensor:
+    """The ranks' ``x`` along ``axis`` (a name, or several: row-major over
+    them in the mesh's order) concatenated on ``dim``, in coordinate order
+    (JAX ``all_gather(..., tiled=True)``)."""
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    n = mesh.size(*axes)
     if n == 1:
         return x
     buf = _staged(x.movedim(dim, 0), mesh)
     out = torch.empty((n * buf.shape[0], *buf.shape[1:]), dtype=buf.dtype, device=buf.device)
-    _quiet(dist.all_gather_into_tensor, out, buf, group=mesh.group(axis))
+    _quiet(dist.all_gather_into_tensor, out, buf, group=mesh.group(*axes))
     return out.to(x.device).movedim(0, dim)
 
 

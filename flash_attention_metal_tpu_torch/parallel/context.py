@@ -10,7 +10,7 @@ alternatives to ring attention for a sequence-sharded K/V:
   training path's context parallelism.
 * ``lse_combine_attention``: each rank attends its (replicated) queries to
   its own K/V shard, and the partials merge over the axis by their
-  logsumexps (``lse_psum_combine``: an all-reduce MAX, then SUM).  O(D)
+  logsumexps (``lse_psum_combine``: one all-gather, merged locally).  O(D)
   bytes per query on the wire instead of the cache; forward only, the
   decode topology.
 
@@ -27,7 +27,7 @@ from ..kernels._common import pack_dropout_seed
 from ..kernels.flash_fwd import flash_attention_fwd
 from ..ops.attention import flash_attention
 from ..reference.oracle import attention_reference_with_lse
-from .comm import all_reduce, gather_from
+from .comm import all_gather, gather_from
 from .mesh import Mesh
 
 
@@ -74,17 +74,20 @@ def lse_psum_combine(o_l: torch.Tensor, lse_l: torch.Tensor, mesh: Mesh,
                      axis: str = "sp") -> torch.Tensor:
     """The ranks' attention partials over ``axis`` merged by their
     logsumexps: ``o_l`` ``[..., N, D]`` this rank's normalised partial,
-    ``lse_l`` ``[..., N]`` (``-inf``: this shard saw no key).  Returns the
-    fp32 merged output, the same on every rank: an all-reduce MAX of the
-    lse, then an all-reduce SUM of the weighted partials and the weights
-    (JAX's pmax / psum pair)."""
-    lse_l = lse_l[..., None].float()
-    m_g = all_reduce(lse_l, mesh, (axis,), "max")
-    m_safe = torch.where(torch.isneginf(m_g), torch.zeros_like(m_g), m_g)
-    w = torch.where(torch.isneginf(lse_l), torch.zeros_like(lse_l), torch.exp(lse_l - m_safe))
-    both = all_reduce(torch.cat([o_l.float() * w, w], dim=-1), mesh, (axis,))
-    o_w, w_sum = both[..., :-1], both[..., -1:]
-    return o_w / torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
+    ``lse_l`` ``[..., N]`` (``-inf``: this shard saw no key; it weighs
+    zero).  Returns the fp32 merged output ``sum_s o_s exp(lse_s - m) /
+    sum_s exp(lse_s - m)``, ``m`` the largest lse (JAX's pmax / psum pair),
+    in one all-gather of each rank's partial and lse, combined here in rank
+    order: the same arithmetic on the same values on every rank, so the same
+    result (one collective, where the pair takes two)."""
+    both = torch.cat([o_l.float(), lse_l[..., None].float()], dim=-1)
+    parts = all_gather(both[None], mesh, axis, 0)
+    o_s, lse_s = parts[..., :-1], parts[..., -1:]
+    m = lse_s.amax(dim=0)
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    w = torch.where(torch.isneginf(lse_s), torch.zeros_like(lse_s), torch.exp(lse_s - m_safe))
+    w_sum = w.sum(dim=0)
+    return (o_s * w).sum(dim=0) / torch.where(w_sum == 0.0, torch.ones_like(w_sum), w_sum)
 
 
 def lse_combine_attention(

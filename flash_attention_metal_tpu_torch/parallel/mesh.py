@@ -105,7 +105,7 @@ class Mesh:
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] = AXES, *,
-              device="cuda") -> Mesh:
+              device="cuda", ranks: Optional[int] = None) -> Optional[Mesh]:
     """The mesh of ``shape`` over the initialised default group.
 
     Default: every rank on the last axis (the JAX default, a 1-D ``sp``
@@ -114,22 +114,25 @@ def make_mesh(shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] =
     group for every set of axes and every coordinate of the others
     (``dist.new_group`` is collective over the world).  ``device``: where
     this rank's tensors live (the card by default; a CUDA device with no
-    index is the current one)."""
+    index is the current one).  ``ranks``: the mesh spans the world's first
+    ``ranks`` ranks (JAX's ``devices=jax.devices()[:n]``; default all of
+    them), and a rank past them gets None."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised process group (init_group)")
     world, rank = dist.get_world_size(), dist.get_rank()
+    n = world if ranks is None else int(ranks)
     names = tuple(axis_names)
     if shape is None:
-        shape = (1,) * (len(names) - 1) + (world,)
+        shape = (1,) * (len(names) - 1) + (n,)
     shape = tuple(int(s) for s in shape)
     if len(shape) != len(names):
         raise ValueError(f"mesh shape {shape} does not match axes {names}")
-    if int(np.prod(shape)) != world:
-        raise ValueError(f"mesh shape {shape} != {world} ranks")
+    if int(np.prod(shape)) != n or n > world:
+        raise ValueError(f"mesh shape {shape} != {n} ranks (of a world of {world})")
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    grid = np.arange(world).reshape(shape)
+    grid = np.arange(n).reshape(shape)
     groups: Dict[Tuple[str, ...], Tuple[object, List[int]]] = {}
     for r in range(1, len(names) + 1):
         for axes in itertools.combinations(names, r):
@@ -139,10 +142,12 @@ def make_mesh(shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] =
             # row-major order of ``axes``.
             moved = np.moveaxis(grid, others + dims, list(range(len(names))))
             for block in moved.reshape(-1, int(np.prod([shape[d] for d in dims]))):
-                ranks = [int(x) for x in block]
-                group = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
-                if rank in ranks:
-                    groups[axes] = (group, ranks)
+                members = [int(x) for x in block]
+                group = dist.group.WORLD if len(members) == world else dist.new_group(members)
+                if rank in members:
+                    groups[axes] = (group, members)
+    if rank >= n:
+        return None
     return Mesh(names, shape, rank, dist.get_backend(), device, groups)
 
 
@@ -154,17 +159,24 @@ def _block(mesh: Mesh, shape: Sequence[int], spec: Sequence[Optional[str]]) -> T
         if axis is None:
             out.append(slice(None))
             continue
-        parts = mesh.size(axis)
+        # A tuple of axes splits the dim over all of them, the first major
+        # (a PartitionSpec's ("dp", "ep")).
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        parts = mesh.size(*axes)
         if n % parts:
             raise ValueError(f"dim of {n} does not split over {parts} ranks of {axis!r}")
-        i, step = mesh.index(axis), n // parts
+        i = 0
+        for a in axes:
+            i = i * mesh.size(a) + mesh.index(a)
+        step = n // parts
         out.append(slice(i * step, (i + 1) * step))
     return tuple(out)
 
 
 def shard(x: torch.Tensor, mesh: Mesh, spec: Sequence[Optional[str]]) -> torch.Tensor:
     """This rank's block of the global tensor ``x``: dim ``i`` split over
-    the ranks of axis ``spec[i]`` (None: whole), as a ``PartitionSpec``
+    the ranks of axis ``spec[i]`` (a name, a tuple of names, or None:
+    whole), as a ``PartitionSpec``
     places it; a contiguous copy on ``mesh.device`` (differentiable: the
     gradient flows back into this rank's block of ``x``)."""
     return x[_block(mesh, x.shape, spec)].to(mesh.device).contiguous().clone()
@@ -225,10 +237,10 @@ def _to_host(x):
 
 def _rank_main(rank: int, fn: Callable, world_size: int, workdir: str, backend: str,
                device: str, timeout_s: float) -> None:
-    if torch.device(device).type == "cpu":
-        # Ranks share the host's cores; one thread each keeps them apart.
-        torch.set_num_threads(1)
-    else:
+    # Ranks share the host's cores; one intra-op thread each keeps them
+    # apart (a rank on the card only stages tensors on the host).
+    torch.set_num_threads(1)
+    if torch.device(device).type != "cpu":
         torch.cuda.set_device(rank % torch.cuda.device_count())
     init_group(os.path.join(workdir, "store"), rank, world_size, backend=backend,
                timeout_s=timeout_s)

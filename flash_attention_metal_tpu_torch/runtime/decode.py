@@ -499,7 +499,7 @@ def decode_and_sample_multi(
 def admit_update(
     logits: torch.Tensor,
     generator: torch.Generator,
-    slot: int,
+    slot: Optional[int],
     temp: float,
     top_k: int,
     top_p: float,
@@ -520,7 +520,9 @@ def admit_update(
     per-slot sampling setting and a fresh penalty count in place.
 
     Penalties are skipped for the first token: the new occupant's counts
-    are zero.  Returns ``(tok, logprob)`` as 0-d device tensors.
+    are zero.  Returns ``(tok, logprob)`` as 0-d device tensors.  ``slot``
+    None samples alike and installs nothing: a rank of a sharded engine
+    whose shard does not hold the slot.
     """
     dev = logits.device
 
@@ -533,6 +535,8 @@ def admit_update(
         min_ps=one(min_p, torch.float32),
     )[0]
     logp = _token_logprobs(logits, tok)
+    if slot is None:
+        return tok, logp
     next_token[slot] = tok
     temps[slot] = temp
     top_ks[slot] = top_k

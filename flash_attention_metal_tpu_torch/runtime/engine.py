@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..models.transformer import ModelConfig, Params
+from ..models.transformer import ModelConfig, Params, map_params
 from . import kv_cache, paged_kv
 from .decode import (
     admit_update,
@@ -137,8 +137,30 @@ class DecodeEngine:
     speculative serving, ``spec_gamma`` proposals a round (its cache is
     dense whatever the target's).  ``rolling``: a wrapped cache of
     ``ceil((window + sinks) / 128) * 128 + 128`` slots for a model with
-    ``cfg.attn_window``, prefilled in chunks of 128.  ``mesh`` (sharded
-    serving) raises NotImplementedError.
+    ``cfg.attn_window``, prefilled in chunks of 128.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): sharded serving.  Every rank of
+    the mesh builds the engine with the same arguments and whole parameter
+    tree, submits the same requests in the same order and steps with the
+    others; each holds its shards.  The slots split over ``batch_axis``
+    (``max_batch`` divides over it); ``seq_axis`` shards the cache's length
+    (``max_len`` into 128-aligned shards) and ``head_axis`` the KV heads and
+    the Megatron weights (``runtime/sp_decode.py``); with neither, each dp
+    rank runs the one-device steps on its slots, in every cache mode but
+    ``paged``.  The host scheduler runs on every rank and must decide alike,
+    so every rank must see every slot's tokens: a step's tokens are gathered
+    over the whole mesh after its dispatch (rather than running the step on
+    global slots, which would need every rank to hold every slot's cache),
+    and each dp group's are read from its first rank; at harvest the ranks
+    of each group are checked to agree, and a disagreement raises.  A
+    prefill runs on the dp group that holds the slot, and its logits reach
+    every rank in one collective.  Sampling draws from one generator per dp
+    group, seeded from ``seed`` and the group's coordinate, so the tp and sp
+    ranks of a group draw alike; an admission's first token from a
+    generator seeded from ``seed`` alone, the same on every rank.
+    ``snapshot``/``restore`` carry each rank's shards and the generators
+    (JAX's snapshot holds its global sharded arrays; here a rank restores
+    its own, on a mesh of the same shape).
     """
 
     def __init__(
@@ -161,6 +183,9 @@ class DecodeEngine:
         n_pages: Optional[int] = None,
         prefix_share: bool = False,
         mesh=None,
+        batch_axis: str = "dp",
+        seq_axis: Optional[str] = None,
+        head_axis: Optional[str] = None,
     ):
         # The JAX engine's refusals, in its order.
         if multi_step < 1:
@@ -177,6 +202,23 @@ class DecodeEngine:
                     "draft= with prefix_share=True is not wired (a verify window may not "
                     "overwrite an adopted shared page)"
                 )
+        # Sequence- and tensor-sharded serving (runtime/sp_decode.py): an
+        # axis of size 1 shards nothing.
+        sp_size = mesh.size(seq_axis) if (mesh is not None and seq_axis is not None) else 1
+        tp_size = mesh.size(head_axis) if (mesh is not None and head_axis is not None) else 1
+        self._seq_axis = seq_axis if sp_size > 1 else None
+        self._head_axis = head_axis if tp_size > 1 else None
+        if (self._seq_axis is not None or self._head_axis is not None) and rolling:
+            raise ValueError(
+                "rolling caches are dp-only (no contiguous shard ownership under a wrapped "
+                "position map)"
+            )
+        if self._head_axis is not None and cfg.n_kv_heads % tp_size:
+            raise ValueError(f"n_kv_heads={cfg.n_kv_heads} must divide over {head_axis}={tp_size}")
+        if self._seq_axis is not None and (max_len % sp_size or (max_len // sp_size) % 128):
+            raise ValueError(
+                f"max_len={max_len} must split into 128-aligned shards over {seq_axis}={sp_size}"
+            )
         if paged and rolling:
             raise ValueError(
                 "paged=True does not compose with rolling (a wrapped position "
@@ -187,22 +229,41 @@ class DecodeEngine:
                 "paged=True is single-device (a shared physical pool has no "
                 "batch dim to shard)"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "DecodeEngine(mesh=...) (sharded serving, runtime/sp_decode.py) is not ported to "
-                "the PyTorch package yet (see ROADMAP.md, Queue A item 7b)"
-            )
+        dp_size = mesh.size(batch_axis) if mesh is not None else 1
+        if max_batch % dp_size:
+            raise ValueError(f"max_batch={max_batch} must divide over {batch_axis}={dp_size}")
         if rolling and cfg.attn_window is None:
             raise ValueError("rolling=True requires cfg.attn_window")
         if prefix_share and not paged:
             raise ValueError("prefix_share=True requires paged=True")
         if kv_quant is not None and kv_quant not in KV_QUANT_DTYPES:
             raise ValueError(f"kv_quant={kv_quant!r} must be one of {sorted(KV_QUANT_DTYPES)}")
-        self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
         self.max_len = max_len
-        self.device = params["embed"].device
+        self._mesh = mesh
+        self._batch_axis = batch_axis
+        # This rank's slots: [_lo, _lo + _b_loc) of the global pool.
+        self._b_loc = max_batch // dp_size
+        self._lo = mesh.index(batch_axis) * self._b_loc if mesh is not None else 0
+        self._sp = None
+        if mesh is not None:
+            from .sp_decode import SpStepFns, shard_params
+
+            self.device = mesh.device
+            if self._head_axis is not None:
+                params = shard_params(params, mesh, self._head_axis)
+            else:
+                params = map_params(
+                    lambda p: p.to(self.device) if torch.is_tensor(p) else p, params)
+            if draft is not None:
+                draft = (map_params(lambda p: p.to(self.device), draft[0]), draft[1])
+            if self._seq_axis is not None or self._head_axis is not None:
+                self._sp = SpStepFns(mesh, cfg, batch_axis=batch_axis, seq_axis=self._seq_axis,
+                                     head_axis=self._head_axis)
+        else:
+            self.device = params["embed"].device
+        self.params = params
         self._multi_step = multi_step
         self._draft = draft
         self._spec_gamma = spec_gamma
@@ -215,7 +276,8 @@ class DecodeEngine:
         # padded verify window.
         window = max(multi_step, self._spec_pad if draft is not None else 1)
         self._zombie_margin = harvest_lag * window + window
-        shape = (cfg.n_layers, max_batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+        shape = (cfg.n_layers, self._b_loc, cfg.n_kv_heads // tp_size, max_len // sp_size,
+                 cfg.head_dim)
         qdt = KV_QUANT_DTYPES.get(kv_quant)
         self.kv_quant = kv_quant
         self._paged = paged
@@ -248,10 +310,14 @@ class DecodeEngine:
             self.cache = init_quant_cache(*shape, dtype=qdt, device=self.device)
         else:
             self.cache = init_cache(*shape, dtype=cfg.dtype, device=self.device)
+        if self._sp is not None:
+            # Each prefill chunk lands in one sp shard.
+            self._prefill_chunk = min(128, max_len // sp_size)
         self.draft_cache = None
         if draft is not None:
+            # The draft's cache is dense and dp-local (whole length and heads).
             dcfg = draft[1]
-            self.draft_cache = init_cache(dcfg.n_layers, max_batch, dcfg.n_kv_heads, max_len,
+            self.draft_cache = init_cache(dcfg.n_layers, self._b_loc, dcfg.n_kv_heads, max_len,
                                           dcfg.head_dim, dtype=dcfg.dtype, device=self.device)
         self._prefix_share = prefix_share
         # Retained prefix registry: chain key -> physical page, LRU order.
@@ -264,22 +330,32 @@ class DecodeEngine:
 
         # Device-resident per-slot state: the decode chain never
         # round-trips tokens through the host.
+        # Device-resident per-slot state covers this rank's slots only.
         def zeros(dtype):
-            return torch.zeros((max_batch,), dtype=dtype, device=self.device)
+            return torch.zeros((self._b_loc,), dtype=dtype, device=self.device)
 
         self.next_token = zeros(torch.int32)
         self.temps = zeros(torch.float32)
         self.top_ks = zeros(torch.int32)
-        self.top_ps = torch.ones((max_batch,), dtype=torch.float32, device=self.device)
+        self.top_ps = torch.ones((self._b_loc,), dtype=torch.float32, device=self.device)
         self.presences = zeros(torch.float32)
         self.frequencies = zeros(torch.float32)
         self.min_ps = zeros(torch.float32)
         self.pen_counts = torch.zeros(
-            (max_batch, cfg.vocab_size), dtype=torch.int32, device=self.device
+            (self._b_loc, cfg.vocab_size), dtype=torch.int32, device=self.device
         )
         self.queue: deque = deque()
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self._admit_generator = self.generator
+        if mesh is None:
+            self.generator.manual_seed(seed)
+        else:
+            # One stream per dp group for the steps, and one shared by every
+            # rank for the admissions.
+            dp_seed = np.random.SeedSequence([seed, mesh.index(batch_axis)])
+            self.generator.manual_seed(int(dp_seed.generate_state(1, np.uint64)[0]))
+            self._admit_generator = torch.Generator(device=self.device)
+            self._admit_generator.manual_seed(seed)
         self.steps = 0
         # Throughput accounting (host wall clock around step()).
         self._step_seconds = 0.0
@@ -366,6 +442,8 @@ class DecodeEngine:
                 return None
             keys, shared = reserved
         tokens = torch.from_numpy(padded).to(self.device)
+        if self._mesh is not None:
+            return self._prefill_sharded(slot, req, tokens)
         if shared:
             # The adopted pages already hold the prefix's KV: prefill only
             # the tail.
@@ -390,6 +468,36 @@ class DecodeEngine:
                 if key not in self._prefix_registry:
                     self._allocator.pin(owned[i])
                     self._prefix_registry[key] = owned[i]
+        return logits
+
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s index among this rank's slots, or None when another
+        dp group holds it (always the slot itself without a mesh)."""
+        local = slot - self._lo
+        return local if 0 <= local < self._b_loc else None
+
+    def _prefill_sharded(self, slot: int, req: Request, tokens: torch.Tensor) -> torch.Tensor:
+        """A mesh's prefill of global ``slot``: the ranks of the dp group
+        holding it prefill (``SpStepFns.prefill_slot`` under sp or tp, the
+        one-device ``prefill_slot`` on a dp-only mesh), the draft's cache
+        too; every rank receives the logits."""
+        from .sp_decode import share_logits
+
+        local = self._local(slot)
+        if self._sp is not None:
+            logits, self.cache = self._sp.prefill_slot(
+                self.params, self.cache, tokens, len(req.prompt), slot, chunk=self._prefill_chunk)
+        else:
+            logits = None
+            if local is not None:
+                logits, self.cache = prefill_slot(
+                    self.params, self.cfg, self.cache, tokens, len(req.prompt), local,
+                    chunk=self._prefill_chunk)
+            logits = share_logits(self._mesh, self._batch_axis, logits, slot // self._b_loc,
+                                  self.cfg.vocab_size, self.device)
+        if self._draft is not None and local is not None:
+            _, self.draft_cache = prefill_slot(
+                self._draft[0], self._draft[1], self.draft_cache, tokens, len(req.prompt), local)
         return logits
 
     def grow_for_decode(self, slots, n: int = 1) -> None:
@@ -418,7 +526,7 @@ class DecodeEngine:
                 self.queue.appendleft(req)
                 break
             tok, logp = admit_update(
-                logits, self.generator, slot, req.temperature, req.top_k,
+                logits, self._admit_generator, self._local(slot), req.temperature, req.top_k,
                 req.top_p, req.min_p, req.presence_penalty,
                 req.frequency_penalty, self.next_token, self.temps,
                 self.top_ks, self.top_ps, self.presences, self.frequencies,
@@ -459,10 +567,10 @@ class DecodeEngine:
                 # page 0, so the freed pages are safe to grant at once.
                 self.cache = self._allocator.release(self.cache, req.slot)
                 self._host_len[req.slot] = 0
-            else:
-                self.cache = reset_slot(self.cache, req.slot)
-            if self.draft_cache is not None:
-                self.draft_cache = reset_slot(self.draft_cache, req.slot)
+            elif self._local(req.slot) is not None:
+                self.cache = reset_slot(self.cache, self._local(req.slot))
+            if self.draft_cache is not None and self._local(req.slot) is not None:
+                self.draft_cache = reset_slot(self.draft_cache, self._local(req.slot))
             self.finished[req.uid] = req
 
     # ------------------------------------------------------------------
@@ -484,6 +592,11 @@ class DecodeEngine:
         kind, (toks, lps), done, uids = entry
         if done is not None:
             done.synchronize()
+        if self._mesh is not None:
+            dim = 0 if kind == "spec" else 1
+            # A spec entry's second tensor is n_emit: the host reads both.
+            toks = self._lockstep(toks, dim, check=True)
+            lps = self._lockstep(lps, dim, check=kind == "spec")
         toks, lps = toks.tolist(), lps.tolist()
         if kind == "spec":  # one round: out [B, gamma + 1], n_emit [B]
             for slot, uid in enumerate(uids):
@@ -527,15 +640,38 @@ class DecodeEngine:
         if active_reqs:
             if self._occupancy_dirty:
                 # Host-to-device occupancy copy only when it changed.
+                mine = self.slots[self._lo:self._lo + self._b_loc]
                 self._active_dev = torch.tensor(
-                    [r is not None for r in self.slots], dtype=torch.bool
+                    [r is not None for r in mine], dtype=torch.bool
                 ).to(self.device)
                 self._occupancy_dirty = False
             self.grow_for_decode((s for s, r in enumerate(self.slots) if r is not None),
                                  self._spec_pad if self._draft is not None else self._multi_step)
             sampling = (self.generator, self.temps, self.top_ks, self.top_ps)
             penalties = (self.pen_counts, self.presences, self.frequencies)
-            if self._draft is not None:
+            if self._sp is not None and self._draft is not None:
+                out, n_emit, self.next_token, self.cache, self.draft_cache, self.pen_counts = (
+                    self._sp.speculative_step(
+                        self.params, self.cache, self._draft[0], self.draft_cache,
+                        self.next_token, self._active_dev, *sampling, self.min_ps, *penalties,
+                        cfg_d=self._draft[1], gamma=self._spec_gamma,
+                    ))
+                kind, fetched = "spec", (out, n_emit)
+            elif self._sp is not None and self._multi_step > 1:
+                toks, lps, self.cache, self.pen_counts = self._sp.decode_and_sample_multi(
+                    self.params, self.cache, self.next_token, self._active_dev, *sampling,
+                    *penalties, self.min_ps, n_steps=self._multi_step,
+                )
+                self.next_token = toks[-1]
+                kind, fetched = "decode", (toks, lps)
+            elif self._sp is not None:
+                toks, lps, self.cache, self.pen_counts = self._sp.decode_and_sample(
+                    self.params, self.cache, self.next_token, self._active_dev, *sampling,
+                    *penalties, self.min_ps,
+                )
+                self.next_token = toks
+                kind, fetched = "decode", (toks[None], lps[None])
+            elif self._draft is not None:
                 out, n_emit, self.next_token, self.cache, self.draft_cache, self.pen_counts = (
                     speculative_step(
                         self.params, self.cfg, self.cache, self._draft[0], self._draft[1],
@@ -557,6 +693,10 @@ class DecodeEngine:
                 )
                 self.next_token = toks
                 kind, fetched = "decode", (toks[None], lps[None])
+            if self._mesh is not None:
+                # Every rank's host needs every slot's tokens.
+                fetched = tuple(self._gather_slots(x, 0 if kind == "spec" else 1)
+                                for x in fetched)
             hosts, done = _fetch_async(*fetched)
             self._inflight.append(
                 (kind, hosts, done, [r.uid if r else None for r in self.slots])
@@ -573,6 +713,33 @@ class DecodeEngine:
             len(r.generated) for r in self.finished.values()
         ) + sum(len(r.generated) for r in self.slots if r is not None)
         return finished
+
+    def _gather_slots(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's block of ``x`` (this rank's slots on ``dim``),
+        concatenated on ``dim`` in the mesh's rank order (``_lockstep``
+        reads it)."""
+        from ..parallel.comm import all_gather
+
+        return all_gather(x.contiguous(), self._mesh, self._mesh.axis_names, dim)
+
+    def _lockstep(self, x: torch.Tensor, dim: int, check: bool = False) -> torch.Tensor:
+        """The global slots of a gathered step output (``_gather_slots``):
+        each dp group's block from its first rank.  With ``check``, every
+        rank of a group must have the same block; a disagreement would set
+        the ranks' schedulers apart, so it raises."""
+        mesh = self._mesh
+        blocks = x.chunk(int(np.prod(mesh.shape)), dim)
+        grid = np.arange(len(blocks)).reshape(mesh.shape)
+        axis = mesh.axis_names.index(self._batch_axis)
+        out = []
+        for i in range(mesh.shape[axis]):
+            group = np.take(grid, i, axis=axis).ravel()
+            lead = blocks[int(group[0])]
+            if check and not all(torch.equal(lead, blocks[int(r)]) for r in group[1:]):
+                raise RuntimeError(f"the ranks of {self._batch_axis} group {i} sampled different "
+                                   "tokens: the mesh's ranks are out of step")
+            out.append(lead)
+        return torch.cat(out, dim)
 
     def stats(self) -> Dict[str, float]:
         """Serving throughput counters (host wall clock).
@@ -659,6 +826,8 @@ class DecodeEngine:
             "draft_cache": None if self.draft_cache is None else _cache_state(self.draft_cache),
             **{name: getattr(self, name).clone() for name in self._STATE},
             "generator": self.generator.get_state(),
+            "admit_generator": (None if self._admit_generator is self.generator
+                                else self._admit_generator.get_state()),
             "steps": self.steps,
             "slots": [None if r is None else request(r, True) for r in self.slots],
             "queue": [request(r, False) for r in self.queue],
@@ -674,6 +843,8 @@ class DecodeEngine:
         for name in self._STATE:
             setattr(self, name, snap[name].to(self.device).clone())
         self.generator.set_state(snap["generator"].cpu())
+        if snap.get("admit_generator") is not None:
+            self._admit_generator.set_state(snap["admit_generator"].cpu())
         self.steps = int(snap["steps"])
 
         def request(meta: dict) -> Request:

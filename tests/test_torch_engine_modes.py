@@ -177,15 +177,21 @@ def test_zombie_margin_is_jaxs(params, jax_params):
 
 def test_engine_refusals_are_jaxs(params):
     """JAX's refusals, in its order: multi_step >= 1; a draft takes no
-    multi_step and no rolling cache, nor a shared-prefix paged one; only
-    sharded serving (ROADMAP.md, Queue A item 7) is left to port."""
+    multi_step and no rolling cache, nor a shared-prefix paged one; a
+    sharded engine (``runtime/sp_decode.py``) takes no rolling cache under
+    sp, and no slots that do not divide over dp."""
+    from flash_attention_metal_tpu_torch.parallel.mesh import Mesh
+
     win = dataclasses.replace(CFG, attn_window=64)
+    mesh = Mesh(("dp", "sp"), (2, 2), 0, "gloo", torch.device("cpu"), {})
     cases = [(CFG, dict(multi_step=0), ValueError, "multi_step"),
              (CFG, dict(draft=(params, CFG), multi_step=2), ValueError, "draft"),
              (win, dict(draft=(params, CFG), rolling=True), ValueError, "rolling"),
              (CFG, dict(draft=(params, CFG), paged=True, prefix_share=True),
               NotImplementedError, "prefix_share"),
-             (CFG, dict(mesh=object()), NotImplementedError, "Queue A item 7")]
+             (win, dict(rolling=True, mesh=mesh, seq_axis="sp"), ValueError, "dp-only"),
+             (CFG, dict(mesh=Mesh(("dp",), (4,), 0, "gloo", torch.device("cpu"), {})),
+              ValueError, "max_batch")]
     for cfg, kw, err, match in cases:
         with pytest.raises(err, match=match):
             eng_mod.DecodeEngine(params, cfg, max_batch=2, max_len=256, **kw)

@@ -2966,7 +2966,9 @@ def test_dist_attention_on_8_ranks_matches_the_single_device_op(cuda, tmp_path):
         assert all(e <= DIST_TOL for e in errs.values()), (method, errs)
     assert max(r["fp32_ring"][0] for r in ranks) <= onchip.TOL[torch.float32]
     launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
-    assert all(launches.values()), launches
+    from flash_attention_metal_tpu_torch.harness import multichip
+
+    assert all(launches[k] for k in multichip.TRAIN_KERNELS), launches
 
 
 @pytest.mark.gpu
@@ -3011,4 +3013,209 @@ def test_dist_sharded_flashlm_step_equals_the_single_device_step(cuda, tmp_path)
     assert abs(rep["loss_ring"] - rep["losses"][0]) <= multichip.RING_TOL
     assert rep["adamw_losses"][1] < rep["adamw_losses"][0]
     launches = {k: sum(r["launches"][k] for r in ranks) for k in rep["launches"]}
-    assert all(launches.values()), launches
+    assert all(launches[k] for k in multichip.TRAIN_KERNELS), launches
+
+
+# The rest of distribution (-k test_dist_): chip_smoke.py's (d)-(f) at
+# reduced depth on 8 gloo ranks sharing the card, each against the
+# single-device path on the same weights, and the planted faults
+# (tests/torch_dist_cases.py::_plant) their checks must catch.
+DIST_SERVE_JOB = dict(
+    mesh=(2, 2, 2), seed=0, device="cuda", draft=dict(n_layers=1, d_model=512, n_heads=8,
+                                                      n_kv_heads=4, d_ff=2048),
+    cfg=dict(vocab_size=32768, d_model=2048, n_layers=2, n_heads=16, n_kv_heads=8, head_dim=128,
+             d_ff=4096, max_seq_len=2048, dtype="bfloat16"),
+    max_batch=4, max_len=1024, max_new=24, spec_gamma=4,
+    modes=(("dense", {}), ("int8", {"kv_quant": "int8"}), ("speculative", {"draft": True})))
+DIST_LOGITS_TOL = 5e-2
+# chip_smoke.py's NEAR_TIE: two bf16 engines' greedy streams may part only
+# where the reference's two largest logits lie within it.
+DIST_NEAR_TIE = 0.1
+
+
+def _dist_serve_job(modes=None):
+    rng = np.random.default_rng(5)
+    job = dict(DIST_SERVE_JOB, prompts=[rng.integers(1, 32768, n).tolist()
+                                        for n in (5, 500, 510, 700)],
+               check=[(rng.integers(1, 32768, 508).tolist(),
+                       rng.integers(1, 32768, 8).tolist(), 0),
+                      (rng.integers(1, 32768, 600).tolist(),
+                       rng.integers(1, 32768, 4).tolist(), 3)])
+    if modes is not None:
+        job["modes"] = tuple(m for m in job["modes"] if m[0] in modes)
+    return job
+
+
+def _dist_run(tmp_path, fn_name: str, job: dict, fault=None):
+    from flash_attention_metal_tpu_torch.parallel import spawn
+
+    import torch_dist_cases
+
+    return spawn(torch_dist_cases.planted_dist_rank, 8, (fn_name, job, fault), backend="gloo",
+                 device="cuda", workdir=str(tmp_path))
+
+
+def _far_partings(params, cfg, prompts, got: dict, want: dict) -> list:
+    """The uids whose greedy streams part from the reference's where its
+    top-2 logit margin (a plain forward of the prompt and the tokens up to
+    there) is at least ``DIST_NEAR_TIE``, or whose lengths differ."""
+    bad = []
+    for uid, w in want.items():
+        g = got[uid]
+        if g == w:
+            continue
+        if len(g) != len(w):
+            bad.append(uid)
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(g, w)) if a != b)
+        with torch.no_grad():
+            seq = torch.tensor([list(prompts[uid]) + w[:j]], device="cuda")
+            top = torch.topk(tf.forward(params, seq, cfg)[0, -1].float(), 2).values
+        if float(top[0] - top[1]) >= DIST_NEAR_TIE:
+            bad.append(uid)
+    return bad
+
+
+def _serve_errors(ranks, job):
+    """Per mode: the requests whose streams part from the single-device
+    engine's other than at a near tie (on any rank), and the
+    teacher-forced logits' worst relative L2."""
+    from flash_attention_metal_tpu_torch.harness import multichip
+
+    params, cfg, draft = multichip.serving_model(job, torch.device("cuda"))
+    single = multichip.serve_engines(params, cfg, draft, job)
+    out = {}
+    for name, _ in job["modes"]:
+        errs = []
+        own = ranks[0][name].get("logits_of", name)
+        for i in range(len(job["check"])):
+            mine = next(r[own]["logits"][i] for r in ranks if r[own]["logits"][i] is not None)
+            ref = single[own]["logits"][i]
+            errs.append(float((mine - ref).norm(dim=-1).max() / ref.norm(dim=-1).min()))
+        want = single[name]["streams"]
+        out[name] = {"far_partings": sorted({u for r in ranks for u in _far_partings(
+                         params, cfg, job["prompts"], r[name]["streams"], want)}),
+                     "logits": max(errs), "launches": {
+                         k: sum(r[name]["launches"][k] for r in ranks)
+                         for k in ranks[0][name]["launches"]}}
+    return out
+
+
+@pytest.mark.gpu
+def test_dist_sharded_serving_equals_the_single_device_engine(cuda, tmp_path):
+    """(d) at depth 2: dense, int8 and speculative engines on mesh (dp, tp,
+    sp) = (2, 2, 2), 4 slots x 1024 positions (512 a shard), prompts and
+    teacher-forced decodes across position 512; greedy streams equal the
+    single-device engine's but at near ties (bf16 rounds the sharded and
+    the one-device sums apart) and served logits within 5e-2 relative L2;
+    the cache's kernel launched."""
+    job = _dist_serve_job()
+    errors = _serve_errors([r for r in _dist_run(tmp_path, "serve_full_rank", job)], job)
+    print(errors)
+    for name, e in errors.items():
+        assert not e["far_partings"] and e["logits"] <= DIST_LOGITS_TOL, (name, e)
+        kernel = "flash_quant" if name == "int8" else "flash_fwd"
+        assert e["launches"][kernel] > 0, (name, e["launches"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", ["offset_ignores_shard", "append_every_shard"])
+def test_dist_planted_serving_fault_fails_the_check(cuda, tmp_path, fault):
+    """A decode whose local offset is the global length, or an append that
+    writes on every shard: the served logits exceed the bound."""
+    job = _dist_serve_job(modes=("dense",))
+    errors = _serve_errors(_dist_run(tmp_path, "serve_full_rank", job, fault), job)
+    print(fault, errors)
+    assert errors["dense"]["logits"] > DIST_LOGITS_TOL, errors
+
+
+DIST_PP_JOB = dict(mesh=(2, 2, 2, 1), cfg=dict(DIST_SERVE_JOB["cfg"], n_layers=4),
+                   batch=(4, 1024), seed=0, lr=1e-2, device="cuda", n_micro=2, steps=2,
+                   return_delta=True)
+
+
+def _pp_errors(ranks, job):
+    from flash_attention_metal_tpu_torch.harness import multichip
+
+    rep = ranks[0]
+    mcfg = multichip._config(job["cfg"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(job["seed"])
+    full = tf.init_params(mcfg, gen, master_dtype=torch.float32)
+    tokens = torch.randint(0, mcfg.vocab_size, job["batch"], generator=gen, device="cuda")
+    loss, grads = tf.value_and_grad(tf.loss_fn, full, tokens, mcfg)
+    errs = multichip.update_errors(rep["delta"], grads, job["lr"])
+    return rep, float(loss), errs
+
+
+@pytest.mark.gpu
+def test_dist_pipeline_step_equals_the_single_device_step(cuda, tmp_path):
+    """(e) at depth 4 (2 layers a stage), global batch 4 x 1024: the loss
+    within 1e-2 relative and the SGD update within 5e-2 relative L2 on every
+    leaf of the single-device step's, the loss falling, the forward and the
+    split pair launched (the op's tensor offset takes the general
+    forward)."""
+    ranks = _dist_run(tmp_path, "pp_full_rank", DIST_PP_JOB)
+    rep, loss, errs = _pp_errors(ranks, DIST_PP_JOB)
+    print(rep["losses"], loss, max(errs))
+    assert abs(rep["losses"][0] - loss) / loss <= 1e-2
+    assert max(errs) <= 5e-2
+    assert rep["losses"][1] < rep["losses"][0]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in rep["launches"]}
+    assert all(launches[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")), launches
+
+
+@pytest.mark.gpu
+def test_dist_planted_pipeline_fault_fails_the_check(cuda, tmp_path):
+    """A pipeline backward that sends zeros for the stage's input gradient:
+    the earlier stages' and the embedding's updates fail the bound."""
+    job = dict(DIST_PP_JOB, steps=1)
+    rep, loss, errs = _pp_errors(_dist_run(tmp_path, "pp_full_rank", job, "pp_zero_grad"), job)
+    print(max(errs))
+    assert max(errs) > 5e-2
+
+
+DIST_EP_JOB = dict(mesh=(2, 2, 2, 1), cfg=dict(DIST_SERVE_JOB["cfg"], n_layers=1),
+                   batch=(4, 1024), seed=0, lr=1e-2, device="cuda",
+                   moe=dict(n_experts=8, top_k=2, capacity_factor=1.25), dtype="bfloat16",
+                   fp32_capacity=4.0, steps=2, return_delta=True)
+
+
+def _ep_errors(ranks, job):
+    from flash_attention_metal_tpu_torch.harness import multichip
+    from flash_attention_metal_tpu_torch.models import moe
+
+    rep = ranks[0]
+    base = multichip._config(dict(job["cfg"], dtype="float32"))
+    cfg = moe.MoEConfig(**{f: getattr(base, f) for f in base.__dataclass_fields__},
+                        **dict(job["moe"], capacity_factor=job["fp32_capacity"]))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(job["seed"])
+    full = moe.init_moe_params(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab_size, job["batch"], generator=gen, device="cuda")
+    loss, grads = tf.value_and_grad(moe._moe_loss, full, tokens, cfg)
+    return rep, float(loss), multichip.update_errors(rep["delta"], grads, job["lr"])
+
+
+@pytest.mark.gpu
+def test_dist_expert_parallel_step_equals_the_single_device_step(cuda, tmp_path):
+    """(f) at depth 1: the fp32 ep loss within 1e-4 relative and its SGD
+    update within 1e-3 relative L2 on every leaf of the single-device
+    step's (capacity 4.0), the bf16 loss at 1.25 falling over two steps."""
+    ranks = _dist_run(tmp_path, "ep_full_rank", DIST_EP_JOB)
+    rep, loss, errs = _ep_errors(ranks, DIST_EP_JOB)
+    print(rep["fp32_loss"], loss, max(errs), rep["losses"])
+    assert abs(rep["fp32_loss"] - loss) / loss <= 1e-4
+    assert max(errs) <= 1e-3
+    assert rep["losses"][1] < rep["losses"][0]
+
+
+@pytest.mark.gpu
+def test_dist_planted_ep_fault_fails_the_check(cuda, tmp_path):
+    """An ep step that skips the return all-to-all (each rank combines the
+    expert rows it computed as if they were its own tokens'): the loss and
+    the update fail the bound."""
+    job = dict(DIST_EP_JOB, steps=0)
+    rep, loss, errs = _ep_errors(_dist_run(tmp_path, "ep_full_rank", job, "ep_no_return"), job)
+    print(rep["fp32_loss"], loss, max(errs))
+    assert abs(rep["fp32_loss"] - loss) / loss > 1e-4 or max(errs) > 1e-3

@@ -238,11 +238,24 @@ def test_dropout_sharded_loss_equals_the_single_device_loss(ranks, dropout_losse
 
 
 def test_dryrun_multichip_counterpart_on_8_cpu_ranks(ranks):
-    """``harness/multichip.py`` (``MULTICHIP_r05.json``'s first two
-    checks), its job run on the 8-rank group: the loss falls over two
-    steps, the ring-sp loss is within 5e-2 of the all-gather loss."""
+    """``harness/multichip.py`` (``MULTICHIP_r05.json``'s five checks), its
+    jobs run on the 8-rank group: the loss falls over two steps, the ring-sp
+    loss is within 5e-2 of the all-gather loss, greedy int8 decode on the
+    (2, 2, 2) mesh (also with ``multi_step=2``) and dense decode with a
+    draft equal the one-device engines', and the pipeline's and the ep loss
+    fall over two steps on (2, 2, 2, 1)."""
     rep = ranks[(2, 2, 2)][0]["dryrun"]
-    assert multichip.dryrun_job(8, "cpu")["mesh"] == (2, 2, 2)
+    jobs = multichip.dryrun_job(8, "cpu")
+    assert jobs["train"]["mesh"] == jobs["serve"]["mesh"] == (2, 2, 2)
+    assert jobs["pp"]["mesh"] == jobs["ep"]["mesh"] == (2, 2, 2, 1)
     multichip.check_dryrun(rep)
-    assert rep["losses"][1] < rep["losses"][0]
-    assert abs(rep["loss_ring"] - rep["losses"][0]) < multichip.RING_TOL
+    train = rep["train"]
+    assert train["losses"][1] < train["losses"][0]
+    assert abs(train["loss_ring"] - train["losses"][0]) < multichip.RING_TOL
+    serve = rep["serve"]
+    for name, _ in multichip.DRYRUN_SERVE_MODES:
+        assert serve[name]["streams"] == serve["single"][name]["streams"]
+        assert all(len(toks) == 4 for toks in serve[name]["streams"].values())
+    assert serve["int8"]["streams"] == serve["int8_multi_step_2"]["streams"]
+    assert rep["pp"]["losses"][1] < rep["pp"]["losses"][0]
+    assert rep["ep"]["losses"][1] < rep["ep"]["losses"][0]

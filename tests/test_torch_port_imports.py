@@ -1,8 +1,8 @@
 """The PyTorch port imports no JAX, optax or transformers, and nothing of the
 JAX package.
 
-Every ``.py`` file of ``flash_attention_metal_tpu_torch/`` and
-``chip_smoke.py`` is parsed with ``ast`` (nothing is imported): any
+Every ``.py`` file of ``flash_attention_metal_tpu_torch/``,
+``chip_smoke.py`` and the torch examples (``examples/torch_*.py``) is parsed with ``ast`` (nothing is imported): any
 ``import jax...``, ``optax`` or ``transformers`` (the card has none; the
 Llama converter reads any object with a ``.config`` and a
 ``.state_dict()``), any import of ``flash_attention_metal_tpu`` (the JAX
@@ -18,8 +18,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = "flash_attention_metal_tpu_torch"
+EXAMPLES = ["examples/torch_train.py", "examples/torch_generate.py",
+            "examples/torch_speculate.py", "examples/torch_finetune_lora.py",
+            "examples/torch_sharded_train.py", "examples/torch_moe_pipeline_train.py"]
 FILES = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / PORT).rglob("*.py")) + [
-    "chip_smoke.py"]
+    "chip_smoke.py"] + sorted(p.relative_to(ROOT).as_posix()
+                              for p in (ROOT / "examples").glob("torch_*.py"))
 
 
 def _forbidden(name: str) -> bool:
@@ -62,8 +66,11 @@ def test_the_scan_covers_the_port():
                    "models/muon.py", "models/convert.py", "utils/profiling.py", "utils/debug.py",
                    "parallel/__init__.py", "parallel/mesh.py", "parallel/comm.py",
                    "parallel/ring.py", "parallel/context.py", "parallel/ulysses.py",
-                   "models/parallel_train.py", "harness/scaling.py", "harness/multichip.py"):
+                   "models/parallel_train.py", "harness/scaling.py", "harness/multichip.py",
+                   "runtime/sp_decode.py", "models/pipeline.py"):
         assert f"{PORT}/{module}" in FILES
+    for script in EXAMPLES:
+        assert script in FILES
     assert len(FILES) > 40
 
 

@@ -223,9 +223,14 @@ def test_engine_matches_jax_greedy(params, jax_params):
 
 
 def test_engine_rejects_unported_options(params):
-    # Only sharded serving (ROADMAP.md Queue A item 7) is left to port.
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, mesh=object())
+    # Sharded serving is ported (runtime/sp_decode.py): an engine on a
+    # one-rank dp mesh constructs without a collective, its cache this
+    # rank's slots.
+    from flash_attention_metal_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(("dp",), (1,), 0, "gloo", torch.device("cpu"), {})
+    eng = eng_mod.DecodeEngine(params, CFG, max_batch=2, max_len=MAX_LEN, mesh=mesh)
+    assert type(eng.cache).__name__ == "KVCache" and eng.cache.k.shape[1] == 2
     # The rolling caches, multi-step dispatch and speculative serving are
     # ported: each option constructs (the rolling cache needs a window).
     win = dataclasses.replace(CFG, attn_window=64, attn_sinks=4)

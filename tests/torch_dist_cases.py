@@ -156,7 +156,7 @@ def train_cases(rank: int, spec: dict) -> dict:
     if spec.get("dryrun"):
         from flash_attention_metal_tpu_torch.harness import multichip
 
-        out["dryrun"] = multichip.sharded_train_rank(
+        out["dryrun"] = multichip.dist_rank(
             rank, multichip.dryrun_job(mesh.size(*mesh.axis_names), "cpu"))
     if rank:
         out = {k: v for k, v in out.items() if not isinstance(v, dict)}
@@ -164,10 +164,15 @@ def train_cases(rank: int, spec: dict) -> dict:
 
 
 def _plant(fault: str) -> None:
-    """A fault planted in this rank's ring (``parallel/ring.py``), which
-    the distributed checks must catch: the step offset's sign flipped, the
-    merge without its rescale, or the backward's dK/dV accumulators kept
-    at the rank instead of travelling with their shard."""
+    """A fault planted in this rank, which the distributed checks must
+    catch: in the ring (``parallel/ring.py``) the step offset's sign
+    flipped, the merge without its rescale, or the backward's dK/dV
+    accumulators kept at the rank instead of travelling with their shard;
+    in sharded serving (``runtime/sp_decode.py``) a local offset that
+    ignores the shard, or an append that writes on every shard; a pipeline
+    backward that sends zeros for the stage's input gradient
+    (``models/pipeline.py``); an ep step that skips the return all-to-all
+    (``models/moe.py``)."""
     from flash_attention_metal_tpu_torch.parallel import ring
 
     if fault == "ring_offset_sign":
@@ -180,8 +185,55 @@ def _plant(fault: str) -> None:
         ring.merge_partials = merge
     elif fault == "accumulators_stay":
         ring._pass_on = lambda dk, dv, mesh, axis: (dk, dv)
+    elif fault == "offset_ignores_shard":
+        from flash_attention_metal_tpu_torch.runtime import sp_decode
+
+        sp_decode.local_offsets = lambda lengths, my_sp, maxloc: lengths.to(torch.int32)
+    elif fault == "append_every_shard":
+        from flash_attention_metal_tpu_torch.runtime import sp_decode
+
+        put = sp_decode._put
+
+        def every_shard(buf, new, start, owned, per_row):
+            # The global position's row, clipped into every shard.
+            return put(buf, new, start.clamp(0, buf.shape[2] - new.shape[2]),
+                       torch.ones_like(owned), False)
+
+        sp_decode._put = every_shard
+    elif fault == "pp_zero_grad":
+        from flash_attention_metal_tpu_torch.models import pipeline
+
+        p2p = pipeline._p2p
+
+        def zero_grads(mesh, send, recv):
+            if send is not None and send[1] == -1:
+                send = (torch.zeros_like(send[0]), -1)
+            return p2p(mesh, send, recv)
+
+        pipeline._p2p = zero_grads
+    elif fault == "ep_no_return":
+        from flash_attention_metal_tpu_torch.models import moe
+
+        a2a = moe.all_to_all_diff
+
+        def no_return(x, mesh, axis, split_dim, concat_dim):
+            if split_dim == 1:  # the return trip: keep the rows here
+                return x.reshape(-1, x.shape[1] // mesh.size(axis), x.shape[2])
+            return a2a(x, mesh, axis, split_dim, concat_dim)
+
+        moe.all_to_all_diff = no_return
     else:
         raise ValueError(f"unknown fault {fault!r}")
+
+
+def planted_dist_rank(rank: int, fn_name: str, job: dict, fault=None):
+    """``harness/multichip.py``'s rank function ``fn_name`` on ``job``,
+    with ``fault`` planted first (``_plant``) when given."""
+    from flash_attention_metal_tpu_torch.harness import multichip
+
+    if fault is not None:
+        _plant(fault)
+    return getattr(multichip, fn_name)(rank, job)
 
 
 def planted_attention_rank(rank: int, job: dict) -> dict:
@@ -191,3 +243,173 @@ def planted_attention_rank(rank: int, job: dict) -> dict:
 
     _plant(job["fault"])
     return multichip.attention_rank(rank, job)
+
+
+def _engine_run(params, cfg, requests, snapshot_after=None, **kw):
+    """``{uid: (tokens, logprobs)}`` of ``requests`` (``(prompt, max_new)``
+    pairs, greedy) through a ``DecodeEngine`` of the sp_decode tests.  With
+    ``snapshot_after``: a snapshot after that many steps is restored into a
+    fresh engine (another seed), which runs to the end; the result is
+    ``{"went_on": ..., "restored": ...}``, each finished request's streams."""
+    from flash_attention_metal_tpu_torch.runtime.engine import DecodeEngine, Request
+
+    def engine(seed=0):
+        return DecodeEngine(params, cfg, max_batch=4, max_len=512, eos_id=-1, harvest_lag=2,
+                            seed=seed, **kw)
+
+    def streams(e):
+        return {u: (list(r.generated), list(r.logprobs)) for u, r in e.finished.items()}
+
+    eng = engine()
+    reqs = [Request(uid=i, prompt=list(p), max_new_tokens=n, temperature=0.0)
+            for i, (p, n) in enumerate(requests)]
+    for r in reqs:
+        eng.submit(r)
+    if snapshot_after is None:
+        eng.run()
+        return {r.uid: (list(r.generated), list(r.logprobs)) for r in reqs}
+    for _ in range(snapshot_after):
+        eng.step()
+    snap = eng.snapshot()
+    before = streams(eng)
+    eng.run()
+    restored = engine(seed=77)
+    restored.restore(snap)
+    restored.finished = {}
+    restored.run()
+    return {"went_on": streams(eng), "restored": {**before, **streams(restored)}}
+
+
+def sp_decode_cases(rank: int, spec: dict) -> dict:
+    """``test_torch_sp_decode.py``'s sharded engines, one 8-rank group:
+    each case of ``spec["cases"]`` (``name``, ``mesh`` (a shape; its axes
+    ``("dp", "sp")`` for two dims, ``("dp", "tp", "sp")`` for three),
+    ``cfg`` (a key of ``spec["cfgs"]``), ``engine`` (keyword arguments, a
+    ``draft`` by key of ``spec["drafts"]``)) through ``DecodeEngine(mesh=)``
+    on ``spec["requests"]``: ``{name: {uid: (tokens, logprobs)}}``."""
+    meshes = {}
+    out = {}
+    for case in spec["cases"]:
+        shape = tuple(case["mesh"])
+        if shape not in meshes:
+            names = ("dp", "sp") if len(shape) == 2 else ("dp", "tp", "sp")
+            meshes[shape] = make_mesh(shape, names, device="cpu")
+        cfg_fields, params = spec["cfgs"][case["cfg"]]
+        kw = dict(case["engine"])
+        if "draft" in kw:
+            d_fields, d_params = spec["drafts"][kw["draft"]]
+            kw["draft"] = (d_params, ModelConfig(**d_fields))
+        out[case["name"]] = _engine_run(params, ModelConfig(**cfg_fields), spec["requests"],
+                                        mesh=meshes[shape], **kw)
+    return out
+
+
+def _shard_tokens(tokens, mesh, spec):
+    return shard(tokens, mesh, spec)
+
+
+def pp_cases(rank: int, spec: dict) -> list:
+    """``test_torch_pipeline.py``'s cases, for each of ``spec["runs"]`` on a
+    mesh over the group's first ranks (``mesh``, ``n_micro``, ``sp_attn``,
+    and ``steps``: ``"loss"`` (the pp loss alone), ``"sgd"`` (one SGD step
+    at ``spec["lr"]``) or ``"adamw"`` (one AdamW step, clip
+    ``spec["clip"]``), whose unsharded updates rank 0 returns); None from a
+    rank outside a run's mesh."""
+    from flash_attention_metal_tpu_torch.models import pipeline as pl
+    from flash_attention_metal_tpu_torch.models.trainer import constant_adamw
+
+    cfg = ModelConfig(**spec["cfg"])
+    stacked = pl.stack_layer_params(spec["params"])
+    out = []
+    meshes = {}
+    for run in spec["runs"]:
+        shape = tuple(run["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, pl.AXES, device="cpu", ranks=int(np.prod(shape)))
+        mesh = meshes[shape]
+        if mesh is None:
+            out.append(None)
+            continue
+        local = pl.shard_pp_params(stacked, cfg, mesh)
+        tokens = _shard_tokens(spec["tokens"], mesh, ("dp", "sp"))
+        res = {}
+        if run["steps"] == "loss":
+            with torch.no_grad():
+                res["loss"] = float(pl._pp_loss(
+                    local, tokens, cfg, mesh, run["n_micro"], run["sp_attn"])[0])
+        elif run["steps"] == "sgd":
+            new, loss = pl.make_pp_train_step(mesh, cfg, run["n_micro"], lr=spec["lr"],
+                                              sp_attn=run["sp_attn"])(local, tokens)
+            res["loss"] = float(loss)
+            res["delta"] = _pp_delta(new, stacked, cfg, mesh)
+        else:
+            opt = constant_adamw(spec["lr"], grad_clip=spec["clip"])
+            params = map_params(torch.clone, local)
+            state = opt.init(params)
+            params, state, loss = pl.make_pp_optax_step(mesh, cfg, opt, run["n_micro"],
+                                                        sp_attn=run["sp_attn"])(params, state,
+                                                                                tokens)
+            res["loss"] = float(loss)
+            res["delta"] = _pp_delta(params, stacked, cfg, mesh)
+        if rank:
+            res.pop("delta", None)
+        out.append(res)
+    return out
+
+
+def _pp_delta(new, stacked, cfg, mesh):
+    from flash_attention_metal_tpu_torch.models import pipeline as pl
+    from flash_attention_metal_tpu_torch.parallel.mesh import unshard
+
+    full = map_params(lambda p, s: unshard(p, mesh, s), new, pl.pp_param_specs(cfg))
+    return pl.unstack_layer_params(_delta(full, stacked))
+
+
+def ep_cases(rank: int, spec: dict) -> list:
+    """``test_torch_moe_ep.py``'s cases, for each of ``spec["runs"]`` on a
+    mesh over the group's first ranks (None from a rank outside it): the ep
+    loss at each capacity factor of
+    ``capacities`` and, with ``steps``, one SGD and one AdamW step (at
+    ``spec["lr"]`` / ``spec["adam_lr"]``) whose unsharded updates rank 0
+    returns (AdamW with the clip ``spec["clip"]``)."""
+    from flash_attention_metal_tpu_torch.models import moe
+    from flash_attention_metal_tpu_torch.models.trainer import constant_adamw
+    from flash_attention_metal_tpu_torch.parallel.mesh import unshard
+
+    out = []
+    meshes = {}
+    for run in spec["runs"]:
+        shape = tuple(run["mesh"])
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, moe.AXES, device="cpu", ranks=int(np.prod(shape)))
+        mesh = meshes[shape]
+        if mesh is None:
+            out.append(None)
+            continue
+        tokens = _shard_tokens(spec["tokens"], mesh, moe.BATCH_SPEC)
+        res = {}
+        for factor in run["capacities"]:
+            cfg = moe.MoEConfig(**{**spec["cfg"], "capacity_factor": factor})
+            local = moe.shard_moe_params(spec["params"], cfg, mesh)
+            with torch.no_grad():
+                res[f"loss_{factor}"] = float(moe._moe_loss(local, tokens, cfg, mesh))
+        if run.get("steps"):
+            cfg = moe.MoEConfig(**spec["cfg"])
+            specs = moe.moe_param_specs(cfg)
+
+            def delta(new):
+                full = map_params(lambda p, s: unshard(p, mesh, s), new, specs)
+                return _delta(full, spec["params"])
+
+            local = moe.shard_moe_params(spec["params"], cfg, mesh)
+            local, loss = moe.make_moe_train_step(mesh, cfg, lr=spec["lr"])(local, tokens)
+            res["sgd_loss"], res["sgd"] = float(loss), delta(local)
+            opt = constant_adamw(spec["adam_lr"], grad_clip=spec["clip"])
+            local = moe.shard_moe_params(spec["params"], cfg, mesh)
+            state = opt.init(local)
+            local, state, loss = moe.make_moe_optax_step(mesh, cfg, opt)(local, state, tokens)
+            res["adamw_loss"], res["adamw"] = float(loss), delta(local)
+            if rank:
+                res.pop("sgd"), res.pop("adamw")
+        out.append(res)
+    return out
