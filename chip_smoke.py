@@ -14,10 +14,15 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   plain fp32 forward, kernel/prefill/decode times;
 * the 8-bit and paged KV caches: the quant, paged and paged-quant kernels
   (``csrc/flash_fwd.cu``; decode on the split-KV grid of
-  ``csrc/flash_decode.cuh``) against their plain versions at the serving
-  shapes and the split's edges (int8 and e4m3, bf16 pools, fp32 q at one
-  shape; shuffled page tables), each kernel's time with its split count
-  and blocks, then 16 requests through one engine per mode (``kv_quant``
+  ``csrc/flash_decode.cuh``, bf16 prefill on the wgmma forward from the
+  cache's KV source, ``csrc/flash_kv_sm90.cu``) against their plain
+  versions at the serving shapes and the split's edges (int8 and e4m3, e5m2
+  too at the bf16 prefill, bf16 pools, fp32 q at one shape; the bf16
+  prefill also at head dim 128; shuffled page tables), the route of each
+  call from a profiler trace, each kernel's time with its split count and
+  blocks, the bf16 prefill's beside the 64-row template's at head dim 64
+  and 128 and a rolling int8 chunk's beside the bf16 position walk's, then
+  16 requests through one engine per mode (``kv_quant``
   int8 and fp8, ``paged``, ``paged`` with ``prefix_share`` on prompts
   sharing their first half, ``paged`` int8), each with its kernel launched
   in prefill and decode and the dense kernel never, and its served logits
@@ -259,14 +264,24 @@ def leaf_names(tree, prefix="") -> list:
     return [prefix[:-1]]
 
 
-def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
+def kv_cache_phase(gen: torch.Generator, stamp: str, spec, planted) -> dict:
     """The 8-bit and paged KV caches' path: the quant, paged and paged-quant
     kernels of ``csrc/flash_fwd.cu`` against their plain versions at the
-    serving path's shapes; 16 requests through one engine per mode of
-    ``KV_MODES`` with each mode's kernel launched in prefill and decode and
-    the dense kernel never; each mode's served logits against the plain
-    fp32 forward; the kernels' times and bounds.  Returns the three kernel
-    records and each mode's serving numbers."""
+    serving path's shapes (the bf16 prefill chunk, which runs the wgmma
+    forward of ``csrc/flash_kv_sm90.cu``, at head dim 64 and 128 in int8,
+    e4m3 and e5m2); from a profiler trace, that route: every bf16 prefill
+    call (windowed, transformed, a rolling int8 chunk) on a
+    ``flash_fwd_sm90_kernel`` instance and none on the template, fp32
+    prefill on the template, decode on the split-KV grid; 16 requests
+    through one engine per mode of ``KV_MODES`` with each mode's kernel
+    launched in prefill and decode and the dense kernel never; each mode's
+    served logits against the plain fp32 forward; the kernels' times and
+    bounds, the bf16 prefill's beside the 64-row template's (the library
+    ``planted()`` returns: its route to flash_kv_sm90.cu turned off,
+    ``onchip.KV_TEMPLATE_ROUTE``).  Returns the three kernel records and
+    each mode's serving numbers."""
+    import ctypes
+
     from flash_attention_metal_tpu_torch.harness import onchip, serving
     from flash_attention_metal_tpu_torch.kernels import paged as pg
     from flash_attention_metal_tpu_torch.kernels import quant as qt
@@ -284,6 +299,46 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
               f"{name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
         print(f"[kv-kernel] {name} ({kernel}) q {tuple(args[0].shape)} pos_div {pos_div}: "
               f"max_abs_err {err:.3e} lse_err {lse_err:.3e} (tol {tol})")
+    # The bf16 prefill at head dim 128 on every fixture and format.
+    d128_cases = onchip.kv_prefill_d128_matrix(gen)
+    for name, (kernel, args, pos_div) in d128_cases.items():
+        err, lse_err = onchip.kv_kernel_error(kernel, args, pos_div)
+        tol = onchip.TOL[args[0].dtype]
+        errors[name] = (kernel, "d128", err)
+        check(err <= tol and lse_err <= tol,
+              f"{name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+        print(f"[kv-kernel] {name} ({kernel}) q {tuple(args[0].shape)}: max_abs_err {err:.3e} "
+              f"lse_err {lse_err:.3e} (tol {tol})")
+
+    # The route, from a profiler trace of one call each (quant.kv_route).
+    pos_names = ("pos_prefill_int8", "pos_prefill_int8_d128", "pos_prefill_bf16_peaked",
+                 "pos_prefill_bf16_d128")
+    pcases = onchip.pos_cases(gen, pos_names)
+    route_calls = {}
+    for name, (kernel, args, pos_div) in cases.items():
+        if name.endswith(("_peaked", "_spike")):
+            continue
+        wrapper = onchip.KV_KERNELS[kernel][0]
+        want = qt.kv_route(args[0].dtype, args[0].shape[2], pos_div)
+        route_calls[name] = (lambda w=wrapper, a=args, p=pos_div: w(*a, p), want)
+        if "_prefill_" in name:
+            route_calls[f"{name} window 100/70"] = (
+                lambda w=wrapper, a=args: w(*a, 1, window=100, sinks=70), want)
+            route_calls[f"{name} softcap 30 + ALiBi"] = (
+                lambda w=wrapper, a=args: w(*a, 1, softcap=onchip.SOFTCAP,
+                                            alibi_slopes=onchip.alibi_slopes("std", 16)), want)
+    for name in ("pos_prefill_int8", "pos_prefill_int8_d128"):
+        route_calls[name] = (lambda c=pcases[name]: onchip.pos_call(c), "wgmma")
+    routes = {}
+    for name, (call, want) in route_calls.items():
+        got = onchip.kv_routes_run(onchip.launched_kernels(call))
+        check(got == [want], f"{name}: the trace's kernels take {got}, the route says {want}")
+        routes[want] = routes.get(want, 0) + 1
+    print(f"[kv-route] {len(route_calls)} calls traced: {routes.get('wgmma', 0)} bf16 prefill "
+          f"calls (index space, window + sinks, softcap + ALiBi, rolling int8 chunks) each ran a "
+          f"flash_fwd_sm90_kernel instance (csrc/flash_kv_sm90.cu) and no flash_fwd_kernel; "
+          f"{routes.get('template', 0)} fp32 prefill calls the template; "
+          f"{routes.get('decode', 0)} decode calls the split-KV grid")
 
     counters = {"flash_quant": qt.flash_attention_quant, "flash_paged": pg.flash_attention_paged,
                 "flash_paged_quant": pg.flash_attention_paged_quant}
@@ -430,7 +485,73 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec) -> dict:
               f"{rec['prefill_ms']:.4f} ms, plain "
               f"{rec['prefill_plain_ms']:.4f} ms, bound {rec['prefill_bound_ms']:.4f} ms "
               f"({rec['prefill_bound_by']}), SDPA dense {sdpa_prefill[0]:.4f} ms {stamp}")
-    del cases
+
+    # Rows 11-13's bf16 prefill on the wgmma forward beside the 64-row
+    # template (the planted library: the same entries, the route to
+    # flash_kv_sm90.cu turned off), at D 64 and 128, in turns (wgmma,
+    # template, template, wgmma; the mean of each one's two medians); the
+    # rolling int8 chunk beside the bf16 position walk at the same shape.
+    template_lib = qt.bind(ctypes.CDLL(str(planted())))
+    built_lib = qt._lib
+    prefill_keys = (  # (record, label, D 64 case, D 128 case)
+        ("flash_quant", "int8", "quant_int8_prefill_bf16", "quant_int8_prefill_bf16_d128"),
+        ("flash_quant", "e4m3", "quant_e4m3_prefill_bf16", "quant_e4m3_prefill_bf16_d128"),
+        ("flash_quant", "e5m2", "quant_e5m2_prefill_bf16", "quant_e5m2_prefill_bf16_d128"),
+        ("flash_paged", "bf16", "paged_prefill_bf16", "paged_prefill_bf16_d128"),
+        ("flash_paged_quant", "int8", "paged_quant_int8_prefill_bf16",
+         "paged_quant_int8_prefill_bf16_d128"),
+    )
+    all_cases = {**cases, **d128_cases}
+    turns = {}
+    try:
+        for turn in ("wgmma", "template", "template", "wgmma"):
+            qt._lib = pg._lib = built_lib if turn == "wgmma" else (lambda: template_lib)
+            for _, _, n64, n128 in prefill_keys:
+                for name in (n64, n128):
+                    kernel, args, pos_div = all_cases[name]
+                    wrapper = onchip.KV_KERNELS[kernel][0]
+                    turns.setdefault((name, turn), []).append(
+                        onchip.device_ms(lambda: wrapper(*args, pos_div)))
+            for name in pos_names:
+                turns.setdefault((name, turn), []).append(
+                    onchip.device_ms(lambda: onchip.pos_call(pcases[name])))
+    finally:
+        qt._lib = pg._lib = built_lib
+    ms = {key: float(np.mean(v)) for key, v in turns.items()}
+    by_name = {r["name"]: r for r in records}
+    for rec_name, label, n64, n128 in prefill_keys:
+        rec = by_name[rec_name]
+        rec["prefill_source"] = ("flash_attention_metal_tpu_torch/csrc/flash_kv_sm90.cu "
+                                 "(flash_fwd_sm90.cuh, its KV sources)")
+        for d, name in ((64, n64), (128, n128)):
+            kernel, args, pos_div = all_cases[name]
+            flops, nbytes = onchip.kv_work(kernel, args, pos_div)
+            bound = roofline.roofline_time(flops, nbytes, spec, 16) * 1e3
+            new, old = ms[(name, "wgmma")], ms[(name, "template")]
+            suffix = ("" if label in ("int8", "bf16") else f"_{label}") + (
+                "" if d == 64 else "_d128")
+            rec[f"prefill_wgmma_ms{suffix}"] = new
+            rec[f"prefill_template_ms{suffix}"] = old
+            rec[f"prefill_wgmma_bound_ms{suffix}"] = bound
+            print(f"[kv-prefill] {rec_name} {label} D {d} (q [1,16,512,{d}] over "
+                  f"[1,8,2048,{d}], offset 512): wgmma {new:.4f} ms (template {old:.4f} ms, "
+                  f"{old / new:.2f}x), bound {bound:.4f} ms {stamp}")
+    for d, n8, nb in ((64, "pos_prefill_int8", "pos_prefill_bf16_peaked"),
+                      (128, "pos_prefill_int8_d128", "pos_prefill_bf16_d128")):
+        suffix = "" if d == 64 else "_d128"
+        bf16_ms = float(np.mean(turns[(nb, "wgmma")] + turns[(nb, "template")]))
+        new, old = ms[(n8, "wgmma")], ms[(n8, "template")]
+        by_name["flash_quant"].update({f"pos_prefill_wgmma_ms{suffix}": new,
+                                       f"pos_prefill_template_ms{suffix}": old,
+                                       f"pos_prefill_bf16_poswalk_ms{suffix}": bf16_ms})
+        print(f"[kv-prefill] rolling int8 chunk D {d} ({n8}: q {list(pcases[n8][1].shape)} over "
+              f"{pcases[n8][4].shape[1]} slots): wgmma {new:.4f} ms, {new / bf16_ms:.2f}x the bf16 "
+              f"PosWalk ({nb}: {bf16_ms:.4f} ms); template {old:.4f} ms, "
+              f"{old / bf16_ms:.2f}x {stamp}")
+    for rec_name in ("flash_quant", "flash_paged", "flash_paged_quant"):
+        by_name[rec_name]["prefill_max_abs_err_d128"] = max(
+            e for k_, d_, e in errors.values() if k_ == rec_name and d_ == "d128")
+    del cases, d128_cases, all_cases, pcases
     torch.cuda.empty_cache()
     return {"records": records, "serving": serving_out, "sdpa_decode": sdpa_decode}
 
@@ -1924,7 +2045,9 @@ def pos_seg_phase(gen: torch.Generator, stamp: str, spec, planted) -> dict:
     tile, a row or a decode batch whose id no slot holds) against its plain
     version, one kPos launch a call; then the same checks on a library
     built with ``onchip.POS_SEG_IGNORED`` planted (``planted()`` returns
-    its path: both segmented walks ignore the ids), which must fail them;
+    its path: both segmented walks ignore the ids; the cache entries' bf16
+    prefill, which these calls do not reach, runs the template there), which
+    must fail them;
     then each segmented call's time beside the unsegmented position walk's
     on the same case, its bound over the visible pairs and SDPA's under the
     positions' and ids' boolean mask.  Returns the flash_fwd record's
@@ -3428,14 +3551,19 @@ def main() -> int:
 
     # 2. Build; beside it (its nvcc processes started with the build's), a
     # copy of csrc/ with the segmented position walks' planted fault, which
-    # pos_seg_phase reads.  The thread is not a daemon: a run that fails
-    # earlier waits for its processes before it exits.
+    # pos_seg_phase reads, and with the 8-bit and paged caches' bf16 prefill
+    # routed to the 64-row template again, whose times kv_cache_phase reads
+    # beside the wgmma route's (the two changes touch disjoint calls: the
+    # segmented position walks of fam_flash_fwd, the cache entries' bf16
+    # prefill).  The thread is not a daemon: a run that fails earlier waits
+    # for its processes before it exits.
     planted_tmp = tempfile.TemporaryDirectory()
     planted_box = {}
 
     def build_planted():
         try:
-            planted_box["path"] = onchip.build_planted(planted_tmp.name, onchip.POS_SEG_IGNORED)
+            planted_box["path"] = onchip.build_planted(
+                planted_tmp.name, (*onchip.POS_SEG_IGNORED, *onchip.KV_TEMPLATE_ROUTE))
         except (RuntimeError, OSError, ValueError) as err:  # raised where the phase reads it
             planted_box["error"] = err
 
@@ -3552,7 +3680,7 @@ def main() -> int:
     # 6b. The 8-bit and paged KV caches: their three kernels, five engines.
     del eng
     torch.cuda.empty_cache()
-    kv = kv_cache_phase(gen, stamp, spec)
+    kv = kv_cache_phase(gen, stamp, spec, planted)
 
     # 7. Backward kernels against their plain versions at the training
     # shape (bf16 ladder, peaked and spike fixtures, fp32 at N = 512); the

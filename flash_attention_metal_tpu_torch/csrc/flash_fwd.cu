@@ -1,6 +1,9 @@
 // Forward flash attention for Hopper (sm_90a) over a dense, 8-bit or paged
-// KV cache: one device template over the KV element type (bf16 / fp32,
-// int8, e4m3, e5m2) and the addressing (dense or paged).
+// KV cache: the C entries, their route to the split-KV decode grid
+// (flash_decode.cuh) or the wgmma forward (flash_fwd_sm90.cuh, and from
+// the 8-bit and paged caches flash_kv_sm90.cu), and one device template
+// over the KV element type (bf16 / fp32, int8, e4m3, e5m2) and the
+// addressing (dense or paged) for the calls neither takes.
 //
 // Replaces four Pallas kernels of flash_attention_metal_tpu/kernels/, each
 // with its own entry point:
@@ -64,29 +67,40 @@
 // (3.35 TB/s).  Prefill at n_q >= 512 does ~n_q / 2 flops per KV byte:
 // bound by the tensor cores.
 //
-// What this design does about it.  Two grids over one contract.
+// What this design does about it.  Three grids over one contract.
 //   * Decode (n_q <= kDecodeRows = 16: a token, or a KV head's group of
 //     q-heads folded into rows): split-KV (flash_decode.cuh, its instances
 //     in flash_decode*.cu).  The grid is (split, q-head, batch), each split
 //     a chunk of KV columns that the caller picks from static shapes, so a
 //     decode step fills the 132 SMs whatever the slots' lengths; the last
 //     block of a (q-head, batch) merges the splits' partials in split order.
-//   * Everything else (prefill chunks, the fp32 training forward): one
-//     block per (64-row q tile, q-head, batch); the KV loop stops at the
-//     last column visible to the tile's last row, so causal prefill skips
-//     the upper triangle, and table entries past a slot's diagonal (the
-//     unallocated zeros) are never dereferenced.  Each step's K/V tiles are
-//     fetched into registers while the step before computes, then stored to
-//     shared memory, an 8-bit tile widened on that store.  bf16 QK^T and PV
-//     run on the tensor cores through WMMA 16x16x16 fragments with fp32
-//     accumulators.
+//   * bf16 prefill (bf16 q, pos_div 1, n_q > kDecodeRows: serving's prefill
+//     chunks of every 8-bit and paged mode, a rolling int8 cache's too):
+//     the wgmma forward of flash_fwd_sm90.cuh from the cache's KV source
+//     (flash_kv_sm90.cu: PagedBf16, Dense8, Paged8; the dense entry's bf16
+//     calls take its DenseBf16 source there).  An 8-bit source's raw tiles
+//     come by cp.async into a raw ring a step ahead and are widened to the
+//     swizzled bf16 stages while the products run; a paged source's table
+//     is read a step before its tiles' copies.
+//   * Everything else (fp32 q, where IEEE FMA is held at 1e-5 and no
+//     tensor-core route meets that; the fp32 lean forward; bf16 calls of
+//     more than kDecodeRows rows folded, pos_div > 1): the 64-row template
+//     below, one block per (64-row q tile, q-head, batch); the KV loop
+//     stops at the last column visible to the tile's last row, so causal
+//     prefill skips the upper triangle, and table entries past a slot's
+//     diagonal (the unallocated zeros) are never dereferenced.  Each step's
+//     K/V tiles are fetched into registers while the step before computes,
+//     then stored to shared memory, an 8-bit tile widened on that store.
+//     bf16 QK^T and PV run on the tensor cores through WMMA 16x16x16
+//     fragments with fp32 accumulators.
 //   * Paged addressing is per 64-row KV tile: a page holds whole tiles, so
 //     one table lookup serves a tile and its rows are contiguous.
 //   * Native GQA (KV head h / group): nothing is repeated in memory.  Folded
 //     decode packs a KV head's group q-heads into the rows of one tile, so
 //     the cache streams once per KV head.
-// Not done yet here: wgmma and a copy ring for the prefill grid's bf16
-// caches; fp8 tensor-core products on the 8-bit tiles themselves.
+// Not done yet here: the template's last bf16 calls (folded, pos_div > 1,
+// n_q > 16: a speculative verify of more than 8 tokens at group 2) on
+// wgmma; fp8 tensor-core products on the 8-bit tiles themselves.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -590,6 +604,16 @@ cudaError_t launch_tiles(const void* q, const KvArgs& kv, const void* q_offset, 
   return cudaGetLastError();
 }
 
+// A cache's element type as the C entries code it: 0 in q's own type, 1
+// int8, 2 e4m3, 3 e5m2.
+template <typename KV>
+constexpr int kv_code() {
+  return std::is_same<KV, int8_t>::value ? 1
+         : std::is_same<KV, E4M3>::value ? 2
+         : std::is_same<KV, E5M2>::value ? 3
+                                          : 0;
+}
+
 // Segment ids (f.q_seg) keep every call on the 64-row grid.
 template <typename T, typename KV, bool kPaged, int D>
 cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
@@ -611,6 +635,18 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
       return fam::flash_decode_e4m3(call, dtype, D, kPaged);
     } else {
       return fam::flash_decode_e5m2(call, dtype, D, kPaged);
+    }
+  }
+  // bf16 prefill over an 8-bit or paged cache: the wgmma forward from its
+  // KV source (flash_kv_sm90.cu), whatever the walk.
+  if constexpr (std::is_same<T, bf16>::value && (kPaged || !std::is_same<KV, T>::value)) {
+    if (pos_div == 1 && n_q > kDecodeRows && f.q_seg == nullptr && !f.drop.on()) {
+      const fam::DecodeCall call{q, kv, static_cast<const int*>(q_offset), o,
+                                 static_cast<float*>(lse), batch, n_heads, n_kv_heads, n_q,
+                                 sm_scale, causal, pos_div, fixed_offset, split.kv_chunk,
+                                 nullptr, nullptr, stream, f.window, f.sinks, f.softcap,
+                                 f.slopes, f.kv_pos};
+      return fam::flash_kv_sm90(call, kv_code<KV>(), D, kPaged);
     }
   }
   if (f.kv_pos != nullptr) {
@@ -861,7 +897,9 @@ cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o
 // Dense 8-bit cache: k_q, v_q [B, H_kv, N, D] int8 / fp8; k_scale, v_scale
 // fp32 [B, H_kv, N]; q_offset int32 [B] (read only when causal); lse fp32
 // [B, H, N_q] or null; kv_pos a rolling cache's int32 [B, N] positions or
-// null (causal, pos_div 1).
+// null (causal, pos_div 1).  This entry and the two paged ones run n_q <= 16
+// on the decode grid, bf16 with pos_div 1 on the wgmma forward
+// (flash_kv_sm90.cu), the rest on the template (launch).
 extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                const void* k_scale, const void* v_scale,
                                const void* q_offset, void* o, void* lse,

@@ -1,20 +1,24 @@
 // The bf16 forward redesigned for Hopper (sm_90a), head dim 64 or 128: one
-// mainloop for two walks.  Included by flash_fwd.cu (fam_flash_fwd, bf16
-// with pos_div == 1: the training forward, serving's prefill chunks, the
-// ladder's and bench's general calls), by flash_lean.cu (fam_flash_lean,
-// bf16) and by flash_tri.cu (fam_flash_tri_fwd, bf16: the bench's causal
-// calls), which launch it on the dense walk; and by flash_mask.cu
-// (fam_flash_sparse_fwd, bf16), which launches it on the sparse walk.
+// mainloop for its walks and KV sources.  Included by flash_fwd.cu
+// (fam_flash_fwd, bf16 with pos_div == 1: the training forward, serving's
+// prefill chunks, the ladder's and bench's general calls), by flash_lean.cu
+// (fam_flash_lean, bf16) and by flash_tri.cu (fam_flash_tri_fwd, bf16: the
+// bench's causal calls), which launch it on the dense walk; by flash_mask.cu
+// (fam_flash_sparse_fwd, bf16), which launches it on the sparse walk; and by
+// flash_kv_sm90.cu (the bf16 prefill of fam_flash_quant, fam_flash_paged and
+// fam_flash_paged_quant), which launches it from the 8-bit and paged caches'
+// KV sources.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel (the
 // general kernel, a per-batch device offset), ::_fwd_kernel_lean (the
 // whole KV row of n_kv <= 1024 in one block, an int offset given at
 // launch), flash_tri.py::_tri_kernel (causal, an int offset given at
 // launch, any n_kv) and flash_mask.py::_fwd_sparse_kernel (each Q block
-// over its KV skip list, the mask elementwise on visited blocks): one
-// function, so one kernel serves all four, each entry with its own launch.
-// Lean's exact two-pass softmax becomes the online one here, which changes
-// only rounding.
+// over its KV skip list, the mask elementwise on visited blocks), and at
+// prefill quant.py::_quant_fwd_kernel, paged.py::flash_attention_paged and
+// ::flash_attention_paged_quant: one function, so one kernel serves all
+// seven, each entry with its own launch.  Lean's exact two-pass softmax
+// becomes the online one here, which changes only rounding.
 //
 // Contract, for batch b, q-head h (KV head h / group) and query row r:
 //   o[b,h,r] = softmax_c(sm_scale * q[b,h,r] . k[c]) . v
@@ -109,6 +113,36 @@
 //     ride the bit stage after its positions, and a slot is seen only by
 //     rows of its id; a segmented call takes this walk at any n_q (a
 //     decode-sized one included: the decode grid takes no segment ids).
+// The KV sources.  A kernel takes a source policy beside its walk: where a
+// step's KV tile lives and in what type.
+//   * DenseBf16 (every walk above): a bf16 cache [B, H_kv, N, D]; a tile's
+//     rows from the batch's KV head base.
+//   * PagedBf16 (flash_kv_sm90.cu; DenseWalk and FeatWalk): a bf16 page
+//     pool [P, H_kv, page, D] through an int32 table [B, max_pages], a
+//     tile's rows from kv_tiles.cuh::tile_row0 (the logical page clamped to
+//     max_pages - 1, the physical to [0, P - 1]); a page holds whole tiles,
+//     so the copies are the dense ones.  The table is read a step before a
+//     tile's copies (and the first three steps' at once), so its load hides
+//     behind a step.
+//   * Dense8 and Paged8 (Src8<kPaged>, flash_kv_sm90.cu; Dense8 also on
+//     PosWalk): int8, e4m3 or e5m2 tiles with per-token fp32 scales
+//     ([.., H_kv, N] or [P, H_kv, page]).  Their raw tiles and scales come
+//     by cp.async into a raw ring (RawRing: 2 stages each of K and V, 16 /
+//     32 KB at D 64 / 128), a step ahead of the bf16 schedule; the
+//     warpgroup widens each raw tile exactly into the swizzled bf16 stage
+//     that desc_k / desc_mn read (8 raw bytes a 16-byte chunk at c ^ (r &
+//     7)), the format picked at run time inside the widen pass, outside
+//     every product.  The ring hazard: a widened stage is written only after
+//     the product that read it has finished (K_{i+2} into S_i's stage while
+//     S_{i+1} runs, V_{i+1} into PV_{i-1}'s while PV_i runs), and the raw
+//     stage being refilled is never the one being widened; the barrier at
+//     each step's top publishes both.  The K scale multiplies the fp32
+//     score columns in online_softmax, before the transforms (the widened
+//     K stage's scales are copied beside it by the widen pass, since its
+//     raw stage is refilled a step before its softmax); the V scale
+//     multiplies P before it is rounded to bf16, read in place from the raw
+//     V stage, which outlives its step's P; the row sums take P unscaled.
+//     A bf16 source compiles both scale steps away.
 // Block shape: one warpgroup, not two.  At lean's N = 1024, B 8, H 1 there
 // are only 128 tiles of 64 rows: 128-row blocks would leave half of the
 // 132 SMs idle.  At the training shape (2048 tiles) two consumer
@@ -117,9 +151,11 @@
 // kernel at every shape: the exposed chain of each step, not L2 traffic,
 // held the first design, and the pipelining addresses the chain.
 // Shared memory: 40 KB at D = 64, 80 KB at D = 128; the sparse walk's two
-// bit stages add 1 KB.
+// bit stages add 1 KB, an 8-bit source's raw ring 17.5 / 33.5 KB.
 // Not done yet: TMA with mbarriers and warp specialisation (a producer
-// warp, two consumer warpgroups in ping-pong).
+// warp, two consumer warpgroups in ping-pong); for an 8-bit source, a
+// producer warpgroup that widens while the consumer's softmax runs (the
+// widen pass is the gap to the bf16 source, PERF.md Findings).
 
 #pragma once
 
@@ -140,6 +176,77 @@ struct FwdSmem {
   bf16 k[kStages][kTile * D];
   bf16 v[kStages][kTile * D];
   alignas(16) uint32_t bits[kStages][kBits ? kTile * 2 : 4];  // a partial pair's bit tile
+};
+
+// An 8-bit source's raw ring, after FwdSmem: the K and V tiles as stored
+// (row-major, D bytes a row) and their per-token scales as they land, and
+// the scales of the widened K stages (copied by the widen pass, since a raw
+// K stage is refilled while its widened tile is still ahead of its softmax).
+// The V scales are read in place: a raw V stage outlives its step's P.
+template <int D>
+struct RawRing {
+  alignas(16) uint8_t k[kStages][kTile * D];
+  alignas(16) uint8_t v[kStages][kTile * D];
+  alignas(16) float ks[kStages][kTile];
+  alignas(16) float vs[kStages][kTile];
+  alignas(16) float sk[kStages][kTile];
+};
+
+// `rows_valid` rows of D bytes (row pitch D) into a raw stage, 16 bytes a
+// copy; the other rows are zero.
+template <int D>
+__device__ __forceinline__ void load_raw(uint8_t* dst, const uint8_t* src, int rows_valid) {
+  constexpr int kChunks = D / 16;
+#pragma unroll
+  for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const bool valid = i / kChunks < rows_valid;
+    cp_async16(dst + i * 16, src + (valid ? (size_t)i * 16 : 0), valid);
+  }
+}
+
+// A raw stage widened into a bf16 stage in the swizzled layout that
+// desc_k / desc_mn read: the 8 bytes of chunk c of row r become the 16-byte
+// chunk at swz(r, c).  src.widen (the source's exact widening) picks the
+// 8-bit format at run time, outside every product.
+template <int D, class Src>
+__device__ __forceinline__ void widen_tile(bf16* dst, const uint8_t* raw, const Src& src) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int j = 0; j < kTile * kChunks / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    const uint2 x = *reinterpret_cast<const uint2*>(raw + i * 8);
+    *reinterpret_cast<uint4*>(dst + swz<kTile>(i / kChunks, i % kChunks)) = src.widen(x);
+  }
+}
+
+// The KV sources (a kernel's second policy, beside its walk): where a KV
+// tile lives and in what type.  row(kv_rows, b, h_kv, n_kv_heads,
+// kv_start): the row (in rows of D elements) of the tile that starts at
+// logical column kv_start, kv_rows being the dense cache's first row of
+// (b, h_kv).  kRaw: 8-bit tiles through the raw ring, widened to bf16 (the
+// source then has k_scale, v_scale and widen, see flash_kv_sm90.cu).
+// kPaged: row reads a page table, so the kernel asks for it a step early.
+// DenseBf16 is every walk's source here; PagedBf16, Dense8 and Paged8
+// live in flash_kv_sm90.cu, which launches them.
+struct DenseBf16 {
+  static constexpr bool kRaw = false;
+  static constexpr bool kPaged = false;
+  __device__ size_t row(size_t kv_rows, int, int, int, int kv_start) const {
+    return kv_rows + kv_start;
+  }
+};
+
+// The K and V scales of one step of an 8-bit source, from this thread's
+// first column (2 t) on: sk multiplies the scores' columns, sv the P that
+// the PV product takes.  NoScales (a bf16 source) compiles both away.
+struct NoScales {
+  static constexpr bool kOn = false;
+};
+struct StepScales {
+  static constexpr bool kOn = true;
+  const float* sk;
+  const float* sv;
 };
 
 // 2^x on the special-function unit (ex2.approx.ftz): exp2f without its
@@ -529,10 +636,20 @@ struct SparseFwdWalk {
 // dist, -max)), the bias and the max in one FMA (xf.cuh, "Precision").
 // Under dropout (Mask::kDrop) the row sums take P as it is and st keeps P
 // times its keep factor, the P of O += P V (dropout.cuh).
-template <class Mask>
+template <class Mask, class Scales = NoScales>
 __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m_i)[2],
                                                float (&alpha)[2], float (&sum)[2],
-                                               const Mask& mask, float scale_log2) {
+                                               const Mask& mask, float scale_log2,
+                                               const Scales& sc = Scales{}) {
+  if constexpr (Scales::kOn) {
+    // The K scale multiplies the fp32 score column, before the transforms.
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      const float2 s_k = *reinterpret_cast<const float2*>(sc.sk + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[4 * j + e] *= (e & 1) ? s_k.y : s_k.x;
+    }
+  }
   if constexpr (Mask::kXf) {
     xf_cap<false>(mask.xf, st);
     scale_log2 = 1.0f;
@@ -573,6 +690,8 @@ __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m
       }
       sum[e >> 1] += p;
       if constexpr (Mask::kDrop) p *= mask.keep(j, e);
+      // The V scale folds into P before P is rounded (the sums take P).
+      if constexpr (Scales::kOn) p *= sc.sv[8 * j + (e & 1)];
       st[4 * j + e] = p;
     }
   }
@@ -588,15 +707,26 @@ __device__ __forceinline__ void online_softmax(float (&st)[kTile / 2], float (&m
 // PV_{i-1} has.  No product sits under a branch (ptxas serialises wgmma on
 // a divergent path): the last step's S_{i+1} reads a stale stage and is
 // dropped, and so is the first S of a walk with no step.
-template <int D, class Walk>
+//
+// An 8-bit source (Src::kRaw) copies each tile a step earlier into the raw
+// ring: step i's top fetches raw K_{i+3} and raw V_{i+2} (and the bit tile
+// of step i + 2, on the bf16 schedule); while S_{i+1} runs the warpgroup
+// widens raw K_{i+2} into the bf16 K stage S_i has left, and after S_{i+1}'s
+// softmax, while PV_i runs, raw V_{i+1} into the V stage PV_{i-1} has left;
+// the barrier at step i + 1's top publishes them.  So no stage an in-flight
+// product reads is written, and the pipelining of S_{i+1} under PV_i is
+// kept (both widens before the S wait, or both after the softmax, measured
+// 0-4% slower on the H100, PERF.md Findings).
+template <int D, class Walk, class Src = DenseBf16>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_sm90_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
                           float* __restrict__ lse, int n_heads, int n_kv_heads, int n_q,
-                          int n_kv, float scale_log2, const Walk walk) {
+                          int n_kv, float scale_log2, const Walk walk, const Src src) {
   extern __shared__ unsigned char smem_raw[];
-  FwdSmem<D, Walk::kBits>& sm =
-      *reinterpret_cast<FwdSmem<D, Walk::kBits>*>(aligned_smem(smem_raw));
+  unsigned char* base = aligned_smem(smem_raw);
+  FwdSmem<D, Walk::kBits>& sm = *reinterpret_cast<FwdSmem<D, Walk::kBits>*>(base);
+  RawRing<D>& raw = *reinterpret_cast<RawRing<D>*>(base + sizeof(FwdSmem<D, Walk::kBits>));
   const typename Walk::Blk blk(walk, n_heads, n_q, n_kv);
 
   const int lane = threadIdx.x & 31;
@@ -608,16 +738,53 @@ __global__ void __launch_bounds__(kThreads)
   const size_t kv_rows = ((size_t)blk.b * n_kv_heads + h_kv) * n_kv;
   const int rows_valid = min(kTile, n_q - q_start);
   const int n_steps = blk.n_steps;
-  // Step j's K tile (and bit tile) into K ring stage j % 2, its V tile into
-  // V ring stage j % 2; entry: the step's (KV tile, bits).
-  auto fetch_k = [&](int j, int2 entry) {
-    const int kv_start = entry.x * kTile;
-    load_tile<D, kTile>(sm.k[j % kStages], k + (kv_rows + kv_start) * D, n_kv - kv_start);
-    blk.fetch_bits(sm.bits[j % kStages], entry);
+  // The first row of the tile of a step's entry (KV tile, bits).
+  auto row_of = [&](int2 entry) {
+    return src.row(kv_rows, blk.b, h_kv, n_kv_heads, entry.x * kTile);
   };
-  auto fetch_v = [&](int j, int2 entry) {
+  // Step j's K tile (and, from a bf16 source, its bit tile) into K ring
+  // stage j % 2, its V tile into V ring stage j % 2 (an 8-bit source's into
+  // the raw ring's, with their scales); entry: the step's (KV tile, bits),
+  // r: its tile's first row.
+  auto fetch_k = [&](int j, int2 entry, size_t r) {
     const int kv_start = entry.x * kTile;
-    load_tile<D, kTile>(sm.v[j % kStages], v + (kv_rows + kv_start) * D, n_kv - kv_start);
+    if constexpr (Src::kRaw) {
+      load_raw<D>(raw.k[j % kStages], reinterpret_cast<const uint8_t*>(k) + r * D,
+                  n_kv - kv_start);
+      load_rows<kTile>(raw.ks[j % kStages], src.k_scale + r, n_kv - kv_start);
+    } else {
+      load_tile<D, kTile>(sm.k[j % kStages], k + r * D, n_kv - kv_start);
+      blk.fetch_bits(sm.bits[j % kStages], entry);
+    }
+  };
+  auto fetch_v = [&](int j, int2 entry, size_t r) {
+    const int kv_start = entry.x * kTile;
+    if constexpr (Src::kRaw) {
+      load_raw<D>(raw.v[j % kStages], reinterpret_cast<const uint8_t*>(v) + r * D,
+                  n_kv - kv_start);
+      load_rows<kTile>(raw.vs[j % kStages], src.v_scale + r, n_kv - kv_start);
+    } else {
+      load_tile<D, kTile>(sm.v[j % kStages], v + r * D, n_kv - kv_start);
+    }
+  };
+  // An 8-bit source's raw K_j (with its scales) and raw V_j into their bf16
+  // stages j % 2.
+  auto widen_k = [&](int j) {
+    if constexpr (Src::kRaw) {
+      widen_tile<D>(sm.k[j % kStages], raw.k[j % kStages], src);
+      if (threadIdx.x < kTile) raw.sk[j % kStages][threadIdx.x] = raw.ks[j % kStages][threadIdx.x];
+    }
+  };
+  auto widen_v = [&](int j) {
+    if constexpr (Src::kRaw) widen_tile<D>(sm.v[j % kStages], raw.v[j % kStages], src);
+  };
+  // Step j's scales: its widened K stage's and its raw V stage's.
+  auto scales = [&](int j) {
+    if constexpr (Src::kRaw) {
+      return StepScales{raw.sk[j % kStages] + 2 * t, raw.vs[j % kStages] + 2 * t};
+    } else {
+      return NoScales{};
+    }
   };
   // st = Q K_j, issued as one group (not waited for).
   auto issue_scores = [&](float (&st)[kTile / 2], int j) {
@@ -632,17 +799,64 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_commit();
   };
 
-  // Steps 0, i + 1 and i + 2's entries, each read a step before its fetch.
+  // Steps 0, i + 1 and i + 2's entries, each read a step before its fetch;
+  // a paged source's rows of the first three steps, its table's loads all
+  // issued at once (the other sources compute a row where it is fetched).
   const int2 e0 = blk.entry(0);
   int2 e1 = blk.entry(1), e2 = blk.entry(2);
+  size_t paged_rows[3] = {};
+  if constexpr (Src::kPaged) {
+    paged_rows[0] = row_of(e0);
+    paged_rows[1] = row_of(e1);
+    paged_rows[2] = row_of(e2);
+  }
+  auto first_row = [&](int j, int2 entry) {
+    return Src::kPaged ? paged_rows[j] : row_of(entry);
+  };
   load_tile<D, kTile>(sm.q, q + (q_rows + q_start) * D, rows_valid);
-  if (n_steps > 0) fetch_k(0, e0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  if (n_steps > 0) fetch_v(0, e0);
-  if (n_steps > 1) fetch_k(1, e1);
-  cp_async_commit();
+  if constexpr (Src::kRaw) {
+    // Raw K_0, K_1 and V_0 (and step 0's bits) land and are widened; then
+    // raw K_2 and V_1 and step 1's bits are put in flight.
+    if (n_steps > 0) {
+      fetch_k(0, e0, first_row(0, e0));
+      fetch_v(0, e0, first_row(0, e0));
+      blk.fetch_bits(sm.bits[0], e0);
+    }
+    if (n_steps > 1) fetch_k(1, e1, first_row(1, e1));
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (n_steps > 0) {
+      widen_k(0);
+      widen_v(0);
+    }
+    if (n_steps > 1) widen_k(1);
+    cp_async_wait_all();  // its proxy fence: the widened stages are wgmma's to read
+    __syncthreads();
+    if (n_steps > 1) {
+      fetch_v(1, e1, first_row(1, e1));
+      blk.fetch_bits(sm.bits[1], e1);
+    }
+    if (n_steps > 2) fetch_k(2, e2, first_row(2, e2));
+    cp_async_commit();
+  } else {
+    if (n_steps > 0) fetch_k(0, e0, first_row(0, e0));
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    if (n_steps > 0) fetch_v(0, e0, first_row(0, e0));
+    if (n_steps > 1) fetch_k(1, e1, first_row(1, e1));
+    cp_async_commit();
+  }
+  // A paged source's rows of the loop's next V and K fetches (steps i + 1
+  // and i + 2, from an 8-bit source i + 2 and i + 3), read from its table a
+  // step before their fetches, so that the table's load hides behind a step.
+  constexpr int kLead = Src::kRaw ? 1 : 0;
+  size_t row_v = 0, row_k = 0;
+  if constexpr (Src::kPaged) {
+    row_v = Src::kRaw ? paged_rows[2] : paged_rows[1];
+    row_k = Src::kRaw ? row_of(blk.entry(3)) : paged_rows[2];
+  }
 
   // This thread's two Q rows (accumulator rows g and g + 8 of its warp).
   const int row = warp * 16 + (lane >> 2);
@@ -671,17 +885,33 @@ __global__ void __launch_bounds__(kThreads)
   wgmma_wait_groups<0>();
   fence_acc(st);
   if (n_steps > 0) {
-    online_softmax(st, m_i, alpha, sum, blk.mask(e0, sm.bits[0], row, t), scale_log2);
+    online_softmax(st, m_i, alpha, sum, blk.mask(e0, sm.bits[0], row, t), scale_log2,
+                   scales(0));
     take_p();
   }
   for (int i = 0; i < n_steps; ++i) {
     // V_i and K_{i+1} (with its bits) have landed, and every warp is done
     // with S_i and PV_{i-1}, whose stages V_{i+1} and K_{i+2} overwrite.
+    // From an 8-bit source: raw K_{i+2} and V_{i+1} have landed, and K_{i+1}
+    // and V_i are widened, their raw stages free for K_{i+3} and V_{i+2}.
     cp_async_wait_all();
     __syncthreads();
-    if (i + 1 < n_steps) fetch_v(i + 1, e1);
-    if (i + 2 < n_steps) fetch_k(i + 2, e2);
+    if constexpr (Src::kRaw) {
+      const int2 e_k = blk.entry(i + 3);
+      if (i + 3 < n_steps) fetch_k(i + 3, e_k, Src::kPaged ? row_k : row_of(e_k));
+      if (i + 2 < n_steps) {
+        fetch_v(i + 2, e2, Src::kPaged ? row_v : row_of(e2));
+        blk.fetch_bits(sm.bits[i % kStages], e2);
+      }
+    } else {
+      if (i + 1 < n_steps) fetch_v(i + 1, e1, Src::kPaged ? row_v : row_of(e1));
+      if (i + 2 < n_steps) fetch_k(i + 2, e2, Src::kPaged ? row_k : row_of(e2));
+    }
     cp_async_commit();
+    if constexpr (Src::kPaged) {
+      row_v = row_k;
+      row_k = row_of(blk.entry(i + 3 + kLead));
+    }
     const int2 e3 = blk.entry(i + 3);
 
     // S_{i+1} = Q K_{i+1}, then O += P_i V_i with P_i from registers.
@@ -692,13 +922,22 @@ __global__ void __launch_bounds__(kThreads)
       wgmma(o_acc, ap[kk], desc_mn<kTile>(sm.v[i % kStages], kk));
     }
     wgmma_commit();
+    // While both run: K_{i+2} into the K stage S_i read (before S_{i+1}'s
+    // softmax), and below, while PV_i runs on, V_{i+1} into the V stage
+    // PV_{i-1} read.
+    if constexpr (Src::kRaw) {
+      if (i + 2 < n_steps) widen_k(i + 2);
+    }
     // S_{i+1} is done (groups finish in order) while PV_i still runs.
     wgmma_wait_groups<1>();
     fence_acc(st);
     const bool next = i + 1 < n_steps;
     if (next) {
       online_softmax(st, m_i, alpha, sum, blk.mask(e1, sm.bits[(i + 1) % kStages], row, t),
-                     scale_log2);
+                     scale_log2, scales(i + 1));
+    }
+    if constexpr (Src::kRaw) {
+      if (i + 1 < n_steps) widen_v(i + 1);
     }
     wgmma_wait_groups<0>();
     fence_acc(o_acc);
@@ -723,29 +962,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The kernel on a walk over `grid`: q, o [B, H, N_q, D]; k, v [B, H_kv,
-// N_kv, D]; lse fp32 [B, H, N_q] or null.
-template <int D, class Walk>
+// The kernel on a walk over `grid` from a KV source: q, o [B, H, N_q, D];
+// k, v [B, H_kv, N_kv, D] (DenseBf16; the other sources' storage, see
+// flash_kv_sm90.cu); lse fp32 [B, H, N_q] or null.
+template <int D, class Walk, class Src = DenseBf16>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse,
                    int n_heads, int n_kv_heads, int n_q, int n_kv, float sm_scale,
-                   const Walk& walk, dim3 grid, cudaStream_t stream) {
+                   const Walk& walk, dim3 grid, cudaStream_t stream, const Src& src = Src{}) {
   // The dynamic shared-memory limit is raised once per device.
   static bool smem_set[kMaxDevices] = {};
-  const int smem = (int)sizeof(FwdSmem<D, Walk::kBits>) + kAlign;
+  const int smem = (int)sizeof(FwdSmem<D, Walk::kBits>) +
+                   (Src::kRaw ? (int)sizeof(RawRing<D>) : 0) + kAlign;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!smem_set[dev]) {
-    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, Walk>,
+    err = cudaFuncSetAttribute(flash_fwd_sm90_kernel<D, Walk, Src>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     smem_set[dev] = true;
   }
-  flash_fwd_sm90_kernel<D, Walk><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_sm90_kernel<D, Walk, Src><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<float*>(lse), n_heads, n_kv_heads, n_q, n_kv,
-      sm_scale * kLog2e, walk);
+      sm_scale * kLog2e, walk, src);
   return cudaGetLastError();
 }
 

@@ -101,6 +101,7 @@ from ..kernels.paged import (
     flash_attention_paged_quant,
 )
 from ..kernels.quant import (
+    KV_ROUTE_KERNELS,
     dequantize_kv,
     flash_attention_quant,
     flash_attention_quant_plain,
@@ -264,17 +265,21 @@ def bwd_kernel_errors(inputs: tuple, fused: bool = False) -> Dict[str, Tuple[flo
 
 def workspace_bytes(launch: Callable, q: torch.Tensor) -> Tuple[int, int]:
     """``(allocated, written)`` bytes of a backward's dQ workspace
-    (``dq_workspace_shape``): the allocator's peak over one ``launch()``
-    less the three outputs it returns, and the accumulator bytes of a
-    NaN-filled workspace that ``launch(workspace=...)`` overwrote (a Q step
-    that sees one KV tile writes dQ directly and leaves its rows)."""
+    (``dq_workspace_shape``): the bytes requested from the allocator at its
+    peak over one ``launch()`` less the three outputs it returns, and the
+    accumulator bytes of a NaN-filled workspace that ``launch(workspace=...)``
+    overwrote (a Q step that sees one KV tile writes dQ directly and leaves
+    its rows).  Requested, not allocated, bytes: the caching allocator hands
+    out a cached block whole when it is less than 1 MiB larger than the
+    request, so its block bytes depend on what earlier code freed (a
+    32.25 MiB block once read 245,756 bytes over the workspace)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
     outputs = launch()
     torch.cuda.synchronize()
     out_bytes = sum(t.numel() * t.element_size() for t in outputs)
-    allocated = torch.cuda.max_memory_allocated() - base - out_bytes
+    allocated = torch.cuda.memory_stats()["requested_bytes.all.peak"] - base - out_bytes
     del outputs
     ws = torch.full(dq_workspace_shape(*q.shape), float("nan"), device=q.device)
     launch(workspace=ws)
@@ -548,8 +553,10 @@ def v1_error(qkv: tuple, causal: bool) -> float:
 
 # Page size of the serving engine's paged caches (DecodeEngine's default).
 PAGE = 128
-# The 8-bit formats the checks run (fp8 is e4m3 in DecodeEngine).
+# The 8-bit formats the checks run (fp8 is e4m3 in DecodeEngine), and at
+# the prefill chunk, whose wgmma path picks the format at run time, e5m2 too.
 KV_8BIT = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn}
+KV_8BIT_PREFILL = {**KV_8BIT, "e5m2": torch.float8_e5m2}
 
 
 def paged_layout(batch: int, n_kv: int, lengths: torch.Tensor, n_q: int, pos_div: int, gen):
@@ -607,8 +614,9 @@ def kv_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
     path's shapes: folded decode (``DECODE_Q`` over ``DECODE_KV`` at
     ``decode_lengths()``) and a 512-row prefill chunk at offset 512; the
     ladder, peaked (q x 8) and spike fixtures; int8 and e4m3 for the 8-bit
-    kernels, bf16 pools for the paged one, and fp32 q on the prefill shape;
-    then the split's edges in bf16 (``KV_EDGE_FIXTURES``).
+    kernels (e5m2 too at the bf16 prefill), bf16 pools for the paged one,
+    and fp32 q on the prefill shape; then the split's edges in bf16
+    (``KV_EDGE_FIXTURES``).
     Every page table is shuffled, with page 0 (NaN) past each slot's
     diagonal (``paged_layout``, ``to_pages``)."""
     lengths = torch.from_numpy(decode_lengths()).to("cuda")
@@ -635,7 +643,8 @@ def kv_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
         q, k, v = fixtures[fix](shape_q, shape_kv, dtype)
         perm, table, n_pages = paged_layout(shape_kv[0], shape_kv[2], off, shape_q[2], pos_div, gen)
         tag = f"{shape}_{'fp32' if dtype == torch.float32 else 'bf16'}{fix}"
-        formats = {"int8": KV_8BIT["int8"]} if dtype == torch.float32 else KV_8BIT
+        formats = ({"int8": KV_8BIT["int8"]} if dtype == torch.float32
+                   else KV_8BIT_PREFILL if shape == "prefill" else KV_8BIT)
         for fmt, qdt in formats.items():
             qkv = quantize_kv(k, v, qdt)
             cases[f"quant_{fmt}_{tag}"] = ("flash_quant", (q, qkv, off), pos_div)
@@ -685,6 +694,35 @@ def kv_prefill_d128_cases(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, i
         "paged_quant_int8_prefill_bf16_d128": (
             "flash_paged_quant", (q, *quant_pools, table, off), 1),
     }
+
+
+def kv_prefill_d128_matrix(gen: torch.Generator) -> Dict[str, Tuple[str, tuple, int]]:
+    """``kv_prefill_d128_cases``' prefill chunk on every fixture (ladder,
+    peaked, spike) and 8-bit format (int8, e4m3, e5m2), bf16 q: the wgmma
+    prefill of the three kernels at head dim 128 (``kv_cases`` holds head
+    dim 64).  Shuffled tables, page 0 NaN."""
+    off = torch.tensor([512], dtype=torch.int32, device="cuda")
+    b, _, n_kv, _ = PREFILL_D128_KV
+    fixtures = {
+        "": lambda: ladder_inputs(PREFILL_D128_Q, PREFILL_D128_KV, torch.bfloat16, gen),
+        "_peaked": lambda: ladder_inputs(PREFILL_D128_Q, PREFILL_D128_KV, torch.bfloat16, gen,
+                                         PEAKED_Q_SCALE),
+        "_spike": lambda: spike_inputs(PREFILL_D128_Q, PREFILL_D128_KV, torch.bfloat16, gen),
+    }
+    cases = {}
+    for fix, make in fixtures.items():
+        q, k, v = make()
+        perm, table, n_pages = paged_layout(b, n_kv, off, PREFILL_D128_Q[2], 1, gen)
+        tag = f"prefill_bf16{fix}_d128"
+        for fmt, qdt in KV_8BIT_PREFILL.items():
+            qkv = quantize_kv(k, v, qdt)
+            cases[f"quant_{fmt}_{tag}"] = ("flash_quant", (q, qkv, off), 1)
+            pools = [to_pages(x, perm, n_pages)
+                     for x in (qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale)]
+            cases[f"paged_quant_{fmt}_{tag}"] = ("flash_paged_quant", (q, *pools, table, off), 1)
+        cases[f"paged_{tag}"] = (
+            "flash_paged", (q, *(to_pages(x, perm, n_pages) for x in (k, v)), table, off), 1)
+    return cases
 
 
 # Each kernel of csrc/flash_fwd.cu: its wrapper and its plain version, both
@@ -1384,6 +1422,11 @@ POS_CASES = (
      POS_PREFILL_TOTALS, _W),
     ("pos_prefill_int8_fp32", "int8", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked",
      POS_PREFILL_TOTALS, _W),
+    # The template's kPos instance under the transforms over a wrapped cache
+    # (fp32 q: bf16 takes the wgmma walk), at the small slopes: a row's
+    # scores stay near 0, where fp32 holds 1e-5.
+    ("pos_prefill_int8_fp32_xf", "int8", POS_PREFILL_Q, POS_PREFILL_KV, "fp32", "peaked",
+     POS_PREFILL_TOTALS, dict(_XF, alibi="small")),
     ("pos_decode_int8", "int8", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked", POS_DECODE_TOTALS,
      _W),
     ("pos_decode_int8_xf", "int8", POS_DECODE_Q, POS_DECODE_KV, "bf16", "peaked",
@@ -1476,12 +1519,23 @@ POS_SEG_IGNORED = (
 # The split-KV decode grid's units, which flash_fwd.cu calls.
 DECODE_UNITS = ("flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
                 "flash_decode_e5m2.cu")
+# The wgmma prefill of the 8-bit and paged caches, which flash_fwd.cu calls.
+KV_SM90_UNIT = "flash_kv_sm90.cu"
+# Every unit flash_fwd.cu's entries call.
+FWD_UNITS = (*DECODE_UNITS, KV_SM90_UNIT)
+# flash_fwd.cu with the route to flash_kv_sm90.cu turned off: the bf16
+# prefill of the 8-bit and paged caches on the 64-row template, the design
+# before it (a "fault" for build_planted, to time the two in one call).
+KV_TEMPLATE_ROUTE = (
+    ("flash_fwd.cu",
+     "if (pos_div == 1 && n_q > kDecodeRows && f.q_seg == nullptr && !f.drop.on()) {",
+     "if (false) {"),
+)
 
 
-def build_planted(work: str, faults, units=("flash_fwd.cu", *DECODE_UNITS)) -> Path:
-    """``csrc/`` copied into ``work`` with each ``(source, old, new)`` of
-    ``faults`` planted (``old`` must occur once), and ``units`` built from
-    the copy into ``work/planted.so`` (one ``nvcc`` per unit)."""
+def planted_copy(work: Path, faults) -> Path:
+    """``csrc/`` copied to ``work/csrc`` with each ``(source, old, new)`` of
+    ``faults`` planted (``old`` must occur once); the copy's path."""
     from ..kernels import _build
 
     src = Path(work) / "csrc"
@@ -1491,7 +1545,48 @@ def build_planted(work: str, faults, units=("flash_fwd.cu", *DECODE_UNITS)) -> P
         if text.count(old) != 1:
             raise ValueError(f"{source}: the planted text occurs {text.count(old)} times")
         (src / source).write_text(text.replace(old, new))
+    return src
+
+
+def build_planted(work: str, faults, units=("flash_fwd.cu", *FWD_UNITS)) -> Path:
+    """``units`` built from ``planted_copy(work, faults)`` into
+    ``work/planted.so`` (one ``nvcc`` per unit)."""
+    from ..kernels import _build
+
+    src = planted_copy(Path(work), faults)
     return _build.compile_library([src / u for u in units], Path(work) / "planted.so")
+
+
+def build_kv_sm90_planted(work: str, faults: Dict[str, list]) -> Dict[str, Path]:
+    """A library per entry of ``faults`` (name -> ``[(source, old, new),
+    ...]``, each ``old`` occurring once), in ``work``: flash_fwd.cu and the
+    decode units compiled once from this package's csrc/, and each entry's
+    flash_kv_sm90.cu from a copy of csrc/ with its faults planted (in that
+    unit, or in code of a header that only its instances run: the raw ring
+    and the scales of flash_fwd_sm90.cuh), every compile started together;
+    then a link per entry.  A planted prefill costs one unit's compile."""
+    from ..kernels import _build
+
+    work = Path(work)
+    nvcc = _build._nvcc()
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    jobs = {u: _build.CSRC / u for u in ("flash_fwd.cu", *DECODE_UNITS)}
+    for name, planted in faults.items():
+        jobs[name] = planted_copy(work / name, planted) / KV_SM90_UNIT
+    procs = []
+    for key, path in jobs.items():
+        obj = work / f"{key}.o"
+        cmd = [nvcc, *flags, "-I", str(path.parent), "-c", "-o", str(obj), str(path)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True)))
+    _build._run(procs)
+    common = [str(work / f"{u}.o") for u in ("flash_fwd.cu", *DECODE_UNITS)]
+    out = {}
+    for name in faults:
+        out[name] = work / f"{name}.so"
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", str(out[name]), str(work / f"{name}.o"),
+                        *common], check=True, capture_output=True)
+    return out
 
 
 def pos_cases(gen: torch.Generator, names=None, table=POS_CASES) -> Dict[str, tuple]:
@@ -1778,6 +1873,30 @@ def sweep(stamp: str, log=print) -> None:
     for off in (0, 512, 1536):
         ms = time_case(PREFILL_Q, PREFILL_KV, [off], 1)
         log(f"[sweep] prefill {PREFILL_Q} x kv {PREFILL_KV}, offset {off}: {ms:.4f} ms ({stamp})")
+
+
+def launched_kernels(fn: Callable[[], object]) -> List[str]:
+    """The names of the device kernels one call of ``fn`` launches, in
+    launch order, from a ``torch.profiler`` trace.  ``fn`` runs twice, each
+    under a trace of its own, and the second is read: a process's first
+    trace can come back without device events (seen on the H100 host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    return [ev.name for ev in sorted(events, key=lambda ev: ev.time_range.start)]
+
+
+def kv_routes_run(names: List[str]) -> List[str]:
+    """The ``quant.kv_route`` routes whose device kernels ``names`` holds
+    (each once, in ``KV_ROUTE_KERNELS`` order)."""
+    return [route for route, stem in KV_ROUTE_KERNELS.items()
+            if any(re.search(rf"\b{stem}<", name) for name in names)]
 
 
 def _device_breakdown(fn: Callable[[], object], iters: int) -> Tuple[float, Dict[str, List[float]]]:
@@ -2254,7 +2373,7 @@ def sparse_split_times(log=print) -> List[dict]:
 # its header, so each unit's instances are reported).
 PTXAS_UNITS = ("flash_fwd.cu", "flash_bwd.cu", "flash_mask.cu", "flash_tri.cu", "flash_lean.cu",
                "flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
-               "flash_decode_e5m2.cu", "naive.cu", "flash_v1.cu")
+               "flash_decode_e5m2.cu", "flash_kv_sm90.cu", "naive.cu", "flash_v1.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2287,8 +2406,9 @@ def parse_ptxas(unit: str, text: str) -> List[dict]:
 
 def ptxas_report(csrc: Optional[str] = None) -> List[dict]:
     """``parse_ptxas`` of every unit of ``PTXAS_UNITS`` in this package's
-    ``csrc/`` (or ``csrc``), compiled with the build's flags and ``-Xptxas
-    -v``; one ``nvcc`` per unit, all started together."""
+    ``csrc/`` (or ``csrc``: those it has, so an older tree compiles too),
+    compiled with the build's flags and ``-Xptxas -v``; one ``nvcc`` per
+    unit, all started together."""
     from ..kernels import _build
 
     src = Path(csrc) if csrc else _build.CSRC
@@ -2298,7 +2418,8 @@ def ptxas_report(csrc: Optional[str] = None) -> List[dict]:
         procs = [(unit, subprocess.Popen(
             [_build._nvcc(), *flags, "-Xptxas", "-v", "-I", str(src), "-c", "-o",
              str(Path(work) / f"{unit}.o"), str(src / unit)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for unit in PTXAS_UNITS]
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for unit in PTXAS_UNITS if (src / unit).exists()]
         for unit, proc in procs:
             text = proc.communicate()[0]
             if proc.returncode != 0:

@@ -67,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple, Union
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -333,6 +333,25 @@ class SplitGrid(NamedTuple):
     kv_chunk: int
     kv_splits: int
     blocks: int
+
+
+def walk_tiles(p_lo: int, p_hi: int, n_kv: int, window: Optional[int] = None, sinks: int = 0,
+               tile: int = KV_TILE) -> List[int]:
+    """The ``tile``-column KV tiles that rows at positions ``p_lo .. p_hi``
+    walk, in order (``csrc/window.cuh::kv_runs``): the sink tiles, then the
+    window's, up to the last row's diagonal below ``n_kv``; without a
+    window, tiles 0 .. the diagonal's.  A call that is not causal passes
+    ``p_hi >= n_kv - 1``."""
+    last = min(p_hi, n_kv - 1)
+    if last < 0:
+        return []
+    end = last // tile + 1
+    if window is None:
+        return list(range(end))
+    n_sink = min(-(-sinks // tile), end)
+    lo = p_lo - window + 1
+    first = end if lo > n_kv - 1 else 0 if lo <= 0 else lo // tile
+    return list(range(n_sink)) + list(range(max(first, n_sink), end))
 
 
 def split_workspace_numel(batch: int, heads: int, n_q: int, head_dim: int, splits: int) -> int:

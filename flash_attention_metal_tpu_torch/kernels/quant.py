@@ -37,6 +37,8 @@ from ..config import default_scale
 from . import _build
 from .flash_fwd import (
     _DTYPE_CODES,
+    DECODE_ROWS,
+    KV_TILE,
     _new_outputs,
     _offsets,
     _ptr,
@@ -45,6 +47,7 @@ from .flash_fwd import (
     check_xf,
     flash_attention_fwd_plain,
     split_args,
+    walk_tiles,
     window_args,
 )
 
@@ -57,6 +60,28 @@ _QMAX = {
 }
 # The kernel's code for each 8-bit element type.
 KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+# The device kernel each route of kv_route launches (its name's stem, as a
+# profiler trace shows it).
+KV_ROUTE_KERNELS = {"decode": "flash_decode_kernel", "wgmma": "flash_fwd_sm90_kernel",
+                    "template": "flash_fwd_kernel"}
+
+
+def kv_route(dtype: torch.dtype, n_q: int, pos_div: int = 1) -> str:
+    """The kernel a call of the 8-bit and paged entries (``fam_flash_quant``,
+    ``fam_flash_paged``, ``fam_flash_paged_quant``) runs on the card, as
+    ``csrc/flash_fwd.cu::launch`` routes it: ``"decode"``, the split-KV
+    grid (``csrc/flash_decode.cuh``), for at most ``DECODE_ROWS`` query
+    rows; ``"wgmma"``, the wgmma forward from the cache's KV source
+    (``csrc/flash_kv_sm90.cu`` on ``flash_fwd_sm90.cuh``), for bf16 q
+    without a row fold; else ``"template"``, the 64-row template of
+    ``flash_fwd.cu`` (fp32 q, and bf16 calls of more than ``DECODE_ROWS``
+    rows folded, ``pos_div > 1``).  Windows, sinks, the transforms and
+    position maps do not change the route."""
+    if n_q <= DECODE_ROWS:
+        return "decode"
+    if dtype == torch.bfloat16 and pos_div == 1:
+        return "wgmma"
+    return "template"
 
 
 @dataclasses.dataclass
@@ -134,6 +159,122 @@ def flash_attention_quant_plain(
         window=window, sinks=sinks, softcap=softcap, alibi_slopes=alibi_slopes,
         kv_positions=kv_positions,
     )
+
+
+_LOG2E = 1.4426950408889634
+
+
+def kv_prefill_walk_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset: torch.Tensor,
+    *,
+    sm_scale: float,
+    causal: bool = True,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    sinks: int = 0,
+    softcap: Optional[float] = None,
+    alibi_slopes: Optional[torch.Tensor] = None,
+    kv_positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of the wgmma prefill (``csrc/flash_kv_sm90.cu`` on
+    ``flash_fwd_sm90.cuh``), step by step in PyTorch: ``(o, lse)``.
+
+    The CUDA kernel cannot run on the CPU; its walk can.  Each 64-row Q
+    tile of each batch walks the 64-column KV tiles of ``walk_tiles`` (every
+    tile under ``kv_positions``); a step reads its tile's rows, through
+    ``page_table`` (``[B, max_pages]``, ``k``/``v`` then a pool ``[P, H_kv,
+    page, D]``) with the logical page clamped to ``max_pages - 1`` and the
+    physical one to ``[0, P - 1]``; widens 8-bit elements exactly; scores
+    ``q . k`` in fp32 times the K scale, then ``sm_scale log2 e`` (or the
+    cap ``c2 tanh(s sm_scale / cap)``, ``c2 = cap log2 e``) and ALiBi's
+    ``slope log2 e (c - p)``; takes the online softmax in log2 units; and
+    adds ``P * s_v``, rounded to q's type, times V.  The row sums take P
+    unscaled.  Scales are ``[B, H_kv, N]`` (dense) or ``[P, H_kv, page]``;
+    only the tiles a walk visits are read, so page 0 may hold NaN.  Rows
+    that see nothing give 0 and -inf.  Tests only.
+    """
+    batch, heads, n_q, head_dim = q.shape
+    kv_heads = k.shape[1]
+    group = heads // kv_heads
+    paged = page_table is not None
+    page = k.shape[2]
+    n_kv = page_table.shape[1] * page if paged else page
+    q_offset = q_offset.to(torch.int64)
+    slopes2 = None if alibi_slopes is None else alibi_slopes.double() * _LOG2E
+    o = torch.zeros((batch, heads, n_q, head_dim), dtype=torch.float32)
+    lse = torch.full((batch, heads, n_q), float("-inf"))
+
+    def tile_of(x, b, kv_start):
+        """The 64 rows of x from logical column kv_start, zero past n_kv."""
+        if paged:
+            logical = min(kv_start // page, page_table.shape[1] - 1)
+            phys = int(page_table[b, logical].clamp(0, x.shape[0] - 1))
+            rows = x[phys, :, kv_start % page:kv_start % page + KV_TILE]
+        else:
+            rows = x[b, :, kv_start:kv_start + KV_TILE]
+        rows = rows.float()  # every 8-bit value is exact in fp32 (and in bf16)
+        pad = KV_TILE - rows.shape[1]
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros((rows.shape[0], pad, *rows.shape[2:]))], 1)
+        return rows.repeat_interleave(group, dim=0)
+
+    for b in range(batch):
+        off = int(q_offset[b]) if causal else n_kv
+        for q_start in range(0, n_q, KV_TILE):
+            rows = min(KV_TILE, n_q - q_start)
+            qt = q[b, :, q_start:q_start + rows].float()
+            pos = torch.arange(q_start, q_start + rows)[:, None] + int(q_offset[b])
+            if kv_positions is not None:
+                tiles = range(-(-n_kv // KV_TILE))
+            else:
+                tiles = walk_tiles(q_start + off, q_start + rows - 1 + off, n_kv, window, sinks)
+            m = torch.full((heads, rows, 1), float("-inf"))
+            lsum = torch.zeros((heads, rows, 1))
+            acc = torch.zeros((heads, rows, head_dim))
+            for tile in tiles:
+                kv_start = tile * KV_TILE
+                col = torch.arange(kv_start, kv_start + KV_TILE)
+                s = torch.matmul(qt, tile_of(k, b, kv_start).transpose(-1, -2))
+                if k_scale is not None:
+                    s = s * tile_of(k_scale, b, kv_start)[:, None, :]
+                s = (softcap * _LOG2E * torch.tanh(s * (sm_scale / softcap)) if softcap
+                     else s * (sm_scale * _LOG2E))
+                cpos = col if kv_positions is None else torch.cat(
+                    [kv_positions[b].long(), kv_positions.new_full((KV_TILE,), -1).long()]
+                )[kv_start:kv_start + KV_TILE]
+                seen = (col < n_kv)[None, :].expand(rows, -1)
+                if causal:
+                    seen = seen & (cpos[None, :] <= pos)
+                    if kv_positions is not None:
+                        seen = seen & (cpos[None, :] >= 0)
+                    if window is not None:
+                        seen = seen & ((cpos[None, :] > pos - window) | (cpos[None, :] < sinks))
+                bias = 0.0
+                if slopes2 is not None:
+                    bias = slopes2[:, None, None] * (cpos[None, :] - pos).double()[None]
+                x = (s.double() + bias).float().masked_fill(~seen, float("-inf"))
+                m_new = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+                ref = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+                alpha = torch.exp2(m - ref)
+                p = torch.exp2(x - ref)
+                lsum = lsum * alpha + p.sum(dim=-1, keepdim=True)
+                if v_scale is not None:
+                    p = p * tile_of(v_scale, b, kv_start)[:, None, :]
+                p = p.to(q.dtype).float()
+                acc = acc * alpha + torch.matmul(p, tile_of(v, b, kv_start))
+                m = m_new
+            seen_any = lsum > 0
+            o[b, :, q_start:q_start + rows] = torch.where(
+                seen_any, acc / torch.where(seen_any, lsum, torch.ones_like(lsum)), 0.0)
+            lse[b, :, q_start:q_start + rows] = torch.where(
+                seen_any, (m + torch.log2(torch.where(seen_any, lsum, torch.ones_like(lsum))))
+                * (1.0 / _LOG2E), float("-inf"))[..., 0]
+    return o.to(q.dtype), lse
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:

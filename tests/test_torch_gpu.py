@@ -54,13 +54,14 @@ def _uniform(rng, shape, device, dtype, scale=1.0):
 
 
 # Units a unit's library needs beside it: flash_fwd.cu's entries launch the
-# decode grid's instances (one unit per KV element type); flash_lean.cu's
-# fp32 entry calls the dense template of flash_fwd.cu; flash_tri.cu's fp32
-# entries call that template and the fused backward's entry in flash_bwd.cu.
-_DECODE_UNITS = onchip.DECODE_UNITS
-_COMPANIONS = {"flash_fwd.cu": _DECODE_UNITS,
-               "flash_lean.cu": ("flash_fwd.cu", *_DECODE_UNITS),
-               "flash_tri.cu": ("flash_fwd.cu", "flash_bwd.cu", *_DECODE_UNITS)}
+# decode grid's instances (one unit per KV element type) and the caches'
+# wgmma prefill (flash_kv_sm90.cu); flash_lean.cu's fp32 entry calls the
+# dense template of flash_fwd.cu; flash_tri.cu's fp32 entries call that
+# template and the fused backward's entry in flash_bwd.cu.
+_FWD_UNITS = onchip.FWD_UNITS
+_COMPANIONS = {"flash_fwd.cu": _FWD_UNITS,
+               "flash_lean.cu": ("flash_fwd.cu", *_FWD_UNITS),
+               "flash_tri.cu": ("flash_fwd.cu", "flash_bwd.cu", *_FWD_UNITS)}
 
 
 def _planted_library(tmp_path, unit: str, source: str, old: str, new: str) -> ctypes.CDLL:
@@ -934,8 +935,9 @@ def test_kv_kernels_are_deterministic(cuda):
 
 # Faults planted in a copy of csrc/: (source, kernels whose check must
 # fail, text, replacement).  flash_decode.cuh is the split-KV decode grid,
-# flash_fwd.cu the 64-row template that the 512-row prefill chunk runs (bf16
-# and fp32 q), kv_tiles.cuh the paged addressing both share.
+# flash_fwd.cu the 64-row template that the 512-row prefill chunk runs with
+# fp32 q (bf16 runs the wgmma prefill of flash_kv_sm90.cu, whose faults are
+# PLANTED_KVSM90_FAULTS), kv_tiles.cuh the paged addressing all share.
 PLANTED_KV_FAULTS = {
     # every column of a KV tile takes the tile's first V scale: s_v
     # applied to the tile's sum instead of to each column of P
@@ -989,7 +991,7 @@ PLANTED_KV_FAULTS = {
 # The kv_cases each source's code runs, by a part of the case's name: each
 # group must fail on its own.
 KV_FAULT_REACH = {"flash_decode.cuh": ("_decode_",),
-                  "flash_fwd.cu": ("_prefill_bf16", "_prefill_fp32"),
+                  "flash_fwd.cu": ("_prefill_fp32",),
                   "kv_tiles.cuh": ("_decode_", "_prefill_bf16", "_prefill_fp32")}
 
 
@@ -1023,6 +1025,217 @@ def test_planted_kv_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
     for run in runs:
         assert clean[run] <= tol[run[1]]
         assert not faulty[run] <= tol[run[1]], run
+
+
+# ---------------------------------------------------------------------------
+# The bf16 prefill of the 8-bit and paged caches on the wgmma forward
+# (csrc/flash_kv_sm90.cu on flash_fwd_sm90.cuh's KV sources): one -k part,
+# ``-k test_kvsm90_``.
+# ---------------------------------------------------------------------------
+
+def _kv_prefill_cases(gen, head_dim):
+    """The bf16 prefill cases of every kernel, fixture and 8-bit format:
+    ``kv_cases``' at head dim 64, ``kv_prefill_d128_matrix`` at 128."""
+    gen.manual_seed(onchip.SEED)
+    if head_dim == 64:
+        return {n: c for n, c in onchip.kv_cases(gen).items() if "_prefill_bf16" in n}
+    return onchip.kv_prefill_d128_matrix(gen)
+
+
+@pytest.mark.gpu
+def test_kvsm90_route_from_a_trace(cuda):
+    """From a torch.profiler trace of one call: every bf16 prefill of the
+    three kernels (index space, window + sinks, softcap + ALiBi, a rolling
+    int8 chunk) runs a flash_fwd_sm90_kernel instance and no
+    flash_fwd_kernel one; fp32 prefill still runs the template, decode the
+    split-KV grid (quant.kv_route)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.kv_cases(gen)
+    runs = {}
+    for name, (kernel, args, pos_div) in cases.items():
+        if name.endswith(("_peaked", "_spike")):
+            continue
+        wrapper = onchip.KV_KERNELS[kernel][0]
+        runs[name] = (lambda w=wrapper, a=args, p=pos_div: w(*a, p),
+                      qt.kv_route(args[0].dtype, args[0].shape[2], pos_div))
+        if "_prefill_" in name:
+            for tag, kw in (("window", dict(window=100, sinks=70)),
+                            ("xf", dict(softcap=30.0,
+                                        alibi_slopes=onchip.alibi_slopes("std", 16)))):
+                runs[f"{name}_{tag}"] = (lambda w=wrapper, a=args, k=kw: w(*a, 1, **k),
+                                         runs[name][1])
+    pcases = onchip.pos_cases(gen, ("pos_prefill_int8", "pos_prefill_int8_fp32",
+                                    "pos_decode_int8"))
+    for name, case in pcases.items():
+        runs[name] = (lambda c=case: onchip.pos_call(c),
+                      qt.kv_route(case[1].dtype, case[1].shape[2]))
+    wrong = {}
+    for name, (call, route) in runs.items():
+        got = onchip.kv_routes_run(onchip.launched_kernels(call))
+        if got != [route]:
+            wrong[name] = (got, route)
+    print(f"\n{len(runs)} calls traced; wrong routes: {wrong}")
+    assert not wrong
+    assert sum(route == "wgmma" for _, route in runs.values()) >= 20
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+def test_kvsm90_matches_plain_on_every_format_and_fixture(cuda, head_dim):
+    """Each kernel's wgmma prefill within 1e-2 of its plain version (o and
+    lse) on the ladder, peaked and spike fixtures, int8, e4m3 and e5m2,
+    through shuffled tables with NaN in page 0; on the ladder fixture also
+    under a window with sinks and under the softcap with ALiBi."""
+    gen = torch.Generator(device="cuda")
+    errors = {}
+    for name, (kernel, args, pos_div) in _kv_prefill_cases(gen, head_dim).items():
+        errors[name] = max(onchip.kv_kernel_error(kernel, args, pos_div))
+        if not name.endswith(("_peaked", "_spike", "_peaked_d128", "_spike_d128")):
+            errors[f"{name} window"] = max(onchip.kv_kernel_error(
+                kernel, args, pos_div, window=100, sinks=70))
+            errors[f"{name} xf"] = max(onchip.kv_kernel_error(
+                kernel, args, pos_div, softcap=30.0,
+                alibi_slopes=onchip.alibi_slopes("std", args[0].shape[1])))
+    print("\n" + ", ".join(f"{n} {e:.2e}" for n, e in sorted(errors.items())))
+    assert len(errors) == 3 * 7 + 2 * 7
+    assert all(e <= TOL[torch.bfloat16] for e in errors.values()), errors
+
+
+@pytest.mark.gpu
+def test_kvsm90_instances_spill_nothing_and_the_dense_walks_keep_their_registers(cuda):
+    """The 20 instances of flash_kv_sm90.cu (PagedBf16 and Paged8 on three
+    walks, Dense8 on four, D 64 and 128) spill nothing; the DenseBf16
+    instances (rows 1-3 and 14) keep the registers, spills and stack they
+    had before the KV source became a template parameter
+    (KVSM90_DENSE_PTXAS).  Every report prints with ``-s``."""
+    report = onchip.ptxas_report()
+    kv = [r for r in report if r["unit"] == "flash_kv_sm90.cu"]
+    print("\n" + "; ".join(f"{r['kernel']} {r['registers']}" for r in kv))
+    assert len(kv) == 20
+    assert all((r["spill_stores"], r["spill_loads"], r["stack"]) == (0, 0, 0) for r in kv), kv
+    dense = {}
+    for r in report:
+        m = re.fullmatch(r"sm90::flash_fwd_sm90_kernel<(.*), sm90::DenseBf16 ?>", r["kernel"])
+        if m:
+            dense[f"{r['unit']}|{m.group(1)}"] = [r[f] for f in ("registers", "spill_stores",
+                                                                 "spill_loads", "stack")]
+    print("\n" + "; ".join(f"{k} {v}" for k, v in sorted(dense.items())))
+    assert dense == KVSM90_DENSE_PTXAS
+
+
+# ptxas's report of every DenseBf16 instance of the wgmma forward (unit |
+# walk: registers, spill stores, spill loads, stack), as the tree before the
+# KV sources built them (the same instances named without the source then;
+# `onchip ptxas --csrc` of that tree on the H100 host's nvcc 12.9).
+KVSM90_DENSE_PTXAS = {
+    "flash_fwd.cu|128, sm90::DenseWalk": [150, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::FeatWalk<false, false, false>": [167, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::FeatWalk<false, true, false>": [163, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::FeatWalk<false, true, true>": [224, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::FeatWalk<true, false, false>": [178, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::FeatWalk<true, true, false>": [201, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::FeatWalk<true, true, true>": [234, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::PosSegWalk": [206, 0, 0, 0],
+    "flash_fwd.cu|128, sm90::PosWalk": [203, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::DenseWalk": [118, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::FeatWalk<false, false, false>": [136, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::FeatWalk<false, true, false>": [128, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::FeatWalk<false, true, true>": [168, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::FeatWalk<true, false, false>": [147, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::FeatWalk<true, true, false>": [159, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::FeatWalk<true, true, true>": [168, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::PosSegWalk": [167, 0, 0, 0],
+    "flash_fwd.cu|64, sm90::PosWalk": [166, 0, 0, 0],
+    "flash_lean.cu|128, sm90::DenseWalk": [150, 0, 0, 0],
+    "flash_lean.cu|64, sm90::DenseWalk": [118, 0, 0, 0],
+    "flash_mask.cu|128, sm90::SparseFwdWalk": [155, 0, 0, 0],
+    "flash_mask.cu|64, sm90::SparseFwdWalk": [120, 0, 0, 0],
+    "flash_tri.cu|128, sm90::DenseWalk": [150, 0, 0, 0],
+    "flash_tri.cu|64, sm90::DenseWalk": [118, 0, 0, 0],
+}
+
+
+# Faults planted in flash_kv_sm90.cu's instances (that unit, or code of
+# flash_fwd_sm90.cuh that only its instances run: the raw ring, the widen
+# pass, the scales): (faults, kernels whose prefill check must fail, the
+# format the fault shows on or None).  Each fails the prefill check of
+# onchip.kv_cases (head dim 64) and kv_prefill_d128_cases (128).
+PLANTED_KVSM90_FAULTS = {
+    # the K scale ignored: raw 8-bit scores
+    "k_scale_ignored": ([(
+        "flash_fwd_sm90.cuh",
+        "for (int e = 0; e < 4; ++e) st[4 * j + e] *= (e & 1) ? s_k.y : s_k.x;",
+        "(void)s_k;")], ("flash_quant", "flash_paged_quant"), None),
+    # the V scale not folded into P
+    "v_scale_not_folded": ([(
+        "flash_fwd_sm90.cuh", "if constexpr (Scales::kOn) p *= sc.sv[8 * j + (e & 1)];", "")],
+        ("flash_quant", "flash_paged_quant"), None),
+    # the page table ignored: logical page j read as physical page j
+    "page_table_ignored": ([(
+        "flash_kv_sm90.cu",
+        "  __device__ size_t row(size_t, int b, int h_kv, int n_kv_heads, int kv_start) const {\n"
+        "    return tile_row0<true>(kv, b, h_kv, n_kv_heads, kv_start);",
+        "  __device__ size_t row(size_t, int b, int h_kv, int n_kv_heads, int kv_start) const {\n"
+        "    return ((size_t)min(kv_start / kv.page, kv.n_pages - 1) * n_kv_heads + h_kv) * "
+        "kv.page + kv_start % kv.page;"), (
+        "flash_kv_sm90.cu",
+        "    if constexpr (kPaged_) {\n"
+        "      return tile_row0<true>(kv, b, h_kv, n_kv_heads, kv_start);",
+        "    if constexpr (kPaged_) {\n"
+        "      return ((size_t)min(kv_start / kv.page, kv.n_pages - 1) * n_kv_heads + h_kv) * "
+        "kv.page + kv_start % kv.page;")], ("flash_paged", "flash_paged_quant"), None),
+    # e5m2 bytes widened as e4m3
+    "e5m2_widened_as_e4m3": ([(
+        "flash_kv_sm90.cu", "const bool e4m3 = fmt == 2;", "const bool e4m3 = fmt != 1;")],
+        ("flash_quant", "flash_paged_quant"), "e5m2"),
+    # the widen pass reads the other raw K stage (the one being refilled)
+    "widen_reads_the_other_raw_stage": ([(
+        "flash_fwd_sm90.cuh", "widen_tile<D>(sm.k[j % kStages], raw.k[j % kStages], src);",
+        "widen_tile<D>(sm.k[j % kStages], raw.k[(j + 1) % kStages], src);")],
+        ("flash_quant", "flash_paged_quant"), None),
+}
+
+
+@pytest.fixture(scope="module")
+def kvsm90_planted(tmp_path_factory):
+    """One library per PLANTED_KVSM90_FAULTS entry (its flash_kv_sm90.cu
+    planted, the other units built once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    work = tmp_path_factory.mktemp("kvsm90")
+    return onchip.build_kv_sm90_planted(
+        str(work), {name: f[0] for name, f in PLANTED_KVSM90_FAULTS.items()})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_KVSM90_FAULTS))
+def test_kvsm90_planted_fault_fails_the_prefill_check(cuda, kvsm90_planted, monkeypatch, fault):
+    """The prefill check of chip_smoke.py's KV phase (onchip.kv_cases at head
+    dim 64, kv_prefill_d128_cases at 128) passes the kernels as built and
+    fails each planted copy on every case that runs the planted code
+    (errors printed with ``-s``; NaN counts as a failure)."""
+    _, kernels, fmt = PLANTED_KVSM90_FAULTS[fault]
+    lib = qt.bind(ctypes.CDLL(str(kvsm90_planted[fault])))
+    gen = torch.Generator(device="cuda")
+
+    def check():
+        cases = dict(_kv_prefill_cases(gen, 64))
+        gen.manual_seed(onchip.SEED)
+        cases.update(onchip.kv_prefill_d128_cases(gen))
+        return {n: max(onchip.kv_kernel_error(*c)) for n, c in cases.items()
+                if c[0] in kernels and (fmt is None or fmt in n)}
+
+    clean = check()
+    monkeypatch.setattr(qt, "_lib", lambda: lib)
+    monkeypatch.setattr(pg, "_lib", lambda: lib)
+    faulty = check()
+    print(f"\n{fault}: worst error built -> planted: " + ", ".join(
+        f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in sorted(clean)))
+    assert any("_d128" in n for n in clean) or fmt is not None
+    for n in clean:
+        assert clean[n] <= TOL[torch.bfloat16], n
+        assert not faulty[n] <= TOL[torch.bfloat16], n
 
 
 @pytest.mark.gpu
@@ -2292,8 +2505,9 @@ def test_drop_bwd_is_deterministic_and_declines_fused(cuda, tmp_path, monkeypatc
 # pair's templates (D 64 and 128).
 DROP_INSTANCES = {
     "flash_fwd.cu": (
-        r"sm90::flash_fwd_sm90_kernel<(64|128), sm90::FeatWalk<(true|false), true, true> >",
-        r"flash_fwd_kernel<float, float, false, (64|128), true, true, true>"),
+        r"sm90::flash_fwd_sm90_kernel<(64|128), sm90::FeatWalk<(true|false), true, true>, "
+        r"sm90::DenseBf16 ?>",
+        r"flash_fwd_kernel<float, float, false, (64|128), true, true, true, false, false>"),
     "flash_bwd.cu": (
         r"sm90::flash_bwd_dkv_sm90_kernel<(64|128), sm90::CausalWalkT<(true|false), true, true, true> >",
         r"sm90::flash_bwd_dq_sm90_kernel<(64|128), sm90::CausalWalkT<(true|false), true, true, true> >",
@@ -2397,8 +2611,9 @@ def test_drop_planted_fault_fails_the_check(cuda, tmp_path, monkeypatch, fault):
 
 # ---------------------------------------------------------------------------
 # A rolling cache's position map (kv_positions) on rows 1 and 11: the wgmma
-# forward's position walk, the fp32 / 8-bit template's and the decode grid's
-# kPos instances against their plain versions (onchip.POS_CASES), planted
+# forward's position walk (bf16, from a bf16 or int8 cache), the fp32
+# template's and the decode grid's kPos instances against their plain
+# versions (onchip.POS_CASES), planted
 # faults; then the rest of one-device serving on the card (test_serve_*:
 # the rolling caches, multi_step, speculative and beam decoding,
 # snapshot/restore, weight-only int8).
@@ -2480,14 +2695,15 @@ def test_pos_seg_planted_fault_fails_the_check(cuda, tmp_path, monkeypatch, faul
 
 # (source, failing cases, old, new): each fault fails the checks of the
 # cases that run its instance (the decode grid: decode rows; the wgmma
-# position walk: bf16 prefill; the template: fp32 and 8-bit prefill).
+# position walk: bf16 prefill over a bf16 or an int8 cache; the template:
+# fp32 prefill).
 PLANTED_POS_FAULTS = {
     # the slot index used as the column's position
     "decode_slot_index_for_position": (
         "flash_decode.cuh", ("pos_decode_bf16_peaked",),
         "const int cpos = kPos ? pc : kv_start + c;", "const int cpos = kv_start + c;"),
     "wgmma_slot_index_for_position": (
-        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked",),
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked", "pos_prefill_int8"),
         "const int cp = (int)pos[j * 8 + (e & 1)];", "const int cp = c;"),
     "template_slot_index_for_position": (
         "flash_fwd.cu", ("pos_prefill_fp32",),
@@ -2498,7 +2714,7 @@ PLANTED_POS_FAULTS = {
         "flash_decode.cuh", ("pos_decode_bf16_peaked",),
         "if constexpr (kPos) visible = visible && cpos >= 0;", "(void)0;"),
     "wgmma_pos_nonnegative_dropped": (
-        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked",),
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked", "pos_prefill_int8"),
         "return c < n_kv && cp >= 0 && cp <= p", "return c < n_kv && cp <= p"),
     "template_pos_nonnegative_dropped": (
         "flash_fwd.cu", ("pos_prefill_fp32",),
@@ -2510,7 +2726,7 @@ PLANTED_POS_FAULTS = {
         "flash_decode.cuh", ("pos_decode_bf16_peaked",),
         "kPos ? n_kv - 1 : causal ?", "kPos ? min(n_kv - 1, (n_q - 1) + off) : causal ?"),
     "wgmma_index_tile_skip": (
-        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked",),
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_peaked", "pos_prefill_int8"),
         "n_steps = (n_kv + kTile - 1) / kTile;",
         "n_steps = min((n_kv + kTile - 1) / kTile, (q_start + kTile - 1 + off) / kTile + 1);"),
     "template_index_tile_skip": (
@@ -2524,11 +2740,11 @@ PLANTED_POS_FAULTS = {
         "const float cbase = kXf ? (float)(cpos - xoff) : 0.0f;",
         "const float cbase = kXf ? (float)(kv_start + c - xoff) : 0.0f;"),
     "wgmma_alibi_from_index": (
-        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_xf",),
+        "flash_fwd_sm90.cuh", ("pos_prefill_bf16_xf", "pos_prefill_int8_xf"),
         "return pos_float((int)pos[j * 8 + (e & 1)]) - rowf[e >> 1];",
         "return pos_float(c0 + j * 8 + (e & 1)) - rowf[e >> 1];"),
     "template_alibi_from_index": (
-        "flash_fwd.cu", ("pos_prefill_int8_xf",),
+        "flash_fwd.cu", ("pos_prefill_int8_fp32_xf",),
         "p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(cc - xpos), m_new)) : 0.0f;",
         "p = seen[j] ? exp2f(xf.shifted(s_reg[j], (float)(kv_start + c - xpos), m_new)) : 0.0f;"),
     # the sinks term dropped: only the window is seen
