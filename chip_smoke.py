@@ -86,6 +86,15 @@ vocab 32768) with seeded random weights, and the kernel ladder:
   model without dropout, and served without seeds, equal to the model
   without dropout; each kernel's time with dropout beside its time without,
   its bound and SDPA's with ``dropout_p`` (the records' ``drop_*`` keys);
+* folded verify windows (``fold_phase``): every bf16 call of rows 1 and
+  11-13 folded by GQA with more than 16 rows runs the wgmma forward's
+  split-KV folded grid (``csrc/flash_fold_sm90.cu``): each instance against
+  its plain version (18/2 to 128/8 rows, D 64 and 128, every cache,
+  window, softcap, fixtures), the converted TinyLlama served speculatively
+  at group 8 (40 folded rows a verify) on four caches, streams against the
+  same engine without a draft, verify logits within bound, the route from
+  a trace, and each row's verify time beside the 64-row template's, its
+  bound and SDPA's (``[fold-*]`` lines, the records' ``fold_*`` keys);
 * distribution (``dist_phase``, last): 8 gloo ranks sharing the card (one
   card hosts no two NCCL ranks) run ring attention, ring with dropout,
   all-gather, Ulysses and lse-combine on a 1-D sp mesh against the
@@ -116,6 +125,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import sys
 import tempfile
 import threading
@@ -191,6 +201,9 @@ S2S_TGT, S2S_SOURCE, S2S_NEW = 128, 100, 32
 LLAMA = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
              num_attention_heads=32, num_key_value_heads=4)
 LLAMA_LAYERS = 4
+# The folded verify phase (fold_phase): greedy requests through the
+# converted TinyLlama served speculatively (PROMPT_LENS prompts).
+FOLD_REQUESTS, FOLD_NEW = 8, 40
 # Distribution (dist_phase) on 8 gloo ranks sharing the card: the
 # attention check's global shape (B, H, H_kv, N, D; n_loc 2048), its
 # dropout rate, decode rows and fp32 shape, and the tolerance on every
@@ -331,8 +344,10 @@ def kv_cache_phase(gen: torch.Generator, stamp: str, spec, planted) -> dict:
         route_calls[name] = (lambda c=pcases[name]: onchip.pos_call(c), "wgmma")
     routes = {}
     for name, (call, want) in route_calls.items():
-        got = onchip.kv_routes_run(onchip.launched_kernels(call))
-        check(got == [want], f"{name}: the trace's kernels take {got}, the route says {want}")
+        names = onchip.launched_kernels(call)
+        got = onchip.kv_routes_run(names)
+        check(got == [want], f"{name}: the trace's kernels ({len(names)}: {names[:3]}) take "
+                             f"{got}, the route says {want}")
         routes[want] = routes.get(want, 0) + 1
     print(f"[kv-route] {len(route_calls)} calls traced: {routes.get('wgmma', 0)} bf16 prefill "
           f"calls (index space, window + sinks, softcap + ALiBi, rolling int8 chunks) each ran a "
@@ -2257,6 +2272,45 @@ def moe_router_gaps(params, cfg, prompts: list, n_decode: int) -> list:
     return gaps
 
 
+def converted_llama(layers: int = LLAMA_LAYERS) -> tuple:
+    """``(hf config, cfg, params, generator)``: a seeded state dict with
+    Hugging Face LLaMA names at TinyLlama-1.1B's published widths
+    (``LLAMA``; ``layers`` deep) converted by ``models.convert`` on the card
+    (bf16), and the generator that drew it."""
+    from types import SimpleNamespace
+
+    from flash_attention_metal_tpu_torch.models import convert
+
+    hf = SimpleNamespace(**LLAMA, num_hidden_layers=layers, max_position_embeddings=2048,
+                         rope_theta=10000.0)
+    lgen = torch.Generator(device="cuda")
+    lgen.manual_seed(SEED + 5)
+    h, hd = hf.hidden_size, hf.hidden_size // hf.num_attention_heads
+
+    def lin(n_out, n_in):
+        return torch.randn((n_out, n_in), generator=lgen, device="cuda") * n_in**-0.5
+
+    sd = {"model.embed_tokens.weight": torch.randn((hf.vocab_size, h), generator=lgen,
+                                                   device="cuda") * 0.02,
+          "model.norm.weight": torch.ones(h, device="cuda"),
+          "lm_head.weight": lin(hf.vocab_size, h)}
+    for i in range(layers):
+        pre = f"model.layers.{i}."
+        sd.update({
+            pre + "input_layernorm.weight": torch.ones(h, device="cuda"),
+            pre + "post_attention_layernorm.weight": torch.ones(h, device="cuda"),
+            pre + "self_attn.q_proj.weight": lin(h, h),
+            pre + "self_attn.k_proj.weight": lin(hf.num_key_value_heads * hd, h),
+            pre + "self_attn.v_proj.weight": lin(hf.num_key_value_heads * hd, h),
+            pre + "self_attn.o_proj.weight": lin(h, h),
+            pre + "mlp.gate_proj.weight": lin(hf.intermediate_size, h),
+            pre + "mlp.up_proj.weight": lin(hf.intermediate_size, h),
+            pre + "mlp.down_proj.weight": lin(h, hf.intermediate_size)})
+    cfg, params = convert.convert_hf_llama(SimpleNamespace(config=hf, state_dict=lambda: sd),
+                                           device="cuda", master_dtype=torch.bfloat16)
+    return hf, cfg, params, lgen
+
+
 def family_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     """The one-device model families at their widths (PERF.md §4).
 
@@ -2292,10 +2346,8 @@ def family_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     Every run's attention launches are counted (``counted``) and must
     include its kernels.  Returns each kernel's ``family_launches`` and the
     families' numbers."""
-    from types import SimpleNamespace
-
     from flash_attention_metal_tpu_torch.harness import onchip, serving
-    from flash_attention_metal_tpu_torch.models import convert, encoder, lora, moe, muon, seq2seq
+    from flash_attention_metal_tpu_torch.models import encoder, lora, moe, muon, seq2seq
     from flash_attention_metal_tpu_torch.models.trainer import Trainer
     from flash_attention_metal_tpu_torch.models.transformer import (
         ModelConfig,
@@ -2568,34 +2620,8 @@ def family_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     torch.cuda.empty_cache()
 
     # LLaMA: a seeded state dict with Hugging Face names, converted.
-    hf = SimpleNamespace(**LLAMA, num_hidden_layers=LLAMA_LAYERS, max_position_embeddings=2048,
-                         rope_theta=10000.0)
-    lgen = torch.Generator(device="cuda")
-    lgen.manual_seed(SEED + 5)
-    h, hd = hf.hidden_size, hf.hidden_size // hf.num_attention_heads
-
-    def lin(n_out, n_in):
-        return torch.randn((n_out, n_in), generator=lgen, device="cuda") * n_in**-0.5
-
-    sd = {"model.embed_tokens.weight": torch.randn((hf.vocab_size, h), generator=lgen,
-                                                   device="cuda") * 0.02,
-          "model.norm.weight": torch.ones(h, device="cuda"),
-          "lm_head.weight": lin(hf.vocab_size, h)}
-    for i in range(LLAMA_LAYERS):
-        pre = f"model.layers.{i}."
-        sd.update({
-            pre + "input_layernorm.weight": torch.ones(h, device="cuda"),
-            pre + "post_attention_layernorm.weight": torch.ones(h, device="cuda"),
-            pre + "self_attn.q_proj.weight": lin(h, h),
-            pre + "self_attn.k_proj.weight": lin(hf.num_key_value_heads * hd, h),
-            pre + "self_attn.v_proj.weight": lin(hf.num_key_value_heads * hd, h),
-            pre + "self_attn.o_proj.weight": lin(h, h),
-            pre + "mlp.gate_proj.weight": lin(hf.intermediate_size, h),
-            pre + "mlp.up_proj.weight": lin(hf.intermediate_size, h),
-            pre + "mlp.down_proj.weight": lin(h, hf.intermediate_size)})
-    lcfg_, lparams = convert.convert_hf_llama(SimpleNamespace(config=hf, state_dict=lambda: sd),
-                                              device="cuda", master_dtype=torch.bfloat16)
-    del sd
+    hf, lcfg_, lparams, lgen = converted_llama()
+    h = hf.hidden_size
     check((lcfg_.n_heads // lcfg_.n_kv_heads, lcfg_.head_dim) == (8, 64),
           f"the converted LLaMA is GQA group 8 at head dim 64: {lcfg_}")
     ltok = torch.randint(0, hf.vocab_size, (1, 512), generator=lgen, device="cuda")
@@ -2625,6 +2651,212 @@ def family_phase(gen: torch.Generator, stamp: str, spec) -> dict:
     print(f"[family-phase] {fams['seconds']:.1f} s {stamp}")
     return {"records": {name: {"family_launches": per} for name, per in launches.items()},
             "families": fams}
+
+
+def fold_phase(gen: torch.Generator, stamp: str, spec, planted) -> dict:
+    """GQA-folded verify windows of more than 16 rows on the wgmma
+    forward's split-KV folded grid (``csrc/flash_fold_sm90.cu``), rows 1 and
+    11-13, served speculatively at TinyLlama-1.1B's group 8:
+
+    * ``[fold-kernel]``: every new instance against its plain version within
+      1e-2 (``onchip.fold_cases``: 18/2, 21/3, 24/8, 40/8 and 128/8 at D 64
+      and 128 on the dense bf16, int8, e4m3, e5m2, paged bf16 and paged int8
+      caches, ragged lengths with 0 and full, alone, under W 512 with 4
+      sinks and under the softcap 30; the peaked, spike and negative
+      fixtures; one slot; shuffled tables, page 0 NaN, one entry past the
+      pool);
+    * ``[fold-serve]``: the converted TinyLlama (``converted_llama``, its
+      published widths, ``LLAMA_LAYERS`` deep) served by ``DecodeEngine``
+      with the ``serving.DRAFT_D512`` draft at gamma ``SPEC_GAMMA`` (40
+      folded rows a verify call) on the dense, int8, paged and paged int8
+      caches: greedy streams equal the same engine's without a draft but
+      for near ties, teacher-forced verify logits within each mode's bound,
+      the folded calls counted (``fold_launches``);
+    * ``[fold-route]``: from a profiler trace of one speculative round of
+      each engine, every bf16 verify call on a ``flash_fwd_sm90_kernel``
+      FoldWalk instance and none on ``flash_fwd_kernel``;
+    * ``[fold-time]``: each row's verify call (q ``[B,4,40,64]`` over 2048
+      slots at 8 slots and 1) beside the 64-row template's in the same call
+      (the library ``planted()`` returns: the folded route turned off,
+      ``onchip.KV_FOLD_TEMPLATE_ROUTE``), its byte bound and SDPA's over a
+      dense bf16 cache (unfolded, ``enable_gqa``).
+
+    Returns each row's ``fold_*`` record keys and the serving numbers."""
+    import ctypes
+
+    from flash_attention_metal_tpu_torch.harness import onchip, serving
+    from flash_attention_metal_tpu_torch.kernels import flash_fwd as ff
+    from flash_attention_metal_tpu_torch.kernels import paged as pg
+    from flash_attention_metal_tpu_torch.kernels import quant as qt
+    from flash_attention_metal_tpu_torch.runtime.engine import DecodeEngine
+    from flash_attention_metal_tpu_torch.utils import roofline
+
+    t_phase = time.perf_counter()
+    wrappers = onchip.FOLD_WRAPPERS
+    tol = onchip.TOL[torch.bfloat16]
+    errors = {name: [] for name in wrappers}
+    groups = (
+        dict(features=tuple(onchip.FOLD_FEATURES)),
+        dict(shapes=((21, 3), (40, 8)), fixtures=("peaked", "spike", "negative")),
+        dict(shapes=((40, 8),), fixtures=("", "negative"), batch=1),
+    )
+    n_cases = 0
+    for group in groups:
+        cases = onchip.fold_cases(gen, **group)
+        for name, case in cases.items():
+            err, lse_err = onchip.fold_error(case)
+            check(err <= tol and lse_err <= tol,
+                  f"{name}: max abs err {err:.3e}, lse {lse_err:.3e} > {tol}")
+            errors[case[0]].append(err)
+        n_cases += len(cases)
+        del cases
+        torch.cuda.empty_cache()
+    for name, errs in errors.items():
+        print(f"[fold-kernel] {name}: {len(errs)} folded calls against the plain version, "
+              f"max_abs_err {max(errs):.3e} (tol {tol})")
+
+    # The converted TinyLlama served speculatively: 5 verify tokens of 8
+    # q-heads a KV head fold to 40 rows.
+    _, lcfg, lparams, _ = converted_llama()
+    check((lcfg.n_heads // lcfg.n_kv_heads, lcfg.head_dim) == (8, 64),
+          f"the converted LLaMA is GQA group 8 at head dim 64: {lcfg}")
+    draft = serving.draft_model(lcfg, serving.DRAFT_D512, SEED, "cuda")
+    reqs = greedy_requests(FOLD_REQUESTS, lcfg.vocab_size, PROMPT_LENS, FOLD_NEW, SEED)
+    prng = np.random.default_rng(SEED + 7)
+    check_prompts = [prng.integers(1, lcfg.vocab_size, n).tolist() for n in CHECK_PROMPTS]
+    modes = (("dense", "speculative", "flash_fwd"), ("int8", "speculative_int8", "flash_quant"),
+             ("paged", "speculative_paged", "flash_paged"),
+             ("paged_int8", "speculative_paged_int8", "flash_paged_quant"))
+
+    def serve(eng):
+        eng.submit(serving.Request(uid=-1, prompt=list(range(1, 101)), max_new_tokens=4))
+        eng.run()
+        out = [dataclasses.replace(r, generated=[], logprobs=[], slot=None, done=False)
+               for r in reqs]
+        for fn in wrappers.values():
+            fn.launches = fn.fold_launches = 0
+        bench = serving.run_serving_bench(eng, out, log=lambda m: None)
+        check(all(r.done and len(r.generated) == FOLD_NEW for r in out),
+              "every request finishes with its new tokens")
+        return out, bench
+
+    fold_launches = dict.fromkeys(wrappers, 0)
+    out_serve = {}
+    for mode, spec_mode, kernel in modes:
+        options = {k: v for k, v in serving.SERVING_MODES[spec_mode][0].items() if k != "draft"}
+        want, plain_bench = serve(DecodeEngine(lparams, lcfg, max_batch=MAX_BATCH,
+                                               max_len=MAX_LEN, seed=SEED, **options))
+        eng = DecodeEngine(lparams, lcfg, max_batch=MAX_BATCH, max_len=MAX_LEN, seed=SEED,
+                           draft=draft, spec_gamma=SPEC_GAMMA, **options)
+        got, bench = serve(eng)
+        counts = {name: (fn.launches, fn.fold_launches) for name, fn in wrappers.items()}
+        check(counts[kernel][1] > 0, f"{mode}: the verify calls folded on {kernel}: {counts}")
+        fold_launches[kernel] += counts[kernel][1]
+        partings = stream_partings(lparams, lcfg, got, want, f"{mode} speculative")
+        # One speculative round traced, every request in flight.
+        for r in reqs[:MAX_BATCH]:
+            eng.submit(dataclasses.replace(r, uid=1000 + r.uid, generated=[], logprobs=[],
+                                           slot=None, done=False))
+        eng.step()
+        names = onchip.launched_kernels(eng.step)
+        eng.run()
+        folded = sum("FoldWalk" in n for n in names if "flash_fwd_sm90_kernel" in n)
+        template = sum(bool(re.search(r"\bflash_fwd_kernel<", n)) for n in names)
+        check(folded >= LLAMA_LAYERS and folded % LLAMA_LAYERS == 0 and template == 0,
+              f"{mode}: a round's verify calls on the folded grid ({folded}) and none on the "
+              f"template ({template})")
+        rel = serving.teacher_forced_errors(lparams, lcfg, check_prompts, 15, MAX_LEN, seed=SEED,
+                                            mode=spec_mode)
+        bound = serving.SERVING_MODES[spec_mode][1]
+        check(max(rel) <= bound, f"{spec_mode}: verify logits rel L2 {max(rel):.3e} > {bound}")
+        out_serve[mode] = {
+            "tokens_per_s": bench["tokens_per_s"], "rounds": bench["decode_steps"],
+            "plain_tokens_per_s": plain_bench["tokens_per_s"],
+            "plain_steps": plain_bench["decode_steps"], "near_tie_partings": partings,
+            "fold_launches": counts[kernel][1], "launches": counts[kernel][0],
+            "round_trace_fold_kernels": folded, "round_trace_template_kernels": template,
+            "verify_logits_rel_l2_max": float(max(rel)), "verify_logits_tol": bound}
+        print(f"[fold-serve] TinyLlama-1.1B widths L{LLAMA_LAYERS} ({lcfg.n_heads}/"
+              f"{lcfg.n_kv_heads} heads), {mode} cache, draft 2 x d512, gamma {SPEC_GAMMA}: "
+              f"{bench['tokens_per_s']:.1f} tok/s over {bench['decode_steps']} rounds (plain "
+              f"{plain_bench['tokens_per_s']:.1f} tok/s, {plain_bench['decode_steps']} steps); "
+              f"greedy streams equal the plain engine's but {partings_text(partings)}; "
+              f"{kernel} launches {counts[kernel][0]}, {counts[kernel][1]} folded; verify logits "
+              f"rel L2 max {max(rel):.3e} (tol {bound}) {stamp}")
+        print(f"[fold-route] {mode}: one speculative round traced: {folded} verify calls on "
+              f"flash_fwd_sm90_kernel (FoldWalk), {template} on flash_fwd_kernel")
+        del eng
+        torch.cuda.empty_cache()
+    del lparams, draft
+
+    # Each row's verify call beside the 64-row template (in turns: folded,
+    # template, template, folded; the mean of each one's two medians).
+    template_lib = ctypes.CDLL(str(planted()))
+    built = (ff._lib, qt._lib, pg._lib)
+    off = (lambda: ff.bind(template_lib), lambda: qt.bind(template_lib),
+           lambda: qt.bind(template_lib))
+    rows = (("flash_fwd", "bf16", "flash_fwd.py:84"), ("flash_quant", "int8", "quant.py:119"),
+            ("flash_quant", "e4m3", "quant.py:119"), ("flash_paged", "paged", "paged.py:70"),
+            ("flash_paged_quant", "paged_int8", "paged.py:224"))
+    timed = {}
+    for slots in (8, 1):
+        cases = {fmt: (*onchip.fold_case(gen, 40, 8, 64, fmt, batch=slots), 8, {})
+                 for _, fmt, _ in rows}
+        turns = {}
+        try:
+            for turn in ("fold", "template", "template", "fold"):
+                ff._lib, qt._lib, pg._lib = built if turn == "fold" else off
+                for fmt, case in cases.items():
+                    turns.setdefault((fmt, turn), []).append(
+                        onchip.device_ms(lambda: onchip.fold_call(*case[:3])))
+        finally:
+            ff._lib, qt._lib, pg._lib = built
+        sdpa = onchip.fold_sdpa_ms(cases["bf16"])
+        for name, fmt, _ in rows:
+            case = cases[fmt]
+            onchip.fold_call(*case[:3])
+            flops, nbytes = onchip.fold_work(case)
+            timed[(fmt, slots)] = {
+                "ms": float(np.mean(turns[(fmt, "fold")])),
+                "template_ms": float(np.mean(turns[(fmt, "template")])),
+                "plain_ms": onchip.device_ms(lambda: onchip.fold_call(*case[:3], plain=True),
+                                             iters=5),
+                "bound_ms": roofline.roofline_time(flops, nbytes, spec, 16) * 1e3,
+                "bound_by": roofline.bound_by(flops, nbytes, spec, 16),
+                "sdpa_ms": sdpa[0], "sdpa_backend": sdpa[1], "grid": wrappers[name].grid}
+        del cases
+    records = {}
+    for name, fmt, line in rows:
+        t8, t1 = timed[(fmt, 8)], timed[(fmt, 1)]
+        suffix = "" if fmt in ("bf16", "int8", "paged", "paged_int8") else f"_{fmt}"
+        rec = records.setdefault(name, {"fold_source": (
+            "flash_attention_metal_tpu_torch/csrc/flash_fold_sm90.cu (flash_fwd_sm90.cuh, "
+            "FoldWalk; split_merge.cuh)"), "fold_launches": fold_launches[name],
+            "fold_max_abs_err": max(errors[name]),
+            "fold_shape": "q [8,4,40,64] folded (pos_div 8) over [8,4,2048,64] at "
+                          "onchip.fold_lengths; _b1: 1 slot"})
+        for tag, t in (("", t8), ("_b1", t1)):
+            rec.update({f"fold_ms{suffix}{tag}": t["ms"],
+                        f"fold_template_ms{suffix}{tag}": t["template_ms"],
+                        f"fold_plain_ms{suffix}{tag}": t["plain_ms"],
+                        f"fold_bound_ms{suffix}{tag}": t["bound_ms"],
+                        f"fold_bound_by{suffix}{tag}": t["bound_by"],
+                        f"fold_sdpa_dense_bf16_ms{tag}": t["sdpa_ms"],
+                        f"fold_sdpa_dense_bf16_backend{tag}": t["sdpa_backend"],
+                        f"fold_kv_chunk{tag}": t["grid"].kv_chunk,
+                        f"fold_blocks{tag}": t["grid"].blocks})
+            print(f"[fold-time] {name} ({line}) {fmt}, TinyLlama verify q [{8 if not tag else 1},"
+                  f"4,40,64] pos_div 8 over 2048 slots: folded grid {t['ms']:.4f} ms "
+                  f"({t['grid'].kv_splits} splits of {t['grid'].kv_chunk}, {t['grid'].blocks} "
+                  f"blocks; template {t['template_ms']:.4f} ms, {t['template_ms'] / t['ms']:.2f}x), "
+                  f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                  f"SDPA dense bf16 {t['sdpa_ms']:.4f} ms ({t['sdpa_backend']}, the fastest "
+                  f"backend); folded launches on the "
+                  f"phase's path {fold_launches[name]} {stamp}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[fold-phase] {n_cases} folded kernel checks, 4 speculative modes, {seconds:.1f} s "
+          f"{stamp}")
+    return {"records": records, "serving": {**out_serve, "seconds": seconds}}
 
 
 def dist_phase(stamp: str, spec, tmp: str) -> dict:
@@ -3552,10 +3784,11 @@ def main() -> int:
     # 2. Build; beside it (its nvcc processes started with the build's), a
     # copy of csrc/ with the segmented position walks' planted fault, which
     # pos_seg_phase reads, and with the 8-bit and paged caches' bf16 prefill
-    # routed to the 64-row template again, whose times kv_cache_phase reads
-    # beside the wgmma route's (the two changes touch disjoint calls: the
-    # segmented position walks of fam_flash_fwd, the cache entries' bf16
-    # prefill).  The thread is not a daemon: a run that fails earlier waits
+    # and every entry's folded bf16 calls routed to the 64-row template
+    # again, whose times kv_cache_phase and fold_phase read beside the
+    # wgmma routes' (the three changes touch disjoint calls: the segmented
+    # position walks of fam_flash_fwd, the cache entries' bf16 prefill,
+    # the folded calls).  The thread is not a daemon: a run that fails earlier waits
     # for its processes before it exits.
     planted_tmp = tempfile.TemporaryDirectory()
     planted_box = {}
@@ -3563,7 +3796,8 @@ def main() -> int:
     def build_planted():
         try:
             planted_box["path"] = onchip.build_planted(
-                planted_tmp.name, (*onchip.POS_SEG_IGNORED, *onchip.KV_TEMPLATE_ROUTE))
+                planted_tmp.name, (*onchip.POS_SEG_IGNORED, *onchip.KV_TEMPLATE_ROUTE,
+                                   *onchip.KV_FOLD_TEMPLATE_ROUTE))
         except (RuntimeError, OSError, ValueError) as err:  # raised where the phase reads it
             planted_box["error"] = err
 
@@ -3996,6 +4230,10 @@ def main() -> int:
     # 20. Position maps with segment ids on the card, and their planted
     # fault (ROADMAP Queue C 15).
     pos_seg = pos_seg_phase(gen, stamp, spec, planted)
+
+    # 20b. GQA-folded verify windows of more than 16 rows on the folded
+    # grid, served speculatively at TinyLlama-1.1B's group 8.
+    fold = fold_phase(gen, stamp, spec, planted)
     planted_tmp.cleanup()
 
     # 21. The one-device model families: MoE served and trained, the
@@ -4156,6 +4394,7 @@ def main() -> int:
         rec_.update(drop["records"].get(rec_["name"], {}))
         rec_.update(serve_rest["records"].get(rec_["name"], {}))
         rec_.update(families["records"].get(rec_["name"], {}))
+        rec_.update(fold["records"].get(rec_["name"], {}))
         rec_.update(dist["records"].get(rec_["name"], {}))
         if rec_["name"] == "flash_fwd":
             rec_.update(pos_seg)
@@ -4165,6 +4404,7 @@ def main() -> int:
     record["serving_xf"] = xf["serving"]
     record["serving_rest"] = serve_rest["serving"]
     record["families"] = families["families"]
+    record["serving_fold"] = fold["serving"]
     record["distribution"] = dist["dist"]
     record["training_dropout"] = {"grad_rel_l2_max": drop["grad_rel_l2_max"],
                                   "phase_seconds": drop["seconds"], **drop["train"]}

@@ -23,7 +23,7 @@ from .kernels.paged import flash_attention_paged, flash_attention_paged_quant
 from .kernels.quant import flash_attention_quant, quantize_kv
 from .models.trainer import Trainer, make_optimizer
 from .models.transformer import ModelConfig, init_params, loss_fn
-from .ops.attention import flash_attention
+from .ops.attention import flash_attention, mha
 from .runtime.engine import DecodeEngine, Request
 
 __all__ = [
@@ -47,6 +47,7 @@ __all__ = [
     "init_params",
     "loss_fn",
     "make_optimizer",
+    "mha",
     "naive_attention",
     "quantize_kv",
     "run_ladder",

@@ -50,7 +50,8 @@
 //     caching allocator; the last block of a (q-head, batch) to arrive,
 //     told by a ticket it resets itself (atom.acq_rel after a barrier, as
 //     dq_ordered.cuh's turns), merges them in split order: one launch, the
-//     same bits on every run.
+//     same bits on every run (split_merge.cuh, which the wgmma forward's
+//     folded grid shares).
 
 #pragma once
 
@@ -63,6 +64,7 @@
 
 #include "kv_tiles.cuh"
 #include "sm90_tiles.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
@@ -195,7 +197,6 @@ __global__ void __launch_bounds__(kDecThreads)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw + P::kRingBytes);
   float* ps = reinterpret_cast<float*>(smem_raw + P::kRingBytes + P::kQBytes);
-  __shared__ int is_last;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -453,36 +454,11 @@ __global__ void __launch_bounds__(kDecThreads)
   }
   if (n_splits == 1) return;
 
-  // The last block of this unit to arrive merges every split's partial.
-  // The barrier, then one thread's acq_rel add, publish this block's
-  // partial and see the earlier blocks' (as dq_ordered.cuh's turns do).
-  __syncthreads();
-  if (tid == 0) {
-    int ticket;
-    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
-                 : "=r"(ticket) : "l"(tickets + unit) : "memory");
-    is_last = ticket == n_splits - 1;
-  }
-  __syncthreads();
-  if (!is_last) return;
-  for (int i = tid; i < n_q * D; i += kDecThreads) {
-    const int r = i / D, d = i % D;
-    const size_t p0 = (size_t)unit * n_splits * n_q + r;  // split s's row at p0 + s * n_q
-    float mx = -INFINITY;
-    for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, __ldcg(part_m + p0 + (size_t)s * n_q));
-    float om = 0.0f, lm = 0.0f;
-    for (int s = 0; s < n_splits; ++s) {  // in split order: the same bits on every run
-      const size_t p = p0 + (size_t)s * n_q;
-      const float ms = __ldcg(part_m + p);
-      const float weight = ms == -INFINITY ? 0.0f : exp2f(ms - mx);
-      om += weight * __ldcg(part + p * D + d);
-      lm += weight * __ldcg(part_l + p);
-    }
-    const float inv_l = lm > 0.0f ? 1.0f / lm : 0.0f;
-    o[(q_rows + r) * D + d] = from_float<T>(om * inv_l);
-    if (lse != nullptr && d == 0) lse[q_rows + r] = lm > 0.0f ? (mx + log2f(lm)) * kLn2 : -INFINITY;
-  }
-  if (tid == 0) tickets[unit] = 0;  // ready for the next call on this stream
+  // The last block of this unit to arrive merges every split's partial
+  // (split_merge.cuh).
+  if (!split_merge::last_to_arrive(tickets + unit, n_splits)) return;
+  split_merge::merge_rows<D, kDecThreads>(part, n_part, unit, n_splits, n_q, 0, n_q, o, lse,
+                                          q_rows, tickets + unit);
 }
 
 template <typename T, typename KV, bool kPaged, int D, int kRows, bool kWin, bool kXf,

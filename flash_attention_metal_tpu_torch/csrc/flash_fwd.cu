@@ -1,9 +1,10 @@
 // Forward flash attention for Hopper (sm_90a) over a dense, 8-bit or paged
 // KV cache: the C entries, their route to the split-KV decode grid
 // (flash_decode.cuh) or the wgmma forward (flash_fwd_sm90.cuh, and from
-// the 8-bit and paged caches flash_kv_sm90.cu), and one device template
-// over the KV element type (bf16 / fp32, int8, e4m3, e5m2) and the
-// addressing (dense or paged) for the calls neither takes.
+// the 8-bit and paged caches flash_kv_sm90.cu; GQA-folded calls of every
+// cache on its split-KV folded grid, flash_fold_sm90.cu), and one device
+// template over the KV element type (bf16 / fp32, int8, e4m3, e5m2) and
+// the addressing (dense or paged) for the calls none takes: fp32 q.
 //
 // Replaces four Pallas kernels of flash_attention_metal_tpu/kernels/, each
 // with its own entry point:
@@ -11,10 +12,10 @@
 //     [B, H_kv, N, D], the kernel of dense serving (chunked prefill, and
 //     GQA-folded decode with pos_div = group) and of the training forward.
 //     bf16 calls with pos_div == 1 (the training forward, prefill chunks)
-//     run the wgmma kernel of flash_fwd_sm90.cuh; this template takes
-//     folded decode (bytes-bound: it needs split-KV, not wgmma) and fp32
-//     (IEEE FMA, held at 1e-5: no tensor-core route meets that), and the
-//     fp32 lean forward of flash_lean.cu with one int offset;
+//     run the wgmma kernel of flash_fwd_sm90.cuh, folded bf16 calls of
+//     more than 16 rows its folded grid; this template takes fp32 (IEEE
+//     FMA, held at 1e-5: no tensor-core route meets that), and the fp32
+//     lean forward of flash_lean.cu with one int offset;
 //   * quant.py::_quant_fwd_kernel (fam_flash_quant): a dense
 //     [B, H_kv, N, D] int8 / e4m3 / e5m2 cache with per-token fp32 scales
 //     [B, H_kv, N];
@@ -82,9 +83,13 @@
 //     come by cp.async into a raw ring a step ahead and are widened to the
 //     swizzled bf16 stages while the products run; a paged source's table
 //     is read a step before its tiles' copies.
+//   * bf16 calls folded by GQA (pos_div > 1) of more than kDecodeRows rows
+//     (a speculative verify window, (gamma + 1) * group rows) of all four
+//     entries: the wgmma forward's folded walk on a split-KV grid
+//     (flash_fold_sm90.cu), grid (Q tile x split, KV head, batch), the
+//     partials merged as the decode grid merges its own (split_merge.cuh).
 //   * Everything else (fp32 q, where IEEE FMA is held at 1e-5 and no
-//     tensor-core route meets that; the fp32 lean forward; bf16 calls of
-//     more than kDecodeRows rows folded, pos_div > 1): the 64-row template
+//     tensor-core route meets that; the fp32 lean forward): the 64-row template
 //     below, one block per (64-row q tile, q-head, batch); the KV loop
 //     stops at the last column visible to the tile's last row, so causal
 //     prefill skips the upper triangle, and table entries past a slot's
@@ -98,9 +103,7 @@
 //   * Native GQA (KV head h / group): nothing is repeated in memory.  Folded
 //     decode packs a KV head's group q-heads into the rows of one tile, so
 //     the cache streams once per KV head.
-// Not done yet here: the template's last bf16 calls (folded, pos_div > 1,
-// n_q > 16: a speculative verify of more than 8 tokens at group 2) on
-// wgmma; fp8 tensor-core products on the 8-bit tiles themselves.
+// Not done yet here: fp8 tensor-core products on the 8-bit tiles themselves.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -572,8 +575,9 @@ Split whole_row(int n_kv) {
   return Split{(n_kv + kBlockN - 1) / kBlockN * kBlockN, nullptr, nullptr};
 }
 
-// Calls of n_q <= kDecodeRows rows run the decode grid (split as `split`
-// says); the others run one block per 64-row q tile and take no split.
+// Calls of n_q <= kDecodeRows rows run the decode grid and folded bf16
+// calls the folded grid (split as `split` says); the others run one block
+// per 64-row q tile and take no split.
 // One block per 64-row q tile (the kernel that reads f with kFeat, its
 // transforms with kXf, its dropout with kDrop, its positions with kPos,
 // and with kPosSeg their segment ids).
@@ -647,6 +651,20 @@ cudaError_t launch(const void* q, const KvArgs& kv, const void* q_offset,
                                  nullptr, nullptr, stream, f.window, f.sinks, f.softcap,
                                  f.slopes, f.kv_pos};
       return fam::flash_kv_sm90(call, kv_code<KV>(), D, kPaged);
+    }
+  }
+  // bf16 calls folded by GQA of more than kDecodeRows rows (a verify
+  // window), from every cache: the wgmma forward's split-KV folded grid
+  // (flash_fold_sm90.cu).
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (pos_div > 1 && n_q > kDecodeRows) {
+      const fam::DecodeCall call{q, kv, static_cast<const int*>(q_offset), o,
+                                 static_cast<float*>(lse), batch, n_heads, n_kv_heads, n_q,
+                                 sm_scale, causal, pos_div, fixed_offset, split.kv_chunk,
+                                 static_cast<float*>(split.part),
+                                 static_cast<int*>(split.tickets), stream, f.window, f.sinks,
+                                 f.softcap, f.slopes, f.kv_pos};
+      return fam::flash_fold_sm90(call, kv_code<KV>(), D, kPaged);
     }
   }
   if (f.kv_pos != nullptr) {
@@ -754,11 +772,13 @@ Drop make_drop(const void* seed, int threshold, float inv_keep, int heads) {
 }
 
 // A chunk is a positive multiple of 64 columns; more than one split needs
-// a decode tile, the workspace and the tickets.
-bool bad_split(int n_q, int n_kv, const Split& split) {
+// a decode tile or a folded bf16 call (dtype 0, pos_div > 1), the
+// workspace and the tickets.
+bool bad_split(int n_q, int n_kv, int dtype, int pos_div, const Split& split) {
   if (split.kv_chunk < kBlockN || split.kv_chunk % kBlockN != 0) return true;
   if (split.kv_chunk >= n_kv) return false;
-  return n_q > kDecodeRows || split.part == nullptr || split.tickets == nullptr;
+  return (n_q > kDecodeRows && (dtype != 0 || pos_div < 2)) || split.part == nullptr ||
+         split.tickets == nullptr;
 }
 
 }  // namespace
@@ -770,9 +790,10 @@ bool bad_split(int n_q, int n_kv, const Split& split) {
 //
 // The split of every entry: kv_chunk, the KV columns of a split (a
 // multiple of 64; n_splits = ceil(n_kv / kv_chunk), n_kv the dense
-// length or max_pages * page_size); more than one split only for n_q <= 16,
-// with part, fp32 [B * H * n_splits * n_q * (D + 2)], and tickets, int32
-// [B * H] all zero (each call leaves them zero again).
+// length or max_pages * page_size); more than one split only for n_q <= 16
+// or a folded bf16 call (pos_div > 1), with part, fp32 [B * H * n_splits *
+// n_q * (D + 2)], and tickets, int32 [B * H * ceil(n_q / 64)] (n_q <= 16:
+// [B * H]) all zero (each call leaves them zero again).
 //
 // The window of every entry: window, the columns a row sees back from its
 // position (0: no window; more needs causal), and sinks, the first columns
@@ -808,7 +829,8 @@ extern "C" int fam_flash_fwd(const void* q, const void* k, const void* v,
   const bool seg = q_seg != nullptr;
   const bool drop = drop_seed != nullptr;
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
+      n_kv < 1 || bad_split(n_q, n_kv, dtype, pos_div, split) ||
+      bad_window(window, sinks, causal) ||
       seg != (kv_seg != nullptr) || (seg && (pos_div != 1 || kv_chunk < n_kv)) ||
       bad_xf(softcap, slopes, pos_div, q_offset) ||
       bad_drop(drop_seed, drop_threshold, drop_inv_keep, drop_heads, pos_div, kv_chunk, n_kv) ||
@@ -899,7 +921,8 @@ cudaError_t flash_lean_fp32(const void* q, const void* k, const void* v, void* o
 // [B, H, N_q] or null; kv_pos a rolling cache's int32 [B, N] positions or
 // null (causal, pos_div 1).  This entry and the two paged ones run n_q <= 16
 // on the decode grid, bf16 with pos_div 1 on the wgmma forward
-// (flash_kv_sm90.cu), the rest on the template (launch).
+// (flash_kv_sm90.cu), folded bf16 on its folded grid (flash_fold_sm90.cu),
+// fp32 on the template (launch).
 extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                const void* k_scale, const void* v_scale,
                                const void* q_offset, void* o, void* lse,
@@ -911,7 +934,8 @@ extern "C" int fam_flash_quant(const void* q, const void* k_q, const void* v_q,
                                void* tickets, void* stream) {
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
-      n_kv < 1 || bad_split(n_q, n_kv, split) || bad_window(window, sinks, causal) ||
+      n_kv < 1 || bad_split(n_q, n_kv, dtype, pos_div, split) ||
+      bad_window(window, sinks, causal) ||
       bad_xf(softcap, slopes, pos_div, q_offset) || (slopes != nullptr && !causal) ||
       bad_pos(kv_pos, causal, pos_div, nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -945,7 +969,8 @@ extern "C" int fam_flash_paged(const void* q, const void* pool_k,
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages) ||
-      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1) ||
+      bad_split(n_q, max_pages * page_size, dtype, pos_div, split) ||
+      bad_window(window, sinks, 1) ||
       bad_xf(softcap, slopes, pos_div, lengths)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -982,7 +1007,8 @@ extern "C" int fam_flash_paged_quant(const void* q, const void* pool_k_q,
   const Split split{kv_chunk, part, tickets};
   if (bad_shape(batch, n_heads, n_kv_heads, n_q, pos_div) || bad_head_dim(head_dim) ||
       bad_pages(n_pages, page_size, max_pages) ||
-      bad_split(n_q, max_pages * page_size, split) || bad_window(window, sinks, 1) ||
+      bad_split(n_q, max_pages * page_size, dtype, pos_div, split) ||
+      bad_window(window, sinks, 1) ||
       bad_xf(softcap, slopes, pos_div, lengths)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -7,7 +7,9 @@
 // (fam_flash_sparse_fwd, bf16), which launches it on the sparse walk; and by
 // flash_kv_sm90.cu (the bf16 prefill of fam_flash_quant, fam_flash_paged and
 // fam_flash_paged_quant), which launches it from the 8-bit and paged caches'
-// KV sources.
+// KV sources; and by flash_fold_sm90.cu (the bf16 calls of all four cache
+// entries folded by GQA, pos_div > 1, of more than 16 rows), which launches
+// it on the folded walk from every KV source.
 //
 // Replaces flash_attention_metal_tpu/kernels/flash_fwd.py::_fwd_kernel (the
 // general kernel, a per-batch device offset), ::_fwd_kernel_lean (the
@@ -99,6 +101,27 @@
 //     words of each of its two Q rows once per step; a full pair fetches
 //     and tests nothing.  An empty list walks no step: o = 0, lse = -inf.
 //     Step entries are read from the list a step ahead of their fetches.
+//   * FoldWalk (rows 1 and 11-13 over a GQA fold, pos_div > 1: a KV
+//     head's group of q-heads folded into rows, more than 16 of them, as a
+//     speculative verify window of (gamma + 1) * group rows is): row r
+//     of the 64-row tile sits at position r / pos_div + q_offset[b], and
+//     each element compares its column with its own row's position (a
+//     thread's two rows' positions taken once a block; pos_div need not
+//     divide 64, so one position's rows may straddle a tile edge).  A tile
+//     is full only when its last column is at most the tile's first row's
+//     position (and inside every row's window).  The window and the sinks
+//     walk as FeatWalk's (kv_runs over the tile's first and last rows'
+//     positions), and FoldWalk<true> takes the tanh softcap; ALiBi, segment
+//     ids, dropout and position maps never fold (the C entries refuse
+//     them).  Split-KV: the grid is (Q tile x split, KV head, batch), split
+//     s walking only its chunk [s * kv_chunk, (s + 1) * kv_chunk) of the
+//     tiles, so a verify call of a few (tile, head, batch) units still
+//     fills the card; a split whose chunk holds no tile of its walk reads
+//     nothing and leaves an empty partial (m = -inf, l = 0, o = 0).  With
+//     more than one split each block writes its fp32 partial, and the last
+//     of a (Q tile, q-head, batch) merges them in split order
+//     (split_merge.cuh, shared with the decode grid).  Every KV source
+//     takes it (flash_fold_sm90.cu launches it).
 //   * PosWalk (row 1 over a rolling cache, flash_fwd.py::_fwd_kernel's
 //     kv_positions): the KV slots carry the positions they hold (kv_pos
 //     [B, N_kv], -1 for none), and the mask, the window and ALiBi's
@@ -117,14 +140,14 @@
 // step's KV tile lives and in what type.
 //   * DenseBf16 (every walk above): a bf16 cache [B, H_kv, N, D]; a tile's
 //     rows from the batch's KV head base.
-//   * PagedBf16 (flash_kv_sm90.cu; DenseWalk and FeatWalk): a bf16 page
+//   * PagedBf16 (kv_sources_sm90.cuh; DenseWalk, FeatWalk, FoldWalk): a bf16 page
 //     pool [P, H_kv, page, D] through an int32 table [B, max_pages], a
 //     tile's rows from kv_tiles.cuh::tile_row0 (the logical page clamped to
 //     max_pages - 1, the physical to [0, P - 1]); a page holds whole tiles,
 //     so the copies are the dense ones.  The table is read a step before a
 //     tile's copies (and the first three steps' at once), so its load hides
 //     behind a step.
-//   * Dense8 and Paged8 (Src8<kPaged>, flash_kv_sm90.cu; Dense8 also on
+//   * Dense8 and Paged8 (Src8<kPaged>, kv_sources_sm90.cuh; Dense8 also on
 //     PosWalk): int8, e4m3 or e5m2 tiles with per-token fp32 scales
 //     ([.., H_kv, N] or [P, H_kv, page]).  Their raw tiles and scales come
 //     by cp.async into a raw ring (RawRing: 2 stages each of K and V, 16 /
@@ -164,7 +187,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "sm90_tiles.cuh"
+#include "split_merge.cuh"
 #include "window.cuh"
 
 namespace {
@@ -228,7 +254,8 @@ __device__ __forceinline__ void widen_tile(bf16* dst, const uint8_t* raw, const 
 // source then has k_scale, v_scale and widen, see flash_kv_sm90.cu).
 // kPaged: row reads a page table, so the kernel asks for it a step early.
 // DenseBf16 is every walk's source here; PagedBf16, Dense8 and Paged8
-// live in flash_kv_sm90.cu, which launches them.
+// live in kv_sources_sm90.cuh (flash_kv_sm90.cu and flash_fold_sm90.cu
+// launch them).
 struct DenseBf16 {
   static constexpr bool kRaw = false;
   static constexpr bool kPaged = false;
@@ -443,6 +470,92 @@ struct FeatWalk {
     }
   };
 };
+
+// The folded walk (see the header): q_offset int32 [B], row r at position
+// r / pos_div + q_offset[b] (causal); the window (kNoWindow: none) and
+// sinks; with kXf the tanh softcap (the cap, 0 for none, read at run time;
+// no slopes: ALiBi never folds).  kv_chunk columns a split (a multiple of
+// 64), n_splits of them over n_kv; part and tickets (split_merge.cuh: the
+// partials, one zeroed int32 per (Q tile, q-head, batch)), read only with
+// more than one split.
+template <bool kXf_>
+struct FoldWalk {
+  static constexpr bool kBits = false;
+  static constexpr bool kSplit = true;
+  const int* q_offset;
+  int pos_div;
+  int window = kNoWindow, sinks = 0;
+  float softcap = 0.0f, sm_scale = 0.0f;
+  int kv_chunk = 0, n_splits = 1;
+  float* part = nullptr;
+  int* tickets = nullptr;
+
+  // One step's element test.  Element e of n8 tile j: this thread's row
+  // e >> 1 (at position p[e >> 1]), KV column c0 + 8 j + (e & 1).
+  struct Mask {
+    static constexpr bool kXf = kXf_;
+    static constexpr bool kDrop = false;
+    bool full;
+    int c0, n_kv, window, sinks;
+    int p[2];
+    XfHead xf;
+    __device__ bool seen(int j, int e) const {
+      const int c = c0 + j * 8 + (e & 1);
+      const int pr = p[e >> 1];
+      return c < n_kv && c <= pr && in_window(c, pr, window, sinks);
+    }
+    // The bias's distance: no ALiBi under a fold, so its slope is 0.
+    __device__ float dist(int, int) const { return 0.0f; }
+  };
+
+  // A block per (Q tile x split, q-head, batch), the last Q tile first,
+  // over the sink and window tiles of its split's chunk up to its last
+  // row's diagonal.
+  struct Blk {
+    int b, h, q_start, n_steps, n_kv, window, sinks, split, n_splits, tile, p_lo, p_hi;
+    TileRuns runs;
+    int p[2];  // this thread's two rows' positions
+    XfHead xf;
+    __device__ Blk(const FoldWalk& w, int, int n_q, int n_kv_) {
+      n_kv = n_kv_;
+      b = blockIdx.z;
+      h = blockIdx.y;
+      n_splits = w.n_splits;
+      split = blockIdx.x % n_splits;
+      tile = gridDim.x / n_splits - 1 - blockIdx.x / n_splits;
+      q_start = tile * kTile;
+      const int rows_valid = min(kTile, n_q - q_start);
+      const int off = w.q_offset[b];
+      p_lo = q_start / w.pos_div + off;
+      p_hi = (q_start + rows_valid - 1) / w.pos_div + off;
+      window = w.window;
+      sinks = w.sinks;
+      const int t0 = split * (w.kv_chunk / kTile);
+      runs = kv_runs<kTile>(p_lo, p_hi, n_kv, window, sinks).within(t0, t0 + w.kv_chunk / kTile);
+      n_steps = runs.steps();
+      const int row = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) p[half] = (q_start + row + half * 8) / w.pos_div + off;
+      if constexpr (kXf_) xf = XfHead(w.softcap, nullptr, h, w.sm_scale);
+    }
+    __device__ int2 entry(int j) const { return make_int2(runs.tile(j), -1); }
+    __device__ void fetch_bits(uint32_t*, int2) const {}
+    // Tiles that cross the first row's position, the window's edge or the
+    // n_kv edge compare columns; interior tiles skip it.
+    __device__ Mask mask(int2 entry, const uint32_t*, int, int t) const {
+      const int kv_start = entry.x * kTile;
+      const bool full = kv_start + kTile - 1 <= p_lo && kv_start + kTile <= n_kv &&
+                        tile_in_window(kv_start, kTile, p_hi, window, sinks);
+      return Mask{full, kv_start + 2 * t, n_kv, window, sinks, {p[0], p[1]}, xf};
+    }
+  };
+};
+
+// Whether a walk splits the KV row across blocks (FoldWalk).
+template <class W, class = void>
+struct SplitWalk : std::false_type {};
+template <class W>
+struct SplitWalk<W, std::void_t<decltype(W::kSplit)>> : std::bool_constant<W::kSplit> {};
 
 // The dense walk over a rolling cache (see the header): q_offset int32
 // [B] (causal), kv_pos int32 [B, N_kv]; the window (kNoWindow: none), the
@@ -947,6 +1060,37 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait_all();
 
+  if constexpr (SplitWalk<Walk>::value) {
+    if (blk.n_splits > 1) {
+      // This split's partial: o unnormalised, the row max in log2 units
+      // (-inf for a row it saw nothing of), the row sum; then the last
+      // split of this (Q tile, q-head, batch) to arrive merges them.
+      const int unit = blk.b * n_heads + blk.h;
+      const size_t n_part = (size_t)gridDim.z * n_heads * blk.n_splits * n_q;
+      float* part_m = walk.part + n_part * D;
+      float* part_l = part_m + n_part;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float l = l_i[half];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = r_lo + half * 8;
+        if (r < n_q) {
+          const size_t p = ((size_t)unit * blk.n_splits + blk.split) * n_q + r;
+          store_row<D>(walk.part + p * D, o_acc, half, 1.0f, t);
+          if (t == 0) {
+            part_m[p] = m_i[half];
+            part_l[p] = l;
+          }
+        }
+      }
+      int* ticket = walk.tickets + (size_t)unit * (gridDim.x / blk.n_splits) + blk.tile;
+      if (!split_merge::last_to_arrive(ticket, blk.n_splits)) return;
+      split_merge::merge_rows<D, kThreads>(walk.part, n_part, unit, blk.n_splits, n_q, q_start,
+                                           rows_valid, o, lse, q_rows, ticket);
+      return;
+    }
+  }
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     float l = l_i[half];

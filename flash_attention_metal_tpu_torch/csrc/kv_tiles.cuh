@@ -1,10 +1,10 @@
 // What the forward kernels over a KV cache share: the cache's addressing
 // (dense or paged), its 8-bit element types, and the call of the split-KV
-// decode grid and of the wgmma prefill, whose instances live in translation
-// units of their own (flash_decode*.cu, one per KV element type, and
-// flash_kv_sm90.cu: nvcc builds them in parallel).  Users: flash_fwd.cu
-// (its 64-row grid and the C entries), flash_decode.cuh and
-// flash_kv_sm90.cu.
+// decode grid, of the wgmma prefill and of the folded grid, whose instances
+// live in translation units of their own (flash_decode*.cu, one per KV
+// element type, flash_kv_sm90.cu and flash_fold_sm90.cu: nvcc builds them
+// in parallel).  Users: flash_fwd.cu (its 64-row grid and the C entries),
+// flash_decode.cuh, kv_sources_sm90.cuh and the two wgmma units.
 
 #pragma once
 
@@ -34,11 +34,13 @@ struct KvArgs {
   int n_pages;
 };
 
-// One call of the decode grid (n_q <= 16), or of the wgmma prefill: the
-// 64-row grid's arguments and the split.  kv_chunk: KV columns per split, a
-// multiple of 64; part and tickets: the partials' workspace and one zeroed
-// int32 per (q-head, batch), read only when the chunk leaves more than one
-// split (never by the prefill, which takes one split).
+// One call of the decode grid (n_q <= 16), of the wgmma prefill or of the
+// wgmma forward's folded grid: the 64-row grid's arguments and the split.
+// kv_chunk: KV columns per split, a multiple of 64; part and tickets: the
+// partials' workspace (split_merge.cuh) and one zeroed int32 per (q-head,
+// batch) on the decode grid, per (64-row Q tile, q-head, batch) on the
+// folded grid, read only when the chunk leaves more than one split (never
+// by the prefill, which takes one split).
 struct DecodeCall {
   const void* q;
   KvArgs kv;
@@ -75,6 +77,11 @@ cudaError_t flash_decode_e5m2(const DecodeCall& call, int dtype, int head_dim, b
 // caches on the wgmma forward (flash_kv_sm90.cu): kv_dtype 0 for a bf16
 // cache (paged only), 1 int8, 2 e4m3, 3 e5m2; head_dim 64 or 128.
 cudaError_t flash_kv_sm90(const DecodeCall& call, int kv_dtype, int head_dim, bool paged);
+
+// The GQA-folded calls (bf16 q, pos_div > 1, n_q > 16, causal) of all four
+// entries on the wgmma forward's split-KV folded grid (flash_fold_sm90.cu):
+// kv_dtype 0 for a bf16 cache (dense or paged), 1 int8, 2 e4m3, 3 e5m2.
+cudaError_t flash_fold_sm90(const DecodeCall& call, int kv_dtype, int head_dim, bool paged);
 
 }  // namespace fam
 

@@ -28,8 +28,9 @@ sources: two versions compared on one card, in turns.  ``v1_tiles`` times
 each V1 kernel at every Q-tile height it takes, at every point of the
 benchmark's sweep (and at head dim 128 at N = 128 and 1024), beside the
 height ``v1_tile_rows`` picks.  ``decode_splits`` times the decode kernels
-(``csrc/flash_decode.cuh``) at every KV chunk of their split grid, beside the
-chunk ``decode_kv_chunk`` picks.  ``sparse_splits`` times the bf16
+(``csrc/flash_decode.cuh``) and the folded grid of verify windows
+(``csrc/flash_fold_sm90.cu``) at every KV chunk of their split grids, beside
+the chunk ``decode_kv_chunk`` picks.  ``sparse_splits`` times the bf16
 block-sparse dK/dV kernel at every chunk cap of its plan, beside the cap
 ``dkv_chunk_cap`` picks.  Every line it prints carries the card's name and
 power limit.  ``ptxas`` needs ``nvcc`` but no card: it compiles
@@ -73,6 +74,7 @@ from ..kernels.flash_fwd import (
     check_dropout,
     flash_attention_fwd,
     flash_attention_fwd_plain,
+    flash_fwd_general,
     flash_fwd_lean,
     flash_fwd_lean_plain,
     plain_visible,
@@ -102,6 +104,7 @@ from ..kernels.paged import (
 )
 from ..kernels.quant import (
     KV_ROUTE_KERNELS,
+    KV_ROUTE_WALKS,
     dequantize_kv,
     flash_attention_quant,
     flash_attention_quant_plain,
@@ -1341,6 +1344,191 @@ def kv_work(kernel: str, args: tuple, pos_div: int, window: Optional[int] = None
 
 
 # ---------------------------------------------------------------------------
+# GQA-folded calls of more than 16 rows (a speculative verify window): rows
+# 1 and 11-13 on the wgmma forward's split-KV folded grid
+# (csrc/flash_fold_sm90.cu), against their plain versions.
+# ---------------------------------------------------------------------------
+
+# TinyLlama-1.1B's attention (32 q-heads over 4 KV heads, group 8) verifying
+# gamma 4 draft tokens: 5 positions x 8 q-heads = 40 folded rows a KV head,
+# over the serving engine's 2048-slot cache, at 8 slots.
+FOLD_KV_HEADS, FOLD_N_KV, FOLD_BATCH = 4, 2048, 8
+# (rows, pos_div): group 2 at gamma 8, group 3 at gamma 6 (a position's rows
+# straddle the 64-row tile edge), group 8 at gamma 2, 4 and 15.
+FOLD_SHAPES = ((18, 2), (21, 3), (24, 8), (40, 8), (128, 8))
+# The cache kinds: the dense entry's bf16 cache, the 8-bit formats, the
+# bf16 and int8 page pools.
+FOLD_FORMATS = ("bf16", "int8", "e4m3", "e5m2", "paged", "paged_int8")
+_FOLD_QDT = {"int8": torch.int8, "e4m3": torch.float8_e4m3fn, "e5m2": torch.float8_e5m2,
+             "paged_int8": torch.int8}
+FOLD_FEATURES = {"": {}, "_w512": dict(window=WINDOW, sinks=SINKS), "_cap30": dict(softcap=30.0)}
+
+
+def fold_lengths(n_q: int, pos_div: int, batch: int = FOLD_BATCH,
+                 n_kv: int = FOLD_N_KV) -> torch.Tensor:
+    """Seeded ragged slot lengths of a verify window: the full cache (the
+    window's last position at n_kv - 1; one slot holds just that), 0, a tile
+    edge and the rest drawn."""
+    full = n_kv - -(-n_q // pos_div)
+    rng = np.random.default_rng(SEED + n_q + pos_div)
+    lengths = rng.integers(1, full, max(batch, 3))
+    lengths[:3] = (full, 0, 64)
+    return torch.from_numpy(lengths[:batch].astype(np.int32)).to("cuda")
+
+
+def fold_pages(xs, lengths: torch.Tensor, n_q: int, pos_div: int, gen) -> tuple:
+    """``(pools, table)``: each of ``xs`` (``[B, H_kv, N, ...]``) laid into a
+    shuffled page pool (``to_pages``: page 0 NaN, the table's entries past
+    each slot's diagonal 0), with the longest slot's first page moved to the
+    pool's last page ``P - 1`` and its table entry set to ``P + 1``: past
+    the pool, so clamped back to ``P - 1`` (paged.py:64-65).  Each pool is
+    a view of a buffer whose two pages after it hold NaN, so a kernel that
+    reads the entry unclamped turns that slot's rows NaN."""
+    b, _, n_kv = xs[0].shape[:3]
+    perm, table, n_pages = paged_layout(b, n_kv, lengths, n_q, pos_div, gen)
+    last, slot = n_pages - 1, int(torch.argmax(lengths))
+    at = (perm == last).nonzero()[0]
+    perm[at[0], at[1]], perm[slot, 0] = perm[slot, 0].clone(), last
+    live = ((n_q - 1) // pos_div + lengths.long()) // PAGE + 1
+    table = torch.where(torch.arange(perm.shape[1], device="cuda")[None, :] < live[:, None],
+                        perm, 0).to(torch.int32)
+    table[slot, 0] = n_pages + 1
+    pools = []
+    for x in xs:
+        pool = to_pages(x, perm, n_pages)
+        buf = torch.empty((n_pages + 2, *pool.shape[1:]), dtype=pool.dtype, device="cuda")
+        if x.element_size() == 1:
+            buf.view(torch.uint8)[n_pages:] = 0x7F
+        else:
+            buf[n_pages:] = float("nan")
+        buf[:n_pages] = pool
+        pools.append(buf[:n_pages])
+    return pools, table
+
+
+def fold_case(gen, n_q: int, pos_div: int, head_dim: int, fmt: str, fixture: str = "",
+              batch: int = FOLD_BATCH) -> Tuple[str, tuple]:
+    """``(kernel, args)`` of one folded call: bf16 q ``[batch, 4, n_q, D]``
+    on ``fixture`` ("" the ladder, "peaked", "spike" or "negative") over a
+    2048-slot cache of ``fmt`` at ``fold_lengths``, a paged format through
+    ``fold_pages``."""
+    shape_q = (batch, FOLD_KV_HEADS, n_q, head_dim)
+    shape_kv = (batch, FOLD_KV_HEADS, FOLD_N_KV, head_dim)
+    q, k, v = _fixture(shape_q, shape_kv, torch.bfloat16, gen, fixture or "ladder")
+    lengths = fold_lengths(n_q, pos_div, batch)
+    if fmt == "bf16":
+        return "flash_fwd", (q, k, v, lengths)
+    if fmt == "paged":
+        pools, table = fold_pages((k, v), lengths, n_q, pos_div, gen)
+        return "flash_paged", (q, *pools, table, lengths)
+    qkv = quantize_kv(k, v, _FOLD_QDT[fmt])
+    if fmt == "paged_int8":
+        pools, table = fold_pages((qkv.k_q, qkv.v_q, qkv.k_scale, qkv.v_scale), lengths, n_q,
+                                  pos_div, gen)
+        return "flash_paged_quant", (q, *pools, table, lengths)
+    return "flash_quant", (q, qkv, lengths)
+
+
+def fold_cases(gen, shapes=FOLD_SHAPES, head_dims=(64, 128), formats=FOLD_FORMATS,
+               fixtures=("",), features=("",),
+               batch: int = FOLD_BATCH) -> Dict[str, Tuple[str, tuple, int, dict]]:
+    """``{name: (kernel, args, pos_div, features)}`` over the product of
+    ``shapes`` (``(n_q, pos_div)``), head dims, fixtures, cache formats and
+    ``FOLD_FEATURES`` keys, each call's inputs drawn from ``gen``."""
+    cases = {}
+    for n_q, pos_div in shapes:
+        for d in head_dims:
+            for fix in fixtures:
+                for fmt in formats:
+                    kernel, args = fold_case(gen, n_q, pos_div, d, fmt, fix, batch)
+                    for feat in features:
+                        name = f"fold_{fmt}_{n_q}x{pos_div}_d{d}{'_' + fix if fix else ''}{feat}"
+                        cases[name] = (kernel, args, pos_div, FOLD_FEATURES[feat])
+    return cases
+
+
+def fold_call(kernel: str, args: tuple, pos_div: int, plain: bool = False, **feats):
+    """One folded call of ``kernel`` (its wrapper, or its plain version in
+    fp32): ``o``, or the quant and dense kernels' ``(o, lse)``."""
+    if kernel != "flash_fwd":
+        return KV_KERNELS[kernel][plain](*args, pos_div, **feats)
+    q, k, v, off = args
+    if plain:
+        return flash_attention_fwd_plain(q.float(), k.float(), v.float(), off, sm_scale=_scale(q),
+                                         causal=True, pos_div=pos_div, save_lse=True, **feats)
+    return flash_attention_fwd(q, k, v, off, causal=True, pos_div=pos_div, save_lse=True,
+                               **feats)
+
+
+def fold_error(case: tuple) -> Tuple[float, float]:
+    """Errors of one ``fold_cases`` entry against its plain version, in fp32
+    (``_fwd_errors``)."""
+    kernel, args, pos_div, feats = case
+    return _fwd_errors(fold_call(kernel, args, pos_div, **feats),
+                       fold_call(kernel, args, pos_div, plain=True, **feats))
+
+
+# Each folded kernel's wrapper (its launches and its last grid).
+FOLD_WRAPPERS = {"flash_fwd": flash_fwd_general, "flash_quant": flash_attention_quant,
+                 "flash_paged": flash_attention_paged,
+                 "flash_paged_quant": flash_attention_paged_quant}
+
+
+def fold_work(case: tuple) -> Tuple[float, float]:
+    """``(flops, bytes)`` one ``fold_cases`` call must do (``kv_work``, and
+    ``fwd_work`` with its lse for the dense kernel)."""
+    kernel, args, pos_div, feats = case
+    win = dict(window=feats.get("window"), sinks=feats.get("sinks", 0))
+    if kernel == "flash_fwd":
+        return fwd_work(args[0], args[1], args[3].tolist(), pos_div, save_lse=True, **win)
+    return kv_work(kernel, args, pos_div, **win)
+
+
+def fold_sdpa_ms(case: tuple) -> Tuple[float, str]:
+    """The library yardstick of a ``fold_cases`` call: SDPA over a dense
+    bf16 cache of its shape, unfolded (q ``[B, H_kv * pos_div, n_q /
+    pos_div, D]``), under the boolean mask of each slot's causal offset
+    (another function for the 8-bit and paged caches).  Every backend is
+    tried, with ``enable_gqa`` and on K/V repeated to q's heads before the
+    timed call; those that refuse the call are passed over.  Returns the
+    fastest one's device ms and its backend.  The port never calls it."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    kernel, args, pos_div, _ = case
+    q, lengths = args[0], args[-1]
+    b, h_kv, n_q, d = q.shape
+    t = -(-n_q // pos_div)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    qu, k, v = ladder_inputs((b, h_kv * pos_div, t, d), (b, h_kv, FOLD_N_KV, d), torch.bfloat16,
+                             gen)
+    kr, vr = (x.repeat_interleave(pos_div, dim=1) for x in (k, v))
+    cols = torch.arange(FOLD_N_KV, device="cuda")
+    rows = torch.arange(t, device="cuda")
+    mask = (cols[None, None, :] <= (lengths[:, None, None] + rows[None, :, None]))[:, None]
+    best = (float("inf"), "")
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        for how, kk, vv, gqa in (("enable_gqa", k, v, True), ("repeated K/V", kr, vr, False)):
+            def call(kk=kk, vv=vv, gqa=gqa):
+                return F.scaled_dot_product_attention(qu, kk, vv, attn_mask=mask, enable_gqa=gqa)
+            try:
+                with sdpa_kernel(backend), warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    ms = device_ms(call)
+            except RuntimeError:  # this backend does not take the call
+                continue
+            if ms < best[0]:
+                best = (ms, f"{backend.name} ({how}, boolean mask)")
+    if not best[1]:
+        raise RuntimeError("no SDPA backend takes the folded verify call")
+    return best
+
+
+# ---------------------------------------------------------------------------
 # A rolling cache's position map (kv_positions): rows 1 and 11 in position
 # space, the wgmma forward's position walk, the template's and the decode
 # grid's kPos instances, against their plain versions.
@@ -1519,10 +1707,12 @@ POS_SEG_IGNORED = (
 # The split-KV decode grid's units, which flash_fwd.cu calls.
 DECODE_UNITS = ("flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
                 "flash_decode_e5m2.cu")
-# The wgmma prefill of the 8-bit and paged caches, which flash_fwd.cu calls.
+# The wgmma prefill of the 8-bit and paged caches, and the folded grid of
+# every cache, which flash_fwd.cu calls.
 KV_SM90_UNIT = "flash_kv_sm90.cu"
+FOLD_UNIT = "flash_fold_sm90.cu"
 # Every unit flash_fwd.cu's entries call.
-FWD_UNITS = (*DECODE_UNITS, KV_SM90_UNIT)
+FWD_UNITS = (*DECODE_UNITS, KV_SM90_UNIT, FOLD_UNIT)
 # flash_fwd.cu with the route to flash_kv_sm90.cu turned off: the bf16
 # prefill of the 8-bit and paged caches on the 64-row template, the design
 # before it (a "fault" for build_planted, to time the two in one call).
@@ -1530,6 +1720,12 @@ KV_TEMPLATE_ROUTE = (
     ("flash_fwd.cu",
      "if (pos_div == 1 && n_q > kDecodeRows && f.q_seg == nullptr && !f.drop.on()) {",
      "if (false) {"),
+)
+# flash_fwd.cu with the route to flash_fold_sm90.cu turned off: the bf16
+# calls folded by GQA of more than 16 rows on the 64-row template, the
+# design before it (timed beside the folded grid in one call).
+KV_FOLD_TEMPLATE_ROUTE = (
+    ("flash_fwd.cu", "if (pos_div > 1 && n_q > kDecodeRows) {", "if (false) {"),
 )
 
 
@@ -1557,22 +1753,25 @@ def build_planted(work: str, faults, units=("flash_fwd.cu", *FWD_UNITS)) -> Path
     return _build.compile_library([src / u for u in units], Path(work) / "planted.so")
 
 
-def build_kv_sm90_planted(work: str, faults: Dict[str, list]) -> Dict[str, Path]:
+def build_kv_sm90_planted(work: str, faults: Dict[str, list],
+                          unit: str = KV_SM90_UNIT) -> Dict[str, Path]:
     """A library per entry of ``faults`` (name -> ``[(source, old, new),
     ...]``, each ``old`` occurring once), in ``work``: flash_fwd.cu and the
-    decode units compiled once from this package's csrc/, and each entry's
-    flash_kv_sm90.cu from a copy of csrc/ with its faults planted (in that
-    unit, or in code of a header that only its instances run: the raw ring
-    and the scales of flash_fwd_sm90.cuh), every compile started together;
-    then a link per entry.  A planted prefill costs one unit's compile."""
+    other units it calls compiled once from this package's csrc/, and each
+    entry's ``unit`` (flash_kv_sm90.cu, or flash_fold_sm90.cu) from a copy
+    of csrc/ with its faults planted (in that unit, or in a header it
+    includes: only its own instances take the planted code), every compile
+    started together; then a link per entry.  A planted unit costs one
+    unit's compile."""
     from ..kernels import _build
 
     work = Path(work)
     nvcc = _build._nvcc()
     flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
-    jobs = {u: _build.CSRC / u for u in ("flash_fwd.cu", *DECODE_UNITS)}
+    common_units = ("flash_fwd.cu", *(u for u in FWD_UNITS if u != unit))
+    jobs = {u: _build.CSRC / u for u in common_units}
     for name, planted in faults.items():
-        jobs[name] = planted_copy(work / name, planted) / KV_SM90_UNIT
+        jobs[name] = planted_copy(work / name, planted) / unit
     procs = []
     for key, path in jobs.items():
         obj = work / f"{key}.o"
@@ -1580,7 +1779,7 @@ def build_kv_sm90_planted(work: str, faults: Dict[str, list]) -> Dict[str, Path]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                             text=True)))
     _build._run(procs)
-    common = [str(work / f"{u}.o") for u in ("flash_fwd.cu", *DECODE_UNITS)]
+    common = [str(work / f"{u}.o") for u in common_units]
     out = {}
     for name in faults:
         out[name] = work / f"{name}.so"
@@ -1875,28 +2074,42 @@ def sweep(stamp: str, log=print) -> None:
         log(f"[sweep] prefill {PREFILL_Q} x kv {PREFILL_KV}, offset {off}: {ms:.4f} ms ({stamp})")
 
 
-def launched_kernels(fn: Callable[[], object]) -> List[str]:
+def launched_kernels(fn: Callable[[], object], tries: int = 4) -> List[str]:
     """The names of the device kernels one call of ``fn`` launches, in
-    launch order, from a ``torch.profiler`` trace.  ``fn`` runs twice, each
-    under a trace of its own, and the second is read: a process's first
-    trace can come back without device events (seen on the H100 host)."""
+    launch order, from a ``torch.profiler`` trace.  ``fn`` runs under a
+    trace of its own each time, and the first trace after the first that
+    holds device events is read (at most ``tries`` traces; none: ``[]``):
+    a process's first traces can come back without device events (seen on
+    the H100 hosts, once the first two)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    for attempt in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-    events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        events = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if attempt and events:
+            break
     return [ev.name for ev in sorted(events, key=lambda ev: ev.time_range.start)]
 
 
 def kv_routes_run(names: List[str]) -> List[str]:
     """The ``quant.kv_route`` routes whose device kernels ``names`` holds
-    (each once, in ``KV_ROUTE_KERNELS`` order)."""
+    (each once, in ``KV_ROUTE_KERNELS`` order): a route with a walk of its
+    own (``KV_ROUTE_WALKS``) by its stem and its walk, another by its stem
+    and none of those walks."""
+    walks = set(KV_ROUTE_WALKS.values())
+
+    def runs(route: str, stem: str, name: str) -> bool:
+        if not re.search(rf"\b{stem}<", name):
+            return False
+        walk = KV_ROUTE_WALKS.get(route)
+        return walk in name if walk else not any(w in name for w in walks)
+
     return [route for route, stem in KV_ROUTE_KERNELS.items()
-            if any(re.search(rf"\b{stem}<", name) for name in names)]
+            if any(runs(route, stem, name) for name in names)]
 
 
 def _device_breakdown(fn: Callable[[], object], iters: int) -> Tuple[float, Dict[str, List[float]]]:
@@ -2323,6 +2536,44 @@ def decode_split_times(log=print) -> List[dict]:
     return out
 
 
+# The verify windows ``fold_split_times`` sweeps: TinyLlama-1.1B's gamma 4 at
+# group 8 (40 rows) at 1, 2, 8 and 32 slots, and group 2 at gamma 8.
+FOLD_SPLIT_RUNS = ((40, 8, 1), (40, 8, 2), (40, 8, 8), (40, 8, 32), (18, 2, 8))
+
+
+def fold_split_times(log=print) -> List[dict]:
+    """Device ms of the folded grid (``csrc/flash_fold_sm90.cu``) at every
+    chunk of ``SPLIT_CHUNKS`` (bf16 q, the ladder fixture, ``fold_lengths``)
+    on the dense bf16, int8 and paged int8 caches at ``FOLD_SPLIT_RUNS``, D
+    64 and 128, beside the chunk ``decode_kv_chunk`` picks.  A chunk is
+    forced by standing in for ``decode_kv_chunk``; each time's blocks are
+    the wrapper's ``.grid`` at its last launch."""
+    from unittest import mock
+
+    from ..kernels import flash_fwd as ff
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for n_q, pos_div, slots in FOLD_SPLIT_RUNS:
+        for d in (64, 128):
+            for fmt in ("bf16", "int8", "paged_int8"):
+                kernel, args = fold_case(gen, n_q, pos_div, d, fmt, batch=slots)
+                wrapper = FOLD_WRAPPERS[kernel]
+                rule = ff.decode_kv_chunk(slots, FOLD_KV_HEADS, n_q, FOLD_N_KV, sms, True)
+                rec = {"case": f"{kernel} {fmt} {n_q}x{pos_div} d{d}, {slots} slots",
+                       "rule": rule, "ms": {}, "blocks": {}}
+                for chunk in sorted(set(SPLIT_CHUNKS) | {rule}):
+                    with mock.patch.object(ff, "decode_kv_chunk", lambda *shape, c=chunk: c):
+                        rec["ms"][chunk] = device_ms(lambda: fold_call(kernel, args, pos_div))
+                    rec["blocks"][chunk] = wrapper.grid.blocks
+                out.append(rec)
+                log(json.dumps(rec))
+                del args
+    return out
+
+
 # Caps of the block-sparse dK/dV plan timed by ``sparse_splits``, in tile
 # pairs a block walks (64 and more: no tile of rung 11's mask at N = 2048 is
 # split at GQA 2).
@@ -2373,7 +2624,8 @@ def sparse_split_times(log=print) -> List[dict]:
 # its header, so each unit's instances are reported).
 PTXAS_UNITS = ("flash_fwd.cu", "flash_bwd.cu", "flash_mask.cu", "flash_tri.cu", "flash_lean.cu",
                "flash_decode.cu", "flash_decode_int8.cu", "flash_decode_e4m3.cu",
-               "flash_decode_e5m2.cu", "flash_kv_sm90.cu", "naive.cu", "flash_v1.cu")
+               "flash_decode_e5m2.cu", "flash_kv_sm90.cu", "flash_fold_sm90.cu", "naive.cu",
+               "flash_v1.cu")
 
 
 def _kernel_name(mangled: str) -> str:
@@ -2457,6 +2709,7 @@ def main(argv=None) -> int:
     if args.what == "decode_splits":
         print(f"[decode_splits] {stamp}")
         decode_split_times(log=lambda line: print(f"[decode_splits] {line}"))
+        fold_split_times(log=lambda line: print(f"[decode_splits] {line}"))
         return 0
     if args.what == "sparse_splits":
         print(f"[sparse_splits] {stamp}")

@@ -11,13 +11,25 @@ card set below its maximum power runs slower under load.
 ``teacher_forced_errors`` is the check that the served path is right: the
 logits of prefill and cached decode steps, through an engine of a given
 serving mode, against a plain fp32 forward over the same tokens.
+
+The JAX package's command line (on the card; there is no CPU fallback)::
+
+    python -m flash_attention_metal_tpu_torch.harness.serving [--max-batch 8]
+        [--requests 16] [--prompt-len 128] [--max-new 128] [--dense-only]
+        [--multi-step 1]
+
+runs ``serving_suite`` and writes ``serving_bench_torch.json`` (never the
+JAX package's ``serving_bench.json``).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import os
 import subprocess
+import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -74,7 +86,10 @@ DRAFT_D512 = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=4, d_ff=2048)
 #     dequantized weights (the same tree): the int8 rounding is in both,
 #     and what is left is the bf16 one.
 #   * speculative: the dense bound on the verify chunk's logits (gamma + 1
-#     rows a call at each slot's offset, the decode grid's multi-row tile).
+#     rows a call at each slot's offset, the decode grid's multi-row tile, or
+#     at a GQA group whose verify window folds to more than 16 rows, the
+#     folded grid); speculative_int8, _paged, _paged_int8: the same over the
+#     target's 8-bit and paged caches, at their caches' bounds.
 SERVING_MODES = {
     "dense": (dict(), LOGITS_REL_L2_TOL),
     "int8": (dict(kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
@@ -87,6 +102,10 @@ SERVING_MODES = {
     "multi_step_8": (dict(multi_step=8), LOGITS_REL_L2_TOL),
     "weight_int8": (dict(weight_quant=True), LOGITS_REL_L2_TOL),
     "speculative": (dict(draft=DRAFT_D512), LOGITS_REL_L2_TOL),
+    "speculative_int8": (dict(draft=DRAFT_D512, kv_quant="int8"), LOGITS_REL_L2_TOL_INT8),
+    "speculative_paged": (dict(draft=DRAFT_D512, paged=True), LOGITS_REL_L2_TOL),
+    "speculative_paged_int8": (dict(draft=DRAFT_D512, paged=True, kv_quant="int8"),
+                               LOGITS_REL_L2_TOL_INT8),
 }
 # The KV-cache modes: every model serves them (the rolling ones need a
 # sliding window).
@@ -351,3 +370,78 @@ def teacher_forced_errors(
         for i, got in enumerate(served[slot]):
             errors.append(_rel_l2(got, ref[len(prompt) - 1 + i]))
     return errors
+
+
+# The runs of ``serving_suite`` after the dense one, under the JAX CLI's
+# result keys: (key, SERVING_MODES name, multi_step override, shared prefix
+# as a fraction of the prompt).
+SUITE_RUNS = (("paged", "paged", None, 0.0),
+              ("paged_prefix_shared", "paged_prefix_shared", None, 0.5),
+              ("multi_step_8", "dense", 8, 0.0),
+              ("weight_int8", "weight_int8", None, 0.0))
+
+
+def serving_suite(*, max_batch: int = 8, n_requests: int = 16, prompt_len: int = 128,
+                  max_new: int = 128, dense_only: bool = False, multi_step: int = 1,
+                  max_len: int = 2048, device="cuda", log=print, **model) -> Dict[str, object]:
+    """The JAX serving CLI's runs (JAX ``harness/serving.py:180-222``) on
+    ``build_engine``'s FlashLM (``model``: its sizes): ``n_requests``
+    greedy requests of ``prompt_len`` tokens and ``max_new`` new ones at
+    ``multi_step``, served dense; then, unless ``dense_only``, paged, paged
+    with the first ``prompt_len // 2`` tokens shared (prefix sharing),
+    multi-step 8 and weight-only int8, each under its JAX key
+    (``SUITE_RUNS``) in the dense run's result."""
+    if prompt_len + max_new > max_len:
+        raise ValueError(f"prompt_len + max_new = {prompt_len + max_new} > max_len {max_len}")
+    runs = [("dense", "dense", None, 0.0)] + ([] if dense_only else list(SUITE_RUNS))
+    result: Dict[str, object] = {}
+    for key, mode, steps, shared in runs:
+        options = {**SERVING_MODES[mode][0], "multi_step": steps or multi_step}
+        eng, cfg = build_engine(max_batch=max_batch, max_len=max_len, device=device, **model,
+                                **options)
+        eng.submit(Request(uid=-1, prompt=list(range(1, min(prompt_len, 100) + 1)),
+                           max_new_tokens=4))
+        eng.run()
+        prefix = int(prompt_len * shared)
+        requests = make_requests(n_requests, cfg.vocab_size, (prompt_len, prompt_len), max_new,
+                                 seed=0, shared_prefix=prefix)
+        for req in requests:
+            req.temperature, req.top_k = 0.0, 0
+        run = run_serving_bench(eng, requests, mode=key, log=log)
+        run.update(shared_prefix=prefix, multi_step=options["multi_step"],
+                   prompt_len=prompt_len, max_new=max_new)
+        if key == "dense":
+            result.update(run)
+        else:
+            result[key] = run
+        del eng
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Serving benchmark of the PyTorch port (on the card)")
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=128)
+    ap.add_argument("--dense-only", action="store_true",
+                    help="skip the paged / prefix-shared / multi-step / int8-weight runs")
+    ap.add_argument("--multi-step", type=int, default=1)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    result = serving_suite(max_batch=args.max_batch, n_requests=args.requests,
+                           prompt_len=args.prompt_len, max_new=args.max_new,
+                           dense_only=args.dense_only, multi_step=args.multi_step)
+    result["card"] = nvidia_smi_line()
+    with open("serving_bench_torch.json", "w") as f:
+        json.dump(result, f, indent=2)
+    print("wrote serving_bench_torch.json")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

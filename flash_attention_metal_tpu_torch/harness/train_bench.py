@@ -195,6 +195,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sgd", action="store_true", help="time sgd_train_step, not Trainer.step")
     ap.add_argument("--attn-dropout", type=float, default=0.0,
                     help="attention dropout rate (GPT-2's attn_pdrop is 0.1)")
+    ap.add_argument("--softcap", type=float, default=None,
+                    help="tanh logit softcap (Gemma-2 style): the transformed kernels' training "
+                    "path, forward and backward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs a CUDA card: torch.cuda.is_available() is False", file=sys.stderr)
@@ -202,6 +205,7 @@ def main(argv=None) -> int:
     result = run_train_bench(
         n_layers=args.layers, d_model=args.d_model, batch=args.batch, seq=args.seq,
         optimizer="sgd" if args.sgd else "adamw", attn_dropout=args.attn_dropout,
+        softcap=args.softcap,
     )
     print(json.dumps(result))
     return 0

@@ -297,26 +297,44 @@ KV_TILE = 64
 # longer chunk is as fast.
 SPLIT_BLOCKS_PER_SM = 16
 MIN_CHUNK_TILES = 4
+# The folded grid's split rule (csrc/flash_fold_sm90.cu: bf16 GQA-folded
+# calls of more than DECODE_ROWS rows, a speculative verify window), measured
+# by ``onchip decode_splits`` on an H100 (TinyLlama-1.1B's verify, 40 rows
+# over 4 KV heads, at 1 to 32 slots, D 64 and 128): the decode grid's rule
+# with FOLD_BLOCKS_PER_SM blocks per SM, each block a 64-row q tile.  Each
+# split adds a partial to merge, so the card fills at fewer blocks an SM
+# than the decode grid's (its blocks also walk 40 rows, not 2-16); the
+# chunk that rule picks read within 5% of the sweep's best across the
+# runs (geomean; 1.2x at worst, 32 slots at D 64).
+FOLD_BLOCKS_PER_SM = 2
 
 
-def decode_kv_chunk(batch: int, heads: int, n_q: int, n_kv: int, sm_count: int) -> int:
+def decode_kv_chunk(batch: int, heads: int, n_q: int, n_kv: int, sm_count: int,
+                    folded: bool = False) -> int:
     """KV columns per split of a call: a multiple of ``KV_TILE``, from static
     shapes alone (never from the slots' lengths, which live on the device).
 
-    A call of more than ``DECODE_ROWS`` query rows keeps one block per
-    64-row q tile and is not split (one chunk over the row).  A decode call
-    has one block per (q-head, batch); its row is cut into chunks of at
-    least ``MIN_CHUNK_TILES`` tiles, and into as many more as it takes to
-    give the grid ``SPLIT_BLOCKS_PER_SM`` blocks per SM.  The head dim does
-    not enter the rule: the bytes of a tile scale with it on both sides of
+    A call of more than ``DECODE_ROWS`` query rows has one block per 64-row
+    q tile; unless ``folded`` (a bf16 call folded by GQA, ``pos_div > 1``:
+    the folded grid) it is not split (one chunk over the row).  A decode
+    call has one block per (q-head, batch).  Either split grid cuts the row
+    into chunks of at least ``MIN_CHUNK_TILES`` tiles, and into as many
+    more as it takes to give the grid ``SPLIT_BLOCKS_PER_SM`` (decode) or
+    ``FOLD_BLOCKS_PER_SM`` (folded) blocks per SM; a folded grid that
+    already has them takes one chunk.  The head dim does not enter either
+    rule: the bytes of a tile scale with it on both sides of
     the trade (the same chunk measured fastest at 64 and 128).  At the
     serving shape (64 units over 2048 columns) the tile floor alone sets
     the chunk; the blocks-per-SM term lengthens it from 64 slots up.
     """
     tiles = -(-n_kv // KV_TILE)
-    if n_q > DECODE_ROWS:
+    if n_q > DECODE_ROWS and not folded:
         return tiles * KV_TILE
-    splits = -(-SPLIT_BLOCKS_PER_SM * sm_count // (batch * heads))
+    if n_q > DECODE_ROWS:
+        per_sm, units = FOLD_BLOCKS_PER_SM, -(-n_q // KV_TILE) * heads * batch
+    else:
+        per_sm, units = SPLIT_BLOCKS_PER_SM, heads * batch
+    splits = -(-per_sm * sm_count // units)
     return min(tiles, max(MIN_CHUNK_TILES, -(-tiles // splits))) * KV_TILE
 
 
@@ -328,7 +346,8 @@ def kv_splits(n_kv: int, kv_chunk: int) -> int:
 class SplitGrid(NamedTuple):
     """The grid of one launch of a ``csrc/flash_fwd.cu`` entry: KV columns
     per split, splits per (q-head, batch), and blocks (split x q-head x
-    batch on the decode grid; 64-row q tile x q-head x batch above it)."""
+    batch on the decode grid; 64-row q tile x split x q-head x batch above
+    it, one split unless folded)."""
 
     kv_chunk: int
     kv_splits: int
@@ -354,6 +373,32 @@ def walk_tiles(p_lo: int, p_hi: int, n_kv: int, window: Optional[int] = None, si
     return list(range(n_sink)) + list(range(max(first, n_sink), end))
 
 
+def fold_walk(n_q: int, pos_div: int, q_offset: int, n_kv: int, kv_chunk: int,
+              window: Optional[int] = None, sinks: int = 0) -> Dict[Tuple[int, int], list]:
+    """The folded grid's plan (``csrc/flash_fwd_sm90.cuh``, ``FoldWalk``) for
+    one (q-head, batch) at ``q_offset``, in plain Python: ``{(q tile,
+    split): [(kv tile, full), ...]}``, the 64-column KV tiles each block
+    walks in order and whether it skips the element test.  A 64-row q tile
+    walks the tiles its rows' positions reach (``walk_tiles`` over its first
+    and last valid rows' positions, row ``r`` at ``r // pos_div +
+    q_offset``); split ``s`` keeps those in ``[s * kv_chunk, (s + 1) *
+    kv_chunk)``.  A tile is full when its last column is at most the first
+    row's position, it lies below ``n_kv`` and inside the last row's window
+    (or wholly among the sinks)."""
+    per = kv_chunk // KV_TILE
+    plan = {}
+    for tile in range(-(-n_q // KV_TILE)):
+        p_lo = tile * KV_TILE // pos_div + q_offset
+        p_hi = (min(n_q, (tile + 1) * KV_TILE) - 1) // pos_div + q_offset
+        walk = walk_tiles(p_lo, p_hi, n_kv, window, sinks)
+        for s in range(kv_splits(n_kv, kv_chunk)):
+            plan[tile, s] = [
+                (t, t * KV_TILE + KV_TILE - 1 <= p_lo and (t + 1) * KV_TILE <= n_kv and (
+                    window is None or t * KV_TILE > p_hi - window or (t + 1) * KV_TILE <= sinks))
+                for t in walk if s * per <= t < (s + 1) * per]
+    return plan
+
+
 def split_workspace_numel(batch: int, heads: int, n_q: int, head_dim: int, splits: int) -> int:
     """fp32 elements of the partials: o ``[B*H*splits*n_q, D]``, then m and l."""
     return batch * heads * splits * n_q * (head_dim + 2)
@@ -369,9 +414,11 @@ def _cuda_args(q: torch.Tensor) -> Tuple[int, int]:
     return torch.cuda.current_stream(q.device).cuda_stream, _sm_count(q.device.index)
 
 
-# One int32 ticket per (q-head, batch), all zero between calls (the merging
-# block resets its own), per (device, stream): calls on one stream run in
-# order, so they never share a ticket at once.
+# One int32 ticket per group of splits that merge together, (q-head, batch)
+# on the decode grid and (64-row q tile, q-head, batch) on the folded grid,
+# all zero between calls (the merging block resets its own), per (device,
+# stream): calls on one stream run in order, so they never share a ticket
+# at once.
 _TICKETS: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
@@ -383,28 +430,37 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     return held
 
 
-def split_args(q: torch.Tensor, n_kv: int, split: bool = True) -> tuple:
+def folds(dtype: torch.dtype, n_q: int, pos_div: int) -> bool:
+    """Whether a call runs the folded grid (``csrc/flash_fold_sm90.cu``): bf16
+    q folded by GQA (``pos_div > 1``) with more than ``DECODE_ROWS`` rows."""
+    return dtype == torch.bfloat16 and pos_div > 1 and n_q > DECODE_ROWS
+
+
+def split_args(q: torch.Tensor, n_kv: int, split: bool = True, pos_div: int = 1) -> tuple:
     """``(grid, part, tickets, stream)`` for a launch of a
-    ``csrc/flash_fwd.cu`` entry over q and a KV row of ``n_kv`` columns:
-    the ``SplitGrid`` of ``decode_kv_chunk``'s chunk, and for more than one
-    split the partials' workspace (torch's caching allocator: no
-    ``cudaMalloc`` per call) and the stream's tickets; else None for both.
+    ``csrc/flash_fwd.cu`` entry over q (``pos_div`` rows a position) and a
+    KV row of ``n_kv`` columns: the ``SplitGrid`` of ``decode_kv_chunk``'s
+    chunk, and for more than one split the partials' workspace (torch's
+    caching allocator: no ``cudaMalloc`` per call) and the stream's tickets
+    (one per group of splits that merge together); else None for both.
     Keep ``part`` alive until the launch has been issued.  The wrapper
     keeps ``grid`` as its ``.grid`` beside its ``.launches``.  ``split``
-    False (segment ids: no decode grid) keeps one chunk over the row."""
+    False (segment ids, dropout: no split grid) keeps one chunk over the
+    row."""
     batch, heads, n_q, head_dim = q.shape
     stream, sms = _cuda_args(q)
-    kv_chunk = decode_kv_chunk(batch, heads, n_q, n_kv, sms)
+    kv_chunk = decode_kv_chunk(batch, heads, n_q, n_kv, sms, folds(q.dtype, n_q, pos_div))
     if not split:
         kv_chunk = -(-n_kv // KV_TILE) * KV_TILE
     splits = kv_splits(n_kv, kv_chunk)
-    tiles = splits if n_q <= DECODE_ROWS and split else -(-n_q // KV_TILE)
-    grid = SplitGrid(kv_chunk, splits, tiles * heads * batch)
+    decode = n_q <= DECODE_ROWS and split
+    groups = 1 if decode else -(-n_q // KV_TILE)  # groups of splits a (q-head, batch)
+    grid = SplitGrid(kv_chunk, splits, (splits if decode else groups * splits) * heads * batch)
     if splits == 1:
         return grid, None, None, stream
     part = torch.empty(split_workspace_numel(batch, heads, n_q, head_dim, splits),
                        dtype=torch.float32, device=q.device)
-    return grid, part, _tickets(q.device, stream, batch * heads), stream
+    return grid, part, _tickets(q.device, stream, groups * batch * heads), stream
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -744,7 +800,7 @@ def flash_fwd_general(
     if pos is not None and pos.device != q.device:
         raise ValueError(f"kv_positions is on {pos.device}, q on {q.device}")
     o, lse = _new_outputs(q, save_lse)
-    grid, part, tickets, stream = split_args(q, n_kv, split=seg is None and drop is None)
+    grid, part, tickets, stream = split_args(q, n_kv, seg is None and drop is None, pos_div)
     err = _lib().fam_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
         batch, heads, k.shape[1], n_q, n_kv, head_dim, sm_scale, int(causal),
@@ -757,6 +813,7 @@ def flash_fwd_general(
         raise RuntimeError(f"flash_fwd kernel launch failed: cudaError_t {err}")
     flash_fwd_general.launches += 1
     flash_fwd_general.pos_launches += pos is not None
+    flash_fwd_general.fold_launches += folds(q.dtype, n_q, pos_div)
     flash_fwd_general.grid = grid
     return (o, lse) if save_lse else o
 
@@ -819,10 +876,11 @@ def flash_fwd_lean(
 
 # Launches of each CUDA kernel since import (the CPU route does not count),
 # those of the general entry with a position map among them (its kPos
-# instances), and the general entry's grid at its last launch (None before
-# one).
+# instances) and those on the folded grid (``folds``), and the general
+# entry's grid at its last launch (None before one).
 flash_fwd_general.launches = 0
 flash_fwd_general.pos_launches = 0
+flash_fwd_general.fold_launches = 0
 flash_fwd_general.grid = None
 flash_fwd_lean.launches = 0
 

@@ -31,6 +31,7 @@ from .flash_fwd import (
     _ptr,
     check_xf,
     flash_attention_fwd_plain,
+    folds,
     split_args,
     window_args,
 )
@@ -166,7 +167,8 @@ def _launch_paged(q, pool_k, pool_v, page_table, lengths, *, sm_scale, pos_div, 
     batch, heads, n_q, head_dim = q.shape
     n_pages, kv_heads, page_size, _ = pool_k.shape
     o = torch.empty_like(q)
-    grid, part, tickets, stream = split_args(q, page_table.shape[1] * page_size)
+    grid, part, tickets, stream = split_args(q, page_table.shape[1] * page_size,
+                                             pos_div=pos_div)
     err = _lib().fam_flash_paged(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), page_table.data_ptr(),
         lengths.data_ptr(), o.data_ptr(), batch, heads, kv_heads, n_q, n_pages, page_size,
@@ -176,6 +178,7 @@ def _launch_paged(q, pool_k, pool_v, page_table, lengths, *, sm_scale, pos_div, 
     if err:
         raise RuntimeError(f"flash_paged kernel launch failed: cudaError_t {err}")
     flash_attention_paged.launches += 1
+    flash_attention_paged.fold_launches += folds(q.dtype, n_q, pos_div)
     flash_attention_paged.grid = grid
     return o
 
@@ -235,7 +238,8 @@ def _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_
     batch, heads, n_q, head_dim = q.shape
     n_pages, kv_heads, page_size, _ = pool_k_q.shape
     o = torch.empty_like(q)
-    grid, part, tickets, stream = split_args(q, page_table.shape[1] * page_size)
+    grid, part, tickets, stream = split_args(q, page_table.shape[1] * page_size,
+                                             pos_div=pos_div)
     err = _lib().fam_flash_paged_quant(
         q.data_ptr(), pool_k_q.data_ptr(), pool_v_q.data_ptr(), pool_k_scale.data_ptr(),
         pool_v_scale.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(),
@@ -246,13 +250,17 @@ def _launch_paged_quant(q, pool_k_q, pool_v_q, pool_k_scale, pool_v_scale, page_
     if err:
         raise RuntimeError(f"flash_paged_quant kernel launch failed: cudaError_t {err}")
     flash_attention_paged_quant.launches += 1
+    flash_attention_paged_quant.fold_launches += folds(q.dtype, n_q, pos_div)
     flash_attention_paged_quant.grid = grid
     return o
 
 
 # Launches of each CUDA kernel since import (the CPU route does not count),
-# and each one's grid at its last launch (flash_fwd.SplitGrid; None before one).
+# those on the folded grid among them (flash_fwd.folds), and each one's grid
+# at its last launch (flash_fwd.SplitGrid; None before one).
 flash_attention_paged.launches = 0
+flash_attention_paged.fold_launches = 0
 flash_attention_paged.grid = None
 flash_attention_paged_quant.launches = 0
+flash_attention_paged_quant.fold_launches = 0
 flash_attention_paged_quant.grid = None

@@ -46,6 +46,7 @@ from .flash_fwd import (
     check_positions,
     check_xf,
     flash_attention_fwd_plain,
+    folds,
     split_args,
     walk_tiles,
     window_args,
@@ -61,26 +62,30 @@ _QMAX = {
 # The kernel's code for each 8-bit element type.
 KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 # The device kernel each route of kv_route launches (its name's stem, as a
-# profiler trace shows it).
+# profiler trace shows it); the folded route's instances are the wgmma
+# forward's on its folded walk (KV_ROUTE_WALKS: the walk in their names).
 KV_ROUTE_KERNELS = {"decode": "flash_decode_kernel", "wgmma": "flash_fwd_sm90_kernel",
-                    "template": "flash_fwd_kernel"}
+                    "fold": "flash_fwd_sm90_kernel", "template": "flash_fwd_kernel"}
+KV_ROUTE_WALKS = {"fold": "FoldWalk"}
 
 
 def kv_route(dtype: torch.dtype, n_q: int, pos_div: int = 1) -> str:
-    """The kernel a call of the 8-bit and paged entries (``fam_flash_quant``,
-    ``fam_flash_paged``, ``fam_flash_paged_quant``) runs on the card, as
-    ``csrc/flash_fwd.cu::launch`` routes it: ``"decode"``, the split-KV
-    grid (``csrc/flash_decode.cuh``), for at most ``DECODE_ROWS`` query
-    rows; ``"wgmma"``, the wgmma forward from the cache's KV source
+    """The kernel a call of the cache entries (``fam_flash_quant``,
+    ``fam_flash_paged``, ``fam_flash_paged_quant``, and for these calls the
+    dense ``fam_flash_fwd``) runs on the card, as ``csrc/flash_fwd.cu::
+    launch`` routes it: ``"decode"``, the split-KV grid
+    (``csrc/flash_decode.cuh``), for at most ``DECODE_ROWS`` query rows;
+    ``"wgmma"``, the wgmma forward from the cache's KV source
     (``csrc/flash_kv_sm90.cu`` on ``flash_fwd_sm90.cuh``), for bf16 q
-    without a row fold; else ``"template"``, the 64-row template of
-    ``flash_fwd.cu`` (fp32 q, and bf16 calls of more than ``DECODE_ROWS``
-    rows folded, ``pos_div > 1``).  Windows, sinks, the transforms and
-    position maps do not change the route."""
+    without a row fold; ``"fold"``, the wgmma forward's split-KV folded grid
+    (``csrc/flash_fold_sm90.cu``), for bf16 q folded by GQA (``pos_div >
+    1``: a speculative verify window); else ``"template"``, the 64-row
+    template of ``flash_fwd.cu`` (fp32 q).  Windows, sinks, the transforms
+    and position maps do not change the route."""
     if n_q <= DECODE_ROWS:
         return "decode"
-    if dtype == torch.bfloat16 and pos_div == 1:
-        return "wgmma"
+    if dtype == torch.bfloat16:
+        return "wgmma" if pos_div == 1 else "fold"
     return "template"
 
 
@@ -426,7 +431,7 @@ def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0,
     batch, heads, n_q, head_dim = q.shape
     n_kv = qkv.seq_len
     o, lse = _new_outputs(q, save_lse)
-    grid, part, tickets, stream = split_args(q, n_kv)
+    grid, part, tickets, stream = split_args(q, n_kv, pos_div=pos_div)
     err = _lib().fam_flash_quant(
         q.data_ptr(), qkv.k_q.data_ptr(), qkv.v_q.data_ptr(), qkv.k_scale.data_ptr(),
         qkv.v_scale.data_ptr(), off.data_ptr(), o.data_ptr(), _ptr(lse),
@@ -439,13 +444,16 @@ def _launch_quant(q, qkv, off, *, sm_scale, causal, pos_div, save_lse, window=0,
         raise RuntimeError(f"flash_quant kernel launch failed: cudaError_t {err}")
     flash_attention_quant.launches += 1
     flash_attention_quant.pos_launches += kv_positions is not None
+    flash_attention_quant.fold_launches += folds(q.dtype, n_q, pos_div)
     flash_attention_quant.grid = grid
     return (o, lse) if save_lse else o
 
 
 # Launches of the CUDA kernel since import (the CPU route does not count),
-# those with a position map among them (its kPos instances), and its grid
-# at the last launch (flash_fwd.SplitGrid; None before one).
+# those with a position map among them (its kPos instances) and those on
+# the folded grid (flash_fwd.folds), and its grid at the last launch
+# (flash_fwd.SplitGrid; None before one).
 flash_attention_quant.launches = 0
 flash_attention_quant.pos_launches = 0
+flash_attention_quant.fold_launches = 0
 flash_attention_quant.grid = None

@@ -4,6 +4,7 @@ from .attention import (
     flash_attention,
     fold_gqa_rows,
     gqa_decode_attention,
+    mha,
     unfold_gqa_rows,
 )
 
@@ -11,5 +12,6 @@ __all__ = [
     "flash_attention",
     "fold_gqa_rows",
     "gqa_decode_attention",
+    "mha",
     "unfold_gqa_rows",
 ]

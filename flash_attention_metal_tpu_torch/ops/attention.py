@@ -277,3 +277,20 @@ def gqa_decode_attention(
     if save_lse:
         return unfold_gqa_rows(out[0], hq, t), unfold_gqa_rows(out[1], hq, t)
     return unfold_gqa_rows(out, hq, t)
+
+
+def mha(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    **kwargs,
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """``flash_attention`` for ``[B, N, H, D]`` (sequence-major) layouts, as
+    JAX ``ops/attention.py:497-513``: the inputs are transposed to ``[B, H,
+    N, D]``, and ``o`` back (``lse`` stays ``[B, H, N]``).  ``kwargs``:
+    ``flash_attention``'s."""
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kwargs)
+    if isinstance(out, tuple):
+        o, lse = out
+        return o.transpose(1, 2), lse
+    return out.transpose(1, 2)

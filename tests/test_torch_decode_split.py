@@ -196,10 +196,11 @@ def test_chunk_is_whole_tiles_covering_the_row(batch, heads, n_q, n_kv, sms):
 
 
 def test_rule_reads_static_shapes_only():
-    """The rule's inputs are shapes and the SM count: the slots' lengths,
+    """The rule's inputs are shapes, the SM count and whether the call is
+    folded (a static property of its shape and type): the slots' lengths,
     a device tensor, never enter it (reading them would sync the host)."""
     assert list(inspect.signature(ff.decode_kv_chunk).parameters) == [
-        "batch", "heads", "n_q", "n_kv", "sm_count"]
+        "batch", "heads", "n_q", "n_kv", "sm_count", "folded"]
 
 
 def test_serving_decode_fills_the_card(monkeypatch):

@@ -961,15 +961,16 @@ PLANTED_KV_FAULTS = {
     # the merge stops a split short: it drops the last split, the last
     # non-empty one of every slot whose diagonal lies in it (slot 1 of
     # decode_lengths, the long slot of skewed_lengths)
-    "merge_drops_last_split": ("flash_decode.cuh",
+    "merge_drops_last_split": ("split_merge.cuh",
                                ("flash_quant", "flash_paged", "flash_paged_quant"),
                                "for (int s = 0; s < n_splits; ++s) {",
                                "for (int s = 0; s < n_splits - 1; ++s) {"),
     # the merge adds each split's o_s without its e^(m_s - M) rescale (the
     # peaked fixture's splits have far apart maxima)
-    "merge_no_rescale": ("flash_decode.cuh", ("flash_quant", "flash_paged", "flash_paged_quant"),
-                         "om += weight * __ldcg(part + p * D + d);",
-                         "om += __ldcg(part + p * D + d);"),
+    "merge_no_rescale": ("split_merge.cuh", ("flash_quant", "flash_paged", "flash_paged_quant"),
+                         "om.x += weight * x.x;\n      om.y += weight * x.y;\n"
+                         "      om.z += weight * x.z;\n      om.w += weight * x.w;",
+                         "om.x += x.x;\n      om.y += x.y;\n      om.z += x.z;\n      om.w += x.w;"),
     # a split whose chunk starts past the diagonal reads its chunk's first
     # tile: an unallocated table entry, so page 0 (NaN)
     "empty_split_reads_its_page": ("flash_decode.cuh", ("flash_paged", "flash_paged_quant"),
@@ -990,7 +991,7 @@ PLANTED_KV_FAULTS = {
 }
 # The kv_cases each source's code runs, by a part of the case's name: each
 # group must fail on its own.
-KV_FAULT_REACH = {"flash_decode.cuh": ("_decode_",),
+KV_FAULT_REACH = {"flash_decode.cuh": ("_decode_",), "split_merge.cuh": ("_decode_",),
                   "flash_fwd.cu": ("_prefill_fp32",),
                   "kv_tiles.cuh": ("_decode_", "_prefill_bf16", "_prefill_fp32")}
 
@@ -1117,7 +1118,7 @@ def test_kvsm90_instances_spill_nothing_and_the_dense_walks_keep_their_registers
     dense = {}
     for r in report:
         m = re.fullmatch(r"sm90::flash_fwd_sm90_kernel<(.*), sm90::DenseBf16 ?>", r["kernel"])
-        if m:
+        if m and r["unit"] != onchip.FOLD_UNIT:
             dense[f"{r['unit']}|{m.group(1)}"] = [r[f] for f in ("registers", "spill_stores",
                                                                  "spill_loads", "stack")]
     print("\n" + "; ".join(f"{k} {v}" for k, v in sorted(dense.items())))
@@ -1173,13 +1174,13 @@ PLANTED_KVSM90_FAULTS = {
         ("flash_quant", "flash_paged_quant"), None),
     # the page table ignored: logical page j read as physical page j
     "page_table_ignored": ([(
-        "flash_kv_sm90.cu",
+        "kv_sources_sm90.cuh",
         "  __device__ size_t row(size_t, int b, int h_kv, int n_kv_heads, int kv_start) const {\n"
         "    return tile_row0<true>(kv, b, h_kv, n_kv_heads, kv_start);",
         "  __device__ size_t row(size_t, int b, int h_kv, int n_kv_heads, int kv_start) const {\n"
         "    return ((size_t)min(kv_start / kv.page, kv.n_pages - 1) * n_kv_heads + h_kv) * "
         "kv.page + kv_start % kv.page;"), (
-        "flash_kv_sm90.cu",
+        "kv_sources_sm90.cuh",
         "    if constexpr (kPaged_) {\n"
         "      return tile_row0<true>(kv, b, h_kv, n_kv_heads, kv_start);",
         "    if constexpr (kPaged_) {\n"
@@ -1187,7 +1188,7 @@ PLANTED_KVSM90_FAULTS = {
         "kv.page + kv_start % kv.page;")], ("flash_paged", "flash_paged_quant"), None),
     # e5m2 bytes widened as e4m3
     "e5m2_widened_as_e4m3": ([(
-        "flash_kv_sm90.cu", "const bool e4m3 = fmt == 2;", "const bool e4m3 = fmt != 1;")],
+        "kv_sources_sm90.cuh", "const bool e4m3 = fmt == 2;", "const bool e4m3 = fmt != 1;")],
         ("flash_quant", "flash_paged_quant"), "e5m2"),
     # the widen pass reads the other raw K stage (the one being refilled)
     "widen_reads_the_other_raw_stage": ([(
@@ -1289,6 +1290,194 @@ def test_engine_modes_cuda_match_cpu(cuda, mode):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert a.generated == b.generated
         np.testing.assert_allclose(a.logprobs, b.logprobs, atol=atol, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# GQA-folded calls of more than 16 rows (a speculative verify window) of rows
+# 1 and 11-13 on the wgmma forward's split-KV folded grid
+# (csrc/flash_fold_sm90.cu, FoldWalk): one -k part, ``-k test_fold_``.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_fold_route_from_a_trace(cuda):
+    """From a torch.profiler trace of one call: every bf16 folded call of
+    more than 16 rows of the four entries (18/2, 21/3, 40/8, each cache
+    kind) runs a flash_fwd_sm90_kernel instance on FoldWalk and no
+    flash_fwd_kernel one; fp32 folded calls run the template; a folded
+    call of 16 rows the decode grid (quant.kv_route)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.fold_cases(gen, shapes=((18, 2), (21, 3), (40, 8)), head_dims=(64,))
+    cases.update(onchip.fold_cases(gen, shapes=((16, 8),), head_dims=(64,),
+                                   formats=("bf16", "int8")))
+    runs = {name: (lambda c=case: onchip.fold_call(*c[:3]),
+                   qt.kv_route(case[1][0].dtype, case[1][0].shape[2], case[2]))
+            for name, case in cases.items()}
+    kernel, args = onchip.fold_case(gen, 40, 8, 64, "int8")
+    q32 = args[0].float()
+    runs["fold_int8_40x8_fp32"] = (lambda: onchip.fold_call(kernel, (q32, *args[1:]), 8),
+                                   qt.kv_route(torch.float32, 40, 8))
+    wrong = {}
+    for name, (call, route) in runs.items():
+        call()  # the instance's first launch outside the trace (CUDA loads modules lazily)
+        names = onchip.launched_kernels(call)
+        got = onchip.kv_routes_run(names)
+        if got != [route]:
+            wrong[name] = (got, route, names)
+    print(f"\n{len(runs)} calls traced; wrong routes: {wrong}")
+    assert not wrong
+    assert sum(route == "fold" for _, route in runs.values()) == 18
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("shape", onchip.FOLD_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_fold_matches_plain_on_every_cache(cuda, shape, head_dim):
+    """Each folded call within 1e-2 of its plain version (o, and lse where
+    the entry returns one) on the dense bf16, int8, e4m3, e5m2, paged bf16
+    and paged int8 caches, at ragged lengths with 0 and full, alone, under
+    W 512 with 4 sinks and under the softcap 30; the pools' tables shuffled,
+    page 0 NaN, one entry past the pool (clamped)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.fold_cases(gen, shapes=(shape,), head_dims=(head_dim,),
+                              features=tuple(onchip.FOLD_FEATURES))
+    errors = {name: max(onchip.fold_error(case)) for name, case in cases.items()}
+    print("\n" + ", ".join(f"{n} {e:.2e}" for n, e in sorted(errors.items())))
+    assert len(errors) == 6 * 3
+    assert all(e <= TOL[torch.bfloat16] for e in errors.values()), errors
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fixture", ["peaked", "spike", "negative"])
+def test_fold_matches_plain_on_the_fixtures(cuda, fixture):
+    """The peaked (q x 8), spike (one column ~144 log2 units above the
+    rest: a max over part of a row overflows) and negative (every score far
+    below 0: an empty split merged as a zero score underflows every weight)
+    fixtures, 21/3 and 40/8, D 64 and 128, every cache, and at one slot
+    (8 splits of 256 columns)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    cases = onchip.fold_cases(gen, shapes=((21, 3), (40, 8)), fixtures=(fixture,))
+    cases.update({f"{n}_b1": c for n, c in onchip.fold_cases(
+        gen, shapes=((40, 8),), head_dims=(64,), fixtures=(fixture,), batch=1).items()})
+    errors = {name: max(onchip.fold_error(case)) for name, case in cases.items()}
+    print("\n" + ", ".join(f"{n} {e:.2e}" for n, e in sorted(errors.items())))
+    assert all(e <= TOL[torch.bfloat16] for e in errors.values()), errors
+
+
+@pytest.mark.gpu
+def test_fold_is_deterministic_and_splits_as_the_rule_says(cuda):
+    """The same bits on every run (the merge in split order), and the grid
+    the wrapper keeps is the rule's: at one slot 8 splits of 256 columns,
+    32 blocks; at 8 slots 8 of 256, 256 blocks (FOLD_BLOCKS_PER_SM 2 on
+    the card's 132 SMs)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(onchip.SEED)
+    for slots in (1, 8):
+        for fmt in ("bf16", "paged_int8"):
+            kernel, args = onchip.fold_case(gen, 40, 8, 64, fmt, batch=slots)
+            first = onchip.fold_call(kernel, args, 8)
+            first = first[0] if isinstance(first, tuple) else first
+            for _ in range(3):
+                again = onchip.fold_call(kernel, args, 8)
+                again = again[0] if isinstance(again, tuple) else again
+                assert torch.equal(first, again), (slots, fmt)
+            grid = onchip.FOLD_WRAPPERS[kernel].grid
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            chunk = ff.decode_kv_chunk(slots, 4, 40, onchip.FOLD_N_KV, sms, True)
+            assert grid == ff.SplitGrid(chunk, ff.kv_splits(onchip.FOLD_N_KV, chunk),
+                                        ff.kv_splits(onchip.FOLD_N_KV, chunk) * 4 * slots)
+            assert grid.kv_splits > 1
+
+
+@pytest.mark.gpu
+def test_fold_instances_spill_nothing(cuda):
+    """The 16 instances of flash_fold_sm90.cu (DenseBf16, PagedBf16,
+    Src8<false> and Src8<true> on FoldWalk<false> and <true>, D 64 and
+    128) spill nothing (their registers print with ``-s``)."""
+    report = [r for r in onchip.ptxas_report() if r["unit"] == onchip.FOLD_UNIT]
+    print("\n" + "; ".join(f"{r['kernel']} {r['registers']}" for r in report))
+    assert len(report) == 16
+    assert all("FoldWalk" in r["kernel"] for r in report)
+    assert all((r["spill_stores"], r["spill_loads"], r["stack"]) == (0, 0, 0) for r in report)
+
+
+# Faults planted in flash_fold_sm90.cu's instances (the unit, or a header
+# it includes: only its instances take the planted code): (source, old,
+# new, the fold_cases whose check must fail: a part of their names).
+PLANTED_FOLD_FAULTS = {
+    # each row compared with the tile's first row's position
+    "tile_position_for_the_row": (
+        "flash_fwd_sm90.cuh",
+        "for (int half = 0; half < 2; ++half) p[half] = (q_start + row + half * 8) / w.pos_div + off;",
+        "for (int half = 0; half < 2; ++half) p[half] = q_start / w.pos_div + off;",
+        ("fold_bf16_40x8", "fold_int8_21x3", "fold_paged_int8_40x8")),
+    # an empty split's partial written with m = 0, not -inf: merged as a
+    # zero score, its weight swamps splits whose scores are far below 0
+    "empty_split_merged_as_zero": (
+        "flash_fwd_sm90.cuh", "part_m[p] = m_i[half];",
+        "part_m[p] = m_i[half] == -INFINITY ? 0.0f : m_i[half];",
+        ("_negative",)),
+    # the merge stops a split short: it drops the last split, which holds
+    # the diagonal of the full-length slot (the peaked fixture's rows lean
+    # on few columns)
+    "merge_drops_last_split": (
+        "split_merge.cuh", "for (int s = 0; s < n_splits; ++s) {",
+        "for (int s = 0; s < n_splits - 1; ++s) {",
+        ("fold_bf16_40x8_d64_peaked", "fold_int8_40x8_d64_peaked")),
+    # a page table entry read as it is: the entry past the pool
+    # (onchip.fold_pages) reads the NaN pages after it
+    "table_entry_unclamped": (
+        "kv_tiles.cuh",
+        "const int phys = min(max(kv.table[(size_t)b * kv.max_pages + logical], 0), "
+        "kv.n_pages - 1);",
+        "const int phys = kv.table[(size_t)b * kv.max_pages + logical];",
+        ("fold_paged_40x8", "fold_paged_int8_21x3")),
+}
+
+
+@pytest.fixture(scope="module")
+def fold_planted(tmp_path_factory):
+    """One library per PLANTED_FOLD_FAULTS entry (its flash_fold_sm90.cu
+    built from a planted copy, the other units once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    work = tmp_path_factory.mktemp("fold")
+    return onchip.build_kv_sm90_planted(
+        str(work), {name: [f[:3]] for name, f in PLANTED_FOLD_FAULTS.items()},
+        unit=onchip.FOLD_UNIT)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault", sorted(PLANTED_FOLD_FAULTS))
+def test_fold_planted_fault_fails_the_check(cuda, fold_planted, monkeypatch, fault):
+    """The folded checks (40/8 and 21/3 at D 64 on the ladder, peaked and
+    negative fixtures) pass the kernels as built and fail each planted copy
+    on every case its fault reaches (errors printed with ``-s``; NaN counts
+    as a failure)."""
+    reach = PLANTED_FOLD_FAULTS[fault][3]
+    lib = ctypes.CDLL(str(fold_planted[fault]))
+    gen = torch.Generator(device="cuda")
+
+    def check():
+        gen.manual_seed(onchip.SEED)
+        cases = onchip.fold_cases(gen, shapes=((21, 3), (40, 8)), head_dims=(64,),
+                                  fixtures=("", "peaked", "negative"))
+        return {n: max(onchip.fold_error(c)) for n, c in cases.items()
+                if any(part in n for part in reach)}
+
+    clean = check()
+    monkeypatch.setattr(ff, "_lib", lambda: ff.bind(lib))
+    monkeypatch.setattr(qt, "_lib", lambda: qt.bind(lib))
+    monkeypatch.setattr(pg, "_lib", lambda: qt.bind(lib))
+    faulty = check()
+    print(f"\n{fault}: worst error built -> planted: " + ", ".join(
+        f"{n} {clean[n]:.3e} -> {faulty[n]:.3e}" for n in sorted(clean)))
+    assert clean
+    for n in clean:
+        assert clean[n] <= TOL[torch.bfloat16], n
+        assert not faulty[n] <= TOL[torch.bfloat16], n
 
 
 # ---------------------------------------------------------------------------

@@ -310,8 +310,8 @@ def test_walk_tiles_cover_every_visible_column(n_kv, p_lo, p_hi, window, sinks):
     (torch.bfloat16, 512, 1, "wgmma"), (torch.bfloat16, 128, 1, "wgmma"),
     (torch.bfloat16, 17, 1, "wgmma"), (torch.bfloat16, 16, 1, "decode"),
     (torch.bfloat16, 1, 1, "decode"), (torch.bfloat16, 2, 2, "decode"),
-    (torch.bfloat16, 16, 8, "decode"), (torch.bfloat16, 18, 2, "template"),
-    (torch.bfloat16, 256, 2, "template"), (torch.float32, 512, 1, "template"),
+    (torch.bfloat16, 16, 8, "decode"), (torch.bfloat16, 18, 2, "fold"),
+    (torch.bfloat16, 256, 2, "fold"), (torch.float32, 512, 1, "template"),
     (torch.float32, 17, 1, "template"), (torch.float32, 16, 1, "decode"),
 ])
 def test_route_rule(dtype, n_q, pos_div, route):
@@ -321,8 +321,10 @@ def test_route_rule(dtype, n_q, pos_div, route):
 def test_route_rule_is_the_c_launchers():
     """The rule's constants and condition are csrc/flash_fwd.cu::launch's:
     decode first (n_q <= kDecodeRows), then bf16 over an 8-bit or paged
-    cache with pos_div 1 to flash_kv_sm90.cu, before the template's
-    branches; and each route's kernel is a __global__ of its source."""
+    cache with pos_div 1 to flash_kv_sm90.cu, then bf16 folded (pos_div >
+    1) over every cache to flash_fold_sm90.cu, before the template's
+    branches; and each route's kernel is a __global__ of its source (the
+    folded route's on its own walk, a struct of that source)."""
     fwd = (_build.CSRC / "flash_fwd.cu").read_text()
     tiles = (_build.CSRC / "kv_tiles.cuh").read_text()
     assert f"constexpr int kDecodeRows = {ff.DECODE_ROWS};" in tiles
@@ -332,14 +334,20 @@ def test_route_rule_is_the_c_launchers():
     wgmma = body.index("if (pos_div == 1 && n_q > kDecodeRows && f.q_seg == nullptr && "
                        "!f.drop.on())")
     guard = body.index("std::is_same<T, bf16>::value && (kPaged || !std::is_same<KV, T>::value)")
+    fold_guard = body.index("if constexpr (std::is_same<T, bf16>::value) {")
+    fold = body.index("if (pos_div > 1 && n_q > kDecodeRows) {")
     template = body.index("if (f.kv_pos != nullptr)")
-    assert decode < guard < wgmma < template
+    assert decode < guard < wgmma < fold_guard < fold < template
     assert "fam::flash_kv_sm90(call, kv_code<KV>(), D, kPaged)" in body
+    assert "fam::flash_fold_sm90(call, kv_code<KV>(), D, kPaged)" in body
     for route, stem in quant.KV_ROUTE_KERNELS.items():
         source = {"decode": "flash_decode.cuh", "wgmma": "flash_fwd_sm90.cuh",
-                  "template": "flash_fwd.cu"}[route]
+                  "fold": "flash_fwd_sm90.cuh", "template": "flash_fwd.cu"}[route]
         text = (_build.CSRC / source).read_text()
         assert re.search(r"__global__ void __launch_bounds__\([^)]*\)\s+" + stem + r"\(", text)
+    for route, walk in quant.KV_ROUTE_WALKS.items():
+        assert f"struct {walk} {{" in (_build.CSRC / "flash_fwd_sm90.cuh").read_text()
+        assert f"{walk}<" in (_build.CSRC / "flash_fold_sm90.cu").read_text()
 
 
 def _recorder(monkeypatch, module, names):
